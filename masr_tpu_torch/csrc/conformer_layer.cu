@@ -16,6 +16,7 @@
 //                              32-key tiles, so any T runs in fixed smem
 //   4. conv_module_kernel      GLU -> depthwise conv over time -> LN -> SiLU
 //   5. cudaMemcpyAsync         x into the residual buffer
+// Kinds 1, 2 and 4 live in common.cuh, shared with chunk_layer.cu.
 //
 // What bounds it on the H100: at the flagship shapes (D=256, F=2048,
 // B*T' ~ 2.4k rows) about 90% of the operations are the eight products;
@@ -39,156 +40,9 @@
 // Plain C interface, loaded with ctypes. Every entry returns
 // cudaGetLastError() (or the first error of a launch), 0 on success.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-__device__ __forceinline__ float silu_f(float v) { return v * sigmoid_f(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// ------------------------------------------------------------------------
-// 1. LayerNorm over the last dim, one warp per row. With `lens` set, rows
-//    whose time index t = row % T is >= lens[row / T] are written as zeros.
-// ------------------------------------------------------------------------
-__global__ void layer_norm_kernel(const float* __restrict__ x,
-                                  float* __restrict__ y,
-                                  const float* __restrict__ gamma,
-                                  const float* __restrict__ beta, int M, int D,
-                                  float eps, const int* __restrict__ lens,
-                                  int T) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const float* xr = x + (size_t)row * D;
-  float* yr = y + (size_t)row * D;
-  if (lens != nullptr && (row % T) >= lens[row / T]) {
-    for (int c = lane; c < D; c += 32) yr[c] = 0.f;
-    return;
-  }
-  float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += xr[c];
-  const float mu = warp_sum(s) / D;
-  float s2 = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    const float d = xr[c] - mu;
-    s2 += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(s2) / D + eps);
-  for (int c = lane; c < D; c += 32)
-    yr[c] = (xr[c] - mu) * rstd * gamma[c] + beta[c];
-}
-
-// ------------------------------------------------------------------------
-// 2. C = epilogue(A (M,K) . W (K,N) + bias (N)), all row-major f32.
-//    BM x BN block tile, BK = 8 deep, each thread a TM x TN micro-tile whose
-//    rows/cols are strided by the thread grid (conflict-free smem reads,
-//    coalesced stores). Ragged edges are zero-filled on load, masked on
-//    store. C may alias R (in-place residual update): each element is read
-//    and written by the same thread.
-// ------------------------------------------------------------------------
-enum Epilogue { kBias = 0, kSilu = 1, kResidual = 2, kRowMaskResidual = 3 };
-
-template <int BM, int BN, int TM, int TN, int EPI>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, float* C, const float* R,
-                int M, int N, int K, float scale,
-                const int* __restrict__ lens, int T) {
-  constexpr int BK = 8;
-  constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int r = i / BK, c = i % BK, gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int r = i / BN, c = i % BN, gk = k0 + r, gn = n0 + c;
-      Ws[r][c] = (gk < K && gn < N) ? W[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], w[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = Ws[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * TY;
-    if (m >= M) continue;
-    bool row_ok = true;
-    if (EPI == kRowMaskResidual) row_ok = (m % T) < lens[m / T];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n >= N) continue;
-      const size_t o = (size_t)m * N + n;
-      const float v = acc[i][j] + bias[n];
-      if (EPI == kBias) C[o] = v;
-      if (EPI == kSilu) C[o] = silu_f(v);
-      if (EPI == kResidual) C[o] = R[o] + scale * v;
-      if (EPI == kRowMaskResidual) C[o] = R[o] + (row_ok ? v : 0.f);
-    }
-  }
-}
-
-template <int EPI>
-cudaError_t gemm(const float* A, const float* W, const float* bias, float* C,
-                 const float* R, int M, int N, int K, float scale,
-                 const int* lens, int T, cudaStream_t stream) {
-  // big tiles once they fill the 132 SMs, small ones otherwise
-  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big_tiles >= 132) {
-    dim3 grid((N + 127) / 128, (M + 127) / 128);
-    gemm_kernel<128, 128, 8, 8, EPI><<<grid, 256, 0, stream>>>(
-        A, W, bias, C, R, M, N, K, scale, lens, T);
-  } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64);
-    gemm_kernel<64, 64, 4, 4, EPI><<<grid, 256, 0, stream>>>(
-        A, W, bias, C, R, M, N, K, scale, lens, T);
-  }
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------------------
 // 3. Rel-pos attention (no rel_shift, as the reference):
@@ -304,82 +158,6 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   }
 }
 
-// ------------------------------------------------------------------------
-// 4. Conv module middle: g (B, T, 2D) = pw1 output ->
-//      u = GLU(g) -> depthwise conv over time (+ bias) -> LN -> SiLU -> y.
-//    One block per (16 output rows, utterance). The block stages the
-//    (16 + k - 1) rows of u it needs in smem; out-of-range rows are the
-//    conv padding: GLU(pw1 bias) on the causal left, zeros otherwise.
-// ------------------------------------------------------------------------
-constexpr int kConvRows = 16;
-constexpr int kConvThreads = 256;
-
-__global__ void __launch_bounds__(kConvThreads)
-    conv_module_kernel(const float* __restrict__ g,
-                       const float* __restrict__ dww,
-                       const float* __restrict__ dwb,
-                       const float* __restrict__ pw1b,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta, float* __restrict__ y,
-                       int T, int D, int ksize, int causal, float eps) {
-  extern __shared__ float smem[];
-  const int left = causal ? ksize - 1 : (ksize - 1) / 2;
-  const int W = kConvRows + ksize - 1;
-  float* us = smem;              // W x D
-  float* cs = us + W * D;        // kConvRows x D
-  const int b = blockIdx.y, t0 = blockIdx.x * kConvRows;
-
-  for (int i = threadIdx.x; i < W * D; i += blockDim.x) {
-    const int r = i / D, c = i % D, t = t0 - left + r;
-    float val = 0.f;
-    if (t >= 0 && t < T) {
-      const float* gr = g + ((size_t)b * T + t) * 2 * D;
-      val = gr[c] * sigmoid_f(gr[D + c]);
-    } else if (causal && t < 0) {
-      val = pw1b[c] * sigmoid_f(pw1b[D + c]);
-    }
-    us[i] = val;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kConvRows * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    float acc = 0.f;
-    for (int j = 0; j < ksize; ++j)
-      acc = fmaf(us[(r + j) * D + c], dww[j * D + c], acc);
-    cs[i] = acc + dwb[c];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kConvRows; r += blockDim.x / 32) {
-    const int t = t0 + r;
-    if (t >= T) continue;
-    const float* xr = cs + r * D;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += xr[c];
-    const float mu = warp_sum(s) / D;
-    float s2 = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = xr[c] - mu;
-      s2 += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(s2) / D + eps);
-    float* yr = y + ((size_t)b * T + t) * D;
-    for (int c = lane; c < D; c += 32)
-      yr[c] = silu_f((xr[c] - mu) * rstd * gamma[c] + beta[c]);
-  }
-}
-
-cudaError_t layer_norm(const float* x, float* y, const float* lnw, int idx,
-                       int M, int D, float eps, const int* lens, int T,
-                       cudaStream_t stream) {
-  const int rows_per_block = 8;
-  const float* gamma = lnw + (size_t)idx * 2 * D;
-  layer_norm_kernel<<<(M + rows_per_block - 1) / rows_per_block,
-                      rows_per_block * 32, 0, stream>>>(
-      x, y, gamma, gamma + D, M, D, eps, lens, T);
-  return cudaGetLastError();
-}
-
 template <int NDK>
 cudaError_t attention(const float* q, const float* k, const float* v,
                       const float* pos_p, const float* posb, const int* lens,
@@ -400,12 +178,6 @@ cudaError_t attention(const float* q, const float* k, const float* v,
 }
 
 }  // namespace
-
-#define MASR_CHECK(call)                  \
-  do {                                    \
-    cudaError_t e_ = (call);              \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
 
 // Packed weights as masr_tpu/ops/pallas/conformer_layer.py:250
 // pack_layer_params (all f32, row-major, contiguous):
@@ -435,11 +207,8 @@ extern "C" int masr_conformer_layer_forward(
   MASR_CHECK(cudaMemcpyAsync(xw, x, MD * sizeof(float),
                              cudaMemcpyDeviceToDevice, stream));
   // macaron FFN (x ff_scale)
-  MASR_CHECK(layer_norm(xw, xn, lnw, 0, M, D, eps, nullptr, T, stream));
-  MASR_CHECK(gemm<kSilu>(xn, ffw1, ffb1, h, nullptr, M, F, D, 1.f, nullptr,
-                         T, stream));
-  MASR_CHECK(gemm<kResidual>(h, ffw2, vecb, xw, xw, M, D, F, ff_scale,
-                             nullptr, T, stream));
+  MASR_CHECK(ffn_residual(xw, xn, h, lnw, 0, ffw1, ffb1, ffw2, vecb, M, D, F,
+                          ff_scale, eps, stream));
   // rel-pos MHSA
   MASR_CHECK(layer_norm(xw, xn, lnw, 1, M, D, eps, nullptr, T, stream));
   MASR_CHECK(gemm<kBias>(xn, attw, vecb + 2 * D, q, nullptr, M, D, D, 1.f,
@@ -471,27 +240,16 @@ extern "C" int masr_conformer_layer_forward(
   MASR_CHECK(layer_norm(xw, xn, lnw, 2, M, D, eps, lens, T, stream));
   MASR_CHECK(gemm<kBias>(xn, pw1w, pw1b, gx, nullptr, M, 2 * D, D, 1.f,
                          nullptr, T, stream));
-  {
-    const size_t smem =
-        sizeof(float) * (size_t)(2 * kConvRows + ksize - 1) * D;
-    MASR_CHECK(cudaFuncSetAttribute(conv_module_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem));
-    dim3 grid((T + kConvRows - 1) / kConvRows, B);
-    const float* ln3 = lnw + 3 * 2 * (size_t)D;
-    conv_module_kernel<<<grid, kConvThreads, smem, stream>>>(
-        gx, dww, vecb + 6 * D, pw1b, ln3, ln3 + D, y, T, D, ksize, causal,
-        eps);
-    MASR_CHECK(cudaGetLastError());
-  }
+  MASR_CHECK(conv_module(gx, dww, vecb + 6 * D, pw1b, lnw + 3 * 2 * (size_t)D,
+                         y, B, T, T, D, ksize,
+                         causal ? ksize - 1 : (ksize - 1) / 2, causal, eps,
+                         stream));
   MASR_CHECK(gemm<kRowMaskResidual>(y, pw2w, vecb + 7 * D, xw, xw, M, D, D,
                                     1.f, lens, T, stream));
   // final FFN (x ff_scale) + final LN
-  MASR_CHECK(layer_norm(xw, xn, lnw, 4, M, D, eps, nullptr, T, stream));
-  MASR_CHECK(gemm<kSilu>(xn, ffw1 + (size_t)D * F, ffb1 + F, h, nullptr, M, F,
-                         D, 1.f, nullptr, T, stream));
-  MASR_CHECK(gemm<kResidual>(h, ffw2 + (size_t)F * D, vecb + D, xw, xw, M, D,
-                             F, ff_scale, nullptr, T, stream));
+  MASR_CHECK(ffn_residual(xw, xn, h, lnw, 4, ffw1 + (size_t)D * F, ffb1 + F,
+                          ffw2 + (size_t)F * D, vecb + D, M, D, F, ff_scale,
+                          eps, stream));
   MASR_CHECK(layer_norm(xw, out, lnw, 5, M, D, eps, nullptr, T, stream));
   return (int)cudaGetLastError();
 }

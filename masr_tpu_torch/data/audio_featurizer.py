@@ -1,5 +1,5 @@
 """Audio feature orchestration (port of masr_tpu/data/audio_featurizer.py:
-13-44, the host path).
+13-49 and :65-77, the host path).
 
 Per utterance: resample to the target rate → dB-normalize to target_dB →
 fbank/mfcc at int16 scale | linear at float scale.
@@ -41,3 +41,22 @@ class AudioFeaturizer(object):
             return F.fbank_numpy(samples, num_mel_bins=self._n_mels,
                                  sample_rate=sr, dither=dither)
         raise ValueError(f"unknown feature_method: {self._feature_method}")
+
+    def featurize_waveform(self, samples: np.ndarray, sample_rate: int):
+        """Featurize a raw float waveform without an AudioSegment."""
+        from masr_tpu_torch.audio import AudioSegment
+        return self.featurize(AudioSegment(samples, sample_rate))
+
+    @property
+    def feature_dim(self):
+        if self._feature_method == "linear":
+            return 161
+        if self._feature_method == "mfcc":
+            return self._n_mfcc
+        if self._feature_method == "fbank":
+            return self._n_mels
+        raise ValueError(f"unknown feature_method: {self._feature_method}")
+
+    @property
+    def sample_rate(self):
+        return self._target_sample_rate

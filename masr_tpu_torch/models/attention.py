@@ -1,5 +1,12 @@
-"""Rel-pos multi-head self-attention, full context and cache-free
-(port of masr_tpu/models/attention.py:21-28 and :91-151)."""
+"""Rel-pos multi-head self-attention, full context and with a streaming
+cache (port of masr_tpu/models/attention.py:21-28, :66-78, :91-151 and
+cache_key_mask :173-178).
+
+The streaming cache of this eager module is masr_tpu's: a right-aligned
+fixed (B, h, C, 2·d_k) array of [K ‖ V] rows, newest last, with a count of
+valid rows. It is the reference the chunk-layer kernel's ring layout is
+held against (models/weights.py converts between the two).
+"""
 import math
 
 import torch
@@ -14,6 +21,16 @@ def _mask_scores(scores, mask):
     m = mask[:, None, :, :]
     attn = torch.softmax(scores.masked_fill(~m, NEG_INF), dim=-1)
     return attn.masked_fill(~m, 0.0)
+
+
+def cache_key_mask(cache_size, chunk_len, valid_len, batch=1, device=None):
+    """(B, 1, C + chunk) bool: the last valid_len cache rows and the whole
+    chunk (right-aligned cache)."""
+    cache_ok = torch.arange(cache_size, device=device) >= \
+        cache_size - valid_len
+    m = torch.cat([cache_ok, torch.ones(chunk_len, dtype=torch.bool,
+                                        device=device)])
+    return m[None, None, :].expand(batch, 1, cache_size + chunk_len)
 
 
 class RelPositionMultiHeadedAttention(nn.Module):
@@ -36,17 +53,27 @@ class RelPositionMultiHeadedAttention(nn.Module):
         B, T, _ = x.shape
         return x.view(B, T, self.n_head, self.d_k).transpose(1, 2)
 
-    def forward(self, x, mask, pos_emb):
-        """x: (B, T, D); mask: (B, 1|T, T) bool; pos_emb: (1, T, D)."""
+    def forward(self, x, mask, pos_emb, cache=None):
+        """x: (B, T, D); mask: (B, 1|T, T2) bool; pos_emb: (1, T2, D) over
+        the key length T2 (T, or C + T with a cache); cache: None or the
+        right-aligned (B, h, C, 2·d_k) [K ‖ V] rows → (out (B, T, D),
+        new cache: the last C rows of [cache ‖ fresh], or None)."""
         B, T, _ = x.shape
         q = self._heads(self.linear_q(x))
         k = self._heads(self.linear_k(x))
         v = self._heads(self.linear_v(x))
-        p = self._heads(self.linear_pos(pos_emb))            # (1, h, T, d_k)
+        new_cache = None
+        if cache is not None:                     # _merge_cache
+            C = cache.shape[2]
+            k = torch.cat([cache[..., :self.d_k], k], dim=2)
+            v = torch.cat([cache[..., self.d_k:], v], dim=2)
+            new_cache = torch.cat([k, v], dim=-1)[:, :, k.shape[2] - C:]
+        p = self._heads(self.linear_pos(pos_emb))           # (1, h, T2, d_k)
         # AC + BD as one matmul: [q+bu ‖ q+bv] · [k ‖ p]^T
         q_cat = torch.cat([q + self.pos_bias_u[None, :, None, :],
                            q + self.pos_bias_v[None, :, None, :]], dim=-1)
         k_cat = torch.cat([k, p.expand_as(k)], dim=-1)
         scores = q_cat @ k_cat.transpose(-1, -2) / math.sqrt(self.d_k)
         out = _mask_scores(scores, mask) @ v
-        return self.linear_out(out.transpose(1, 2).reshape(B, T, -1))
+        return (self.linear_out(out.transpose(1, 2).reshape(B, T, -1)),
+                new_cache)

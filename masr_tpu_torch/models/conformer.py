@@ -1,24 +1,42 @@
-"""Conformer encoder and model, full-context inference
+"""Conformer encoder and model, full-context and streaming inference
 (port of masr_tpu/models/conformer.py: ConformerEncoderLayer.__call__
-:92-133, ConformerEncoder.__call__ :235-273, ConformerModel.get_encoder_out
-:738-749).
+:92-133, ConformerEncoder.__call__ :235-273, forward_chunk :353-395,
+forward_chunk_batched :417-561, pack_chunk_params :563-586, init_cache
+:588-621, ConformerModel.get_encoder_out :738-749, get_encoder_out_chunk
+:751-763, get_encoder_out_chunk_batched :789-836).
 
 Module names follow upstream MASR (`encoder.encoders.{i}.self_attn...`,
 `ctc.ctc_lo`), so `models/weights.py` maps flax bundles and upstream
-checkpoints onto them. The encoder runs every layer through the
-full-context layer kernel (ops/cuda/conformer_layer.py): the CUDA kernel
-for CUDA tensors, its plain twin for CPU tensors. The eager layer module
-below is the reference the tests hold that route against.
+checkpoints onto them. The encoder runs every layer through a layer
+kernel: the full-context one (ops/cuda/conformer_layer.py) offline, the
+chunk one (ops/cuda/chunk_layer.py) when streaming; the CUDA kernel for
+CUDA tensors, its plain twin for CPU tensors. The eager layer module below
+is the reference the tests hold both routes against.
+
+Streaming state (`ConformerEncoder.init_cache`) is a dict of device
+tensors that every chunk step updates IN PLACE, for the slots it advances:
+  att_cache (L, B, h, C, 2·d_k)  per-layer single-copy [K ‖ V] rings;
+                                 chronological row j of slot s at physical
+                                 row (wptr[s] + j) mod C
+  cnn_cache (L, B, k-1, D)       conv-module input rows before pointwise_conv1
+  offset, cache_len, wptr (B,)   int32: frames emitted, valid cache rows,
+                                 ring write pointer
+masr_tpu keeps the cache right-aligned (or, in its engine, as a mirrored
+TPU ring) and returns new arrays; models/weights.py converts both ways.
 """
 import torch
 from torch import nn
 
 from masr_tpu_torch.models.attention import RelPositionMultiHeadedAttention
 from masr_tpu_torch.models.convolution import ConvolutionModule
+from masr_tpu_torch.models.embedding import sinusoid_position_encoding
 from masr_tpu_torch.models.losses import CTCHead
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.models.subsampling import subsampling_class
 from masr_tpu_torch.ops.common import get_activation
+from masr_tpu_torch.ops.cuda.chunk_layer import (clamp_pos_starts,
+                                                 fused_chunk_layer,
+                                                 make_chunk_pos_table)
 from masr_tpu_torch.ops.cuda.conformer_layer import (fused_conformer_layer,
                                                      pack_layer_params)
 from masr_tpu_torch.ops.masks import make_pad_mask
@@ -69,10 +87,25 @@ class ConformerEncoderLayer(nn.Module):
         pos_emb: (1, T, D); mask_pad: (B, 1, T) bool."""
         x = x + self.ff_scale * self.feed_forward_macaron(
             self.norm_ff_macaron(x))
-        x = x + self.self_attn(self.norm_mha(x), mask, pos_emb)
-        x = x + self.conv_module(self.norm_conv(x), mask_pad)
+        x = x + self.self_attn(self.norm_mha(x), mask, pos_emb)[0]
+        x = x + self.conv_module(self.norm_conv(x), mask_pad)[0]
         x = x + self.ff_scale * self.feed_forward(self.norm_ff(x))
         return self.norm_final(x)
+
+    def forward_cached(self, x, mask, pos_emb, att_cache, cnn_cache):
+        """Eager reference of one streaming step with masr_tpu's caches.
+        x: (B, c, D); mask: (B, 1, C + c) bool (cache_key_mask); pos_emb:
+        (1, C + c, D); att_cache: right-aligned (B, h, C, 2·d_k); cnn_cache:
+        (B, k-1, D) → (x, new att cache, new cnn cache)."""
+        x = x + self.ff_scale * self.feed_forward_macaron(
+            self.norm_ff_macaron(x))
+        att, new_att = self.self_attn(self.norm_mha(x), mask, pos_emb,
+                                      att_cache)
+        x = x + att
+        conv, new_cnn = self.conv_module(self.norm_conv(x), None, cnn_cache)
+        x = x + conv
+        x = x + self.ff_scale * self.feed_forward(self.norm_ff(x))
+        return self.norm_final(x), new_att, new_cnn
 
     def packed_params(self):
         """The kernel's packed weights, repacked only when a parameter was
@@ -121,6 +154,10 @@ class ConformerEncoder(nn.Module):
                     f"{what}: the full-context layer kernel does not take "
                     "this layer shape")
         self.global_cmvn = cmvn
+        self.output_size = output_size
+        self.attention_heads = attention_heads
+        self.causal = causal
+        self.cnn_module_kernel = cnn_module_kernel
         self.embed = subsampling_class(input_layer)(input_size, output_size)
         self.encoders = nn.ModuleList(
             ConformerEncoderLayer(output_size, attention_heads, linear_units,
@@ -140,6 +177,107 @@ class ConformerEncoder(nn.Module):
         for layer in self.encoders:
             xs = layer.forward_full_context(xs, lens, pos_emb)
         return self.after_norm(xs), masks
+
+    def init_cache(self, batch=1, cache_size=256, device=None):
+        """Zeroed streaming state for `batch` slots with C = cache_size
+        cache rows per layer (the layout of the module docstring)."""
+        if not self.causal:
+            raise NotImplementedError(
+                "non-causal chunk stepping is not ported (the chunk-layer "
+                "kernel takes a causal conv module)")
+        if cache_size < 0:
+            raise ValueError(f"cache_size {cache_size}: the streaming "
+                             "caches have a fixed size >= 0")
+        L, d_k = len(self.encoders), self.output_size // self.attention_heads
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return {"att_cache": zeros(L, batch, self.attention_heads,
+                                   cache_size, 2 * d_k),
+                "cnn_cache": zeros(L, batch, self.cnn_module_kernel - 1,
+                                   self.output_size),
+                "offset": zeros(batch, dtype=torch.int32),
+                "cache_len": zeros(batch, dtype=torch.int32),
+                "wptr": zeros(batch, dtype=torch.int32)}
+
+    def pack_chunk_params(self, cache_size=None, pos_table_len=8192):
+        """Per layer: (kernel weights, position table or None). With
+        cache_size, each layer gets its make_chunk_pos_table rows, and the
+        chunk step reads every slot's position window from them in place
+        of a per-step sinusoid and linear_pos product. Computed once per
+        session."""
+        with torch.no_grad():
+            return [(layer.packed_params(),
+                     None if cache_size is None else make_chunk_pos_table(
+                         layer.self_attn.linear_pos.weight, cache_size,
+                         pos_table_len))
+                    for layer in self.encoders]
+
+    @torch.no_grad()
+    def forward_chunk_batched(self, xs, state, packed=None, active=None,
+                              exact_positions=False):
+        """One streaming step of every slot of `state` through the chunk
+        kernel, with per-slot offsets and cache validity.
+
+        xs: (N, T_in, F) one feature window per slot, T_in = (c-1)·4 + 7;
+        or (N, k, T_in, F), k windows per slot run as ONE multi-chunk step
+        (block-causal over the k sub-chunks, equal to k single steps).
+        packed: pack_chunk_params(); with position tables, slots read their
+        positions from the tables unless exact_positions. active: (N,) bool
+        or None (all); the caches and counters of inactive slots stay
+        untouched. → (N, c·k, D); the state advances in place."""
+        n_sub = 1
+        if xs.dim() == 4:
+            n_sub = xs.shape[1]
+            xs = xs.reshape((-1,) + tuple(xs.shape[2:]))
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        # each window subsamples on its own, as sequential steps feed them;
+        # the chunk's positions come from the offsets below
+        xs = self.embed(xs)[0]
+        if n_sub > 1:
+            xs = xs.reshape(xs.shape[0] // n_sub, -1, xs.shape[2])
+        N, chunk = xs.shape[0], xs.shape[1]
+        att, cnn = state["att_cache"], state["cnn_cache"]
+        C, L, dev = att.shape[3], att.shape[3] + xs.shape[1], xs.device
+        if packed is None:
+            packed = self.pack_chunk_params()
+        if active is None:
+            active = torch.ones(N, dtype=torch.bool, device=dev)
+        active = active.to(dev, torch.bool)
+        use_table = packed[0][1] is not None and not exact_positions
+        if use_table:
+            starts = clamp_pos_starts(state["offset"], packed[0][1].shape[0],
+                                      L)
+        else:
+            rows = torch.clamp(state["offset"][:, None].long() - C
+                               + torch.arange(L, device=dev), min=0)
+            pe = sinusoid_position_encoding(rows.reshape(-1),
+                                            self.output_size)
+            starts = torch.arange(N, dtype=torch.int32, device=dev) * L
+        act_i32 = active.to(torch.int32)
+        for i, layer in enumerate(self.encoders):
+            pos = packed[i][1] if use_table else \
+                layer.self_attn.linear_pos(pe)
+            xs = fused_chunk_layer(
+                xs, pos, starts, att[i], cnn[i], state["cache_len"],
+                state["wptr"], act_i32, packed[i][0],
+                n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
+                n_sub=n_sub, ff_scale=layer.ff_scale)
+        step = act_i32 * chunk
+        state["offset"].add_(step)
+        state["cache_len"].copy_(torch.clamp(state["cache_len"] + step,
+                                             max=C))
+        if C:
+            state["wptr"].copy_((state["wptr"] + step) % C)
+        return self.after_norm(xs)
+
+    def forward_chunk(self, xs, state):
+        """One streaming chunk of every slot (masr_tpu's forward_chunk):
+        exact positions from the offsets, all slots active. xs: (B, T_in,
+        F) → (B, c, D); the state advances in place."""
+        return self.forward_chunk_batched(xs, state, exact_positions=True)
 
 
 class ConformerModel(nn.Module):
@@ -162,4 +300,17 @@ class ConformerModel(nn.Module):
         encoder_out, mask = self.encoder(speech, speech_lengths)
         lens = mask[:, 0, :].sum(dim=1, dtype=torch.int32)
         return self.ctc.softmax(encoder_out), lens
+
+    def get_encoder_out_chunk(self, speech, state):
+        """Streaming chunk step → CTC probs (B, c, V); `state`
+        (encoder.init_cache) advances in place."""
+        return self.ctc.softmax(self.encoder.forward_chunk(speech, state))
+
+    def get_encoder_out_chunk_batched(self, speech, state, packed=None,
+                                      active=None, exact_positions=False):
+        """Batched streaming step over the slots of `state` with per-slot
+        offsets and validity (encoder.forward_chunk_batched) → CTC probs
+        (N, c·k, V); the active slots' state advances in place."""
+        return self.ctc.softmax(self.encoder.forward_chunk_batched(
+            speech, state, packed, active, exact_positions))
 

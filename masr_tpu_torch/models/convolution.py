@@ -1,9 +1,12 @@
-"""Conformer convolution module without a cache
-(port of masr_tpu/models/convolution.py:28-68).
+"""Conformer convolution module, full context and with the causal streaming
+cache (port of masr_tpu/models/convolution.py:28-68).
 
 pointwise(2C) + GLU → depthwise(k) → LayerNorm → activation → pointwise.
 Torch layout (B, C, T) inside, as upstream MASR, so its weights apply.
+The causal cache holds the last lorder = k-1 rows of the module's input
+(the LayerNorm output) BEFORE pointwise_conv1, as masr_tpu's does.
 """
+import torch
 from torch import nn
 import torch.nn.functional as F
 
@@ -26,14 +29,26 @@ class ConvolutionModule(nn.Module):
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
         self.activation = activation
 
-    def forward(self, x, mask_pad):
-        """x: (B, T, C); mask_pad: (B, 1, T) bool non-pad mask."""
-        x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0).transpose(1, 2)
+    def forward(self, x, mask_pad=None, cache=None):
+        """x: (B, T, C); mask_pad: (B, 1, T) bool non-pad mask or None;
+        cache: None (causal: zero left pad) or (B, lorder, C) rows of a
+        streaming cache → (out (B, T, C), new cache: the last lorder input
+        rows, or None when not causal)."""
+        if mask_pad is not None:
+            x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0)
+        new_cache = None
         if self.lorder:
-            # pad BEFORE pointwise_conv1: the pad rows carry GLU(bias)
-            x = F.pad(x, (self.lorder, 0))
-        x = F.glu(self.pointwise_conv1(x), dim=1)
+            # the pad / cache rows enter BEFORE pointwise_conv1, so zero
+            # rows carry GLU(bias)
+            if cache is None:
+                x = F.pad(x, (0, 0, self.lorder, 0))
+            else:
+                x = torch.cat([cache, x], dim=1)
+            new_cache = x[:, x.shape[1] - self.lorder:]
+        x = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
         x = self.depthwise_conv(x)
         x = self.activation(self.norm(x.transpose(1, 2))).transpose(1, 2)
         x = self.pointwise_conv2(x).transpose(1, 2)
-        return x.masked_fill(~mask_pad.transpose(1, 2), 0.0)
+        if mask_pad is not None:
+            x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0)
+        return x, new_cache

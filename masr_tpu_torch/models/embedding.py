@@ -27,14 +27,20 @@ def sinusoid_position_encoding(positions: torch.Tensor,
 
 
 class RelPositionalEncoding(nn.Module):
-    """x · √d, and the encoding of absolute positions 0..T-1 returned
-    separately as (1, T, d_model)."""
+    """x · √d, and the encoding of absolute positions offset..offset+T-1
+    returned separately as (1, T, d_model)."""
 
     def __init__(self, d_model: int):
         super().__init__()
         self.d_model = d_model
 
-    def forward(self, x):
-        positions = torch.arange(x.shape[1], device=x.device)
-        pos_emb = sinusoid_position_encoding(positions, self.d_model)[None]
+    def pos_emb(self, offset, size, device=None):
+        """(1, size, d_model): the sinusoid of max(offset + j, 0)
+        (masr_tpu/models/embedding.py:55-57)."""
+        positions = torch.clamp(offset + torch.arange(size, device=device),
+                                min=0)
+        return sinusoid_position_encoding(positions, self.d_model)[None]
+
+    def forward(self, x, offset=0):
+        pos_emb = self.pos_emb(offset, x.shape[1], x.device)
         return x * math.sqrt(self.d_model), pos_emb.to(x.dtype)

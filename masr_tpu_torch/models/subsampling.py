@@ -1,4 +1,5 @@
-"""Input subsampling (port of masr_tpu/models/subsampling.py:44-73).
+"""Input subsampling (port of masr_tpu/models/subsampling.py:44-73, with
+the mask-free streaming call).
 
 Only Conv2dSubsampling4 ("conv2d"), the flagship's, is ported. It computes
 in torch's NCHW with upstream MASR's channel-major flatten, so upstream
@@ -20,14 +21,17 @@ class Conv2dSubsampling4(nn.Module):
         self.out = nn.Sequential(nn.Linear(odim * freq, odim))
         self.pos_enc = RelPositionalEncoding(odim)
 
-    def forward(self, x, x_mask):
-        """x: (B, T, F); x_mask: (B, 1, T) → (B, T', odim), pos_emb
-        (1, T', odim), mask (B, 1, T')."""
+    def forward(self, x, x_mask=None, offset=0):
+        """x: (B, T, F); x_mask: (B, 1, T) or None (a streaming chunk) →
+        (B, T', odim), pos_emb (1, T', odim) of positions offset.., mask
+        (B, 1, T') or None."""
         x = self.conv(x[:, None])                       # (B, C, T', F')
         B, C, T, F = x.shape
         x = self.out(x.transpose(1, 2).reshape(B, T, C * F))
-        x, pos_emb = self.pos_enc(x)
-        return x, pos_emb, x_mask[:, :, :-2:2][:, :, :-2:2]
+        x, pos_emb = self.pos_enc(x, offset)
+        if x_mask is not None:
+            x_mask = x_mask[:, :, :-2:2][:, :, :-2:2]
+        return x, pos_emb, x_mask
 
 
 def subsampling_class(input_layer: str):

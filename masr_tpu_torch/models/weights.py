@@ -1,10 +1,18 @@
-"""Flax param trees ↔ the port's state_dict (upstream MASR names).
+"""Flax param trees ↔ the port's state_dict (upstream MASR names), and
+masr_tpu's streaming attention caches ↔ the port's ring layout.
 
-The exact inverse of masr_tpu/models/convert.py (`_t`, `_conv2d`,
-`_dw_conv1d`, `_pw_conv1d`, `_subsample_linear`, convert.py:27-51), so the
-port loads masr_tpu bundles directly, and an upstream MASR state_dict is
-already in the port's format. Attention-decoder weights pass through under
-their upstream names (`decoder.left_decoder...`).
+The weight map is the exact inverse of masr_tpu/models/convert.py (`_t`,
+`_conv2d`, `_dw_conv1d`, `_pw_conv1d`, `_subsample_linear`,
+convert.py:27-51), so the port loads masr_tpu bundles directly, and an
+upstream MASR state_dict is already in the port's format. Attention-decoder
+weights pass through under their upstream names (`decoder.left_decoder...`).
+
+Attention caches: masr_tpu keeps chronological row j (0 = oldest) of a
+slot at row j of a right-aligned (..., B, h, C, 2·d_k) array, or, in its
+batch engine, at row wptr + j of a mirrored (B, h, 2·C, >= 2·d_k) TPU ring
+per layer. The port keeps it at row (wptr + j) mod C of a single-copy
+(..., B, h, C, 2·d_k) ring (models/conformer.py). The cnn caches, offsets
+and cache lengths have the same layout in both packages.
 """
 import re
 
@@ -146,3 +154,50 @@ def seeded_state_dict(model, seed):
             w = 0.05 * rs.standard_normal(shape)
         state[name] = torch.from_numpy(w.astype(np.float32))
     return state
+
+
+def _ring_rows(C, wptr, sign):
+    """(B, C) source rows: ring row p ← right-aligned row (p - wptr) mod C
+    (sign -1), right-aligned row j ← ring row (wptr + j) mod C (sign 1)."""
+    wptr = torch.as_tensor(np.asarray(wptr), dtype=torch.long).reshape(-1, 1)
+    return (torch.arange(C)[None, :] + sign * wptr) % C
+
+
+def _gather_rows(att, rows):
+    att = torch.as_tensor(np.asarray(att, np.float32))
+    if att.shape[-2] == 0:
+        return att.clone()
+    idx = rows[:, None, :, None].expand(*att.shape[:-4], -1, att.shape[-3],
+                                        -1, att.shape[-1])
+    return att.gather(-2, idx)
+
+
+def ring_from_right_aligned(att, wptr):
+    """masr_tpu's right-aligned cache (..., B, h, C, E) → the port's ring
+    for per-slot write pointers wptr (B,). With wptr = 0 the two agree."""
+    return _gather_rows(att, _ring_rows(np.shape(att)[-2], wptr, -1))
+
+
+def right_aligned_from_ring(att, wptr):
+    """The port's ring (..., B, h, C, E) with write pointers wptr (B,) →
+    masr_tpu's right-aligned cache (the inverse of
+    ring_from_right_aligned)."""
+    return _gather_rows(att, _ring_rows(np.shape(att)[-2], wptr, 1))
+
+
+def ring_from_mirrored(rings, d_k):
+    """masr_tpu's mirrored engine rings, one (B, h, 2·C, rp) array per
+    layer, → the port's (L, B, h, C, 2·d_k) ring with the same write
+    pointers (rows [C, 2·C) duplicate rows [0, C); lanes past 2·d_k are
+    padding)."""
+    return torch.stack([
+        torch.from_numpy(np.array(r, np.float32))[
+            :, :, :np.shape(r)[2] // 2, :2 * d_k] for r in rings])
+
+
+def mirrored_from_ring(att, lanes):
+    """The port's (L, B, h, C, 2·d_k) ring → masr_tpu's mirrored rings, a
+    tuple of L (B, h, 2·C, lanes) float32 numpy arrays."""
+    att = np.asarray(torch.as_tensor(att).cpu(), np.float32)
+    pad = [(0, 0)] * 3 + [(0, lanes - att.shape[-1])]
+    return tuple(np.pad(np.concatenate([a, a], axis=2), pad) for a in att)

@@ -2,10 +2,12 @@
 
 Each `masr_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 (`sm_90a`) into `build/kernels/<name>-<hash>.so` at the repository root and
-loaded with ctypes. The hash covers the source and the flags, so an edited
-source never loads a stale library. Nothing here runs at import time.
+loaded with ctypes. The hash covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source never loads a stale
+library. Nothing here runs at import time.
 """
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -34,8 +36,11 @@ def _nvcc():
 
 def library_path(name):
     """→ path of the shared library for csrc/<name>.cu (built or not)."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

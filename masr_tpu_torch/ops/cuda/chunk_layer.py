@@ -1,0 +1,226 @@
+"""Streaming chunk step of a Conformer layer: the Hopper kernel and its plain
+twin.
+
+Port of masr_tpu/ops/pallas/chunk_layer.py (`fused_chunk_layer`,
+`make_chunk_pos_table`, `clamp_pos_starts`). The CUDA source is
+masr_tpu_torch/csrc/chunk_layer.cu; its header gives the state layout (a
+single-copy att-cache ring per layer with per-slot write pointers, in place
+of the TPU's mirrored ring and right-aligned rolled cache), what bounds the
+kernel on the H100 and what is left for later.
+
+`fused_chunk_layer` launches the kernel for CUDA tensors and takes the plain
+PyTorch version, `fused_chunk_layer_plain`, only for CPU tensors. Both
+update the att and cnn caches in place for active slots and leave inactive
+slots' caches untouched. It counts its kernel launches in
+`fused_chunk_layer.launches`, one per layer call. Operands are f32.
+"""
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+from masr_tpu_torch.ops.cuda.conformer_layer import MASK_VALUE, PACKED_KEYS
+
+
+def make_chunk_pos_table(wpos, cache_size, table_len=8192):
+    """Per-layer position table: row i = linear_pos(sinusoid(max(i - C,
+    0))), wpos the torch linear_pos weight (D, D). For a slot at offset o,
+    rows [o, o + C + c) are exactly the positions max(o - C + j, 0) that
+    the exact route computes, so the kernel reads one window per slot.
+    → (table_len, D) f32 on the device of wpos."""
+    positions = torch.clamp(
+        torch.arange(table_len, device=wpos.device) - cache_size, min=0)
+    return sinusoid_position_encoding(positions, wpos.shape[1]) @ wpos.t()
+
+
+def clamp_pos_starts(offsets, table_len, L):
+    """Per-slot start rows into a make_chunk_pos_table table: offsets past
+    table_len - L clamp (positions freeze there; the engine moves such
+    slots to exact positions before they get there). → (B,) int32."""
+    hi = table_len - L
+    if hi < 0:
+        raise ValueError(f"position table too short: table_len={table_len} "
+                         f"< window L={L} (C + c)")
+    return offsets.clamp(0, hi).to(torch.int32)
+
+
+def _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub):
+    B, c, D = x.shape
+    C = att_cache.shape[2]
+    if D % n_head or D // n_head > 128:
+        raise ValueError(f"d_model {D} with {n_head} heads: the kernel takes "
+                         "d_k = D / heads up to 128")
+    if tuple(att_cache.shape) != (B, n_head, C, 2 * (D // n_head)):
+        raise ValueError(f"att_cache: shape {tuple(att_cache.shape)}, "
+                         f"expected {(B, n_head, C, 2 * (D // n_head))}")
+    if ksize < 2 or tuple(cnn_cache.shape) != (B, ksize - 1, D):
+        raise ValueError(f"cnn_cache: shape {tuple(cnn_cache.shape)}, "
+                         f"expected {(B, ksize - 1, D)} (causal conv, k >= 2)")
+    if n_sub < 1 or c % n_sub or (n_sub > 1 and c > C):
+        raise ValueError(f"n_sub={n_sub} needs n_sub | c ({c}) and c <= C "
+                         f"({C})")
+    return B, c, D, C
+
+
+def fused_chunk_layer_plain(x, pos, pos_starts, att_cache, cnn_cache,
+                            cache_lens, wptrs, active, packed, *, n_head,
+                            ksize, n_sub=1, ff_scale=0.5, eps=1e-5):
+    """Plain PyTorch version of the kernel, same arguments.
+    x: (B, c, D) chunk after subsampling; pos: (rows, D) linear_pos(sinusoid)
+    rows, slot s reads rows pos_starts[s] + j for j < L = C + c;
+    att_cache: (B, h, C, 2·d_k) ring, chronological row j at physical row
+    (wptrs[s] + j) mod C, valid iff j >= C - cache_lens[s]; cnn_cache:
+    (B, k-1, D); active: (B,) bool or int; packed: pack_layer_params.
+    n_sub > 1: block-causal over n_sub sub-chunks (equal to n_sub
+    sequential steps). Updates the caches of active slots in place.
+    → (B, c, D)."""
+    B, c, D, C = _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub)
+    dev = x.device
+    d_k, L, sub_c = D // n_head, C + c, c // n_sub
+    lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
+
+    def layer_norm(v, i):
+        return F.layer_norm(v, (D,), lnw[i, 0], lnw[i, 1], eps)
+
+    def ffn(v, i):
+        h = F.silu(v @ packed["ffw1"][i] + packed["ffb1"][i])
+        return h @ packed["ffw2"][i] + vecb[i]
+
+    x = x + ff_scale * ffn(layer_norm(x, 0), 0)
+
+    # rel-pos MHSA over [cache ‖ chunk]: AC + BD as one 2·d_k contraction
+    xn = layer_norm(x, 1)
+    q, k, v = ((xn @ attw[i] + vecb[2 + i]).view(B, c, n_head, d_k)
+               .transpose(1, 2) for i in range(3))
+    wp = wptrs.to(dev, torch.long) % max(C, 1)
+    ring_rows = (wp[:, None] + torch.arange(C, device=dev)) % max(C, 1)
+    chron = att_cache.gather(2, ring_rows[:, None, :, None].expand(
+        B, n_head, C, 2 * d_k))
+    keys = torch.cat([chron[..., :d_k], k], dim=2)            # (B, h, L, dk)
+    vals = torch.cat([chron[..., d_k:], v], dim=2)
+    rows = pos_starts.to(dev, torch.long)[:, None] \
+        + torch.arange(L, device=dev)
+    p = pos[rows].view(B, L, n_head, d_k).transpose(1, 2)
+    bu = packed["posb"][0].view(n_head, 1, d_k)
+    bv = packed["posb"][1].view(n_head, 1, d_k)
+    s = (torch.cat([q + bu, q + bv], dim=-1)
+         @ torch.cat([keys, p], dim=-1).transpose(-1, -2)) / math.sqrt(d_k)
+    # cache key j valid iff j >= C - cache_len (and j >= i·sub_c for
+    # sub-chunk i); chunk keys of sub-chunks <= i
+    sub = torch.arange(c, device=dev) // sub_c                      # (c,)
+    col = torch.arange(L, device=dev)
+    clen = cache_lens.to(dev, torch.long).clamp(0, C)
+    cache_ok = ((col < C)[None, None, :]
+                & (col[None, None, :] >= (C - clen)[:, None, None])
+                & (col[None, :] >= sub[:, None] * sub_c)[None])
+    chunk_ok = (col[None, :] >= C) & (col[None, :] - C
+                                      < (sub[:, None] + 1) * sub_c)
+    ok = (cache_ok | chunk_ok[None])[:, None]                # (B, 1, c, L)
+    s = torch.where(ok, s, MASK_VALUE)
+    prob = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = prob.sum(-1, keepdim=True)
+    att = (prob / torch.where(l == 0.0, 1.0, l)) @ vals
+    x = x + att.transpose(1, 2).reshape(B, c, D) @ attw[3] + vecb[5]
+
+    # causal conv over [cnn cache ‖ LN(x)] (cache rows are pre-pointwise)
+    cin = torch.cat([cnn_cache, layer_norm(x, 2)], dim=1)     # (B, k-1+c, D)
+    gx = cin @ packed["pw1w"] + packed["pw1b"][0]
+    u = gx[..., :D] * torch.sigmoid(gx[..., D:])
+    acc = torch.zeros_like(x)
+    for i in range(ksize):                                     # VALID conv
+        acc = acc + u[:, i:i + c] * packed["dww"][i]
+    x = x + F.silu(layer_norm(acc + vecb[6], 3)) @ packed["pw2w"] + vecb[7]
+
+    x = x + ff_scale * ffn(layer_norm(x, 4), 1)
+    out = layer_norm(x, 5)
+
+    # caches, active slots only: the fresh K/V rows (the last C of them
+    # when c > C) at (wptr + i) mod C; the last k-1 rows of the conv input
+    act = active.to(dev).bool()
+    if C:
+        first = max(c - C, 0)
+        dst = (wp[:, None] + torch.arange(first, c, device=dev)) % C
+        idx = dst[:, None, :, None].expand(B, n_head, c - first, 2 * d_k)
+        fresh = torch.cat([k, v], dim=-1)[:, :, first:]
+        att_cache.scatter_(2, idx, torch.where(
+            act[:, None, None, None], fresh, att_cache.gather(2, idx)))
+    cnn_cache.copy_(torch.where(act[:, None, None], cin[:, c:], cnn_cache))
+    return out
+
+
+def _check(x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
+           active, packed, ksize):
+    B, c, D = x.shape
+    F_ = packed["ffw1"].shape[2]
+    want = {"lnw": (6, 2, D), "ffw1": (2, D, F_), "ffb1": (2, F_),
+            "ffw2": (2, F_, D), "vecb": (8, D), "attw": (4, D, D),
+            "posb": (2, D), "pw1w": (D, 2 * D), "pw1b": (1, 2 * D),
+            "pw2w": (D, D), "dww": (ksize, D)}
+    floats = {"x": x, "pos": pos, "att_cache": att_cache,
+              "cnn_cache": cnn_cache, **{k: packed[k] for k in PACKED_KEYS}}
+    for name, t in floats.items():
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes f32 on {x.device}, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                             f"expected {want[name]}")
+    if pos.dim() != 2 or pos.shape[1] != D:
+        raise ValueError(f"pos: shape {tuple(pos.shape)}, expected (rows, "
+                         f"{D})")
+    for name, t in (("pos_starts", pos_starts), ("cache_lens", cache_lens),
+                    ("wptrs", wptrs), ("active", active)):
+        if t.dtype != torch.int32 or t.device != x.device or \
+                tuple(t.shape) != (B,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be (B,) int32 on the device of x")
+
+
+def fused_chunk_layer(x, pos, pos_starts, att_cache, cnn_cache, cache_lens,
+                      wptrs, active, packed, *, n_head, ksize, n_sub=1,
+                      ff_scale=0.5, eps=1e-5):
+    """One streaming step of the layer over B slots (arguments as
+    fused_chunk_layer_plain). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises. The caller keeps every
+    pos_starts[s] + C + c within the rows of pos (clamp_pos_starts does).
+    → (B, c, D) f32; the caches of active slots are updated in place."""
+    B, c, D, C = _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub)
+    if x.device.type == "cpu":
+        return fused_chunk_layer_plain(
+            x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
+            active, packed, n_head=n_head, ksize=ksize, n_sub=n_sub,
+            ff_scale=ff_scale, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    active = active.to(torch.int32)
+    _check(x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
+           active, packed, ksize)
+    from masr_tpu_torch.ops.cuda import build
+    lib = build.load("chunk_layer")
+    fn = lib.masr_chunk_layer_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    F_ = packed["ffw1"].shape[2]
+    M, W = B * c, ksize - 1 + c
+    out = torch.empty_like(x)
+    workspace = torch.empty(M * (3 * D + max(F_, 4 * D)) + B * W * 3 * D,
+                            dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), pos.data_ptr(), pos_starts.data_ptr(),
+                 att_cache.data_ptr(), cnn_cache.data_ptr(),
+                 cache_lens.data_ptr(), wptrs.data_ptr(), active.data_ptr(),
+                 *(packed[k].data_ptr() for k in PACKED_KEYS),
+                 out.data_ptr(), workspace.data_ptr(), B, c, C, D, F_,
+                 n_head, ksize, n_sub, float(ff_scale), float(eps),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chunk_layer kernel failed: CUDA error {err}")
+    fused_chunk_layer.launches += 1
+    return out
+
+
+fused_chunk_layer.launches = 0

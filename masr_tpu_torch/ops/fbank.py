@@ -1,6 +1,7 @@
-"""Kaldi-compatible feature extraction on the host: fbank / mfcc / linear
-spectrogram (the numpy half of masr_tpu/ops/fbank.py:25-190, copied; the
-JAX half is the device frontend of the streaming slice).
+"""Kaldi-compatible feature extraction: fbank / mfcc / linear spectrogram
+on the host (the numpy half of masr_tpu/ops/fbank.py:25-190, copied), and
+`fbank_torch`, the batched device fbank of the streaming frontend (port of
+`fbank_jax`, masr_tpu/ops/fbank.py:199-251).
 
 Kaldi spec: snip-edges framing, optional dither, DC-offset removal, 0.97
 pre-emphasis (replicated first sample), povey window (hann**0.85),
@@ -12,6 +13,7 @@ import functools
 import math
 
 import numpy as np
+import torch
 
 EPSILON = 1.1920928955078125e-07  # float32 machine eps — Kaldi's log floor
 MEL_HIGH = 1127.0
@@ -179,3 +181,56 @@ def linear_numpy(samples: np.ndarray, sample_rate: int = 16000,
     freqs = float(sample_rate) / window_size * np.arange(fft.shape[1])
     ind = np.where(freqs <= (sample_rate / 2))[0][-1] + 1
     return np.log(fft[:, :ind] + eps).astype(np.float32)
+
+
+# --------------------------------------------------------------------------- #
+# torch path (batched, length-masked, on the waveform's device)
+# --------------------------------------------------------------------------- #
+def fbank_torch(waveform: torch.Tensor, lengths=None, *,
+                num_mel_bins: int = 80, frame_length_ms: float = 25.0,
+                frame_shift_ms: float = 10.0, sample_rate: int = 16000,
+                dither: float = 0.0, generator=None,
+                preemphasis: float = 0.97, remove_dc_offset: bool = True):
+    """Batched Kaldi fbank on the device of `waveform`.
+
+    waveform: (B, S) float32 at int16 scale, zero-padded to S; lengths:
+    (B,) valid sample counts, or None for full length; dither > 0 draws
+    its noise from `generator`. → (feats (B, T, num_mel_bins) float32 with
+    frames past the valid length zeroed, feat_lengths (B,) int32)."""
+    if waveform.dim() == 1:
+        waveform = waveform[None]
+    B, S = waveform.shape
+    dev = waveform.device
+    window_size = int(sample_rate * frame_length_ms * 0.001)
+    window_shift = int(sample_rate * frame_shift_ms * 0.001)
+    padded = next_pow2(window_size)
+    T = 0 if S < window_size else 1 + (S - window_size) // window_shift
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    lengths = torch.as_tensor(lengths, device=dev)
+
+    if T == 0:
+        frames = waveform.new_zeros((B, 0, window_size), dtype=torch.float32)
+    else:
+        frames = waveform.float().unfold(1, window_size, window_shift)
+    if dither != 0.0:
+        frames = frames + dither * torch.randn(
+            frames.shape, generator=generator, device=dev)
+    if remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if preemphasis != 0.0:
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - preemphasis * prev
+    frames = frames * torch.from_numpy(povey_window(window_size)).to(dev)
+    frames = torch.nn.functional.pad(frames, (0, padded - window_size))
+
+    spectrum = torch.fft.rfft(frames, dim=-1).abs() ** 2
+    banks = torch.from_numpy(mel_banks(num_mel_bins, padded,
+                                       float(sample_rate))).to(dev)
+    feats = torch.log(torch.clamp(spectrum @ banks.t(), min=EPSILON))
+
+    feat_lengths = torch.where(
+        lengths < window_size, 0,
+        1 + (lengths - window_size) // window_shift).to(torch.int32)
+    mask = torch.arange(T, device=dev)[None, :] < feat_lengths[:, None]
+    return torch.where(mask[..., None], feats, 0.0), feat_lengths
