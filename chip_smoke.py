@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's offline and streaming recognition paths through their
-public entry points (MASRPredictor.predict_batch, MASRPredictor.
-predict_stream, BatchStreamSession) and holds every hand-written kernel of
-those paths against its plain PyTorch twin. Phases, one JSON line each:
+Drives the port's offline and streaming recognition and its training
+through their public entry points (MASRPredictor.predict_batch,
+MASRPredictor.predict_stream, BatchStreamSession, MASRTrainer.train) and
+holds every hand-written kernel of those paths against its plain PyTorch
+twin. Phases, one JSON line each:
 
-  1. build          compile the CUDA sources of the repo (nvcc, sm_90a), one
-                    process per source, all started together
+  1. build          compile the four CUDA sources of the repo (nvcc, sm_90a),
+                    one process per source, all started together
   2. kernels        the full-context Conformer layer kernel vs its plain twin
                     at flagship width (D=256, 4 heads, FFN 2048, conv 15),
                     B=4, T' in {37, 299, 1500}, causal and not
@@ -47,6 +48,25 @@ those paths against its plain PyTorch twin. Phases, one JSON line each:
  10. stream_times   chunk kernel vs plain at B=32, c=16, C=256 (CUDA
                     events); engine tick wall at 32 active slots and its
                     real-time factor; predict_stream window latency at B=1
+ 11. train_kernels  the training-layer kernel vs its plain twin at flagship
+                    width, B=8, T'=299, a dynamic-chunk mask with padding:
+                    output and every grad, at dropout 0 and 0.1 / 0.1 (same
+                    hash); the CTC kernel vs its plain twin (and both
+                    against the plain twin in f64) at B=8, T'=299, V=4000,
+                    labels of 5..40 and 80 (S = 161 states)
+ 12. train          MASRTrainer(dict config, device=cuda).train on synthetic
+                    speech (build/smoke/train): flagship widths, vocabulary
+                    4000, B=8, 2 epochs of 16 steps, then a second trainer
+                    resumes from last_model for a third; every step must
+                    launch the training-layer kernel 12x forward and 12x
+                    backward and the CTC kernel once each way; the loss per
+                    label token and the test loss fall; the first step at
+                    dropout 0 against the CPU (loss and a sample of grads)
+ 13. train_times    training layer forward and backward and CTC forward +
+                    backward, kernel vs plain (and F.ctc_loss for CTC), CUDA
+                    events; train-step wall times, audio seconds trained
+                    per second, and a torch.profiler breakdown of three
+                    steps on the longest batch
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -816,6 +836,520 @@ def phase_stream_times(dev, path, wavs, smi):
             max(err, one_err), bound)
 
 
+# --------------------------------------------------------------------------- #
+# training: the training-layer and CTC kernels, MASRTrainer.train
+# --------------------------------------------------------------------------- #
+TRAIN_T, TRAIN_LENS = 299, [299, 281, 250, 220, 180, 150, 90, 33]
+GRAD_RTOL = 1e-4        # grad max abs err over the plain grad's max |.|
+CTC_GRAD_ATOL = 1e-4    # floor of the CTC grad check against f64
+TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 16, 2
+CPU_LOSS_RTOL, CPU_GRAD_RTOL = 1e-4, 1e-3   # first step, card vs CPU
+
+
+def train_layer_inputs(layer, seed, dev):
+    """Flagship training-layer arguments at B=8, T'=299: random x and a
+    dynamic-chunk (16-frame chunks, 4 left chunks) mask with padding."""
+    from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+    from masr_tpu_torch.ops.cuda import conformer_layer as cl
+    g = torch.Generator().manual_seed(seed)
+    T, B = TRAIN_T, len(TRAIN_LENS)
+    x = torch.randn(B, T, layer.size, generator=g).to(dev)
+    w = torch.randn(B, T, layer.size, generator=g).to(dev)
+    lens = torch.tensor(TRAIN_LENS, dtype=torch.int32, device=dev)
+    r = torch.arange(T, device=dev)
+    rc, cc = r[:, None] // 16, r[None, :] // 16
+    mask = ((cc <= rc) & (cc >= rc - 4))[None] & \
+        (r[None, None, :] < lens[:, None, None])
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        posp = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            r, layer.size))
+        packed = {k: v.clone() for k, v in layer.packed_params().items()}
+    return x, w, mask, seeds, lens, posp, packed
+
+
+def run_train_layer(fn, layer, args, rates, grads=True):
+    """→ (y, leaf tensors x, posp, packed) with y's graph built."""
+    x, _, mask, seeds, lens, posp, packed = args
+    xx = x.clone().requires_grad_(grads)
+    pp = posp.clone().requires_grad_(grads)
+    pk = {k: v.clone().requires_grad_(grads) for k, v in packed.items()}
+    y = fn(xx, mask, seeds, lens, pp, pk, layer=5,
+           n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
+           causal=layer.causal, rate=rates[0], att_rate=rates[1])
+    return y, xx, pp, pk
+
+
+def rel_err(a, b):
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def phase_train_kernels(dev):
+    """Training-layer kernel vs plain (outputs and all grads) at dropout 0
+    and 0.1 / 0.1, and the CTC kernel vs plain at B=8, T'=299, V=4000."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    layer = seeded_layer(21, True, dev)
+    args = train_layer_inputs(layer, 22, dev)
+    cases, worst, worst_grad = [], 0.0, 0.0
+    for rates in ((0.0, 0.0), (0.1, 0.1)):
+        res = {}
+        for name, fn in (("kernel", clt.fused_conformer_layer_train),
+                         ("plain", clt.fused_conformer_layer_train_plain)):
+            y, xx, pp, pk = run_train_layer(fn, layer, args, rates)
+            (y * args[1]).sum().backward()
+            torch.cuda.synchronize()
+            res[name] = (y.detach(), {"x": xx.grad, "posp": pp.grad,
+                                      **{k: v.grad for k, v in pk.items()}})
+        (y_k, g_k), (y_p, g_p) = res["kernel"], res["plain"]
+        check(bool(torch.isfinite(y_k).all()), "train layer output finite")
+        err = (y_k - y_p).abs().max().item()
+        check(err <= KERNEL_ATOL, f"train layer kernel vs plain max abs err "
+              f"{err} <= {KERNEL_ATOL} (rates {rates})")
+        gerr = {k: rel_err(g_k[k], g_p[k]) for k in g_p}
+        for k, e in gerr.items():
+            check(bool(torch.isfinite(g_k[k]).all()), f"grad {k} finite")
+            check(e <= GRAD_RTOL, f"train layer grad {k}: {e} <= {GRAD_RTOL} "
+                  f"of its max (rates {rates})")
+        cases.append({"rates": rates, "max_abs_err": err,
+                      "grad_rel_err": gerr})
+        worst, worst_grad = max(worst, err), max(worst_grad, *gerr.values())
+    # CTC: label lengths 5..40 and one of 80 (S = 161 states)
+    lg, lens, labels, label_lens = ctc_inputs(dev)
+    wts = torch.randn(lg.shape[0], generator=torch.Generator().manual_seed(3)
+                      ).to(dev)
+    res = {}
+    for name, fn, dtype in (("kernel", C.ctc_loss, torch.float32),
+                            ("plain", C.ctc_loss_plain, torch.float32),
+                            ("f64", C.ctc_loss_plain, torch.float64)):
+        x = lg.detach().to(dtype).clone().requires_grad_(True)
+        nll = fn(x, lens, labels, label_lens)
+        (nll * wts.to(dtype)).sum().backward()
+        torch.cuda.synchronize()
+        res[name] = (nll.detach().double(), x.grad.double())
+    (n_k, g_k), (n_p, g_p), (n_64, g_64) = (res["kernel"], res["plain"],
+                                            res["f64"])
+    check(bool(torch.isfinite(n_k).all() and torch.isfinite(g_k).all()),
+          "CTC loss and grad finite")
+    ctc_rel = ((n_k - n_p).abs() / n_p.abs()).max().item()
+    ctc_gerr = (g_k - g_p).abs().max().item()
+    # f32 log-space sums over T' frames with |log Z| ~ 3e3 leave ~1e-3 in
+    # the occupancies: both f32 versions are held against the f64 twin
+    k64, p64 = ((g_k - g_64).abs().max().item(),
+                (g_p - g_64).abs().max().item())
+    check(ctc_rel <= 1e-5, f"CTC kernel vs plain nll rel err {ctc_rel}")
+    check(k64 <= max(2 * p64, CTC_GRAD_ATOL), f"CTC kernel grad vs f64 "
+          f"{k64} <= max(2 x plain f32 vs f64 {p64}, {CTC_GRAD_ATOL})")
+    emit({"phase": "train_kernels", "kernel": "fused_conformer_layer_train",
+          "B": len(TRAIN_LENS), "T": TRAIN_T, "lens": TRAIN_LENS,
+          "mask": "16-frame chunks, 4 left chunks, padding",
+          "atol": KERNEL_ATOL, "grad_rtol": GRAD_RTOL, "cases": cases,
+          "ctc": {"B": lg.shape[0], "T": lg.shape[1], "V": lg.shape[2],
+                  "label_lens": label_lens.tolist(), "nll_rel_err": ctc_rel,
+                  "grad_max_abs_err": ctc_gerr,
+                  "grad_vs_f64": {"kernel": k64, "plain": p64},
+                  "log_z": (-n_64).tolist()}})
+    return worst, max((n_k - n_p).abs().max().item(), ctc_gerr)
+
+
+def ctc_inputs(dev, seed=4):
+    """CTC arguments at the flagship's loss shape: B=8, T'=299, V=4000,
+    label lengths 5..40 and one of 80 (S = 161 > the TPU's 128 lanes)."""
+    g = torch.Generator().manual_seed(seed)
+    T = 299
+    label_lens = torch.tensor([5, 10, 15, 20, 25, 30, 40, 80],
+                              dtype=torch.int32)
+    lens = torch.tensor([33, 90, 150, 180, 220, 250, 281, T],
+                        dtype=torch.int32)
+    B = len(label_lens)
+    logits = (2 * torch.randn(B, T, VOCAB, generator=g)).to(dev)
+    labels = torch.randint(1, VOCAB - 1, (B, 80), generator=g)
+    labels[torch.arange(80)[None] >= label_lens[:, None]] = -1
+    return (logits, lens.to(dev), labels.to(dev, torch.int32),
+            label_lens.to(dev))
+
+
+def train_vocab():
+    """The flagship vocabulary size, as bench.py:61 pads it: <blank>,
+    <unk>, 3997 characters, <eos>."""
+    return (["<blank>", "<unk>"] + [chr(0x4e00 + i) for i in range(VOCAB - 3)]
+            + ["<eos>"])
+
+
+def write_train_corpus(root, vocab):
+    """Synthetic speech (SyntheticTTS, 2-12 s) from 200 of the characters:
+    train and test manifests sorted by duration, the vocabulary, and the
+    example bundle's CMVN statistics (same fbank frontend)."""
+    from masr_tpu_torch.audio.io import write_wave
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    tts = SyntheticTTS(sample_rate=16000)
+    rs = np.random.RandomState(5)
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    n_train = TRAIN_STEPS_PER_EPOCH * len(TRAIN_LENS)
+    for split, n in (("train", n_train), ("test", 8)):
+        rows = []
+        for i in range(n):
+            k = int(rs.randint(10, 60))
+            text = "".join(vocab[2 + j] for j in rs.randint(0, 200, k))
+            wav = tts.render(text, spk_id=i % 7)
+            path = os.path.join(root, f"{split}_{i}.wav")
+            write_wave(path, wav, 16000)
+            rows.append({"audio_filepath": path, "text": text,
+                         "duration": len(wav) / 16000})
+        rows.sort(key=lambda r: r["duration"])
+        out[split] = os.path.join(root, f"manifest.{split}")
+        with open(out[split], "w", encoding="utf-8") as f:
+            f.writelines(json.dumps(r, ensure_ascii=False) + "\n"
+                         for r in rows)
+    out["vocab"] = os.path.join(root, "vocabulary.txt")
+    with open(out["vocab"], "w", encoding="utf-8") as f:
+        f.writelines(t + "\n" for t in vocab)
+    with open(os.path.join(TINY_BUNDLE, "inference.json"),
+              encoding="utf-8") as f:
+        tiny = json.load(f)
+    out["cmvn"] = os.path.join(root, "mean_istd.json")
+    with open(out["cmvn"], "w", encoding="utf-8") as f:
+        json.dump({"mean": tiny["mean"], "istd": tiny["istd"]}, f)
+    return out
+
+
+def train_config(corpus, save_dir, max_epoch, dropout=True):
+    """configs/conformer.yml as a dict (the card's Python may lack PyYAML),
+    flagship widths, with warmup_steps 8 and accum_grad 2 so that the loss
+    falls within the run's few dozen steps."""
+    r = 0.1 if dropout else 0.0
+    return {
+        "encoder_conf": dict(FLAGSHIP_ENCODER, dropout_rate=r,
+                             positional_dropout_rate=r,
+                             attention_dropout_rate=r),
+        "decoder_conf": dict(attention_heads=4, linear_units=1024,
+                             num_blocks=3, r_num_blocks=3, dropout_rate=r,
+                             positional_dropout_rate=r,
+                             self_attention_dropout_rate=r,
+                             src_attention_dropout_rate=r),
+        "model_conf": dict(ctc_weight=0.3, lsm_weight=0.1,
+                           reverse_weight=0.3, length_normalized_loss=False),
+        "dataset_conf": dict(batch_size=len(TRAIN_LENS), num_workers=4,
+                             min_duration=0.5, max_duration=20,
+                             train_manifest=corpus["train"],
+                             test_manifest=corpus["test"],
+                             dataset_vocab=corpus["vocab"],
+                             mean_istd_path=corpus["cmvn"],
+                             manifest_type="txt"),
+        "preprocess_conf": PREPROCESS,
+        "optimizer_conf": dict(optimizer="Adam", weight_decay=1e-6,
+                               learning_rate=1e-3, scheduler="WarmupLR",
+                               scheduler_conf=dict(warmup_steps=8,
+                                                   min_lr=1e-5)),
+        "train_conf": dict(enable_amp=False, grad_clip=5.0, accum_grad=2,
+                           max_epoch=max_epoch, log_interval=4),
+        "use_model": "conformer", "streaming": True, "decoder": "ctc_greedy",
+        "metrics_type": "cer", "log_dir": os.path.join(save_dir, "log")}
+
+
+def reset_train_launches():
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    for fn in (clt.fused_conformer_layer_train, C.ctc_loss):
+        fn.launches = fn.backward_launches = 0
+
+
+def train_launches():
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    f, c = clt.fused_conformer_layer_train, C.ctc_loss
+    return (f.launches, f.backward_launches, c.launches, c.backward_launches)
+
+
+@contextlib.contextmanager
+def clocked_train_steps(rows):
+    """Wraps the trainer's train step: per step the wall time (synchronised),
+    the kernel launches, loss, label tokens and audio seconds → rows."""
+    from masr_tpu_torch.training import trainer as tr
+    orig = tr.train_step
+
+    def step(state, batch, seed):
+        torch.cuda.synchronize()
+        before = train_launches()
+        t0 = time.perf_counter()
+        m = orig(state, batch, seed)
+        torch.cuda.synchronize()
+        rows.append({"s": time.perf_counter() - t0, "loss": m["loss"],
+                     "finite": m["finite"],
+                     "tokens": float(batch["label_lens"].float().mean()),
+                     "audio_s": float(batch["input_lens"].sum()) / 100.0,
+                     "launches": [a - b for a, b in
+                                  zip(train_launches(), before)]})
+        return m
+
+    tr.train_step = step
+    try:
+        yield rows
+    finally:
+        tr.train_step = orig
+
+
+def phase_train(dev):
+    """MASRTrainer(dict config, device=cuda).train at flagship widths on a
+    synthetic corpus: 2 epochs of 16 steps at B=8, then a resume for a third
+    epoch; the first step's loss and grads against the CPU at dropout 0."""
+    from masr_tpu_torch.training.train_state import batch_to, step_generators
+    from masr_tpu_torch.training.trainer import MASRTrainer
+    root = os.path.join(WORK, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    corpus = write_train_corpus(os.path.join(root, "corpus"), train_vocab())
+    save = os.path.join(root, "models")
+    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    rows = []
+    # the main path: counts read around the two train() calls alone
+    reset_train_launches()
+    with clocked_train_steps(rows):
+        t0 = time.perf_counter()
+        MASRTrainer(train_config(corpus, root, TRAIN_EPOCHS),
+                    device=dev).train(save_model_path=save)
+        first_s = time.perf_counter() - t0
+        resumed = MASRTrainer(train_config(corpus, root, TRAIN_EPOCHS + 1),
+                              device=dev)
+        resumed.train(save_model_path=save)
+    launches = train_launches()
+    steps = TRAIN_STEPS_PER_EPOCH * (TRAIN_EPOCHS + 1)
+    check(len(rows) == steps and resumed.state.step == steps,
+          f"{len(rows)} steps, resumed state at step {resumed.state.step}, "
+          f"want {steps}")
+    for i, r in enumerate(rows):
+        check(r["launches"] == [2 * n_layers, n_layers, 2, 1],
+              f"step {i} launches {r['launches']}: the train-layer kernel "
+              f"{n_layers}x forward + {n_layers}x backward, CTC 1 + 1")
+    losses = np.asarray([r["loss"] for r in rows])
+    per_token = losses / np.asarray([r["tokens"] for r in rows])
+    check(bool(np.isfinite(losses).all()) and all(r["finite"] for r in rows),
+          "every step's loss finite")
+    head, tail = float(per_token[:4].mean()), float(per_token[-8:].mean())
+    check(tail < head, f"loss per label token falls: first 4 steps {head}, "
+          f"last 8 {tail}")
+    run = os.path.join(save, "conformer_streaming_fbank")
+    metas = {}
+    for d in ("epoch_1", "epoch_2", "epoch_3", "last_model", "best_model"):
+        check(os.path.exists(os.path.join(run, d, "state.pt")),
+              f"checkpoint {d} written")
+        with open(os.path.join(run, d, "model.state")) as f:
+            metas[d] = json.load(f)
+    meta = metas["last_model"]
+    check(meta["last_epoch"] == TRAIN_EPOCHS + 1, "resume went on to epoch 3")
+    test_losses = [metas[f"epoch_{e}"]["test_loss"] for e in (1, 2, 3)]
+    check(test_losses[2] < test_losses[0], f"test loss falls over the "
+          f"epochs: {test_losses}")
+
+    # the first step at dropout 0: card vs CPU from the same init and batch
+    conf0 = train_config(corpus, root, 1, dropout=False)
+    trainers = {}
+    for name in ("card", "cpu"):
+        t = MASRTrainer(conf0, device=dev if name == "card" else "cpu")
+        ds, _, loader = t._setup_dataloader(True)
+        t._setup_model(ds.feature_dim, ds.vocab_size)
+        trainers[name] = t
+    batch = next(iter(loader))
+    got = {}
+    for name, t in trainers.items():
+        b = batch_to(batch, t.device)
+        gen, chunk = step_generators(0, 0, t.device)
+        out = t.model.train()(b["inputs"], b["input_lens"], b["labels"],
+                              b["label_lens"], generator=gen,
+                              chunk_generator=chunk)
+        out["loss"].backward()
+        got[name] = (float(out["loss"].detach()),
+                     {n: p.grad.detach().cpu()
+                      for n, p in t.model.named_parameters()})
+    (l_card, g_card), (l_cpu, g_cpu) = got["card"], got["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    check(loss_rel <= CPU_LOSS_RTOL, f"first-step loss card {l_card} vs CPU "
+          f"{l_cpu}: rel {loss_rel} <= {CPU_LOSS_RTOL}")
+    sample = ["encoder.embed.conv.0.weight",
+              "encoder.encoders.0.feed_forward.w_1.weight",
+              f"encoder.encoders.{n_layers // 2}.self_attn.linear_q.weight",
+              f"encoder.encoders.{n_layers - 1}.conv_module.depthwise_conv"
+              ".weight",
+              f"encoder.encoders.{n_layers - 1}.norm_final.weight",
+              "decoder.left_decoder.decoders.0.src_attn.linear_k.weight",
+              "decoder.right_decoder.output_layer.weight",
+              "ctc.ctc_lo.weight"]
+    grad_rel = {n: rel_err(g_card[n], g_cpu[n]) for n in sample}
+    for n, e in grad_rel.items():
+        check(e <= CPU_GRAD_RTOL, f"first-step grad {n} card vs CPU: {e} <= "
+              f"{CPU_GRAD_RTOL} of its max")
+    emit({"phase": "train", "steps": len(rows), "batch": len(TRAIN_LENS),
+          "epochs": TRAIN_EPOCHS + 1, "resumed_from_epoch": TRAIN_EPOCHS,
+          "launches": {"train_layer_fwd_bwd": launches[0],
+                       "train_layer_bwd": launches[1],
+                       "ctc_fwd_bwd": launches[2], "ctc_bwd": launches[3]},
+          "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+          "loss_per_token_first4": head, "loss_per_token_last8": tail,
+          "test_loss_per_epoch": test_losses,
+          "test_cer_last": meta.get("test_cer"),
+          "first_two_epochs_s": first_s,
+          "first_step_card_vs_cpu": {"loss_card": l_card, "loss_cpu": l_cpu,
+                                     "loss_rel_err": loss_rel,
+                                     "grad_rel_err": grad_rel}})
+    return launches, rows, resumed
+
+
+PROFILE_GROUPS = (("train layer: GEMMs", ("gemm_ex_kernel",)),
+                  ("train layer: attention softmax", ("att_softmax",)),
+                  ("train layer: column sums", ("colsum_kernel",)),
+                  ("train layer: LayerNorm", ("ln_fwd_kernel",
+                                              "ln_bwd_kernel")),
+                  ("train layer: conv module", ("conv_",)),
+                  ("train layer: elementwise", ("scale_drop_kernel",
+                                                "add_kernel")),
+                  ("CTC kernel", ("ctc_",)))
+
+
+def profile_train_steps(trainer, n=3):
+    """torch.profiler over n train steps of `trainer` on the batch of the 8
+    longest training utterances: device kernel time by group, device busy
+    time against the steps' wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from masr_tpu_torch.data.collate import collate_fn
+    from masr_tpu_torch.training import train_state as ts
+    ds = trainer._setup_dataloader(True)[0]
+    items = [ds[i] for i in range(len(ds) - len(TRAIN_LENS), len(ds))]
+    batch = ts.batch_to(collate_fn(items, rng=np.random.RandomState(0)),
+                        trainer.device)
+    for _ in range(2):
+        ts.train_step(trainer.state, batch, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ts.train_step(trainer.state, batch, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, top = {}, []
+    for ev in prof.key_averages():
+        # kernels only: CPU ops (autograd functions, Adam.step) also carry
+        # the device time of the kernels they launch
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        top.append((ev.key[:80], us / 1e3 / n))
+        name = next((g for g, keys in PROFILE_GROUPS
+                     if any(k in ev.key for k in keys)),
+                    "PyTorch kernels (subsampling, decoder, CTC head, "
+                    "optimizer, copies)")
+        groups[name] = groups.get(name, 0.0) + us / 1e3 / n
+    busy = sum(groups.values())
+    top.sort(key=lambda kv: -kv[1])
+    return {"steps": n, "B": int(batch["inputs"].shape[0]),
+            "T_in": int(batch["inputs"].shape[1]),
+            "audio_s": float(batch["input_lens"].sum()) / 100.0,
+            "wall_ms_per_step": wall / n * 1e3,
+            "device_busy_ms_per_step": busy if busy else "not measured",
+            "idle_share": 1 - busy / (wall / n * 1e3) if busy
+            else "not measured",
+            "by_group_ms_per_step": groups, "top": top[:20]}
+
+
+def phase_train_times(dev, rows, trainer, smi):
+    """Training-layer forward and backward, kernel vs plain, and CTC
+    forward + backward, kernel vs plain vs F.ctc_loss, at B=8, T'=299
+    (CUDA events, plain, kernel, kernel, plain); step wall times of the
+    train phase; a torch.profiler breakdown of three train steps."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    layer = seeded_layer(23, True, dev)
+    args = train_layer_inputs(layer, 24, dev)
+    rates = (0.1, 0.1)
+    fns = {"plain": clt.fused_conformer_layer_train_plain,
+           "kernel": clt.fused_conformer_layer_train}
+    fwd, bwd = {"plain": [], "kernel": []}, {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        y = run_train_layer(fns[name], layer, args, rates)[0]
+        fwd[name].append(cuda_ms(lambda: run_train_layer(
+            fns[name], layer, args, rates)))
+        bwd[name].append(cuda_ms(lambda: y.backward(args[1],
+                                                    retain_graph=True)))
+        del y
+    lg, lens, labels, label_lens = ctc_inputs(dev, seed=6)
+    lp_lens, tl = lens.long(), label_lens.long()
+    targets = labels.clamp(min=0).long()
+
+    def ctc_kernel():
+        x = lg.clone().requires_grad_(True)
+        C.ctc_loss(x, lens, labels, label_lens).sum().backward()
+
+    def ctc_plain():
+        x = lg.clone().requires_grad_(True)
+        C.ctc_loss_plain(x, lens, labels, label_lens).sum().backward()
+
+    def ctc_library():
+        x = lg.clone().requires_grad_(True)
+        F.ctc_loss(torch.log_softmax(x, -1).transpose(0, 1), targets, lp_lens,
+                   tl, reduction="none").sum().backward()
+
+    ctc = {"plain": [cuda_ms(ctc_plain, 5)], "kernel": [cuda_ms(ctc_kernel)]}
+    ctc["kernel"].append(cuda_ms(ctc_kernel))
+    ctc["plain"].append(cuda_ms(ctc_plain, 5))
+    ctc["library"] = [cuda_ms(ctc_library)]
+    steady = [r for r in rows[3:]]
+    step_s = float(np.median([r["s"] for r in steady]))
+    audio_per_s = sum(r["audio_s"] for r in steady) / sum(
+        r["s"] for r in steady)
+    layer_b = train_layer_bound(layer, args)
+    ctc_b = ctc_bound(lg)
+    emit({"phase": "train_times", "card": smi,
+          "train_layer": {"B": len(TRAIN_LENS), "T": TRAIN_T,
+                          "rates": rates, "fwd_kernel_ms": fwd["kernel"],
+                          "fwd_plain_ms": fwd["plain"],
+                          "bwd_kernel_ms": bwd["kernel"],
+                          "bwd_plain_ms": bwd["plain"], **layer_b},
+          "ctc": {"B": lg.shape[0], "T": lg.shape[1], "V": lg.shape[2],
+                  "fwd_bwd_kernel_ms": ctc["kernel"],
+                  "fwd_bwd_plain_ms": ctc["plain"],
+                  "fwd_bwd_library_ms": ctc["library"], **ctc_b},
+          "step_s_median": step_s, "step_s": [r["s"] for r in rows],
+          "audio_s_per_s": audio_per_s,
+          "profile": profile_train_steps(trainer)})
+    return ({"ms": float(np.mean(fwd["kernel"]) + np.mean(bwd["kernel"])),
+             "plain_ms": float(np.mean(fwd["plain"]) + np.mean(bwd["plain"])),
+             **layer_b},
+            {"ms": float(np.mean(ctc["kernel"])),
+             "plain_ms": float(np.mean(ctc["plain"])),
+             "library_ms": float(np.mean(ctc["library"])), **ctc_b})
+
+
+def train_layer_bound(layer, args):
+    """Forward + backward of one training layer over the valid rows: the
+    forward's products, attention over the mask's visible (query, key)
+    pairs of valid rows, depthwise conv; the backward twice the forward's
+    operations. Bytes: x, mask, posp, weights and dy in; y, dx, dposp and
+    the weight grads out, each once."""
+    x, _, mask, _, lens, posp, packed = args
+    D, F, K = layer.size, layer.feed_forward.w_1.out_features, \
+        layer.cnn_module_kernel
+    M = int(lens.sum())
+    pairs = int(mask.sum())
+    fwd = (8 * M * D * F + 8 * M * D * D + 6 * M * D * D + 2 * M * D * K
+           + 6 * D * pairs)
+    w = _weight_bytes(layer)
+    nbytes = 2 * w + mask.numel() + 4 * (4 * x.numel() + 2 * posp.numel())
+    return _bound(3 * fwd, nbytes)
+
+
+def ctc_bound(logits):
+    """CTC forward + backward: the (B, T, V) logits read once and their
+    grads written once; ~10 operations per logit (max, exp, sums, the grad
+    row)."""
+    return _bound(10 * logits.numel(), 2 * 4 * logits.numel())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -827,7 +1361,8 @@ def main():
     smi = card()
 
     t0 = time.perf_counter()
-    built = build.build(["conformer_layer", "chunk_layer"])
+    built = build.build(["conformer_layer", "chunk_layer",
+                         "conformer_layer_train", "ctc_loss"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "card": smi})
 
@@ -844,6 +1379,10 @@ def main():
     c_ms, c_plain_ms, c_err, c_bound = phase_stream_times(dev, path, wavs,
                                                           smi)
 
+    train_err, ctc_err = phase_train_kernels(dev)
+    t_launches, rows, trainer = phase_train(dev)
+    t_layer, t_ctc = phase_train_times(dev, rows, trainer, smi)
+
     emit({"kernels": [{
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "masr_tpu_torch/csrc/conformer_layer.cu",
@@ -857,7 +1396,21 @@ def main():
         "launches": chunk_launches_main,
         "max_abs_err": max(chunk_worst, c_err), "ms": c_ms,
         "plain_ms": c_plain_ms, "bound_ms": c_bound["bound_ms"],
-        "bound_by": c_bound["bound_by"], "library_ms": None}]})
+        "bound_by": c_bound["bound_by"], "library_ms": None}, {
+        "name": "fused_conformer_layer_train", "route": "cuda",
+        "source": "masr_tpu_torch/csrc/conformer_layer_train.cu",
+        "replaces": "masr_tpu/ops/pallas/conformer_layer_train.py:674",
+        "launches": t_launches[0], "max_abs_err": train_err,
+        "ms": t_layer["ms"], "plain_ms": t_layer["plain_ms"],
+        "bound_ms": t_layer["bound_ms"], "bound_by": t_layer["bound_by"],
+        "library_ms": None}, {
+        "name": "ctc_loss", "route": "cuda",
+        "source": "masr_tpu_torch/csrc/ctc_loss.cu",
+        "replaces": "masr_tpu/ops/pallas/ctc_loss.py:158",
+        "launches": t_launches[2], "max_abs_err": ctc_err,
+        "ms": t_ctc["ms"], "plain_ms": t_ctc["plain_ms"],
+        "bound_ms": t_ctc["bound_ms"], "bound_by": t_ctc["bound_by"],
+        "library_ms": t_ctc["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

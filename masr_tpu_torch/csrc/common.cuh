@@ -1,6 +1,10 @@
-// Building blocks shared by the port's Conformer layer kernels
-// (conformer_layer.cu, chunk_layer.cu), for Hopper (sm_90a), f32:
+// Building blocks shared by the port's kernels (conformer_layer.cu,
+// chunk_layer.cu; conformer_layer_train.cu and ctc_loss.cu take the
+// warp reductions and the dropout hash), for Hopper (sm_90a), f32:
 //
+//   warp_sum, warp_max     warp reductions
+//   dropout_mult           the counter-based dropout hash of the training
+//                          kernel (mirrored by ops/dropout_hash.py)
 //   layer_norm_kernel      one warp per row, f32 statistics, optional
 //                          zeroing of rows t >= len
 //   gemm_kernel<EPI>       Y = A.W + b, shared-memory tiled f32 FMA main
@@ -39,6 +43,37 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
+}
+
+// ------------------------------------------------------------------------
+// Counter-based dropout. The keep decision of element (row, col) of
+// dropout site `site` (0..15) of utterance b (< 65536) in layer `layer`
+// (< 4096) is a pure function of those and the utterance's seed, so a
+// forward kernel, its backward and the plain PyTorch twin
+// (masr_tpu_torch/ops/dropout_hash.py, 16-bit limbs) draw the same mask.
+// mix32 is the "lowbias32" integer finaliser.
+// ------------------------------------------------------------------------
+__device__ __forceinline__ unsigned mix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// keep if hash >= thresh (= rate * 2^32); kept elements scale by
+// keep_scale = 1 / (1 - rate), both computed by the caller
+__device__ __forceinline__ float dropout_mult(int seed, int layer, int site,
+                                              int b, int row, int col,
+                                              unsigned thresh,
+                                              float keep_scale) {
+  unsigned h = mix32((unsigned)seed ^
+                     mix32(((unsigned)layer << 20) | ((unsigned)site << 16) |
+                           (unsigned)b));
+  h = mix32(h ^ (unsigned)row);
+  h = mix32(h ^ (unsigned)col);
+  return h >= thresh ? keep_scale : 0.f;
 }
 
 // ------------------------------------------------------------------------

@@ -37,14 +37,12 @@ def load_inference_bundle(bundle_dir):
     model = build_model(
         meta["use_model"], meta["input_dim"], meta["vocab_size"],
         streaming=meta["streaming"], encoder_conf=meta["encoder_conf"],
+        decoder_conf=meta.get("decoder_conf"),
+        model_conf=meta.get("model_conf"),
         cmvn=GlobalCMVN(meta["mean"], meta["istd"]))
     with open(os.path.join(bundle_dir, "model.msgpack"), "rb") as f:
         variables = flax_msgpack.unpackb(f.read())
     if meta.get("quantization") == "int8":
         variables = _dequantize_int8(variables)
-    state = from_flax_variables(variables)
-    model.decoder_state = {k: v for k, v in state.items()
-                           if k.startswith("decoder.")}
-    model.load_state_dict({k: v for k, v in state.items()
-                           if not k.startswith("decoder.")})
+    model.load_state_dict(from_flax_variables(variables))
     return model.eval(), meta, vocab_list

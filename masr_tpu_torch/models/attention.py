@@ -1,6 +1,8 @@
-"""Rel-pos multi-head self-attention, full context and with a streaming
-cache (port of masr_tpu/models/attention.py:21-28, :66-78, :91-151 and
-cache_key_mask :173-178).
+"""Multi-head attention: the plain one (self and cross attention, the
+attention decoder's) and rel-pos self-attention, full context and with a
+streaming cache (port of masr_tpu/models/attention.py:21-28, :31-88,
+:91-151 and cache_key_mask :173-178). In training mode the attention
+probabilities go through dropout, drawn from the `generator` argument.
 
 The streaming cache of this eager module is masr_tpu's: a right-aligned
 fixed (B, h, C, 2·d_k) array of [K ‖ V] rows, newest last, with a count of
@@ -11,6 +13,8 @@ import math
 
 import torch
 from torch import nn
+
+from masr_tpu_torch.ops.common import dropout
 
 NEG_INF = -1e38
 
@@ -33,27 +37,53 @@ def cache_key_mask(cache_size, chunk_len, valid_len, batch=1, device=None):
     return m[None, None, :].expand(batch, 1, cache_size + chunk_len)
 
 
-class RelPositionMultiHeadedAttention(nn.Module):
-    """Transformer-XL rel-pos MHSA with pos_bias_u/v; rel_shift is absent,
-    as in the reference. Module names follow upstream MASR."""
+class MultiHeadedAttention(nn.Module):
+    """Scaled dot-product attention of query rows over key/value rows.
+    Module names follow upstream MASR."""
 
-    def __init__(self, n_head: int, n_feat: int):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
         assert n_feat % n_head == 0
         self.n_head, self.d_k = n_head, n_feat // n_head
+        self.dropout_rate = dropout_rate
         self.linear_q = nn.Linear(n_feat, n_feat)
         self.linear_k = nn.Linear(n_feat, n_feat)
         self.linear_v = nn.Linear(n_feat, n_feat)
         self.linear_out = nn.Linear(n_feat, n_feat)
-        self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
-        self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
-        self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
 
     def _heads(self, x):
         B, T, _ = x.shape
         return x.view(B, T, self.n_head, self.d_k).transpose(1, 2)
 
-    def forward(self, x, mask, pos_emb, cache=None):
+    def _attend(self, scores, mask, v, generator):
+        B = v.shape[0]
+        attn = dropout(_mask_scores(scores, mask), self.dropout_rate,
+                       self.training, generator)
+        out = (attn @ v).transpose(1, 2).reshape(B, -1,
+                                                 self.n_head * self.d_k)
+        return self.linear_out(out)
+
+    def forward(self, query, key, value, mask, generator=None):
+        """query (B, T1, D), key/value (B, T2, D), mask (B, 1|T1, T2) bool
+        → (B, T1, D)."""
+        q = self._heads(self.linear_q(query))
+        k = self._heads(self.linear_k(key))
+        v = self._heads(self.linear_v(value))
+        scores = q @ k.transpose(-1, -2) / math.sqrt(self.d_k)
+        return self._attend(scores, mask, v, generator)
+
+
+class RelPositionMultiHeadedAttention(MultiHeadedAttention):
+    """Transformer-XL rel-pos MHSA with pos_bias_u/v; rel_shift is absent,
+    as in the reference. Module names follow upstream MASR."""
+
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
+        super().__init__(n_head, n_feat, dropout_rate)
+        self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
+        self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
+
+    def forward(self, x, mask, pos_emb, cache=None, generator=None):
         """x: (B, T, D); mask: (B, 1|T, T2) bool; pos_emb: (1, T2, D) over
         the key length T2 (T, or C + T with a cache); cache: None or the
         right-aligned (B, h, C, 2·d_k) [K ‖ V] rows → (out (B, T, D),
@@ -74,6 +104,4 @@ class RelPositionMultiHeadedAttention(nn.Module):
                            q + self.pos_bias_v[None, :, None, :]], dim=-1)
         k_cat = torch.cat([k, p.expand_as(k)], dim=-1)
         scores = q_cat @ k_cat.transpose(-1, -2) / math.sqrt(self.d_k)
-        out = _mask_scores(scores, mask) @ v
-        return (self.linear_out(out.transpose(1, 2).reshape(B, T, -1)),
-                new_cache)
+        return self._attend(scores, mask, v, generator), new_cache

@@ -1,17 +1,25 @@
-"""Conformer encoder and model, full-context and streaming inference
-(port of masr_tpu/models/conformer.py: ConformerEncoderLayer.__call__
-:92-133, ConformerEncoder.__call__ :235-273, forward_chunk :353-395,
+"""Conformer encoder and model: full-context and streaming inference and
+training with the hybrid CTC + attention loss (port of
+masr_tpu/models/conformer.py: ConformerEncoderLayer.__call__ :92-133,
+ConformerEncoder.__call__ :235-273, forward_chunk :353-395,
 forward_chunk_batched :417-561, pack_chunk_params :563-586, init_cache
-:588-621, ConformerModel.get_encoder_out :738-749, get_encoder_out_chunk
-:751-763, get_encoder_out_chunk_batched :789-836).
+:588-621, ConformerModel.__call__ :686-736, get_encoder_out :738-749,
+get_encoder_out_chunk :751-763, get_encoder_out_chunk_batched :789-836).
 
 Module names follow upstream MASR (`encoder.encoders.{i}.self_attn...`,
-`ctc.ctc_lo`), so `models/weights.py` maps flax bundles and upstream
-checkpoints onto them. The encoder runs every layer through a layer
-kernel: the full-context one (ops/cuda/conformer_layer.py) offline, the
-chunk one (ops/cuda/chunk_layer.py) when streaming; the CUDA kernel for
-CUDA tensors, its plain twin for CPU tensors. The eager layer module below
-is the reference the tests hold both routes against.
+`ctc.ctc_lo`, `decoder.left_decoder...`), so `models/weights.py` maps flax
+bundles and upstream checkpoints onto them. The encoder runs every layer
+through a layer kernel: the full-context one (ops/cuda/conformer_layer.py)
+offline, the chunk one (ops/cuda/chunk_layer.py) when streaming, and the
+training one (ops/cuda/conformer_layer_train.py, forward and backward) in
+`forward_train`, the loss path; the CUDA kernel for CUDA tensors, its plain
+twin for CPU tensors. The eager layer module below is the reference the
+tests hold the routes against.
+
+Training draws from two torch.Generators, as masr_tpu from two rng
+streams: `generator` (on the model's device) for every dropout and the
+training kernel's per-(layer, utterance) seeds, `chunk_generator` (on the
+CPU) for the dynamic chunk, so the CPU and the card draw the same chunk.
 
 Streaming state (`ConformerEncoder.init_cache`) is a dict of device
 tensors that every chunk step updates IN PLACE, for the slots it advances:
@@ -29,23 +37,26 @@ from torch import nn
 
 from masr_tpu_torch.models.attention import RelPositionMultiHeadedAttention
 from masr_tpu_torch.models.convolution import ConvolutionModule
+from masr_tpu_torch.models.decoder import BiTransformerDecoder
 from masr_tpu_torch.models.embedding import sinusoid_position_encoding
-from masr_tpu_torch.models.losses import CTCHead
+from masr_tpu_torch.models.losses import CTCHead, label_smoothing_loss
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.models.subsampling import subsampling_class
-from masr_tpu_torch.ops.common import get_activation
+from masr_tpu_torch.ops.common import (IGNORE_ID, add_sos_eos, dropout,
+                                       get_activation, reverse_pad_list,
+                                       th_accuracy)
 from masr_tpu_torch.ops.cuda.chunk_layer import (clamp_pos_starts,
                                                  fused_chunk_layer,
                                                  make_chunk_pos_table)
 from masr_tpu_torch.ops.cuda.conformer_layer import (fused_conformer_layer,
                                                      pack_layer_params)
-from masr_tpu_torch.ops.masks import make_pad_mask
+from masr_tpu_torch.ops.cuda.conformer_layer_train import \
+    fused_conformer_layer_train
+from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
 
-# encoder_conf keys that only steer training or TPU routing: the offline
-# forward here has no dropout and one route
-_IGNORED_ENCODER_KEYS = ("dropout_rate", "positional_dropout_rate",
-                         "attention_dropout_rate", "use_dynamic_left_chunk",
-                         "use_flash_attention", "use_fused_layer",
+# encoder_conf keys that only steer masr_tpu's TPU routing: every layer of
+# the port runs its kernel, with no gate to switch
+_IGNORED_ENCODER_KEYS = ("use_flash_attention", "use_fused_layer",
                          "use_fused_layer_train")
 
 
@@ -60,7 +71,8 @@ class ConformerEncoderLayer(nn.Module):
 
     def __init__(self, size, attention_heads, linear_units,
                  cnn_module_kernel=15, causal=False,
-                 activation_type="swish", cnn_module_norm="layer_norm"):
+                 activation_type="swish", cnn_module_norm="layer_norm",
+                 dropout_rate=0.0, attention_dropout_rate=0.0):
         super().__init__()
         act = get_activation(activation_type)
         self.size = size
@@ -68,11 +80,14 @@ class ConformerEncoderLayer(nn.Module):
         self.cnn_module_kernel = cnn_module_kernel
         self.causal = causal
         self.ff_scale = 0.5
-        self.self_attn = RelPositionMultiHeadedAttention(attention_heads,
-                                                         size)
-        self.feed_forward = PositionwiseFeedForward(size, linear_units, act)
-        self.feed_forward_macaron = PositionwiseFeedForward(size,
-                                                            linear_units, act)
+        self.dropout_rate = dropout_rate
+        self.attention_dropout_rate = attention_dropout_rate
+        self.self_attn = RelPositionMultiHeadedAttention(
+            attention_heads, size, attention_dropout_rate)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units, act,
+                                                    dropout_rate)
+        self.feed_forward_macaron = PositionwiseFeedForward(
+            size, linear_units, act, dropout_rate)
         self.conv_module = ConvolutionModule(size, cnn_module_kernel, act,
                                              cnn_module_norm, causal)
         self.norm_ff = _layer_norm(size)
@@ -82,14 +97,20 @@ class ConformerEncoderLayer(nn.Module):
         self.norm_final = _layer_norm(size)
         self._packed, self._packed_key = None, None
 
-    def forward(self, x, mask, pos_emb, mask_pad):
+    def forward(self, x, mask, pos_emb, mask_pad, generator=None):
         """Eager reference. x: (B, T, D); mask: (B, 1|T, T) bool;
-        pos_emb: (1, T, D); mask_pad: (B, 1, T) bool."""
-        x = x + self.ff_scale * self.feed_forward_macaron(
-            self.norm_ff_macaron(x))
-        x = x + self.self_attn(self.norm_mha(x), mask, pos_emb)[0]
-        x = x + self.conv_module(self.norm_conv(x), mask_pad)[0]
-        x = x + self.ff_scale * self.feed_forward(self.norm_ff(x))
+        pos_emb: (1, T, D); mask_pad: (B, 1, T) bool. In training mode
+        the dropouts draw from `generator`."""
+        def drop(v):
+            return dropout(v, self.dropout_rate, self.training, generator)
+
+        x = x + self.ff_scale * drop(self.feed_forward_macaron(
+            self.norm_ff_macaron(x), generator))
+        x = x + drop(self.self_attn(self.norm_mha(x), mask, pos_emb,
+                                    generator=generator)[0])
+        x = x + drop(self.conv_module(self.norm_conv(x), mask_pad)[0])
+        x = x + self.ff_scale * drop(self.feed_forward(self.norm_ff(x),
+                                                       generator))
         return self.norm_final(x)
 
     def forward_cached(self, x, mask, pos_emb, att_cache, cnn_cache):
@@ -117,6 +138,21 @@ class ConformerEncoderLayer(nn.Module):
             self._packed_key = key
         return self._packed
 
+    def forward_train(self, x, mask, seeds, lens, pos_emb, index):
+        """The layer through the training-layer kernel, differentiable in x
+        and every parameter (packed with grad enabled, so the kernel's
+        weight grads reach the parameters). mask: (B, T, T) bool; seeds:
+        (B,) int32 dropout seeds of this layer; index: the layer's index;
+        dropout only in training mode."""
+        train = self.training
+        return fused_conformer_layer_train(
+            x, mask, seeds, lens, self.self_attn.linear_pos(pos_emb[0]),
+            pack_layer_params(self), layer=index,
+            n_head=self.attention_heads, ksize=self.cnn_module_kernel,
+            causal=self.causal, ff_scale=self.ff_scale,
+            rate=self.dropout_rate if train else 0.0,
+            att_rate=self.attention_dropout_rate if train else 0.0)
+
     def forward_full_context(self, x, lens, pos_emb):
         """The layer through the full-context kernel. lens: (B,) int32."""
         pos_p = self.self_attn.linear_pos(pos_emb[0])
@@ -135,40 +171,51 @@ class ConformerEncoder(nn.Module):
                  static_chunk_size=0, use_dynamic_chunk=False,
                  macaron_style=True, activation_type="swish",
                  use_cnn_module=True, cnn_module_kernel=15, causal=False,
-                 cnn_module_norm="layer_norm", cmvn=None, **conf):
+                 cnn_module_norm="layer_norm", dropout_rate=0.1,
+                 positional_dropout_rate=0.1, attention_dropout_rate=0.0,
+                 use_dynamic_left_chunk=False, cmvn=None, **conf):
         super().__init__()
         unknown = set(conf) - set(_IGNORED_ENCODER_KEYS)
         if unknown:
             raise TypeError(f"unknown encoder_conf keys: {sorted(unknown)}")
-        # the full-context layer kernel takes exactly this layer shape
+        # the layer kernels take exactly this layer shape
         for ok, what in (
                 (pos_enc_layer_type == "rel_pos", "pos_enc_layer_type "
                  f"{pos_enc_layer_type!r} (the kernel takes rel_pos)"),
                 (normalize_before, "normalize_before=False"),
                 (macaron_style, "macaron_style=False"),
-                (use_cnn_module, "use_cnn_module=False"),
-                (use_dynamic_chunk or static_chunk_size <= 0,
-                 "a static chunk mask (full context only)")):
+                (use_cnn_module, "use_cnn_module=False")):
             if not ok:
                 raise NotImplementedError(
-                    f"{what}: the full-context layer kernel does not take "
-                    "this layer shape")
+                    f"{what}: the layer kernels do not take this layer "
+                    "shape")
         self.global_cmvn = cmvn
         self.output_size = output_size
         self.attention_heads = attention_heads
         self.causal = causal
         self.cnn_module_kernel = cnn_module_kernel
-        self.embed = subsampling_class(input_layer)(input_size, output_size)
+        self.use_dynamic_chunk = use_dynamic_chunk
+        self.use_dynamic_left_chunk = use_dynamic_left_chunk
+        self.static_chunk_size = static_chunk_size
+        self.dropout_rate = dropout_rate
+        self.attention_dropout_rate = attention_dropout_rate
+        self.embed = subsampling_class(input_layer)(input_size, output_size,
+                                                    positional_dropout_rate)
         self.encoders = nn.ModuleList(
             ConformerEncoderLayer(output_size, attention_heads, linear_units,
                                   cnn_module_kernel, causal, activation_type,
-                                  cnn_module_norm)
+                                  cnn_module_norm, dropout_rate,
+                                  attention_dropout_rate)
             for _ in range(num_blocks))
         self.after_norm = _layer_norm(output_size)
 
     def forward(self, xs, xs_lens):
         """Full context. xs: (B, T, F) f32; xs_lens: (B,) →
         (out (B, T', D), masks (B, 1, T') bool)."""
+        if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
+            raise NotImplementedError(
+                "a static chunk mask at inference: the full-context layer "
+                "kernel takes full context only")
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
@@ -176,6 +223,41 @@ class ConformerEncoder(nn.Module):
         lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
         for layer in self.encoders:
             xs = layer.forward_full_context(xs, lens, pos_emb)
+        return self.after_norm(xs), masks
+
+    def forward_train(self, xs, xs_lens, generator=None,
+                      chunk_generator=None, decoding_chunk_size=0,
+                      num_decoding_left_chunks=-1):
+        """The loss path (masr_tpu's __call__ with train): subsampling with
+        positional dropout, the (B, T', T') chunk mask (a dynamic chunk is
+        drawn from chunk_generator), every layer through the training-layer
+        kernel with per-(layer, utterance) seeds from `generator`. Dropout
+        only in training mode. → (out (B, T', D), masks (B, 1, T'))."""
+        masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        xs, pos_emb, masks = self.embed(xs, masks, generator=generator)
+        B, T2 = xs.shape[0], xs.shape[1]
+        if self.use_dynamic_chunk and decoding_chunk_size == 0 and \
+                chunk_generator is None:
+            raise ValueError("dynamic-chunk training draws its chunk from "
+                             "chunk_generator (a CPU torch.Generator)")
+        chunk_masks = add_optional_chunk_mask(
+            T2, masks, self.use_dynamic_chunk, self.use_dynamic_left_chunk,
+            decoding_chunk_size, self.static_chunk_size,
+            num_decoding_left_chunks, generator=chunk_generator)
+        lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
+        if self.training and (self.dropout_rate > 0
+                              or self.attention_dropout_rate > 0):
+            seeds = torch.randint(0, 2 ** 31 - 1, (len(self.encoders), B),
+                                  generator=generator, device=xs.device,
+                                  dtype=torch.int32)
+        else:
+            seeds = torch.zeros(len(self.encoders), B, dtype=torch.int32,
+                                device=xs.device)
+        for i, layer in enumerate(self.encoders):
+            xs = layer.forward_train(xs, chunk_masks, seeds[i], lens, pos_emb,
+                                     i)
         return self.after_norm(xs), masks
 
     def init_cache(self, batch=1, cache_size=256, device=None):
@@ -281,19 +363,87 @@ class ConformerEncoder(nn.Module):
 
 
 class ConformerModel(nn.Module):
-    """Encoder + CTC head. The bundle's attention-decoder weights are
-    carried in `decoder_state` (unused until the rescoring slice)."""
+    """Encoder + CTC head + bidirectional attention decoder, trained with
+    the hybrid loss (masr_tpu/models/conformer.py:638-736)."""
 
     def __init__(self, input_dim, vocab_size, cmvn=None, streaming=True,
-                 encoder_conf=None):
+                 encoder_conf=None, decoder_conf=None, ctc_weight=0.5,
+                 ignore_id=IGNORE_ID, reverse_weight=0.0, lsm_weight=0.0,
+                 length_normalized_loss=False):
         super().__init__()
+        if not 0.0 <= ctc_weight <= 1.0:
+            raise ValueError(f"ctc_weight {ctc_weight} not in [0, 1]")
         enc_conf = dict(encoder_conf or {})
         enc_conf.setdefault("use_dynamic_chunk", streaming)
         enc_conf.setdefault("causal", streaming)
         self.encoder = ConformerEncoder(input_dim, cmvn=cmvn, **enc_conf)
-        self.ctc = CTCHead(self.encoder.after_norm.normalized_shape[0],
-                           vocab_size)
-        self.decoder_state = {}
+        D = self.encoder.output_size
+        self.decoder = BiTransformerDecoder(vocab_size, D,
+                                            **dict(decoder_conf or {}))
+        self.ctc = CTCHead(D, vocab_size)
+        self.vocab_size = vocab_size
+        self.ctc_weight = ctc_weight
+        self.ignore_id = ignore_id
+        self.reverse_weight = reverse_weight
+        self.lsm_weight = lsm_weight
+        self.length_normalized_loss = length_normalized_loss
+        # sos == eos == the last token (the vocabulary's <eos>)
+        self.sos = self.eos = vocab_size - 1
+
+    @property
+    def decoder_state(self):
+        """The attention decoder's weights under their upstream names."""
+        return {"decoder." + k: v for k, v in self.decoder.state_dict().items()}
+
+    def forward(self, speech, speech_lengths, text, text_lengths,
+                generator=None, chunk_generator=None):
+        """The hybrid loss → {'loss', 'loss_att', 'loss_ctc', 'acc_att'}
+        (scalars). speech (B, T, F) f32, speech_lengths (B,), text (B, L)
+        padded with -1, text_lengths (B,). Dropout in training mode, drawn
+        from `generator`; the dynamic chunk from `chunk_generator`."""
+        encoder_out, encoder_mask = self.encoder.forward_train(
+            speech, speech_lengths, generator, chunk_generator)
+        encoder_lens = encoder_mask[:, 0, :].sum(dim=1, dtype=torch.int32)
+        zero = torch.zeros((), device=encoder_out.device)
+        loss_att, acc_att, loss_ctc = zero, zero, zero
+        if self.ctc_weight != 1.0:
+            loss_att, acc_att = self._calc_att_loss(
+                encoder_out, encoder_mask, text, text_lengths, generator)
+        if self.ctc_weight != 0.0:
+            loss_ctc = self.ctc(encoder_out, encoder_lens, text,
+                                text_lengths)
+        if self.ctc_weight == 0.0:
+            loss = loss_att
+        elif self.ctc_weight == 1.0:
+            loss = loss_ctc
+        else:
+            loss = self.ctc_weight * loss_ctc + \
+                (1 - self.ctc_weight) * loss_att
+        return {"loss": loss, "loss_att": loss_att, "loss_ctc": loss_ctc,
+                "acc_att": acc_att}
+
+    def _calc_att_loss(self, encoder_out, encoder_mask, ys_pad, ys_pad_lens,
+                       generator):
+        ys_in, ys_out = add_sos_eos(ys_pad, ys_pad_lens, self.sos, self.eos,
+                                    self.ignore_id)
+        r_ys_pad = reverse_pad_list(ys_pad, ys_pad_lens, self.ignore_id)
+        r_ys_in, r_ys_out = add_sos_eos(r_ys_pad, ys_pad_lens, self.sos,
+                                        self.eos, self.ignore_id)
+        decoder_out, r_decoder_out = self.decoder(
+            encoder_out, encoder_mask, ys_in, ys_pad_lens + 1, r_ys_in,
+            self.reverse_weight, generator)
+        loss_att = label_smoothing_loss(
+            decoder_out, ys_out, self.vocab_size, self.ignore_id,
+            self.lsm_weight, self.length_normalized_loss)
+        if r_decoder_out is not None:
+            r_loss_att = label_smoothing_loss(
+                r_decoder_out, r_ys_out, self.vocab_size, self.ignore_id,
+                self.lsm_weight, self.length_normalized_loss)
+            loss_att = loss_att * (1 - self.reverse_weight) + \
+                r_loss_att * self.reverse_weight
+        acc_att = th_accuracy(decoder_out.reshape(-1, self.vocab_size),
+                              ys_out, self.ignore_id)
+        return loss_att, acc_att
 
     def get_encoder_out(self, speech, speech_lengths):
         """Full-context CTC softmax → (probs (B, T', V), out_lens (B,))."""

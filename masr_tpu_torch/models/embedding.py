@@ -1,12 +1,16 @@
 """Positional encoding (port of masr_tpu/models/embedding.py:15-67).
 
 Encodings are computed on the fly from absolute positions; the rel-pos
-encoding is used without rel_shift, as the reference does.
+encoding is used without rel_shift, as the reference does. In training
+mode both modules apply their dropout to x and to the returned encoding,
+as masr_tpu does.
 """
 import math
 
 import torch
 from torch import nn
+
+from masr_tpu_torch.ops.common import dropout
 
 
 def sinusoid_position_encoding(positions: torch.Tensor,
@@ -30,9 +34,10 @@ class RelPositionalEncoding(nn.Module):
     """x · √d, and the encoding of absolute positions offset..offset+T-1
     returned separately as (1, T, d_model)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
 
     def pos_emb(self, offset, size, device=None):
         """(1, size, d_model): the sinusoid of max(offset + j, 0)
@@ -41,6 +46,19 @@ class RelPositionalEncoding(nn.Module):
                                 min=0)
         return sinusoid_position_encoding(positions, self.d_model)[None]
 
-    def forward(self, x, offset=0):
-        pos_emb = self.pos_emb(offset, x.shape[1], x.device)
-        return x * math.sqrt(self.d_model), pos_emb.to(x.dtype)
+    def forward(self, x, offset=0, generator=None):
+        pos_emb = self.pos_emb(offset, x.shape[1], x.device).to(x.dtype)
+        x = x * math.sqrt(self.d_model)
+        return (dropout(x, self.dropout_rate, self.training, generator),
+                dropout(pos_emb, self.dropout_rate, self.training, generator))
+
+
+class PositionalEncoding(RelPositionalEncoding):
+    """Absolute sinusoidal encoding: (x · √d + pe, pe), both through the
+    dropout in training (the attention decoder's input)."""
+
+    def forward(self, x, offset=0, generator=None):
+        pos_emb = self.pos_emb(offset, x.shape[1], x.device).to(x.dtype)
+        x = x * math.sqrt(self.d_model) + pos_emb
+        return (dropout(x, self.dropout_rate, self.training, generator),
+                dropout(pos_emb, self.dropout_rate, self.training, generator))

@@ -1,16 +1,20 @@
 """Model registry (port of masr_tpu/models/registry.py): `use_model`
-selects the family. This slice ports the Conformer; the attention decoder
-and the training loss weights (decoder_conf, model_conf) are not used by
-offline CTC recognition."""
+selects the family; encoder_conf and decoder_conf are splatted into the
+constructors and model_conf carries the loss weights (ctc_weight,
+lsm_weight, reverse_weight, length_normalized_loss). The port has the
+Conformer."""
 from masr_tpu_torch.models.conformer import ConformerModel
 
 
 def build_model(use_model: str, input_dim: int, vocab_size: int,
-                streaming: bool = True, encoder_conf=None, cmvn=None):
+                streaming: bool = True, encoder_conf=None, decoder_conf=None,
+                model_conf=None, cmvn=None):
     if use_model == "conformer":
         return ConformerModel(input_dim=input_dim, vocab_size=vocab_size,
                               cmvn=cmvn, streaming=streaming,
-                              encoder_conf=encoder_conf)
+                              encoder_conf=encoder_conf,
+                              decoder_conf=decoder_conf,
+                              **dict(model_conf or {}))
     if use_model in ("deepspeech2", "squeezeformer", "efficient_conformer"):
         raise NotImplementedError(f"model family {use_model!r} is not "
                                   "ported yet")

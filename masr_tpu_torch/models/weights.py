@@ -136,6 +136,40 @@ def to_flax_variables(state_dict):
     return {"params": params}
 
 
+def grads_to_flax_variables(named_params):
+    """{upstream name: parameter} (model.named_parameters()) → {'params':
+    flax tree of f32 numpy arrays} holding each parameter's .grad in the
+    flax layout (the weight map is linear, so grads map as weights do);
+    a parameter without a grad maps to zeros."""
+    return to_flax_variables({
+        name: p.grad if p.grad is not None else torch.zeros_like(p)
+        for name, p in dict(named_params).items()})
+
+
+@torch.no_grad()
+def flax_like_init(model, generator):
+    """Re-initialise `model` in place with the distributions masr_tpu's
+    flax modules start from (train_conf.init_type "flax"): kernels
+    lecun_normal (a normal truncated at ±2σ, σ = 1/√fan_in / 0.8796), biases
+    0, LayerNorm scales 1, embeddings N(0, 1), pos_bias_u/v xavier_uniform;
+    drawn from `generator` (CPU)."""
+    for name, p in model.named_parameters():
+        t = torch.empty(p.shape, dtype=torch.float32)
+        if name.endswith("pos_bias_u") or name.endswith("pos_bias_v"):
+            torch.nn.init.xavier_uniform_(t, generator=generator)
+        elif "norm" in name:
+            t.fill_(1.0 if name.endswith(".weight") else 0.0)
+        elif name.endswith(".embed.0.weight"):
+            t.normal_(0.0, 1.0, generator=generator)
+        elif name.endswith(".weight") and p.dim() >= 2:
+            std = (1.0 / np.sqrt(np.prod(p.shape[1:]))) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                        generator=generator)
+        else:
+            t.zero_()
+        p.copy_(t)
+
+
 def seeded_state_dict(model, seed):
     """Random weights for `model`, drawn with numpy from `seed`: weights
     U(±1/√fan_in) as torch's default init, LayerNorm scales 1 + N(0, 0.1²),

@@ -1,0 +1,240 @@
+"""Conformer encoder layer for training: the Hopper kernel (forward and
+backward) and its plain twin.
+
+Port of masr_tpu/ops/pallas/conformer_layer_train.py
+(`fused_conformer_layer_train`, its `_half1` / `_half2` custom-VJP ops).
+The CUDA source is masr_tpu_torch/csrc/conformer_layer_train.cu; its header
+says how the layer is split into kernels, what the forward saves for the
+backward and what bounds it on the H100.
+
+`fused_conformer_layer_train` runs a `torch.autograd.Function` for a CUDA
+tensor: its forward launches the forward kernels, its backward the
+hand-written backward kernels, and it returns a grad for x, for posp (the
+linear_pos product, left to autograd outside) and for every packed weight
+array, so the packing (`pack_layer_params`, differentiable when called
+with grad enabled) carries the grads on to the layer's parameters. A CPU
+tensor takes `fused_conformer_layer_train_plain`, the same function in
+plain PyTorch with autograd as its backward. Both draw their dropout masks
+from masr_tpu_torch/ops/dropout_hash.py, so the kernel and the plain twin
+agree at any rate, gradients included.
+
+Launches: `fused_conformer_layer_train.launches` counts one per forward
+and one per backward call on a CUDA tensor (`.backward_launches` counts the
+backward ones).
+"""
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from masr_tpu_torch.ops.cuda.conformer_layer import (MASK_VALUE, PACKED_KEYS,
+                                                     _check)
+from masr_tpu_torch.ops.dropout_hash import dropout_mask, dropout_params
+
+# dropout sites, as csrc/conformer_layer_train.cu numbers them
+SITE_MACARON_HIDDEN, SITE_MACARON_OUT, SITE_ATT_PROB, SITE_ATT_OUT, \
+    SITE_CONV_OUT, SITE_FFN_HIDDEN, SITE_FFN_OUT = range(7)
+
+
+def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
+                                      layer, n_head, ksize, causal,
+                                      ff_scale=0.5, rate=0.0, att_rate=0.0,
+                                      eps=1e-5):
+    """Plain PyTorch version of the kernel, same arguments. x: (B, T, D)
+    f32; mask: (B, T, T) bool attention mask (chunk and padding); seeds:
+    (B,) int32, this layer's per-utterance dropout seeds; lens: (B,) valid
+    lengths; posp: (T, D) linear_pos(pos_emb); packed: `pack_layer_params`;
+    layer: the layer's index (a dropout-hash key); rate: dropout at the
+    FFN hidden and output, attention output and conv output; att_rate: at
+    the attention probabilities. → (B, T, D)."""
+    B, T, D = x.shape
+    d_k = D // n_head
+    lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
+    dev = x.device
+    t_idx = torch.arange(T, device=dev)
+
+    def drop(v, site, r, rows=None):
+        if r <= 0.0:
+            return v
+        rows = t_idx if rows is None else rows
+        m = dropout_mask(seeds, layer, site, rows,
+                         torch.arange(v.shape[-1], device=dev), r)
+        return v * m.reshape(v.shape)
+
+    def layer_norm(v, i):
+        return F.layer_norm(v, (D,), lnw[i, 0], lnw[i, 1], eps)
+
+    def ffn(v, i, site_h, site_o):
+        h = drop(F.silu(v @ packed["ffw1"][i] + packed["ffb1"][i]), site_h,
+                 rate)
+        return drop(h @ packed["ffw2"][i] + vecb[i], site_o, rate)
+
+    row_ok = (t_idx[None, :] < lens.to(dev)[:, None])[:, :, None]
+    x = x + ff_scale * ffn(layer_norm(x, 0), 0, SITE_MACARON_HIDDEN,
+                           SITE_MACARON_OUT)
+
+    # rel-pos MHSA over the (B, T, T) mask: AC + BD as one 2·d_k product
+    xn = layer_norm(x, 1)
+    q, k, v = ((xn @ attw[i] + vecb[2 + i]).view(B, T, n_head, d_k)
+               .transpose(1, 2) for i in range(3))
+    p = posp.view(T, n_head, d_k).transpose(0, 1)[None]
+    bu = packed["posb"][0].view(n_head, 1, d_k)
+    bv = packed["posb"][1].view(n_head, 1, d_k)
+    qcat = torch.cat([q + bu, q + bv], dim=-1)
+    kcat = torch.cat([k, p.expand(B, -1, -1, -1)], dim=-1)
+    s = (qcat @ kcat.transpose(-1, -2)) * (1.0 / math.sqrt(d_k))
+    m = mask.to(dev, torch.bool)[:, None]
+    s = torch.where(m, s, MASK_VALUE)
+    prob = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = prob.sum(-1, keepdim=True)
+    pr = prob / torch.where(l == 0.0, 1.0, l)
+    if att_rate > 0.0:
+        rows = torch.arange(n_head * T, device=dev)
+        pr = pr * dropout_mask(seeds, layer, SITE_ATT_PROB, rows, t_idx,
+                               att_rate).view(B, n_head, T, T)
+    att = (pr @ v).transpose(1, 2).reshape(B, T, D)
+    x = x + drop(att @ attw[3] + vecb[5], SITE_ATT_OUT, rate)
+
+    # conv module; causal pad rows carry GLU(pw1 bias), non-causal pads 0
+    xm = torch.where(row_ok, layer_norm(x, 2), 0.0)
+    gx = xm @ packed["pw1w"] + packed["pw1b"][0]
+    u = gx[..., :D] * torch.sigmoid(gx[..., D:])
+    pw1b = packed["pw1b"][0]
+    if causal:
+        pad_row = pw1b[:D] * torch.sigmoid(pw1b[D:])
+        left, right = ksize - 1, 0
+    else:
+        pad_row = torch.zeros_like(pw1b[:D])
+        left = right = (ksize - 1) // 2
+    upad = torch.cat([pad_row.expand(B, left, D), u,
+                      pad_row.expand(B, right, D)], dim=1)
+    acc = torch.zeros_like(u)
+    for i in range(ksize):
+        acc = acc + upad[:, i:i + T] * packed["dww"][i]
+    y = F.silu(layer_norm(acc + vecb[6], 3)) @ packed["pw2w"] + vecb[7]
+    x = x + torch.where(row_ok, drop(y, SITE_CONV_OUT, rate), 0.0)
+
+    x = x + ff_scale * ffn(layer_norm(x, 4), 1, SITE_FFN_HIDDEN,
+                           SITE_FFN_OUT)
+    return layer_norm(x, 5)
+
+
+def _lib():
+    from masr_tpu_torch.ops.cuda import build
+    lib = build.load("conformer_layer_train")
+    P, I, U, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
+        ctypes.c_float
+    for name in ("masr_conformer_layer_train_saved_floats",
+                 "masr_conformer_layer_train_scratch_floats"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_size_t
+        fn.argtypes = [I] * 5
+    fn = lib.masr_conformer_layer_train_forward
+    fn.restype = I
+    fn.argtypes = [P] * 18 + [I] * 8 + [U, Fl, U, Fl, Fl, Fl, P]
+    fn = lib.masr_conformer_layer_train_backward
+    fn.restype = I
+    fn.argtypes = [P] * 27 + [I] * 8 + [U, Fl, U, Fl, Fl, P]
+    return lib
+
+
+# the backward's inputs among the packed arrays, in the C entry's order
+_BWD_KEYS = ("lnw", "ffw1", "ffw2", "attw", "pw1w", "pw1b", "pw2w", "dww")
+
+
+class _TrainLayer(torch.autograd.Function):
+    """Forward and backward through the CUDA kernels; the inputs after
+    (cfg, mask, seeds, lens) are x, posp and the packed arrays in
+    PACKED_KEYS order."""
+
+    @staticmethod
+    def forward(ctx, cfg, mask, seeds, lens, x, posp, *params):
+        lib = _lib()
+        B, T, D = x.shape
+        F_ = params[PACKED_KEYS.index("ffw1")].shape[2]
+        dims = (B, T, D, F_, cfg["n_head"])
+        saved = torch.empty(lib.masr_conformer_layer_train_saved_floats(
+            *dims), dtype=torch.float32, device=x.device)
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            err = lib.masr_conformer_layer_train_forward(
+                x.data_ptr(), mask.data_ptr(), seeds.data_ptr(),
+                lens.data_ptr(), posp.data_ptr(),
+                *(p.data_ptr() for p in params), out.data_ptr(),
+                saved.data_ptr(), *dims, cfg["ksize"], cfg["causal"],
+                cfg["layer"], *cfg["drop"], *cfg["att_drop"],
+                cfg["ff_scale"], cfg["eps"],
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"conformer_layer_train forward kernel "
+                               f"failed: CUDA error {err}")
+        fused_conformer_layer_train.launches += 1
+        ctx.cfg, ctx.dims, ctx.saved = cfg, dims, saved
+        ctx.save_for_backward(seeds, lens, posp, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        lib = _lib()
+        seeds, lens, posp, *params = ctx.saved_tensors
+        packed = dict(zip(PACKED_KEYS, params))
+        cfg, dims = ctx.cfg, ctx.dims
+        dy = dy.contiguous()
+        scratch = torch.empty(lib.masr_conformer_layer_train_scratch_floats(
+            *dims), dtype=torch.float32, device=dy.device)
+        dx, dposp = torch.empty_like(dy), torch.empty_like(posp)
+        grads = [torch.empty_like(p) for p in params]
+        with torch.cuda.device(dy.device):
+            err = lib.masr_conformer_layer_train_backward(
+                dy.data_ptr(), seeds.data_ptr(), lens.data_ptr(),
+                posp.data_ptr(), *(packed[k].data_ptr() for k in _BWD_KEYS),
+                ctx.saved.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
+                dposp.data_ptr(), *(g.data_ptr() for g in grads), *dims,
+                cfg["ksize"], cfg["causal"], cfg["layer"], *cfg["drop"],
+                *cfg["att_drop"], cfg["ff_scale"],
+                torch.cuda.current_stream(dy.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"conformer_layer_train backward kernel "
+                               f"failed: CUDA error {err}")
+        fused_conformer_layer_train.launches += 1
+        fused_conformer_layer_train.backward_launches += 1
+        return (None, None, None, None, dx, dposp, *grads)
+
+
+def fused_conformer_layer_train(x, mask, seeds, lens, posp, packed, *,
+                                layer, n_head, ksize, causal, ff_scale=0.5,
+                                rate=0.0, att_rate=0.0, eps=1e-5):
+    """The whole training layer, differentiable in x, posp and the packed
+    arrays. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernels or raises. Arguments as the plain version. → (B, T, D)."""
+    if x.device.type == "cpu":
+        return fused_conformer_layer_train_plain(
+            x, mask, seeds, lens, posp, packed, layer=layer, n_head=n_head,
+            ksize=ksize, causal=causal, ff_scale=ff_scale, rate=rate,
+            att_rate=att_rate, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    B, T, _ = x.shape
+    x, posp = x.contiguous(), posp.contiguous()
+    packed = {k: packed[k].contiguous() for k in PACKED_KEYS}
+    _check(x, lens, posp, packed, n_head, ksize, causal)
+    mask = mask.to(torch.uint8).contiguous()
+    if tuple(mask.shape) != (B, T, T) or mask.device != x.device:
+        raise ValueError(f"mask must be (B, T, T) = {(B, T, T)} on "
+                         f"{x.device}, got {tuple(mask.shape)}")
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (B,) or \
+            seeds.device != x.device:
+        raise ValueError("seeds must be (B,) int32 on the device of x")
+    if not 0 <= layer < 4096 or B >= 65536:
+        raise ValueError("the dropout hash keys layer < 4096, B < 65536")
+    cfg = {"n_head": n_head, "ksize": ksize, "causal": int(bool(causal)),
+           "layer": int(layer), "drop": dropout_params(rate),
+           "att_drop": dropout_params(att_rate),
+           "ff_scale": float(ff_scale), "eps": float(eps)}
+    return _TrainLayer.apply(cfg, mask, seeds.contiguous(), lens, x, posp,
+                             *(packed[k] for k in PACKED_KEYS))
+
+
+fused_conformer_layer_train.launches = 0
+fused_conformer_layer_train.backward_launches = 0

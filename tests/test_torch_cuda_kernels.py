@@ -129,3 +129,112 @@ def test_chunk_layer_kernel_matches_plain(cuda_device, shape, n_sub, route):
         assert err <= 2e-4, (name, err)
     assert torch.equal(a_k[4:], att[4:]) and torch.equal(n_k[4:], cnn[4:])
     assert not torch.equal(a_k[:4], att[:4])
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want| (1 where want is all 0)."""
+    scale = max(want.abs().max().item(), 1e-30)
+    return (got - want).abs().max().item() / scale
+
+
+# (d_model, heads, ffn, conv kernel, T, lens): test widths and the flagship
+TRAIN_SHAPES = [(64, 2, 96, 7, 45, [45, 36, 0]),
+                (256, 4, 2048, 15, 299, [299, 250, 180, 120, 64, 33, 17, 5])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.1)],
+                         ids=["drop0", "drop0.1"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=lambda s: f"D{s[0]}T{s[4]}")
+def test_train_layer_kernel_matches_plain(cuda_device, shape, causal, rates):
+    """fused_conformer_layer_train (CUDA forward + backward) == the plain
+    twin with autograd on the same card, same dropout hash: output max abs
+    err 2e-4; the grads of sum(y * w) wrt x, posp and every packed array
+    each within 1e-4 of the plain grad's largest magnitude (f32, other sum
+    order over up to B*T' rows); one forward and one backward launch."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    D, H, FF, K, T, lens = shape
+    rate, att_rate = rates
+    B = len(lens)
+    layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                  causal=causal)
+    layer.load_state_dict(seeded_state_dict(layer, seed=D + T + 1))
+    layer = layer.to(cuda_device)
+    g = torch.Generator().manual_seed(T + 5)
+    x = torch.randn(B, T, D, generator=g).to(cuda_device)
+    w = torch.randn(B, T, D, generator=g).to(cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    r = torch.arange(T, device=cuda_device)
+    mask = ((r[None, :] // 16) <= (r[:, None] // 16))[None] & \
+        (r[None, None, :] < lens_t[:, None, None])
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+    posp0 = layer.self_attn.linear_pos(sinusoid_position_encoding(
+        r, D)).detach()
+    packed0 = {k: v.detach() for k, v in cl.pack_layer_params(layer).items()}
+    results = {}
+    for name, fn in (("kernel", clt.fused_conformer_layer_train),
+                     ("plain", clt.fused_conformer_layer_train_plain)):
+        xx = x.clone().requires_grad_(True)
+        pp = posp0.clone().requires_grad_(True)
+        pk = {k: v.clone().requires_grad_(True) for k, v in packed0.items()}
+        before = clt.fused_conformer_layer_train.launches
+        y = fn(xx, mask, seeds, lens_t, pp, pk, layer=3, n_head=H, ksize=K,
+               causal=causal, rate=rate, att_rate=att_rate)
+        (y * w).sum().backward()
+        torch.cuda.synchronize()
+        results[name] = (y.detach(), xx.grad, pp.grad,
+                         {k: v.grad for k, v in pk.items()},
+                         clt.fused_conformer_layer_train.launches - before)
+    (y_k, dx_k, dp_k, dw_k, n_k), (y_p, dx_p, dp_p, dw_p, _) = \
+        results["kernel"], results["plain"]
+    assert n_k == 2
+    assert torch.isfinite(y_k).all() and torch.isfinite(dx_k).all()
+    assert (y_k - y_p).abs().max().item() <= 2e-4
+    for name, a, b in [("x", dx_k, dx_p), ("posp", dp_k, dp_p)] + [
+            (k, dw_k[k], dw_p[k]) for k in dw_p]:
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= 1e-4, (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,V,L", [(4, 37, 23, 9), (8, 299, 4000, 80)])
+def test_ctc_kernel_matches_plain(cuda_device, B, T, V, L):
+    """ctc_loss (CUDA forward + backward) == ctc_loss_plain on the same
+    card: per-sequence NLL rtol 1e-5; the logits grad of a weighted sum
+    within max(2x the plain twin's f32 error, 1e-4) of the plain twin in
+    f64 (f32 log-space sums over T frames with |log Z| ~ 1e3 leave ~1e-3
+    in the occupancies, in both f32 versions); label lengths from 0 to L (S = 2L + 1 up to 161, past the
+    TPU kernel's 128-state cap), repeats, padded frames; one forward and
+    one backward launch."""
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    g = torch.Generator().manual_seed(B + T)
+    logits = (2 * torch.randn(B, T, V, generator=g)).to(cuda_device)
+    labels = torch.randint(1, min(V, 6) if B == 4 else V, (B, L),
+                           generator=g)
+    label_lens = torch.linspace(0, L, B).round().to(torch.int32)
+    logit_lens = torch.clamp(T - 3 * torch.arange(B), min=2 * L + 1)
+    labels[torch.arange(L)[None] >= label_lens[:, None]] = -1
+    wts = torch.randn(B, generator=g).to(cuda_device)
+    args = (logit_lens.to(cuda_device), labels.to(cuda_device),
+            label_lens.to(cuda_device))
+    out = {}
+    for name, fn, dtype in (("kernel", C.ctc_loss, torch.float32),
+                            ("plain", C.ctc_loss_plain, torch.float32),
+                            ("f64", C.ctc_loss_plain, torch.float64)):
+        lg = logits.detach().to(dtype).clone().requires_grad_(True)
+        before = C.ctc_loss.launches
+        nll = fn(lg, *args)
+        (nll * wts.to(dtype)).sum().backward()
+        torch.cuda.synchronize()
+        out[name] = (nll.detach().double(), lg.grad.double(),
+                     C.ctc_loss.launches - before)
+    (n_k, g_k, launched), (n_p, g_p, _), (_, g_64, _) = (
+        out["kernel"], out["plain"], out["f64"])
+    assert launched == 2
+    assert torch.isfinite(n_k).all() and torch.isfinite(g_k).all()
+    torch.testing.assert_close(n_k, n_p, rtol=1e-5, atol=1e-4)
+    k64 = (g_k - g_64).abs().max().item()
+    p64 = (g_p - g_64).abs().max().item()
+    assert k64 <= max(2 * p64, 1e-4), (k64, p64)
