@@ -1195,10 +1195,12 @@ def phase_train(dev):
     return launches, rows, resumed
 
 
-PROFILE_GROUPS = (("train layer: GEMMs", ("gemm_ex_kernel",)),
+# the training layer's GEMMs are common.cuh's gemm_kernel instantiated with
+# its epilogue functor Epi (the serving kernels' take ServeEpi)
+PROFILE_GROUPS = (("train layer: GEMMs", ("::Epi>", "splitk_sum_kernel")),
                   ("train layer: attention softmax", ("att_softmax",)),
                   ("train layer: column sums", ("colsum_kernel",)),
-                  ("train layer: LayerNorm", ("ln_fwd_kernel",
+                  ("train layer: LayerNorm", ("layer_norm_kernel",
                                               "ln_bwd_kernel")),
                   ("train layer: conv module", ("conv_",)),
                   ("train layer: elementwise", ("scale_drop_kernel",

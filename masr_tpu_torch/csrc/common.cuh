@@ -1,16 +1,21 @@
 // Building blocks shared by the port's kernels (conformer_layer.cu,
-// chunk_layer.cu; conformer_layer_train.cu and ctc_loss.cu take the
-// warp reductions and the dropout hash), for Hopper (sm_90a), f32:
+// chunk_layer.cu, conformer_layer_train.cu; ctc_loss.cu takes the warp
+// reductions), for Hopper (sm_90a), f32:
 //
 //   warp_sum, warp_max     warp reductions
 //   dropout_mult           the counter-based dropout hash of the training
 //                          kernel (mirrored by ops/dropout_hash.py)
 //   layer_norm_kernel      one warp per row, f32 statistics, optional
-//                          zeroing of rows t >= len
-//   gemm_kernel<EPI>       Y = A.W + b, shared-memory tiled f32 FMA main
-//                          loop, fused epilogue (plain, SiLU, scaled
-//                          residual, row-masked residual)
-//   conv_module_kernel     GLU -> depthwise conv over time -> LN -> SiLU
+//                          zeroing of rows t >= len, optional saved x-hat
+//                          and 1/std for a backward
+//   gemm_kernel<.., TA, TB, E>  C = E(op(A).op(B)), shared-memory tiled
+//                          f32 FMA main loop, either operand transposed,
+//                          batched, with a compile-time epilogue functor E
+//                          (the serving kernels' ServeEpi: plain, SiLU,
+//                          scaled residual, row-masked residual; the
+//                          training kernel's own)
+//   conv_module_kernel     GLU -> depthwise conv over time -> LN -> SiLU,
+//                          optional saves for a backward
 //
 // The GEMM sums over K in the same order (k = 0, 1, ...) whatever tile it
 // picks, so a row's result does not depend on how many rows share the
@@ -79,20 +84,28 @@ __device__ __forceinline__ float dropout_mult(int seed, int layer, int site,
 // ------------------------------------------------------------------------
 // LayerNorm over the last dim, one warp per row. With `lens` set, rows
 // whose time index t = row % T is >= lens[row / T] are written as zeros.
+// For a backward, xhat = (x - mean) / std and rstd = 1 / std are saved
+// when given (zeros in the zeroed rows).
 // ------------------------------------------------------------------------
 __global__ void layer_norm_kernel(const float* __restrict__ x,
                                   float* __restrict__ y,
                                   const float* __restrict__ gamma,
                                   const float* __restrict__ beta, int M, int D,
                                   float eps, const int* __restrict__ lens,
-                                  int T) {
+                                  int T, float* __restrict__ xhat,
+                                  float* __restrict__ rstd) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const float* xr = x + (size_t)row * D;
   float* yr = y + (size_t)row * D;
+  float* hr = xhat ? xhat + (size_t)row * D : nullptr;
   if (lens != nullptr && (row % T) >= lens[row / T]) {
-    for (int c = lane; c < D; c += 32) yr[c] = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      yr[c] = 0.f;
+      if (hr) hr[c] = 0.f;
+    }
+    if (rstd && lane == 0) rstd[row] = 0.f;
     return;
   }
   float s = 0.f;
@@ -103,33 +116,53 @@ __global__ void layer_norm_kernel(const float* __restrict__ x,
     const float d = xr[c] - mu;
     s2 += d * d;
   }
-  const float rstd = rsqrtf(warp_sum(s2) / D + eps);
-  for (int c = lane; c < D; c += 32)
-    yr[c] = (xr[c] - mu) * rstd * gamma[c] + beta[c];
+  const float r = rsqrtf(warp_sum(s2) / D + eps);
+  if (rstd && lane == 0) rstd[row] = r;
+  for (int c = lane; c < D; c += 32) {
+    const float h = (xr[c] - mu) * r;
+    if (hr) hr[c] = h;
+    yr[c] = h * gamma[c] + beta[c];
+  }
 }
 
 // ------------------------------------------------------------------------
-// C = epilogue(A (M,K) . W (K,N) + bias (N)), all row-major f32.
-// BM x BN block tile, BK = 8 deep, each thread a TM x TN micro-tile whose
-// rows/cols are strided by the thread grid (conflict-free smem reads,
-// coalesced stores). Ragged edges are zero-filled on load, masked on
-// store. C may alias R (in-place residual update): each element is read
-// and written by the same thread.
+// C = epi(op(A) (M, K) . op(B) (K, N)), row-major f32, optionally batched:
+// op(A)(m, k) = TA ? A[k lda + m] : A[m lda + k], op(B)(k, n) = TB ?
+// B[n ldb + k] : B[k ldb + n]; matrix z of a batch (blockIdx.z) starts
+// (z / div) s1 + (z % div) s2 floats into its array. BM x BN block tile,
+// BK = 8 deep, each thread a TM x TN micro-tile whose rows/cols are
+// strided by the thread grid (conflict-free smem reads, coalesced stores).
+// Ragged edges are zero-filled on load, masked on store.
+//
+// The epilogue is a compile-time functor E: r = e.row(m) once per output
+// row, then e(C, o, r, n, acc) stores element (m, n) at C[o], o counted
+// from C's start (batch offset included), so arrays laid out like C share
+// it. An epilogue may read R = C (in-place residual update): each element
+// is read and written by the same thread.
 // ------------------------------------------------------------------------
-enum Epilogue { kBias = 0, kSilu = 1, kResidual = 2, kRowMaskResidual = 3 };
+struct Batch {
+  long long s1 = 0, s2 = 0;
+  int div = 1;
+};
 
-template <int BM, int BN, int TM, int TN, int EPI>
+__device__ __forceinline__ long long batch_off(const Batch& b, int z) {
+  return (long long)(z / b.div) * b.s1 + (long long)(z % b.div) * b.s2;
+}
+
+template <int BM, int BN, int TM, int TN, bool TA, bool TB, class E>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, float* C, const float* R,
-                int M, int N, int K, float scale,
-                const int* __restrict__ lens, int T) {
+    gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                float* C, int M, int N, int K, int lda, int ldb, int ldc,
+                Batch ba, Batch bb, Batch bc, E e) {
   constexpr int BK = 8;
   constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
   __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN];
+  __shared__ float Bs[BK][BN + (TB ? 4 : 0)];
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
+  A += batch_off(ba, z);
+  Bm += batch_off(bb, z);
+  const size_t co = (size_t)batch_off(bc, z);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -139,13 +172,21 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
     for (int i = tid; i < BM * BK; i += NT) {
-      const int r = i / BK, c = i % BK, gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+      const int r = TA ? i % BM : i / BK, c = TA ? i / BM : i % BK;
+      const int gm = m0 + r, gk = k0 + c;
+      float v = 0.f;
+      if (gm < M && gk < K)
+        v = TA ? A[(size_t)gk * lda + gm] : A[(size_t)gm * lda + gk];
+      As[c][r] = v;
     }
 #pragma unroll
     for (int i = tid; i < BK * BN; i += NT) {
-      const int r = i / BN, c = i % BN, gk = k0 + r, gn = n0 + c;
-      Ws[r][c] = (gk < K && gn < N) ? W[(size_t)gk * N + gn] : 0.f;
+      const int r = TB ? i % BK : i / BN, c = TB ? i / BK : i % BN;
+      const int gk = k0 + r, gn = n0 + c;
+      float v = 0.f;
+      if (gk < K && gn < N)
+        v = TB ? Bm[(size_t)gn * ldb + gk] : Bm[(size_t)gk * ldb + gn];
+      Bs[r][c] = v;
     }
     __syncthreads();
 #pragma unroll
@@ -154,7 +195,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = Ws[kk][tx + j * TX];
+      for (int j = 0; j < TN; ++j) w[j] = Bs[kk][tx + j * TX];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -167,38 +208,70 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + i * TY;
     if (m >= M) continue;
-    bool row_ok = true;
-    if (EPI == kRowMaskResidual) row_ok = (m % T) < lens[m / T];
+    const auto r = e.row(m);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + j * TX;
       if (n >= N) continue;
-      const size_t o = (size_t)m * N + n;
-      const float v = acc[i][j] + bias[n];
-      if (EPI == kBias) C[o] = v;
-      if (EPI == kSilu) C[o] = silu_f(v);
-      if (EPI == kResidual) C[o] = R[o] + scale * v;
-      if (EPI == kRowMaskResidual) C[o] = R[o] + (row_ok ? v : 0.f);
+      e(C, co + (size_t)m * ldc + n, r, n, acc[i][j]);
     }
   }
 }
 
+template <bool TA, bool TB, class E>
+cudaError_t gemm_launch(const float* A, const float* B, float* C, int M,
+                        int N, int K, int lda, int ldb, int ldc, const E& e,
+                        cudaStream_t stream, int batch = 1,
+                        Batch ba = Batch(), Batch bb = Batch(),
+                        Batch bc = Batch()) {
+  if (M <= 0 || N <= 0 || batch <= 0) return cudaGetLastError();
+  // big tiles once they fill the 132 SMs, small ones otherwise
+  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128) * batch;
+  if (big_tiles >= 132) {
+    dim3 grid((N + 127) / 128, (M + 127) / 128, batch);
+    gemm_kernel<128, 128, 8, 8, TA, TB, E><<<grid, 256, 0, stream>>>(
+        A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e);
+  } else {
+    dim3 grid((N + 63) / 64, (M + 63) / 64, batch);
+    gemm_kernel<64, 64, 4, 4, TA, TB, E><<<grid, 256, 0, stream>>>(
+        A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e);
+  }
+  return cudaGetLastError();
+}
+
+// The serving kernels' epilogues on v = acc + bias[n]: plain, SiLU, scaled
+// residual R + scale v, and the residual with rows t = m % T >= lens[m / T]
+// adding nothing.
+enum Epilogue { kBias = 0, kSilu = 1, kResidual = 2, kRowMaskResidual = 3 };
+
+template <int EPI>
+struct ServeEpi {
+  const float* bias;
+  const float* R;
+  float scale;
+  const int* lens;
+  int T;
+  __device__ __forceinline__ bool row(int m) const {
+    return EPI != kRowMaskResidual || (m % T) < lens[m / T];
+  }
+  __device__ __forceinline__ void operator()(float* C, size_t o, bool row_ok,
+                                             int n, float acc) const {
+    const float v = acc + bias[n];
+    if (EPI == kBias) C[o] = v;
+    if (EPI == kSilu) C[o] = silu_f(v);
+    if (EPI == kResidual) C[o] = R[o] + scale * v;
+    if (EPI == kRowMaskResidual) C[o] = R[o] + (row_ok ? v : 0.f);
+  }
+};
+
+// C (M, N) = epilogue(A (M, K) . W (K, N) + bias (N))
 template <int EPI>
 cudaError_t gemm(const float* A, const float* W, const float* bias, float* C,
                  const float* R, int M, int N, int K, float scale,
                  const int* lens, int T, cudaStream_t stream) {
-  // big tiles once they fill the 132 SMs, small ones otherwise
-  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big_tiles >= 132) {
-    dim3 grid((N + 127) / 128, (M + 127) / 128);
-    gemm_kernel<128, 128, 8, 8, EPI><<<grid, 256, 0, stream>>>(
-        A, W, bias, C, R, M, N, K, scale, lens, T);
-  } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64);
-    gemm_kernel<64, 64, 4, 4, EPI><<<grid, 256, 0, stream>>>(
-        A, W, bias, C, R, M, N, K, scale, lens, T);
-  }
-  return cudaGetLastError();
+  return gemm_launch<false, false>(A, W, C, M, N, K, K, N, N,
+                                   ServeEpi<EPI>{bias, R, scale, lens, T},
+                                   stream);
 }
 
 // ------------------------------------------------------------------------
@@ -208,7 +281,8 @@ cudaError_t gemm(const float* A, const float* W, const float* bias, float* C,
 //   + k - 1. One block per (16 output rows, utterance). The block stages
 //   the (16 + k - 1) rows of u it needs in smem; out-of-range rows are the
 //   conv padding: GLU(pw1 bias) before row 0 when `pad_bias`, zeros
-//   otherwise.
+//   otherwise. For a backward the LN's output before SiLU (`pre`), its
+//   x-hat and 1/std are saved when given.
 // ------------------------------------------------------------------------
 constexpr int kConvRows = 16;
 constexpr int kConvThreads = 256;
@@ -221,7 +295,8 @@ __global__ void __launch_bounds__(kConvThreads)
                        const float* __restrict__ gamma,
                        const float* __restrict__ beta, float* __restrict__ y,
                        int T_in, int T_out, int D, int ksize, int left,
-                       int pad_bias, float eps) {
+                       int pad_bias, float eps, float* __restrict__ pre,
+                       float* __restrict__ xhat, float* __restrict__ rstd) {
   extern __shared__ float smem[];
   const int W = kConvRows + ksize - 1;
   float* us = smem;              // W x D
@@ -261,17 +336,25 @@ __global__ void __launch_bounds__(kConvThreads)
       const float d = xr[c] - mu;
       s2 += d * d;
     }
-    const float rstd = rsqrtf(warp_sum(s2) / D + eps);
-    float* yr = y + ((size_t)b * T_out + t) * D;
-    for (int c = lane; c < D; c += 32)
-      yr[c] = silu_f((xr[c] - mu) * rstd * gamma[c] + beta[c]);
+    const float rs = rsqrtf(warp_sum(s2) / D + eps);
+    const size_t row = (size_t)b * T_out + t, o = row * D;
+    if (rstd && lane == 0) rstd[row] = rs;
+    for (int c = lane; c < D; c += 32) {
+      const float h = (xr[c] - mu) * rs, v = h * gamma[c] + beta[c];
+      if (xhat) xhat[o + c] = h;
+      if (pre) pre[o + c] = v;
+      y[o + c] = silu_f(v);
+    }
   }
 }
 
+// pre, xhat, rstd: optional saves for a backward (nullptr: not saved)
 cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
                         const float* pw1b, const float* ln, float* y, int B,
                         int T_in, int T_out, int D, int ksize, int left,
-                        int pad_bias, float eps, cudaStream_t stream) {
+                        int pad_bias, float eps, cudaStream_t stream,
+                        float* pre = nullptr, float* xhat = nullptr,
+                        float* rstd = nullptr) {
   const size_t smem = sizeof(float) * (size_t)(2 * kConvRows + ksize - 1) * D;
   cudaError_t err = cudaFuncSetAttribute(
       conv_module_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -280,19 +363,21 @@ cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
   dim3 grid((T_out + kConvRows - 1) / kConvRows, B);
   conv_module_kernel<<<grid, kConvThreads, smem, stream>>>(
       g, dww, dwb, pw1b, ln, ln + D, y, T_in, T_out, D, ksize, left,
-      pad_bias, eps);
+      pad_bias, eps, pre, xhat, rstd);
   return cudaGetLastError();
 }
 
-// LayerNorm idx of the packed (6, 2, D) scales and shifts
+// LayerNorm idx of the packed (6, 2, D) scales and shifts; xhat, rstd:
+// optional saves for a backward
 cudaError_t layer_norm(const float* x, float* y, const float* lnw, int idx,
                        int M, int D, float eps, const int* lens, int T,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, float* xhat = nullptr,
+                       float* rstd = nullptr) {
   const int rows_per_block = 8;
   const float* gamma = lnw + (size_t)idx * 2 * D;
   layer_norm_kernel<<<(M + rows_per_block - 1) / rows_per_block,
                       rows_per_block * 32, 0, stream>>>(
-      x, y, gamma, gamma + D, M, D, eps, lens, T);
+      x, y, gamma, gamma + D, M, D, eps, lens, T, xhat, rstd);
   return cudaGetLastError();
 }
 

@@ -8,9 +8,10 @@
 //
 //   1. layer_norm_kernel       one warp per row, f32 statistics, optional
 //                              zeroing of rows t >= len (the conv input xm)
-//   2. gemm_kernel<EPI>        Y = A.W + b with a shared-memory tiled f32 FMA
+//   2. gemm<EPI>               Y = A.W + b with a shared-memory tiled f32 FMA
 //                              main loop and a fused epilogue: plain, SiLU,
 //                              scaled residual x + s*y, row-masked residual
+//                              (common.cuh's gemm_kernel with ServeEpi)
 //   3. attention_kernel<NDK>   rel-pos attention, one block per (utterance,
 //                              head, 32-query tile); online softmax over
 //                              32-key tiles, so any T runs in fixed smem

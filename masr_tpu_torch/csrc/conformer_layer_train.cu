@@ -13,25 +13,25 @@
 // T'=299.
 //
 // Two C entries, one ctypes call each per layer and direction:
-//   masr_conformer_layer_train_forward   ~22 launches
+//   masr_conformer_layer_train_forward   ~21 launches
 //   masr_conformer_layer_train_backward  ~55 launches
-// built from these kernel kinds:
-//   gemm_ex_kernel<TA, TB>  C = epi(op(A) . op(B)), shared-memory tiled f32
-//                           FMA (common.cuh's gemm_kernel, generalised)
-//                           with A or B transposed (dX = dY.W^T, dW =
-//                           A^T.dY, the latter split over K on few tiles),
-//                           batched over (utterance, head) for attention,
-//                           and an epilogue: bias, SiLU (saving the
-//                           pre-activation), x dSiLU(aux), dropout, row
-//                           mask, scaled residual
-//   ln_fwd_kernel / ln_bwd_kernel   LayerNorm saving x-hat and 1/std, and
-//                           its backward
+// built from common.cuh's kernels and these:
+//   gemm_kernel<.., TA, TB, Epi>  common.cuh's GEMM with A or B transposed
+//                           (dX = dY.W^T, dW = A^T.dY, the latter split
+//                           over K on few tiles), batched over (utterance,
+//                           head) for attention, and this file's epilogue
+//                           Epi: bias, SiLU (saving the pre-activation),
+//                           x dSiLU(aux), dropout, row mask, scaled residual
+//   layer_norm_kernel       common.cuh's, saving x-hat and 1/std;
+//                           ln_bwd_kernel its backward
+//   conv_module_kernel      common.cuh's GLU + depthwise conv + LN + SiLU,
+//                           saving the LN's output, x-hat and 1/std
 //   colsum_kernel           bias and LayerNorm parameter grads: column sums
 //                           over all B*T' rows in a fixed order
 //   att_softmax(_bwd)_kernel  masked softmax over the (B, T', T') chunk
 //                           mask with attention-probability dropout
-//   conv_*_kernel           GLU + depthwise conv forward, its input grad,
-//                           its weight grad and the causal-pad bias grad
+//   conv_*_kernel           the conv module's input grad, its depthwise
+//                           weight grad and the causal-pad bias grad
 // Parameter grads come from one product (split over K in a fixed order on
 // few tiles) or one column sum over all B*T' rows: deterministic, no
 // atomics.
@@ -66,62 +66,14 @@
 namespace {
 
 // ------------------------------------------------------------------------
-// LayerNorm over the last dim, one warp per row: y = act(LN(x)); rows
-// whose time index t = row % T is >= lens[row / T] (lens set) give y = 0;
-// saves pre = LN(x) before act (optional), x-hat and 1/std.
+// The products' epilogue (a functor for common.cuh's gemm_kernel) on
+// element (m, n), row m = b T + t:
+//   v = alpha acc + bias[n]; pre = v; v = act(v) (SiLU, or v dSiLU(aux));
+//   v *= drop(b, t, n); v = 0 where t >= lens[b]; C = R + res_scale v
+// R may alias C (in-place residual update).
 // ------------------------------------------------------------------------
 enum Act { kActNone = 0, kActSilu = 1, kActDsilu = 2 };
 
-__global__ void ln_fwd_kernel(const float* __restrict__ x,
-                              float* __restrict__ y, float* __restrict__ pre,
-                              float* __restrict__ xhat,
-                              float* __restrict__ rstd,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ beta, int M, int D,
-                              float eps, const int* __restrict__ lens, int T,
-                              int act) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const size_t base = (size_t)row * D;
-  const float* xr = x + base;
-  float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += xr[c];
-  const float mu = warp_sum(s) / D;
-  float s2 = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    const float d = xr[c] - mu;
-    s2 += d * d;
-  }
-  const float r = rsqrtf(warp_sum(s2) / D + eps);
-  if (rstd && lane == 0) rstd[row] = r;
-  const bool ok = lens == nullptr || (row % T) < lens[row / T];
-  for (int c = lane; c < D; c += 32) {
-    const float xh = (xr[c] - mu) * r;
-    if (xhat) xhat[base + c] = xh;
-    float v = xh * gamma[c] + beta[c];
-    if (pre) pre[base + c] = v;
-    if (act == kActSilu) v = silu_f(v);
-    y[base + c] = ok ? v : 0.f;
-  }
-}
-
-// ------------------------------------------------------------------------
-// C = epi(op(A) (M, K) . op(B) (K, N)), row-major f32, optionally batched
-// (common.cuh's gemm_kernel generalised; the serving kernels keep that
-// one, whose compile-time epilogue is ~5% faster for them):
-// op(A)(m, k) = TA ? A[k lda + m] : A[m lda + k], op(B)(k, n) = TB ?
-// B[n ldb + k] : B[k ldb + n]; matrix z of a batch starts (z / div) s1 +
-// (z % div) s2 floats in. BM x BN block tile, BK = 8 deep, each thread a
-// TM x TN micro-tile whose rows/cols are strided by the thread grid
-// (conflict-free smem reads, coalesced stores). Ragged edges are zero-
-// filled on load, masked on store. The epilogue on element (m, n), row
-// m = b T + t:
-//   v = alpha acc + bias[n]; pre = v; v = act(v) (SiLU, or v dSiLU(aux));
-//   v *= drop(b, t, n); v = 0 where t >= lens[b]; C = R + res_scale v
-// C may alias R (in-place residual update): each element is read and
-// written by the same thread.
-// ------------------------------------------------------------------------
 __device__ __forceinline__ float dsilu_f(float z) {
   const float s = sigmoid_f(z);
   return s * (1.f + z * (1.f - s));
@@ -153,111 +105,27 @@ struct Epi {
   Drop drop = {nullptr, 0, 0, 0u, 1.f};
   const int* lens = nullptr;
   int T = 1;
+
+  struct Row {
+    int b, t;
+    bool ok;
+  };
+  __device__ __forceinline__ Row row(int m) const {
+    const int b = m / T, t = m % T;
+    return {b, t, lens == nullptr || t < lens[b]};
+  }
+  __device__ __forceinline__ void operator()(float* C, size_t o,
+                                             const Row& r, int n,
+                                             float acc) const {
+    float v = alpha * acc + (bias ? bias[n] : 0.f);
+    if (pre) pre[o] = v;
+    if (act == kActSilu) v = silu_f(v);
+    if (act == kActDsilu) v *= dsilu_f(aux[o]);
+    v *= drop_at(drop, r.b, r.t, n);
+    if (!r.ok) v = 0.f;
+    C[o] = (R ? R[o] : 0.f) + res_scale * v;
+  }
 };
-
-struct Batch {
-  long long s1 = 0, s2 = 0;
-  int div = 1;
-};
-
-__device__ __forceinline__ long long boff(const Batch& b, int z) {
-  return (long long)(z / b.div) * b.s1 + (long long)(z % b.div) * b.s2;
-}
-
-template <int BM, int BN, int TM, int TN, bool TA, bool TB>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    gemm_ex_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
-                   float* C, int M, int N, int K, int lda, int ldb, int ldc,
-                   Batch ba, Batch bb, Batch bc, Epi e) {
-  constexpr int BK = 8;
-  constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
-  A += boff(ba, z);
-  Bw += boff(bb, z);
-  const long long co = boff(bc, z);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int r = TA ? i % BM : i / BK, c = TA ? i / BM : i % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      float v = 0.f;
-      if (gm < M && gk < K)
-        v = TA ? A[(size_t)gk * lda + gm] : A[(size_t)gm * lda + gk];
-      As[c][r] = v;
-    }
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int r = TB ? i % BK : i / BN, c = TB ? i / BK : i % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      float v = 0.f;
-      if (gk < K && gn < N)
-        v = TB ? Bw[(size_t)gn * ldb + gk] : Bw[(size_t)gk * ldb + gn];
-      Ws[r][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], w[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = Ws[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * TY;
-    if (m >= M) continue;
-    const int b = m / e.T, t = m % e.T;
-    const bool row_ok = e.lens == nullptr || t < e.lens[b];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n >= N) continue;
-      const size_t o = (size_t)co + (size_t)m * ldc + n;
-      float v = e.alpha * acc[i][j] + (e.bias ? e.bias[n] : 0.f);
-      if (e.pre) e.pre[o] = v;
-      if (e.act == kActSilu) v = silu_f(v);
-      if (e.act == kActDsilu) v *= dsilu_f(e.aux[o]);
-      v *= drop_at(e.drop, b, t, n);
-      if (!row_ok) v = 0.f;
-      C[o] = (e.R ? e.R[o] : 0.f) + e.res_scale * v;
-    }
-  }
-}
-
-template <bool TA, bool TB>
-cudaError_t gemm_ex(const float* A, const float* B, float* C, int M, int N,
-                    int K, int lda, int ldb, int ldc, const Epi& e,
-                    cudaStream_t st, int batch = 1, Batch ba = Batch(),
-                    Batch bb = Batch(), Batch bc = Batch()) {
-  if (M <= 0 || N <= 0 || batch <= 0) return cudaGetLastError();
-  // big tiles once they fill the 132 SMs, small ones otherwise
-  const long big = (long)((M + 127) / 128) * ((N + 127) / 128) * batch;
-  if (big >= 132) {
-    dim3 grid((N + 127) / 128, (M + 127) / 128, batch);
-    gemm_ex_kernel<128, 128, 8, 8, TA, TB><<<grid, 256, 0, st>>>(
-        A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e);
-  } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64, batch);
-    gemm_ex_kernel<64, 64, 4, 4, TA, TB><<<grid, 256, 0, st>>>(
-        A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e);
-  }
-  return cudaGetLastError();
-}
 
 enum Site {
   kSiteMacaronHidden = 0,
@@ -272,14 +140,14 @@ enum Site {
 // C (M, N) = A (M, K) . W (K, N)
 cudaError_t mm_nn(const float* A, const float* W, float* C, int M, int N,
                   int K, const Epi& e, cudaStream_t st) {
-  return gemm_ex<false, false>(A, W, C, M, N, K, K, N, N, e, st);
+  return gemm_launch<false, false>(A, W, C, M, N, K, K, N, N, e, st);
 }
 
 // C (M, N) = A (M, K) . W^T, W stored (N, K): the input grad dY . W^T of
 // a product Y = X . W with W (in = N, out = K)
 cudaError_t mm_nt(const float* A, const float* W, float* C, int M, int N,
                   int K, const Epi& e, cudaStream_t st) {
-  return gemm_ex<false, true>(A, W, C, M, N, K, K, K, N, e, st);
+  return gemm_launch<false, true>(A, W, C, M, N, K, K, K, N, e, st);
 }
 
 // Weight grads C (M, N) = A^T . B over K = B*T' rows (A stored (K, M), B
@@ -309,20 +177,20 @@ cudaError_t mm_tn(const float* A, const float* B, float* C, int M, int N,
                   int K, float* part, cudaStream_t st) {
   const int slices = splitk_slices(M, N, K);
   if (slices == 1)
-    return gemm_ex<true, false>(A, B, C, M, N, K, M, N, N, Epi(), st);
+    return gemm_launch<true, false>(A, B, C, M, N, K, M, N, N, Epi(), st);
   const int kc = ((K + slices - 1) / slices + 7) / 8 * 8;
   const int full = K / kc, rest = K - full * kc;
   Batch ba, bb, bc;
   ba.s1 = (long long)kc * M;
   bb.s1 = (long long)kc * N;
   bc.s1 = (long long)M * N;
-  TRY((gemm_ex<true, false>(A, B, part, M, N, kc, M, N, N, Epi(), st, full,
-                            ba, bb, bc)));
+  TRY((gemm_launch<true, false>(A, B, part, M, N, kc, M, N, N, Epi(), st,
+                                full, ba, bb, bc)));
   if (rest)
-    TRY((gemm_ex<true, false>(A + (size_t)full * kc * M,
-                              B + (size_t)full * kc * N,
-                              part + (size_t)full * M * N, M, N, rest, M, N,
-                              N, Epi(), st)));
+    TRY((gemm_launch<true, false>(A + (size_t)full * kc * M,
+                                  B + (size_t)full * kc * N,
+                                  part + (size_t)full * M * N, M, N, rest, M,
+                                  N, N, Epi(), st)));
   const size_t n = (size_t)M * N;
   splitk_sum_kernel<<<blocks_for(n, 256), 256, 0, st>>>(part, C,
                                                         full + (rest > 0), n);
@@ -361,16 +229,6 @@ __global__ void ln_bwd_kernel(const float* __restrict__ dy,
         ok ? r * (dy[o + c] * gamma[c] - m1 - xhat[o + c] * m2) : 0.f;
     dx[o + c] = (base ? base[o + c] : 0.f) + v;
   }
-}
-
-cudaError_t ln_fwd(const float* x, float* y, float* pre, float* xhat,
-                   float* rstd, const float* lnw, int idx, int M, int D,
-                   float eps, const int* lens, int T, int act,
-                   cudaStream_t st) {
-  const float* g = lnw + (size_t)idx * 2 * D;
-  ln_fwd_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, y, pre, xhat, rstd, g, g + D,
-                                             M, D, eps, lens, T, act);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------------
@@ -521,8 +379,9 @@ __global__ void att_softmax_bwd_kernel(float* __restrict__ dP,
 }
 
 // ------------------------------------------------------------------------
-// Conv module: GLU of pw1's output g (B, T, 2D), depthwise conv over time.
-// GLU row r of utterance b: r in [0, T) from g; r < 0 is the left pad,
+// Conv module backward. The forward (common.cuh's conv_module_kernel) ran
+// GLU of pw1's output g (B, T, 2D), then a depthwise conv over time: GLU
+// row r of utterance b: r in [0, T) from g; r < 0 is the left pad,
 // GLU(pw1 bias) when pad_bias (causal), else 0; r >= T is 0.
 // ------------------------------------------------------------------------
 __device__ __forceinline__ float glu_row(const float* __restrict__ g,
@@ -534,26 +393,6 @@ __device__ __forceinline__ float glu_row(const float* __restrict__ g,
     return gr[c] * sigmoid_f(gr[D + c]);
   }
   return (pad_bias && r < 0) ? pw1b[c] * sigmoid_f(pw1b[D + c]) : 0.f;
-}
-
-// out (B, T, D): row t = sum_i GLU row (t - left + i) * dww[i] + dwb
-__global__ void conv_dw_fwd_kernel(const float* __restrict__ g,
-                                   const float* __restrict__ dww,
-                                   const float* __restrict__ dwb,
-                                   const float* __restrict__ pw1b,
-                                   float* __restrict__ out, int B, int T,
-                                   int D, int ksize, int left, int pad_bias) {
-  const size_t total = (size_t)B * T * D;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i % D), t = (int)((i / D) % T);
-    const int b = (int)(i / ((size_t)T * D));
-    float acc = 0.f;
-    for (int j = 0; j < ksize; ++j)
-      acc = fmaf(glu_row(g, pw1b, b, t - left + j, c, T, D, pad_bias),
-                 dww[j * D + c], acc);
-    out[i] = acc + dwb[c];
-  }
 }
 
 // dg (B, T, 2D) from dc (B, T, D): du(t) = sum_i dc(t + left - i) dww[i]
@@ -633,8 +472,8 @@ __global__ void conv_pad_grad_kernel(const float* __restrict__ dc,
 // the backward reads them.
 // ------------------------------------------------------------------------
 struct Saved {
-  size_t xhat[6], rstd[6], y[5], cn, c, z0, h0, z1, h1, qu, qv, k, v, o, g,
-      P, Pd, xw, bias_uv, total;
+  size_t xhat[6], rstd[6], y[5], cn, z0, h0, z1, h1, qu, qv, k, v, o, g, P,
+      Pd, xw, bias_uv, total;
 };
 
 Saved saved_layout(int B, int T, int D, int F, int H) {
@@ -653,7 +492,6 @@ Saved saved_layout(int B, int T, int D, int F, int H) {
   }
   for (int i = 0; i < 5; ++i) s.y[i] = take(MD);
   s.cn = take(MD);
-  s.c = take(MD);
   s.z0 = take(MF);
   s.h0 = take(MF);
   s.z1 = take(MF);
@@ -805,15 +643,15 @@ extern "C" int masr_conformer_layer_train_forward(
   MASR_CHECK(cudaMemcpyAsync(xw, x, MD * sizeof(float),
                              cudaMemcpyDeviceToDevice, st));
   // macaron FFN (x ff_scale)
-  MASR_CHECK(ln_fwd(xw, S + L.y[0], nullptr, S + L.xhat[0], S + L.rstd[0],
-                    lnw, 0, M, D, eps, nullptr, T, kActNone, st));
+  MASR_CHECK(layer_norm(xw, S + L.y[0], lnw, 0, M, D, eps, nullptr, T, st,
+                        S + L.xhat[0], S + L.rstd[0]));
   MASR_CHECK(ffn_fwd(xw, S + L.y[0], S + L.z0, S + L.h0, ffw1, ffb1, ffw2,
                      vecb, M, D, F, T, ff_scale, drop(kSiteMacaronHidden),
                      drop(kSiteMacaronOut), st));
 
   // rel-pos MHSA: q+u and q+v as two products with summed biases
-  MASR_CHECK(ln_fwd(xw, S + L.y[1], nullptr, S + L.xhat[1], S + L.rstd[1],
-                    lnw, 1, M, D, eps, nullptr, T, kActNone, st));
+  MASR_CHECK(layer_norm(xw, S + L.y[1], lnw, 1, M, D, eps, nullptr, T, st,
+                        S + L.xhat[1], S + L.rstd[1]));
   float* bias_u = S + L.bias_uv;
   float* bias_v = bias_u + D;
   MASR_CHECK(add(vecb + 2 * D, posb, bias_u, D, st));
@@ -843,19 +681,19 @@ extern "C" int masr_conformer_layer_train_forward(
   float *P = S + L.P, *Pd = S + L.Pd;
   Epi es;
   es.alpha = 1.f / sqrtf((float)dk);
-  MASR_CHECK((gemm_ex<false, true>(qu, kk, P, T, T, dk, D, D, T, es, st,
-                                  B * H, bq, bq, bs)));
+  MASR_CHECK((gemm_launch<false, true>(qu, kk, P, T, T, dk, D, D, T, es, st,
+                                       B * H, bq, bq, bs)));
   es.R = P;
-  MASR_CHECK((gemm_ex<false, true>(qv, posp, P, T, T, dk, D, D, T, es, st,
-                                  B * H, bq, bpos, bs)));
+  MASR_CHECK((gemm_launch<false, true>(qv, posp, P, T, T, dk, D, D, T, es,
+                                       st, B * H, bq, bpos, bs)));
   const long long rows = (long long)H * B * T;
   att_softmax_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       P, P, Pd, mask, B, H, T,
       make_drop(seeds, layer, kSiteAttProb, att_thresh, att_keep_scale));
   MASR_CHECK(cudaGetLastError());
   float* O = S + L.o;
-  MASR_CHECK((gemm_ex<false, false>(Pd, vv, O, T, dk, T, T, D, D, Epi(), st,
-                                   B * H, bs, bq, bq)));
+  MASR_CHECK((gemm_launch<false, false>(Pd, vv, O, T, dk, T, T, D, D, Epi(),
+                                        st, B * H, bs, bq, bq)));
   Epi eo;
   eo.bias = vecb + 5 * D;
   eo.R = xw;
@@ -865,19 +703,15 @@ extern "C" int masr_conformer_layer_train_forward(
 
   // conv module: LN (rows >= len zeroed) -> pw1 -> GLU + depthwise -> LN ->
   // SiLU -> pw2 (rows >= len zeroed)
-  MASR_CHECK(ln_fwd(xw, S + L.y[2], nullptr, S + L.xhat[2], S + L.rstd[2],
-                    lnw, 2, M, D, eps, lens, T, kActNone, st));
+  MASR_CHECK(layer_norm(xw, S + L.y[2], lnw, 2, M, D, eps, lens, T, st,
+                        S + L.xhat[2], S + L.rstd[2]));
   Epi eg;
   eg.bias = pw1b;
   MASR_CHECK(mm_nn(S + L.y[2], pw1w, S + L.g, M, 2 * D, D, eg, st));
-  const int left = causal ? ksize - 1 : (ksize - 1) / 2;
-  conv_dw_fwd_kernel<<<blocks_for(MD, 256), 256, 0, st>>>(
-      S + L.g, dww, vecb + 6 * D, pw1b, S + L.c, B, T, D, ksize, left,
-      causal);
-  MASR_CHECK(cudaGetLastError());
-  MASR_CHECK(ln_fwd(S + L.c, S + L.y[3], S + L.cn, S + L.xhat[3],
-                    S + L.rstd[3], lnw, 3, M, D, eps, nullptr, T, kActSilu,
-                    st));
+  MASR_CHECK(conv_module(S + L.g, dww, vecb + 6 * D, pw1b, lnw + 3 * 2 * D,
+                         S + L.y[3], B, T, T, D, ksize,
+                         causal ? ksize - 1 : (ksize - 1) / 2, causal, eps,
+                         st, S + L.cn, S + L.xhat[3], S + L.rstd[3]));
   Epi ec;
   ec.bias = vecb + 7 * D;
   ec.R = xw;
@@ -887,13 +721,13 @@ extern "C" int masr_conformer_layer_train_forward(
   MASR_CHECK(mm_nn(S + L.y[3], pw2w, xw, M, D, D, ec, st));
 
   // FFN (x ff_scale), final LN
-  MASR_CHECK(ln_fwd(xw, S + L.y[4], nullptr, S + L.xhat[4], S + L.rstd[4],
-                    lnw, 4, M, D, eps, nullptr, T, kActNone, st));
+  MASR_CHECK(layer_norm(xw, S + L.y[4], lnw, 4, M, D, eps, nullptr, T, st,
+                        S + L.xhat[4], S + L.rstd[4]));
   MASR_CHECK(ffn_fwd(xw, S + L.y[4], S + L.z1, S + L.h1, ffw1 + DF, ffb1 + F,
                      ffw2 + DF, vecb + D, M, D, F, T, ff_scale,
                      drop(kSiteFfnHidden), drop(kSiteFfnOut), st));
-  MASR_CHECK(ln_fwd(xw, out, nullptr, S + L.xhat[5], S + L.rstd[5], lnw, 5,
-                    M, D, eps, nullptr, T, kActNone, st));
+  MASR_CHECK(layer_norm(xw, out, lnw, 5, M, D, eps, nullptr, T, st,
+                        S + L.xhat[5], S + L.rstd[5]));
   return (int)cudaGetLastError();
 }
 
@@ -988,33 +822,33 @@ extern "C" int masr_conformer_layer_train_backward(
   MASR_CHECK(colsum(datt, nullptr, dvecb + 5 * D, M, D, nullptr, T, st));
   MASR_CHECK(mm_tn(S + L.o, datt, dattw + 3 * DD, D, D, M, part, st));
   MASR_CHECK(mm_nt(datt, attw + 3 * DD, dO, M, D, D, Epi(), st));
-  MASR_CHECK((gemm_ex<false, true>(dO, vv, dP, T, T, dk, D, D, T, Epi(), st,
-                                  B * H, bq, bq, bs)));
-  MASR_CHECK((gemm_ex<true, false>(S + L.Pd, dO, dv, T, dk, T, T, D, D,
-                                  Epi(), st, B * H, bs, bq, bq)));
+  MASR_CHECK((gemm_launch<false, true>(dO, vv, dP, T, T, dk, D, D, T, Epi(),
+                                       st, B * H, bq, bq, bs)));
+  MASR_CHECK((gemm_launch<true, false>(S + L.Pd, dO, dv, T, dk, T, T, D, D,
+                                       Epi(), st, B * H, bs, bq, bq)));
   const long long rows = (long long)H * B * T;
   att_softmax_bwd_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       dP, S + L.P, B, H, T,
       make_drop(seeds, layer, kSiteAttProb, att_thresh, att_keep_scale),
       1.f / sqrtf((float)dk));
   MASR_CHECK(cudaGetLastError());
-  MASR_CHECK((gemm_ex<false, false>(dP, kk, tk, T, dk, T, T, D, D, Epi(), st,
-                                   B * H, bs, bq, bq)));
-  MASR_CHECK((gemm_ex<false, false>(dP, posp, tp, T, dk, T, T, D, D, Epi(),
-                                   st, B * H, bs, bpos, bq)));
+  MASR_CHECK((gemm_launch<false, false>(dP, kk, tk, T, dk, T, T, D, D, Epi(),
+                                        st, B * H, bs, bq, bq)));
+  MASR_CHECK((gemm_launch<false, false>(dP, posp, tp, T, dk, T, T, D, D,
+                                        Epi(), st, B * H, bs, bpos, bq)));
   MASR_CHECK(add(tk, tp, dq, MD, st));
   MASR_CHECK(colsum(tk, nullptr, dposb, M, D, nullptr, T, st));
   MASR_CHECK(colsum(tp, nullptr, dposb + D, M, D, nullptr, T, st));
   float* dkk = t[0];  // datt is spent
-  MASR_CHECK((gemm_ex<true, false>(dP, qu, dkk, T, dk, T, T, D, D, Epi(), st,
-                                  B * H, bs, bq, bq)));
+  MASR_CHECK((gemm_launch<true, false>(dP, qu, dkk, T, dk, T, T, D, D, Epi(),
+                                       st, B * H, bs, bq, bq)));
   // dposp[:, head h] = sum over b of dS[h, b]^T . (q+v)[b, :, head h]: one
   // product per head with K = B*T (dS is laid out (h, B, T, T))
   Batch bh_s, bh_q;
   bh_s.s1 = (long long)B * T * T;
   bh_q.s1 = dk;
-  MASR_CHECK((gemm_ex<true, false>(dP, qv, dposp, T, dk, B * T, T, D, D,
-                                  Epi(), st, H, bh_s, bh_q, bh_q)));
+  MASR_CHECK((gemm_launch<true, false>(dP, qv, dposp, T, dk, B * T, T, D, D,
+                                       Epi(), st, H, bh_s, bh_q, bh_q)));
   MASR_CHECK(colsum(dq, nullptr, dvecb + 2 * D, M, D, nullptr, T, st));
   MASR_CHECK(colsum(dkk, nullptr, dvecb + 3 * D, M, D, nullptr, T, st));
   MASR_CHECK(colsum(dv, nullptr, dvecb + 4 * D, M, D, nullptr, T, st));

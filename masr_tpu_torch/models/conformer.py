@@ -226,8 +226,7 @@ class ConformerEncoder(nn.Module):
         return self.after_norm(xs), masks
 
     def forward_train(self, xs, xs_lens, generator=None,
-                      chunk_generator=None, decoding_chunk_size=0,
-                      num_decoding_left_chunks=-1):
+                      chunk_generator=None):
         """The loss path (masr_tpu's __call__ with train): subsampling with
         positional dropout, the (B, T', T') chunk mask (a dynamic chunk is
         drawn from chunk_generator), every layer through the training-layer
@@ -238,14 +237,12 @@ class ConformerEncoder(nn.Module):
             xs = self.global_cmvn(xs)
         xs, pos_emb, masks = self.embed(xs, masks, generator=generator)
         B, T2 = xs.shape[0], xs.shape[1]
-        if self.use_dynamic_chunk and decoding_chunk_size == 0 and \
-                chunk_generator is None:
+        if self.use_dynamic_chunk and chunk_generator is None:
             raise ValueError("dynamic-chunk training draws its chunk from "
                              "chunk_generator (a CPU torch.Generator)")
         chunk_masks = add_optional_chunk_mask(
             T2, masks, self.use_dynamic_chunk, self.use_dynamic_left_chunk,
-            decoding_chunk_size, self.static_chunk_size,
-            num_decoding_left_chunks, generator=chunk_generator)
+            0, self.static_chunk_size, -1, generator=chunk_generator)
         lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
         if self.training and (self.dropout_rate > 0
                               or self.attention_dropout_rate > 0):
