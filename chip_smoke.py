@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's offline and streaming recognition and its training
-through their public entry points (MASRPredictor.predict_batch,
-MASRPredictor.predict_stream, BatchStreamSession, MASRTrainer.train) and
-holds every hand-written kernel of those paths against its plain PyTorch
-twin. Phases, one JSON line each:
+Drives the port's offline and streaming recognition (the Conformer and the
+Squeezeformer) and its training through their public entry points
+(MASRPredictor.predict_batch, MASRPredictor.predict_stream,
+BatchStreamSession, MASRTrainer.train) and holds every hand-written kernel
+of those paths against its plain PyTorch twin. Phases, one JSON line each:
 
-  1. build          compile the four CUDA sources of the repo (nvcc, sm_90a),
+  1. build          compile the six CUDA sources of the repo (nvcc, sm_90a),
                     one process per source, all started together
   2. kernels        the full-context Conformer layer kernel vs its plain twin
                     at flagship width (D=256, 4 heads, FFN 2048, conv 15),
@@ -67,6 +67,28 @@ twin. Phases, one JSON line each:
                     events; train-step wall times, audio seconds trained
                     per second, and a torch.profiler breakdown of three
                     steps on the longest batch
+ 14. sq_kernels     the full-context Squeezeformer layer kernel vs its plain
+                    twin at the width of configs/squeezeformer.yml (D=256,
+                    4 heads, FFN 2048, conv 31): B=4 ragged, T' in {37, 150,
+                    299, 1500}, BatchNorm and layer_norm conv norms; the
+                    Squeezeformer chunk kernel vs its plain twin at B=32 and
+                    B=1, full rate (c=16, C=256) and half rate (c=8, C=128
+                    on the full-resolution ring), n_sub=2, four inactive
+                    slots (caches bitwise unchanged), wrapping write
+                    pointers
+ 15. sq_flagship    the 12-block Squeezeformer of configs/squeezeformer.yml
+                    (reduce 5, recover 11, BatchNorm statistics in the
+                    bundle's batch_stats), weights from a seed: predict_batch
+                    of the 8 utterances, card vs CPU, 12 layer-kernel
+                    launches per encode
+ 16. sq_stream      its predict_stream, both frontends, whole and in 0.2 s
+                    pieces, card vs CPU; 12 chunk launches per window
+ 17. sq_engine      a 32-stream BatchStreamSession: texts == predict_stream's,
+                    12 chunk launches per dispatch, 4 slots on the CPU
+ 18. sq_times       both Squeezeformer kernels vs their plain twins (CUDA
+                    events): the layer at B=8, T'=299 (full rate) and 150
+                    (half rate); the chunk layer at B=32 and B=1, both
+                    rates; predict_batch wall, engine tick at 32 streams
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -98,6 +120,20 @@ FLAGSHIP_ENCODER = dict(output_size=256, attention_heads=4, linear_units=2048,
                         normalize_before=True, cnn_module_kernel=15,
                         use_cnn_module=True, activation_type="swish",
                         pos_enc_layer_type="rel_pos")
+# configs/squeezeformer.yml encoder_conf and decoder_conf (cnn_norm_type:
+# the BatchNorm default; streaming: True → causal conv, `stream` reduction)
+SQ_ENCODER = dict(encoder_dim=256, output_size=256, attention_heads=4,
+                  num_blocks=12, reduce_idx=5, recover_idx=11,
+                  feed_forward_expansion_factor=8, input_dropout_rate=0.1,
+                  feed_forward_dropout_rate=0.1, attention_dropout_rate=0.1,
+                  adaptive_scale=True, cnn_module_kernel=31,
+                  normalize_before=False, activation_type="swish",
+                  pos_enc_layer_type="rel_pos")
+SQ_DECODER = dict(attention_heads=4, linear_units=1024, num_blocks=3,
+                  r_num_blocks=3, dropout_rate=0.1,
+                  positional_dropout_rate=0.1,
+                  self_attention_dropout_rate=0.1,
+                  src_attention_dropout_rate=0.1)
 PREPROCESS = dict(feature_method="fbank", n_mels=80, n_mfcc=40,
                   sample_rate=16000, use_dB_normalization=True, target_dB=-20)
 VOCAB = 4000                                          # bench.py:61
@@ -196,8 +232,10 @@ def phase_kernels(dev):
     return worst
 
 
-def write_flagship_bundle(path):
-    """A flagship bundle with weights drawn from seed 0, written the way
+def write_flagship_bundle(path, use_model="conformer"):
+    """A flagship bundle (the Conformer's, or with use_model="squeezeformer"
+    the Squeezeformer's of configs/squeezeformer.yml, BatchNorm statistics
+    in batch_stats) with weights drawn from seed 0, written the way
     masr_tpu's exporter writes one (flax msgpack), CMVN from the example
     bundle (same fbank frontend)."""
     from masr_tpu_torch.infer import flax_msgpack
@@ -207,18 +245,20 @@ def write_flagship_bundle(path):
     with open(os.path.join(TINY_BUNDLE, "inference.json"),
               encoding="utf-8") as f:
         tiny = json.load(f)
-    model = build_model("conformer", 80, VOCAB, streaming=True,
-                        encoder_conf=FLAGSHIP_ENCODER)
+    encoder_conf, decoder_conf = (FLAGSHIP_ENCODER, {}) \
+        if use_model == "conformer" else (SQ_ENCODER, SQ_DECODER)
+    model = build_model(use_model, 80, VOCAB, streaming=True,
+                        encoder_conf=encoder_conf, decoder_conf=decoder_conf)
     state = seeded_state_dict(model, seed=0)
     # CTC head ×8: the frame posteriors peak as a trained model's do; at
     # the default init they sit near 1/V, and no frame would have a top-2
     # margin for the argmax comparison
     state["ctc.ctc_lo.weight"] *= 8.0
     variables = to_flax_variables(state)
-    meta = {"framework": "masr_tpu", "use_model": "conformer",
+    meta = {"framework": "masr_tpu", "use_model": use_model,
             "streaming": True, "input_dim": 80, "vocab_size": VOCAB,
             "mean": tiny["mean"], "istd": tiny["istd"],
-            "encoder_conf": FLAGSHIP_ENCODER, "decoder_conf": {},
+            "encoder_conf": encoder_conf, "decoder_conf": decoder_conf,
             "model_conf": {}, "preprocess_conf": PREPROCESS,
             "quantization": None}
     vocab = (["<blank>", "<unk>"] + [chr(0x4e00 + i) for i in range(VOCAB - 3)]
@@ -247,20 +287,43 @@ def synthetic_utterances(vocab):
     return wavs
 
 
-def phase_flagship(dev):
+def layer_kernel(family):
+    """The full-context layer kernel's wrapper (its .launches counts)."""
+    if family == "conformer":
+        from masr_tpu_torch.ops.cuda.conformer_layer import \
+            fused_conformer_layer as fn
+    else:
+        from masr_tpu_torch.ops.cuda.squeezeformer_layer import \
+            fused_squeezeformer_layer as fn
+    return fn
+
+
+def chunk_kernel(family):
+    """The chunk-layer kernel's wrapper (its .launches counts)."""
+    if family == "conformer":
+        from masr_tpu_torch.ops.cuda.chunk_layer import \
+            fused_chunk_layer as fn
+    else:
+        from masr_tpu_torch.ops.cuda.chunk_layer_sq import \
+            fused_chunk_layer_sq as fn
+    return fn
+
+
+def phase_flagship(dev, family="conformer"):
+    """predict_batch of the 8 utterances on the family's flagship: card vs
+    CPU probs, launches per encode (phase "flagship" / "sq_flagship")."""
     from masr_tpu_torch.infer.predictor import MASRPredictor
-    from masr_tpu_torch.ops.cuda import conformer_layer as cl
-    path = os.path.join(WORK, "flagship_bundle")
-    wavs = synthetic_utterances(write_flagship_bundle(path))
+    path = os.path.join(WORK, f"{family}_bundle")
+    wavs = synthetic_utterances(write_flagship_bundle(path, family))
     gpu = MASRPredictor(model_dir=path, device=dev)
     # the main path: counts read around predict_batch alone
-    cl.fused_conformer_layer.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     texts = gpu.predict_batch(wavs)
     wall = time.perf_counter() - t0
-    launches = cl.fused_conformer_layer.launches
+    launches = layer_kernel(family).launches
     n_layers = FLAGSHIP_ENCODER["num_blocks"]
-    check(launches == n_layers, f"kernel launches {launches} == "
+    check(launches == n_layers, f"{family} kernel launches {launches} == "
           f"{n_layers} layers x 1 encoder call")
     cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
     speech, lens = gpu.featurize_batch(wavs)
@@ -282,7 +345,8 @@ def phase_flagship(dev):
     check(flips == 0, f"{flips} argmax flips where top-2 margin > "
           f"{ARGMAX_MARGIN}")
     cpu_texts = cpu.predict_batch(wavs)
-    emit({"phase": "flagship", "utterances": len(wavs),
+    emit({"phase": "flagship" if family == "conformer" else "sq_flagship",
+          "utterances": len(wavs),
           "seconds_audio": [round(len(w) / 16000, 3) for w in wavs],
           "T_out": int(p_gpu.shape[1]), "launches": launches,
           "probs_max_abs_err": err, "probs_atol": PROBS_ATOL,
@@ -323,6 +387,14 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def alternate(kernel, plain):
+    """CUDA-event times in the order plain, kernel, kernel, plain."""
+    runs = {"plain": [cuda_ms(plain)], "kernel": [cuda_ms(kernel)]}
+    runs["kernel"].append(cuda_ms(kernel))
+    runs["plain"].append(cuda_ms(plain))
+    return runs
+
+
 def phase_times(dev, gpu, wavs, smi):
     from masr_tpu_torch.ops.cuda import conformer_layer as cl
     T, lens = 299, [299] * 8
@@ -341,10 +413,7 @@ def phase_times(dev, gpu, wavs, smi):
         err = (kernel() - plain()).abs().max().item()
         check(err <= KERNEL_ATOL, f"kernel vs plain max abs err {err} <= "
               f"{KERNEL_ATOL} (B=8, T'={T})")
-        # plain, kernel, kernel, plain
-        runs = {"plain": [cuda_ms(plain)], "kernel": [cuda_ms(kernel)]}
-        runs["kernel"].append(cuda_ms(kernel))
-        runs["plain"].append(cuda_ms(plain))
+        runs = alternate(kernel, plain)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -375,12 +444,19 @@ def _weight_bytes(layer):
     return 4 * sum(t.numel() for t in layer.packed_params().values())
 
 
+def _widths(layer):
+    """(d_model, FFN units, conv kernel) of a Conformer or Squeezeformer
+    layer."""
+    return (layer.size, layer.packed_params()["ffw1"].shape[2],
+            layer.cnn_module_kernel)
+
+
 def layer_bound(layer, lens, T):
-    """Full-context layer over valid rows: matmuls, rel-pos attention over
-    the valid keys, depthwise conv (f32); bytes: packed weights, x in,
-    out, pos_p, each once."""
-    D, F, K = layer.size, layer.feed_forward.w_1.out_features, \
-        layer.cnn_module_kernel
+    """Full-context layer (Conformer or Squeezeformer: the same products)
+    over valid rows: matmuls, rel-pos attention over the valid keys,
+    depthwise conv (f32); bytes: packed weights, x in, out, pos_p, each
+    once."""
+    D, F, K = _widths(layer)
     M = sum(lens)
     flops = (8 * M * D * F + 8 * M * D * D        # FFN x2, q/k/v/out
              + 6 * M * D * D                      # pw1 (D -> 2D), pw2
@@ -390,15 +466,14 @@ def layer_bound(layer, lens, T):
     return _bound(flops, nbytes)
 
 
-def chunk_bound(layer, clens, active, c, C):
-    """One chunk-layer call (n_sub = 1) over B slots: matmuls over B*c rows
-    (pw1 over the k-1+c conv-input rows), attention of each slot over its
-    cache_len valid cache keys and the c chunk keys; bytes: packed weights,
-    x in and out, the valid cache rows read, the fresh rows and cnn caches
-    of active slots written, each slot's position window, cnn caches
-    read."""
-    D, F, K = layer.size, layer.feed_forward.w_1.out_features, \
-        layer.cnn_module_kernel
+def chunk_bound(layer, clens, active, c, C, rep=1):
+    """One chunk-layer call (n_sub = 1) over B slots at the layer's rate:
+    matmuls over B*c rows (pw1 over the k-1+c conv-input rows), attention
+    of each slot over its cache_len valid cache keys and the c chunk keys;
+    bytes: packed weights, x in and out, the valid cache rows read, the
+    fresh rows (rep copies each) and cnn caches of active slots written,
+    each slot's position window, cnn caches read."""
+    D, F, K = _widths(layer)
     B = len(clens)
     M, W = B * c, K - 1 + c
     flops = (8 * M * D * F + 8 * M * D * D + 4 * B * W * D * D
@@ -408,7 +483,7 @@ def chunk_bound(layer, clens, active, c, C):
     nbytes = _weight_bytes(layer) + 4 * (
         2 * M * D                                 # x in, out
         + sum(clens) * 2 * D                      # valid [K|V] cache rows
-        + n_act * min(c, C) * 2 * D               # fresh rows written
+        + n_act * min(c, C) * 2 * D * rep         # fresh rows written
         + B * (C + c) * D                         # position windows
         + (B + n_act) * (K - 1) * D)              # cnn caches in, out
     return _bound(flops, nbytes)
@@ -498,15 +573,12 @@ def phase_chunk_kernels(dev):
 
 
 def reset_launches():
-    from masr_tpu_torch.ops.cuda import chunk_layer as ck
-    from masr_tpu_torch.ops.cuda import conformer_layer as cl
-    ck.fused_chunk_layer.launches = 0
-    cl.fused_conformer_layer.launches = 0
+    for family in ("conformer", "squeezeformer"):
+        layer_kernel(family).launches = chunk_kernel(family).launches = 0
 
 
-def chunk_launches():
-    from masr_tpu_torch.ops.cuda import chunk_layer as ck
-    return ck.fused_chunk_layer.launches
+def chunk_launches(family="conformer"):
+    return chunk_kernel(family).launches
 
 
 @contextlib.contextmanager
@@ -566,7 +638,7 @@ def same_text(got, ref, what):
 def write_stream_bundle(flagship):
     """The flagship bundle's weights with dB normalization off (see the
     stream phase)."""
-    path = os.path.join(WORK, "stream_bundle")
+    path = flagship + "_stream"
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(flagship, "inference.json"),
               encoding="utf-8") as f:
@@ -581,7 +653,9 @@ def write_stream_bundle(flagship):
     return path
 
 
-def phase_stream(dev, path, wav):
+def phase_stream(dev, path, wav, family="conformer"):
+    """predict_stream on the card vs the CPU, both frontends, whole and in
+    0.2 s pieces (phase "stream" / "sq_stream")."""
     from masr_tpu_torch.infer.predictor import MASRPredictor
     n_layers = FLAGSHIP_ENCODER["num_blocks"]
     rows, launches = [], 0
@@ -595,7 +669,7 @@ def phase_stream(dev, path, wav):
             # the main path: counts read around predict_stream alone
             reset_launches()
             got = stream(gpu, wav, piece)
-            n = chunk_launches()
+            n = chunk_launches(family)
             check(n == n_layers * got["windows"],
                   f"chunk kernel launches {n} == {n_layers} layers x "
                   f"{got['windows']} windows (fused={fused}, piece={piece})")
@@ -620,12 +694,15 @@ def phase_stream(dev, path, wav):
         check(runs[None]["text"] == runs[PIECE]["text"],
               f"whole == 0.2 s pieces text (fused={fused})")
         check(bool(runs[None]["text"]), "predict_stream text not empty")
-    emit({"phase": "stream", "seconds_audio": round(len(wav) / 16000, 3),
-          "runs": rows})
+    emit({"phase": "stream" if family == "conformer" else "sq_stream",
+          "seconds_audio": round(len(wav) / 16000, 3), "runs": rows})
     return launches
 
 
-def phase_engine(dev, path, wavs):
+def phase_engine(dev, path, wavs, family="conformer"):
+    """A 32-stream BatchStreamSession on the card vs predict_stream and a
+    4-slot CPU engine; for an encoder with position tables, a tiny table
+    whose horizon the streams cross (phase "engine" / "sq_engine")."""
     from masr_tpu_torch.infer.batch_stream import BatchStreamSession
     from masr_tpu_torch.infer.predictor import MASRPredictor
     n_layers = FLAGSHIP_ENCODER["num_blocks"]
@@ -677,7 +754,7 @@ def phase_engine(dev, path, wavs):
     t0 = time.perf_counter()
     got, routes = run(gpu, streams, ENGINE_STREAMS)
     wall = time.perf_counter() - t0
-    launches = chunk_launches()
+    launches = chunk_launches(family)
     check(launches == n_layers * len(routes), f"chunk kernel launches "
           f"{launches} == {n_layers} layers x {len(routes)} dispatches")
     check(not any(exact for _, exact in routes), "all on the table route")
@@ -691,13 +768,16 @@ def phase_engine(dev, path, wavs):
                    for k in range(4)]
     # a position table one window past the cache: slots cross its horizon
     # and switch to exact positions, alone or beside table slots
-    tiny, tiny_routes = run(gpu, wavs, len(wavs),
-                            pos_table_len=CACHE + CHUNK + 4 * CHUNK)
-    check(any(e for _, e in tiny_routes) and not all(
-        e for _, e in tiny_routes), "both position routes dispatched")
-    tiny_margins = [same_text(tiny[k], got[k], f"horizon stream {k}")
-                    for k in range(len(wavs))]
-    emit({"phase": "engine", "streams": ENGINE_STREAMS,
+    tiny_routes, tiny_margins = [], []
+    if gpu.predictor.model.encoder.position_tables:
+        tiny, tiny_routes = run(gpu, wavs, len(wavs),
+                                pos_table_len=CACHE + CHUNK + 4 * CHUNK)
+        check(any(e for _, e in tiny_routes) and not all(
+            e for _, e in tiny_routes), "both position routes dispatched")
+        tiny_margins = [same_text(tiny[k], got[k], f"horizon stream {k}")
+                        for k in range(len(wavs))]
+    emit({"phase": "engine" if family == "conformer" else "sq_engine",
+          "streams": ENGINE_STREAMS,
           "dispatches": len(routes), "launches": launches,
           "mean_active": float(np.mean([n for n, _ in routes])),
           "texts_equal_predict_stream": sum(m is None for m in margins),
@@ -751,32 +831,16 @@ def time_chunk(layer, args):
         err = (y_k - plain()).abs().max().item()
         check(err <= KERNEL_ATOL, f"chunk kernel vs plain max abs err {err} "
               f"<= {KERNEL_ATOL} (timed shape, B={args[0].shape[0]})")
-        runs = {"plain": [cuda_ms(plain)], "kernel": [cuda_ms(kernel)]}
-        runs["kernel"].append(cuda_ms(kernel))
-        runs["plain"].append(cuda_ms(plain))
+        runs = alternate(kernel, plain)
     return runs, err
 
 
-def phase_stream_times(dev, path, wavs, smi):
+def engine_tick(dev, path, wavs, B):
+    """Engine tick wall at B active slots, each given one window (0.64 s)
+    per feed_many, 13 ticks: tick and dispatch times, median of ticks 4-13,
+    and the real-time factor B x 0.64 s / tick."""
     from masr_tpu_torch.infer.batch_stream import BatchStreamSession
     from masr_tpu_torch.infer.predictor import MASRPredictor
-    # one flagship chunk-layer call at the engine's steady state: 32 slots,
-    # full caches, table positions
-    B = ENGINE_STREAMS
-    layer = seeded_layer(13, True, dev)
-    clens, active = [CACHE] * B, [1] * B
-    args = chunk_inputs(layer, B, CHUNK, clens,
-                        [(37 * s) % CACHE for s in range(B)],
-                        [CACHE + 64 * s for s in range(B)], active, "table",
-                        5, dev)
-    runs, err = time_chunk(layer, args)
-    bound = chunk_bound(layer, clens, active, CHUNK, CACHE)
-    # and predict_stream's shape: one slot
-    one_runs, one_err = time_chunk(layer, chunk_inputs(
-        layer, 1, CHUNK, [CACHE], [5], [CACHE + 64], [1], "exact", 6, dev))
-    one_bound = chunk_bound(layer, [CACHE], [1], CHUNK, CACHE)
-
-    # engine tick wall: every slot gets 0.64 s (one window) per feed_many
     need = FIRST_WINDOW_SAMPLES + 12 * STRIDE_SAMPLES
     long_wavs = [np.tile(w, -(-need // len(w)))[:need] for w in wavs]
     gpu = MASRPredictor(model_dir=path, device=dev, fused_frontend=False)
@@ -804,10 +868,19 @@ def phase_stream_times(dev, path, wavs, smi):
     check(dispatched == [B] * 13, f"one {B}-slot dispatch per feed_many "
           f"({dispatched})")
     tick = float(np.median(ticks[3:]))
+    return {"slots": B, "tick_s": ticks, "tick_s_median": tick,
+            "dispatch_s": dispatch_s,
+            "dispatch_s_median": float(np.median(dispatch_s[3:])),
+            "x_real_time": B * 0.64 / tick}
 
-    # predict_stream window latency at B = 1, fused frontend
+
+def window_latency(dev, path, wavs):
+    """predict_stream window latency at B = 1, fused frontend, 12 windows
+    of 0.64 s after the first."""
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    need = FIRST_WINDOW_SAMPLES + 12 * STRIDE_SAMPLES
+    wav = np.tile(wavs[7], -(-need // len(wavs[7])))[:need]
     one = MASRPredictor(model_dir=path, device=dev)
-    wav = long_wavs[7]
     lat = []
     one.predict_stream(wav[:FIRST_WINDOW_SAMPLES])
     for t in range(12):
@@ -817,6 +890,29 @@ def phase_stream_times(dev, path, wavs, smi):
         lat.append(time.perf_counter() - t0)
         check(r is not None, "a result after every 0.64 s")
     one.reset_stream()
+    return {"window_s": lat, "p50_s": float(np.percentile(lat, 50)),
+            "p90_s": float(np.percentile(lat, 90))}
+
+
+def phase_stream_times(dev, path, wavs, smi):
+    # one flagship chunk-layer call at the engine's steady state: 32 slots,
+    # full caches, table positions
+    B = ENGINE_STREAMS
+    layer = seeded_layer(13, True, dev)
+    clens, active = [CACHE] * B, [1] * B
+    args = chunk_inputs(layer, B, CHUNK, clens,
+                        [(37 * s) % CACHE for s in range(B)],
+                        [CACHE + 64 * s for s in range(B)], active, "table",
+                        5, dev)
+    runs, err = time_chunk(layer, args)
+    bound = chunk_bound(layer, clens, active, CHUNK, CACHE)
+    # and predict_stream's shape: one slot
+    one_runs, one_err = time_chunk(layer, chunk_inputs(
+        layer, 1, CHUNK, [CACHE], [5], [CACHE + 64], [1], "exact", 6, dev))
+    one_bound = chunk_bound(layer, [CACHE], [1], CHUNK, CACHE)
+
+    engine = engine_tick(dev, path, wavs, B)
+    window = window_latency(dev, path, wavs)
     emit({"phase": "stream_times", "card": smi,
           "chunk_layer": {"B": B, "c": CHUNK, "C": CACHE, "D": 256,
                           "ffn": 2048, "max_abs_err": err,
@@ -825,15 +921,237 @@ def phase_stream_times(dev, path, wavs, smi):
           "chunk_layer_B1": {"max_abs_err": one_err,
                              "kernel_ms": one_runs["kernel"],
                              "plain_ms": one_runs["plain"], **one_bound},
-          "engine": {"slots": B, "tick_s": ticks, "tick_s_median": tick,
-                     "dispatch_s": dispatch_s,
-                     "dispatch_s_median": float(np.median(dispatch_s[3:])),
-                     "x_real_time": B * 0.64 / tick},
-          "predict_stream": {"window_s": lat,
-                             "p50_s": float(np.percentile(lat, 50)),
-                             "p90_s": float(np.percentile(lat, 90))}})
+          "engine": engine, "predict_stream": window})
     return (float(np.mean(runs["kernel"])), float(np.mean(runs["plain"])),
             max(err, one_err), bound)
+
+
+# --------------------------------------------------------------------------- #
+# Squeezeformer: the full-context and the chunk Squeezeformer layer kernels
+# --------------------------------------------------------------------------- #
+def seeded_sq_layer(seed, causal, conv_norm, device):
+    """A layer of SQ_ENCODER's widths (D=256, 4 heads, FFN 2048, conv 31),
+    weights and BatchNorm statistics drawn from `seed`."""
+    from masr_tpu_torch.models.squeezeformer import SqueezeformerEncoderLayer
+    from masr_tpu_torch.models.weights import seeded_state_dict
+    e = SQ_ENCODER
+    layer = SqueezeformerEncoderLayer(
+        e["encoder_dim"], e["attention_heads"],
+        e["encoder_dim"] * e["feed_forward_expansion_factor"],
+        e["cnn_module_kernel"], conv_norm, causal)
+    layer.load_state_dict(seeded_state_dict(layer, seed))
+    return layer.to(device).eval()
+
+
+def run_sq_layer(fn, layer, x, lens, pos_p):
+    return fn(x, lens, pos_p, layer.packed_params(),
+              n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
+              causal=layer.causal, conv_ln=layer.conv_ln)
+
+
+def sq_chunk_inputs(layer, B, c, C, rep, clens, wptrs, offsets, active, seed,
+                    dev):
+    """Arguments of fused_chunk_layer_sq for one flagship layer at its rate
+    (c, C): a random chunk, a full-resolution ring (B, h, C·rep, 2·d_k) and
+    cnn caches from `seed`, exact positions (one window of C + c rows per
+    slot, as the encoder makes them)."""
+    from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+    D, H = layer.size, layer.attention_heads
+    K1, L = layer.cnn_module_kernel - 1, C + c
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, c, D, generator=g).to(dev)
+    att = (0.5 * torch.randn(B, H, C * rep, 2 * D // H, generator=g)).to(dev)
+    cnn = (0.5 * torch.randn(B, K1, D, generator=g)).to(dev)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    with torch.no_grad():
+        rows = torch.clamp(i32(offsets)[:, None].long() - C
+                           + torch.arange(L, device=dev), min=0)
+        pos = layer.self_attn.linear_pos(
+            sinusoid_position_encoding(rows.reshape(-1), D))
+    starts = torch.arange(B, dtype=torch.int32, device=dev) * L
+    return (x, pos, starts, att, cnn, i32(clens), i32(wptrs), i32(active),
+            layer.packed_params())
+
+
+def run_sq_chunk(fn, layer, args, n_sub=1, rep=1):
+    x, pos, starts, att, cnn, clens, wptrs, active, packed = args
+    return fn(x, pos, starts, att, cnn, clens, wptrs, active, packed,
+              n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
+              conv_ln=layer.conv_ln, n_sub=n_sub, rep=rep)
+
+
+def sq_chunk_case(B, rep, n_sub):
+    """(c, C, cache_lens, wptrs, offsets, active) at the layer's rate:
+    cache_len {0, 5, C/2, C} (B=1: C), write pointers that wrap, four
+    inactive slots at B=32."""
+    c, C = CHUNK * n_sub // rep, CACHE // rep
+    clens = [C] if B == 1 else [(0, 5, C // 2, C)[s % 4] for s in range(B)]
+    wptrs = [(C - 3 - 7 * s) % C for s in range(B)]
+    offsets = [rep * n + 16 * s if n else 0 for s, n in enumerate(clens)]
+    active = [0 if s in (3, 10, 17, 29) else 1 for s in range(B)]
+    return c, C, clens, wptrs, offsets, active
+
+
+def phase_sq_kernels(dev):
+    """The full-context Squeezeformer layer kernel vs its plain twin at the
+    flagship width, B=4 ragged, T' in {37, 150, 299, 1500}, BatchNorm and
+    layer_norm conv norms (causal; non-causal too at T'=299); the chunk
+    kernel vs its plain twin at B=32 and B=1, full rate (c=16, C=256) and
+    half rate (c=8, C=128 on the full-resolution ring), n_sub 2 at B=32."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    cases, worst = [], 0.0
+    for T in (37, 150, 299, 1500):
+        lens = [T, T - 17, 5, 0]
+        for conv_norm, causal in ((("batch_norm", True),
+                                   ("layer_norm", True))
+                                  + ((("batch_norm", False),)
+                                     if T == 299 else ())):
+            layer = seeded_sq_layer(T + causal, causal, conv_norm, dev)
+            x, lens_t, pos_p = layer_inputs(layer, lens, T, T + 2, dev)
+            with torch.no_grad():
+                got = run_sq_layer(sq.fused_squeezeformer_layer, layer, x,
+                                   lens_t, pos_p)
+                want = run_sq_layer(sq.fused_squeezeformer_layer_plain,
+                                    layer, x, lens_t, pos_p)
+            torch.cuda.synchronize()
+            what = f"T'={T}, {conv_norm}, causal={causal}"
+            check(bool(torch.isfinite(got).all()),
+                  f"sq layer kernel output finite ({what})")
+            err = max((got[b, :n] - want[b, :n]).abs().max().item()
+                      for b, n in enumerate(lens) if n)
+            check(err <= KERNEL_ATOL, f"sq layer kernel vs plain max abs err "
+                  f"{err} <= {KERNEL_ATOL} ({what})")
+            cases.append({"T": T, "lens": lens, "conv_norm": conv_norm,
+                          "causal": causal, "max_abs_err": err})
+            worst = max(worst, err)
+    chunk_cases, chunk_worst = [], 0.0
+    for B, rep, n_sub in ((32, 1, 1), (32, 2, 1), (32, 1, 2), (32, 2, 2),
+                          (1, 1, 1), (1, 2, 1)):
+        c, C, clens, wptrs, offsets, active = sq_chunk_case(B, rep, n_sub)
+        layer = seeded_sq_layer(40 + B + rep, True, "batch_norm", dev)
+        args = sq_chunk_inputs(layer, B, c, C, rep, clens, wptrs, offsets,
+                               active, B + c, dev)
+        att0, cnn0 = args[3], args[4]
+        with torch.no_grad():
+            got = {}
+            for name, fn in (("kernel", cks.fused_chunk_layer_sq),
+                             ("plain", cks.fused_chunk_layer_sq_plain)):
+                a = args[:3] + (att0.clone(), cnn0.clone()) + args[5:]
+                got[name] = (run_sq_chunk(fn, layer, a, n_sub, rep), a[3],
+                             a[4])
+        torch.cuda.synchronize()
+        (y, att_k, cnn_k), (y_p, att_p, cnn_p) = got["kernel"], got["plain"]
+        what = f"B={B}, c={c}, C={C}, rep={rep}, n_sub={n_sub}"
+        check(bool(torch.isfinite(y).all()), f"sq chunk kernel output "
+              f"finite ({what})")
+        err = max((a - b).abs().max().item()
+                  for a, b in ((y, y_p), (att_k, att_p), (cnn_k, cnn_p)))
+        check(err <= KERNEL_ATOL, f"sq chunk kernel vs plain max abs err "
+              f"{err} <= {KERNEL_ATOL} ({what})")
+        off = torch.tensor(active, device=dev) == 0
+        check(torch.equal(att_k[off], att0[off])
+              and torch.equal(cnn_k[off], cnn0[off]),
+              "inactive slots' att and cnn caches bitwise unchanged")
+        chunk_cases.append({"B": B, "c": c, "C": C, "rep": rep,
+                            "n_sub": n_sub, "inactive": int(off.sum()),
+                            "max_abs_err": err})
+        chunk_worst = max(chunk_worst, err)
+    emit({"phase": "sq_kernels", "atol": KERNEL_ATOL,
+          "D": SQ_ENCODER["encoder_dim"], "heads": 4, "ffn": 2048,
+          "conv_kernel": 31,
+          "layer": {"kernel": "fused_squeezeformer_layer", "B": 4,
+                    "cases": cases},
+          "chunk": {"kernel": "fused_chunk_layer_sq", "cases": chunk_cases}})
+    return worst, chunk_worst
+
+
+def phase_sq_times(dev, gpu, wavs, stream_path, smi):
+    """The Squeezeformer kernels vs their plain twins (CUDA events, plain,
+    kernel, kernel, plain): the full-context layer at B=8 for a full-rate
+    (T'=299) and a half-rate (T'=150) layer; the chunk layer at B=32 and
+    B=1, full rate (c=16, C=256) and half rate (c=8, C=128), full caches;
+    flagship predict_batch wall and the engine tick at 32 streams."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    layers = {}
+    for T in (299, 150):
+        lens = [T] * 8
+        layer = seeded_sq_layer(50 + T, True, "batch_norm", dev)
+        x, lens_t, pos_p = layer_inputs(layer, lens, T, 9, dev)
+
+        def kernel():
+            return run_sq_layer(sq.fused_squeezeformer_layer, layer, x,
+                                lens_t, pos_p)
+
+        def plain():
+            return run_sq_layer(sq.fused_squeezeformer_layer_plain, layer, x,
+                                lens_t, pos_p)
+
+        with torch.no_grad():
+            err = (kernel() - plain()).abs().max().item()
+            check(err <= KERNEL_ATOL, f"sq layer kernel vs plain max abs err "
+                  f"{err} <= {KERNEL_ATOL} (timed shape, T'={T})")
+            runs = alternate(kernel, plain)
+        layers[T] = {"B": 8, "T": T, "max_abs_err": err,
+                     "kernel_ms": runs["kernel"], "plain_ms": runs["plain"],
+                     **layer_bound(layer, lens, T)}
+    chunks = {}
+    for B, rep in ((32, 1), (32, 2), (1, 1), (1, 2)):
+        c, C = CHUNK // rep, CACHE // rep
+        layer = seeded_sq_layer(60 + B + rep, True, "batch_norm", dev)
+        clens, active = [C] * B, [1] * B
+        args = sq_chunk_inputs(layer, B, c, C, rep, clens,
+                               [(2 * s + 1) % C for s in range(B)],
+                               [CACHE + 64 * s for s in range(B)], active,
+                               7 + B, dev)
+
+        def kernel():
+            return run_sq_chunk(cks.fused_chunk_layer_sq, layer, args,
+                                rep=rep)
+
+        def plain():
+            return run_sq_chunk(cks.fused_chunk_layer_sq_plain, layer, args,
+                                rep=rep)
+
+        with torch.no_grad():
+            att, cnn = args[3].clone(), args[4].clone()
+            y_k = kernel()
+            args[3].copy_(att)
+            args[4].copy_(cnn)
+            err = (y_k - plain()).abs().max().item()
+            check(err <= KERNEL_ATOL, f"sq chunk kernel vs plain max abs err "
+                  f"{err} <= {KERNEL_ATOL} (timed shape, B={B}, rep={rep})")
+            runs = alternate(kernel, plain)
+        chunks[f"B{B}_{'full' if rep == 1 else 'half'}"] = {
+            "B": B, "c": c, "C": C, "rep": rep, "max_abs_err": err,
+            "kernel_ms": runs["kernel"], "plain_ms": runs["plain"],
+            **chunk_bound(layer, clens, active, c, C, rep)}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gpu.predict_batch(wavs)
+        walls.append(time.perf_counter() - t0)
+    engine = engine_tick(dev, stream_path, wavs, ENGINE_STREAMS)
+    emit({"phase": "sq_times", "card": smi,
+          "layer": {"full_rate": layers[299], "half_rate": layers[150]},
+          "chunk_layer": chunks, "predict_batch_s": walls,
+          "predict_batch_audio_s": round(sum(len(w) for w in wavs) / 16000,
+                                         3), "engine": engine})
+    main_layer, main_chunk = layers[299], chunks["B32_full"]
+    return ({"ms": float(np.mean(main_layer["kernel_ms"])),
+             "plain_ms": float(np.mean(main_layer["plain_ms"])),
+             "max_abs_err": max(v["max_abs_err"] for v in layers.values()),
+             "bound_ms": main_layer["bound_ms"],
+             "bound_by": main_layer["bound_by"]},
+            {"ms": float(np.mean(main_chunk["kernel_ms"])),
+             "plain_ms": float(np.mean(main_chunk["plain_ms"])),
+             "max_abs_err": max(v["max_abs_err"] for v in chunks.values()),
+             "bound_ms": main_chunk["bound_ms"],
+             "bound_by": main_chunk["bound_by"]})
 
 
 # --------------------------------------------------------------------------- #
@@ -1364,6 +1682,7 @@ def main():
 
     t0 = time.perf_counter()
     built = build.build(["conformer_layer", "chunk_layer",
+                         "squeezeformer_layer", "chunk_layer_sq",
                          "conformer_layer_train", "ctc_loss"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "card": smi})
@@ -1385,6 +1704,13 @@ def main():
     t_launches, rows, trainer = phase_train(dev)
     t_layer, t_ctc = phase_train_times(dev, rows, trainer, smi)
 
+    sq_worst, sq_chunk_worst = phase_sq_kernels(dev)
+    sq_gpu, _, sq_launches = phase_flagship(dev, "squeezeformer")
+    sq_path = write_stream_bundle(sq_gpu.model_dir)
+    phase_stream(dev, sq_path, wavs[3], "squeezeformer")
+    sq_chunk_launches = phase_engine(dev, sq_path, wavs, "squeezeformer")
+    sq_t, sq_c = phase_sq_times(dev, sq_gpu, wavs, sq_path, smi)
+
     emit({"kernels": [{
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "masr_tpu_torch/csrc/conformer_layer.cu",
@@ -1399,6 +1725,21 @@ def main():
         "max_abs_err": max(chunk_worst, c_err), "ms": c_ms,
         "plain_ms": c_plain_ms, "bound_ms": c_bound["bound_ms"],
         "bound_by": c_bound["bound_by"], "library_ms": None}, {
+        "name": "fused_squeezeformer_layer", "route": "cuda",
+        "source": "masr_tpu_torch/csrc/squeezeformer_layer.cu",
+        "replaces": "masr_tpu/ops/pallas/squeezeformer_layer.py:166",
+        "launches": sq_launches,
+        "max_abs_err": max(sq_worst, sq_t["max_abs_err"]), "ms": sq_t["ms"],
+        "plain_ms": sq_t["plain_ms"], "bound_ms": sq_t["bound_ms"],
+        "bound_by": sq_t["bound_by"], "library_ms": None}, {
+        "name": "fused_chunk_layer_sq", "route": "cuda",
+        "source": "masr_tpu_torch/csrc/chunk_layer_sq.cu",
+        "replaces": "masr_tpu/ops/pallas/chunk_layer_sq.py:181",
+        "launches": sq_chunk_launches,
+        "max_abs_err": max(sq_chunk_worst, sq_c["max_abs_err"]),
+        "ms": sq_c["ms"], "plain_ms": sq_c["plain_ms"],
+        "bound_ms": sq_c["bound_ms"], "bound_by": sq_c["bound_by"],
+        "library_ms": None}, {
         "name": "fused_conformer_layer_train", "route": "cuda",
         "source": "masr_tpu_torch/csrc/conformer_layer_train.cu",
         "replaces": "masr_tpu/ops/pallas/conformer_layer_train.py:674",

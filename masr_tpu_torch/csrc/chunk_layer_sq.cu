@@ -1,0 +1,131 @@
+// Streaming chunk step of a Squeezeformer encoder layer over B slots, for
+// Hopper (sm_90a), forward only, f32.
+//
+// Replaces the TPU kernel masr_tpu/ops/pallas/chunk_layer_sq.py:181
+// (`fused_chunk_layer_sq`, one pallas_call per layer over a block of slots
+// in VMEM). Per slot it computes what that kernel's `_kernel` computes, the
+// post-norm block with the caches:
+//
+//   x = LN1(x + MHSA(ada0 x))   the c chunk rows over L = C + c keys
+//                               [att cache || chunk], per-slot cache_len
+//                               and positions, n_sub block-causal ticks
+//   x = LN2(x + FFN1(ada1 x))
+//   x = LN3(x + Conv(ada2 x))   causal conv over [cnn cache || ada2 x]
+//   x = LN4(x + FFN2(ada3 x))
+//
+// and the updated caches. `masr_chunk_layer_sq_forward` launches, in order
+// on the caller's stream, the blocks it shares with the Conformer chunk
+// kernel (chunk_layer.cu; common.cuh, serving.cuh): q/k/v products,
+// chunk_attention_kernel, kv_write_kernel (after every read of the ring),
+// the out product with the residual, layer_norm_kernel, the FFN products,
+// conv_input_kernel with ada2 (the cnn cache holds post-ada rows, as
+// SqueezeformerConvModule applies ada before ConvolutionModule takes the
+// cache), cnn_write_kernel, pw1, conv_module_kernel (VALID depthwise, the
+// folded BatchNorm affine or the LN), pw2 with the residual. ada0, ada1,
+// ada3 come folded into the weights (see squeezeformer_layer.cu).
+//
+// State layout: the Conformer chunk kernel's single-copy att ring with
+// per-slot write pointers (chunk_layer.cu), which also serves the
+// half-rate layers between the time reduction and the recover step. Such
+// a layer runs at (c/2, C/2) on the same (B, H, C, 2 d_k) array as the
+// full-rate layers: its logical ring row p is stored twice, in memory rows
+// 2p and 2p + 1 (rep = 2, serving.cuh), as masr_tpu stores its half-rate
+// cache repeated at full resolution; it reads rows 2p + 1 (masr_tpu's
+// stride-2 slice 1::2) and writes both. The encoder passes it cache_len / 2
+// and wptr / 2: with an even chunk and an even C every wptr is even, so
+// chronological row j of the full ring sits at a physical row of the same
+// parity, and the odd rows are a C/2 ring with pointer wptr / 2. Inactive
+// slots are computed but their caches stay untouched.
+//
+// What bounds it on the H100: as the Conformer chunk kernel. At the
+// engine's shape (B=32 slots, c=16, C=256, D=256, F=2048) a full-rate call
+// is ~2.9 GFLOP (FFN three quarters of it) against ~40 MB of bytes
+// (weights ~10 MB, cache rows, position windows): bound by operations,
+// ~0.04 ms at the f32 rate outside the tensor cores; a half-rate call
+// (c=8, C=128) has half the rows. At B=1 (predict_stream) it is bound by
+// the ~10 MB of weights, ~3 us. This first version is right and simple,
+// not fast: its products run f32 FMA on 64x64 tiles that M = B*c rows
+// fill poorly. Later work: split-K or narrower tiles for small M,
+// bf16/TF32 operands on wgmma, fewer launches.
+//
+// Plain C interface, loaded with ctypes. The entry returns the first CUDA
+// error of a launch, 0 on success.
+
+#include "serving.cuh"
+
+// Packed weights as ops/cuda/squeezeformer_layer.py pack_sq_layer_params
+// (see squeezeformer_layer.cu). x, out: (B, c, D); pos: (rows, D);
+// pos_starts, cache_lens, wptrs, active: (B,) int32, cache_lens and wptrs
+// at the layer's rate; att_cache (B, h, C*rep, 2 d_k), C the layer's ring
+// rows; cnn_cache (B, k-1, D); both updated in place for active slots.
+// workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c.
+extern "C" int masr_chunk_layer_sq_forward(
+    const float* x, const float* pos, const int* pos_starts,
+    float* att_cache, float* cnn_cache, const int* cache_lens,
+    const int* wptrs, const int* active, const float* lnw, const float* ada,
+    const float* cnw, const float* attw, const float* vecb,
+    const float* posb, const float* ffw1, const float* ffb1,
+    const float* ffw2, const float* pw1w, const float* pw1b,
+    const float* pw2w, const float* dww, float* out, float* workspace, int B,
+    int c, int C, int rep, int D, int F, int n_head, int ksize, int n_sub,
+    int conv_ln, float eps, float conv_eps, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int M = B * c;
+  if (M == 0) return (int)cudaGetLastError();
+  const int dk = D / n_head;
+  if (dk * n_head != D || dk > 128 || ksize < 2 || n_sub < 1 ||
+      c % n_sub != 0 || C < 0 || rep < 1 || (n_sub > 1 && c > C))
+    return (int)cudaErrorInvalidValue;
+  const int K1 = ksize - 1, W = K1 + c;
+  const size_t MD = (size_t)M * D, DD = (size_t)D * D;
+  float* xa = workspace;                      // residual sums (M, D)
+  float* xb = xa + MD;                        // LN outputs (M, D)
+  float* big = xb + MD;                       // (M, max(F, 4D))
+  float* cin = big + (size_t)M * (F > 4 * D ? F : 4 * D);  // (B, W, D)
+  float* gx = cin + (size_t)B * W * D;        // (B, W, 2D)
+  float* y = gx + (size_t)B * W * 2 * D;      // (M, D)
+  float *h = big, *q = big, *k = big + MD, *v = big + 2 * MD,
+        *att = big + 3 * MD;
+
+  // x = LN1(x + MHSA(ada0 x)) over [ring cache || chunk]
+  MASR_CHECK(gemm<kBias>(x, attw, vecb, q, nullptr, M, D, D, 1.f, nullptr, 1,
+                         stream));
+  MASR_CHECK(gemm<kBias>(x, attw + DD, vecb + D, k, nullptr, M, D, D, 1.f,
+                         nullptr, 1, stream));
+  MASR_CHECK(gemm<kBias>(x, attw + 2 * DD, vecb + 2 * D, v, nullptr, M, D, D,
+                         1.f, nullptr, 1, stream));
+  MASR_CHECK(chunk_attention(q, k, v, att_cache, pos, pos_starts, posb,
+                             cache_lens, wptrs, att, B, c, C, rep, D, n_head,
+                             c / n_sub, stream));
+  // every read of the ring is done (stream order): write the fresh rows
+  MASR_CHECK(kv_write(k, v, att_cache, wptrs, active, B, c, C, rep, D,
+                      n_head, stream));
+  MASR_CHECK(gemm<kResidual>(att, attw + 3 * DD, vecb + 3 * D, xa, x, M, D, D,
+                             1.f, nullptr, 1, stream));
+  MASR_CHECK(layer_norm(xa, xb, lnw, 0, M, D, eps, nullptr, 1, stream));
+  // x = LN2(x + FFN1(ada1 x))
+  MASR_CHECK(gemm<kSilu>(xb, ffw1, ffb1, h, nullptr, M, F, D, 1.f, nullptr,
+                         1, stream));
+  MASR_CHECK(gemm<kResidual>(h, ffw2, vecb + 4 * D, xa, xb, M, D, F, 1.f,
+                             nullptr, 1, stream));
+  MASR_CHECK(layer_norm(xa, xb, lnw, 1, M, D, eps, nullptr, 1, stream));
+  // x = LN3(x + Conv(ada2 x)) over [cnn cache || ada2 x]: pw1 -> GLU ->
+  // VALID depthwise -> norm -> SiLU -> pw2
+  MASR_CHECK(conv_input(xb, ada, cin, cnn_cache, active, B, c, K1, D,
+                        stream));
+  MASR_CHECK(gemm<kBias>(cin, pw1w, pw1b, gx, nullptr, B * W, 2 * D, D, 1.f,
+                         nullptr, 1, stream));
+  MASR_CHECK(conv_module(gx, dww, vecb + 6 * D, pw1b, cnw, y, B, W, c, D,
+                         ksize, 0, 0, conv_eps, stream, nullptr, nullptr,
+                         nullptr, conv_ln != 0));
+  MASR_CHECK(gemm<kResidual>(y, pw2w, vecb + 7 * D, xa, xb, M, D, D, 1.f,
+                             nullptr, 1, stream));
+  MASR_CHECK(layer_norm(xa, xb, lnw, 2, M, D, eps, nullptr, 1, stream));
+  // x = LN4(x + FFN2(ada3 x))
+  MASR_CHECK(gemm<kSilu>(xb, ffw1 + (size_t)D * F, ffb1 + F, h, nullptr, M, F,
+                         D, 1.f, nullptr, 1, stream));
+  MASR_CHECK(gemm<kResidual>(h, ffw2 + (size_t)F * D, vecb + 5 * D, xa, xb, M,
+                             D, F, 1.f, nullptr, 1, stream));
+  MASR_CHECK(layer_norm(xa, out, lnw, 3, M, D, eps, nullptr, 1, stream));
+  return (int)cudaGetLastError();
+}

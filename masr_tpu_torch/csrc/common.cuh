@@ -1,6 +1,7 @@
 // Building blocks shared by the port's kernels (conformer_layer.cu,
-// chunk_layer.cu, conformer_layer_train.cu; ctc_loss.cu takes the warp
-// reductions), for Hopper (sm_90a), f32:
+// chunk_layer.cu, squeezeformer_layer.cu, chunk_layer_sq.cu,
+// conformer_layer_train.cu; ctc_loss.cu takes the warp reductions), for
+// Hopper (sm_90a), f32:
 //
 //   warp_sum, warp_max     warp reductions
 //   dropout_mult           the counter-based dropout hash of the training
@@ -14,8 +15,9 @@
 //                          (the serving kernels' ServeEpi: plain, SiLU,
 //                          scaled residual, row-masked residual; the
 //                          training kernel's own)
-//   conv_module_kernel     GLU -> depthwise conv over time -> LN -> SiLU,
-//                          optional saves for a backward
+//   conv_module_kernel<kLN>  GLU -> depthwise conv over time -> LN (or a
+//                          folded BatchNorm affine) -> SiLU, optional saves
+//                          for a backward
 //
 // The GEMM sums over K in the same order (k = 0, 1, ...) whatever tile it
 // picks, so a row's result does not depend on how many rows share the
@@ -276,17 +278,20 @@ cudaError_t gemm(const float* A, const float* W, const float* bias, float* C,
 
 // ------------------------------------------------------------------------
 // Conv module middle: g (B, T_in, 2D) = pw1 output ->
-//   u = GLU(g) -> depthwise conv over time (+ bias) -> LN -> SiLU ->
+//   u = GLU(g) -> depthwise conv over time (+ bias) -> norm -> SiLU ->
 //   y (B, T_out, D), where output row t reads u rows t - left .. t - left
-//   + k - 1. One block per (16 output rows, utterance). The block stages
-//   the (16 + k - 1) rows of u it needs in smem; out-of-range rows are the
-//   conv padding: GLU(pw1 bias) before row 0 when `pad_bias`, zeros
-//   otherwise. For a backward the LN's output before SiLU (`pre`), its
-//   x-hat and 1/std are saved when given.
+//   + k - 1. The norm is a compile-time choice: LN (kLN, gamma/beta its
+//   scale and shift) or the per-channel affine gamma * v + beta that a
+//   BatchNorm folds to in serving. One block per (16 output rows,
+//   utterance). The block stages the (16 + k - 1) rows of u it needs in
+//   smem; out-of-range rows are the conv padding: GLU(pw1 bias) before
+//   row 0 when `pad_bias`, zeros otherwise. For a backward the LN's output
+//   before SiLU (`pre`), its x-hat and 1/std are saved when given.
 // ------------------------------------------------------------------------
 constexpr int kConvRows = 16;
 constexpr int kConvThreads = 256;
 
+template <bool kLN>
 __global__ void __launch_bounds__(kConvThreads)
     conv_module_kernel(const float* __restrict__ g,
                        const float* __restrict__ dww,
@@ -328,41 +333,49 @@ __global__ void __launch_bounds__(kConvThreads)
     const int t = t0 + r;
     if (t >= T_out) continue;
     const float* xr = cs + r * D;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += xr[c];
-    const float mu = warp_sum(s) / D;
-    float s2 = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = xr[c] - mu;
-      s2 += d * d;
-    }
-    const float rs = rsqrtf(warp_sum(s2) / D + eps);
     const size_t row = (size_t)b * T_out + t, o = row * D;
-    if (rstd && lane == 0) rstd[row] = rs;
-    for (int c = lane; c < D; c += 32) {
-      const float h = (xr[c] - mu) * rs, v = h * gamma[c] + beta[c];
-      if (xhat) xhat[o + c] = h;
-      if (pre) pre[o + c] = v;
-      y[o + c] = silu_f(v);
+    if constexpr (kLN) {
+      float s = 0.f;
+      for (int c = lane; c < D; c += 32) s += xr[c];
+      const float mu = warp_sum(s) / D;
+      float s2 = 0.f;
+      for (int c = lane; c < D; c += 32) {
+        const float d = xr[c] - mu;
+        s2 += d * d;
+      }
+      const float rs = rsqrtf(warp_sum(s2) / D + eps);
+      if (rstd && lane == 0) rstd[row] = rs;
+      for (int c = lane; c < D; c += 32) {
+        const float h = (xr[c] - mu) * rs, v = h * gamma[c] + beta[c];
+        if (xhat) xhat[o + c] = h;
+        if (pre) pre[o + c] = v;
+        y[o + c] = silu_f(v);
+      }
+    } else {
+      for (int c = lane; c < D; c += 32)
+        y[o + c] = silu_f(xr[c] * gamma[c] + beta[c]);
     }
   }
 }
 
-// pre, xhat, rstd: optional saves for a backward (nullptr: not saved)
+// norm: (2, D) scale and shift, of the LN (use_ln) or of the folded
+// per-channel affine (!use_ln); pre, xhat, rstd: optional saves for a
+// backward of the LN variant (nullptr: not saved)
 cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
-                        const float* pw1b, const float* ln, float* y, int B,
+                        const float* pw1b, const float* norm, float* y, int B,
                         int T_in, int T_out, int D, int ksize, int left,
                         int pad_bias, float eps, cudaStream_t stream,
                         float* pre = nullptr, float* xhat = nullptr,
-                        float* rstd = nullptr) {
+                        float* rstd = nullptr, bool use_ln = true) {
   const size_t smem = sizeof(float) * (size_t)(2 * kConvRows + ksize - 1) * D;
+  auto kernel = use_ln ? conv_module_kernel<true>
+                           : conv_module_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_module_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T_out + kConvRows - 1) / kConvRows, B);
-  conv_module_kernel<<<grid, kConvThreads, smem, stream>>>(
-      g, dww, dwb, pw1b, ln, ln + D, y, T_in, T_out, D, ksize, left,
+  kernel<<<grid, kConvThreads, smem, stream>>>(
+      g, dww, dwb, pw1b, norm, norm + D, y, T_in, T_out, D, ksize, left,
       pad_bias, eps, pre, xhat, rstd);
   return cudaGetLastError();
 }

@@ -2,18 +2,22 @@
 chunk step per tick (port of masr_tpu/infer/batch_stream.py with the
 ctc_greedy decoder).
 
-Every tick runs all N slots through the encoder's batched chunk step, whose
-layers each launch the chunk-layer kernel once
-(models/conformer.py: forward_chunk_batched). Slots advance selectively,
-so streams start and stop independently. Host-side feature windowing and
-the greedy carry are per slot, identical to MASRPredictor.predict_stream.
+Every tick runs all N slots through the encoder's batched chunk step
+(`forward_chunk_batched` of models/conformer.py or models/squeezeformer.py),
+whose layers each launch the family's chunk-layer kernel once. Slots
+advance selectively, so streams start and stop independently. Host-side
+feature windowing and the greedy carry are per slot, identical to
+MASRPredictor.predict_stream.
 
-State lives on the device as tensors (ConformerEncoder.init_cache at N
+State lives on the device as tensors (the encoder's `init_cache` at N
 slots) and is updated in place: the kernel writes the fresh K/V rows and
 the cnn cache only for active slots, and only their offsets, cache lengths
 and ring pointers advance. masr_tpu's buffer donation and where()-merge of
 the new state have no counterpart here; inactive slots are simply left
-untouched.
+untouched. An encoder with `position_tables` (the Conformer) reads its
+positions from per-layer tables until a slot passes their horizon; one
+without (the Squeezeformer) computes them at every step, so every slot of
+a tick goes through one dispatch.
 """
 import numpy as np
 import torch
@@ -60,9 +64,11 @@ class BatchStreamSession(object):
             cache_size=C, pos_table_len=int(pos_table_len))
         # position-table horizon: a slot whose offset reaches the last full
         # window of the table takes the exact-positions step from then on
-        # (offsets are mirrored on the host: routing needs no readback)
+        # (offsets are mirrored on the host: routing needs no readback);
+        # None: the encoder has no tables
         L = C + DECODING_CHUNK_SIZE * self.tick_k
-        self._pos_cap = max(0, int(pos_table_len) - L)
+        self._pos_cap = max(0, int(pos_table_len) - L) \
+            if encoder.position_tables else None
         self._slot_frames = [0] * max_streams
 
         # per-slot host state
@@ -100,9 +106,10 @@ class BatchStreamSession(object):
         valid OUTPUT frames this tick} → {slot: (score, text)}. Slots past
         the position-table horizon take the exact-positions step, the rest
         stay on the tables: a mixed tick dispatches the two over disjoint
-        active masks."""
+        active masks. Without tables every active slot goes in one
+        dispatch."""
         adv = xs.shape[1] * DECODING_CHUNK_SIZE
-        crossed = np.asarray([bool(active[s])
+        crossed = np.asarray([bool(active[s]) and self._pos_cap is not None
                               and self._slot_frames[s] >= self._pos_cap
                               for s in range(self.N)])
         table = np.asarray(active, bool) & ~crossed

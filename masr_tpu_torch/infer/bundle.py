@@ -1,10 +1,11 @@
 """Inference bundles (port of masr_tpu/infer/bundle.py:99-120).
 
 A bundle directory holds inference.json (model + preprocess config and the
-CMVN statistics), model.msgpack (flax params, read here without flax) and
-vocabulary.txt. Quantized bundles load as f32: bfloat16 leaves are widened
-by the reader, int8 leaves are dequantized per last-axis scale in the flax
-layout, before the weight map transposes anything (bundle.py:40-50).
+CMVN statistics), model.msgpack (flax params, and batch_stats for a model
+with BatchNorm; read here without flax) and vocabulary.txt. Quantized
+bundles load as f32: bfloat16 leaves are widened by the reader, int8
+leaves are dequantized per last-axis scale in the flax layout, before the
+weight map transposes anything (bundle.py:40-50).
 """
 import json
 import os
@@ -44,5 +45,12 @@ def load_inference_bundle(bundle_dir):
         variables = flax_msgpack.unpackb(f.read())
     if meta.get("quantization") == "int8":
         variables = _dequantize_int8(variables)
-    model.load_state_dict(from_flax_variables(variables))
+    missing, unexpected = model.load_state_dict(
+        from_flax_variables(variables), strict=False)
+    # BatchNorm's num_batches_tracked is not in a flax bundle (and only
+    # matters to training with momentum None)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise RuntimeError(f"bundle weights do not fit the model: missing "
+                           f"{missing}, unexpected {unexpected}")
     return model.eval(), meta, vocab_list

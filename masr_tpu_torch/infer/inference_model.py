@@ -3,12 +3,15 @@
 :351-354: full context, and the streaming chunk steps with the host or the
 sample-domain fused frontend).
 
-Full-context inputs are padded to a multiple of `length_bucket` frames, as
-masr_tpu does (there it bounds the compiled programs; here it keeps the
-same frames, hence the same padding rows, as the reference). The stream
-state is a dict of device tensors that every chunk step updates in place
-(models/conformer.py); the greedy head (argmax, max prob) runs on the
-device, so only (B, chunk) ids and probs come back.
+The model is any family of models/registry.py (the Conformer or the
+Squeezeformer): it gives `get_encoder_out`, `get_encoder_out_chunk` and
+`encoder.init_cache`. Full-context inputs are padded to a multiple of
+`length_bucket` frames, as masr_tpu does (there it bounds the compiled
+programs; here it keeps the same frames, hence the same padding rows, as
+the reference). The stream state is a dict of device tensors that every
+chunk step updates in place (the encoder's `init_cache`); the greedy head
+(argmax, max prob) runs on the device, so only (B, chunk) ids and probs
+come back.
 """
 import os
 

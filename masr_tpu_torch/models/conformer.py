@@ -165,6 +165,11 @@ class ConformerEncoderLayer(nn.Module):
 class ConformerEncoder(nn.Module):
     """Full-context encoder: CMVN → subsampling → layers → after_norm."""
 
+    # the chunk step can read its positions from per-layer tables
+    # (pack_chunk_params with a cache_size); the engine routes slots past a
+    # table's horizon to the exact-positions step
+    position_tables = True
+
     def __init__(self, input_size, output_size=256, attention_heads=4,
                  linear_units=2048, num_blocks=6, input_layer="conv2d",
                  pos_enc_layer_type="rel_pos", normalize_before=True,
@@ -184,7 +189,9 @@ class ConformerEncoder(nn.Module):
                  f"{pos_enc_layer_type!r} (the kernel takes rel_pos)"),
                 (normalize_before, "normalize_before=False"),
                 (macaron_style, "macaron_style=False"),
-                (use_cnn_module, "use_cnn_module=False")):
+                (use_cnn_module, "use_cnn_module=False"),
+                (cnn_module_norm == "layer_norm",
+                 f"cnn_module_norm {cnn_module_norm!r}")):
             if not ok:
                 raise NotImplementedError(
                     f"{what}: the layer kernels do not take this layer "
@@ -370,10 +377,8 @@ class ConformerModel(nn.Module):
         super().__init__()
         if not 0.0 <= ctc_weight <= 1.0:
             raise ValueError(f"ctc_weight {ctc_weight} not in [0, 1]")
-        enc_conf = dict(encoder_conf or {})
-        enc_conf.setdefault("use_dynamic_chunk", streaming)
-        enc_conf.setdefault("causal", streaming)
-        self.encoder = ConformerEncoder(input_dim, cmvn=cmvn, **enc_conf)
+        self.encoder = self.make_encoder(input_dim, cmvn, streaming,
+                                         dict(encoder_conf or {}))
         D = self.encoder.output_size
         self.decoder = BiTransformerDecoder(vocab_size, D,
                                             **dict(decoder_conf or {}))
@@ -386,6 +391,13 @@ class ConformerModel(nn.Module):
         self.length_normalized_loss = length_normalized_loss
         # sos == eos == the last token (the vocabulary's <eos>)
         self.sos = self.eos = vocab_size - 1
+
+    def make_encoder(self, input_dim, cmvn, streaming, enc_conf):
+        """The family's encoder; streaming makes the chunk mask dynamic and
+        the conv causal unless encoder_conf says otherwise."""
+        enc_conf.setdefault("use_dynamic_chunk", streaming)
+        enc_conf.setdefault("causal", streaming)
+        return ConformerEncoder(input_dim, cmvn=cmvn, **enc_conf)
 
     @property
     def decoder_state(self):

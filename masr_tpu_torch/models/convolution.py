@@ -1,10 +1,12 @@
 """Conformer convolution module, full context and with the causal streaming
 cache (port of masr_tpu/models/convolution.py:28-68).
 
-pointwise(2C) + GLU → depthwise(k) → LayerNorm → activation → pointwise.
-Torch layout (B, C, T) inside, as upstream MASR, so its weights apply.
-The causal cache holds the last lorder = k-1 rows of the module's input
-(the LayerNorm output) BEFORE pointwise_conv1, as masr_tpu's does.
+pointwise(2C) + GLU → depthwise(k) → norm → activation → pointwise. The
+norm is a LayerNorm (eps 1e-5) or a BatchNorm1d (eps 1e-5, momentum 0.1:
+torch's convention for flax's 0.9), which in eval uses its running
+statistics. Torch layout (B, C, T) inside, as upstream MASR, so its weights
+apply. The causal cache holds the last lorder = k-1 rows of the module's
+input BEFORE pointwise_conv1, as masr_tpu's does.
 """
 import torch
 from torch import nn
@@ -15,9 +17,8 @@ class ConvolutionModule(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 15, activation=F.silu,
                  norm: str = "layer_norm", causal: bool = False):
         super().__init__()
-        if norm != "layer_norm":
-            raise NotImplementedError(f"conv module norm {norm!r} is not "
-                                      "ported yet")
+        if norm not in ("layer_norm", "batch_norm"):
+            raise ValueError(f"unknown conv module norm {norm!r}")
         if not causal and (kernel_size - 1) % 2:
             raise ValueError("non-causal conv needs an odd kernel size")
         self.lorder = kernel_size - 1 if causal else 0
@@ -25,7 +26,9 @@ class ConvolutionModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(
             channels, channels, kernel_size, groups=channels,
             padding=0 if causal else (kernel_size - 1) // 2)
-        self.norm = nn.LayerNorm(channels, eps=1e-5)
+        self.norm = nn.LayerNorm(channels, eps=1e-5) \
+            if norm == "layer_norm" else \
+            nn.BatchNorm1d(channels, eps=1e-5, momentum=0.1)
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
         self.activation = activation
 
@@ -47,7 +50,11 @@ class ConvolutionModule(nn.Module):
             new_cache = x[:, x.shape[1] - self.lorder:]
         x = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
         x = self.depthwise_conv(x)
-        x = self.activation(self.norm(x.transpose(1, 2))).transpose(1, 2)
+        if isinstance(self.norm, nn.LayerNorm):
+            x = self.norm(x.transpose(1, 2)).transpose(1, 2)
+        else:
+            x = self.norm(x)
+        x = self.activation(x)
         x = self.pointwise_conv2(x).transpose(1, 2)
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0)

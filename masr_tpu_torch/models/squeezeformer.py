@@ -1,0 +1,470 @@
+"""Squeezeformer encoder and model: full-context and streaming inference
+(port of masr_tpu/models/squeezeformer.py: AdaptiveScale :28-41,
+SqueezeformerAttention :44-56, SqueezeformerFFN :59-73,
+SqueezeformerConvModule :76-97, TimeReductionLayer :100-127,
+SqueezeformerEncoderLayer :130-202, SqueezeformerEncoder.__call__
+:296-357, forward_chunk :482-536, init_cache :538-547, pack_chunk_params
+:576-612, forward_chunk_batched :614-734, SqueezeformerModel :737-754).
+
+Module names follow upstream MASR (`encoder.encoders.{i}.self_attn.ada_scale`,
+`...conv_module.norm.running_mean`, `encoder.time_reduction_layer.dw_conv`),
+so `models/weights.py` maps flax bundles, batch_stats included, onto them.
+
+The layer is post-norm, x = LN_i(x + sub_i(ada_i x)) over MHSA, FFN1,
+conv, FFN2 (LN eps 1e-6), with the U-Net time reduction: layers from
+reduce_idx to recover_idx run at half the frame rate (the `stream` kind:
+every second frame, depthwise k=1 then pointwise; `conv1d`: k=5, stride 2,
+pad 3, offline only), and recover_idx repeats each frame, applies a linear
+and adds the skip. Every layer runs through a layer kernel: the
+full-context one (ops/cuda/squeezeformer_layer.py) offline, the chunk one
+(ops/cuda/chunk_layer_sq.py) when streaming, the CUDA kernel for CUDA
+tensors and its plain twin for CPU tensors. The reduce / recover plumbing,
+the linear_pos products and the subsampling stay PyTorch, as they stay XLA
+in masr_tpu. The eager layer module is the reference the tests hold the
+routes against.
+
+Streaming state (`init_cache`) is the Conformer's (models/conformer.py):
+per-layer single-copy att rings with per-slot write pointers, updated in
+place. A half-rate layer runs on the same full-resolution ring: its rows
+are stored twice (rows 2p and 2p + 1), as masr_tpu stores its half-rate
+cache repeated, and it reads the odd rows with cache_len / 2 and wptr / 2
+(an even chunk and an even cache keep wptr even). Positions come from the
+offsets at every step (masr_tpu builds no position table for this family).
+
+Not ported, each raising NotImplementedError: pre-norm layers
+(normalize_before), other positional encodings than rel_pos, streaming
+with an odd chunk or cache size, more than one time reduction in force at
+once while streaming, non-causal chunk stepping, and training (the next
+slice: masr_tpu's fused_squeezeformer_layer_train).
+"""
+import torch
+from torch import nn
+
+from masr_tpu_torch.models.attention import RelPositionMultiHeadedAttention
+from masr_tpu_torch.models.conformer import ConformerModel
+from masr_tpu_torch.models.convolution import ConvolutionModule
+from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
+from masr_tpu_torch.models.subsampling import DepthwiseConv2dSubsampling4
+from masr_tpu_torch.ops.common import get_activation
+from masr_tpu_torch.ops.cuda.chunk_layer_sq import fused_chunk_layer_sq
+from masr_tpu_torch.ops.cuda.squeezeformer_layer import (
+    fused_squeezeformer_layer, pack_sq_layer_params)
+from masr_tpu_torch.ops.masks import make_pad_mask
+
+# encoder_conf keys that only steer masr_tpu's TPU routing
+_IGNORED_ENCODER_KEYS = ("use_fused_layer", "use_fused_layer_train")
+
+
+class _AdaptiveScale:
+    """Mixin: the learned per-channel scale and shift on a sublayer's input,
+    x·ada_scale + ada_bias, (1, 1, D) each; identity when disabled (the
+    parameters exist either way, as in the reference)."""
+
+    def _init_ada(self, dim, enabled):
+        self.adaptive_scale = enabled
+        self.ada_scale = nn.Parameter(torch.ones(1, 1, dim))
+        self.ada_bias = nn.Parameter(torch.zeros(1, 1, dim))
+
+    def ada(self, x):
+        return x * self.ada_scale + self.ada_bias if self.adaptive_scale \
+            else x
+
+
+class SqueezeformerAttention(RelPositionMultiHeadedAttention, _AdaptiveScale):
+    """Rel-pos MHSA with the adaptive scale on the qkv input."""
+
+    def __init__(self, n_head, n_feat, adaptive_scale=True):
+        super().__init__(n_head, n_feat)
+        self._init_ada(n_feat, adaptive_scale)
+
+    def forward(self, x, mask, pos_emb, cache=None, generator=None):
+        return super().forward(self.ada(x), mask, pos_emb, cache, generator)
+
+
+class SqueezeformerFFN(PositionwiseFeedForward, _AdaptiveScale):
+    """ada → w_1 → activation → w_2 (no macaron 0.5 scale)."""
+
+    def __init__(self, idim, hidden_units, activation, adaptive_scale=True):
+        super().__init__(idim, hidden_units, activation)
+        self._init_ada(idim, adaptive_scale)
+
+    def forward(self, x, generator=None):
+        return super().forward(self.ada(x), generator)
+
+
+class SqueezeformerConvModule(ConvolutionModule, _AdaptiveScale):
+    """ada, then the Conformer conv module (its padded rows are zeroed
+    after ada; its causal cache holds post-ada rows)."""
+
+    def __init__(self, channels, kernel_size, activation, norm, causal,
+                 adaptive_scale=True):
+        super().__init__(channels, kernel_size, activation, norm, causal)
+        self._init_ada(channels, adaptive_scale)
+
+    def forward(self, x, mask_pad=None, cache=None):
+        return super().forward(self.ada(x), mask_pad, cache)
+
+
+class TimeReductionLayer(nn.Module):
+    """Halves the frame rate: `stream` (depthwise k=1, stride 2: every
+    second frame) or `conv1d` (depthwise k=5, stride 2, pad 3), then a
+    pointwise conv; (B, T, D) → (B, ceil(T/2), D)."""
+
+    def __init__(self, channel, out_dim, kind="stream"):
+        super().__init__()
+        if kind not in ("stream", "conv1d"):
+            raise ValueError(f"unknown time reduction {kind!r}")
+        self.kind = kind
+        k = 1 if kind == "stream" else 5
+        self.dw_conv = nn.Conv1d(channel, channel, k, stride=2,
+                                 padding=0 if kind == "stream" else 3,
+                                 groups=channel)
+        self.pw_conv = nn.Conv1d(channel, out_dim, 1)
+
+    def forward(self, xs, lens=None):
+        """xs: (B, T, D); lens: (B,) valid frames (the rest are zeroed
+        first) or None."""
+        T = xs.shape[1]
+        if lens is not None:
+            valid = torch.arange(T, device=xs.device)[None, :] < lens[:, None]
+            xs = xs.masked_fill(~valid[:, :, None], 0.0)
+        if self.kind == "stream":
+            xs = xs[:, ::2] * self.dw_conv.weight[:, 0, 0] \
+                + self.dw_conv.bias
+        else:
+            xs = self.dw_conv(xs.transpose(1, 2)).transpose(1, 2)
+            L = -(-T // 2)          # ceil(T/2), the strided mask's length
+            xs = xs[:, :L] if xs.shape[1] >= L else nn.functional.pad(
+                xs, (0, 0, 0, L - xs.shape[1]))
+        return xs @ self.pw_conv.weight[:, :, 0].t() + self.pw_conv.bias
+
+
+class SqueezeformerEncoderLayer(nn.Module):
+    """MHSA → FFN1 → conv → FFN2, each x = LN(x + sub(ada x)) (post-norm)."""
+
+    def __init__(self, size, attention_heads, ffn_units, cnn_module_kernel=31,
+                 cnn_norm="batch_norm", causal=False, adaptive_scale=True,
+                 activation_type="swish"):
+        super().__init__()
+        act = get_activation(activation_type)
+        self.size = size
+        self.attention_heads = attention_heads
+        self.cnn_module_kernel = cnn_module_kernel
+        self.causal = causal
+        self.adaptive_scale = adaptive_scale
+        self.conv_ln = cnn_norm == "layer_norm"
+        self.self_attn = SqueezeformerAttention(attention_heads, size,
+                                                adaptive_scale)
+        self.ffn1 = SqueezeformerFFN(size, ffn_units, act, adaptive_scale)
+        self.conv_module = SqueezeformerConvModule(
+            size, cnn_module_kernel, act, cnn_norm, causal, adaptive_scale)
+        self.ffn2 = SqueezeformerFFN(size, ffn_units, act, adaptive_scale)
+        self.layer_norm1 = nn.LayerNorm(size, eps=1e-6)
+        self.layer_norm2 = nn.LayerNorm(size, eps=1e-6)
+        self.layer_norm3 = nn.LayerNorm(size, eps=1e-6)
+        self.layer_norm4 = nn.LayerNorm(size, eps=1e-6)
+        self._packed, self._packed_key = None, None
+
+    def forward(self, x, mask, pos_emb, mask_pad):
+        """Eager reference (eval). x: (B, T, D); mask: (B, 1|T, T) bool;
+        pos_emb: (1, T, D); mask_pad: (B, 1, T) bool."""
+        x = self.layer_norm1(x + self.self_attn(x, mask, pos_emb)[0])
+        x = self.layer_norm2(x + self.ffn1(x))
+        x = self.layer_norm3(x + self.conv_module(x, mask_pad)[0])
+        return self.layer_norm4(x + self.ffn2(x))
+
+    def forward_cached(self, x, mask, pos_emb, att_cache, cnn_cache):
+        """Eager reference of one streaming step with masr_tpu's caches
+        (as ConformerEncoderLayer.forward_cached) → (x, new att cache, new
+        cnn cache)."""
+        att, new_att = self.self_attn(x, mask, pos_emb, att_cache)
+        x = self.layer_norm1(x + att)
+        x = self.layer_norm2(x + self.ffn1(x))
+        conv, new_cnn = self.conv_module(x, None, cnn_cache)
+        x = self.layer_norm3(x + conv)
+        return self.layer_norm4(x + self.ffn2(x)), new_att, new_cnn
+
+    def packed_params(self):
+        """The kernels' packed weights, repacked only when a parameter or a
+        BatchNorm statistic was moved or modified in place."""
+        key = tuple((t.data_ptr(), t._version) for t in
+                    list(self.parameters()) + list(self.buffers()))
+        if key != self._packed_key:
+            with torch.no_grad():
+                self._packed = pack_sq_layer_params(self)
+            self._packed_key = key
+        return self._packed
+
+    def forward_full_context(self, x, lens, pos_emb):
+        """The layer through the full-context kernel. lens: (B,) int32;
+        pos_emb: (1, T, D) at the layer's rate."""
+        return fused_squeezeformer_layer(
+            x, lens, self.self_attn.linear_pos(pos_emb[0]),
+            self.packed_params(), n_head=self.attention_heads,
+            ksize=self.cnn_module_kernel, causal=self.causal,
+            conv_ln=self.conv_ln)
+
+
+class SqueezeformerEncoder(nn.Module):
+    """CMVN → DepthwiseConv2dSubsampling4 → preln → layers with the time
+    reduction and recover → final_proj when output_size != encoder_dim."""
+
+    # positions are computed from the offsets at every chunk step: no
+    # position tables, so the engine needs no horizon routing
+    position_tables = False
+
+    def __init__(self, input_size, encoder_dim=256, output_size=256,
+                 attention_heads=4, num_blocks=12, reduce_idx=5,
+                 recover_idx=11, feed_forward_expansion_factor=8,
+                 dw_stride=False, input_dropout_rate=0.1,
+                 pos_enc_layer_type="rel_pos",
+                 time_reduction_layer_type="conv1d",
+                 feed_forward_dropout_rate=0.1, attention_dropout_rate=0.1,
+                 cnn_module_kernel=31, cnn_norm_type="batch_norm",
+                 dropout=0.1, causal=False, adaptive_scale=True,
+                 activation_type="swish", init_weights=True,
+                 normalize_before=False, use_dynamic_chunk=False,
+                 static_chunk_size=0, use_dynamic_left_chunk=False,
+                 cmvn=None, **conf):
+        """Arguments as masr_tpu's SqueezeformerEncoder. The dropout rates
+        and init_weights only matter to training, not ported yet."""
+        super().__init__()
+        unknown = set(conf) - set(_IGNORED_ENCODER_KEYS)
+        if unknown:
+            raise TypeError(f"unknown encoder_conf keys: {sorted(unknown)}")
+        for ok, what in (
+                (pos_enc_layer_type == "rel_pos", "pos_enc_layer_type "
+                 f"{pos_enc_layer_type!r} (the kernels take rel_pos)"),
+                (not normalize_before, "normalize_before=True (pre-norm; "
+                 "the kernels take the post-norm layer)")):
+            if not ok:
+                raise NotImplementedError(
+                    f"{what}: the Squeezeformer layer kernels do not take "
+                    "this layer shape")
+
+        def idx_list(r):
+            return [r] if isinstance(r, int) else list(r or [])
+
+        self.global_cmvn = cmvn
+        self.encoder_dim = encoder_dim
+        self.output_size = output_size
+        self.attention_heads = attention_heads
+        self.cnn_module_kernel = cnn_module_kernel
+        self.causal = causal
+        self.use_dynamic_chunk = use_dynamic_chunk
+        self.static_chunk_size = static_chunk_size
+        self.reduce_idx = idx_list(reduce_idx)
+        self.recover_idx = idx_list(recover_idx)
+        self.embed = DepthwiseConv2dSubsampling4(input_size, encoder_dim,
+                                                 dw_stride=dw_stride)
+        self.preln = nn.LayerNorm(encoder_dim, eps=1e-6)
+        self.encoders = nn.ModuleList(
+            SqueezeformerEncoderLayer(
+                encoder_dim, attention_heads,
+                encoder_dim * feed_forward_expansion_factor,
+                cnn_module_kernel, cnn_norm_type, causal, adaptive_scale,
+                activation_type)
+            for _ in range(num_blocks))
+        self.time_reduction_layer = TimeReductionLayer(
+            encoder_dim, encoder_dim,
+            "stream" if time_reduction_layer_type == "stream" else "conv1d")
+        self.time_recover_layer = nn.Linear(encoder_dim, encoder_dim)
+        self.final_proj = nn.Linear(encoder_dim, output_size) \
+            if output_size != encoder_dim else None
+
+    def downsampling_factor(self, i):
+        """The frame-rate divisor at layer i (masr_tpu's, encoder.py:226)."""
+        reduce_exp = sum(1 for idx in self.reduce_idx if i >= idx)
+        recover_exp = sum(1 for idx in self.recover_idx if i >= idx)
+        return 2 ** max(reduce_exp - recover_exp, 0)
+
+    def _layers(self, xs, pos, lens, reduce, run):
+        """The layer stack with the U-Net steps, as masr_tpu walks it: at a
+        reduce index the current (xs, pos, lens) is saved and `reduce`
+        gives the half-rate ones; at a recover index the saved entry is
+        restored and xs is repeated, projected and added to its rows;
+        `run(i, layer, xs, pos, lens)` runs layer i."""
+        saved, index = [], 0
+        for i, layer in enumerate(self.encoders):
+            if i in self.reduce_idx:
+                saved.append((xs, pos, lens))
+                xs, pos, lens = reduce(xs, pos, lens)
+                index += 1
+            if i in self.recover_idx:
+                index -= 1
+                r_xs, pos, lens = saved[index]
+                up = self.time_recover_layer(xs.repeat_interleave(2, dim=1))
+                xs = r_xs + up[:, :r_xs.shape[1]]
+            xs = run(i, layer, xs, pos, lens)
+        return self.final_proj(xs) if self.final_proj is not None else xs
+
+    def forward(self, xs, xs_lens):
+        """Full context. xs: (B, T, F) f32; xs_lens: (B,) →
+        (out (B, T', output_size), masks (B, 1, T') bool)."""
+        if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
+            raise NotImplementedError(
+                "a static chunk mask at inference: the full-context layer "
+                "kernel takes full context only")
+        masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        xs, pos_emb, masks = self.embed(xs, masks)
+        lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
+
+        def reduce(xs, pos, lens):
+            return (self.time_reduction_layer(xs, lens), pos[:, ::2],
+                    (lens + 1) // 2)
+
+        out = self._layers(
+            self.preln(xs), pos_emb, lens, reduce,
+            lambda i, layer, xs, pos, lens: layer.forward_full_context(
+                xs, lens, pos))
+        return out, masks
+
+    # ------------------------------------------------------------------ #
+    # streaming
+    # ------------------------------------------------------------------ #
+    def _check_streaming(self, cache_size):
+        if not self.causal:
+            raise NotImplementedError(
+                "non-causal chunk stepping is not ported (the chunk-layer "
+                "kernel takes a causal conv module)")
+        if self.reduce_idx and self.time_reduction_layer.kind != "stream":
+            raise NotImplementedError(
+                "streaming with the conv1d time reduction: masr_tpu streams "
+                "with the 'stream' kind only")
+        if any(self.downsampling_factor(i) > 2
+               for i in range(len(self.encoders))):
+            raise NotImplementedError(
+                "streaming with two time reductions in force at once")
+        if cache_size % 2:
+            raise NotImplementedError(
+                f"an odd cache size {cache_size}: half-rate layers keep "
+                "every second cache row")
+
+    def init_cache(self, batch=1, cache_size=256, device=None):
+        """Zeroed streaming state for `batch` slots with C = cache_size
+        cache rows per layer (the layout of the module docstring)."""
+        if cache_size < 0:
+            raise ValueError(f"cache_size {cache_size}: the streaming "
+                             "caches have a fixed size >= 0")
+        self._check_streaming(cache_size)
+        L = len(self.encoders)
+        d_k = self.encoder_dim // self.attention_heads
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return {"att_cache": zeros(L, batch, self.attention_heads,
+                                   cache_size, 2 * d_k),
+                "cnn_cache": zeros(L, batch, self.cnn_module_kernel - 1,
+                                   self.encoder_dim),
+                "offset": zeros(batch, dtype=torch.int32),
+                "cache_len": zeros(batch, dtype=torch.int32),
+                "wptr": zeros(batch, dtype=torch.int32)}
+
+    def pack_chunk_params(self, cache_size=None, pos_table_len=8192):
+        """Per layer: the kernel weights (BatchNorm folded). cache_size and
+        pos_table_len are taken for the engine's call and unused: the
+        positions come from the offsets at every step."""
+        return [layer.packed_params() for layer in self.encoders]
+
+    @torch.no_grad()
+    def forward_chunk_batched(self, xs, state, packed=None, active=None,
+                              exact_positions=False):
+        """One streaming step of every slot of `state` through the chunk
+        kernel, with per-slot offsets and cache validity, each layer at its
+        rate (half-rate layers at (c/2, C/2) on the shared ring).
+
+        xs: (N, T_in, F) one feature window per slot, T_in = (c-1)·4 + 7;
+        or (N, k, T_in, F), k windows per slot run as ONE multi-chunk step
+        (block-causal over the k sub-chunks, equal to k single steps).
+        packed: pack_chunk_params(). active: (N,) bool or None (all); the
+        caches and counters of inactive slots stay untouched.
+        exact_positions: taken for the engine's call; positions are always
+        exact here. → (N, c·k, output_size); the state advances in
+        place."""
+        n_sub = 1
+        if xs.dim() == 4:
+            n_sub = xs.shape[1]
+            xs = xs.reshape((-1,) + tuple(xs.shape[2:]))
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        # each window subsamples on its own, as sequential steps feed them
+        xs = self.embed(xs)[0]
+        if n_sub > 1:
+            xs = xs.reshape(xs.shape[0] // n_sub, -1, xs.shape[2])
+        N, chunk = xs.shape[0], xs.shape[1]
+        att, cnn = state["att_cache"], state["cnn_cache"]
+        C, dev = att.shape[3], xs.device
+        self._check_streaming(C)
+        if self.reduce_idx and (chunk // n_sub) % 2:
+            raise NotImplementedError(
+                f"an odd chunk of {chunk // n_sub} frames: the time "
+                "reduction keeps every second frame of each chunk")
+        if packed is None:
+            packed = self.pack_chunk_params()
+        if active is None:
+            active = torch.ones(N, dtype=torch.bool, device=dev)
+        act_i32 = active.to(dev, torch.bool).to(torch.int32)
+        L = C + chunk
+        rows = torch.clamp(state["offset"][:, None].long() - C
+                           + torch.arange(L, device=dev), min=0)
+        pe = sinusoid_position_encoding(rows.reshape(-1), self.encoder_dim
+                                        ).view(N, L, -1)
+        # half-rate keys: cache row j holds the half-frame at full position
+        # row 2j, then the strided chunk (masr_tpu's pos_half)
+        pe_half = torch.cat([pe[:, 0:C:2], pe[:, C::2]], dim=1)
+        step = {1: (pe.reshape(-1, self.encoder_dim), L, state["cache_len"],
+                    state["wptr"]),
+                2: (pe_half.reshape(-1, self.encoder_dim), pe_half.shape[1],
+                    state["cache_len"] // 2, state["wptr"] // 2)}
+
+        def reduce(xs, pos, lens):
+            return self.time_reduction_layer(xs), pos, lens
+
+        def run(i, layer, xs, pos, lens):
+            rate = self.downsampling_factor(i)
+            pos_rows, rows_per_slot, clens, wptrs = step[rate]
+            return fused_chunk_layer_sq(
+                xs, layer.self_attn.linear_pos(pos_rows),
+                torch.arange(N, dtype=torch.int32, device=dev)
+                * rows_per_slot, att[i], cnn[i], clens, wptrs, act_i32,
+                packed[i], n_head=layer.attention_heads,
+                ksize=layer.cnn_module_kernel, conv_ln=layer.conv_ln,
+                n_sub=n_sub, rep=rate)
+
+        out = self._layers(self.preln(xs), None, None, reduce, run)
+        adv = act_i32 * chunk
+        state["offset"].add_(adv)
+        state["cache_len"].copy_(torch.clamp(state["cache_len"] + adv,
+                                             max=C))
+        if C:
+            state["wptr"].copy_((state["wptr"] + adv) % C)
+        return out
+
+    def forward_chunk(self, xs, state):
+        """One streaming chunk of every slot (masr_tpu's forward_chunk),
+        all slots active. xs: (B, T_in, F) → (B, c, output_size); the state
+        advances in place."""
+        return self.forward_chunk_batched(xs, state)
+
+
+class SqueezeformerModel(ConformerModel):
+    """Squeezeformer encoder + CTC head + the attention decoder
+    (masr_tpu/models/squeezeformer.py:737-754): serving. Streaming gives
+    causal convs and the `stream` time reduction."""
+
+    def make_encoder(self, input_dim, cmvn, streaming, enc_conf):
+        return SqueezeformerEncoder(
+            input_dim, cmvn=cmvn, use_dynamic_chunk=streaming,
+            causal=streaming,
+            time_reduction_layer_type="stream" if streaming else "conv1d",
+            **enc_conf)
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Squeezeformer training is not ported yet: it comes with the "
+            "next slice of the port, masr_tpu's "
+            "fused_squeezeformer_layer_train kernel")

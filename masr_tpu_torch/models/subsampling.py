@@ -1,10 +1,12 @@
-"""Input subsampling (port of masr_tpu/models/subsampling.py:44-73, with
-the mask-free streaming call).
+"""Input subsampling (port of masr_tpu/models/subsampling.py:44-73 and
+:140-176, with the mask-free streaming call).
 
-Only Conv2dSubsampling4 ("conv2d"), the flagship's, is ported. It computes
-in torch's NCHW with upstream MASR's channel-major flatten, so upstream
-weights apply directly (the weight map permutes the flax linear).
+Ported: Conv2dSubsampling4 ("conv2d"), the Conformer flagship's, and the
+Squeezeformer's DepthwiseConv2dSubsampling4. Both compute in torch's NCHW
+with upstream MASR's channel-major flatten, so upstream weights apply
+directly (the weight map permutes the flax linear).
 """
+import torch
 from torch import nn
 
 from masr_tpu_torch.models.embedding import RelPositionalEncoding
@@ -30,6 +32,36 @@ class Conv2dSubsampling4(nn.Module):
         B, C, T, F = x.shape
         x = self.out(x.transpose(1, 2).reshape(B, T, C * F))
         x, pos_emb = self.pos_enc(x, offset, generator)
+        if x_mask is not None:
+            x_mask = x_mask[:, :, :-2:2][:, :, :-2:2]
+        return x, pos_emb, x_mask
+
+
+class DepthwiseConv2dSubsampling4(nn.Module):
+    """Squeezeformer subsampling: a (3x3, stride 2) "pointwise" conv, ReLU,
+    a (3x3, stride 2) "depthwise" conv (grouped only with dw_stride; the
+    encoder passes False), ReLU, the rel-pos encoding, then input_proj:
+    rate 4, right context 6."""
+
+    def __init__(self, idim: int, odim: int, pos_dropout_rate: float = 0.0,
+                 dw_stride: bool = False):
+        super().__init__()
+        self.pw_conv = nn.Conv2d(1, odim, 3, 2)
+        self.dw_conv = nn.Conv2d(odim, odim, 3, 2,
+                                 groups=odim if dw_stride else 1)
+        freq = ((idim - 1) // 2 - 1) // 2
+        self.pos_enc = RelPositionalEncoding(odim, pos_dropout_rate)
+        self.input_proj = nn.Sequential(nn.Linear(odim * freq, odim))
+
+    def forward(self, x, x_mask=None, offset=0, generator=None):
+        """As Conv2dSubsampling4.forward; the encoding scales the flattened
+        conv features before input_proj (masr_tpu's order)."""
+        x = torch.relu(self.pw_conv(x[:, None]))
+        x = torch.relu(self.dw_conv(x))                 # (B, C, T', F')
+        B, C, T, F = x.shape
+        x, pos_emb = self.pos_enc(x.transpose(1, 2).reshape(B, T, C * F),
+                                  offset, generator)
+        x = self.input_proj(x)
         if x_mask is not None:
             x_mask = x_mask[:, :, :-2:2][:, :, :-2:2]
         return x, pos_emb, x_mask

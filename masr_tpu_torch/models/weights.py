@@ -3,9 +3,14 @@ masr_tpu's streaming attention caches ↔ the port's ring layout.
 
 The weight map is the exact inverse of masr_tpu/models/convert.py (`_t`,
 `_conv2d`, `_dw_conv1d`, `_pw_conv1d`, `_subsample_linear`,
-convert.py:27-51), so the port loads masr_tpu bundles directly, and an
-upstream MASR state_dict is already in the port's format. Attention-decoder
-weights pass through under their upstream names (`decoder.left_decoder...`).
+convert.py:27-51, and `convert_squeezeformer`, :262-369), so the port loads
+masr_tpu bundles directly, and an upstream MASR state_dict is already in
+the port's format. Attention-decoder weights pass through under their
+upstream names (`decoder.left_decoder...`). A Squeezeformer bundle also
+carries `batch_stats`, the conv modules' BatchNorm running statistics
+(flax `.../conv_module/conv/norm/{mean,var}` ↔ upstream
+`...conv_module.norm.running_{mean,var}`); `num_batches_tracked` is neither
+read nor written.
 
 Attention caches: masr_tpu keeps chronological row j (0 = oldest) of a
 slot at row j of a right-aligned (..., B, h, C, 2·d_k) array, or, in its
@@ -27,7 +32,12 @@ _NAME_RULES = [
     (r"^encoder\.embed\.conv1\.", "encoder.embed.conv.0."),
     (r"^encoder\.embed\.conv2\.", "encoder.embed.conv.2."),
     (r"^encoder\.embed\.out\.", "encoder.embed.out.0."),
+    (r"^encoder\.embed\.input_proj\.", "encoder.embed.input_proj.0."),
     (r"\.embed\.embedding$", ".embed.0.weight"),
+    # Squeezeformer: the flax AdaptiveScale submodule `ada` and the inner
+    # ConvolutionModule `conv` are not in the upstream names
+    (r"\.ada\.(ada_scale|ada_bias)$", r".\1"),
+    (r"\.conv_module\.conv\.", ".conv_module."),
     (r"\.(kernel|scale)$", ".weight"),
 ]
 _INVERSE_RULES = [
@@ -37,11 +47,23 @@ _INVERSE_RULES = [
     (r"^encoder\.embed\.conv\.0\.", "encoder.embed.conv1."),
     (r"^encoder\.embed\.conv\.2\.", "encoder.embed.conv2."),
     (r"^encoder\.embed\.out\.0\.", "encoder.embed.out."),
+    (r"^encoder\.embed\.input_proj\.0\.", "encoder.embed.input_proj."),
     (r"\.embed\.0\.weight$", ".embed.embedding"),
-    # LayerNorm modules are the only ones with "norm" in their name
+    (r"^encoder\.preln\.weight$", "encoder.preln.scale"),
+    # LayerNorm and BatchNorm modules are the only others with "norm" in
+    # their name
     (r"(norm\w*)\.weight$", r"\1.scale"),
     (r"\.weight$", ".kernel"),
 ]
+# the Squeezeformer's, applied first when the state is one
+_SQ_INVERSE_RULES = [
+    (r"\.(self_attn|ffn1|ffn2|conv_module)\.(ada_scale|ada_bias)$",
+     r".\1.ada.\2"),
+    (r"\.conv_module\.(?!ada\.)", ".conv_module.conv."),
+]
+# batch_stats leaf ↔ BatchNorm buffer
+_STAT_RULES = [(r"\.norm\.(mean|var)$", r".norm.running_\1")]
+_STAT_INVERSE_RULES = [(r"\.norm\.running_(mean|var)$", r".norm.\1")]
 
 
 def _rename(name, rules):
@@ -52,17 +74,22 @@ def _rename(name, rules):
 
 def _kind(torch_name):
     """Layout transform of one upstream weight name (None = as is)."""
-    if torch_name.startswith("encoder.embed.conv.") and \
-            torch_name.endswith(".weight"):
+    if re.match(r"encoder\.embed\.(conv\.\d|pw_conv|dw_conv)\.weight$",
+                torch_name):
         return "conv2d"
-    if torch_name == "encoder.embed.out.0.weight":
+    if torch_name in ("encoder.embed.out.0.weight",
+                      "encoder.embed.input_proj.0.weight"):
         return "subsample_linear"
     if re.search(r"conv_module\.pointwise_conv\d\.weight$", torch_name):
         return "pointwise"
-    if torch_name.endswith("conv_module.depthwise_conv.weight"):
+    if torch_name.endswith(("conv_module.depthwise_conv.weight",
+                            "time_reduction_layer.dw_conv.weight")):
         return "depthwise"
+    if torch_name == "encoder.time_reduction_layer.pw_conv.weight":
+        return "conv1d_k1"
     if torch_name.endswith(".weight") and "norm" not in torch_name \
-            and not torch_name.endswith(".embed.0.weight"):
+            and not torch_name.endswith(".embed.0.weight") \
+            and torch_name != "encoder.preln.weight":
         return "linear"
     return None
 
@@ -77,8 +104,9 @@ def _to_torch(kind, w):
             out, -1)
     if kind == "pointwise":
         return w.T[:, :, None]                           # (in,out) → (out,in,1)
-    if kind == "depthwise":
-        return np.transpose(w, (2, 1, 0))                # (k,1,C) → (C,1,k)
+    if kind in ("depthwise", "conv1d_k1"):
+        # (k,1,C) → (C,1,k); flax Conv (1,in,out) → torch (out,in,1)
+        return np.transpose(w, (2, 1, 0))
     if kind == "linear":
         return w.T
     return w
@@ -93,7 +121,7 @@ def _to_flax(kind, w):
             -1, out)
     if kind == "pointwise":
         return w[:, :, 0].T
-    if kind == "depthwise":
+    if kind in ("depthwise", "conv1d_k1"):
         return np.transpose(w, (2, 1, 0))
     if kind == "linear":
         return w.T
@@ -109,31 +137,44 @@ def _flatten(tree, prefix=()):
 
 
 def from_flax_variables(variables):
-    """{'params': flax tree of numpy arrays} → state_dict
-    {upstream name: f32 torch.Tensor}."""
-    if set(variables) != {"params"}:
-        raise ValueError(f"expected only a 'params' collection, got "
-                         f"{sorted(variables)}")
+    """{'params': flax tree of numpy arrays[, 'batch_stats': ...]} →
+    state_dict {upstream name: f32 torch.Tensor}."""
+    if "params" not in variables or \
+            not set(variables) <= {"params", "batch_stats"}:
+        raise ValueError(f"expected a 'params' collection and optionally "
+                         f"'batch_stats', got {sorted(variables)}")
     state = {}
-    for path, w in _flatten(variables["params"]):
-        name = _rename(".".join(path), _NAME_RULES)
-        w = _to_torch(_kind(name), np.asarray(w, np.float32))
-        state[name] = torch.from_numpy(np.array(w, order="C"))
+    for collection, rules in (("params", _NAME_RULES),
+                              ("batch_stats", _STAT_RULES + _NAME_RULES)):
+        for path, w in _flatten(variables.get(collection, {})):
+            name = _rename(".".join(path), rules)
+            w = _to_torch(_kind(name), np.asarray(w, np.float32))
+            state[name] = torch.from_numpy(np.array(w, order="C"))
     return state
 
 
 def to_flax_variables(state_dict):
     """state_dict {upstream name: tensor} → {'params': flax tree of f32
-    numpy arrays}."""
-    params = {}
+    numpy arrays}, and 'batch_stats' when the state holds BatchNorm
+    running statistics (num_batches_tracked is dropped)."""
+    squeeze = "encoder.preln.weight" in state_dict
+    out = {}
     for name, w in state_dict.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        collection, rules = "params", _INVERSE_RULES
+        if re.search(r"\.running_(mean|var)$", name):
+            collection, rules = "batch_stats", \
+                _STAT_INVERSE_RULES + _INVERSE_RULES
+        if squeeze:
+            rules = _SQ_INVERSE_RULES + rules
         w = _to_flax(_kind(name), w.detach().cpu().numpy().astype(np.float32))
-        node = params
-        *parents, leaf = _rename(name, _INVERSE_RULES).split(".")
+        node = out.setdefault(collection, {})
+        *parents, leaf = _rename(name, rules).split(".")
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(w)
-    return {"params": params}
+    return out
 
 
 def grads_to_flax_variables(named_params):
@@ -172,14 +213,22 @@ def flax_like_init(model, generator):
 
 def seeded_state_dict(model, seed):
     """Random weights for `model`, drawn with numpy from `seed`: weights
-    U(±1/√fan_in) as torch's default init, LayerNorm scales 1 + N(0, 0.1²),
-    biases and the other vectors N(0, 0.05²) (non-zero, so padding
-    semantics show). → state_dict of f32 tensors."""
+    U(±1/√fan_in) as torch's default init, norm and adaptive scales
+    1 + N(0, 0.1²), BatchNorm running variances U(0.5, 1.5), biases, means
+    and the other vectors N(0, 0.05²) (non-zero, so padding semantics
+    show); BatchNorm's num_batches_tracked stays as it is. → state_dict of
+    tensors (f32 but for that counter)."""
     rs = np.random.RandomState(seed)
     state = {}
     for name, p in model.state_dict().items():
         shape = tuple(p.shape)
-        if "norm" in name and name.endswith(".weight"):
+        if name.endswith("num_batches_tracked"):
+            state[name] = p.clone()
+            continue
+        if name.endswith("running_var"):
+            w = rs.uniform(0.5, 1.5, shape)
+        elif ("norm" in name and name.endswith(".weight")) or \
+                name.endswith("ada_scale"):
             w = 1.0 + 0.1 * rs.standard_normal(shape)
         elif name.endswith(".weight") and len(shape) >= 2:
             bound = 1.0 / np.sqrt(np.prod(shape[1:]))

@@ -64,47 +64,34 @@ def _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub):
     return B, c, D, C
 
 
-def fused_chunk_layer_plain(x, pos, pos_starts, att_cache, cnn_cache,
-                            cache_lens, wptrs, active, packed, *, n_head,
-                            ksize, n_sub=1, ff_scale=0.5, eps=1e-5):
-    """Plain PyTorch version of the kernel, same arguments.
-    x: (B, c, D) chunk after subsampling; pos: (rows, D) linear_pos(sinusoid)
-    rows, slot s reads rows pos_starts[s] + j for j < L = C + c;
-    att_cache: (B, h, C, 2·d_k) ring, chronological row j at physical row
-    (wptrs[s] + j) mod C, valid iff j >= C - cache_lens[s]; cnn_cache:
-    (B, k-1, D); active: (B,) bool or int; packed: pack_layer_params.
-    n_sub > 1: block-causal over n_sub sub-chunks (equal to n_sub
-    sequential steps). Updates the caches of active slots in place.
-    → (B, c, D)."""
-    B, c, D, C = _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub)
-    dev = x.device
-    d_k, L, sub_c = D // n_head, C + c, c // n_sub
-    lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
-
-    def layer_norm(v, i):
-        return F.layer_norm(v, (D,), lnw[i, 0], lnw[i, 1], eps)
-
-    def ffn(v, i):
-        h = F.silu(v @ packed["ffw1"][i] + packed["ffb1"][i])
-        return h @ packed["ffw2"][i] + vecb[i]
-
-    x = x + ff_scale * ffn(layer_norm(x, 0), 0)
-
-    # rel-pos MHSA over [cache ‖ chunk]: AC + BD as one 2·d_k contraction
-    xn = layer_norm(x, 1)
-    q, k, v = ((xn @ attw[i] + vecb[2 + i]).view(B, c, n_head, d_k)
-               .transpose(1, 2) for i in range(3))
+def ring_attention_plain(q, k, v, pos, pos_starts, att_cache, cache_lens,
+                         wptrs, posb, *, n_head, n_sub=1, rep=1):
+    """Rel-pos attention of the chunk rows over [att cache ‖ chunk], AC +
+    BD as one 2·d_k contraction. q, k, v: (B, c, D), heads along columns;
+    pos: (rows, D) linear_pos(sinusoid) rows, slot s reads rows
+    pos_starts[s] + j for j < L = C + c; att_cache: (B, h, C·rep, 2·d_k)
+    ring of C logical rows, logical row p in memory rows p·rep .. p·rep +
+    rep - 1 (read from the last), chronological row j at logical row
+    (wptrs[s] + j) mod C, valid iff j >= C - cache_lens[s]; n_sub > 1:
+    block-causal over n_sub sub-chunks. → (B, c, D)."""
+    B, c, D = q.shape
+    dev = q.device
+    d_k = D // n_head
+    ring = att_cache[:, :, rep - 1::rep]
+    C = ring.shape[2]
+    L, sub_c = C + c, c // n_sub
+    q, k, v = (t.view(B, c, n_head, d_k).transpose(1, 2) for t in (q, k, v))
     wp = wptrs.to(dev, torch.long) % max(C, 1)
     ring_rows = (wp[:, None] + torch.arange(C, device=dev)) % max(C, 1)
-    chron = att_cache.gather(2, ring_rows[:, None, :, None].expand(
+    chron = ring.gather(2, ring_rows[:, None, :, None].expand(
         B, n_head, C, 2 * d_k))
     keys = torch.cat([chron[..., :d_k], k], dim=2)            # (B, h, L, dk)
     vals = torch.cat([chron[..., d_k:], v], dim=2)
     rows = pos_starts.to(dev, torch.long)[:, None] \
         + torch.arange(L, device=dev)
     p = pos[rows].view(B, L, n_head, d_k).transpose(1, 2)
-    bu = packed["posb"][0].view(n_head, 1, d_k)
-    bv = packed["posb"][1].view(n_head, 1, d_k)
+    bu = posb[0].view(n_head, 1, d_k)
+    bv = posb[1].view(n_head, 1, d_k)
     s = (torch.cat([q + bu, q + bv], dim=-1)
          @ torch.cat([keys, p], dim=-1).transpose(-1, -2)) / math.sqrt(d_k)
     # cache key j valid iff j >= C - cache_len (and j >= i·sub_c for
@@ -122,30 +109,90 @@ def fused_chunk_layer_plain(x, pos, pos_starts, att_cache, cnn_cache,
     prob = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     l = prob.sum(-1, keepdim=True)
     att = (prob / torch.where(l == 0.0, 1.0, l)) @ vals
-    x = x + att.transpose(1, 2).reshape(B, c, D) @ attw[3] + vecb[5]
+    return att.transpose(1, 2).reshape(B, c, D)
+
+
+def write_ring_plain(att_cache, k, v, wptrs, active, *, n_head, rep=1):
+    """The fresh K/V rows k, v (B, c, D) into the ring (layout as
+    ring_attention_plain), in place: fresh row i at logical row (wptrs[s] +
+    i) mod C, every copy of it; only the last C rows when c > C; slots with
+    active[s] False untouched."""
+    B, c, D = k.shape
+    C = att_cache.shape[2] // rep
+    if not C:
+        return
+    dev, d_k = k.device, D // n_head
+    first = max(c - C, 0)
+    wp = wptrs.to(dev, torch.long) % C
+    dst = (wp[:, None] + torch.arange(first, c, device=dev)) % C
+    fresh = torch.cat([k.view(B, c, n_head, d_k), v.view(B, c, n_head, d_k)],
+                      dim=-1).transpose(1, 2)[:, :, first:]
+    act = active.to(dev).bool()[:, None, None, None]
+    for r in range(rep):
+        idx = (dst * rep + r)[:, None, :, None].expand(B, n_head, c - first,
+                                                        2 * d_k)
+        att_cache.scatter_(2, idx, torch.where(act, fresh,
+                                               att_cache.gather(2, idx)))
+
+
+def glu_valid_depthwise_plain(gx, dww):
+    """Conv-module middle of the chunk layers: GLU of the pointwise_conv1
+    output gx (B, k-1+c, 2D) of [cnn cache ‖ chunk], then the VALID
+    depthwise conv over time without its bias, dww (k, D). → (B, c, D)."""
+    D, ksize = gx.shape[2] // 2, dww.shape[0]
+    c = gx.shape[1] - ksize + 1
+    u = gx[..., :D] * torch.sigmoid(gx[..., D:])
+    acc = torch.zeros_like(u[:, :c])
+    for i in range(ksize):
+        acc = acc + u[:, i:i + c] * dww[i]
+    return acc
+
+
+def fused_chunk_layer_plain(x, pos, pos_starts, att_cache, cnn_cache,
+                            cache_lens, wptrs, active, packed, *, n_head,
+                            ksize, n_sub=1, ff_scale=0.5, eps=1e-5):
+    """Plain PyTorch version of the kernel, same arguments.
+    x: (B, c, D) chunk after subsampling; pos: (rows, D) linear_pos(sinusoid)
+    rows, slot s reads rows pos_starts[s] + j for j < L = C + c;
+    att_cache: (B, h, C, 2·d_k) ring, chronological row j at physical row
+    (wptrs[s] + j) mod C, valid iff j >= C - cache_lens[s]; cnn_cache:
+    (B, k-1, D); active: (B,) bool or int; packed: pack_layer_params.
+    n_sub > 1: block-causal over n_sub sub-chunks (equal to n_sub
+    sequential steps). Updates the caches of active slots in place.
+    → (B, c, D)."""
+    B, c, D, C = _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub)
+    lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
+
+    def layer_norm(v, i):
+        return F.layer_norm(v, (D,), lnw[i, 0], lnw[i, 1], eps)
+
+    def ffn(v, i):
+        h = F.silu(v @ packed["ffw1"][i] + packed["ffb1"][i])
+        return h @ packed["ffw2"][i] + vecb[i]
+
+    x = x + ff_scale * ffn(layer_norm(x, 0), 0)
+
+    # rel-pos MHSA over [cache ‖ chunk]
+    xn = layer_norm(x, 1)
+    q, k, v = (xn @ attw[i] + vecb[2 + i] for i in range(3))
+    att = ring_attention_plain(q, k, v, pos, pos_starts, att_cache,
+                               cache_lens, wptrs, packed["posb"],
+                               n_head=n_head, n_sub=n_sub)
+    x = x + att @ attw[3] + vecb[5]
 
     # causal conv over [cnn cache ‖ LN(x)] (cache rows are pre-pointwise)
     cin = torch.cat([cnn_cache, layer_norm(x, 2)], dim=1)     # (B, k-1+c, D)
-    gx = cin @ packed["pw1w"] + packed["pw1b"][0]
-    u = gx[..., :D] * torch.sigmoid(gx[..., D:])
-    acc = torch.zeros_like(x)
-    for i in range(ksize):                                     # VALID conv
-        acc = acc + u[:, i:i + c] * packed["dww"][i]
+    acc = glu_valid_depthwise_plain(cin @ packed["pw1w"] + packed["pw1b"][0],
+                                    packed["dww"])
     x = x + F.silu(layer_norm(acc + vecb[6], 3)) @ packed["pw2w"] + vecb[7]
 
     x = x + ff_scale * ffn(layer_norm(x, 4), 1)
     out = layer_norm(x, 5)
 
-    # caches, active slots only: the fresh K/V rows (the last C of them
-    # when c > C) at (wptr + i) mod C; the last k-1 rows of the conv input
-    act = active.to(dev).bool()
-    if C:
-        first = max(c - C, 0)
-        dst = (wp[:, None] + torch.arange(first, c, device=dev)) % C
-        idx = dst[:, None, :, None].expand(B, n_head, c - first, 2 * d_k)
-        fresh = torch.cat([k, v], dim=-1)[:, :, first:]
-        att_cache.scatter_(2, idx, torch.where(
-            act[:, None, None, None], fresh, att_cache.gather(2, idx)))
+    # caches, active slots only: the fresh K/V rows; the last k-1 rows of
+    # the conv input
+    act = active.to(x.device).bool()
+    write_ring_plain(att_cache, k, v, wptrs, act, n_head=n_head)
     cnn_cache.copy_(torch.where(act[:, None, None], cin[:, c:], cnn_cache))
     return out
 

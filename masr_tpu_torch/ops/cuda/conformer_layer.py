@@ -56,6 +56,52 @@ def pack_layer_params(layer):
     }
 
 
+def rel_pos_attention_plain(q, k, v, pos_p, posb, valid, n_head):
+    """Full-context rel-pos attention, AC + BD as one 2·d_k contraction
+    (no rel_shift, as the reference). q, k, v: (B, T, D), heads along
+    columns; pos_p: (T, D) linear_pos(pos_emb); posb: (2, D) pos_bias_u,
+    pos_bias_v; valid: (B, T) bool, the keys each utterance may see (a row
+    that sees none gives 0). → (B, T, D)."""
+    B, T, D = q.shape
+    d_k = D // n_head
+    q, k, v = (t.view(B, T, n_head, d_k).transpose(1, 2) for t in (q, k, v))
+    p = pos_p.view(T, n_head, d_k).transpose(0, 1)[None]     # (1, H, T, d_k)
+    bu = posb[0].view(n_head, 1, d_k)
+    bv = posb[1].view(n_head, 1, d_k)
+    qcat = torch.cat([q + bu, q + bv], dim=-1)
+    kcat = torch.cat([k, p.expand(B, -1, -1, -1)], dim=-1)
+    s = (qcat @ kcat.transpose(-1, -2)) * (1.0 / math.sqrt(d_k))
+    col_ok = valid[:, None, None, :]
+    s = torch.where(col_ok, s, MASK_VALUE)
+    prob = torch.where(col_ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = prob.sum(-1, keepdim=True)
+    att = (prob / torch.where(l == 0.0, 1.0, l)) @ v
+    return att.transpose(1, 2).reshape(B, T, D)
+
+
+def glu_depthwise_plain(gx, pw1b, dww, causal):
+    """Conv-module middle of the full-context layers: GLU of the
+    pointwise_conv1 output gx (B, T, 2D), then the depthwise conv over time
+    without its bias, dww (k, D). The causal pad rows carry GLU(pw1 bias)
+    (flax pads x before pointwise_conv1); non-causal pads zeros inside the
+    depthwise conv. → (B, T, D)."""
+    B, T, D = gx.shape[0], gx.shape[1], gx.shape[2] // 2
+    ksize = dww.shape[0]
+    u = gx[..., :D] * torch.sigmoid(gx[..., D:])
+    if causal:
+        pad_row = pw1b[:D] * torch.sigmoid(pw1b[D:])
+        left, right = ksize - 1, 0
+    else:
+        pad_row = torch.zeros_like(pw1b[:D])
+        left = right = (ksize - 1) // 2
+    upad = torch.cat([pad_row.expand(B, left, D), u,
+                      pad_row.expand(B, right, D)], dim=1)
+    acc = torch.zeros_like(u)
+    for i in range(ksize):
+        acc = acc + upad[:, i:i + T] * dww[i]
+    return acc
+
+
 def fused_conformer_layer_plain(x, lens, pos_p, packed, *, n_head, ksize,
                                 causal, ff_scale=0.5, eps=1e-5):
     """Plain PyTorch version of the kernel, same arguments.
@@ -63,7 +109,6 @@ def fused_conformer_layer_plain(x, lens, pos_p, packed, *, n_head, ksize,
     linear_pos(pos_emb), heads along columns; packed: `pack_layer_params`.
     → (B, T, D)."""
     B, T, D = x.shape
-    d_k = D // n_head
     lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
 
     def layer_norm(v, i):
@@ -79,41 +124,17 @@ def fused_conformer_layer_plain(x, lens, pos_p, packed, *, n_head, ksize,
 
     x = x + ff_scale * ffn(layer_norm(x, 0), 0)
 
-    # rel-pos MHSA: AC + BD as one 2·d_k contraction
+    # rel-pos MHSA
     xn = layer_norm(x, 1)
-    q, k, v = ((xn @ attw[i] + vecb[2 + i]).view(B, T, n_head, d_k)
-               .transpose(1, 2) for i in range(3))
-    p = pos_p.view(T, n_head, d_k).transpose(0, 1)[None]     # (1, H, T, d_k)
-    bu = packed["posb"][0].view(n_head, 1, d_k)
-    bv = packed["posb"][1].view(n_head, 1, d_k)
-    qcat = torch.cat([q + bu, q + bv], dim=-1)
-    kcat = torch.cat([k, p.expand(B, -1, -1, -1)], dim=-1)
-    s = (qcat @ kcat.transpose(-1, -2)) * (1.0 / math.sqrt(d_k))
-    col_ok = valid[:, None, None, :]
-    s = torch.where(col_ok, s, MASK_VALUE)
-    prob = torch.where(col_ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
-    l = prob.sum(-1, keepdim=True)
-    att = (prob / torch.where(l == 0.0, 1.0, l)) @ v
-    att = att.transpose(1, 2).reshape(B, T, D)
+    att = rel_pos_attention_plain(
+        *(xn @ attw[i] + vecb[2 + i] for i in range(3)), pos_p,
+        packed["posb"], valid, n_head)
     x = x + att @ attw[3] + vecb[5]
 
-    # conv module; causal pad rows carry GLU(pw1 bias) (flax pads x before
-    # pointwise_conv1), non-causal pads zeros inside the depthwise conv
+    # conv module
     xm = torch.where(row_ok, layer_norm(x, 2), 0.0)
-    gx = xm @ packed["pw1w"] + packed["pw1b"][0]
-    u = gx[..., :D] * torch.sigmoid(gx[..., D:])
-    pw1b = packed["pw1b"][0]
-    if causal:
-        pad_row = pw1b[:D] * torch.sigmoid(pw1b[D:])
-        left, right = ksize - 1, 0
-    else:
-        pad_row = torch.zeros_like(pw1b[:D])
-        left = right = (ksize - 1) // 2
-    upad = torch.cat([pad_row.expand(B, left, D), u,
-                      pad_row.expand(B, right, D)], dim=1)
-    acc = torch.zeros_like(u)
-    for i in range(ksize):
-        acc = acc + upad[:, i:i + T] * packed["dww"][i]
+    acc = glu_depthwise_plain(xm @ packed["pw1w"] + packed["pw1b"][0],
+                              packed["pw1b"][0], packed["dww"], causal)
     y = F.silu(layer_norm(acc + vecb[6], 3)) @ packed["pw2w"] + vecb[7]
     x = x + torch.where(row_ok, y, 0.0)
 

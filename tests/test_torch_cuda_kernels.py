@@ -238,3 +238,156 @@ def test_ctc_kernel_matches_plain(cuda_device, B, T, V, L):
     k64 = (g_k - g_64).abs().max().item()
     p64 = (g_p - g_64).abs().max().item()
     assert k64 <= max(2 * p64, 1e-4), (k64, p64)
+
+
+# --------------------------------------------------------------------------- #
+# Squeezeformer
+# --------------------------------------------------------------------------- #
+def _sq_layer(D, H, FF, K, causal, conv_norm, seed, device):
+    from masr_tpu_torch.models.squeezeformer import SqueezeformerEncoderLayer
+    layer = SqueezeformerEncoderLayer(D, H, FF, K, conv_norm, causal)
+    layer.load_state_dict(seeded_state_dict(layer, seed=seed))
+    return layer.to(device).eval()
+
+
+# (d_model, heads, ffn, conv kernel, T, lens): the test widths and the
+# flagship's (configs/squeezeformer.yml) at full and half rate
+SQ_SHAPES = [(64, 2, 128, 7, 45, [45, 36, 0]),
+             (256, 4, 2048, 31, 299, [299, 282, 5, 0]),
+             (256, 4, 2048, 31, 150, [150, 141, 3, 1])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_norm", ["batch_norm", "layer_norm"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SQ_SHAPES, ids=lambda s: f"D{s[0]}T{s[4]}")
+def test_squeezeformer_layer_kernel_matches_plain(cuda_device, shape, causal,
+                                                  conv_norm):
+    """fused_squeezeformer_layer (CUDA) == its plain twin on the same card,
+    valid rows, atol 2e-4 (f32 FMA, different sum order); the output is
+    finite everywhere and the call counts one launch."""
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    D, H, FF, K, T, lens = shape
+    layer = _sq_layer(D, H, FF, K, causal, conv_norm, D + T, cuda_device)
+    g = torch.Generator().manual_seed(T + 1)
+    x = torch.randn(len(lens), T, D, generator=g).to(cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    kw = dict(n_head=H, ksize=K, causal=causal,
+              conv_ln=conv_norm == "layer_norm")
+    with torch.no_grad():
+        pos_p = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            torch.arange(T, device=cuda_device), D))
+        packed = layer.packed_params()
+        before = sq.fused_squeezeformer_layer.launches
+        got = sq.fused_squeezeformer_layer(x, lens_t, pos_p, packed, **kw)
+        want = sq.fused_squeezeformer_layer_plain(x, lens_t, pos_p, packed,
+                                                  **kw)
+    torch.cuda.synchronize()
+    assert sq.fused_squeezeformer_layer.launches == before + 1
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(lens):
+        err = (got[b, :n] - want[b, :n]).abs().max().item() if n else 0.0
+        assert err <= 2e-4, (b, n, err)
+
+
+# (d_model, heads, ffn, conv kernel, chunk c, cache C) at full rate: the
+# test widths and the flagship's streaming shape
+SQ_CHUNK_SHAPES = [(64, 2, 128, 7, 16, 64), (256, 4, 2048, 31, 16, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2], ids=["full_rate", "half_rate"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("shape", SQ_CHUNK_SHAPES,
+                         ids=lambda s: f"D{s[0]}C{s[5]}")
+def test_chunk_layer_sq_kernel_matches_plain(cuda_device, shape, n_sub, rep):
+    """fused_chunk_layer_sq (CUDA) == its plain twin on the same card, at
+    full rate and at half rate on the full-resolution ring (rows stored
+    twice): outputs and updated caches atol 2e-4, over slots mixing
+    cache_len {0, partial, full} and write pointers that wrap; inactive
+    slots' caches stay bitwise unchanged; one launch."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    D, H, FF, K, c, C = shape
+    c, C = c * n_sub // rep, C // rep
+    d_k, L = D // H, C + c
+    layer = _sq_layer(D, H, FF, K, True, "batch_norm", D + C + c,
+                      cuda_device)
+    g = torch.Generator().manual_seed(c + C)
+    x = torch.randn(6, c, D, generator=g).to(cuda_device)
+    att = (0.5 * torch.randn(6, H, C * rep, 2 * d_k, generator=g)).to(
+        cuda_device)
+    cnn = (0.5 * torch.randn(6, K - 1, D, generator=g)).to(cuda_device)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda_device)
+
+    clens = i32([0, 5, C // 2, C, C, 3])
+    wptrs = i32([0, 3, C - 2, C - 1, 11 % C, 0])
+    active = i32([1, 1, 1, 1, 0, 0])
+    offsets = [0, 5, 100, 400, 250, 3]
+    with torch.no_grad():
+        rows = torch.clamp(i32(offsets)[:, None] - C
+                           + torch.arange(L, device=cuda_device), min=0)
+        pos = layer.self_attn.linear_pos(
+            sinusoid_position_encoding(rows.reshape(-1), D))
+        starts = torch.arange(6, dtype=torch.int32, device=cuda_device) * L
+        packed = layer.packed_params()
+        res = {}
+        for name, fn in (("kernel", cks.fused_chunk_layer_sq),
+                         ("plain", cks.fused_chunk_layer_sq_plain)):
+            a, n = att.clone(), cnn.clone()
+            before = cks.fused_chunk_layer_sq.launches
+            out = fn(x, pos, starts, a, n, clens, wptrs, active, packed,
+                     n_head=H, ksize=K, conv_ln=False, n_sub=n_sub, rep=rep)
+            res[name] = (out, a, n, cks.fused_chunk_layer_sq.launches - before)
+    torch.cuda.synchronize()
+    (got, a_k, n_k, launched), (want, a_p, n_p, _) = (res["kernel"],
+                                                      res["plain"])
+    assert launched == 1
+    assert torch.isfinite(got).all()
+    for name, k_t, p_t in (("out", got, want), ("att", a_k, a_p),
+                           ("cnn", n_k, n_p)):
+        err = (k_t - p_t).abs().max().item()
+        assert err <= 2e-4, (name, err)
+    assert torch.equal(a_k[4:], att[4:]) and torch.equal(n_k[4:], cnn[4:])
+    assert not torch.equal(a_k[:4], att[:4])
+
+
+@pytest.mark.cuda
+def test_squeezeformer_flagship_launches(cuda_device):
+    """The flagship Squeezeformer (configs/squeezeformer.yml widths, 12
+    blocks, seeded weights): one full-context encoder call launches the
+    layer kernel 12 times, one chunk step (and one two-chunk step over 4
+    slots) the chunk kernel 12 times, and nothing else of the two."""
+    from masr_tpu_torch.models.registry import build_model
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    enc = dict(encoder_dim=256, output_size=256, attention_heads=4,
+               num_blocks=12, reduce_idx=5, recover_idx=11,
+               feed_forward_expansion_factor=8, cnn_module_kernel=31)
+    model = build_model("squeezeformer", 80, 100, streaming=True,
+                        encoder_conf=enc)
+    model.load_state_dict(seeded_state_dict(model, seed=3))
+    model = model.to(cuda_device).eval()
+    g = torch.Generator().manual_seed(4)
+    speech = torch.randn(2, 301, 80, generator=g).to(cuda_device)
+    with torch.no_grad():
+        counts = []
+        for run in (
+                lambda: model.get_encoder_out(
+                    speech, torch.tensor([301, 200], device=cuda_device)),
+                lambda: model.get_encoder_out_chunk(
+                    speech[:1, :67], model.encoder.init_cache(
+                        1, 256, cuda_device)),
+                lambda: model.get_encoder_out_chunk_batched(
+                    torch.randn(4, 2, 67, 80, generator=g).to(cuda_device),
+                    model.encoder.init_cache(4, 256, cuda_device))):
+            before = (sq.fused_squeezeformer_layer.launches,
+                      cks.fused_chunk_layer_sq.launches)
+            out = run()
+            torch.cuda.synchronize()
+            counts.append((sq.fused_squeezeformer_layer.launches - before[0],
+                           cks.fused_chunk_layer_sq.launches - before[1]))
+            assert torch.isfinite(out[0] if isinstance(out, tuple)
+                                  else out).all()
+    assert counts == [(12, 0), (0, 12), (0, 12)]
