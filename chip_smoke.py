@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's offline and streaming recognition (the Conformer and the
-Squeezeformer) and its training through their public entry points
+Drives the port's offline and streaming recognition and its training (the
+Conformer and the Squeezeformer) through their public entry points
 (MASRPredictor.predict_batch, MASRPredictor.predict_stream,
 BatchStreamSession, MASRTrainer.train) and holds every hand-written kernel
 of those paths against its plain PyTorch twin. Phases, one JSON line each:
 
-  1. build          compile the six CUDA sources of the repo (nvcc, sm_90a),
+  1. build          compile the seven CUDA sources of the repo (nvcc, sm_90a),
                     one process per source, all started together
   2. kernels        the full-context Conformer layer kernel vs its plain twin
                     at flagship width (D=256, 4 heads, FFN 2048, conv 15),
@@ -89,11 +89,32 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     events): the layer at B=8, T'=299 (full rate) and 150
                     (half rate); the chunk layer at B=32 and B=1, both
                     rates; predict_batch wall, engine tick at 32 streams
+ 19. sq_train_kernels  the Squeezeformer training-layer kernel vs its plain
+                    twin at the width of configs/squeezeformer.yml with the
+                    layer_norm conv, B=8, full rate (T'=299) and half rate
+                    (T'=150: the mask's [::2, ::2], lengths halved rounding
+                    up), dynamic-chunk mask with padding, dropout 0 and
+                    0.1 / 0.1: output and every grad
+ 20. sq_train       MASRTrainer(dict config, device=cuda).train of that
+                    Squeezeformer (configs/squeezeformer.yml, cnn_norm_type
+                    layer_norm, AdamW + NoamHoldAnnealing) on phase 12's
+                    corpus (build/smoke/sq_train): 2 epochs of 16 steps at
+                    B=8 and a resumed third, every step 12 + 12 launches of
+                    the training-layer kernel and 1 + 1 of the CTC kernel,
+                    the loss per label token and the test loss falling, the
+                    first step at dropout 0 against the CPU; then one epoch
+                    of the BatchNorm default (eager layers, no kernel
+                    launch, running statistics moved; first step and
+                    statistics against the CPU)
+ 21. sq_train_times the Squeezeformer training layer forward and backward,
+                    kernel vs plain, at both rates (CUDA events), bounds;
+                    train-step wall times, audio seconds trained per second,
+                    a torch.profiler breakdown of three steps
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
-order may flip). Then the kernels line, the card's name and power limit, and
-last {"ok": true, "device": {...}}. Any failed check raises: the script
+order may flip). Then the script's total seconds, the kernels line, the
+card's name and power limit, and last {"ok": true, "device": {...}}. Any failed check raises: the script
 exits non-zero and prints no result. It needs CUDA and the repository's
 package beside it; it imports nothing of JAX.
 """
@@ -1164,20 +1185,24 @@ TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 16, 2
 CPU_LOSS_RTOL, CPU_GRAD_RTOL = 1e-4, 1e-3   # first step, card vs CPU
 
 
-def train_layer_inputs(layer, seed, dev):
+def train_layer_inputs(layer, seed, dev, half=False):
     """Flagship training-layer arguments at B=8, T'=299: random x and a
-    dynamic-chunk (16-frame chunks, 4 left chunks) mask with padding."""
+    dynamic-chunk (16-frame chunks, 4 left chunks) mask with padding; with
+    `half`, the rows a Squeezeformer's time reduction leaves: the mask's
+    [::2, ::2], the lengths halved rounding up, every second position
+    (T'=150)."""
     from masr_tpu_torch.models.embedding import sinusoid_position_encoding
-    from masr_tpu_torch.ops.cuda import conformer_layer as cl
     g = torch.Generator().manual_seed(seed)
     T, B = TRAIN_T, len(TRAIN_LENS)
-    x = torch.randn(B, T, layer.size, generator=g).to(dev)
-    w = torch.randn(B, T, layer.size, generator=g).to(dev)
     lens = torch.tensor(TRAIN_LENS, dtype=torch.int32, device=dev)
     r = torch.arange(T, device=dev)
     rc, cc = r[:, None] // 16, r[None, :] // 16
     mask = ((cc <= rc) & (cc >= rc - 4))[None] & \
         (r[None, None, :] < lens[:, None, None])
+    if half:
+        mask, lens, r = mask[:, ::2, ::2], (lens + 1) // 2, r[::2]
+    x = torch.randn(B, len(r), layer.size, generator=g).to(dev)
+    w = torch.randn(B, len(r), layer.size, generator=g).to(dev)
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
                           dtype=torch.int32).to(dev)
     with torch.no_grad():
@@ -1203,6 +1228,31 @@ def rel_err(a, b):
     return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
 
 
+def check_train_layer(fns, layer, args, rates):
+    """The training-layer kernel fns[0] vs its plain twin fns[1] on the
+    same inputs: output and every grad of sum(y * w) (x, posp, each packed
+    array), checked against KERNEL_ATOL and GRAD_RTOL. → case dict."""
+    res = []
+    for fn in fns:
+        y, xx, pp, pk = run_train_layer(fn, layer, args, rates)
+        (y * args[1]).sum().backward()
+        torch.cuda.synchronize()
+        res.append((y.detach(), {"x": xx.grad, "posp": pp.grad,
+                                 **{k: v.grad for k, v in pk.items()}}))
+    (y_k, g_k), (y_p, g_p) = res
+    T = tuple(y_k.shape)[1]
+    check(bool(torch.isfinite(y_k).all()), "train layer output finite")
+    err = (y_k - y_p).abs().max().item()
+    check(err <= KERNEL_ATOL, f"train layer kernel vs plain max abs err "
+          f"{err} <= {KERNEL_ATOL} (T'={T}, rates {rates})")
+    gerr = {k: rel_err(g_k[k], g_p[k]) for k in g_p}
+    for k, e in gerr.items():
+        check(bool(torch.isfinite(g_k[k]).all()), f"grad {k} finite")
+        check(e <= GRAD_RTOL, f"train layer grad {k}: {e} <= {GRAD_RTOL} "
+              f"of its max (T'={T}, rates {rates})")
+    return {"T": T, "rates": rates, "max_abs_err": err, "grad_rel_err": gerr}
+
+
 def phase_train_kernels(dev):
     """Training-layer kernel vs plain (outputs and all grads) at dropout 0
     and 0.1 / 0.1, and the CTC kernel vs plain at B=8, T'=299, V=4000."""
@@ -1210,29 +1260,11 @@ def phase_train_kernels(dev):
     from masr_tpu_torch.ops.cuda import ctc_loss as C
     layer = seeded_layer(21, True, dev)
     args = train_layer_inputs(layer, 22, dev)
-    cases, worst, worst_grad = [], 0.0, 0.0
-    for rates in ((0.0, 0.0), (0.1, 0.1)):
-        res = {}
-        for name, fn in (("kernel", clt.fused_conformer_layer_train),
-                         ("plain", clt.fused_conformer_layer_train_plain)):
-            y, xx, pp, pk = run_train_layer(fn, layer, args, rates)
-            (y * args[1]).sum().backward()
-            torch.cuda.synchronize()
-            res[name] = (y.detach(), {"x": xx.grad, "posp": pp.grad,
-                                      **{k: v.grad for k, v in pk.items()}})
-        (y_k, g_k), (y_p, g_p) = res["kernel"], res["plain"]
-        check(bool(torch.isfinite(y_k).all()), "train layer output finite")
-        err = (y_k - y_p).abs().max().item()
-        check(err <= KERNEL_ATOL, f"train layer kernel vs plain max abs err "
-              f"{err} <= {KERNEL_ATOL} (rates {rates})")
-        gerr = {k: rel_err(g_k[k], g_p[k]) for k in g_p}
-        for k, e in gerr.items():
-            check(bool(torch.isfinite(g_k[k]).all()), f"grad {k} finite")
-            check(e <= GRAD_RTOL, f"train layer grad {k}: {e} <= {GRAD_RTOL} "
-                  f"of its max (rates {rates})")
-        cases.append({"rates": rates, "max_abs_err": err,
-                      "grad_rel_err": gerr})
-        worst, worst_grad = max(worst, err), max(worst_grad, *gerr.values())
+    fns = (clt.fused_conformer_layer_train,
+           clt.fused_conformer_layer_train_plain)
+    cases = [check_train_layer(fns, layer, args, rates)
+             for rates in ((0.0, 0.0), (0.1, 0.1))]
+    worst = max(c["max_abs_err"] for c in cases)
     # CTC: label lengths 5..40 and one of 80 (S = 161 states)
     lg, lens, labels, label_lens = ctc_inputs(dev)
     wts = torch.randn(lg.shape[0], generator=torch.Generator().manual_seed(3)
@@ -1367,22 +1399,32 @@ def train_config(corpus, save_dir, max_epoch, dropout=True):
         "metrics_type": "cer", "log_dir": os.path.join(save_dir, "log")}
 
 
+def train_layer_kernel(family="conformer"):
+    """The family's training-layer kernel wrapper (its launch counts)."""
+    if family == "conformer":
+        from masr_tpu_torch.ops.cuda import conformer_layer_train as m
+        return m.fused_conformer_layer_train
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as m
+    return m.fused_squeezeformer_layer_train
+
+
 def reset_train_launches():
-    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
     from masr_tpu_torch.ops.cuda import ctc_loss as C
-    for fn in (clt.fused_conformer_layer_train, C.ctc_loss):
+    for fn in (train_layer_kernel("conformer"),
+               train_layer_kernel("squeezeformer"), C.ctc_loss):
         fn.launches = fn.backward_launches = 0
 
 
-def train_launches():
-    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+def train_launches(family="conformer"):
+    """(train layer launches, its backward ones, CTC launches, its backward
+    ones)."""
     from masr_tpu_torch.ops.cuda import ctc_loss as C
-    f, c = clt.fused_conformer_layer_train, C.ctc_loss
+    f, c = train_layer_kernel(family), C.ctc_loss
     return (f.launches, f.backward_launches, c.launches, c.backward_launches)
 
 
 @contextlib.contextmanager
-def clocked_train_steps(rows):
+def clocked_train_steps(rows, family="conformer"):
     """Wraps the trainer's train step: per step the wall time (synchronised),
     the kernel launches, loss, label tokens and audio seconds → rows."""
     from masr_tpu_torch.training import trainer as tr
@@ -1390,7 +1432,7 @@ def clocked_train_steps(rows):
 
     def step(state, batch, seed):
         torch.cuda.synchronize()
-        before = train_launches()
+        before = train_launches(family)
         t0 = time.perf_counter()
         m = orig(state, batch, seed)
         torch.cuda.synchronize()
@@ -1399,7 +1441,7 @@ def clocked_train_steps(rows):
                      "tokens": float(batch["label_lens"].float().mean()),
                      "audio_s": float(batch["input_lens"].sum()) / 100.0,
                      "launches": [a - b for a, b in
-                                  zip(train_launches(), before)]})
+                                  zip(train_launches(family), before)]})
         return m
 
     tr.train_step = step
@@ -1409,64 +1451,91 @@ def clocked_train_steps(rows):
         tr.train_step = orig
 
 
-def phase_train(dev):
-    """MASRTrainer(dict config, device=cuda).train at flagship widths on a
-    synthetic corpus: 2 epochs of 16 steps at B=8, then a resume for a third
-    epoch; the first step's loss and grads against the CPU at dropout 0."""
-    from masr_tpu_torch.training.train_state import batch_to, step_generators
+def train_and_resume(config, corpus, root, family, step_launches):
+    """The main path of a training phase: MASRTrainer(dict config,
+    device=cuda).train for TRAIN_EPOCHS epochs of 16 steps, then a second
+    trainer resumes from last_model for one more; every step must launch
+    step_launches (train layer, its backward, CTC, its backward); the loss
+    per label token and the test loss must fall. Counts are read around the
+    two train() calls alone. → (launches of the run, per-step rows, the
+    resumed trainer, checkpoint metas, summary dict)."""
     from masr_tpu_torch.training.trainer import MASRTrainer
-    root = os.path.join(WORK, "train")
-    shutil.rmtree(root, ignore_errors=True)
-    corpus = write_train_corpus(os.path.join(root, "corpus"), train_vocab())
     save = os.path.join(root, "models")
-    n_layers = FLAGSHIP_ENCODER["num_blocks"]
     rows = []
-    # the main path: counts read around the two train() calls alone
     reset_train_launches()
-    with clocked_train_steps(rows):
+    with clocked_train_steps(rows, family):
         t0 = time.perf_counter()
-        MASRTrainer(train_config(corpus, root, TRAIN_EPOCHS),
-                    device=dev).train(save_model_path=save)
+        MASRTrainer(config(corpus, root, TRAIN_EPOCHS),
+                    device="cuda").train(save_model_path=save)
         first_s = time.perf_counter() - t0
-        resumed = MASRTrainer(train_config(corpus, root, TRAIN_EPOCHS + 1),
-                              device=dev)
+        resumed = MASRTrainer(config(corpus, root, TRAIN_EPOCHS + 1),
+                              device="cuda")
         resumed.train(save_model_path=save)
-    launches = train_launches()
+    launches = train_launches(family)
     steps = TRAIN_STEPS_PER_EPOCH * (TRAIN_EPOCHS + 1)
     check(len(rows) == steps and resumed.state.step == steps,
           f"{len(rows)} steps, resumed state at step {resumed.state.step}, "
           f"want {steps}")
     for i, r in enumerate(rows):
-        check(r["launches"] == [2 * n_layers, n_layers, 2, 1],
-              f"step {i} launches {r['launches']}: the train-layer kernel "
-              f"{n_layers}x forward + {n_layers}x backward, CTC 1 + 1")
+        check(r["launches"] == list(step_launches),
+              f"{family} step {i} launches {r['launches']}, want "
+              f"{list(step_launches)} (train layer, its backward, CTC, its "
+              f"backward)")
     losses = np.asarray([r["loss"] for r in rows])
     per_token = losses / np.asarray([r["tokens"] for r in rows])
     check(bool(np.isfinite(losses).all()) and all(r["finite"] for r in rows),
           "every step's loss finite")
     head, tail = float(per_token[:4].mean()), float(per_token[-8:].mean())
-    check(tail < head, f"loss per label token falls: first 4 steps {head}, "
-          f"last 8 {tail}")
-    run = os.path.join(save, "conformer_streaming_fbank")
+    check(tail < head, f"{family} loss per label token falls: first 4 steps "
+          f"{head}, last 8 {tail}")
+    run = os.path.join(save, f"{family}_streaming_fbank")
     metas = {}
     for d in ("epoch_1", "epoch_2", "epoch_3", "last_model", "best_model"):
         check(os.path.exists(os.path.join(run, d, "state.pt")),
               f"checkpoint {d} written")
         with open(os.path.join(run, d, "model.state")) as f:
             metas[d] = json.load(f)
-    meta = metas["last_model"]
-    check(meta["last_epoch"] == TRAIN_EPOCHS + 1, "resume went on to epoch 3")
+    check(metas["last_model"]["last_epoch"] == TRAIN_EPOCHS + 1,
+          "resume went on to epoch 3")
     test_losses = [metas[f"epoch_{e}"]["test_loss"] for e in (1, 2, 3)]
-    check(test_losses[2] < test_losses[0], f"test loss falls over the "
-          f"epochs: {test_losses}")
+    check(test_losses[2] < test_losses[0], f"{family} test loss falls over "
+          f"the epochs: {test_losses}")
+    summary = {"steps": len(rows), "batch": len(TRAIN_LENS),
+               "epochs": TRAIN_EPOCHS + 1,
+               "resumed_from_epoch": TRAIN_EPOCHS,
+               "launches": {"train_layer_fwd_bwd": launches[0],
+                            "train_layer_bwd": launches[1],
+                            "ctc_fwd_bwd": launches[2],
+                            "ctc_bwd": launches[3]},
+               "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+               "loss_per_token_first4": head, "loss_per_token_last8": tail,
+               "test_loss_per_epoch": test_losses,
+               "test_cer_last": metas["last_model"].get("test_cer"),
+               "first_two_epochs_s": first_s}
+    return launches, rows, resumed, summary
 
-    # the first step at dropout 0: card vs CPU from the same init and batch
-    conf0 = train_config(corpus, root, 1, dropout=False)
+
+def first_step_card_vs_cpu(conf, sample, prepare=None):
+    """The first train step at dropout 0 from the same init and batch on
+    the card and on the CPU: the loss (rel CPU_LOSS_RTOL), the grads of the
+    sampled parameters and every BatchNorm running statistic after the step
+    (rel CPU_GRAD_RTOL of their largest magnitude). The sample leaves out
+    the subsampling convs and the decoder's layers, whose grads pass
+    through a ReLU's derivative: where a pre-activation within f32 rounding
+    of 0 takes the other side on the card, such a grad jumps past the
+    tolerance (so does the CPU's in f32 against f64), so it is no
+    continuous function to compare elementwise; the sampled grads take such
+    jumps only summed over every row. prepare(model) runs on both models
+    first. → summary dict."""
+    from masr_tpu_torch.training.train_state import batch_to, step_generators
+    from masr_tpu_torch.training.trainer import MASRTrainer
     trainers = {}
     for name in ("card", "cpu"):
-        t = MASRTrainer(conf0, device=dev if name == "card" else "cpu")
+        t = MASRTrainer(conf, device="cuda" if name == "card" else "cpu")
         ds, _, loader = t._setup_dataloader(True)
         t._setup_model(ds.feature_dim, ds.vocab_size)
+        if prepare is not None:
+            prepare(t.model)
         trainers[name] = t
     batch = next(iter(loader))
     got = {}
@@ -1479,38 +1548,47 @@ def phase_train(dev):
         out["loss"].backward()
         got[name] = (float(out["loss"].detach()),
                      {n: p.grad.detach().cpu()
-                      for n, p in t.model.named_parameters()})
-    (l_card, g_card), (l_cpu, g_cpu) = got["card"], got["cpu"]
+                      for n, p in t.model.named_parameters()},
+                     {n: b.detach().cpu()
+                      for n, b in t.model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))})
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = got["card"], got["cpu"]
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     check(loss_rel <= CPU_LOSS_RTOL, f"first-step loss card {l_card} vs CPU "
           f"{l_cpu}: rel {loss_rel} <= {CPU_LOSS_RTOL}")
-    sample = ["encoder.embed.conv.0.weight",
+    grad_rel = {n: rel_err(g_card[n], g_cpu[n]) for n in sample}
+    stat_rel = {n: rel_err(s_card[n], s_cpu[n]) for n in s_cpu}
+    for n, e in {**grad_rel, **stat_rel}.items():
+        check(e <= CPU_GRAD_RTOL, f"first step {n} card vs CPU: {e} <= "
+              f"{CPU_GRAD_RTOL} of its max")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
+            "grad_rel_err": grad_rel,
+            "batch_stats_rel_err_max": max(stat_rel.values(), default=None)}
+
+
+def phase_train(dev):
+    """MASRTrainer(dict config, device=cuda).train at flagship widths on a
+    synthetic corpus: 2 epochs of 16 steps at B=8, then a resume for a third
+    epoch; the first step's loss and grads against the CPU at dropout 0."""
+    root = os.path.join(WORK, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    corpus = write_train_corpus(os.path.join(root, "corpus"), train_vocab())
+    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    launches, rows, resumed, summary = train_and_resume(
+        train_config, corpus, root, "conformer", (2 * n_layers, n_layers, 2, 1))
+    sample = ["encoder.embed.out.0.weight",
               "encoder.encoders.0.feed_forward.w_1.weight",
               f"encoder.encoders.{n_layers // 2}.self_attn.linear_q.weight",
               f"encoder.encoders.{n_layers - 1}.conv_module.depthwise_conv"
               ".weight",
               f"encoder.encoders.{n_layers - 1}.norm_final.weight",
-              "decoder.left_decoder.decoders.0.src_attn.linear_k.weight",
+              "decoder.left_decoder.after_norm.weight",
               "decoder.right_decoder.output_layer.weight",
               "ctc.ctc_lo.weight"]
-    grad_rel = {n: rel_err(g_card[n], g_cpu[n]) for n in sample}
-    for n, e in grad_rel.items():
-        check(e <= CPU_GRAD_RTOL, f"first-step grad {n} card vs CPU: {e} <= "
-              f"{CPU_GRAD_RTOL} of its max")
-    emit({"phase": "train", "steps": len(rows), "batch": len(TRAIN_LENS),
-          "epochs": TRAIN_EPOCHS + 1, "resumed_from_epoch": TRAIN_EPOCHS,
-          "launches": {"train_layer_fwd_bwd": launches[0],
-                       "train_layer_bwd": launches[1],
-                       "ctc_fwd_bwd": launches[2], "ctc_bwd": launches[3]},
-          "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-          "loss_per_token_first4": head, "loss_per_token_last8": tail,
-          "test_loss_per_epoch": test_losses,
-          "test_cer_last": meta.get("test_cer"),
-          "first_two_epochs_s": first_s,
-          "first_step_card_vs_cpu": {"loss_card": l_card, "loss_cpu": l_cpu,
-                                     "loss_rel_err": loss_rel,
-                                     "grad_rel_err": grad_rel}})
-    return launches, rows, resumed
+    first = first_step_card_vs_cpu(
+        train_config(corpus, root, 1, dropout=False), sample)
+    emit({"phase": "train", **summary, "first_step_card_vs_cpu": first})
+    return launches, rows, resumed, corpus
 
 
 # the training layer's GEMMs are common.cuh's gemm_kernel instantiated with
@@ -1522,7 +1600,7 @@ PROFILE_GROUPS = (("train layer: GEMMs", ("::Epi>", "splitk_sum_kernel")),
                                               "ln_bwd_kernel")),
                   ("train layer: conv module", ("conv_",)),
                   ("train layer: elementwise", ("scale_drop_kernel",
-                                                "add_kernel")),
+                                                "add_kernel", "ada_")),
                   ("CTC kernel", ("ctc_",)))
 
 
@@ -1576,6 +1654,31 @@ def profile_train_steps(trainer, n=3):
             "by_group_ms_per_step": groups, "top": top[:20]}
 
 
+def time_train_layer(fns, layer, args, rates):
+    """Forward and backward of the training layer, fns["kernel"] vs
+    fns["plain"], CUDA events in the order plain, kernel, kernel, plain →
+    ({name: [fwd ms]}, {name: [bwd ms]})."""
+    fwd, bwd = {"plain": [], "kernel": []}, {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        y = run_train_layer(fns[name], layer, args, rates)[0]
+        fwd[name].append(cuda_ms(lambda: run_train_layer(
+            fns[name], layer, args, rates)))
+        bwd[name].append(cuda_ms(lambda: y.backward(args[1],
+                                                    retain_graph=True)))
+        del y
+    return fwd, bwd
+
+
+def step_times(rows):
+    """Train-step wall times of a run: the median after the first three
+    steps, every step's, and the audio seconds trained per second."""
+    steady = rows[3:]
+    return {"step_s_median": float(np.median([r["s"] for r in steady])),
+            "step_s": [r["s"] for r in rows],
+            "audio_s_per_s": sum(r["audio_s"] for r in steady) / sum(
+                r["s"] for r in steady)}
+
+
 def phase_train_times(dev, rows, trainer, smi):
     """Training-layer forward and backward, kernel vs plain, and CTC
     forward + backward, kernel vs plain vs F.ctc_loss, at B=8, T'=299
@@ -1587,16 +1690,9 @@ def phase_train_times(dev, rows, trainer, smi):
     layer = seeded_layer(23, True, dev)
     args = train_layer_inputs(layer, 24, dev)
     rates = (0.1, 0.1)
-    fns = {"plain": clt.fused_conformer_layer_train_plain,
-           "kernel": clt.fused_conformer_layer_train}
-    fwd, bwd = {"plain": [], "kernel": []}, {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        y = run_train_layer(fns[name], layer, args, rates)[0]
-        fwd[name].append(cuda_ms(lambda: run_train_layer(
-            fns[name], layer, args, rates)))
-        bwd[name].append(cuda_ms(lambda: y.backward(args[1],
-                                                    retain_graph=True)))
-        del y
+    fwd, bwd = time_train_layer(
+        {"plain": clt.fused_conformer_layer_train_plain,
+         "kernel": clt.fused_conformer_layer_train}, layer, args, rates)
     lg, lens, labels, label_lens = ctc_inputs(dev, seed=6)
     lp_lens, tl = lens.long(), label_lens.long()
     targets = labels.clamp(min=0).long()
@@ -1618,10 +1714,6 @@ def phase_train_times(dev, rows, trainer, smi):
     ctc["kernel"].append(cuda_ms(ctc_kernel))
     ctc["plain"].append(cuda_ms(ctc_plain, 5))
     ctc["library"] = [cuda_ms(ctc_library)]
-    steady = [r for r in rows[3:]]
-    step_s = float(np.median([r["s"] for r in steady]))
-    audio_per_s = sum(r["audio_s"] for r in steady) / sum(
-        r["s"] for r in steady)
     layer_b = train_layer_bound(layer, args)
     ctc_b = ctc_bound(lg)
     emit({"phase": "train_times", "card": smi,
@@ -1634,9 +1726,7 @@ def phase_train_times(dev, rows, trainer, smi):
                   "fwd_bwd_kernel_ms": ctc["kernel"],
                   "fwd_bwd_plain_ms": ctc["plain"],
                   "fwd_bwd_library_ms": ctc["library"], **ctc_b},
-          "step_s_median": step_s, "step_s": [r["s"] for r in rows],
-          "audio_s_per_s": audio_per_s,
-          "profile": profile_train_steps(trainer)})
+          **step_times(rows), "profile": profile_train_steps(trainer)})
     return ({"ms": float(np.mean(fwd["kernel"]) + np.mean(bwd["kernel"])),
              "plain_ms": float(np.mean(fwd["plain"]) + np.mean(bwd["plain"])),
              **layer_b},
@@ -1645,15 +1735,172 @@ def phase_train_times(dev, rows, trainer, smi):
              "library_ms": float(np.mean(ctc["library"])), **ctc_b})
 
 
+# --------------------------------------------------------------------------- #
+# Squeezeformer training: its training-layer kernel, MASRTrainer.train
+# --------------------------------------------------------------------------- #
+def phase_sq_train_kernels(dev):
+    """The Squeezeformer training-layer kernel vs its plain twin at the
+    width of configs/squeezeformer.yml with the layer_norm conv (D=256, 4
+    heads, FFN 2048, conv 31), B=8, the dynamic-chunk mask with padding:
+    full rate (T'=299) and half rate (T'=150, the rows after the time
+    reduction), dropout 0 and 0.1 / 0.1; output and every grad."""
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    layer = seeded_sq_layer(31, True, "layer_norm", dev)
+    fns = (sqt.fused_squeezeformer_layer_train,
+           sqt.fused_squeezeformer_layer_train_plain)
+    cases = [check_train_layer(fns, layer,
+                               train_layer_inputs(layer, 32, dev, half),
+                               rates)
+             for half in (False, True) for rates in ((0.0, 0.0), (0.1, 0.1))]
+    emit({"phase": "sq_train_kernels",
+          "kernel": "fused_squeezeformer_layer_train", "B": len(TRAIN_LENS),
+          "lens": TRAIN_LENS, "D": 256, "heads": 4, "ffn": 2048,
+          "conv_kernel": 31,
+          "mask": "16-frame chunks, 4 left chunks, padding; half rate: its "
+                  "[::2, ::2]", "atol": KERNEL_ATOL, "grad_rtol": GRAD_RTOL,
+          "cases": cases})
+    return max(c["max_abs_err"] for c in cases)
+
+
+def sq_train_config(corpus, save_dir, max_epoch, dropout=True,
+                    conv_norm="layer_norm"):
+    """configs/squeezeformer.yml as a dict at its widths with the given
+    cnn_norm_type (no repo config gives this family layer_norm), B=8,
+    accum_grad 2, its AdamW and NoamHoldAnnealing with max_steps cut to the
+    run's 24 updates (48 steps) so that the loss falls within the run."""
+    r = 0.1 if dropout else 0.0
+    conf = train_config(corpus, save_dir, max_epoch, dropout)
+    conf.update({
+        "encoder_conf": dict(SQ_ENCODER, cnn_norm_type=conv_norm, dropout=r,
+                             input_dropout_rate=r,
+                             feed_forward_dropout_rate=r,
+                             attention_dropout_rate=r),
+        "decoder_conf": dict(SQ_DECODER, dropout_rate=r,
+                             positional_dropout_rate=r,
+                             self_attention_dropout_rate=r,
+                             src_attention_dropout_rate=r),
+        "optimizer_conf": dict(
+            optimizer="AdamW", weight_decay=4e-5, learning_rate=1e-3,
+            scheduler="NoamHoldAnnealing",
+            scheduler_conf=dict(
+                max_steps=TRAIN_STEPS_PER_EPOCH * (TRAIN_EPOCHS + 1) // 2,
+                warmup_ratio=0.2, hold_ratio=0.3, decay_rate=1.0,
+                min_lr=1e-5)),
+        "use_model": "squeezeformer"})
+    return conf
+
+
+def no_positional_dropout(model):
+    """The Squeezeformer subsampling's positional dropout, which masr_tpu
+    keeps at 0.1 whatever the config, off: the card's and the CPU's
+    generators draw other numbers."""
+    model.encoder.embed.pos_enc.dropout_rate = 0.0
+
+
+def phase_sq_train(dev, corpus):
+    """MASRTrainer(dict config, device=cuda).train of the Squeezeformer of
+    configs/squeezeformer.yml with the layer_norm conv on phase 12's
+    corpus: 2 epochs of 16 steps at B=8 and a resumed third, every step
+    12 + 12 training-layer launches and 1 + 1 CTC, the loss per label token
+    and the test loss falling; its first step at dropout 0 against the CPU.
+    Then one epoch of the BatchNorm default: no training-layer launch, the
+    running statistics moved, its first step (statistics included) against
+    the CPU."""
+    from masr_tpu_torch.training.trainer import MASRTrainer
+    root = os.path.join(WORK, "sq_train")
+    shutil.rmtree(root, ignore_errors=True)
+    n = SQ_ENCODER["num_blocks"]
+    launches, rows, resumed, summary = train_and_resume(
+        sq_train_config, corpus, root, "squeezeformer", (2 * n, n, 2, 1))
+    sample = ["encoder.embed.input_proj.0.weight", "encoder.preln.weight",
+              "encoder.encoders.0.self_attn.ada_scale",
+              "encoder.encoders.0.ffn1.w_1.weight",
+              f"encoder.encoders.{n // 2}.self_attn.linear_q.weight",
+              f"encoder.encoders.{n // 2}.conv_module.ada_bias",
+              "encoder.time_reduction_layer.pw_conv.weight",
+              "encoder.time_recover_layer.weight",
+              f"encoder.encoders.{n - 1}.conv_module.depthwise_conv.weight",
+              f"encoder.encoders.{n - 1}.layer_norm4.weight",
+              "decoder.left_decoder.after_norm.weight",
+              "decoder.right_decoder.output_layer.weight",
+              "ctc.ctc_lo.weight"]
+    first = first_step_card_vs_cpu(
+        sq_train_config(corpus, root, 1, dropout=False), sample,
+        no_positional_dropout)
+
+    # the BatchNorm default: the eager layers with batch statistics
+    bn_root = os.path.join(root, "batch_norm")
+    bn_rows = []
+    bn = MASRTrainer(sq_train_config(corpus, bn_root, 1,
+                                     conv_norm="batch_norm"), device=dev)
+    reset_train_launches()
+    with clocked_train_steps(bn_rows, "squeezeformer"):
+        bn.train(save_model_path=os.path.join(bn_root, "models"))
+    bn_launches = train_launches("squeezeformer")
+    check(len(bn_rows) == TRAIN_STEPS_PER_EPOCH, f"{len(bn_rows)} BatchNorm "
+          f"steps, want {TRAIN_STEPS_PER_EPOCH}")
+    for i, r in enumerate(bn_rows):
+        check(r["launches"] == [0, 0, 2, 1], f"BatchNorm step {i} launches "
+              f"{r['launches']}: no training-layer kernel, CTC 1 + 1")
+    check(all(r["finite"] for r in bn_rows), "BatchNorm steps finite")
+    stats = {k: v for k, v in bn.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    moved = min(float((v - (1.0 if k.endswith("var") else 0.0)).abs().max())
+                for k, v in stats.items())
+    check(len(stats) == 2 * n and moved > 0, f"{len(stats)} BatchNorm "
+          f"statistics, each moved off its init (least max move {moved})")
+    bn_first = first_step_card_vs_cpu(
+        sq_train_config(corpus, bn_root, 1, dropout=False,
+                        conv_norm="batch_norm"),
+        sample + [f"encoder.encoders.{n // 2}.conv_module.norm.weight"],
+        no_positional_dropout)
+    emit({"phase": "sq_train", "cnn_norm_type": "layer_norm", **summary,
+          "first_step_card_vs_cpu": first,
+          "batch_norm": {"steps": len(bn_rows),
+                         "launches": bn_launches,
+                         "loss": [r["loss"] for r in bn_rows],
+                         "stats_least_max_move": moved,
+                         **step_times(bn_rows),
+                         "first_step_card_vs_cpu": bn_first}})
+    return launches, rows, resumed
+
+
+def phase_sq_train_times(dev, rows, trainer, smi):
+    """The Squeezeformer training layer forward and backward, kernel vs
+    plain, at B=8, full rate (T'=299) and half rate (T'=150), dropout 0.1
+    (CUDA events, plain, kernel, kernel, plain), with their bounds; the
+    train-step wall times and audio seconds per second of sq_train; a
+    torch.profiler breakdown of three steps on the longest batch."""
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    layer = seeded_sq_layer(33, True, "layer_norm", dev)
+    fns = {"plain": sqt.fused_squeezeformer_layer_train_plain,
+           "kernel": sqt.fused_squeezeformer_layer_train}
+    rates, out = (0.1, 0.1), {}
+    for rate_name, half in (("full_rate", False), ("half_rate", True)):
+        args = train_layer_inputs(layer, 34, dev, half)
+        fwd, bwd = time_train_layer(fns, layer, args, rates)
+        out[rate_name] = {
+            "T": int(args[0].shape[1]), "fwd_kernel_ms": fwd["kernel"],
+            "fwd_plain_ms": fwd["plain"], "bwd_kernel_ms": bwd["kernel"],
+            "bwd_plain_ms": bwd["plain"],
+            "ms": float(np.mean(fwd["kernel"]) + np.mean(bwd["kernel"])),
+            "plain_ms": float(np.mean(fwd["plain"]) + np.mean(bwd["plain"])),
+            **train_layer_bound(layer, args)}
+    emit({"phase": "sq_train_times", "card": smi, "B": len(TRAIN_LENS),
+          "rates": rates, "train_layer": out, **step_times(rows),
+          "profile": profile_train_steps(trainer)})
+    return out["full_rate"]
+
+
 def train_layer_bound(layer, args):
-    """Forward + backward of one training layer over the valid rows: the
-    forward's products, attention over the mask's visible (query, key)
-    pairs of valid rows, depthwise conv; the backward twice the forward's
-    operations. Bytes: x, mask, posp, weights and dy in; y, dx, dposp and
-    the weight grads out, each once."""
+    """Forward + backward of one training layer (Conformer or Squeezeformer:
+    the same products) over the valid rows: the forward's products,
+    attention over the mask's visible (query, key) pairs of valid rows,
+    depthwise conv; the backward twice the forward's operations. Bytes: x,
+    mask, posp, weights and dy in; y, dx, dposp and the weight grads out,
+    each once."""
     x, _, mask, _, lens, posp, packed = args
-    D, F, K = layer.size, layer.feed_forward.w_1.out_features, \
-        layer.cnn_module_kernel
+    D, F, K = layer.size, packed["ffw1"].shape[2], layer.cnn_module_kernel
     M = int(lens.sum())
     pairs = int(mask.sum())
     fwd = (8 * M * D * F + 8 * M * D * D + 6 * M * D * D + 2 * M * D * K
@@ -1680,10 +1927,11 @@ def main():
     dev = torch.device("cuda")
     smi = card()
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = build.build(["conformer_layer", "chunk_layer",
                          "squeezeformer_layer", "chunk_layer_sq",
-                         "conformer_layer_train", "ctc_loss"])
+                         "conformer_layer_train", "ctc_loss",
+                         "squeezeformer_layer_train"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "card": smi})
 
@@ -1701,7 +1949,7 @@ def main():
                                                           smi)
 
     train_err, ctc_err = phase_train_kernels(dev)
-    t_launches, rows, trainer = phase_train(dev)
+    t_launches, rows, trainer, corpus = phase_train(dev)
     t_layer, t_ctc = phase_train_times(dev, rows, trainer, smi)
 
     sq_worst, sq_chunk_worst = phase_sq_kernels(dev)
@@ -1711,6 +1959,11 @@ def main():
     sq_chunk_launches = phase_engine(dev, sq_path, wavs, "squeezeformer")
     sq_t, sq_c = phase_sq_times(dev, sq_gpu, wavs, sq_path, smi)
 
+    sq_train_err = phase_sq_train_kernels(dev)
+    sq_launches_t, sq_rows, sq_trainer = phase_sq_train(dev, corpus)
+    sq_train_t = phase_sq_train_times(dev, sq_rows, sq_trainer, smi)
+
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_conformer_layer", "route": "cuda",
         "source": "masr_tpu_torch/csrc/conformer_layer.cu",
@@ -1753,7 +2006,14 @@ def main():
         "launches": t_launches[2], "max_abs_err": ctc_err,
         "ms": t_ctc["ms"], "plain_ms": t_ctc["plain_ms"],
         "bound_ms": t_ctc["bound_ms"], "bound_by": t_ctc["bound_by"],
-        "library_ms": t_ctc["library_ms"]}]})
+        "library_ms": t_ctc["library_ms"]}, {
+        "name": "fused_squeezeformer_layer_train", "route": "cuda",
+        "source": "masr_tpu_torch/csrc/squeezeformer_layer_train.cu",
+        "replaces": "masr_tpu/ops/pallas/squeezeformer_layer_train.py:608",
+        "launches": sq_launches_t[0], "max_abs_err": sq_train_err,
+        "ms": sq_train_t["ms"], "plain_ms": sq_train_t["plain_ms"],
+        "bound_ms": sq_train_t["bound_ms"],
+        "bound_by": sq_train_t["bound_by"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ heads, FFN 2048, conv 15):
   - fused_chunk_layer at B=32, c=16, C=256, table positions, cache_len
     {0, 5, 100, 256}, four inactive slots;
   - fused_conformer_layer_train, forward and backward, at B=8, T'=299 with
-    a dynamic-chunk mask and dropout 0.1.
+    a dynamic-chunk mask and dropout 0.1;
+and, in a tree that has it, fused_squeezeformer_layer_train (the
+Squeezeformer's width: conv 31, layer_norm conv) on the same inputs.
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
 calls, and the card's name and power limit. Two trees whose digests are
@@ -114,24 +116,47 @@ def main():
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
                           dtype=torch.int32).to(dev)
     w = torch.randn(B, T, 256, generator=g).to(dev)
-    leaves = {"x": x.clone().requires_grad_(True),
-              "posp": posp.clone().requires_grad_(True),
-              **{k: v.detach().clone().requires_grad_(True)
-                 for k, v in packed.items()}}
 
-    def fwd():
-        return clt.fused_conformer_layer_train(
-            leaves["x"], mask, seeds, lens, leaves["posp"],
-            {k: leaves[k] for k in packed}, layer=5, n_head=4, ksize=15,
-            causal=True, rate=0.1, att_rate=0.1)
+    def train_layer(name, fn, packed, posp, ksize):
+        """Digest and time one training-layer kernel, forward and
+        backward."""
+        leaves = {"x": x.clone().requires_grad_(True),
+                  "posp": posp.clone().requires_grad_(True),
+                  **{k: v.detach().clone().requires_grad_(True)
+                     for k, v in packed.items()}}
 
-    y = fwd()
-    (y * w).sum().backward(retain_graph=True)
-    digests["fused_conformer_layer_train"] = _digest(
-        [y] + [leaves[k].grad for k in sorted(leaves)])
-    ms["fused_conformer_layer_train_fwd"] = _ms(fwd)
-    ms["fused_conformer_layer_train_bwd"] = _ms(
-        lambda: y.backward(w, retain_graph=True))
+        def fwd():
+            return fn(leaves["x"], mask, seeds, lens, leaves["posp"],
+                      {k: leaves[k] for k in packed}, layer=5, n_head=4,
+                      ksize=ksize, causal=True, rate=0.1, att_rate=0.1)
+
+        y = fwd()
+        (y * w).sum().backward(retain_graph=True)
+        digests[name] = _digest(
+            [y] + [leaves[k].grad for k in sorted(leaves)])
+        ms[name + "_fwd"] = _ms(fwd)
+        ms[name + "_bwd"] = _ms(lambda: y.backward(w, retain_graph=True))
+
+    train_layer("fused_conformer_layer_train",
+                clt.fused_conformer_layer_train, packed, posp, 15)
+    try:
+        from masr_tpu_torch.models.squeezeformer import \
+            SqueezeformerEncoderLayer
+        from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    except ImportError:     # a tree from before the Squeezeformer's training
+        sqt = None
+    if sqt is not None:
+        build.build(["squeezeformer_layer_train"])
+        sq = SqueezeformerEncoderLayer(256, 4, 2048, 31, "layer_norm", True)
+        sq.load_state_dict(seeded_state_dict(sq, seed=9))
+        sq = sq.to(dev)
+        with torch.no_grad():
+            sq_posp = sq.self_attn.linear_pos(sinusoid_position_encoding(
+                r, 256))
+            sq_packed = sq.packed_params()
+        train_layer("fused_squeezeformer_layer_train",
+                    sqt.fused_squeezeformer_layer_train, sq_packed,
+                    sq_posp, 31)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()

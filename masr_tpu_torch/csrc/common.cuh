@@ -1,7 +1,7 @@
 // Building blocks shared by the port's kernels (conformer_layer.cu,
-// chunk_layer.cu, squeezeformer_layer.cu, chunk_layer_sq.cu,
-// conformer_layer_train.cu; ctc_loss.cu takes the warp reductions), for
-// Hopper (sm_90a), f32:
+// chunk_layer.cu, squeezeformer_layer.cu, chunk_layer_sq.cu and, through
+// training.cuh, conformer_layer_train.cu and squeezeformer_layer_train.cu;
+// ctc_loss.cu takes the warp reductions), for Hopper (sm_90a), f32:
 //
 //   warp_sum, warp_max     warp reductions
 //   dropout_mult           the counter-based dropout hash of the training
@@ -18,6 +18,8 @@
 //   conv_module_kernel<kLN>  GLU -> depthwise conv over time -> LN (or a
 //                          folded BatchNorm affine) -> SiLU, optional saves
 //                          for a backward
+//   ada_rows_kernel        the Squeezeformer conv module's masked adaptive
+//                          scale
 //
 // The GEMM sums over K in the same order (k = 0, 1, ...) whatever tile it
 // picks, so a row's result does not depend on how many rows share the
@@ -377,6 +379,32 @@ cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
   kernel<<<grid, kConvThreads, smem, stream>>>(
       g, dww, dwb, pw1b, norm, norm + D, y, T_in, T_out, D, ksize, left,
       pad_bias, eps, pre, xhat, rstd);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------
+// The Squeezeformer conv module's adaptive scale: y (M, D) = x * ada[0] +
+// ada[1] in rows t = row % T < lens[row / T], 0 in the rows past an
+// utterance's length (its padded rows enter pw1 as zeros).
+// ------------------------------------------------------------------------
+__global__ void ada_rows_kernel(const float* __restrict__ x,
+                                float* __restrict__ y,
+                                const float* __restrict__ ada,
+                                const int* __restrict__ lens, int T, int D,
+                                long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / D;
+    const int c = (int)(i % D);
+    y[i] = (row % T) < lens[row / T] ? x[i] * ada[c] + ada[D + c] : 0.f;
+  }
+}
+
+cudaError_t ada_rows(const float* x, float* y, const float* ada,
+                     const int* lens, int T, int D, long long n,
+                     cudaStream_t stream) {
+  ada_rows_kernel<<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096),
+                    256, 0, stream>>>(x, y, ada, lens, T, D, n);
   return cudaGetLastError();
 }
 

@@ -15,14 +15,14 @@
 // serving kernels' blocks (common.cuh, serving.cuh): q/k/v products,
 // attention_kernel, the out product with the residual in its epilogue,
 // layer_norm_kernel, the FFN products (SiLU and residual epilogues),
-// ada_rows_kernel (below), pw1, conv_module_kernel with the folded
+// common.cuh's ada_rows, pw1, conv_module_kernel with the folded
 // BatchNorm affine or the LN, pw2 with the row-masked residual.
 //
 // The adaptive scales ada0, ada1 and ada3 are folded into the q/k/v and
 // w_1 weights and biases at pack time (ops/cuda/squeezeformer_layer.py
 // pack_sq_layer_params): (x s + t) W + b = x (diag(s) W) + (t W + b).
 // ada2 is not: rows t >= len are zeroed AFTER it (the conv input of a
-// padded row is 0, not ada2's shift), which ada_rows_kernel does. The
+// padded row is 0, not ada2's shift), which ada_rows does. The
 // conv-module BatchNorm is folded to a per-channel affine from its running
 // statistics, exact in eval.
 //
@@ -46,25 +46,6 @@
 // error of a launch, 0 on success.
 
 #include "serving.cuh"
-
-namespace {
-
-// y (M, D) = x * ada[0] + ada[1] in rows t = row % T < lens[row / T], 0 in
-// the rows past an utterance's length
-__global__ void ada_rows_kernel(const float* __restrict__ x,
-                                float* __restrict__ y,
-                                const float* __restrict__ ada,
-                                const int* __restrict__ lens, int T, int D,
-                                long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / D;
-    const int c = (int)(i % D);
-    y[i] = (row % T) < lens[row / T] ? x[i] * ada[c] + ada[D + c] : 0.f;
-  }
-}
-
-}  // namespace
 
 // Packed weights as ops/cuda/squeezeformer_layer.py pack_sq_layer_params
 // (all f32, row-major, contiguous):
@@ -117,10 +98,7 @@ extern "C" int masr_sq_layer_forward(
   MASR_CHECK(layer_norm(xa, xb, lnw, 1, M, D, eps, nullptr, T, stream));
   // x = LN3(x + Conv(ada2 x)): masked ada rows -> pw1 -> GLU / depthwise /
   // norm / SiLU -> pw2 with the row-masked residual
-  const long long n = (long long)MD;
-  ada_rows_kernel<<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096),
-                    256, 0, stream>>>(xb, xa, ada, lens, T, D, n);
-  MASR_CHECK(cudaGetLastError());
+  MASR_CHECK(ada_rows(xb, xa, ada, lens, T, D, (long long)MD, stream));
   MASR_CHECK(gemm<kBias>(xa, pw1w, pw1b, gx, nullptr, M, 2 * D, D, 1.f,
                          nullptr, T, stream));
   MASR_CHECK(conv_module(gx, dww, vecb + 6 * D, pw1b, cnw, y, B, T, T, D,

@@ -4,9 +4,10 @@ cache (port of masr_tpu/models/convolution.py:28-68).
 pointwise(2C) + GLU → depthwise(k) → norm → activation → pointwise. The
 norm is a LayerNorm (eps 1e-5) or a BatchNorm1d (eps 1e-5, momentum 0.1:
 torch's convention for flax's 0.9), which in eval uses its running
-statistics. Torch layout (B, C, T) inside, as upstream MASR, so its weights
-apply. The causal cache holds the last lorder = k-1 rows of the module's
-input BEFORE pointwise_conv1, as masr_tpu's does.
+statistics and in training updates them as flax does. Torch layout (B, C,
+T) inside, as upstream MASR, so its weights apply. The causal cache holds
+the last lorder = k-1 rows of the module's input BEFORE pointwise_conv1,
+as masr_tpu's does.
 """
 import torch
 from torch import nn
@@ -52,6 +53,8 @@ class ConvolutionModule(nn.Module):
         x = self.depthwise_conv(x)
         if isinstance(self.norm, nn.LayerNorm):
             x = self.norm(x.transpose(1, 2)).transpose(1, 2)
+        elif self.training:
+            x = self._batch_norm_train(x)
         else:
             x = self.norm(x)
         x = self.activation(x)
@@ -59,3 +62,18 @@ class ConvolutionModule(nn.Module):
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0)
         return x, new_cache
+
+    def _batch_norm_train(self, x):
+        """Train-mode BatchNorm as flax's (masr_tpu/models/convolution.py:
+        61-62): normalise x (B, C, T) with the batch statistics over every
+        (b, t), padded rows included, and move the running statistics by
+        momentum 0.1 toward the batch mean and the BIASED batch variance
+        (torch's BatchNorm1d would take the unbiased one)."""
+        bn = self.norm
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+            bn.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
+                            eps=bn.eps)

@@ -2,7 +2,7 @@
 selects the family; encoder_conf and decoder_conf are splatted into the
 constructors and model_conf carries the loss weights (ctc_weight,
 lsm_weight, reverse_weight, length_normalized_loss). The port has the
-Conformer (serving and training) and the Squeezeformer (serving)."""
+Conformer and the Squeezeformer, serving and training."""
 from masr_tpu_torch.models.conformer import ConformerModel
 from masr_tpu_torch.models.squeezeformer import SqueezeformerModel
 

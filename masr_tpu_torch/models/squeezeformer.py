@@ -1,5 +1,6 @@
-"""Squeezeformer encoder and model: full-context and streaming inference
-(port of masr_tpu/models/squeezeformer.py: AdaptiveScale :28-41,
+"""Squeezeformer encoder and model: full-context and streaming inference,
+and training with the hybrid CTC + attention loss (port of
+masr_tpu/models/squeezeformer.py: AdaptiveScale :28-41,
 SqueezeformerAttention :44-56, SqueezeformerFFN :59-73,
 SqueezeformerConvModule :76-97, TimeReductionLayer :100-127,
 SqueezeformerEncoderLayer :130-202, SqueezeformerEncoder.__call__
@@ -23,6 +24,15 @@ the linear_pos products and the subsampling stay PyTorch, as they stay XLA
 in masr_tpu. The eager layer module is the reference the tests hold the
 routes against.
 
+Training (`forward_train`, the loss path of SqueezeformerModel.forward)
+keeps masr_tpu's two routes (:383-404, docs/design_deviations.md #14): a
+layer_norm conv module runs every layer through the training-layer kernel
+(ops/cuda/squeezeformer_layer_train.py, forward and backward); the
+BatchNorm default runs the eager layers, whose BatchNorm normalises with
+the batch statistics and updates its running ones as flax does. Dropout
+draws from the `generator` argument, the training kernel's per-(layer,
+utterance) seeds included; the dynamic chunk from `chunk_generator`.
+
 Streaming state (`init_cache`) is the Conformer's (models/conformer.py):
 per-layer single-copy att rings with per-slot write pointers, updated in
 place. A half-rate layer runs on the same full-resolution ring: its rows
@@ -34,8 +44,7 @@ offsets at every step (masr_tpu builds no position table for this family).
 Not ported, each raising NotImplementedError: pre-norm layers
 (normalize_before), other positional encodings than rel_pos, streaming
 with an odd chunk or cache size, more than one time reduction in force at
-once while streaming, non-causal chunk stepping, and training (the next
-slice: masr_tpu's fused_squeezeformer_layer_train).
+once while streaming, and non-causal chunk stepping.
 """
 import torch
 from torch import nn
@@ -46,11 +55,13 @@ from masr_tpu_torch.models.convolution import ConvolutionModule
 from masr_tpu_torch.models.embedding import sinusoid_position_encoding
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.models.subsampling import DepthwiseConv2dSubsampling4
-from masr_tpu_torch.ops.common import get_activation
+from masr_tpu_torch.ops.common import dropout, get_activation
 from masr_tpu_torch.ops.cuda.chunk_layer_sq import fused_chunk_layer_sq
 from masr_tpu_torch.ops.cuda.squeezeformer_layer import (
     fused_squeezeformer_layer, pack_sq_layer_params)
-from masr_tpu_torch.ops.masks import make_pad_mask
+from masr_tpu_torch.ops.cuda.squeezeformer_layer_train import \
+    fused_squeezeformer_layer_train
+from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
 
 # encoder_conf keys that only steer masr_tpu's TPU routing
 _IGNORED_ENCODER_KEYS = ("use_fused_layer", "use_fused_layer_train")
@@ -74,8 +85,8 @@ class _AdaptiveScale:
 class SqueezeformerAttention(RelPositionMultiHeadedAttention, _AdaptiveScale):
     """Rel-pos MHSA with the adaptive scale on the qkv input."""
 
-    def __init__(self, n_head, n_feat, adaptive_scale=True):
-        super().__init__(n_head, n_feat)
+    def __init__(self, n_head, n_feat, dropout_rate=0.0, adaptive_scale=True):
+        super().__init__(n_head, n_feat, dropout_rate)
         self._init_ada(n_feat, adaptive_scale)
 
     def forward(self, x, mask, pos_emb, cache=None, generator=None):
@@ -85,8 +96,9 @@ class SqueezeformerAttention(RelPositionMultiHeadedAttention, _AdaptiveScale):
 class SqueezeformerFFN(PositionwiseFeedForward, _AdaptiveScale):
     """ada → w_1 → activation → w_2 (no macaron 0.5 scale)."""
 
-    def __init__(self, idim, hidden_units, activation, adaptive_scale=True):
-        super().__init__(idim, hidden_units, activation)
+    def __init__(self, idim, hidden_units, activation, dropout_rate=0.0,
+                 adaptive_scale=True):
+        super().__init__(idim, hidden_units, activation, dropout_rate)
         self._init_ada(idim, adaptive_scale)
 
     def forward(self, x, generator=None):
@@ -145,7 +157,8 @@ class SqueezeformerEncoderLayer(nn.Module):
 
     def __init__(self, size, attention_heads, ffn_units, cnn_module_kernel=31,
                  cnn_norm="batch_norm", causal=False, adaptive_scale=True,
-                 activation_type="swish"):
+                 activation_type="swish", dropout_rate=0.0,
+                 attention_dropout_rate=0.0):
         super().__init__()
         act = get_activation(activation_type)
         self.size = size
@@ -154,25 +167,36 @@ class SqueezeformerEncoderLayer(nn.Module):
         self.causal = causal
         self.adaptive_scale = adaptive_scale
         self.conv_ln = cnn_norm == "layer_norm"
-        self.self_attn = SqueezeformerAttention(attention_heads, size,
-                                                adaptive_scale)
-        self.ffn1 = SqueezeformerFFN(size, ffn_units, act, adaptive_scale)
+        self.dropout_rate = dropout_rate
+        self.attention_dropout_rate = attention_dropout_rate
+        self.self_attn = SqueezeformerAttention(
+            attention_heads, size, attention_dropout_rate, adaptive_scale)
+        self.ffn1 = SqueezeformerFFN(size, ffn_units, act, dropout_rate,
+                                     adaptive_scale)
         self.conv_module = SqueezeformerConvModule(
             size, cnn_module_kernel, act, cnn_norm, causal, adaptive_scale)
-        self.ffn2 = SqueezeformerFFN(size, ffn_units, act, adaptive_scale)
+        self.ffn2 = SqueezeformerFFN(size, ffn_units, act, dropout_rate,
+                                     adaptive_scale)
         self.layer_norm1 = nn.LayerNorm(size, eps=1e-6)
         self.layer_norm2 = nn.LayerNorm(size, eps=1e-6)
         self.layer_norm3 = nn.LayerNorm(size, eps=1e-6)
         self.layer_norm4 = nn.LayerNorm(size, eps=1e-6)
         self._packed, self._packed_key = None, None
 
-    def forward(self, x, mask, pos_emb, mask_pad):
-        """Eager reference (eval). x: (B, T, D); mask: (B, 1|T, T) bool;
-        pos_emb: (1, T, D); mask_pad: (B, 1, T) bool."""
-        x = self.layer_norm1(x + self.self_attn(x, mask, pos_emb)[0])
-        x = self.layer_norm2(x + self.ffn1(x))
-        x = self.layer_norm3(x + self.conv_module(x, mask_pad)[0])
-        return self.layer_norm4(x + self.ffn2(x))
+    def forward(self, x, mask, pos_emb, mask_pad, generator=None):
+        """Eager reference, and the BatchNorm route of training. x: (B, T,
+        D); mask: (B, 1|T, T) bool; pos_emb: (1, T, D); mask_pad: (B, 1, T)
+        bool. In training mode the dropouts (masr_tpu's sites,
+        masr_tpu/models/squeezeformer.py:169-202) draw from `generator` and
+        a BatchNorm conv norm normalises with the batch statistics."""
+        def drop(v):
+            return dropout(v, self.dropout_rate, self.training, generator)
+
+        x = self.layer_norm1(x + drop(self.self_attn(
+            x, mask, pos_emb, generator=generator)[0]))
+        x = self.layer_norm2(x + drop(self.ffn1(x, generator)))
+        x = self.layer_norm3(x + drop(self.conv_module(x, mask_pad)[0]))
+        return self.layer_norm4(x + drop(self.ffn2(x, generator)))
 
     def forward_cached(self, x, mask, pos_emb, att_cache, cnn_cache):
         """Eager reference of one streaming step with masr_tpu's caches
@@ -195,6 +219,29 @@ class SqueezeformerEncoderLayer(nn.Module):
                 self._packed = pack_sq_layer_params(self)
             self._packed_key = key
         return self._packed
+
+    def forward_train(self, x, mask, seeds, lens, pos_emb, index,
+                      generator=None):
+        """The loss path's layer. A layer_norm conv module runs the
+        training-layer kernel, differentiable in x and every parameter (the
+        pack is built with grad enabled, so the kernel's weight grads reach
+        the parameters, the adaptive scales through their folding); mask:
+        (B, T, T) bool; seeds: (B,) int32 dropout seeds of this layer;
+        index: the layer's index. A BatchNorm conv module runs the eager
+        layer (its batch statistics couple the utterances, as in masr_tpu,
+        docs/design_deviations.md #14), its dropouts drawn from
+        `generator`. Dropout only in training mode."""
+        if not self.conv_ln:
+            valid = torch.arange(x.shape[1], device=x.device)[None, :] \
+                < lens[:, None]
+            return self(x, mask, pos_emb, valid[:, None, :], generator)
+        train = self.training
+        return fused_squeezeformer_layer_train(
+            x, mask, seeds, lens, self.self_attn.linear_pos(pos_emb[0]),
+            pack_sq_layer_params(self), layer=index,
+            n_head=self.attention_heads, ksize=self.cnn_module_kernel,
+            causal=self.causal, rate=self.dropout_rate if train else 0.0,
+            att_rate=self.attention_dropout_rate if train else 0.0)
 
     def forward_full_context(self, x, lens, pos_emb):
         """The layer through the full-context kernel. lens: (B,) int32;
@@ -227,8 +274,13 @@ class SqueezeformerEncoder(nn.Module):
                  normalize_before=False, use_dynamic_chunk=False,
                  static_chunk_size=0, use_dynamic_left_chunk=False,
                  cmvn=None, **conf):
-        """Arguments as masr_tpu's SqueezeformerEncoder. The dropout rates
-        and init_weights only matter to training, not ported yet."""
+        """Arguments as masr_tpu's SqueezeformerEncoder. dropout is the
+        layers' rate (sublayer outputs and FFN hidden rows),
+        attention_dropout_rate the attention probabilities',
+        input_dropout_rate the subsampling's after input_proj (its
+        positional encoding drops at 0.1 in training whatever the config,
+        as in masr_tpu); as in masr_tpu, feed_forward_dropout_rate and
+        init_weights are taken and unused."""
         super().__init__()
         unknown = set(conf) - set(_IGNORED_ENCODER_KEYS)
         if unknown:
@@ -253,18 +305,21 @@ class SqueezeformerEncoder(nn.Module):
         self.cnn_module_kernel = cnn_module_kernel
         self.causal = causal
         self.use_dynamic_chunk = use_dynamic_chunk
+        self.use_dynamic_left_chunk = use_dynamic_left_chunk
         self.static_chunk_size = static_chunk_size
+        self.dropout_rate = dropout
+        self.attention_dropout_rate = attention_dropout_rate
         self.reduce_idx = idx_list(reduce_idx)
         self.recover_idx = idx_list(recover_idx)
-        self.embed = DepthwiseConv2dSubsampling4(input_size, encoder_dim,
-                                                 dw_stride=dw_stride)
+        self.embed = DepthwiseConv2dSubsampling4(
+            input_size, encoder_dim, input_dropout_rate, dw_stride=dw_stride)
         self.preln = nn.LayerNorm(encoder_dim, eps=1e-6)
         self.encoders = nn.ModuleList(
             SqueezeformerEncoderLayer(
                 encoder_dim, attention_heads,
                 encoder_dim * feed_forward_expansion_factor,
                 cnn_module_kernel, cnn_norm_type, causal, adaptive_scale,
-                activation_type)
+                activation_type, dropout, attention_dropout_rate)
             for _ in range(num_blocks))
         self.time_reduction_layer = TimeReductionLayer(
             encoder_dim, encoder_dim,
@@ -279,24 +334,26 @@ class SqueezeformerEncoder(nn.Module):
         recover_exp = sum(1 for idx in self.recover_idx if i >= idx)
         return 2 ** max(reduce_exp - recover_exp, 0)
 
-    def _layers(self, xs, pos, lens, reduce, run):
-        """The layer stack with the U-Net steps, as masr_tpu walks it: at a
-        reduce index the current (xs, pos, lens) is saved and `reduce`
-        gives the half-rate ones; at a recover index the saved entry is
-        restored and xs is repeated, projected and added to its rows;
-        `run(i, layer, xs, pos, lens)` runs layer i."""
+    def _layers(self, xs, ctx, lens, reduce, run):
+        """The layer stack with the U-Net steps, as masr_tpu walks it
+        (masr_tpu/models/squeezeformer.py:327-354): at a reduce index the
+        current (xs, ctx, lens) is saved and `reduce` gives the half-rate
+        ones (ctx: what the layers take at the current rate, positions or
+        positions and mask); at a recover index the saved entry is restored
+        and xs is repeated, projected and added to its rows;
+        `run(i, layer, xs, ctx, lens)` runs layer i."""
         saved, index = [], 0
         for i, layer in enumerate(self.encoders):
             if i in self.reduce_idx:
-                saved.append((xs, pos, lens))
-                xs, pos, lens = reduce(xs, pos, lens)
+                saved.append((xs, ctx, lens))
+                xs, ctx, lens = reduce(xs, ctx, lens)
                 index += 1
             if i in self.recover_idx:
                 index -= 1
-                r_xs, pos, lens = saved[index]
+                r_xs, ctx, lens = saved[index]
                 up = self.time_recover_layer(xs.repeat_interleave(2, dim=1))
                 xs = r_xs + up[:, :r_xs.shape[1]]
-            xs = run(i, layer, xs, pos, lens)
+            xs = run(i, layer, xs, ctx, lens)
         return self.final_proj(xs) if self.final_proj is not None else xs
 
     def forward(self, xs, xs_lens):
@@ -320,6 +377,51 @@ class SqueezeformerEncoder(nn.Module):
             self.preln(xs), pos_emb, lens, reduce,
             lambda i, layer, xs, pos, lens: layer.forward_full_context(
                 xs, lens, pos))
+        return out, masks
+
+    def forward_train(self, xs, xs_lens, generator=None,
+                      chunk_generator=None):
+        """The loss path (masr_tpu's __call__ with train, :296-357):
+        subsampling with positional dropout, the (B, T', T') chunk mask (a
+        dynamic chunk is drawn from chunk_generator), every layer through
+        forward_train with per-(layer, utterance) seeds from `generator`.
+        At the reduce index the time reduction runs on the rows within
+        each length and the layers after it take chunk_masks[:, ::2, ::2],
+        pos_emb[:, ::2] and the lengths halved rounding up; the recover
+        index restores them. Dropout only in training mode. → (out (B, T',
+        output_size), masks (B, 1, T'))."""
+        masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        xs, pos_emb, masks = self.embed(xs, masks, generator=generator)
+        B, T2 = xs.shape[0], xs.shape[1]
+        if self.use_dynamic_chunk and chunk_generator is None:
+            raise ValueError("dynamic-chunk training draws its chunk from "
+                             "chunk_generator (a CPU torch.Generator)")
+        chunk_masks = add_optional_chunk_mask(
+            T2, masks, self.use_dynamic_chunk, self.use_dynamic_left_chunk,
+            0, self.static_chunk_size, -1, generator=chunk_generator)
+        lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
+        if self.training and (self.dropout_rate > 0
+                              or self.attention_dropout_rate > 0):
+            seeds = torch.randint(0, 2 ** 31 - 1, (len(self.encoders), B),
+                                  generator=generator, device=xs.device,
+                                  dtype=torch.int32)
+        else:
+            seeds = torch.zeros(len(self.encoders), B, dtype=torch.int32,
+                                device=xs.device)
+
+        def reduce(xs, ctx, lens):
+            pos, mask = ctx
+            return (self.time_reduction_layer(xs, lens),
+                    (pos[:, ::2], mask[:, ::2, ::2]), (lens + 1) // 2)
+
+        def run(i, layer, xs, ctx, lens):
+            return layer.forward_train(xs, ctx[1], seeds[i], lens, ctx[0], i,
+                                       generator)
+
+        out = self._layers(self.preln(xs), (pos_emb, chunk_masks), lens,
+                           reduce, run)
         return out, masks
 
     # ------------------------------------------------------------------ #
@@ -453,8 +555,9 @@ class SqueezeformerEncoder(nn.Module):
 
 class SqueezeformerModel(ConformerModel):
     """Squeezeformer encoder + CTC head + the attention decoder
-    (masr_tpu/models/squeezeformer.py:737-754): serving. Streaming gives
-    causal convs and the `stream` time reduction."""
+    (masr_tpu/models/squeezeformer.py:737-754): serving, and training with
+    ConformerModel's hybrid loss (`forward`). Streaming gives causal convs
+    and the `stream` time reduction."""
 
     def make_encoder(self, input_dim, cmvn, streaming, enc_conf):
         return SqueezeformerEncoder(
@@ -462,9 +565,3 @@ class SqueezeformerModel(ConformerModel):
             causal=streaming,
             time_reduction_layer_type="stream" if streaming else "conv1d",
             **enc_conf)
-
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Squeezeformer training is not ported yet: it comes with the "
-            "next slice of the port, masr_tpu's "
-            "fused_squeezeformer_layer_train kernel")

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from masr_tpu_torch.models.embedding import RelPositionalEncoding
+from masr_tpu_torch.ops.common import dropout
 
 
 class Conv2dSubsampling4(nn.Module):
@@ -41,17 +42,22 @@ class DepthwiseConv2dSubsampling4(nn.Module):
     """Squeezeformer subsampling: a (3x3, stride 2) "pointwise" conv, ReLU,
     a (3x3, stride 2) "depthwise" conv (grouped only with dw_stride; the
     encoder passes False), ReLU, the rel-pos encoding, then input_proj:
-    rate 4, right context 6."""
+    rate 4, right context 6. In training, as masr_tpu's
+    (masr_tpu/models/subsampling.py:140-176): the encoding's dropout at
+    0.1 (masr_tpu's encoder leaves its pos_dropout_rate at that default,
+    whatever the config), and after input_proj a dropout at dropout_rate
+    (the encoder's input_dropout_rate)."""
 
-    def __init__(self, idim: int, odim: int, pos_dropout_rate: float = 0.0,
+    def __init__(self, idim: int, odim: int, dropout_rate: float = 0.0,
                  dw_stride: bool = False):
         super().__init__()
         self.pw_conv = nn.Conv2d(1, odim, 3, 2)
         self.dw_conv = nn.Conv2d(odim, odim, 3, 2,
                                  groups=odim if dw_stride else 1)
         freq = ((idim - 1) // 2 - 1) // 2
-        self.pos_enc = RelPositionalEncoding(odim, pos_dropout_rate)
+        self.pos_enc = RelPositionalEncoding(odim, 0.1)
         self.input_proj = nn.Sequential(nn.Linear(odim * freq, odim))
+        self.dropout_rate = dropout_rate
 
     def forward(self, x, x_mask=None, offset=0, generator=None):
         """As Conv2dSubsampling4.forward; the encoding scales the flattened
@@ -61,7 +67,8 @@ class DepthwiseConv2dSubsampling4(nn.Module):
         B, C, T, F = x.shape
         x, pos_emb = self.pos_enc(x.transpose(1, 2).reshape(B, T, C * F),
                                   offset, generator)
-        x = self.input_proj(x)
+        x = dropout(self.input_proj(x), self.dropout_rate, self.training,
+                    generator)
         if x_mask is not None:
             x_mask = x_mask[:, :, :-2:2][:, :, :-2:2]
         return x, pos_emb, x_mask

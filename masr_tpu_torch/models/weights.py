@@ -187,21 +187,29 @@ def grads_to_flax_variables(named_params):
         for name, p in dict(named_params).items()})
 
 
+# parameters that flax starts at 1: LayerNorm and BatchNorm scales (every
+# norm module's name holds "norm", the Squeezeformer's `preln` aside) and
+# the Squeezeformer's AdaptiveScale scales
+_ONES = re.compile(r"(norm\w*|^encoder\.preln)\.weight$|\.ada_scale$")
+
+
 @torch.no_grad()
 def flax_like_init(model, generator):
     """Re-initialise `model` in place with the distributions masr_tpu's
     flax modules start from (train_conf.init_type "flax"): kernels
     lecun_normal (a normal truncated at ±2σ, σ = 1/√fan_in / 0.8796), biases
-    0, LayerNorm scales 1, embeddings N(0, 1), pos_bias_u/v xavier_uniform;
-    drawn from `generator` (CPU)."""
+    0, LayerNorm and BatchNorm scales and AdaptiveScale scales 1, the
+    AdaptiveScale shifts 0, embeddings N(0, 1/d), pos_bias_u/v
+    xavier_uniform; drawn from `generator` (CPU)."""
     for name, p in model.named_parameters():
         t = torch.empty(p.shape, dtype=torch.float32)
         if name.endswith("pos_bias_u") or name.endswith("pos_bias_v"):
             torch.nn.init.xavier_uniform_(t, generator=generator)
-        elif "norm" in name:
-            t.fill_(1.0 if name.endswith(".weight") else 0.0)
+        elif _ONES.search(name):
+            t.fill_(1.0)
         elif name.endswith(".embed.0.weight"):
-            t.normal_(0.0, 1.0, generator=generator)
+            # flax nn.Embed: variance_scaling(1, fan_in, normal, out_axis=0)
+            t.normal_(0.0, 1.0 / np.sqrt(p.shape[1]), generator=generator)
         elif name.endswith(".weight") and p.dim() >= 2:
             std = (1.0 / np.sqrt(np.prod(p.shape[1:]))) / 0.87962566103423978
             torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,

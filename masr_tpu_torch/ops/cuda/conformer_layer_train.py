@@ -37,6 +37,51 @@ SITE_MACARON_HIDDEN, SITE_MACARON_OUT, SITE_ATT_PROB, SITE_ATT_OUT, \
     SITE_CONV_OUT, SITE_FFN_HIDDEN, SITE_FFN_OUT = range(7)
 
 
+def site_dropout(seeds, layer, T, device):
+    """→ drop(v, site, rate): v (B, T, N) times the hash's dropout mask of
+    `site` over rows t < T and columns n < N (identity at rate 0)."""
+    rows = torch.arange(T, device=device)
+
+    def drop(v, site, rate):
+        if rate <= 0.0:
+            return v
+        return v * dropout_mask(seeds, layer, site, rows, torch.arange(
+            v.shape[-1], device=device), rate)
+
+    return drop
+
+
+def attention_train_plain(q, k, v, posp, posb, mask, n_head, seeds, layer,
+                          att_rate):
+    """The training layers' rel-pos MHSA core over a (B, T, T) bool mask
+    (a query row with no visible key gives 0), AC + BD as one 2·d_k
+    product, dropout at the probabilities (site SITE_ATT_PROB, rows
+    h·T + t1). q, k, v: (B, T, D) projections, heads along columns; posp:
+    (T, D); posb: (2, D) pos_bias_u, pos_bias_v. → (B, T, D) before the out
+    projection."""
+    B, T, D = q.shape
+    d_k = D // n_head
+    dev = q.device
+    q, k, v = (t.view(B, T, n_head, d_k).transpose(1, 2) for t in (q, k, v))
+    p = posp.view(T, n_head, d_k).transpose(0, 1)[None]
+    bu = posb[0].view(n_head, 1, d_k)
+    bv = posb[1].view(n_head, 1, d_k)
+    qcat = torch.cat([q + bu, q + bv], dim=-1)
+    kcat = torch.cat([k, p.expand(B, -1, -1, -1)], dim=-1)
+    s = (qcat @ kcat.transpose(-1, -2)) * (1.0 / math.sqrt(d_k))
+    m = mask.to(dev, torch.bool)[:, None]
+    s = torch.where(m, s, MASK_VALUE)
+    prob = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = prob.sum(-1, keepdim=True)
+    pr = prob / torch.where(l == 0.0, 1.0, l)
+    if att_rate > 0.0:
+        rows = torch.arange(n_head * T, device=dev)
+        pr = pr * dropout_mask(seeds, layer, SITE_ATT_PROB, rows,
+                               torch.arange(T, device=dev),
+                               att_rate).view(B, n_head, T, T)
+    return (pr @ v).transpose(1, 2).reshape(B, T, D)
+
+
 def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
                                       layer, n_head, ksize, causal,
                                       ff_scale=0.5, rate=0.0, att_rate=0.0,
@@ -49,18 +94,10 @@ def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
     FFN hidden and output, attention output and conv output; att_rate: at
     the attention probabilities. → (B, T, D)."""
     B, T, D = x.shape
-    d_k = D // n_head
     lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
     dev = x.device
     t_idx = torch.arange(T, device=dev)
-
-    def drop(v, site, r, rows=None):
-        if r <= 0.0:
-            return v
-        rows = t_idx if rows is None else rows
-        m = dropout_mask(seeds, layer, site, rows,
-                         torch.arange(v.shape[-1], device=dev), r)
-        return v * m.reshape(v.shape)
+    drop = site_dropout(seeds, layer, T, dev)
 
     def layer_norm(v, i):
         return F.layer_norm(v, (D,), lnw[i, 0], lnw[i, 1], eps)
@@ -74,26 +111,10 @@ def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
     x = x + ff_scale * ffn(layer_norm(x, 0), 0, SITE_MACARON_HIDDEN,
                            SITE_MACARON_OUT)
 
-    # rel-pos MHSA over the (B, T, T) mask: AC + BD as one 2·d_k product
     xn = layer_norm(x, 1)
-    q, k, v = ((xn @ attw[i] + vecb[2 + i]).view(B, T, n_head, d_k)
-               .transpose(1, 2) for i in range(3))
-    p = posp.view(T, n_head, d_k).transpose(0, 1)[None]
-    bu = packed["posb"][0].view(n_head, 1, d_k)
-    bv = packed["posb"][1].view(n_head, 1, d_k)
-    qcat = torch.cat([q + bu, q + bv], dim=-1)
-    kcat = torch.cat([k, p.expand(B, -1, -1, -1)], dim=-1)
-    s = (qcat @ kcat.transpose(-1, -2)) * (1.0 / math.sqrt(d_k))
-    m = mask.to(dev, torch.bool)[:, None]
-    s = torch.where(m, s, MASK_VALUE)
-    prob = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
-    l = prob.sum(-1, keepdim=True)
-    pr = prob / torch.where(l == 0.0, 1.0, l)
-    if att_rate > 0.0:
-        rows = torch.arange(n_head * T, device=dev)
-        pr = pr * dropout_mask(seeds, layer, SITE_ATT_PROB, rows, t_idx,
-                               att_rate).view(B, n_head, T, T)
-    att = (pr @ v).transpose(1, 2).reshape(B, T, D)
+    att = attention_train_plain(
+        *(xn @ attw[i] + vecb[2 + i] for i in range(3)), posp,
+        packed["posb"], mask, n_head, seeds, layer, att_rate)
     x = x + drop(att @ attw[3] + vecb[5], SITE_ATT_OUT, rate)
 
     # conv module; causal pad rows carry GLU(pw1 bias), non-causal pads 0

@@ -3,6 +3,7 @@ repository's train.py; no augmentation config by default, since host
 augmentation is not ported):
 
     python -m masr_tpu_torch.train --configs configs/conformer.yml
+    python -m masr_tpu_torch.train --configs configs/squeezeformer.yml
 """
 import argparse
 

@@ -55,7 +55,9 @@ def batch_to(batch, device):
 class TrainState(object):
     """The model, its optimizer and LR scheduler, and the accumulation
     state. `step` counts train steps (micro-steps), as masr_tpu's
-    state.step; `updates` counts optimizer updates."""
+    state.step; `updates` counts optimizer updates. `params` are the
+    trainable parameters; buffers (BatchNorm running statistics) are not
+    among them and travel in the model's state_dict."""
 
     def __init__(self, model, optimizer, scheduler, grad_clip=5.0,
                  accum_grad=1):

@@ -5,9 +5,13 @@ train :282, _evaluate_loader :477, evaluate :569).
 Same config schema and checkpoint semantics as masr_tpu: per-epoch
 checkpoints with last/best retention and auto-resume from last_model,
 mid-epoch saves, JSONL scalars, an end-of-epoch ctc_greedy evaluation.
-Every encoder layer of every step runs the training-layer kernel and the
-CTC loss the CTC kernel (forward and backward) when the model is on the
-card. Training is f32 (TF32 off).
+On the card the CTC loss runs the CTC kernel (forward and backward) and
+every encoder layer of every step its family's training-layer kernel: the
+Conformer's, or the Squeezeformer's with a layer_norm conv module; a
+Squeezeformer with the BatchNorm default trains its eager layers, whose
+running statistics travel in the model's state_dict (checkpoints, resume)
+and are kept after a non-finite step, as in masr_tpu. Training is f32
+(TF32 off).
 
 Not ported (ROADMAP.md module item 7), each raising NotImplementedError:
 host augmentation (an augmentation config with any prob > 0), the

@@ -270,8 +270,10 @@ def test_forward_chunk_batched_staggered_matches_jax_chains(encoders,
 
 
 def test_unported_configurations_raise(encoders):
-    """Pre-norm, non-rel-pos, an odd cache, non-causal chunk stepping and
-    training raise NotImplementedError, naming what."""
+    """Pre-norm, non-rel-pos, an odd cache and non-causal chunk stepping
+    raise NotImplementedError, naming what. Training is ported: a
+    dynamic-chunk model's loss asks for its chunk generator and, given
+    one, returns the finite loss dict."""
     from masr_tpu_torch.models.registry import build_model
     for conf, what in ((dict(normalize_before=True), "normalize_before"),
                        (dict(pos_enc_layer_type="abs_pos"), "abs_pos")):
@@ -286,6 +288,10 @@ def test_unported_configurations_raise(encoders):
     model = build_model("squeezeformer", FEAT, 7, encoder_conf=dict(
         encoder_dim=32, output_size=32, attention_heads=2, num_blocks=2,
         cnn_module_kernel=7))
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros(1, 67, FEAT), torch.tensor([67]),
-              torch.zeros(1, 2, dtype=torch.long), torch.tensor([2]))
+    args = (torch.zeros(1, 67, FEAT), torch.tensor([67]),
+            torch.ones(1, 2, dtype=torch.long), torch.tensor([2]))
+    with pytest.raises(ValueError, match="chunk_generator"):
+        model(*args)
+    out = model(*args, chunk_generator=torch.Generator().manual_seed(0))
+    assert set(out) == {"loss", "loss_att", "loss_ctc", "acc_att"}
+    assert torch.isfinite(out["loss"])

@@ -391,3 +391,128 @@ def test_squeezeformer_flagship_launches(cuda_device):
             assert torch.isfinite(out[0] if isinstance(out, tuple)
                                   else out).all()
     assert counts == [(12, 0), (0, 12), (0, 12)]
+
+
+# (d_model, heads, ffn, conv kernel, T, lens, half): the test widths, and
+# the flagship's (configs/squeezeformer.yml) at full rate (T'=299) and at
+# half rate (T'=150 with the 299-frame mask's [::2, ::2] rows and columns
+# and the lengths halved rounding up, as after the time reduction)
+SQ_TRAIN_SHAPES = [(64, 2, 128, 7, 45, [45, 36, 0], False),
+                   (256, 4, 2048, 31, 299,
+                    [299, 281, 250, 220, 180, 150, 90, 33], False),
+                   (256, 4, 2048, 31, 299,
+                    [299, 281, 250, 220, 180, 150, 90, 33], True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.1)],
+                         ids=["drop0", "drop0.1"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SQ_TRAIN_SHAPES,
+                         ids=["D64T45", "D256T299", "D256T150half"])
+def test_sq_train_layer_kernel_matches_plain(cuda_device, shape, causal,
+                                             rates):
+    """fused_squeezeformer_layer_train (CUDA forward + backward) == the
+    plain twin with autograd on the same card, same dropout hash, a
+    dynamic-chunk mask (16-frame chunks, 4 left) with padding: output max
+    abs err 2e-4; the grads of sum(y * w) wrt x, posp and every packed
+    array each within 1e-4 of the plain grad's largest magnitude; one
+    forward and one backward launch."""
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    from masr_tpu_torch.ops.cuda.squeezeformer_layer import \
+        pack_sq_layer_params
+    D, H, FF, K, T, lens, half = shape
+    rate, att_rate = rates
+    B = len(lens)
+    layer = _sq_layer(D, H, FF, K, causal, "layer_norm", D + T + 2,
+                      cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    r = torch.arange(T, device=cuda_device)
+    rc, cc = r[:, None] // 16, r[None, :] // 16
+    mask = ((cc <= rc) & (cc >= rc - 4))[None] & \
+        (r[None, None, :] < lens_t[:, None, None])
+    if half:
+        mask, lens_t, T = mask[:, ::2, ::2], (lens_t + 1) // 2, (T + 1) // 2
+    g = torch.Generator().manual_seed(T + 7)
+    x = torch.randn(B, T, D, generator=g).to(cuda_device)
+    w = torch.randn(B, T, D, generator=g).to(cuda_device)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+    with torch.no_grad():
+        posp0 = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            torch.arange(T, device=cuda_device), D))
+        packed0 = pack_sq_layer_params(layer)
+    results = {}
+    for name, fn in (("kernel", sqt.fused_squeezeformer_layer_train),
+                     ("plain", sqt.fused_squeezeformer_layer_train_plain)):
+        xx = x.clone().requires_grad_(True)
+        pp = posp0.clone().requires_grad_(True)
+        pk = {k: v.clone().requires_grad_(True) for k, v in packed0.items()}
+        before = sqt.fused_squeezeformer_layer_train.launches
+        y = fn(xx, mask, seeds, lens_t, pp, pk, layer=6, n_head=H, ksize=K,
+               causal=causal, rate=rate, att_rate=att_rate)
+        (y * w).sum().backward()
+        torch.cuda.synchronize()
+        results[name] = (y.detach(), xx.grad, pp.grad,
+                         {k: v.grad for k, v in pk.items()},
+                         sqt.fused_squeezeformer_layer_train.launches - before)
+    (y_k, dx_k, dp_k, dw_k, n_k), (y_p, dx_p, dp_p, dw_p, _) = \
+        results["kernel"], results["plain"]
+    assert n_k == 2
+    assert torch.isfinite(y_k).all() and torch.isfinite(dx_k).all()
+    assert (y_k - y_p).abs().max().item() <= 2e-4
+    for name, a, b in [("x", dx_k, dx_p), ("posp", dp_k, dp_p)] + [
+            (k, dw_k[k], dw_p[k]) for k in dw_p]:
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= 1e-4, (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_norm", ["layer_norm", "batch_norm"])
+def test_squeezeformer_training_launches(cuda_device, conv_norm):
+    """One training loss and backward of a 12-block Squeezeformer at the
+    flagship widths: with the layer_norm conv every layer launches the
+    training-layer kernel once forward and once backward (12 + 12) and the
+    CTC kernel runs once each way; the BatchNorm conv trains through the
+    eager layers (0 launches) and moves its running statistics."""
+    from masr_tpu_torch.models.registry import build_model
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    enc = dict(encoder_dim=256, output_size=256, attention_heads=4,
+               num_blocks=12, reduce_idx=5, recover_idx=11,
+               feed_forward_expansion_factor=8, cnn_module_kernel=31,
+               cnn_norm_type=conv_norm)
+    model = build_model("squeezeformer", 80, 100, streaming=True,
+                        encoder_conf=enc,
+                        decoder_conf=dict(attention_heads=4,
+                                          linear_units=1024, num_blocks=1,
+                                          r_num_blocks=1),
+                        model_conf=dict(ctc_weight=0.3, reverse_weight=0.3))
+    model.load_state_dict(seeded_state_dict(model, seed=5))
+    model = model.to(cuda_device).train()
+    g = torch.Generator().manual_seed(6)
+    speech = torch.randn(2, 301, 80, generator=g).to(cuda_device)
+    text = torch.randint(1, 99, (2, 7), generator=g).to(cuda_device)
+    text[1, 4:] = -1
+    stats = [m.running_var.clone() for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm1d)]
+    before = (sqt.fused_squeezeformer_layer_train.launches,
+              sqt.fused_squeezeformer_layer_train.backward_launches,
+              C.ctc_loss.launches)
+    out = model(speech, torch.tensor([301, 200], device=cuda_device), text,
+                torch.tensor([7, 4], device=cuda_device),
+                generator=torch.Generator(cuda_device).manual_seed(7),
+                chunk_generator=torch.Generator().manual_seed(8))
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    counts = (sqt.fused_squeezeformer_layer_train.launches - before[0],
+              sqt.fused_squeezeformer_layer_train.backward_launches
+              - before[1], C.ctc_loss.launches - before[2])
+    assert torch.isfinite(out["loss"])
+    if conv_norm == "layer_norm":
+        assert counts == (24, 12, 2) and not stats
+    else:
+        assert counts == (0, 0, 2) and len(stats) == 12
+        moved = [m.running_var for m in model.modules()
+                 if isinstance(m, torch.nn.BatchNorm1d)]
+        assert all(not torch.equal(a, b) for a, b in zip(stats, moved))
