@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Drives the port's offline and streaming recognition and its training (the
-Conformer and the Squeezeformer) through their public entry points
+Conformer and the Squeezeformer), and the offline recognition of
+static-chunk models, through their public entry points
 (MASRPredictor.predict_batch, MASRPredictor.predict_stream,
 BatchStreamSession, MASRTrainer.train) and holds every hand-written kernel
 of those paths against its plain PyTorch twin. Phases, one JSON line each:
 
-  1. build          compile the seven CUDA sources of the repo (nvcc, sm_90a),
+  1. build          compile the eight CUDA sources of the repo (nvcc, sm_90a),
                     one process per source, all started together
   2. kernels        the full-context Conformer layer kernel vs its plain twin
                     at flagship width (D=256, 4 heads, FFN 2048, conv 15),
@@ -103,13 +104,41 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     the training-layer kernel and 1 + 1 of the CTC kernel,
                     the loss per label token and the test loss falling, the
                     first step at dropout 0 against the CPU; then one epoch
-                    of the BatchNorm default (eager layers, no kernel
-                    launch, running statistics moved; first step and
-                    statistics against the CPU)
+                    of the BatchNorm default (eager layers, no training-
+                    layer launch, running statistics moved; first step and
+                    statistics against the CPU; its validation pass runs
+                    the eager attention through the flash kernel, whose
+                    launches are recorded, and no train step launches it)
  21. sq_train_times the Squeezeformer training layer forward and backward,
                     kernel vs plain, at both rates (CUDA events), bounds;
                     train-step wall times, audio seconds trained per second,
                     a torch.profiler breakdown of three steps
+ 22. flash_kernels  the masked rel-pos flash attention kernel vs its plain
+                    twin at flagship width (4 heads, d_k 64), B=4 ragged (one
+                    utterance of 0 frames), T' in {37, 299, 800, 1500, 3000},
+                    q, k, v as the module passes them (views of (B, T', D)
+                    rows), masks: full context (the broadcast expand view),
+                    static chunk 16 with every left chunk and with 4, the
+                    half-rate [::2, ::2], random with empty rows and tiles;
+                    d_k 32 and 128 at T'=299; output finite, rows with no
+                    visible key exactly 0
+ 23. static_flagship  each flagship (configs/conformer.yml and
+                    configs/squeezeformer.yml widths, vocabulary 4000,
+                    seeded weights) with encoder_conf use_dynamic_chunk
+                    false and static_chunk_size 16 (the Conformer streaming,
+                    the Squeezeformer offline: masr_tpu gives that family a
+                    dynamic chunk whenever it streams): the predictor's
+                    warmup (predict), predict_batch of the 8 utterances and
+                    of 4 long ones (32-60 s, T' ~800-1500), predict of
+                    one; every encode launches the flash kernel 12 times and
+                    no full-context layer kernel; probs card vs CPU
+ 24. flash_times    the flash kernel vs its twin and F.scaled_dot_product_
+                    attention (the library call, timed only, and the
+                    backend it takes by the dispatcher's rule) at B=8 under
+                    the static-16 mask with lengths T' down to 0.53 T', T'
+                    in {150, 299, 800, 1500, 3000} (CUDA events), with the
+                    bound over the visible pairs and the dense one; the long
+                    batch's predict_batch wall for both families
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -253,12 +282,15 @@ def phase_kernels(dev):
     return worst
 
 
-def write_flagship_bundle(path, use_model="conformer"):
+def write_flagship_bundle(path, use_model="conformer", static_chunk=0):
     """A flagship bundle (the Conformer's, or with use_model="squeezeformer"
     the Squeezeformer's of configs/squeezeformer.yml, BatchNorm statistics
     in batch_stats) with weights drawn from seed 0, written the way
     masr_tpu's exporter writes one (flax msgpack), CMVN from the example
-    bundle (same fbank frontend)."""
+    bundle (same fbank frontend). With static_chunk, a static-chunk model:
+    encoder_conf use_dynamic_chunk false and that static_chunk_size; the
+    Squeezeformer then has streaming off (with it on, masr_tpu's and the
+    port's SqueezeformerModel force a dynamic chunk)."""
     from masr_tpu_torch.infer import flax_msgpack
     from masr_tpu_torch.models.registry import build_model
     from masr_tpu_torch.models.weights import (seeded_state_dict,
@@ -268,7 +300,14 @@ def write_flagship_bundle(path, use_model="conformer"):
         tiny = json.load(f)
     encoder_conf, decoder_conf = (FLAGSHIP_ENCODER, {}) \
         if use_model == "conformer" else (SQ_ENCODER, SQ_DECODER)
-    model = build_model(use_model, 80, VOCAB, streaming=True,
+    streaming = True
+    if static_chunk:
+        encoder_conf = dict(encoder_conf, static_chunk_size=static_chunk)
+        if use_model == "conformer":
+            encoder_conf["use_dynamic_chunk"] = False
+        else:
+            streaming = False
+    model = build_model(use_model, 80, VOCAB, streaming=streaming,
                         encoder_conf=encoder_conf, decoder_conf=decoder_conf)
     state = seeded_state_dict(model, seed=0)
     # CTC head ×8: the frame posteriors peak as a trained model's do; at
@@ -277,7 +316,7 @@ def write_flagship_bundle(path, use_model="conformer"):
     state["ctc.ctc_lo.weight"] *= 8.0
     variables = to_flax_variables(state)
     meta = {"framework": "masr_tpu", "use_model": use_model,
-            "streaming": True, "input_dim": 80, "vocab_size": VOCAB,
+            "streaming": streaming, "input_dim": 80, "vocab_size": VOCAB,
             "mean": tiny["mean"], "istd": tiny["istd"],
             "encoder_conf": encoder_conf, "decoder_conf": decoder_conf,
             "model_conf": {}, "preprocess_conf": PREPROCESS,
@@ -319,6 +358,13 @@ def layer_kernel(family):
     return fn
 
 
+def flash_kernel():
+    """The masked rel-pos flash attention's wrapper (its .launches counts)."""
+    from masr_tpu_torch.ops.cuda.rel_pos_attention import \
+        rel_pos_flash_attention as fn
+    return fn
+
+
 def chunk_kernel(family):
     """The chunk-layer kernel's wrapper (its .launches counts)."""
     if family == "conformer":
@@ -346,7 +392,28 @@ def phase_flagship(dev, family="conformer"):
     n_layers = FLAGSHIP_ENCODER["num_blocks"]
     check(launches == n_layers, f"{family} kernel launches {launches} == "
           f"{n_layers} layers x 1 encoder call")
+    check(flash_kernel().launches == 0, "no flash attention launch without "
+          "a static chunk")
     cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
+    err, compared, t_out = probs_card_vs_cpu(gpu, cpu, wavs)
+    cpu_texts = cpu.predict_batch(wavs)
+    emit({"phase": "flagship" if family == "conformer" else "sq_flagship",
+          "utterances": len(wavs),
+          "seconds_audio": [round(len(w) / 16000, 3) for w in wavs],
+          "T_out": t_out, "launches": launches,
+          "probs_max_abs_err": err, "probs_atol": PROBS_ATOL,
+          "argmax_frames_compared": compared,
+          "texts_equal_cpu": sum(a["text"] == b["text"]
+                                 for a, b in zip(texts, cpu_texts)),
+          "predict_batch_s": wall})
+    return gpu, wavs, launches
+
+
+def probs_card_vs_cpu(gpu, cpu, wavs):
+    """The batch's CTC probs on the card vs the CPU (the twins): shapes and
+    lengths equal, finite, within PROBS_ATOL over the valid frames, no
+    argmax flip where the CPU's top-2 margin exceeds ARGMAX_MARGIN. → (max
+    abs err, frames compared, T')."""
     speech, lens = gpu.featurize_batch(wavs)
     p_gpu, l_gpu = gpu.predictor.predict(speech, lens)
     p_cpu, l_cpu = cpu.predictor.predict(speech, lens)
@@ -365,17 +432,7 @@ def phase_flagship(dev, family="conformer"):
     check(err <= PROBS_ATOL, f"probs card vs CPU {err} <= {PROBS_ATOL}")
     check(flips == 0, f"{flips} argmax flips where top-2 margin > "
           f"{ARGMAX_MARGIN}")
-    cpu_texts = cpu.predict_batch(wavs)
-    emit({"phase": "flagship" if family == "conformer" else "sq_flagship",
-          "utterances": len(wavs),
-          "seconds_audio": [round(len(w) / 16000, 3) for w in wavs],
-          "T_out": int(p_gpu.shape[1]), "launches": launches,
-          "probs_max_abs_err": err, "probs_atol": PROBS_ATOL,
-          "argmax_frames_compared": compared,
-          "texts_equal_cpu": sum(a["text"] == b["text"]
-                                 for a, b in zip(texts, cpu_texts)),
-          "predict_batch_s": wall})
-    return gpu, wavs, launches
+    return err, compared, int(p_gpu.shape[1])
 
 
 def phase_bundle(dev):
@@ -596,6 +653,7 @@ def phase_chunk_kernels(dev):
 def reset_launches():
     for family in ("conformer", "squeezeformer"):
         layer_kernel(family).launches = chunk_kernel(family).launches = 0
+    flash_kernel().launches = 0
 
 
 def chunk_launches(family="conformer"):
@@ -1433,6 +1491,7 @@ def clocked_train_steps(rows, family="conformer"):
     def step(state, batch, seed):
         torch.cuda.synchronize()
         before = train_launches(family)
+        flash_before = flash_kernel().launches
         t0 = time.perf_counter()
         m = orig(state, batch, seed)
         torch.cuda.synchronize()
@@ -1441,7 +1500,9 @@ def clocked_train_steps(rows, family="conformer"):
                      "tokens": float(batch["label_lens"].float().mean()),
                      "audio_s": float(batch["input_lens"].sum()) / 100.0,
                      "launches": [a - b for a, b in
-                                  zip(train_launches(family), before)]})
+                                  zip(train_launches(family), before)],
+                     "flash_launches": flash_kernel().launches
+                     - flash_before})
         return m
 
     tr.train_step = step
@@ -1834,14 +1895,22 @@ def phase_sq_train(dev, corpus):
     bn = MASRTrainer(sq_train_config(corpus, bn_root, 1,
                                      conv_norm="batch_norm"), device=dev)
     reset_train_launches()
+    flash_kernel().launches = 0
     with clocked_train_steps(bn_rows, "squeezeformer"):
         bn.train(save_model_path=os.path.join(bn_root, "models"))
     bn_launches = train_launches("squeezeformer")
+    # the validation pass (no grad) runs the eager attention through the
+    # flash kernel; a train step records autograd, so it never does
+    bn_flash = flash_kernel().launches
     check(len(bn_rows) == TRAIN_STEPS_PER_EPOCH, f"{len(bn_rows)} BatchNorm "
           f"steps, want {TRAIN_STEPS_PER_EPOCH}")
     for i, r in enumerate(bn_rows):
         check(r["launches"] == [0, 0, 2, 1], f"BatchNorm step {i} launches "
               f"{r['launches']}: no training-layer kernel, CTC 1 + 1")
+        check(r["flash_launches"] == 0, f"BatchNorm step {i}: "
+              f"{r['flash_launches']} flash launches under autograd")
+    check(bn_flash > 0 and bn_flash % n == 0, f"{bn_flash} flash launches "
+          f"in the BatchNorm run's validation: {n} per encode")
     check(all(r["finite"] for r in bn_rows), "BatchNorm steps finite")
     stats = {k: v for k, v in bn.model.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
@@ -1858,6 +1927,7 @@ def phase_sq_train(dev, corpus):
           "first_step_card_vs_cpu": first,
           "batch_norm": {"steps": len(bn_rows),
                          "launches": bn_launches,
+                         "validation_flash_launches": bn_flash,
                          "loss": [r["loss"] for r in bn_rows],
                          "stats_least_max_move": moved,
                          **step_times(bn_rows),
@@ -1917,6 +1987,264 @@ def ctc_bound(logits):
     return _bound(10 * logits.numel(), 2 * 4 * logits.numel())
 
 
+# --------------------------------------------------------------------------- #
+# static-chunk recognition: the masked rel-pos flash attention
+# --------------------------------------------------------------------------- #
+STATIC_CHUNK = 16
+FLASH_T = (37, 299, 800, 1500, 3000)
+FLASH_MASKS = ("full", "static16", "static16_left4", "half_rate", "random")
+FLASH_SWEEP_T = (150, 299, 800, 1500, 3000)
+
+
+def flash_mask(kind, lens, T, dev):
+    """(B, T, T) bool mask of one kind: `full` (the pad mask's broadcast
+    expand view), `static16` (chunks of 16, every left chunk: the main
+    path's), `static16_left4` (4 left chunks: padded rows past them see no
+    key), `half_rate` (the [::2, ::2] view of a 2T static16 mask, lengths
+    doubled), `random` (30% of the pairs; every 7th row and the key tile
+    [32, 64) hidden; utterance 1 sees one key)."""
+    from masr_tpu_torch.ops.masks import (add_optional_chunk_mask,
+                                          make_pad_mask)
+    if kind == "half_rate":
+        return flash_mask("static16", [2 * n for n in lens], 2 * T,
+                          dev)[:, ::2, ::2]
+    if kind == "random":
+        g = torch.Generator().manual_seed(T)
+        m = torch.rand(len(lens), T, T, generator=g) < 0.3
+        m[:, ::7] = False
+        m[:, :, 32:64] = False
+        m[1] = False
+        m[1, :, T // 2] = True
+        return m.to(dev)
+    pad = ~make_pad_mask(torch.tensor(lens, device=dev), T)[:, None, :]
+    chunk, left = {"full": (0, -1), "static16": (STATIC_CHUNK, -1),
+                   "static16_left4": (STATIC_CHUNK, 4)}[kind]
+    return add_optional_chunk_mask(T, pad, False, False, -1, chunk, left)
+
+
+def flash_inputs(B, T, d, seed, dev, H=4):
+    """q, k, v as the attention module passes them, (B, T, H d) rows viewed
+    as (B, H, T, d) heads; p the (H, T, d) view of (T, H d) rows; bias_u,
+    bias_v (H, d)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, T, H * d, generator=g).to(dev).view(
+        B, T, H, d).transpose(1, 2) for _ in range(3))
+    p = torch.randn(T, H * d, generator=g).to(dev).view(T, H, d).transpose(
+        0, 1)
+    bu, bv = ((0.1 * torch.randn(H, d, generator=g)).to(dev)
+              for _ in range(2))
+    return q, k, v, p, bu, bv
+
+
+def check_flash(args, mask, what):
+    """The kernel vs its twin on the same inputs: finite, max abs err <=
+    KERNEL_ATOL, rows that see no key exactly 0. → (max abs err, rows that
+    see no key)."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    with torch.no_grad():
+        got = rpa.rel_pos_flash_attention(*args, mask)
+        want = rpa.rel_pos_attention_plain(*args, mask)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"flash output finite ({what})")
+    err = (got - want).abs().max().item()
+    check(err <= KERNEL_ATOL, f"flash kernel vs plain max abs err {err} <= "
+          f"{KERNEL_ATOL} ({what})")
+    empty = ~mask.any(-1)
+    check(bool((got.transpose(1, 2)[empty] == 0.0).all()),
+          f"rows with no visible key exactly 0 ({what})")
+    return err, int(empty.sum())
+
+
+def phase_flash_kernels(dev):
+    """The flash kernel vs its twin: every mask kind at d_k 64 over FLASH_T,
+    and at d_k 32 and 128 at T'=299; B=4 ragged, 4 heads."""
+    cases, worst = [], 0.0
+    for T, d in [(T, 64) for T in FLASH_T] + [(299, 32), (299, 128)]:
+        lens = [T, T - 17, max(T // 3, 1), 0]
+        for kind in FLASH_MASKS:
+            mask = flash_mask(kind, lens, T, dev)
+            err, empty = check_flash(flash_inputs(4, T, d, T + d, dev), mask,
+                                     f"{kind}, T'={T}, d_k={d}")
+            cases.append({"T": T, "d_k": d, "mask": kind,
+                          "rows_without_key": empty, "max_abs_err": err})
+            worst = max(worst, err)
+    emit({"phase": "flash_kernels", "kernel": "rel_pos_flash_attention",
+          "B": 4, "heads": 4, "atol": KERNEL_ATOL, "cases": cases})
+    return worst
+
+
+def long_utterances(vocab):
+    """4 utterances of 160..298 characters: 32 s to 60 s of audio."""
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    tts = SyntheticTTS(sample_rate=16000)
+    rs = np.random.RandomState(2)
+    return [tts.render("".join(vocab[j] for j in
+                               rs.randint(2, len(vocab) - 1, n)), spk_id=i)
+            for i, n in enumerate(np.linspace(160, 298, 4).astype(int))]
+
+
+def encode_launches():
+    """(flash, Conformer layer kernel, Squeezeformer layer kernel)."""
+    return (flash_kernel().launches, layer_kernel("conformer").launches,
+            layer_kernel("squeezeformer").launches)
+
+
+def phase_static_flagship(dev, family):
+    """A static-chunk flagship: the predictor's warmup, predict_batch of the
+    8 utterances (the main path) and of 4 long ones, predict of one; each
+    encode launches the flash kernel once per layer and no full-context
+    layer kernel; probs card vs CPU. → (card predictor, long utterances,
+    the main path's flash launches)."""
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    path = os.path.join(WORK, f"{family}_static_bundle")
+    vocab = write_flagship_bundle(path, family, static_chunk=STATIC_CHUNK)
+    wavs, long = synthetic_utterances(vocab), long_utterances(vocab)
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    per_encode = (n, 0, 0)
+    reset_launches()
+    gpu = MASRPredictor(model_dir=path, device=dev)    # warmup: predict
+    warm = encode_launches()
+    check(warm == per_encode, f"{family} static warmup launches {warm} == "
+          f"{per_encode} (flash, layer kernels)")
+    cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
+    runs = {}
+    for name, batch in (("batch", wavs), ("long_batch", long)):
+        # the main path: counts read around predict_batch alone
+        reset_launches()
+        t0 = time.perf_counter()
+        texts = gpu.predict_batch(batch)
+        wall = time.perf_counter() - t0
+        got = encode_launches()
+        check(got == per_encode, f"{family} static predict_batch launches "
+              f"{got} == {per_encode} (flash, layer kernels), {name}")
+        err, compared, t_out = probs_card_vs_cpu(gpu, cpu, batch)
+        cpu_texts = cpu.predict_batch(batch)
+        runs[name] = {"utterances": len(batch),
+                      "seconds_audio": [round(len(w) / 16000, 3)
+                                        for w in batch],
+                      "T_out": t_out, "launches": got[0],
+                      "probs_max_abs_err": err,
+                      "argmax_frames_compared": compared,
+                      "texts_equal_cpu": sum(a["text"] == b["text"] for a, b
+                                             in zip(texts, cpu_texts)),
+                      "predict_batch_s": wall}
+    reset_launches()
+    one = gpu.predict(wavs[0])
+    got = encode_launches()
+    check(got == per_encode and bool(one["text"]), f"{family} static "
+          f"predict launches {got} == {per_encode}, text not empty")
+    emit({"phase": "static_flagship", "family": family,
+          "streaming": gpu.streaming, "static_chunk_size": STATIC_CHUNK,
+          "warmup_launches": warm[0], "probs_atol": PROBS_ATOL, **runs,
+          "predict_text_equal_cpu": one["text"] == cpu.predict(
+              wavs[0])["text"]})
+    return gpu, long, runs["batch"]["launches"]
+
+
+def flash_bound(mask, B, H, T, d):
+    """Operations over the (query, key) pairs the mask lets through: per
+    pair and head [q+u | q+v].[k | p] (4 d) and P.V (2 d); the dense count
+    beside it. Bytes: q, k, v, out (B, H, T, d) and p (H, T, d) f32, the
+    mask (one byte per pair), each once."""
+    pairs = int(mask.sum())
+    dense = 6 * d * H * B * T * T
+    nbytes = 4 * (4 * B * H * T * d + H * T * d) + B * T * T
+    return {**_bound(6 * d * H * pairs, nbytes), "visible_pairs": pairs,
+            "dense_gflop": dense / 1e9,
+            "dense_bound_ms": dense / PEAK_F32_FLOPS * 1e3}
+
+
+def sdpa_backend(call):
+    """The backend F.scaled_dot_product_attention takes for `call`, by the
+    dispatcher's own rule: the first backend, in torch's priority order and
+    among those enabled by default, that accepts the inputs when it is the
+    only one allowed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    cuda = torch.backends.cuda
+    enabled = {
+        SDPBackend.FLASH_ATTENTION: cuda.flash_sdp_enabled(),
+        SDPBackend.EFFICIENT_ATTENTION: cuda.mem_efficient_sdp_enabled(),
+        SDPBackend.CUDNN_ATTENTION: cuda.cudnn_sdp_enabled(),
+        SDPBackend.MATH: cuda.math_sdp_enabled()}
+    order = getattr(torch._C, "_get_sdp_priority_order", lambda: [1, 2, 0])()
+    for b in (SDPBackend(i) for i in order):
+        if not enabled.get(b, False):
+            continue
+        try:
+            with sdpa_kernel([b]):
+                call()
+            return b.name
+        except RuntimeError:
+            continue
+    return "not measured"
+
+
+def phase_flash_times(dev, smi, static_runs):
+    """The flash kernel vs its twin and the library call, CUDA events
+    (plain, kernel, kernel, plain; SDPA twice after), at B=8 under the
+    static-16 mask, lengths T' down to 0.53 T' (1500 → 800 at the main shape), over
+    FLASH_SWEEP_T; SDPA compared on rows that see a key; the long batch's
+    predict_batch wall for each static flagship."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    B, H, d = 8, 4, 64
+    sweep = {}
+    for T in FLASH_SWEEP_T:
+        lens = np.linspace(T, round(0.533 * T), B).round().astype(int)
+        lens = [int(n) for n in lens]
+        mask = flash_mask("static16", lens, T, dev)
+        args = flash_inputs(B, T, d, 40 + T, dev)
+        q, k, v, p, bu, bv = args
+
+        def kernel():
+            return rpa.rel_pos_flash_attention(*args, mask)
+
+        def plain():
+            return rpa.rel_pos_attention_plain(*args, mask)
+
+        with torch.no_grad():
+            err = check_flash(args, mask, f"timed, T'={T}")[0]
+            runs = alternate(kernel, plain)
+            # the library call on the same function: [q+u | q+v].[k | p]^T
+            q_cat = torch.cat([q + bu[None, :, None], q + bv[None, :, None]],
+                              dim=-1)
+            k_cat = torch.cat([k, p[None].expand(B, -1, -1, -1)], dim=-1)
+            m4 = mask[:, None]
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q_cat, k_cat, v, attn_mask=m4, scale=1.0 / d ** 0.5)
+
+            seen = mask.any(-1)                                  # (B, T)
+            lib_err = (library().transpose(1, 2)[seen]
+                       - kernel().transpose(1, 2)[seen]).abs().max().item()
+            lib_ms = [cuda_ms(library), cuda_ms(library)]
+            backend = sdpa_backend(library)
+        sweep[T] = {"B": B, "heads": H, "d_k": d, "T": T, "lens": lens,
+                    "max_abs_err": err, "kernel_ms": runs["kernel"],
+                    "plain_ms": runs["plain"], "sdpa_ms": lib_ms,
+                    "sdpa_backend": backend,
+                    "sdpa_max_abs_err": lib_err,
+                    **flash_bound(mask, B, H, T, d)}
+    walls, long = {}, static_runs["conformer"][1]
+    for family, (gpu, _) in static_runs.items():
+        walls[family] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gpu.predict_batch(long)
+            walls[family].append(time.perf_counter() - t0)
+    emit({"phase": "flash_times", "card": smi, "mask": "static chunk 16",
+          "sweep": [sweep[T] for T in FLASH_SWEEP_T],
+          "long_predict_batch_s": walls,
+          "long_audio_s": round(sum(len(w) for w in long) / 16000, 3)})
+    main = sweep[1500]
+    return {"ms": float(np.mean(main["kernel_ms"])),
+            "plain_ms": float(np.mean(main["plain_ms"])),
+            "library_ms": float(np.mean(main["sdpa_ms"])),
+            "max_abs_err": max(v["max_abs_err"] for v in sweep.values()),
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1931,7 +2259,7 @@ def main():
     built = build.build(["conformer_layer", "chunk_layer",
                          "squeezeformer_layer", "chunk_layer_sq",
                          "conformer_layer_train", "ctc_loss",
-                         "squeezeformer_layer_train"])
+                         "squeezeformer_layer_train", "rel_pos_attention"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built, "card": smi})
 
@@ -1962,6 +2290,14 @@ def main():
     sq_train_err = phase_sq_train_kernels(dev)
     sq_launches_t, sq_rows, sq_trainer = phase_sq_train(dev, corpus)
     sq_train_t = phase_sq_train_times(dev, sq_rows, sq_trainer, smi)
+
+    flash_worst = phase_flash_kernels(dev)
+    static_runs, static_launches = {}, {}
+    for family in ("conformer", "squeezeformer"):
+        s_gpu, long, static_launches[family] = phase_static_flagship(
+            dev, family)
+        static_runs[family] = (s_gpu, long)
+    flash_t = phase_flash_times(dev, smi, static_runs)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -2013,7 +2349,15 @@ def main():
         "launches": sq_launches_t[0], "max_abs_err": sq_train_err,
         "ms": sq_train_t["ms"], "plain_ms": sq_train_t["plain_ms"],
         "bound_ms": sq_train_t["bound_ms"],
-        "bound_by": sq_train_t["bound_by"], "library_ms": None}]})
+        "bound_by": sq_train_t["bound_by"], "library_ms": None}, {
+        "name": "rel_pos_flash_attention", "route": "cuda",
+        "source": "masr_tpu_torch/csrc/rel_pos_attention.cu",
+        "replaces": "masr_tpu/ops/pallas/attention.py:122",
+        "launches": static_launches["conformer"],
+        "max_abs_err": max(flash_worst, flash_t["max_abs_err"]),
+        "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
+        "bound_ms": flash_t["bound_ms"], "bound_by": flash_t["bound_by"],
+        "library_ms": flash_t["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Digest and time the Conformer kernels on the card, to compare two trees.
+"""Digest and time the port's kernels on the card, to compare two trees.
 
     python3 -m masr_tpu_torch.bench.kernel_digest
 
@@ -10,8 +10,11 @@ heads, FFN 2048, conv 15):
     {0, 5, 100, 256}, four inactive slots;
   - fused_conformer_layer_train, forward and backward, at B=8, T'=299 with
     a dynamic-chunk mask and dropout 0.1;
-and, in a tree that has it, fused_squeezeformer_layer_train (the
-Squeezeformer's width: conv 31, layer_norm conv) on the same inputs.
+and, in a tree that has them, fused_squeezeformer_layer (the
+Squeezeformer's width: conv 31, BatchNorm conv) and
+fused_squeezeformer_layer_train (layer_norm conv) on the same inputs, and
+rel_pos_flash_attention (4 heads, d_k 64) at B=8, T'=1500 under a static
+chunk of 16 with lens 1500..800 and 0 (rows that see no key).
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
 calls, and the card's name and power limit. Two trees whose digests are
@@ -142,11 +145,26 @@ def main():
     try:
         from masr_tpu_torch.models.squeezeformer import \
             SqueezeformerEncoderLayer
+        from masr_tpu_torch.ops.cuda import squeezeformer_layer as sql
         from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
     except ImportError:     # a tree from before the Squeezeformer's training
         sqt = None
     if sqt is not None:
-        build.build(["squeezeformer_layer_train"])
+        build.build(["squeezeformer_layer", "squeezeformer_layer_train"])
+        bn = SqueezeformerEncoderLayer(256, 4, 2048, 31, "batch_norm", True)
+        bn.load_state_dict(seeded_state_dict(bn, seed=10))
+        bn = bn.to(dev).eval()
+        with torch.no_grad():
+            bn_posp = bn.self_attn.linear_pos(sinusoid_position_encoding(
+                r, 256))
+
+            def row6():
+                return sql.fused_squeezeformer_layer(
+                    x, lens, bn_posp, bn.packed_params(), n_head=4, ksize=31,
+                    causal=True, conv_ln=False)
+
+            digests["fused_squeezeformer_layer"] = _digest([row6()])
+            ms["fused_squeezeformer_layer"] = _ms(row6)
         sq = SqueezeformerEncoderLayer(256, 4, 2048, 31, "layer_norm", True)
         sq.load_state_dict(seeded_state_dict(sq, seed=9))
         sq = sq.to(dev)
@@ -157,6 +175,31 @@ def main():
         train_layer("fused_squeezeformer_layer_train",
                     sqt.fused_squeezeformer_layer_train, sq_packed,
                     sq_posp, 31)
+    try:
+        from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    except ImportError:     # a tree from before the flash attention
+        rpa = None
+    if rpa is not None:
+        build.build(["rel_pos_attention"])
+        from masr_tpu_torch.ops.masks import add_optional_chunk_mask
+        Tf = 1500
+        flens = torch.tensor([1500, 1400, 1300, 1200, 1100, 1000, 800, 0],
+                             device=dev)
+        pad = (torch.arange(Tf, device=dev)[None, :] < flens[:, None])
+        fmask = add_optional_chunk_mask(Tf, pad[:, None, :], False, False,
+                                        -1, 16, -1)
+        q, k, v = (torch.randn(B, 4, Tf, 64, generator=g).to(dev)
+                   for _ in range(3))
+        p = torch.randn(4, Tf, 64, generator=g).to(dev)
+        bu, bv = (0.1 * torch.randn(4, 64, generator=g).to(dev)
+                  for _ in range(2))
+
+        def row5():
+            return rpa.rel_pos_flash_attention(q, k, v, p, bu, bv, fmask)
+
+        with torch.no_grad():
+            digests["rel_pos_flash_attention"] = _digest([row5()])
+            ms["rel_pos_flash_attention"] = _ms(row5)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()

@@ -1,9 +1,11 @@
 // Blocks shared by the serving layer kernels (conformer_layer.cu,
 // squeezeformer_layer.cu: full context; chunk_layer.cu, chunk_layer_sq.cu:
-// streaming chunk steps), for Hopper (sm_90a), f32:
+// streaming chunk steps) and the masked attention (rel_pos_attention.cu),
+// for Hopper (sm_90a), f32:
 //
-//   attention_kernel<NDK>        rel-pos attention over the valid keys of
-//                                an utterance (full context)
+//   attention_kernel<NDK, M>     rel-pos attention over the valid keys of
+//                                an utterance (full context), or over the
+//                                keys a (B, T, T) mask lets through
 //   chunk_attention_kernel<NDK>  rel-pos attention of a chunk over
 //                                [att-cache ring || chunk] per slot
 //   kv_write_kernel              the fresh K/V rows into the ring
@@ -26,43 +28,77 @@ namespace {
 
 // ------------------------------------------------------------------------
 // Full-context rel-pos attention (no rel_shift, as the reference):
-//   s = ([q+bu | q+bv] . [k | p]^T) / sqrt(d_k),  keys col < len only,
+//   s = ([q+bu | q+bv] . [k | p]^T) * scale
 // online softmax over 32-key tiles. One block = 4 warps = 32 query rows of
 // one (utterance, head); each warp owns 8 rows, each lane one key of the
 // tile for the scores and d = lane + 32 i of the output.
-// q, k, v, out: (B, T, D) with head h in columns [h d_k, (h+1) d_k);
-// pos_p: (T, D); posb: (2, D) = pos_bias_u, pos_bias_v. A row whose
-// utterance has len == 0 gives 0.
+// Which keys a row sees:
+//   MASKED = false  keys col < lens[b] (the serving layers); a row whose
+//                   utterance has len == 0 gives 0.
+//   MASKED = true   keys col with mask[b, t, col] != 0 (one byte each, read
+//                   through the view's strides, so a broadcast view is never
+//                   taken for a dense one). A key tile that no row of the
+//                   block sees is skipped (read from the mask), a tile that
+//                   no row of a warp sees adds nothing, and a row that sees
+//                   no key gives 0, as the Pallas kernel's MASK_VALUE /
+//                   zeroed-probability / l_inv semantics.
+// Operands through AttView's element strides (unit column stride): q, k, v,
+// out (B, H, T, d_k) views, e.g. (B, T, D) with head h in columns
+// [h d_k, (h+1) d_k); pos_p (H, T, d_k); posb (2, H d_k) = pos_bias_u,
+// pos_bias_v.
 // ------------------------------------------------------------------------
 constexpr int kAttRows = 32;     // query rows per block
 constexpr int kAttKeys = 32;     // keys per tile (one per lane)
 constexpr int kAttWarps = 4;
 constexpr int kAttRowsPerWarp = kAttRows / kAttWarps;
 
-template <int NDK>
+struct AttView {
+  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;  // b, h, t
+  long long ph, pt;                                          // pos_p
+  long long mb, mq, mk;                                      // mask b, t, key
+};
+
+// the serving layers' (B, T, D) layout, heads in columns, pos_p (T, D)
+AttView heads_in_columns(int T, int D, int dk) {
+  const long long bt = (long long)T * D;
+  return AttView{bt, dk, D, bt, dk, D, bt, dk, D, bt, dk, D, dk, D, 0, 0, 0};
+}
+
+template <int NDK, bool MASKED>
 __global__ void __launch_bounds__(kAttWarps * 32)
     attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ pos_p,
                      const float* __restrict__ posb,
-                     const int* __restrict__ lens, float* __restrict__ out,
-                     int T, int D, int dk, float scale) {
+                     const int* __restrict__ lens,
+                     const unsigned char* __restrict__ mask, AttView w,
+                     float* __restrict__ out, int T, int dk, float scale) {
   extern __shared__ float smem[];
   const int e2 = 2 * dk, ks = e2 + 1;        // +1: conflict-free key rows
   float* Qs = smem;                          // kAttRows x e2
   float* Ks = Qs + kAttRows * e2;            // kAttKeys x ks
   float* Vs = Ks + kAttKeys * ks;            // kAttKeys x dk
   const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kAttRows;
-  const int len = min(lens[b], T);          // as the plain twin's t < len
-  const size_t base = (size_t)b * T * D + (size_t)h * dk;
+  const int D = gridDim.y * dk;
+  // keys [0, len) may be seen: the utterance's (as the plain twin's
+  // t < len) or, masked, every key
+  const int len = MASKED ? T : min(lens[b], T);
+  const float* qh = q + b * w.qb + h * w.qh;
+  const float* kh = k + b * w.kb + h * w.kh;
+  const float* vh = v + b * w.vb + h * w.vh;
+  const float* ph = pos_p + h * w.ph;
+  float* oh = out + b * w.ob + h * w.oh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned char* mrow =
+      MASKED ? mask + b * w.mb + (t0 + warp * kAttRowsPerWarp) * w.mq
+             : nullptr;
 
   for (int i = threadIdx.x; i < kAttRows * e2; i += blockDim.x) {
     const int r = i / e2, e = i % e2, t = t0 + r;
     float val = 0.f;
     if (t < T) {
       const int half = e < dk ? 0 : 1, d = e - half * dk;
-      val = q[base + (size_t)t * D + d] + posb[half * D + h * dk + d];
+      val = qh[t * w.qt + d] + posb[half * D + h * dk + d];
     }
     Qs[i] = val;
   }
@@ -78,18 +114,33 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   const float* qw = Qs + warp * kAttRowsPerWarp * e2;
 
   for (int k0 = 0; k0 < len; k0 += kAttKeys) {
-    __syncthreads();  // Qs written / previous tile consumed
+    // masked: which of the warp's rows see this lane's key
+    bool seen[kAttRowsPerWarp] = {};
+    if constexpr (MASKED) {
+      const int key = k0 + lane, t_warp = t0 + warp * kAttRowsPerWarp;
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < kAttRowsPerWarp; ++r) {
+        seen[r] = key < T && t_warp + r < T &&
+                  mrow[r * w.mq + key * w.mk] != 0;
+        any = any || seen[r];
+      }
+      // Qs written / previous tile consumed; skip a tile the block never
+      // sees (block-uniform)
+      if (!__syncthreads_or(any)) continue;
+    } else {
+      __syncthreads();  // Qs written / previous tile consumed
+    }
     for (int i = threadIdx.x; i < kAttKeys * e2; i += blockDim.x) {
       const int r = i / e2, e = i % e2, key = k0 + r;
       float val = 0.f;
       if (key < len)
-        val = e < dk ? k[base + (size_t)key * D + e]
-                     : pos_p[(size_t)key * D + h * dk + (e - dk)];
+        val = e < dk ? kh[key * w.kt + e] : ph[key * w.pt + (e - dk)];
       Ks[r * ks + e] = val;
     }
     for (int i = threadIdx.x; i < kAttKeys * dk; i += blockDim.x) {
       const int r = i / dk, d = i % dk, key = k0 + r;
-      Vs[i] = key < len ? v[base + (size_t)key * D + d] : 0.f;
+      Vs[i] = key < len ? vh[key * w.vt + d] : 0.f;
     }
     __syncthreads();
 
@@ -103,12 +154,16 @@ __global__ void __launch_bounds__(kAttWarps * 32)
       for (int r = 0; r < kAttRowsPerWarp; ++r)
         s[r] = fmaf(qw[r * e2 + e], kv, s[r]);
     }
-    const bool valid = k0 + lane < len;
+    const bool in_len = k0 + lane < len;
 #pragma unroll
     for (int r = 0; r < kAttRowsPerWarp; ++r) {
+      const bool valid = MASKED ? seen[r] : in_len;
       const float sr = valid ? s[r] * scale : -INFINITY;
-      // key k0 < len is valid, so the tile max is finite
-      const float mn = fmaxf(m[r], warp_max(sr));
+      const float tile_max = warp_max(sr);
+      // unmasked: key k0 < len is valid, so the tile max is finite;
+      // masked: a row that sees no key of the tile skips it (warp-uniform)
+      if (MASKED && tile_max == -INFINITY) continue;
+      const float mn = fmaxf(m[r], tile_max);
       const float p = valid ? expf(sr - mn) : 0.f;
       const float alpha = expf(m[r] - mn);
       l[r] = l[r] * alpha + warp_sum(p);
@@ -130,53 +185,80 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   for (int r = 0; r < kAttRowsPerWarp; ++r) {
     const int t = t0 + warp * kAttRowsPerWarp + r;
     if (t >= T) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;   // len == 0 -> 0
+    // len == 0, or no visible key -> 0
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int i = 0; i < NDK; ++i) {
       const int d = lane + 32 * i;
-      if (d < dk) out[base + (size_t)t * D + d] = acc[r][i] * inv;
+      if (d < dk) oh[t * w.ot + d] = acc[r][i] * inv;
     }
   }
 }
 
-template <int NDK>
+template <int NDK, bool MASKED>
 cudaError_t attention_launch(const float* q, const float* k, const float* v,
                              const float* pos_p, const float* posb,
-                             const int* lens, float* out, int B, int T, int D,
-                             int H, cudaStream_t stream) {
-  const int dk = D / H;
+                             const int* lens, const unsigned char* mask,
+                             const AttView& w, float* out, int B, int T,
+                             int H, int dk, float scale,
+                             cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kAttRows * 2 * dk + kAttKeys * (2 * dk + 1) +
                        kAttKeys * dk);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<NDK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attention_kernel<NDK, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T + kAttRows - 1) / kAttRows, H, B);
-  attention_kernel<NDK><<<grid, kAttWarps * 32, smem, stream>>>(
-      q, k, v, pos_p, posb, lens, out, T, D, dk, 1.f / sqrtf((float)dk));
+  attention_kernel<NDK, MASKED><<<grid, kAttWarps * 32, smem, stream>>>(
+      q, k, v, pos_p, posb, lens, mask, w, out, T, dk, scale);
   return cudaGetLastError();
 }
 
-// d_k = D / H up to 128, in registers of ceil(d_k / 32) per lane and row
+// d_k up to 128, in registers of ceil(d_k / 32) per lane and row
+template <bool MASKED>
+cudaError_t attention_dispatch(const float* q, const float* k, const float* v,
+                               const float* pos_p, const float* posb,
+                               const int* lens, const unsigned char* mask,
+                               const AttView& w, float* out, int B, int T,
+                               int H, int dk, float scale,
+                               cudaStream_t stream) {
+  switch ((dk + 31) / 32) {
+    case 1:
+      return attention_launch<1, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
+                                         out, B, T, H, dk, scale, stream);
+    case 2:
+      return attention_launch<2, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
+                                         out, B, T, H, dk, scale, stream);
+    case 3:
+      return attention_launch<3, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
+                                         out, B, T, H, dk, scale, stream);
+    default:
+      return attention_launch<4, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
+                                         out, B, T, H, dk, scale, stream);
+  }
+}
+
+// the serving layers' attention: (B, T, D) operands, keys col < lens[b],
+// scale 1 / sqrt(d_k)
 cudaError_t attention(const float* q, const float* k, const float* v,
                       const float* pos_p, const float* posb, const int* lens,
                       float* out, int B, int T, int D, int H,
                       cudaStream_t stream) {
-  switch ((D / H + 31) / 32) {
-    case 1:
-      return attention_launch<1>(q, k, v, pos_p, posb, lens, out, B, T, D, H,
-                                 stream);
-    case 2:
-      return attention_launch<2>(q, k, v, pos_p, posb, lens, out, B, T, D, H,
-                                 stream);
-    case 3:
-      return attention_launch<3>(q, k, v, pos_p, posb, lens, out, B, T, D, H,
-                                 stream);
-    default:
-      return attention_launch<4>(q, k, v, pos_p, posb, lens, out, B, T, D, H,
-                                 stream);
-  }
+  const int dk = D / H;
+  return attention_dispatch<false>(q, k, v, pos_p, posb, lens, nullptr,
+                                   heads_in_columns(T, D, dk), out, B, T, H,
+                                   dk, 1.f / sqrtf((float)dk), stream);
+}
+
+// attention over the keys mask[b, t, key] != 0 (MASKED above), any views
+cudaError_t masked_attention(const float* q, const float* k, const float* v,
+                             const float* pos_p, const float* posb,
+                             const unsigned char* mask, const AttView& w,
+                             float* out, int B, int T, int H, int dk,
+                             float scale, cudaStream_t stream) {
+  return attention_dispatch<true>(q, k, v, pos_p, posb, nullptr, mask, w, out,
+                                  B, T, H, dk, scale, stream);
 }
 
 // ------------------------------------------------------------------------

@@ -8,6 +8,19 @@ The streaming cache of this eager module is masr_tpu's: a right-aligned
 fixed (B, h, C, 2·d_k) array of [K ‖ V] rows, newest last, with a count of
 valid rows. It is the reference the chunk-layer kernel's ring layout is
 held against (models/weights.py converts between the two).
+
+The flash route (masr_tpu's `_flash`, masr_tpu/models/attention.py:125-130,
+:153-165): a rel-pos call takes the masked attention kernel,
+`rel_pos_flash_attention` (ops/cuda/rel_pos_attention.py; its plain twin on
+CPU tensors), when `RelPositionMultiHeadedAttention.flash_route` holds:
+  - it has no cache, and its mask is a square (B, T, T) one;
+  - no attention dropout acts (training mode with a rate > 0 keeps the
+    eager code, as masr_tpu's route refuses dropout);
+  - autograd does not record it (grad disabled, or neither the input nor a
+    parameter requires grad): the kernel has no backward, as the Pallas
+    kernel has none.
+Every other call runs the eager code below. There is no length crossover:
+on a CUDA tensor every eligible call launches the kernel.
 """
 import math
 
@@ -15,6 +28,7 @@ import torch
 from torch import nn
 
 from masr_tpu_torch.ops.common import dropout
+from masr_tpu_torch.ops.cuda.rel_pos_attention import rel_pos_flash_attention
 
 NEG_INF = -1e38
 
@@ -83,12 +97,26 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
 
+    def flash_route(self, x, mask, cache=None):
+        """The flash route's rule (module docstring): no cache, a square
+        (B, T, T) mask, no attention dropout, no autograd recording."""
+        if cache is not None or mask is None or mask.dim() != 3 \
+                or mask.shape[1] != x.shape[1]:
+            return False
+        if self.training and self.dropout_rate > 0.0:
+            return False
+        return not (torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad
+                                   for p in self.parameters())))
+
     def forward(self, x, mask, pos_emb, cache=None, generator=None):
         """x: (B, T, D); mask: (B, 1|T, T2) bool; pos_emb: (1, T2, D) over
         the key length T2 (T, or C + T with a cache); cache: None or the
         right-aligned (B, h, C, 2·d_k) [K ‖ V] rows → (out (B, T, D),
         new cache: the last C rows of [cache ‖ fresh], or None)."""
         B, T, _ = x.shape
+        if self.flash_route(x, mask, cache):
+            return self._flash(x, mask, pos_emb), None
         q = self._heads(self.linear_q(x))
         k = self._heads(self.linear_k(x))
         v = self._heads(self.linear_v(x))
@@ -105,3 +133,16 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         k_cat = torch.cat([k, p.expand_as(k)], dim=-1)
         scores = q_cat @ k_cat.transpose(-1, -2) / math.sqrt(self.d_k)
         return self._attend(scores, mask, v, generator), new_cache
+
+    def _flash(self, x, mask, pos_emb):
+        """The flash route: heads as views of the (B, T, D) projections, so
+        the kernel reads them in place and writes (B, T, D) rows."""
+        B, T, D = x.shape
+        q, k, v = (self._heads(f(x)) for f in (self.linear_q, self.linear_k,
+                                                self.linear_v))
+        p = self.linear_pos(pos_emb)[0].view(T, self.n_head,
+                                             self.d_k).transpose(0, 1)
+        out = rel_pos_flash_attention(q, k, v, p, self.pos_bias_u,
+                                      self.pos_bias_v, mask,
+                                      1.0 / math.sqrt(self.d_k))
+        return self.linear_out(out.transpose(1, 2).reshape(B, T, D))

@@ -13,8 +13,12 @@ through a layer kernel: the full-context one (ops/cuda/conformer_layer.py)
 offline, the chunk one (ops/cuda/chunk_layer.py) when streaming, and the
 training one (ops/cuda/conformer_layer_train.py, forward and backward) in
 `forward_train`, the loss path; the CUDA kernel for CUDA tensors, its plain
-twin for CPU tensors. The eager layer module below is the reference the
-tests hold the routes against.
+twin for CPU tensors. The one exception is the offline encode of a
+static-chunk model: it runs the eager layer module below, as masr_tpu runs
+its XLA layers there, and their attention takes the masked attention
+kernel (ops/cuda/rel_pos_attention.py, models/attention.py's flash route).
+The eager layer module is also the reference the tests hold the routes
+against.
 
 Training draws from two torch.Generators, as masr_tpu from two rng
 streams: `generator` (on the model's device) for every dropout and the
@@ -217,19 +221,27 @@ class ConformerEncoder(nn.Module):
         self.after_norm = _layer_norm(output_size)
 
     def forward(self, xs, xs_lens):
-        """Full context. xs: (B, T, F) f32; xs_lens: (B,) →
-        (out (B, T', D), masks (B, 1, T') bool)."""
-        if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
-            raise NotImplementedError(
-                "a static chunk mask at inference: the full-context layer "
-                "kernel takes full context only")
+        """Full context (masr_tpu's __call__ at decoding_chunk_size -1).
+        xs: (B, T, F) f32; xs_lens: (B,) → (out (B, T', D), masks (B, 1, T')
+        bool). A static-chunk model (static_chunk_size > 0, no dynamic
+        chunk) keeps its block mask, as masr_tpu: its layers run eagerly
+        under add_optional_chunk_mask's (B, T', T') mask, their attention
+        through the flash route; every other model runs each layer through
+        the full-context layer kernel."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
         xs, pos_emb, masks = self.embed(xs, masks)
-        lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
-        for layer in self.encoders:
-            xs = layer.forward_full_context(xs, lens, pos_emb)
+        if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
+            chunk_masks = add_optional_chunk_mask(
+                xs.shape[1], masks, False, False, -1, self.static_chunk_size,
+                -1)
+            for layer in self.encoders:
+                xs = layer(xs, chunk_masks, pos_emb, masks)
+        else:
+            lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
+            for layer in self.encoders:
+                xs = layer.forward_full_context(xs, lens, pos_emb)
         return self.after_norm(xs), masks
 
     def forward_train(self, xs, xs_lens, generator=None,

@@ -19,10 +19,14 @@ pad 3, offline only), and recover_idx repeats each frame, applies a linear
 and adds the skip. Every layer runs through a layer kernel: the
 full-context one (ops/cuda/squeezeformer_layer.py) offline, the chunk one
 (ops/cuda/chunk_layer_sq.py) when streaming, the CUDA kernel for CUDA
-tensors and its plain twin for CPU tensors. The reduce / recover plumbing,
-the linear_pos products and the subsampling stay PyTorch, as they stay XLA
-in masr_tpu. The eager layer module is the reference the tests hold the
-routes against.
+tensors and its plain twin for CPU tensors. The offline encode of a
+static-chunk model (which masr_tpu builds only with streaming off: with it
+on, the family's chunk is dynamic) runs the eager layers instead, their
+attention through the masked attention kernel
+(ops/cuda/rel_pos_attention.py), as masr_tpu runs its XLA layers there.
+The reduce / recover plumbing, the linear_pos products and the subsampling
+stay PyTorch, as they stay XLA in masr_tpu. The eager layer module is also
+the reference the tests hold the routes against.
 
 Training (`forward_train`, the loss path of SqueezeformerModel.forward)
 keeps masr_tpu's two routes (:383-404, docs/design_deviations.md #14): a
@@ -356,18 +360,42 @@ class SqueezeformerEncoder(nn.Module):
             xs = run(i, layer, xs, ctx, lens)
         return self.final_proj(xs) if self.final_proj is not None else xs
 
+    def _reduce_masked(self, xs, ctx, lens):
+        """The time reduction under a (B, T, T) mask: the rows within each
+        length reduced, ctx = (positions, mask) strided to [:, ::2] and
+        [:, ::2, ::2], the lengths halved rounding up (masr_tpu's
+        :327-336)."""
+        pos, mask = ctx
+        return (self.time_reduction_layer(xs, lens),
+                (pos[:, ::2], mask[:, ::2, ::2]), (lens + 1) // 2)
+
     def forward(self, xs, xs_lens):
-        """Full context. xs: (B, T, F) f32; xs_lens: (B,) →
-        (out (B, T', output_size), masks (B, 1, T') bool)."""
-        if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
-            raise NotImplementedError(
-                "a static chunk mask at inference: the full-context layer "
-                "kernel takes full context only")
+        """Full context (masr_tpu's __call__ at decoding_chunk_size -1).
+        xs: (B, T, F) f32; xs_lens: (B,) → (out (B, T', output_size), masks
+        (B, 1, T') bool). A static-chunk model (static_chunk_size > 0, no
+        dynamic chunk) keeps its block mask, as masr_tpu: the eager layers
+        (eval mode: BatchNorm on its running statistics) under
+        add_optional_chunk_mask's (B, T', T') mask and a pad mask from the
+        lengths, their attention through the flash route; every other model
+        runs each layer through the full-context layer kernel."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
         xs, pos_emb, masks = self.embed(xs, masks)
         lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
+        if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
+            chunk_masks = add_optional_chunk_mask(
+                xs.shape[1], masks, False, False, -1, self.static_chunk_size,
+                -1)
+
+            def run(i, layer, xs, ctx, lens):
+                pad = torch.arange(xs.shape[1], device=xs.device)[None, :] \
+                    < lens[:, None]
+                return layer(xs, ctx[1], ctx[0], pad[:, None, :])
+
+            out = self._layers(self.preln(xs), (pos_emb, chunk_masks), lens,
+                               self._reduce_masked, run)
+            return out, masks
 
         def reduce(xs, pos, lens):
             return (self.time_reduction_layer(xs, lens), pos[:, ::2],
@@ -411,17 +439,12 @@ class SqueezeformerEncoder(nn.Module):
             seeds = torch.zeros(len(self.encoders), B, dtype=torch.int32,
                                 device=xs.device)
 
-        def reduce(xs, ctx, lens):
-            pos, mask = ctx
-            return (self.time_reduction_layer(xs, lens),
-                    (pos[:, ::2], mask[:, ::2, ::2]), (lens + 1) // 2)
-
         def run(i, layer, xs, ctx, lens):
             return layer.forward_train(xs, ctx[1], seeds[i], lens, ctx[0], i,
                                        generator)
 
         out = self._layers(self.preln(xs), (pos_emb, chunk_masks), lens,
-                           reduce, run)
+                           self._reduce_masked, run)
         return out, masks
 
     # ------------------------------------------------------------------ #

@@ -11,12 +11,13 @@ It counts its kernel launches in `fused_conformer_layer.launches`, one per
 layer call. Operands are f32 (the serving dtype of the predictor).
 """
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
 
-MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
+from masr_tpu_torch.ops.cuda.rel_pos_attention import (
+    MASK_VALUE, rel_pos_attention_plain as masked_attention_plain)
+
 PACKED_KEYS = ("lnw", "ffw1", "ffb1", "ffw2", "vecb", "attw", "posb",
                "pw1w", "pw1b", "pw2w", "dww")
 
@@ -65,17 +66,10 @@ def rel_pos_attention_plain(q, k, v, pos_p, posb, valid, n_head):
     B, T, D = q.shape
     d_k = D // n_head
     q, k, v = (t.view(B, T, n_head, d_k).transpose(1, 2) for t in (q, k, v))
-    p = pos_p.view(T, n_head, d_k).transpose(0, 1)[None]     # (1, H, T, d_k)
-    bu = posb[0].view(n_head, 1, d_k)
-    bv = posb[1].view(n_head, 1, d_k)
-    qcat = torch.cat([q + bu, q + bv], dim=-1)
-    kcat = torch.cat([k, p.expand(B, -1, -1, -1)], dim=-1)
-    s = (qcat @ kcat.transpose(-1, -2)) * (1.0 / math.sqrt(d_k))
-    col_ok = valid[:, None, None, :]
-    s = torch.where(col_ok, s, MASK_VALUE)
-    prob = torch.where(col_ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
-    l = prob.sum(-1, keepdim=True)
-    att = (prob / torch.where(l == 0.0, 1.0, l)) @ v
+    att = masked_attention_plain(
+        q, k, v, pos_p.view(T, n_head, d_k).transpose(0, 1),
+        posb[0].view(n_head, d_k), posb[1].view(n_head, d_k),
+        valid[:, None, :].expand(B, T, T))
     return att.transpose(1, 2).reshape(B, T, D)
 
 

@@ -1,0 +1,106 @@
+"""Masked rel-pos flash attention: the Hopper kernel and its plain twin.
+
+Port of masr_tpu/ops/pallas/attention.py (`rel_pos_flash_attention` and
+`rel_pos_attention_reference`). The CUDA source is masr_tpu_torch/csrc/
+rel_pos_attention.cu (the block is serving.cuh's attention_kernel, read
+through a (B, T, T) mask); its header says what bounds it on the H100.
+
+`rel_pos_flash_attention` launches the kernel for CUDA tensors and takes the
+plain PyTorch version, `rel_pos_attention_plain`, only for CPU tensors. It
+counts its kernel launches in `rel_pos_flash_attention.launches`, one per
+call on the card. The kernel reads every operand through its strides: q, k,
+v may be (B, T, D) rows viewed as (B, H, T, d_k) heads, p the matching
+(H, T, d_k) view of linear_pos(pos_emb), and the mask any (B, T, T) view,
+a broadcast `expand` included (it is never read as if it were dense). Only a
+view whose last axis is not unit-stride is copied first. The output has q's
+layout. f32 only, d_k <= 128; no backward (the Pallas kernel has none).
+"""
+import ctypes
+import math
+
+import torch
+
+MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
+
+
+def rel_pos_attention_plain(q, k, v, p, bias_u, bias_v, mask, sm_scale=None):
+    """Plain PyTorch version, the Pallas kernel's semantics: q, k, v (B, H,
+    T, d); p (H, T, d); bias_u, bias_v (H, d); mask (B, T, T) bool, True =
+    attend. Masked scores take MASK_VALUE and their probabilities are
+    zeroed, so a row that sees no key gives 0. → (B, H, T, d)."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    q_cat = torch.cat([q + bias_u[None, :, None, :],
+                       q + bias_v[None, :, None, :]], dim=-1)
+    k_cat = torch.cat([k, p[None].expand(k.shape[0], -1, -1, -1)], dim=-1)
+    s = (q_cat @ k_cat.transpose(-1, -2)) * scale
+    m = mask[:, None].to(torch.bool)
+    s = torch.where(m, s, MASK_VALUE)
+    prob = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = prob.sum(-1, keepdim=True)
+    return (prob / torch.where(l == 0.0, 1.0, l)) @ v
+
+
+def _unit_columns(t):
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _check(q, k, v, p, bias_u, bias_v, mask):
+    B, H, T, d = q.shape
+    want = {"q": (B, H, T, d), "k": (B, H, T, d), "v": (B, H, T, d),
+            "p": (H, T, d), "bias_u": (H, d), "bias_v": (H, d),
+            "mask": (B, T, T)}
+    for name, t in (("q", q), ("k", k), ("v", v), ("p", p),
+                    ("bias_u", bias_u), ("bias_v", bias_v), ("mask", mask)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{want[name]}")
+        if name != "mask" and t.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes f32, got {t.dtype}")
+    if not 1 <= d <= 128:
+        raise ValueError(f"d_k {d}: the kernel takes d_k up to 128")
+
+
+def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None):
+    """softmax(mask(((q+bu)·kᵀ + (q+bv)·pᵀ)·sm_scale))·v, sm_scale 1/√d by
+    default. q, k, v (B, H, T, d) f32; p (H, T, d); bias_u, bias_v (H, d);
+    mask (B, T, T) bool (True = attend). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises. → (B, H, T, d)
+    f32, in q's memory layout; 0 on rows with no visible key."""
+    if q.device.type == "cpu":
+        return rel_pos_attention_plain(q, k, v, p, bias_u, bias_v, mask,
+                                       sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, k, v, p, bias_u, bias_v, mask)
+    B, H, T, d = q.shape
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+    q, k, v, p = (_unit_columns(t) for t in (q, k, v, p))
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask != 0
+    out = torch.empty_like(q)
+    posb = torch.stack([bias_u.reshape(-1), bias_v.reshape(-1)])
+    strides = (ctypes.c_longlong * 17)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *p.stride()[:2], *mask.stride())
+    from masr_tpu_torch.ops.cuda import build
+    fn = build.load("rel_pos_attention").masr_rel_pos_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                            ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+                 posb.data_ptr(), mask.data_ptr(), strides, out.data_ptr(),
+                 B, H, T, d, scale,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rel_pos_attention kernel failed: CUDA error "
+                           f"{err}")
+    rel_pos_flash_attention.launches += 1
+    return out
+
+
+rel_pos_flash_attention.launches = 0

@@ -59,7 +59,9 @@ def add_optional_chunk_mask(xs_len: int, masks: torch.Tensor,
                             num_decoding_left_chunks: int, generator=None):
     """Pad mask (B, 1, T) & a chunk mask → (B, T, T) bool. With a dynamic
     chunk and decoding_chunk_size 0 (training) the chunk is drawn from
-    `generator`; < 0 is full context; > 0 a fixed chunk."""
+    `generator`; < 0 is full context; > 0 a fixed chunk. Full context gives
+    a broadcast `expand` view (stride 0 over the rows), which the kernels
+    read through its strides."""
     dev = masks.device
     if use_dynamic_chunk:
         if decoding_chunk_size < 0:

@@ -516,3 +516,151 @@ def test_squeezeformer_training_launches(cuda_device, conv_norm):
         moved = [m.running_var for m in model.modules()
                  if isinstance(m, torch.nn.BatchNorm1d)]
         assert all(not torch.equal(a, b) for a, b in zip(stats, moved))
+
+
+# --------------------------------------------------------------------------- #
+# masked rel-pos flash attention (ops/cuda/rel_pos_attention.py)
+# --------------------------------------------------------------------------- #
+def _att_mask(kind, T, lens, device):
+    """(B, T, T) bool mask: `full` (the broadcast expand view of the pad
+    mask), `static16` (chunks of 16, every left chunk), `left4` (chunks of
+    16, 4 left chunks: padded rows past them see nothing), `half_rate` (the
+    [::2, ::2] view of a 2T static16 mask), `random` (30% of the pairs,
+    every 7th row and key tile [32, 64) hidden, utterance 1 sees one key)."""
+    from masr_tpu_torch.ops.masks import add_optional_chunk_mask, \
+        make_pad_mask
+    lens_t = torch.tensor(lens, device=device)
+    if kind == "half_rate":
+        return _att_mask("static16", 2 * T, [2 * n for n in lens],
+                         device)[:, ::2, ::2]
+    if kind == "random":
+        g = torch.Generator().manual_seed(T)
+        m = torch.rand(len(lens), T, T, generator=g) < 0.3
+        m[:, ::7] = False
+        m[:, :, 32:64] = False
+        m[1] = False
+        m[1, :, T // 2] = True
+        return m.to(device)
+    pad = ~make_pad_mask(lens_t, T)[:, None, :]
+    chunk, left = {"full": (0, -1), "static16": (16, -1),
+                   "left4": (16, 4)}[kind]
+    return add_optional_chunk_mask(T, pad, False, False, -1, chunk, left)
+
+
+def _att_inputs(B, H, T, d, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, T, d, generator=g).to(device)
+               for _ in range(3))
+    p = torch.randn(H, T, d, generator=g).to(device)
+    bu, bv = ((0.1 * torch.randn(H, d, generator=g)).to(device)
+              for _ in range(2))
+    return q, k, v, p, bu, bv
+
+
+def _check_attention(args, mask):
+    """Kernel vs twin on the same card: finite, max abs err <= 2e-4, rows
+    with no visible key exactly 0, one launch."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    before = rpa.rel_pos_flash_attention.launches
+    got = rpa.rel_pos_flash_attention(*args, mask)
+    launched = rpa.rel_pos_flash_attention.launches - before
+    want = rpa.rel_pos_attention_plain(*args, mask)
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 2e-4, err
+    empty = ~mask.any(-1)                                  # (B, T)
+    assert torch.all(got.transpose(1, 2)[empty] == 0.0)
+    return empty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d", [(37, 32), (299, 64), (1500, 128),
+                                 (3000, 64)], ids=lambda v: str(v))
+@pytest.mark.parametrize("kind", ["full", "static16", "left4", "half_rate",
+                                  "random"])
+def test_rel_pos_attention_kernel_matches_plain(cuda_device, kind, T, d):
+    """rel_pos_flash_attention (CUDA) == rel_pos_attention_plain on the same
+    card over every mask kind, B=4 ragged (one utterance of 0 frames), 4
+    heads, d_k 32 / 64 / 128, T' up to 3000."""
+    lens = [T, T - 17, max(T // 3, 1), 0]
+    mask = _att_mask(kind, T, lens, cuda_device)
+    with torch.no_grad():
+        empty = _check_attention(
+            _att_inputs(4, 4, T, d, cuda_device, T + d), mask)
+    assert empty[3].all() == (kind != "random")
+    if kind == "full":
+        assert mask.stride(1) == 0                    # a broadcast view
+    if kind == "random" or (kind == "left4" and T > 100):
+        assert empty[:3].any()
+
+
+@pytest.mark.cuda
+def test_rel_pos_attention_kernel_strided_views(cuda_device):
+    """The module's layout (q, k, v as (B, T, D) rows viewed as heads, p a
+    transposed (T, H, d_k) view, the output in q's layout) and views whose
+    last axis is not unit-stride give the twin's result."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    B, H, T, d = 3, 4, 299, 64
+    g = torch.Generator().manual_seed(9)
+    rows = [torch.randn(B, T, H * d, generator=g).to(cuda_device)
+            for _ in range(3)]
+    q, k, v = (r.view(B, T, H, d).transpose(1, 2) for r in rows)
+    p = torch.randn(T, H * d, generator=g).to(cuda_device).view(
+        T, H, d).transpose(0, 1)
+    bu, bv = (torch.randn(H, d, generator=g).to(cuda_device) * 0.1
+              for _ in range(2))
+    mask = _att_mask("static16", T, [T, 200, 50], cuda_device)
+    with torch.no_grad():
+        _check_attention((q, k, v, p, bu, bv), mask)
+        out = rpa.rel_pos_flash_attention(q, k, v, p, bu, bv, mask)
+        assert out.stride() == q.stride()
+        wide = torch.randn(B, H, T, 2 * d, generator=g).to(cuda_device)
+        _check_attention((wide[..., ::2], k, wide[..., 1::2], p, bu, bv),
+                         mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["conformer", "squeezeformer"])
+def test_static_chunk_flagship_launches(cuda_device, family):
+    """A static-chunk flagship (static_chunk_size 16, no dynamic chunk; 12
+    blocks, seeded weights): one encoder call launches the flash attention
+    12 times and no full-context layer kernel; its output equals the same
+    model's on the CPU (the twins) within 1e-4."""
+    from masr_tpu_torch.models.registry import build_model
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    if family == "conformer":
+        enc, streaming = dict(output_size=256, attention_heads=4,
+                              linear_units=2048, num_blocks=12,
+                              cnn_module_kernel=15,
+                              use_dynamic_chunk=False), True
+    else:
+        enc, streaming = dict(encoder_dim=256, output_size=256,
+                              attention_heads=4, num_blocks=12, reduce_idx=5,
+                              recover_idx=11, feed_forward_expansion_factor=8,
+                              cnn_module_kernel=31), False
+    model = build_model(family, 80, 100, streaming=streaming,
+                        encoder_conf=dict(enc, static_chunk_size=16))
+    model.load_state_dict(seeded_state_dict(model, seed=3))
+    model = model.eval()
+    g = torch.Generator().manual_seed(4)
+    speech = torch.randn(2, 601, 80, generator=g)
+    lens = torch.tensor([601, 400])
+    with torch.no_grad():
+        want, want_lens = model.get_encoder_out(speech, lens)
+        model = model.to(cuda_device)
+        before = (rpa.rel_pos_flash_attention.launches,
+                  cl.fused_conformer_layer.launches,
+                  sq.fused_squeezeformer_layer.launches)
+        got, got_lens = model.get_encoder_out(speech.to(cuda_device),
+                                              lens.to(cuda_device))
+        torch.cuda.synchronize()
+    assert (rpa.rel_pos_flash_attention.launches - before[0],
+            cl.fused_conformer_layer.launches - before[1],
+            sq.fused_squeezeformer_layer.launches - before[2]) == (12, 0, 0)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(want_lens.tolist()):
+        assert (got[b, :n].cpu() - want[b, :n]).abs().max().item() <= 1e-4
