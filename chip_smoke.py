@@ -121,7 +121,9 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     static chunk 16 with every left chunk and with 4, the
                     half-rate [::2, ::2], random with empty rows and tiles;
                     d_k 32 and 128 at T'=299; output finite, rows with no
-                    visible key exactly 0
+                    visible key exactly 0, the kernel's tile map (its
+                    pre-pass: hidden / full / partial 64 x 64 tiles) equal
+                    to the plain map
  23. static_flagship  each flagship (configs/conformer.yml and
                     configs/squeezeformer.yml widths, vocabulary 4000,
                     seeded weights) with encoder_conf use_dynamic_chunk
@@ -136,9 +138,11 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     attention (the library call, timed only, and the
                     backend it takes by the dispatcher's rule) at B=8 under
                     the static-16 mask with lengths T' down to 0.53 T', T'
-                    in {150, 299, 800, 1500, 3000} (CUDA events), with the
-                    bound over the visible pairs and the dense one; the long
-                    batch's predict_batch wall for both families
+                    in {150, 299, 800, 1500, 3000} (CUDA events, and the
+                    device time of kernel and SDPA from torch.profiler),
+                    with the bound over the visible pairs (f32 and 3xTF32)
+                    and the dense one; the long batch's predict_batch wall
+                    for both families
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -191,7 +195,7 @@ VOCAB = 4000                                          # bench.py:61
 # make_corpus(240, 24)) and their speakers, as tests/test_example_bundle.py
 HELD_OUT = [("上家音月火少", 0), ("风大你火下雪", 1), ("蓝右黑真", 0)]
 
-KERNEL_ATOL = 2e-4        # f32 FMA vs f32 PyTorch, different sum order
+KERNEL_ATOL = 2e-4        # f32 FMA or 3xTF32 vs f32 PyTorch, other sum order
 PROBS_ATOL = 1e-4         # 12 such layers + CTC softmax, card vs CPU
 ARGMAX_MARGIN = 1e-3
 # the streaming path (masr_tpu_torch/infer/predictor.py): 16 output frames
@@ -202,8 +206,10 @@ STRIDE_SAMPLES = 10240                     # 0.64 s: one window further
 FIRST_WINDOW_SAMPLES = 10960               # 67 frames of 25 ms every 10 ms
 ENGINE_STREAMS = 32
 # H100 SXM data sheet, dense, at its 700 W limit: f32 outside the tensor
-# cores, HBM3 bandwidth
+# cores, TF32 on them, HBM3 bandwidth. A 3xTF32 product (rows 3, 5, 7: f32
+# accuracy from three TF32 products) peaks at a third of TF32's rate.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
 
 
@@ -465,6 +471,24 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, n=10):
+    """Device time per call of fn (ms): the CUDA kernels it launches, their
+    own time summed over n calls (torch.profiler), without the host's gaps
+    between launches that CUDA events over back-to-back calls include."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        us += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+    return us / 1e3 / n if us > 0 else "not measured"
+
+
 def alternate(kernel, plain):
     """CUDA-event times in the order plain, kernel, kernel, plain."""
     runs = {"plain": [cuda_ms(plain)], "kernel": [cuda_ms(kernel)]}
@@ -516,6 +540,13 @@ def _bound(flops, nbytes):
     return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _bound_3xtf32(flops, nbytes):
+    """The same work on the tensor cores in 3xTF32 (three TF32 products
+    per product): the bound beside the f32 one for rows 3, 5 and 7."""
+    return {"bound_3xtf32_ms": max(3 * flops / PEAK_TF32_FLOPS,
+                                   nbytes / PEAK_BYTES_S) * 1e3}
 
 
 def _weight_bytes(layer):
@@ -1652,8 +1683,9 @@ def phase_train(dev):
     return launches, rows, resumed, corpus
 
 
-# the training layer's GEMMs are common.cuh's gemm_kernel instantiated with
-# its epilogue functor Epi (the serving kernels' take ServeEpi)
+# the training layer's GEMMs are common.cuh's tensor-core gemm_tc_kernel
+# instantiated with its epilogue functor Epi (the serving kernels' FMA
+# gemm_kernel takes ServeEpi)
 PROFILE_GROUPS = (("train layer: GEMMs", ("::Epi>", "splitk_sum_kernel")),
                   ("train layer: attention softmax", ("att_softmax",)),
                   ("train layer: column sums", ("colsum_kernel",)),
@@ -1977,7 +2009,7 @@ def train_layer_bound(layer, args):
            + 6 * D * pairs)
     w = _weight_bytes(layer)
     nbytes = 2 * w + mask.numel() + 4 * (4 * x.numel() + 2 * posp.numel())
-    return _bound(3 * fwd, nbytes)
+    return {**_bound(3 * fwd, nbytes), **_bound_3xtf32(3 * fwd, nbytes)}
 
 
 def ctc_bound(logits):
@@ -2038,13 +2070,18 @@ def flash_inputs(B, T, d, seed, dev, H=4):
 
 def check_flash(args, mask, what):
     """The kernel vs its twin on the same inputs: finite, max abs err <=
-    KERNEL_ATOL, rows that see no key exactly 0. → (max abs err, rows that
-    see no key)."""
+    KERNEL_ATOL, rows that see no key exactly 0, the pre-pass's tile map
+    equal to the plain map. → (max abs err, rows that see no key)."""
     from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    nt = -(-mask.shape[1] // rpa.TILE)
+    tmap = torch.empty(mask.shape[0], nt, nt, dtype=torch.uint8,
+                       device=mask.device)
     with torch.no_grad():
-        got = rpa.rel_pos_flash_attention(*args, mask)
+        got = rpa.rel_pos_flash_attention(*args, mask, tile_map_out=tmap)
         want = rpa.rel_pos_attention_plain(*args, mask)
     torch.cuda.synchronize()
+    check(torch.equal(tmap, rpa.mask_tile_map_plain(mask)),
+          f"flash tile map == plain map ({what})")
     check(bool(torch.isfinite(got).all()), f"flash output finite ({what})")
     err = (got - want).abs().max().item()
     check(err <= KERNEL_ATOL, f"flash kernel vs plain max abs err {err} <= "
@@ -2149,7 +2186,9 @@ def flash_bound(mask, B, H, T, d):
     pairs = int(mask.sum())
     dense = 6 * d * H * B * T * T
     nbytes = 4 * (4 * B * H * T * d + H * T * d) + B * T * T
-    return {**_bound(6 * d * H * pairs, nbytes), "visible_pairs": pairs,
+    return {**_bound(6 * d * H * pairs, nbytes),
+            **_bound_3xtf32(6 * d * H * pairs, nbytes),
+            "visible_pairs": pairs,
             "dense_gflop": dense / 1e9,
             "dense_bound_ms": dense / PEAK_F32_FLOPS * 1e3}
 
@@ -2220,11 +2259,14 @@ def phase_flash_times(dev, smi, static_runs):
                        - kernel().transpose(1, 2)[seen]).abs().max().item()
             lib_ms = [cuda_ms(library), cuda_ms(library)]
             backend = sdpa_backend(library)
+            dev_ms = {"kernel": device_ms(kernel), "sdpa": device_ms(library)}
         sweep[T] = {"B": B, "heads": H, "d_k": d, "T": T, "lens": lens,
                     "max_abs_err": err, "kernel_ms": runs["kernel"],
                     "plain_ms": runs["plain"], "sdpa_ms": lib_ms,
                     "sdpa_backend": backend,
                     "sdpa_max_abs_err": lib_err,
+                    "kernel_device_ms": dev_ms["kernel"],
+                    "sdpa_device_ms": dev_ms["sdpa"],
                     **flash_bound(mask, B, H, T, d)}
     walls, long = {}, static_runs["conformer"][1]
     for family, (gpu, _) in static_runs.items():

@@ -12,12 +12,16 @@ heads, FFN 2048, conv 15):
     a dynamic-chunk mask and dropout 0.1;
 and, in a tree that has them, fused_squeezeformer_layer (the
 Squeezeformer's width: conv 31, BatchNorm conv) and
-fused_squeezeformer_layer_train (layer_norm conv) on the same inputs, and
+fused_squeezeformer_layer_train (layer_norm conv) on the same inputs,
+fused_chunk_layer_sq at B=32 at full rate (c=16, C=256) and half rate (c=8,
+C=128 on the full-resolution ring), and
 rel_pos_flash_attention (4 heads, d_k 64) at B=8, T'=1500 under a static
 chunk of 16 with lens 1500..800 and 0 (rows that see no key).
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
-calls, and the card's name and power limit. Two trees whose digests are
+calls, the card's name and power limit, and, for the training layers
+(forward + backward) and the flash attention, the device time per call of
+each CUDA kernel they launch (torch.profiler). Two trees whose digests are
 equal computed the same bits; run both on one card, one after the other
 in the order A, B, B, A, to compare their times. Uses only entry points
 that every tree since the training slice has, so it can be copied into
@@ -53,6 +57,26 @@ def _ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def _kernels(fn, n=3):
+    """Device time per call (ms) of each CUDA kernel that fn launches,
+    torch.profiler over n calls, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[ev.key[:110]] = us / 1e3 / n
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_digest: CUDA is not available")
@@ -71,7 +95,7 @@ def main():
     layer.load_state_dict(seeded_state_dict(layer, seed=7))
     layer = layer.to(dev).eval()
     g = torch.Generator().manual_seed(8)
-    digests, ms = {}, {}
+    digests, ms, kernels = {}, {}, {}
     B, T = 8, 299
     lens = torch.tensor([299, 281, 250, 220, 180, 150, 90, 33],
                         dtype=torch.int32, device=dev)
@@ -139,6 +163,7 @@ def main():
             [y] + [leaves[k].grad for k in sorted(leaves)])
         ms[name + "_fwd"] = _ms(fwd)
         ms[name + "_bwd"] = _ms(lambda: y.backward(w, retain_graph=True))
+        kernels[name] = _kernels(lambda: fwd().backward(w))
 
     train_layer("fused_conformer_layer_train",
                 clt.fused_conformer_layer_train, packed, posp, 15)
@@ -165,6 +190,44 @@ def main():
 
             digests["fused_squeezeformer_layer"] = _digest([row6()])
             ms["fused_squeezeformer_layer"] = _ms(row6)
+        try:
+            from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+        except ImportError:
+            cks = None
+        if cks is not None:
+            build.build(["chunk_layer_sq"])
+            N, D, H = 32, 256, 4
+            g8 = torch.Generator().manual_seed(11)
+            for rate, rep in (("full", 1), ("half", 2)):
+                c, C = 16 // rep, 256 // rep
+                xs = torch.randn(N, c, D, generator=g8).to(dev)
+                ring = (0.5 * torch.randn(N, H, C * rep, 2 * D // H,
+                                          generator=g8)).to(dev)
+                conv = (0.5 * torch.randn(N, 30, D, generator=g8)).to(dev)
+                pos = torch.randn(N * (C + c), D, generator=g8).to(dev)
+                starts = torch.arange(N, dtype=torch.int32,
+                                      device=dev) * (C + c)
+
+                def i32(v):
+                    return torch.tensor(v, dtype=torch.int32, device=dev)
+
+                sl = i32([(0, 5, C // 2, C)[s % 4] for s in range(N)])
+                wp = i32([(C - 3 - 7 * s) % C for s in range(N)])
+                act = i32([0 if s in (3, 10, 17, 29) else 1
+                           for s in range(N)])
+                ring_k, conv_k = ring.clone(), conv.clone()
+
+                def row8(ring_k=ring_k, conv_k=conv_k, xs=xs, pos=pos,
+                         starts=starts, sl=sl, wp=wp, act=act, rep=rep):
+                    with torch.no_grad():
+                        return cks.fused_chunk_layer_sq(
+                            xs, pos, starts, ring_k, conv_k, sl, wp, act,
+                            bn.packed_params(), n_head=H, ksize=31,
+                            conv_ln=False, rep=rep)
+
+                name = f"fused_chunk_layer_sq_{rate}"
+                digests[name] = _digest([row8(), ring_k, conv_k])
+                ms[name] = _ms(row8)
         sq = SqueezeformerEncoderLayer(256, 4, 2048, 31, "layer_norm", True)
         sq.load_state_dict(seeded_state_dict(sq, seed=9))
         sq = sq.to(dev)
@@ -200,10 +263,12 @@ def main():
         with torch.no_grad():
             digests["rel_pos_flash_attention"] = _digest([row5()])
             ms["rel_pos_flash_attention"] = _ms(row5)
+            kernels["rel_pos_flash_attention"] = _kernels(row5)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    print(json.dumps({"digests": digests, "ms": ms, "card": card}),
+    print(json.dumps({"digests": digests, "ms": ms, "card": card,
+                      "kernels": kernels}),
           flush=True)
 
 

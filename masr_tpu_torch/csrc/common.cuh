@@ -11,17 +11,24 @@
 //                          and 1/std for a backward
 //   gemm_kernel<.., TA, TB, E>  C = E(op(A).op(B)), shared-memory tiled
 //                          f32 FMA main loop, either operand transposed,
-//                          batched, with a compile-time epilogue functor E
-//                          (the serving kernels' ServeEpi: plain, SiLU,
-//                          scaled residual, row-masked residual; the
-//                          training kernel's own)
+//                          batched, with a compile-time epilogue functor E:
+//                          the serving kernels' products (rows 1, 2, 6, 8
+//                          of PERF.md's kernel table) with ServeEpi: plain,
+//                          SiLU, scaled residual, row-masked residual
+//   split_tf32, mma_3xtf32, cp_async*  tensor-core and async-copy pieces:
+//                          3xTF32 products (f32 accuracy on the TF32 tensor
+//                          cores) and cp.async copies with zero fill
+//   gemm_tc_kernel<.., TA, TB, E>  the same contract as gemm_kernel on the
+//                          tensor cores (3xTF32 mma.sync, a 3-stage cp.async
+//                          ring): every product of the training layers
+//                          (rows 3 and 7, through training.cuh)
 //   conv_module_kernel<kLN>  GLU -> depthwise conv over time -> LN (or a
 //                          folded BatchNorm affine) -> SiLU, optional saves
 //                          for a backward
 //   ada_rows_kernel        the Squeezeformer conv module's masked adaptive
 //                          scale
 //
-// The GEMM sums over K in the same order (k = 0, 1, ...) whatever tile it
+// Each GEMM sums over K in the same order (k = 0, 1, ...) whatever tile it
 // picks, so a row's result does not depend on how many rows share the
 // call: one stream and a batch of slots give the same bits.
 //
@@ -72,17 +79,29 @@ __device__ __forceinline__ unsigned mix32(unsigned x) {
 }
 
 // keep if hash >= thresh (= rate * 2^32); kept elements scale by
-// keep_scale = 1 / (1 - rate), both computed by the caller
+// keep_scale = 1 / (1 - rate), both computed by the caller. The hash of a
+// row (dropout_row_hash) can be taken once for all its columns.
+__device__ __forceinline__ unsigned dropout_row_hash(int seed, int layer,
+                                                     int site, int b,
+                                                     int row) {
+  const unsigned h = mix32((unsigned)seed ^
+                           mix32(((unsigned)layer << 20) |
+                                 ((unsigned)site << 16) | (unsigned)b));
+  return mix32(h ^ (unsigned)row);
+}
+
+__device__ __forceinline__ float dropout_col(unsigned row_hash, int col,
+                                             unsigned thresh,
+                                             float keep_scale) {
+  return mix32(row_hash ^ (unsigned)col) >= thresh ? keep_scale : 0.f;
+}
+
 __device__ __forceinline__ float dropout_mult(int seed, int layer, int site,
                                               int b, int row, int col,
                                               unsigned thresh,
                                               float keep_scale) {
-  unsigned h = mix32((unsigned)seed ^
-                     mix32(((unsigned)layer << 20) | ((unsigned)site << 16) |
-                           (unsigned)b));
-  h = mix32(h ^ (unsigned)row);
-  h = mix32(h ^ (unsigned)col);
-  return h >= thresh ? keep_scale : 0.f;
+  return dropout_col(dropout_row_hash(seed, layer, site, b, row), col,
+                     thresh, keep_scale);
 }
 
 // ------------------------------------------------------------------------
@@ -241,6 +260,310 @@ cudaError_t gemm_launch(const float* A, const float* B, float* C, int M,
         A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e);
   }
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------
+// 3xTF32 on the tensor cores. An f32 x splits into big = tf32(x) and small
+// = tf32(x - big) (round to nearest, away from zero on ties, as cvt.rna);
+// a.b ~ small_a.big_b + big_a.small_b + big_a.big_b, each an mma.sync
+// m16n8k8 TF32 product with f32 accumulation. The dropped small.small term
+// and the rounding of the small halves leave about f32's error (the plain
+// twin masr_tpu_torch/ops/cuda/tf32.py and tests/test_torch_tf32.py
+// measure it); one TF32 product alone keeps ~3 decimal digits.
+//
+// m16n8k8 fragments (g = lane / 4, t = lane % 4): A (16 x 8, row major)
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8,
+// k x n) b0 (t, g), b1 (t + 4, g); C (16 x 8) c0 (g, 2t), c1 (g, 2t + 1),
+// c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+// ------------------------------------------------------------------------
+__device__ __forceinline__ unsigned tf32_bits(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32: (ab, as) the A fragment's big and small halves,
+// (bb, bs) the B fragment's; the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const unsigned (&ab)[4],
+                                           const unsigned (&as)[4],
+                                           const unsigned (&bb)[2],
+                                           const unsigned (&bs)[2]) {
+  mma_tf32(c, as, bb[0], bb[1]);
+  mma_tf32(c, ab, bs[0], bs[1]);
+  mma_tf32(c, ab, bb[0], bb[1]);
+}
+
+// cp.async: copy `bytes` (<= the copy's size) from global memory and fill
+// the rest of the 16 (or 4) bytes of shared memory with zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Copy rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major
+// matrix g (leading dimension ld; rows < rmax, columns < cmax exist) into
+// shared memory rows of SS floats, zeros outside. vec: 16-byte copies (g,
+// ld and c0 multiples of 4 floats), else 4-byte ones. NT threads.
+template <int ROWS, int COLS, int SS, int NT>
+__device__ __forceinline__ void load_tile_async(float* s, const float* g,
+                                                long long ld, int r0,
+                                                int rmax, int c0, int cmax,
+                                                bool vec, int tid) {
+  constexpr int CH = COLS / 4;
+  static_assert(COLS % 4 == 0 && (ROWS * CH) % NT == 0, "tile vs threads");
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < ROWS * CH / NT; ++it) {
+      const int i = tid + it * NT;
+      const int r = i / CH, c = (i % CH) * 4, gr = r0 + r, gc = c0 + c;
+      const int n = gr < rmax ? min(max(cmax - gc, 0), 4) : 0;
+      cp_async16(s + r * SS + c, n > 0 ? g + gr * ld + gc : g, 4 * n);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < ROWS * COLS / NT; ++it) {
+      const int i = tid + it * NT;
+      const int r = i / COLS, c = i % COLS, gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < rmax && gc < cmax;
+      cp_async4(s + r * SS + c, ok ? g + gr * ld + gc : g, ok ? 4 : 0);
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// gemm_tc_kernel: gemm_kernel's contract (op(A), op(B), Batch, epilogue E
+// per element, ragged edges zero-filled on load and masked on store,
+// in-place residual allowed) on the tensor cores. BM x BN block tile of
+// (BM / WM) x (BN / WN) warps, each a WM x WN warp tile of m16n8k8 3xTF32
+// products, f32 accumulators in registers; BK = 32 deep through a 3-stage
+// cp.async ring. Tiles sit in shared memory as they sit in device memory
+// (so the copies are contiguous), rows padded by 4 floats where k runs
+// along the row and by 8 where it runs down the column: either way a
+// fragment read hits 32 distinct banks. Operands split into big and small
+// halves as fragments are read. va / vb: 16-byte copies for A / B (base,
+// leading dimension and batch strides multiples of 4 floats), else 4-byte
+// ones (e.g. the attention scores' rows of T' = 299 floats). The
+// epilogue goes through shared memory so that its stores are coalesced.
+// What bounds it on the H100 at the training layers' shapes (K = 64 to
+// 2392, grids of 150-600 blocks): not the tensor cores (a third of TF32's
+// 495 TFLOP/s for 3xTF32) but the issue and latency of each warp's
+// fragment reads, splits and copies, and of the per-element epilogue
+// (SiLU, the dropout hash), with 4 warps a block and 1-3 blocks an SM;
+// taking the products out of a clock64-timed copy changed its loop time
+// little. wgmma (asynchronous, 64-row warpgroup tiles) is the next step.
+// ------------------------------------------------------------------------
+constexpr int kTcBK = 32, kTcStages = 3;
+
+template <int BM, int BN, bool TA, bool TB>
+struct TcTile {
+  static constexpr int SA = TA ? BM + 8 : kTcBK + 4;  // A row stride
+  static constexpr int SB = TB ? kTcBK + 4 : BN + 8;  // B row stride
+  static constexpr int A_FLOATS = TA ? kTcBK * SA : BM * SA;
+  static constexpr int B_FLOATS = TB ? BN * SB : kTcBK * SB;
+  static constexpr int STAGE = A_FLOATS + B_FLOATS;
+  static constexpr size_t SMEM = sizeof(float) * kTcStages * STAGE;
+};
+
+template <int BM, int BN, int WM, int WN, bool TA, bool TB, class E>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
+    gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                   float* C, int M, int N, int K, int lda, int ldb, int ldc,
+                   Batch ba, Batch bb, Batch bc, E e, bool va, bool vb) {
+  using L = TcTile<BM, BN, TA, TB>;
+  constexpr int WX = BN / WN, NT = (BM / WM) * WX * 32;
+  constexpr int MT = WM / 16, NT8 = WN / 8;
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (warp / WX) * WM, wn = (warp % WX) * WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
+  A += batch_off(ba, z);
+  Bm += batch_off(bb, z);
+  const size_t co = (size_t)batch_off(bc, z);
+
+  auto load = [&](int stage, int k0) {
+    float* as = smem + stage * L::STAGE;
+    float* bs = as + L::A_FLOATS;
+    if (TA)   // A stored (K, M): rows k, columns m
+      load_tile_async<kTcBK, BM, L::SA, NT>(as, A, lda, k0, K, m0, M, va,
+                                             tid);
+    else
+      load_tile_async<BM, kTcBK, L::SA, NT>(as, A, lda, m0, M, k0, K, va,
+                                             tid);
+    if (TB)   // B stored (N, K): rows n, columns k
+      load_tile_async<BN, kTcBK, L::SB, NT>(bs, Bm, ldb, n0, N, k0, K, vb,
+                                             tid);
+    else
+      load_tile_async<kTcBK, BN, L::SB, NT>(bs, Bm, ldb, k0, K, n0, N, vb,
+                                             tid);
+  };
+
+  float acc[MT][NT8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  const int KT = (K + kTcBK - 1) / kTcBK;
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < KT) load(s, s * kTcBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();   // tile kt landed; the stage reloaded below is spent
+    const int next = kt + kTcStages - 1;
+    if (next < KT) load(next % kTcStages, next * kTcBK);
+    cp_async_commit();
+    const float* as = smem + (kt % kTcStages) * L::STAGE;
+    const float* bs = as + L::A_FLOATS;
+#pragma unroll
+    for (int kk = 0; kk < kTcBK; kk += 8) {
+      unsigned ab[MT][4], asm_[MT][4], bb[NT8][2], bsm[NT8][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = wm + i * 16 + g;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int rr = r + (q & 1) * 8, kc = kk + t + (q >> 1) * 4;
+          split_tf32(TA ? as[kc * L::SA + rr] : as[rr * L::SA + kc],
+                     ab[i][q], asm_[i][q]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int c = wn + j * 8 + g;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int kr = kk + t + q * 4;
+          split_tf32(TB ? bs[c * L::SB + kr] : bs[kr * L::SB + c], bb[j][q],
+                     bsm[j][q]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT8; ++j)
+          mma_3xtf32(acc[i][j], ab[i], asm_[i], bb[j], bsm[j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the ring
+
+  // Epilogue through shared memory: the accumulators go to a BM x BN tile
+  // (rows of BN + 8 floats: the float2 writes hit distinct banks), then
+  // each warp takes whole rows, its lanes consecutive columns, so the
+  // stores are coalesced and e.row runs once per row.
+  constexpr int SC = BN + 8, NW = NT / 32;
+  static_assert(BM * SC <= kTcStages * L::STAGE, "epilogue tile fits");
+  float* ct = smem;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+        *reinterpret_cast<float2*>(
+            ct + (wm + i * 16 + g + h * 8) * SC + wn + j * 8 + 2 * t) =
+            make_float2(acc[i][j][h * 2], acc[i][j][h * 2 + 1]);
+  __syncthreads();
+  for (int rr = warp; rr < BM; rr += NW) {
+    const int m = m0 + rr;
+    if (m >= M) break;
+    const auto r = e.row(m);
+#pragma unroll
+    for (int c = lane; c < BN; c += 32) {
+      const int n = n0 + c;
+      if (n < N) e(C, co + (size_t)m * ldc + n, r, n, ct[rr * SC + c]);
+    }
+  }
+}
+
+inline bool on16(const float* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+// 16-byte copies of an operand: its base, leading dimension and batch
+// strides all multiples of 4 floats
+inline bool aligned16(const float* p, int ld, const Batch& b) {
+  return on16(p) && ld % 4 == 0 && b.s1 % 4 == 0 && b.s2 % 4 == 0;
+}
+
+template <int BM, int BN, int WM, int WN, bool TA, bool TB, class E>
+cudaError_t gemm_tc_run(const float* A, const float* B, float* C, int M,
+                        int N, int K, int lda, int ldb, int ldc, const E& e,
+                        cudaStream_t stream, int batch, Batch ba, Batch bb,
+                        Batch bc) {
+  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, TA, TB, E>;
+  const size_t smem = TcTile<BM, BN, TA, TB>::SMEM;
+  static bool sized = false;   // one attribute call per instantiation
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
+  kernel<<<grid, (BM / WM) * (BN / WN) * 32, smem, stream>>>(
+      A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e, aligned16(A, lda, ba),
+      aligned16(B, ldb, bb));
+  return cudaGetLastError();
+}
+
+// gemm_launch's interface on the tensor cores: 64 x 128 tiles (4 warps of
+// 32 x 64) where N > 64 and they fill the 132 SMs, 64 x 64 (4 warps of
+// 32 x 32) otherwise. (On the H100, at the training layer's shapes, 64 x 128 beat
+// 128 x 128 with 8 warps of 64 x 32 or 4 of 64 x 64, and 128 x 64.)
+template <bool TA, bool TB, class E>
+cudaError_t gemm_tc_launch(const float* A, const float* B, float* C, int M,
+                           int N, int K, int lda, int ldb, int ldc,
+                           const E& e, cudaStream_t stream, int batch = 1,
+                           Batch ba = Batch(), Batch bb = Batch(),
+                           Batch bc = Batch()) {
+  if (M <= 0 || N <= 0 || batch <= 0) return cudaGetLastError();
+  const long big_tiles = (long)((M + 63) / 64) * ((N + 127) / 128) * batch;
+  if (N > 64 && big_tiles >= 132)
+    return gemm_tc_run<64, 128, 32, 64, TA, TB>(A, B, C, M, N, K, lda, ldb,
+                                                ldc, e, stream, batch, ba, bb,
+                                                bc);
+  return gemm_tc_run<64, 64, 32, 32, TA, TB>(A, B, C, M, N, K, lda, ldb, ldc,
+                                             e, stream, batch, ba, bb, bc);
 }
 
 // The serving kernels' epilogues on v = acc + bias[n]: plain, SiLU, scaled

@@ -16,7 +16,8 @@
 //   masr_conformer_layer_train_forward   ~21 launches
 //   masr_conformer_layer_train_backward  ~55 launches
 // built from common.cuh's LayerNorm and training.cuh's blocks: the
-// products (common.cuh's GEMM with training.cuh's epilogue Epi: bias,
+// products (common.cuh's tensor-core GEMM gemm_tc_kernel, 3xTF32 mma.sync
+// through a cp.async ring, with training.cuh's epilogue Epi: bias,
 // SiLU saving the pre-activation, x dSiLU(aux), dropout, row mask, scaled
 // residual; weight grads split over K on few tiles), ffn_fwd / ffn_bwd,
 // att_fwd / att_bwd (masked softmax over the (B, T', T') chunk mask with
@@ -38,11 +39,15 @@
 // carry GLU(pw1 bias), so their grad goes into pw1's bias.
 //
 // What bounds it on the H100: ~3x the forward's operations (13.3 GFLOP at
-// B=8, T'=299), run on the f32 FMA pipes (67 TFLOP/s), so operations; this
-// simple design runs far below that (the GEMMs of the serving kernel, small
-// grids, column sums of one block per 32 columns). Left for later:
-// tensor-core operands, fused flash-style attention that does not
-// materialise (T', T').
+// B=8, T'=299), so operations: 0.35 ms at f32's 67 TFLOP/s, 0.14 ms at
+// 3xTF32's 165 (a third of TF32's 495). The products, ~91% of the work, run
+// on the tensor cores in 3xTF32 (f32 accuracy: one TF32 product would miss
+// the layer's tolerances, tests/test_torch_tf32.py); the rest (column sums
+// of one block per 32 columns, the softmax over materialised (T', T')
+// scores, elementwise passes) on the FMA pipes. Left for later: wgmma /
+// TMA products (TF32 wgmma takes only K-major operands from shared memory,
+// so the transposed operands of mm_nn / mm_tn would need a transposing
+// pass), fused flash-style attention that does not materialise (T', T').
 
 #include "training.cuh"
 

@@ -1,11 +1,11 @@
 // Blocks shared by the serving layer kernels (conformer_layer.cu,
 // squeezeformer_layer.cu: full context; chunk_layer.cu, chunk_layer_sq.cu:
-// streaming chunk steps) and the masked attention (rel_pos_attention.cu),
-// for Hopper (sm_90a), f32:
+// streaming chunk steps), rows 1, 6, 2 and 8 of PERF.md's kernel table, for
+// Hopper (sm_90a), f32 on the FMA pipes (their products run common.cuh's
+// gemm_kernel):
 //
-//   attention_kernel<NDK, M>     rel-pos attention over the valid keys of
-//                                an utterance (full context), or over the
-//                                keys a (B, T, T) mask lets through
+//   attention_kernel<NDK>        rel-pos attention over the valid keys of
+//                                an utterance (full context)
 //   chunk_attention_kernel<NDK>  rel-pos attention of a chunk over
 //                                [att-cache ring || chunk] per slot
 //   kv_write_kernel              the fresh K/V rows into the ring
@@ -31,17 +31,8 @@ namespace {
 //   s = ([q+bu | q+bv] . [k | p]^T) * scale
 // online softmax over 32-key tiles. One block = 4 warps = 32 query rows of
 // one (utterance, head); each warp owns 8 rows, each lane one key of the
-// tile for the scores and d = lane + 32 i of the output.
-// Which keys a row sees:
-//   MASKED = false  keys col < lens[b] (the serving layers); a row whose
-//                   utterance has len == 0 gives 0.
-//   MASKED = true   keys col with mask[b, t, col] != 0 (one byte each, read
-//                   through the view's strides, so a broadcast view is never
-//                   taken for a dense one). A key tile that no row of the
-//                   block sees is skipped (read from the mask), a tile that
-//                   no row of a warp sees adds nothing, and a row that sees
-//                   no key gives 0, as the Pallas kernel's MASK_VALUE /
-//                   zeroed-probability / l_inv semantics.
+// tile for the scores and d = lane + 32 i of the output. A row sees the
+// keys col < lens[b]; a row whose utterance has len == 0 gives 0.
 // Operands through AttView's element strides (unit column stride): q, k, v,
 // out (B, H, T, d_k) views, e.g. (B, T, D) with head h in columns
 // [h d_k, (h+1) d_k); pos_p (H, T, d_k); posb (2, H d_k) = pos_bias_u,
@@ -55,23 +46,21 @@ constexpr int kAttRowsPerWarp = kAttRows / kAttWarps;
 struct AttView {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;  // b, h, t
   long long ph, pt;                                          // pos_p
-  long long mb, mq, mk;                                      // mask b, t, key
 };
 
 // the serving layers' (B, T, D) layout, heads in columns, pos_p (T, D)
 AttView heads_in_columns(int T, int D, int dk) {
   const long long bt = (long long)T * D;
-  return AttView{bt, dk, D, bt, dk, D, bt, dk, D, bt, dk, D, dk, D, 0, 0, 0};
+  return AttView{bt, dk, D, bt, dk, D, bt, dk, D, bt, dk, D, dk, D};
 }
 
-template <int NDK, bool MASKED>
+template <int NDK>
 __global__ void __launch_bounds__(kAttWarps * 32)
     attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ pos_p,
                      const float* __restrict__ posb,
-                     const int* __restrict__ lens,
-                     const unsigned char* __restrict__ mask, AttView w,
+                     const int* __restrict__ lens, AttView w,
                      float* __restrict__ out, int T, int dk, float scale) {
   extern __shared__ float smem[];
   const int e2 = 2 * dk, ks = e2 + 1;        // +1: conflict-free key rows
@@ -80,18 +69,14 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   float* Vs = Ks + kAttKeys * ks;            // kAttKeys x dk
   const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kAttRows;
   const int D = gridDim.y * dk;
-  // keys [0, len) may be seen: the utterance's (as the plain twin's
-  // t < len) or, masked, every key
-  const int len = MASKED ? T : min(lens[b], T);
+  // keys [0, len) are seen (as the plain twin's t < len)
+  const int len = min(lens[b], T);
   const float* qh = q + b * w.qb + h * w.qh;
   const float* kh = k + b * w.kb + h * w.kh;
   const float* vh = v + b * w.vb + h * w.vh;
   const float* ph = pos_p + h * w.ph;
   float* oh = out + b * w.ob + h * w.oh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const unsigned char* mrow =
-      MASKED ? mask + b * w.mb + (t0 + warp * kAttRowsPerWarp) * w.mq
-             : nullptr;
 
   for (int i = threadIdx.x; i < kAttRows * e2; i += blockDim.x) {
     const int r = i / e2, e = i % e2, t = t0 + r;
@@ -114,23 +99,7 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   const float* qw = Qs + warp * kAttRowsPerWarp * e2;
 
   for (int k0 = 0; k0 < len; k0 += kAttKeys) {
-    // masked: which of the warp's rows see this lane's key
-    bool seen[kAttRowsPerWarp] = {};
-    if constexpr (MASKED) {
-      const int key = k0 + lane, t_warp = t0 + warp * kAttRowsPerWarp;
-      bool any = false;
-#pragma unroll
-      for (int r = 0; r < kAttRowsPerWarp; ++r) {
-        seen[r] = key < T && t_warp + r < T &&
-                  mrow[r * w.mq + key * w.mk] != 0;
-        any = any || seen[r];
-      }
-      // Qs written / previous tile consumed; skip a tile the block never
-      // sees (block-uniform)
-      if (!__syncthreads_or(any)) continue;
-    } else {
-      __syncthreads();  // Qs written / previous tile consumed
-    }
+    __syncthreads();  // Qs written / previous tile consumed
     for (int i = threadIdx.x; i < kAttKeys * e2; i += blockDim.x) {
       const int r = i / e2, e = i % e2, key = k0 + r;
       float val = 0.f;
@@ -157,14 +126,11 @@ __global__ void __launch_bounds__(kAttWarps * 32)
     const bool in_len = k0 + lane < len;
 #pragma unroll
     for (int r = 0; r < kAttRowsPerWarp; ++r) {
-      const bool valid = MASKED ? seen[r] : in_len;
-      const float sr = valid ? s[r] * scale : -INFINITY;
+      const float sr = in_len ? s[r] * scale : -INFINITY;
+      // key k0 < len is valid, so the tile max is finite
       const float tile_max = warp_max(sr);
-      // unmasked: key k0 < len is valid, so the tile max is finite;
-      // masked: a row that sees no key of the tile skips it (warp-uniform)
-      if (MASKED && tile_max == -INFINITY) continue;
       const float mn = fmaxf(m[r], tile_max);
-      const float p = valid ? expf(sr - mn) : 0.f;
+      const float p = in_len ? expf(sr - mn) : 0.f;
       const float alpha = expf(m[r] - mn);
       l[r] = l[r] * alpha + warp_sum(p);
 #pragma unroll
@@ -185,7 +151,7 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   for (int r = 0; r < kAttRowsPerWarp; ++r) {
     const int t = t0 + warp * kAttRowsPerWarp + r;
     if (t >= T) continue;
-    // len == 0, or no visible key -> 0
+    // len == 0 -> 0
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int i = 0; i < NDK; ++i) {
@@ -195,70 +161,49 @@ __global__ void __launch_bounds__(kAttWarps * 32)
   }
 }
 
-template <int NDK, bool MASKED>
+template <int NDK>
 cudaError_t attention_launch(const float* q, const float* k, const float* v,
                              const float* pos_p, const float* posb,
-                             const int* lens, const unsigned char* mask,
-                             const AttView& w, float* out, int B, int T,
-                             int H, int dk, float scale,
+                             const int* lens, const AttView& w, float* out,
+                             int B, int T, int H, int dk, float scale,
                              cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kAttRows * 2 * dk + kAttKeys * (2 * dk + 1) +
                        kAttKeys * dk);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<NDK, MASKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_kernel<NDK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T + kAttRows - 1) / kAttRows, H, B);
-  attention_kernel<NDK, MASKED><<<grid, kAttWarps * 32, smem, stream>>>(
-      q, k, v, pos_p, posb, lens, mask, w, out, T, dk, scale);
+  attention_kernel<NDK><<<grid, kAttWarps * 32, smem, stream>>>(
+      q, k, v, pos_p, posb, lens, w, out, T, dk, scale);
   return cudaGetLastError();
 }
 
-// d_k up to 128, in registers of ceil(d_k / 32) per lane and row
-template <bool MASKED>
-cudaError_t attention_dispatch(const float* q, const float* k, const float* v,
-                               const float* pos_p, const float* posb,
-                               const int* lens, const unsigned char* mask,
-                               const AttView& w, float* out, int B, int T,
-                               int H, int dk, float scale,
-                               cudaStream_t stream) {
-  switch ((dk + 31) / 32) {
-    case 1:
-      return attention_launch<1, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
-                                         out, B, T, H, dk, scale, stream);
-    case 2:
-      return attention_launch<2, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
-                                         out, B, T, H, dk, scale, stream);
-    case 3:
-      return attention_launch<3, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
-                                         out, B, T, H, dk, scale, stream);
-    default:
-      return attention_launch<4, MASKED>(q, k, v, pos_p, posb, lens, mask, w,
-                                         out, B, T, H, dk, scale, stream);
-  }
-}
-
 // the serving layers' attention: (B, T, D) operands, keys col < lens[b],
-// scale 1 / sqrt(d_k)
+// scale 1 / sqrt(d_k); d_k up to 128, in registers of ceil(d_k / 32) per
+// lane and row
 cudaError_t attention(const float* q, const float* k, const float* v,
                       const float* pos_p, const float* posb, const int* lens,
                       float* out, int B, int T, int D, int H,
                       cudaStream_t stream) {
   const int dk = D / H;
-  return attention_dispatch<false>(q, k, v, pos_p, posb, lens, nullptr,
-                                   heads_in_columns(T, D, dk), out, B, T, H,
-                                   dk, 1.f / sqrtf((float)dk), stream);
-}
-
-// attention over the keys mask[b, t, key] != 0 (MASKED above), any views
-cudaError_t masked_attention(const float* q, const float* k, const float* v,
-                             const float* pos_p, const float* posb,
-                             const unsigned char* mask, const AttView& w,
-                             float* out, int B, int T, int H, int dk,
-                             float scale, cudaStream_t stream) {
-  return attention_dispatch<true>(q, k, v, pos_p, posb, nullptr, mask, w, out,
-                                  B, T, H, dk, scale, stream);
+  const AttView w = heads_in_columns(T, D, dk);
+  const float scale = 1.f / sqrtf((float)dk);
+  switch ((dk + 31) / 32) {
+    case 1:
+      return attention_launch<1>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
+                                 dk, scale, stream);
+    case 2:
+      return attention_launch<2>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
+                                 dk, scale, stream);
+    case 3:
+      return attention_launch<3>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
+                                 dk, scale, stream);
+    default:
+      return attention_launch<4>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
+                                 dk, scale, stream);
+  }
 }
 
 // ------------------------------------------------------------------------

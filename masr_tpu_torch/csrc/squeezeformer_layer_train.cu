@@ -63,12 +63,13 @@
 //
 // What bounds it on the H100: ~3x the forward's operations (13.4 GFLOP at
 // B=8, T'=299 full rate: the eight products, 90% of them; 6.4 GFLOP at
-// T'=150), on the f32 FMA pipes (67 TFLOP/s), so operations: ~0.6 ms at
-// full rate. This simple design runs far below that, as row 3 does (the
-// serving GEMM on f32 FMA, small grids at half rate, column sums of one
-// block per 32 columns). Left for later: tensor-core operands, a fused
-// flash-style attention that does not materialise (T', T'), fewer
-// launches.
+// T'=150), so operations: 0.35 ms at f32's 67 TFLOP/s, 0.14 ms at
+// 3xTF32's 165 (a third of TF32's 495). Every product runs training.cuh's
+// tensor-core loop (common.cuh's gemm_tc_kernel, 3xTF32, f32 accuracy),
+// shared with conformer_layer_train.cu. Left for later: wgmma / TMA
+// products, a fused flash-style attention that does not materialise (T',
+// T'), fewer launches (the host leaves the card idle most of a step),
+// conv_pad_grad_kernel's serial loop.
 
 #include "training.cuh"
 

@@ -3,12 +3,16 @@
 // Hopper (sm_90a), f32, on top of common.cuh:
 //
 //   Epi, Drop              the products' epilogue functor for common.cuh's
-//                          gemm_kernel on element (m, n): bias, SiLU (saving
-//                          the pre-activation), x dSiLU(aux), dropout, row
-//                          mask, scaled residual
+//                          gemm_tc_kernel on element (m, n): bias, SiLU
+//                          (saving the pre-activation), x dSiLU(aux),
+//                          dropout, row mask, scaled residual
 //   mm_nn, mm_nt, mm_tn    C = A.W, C = A.W^T (input grads), C = A^T.B
 //                          (weight grads, split over K on few output tiles
 //                          and summed in slice order: splitk_sum_kernel)
+// Every product here (mm_*, and att_fwd / att_bwd's batched score
+// products) runs common.cuh's tensor-core loop gemm_tc_kernel (3xTF32
+// mma.sync, f32 accuracy), for both training layers (rows 3 and 7 of
+// PERF.md's kernel table); the serving kernels keep the FMA gemm_kernel.
 //   colsum                 bias and LayerNorm parameter grads: column sums
 //                          over the rows, in a fixed order
 //   ln_bwd                 LayerNorm backward from the saved x-hat and
@@ -43,7 +47,7 @@
 namespace {
 
 // ------------------------------------------------------------------------
-// The products' epilogue (a functor for common.cuh's gemm_kernel) on
+// The products' epilogue (a functor for common.cuh's gemm_tc_kernel) on
 // element (m, n), row m = b T + t:
 //   v = alpha acc + bias[n]; pre = v; v = act(v) (SiLU, or v dSiLU(aux));
 //   v *= drop(b, t, n); v = 0 where t >= lens[b]; C = R + res_scale v
@@ -90,22 +94,31 @@ struct Epi {
   const int* lens = nullptr;
   int T = 1;
 
+  // per output row: its utterance b, time t, whether t < lens[b], and its
+  // dropout row hash (the column's is taken per element)
   struct Row {
     int b, t;
     bool ok;
+    unsigned hash;
   };
   __device__ __forceinline__ Row row(int m) const {
     const int b = m / T, t = m % T;
-    return {b, t, lens == nullptr || t < lens[b]};
+    return {b, t, lens == nullptr || t < lens[b],
+            drop.seeds ? dropout_row_hash(drop.seeds[b], drop.layer,
+                                          drop.site, b, t)
+                       : 0u};
   }
   __device__ __forceinline__ void operator()(float* C, size_t o,
                                              const Row& r, int n,
                                              float acc) const {
     float v = alpha * acc + (bias ? bias[n] : 0.f);
     if (pre) pre[o] = v;
-    if (act == kActSilu) v = silu_f(v);
-    if (act == kActDsilu) v *= dsilu_f(aux[o]);
-    v *= drop_at(drop, r.b, r.t, n);
+    if (act == kActSilu) {
+      v = silu_f(v);
+    } else if (act == kActDsilu) {
+      v *= dsilu_f(aux[o]);
+    }
+    if (drop.seeds) v *= dropout_col(r.hash, n, drop.thresh, drop.keep_scale);
     if (!r.ok) v = 0.f;
     C[o] = (R ? R[o] : 0.f) + res_scale * v;
   }
@@ -114,14 +127,14 @@ struct Epi {
 // C (M, N) = A (M, K) . W (K, N)
 cudaError_t mm_nn(const float* A, const float* W, float* C, int M, int N,
                   int K, const Epi& e, cudaStream_t st) {
-  return gemm_launch<false, false>(A, W, C, M, N, K, K, N, N, e, st);
+  return gemm_tc_launch<false, false>(A, W, C, M, N, K, K, N, N, e, st);
 }
 
 // C (M, N) = A (M, K) . W^T, W stored (N, K): the input grad dY . W^T of
 // a product Y = X . W with W (in = N, out = K)
 cudaError_t mm_nt(const float* A, const float* W, float* C, int M, int N,
                   int K, const Epi& e, cudaStream_t st) {
-  return gemm_launch<false, true>(A, W, C, M, N, K, K, K, N, e, st);
+  return gemm_tc_launch<false, true>(A, W, C, M, N, K, K, K, N, e, st);
 }
 
 // Weight grads C (M, N) = A^T . B over K = B*T' rows (A stored (K, M), B
@@ -166,20 +179,21 @@ cudaError_t mm_tn(const float* A, const float* B, float* C, int M, int N,
                   int K, float* part, cudaStream_t st) {
   const int slices = splitk_slices(M, N, K);
   if (slices == 1)
-    return gemm_launch<true, false>(A, B, C, M, N, K, M, N, N, Epi(), st);
+    return gemm_tc_launch<true, false>(A, B, C, M, N, K, M, N, N, Epi(),
+                                       st);
   const int kc = ((K + slices - 1) / slices + 7) / 8 * 8;
   const int full = K / kc, rest = K - full * kc;
   Batch ba, bb, bc;
   ba.s1 = (long long)kc * M;
   bb.s1 = (long long)kc * N;
   bc.s1 = (long long)M * N;
-  TRY((gemm_launch<true, false>(A, B, part, M, N, kc, M, N, N, Epi(), st,
-                                full, ba, bb, bc)));
+  TRY((gemm_tc_launch<true, false>(A, B, part, M, N, kc, M, N, N, Epi(), st,
+                                   full, ba, bb, bc)));
   if (rest)
-    TRY((gemm_launch<true, false>(A + (size_t)full * kc * M,
-                                  B + (size_t)full * kc * N,
-                                  part + (size_t)full * M * N, M, N, rest, M,
-                                  N, N, Epi(), st)));
+    TRY((gemm_tc_launch<true, false>(A + (size_t)full * kc * M,
+                                     B + (size_t)full * kc * N,
+                                     part + (size_t)full * M * N, M, N, rest, M,
+                                     N, N, Epi(), st)));
   const size_t n = (size_t)M * N;
   splitk_sum_kernel<<<blocks_for(n, 256), 256, 0, st>>>(part, C,
                                                         full + (rest > 0), n);
@@ -467,17 +481,17 @@ cudaError_t att_fwd(const float* a, const float* attw, const float* bias,
   const AttBatches bt(B, T, D, H);
   Epi es;
   es.alpha = 1.f / sqrtf((float)dk);
-  TRY((gemm_launch<false, true>(s.qu, s.k, s.P, T, T, dk, D, D, T, es, st,
-                                B * H, bt.q, bt.q, bt.s)));
+  TRY((gemm_tc_launch<false, true>(s.qu, s.k, s.P, T, T, dk, D, D, T, es, st,
+                                   B * H, bt.q, bt.q, bt.s)));
   es.R = s.P;
-  TRY((gemm_launch<false, true>(s.qv, posp, s.P, T, T, dk, D, D, T, es, st,
-                                B * H, bt.q, bt.pos, bt.s)));
+  TRY((gemm_tc_launch<false, true>(s.qv, posp, s.P, T, T, dk, D, D, T, es, st,
+                                   B * H, bt.q, bt.pos, bt.s)));
   const long long rows = (long long)H * B * T;
   att_softmax_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       s.P, s.P, s.Pd, mask, B, H, T, dprob);
   TRY(cudaGetLastError());
-  TRY((gemm_launch<false, false>(s.Pd, s.v, s.o, T, dk, T, T, D, D, Epi(),
-                                 st, B * H, bt.s, bt.q, bt.q)));
+  TRY((gemm_tc_launch<false, false>(s.Pd, s.v, s.o, T, dk, T, T, D, D, Epi(),
+                                    st, B * H, bt.s, bt.q, bt.q)));
   Epi eo;
   eo.bias = bias + 3 * D;
   eo.R = R;
@@ -501,31 +515,31 @@ cudaError_t att_bwd(const float* dres, const float* a, const float* attw,
   TRY(colsum(datt, nullptr, dbias + 3 * D, M, D, nullptr, T, st));
   TRY(mm_tn(s.o, datt, dattw + 3 * DD, D, D, M, part, st));
   TRY(mm_nt(datt, attw + 3 * DD, dO, M, D, D, Epi(), st));
-  TRY((gemm_launch<false, true>(dO, s.v, dP, T, T, dk, D, D, T, Epi(), st,
-                                B * H, bt.q, bt.q, bt.s)));
-  TRY((gemm_launch<true, false>(s.Pd, dO, dv, T, dk, T, T, D, D, Epi(), st,
-                                B * H, bt.s, bt.q, bt.q)));
+  TRY((gemm_tc_launch<false, true>(dO, s.v, dP, T, T, dk, D, D, T, Epi(), st,
+                                   B * H, bt.q, bt.q, bt.s)));
+  TRY((gemm_tc_launch<true, false>(s.Pd, dO, dv, T, dk, T, T, D, D, Epi(), st,
+                                   B * H, bt.s, bt.q, bt.q)));
   const long long rows = (long long)H * B * T;
   att_softmax_bwd_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       dP, s.P, B, H, T, dprob, 1.f / sqrtf((float)dk));
   TRY(cudaGetLastError());
-  TRY((gemm_launch<false, false>(dP, s.k, tk, T, dk, T, T, D, D, Epi(), st,
-                                 B * H, bt.s, bt.q, bt.q)));
-  TRY((gemm_launch<false, false>(dP, posp, tp, T, dk, T, T, D, D, Epi(), st,
-                                 B * H, bt.s, bt.pos, bt.q)));
+  TRY((gemm_tc_launch<false, false>(dP, s.k, tk, T, dk, T, T, D, D, Epi(), st,
+                                    B * H, bt.s, bt.q, bt.q)));
+  TRY((gemm_tc_launch<false, false>(dP, posp, tp, T, dk, T, T, D, D, Epi(), st,
+                                    B * H, bt.s, bt.pos, bt.q)));
   TRY(add(tk, tp, dq, MD, st));
   TRY(colsum(tk, nullptr, dposb, M, D, nullptr, T, st));
   TRY(colsum(tp, nullptr, dposb + D, M, D, nullptr, T, st));
   float* dkk = t[0];  // datt is spent
-  TRY((gemm_launch<true, false>(dP, s.qu, dkk, T, dk, T, T, D, D, Epi(), st,
-                                B * H, bt.s, bt.q, bt.q)));
+  TRY((gemm_tc_launch<true, false>(dP, s.qu, dkk, T, dk, T, T, D, D, Epi(), st,
+                                   B * H, bt.s, bt.q, bt.q)));
   // dposp[:, head h] = sum over b of dS[h, b]^T . (q+v)[b, :, head h]: one
   // product per head with K = B*T (dS is laid out (h, B, T, T))
   Batch bh_s, bh_q;
   bh_s.s1 = (long long)B * T * T;
   bh_q.s1 = dk;
-  TRY((gemm_launch<true, false>(dP, s.qv, dposp, T, dk, B * T, T, D, D,
-                                Epi(), st, H, bh_s, bh_q, bh_q)));
+  TRY((gemm_tc_launch<true, false>(dP, s.qv, dposp, T, dk, B * T, T, D, D,
+                                   Epi(), st, H, bh_s, bh_q, bh_q)));
   TRY(colsum(dq, nullptr, dbias, M, D, nullptr, T, st));
   TRY(colsum(dkk, nullptr, dbias + D, M, D, nullptr, T, st));
   TRY(colsum(dv, nullptr, dbias + 2 * D, M, D, nullptr, T, st));

@@ -2,18 +2,21 @@
 
 Port of masr_tpu/ops/pallas/attention.py (`rel_pos_flash_attention` and
 `rel_pos_attention_reference`). The CUDA source is masr_tpu_torch/csrc/
-rel_pos_attention.cu (the block is serving.cuh's attention_kernel, read
-through a (B, T, T) mask); its header says what bounds it on the H100.
+rel_pos_attention.cu: a pre-pass reduces the mask to a map of 64 x 64 tiles
+(hidden, full, partial; `mask_tile_map_plain` is its plain twin), then a
+flash kernel runs both products on the tensor cores in 3xTF32, skipping
+hidden tiles; its header says what bounds it on the H100.
 
-`rel_pos_flash_attention` launches the kernel for CUDA tensors and takes the
-plain PyTorch version, `rel_pos_attention_plain`, only for CPU tensors. It
-counts its kernel launches in `rel_pos_flash_attention.launches`, one per
-call on the card. The kernel reads every operand through its strides: q, k,
-v may be (B, T, D) rows viewed as (B, H, T, d_k) heads, p the matching
-(H, T, d_k) view of linear_pos(pos_emb), and the mask any (B, T, T) view,
-a broadcast `expand` included (it is never read as if it were dense). Only a
-view whose last axis is not unit-stride is copied first. The output has q's
-layout. f32 only, d_k <= 128; no backward (the Pallas kernel has none).
+`rel_pos_flash_attention` launches the kernels for CUDA tensors and takes
+the plain PyTorch version, `rel_pos_attention_plain`, only for CPU tensors.
+It counts its launches in `rel_pos_flash_attention.launches`, one per call
+on the card (the pre-pass and the attention are one call). The kernel reads
+every operand through its strides: q, k, v may be (B, T, D) rows viewed as
+(B, H, T, d_k) heads, p the matching (H, T, d_k) view of
+linear_pos(pos_emb), and the mask any (B, T, T) view, a broadcast `expand`
+included (it is never read as if it were dense). Only a view whose last
+axis is not unit-stride is copied first. The output has q's layout. f32
+only, d_k <= 128; no backward (the Pallas kernel has none).
 """
 import ctypes
 import math
@@ -41,6 +44,35 @@ def rel_pos_attention_plain(q, k, v, p, bias_u, bias_v, mask, sm_scale=None):
     return (prob / torch.where(l == 0.0, 1.0, l)) @ v
 
 
+TILE = 64                                     # the kernel's map tile
+HIDDEN, FULL, PARTIAL = 0, 1, 2
+
+
+def mask_tile_map_plain(mask, tile=TILE):
+    """Plain twin of the kernel's pre-pass: the (B, T, T) mask (nonzero =
+    attend) reduced to a (B, nt, nt) uint8 map of tile x tile blocks, nt =
+    ceil(T / tile): HIDDEN (0) where no pair of the block is seen, FULL (1)
+    where every pair inside [0, T) is, PARTIAL (2) otherwise. Tests use it;
+    the kernel computes its own."""
+    B, T, _ = mask.shape
+    nt = -(-T // tile)
+    pad = nt * tile - T
+    seen = torch.nn.functional.pad((mask != 0).to(torch.int32),
+                                   (0, pad, 0, pad))
+    inside = torch.nn.functional.pad(
+        torch.ones(T, T, dtype=torch.int32, device=mask.device),
+        (0, pad, 0, pad))
+
+    def blocks(x):
+        return x.reshape(-1, nt, tile, nt, tile).sum((2, 4))
+    n_seen, n_inside = blocks(seen), blocks(inside)
+    out = torch.full((B, nt, nt), PARTIAL, dtype=torch.uint8,
+                     device=mask.device)
+    out[n_seen == 0] = HIDDEN
+    out[n_seen == n_inside.expand_as(n_seen)] = FULL
+    return out
+
+
 def _unit_columns(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
@@ -63,12 +95,16 @@ def _check(q, k, v, p, bias_u, bias_v, mask):
         raise ValueError(f"d_k {d}: the kernel takes d_k up to 128")
 
 
-def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None):
+def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None,
+                            tile_map_out=None):
     """softmax(mask(((q+bu)·kᵀ + (q+bv)·pᵀ)·sm_scale))·v, sm_scale 1/√d by
     default. q, k, v (B, H, T, d) f32; p (H, T, d); bias_u, bias_v (H, d);
     mask (B, T, T) bool (True = attend). A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises. → (B, H, T, d)
-    f32, in q's memory layout; 0 on rows with no visible key."""
+    f32, in q's memory layout; 0 on rows with no visible key.
+    tile_map_out: a contiguous (B, nt, nt) uint8 CUDA tensor, nt =
+    ceil(T / 64), into which the kernel's pre-pass writes its tile map (for
+    tests; scratch of its own otherwise)."""
     if q.device.type == "cpu":
         return rel_pos_attention_plain(q, k, v, p, bias_u, bias_v, mask,
                                        sm_scale)
@@ -81,6 +117,14 @@ def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None):
     if mask.dtype not in (torch.bool, torch.uint8):
         mask = mask != 0
     out = torch.empty_like(q)
+    nt = -(-T // TILE)
+    tile_map = tile_map_out
+    if tile_map is None:
+        tile_map = torch.empty(B, nt, nt, dtype=torch.uint8, device=q.device)
+    elif (tile_map.shape != (B, nt, nt) or tile_map.dtype != torch.uint8
+          or tile_map.device != q.device or not tile_map.is_contiguous()):
+        raise ValueError(f"tile_map_out: want a contiguous ({B}, {nt}, {nt}) "
+                         f"uint8 tensor on {q.device}")
     posb = torch.stack([bias_u.reshape(-1), bias_v.reshape(-1)])
     strides = (ctypes.c_longlong * 17)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
@@ -88,13 +132,13 @@ def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None):
     from masr_tpu_torch.ops.cuda import build
     fn = build.load("rel_pos_attention").masr_rel_pos_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong),
-                                            ctypes.c_void_p]
-                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-                 posb.data_ptr(), mask.data_ptr(), strides, out.data_ptr(),
-                 B, H, T, d, scale,
+                 posb.data_ptr(), mask.data_ptr(), strides,
+                 tile_map.data_ptr(), out.data_ptr(), B, H, T, d, scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rel_pos_attention kernel failed: CUDA error "

@@ -138,8 +138,10 @@ def _rel_err(got, want):
 
 
 # (d_model, heads, ffn, conv kernel, T, lens): test widths and the flagship
+# (T'=299: score rows of 299 floats, not 16-byte aligned; T'=300: aligned)
 TRAIN_SHAPES = [(64, 2, 96, 7, 45, [45, 36, 0]),
-                (256, 4, 2048, 15, 299, [299, 250, 180, 120, 64, 33, 17, 5])]
+                (256, 4, 2048, 15, 299, [299, 250, 180, 120, 64, 33, 17, 5]),
+                (256, 4, 2048, 15, 300, [300, 251, 180, 120, 64, 33, 17, 5])]
 
 
 @pytest.mark.cuda
@@ -394,14 +396,19 @@ def test_squeezeformer_flagship_launches(cuda_device):
 
 
 # (d_model, heads, ffn, conv kernel, T, lens, half): the test widths, and
-# the flagship's (configs/squeezeformer.yml) at full rate (T'=299) and at
-# half rate (T'=150 with the 299-frame mask's [::2, ::2] rows and columns
-# and the lengths halved rounding up, as after the time reduction)
+# the flagship's (configs/squeezeformer.yml) at full rate (T'=299 and 300:
+# score rows unaligned and aligned to 16 bytes) and at half rate (T'=150
+# with the mask's [::2, ::2] rows and columns and the lengths halved
+# rounding up, as after the time reduction)
 SQ_TRAIN_SHAPES = [(64, 2, 128, 7, 45, [45, 36, 0], False),
                    (256, 4, 2048, 31, 299,
                     [299, 281, 250, 220, 180, 150, 90, 33], False),
                    (256, 4, 2048, 31, 299,
-                    [299, 281, 250, 220, 180, 150, 90, 33], True)]
+                    [299, 281, 250, 220, 180, 150, 90, 33], True),
+                   (256, 4, 2048, 31, 300,
+                    [300, 281, 250, 220, 180, 150, 90, 33], False),
+                   (256, 4, 2048, 31, 300,
+                    [300, 281, 250, 220, 180, 150, 90, 33], True)]
 
 
 @pytest.mark.cuda
@@ -409,7 +416,8 @@ SQ_TRAIN_SHAPES = [(64, 2, 128, 7, 45, [45, 36, 0], False),
                          ids=["drop0", "drop0.1"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", SQ_TRAIN_SHAPES,
-                         ids=["D64T45", "D256T299", "D256T150half"])
+                         ids=["D64T45", "D256T299", "D256T150half",
+                              "D256T300", "D256T150half300"])
 def test_sq_train_layer_kernel_matches_plain(cuda_device, shape, causal,
                                              rates):
     """fused_squeezeformer_layer_train (CUDA forward + backward) == the
@@ -619,6 +627,48 @@ def test_rel_pos_attention_kernel_strided_views(cuda_device):
         wide = torch.randn(B, H, T, 2 * d, generator=g).to(cuda_device)
         _check_attention((wide[..., ::2], k, wide[..., 1::2], p, bu, bv),
                          mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("T", [37, 64, 65, 299, 1500])
+def test_rel_pos_attention_tiles(cuda_device, T, d):
+    """The tensor-core kernel around its 64-row / 64-key tiles: T' below,
+    at and one past a tile, ragged, long; d_k 32, 64, 128; static-16 mask,
+    B=4 with an utterance of 0 frames (every tile hidden) and utterance 1's
+    first 64 query rows hidden (a block of hidden tiles). The pre-pass's
+    map equals mask_tile_map_plain; the output equals the twin within
+    2e-4, rows with no visible key exactly 0."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    lens = [T, T - 17, max(T // 3, 1), 0]
+    mask = _att_mask("static16", T, lens, cuda_device).clone()
+    mask[1, :64] = False
+    args = _att_inputs(4, 4, T, d, cuda_device, 3 * T + d)
+    nt = -(-T // 64)
+    tmap = torch.full((4, nt, nt), 7, dtype=torch.uint8, device=cuda_device)
+    with torch.no_grad():
+        empty = _check_attention(args, mask)
+        rpa.rel_pos_flash_attention(*args, mask, tile_map_out=tmap)
+    torch.cuda.synchronize()
+    assert torch.equal(tmap, rpa.mask_tile_map_plain(mask))
+    assert (tmap[3] == rpa.HIDDEN).all() and (tmap[1, 0] == rpa.HIDDEN).all()
+    assert empty[3].all() and empty[1, :min(T, 64)].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["full", "left4", "half_rate", "random"])
+def test_rel_pos_attention_tile_map_kinds(cuda_device, kind):
+    """The pre-pass's map equals the plain map over every mask kind at
+    T'=299, broadcast and [::2, ::2] views included."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    T = 299
+    mask = _att_mask(kind, T, [T, T - 17, 99, 0], cuda_device)
+    args = _att_inputs(4, 4, T, 64, cuda_device, 5)
+    tmap = torch.empty(4, 5, 5, dtype=torch.uint8, device=cuda_device)
+    with torch.no_grad():
+        rpa.rel_pos_flash_attention(*args, mask, tile_map_out=tmap)
+    torch.cuda.synchronize()
+    assert torch.equal(tmap, rpa.mask_tile_map_plain(mask))
 
 
 @pytest.mark.cuda
