@@ -30,7 +30,9 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     {0, 5, 100, 256}, other write pointers and offsets and
                     four inactive slots (their caches must stay bitwise
                     unchanged), table and exact positions, n_sub=2 at c=32,
-                    and B=1 (predict_stream's shape)
+                    and B=1 (predict_stream's shape); at B=32 each slot's
+                    B=1 call must give the bits of its slice (output and
+                    caches)
   7. stream         the flagship weights through predict_stream on the card,
                     both frontends, fed whole and in 0.2 s pieces (same
                     text), against the same bundle on the CPU; every layer
@@ -76,7 +78,7 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     B=1, full rate (c=16, C=256) and half rate (c=8, C=128
                     on the full-resolution ring), n_sub=2, four inactive
                     slots (caches bitwise unchanged), wrapping write
-                    pointers
+                    pointers; at B=32 each slot's B=1 bits == its slice
  15. sq_flagship    the 12-block Squeezeformer of configs/squeezeformer.yml
                     (reduce 5, recover 11, BatchNorm statistics in the
                     bundle's batch_stats), weights from a seed: predict_batch
@@ -544,7 +546,8 @@ def _bound(flops, nbytes):
 
 def _bound_3xtf32(flops, nbytes):
     """The same work on the tensor cores in 3xTF32 (three TF32 products
-    per product): the bound beside the f32 one for rows 3, 5 and 7."""
+    per product): the bound beside the f32 one for rows 2, 3, 5, 7 and
+    8."""
     return {"bound_3xtf32_ms": max(3 * flops / PEAK_TF32_FLOPS,
                                    nbytes / PEAK_BYTES_S) * 1e3}
 
@@ -595,7 +598,7 @@ def chunk_bound(layer, clens, active, c, C, rep=1):
         + n_act * min(c, C) * 2 * D * rep         # fresh rows written
         + B * (C + c) * D                         # position windows
         + (B + n_act) * (K - 1) * D)              # cnn caches in, out
-    return _bound(flops, nbytes)
+    return {**_bound(flops, nbytes), **_bound_3xtf32(flops, nbytes)}
 
 
 # --------------------------------------------------------------------------- #
@@ -630,7 +633,7 @@ def chunk_inputs(layer, B, c, clens, wptrs, offsets, active, route, seed,
                 sinusoid_position_encoding(rows.reshape(-1), D))
             starts = torch.arange(B, dtype=torch.int32, device=dev) * L
     return (x, pos, starts, att, cnn, i32(clens), i32(wptrs), i32(active),
-            layer.packed_params())
+            layer.chunk_packed_params())
 
 
 def run_chunk(fn, layer, args, n_sub=1):
@@ -638,6 +641,29 @@ def run_chunk(fn, layer, args, n_sub=1):
     return fn(x, pos, starts, att, cnn, clens, wptrs, active, packed,
               n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
               n_sub=n_sub)
+
+
+def slot_bits_match(run, args, L=None):
+    """Each slot's output and updated caches from a B=1 call (run(args))
+    equal bit for bit its slice of one call over all the slots; with L
+    (exact positions, L rows per slot) a slot reads its own window of pos
+    from row 0, else the shared table at its start. → slots checked."""
+    x, pos, starts, att, cnn, clens, wptrs, active, packed = args
+    att0, cnn0 = att.clone(), cnn.clone()
+    with torch.no_grad():
+        y = run(args)
+        for s in range(x.shape[0]):
+            one = slice(s, s + 1)
+            p1, s1 = ((pos[s * L:(s + 1) * L], torch.zeros_like(starts[one]))
+                      if L is not None else (pos, starts[one]))
+            a1 = (x[one], p1, s1, att0[one].clone(), cnn0[one].clone(),
+                  clens[one], wptrs[one], active[one], packed)
+            y1 = run(a1)
+            check(torch.equal(y1, y[one]) and torch.equal(a1[3], att[one])
+                  and torch.equal(a1[4], cnn[one]),
+                  f"slot {s}: B=1 bits == its slice of the B={x.shape[0]} "
+                  "call (output, att and cnn caches)")
+    return x.shape[0]
 
 
 def phase_chunk_kernels(dev):
@@ -671,8 +697,14 @@ def phase_chunk_kernels(dev):
         check(torch.equal(att_k[off], att0[off])
               and torch.equal(cnn_k[off], cnn0[off]),
               "inactive slots' att and cnn caches bitwise unchanged")
+        invariant = 0
+        if B > 1:
+            invariant = slot_bits_match(
+                lambda a: run_chunk(ck.fused_chunk_layer, layer, a, n_sub),
+                args, CACHE + c if route == "exact" else None)
         cases.append({"B": B, "c": c, "n_sub": n_sub, "route": route,
-                      "inactive": int(off.sum()), "max_abs_err": err})
+                      "inactive": int(off.sum()), "max_abs_err": err,
+                      "b1_bits_equal_slots": invariant})
         worst = max(worst, err)
     emit({"phase": "chunk_kernels", "kernel": "fused_chunk_layer",
           "C": CACHE, "D": 256, "heads": 4, "ffn": 2048, "conv_kernel": 15,
@@ -1083,7 +1115,7 @@ def sq_chunk_inputs(layer, B, c, C, rep, clens, wptrs, offsets, active, seed,
             sinusoid_position_encoding(rows.reshape(-1), D))
     starts = torch.arange(B, dtype=torch.int32, device=dev) * L
     return (x, pos, starts, att, cnn, i32(clens), i32(wptrs), i32(active),
-            layer.packed_params())
+            layer.chunk_packed_params())
 
 
 def run_sq_chunk(fn, layer, args, n_sub=1, rep=1):
@@ -1166,9 +1198,15 @@ def phase_sq_kernels(dev):
         check(torch.equal(att_k[off], att0[off])
               and torch.equal(cnn_k[off], cnn0[off]),
               "inactive slots' att and cnn caches bitwise unchanged")
+        invariant = 0
+        if B > 1:
+            invariant = slot_bits_match(
+                lambda a: run_sq_chunk(cks.fused_chunk_layer_sq, layer, a,
+                                       n_sub, rep), args, C + c)
         chunk_cases.append({"B": B, "c": c, "C": C, "rep": rep,
                             "n_sub": n_sub, "inactive": int(off.sum()),
-                            "max_abs_err": err})
+                            "max_abs_err": err,
+                            "b1_bits_equal_slots": invariant})
         chunk_worst = max(chunk_worst, err)
     emit({"phase": "sq_kernels", "atol": KERNEL_ATOL,
           "D": SQ_ENCODER["encoder_dim"], "heads": 4, "ffn": 2048,

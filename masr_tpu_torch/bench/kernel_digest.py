@@ -7,29 +7,36 @@ working directory on fixed seeded inputs at the flagship width (D=256, 4
 heads, FFN 2048, conv 15):
   - fused_conformer_layer at B=8, T'=299, lens 299..33;
   - fused_chunk_layer at B=32, c=16, C=256, table positions, cache_len
-    {0, 5, 100, 256}, four inactive slots;
+    {0, 5, 100, 256}, four inactive slots, and at B=1 on slot 7's inputs
+    (a full cache: predict_stream's shape);
   - fused_conformer_layer_train, forward and backward, at B=8, T'=299 with
     a dynamic-chunk mask and dropout 0.1;
 and, in a tree that has them, fused_squeezeformer_layer (the
 Squeezeformer's width: conv 31, BatchNorm conv) and
 fused_squeezeformer_layer_train (layer_norm conv) on the same inputs,
-fused_chunk_layer_sq at B=32 at full rate (c=16, C=256) and half rate (c=8,
-C=128 on the full-resolution ring), and
+fused_chunk_layer_sq at B=32 and at B=1 (slot 7) at full rate (c=16,
+C=256) and half rate (c=8, C=128 on the full-resolution ring), and
 rel_pos_flash_attention (4 heads, d_k 64) at B=8, T'=1500 under a static
 chunk of 16 with lens 1500..800 and 0 (rows that see no key).
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
-calls, the card's name and power limit, and, for the training layers
-(forward + backward) and the flash attention, the device time per call of
-each CUDA kernel they launch (torch.profiler). Two trees whose digests are
-equal computed the same bits; run both on one card, one after the other
-in the order A, B, B, A, to compare their times. Uses only entry points
-that every tree since the training slice has, so it can be copied into
-an older tree.
+calls, the card's name and power limit, for the training layers (forward
++ backward), the flash attention and the chunk layers (B=32 and B=1) the
+device time per call of each CUDA kernel they launch (torch.profiler),
+whether each chunk layer's B=1 call gave slot 7's bits of the B=32 call
+(`batch_invariant`), the host time to enqueue one chunk-layer call
+(`host_ms`), and, as a yardstick only, the device time of a
+torch.matmul in f32 of each product shape of the chunk layers (`matmul`;
+the kernels never call it). Two trees whose digests are equal computed the
+same bits; run both on one card, one after the other in the order A, B, B,
+A, to compare their times. Uses only entry points that every tree since
+the training slice has (and a layer's chunk_packed_params where the tree
+has it), so it can be copied into an older tree.
 """
 import hashlib
 import json
 import subprocess
+import time
 
 import torch
 
@@ -57,6 +64,20 @@ def _ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def _host_ms(fn, iters=20):
+    """Host time per call (ms) to enqueue fn's work: perf_counter over
+    iters back-to-back calls after a synchronize, before the next one."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
 def _kernels(fn, n=3):
     """Device time per call (ms) of each CUDA kernel that fn launches,
     torch.profiler over n calls, largest first."""
@@ -77,6 +98,34 @@ def _kernels(fn, n=3):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _same_bits(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _chunk_products(B, c, D, F, ksize):
+    """(M, N, K) of a chunk-layer call's products at B slots (q/k/v as one
+    product of N = 3D), and how many times the call runs each."""
+    M = B * c
+    return {"ffn_w1": ((M, F, D), 2), "ffn_w2": ((M, D, F), 2),
+            "qkv": ((M, 3 * D, D), 1), "out_pw2": ((M, D, D), 2),
+            "pw1": ((B * (ksize - 1 + c), 2 * D, D), 1)}
+
+
+def _matmul(products, dev):
+    """Yardstick: device ms (torch.profiler) of torch.matmul in f32 (no
+    TF32) of each product shape, and their sum over one layer call."""
+    g = torch.Generator().manual_seed(12)
+    out, total = {}, 0.0
+    for name, ((M, N, K), times) in products.items():
+        a = torch.randn(M, K, generator=g).to(dev)
+        b = torch.randn(K, N, generator=g).to(dev)
+        out[f"{name} {M}x{N}x{K}"] = t = sum(
+            _kernels(lambda: a @ b, n=10).values())
+        total += times * t
+    out["layer"] = total
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_digest: CUDA is not available")
@@ -95,7 +144,7 @@ def main():
     layer.load_state_dict(seeded_state_dict(layer, seed=7))
     layer = layer.to(dev).eval()
     g = torch.Generator().manual_seed(8)
-    digests, ms, kernels = {}, {}, {}
+    digests, ms, kernels, invariant, matmul, host = {}, {}, {}, {}, {}, {}
     B, T = 8, 299
     lens = torch.tensor([299, 281, 250, 220, 180, 150, 90, 33],
                         dtype=torch.int32, device=dev)
@@ -128,14 +177,33 @@ def main():
         starts = ck.clamp_pos_starts(i32([C + 64 * s for s in range(N)]),
                                      8192, C + c)
         a, n = att.clone(), cnn.clone()
+        one = slice(7, 8)
+        a1, n1 = att[one].clone(), cnn[one].clone()
+        packed_c = getattr(layer, "chunk_packed_params",
+                           layer.packed_params)()
 
-        def row2(a=a, n=n):
-            return ck.fused_chunk_layer(xc, table, starts, a, n, clens,
-                                        wptrs, active, packed, n_head=4,
-                                        ksize=15)
+        def row2(a=a, n=n, s=slice(None)):
+            return ck.fused_chunk_layer(xc[s], table, starts[s], a, n,
+                                        clens[s], wptrs[s], active[s],
+                                        packed_c, n_head=4, ksize=15)
 
-        digests["fused_chunk_layer"] = _digest([row2(), a, n])
-        ms["fused_chunk_layer"] = _ms(row2)
+        def row2_b1():
+            return row2(a1, n1, one)
+
+        y = row2()
+        digests["fused_chunk_layer"] = _digest([y, a, n])
+        y1 = row2_b1()
+        digests["fused_chunk_layer_B1"] = _digest([y1, a1, n1])
+        invariant["fused_chunk_layer"] = _same_bits(
+            [y1, a1, n1], [y[one], a[one], n[one]])
+        for name, fn in (("fused_chunk_layer", row2),
+                         ("fused_chunk_layer_B1", row2_b1)):
+            ms[name] = _ms(fn)
+            host[name] = _host_ms(fn)
+            kernels[name] = _kernels(fn)
+        for b in (N, 1):
+            matmul[f"fused_chunk_layer_B{b}"] = _matmul(
+                _chunk_products(b, c, 256, 2048, 15), dev)
 
     rc, cc = r[:, None] // 16, r[None, :] // 16
     mask = ((cc <= rc) & (cc >= rc - 4))[None] & \
@@ -216,18 +284,41 @@ def main():
                 act = i32([0 if s in (3, 10, 17, 29) else 1
                            for s in range(N)])
                 ring_k, conv_k = ring.clone(), conv.clone()
+                one = slice(7, 8)
+                ring_1, conv_1 = ring[one].clone(), conv[one].clone()
+                # slot 7's position window starts at row 0 of its own call
+                pos_1 = pos[7 * (C + c):8 * (C + c)]
+                sq_packed_c = getattr(bn, "chunk_packed_params",
+                                      bn.packed_params)()
 
                 def row8(ring_k=ring_k, conv_k=conv_k, xs=xs, pos=pos,
                          starts=starts, sl=sl, wp=wp, act=act, rep=rep):
                     with torch.no_grad():
                         return cks.fused_chunk_layer_sq(
                             xs, pos, starts, ring_k, conv_k, sl, wp, act,
-                            bn.packed_params(), n_head=H, ksize=31,
+                            sq_packed_c, n_head=H, ksize=31,
                             conv_ln=False, rep=rep)
 
+                def row8_b1(row8=row8, xs=xs, sl=sl, wp=wp, act=act,
+                            ring_1=ring_1, conv_1=conv_1, pos_1=pos_1):
+                    return row8(ring_1, conv_1, xs[one], pos_1,
+                                starts[:1], sl[one], wp[one], act[one])
+
                 name = f"fused_chunk_layer_sq_{rate}"
-                digests[name] = _digest([row8(), ring_k, conv_k])
-                ms[name] = _ms(row8)
+                y = row8()
+                digests[name] = _digest([y, ring_k, conv_k])
+                y1 = row8_b1()
+                digests[name + "_B1"] = _digest([y1, ring_1, conv_1])
+                invariant[name] = _same_bits(
+                    [y1, ring_1, conv_1],
+                    [y[one], ring_k[one], conv_k[one]])
+                for nm, fn in ((name, row8), (name + "_B1", row8_b1)):
+                    ms[nm] = _ms(fn)
+                    host[nm] = _host_ms(fn)
+                    kernels[nm] = _kernels(fn)
+                for b in (N, 1):
+                    matmul[f"{name}_B{b}"] = _matmul(
+                        _chunk_products(b, c, D, 2048, 31), dev)
         sq = SqueezeformerEncoderLayer(256, 4, 2048, 31, "layer_norm", True)
         sq.load_state_dict(seeded_state_dict(sq, seed=9))
         sq = sq.to(dev)
@@ -268,7 +359,8 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({"digests": digests, "ms": ms, "card": card,
-                      "kernels": kernels}),
+                      "kernels": kernels, "batch_invariant": invariant,
+                      "matmul": matmul, "host_ms": host}),
           flush=True)
 
 

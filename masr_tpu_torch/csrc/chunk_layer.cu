@@ -8,20 +8,23 @@
 // chunk rows over L = C + c keys [att cache || chunk] -> out projection ->
 // causal conv over [cnn cache || LN(x)] -> FFN (x0.5) -> final LN, and the
 // updated caches. `masr_chunk_layer_forward` launches, in order on the
-// caller's stream:
+// caller's stream (19 launches; 21 before the tensor-core redesign, which
+// made q/k/v one product and read the macaron FFN's residual from x in
+// place of a copy):
 //
-//   1. cudaMemcpyAsync           x into the residual buffer
-//   2. layer_norm / gemm<EPI>    macaron FFN, q/k/v (common.cuh)
-//   3. chunk_attention_kernel    one block per (slot, head, 16 query rows);
-//                                online softmax over 32-key tiles, keys
-//                                read from the ring in chronological order
-//   4. kv_write_kernel           the c fresh K/V rows into the ring
-//   5. gemm<kResidual>           out projection + residual
-//   6. conv_input_kernel         [cnn cache || LN(x)] -> (B, k-1+c, D)
-//   7. cnn_write_kernel          its last k-1 rows into the cnn cache
-//   8. gemm / conv_module_kernel pw1 -> GLU -> VALID depthwise -> LN -> SiLU
-//                                -> pw2 + residual (common.cuh)
-//   9. layer_norm / gemm<EPI>    FFN, final LN
+//   1. cudaMemsetAsync           the split products' tile counters
+//   2. layer_norm / gemm_sk<EPI> macaron FFN (serving.cuh), residual x
+//   3. layer_norm / gemm_sk      q/k/v as one product of N = 3D
+//   4. chunk_attention_kernel    one block per (slot, head, 16 query rows),
+//                                tensor cores, keys read from the ring in
+//                                chronological order (serving.cuh)
+//   5. kv_write_kernel           the c fresh K/V rows into the ring
+//   6. gemm_sk<kResidual>        out projection + residual
+//   7. conv_input_kernel         [cnn cache || LN(x)] -> (B, k-1+c, D)
+//   8. cnn_write_kernel          its last k-1 rows into the cnn cache
+//   9. gemm_sk / conv_module_kernel  pw1 -> GLU -> VALID depthwise -> LN ->
+//                                SiLU (common.cuh) -> pw2 + residual
+//  10. layer_norm / gemm_sk      FFN, final LN
 //
 // State layout (free of the TPU's: no mirror copy, no 128-lane padding, no
 // 8-row alignment):
@@ -47,44 +50,59 @@
 // which this tick's attention still reads, so the K/V write is its own
 // launch after the attention kernel (stream order). The cnn cache is
 // copied into the conv input buffer before its rows are replaced, so
-// c < k-1 is safe too. Kinds 3, 4, 6 and 7 live in serving.cuh, shared
-// with chunk_layer_sq.cu (whose half-rate layers read a ring whose rows are
-// stored twice: rep = 2 there, 1 here).
+// c < k-1 is safe too. Kinds 4, 5, 7 and 8 and the products live in
+// serving.cuh, shared with chunk_layer_sq.cu (whose half-rate layers read a
+// ring whose rows are stored twice: rep = 2 there, 1 here).
 //
 // What bounds it on the H100: at the engine's shape (B=32 slots, c=16,
 // C=256, D=256, F=2048) a layer call is ~2.95 GFLOP (73% FFN) against ~39
-// MB of bytes (weights 10.2, cache 16.8, position windows 8.9): bound by
-// operations, ~44 us at the f32 rate outside the tensor cores. At B=1
-// (predict_stream) it is ~92 MFLOP against ~11 MB of weights: bound by
-// bytes, ~3.3 us. This first version is right and simple, not fast: the
-// GEMMs run f32 FMA from shared memory on 64x64 tiles, and at M = B*c =
-// 512 (or 16) rows they fill 8-32 blocks of the 132 SMs. What later work
-// should do about that: split-K or narrower tiles for small M, bf16/TF32
-// operands on wgmma, and fusing the small launches.
+// MB of bytes (weights 10.2, cache 16.8, position windows 8.9): on the
+// tensor cores in 3xTF32 (three TF32 products per product) ~18 us of
+// operations, ~12 us of bytes. At B=1 (predict_stream) ~92 MFLOP against
+// ~11 MB of weights: bound by bytes, ~3.3 us. The first version ran its
+// products as f32 FMA on 8-32 blocks of the 132 SMs (1.6 ms at B=32, 1.1
+// at B=1). Every product now runs serving.cuh's gemm_sk_kernel: 3xTF32
+// mma.sync, weights split into TF32 halves once (the serving tensor-core
+// pack), K split into parts fixed by N and K (so a slot's bits do not
+// depend on the batch) to fill the SMs at one slot and at 32, and the
+// attention runs both its products on the tensor cores too; the conv
+// module takes blocks of 4 rows (common.cuh), 4 per slot. What is left at
+// B=32 (~0.23 ms of device time on the H100): the products at 14-24
+// TFLOP/s of counted work, ~69%; the attention ~13%; the conv module ~8%;
+// the LayerNorms ~6%. At B=1 the host sets the pace (0.14-0.24 ms of
+// Python, checks and 19 launches against ~0.14 ms of device time). Later:
+// fewer launches (CUDA graphs), wgmma.
 //
 // Plain C interface, loaded with ctypes. The entry returns the first CUDA
 // error of a launch, 0 on success.
 
 #include "serving.cuh"
 
-// Packed weights as masr_tpu/ops/pallas/conformer_layer.py:250
-// pack_layer_params (all f32, row-major, contiguous):
-//   lnw (6,2,D) ffw1 (2,D,F) ffb1 (2,F) ffw2 (2,F,D) vecb (8,D) attw (4,D,D)
-//   posb (2,D) pw1w (D,2D) pw1b (1,2D) pw2w (D,D) dww (k,D)
-// x, out: (B, c, D); pos: (rows, D); pos_starts, cache_lens, wptrs,
-// active: (B,) int32; att_cache (B, h, C, 2 d_k) and cnn_cache (B, k-1, D)
-// are updated in place for active slots.
-// workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c.
+// Weights: the serving pack (masr_tpu/ops/pallas/conformer_layer.py:250
+// pack_layer_params; f32, row-major, contiguous) for what is not a product:
+//   lnw (6,2,D) ffb1 (2,F) vecb (8,D) posb (2,D) pw1b (1,2D) dww (k,D)
+// and the serving tensor-core pack (ops/cuda/chunk_layer.py pack_chunk_tc)
+// for the products, each weight as its TF32 halves (.., 2, K, N):
+//   tc_ffw1 (2,2,D,F) tc_ffw2 (2,2,F,D) tc_qkv (2,D,3D) = [W_q | W_k | W_v]
+//   tc_out (2,D,D) tc_pw1 (2,D,2D) tc_pw2 (2,D,D)
+// plans: host (parts, part) of each product (ChunkProduct order), from
+// split_plan(N, K). x, out: (B, c, D); pos: (rows, D); pos_starts,
+// cache_lens, wptrs, active: (B,) int32; att_cache (B, h, C, 2 d_k) and
+// cnn_cache (B, k-1, D) are updated in place for active slots.
+// workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c;
+// partials / counters: the split products' scratch (serving.cuh SplitK),
+// n_partials floats and n_counters counters.
 extern "C" int masr_chunk_layer_forward(
     const float* x, const float* pos, const int* pos_starts,
     float* att_cache, float* cnn_cache, const int* cache_lens,
-    const int* wptrs, const int* active, const float* lnw,
-    const float* ffw1, const float* ffb1, const float* ffw2,
-    const float* vecb, const float* attw, const float* posb,
-    const float* pw1w, const float* pw1b, const float* pw2w,
-    const float* dww, float* out, float* workspace, int B, int c, int C,
-    int D, int F, int n_head, int ksize, int n_sub, float ff_scale,
-    float eps, void* stream_ptr) {
+    const int* wptrs, const int* active, const float* lnw, const float* ffb1,
+    const float* vecb, const float* posb, const float* pw1b,
+    const float* dww, const float* tc_ffw1, const float* tc_ffw2,
+    const float* tc_qkv, const float* tc_out, const float* tc_pw1,
+    const float* tc_pw2, const int* plans, float* out, float* workspace,
+    float* partials, long long n_partials, unsigned* counters,
+    int n_counters, int B, int c, int C, int D, int F, int n_head, int ksize,
+    int n_sub, float ff_scale, float eps, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int M = B * c;
   if (M == 0) return (int)cudaGetLastError();
@@ -92,54 +110,61 @@ extern "C" int masr_chunk_layer_forward(
   if (dk * n_head != D || dk > 128 || ksize < 2 || n_sub < 1 ||
       c % n_sub != 0 || C < 0 || (n_sub > 1 && c > C))
     return (int)cudaErrorInvalidValue;
-  const int K1 = ksize - 1, W = K1 + c;
+  const int K1 = ksize - 1, W = K1 + c, D3 = 3 * D;
   const size_t MD = (size_t)M * D;
+  SplitPlan plan[kChunkProducts];
+  for (int i = 0; i < kChunkProducts; ++i)
+    plan[i] = SplitPlan{plans[2 * i], plans[2 * i + 1]};
+  const SplitK sk{partials, n_partials, counters, n_counters};
   float* xw = workspace;                      // residual stream (M, D)
   float* xn = xw + MD;                        // normed rows (M, D)
   float* big = xn + MD;                       // (M, max(F, 4D))
   float* cin = big + (size_t)M * (F > 4 * D ? F : 4 * D);  // (B, W, D)
   float* gx = cin + (size_t)B * W * D;        // (B, W, 2D)
   float* y = gx + (size_t)B * W * 2 * D;      // (M, D)
-  float *h = big, *q = big, *k = big + MD, *v = big + 2 * MD,
-        *att = big + 3 * MD;
+  float *h = big, *qkv = big, *att = big + 3 * MD;   // qkv: (M, 3D)
 
-  MASR_CHECK(cudaMemcpyAsync(xw, x, MD * sizeof(float),
-                             cudaMemcpyDeviceToDevice, stream));
-  // macaron FFN (x ff_scale)
-  MASR_CHECK(ffn_residual(xw, xn, h, lnw, 0, ffw1, ffb1, ffw2, vecb, M, D, F,
-                          ff_scale, eps, stream));
-  // rel-pos MHSA over [ring cache || chunk]
+  MASR_CHECK(cudaMemsetAsync(counters, 0, sizeof(unsigned) * n_counters,
+                             stream));
+  // macaron FFN (x ff_scale): xw = x + ff_scale FFN(LN(x))
+  MASR_CHECK(layer_norm(x, xn, lnw, 0, M, D, eps, nullptr, 1, stream));
+  MASR_CHECK(ffn_sk(xn, h, xw, x, tc_weight(tc_ffw1, D, F, 0), ffb1,
+                    tc_weight(tc_ffw2, F, D, 0), vecb, M, D, F, ff_scale,
+                    plan, sk, stream));
+  // rel-pos MHSA over [ring cache || chunk]; q, k, v from one product
   MASR_CHECK(layer_norm(xw, xn, lnw, 1, M, D, eps, nullptr, 1, stream));
-  MASR_CHECK(gemm<kBias>(xn, attw, vecb + 2 * D, q, nullptr, M, D, D, 1.f,
-                         nullptr, 1, stream));
-  MASR_CHECK(gemm<kBias>(xn, attw + (size_t)D * D, vecb + 3 * D, k, nullptr,
-                         M, D, D, 1.f, nullptr, 1, stream));
-  MASR_CHECK(gemm<kBias>(xn, attw + 2 * (size_t)D * D, vecb + 4 * D, v,
-                         nullptr, M, D, D, 1.f, nullptr, 1, stream));
-  const int sub_c = c / n_sub;
+  MASR_CHECK(gemm_sk<kBias>(xn, tc_weight(tc_qkv, D, D3), vecb + 2 * D, qkv,
+                            nullptr, M, D3, D, D, D3, 1.f, plan[kQkv], sk,
+                            stream));
+  const float *q = qkv, *k = qkv + D, *v = qkv + 2 * D;
   MASR_CHECK(chunk_attention(q, k, v, att_cache, pos, pos_starts, posb,
-                             cache_lens, wptrs, att, B, c, C, 1, D, n_head,
-                             sub_c, stream));
+                             cache_lens, wptrs, att, B, c, C, 1, D, D3,
+                             n_head, c / n_sub, stream));
   // every read of the ring is done (stream order): write the fresh rows
-  MASR_CHECK(kv_write(k, v, att_cache, wptrs, active, B, c, C, 1, D, n_head,
-                      stream));
-  MASR_CHECK(gemm<kResidual>(att, attw + 3 * (size_t)D * D, vecb + 5 * D, xw,
-                             xw, M, D, D, 1.f, nullptr, 1, stream));
+  MASR_CHECK(kv_write(k, v, att_cache, wptrs, active, B, c, C, 1, D, D3,
+                      n_head, stream));
+  MASR_CHECK(gemm_sk<kResidual>(att, tc_weight(tc_out, D, D), vecb + 5 * D,
+                                xw, xw, M, D, D, D, D, 1.f, plan[kOut], sk,
+                                stream));
   // conv module over [cnn cache || LN(x)]: pw1 -> GLU -> VALID depthwise
   // -> LN -> SiLU -> pw2
   MASR_CHECK(layer_norm(xw, xn, lnw, 2, M, D, eps, nullptr, 1, stream));
   MASR_CHECK(conv_input(xn, nullptr, cin, cnn_cache, active, B, c, K1, D,
                         stream));
-  MASR_CHECK(gemm<kBias>(cin, pw1w, pw1b, gx, nullptr, B * W, 2 * D, D, 1.f,
-                         nullptr, 1, stream));
+  MASR_CHECK(gemm_sk<kBias>(cin, tc_weight(tc_pw1, D, 2 * D), pw1b, gx,
+                            nullptr, B * W, 2 * D, D, D, 2 * D, 1.f,
+                            plan[kPw1], sk, stream));
   MASR_CHECK(conv_module(gx, dww, vecb + 6 * D, pw1b, lnw + 3 * 2 * (size_t)D,
-                         y, B, W, c, D, ksize, 0, 0, eps, stream));
-  MASR_CHECK(gemm<kResidual>(y, pw2w, vecb + 7 * D, xw, xw, M, D, D, 1.f,
-                             nullptr, 1, stream));
+                         y, B, W, c, D, ksize, 0, 0, eps, stream, nullptr,
+                         nullptr, nullptr, true, kConvRowsChunk));
+  MASR_CHECK(gemm_sk<kResidual>(y, tc_weight(tc_pw2, D, D), vecb + 7 * D, xw,
+                                xw, M, D, D, D, D, 1.f, plan[kPw2], sk,
+                                stream));
   // final FFN (x ff_scale) + final LN
-  MASR_CHECK(ffn_residual(xw, xn, h, lnw, 4, ffw1 + (size_t)D * F, ffb1 + F,
-                          ffw2 + (size_t)F * D, vecb + D, M, D, F, ff_scale,
-                          eps, stream));
+  MASR_CHECK(layer_norm(xw, xn, lnw, 4, M, D, eps, nullptr, 1, stream));
+  MASR_CHECK(ffn_sk(xn, h, xw, xw, tc_weight(tc_ffw1, D, F, 1), ffb1 + F,
+                    tc_weight(tc_ffw2, F, D, 1), vecb + D, M, D, F, ff_scale,
+                    plan, sk, stream));
   MASR_CHECK(layer_norm(xw, out, lnw, 5, M, D, eps, nullptr, 1, stream));
   return (int)cudaGetLastError();
 }

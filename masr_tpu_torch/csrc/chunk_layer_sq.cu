@@ -14,15 +14,18 @@
 //   x = LN4(x + FFN2(ada3 x))
 //
 // and the updated caches. `masr_chunk_layer_sq_forward` launches, in order
-// on the caller's stream, the blocks it shares with the Conformer chunk
-// kernel (chunk_layer.cu; common.cuh, serving.cuh): q/k/v products,
-// chunk_attention_kernel, kv_write_kernel (after every read of the ring),
-// the out product with the residual, layer_norm_kernel, the FFN products,
-// conv_input_kernel with ada2 (the cnn cache holds post-ada rows, as
-// SqueezeformerConvModule applies ada before ConvolutionModule takes the
-// cache), cnn_write_kernel, pw1, conv_module_kernel (VALID depthwise, the
-// folded BatchNorm affine or the LN), pw2 with the residual. ada0, ada1,
-// ada3 come folded into the weights (see squeezeformer_layer.cu).
+// on the caller's stream (18 launches; 19 before the tensor-core redesign),
+// the blocks it shares with the Conformer chunk kernel (chunk_layer.cu;
+// common.cuh, serving.cuh): the split products' counters (a memset), the
+// q/k/v product (one of N = 3D), chunk_attention_kernel, kv_write_kernel
+// (after every read of the ring), the out product with the residual,
+// layer_norm_kernel, the FFN products, conv_input_kernel with ada2 (the cnn
+// cache holds post-ada rows, as SqueezeformerConvModule applies ada before
+// ConvolutionModule takes the cache), cnn_write_kernel, pw1,
+// conv_module_kernel (VALID depthwise, the folded BatchNorm affine or the
+// LN), pw2 with the residual. Every product is serving.cuh's gemm_sk
+// (3xTF32 tensor cores, split-K fixed by N and K). ada0, ada1, ada3 come
+// folded into the weights (see squeezeformer_layer.cu).
 //
 // State layout: the Conformer chunk kernel's single-copy att ring with
 // per-slot write pointers (chunk_layer.cu), which also serves the
@@ -39,35 +42,42 @@
 //
 // What bounds it on the H100: as the Conformer chunk kernel. At the
 // engine's shape (B=32 slots, c=16, C=256, D=256, F=2048) a full-rate call
-// is ~2.9 GFLOP (FFN three quarters of it) against ~40 MB of bytes
-// (weights ~10 MB, cache rows, position windows): bound by operations,
-// ~0.04 ms at the f32 rate outside the tensor cores; a half-rate call
-// (c=8, C=128) has half the rows. At B=1 (predict_stream) it is bound by
-// the ~10 MB of weights, ~3 us. This first version is right and simple,
-// not fast: its products run f32 FMA on 64x64 tiles that M = B*c rows
-// fill poorly. Later work: split-K or narrower tiles for small M,
-// bf16/TF32 operands on wgmma, fewer launches.
+// is ~3.1 GFLOP (FFN three quarters of it) against ~40 MB of bytes
+// (weights ~10 MB, cache rows, position windows): ~19 us of 3xTF32
+// operations on the tensor cores; a half-rate call (c=8, C=128) has half
+// the rows. At B=1 (predict_stream) it is bound by the ~10 MB of weights,
+// ~3 us. Its products and attention run on the tensor cores as
+// chunk_layer.cu's (the first version's f32 FMA products took 1.7 / 1.5
+// ms at B=32); what is left is as there, with a larger conv module (k =
+// 31: ~12% of the device time at B=32), and at B=1 the host's launches.
 //
 // Plain C interface, loaded with ctypes. The entry returns the first CUDA
 // error of a launch, 0 on success.
 
 #include "serving.cuh"
 
-// Packed weights as ops/cuda/squeezeformer_layer.py pack_sq_layer_params
-// (see squeezeformer_layer.cu). x, out: (B, c, D); pos: (rows, D);
-// pos_starts, cache_lens, wptrs, active: (B,) int32, cache_lens and wptrs
-// at the layer's rate; att_cache (B, h, C*rep, 2 d_k), C the layer's ring
-// rows; cnn_cache (B, k-1, D); both updated in place for active slots.
-// workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c.
+// Weights: the serving pack (ops/cuda/squeezeformer_layer.py
+// pack_sq_layer_params, see squeezeformer_layer.cu) for what is not a
+// product: lnw, ada, cnw, vecb, posb, ffb1, pw1b, dww; and the serving
+// tensor-core pack (ops/cuda/chunk_layer.py pack_chunk_tc) for the
+// products, as chunk_layer.cu. plans: host (parts, part) per product
+// (ChunkProduct order). x, out: (B, c, D); pos: (rows, D); pos_starts,
+// cache_lens, wptrs, active: (B,) int32, cache_lens and wptrs at the
+// layer's rate; att_cache (B, h, C*rep, 2 d_k), C the layer's ring rows;
+// cnn_cache (B, k-1, D); both updated in place for active slots.
+// workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c;
+// partials / counters: the split products' scratch (serving.cuh SplitK).
 extern "C" int masr_chunk_layer_sq_forward(
     const float* x, const float* pos, const int* pos_starts,
     float* att_cache, float* cnn_cache, const int* cache_lens,
     const int* wptrs, const int* active, const float* lnw, const float* ada,
-    const float* cnw, const float* attw, const float* vecb,
-    const float* posb, const float* ffw1, const float* ffb1,
-    const float* ffw2, const float* pw1w, const float* pw1b,
-    const float* pw2w, const float* dww, float* out, float* workspace, int B,
-    int c, int C, int rep, int D, int F, int n_head, int ksize, int n_sub,
+    const float* cnw, const float* vecb, const float* posb,
+    const float* ffb1, const float* pw1b, const float* dww,
+    const float* tc_ffw1, const float* tc_ffw2, const float* tc_qkv,
+    const float* tc_out, const float* tc_pw1, const float* tc_pw2,
+    const int* plans, float* out, float* workspace, float* partials,
+    long long n_partials, unsigned* counters, int n_counters, int B, int c,
+    int C, int rep, int D, int F, int n_head, int ksize, int n_sub,
     int conv_ln, float eps, float conv_eps, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int M = B * c;
@@ -76,56 +86,60 @@ extern "C" int masr_chunk_layer_sq_forward(
   if (dk * n_head != D || dk > 128 || ksize < 2 || n_sub < 1 ||
       c % n_sub != 0 || C < 0 || rep < 1 || (n_sub > 1 && c > C))
     return (int)cudaErrorInvalidValue;
-  const int K1 = ksize - 1, W = K1 + c;
-  const size_t MD = (size_t)M * D, DD = (size_t)D * D;
+  const int K1 = ksize - 1, W = K1 + c, D3 = 3 * D;
+  const size_t MD = (size_t)M * D;
+  SplitPlan plan[kChunkProducts];
+  for (int i = 0; i < kChunkProducts; ++i)
+    plan[i] = SplitPlan{plans[2 * i], plans[2 * i + 1]};
+  const SplitK sk{partials, n_partials, counters, n_counters};
   float* xa = workspace;                      // residual sums (M, D)
   float* xb = xa + MD;                        // LN outputs (M, D)
   float* big = xb + MD;                       // (M, max(F, 4D))
   float* cin = big + (size_t)M * (F > 4 * D ? F : 4 * D);  // (B, W, D)
   float* gx = cin + (size_t)B * W * D;        // (B, W, 2D)
   float* y = gx + (size_t)B * W * 2 * D;      // (M, D)
-  float *h = big, *q = big, *k = big + MD, *v = big + 2 * MD,
-        *att = big + 3 * MD;
+  float *h = big, *qkv = big, *att = big + 3 * MD;   // qkv: (M, 3D)
 
-  // x = LN1(x + MHSA(ada0 x)) over [ring cache || chunk]
-  MASR_CHECK(gemm<kBias>(x, attw, vecb, q, nullptr, M, D, D, 1.f, nullptr, 1,
-                         stream));
-  MASR_CHECK(gemm<kBias>(x, attw + DD, vecb + D, k, nullptr, M, D, D, 1.f,
-                         nullptr, 1, stream));
-  MASR_CHECK(gemm<kBias>(x, attw + 2 * DD, vecb + 2 * D, v, nullptr, M, D, D,
-                         1.f, nullptr, 1, stream));
+  MASR_CHECK(cudaMemsetAsync(counters, 0, sizeof(unsigned) * n_counters,
+                             stream));
+  // x = LN1(x + MHSA(ada0 x)) over [ring cache || chunk]; q, k, v from one
+  // product
+  MASR_CHECK(gemm_sk<kBias>(x, tc_weight(tc_qkv, D, D3), vecb, qkv, nullptr,
+                            M, D3, D, D, D3, 1.f, plan[kQkv], sk, stream));
+  const float *q = qkv, *k = qkv + D, *v = qkv + 2 * D;
   MASR_CHECK(chunk_attention(q, k, v, att_cache, pos, pos_starts, posb,
-                             cache_lens, wptrs, att, B, c, C, rep, D, n_head,
-                             c / n_sub, stream));
+                             cache_lens, wptrs, att, B, c, C, rep, D, D3,
+                             n_head, c / n_sub, stream));
   // every read of the ring is done (stream order): write the fresh rows
-  MASR_CHECK(kv_write(k, v, att_cache, wptrs, active, B, c, C, rep, D,
+  MASR_CHECK(kv_write(k, v, att_cache, wptrs, active, B, c, C, rep, D, D3,
                       n_head, stream));
-  MASR_CHECK(gemm<kResidual>(att, attw + 3 * DD, vecb + 3 * D, xa, x, M, D, D,
-                             1.f, nullptr, 1, stream));
+  MASR_CHECK(gemm_sk<kResidual>(att, tc_weight(tc_out, D, D), vecb + 3 * D,
+                                xa, x, M, D, D, D, D, 1.f, plan[kOut], sk,
+                                stream));
   MASR_CHECK(layer_norm(xa, xb, lnw, 0, M, D, eps, nullptr, 1, stream));
   // x = LN2(x + FFN1(ada1 x))
-  MASR_CHECK(gemm<kSilu>(xb, ffw1, ffb1, h, nullptr, M, F, D, 1.f, nullptr,
-                         1, stream));
-  MASR_CHECK(gemm<kResidual>(h, ffw2, vecb + 4 * D, xa, xb, M, D, F, 1.f,
-                             nullptr, 1, stream));
+  MASR_CHECK(ffn_sk(xb, h, xa, xb, tc_weight(tc_ffw1, D, F, 0), ffb1,
+                    tc_weight(tc_ffw2, F, D, 0), vecb + 4 * D, M, D, F, 1.f,
+                    plan, sk, stream));
   MASR_CHECK(layer_norm(xa, xb, lnw, 1, M, D, eps, nullptr, 1, stream));
   // x = LN3(x + Conv(ada2 x)) over [cnn cache || ada2 x]: pw1 -> GLU ->
   // VALID depthwise -> norm -> SiLU -> pw2
   MASR_CHECK(conv_input(xb, ada, cin, cnn_cache, active, B, c, K1, D,
                         stream));
-  MASR_CHECK(gemm<kBias>(cin, pw1w, pw1b, gx, nullptr, B * W, 2 * D, D, 1.f,
-                         nullptr, 1, stream));
+  MASR_CHECK(gemm_sk<kBias>(cin, tc_weight(tc_pw1, D, 2 * D), pw1b, gx,
+                            nullptr, B * W, 2 * D, D, D, 2 * D, 1.f,
+                            plan[kPw1], sk, stream));
   MASR_CHECK(conv_module(gx, dww, vecb + 6 * D, pw1b, cnw, y, B, W, c, D,
                          ksize, 0, 0, conv_eps, stream, nullptr, nullptr,
-                         nullptr, conv_ln != 0));
-  MASR_CHECK(gemm<kResidual>(y, pw2w, vecb + 7 * D, xa, xb, M, D, D, 1.f,
-                             nullptr, 1, stream));
+                         nullptr, conv_ln != 0, kConvRowsChunk));
+  MASR_CHECK(gemm_sk<kResidual>(y, tc_weight(tc_pw2, D, D), vecb + 7 * D, xa,
+                                xb, M, D, D, D, D, 1.f, plan[kPw2], sk,
+                                stream));
   MASR_CHECK(layer_norm(xa, xb, lnw, 2, M, D, eps, nullptr, 1, stream));
   // x = LN4(x + FFN2(ada3 x))
-  MASR_CHECK(gemm<kSilu>(xb, ffw1 + (size_t)D * F, ffb1 + F, h, nullptr, M, F,
-                         D, 1.f, nullptr, 1, stream));
-  MASR_CHECK(gemm<kResidual>(h, ffw2 + (size_t)F * D, vecb + 5 * D, xa, xb, M,
-                             D, F, 1.f, nullptr, 1, stream));
+  MASR_CHECK(ffn_sk(xb, h, xa, xb, tc_weight(tc_ffw1, D, F, 1), ffb1 + F,
+                    tc_weight(tc_ffw2, F, D, 1), vecb + 5 * D, M, D, F, 1.f,
+                    plan, sk, stream));
   MASR_CHECK(layer_norm(xa, out, lnw, 3, M, D, eps, nullptr, 1, stream));
   return (int)cudaGetLastError();
 }

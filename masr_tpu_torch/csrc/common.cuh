@@ -12,25 +12,28 @@
 //   gemm_kernel<.., TA, TB, E>  C = E(op(A).op(B)), shared-memory tiled
 //                          f32 FMA main loop, either operand transposed,
 //                          batched, with a compile-time epilogue functor E:
-//                          the serving kernels' products (rows 1, 2, 6, 8
-//                          of PERF.md's kernel table) with ServeEpi: plain,
-//                          SiLU, scaled residual, row-masked residual
+//                          the full-context serving kernels' products (rows
+//                          1 and 6 of PERF.md's kernel table) with ServeEpi:
+//                          plain, SiLU, scaled residual, row-masked residual
 //   split_tf32, mma_3xtf32, cp_async*  tensor-core and async-copy pieces:
 //                          3xTF32 products (f32 accuracy on the TF32 tensor
-//                          cores) and cp.async copies with zero fill
+//                          cores) and cp.async copies with zero fill; with
+//                          ServeEpi they also make serving.cuh's gemm_sk,
+//                          the chunk steps' products (rows 2 and 8)
 //   gemm_tc_kernel<.., TA, TB, E>  the same contract as gemm_kernel on the
 //                          tensor cores (3xTF32 mma.sync, a 3-stage cp.async
 //                          ring): every product of the training layers
 //                          (rows 3 and 7, through training.cuh)
-//   conv_module_kernel<kLN>  GLU -> depthwise conv over time -> LN (or a
-//                          folded BatchNorm affine) -> SiLU, optional saves
-//                          for a backward
+//   conv_module_kernel<kLN, ROWS>  GLU -> depthwise conv over time -> LN
+//                          (or a folded BatchNorm affine) -> SiLU, optional
+//                          saves for a backward
 //   ada_rows_kernel        the Squeezeformer conv module's masked adaptive
 //                          scale
 //
 // Each GEMM sums over K in the same order (k = 0, 1, ...) whatever tile it
 // picks, so a row's result does not depend on how many rows share the
-// call: one stream and a batch of slots give the same bits.
+// call: one stream and a batch of slots give the same bits (serving.cuh's
+// gemm_sk splits K by a plan fixed by N and K, to the same end).
 //
 // Every launcher returns cudaGetLastError() (0 on success).
 #pragma once
@@ -607,16 +610,18 @@ cudaError_t gemm(const float* A, const float* W, const float* bias, float* C,
 //   y (B, T_out, D), where output row t reads u rows t - left .. t - left
 //   + k - 1. The norm is a compile-time choice: LN (kLN, gamma/beta its
 //   scale and shift) or the per-channel affine gamma * v + beta that a
-//   BatchNorm folds to in serving. One block per (16 output rows,
-//   utterance). The block stages the (16 + k - 1) rows of u it needs in
-//   smem; out-of-range rows are the conv padding: GLU(pw1 bias) before
-//   row 0 when `pad_bias`, zeros otherwise. For a backward the LN's output
-//   before SiLU (`pre`), its x-hat and 1/std are saved when given.
+//   BatchNorm folds to in serving. One block per (ROWS output rows,
+//   utterance): 16, or 4 for the chunk steps (rows 2 and 8), whose 16 rows
+//   a slot would give one block. The block stages the (ROWS + k - 1) rows
+//   of u it needs in smem; out-of-range rows are the conv padding: GLU(pw1
+//   bias) before row 0 when `pad_bias`, zeros otherwise. For a backward
+//   the LN's output before SiLU (`pre`), its x-hat and 1/std are saved
+//   when given.
 // ------------------------------------------------------------------------
 constexpr int kConvRows = 16;
 constexpr int kConvThreads = 256;
 
-template <bool kLN>
+template <bool kLN, int ROWS = kConvRows>
 __global__ void __launch_bounds__(kConvThreads)
     conv_module_kernel(const float* __restrict__ g,
                        const float* __restrict__ dww,
@@ -628,10 +633,10 @@ __global__ void __launch_bounds__(kConvThreads)
                        int pad_bias, float eps, float* __restrict__ pre,
                        float* __restrict__ xhat, float* __restrict__ rstd) {
   extern __shared__ float smem[];
-  const int W = kConvRows + ksize - 1;
+  const int W = ROWS + ksize - 1;
   float* us = smem;              // W x D
-  float* cs = us + W * D;        // kConvRows x D
-  const int b = blockIdx.y, t0 = blockIdx.x * kConvRows;
+  float* cs = us + W * D;        // ROWS x D
+  const int b = blockIdx.y, t0 = blockIdx.x * ROWS;
 
   for (int i = threadIdx.x; i < W * D; i += blockDim.x) {
     const int r = i / D, c = i % D, t = t0 - left + r;
@@ -645,7 +650,7 @@ __global__ void __launch_bounds__(kConvThreads)
     us[i] = val;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kConvRows * D; i += blockDim.x) {
+  for (int i = threadIdx.x; i < ROWS * D; i += blockDim.x) {
     const int r = i / D, c = i % D;
     float acc = 0.f;
     for (int j = 0; j < ksize; ++j)
@@ -654,7 +659,7 @@ __global__ void __launch_bounds__(kConvThreads)
   }
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kConvRows; r += blockDim.x / 32) {
+  for (int r = warp; r < ROWS; r += blockDim.x / 32) {
     const int t = t0 + r;
     if (t >= T_out) continue;
     const float* xr = cs + r * D;
@@ -685,20 +690,28 @@ __global__ void __launch_bounds__(kConvThreads)
 
 // norm: (2, D) scale and shift, of the LN (use_ln) or of the folded
 // per-channel affine (!use_ln); pre, xhat, rstd: optional saves for a
-// backward of the LN variant (nullptr: not saved)
+// backward of the LN variant (nullptr: not saved); rows: output rows per
+// block, kConvRows or kConvRowsChunk (the same bits either way)
+constexpr int kConvRowsChunk = 4;
+
 cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
                         const float* pw1b, const float* norm, float* y, int B,
                         int T_in, int T_out, int D, int ksize, int left,
                         int pad_bias, float eps, cudaStream_t stream,
                         float* pre = nullptr, float* xhat = nullptr,
-                        float* rstd = nullptr, bool use_ln = true) {
-  const size_t smem = sizeof(float) * (size_t)(2 * kConvRows + ksize - 1) * D;
-  auto kernel = use_ln ? conv_module_kernel<true>
-                           : conv_module_kernel<false>;
+                        float* rstd = nullptr, bool use_ln = true,
+                        int rows = kConvRows) {
+  const bool chunk = rows == kConvRowsChunk;
+  if (!chunk) rows = kConvRows;
+  const size_t smem = sizeof(float) * (size_t)(2 * rows + ksize - 1) * D;
+  auto kernel = use_ln ? (chunk ? conv_module_kernel<true, kConvRowsChunk>
+                                : conv_module_kernel<true>)
+                       : (chunk ? conv_module_kernel<false, kConvRowsChunk>
+                                : conv_module_kernel<false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T_out + kConvRows - 1) / kConvRows, B);
+  dim3 grid((T_out + rows - 1) / rows, B);
   kernel<<<grid, kConvThreads, smem, stream>>>(
       g, dww, dwb, pw1b, norm, norm + D, y, T_in, T_out, D, ksize, left,
       pad_bias, eps, pre, xhat, rstd);

@@ -51,7 +51,8 @@ from masr_tpu_torch.ops.common import (IGNORE_ID, add_sos_eos, dropout,
                                        th_accuracy)
 from masr_tpu_torch.ops.cuda.chunk_layer import (clamp_pos_starts,
                                                  fused_chunk_layer,
-                                                 make_chunk_pos_table)
+                                                 make_chunk_pos_table,
+                                                 pack_chunk_tc)
 from masr_tpu_torch.ops.cuda.conformer_layer import (fused_conformer_layer,
                                                      pack_layer_params)
 from masr_tpu_torch.ops.cuda.conformer_layer_train import \
@@ -100,6 +101,7 @@ class ConformerEncoderLayer(nn.Module):
         self.norm_conv = _layer_norm(size)
         self.norm_final = _layer_norm(size)
         self._packed, self._packed_key = None, None
+        self._chunk_packed = None
 
     def forward(self, x, mask, pos_emb, mask_pad, generator=None):
         """Eager reference. x: (B, T, D); mask: (B, 1|T, T) bool;
@@ -141,6 +143,16 @@ class ConformerEncoderLayer(nn.Module):
                 self._packed = pack_layer_params(self)
             self._packed_key = key
         return self._packed
+
+    def chunk_packed_params(self):
+        """packed_params() with the serving tensor-core pack of the chunk
+        kernel (pack_chunk_tc), rebuilt only when packed_params() is."""
+        packed = self.packed_params()
+        if self._chunk_packed is None or self._chunk_packed[0] is not packed:
+            with torch.no_grad():
+                self._chunk_packed = (packed,
+                                      {**packed, **pack_chunk_tc(packed)})
+        return self._chunk_packed[1]
 
     def forward_train(self, x, mask, seeds, lens, pos_emb, index):
         """The layer through the training-layer kernel, differentiable in x
@@ -300,13 +312,14 @@ class ConformerEncoder(nn.Module):
                 "wptr": zeros(batch, dtype=torch.int32)}
 
     def pack_chunk_params(self, cache_size=None, pos_table_len=8192):
-        """Per layer: (kernel weights, position table or None). With
+        """Per layer: (kernel weights with the serving tensor-core pack,
+        chunk_packed_params; position table or None). With
         cache_size, each layer gets its make_chunk_pos_table rows, and the
         chunk step reads every slot's position window from them in place
         of a per-step sinusoid and linear_pos product. Computed once per
         session."""
         with torch.no_grad():
-            return [(layer.packed_params(),
+            return [(layer.chunk_packed_params(),
                      None if cache_size is None else make_chunk_pos_table(
                          layer.self_attn.linear_pos.weight, cache_size,
                          pos_table_len))

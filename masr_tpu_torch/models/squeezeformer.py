@@ -60,6 +60,7 @@ from masr_tpu_torch.models.embedding import sinusoid_position_encoding
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.models.subsampling import DepthwiseConv2dSubsampling4
 from masr_tpu_torch.ops.common import dropout, get_activation
+from masr_tpu_torch.ops.cuda.chunk_layer import pack_chunk_tc
 from masr_tpu_torch.ops.cuda.chunk_layer_sq import fused_chunk_layer_sq
 from masr_tpu_torch.ops.cuda.squeezeformer_layer import (
     fused_squeezeformer_layer, pack_sq_layer_params)
@@ -186,6 +187,7 @@ class SqueezeformerEncoderLayer(nn.Module):
         self.layer_norm3 = nn.LayerNorm(size, eps=1e-6)
         self.layer_norm4 = nn.LayerNorm(size, eps=1e-6)
         self._packed, self._packed_key = None, None
+        self._chunk_packed = None
 
     def forward(self, x, mask, pos_emb, mask_pad, generator=None):
         """Eager reference, and the BatchNorm route of training. x: (B, T,
@@ -223,6 +225,16 @@ class SqueezeformerEncoderLayer(nn.Module):
                 self._packed = pack_sq_layer_params(self)
             self._packed_key = key
         return self._packed
+
+    def chunk_packed_params(self):
+        """packed_params() with the serving tensor-core pack of the chunk
+        kernel (pack_chunk_tc), rebuilt only when packed_params() is."""
+        packed = self.packed_params()
+        if self._chunk_packed is None or self._chunk_packed[0] is not packed:
+            with torch.no_grad():
+                self._chunk_packed = (packed,
+                                      {**packed, **pack_chunk_tc(packed)})
+        return self._chunk_packed[1]
 
     def forward_train(self, x, mask, seeds, lens, pos_emb, index,
                       generator=None):
@@ -490,10 +502,11 @@ class SqueezeformerEncoder(nn.Module):
                 "wptr": zeros(batch, dtype=torch.int32)}
 
     def pack_chunk_params(self, cache_size=None, pos_table_len=8192):
-        """Per layer: the kernel weights (BatchNorm folded). cache_size and
+        """Per layer: the kernel weights (BatchNorm folded) with the serving
+        tensor-core pack (chunk_packed_params). cache_size and
         pos_table_len are taken for the engine's call and unused: the
         positions come from the offsets at every step."""
-        return [layer.packed_params() for layer in self.encoders]
+        return [layer.chunk_packed_params() for layer in self.encoders]
 
     @torch.no_grad()
     def forward_chunk_batched(self, xs, state, packed=None, active=None,

@@ -13,15 +13,160 @@ PyTorch version, `fused_chunk_layer_plain`, only for CPU tensors. Both
 update the att and cnn caches in place for active slots and leave inactive
 slots' caches untouched. It counts its kernel launches in
 `fused_chunk_layer.launches`, one per layer call. Operands are f32.
+
+The kernel's products (and those of the Squeezeformer chunk kernel) run on
+the tensor cores in 3xTF32 with a split of K that depends on N and K alone
+(`split_plan`), so a slot's bits do not depend on how many slots share the
+call. Their weights come from the serving tensor-core pack
+(`pack_chunk_tc`): each weight split once into its TF32 halves, W_q, W_k,
+W_v side by side. A layer caches it with its serving pack
+(`chunk_packed_params`); the kernel takes a pack without it too, and then
+builds it for the call.
 """
 import ctypes
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from masr_tpu_torch.models.embedding import sinusoid_position_encoding
-from masr_tpu_torch.ops.cuda.conformer_layer import MASK_VALUE, PACKED_KEYS
+from masr_tpu_torch.ops.cuda.conformer_layer import MASK_VALUE
+from masr_tpu_torch.ops.cuda.tf32 import split_tf32
+
+K_TILE = 32          # the products' k-tile depth (csrc/common.cuh kTcBK)
+# the chunk kernels' products in their plans' order (csrc/serving.cuh
+# ChunkProduct): name, N and K as functions of (D, F)
+CHUNK_PRODUCTS = (("ffn_w1", lambda D, F_: (F_, D)),
+                  ("ffn_w2", lambda D, F_: (D, F_)),
+                  ("qkv", lambda D, F_: (3 * D, D)),
+                  ("out", lambda D, F_: (D, D)),
+                  ("pw1", lambda D, F_: (2 * D, D)),
+                  ("pw2", lambda D, F_: (D, D)))
+TC_KEYS = ("tc_ffw1", "tc_ffw2", "tc_qkv", "tc_out", "tc_pw1", "tc_pw2")
+# the serving pack's arrays that the chunk kernels read besides TC_KEYS
+CHUNK_KEYS = ("lnw", "ffb1", "vecb", "posb", "pw1b", "dww")
+
+
+def _halves(w):
+    """(.., K, N) f32 → (.., 2, K, N): its TF32 big and small halves."""
+    big, small = split_tf32(w.contiguous())
+    return torch.stack([big, small], dim=-3).contiguous()
+
+
+def pack_chunk_tc(packed):
+    """The serving tensor-core pack of a chunk layer, from its serving pack
+    (pack_layer_params or pack_sq_layer_params: the same product weights):
+    each product's weight (K, N) as its TF32 halves (2, K, N), big then
+    small, so the kernels split only the activations. tc_qkv holds [W_q |
+    W_k | W_v] (D, 3D): q, k and v are one product. → {TC_KEYS: f32}:
+    tc_ffw1 (2, 2, D, F), tc_ffw2 (2, 2, F, D), tc_qkv (2, D, 3D), tc_out,
+    tc_pw2 (2, D, D), tc_pw1 (2, D, 2D)."""
+    attw = packed["attw"]
+    return {"tc_ffw1": _halves(packed["ffw1"]),
+            "tc_ffw2": _halves(packed["ffw2"]),
+            "tc_qkv": _halves(torch.cat([attw[0], attw[1], attw[2]], dim=1)),
+            "tc_out": _halves(attw[3]),
+            "tc_pw1": _halves(packed["pw1w"]),
+            "tc_pw2": _halves(packed["pw2w"])}
+
+
+def with_chunk_tc(packed):
+    """packed with the serving tensor-core pack: as given if it holds one
+    (chunk_packed_params), else extended by pack_chunk_tc for this call."""
+    if all(k in packed for k in TC_KEYS):
+        return packed
+    return {**packed, **pack_chunk_tc(packed)}
+
+
+def split_plan(N, K):
+    """How the chunk kernels split the K of a product of width N: (parts,
+    part), part a multiple of K_TILE, part s covering k in [s·part,
+    min((s + 1)·part, K)). A function of N and K alone, never of the rows
+    M, so each output element is summed in the same order at any number of
+    slots. The fewest parts (a power of two, at most one per k-tile) that
+    give ~96 blocks of 8 columns on one 16-row tile (predict_stream's
+    grid; the engine's 512 rows fill 64 x 64 tiles): at the flagship's
+    widths FFN w_2, out and pw2 take 4 parts, pw1 2, the rest 1."""
+    k_tiles = -(-K // K_TILE)
+    parts = 1
+    while -(-N // 8) * parts < 96 and parts * 2 <= k_tiles:
+        parts *= 2
+    part = -(-k_tiles // parts) * K_TILE
+    return -(-K // part), part
+
+
+@functools.lru_cache(maxsize=64)
+def chunk_plans(B, c, D, F_, ksize):
+    """The wrapper's arguments for one chunk-layer call's products: their
+    plans (ChunkProduct order, flattened (parts, part) pairs), and the
+    floats of the split products' partial sums and the counters of their
+    output tiles (16 x 8, the smallest tile) that the call needs. Cached
+    per shape."""
+    M, rows_pw1 = B * c, B * (ksize - 1 + c)
+    plans, n_partials, n_counters = (), 0, 0
+    for name, nk in CHUNK_PRODUCTS:
+        N, K = nk(D, F_)
+        parts, part = split_plan(N, K)
+        plans += (parts, part)
+        rows = rows_pw1 if name == "pw1" else M
+        if parts > 1:
+            n_partials = max(n_partials, parts * rows * N)
+            n_counters = max(n_counters, -(-rows // 16) * -(-N // 8))
+    return plans, n_partials, n_counters
+
+
+def check_chunk_tc(packed, D, F_, device):
+    """Raises unless packed holds the serving tensor-core pack of a layer
+    of width D and FFN F_, f32, contiguous, on device."""
+    want = {"tc_ffw1": (2, 2, D, F_), "tc_ffw2": (2, 2, F_, D),
+            "tc_qkv": (2, D, 3 * D), "tc_out": (2, D, D),
+            "tc_pw1": (2, D, 2 * D), "tc_pw2": (2, D, D)}
+    for name, shape in want.items():
+        t = packed[name]
+        if t.device != device or t.dtype != torch.float32 or \
+                not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: the kernel takes contiguous f32 "
+                             f"{shape} on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def launch_chunk_kernel(fn, lead, tail, packed, keys, B, c, D, F_, ksize,
+                        device):
+    """Calls the chunk kernel's C entry fn: lead (its pointer arguments
+    before the weights), the weights packed[keys] and the tensor-core pack,
+    the plans, the output and the scratch (allocated here), tail (its
+    scalars), the current stream. → (CUDA error code, output (B, c, D))."""
+    plans, n_partials, n_counters = chunk_plans(B, c, D, F_, ksize)
+    M, W = B * c, ksize - 1 + c
+    n_ws = M * (3 * D + max(F_, 4 * D)) + B * W * 3 * D
+    out = torch.empty(B, c, D, dtype=torch.float32, device=device)
+    scratch = torch.empty(n_ws + n_partials + n_counters,
+                          dtype=torch.float32, device=device)
+    ptr = scratch.data_ptr()
+    with torch.cuda.device(device):
+        err = fn(*lead, *(packed[k].data_ptr() for k in keys + TC_KEYS),
+                 (ctypes.c_int * len(plans))(*plans), out.data_ptr(), ptr,
+                 ptr + 4 * n_ws, n_partials, ptr + 4 * (n_ws + n_partials),
+                 n_counters, *tail,
+                 torch.cuda.current_stream(device).cuda_stream)
+    return err, out
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_entry(name, symbol, n_ptrs, n_ints, n_floats):
+    """The C entry `symbol` of csrc/<name>.cu (built at first use), typed
+    for ctypes: n_ptrs pointers (operands and weights), the plans, out,
+    workspace, partials and their count, counters and their count, n_ints
+    ints, n_floats floats, the stream."""
+    from masr_tpu_torch.ops.cuda import build
+    fn = getattr(build.load(name), symbol)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.restype = i
+    fn.argtypes = ([p] * n_ptrs
+                   + [ctypes.POINTER(i), p, p, p, ctypes.c_longlong, p, i]
+                   + [i] * n_ints + [ctypes.c_float] * n_floats + [p])
+    return fn
 
 
 def make_chunk_pos_table(wpos, cache_size, table_len=8192):
@@ -200,13 +345,11 @@ def fused_chunk_layer_plain(x, pos, pos_starts, att_cache, cnn_cache,
 def _check(x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
            active, packed, ksize):
     B, c, D = x.shape
-    F_ = packed["ffw1"].shape[2]
-    want = {"lnw": (6, 2, D), "ffw1": (2, D, F_), "ffb1": (2, F_),
-            "ffw2": (2, F_, D), "vecb": (8, D), "attw": (4, D, D),
-            "posb": (2, D), "pw1w": (D, 2 * D), "pw1b": (1, 2 * D),
-            "pw2w": (D, D), "dww": (ksize, D)}
+    F_ = packed["ffb1"].shape[1]
+    want = {"lnw": (6, 2, D), "ffb1": (2, F_), "vecb": (8, D),
+            "posb": (2, D), "pw1b": (1, 2 * D), "dww": (ksize, D)}
     floats = {"x": x, "pos": pos, "att_cache": att_cache,
-              "cnn_cache": cnn_cache, **{k: packed[k] for k in PACKED_KEYS}}
+              "cnn_cache": cnn_cache, **{k: packed[k] for k in CHUNK_KEYS}}
     for name, t in floats.items():
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(f"{name}: the kernel takes f32 on {x.device}, "
@@ -216,6 +359,7 @@ def _check(x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
         if name in want and tuple(t.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
+    check_chunk_tc(packed, D, F_, x.device)
     if pos.dim() != 2 or pos.shape[1] != D:
         raise ValueError(f"pos: shape {tuple(pos.shape)}, expected (rows, "
                          f"{D})")
@@ -224,14 +368,16 @@ def _check(x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
         if t.dtype != torch.int32 or t.device != x.device or \
                 tuple(t.shape) != (B,) or not t.is_contiguous():
             raise ValueError(f"{name} must be (B,) int32 on the device of x")
+    return F_
 
 
 def fused_chunk_layer(x, pos, pos_starts, att_cache, cnn_cache, cache_lens,
                       wptrs, active, packed, *, n_head, ksize, n_sub=1,
                       ff_scale=0.5, eps=1e-5):
     """One streaming step of the layer over B slots (arguments as
-    fused_chunk_layer_plain). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises. The caller keeps every
+    fused_chunk_layer_plain; packed may also hold the serving tensor-core
+    pack, chunk_packed_params). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises. The caller keeps every
     pos_starts[s] + C + c within the rows of pos (clamp_pos_starts does).
     → (B, c, D) f32; the caches of active slots are updated in place."""
     B, c, D, C = _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub)
@@ -243,27 +389,18 @@ def fused_chunk_layer(x, pos, pos_starts, att_cache, cnn_cache, cache_lens,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     active = active.to(torch.int32)
-    _check(x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
-           active, packed, ksize)
-    from masr_tpu_torch.ops.cuda import build
-    lib = build.load("chunk_layer")
-    fn = lib.masr_chunk_layer_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    F_ = packed["ffw1"].shape[2]
-    M, W = B * c, ksize - 1 + c
-    out = torch.empty_like(x)
-    workspace = torch.empty(M * (3 * D + max(F_, 4 * D)) + B * W * 3 * D,
-                            dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), pos.data_ptr(), pos_starts.data_ptr(),
-                 att_cache.data_ptr(), cnn_cache.data_ptr(),
-                 cache_lens.data_ptr(), wptrs.data_ptr(), active.data_ptr(),
-                 *(packed[k].data_ptr() for k in PACKED_KEYS),
-                 out.data_ptr(), workspace.data_ptr(), B, c, C, D, F_,
-                 n_head, ksize, n_sub, float(ff_scale), float(eps),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    packed = with_chunk_tc(packed)
+    F_ = _check(x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs,
+                active, packed, ksize)
+    fn = chunk_entry("chunk_layer", "masr_chunk_layer_forward",
+                     8 + len(CHUNK_KEYS) + len(TC_KEYS), 8, 2)
+    lead = (x.data_ptr(), pos.data_ptr(), pos_starts.data_ptr(),
+            att_cache.data_ptr(), cnn_cache.data_ptr(),
+            cache_lens.data_ptr(), wptrs.data_ptr(), active.data_ptr())
+    err, out = launch_chunk_kernel(
+        fn, lead, (B, c, C, D, F_, n_head, ksize, n_sub, float(ff_scale),
+                   float(eps)), packed, CHUNK_KEYS, B, c, D, F_, ksize,
+        x.device)
     if err != 0:
         raise RuntimeError(f"chunk_layer kernel failed: CUDA error {err}")
     fused_chunk_layer.launches += 1

@@ -9,20 +9,24 @@ resolution), what bounds the kernel on the H100 and what is left for later.
 
 `fused_chunk_layer_sq` launches the kernel for CUDA tensors and takes the
 plain PyTorch version, `fused_chunk_layer_sq_plain`, only for CPU tensors.
+Its products run as the Conformer chunk kernel's (chunk_layer.py: the
+split plan and the serving tensor-core pack).
 Both update the att and cnn caches in place for active slots and leave
 inactive slots' caches untouched. It counts its kernel launches in
 `fused_chunk_layer_sq.launches`, one per layer call. Operands are f32.
 """
-import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from masr_tpu_torch.ops.cuda.chunk_layer import (glu_valid_depthwise_plain,
+from masr_tpu_torch.ops.cuda.chunk_layer import (TC_KEYS, check_chunk_tc,
+                                                 chunk_entry,
+                                                 glu_valid_depthwise_plain,
+                                                 launch_chunk_kernel,
                                                  ring_attention_plain,
+                                                 with_chunk_tc,
                                                  write_ring_plain)
-from masr_tpu_torch.ops.cuda.squeezeformer_layer import (SQ_PACKED_KEYS,
-                                                         check_sq_operands,
+from masr_tpu_torch.ops.cuda.squeezeformer_layer import (check_sq_operands,
                                                          sq_ffn_plain,
                                                          sq_layer_norms)
 
@@ -89,14 +93,19 @@ def fused_chunk_layer_sq_plain(x, pos, pos_starts, att_cache, cnn_cache,
     return out
 
 
+# the serving pack's arrays that the kernel reads besides TC_KEYS
+SQ_CHUNK_KEYS = ("lnw", "ada", "cnw", "vecb", "posb", "ffb1", "pw1b", "dww")
+
+
 def fused_chunk_layer_sq(x, pos, pos_starts, att_cache, cnn_cache,
                          cache_lens, wptrs, active, packed, *, n_head, ksize,
                          conv_ln, n_sub=1, rep=1, eps=1e-6, conv_eps=1e-5):
     """One streaming step of the layer over B slots (arguments as
-    fused_chunk_layer_sq_plain). A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises. The caller keeps every
-    pos_starts[s] + C + c within the rows of pos. → (B, c, D) f32; the
-    caches of active slots are updated in place."""
+    fused_chunk_layer_sq_plain; packed may also hold the serving
+    tensor-core pack, chunk_packed_params). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises. The caller keeps
+    every pos_starts[s] + C + c within the rows of pos. → (B, c, D) f32;
+    the caches of active slots are updated in place."""
     B, c, D, C = _shapes(x, att_cache, cnn_cache, n_head, ksize, n_sub, rep)
     if x.device.type == "cpu":
         return fused_chunk_layer_sq_plain(
@@ -106,9 +115,11 @@ def fused_chunk_layer_sq(x, pos, pos_starts, att_cache, cnn_cache,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     active = active.to(torch.int32)
+    packed = with_chunk_tc(packed)
     F_ = check_sq_operands({"x": x, "pos": pos, "att_cache": att_cache,
                             "cnn_cache": cnn_cache}, packed, D, ksize,
                            x.device)
+    check_chunk_tc(packed, D, F_, x.device)
     if pos.dim() != 2 or pos.shape[1] != D:
         raise ValueError(f"pos: shape {tuple(pos.shape)}, expected (rows, "
                          f"{D})")
@@ -117,25 +128,15 @@ def fused_chunk_layer_sq(x, pos, pos_starts, att_cache, cnn_cache,
         if t.dtype != torch.int32 or t.device != x.device or \
                 tuple(t.shape) != (B,) or not t.is_contiguous():
             raise ValueError(f"{name} must be (B,) int32 on the device of x")
-    from masr_tpu_torch.ops.cuda import build
-    lib = build.load("chunk_layer_sq")
-    fn = lib.masr_chunk_layer_sq_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 10
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    M, W = B * c, ksize - 1 + c
-    out = torch.empty_like(x)
-    workspace = torch.empty(M * (3 * D + max(F_, 4 * D)) + B * W * 3 * D,
-                            dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), pos.data_ptr(), pos_starts.data_ptr(),
-                 att_cache.data_ptr(), cnn_cache.data_ptr(),
-                 cache_lens.data_ptr(), wptrs.data_ptr(), active.data_ptr(),
-                 *(packed[k].data_ptr() for k in SQ_PACKED_KEYS),
-                 out.data_ptr(), workspace.data_ptr(), B, c, C, rep, D, F_,
-                 n_head, ksize, n_sub, int(bool(conv_ln)), float(eps),
-                 float(conv_eps),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    fn = chunk_entry("chunk_layer_sq", "masr_chunk_layer_sq_forward",
+                     8 + len(SQ_CHUNK_KEYS) + len(TC_KEYS), 10, 2)
+    lead = (x.data_ptr(), pos.data_ptr(), pos_starts.data_ptr(),
+            att_cache.data_ptr(), cnn_cache.data_ptr(),
+            cache_lens.data_ptr(), wptrs.data_ptr(), active.data_ptr())
+    err, out = launch_chunk_kernel(
+        fn, lead, (B, c, C, rep, D, F_, n_head, ksize, n_sub,
+                   int(bool(conv_ln)), float(eps), float(conv_eps)),
+        packed, SQ_CHUNK_KEYS, B, c, D, F_, ksize, x.device)
     if err != 0:
         raise RuntimeError(f"chunk_layer_sq kernel failed: CUDA error {err}")
     fused_chunk_layer_sq.launches += 1

@@ -2,13 +2,16 @@
 3xTF32 product (csrc/common.cuh's `split_tf32` / `mma_3xtf32`).
 
 TF32 keeps f32's 8-bit exponent and 10 of its 23 mantissa bits. The
-training-layer products (csrc/common.cuh's `gemm_tc_kernel`) and the flash
-attention (csrc/rel_pos_attention.cu) split each f32 operand into big =
-tf32(x) and small = tf32(x - big) and sum small_a.big_b + big_a.small_b +
-big_a.big_b with f32 accumulation: about f32's accuracy at three tensor-core
-products per product. These functions repeat that on any device so that a
-test can measure the error of 1xTF32 and 3xTF32 against f64
-(tests/test_torch_tf32.py); nothing on the main path calls them.
+training-layer products (csrc/common.cuh's `gemm_tc_kernel`), the flash
+attention (csrc/rel_pos_attention.cu) and the chunk steps' products and
+attention (csrc/serving.cuh's `gemm_sk_kernel`, `chunk_attention_kernel`)
+split each f32 operand into big = tf32(x) and small = tf32(x - big) and sum
+small_a.big_b + big_a.small_b + big_a.big_b with f32 accumulation: about
+f32's accuracy at three tensor-core products per product. These functions
+repeat that on any device so that a test can measure the error of 1xTF32
+and 3xTF32 against f64 (tests/test_torch_tf32.py); on the main path only
+`split_tf32` runs, once per weight, in the chunk kernels' tensor-core pack
+(chunk_layer.py pack_chunk_tc).
 """
 import torch
 
@@ -46,3 +49,16 @@ def mm_3xtf32_plain(a, b):
     ab, as_ = split_tf32(a)
     bb, bs = split_tf32(b)
     return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def mm_3xtf32_splitk_plain(a, b, plan):
+    """a @ b as the chunk kernels compute it (csrc/serving.cuh gemm_sk): K
+    cut by plan = (parts, part) (chunk_layer.py split_plan), each part's
+    3xTF32 product summed on its own, the parts added in the order s = 0,
+    1, ..."""
+    parts, part = plan
+    out = mm_3xtf32_plain(a[:, :part], b[:part])
+    for s in range(1, parts):
+        lo, hi = s * part, min((s + 1) * part, a.shape[1])
+        out = out + mm_3xtf32_plain(a[:, lo:hi], b[lo:hi])
+    return out

@@ -355,6 +355,116 @@ def test_chunk_layer_sq_kernel_matches_plain(cuda_device, shape, n_sub, rep):
     assert not torch.equal(a_k[:4], att[:4])
 
 
+def _slot_args(args, s, L=None):
+    """Slot s of a chunk kernel's arguments (x, pos, starts, att, cnn,
+    cache_lens, wptrs, active, packed) as a B=1 call: its caches cloned;
+    with L (exact positions, L rows per slot), its own window of pos from
+    row 0, else the shared table at its start."""
+    x, pos, starts, att, cnn, clens, wptrs, active, packed = args
+    one = slice(s, s + 1)
+    if L is not None:
+        pos, starts = pos[s * L:(s + 1) * L], torch.zeros_like(starts[one])
+    else:
+        starts = starts[one]
+    return (x[one], pos, starts, att[one].clone(), cnn[one].clone(),
+            clens[one], wptrs[one], active[one], packed)
+
+
+def _assert_batch_invariant(fn, args, kw, L):
+    """Each slot's output and updated caches from a B=1 call equal bit for
+    bit its slice of one call over all the slots."""
+    att0, cnn0 = args[3].clone(), args[4].clone()
+    with torch.no_grad():
+        y = fn(*args, **kw)
+        for s in range(args[0].shape[0]):
+            one = _slot_args(args[:3] + (att0, cnn0) + args[5:], s, L)
+            y1 = fn(*one, **kw)
+            assert torch.equal(y1, y[s:s + 1]), ("out", s)
+            assert torch.equal(one[3], args[3][s:s + 1]), ("att", s)
+            assert torch.equal(one[4], args[4][s:s + 1]), ("cnn", s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["exact", "table"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+def test_chunk_layer_kernel_batch_invariant(cuda_device, n_sub, route):
+    """fused_chunk_layer (CUDA) at the flagship's engine shape (B=32,
+    c=16·n_sub, C=256, cache_len {0, 5, 100, 256}, four inactive slots):
+    each slot's output and updated caches from a B=1 call equal bit for
+    bit its slice of the B=32 call (the split of K and every sum order are
+    functions of the widths alone)."""
+    D, H, FF, K = 256, 4, 2048, 15
+    B, c, C = 32, 16 * n_sub, 256
+    L = C + c
+    layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K, causal=True)
+    layer.load_state_dict(seeded_state_dict(layer, seed=21))
+    layer = layer.to(cuda_device).eval()
+    g = torch.Generator().manual_seed(22 + n_sub)
+    x = torch.randn(B, c, D, generator=g).to(cuda_device)
+    att = (0.5 * torch.randn(B, H, C, 2 * D // H, generator=g)).to(
+        cuda_device)
+    cnn = (0.5 * torch.randn(B, K - 1, D, generator=g)).to(cuda_device)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda_device)
+
+    clens = [(0, 5, 100, C)[s % 4] for s in range(B)]
+    offsets = i32([n + 16 * s if n else 0 for s, n in enumerate(clens)])
+    with torch.no_grad():
+        if route == "table":
+            pos = ck.make_chunk_pos_table(layer.self_attn.linear_pos.weight,
+                                          C, table_len=2048)
+            starts = ck.clamp_pos_starts(offsets, 2048, L)
+        else:
+            rows = torch.clamp(offsets[:, None] - C
+                               + torch.arange(L, device=cuda_device), min=0)
+            pos = layer.self_attn.linear_pos(
+                sinusoid_position_encoding(rows.reshape(-1), D))
+            starts = torch.arange(B, dtype=torch.int32,
+                                  device=cuda_device) * L
+    args = (x, pos, starts, att, cnn, i32(clens),
+            i32([(37 * s) % C for s in range(B)]),
+            i32([0 if s in (3, 10, 17, 29) else 1 for s in range(B)]),
+            layer.chunk_packed_params())
+    _assert_batch_invariant(ck.fused_chunk_layer, args,
+                            dict(n_head=H, ksize=K, n_sub=n_sub),
+                            L if route == "exact" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2], ids=["full_rate", "half_rate"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+def test_chunk_layer_sq_kernel_batch_invariant(cuda_device, n_sub, rep):
+    """fused_chunk_layer_sq (CUDA) at the flagship Squeezeformer's engine
+    shape, full rate (c=16·n_sub, C=256) and half rate (c=8·n_sub, C=128
+    on the full-resolution ring): each slot's output and updated caches
+    from a B=1 call equal bit for bit its slice of the B=32 call."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    D, H, FF, K = 256, 4, 2048, 31
+    B, c, C = 32, 16 * n_sub // rep, 256 // rep
+    L = C + c
+    layer = _sq_layer(D, H, FF, K, True, "batch_norm", 23, cuda_device)
+    g = torch.Generator().manual_seed(24 + n_sub + rep)
+    x = torch.randn(B, c, D, generator=g).to(cuda_device)
+    att = (0.5 * torch.randn(B, H, C * rep, 2 * D // H, generator=g)).to(
+        cuda_device)
+    cnn = (0.5 * torch.randn(B, K - 1, D, generator=g)).to(cuda_device)
+    pos = torch.randn(B * L, D, generator=g).to(cuda_device)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda_device)
+
+    args = (x, pos, torch.arange(B, dtype=torch.int32,
+                                 device=cuda_device) * L,
+            att, cnn, i32([(0, 5, C // 2, C)[s % 4] for s in range(B)]),
+            i32([(C - 3 - 7 * s) % C for s in range(B)]),
+            i32([0 if s in (3, 10, 17, 29) else 1 for s in range(B)]),
+            layer.chunk_packed_params())
+    _assert_batch_invariant(cks.fused_chunk_layer_sq, args,
+                            dict(n_head=H, ksize=K, conv_ln=False,
+                                 n_sub=n_sub, rep=rep), L)
+
+
 @pytest.mark.cuda
 def test_squeezeformer_flagship_launches(cuda_device):
     """The flagship Squeezeformer (configs/squeezeformer.yml widths, 12

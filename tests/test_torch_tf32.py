@@ -13,6 +13,8 @@ data of the layers' scale (measured on this suite's seeds):
   weight grad (2048 x 256 over 2392), rel   2.7e-4 (fail)  4.2e-7
   attention tile: 64 x 64 scores over 128,
     64-key P.V, output abs                  6.7e-4 (fail)  9.5e-7
+  chunk step's FFN w_2: (512 x 256 over
+    2048), split_plan's 16 parts, abs       4.7e-4 (fail)  3.9e-7
 
 One TF32 product keeps ~3 decimal digits and misses both tolerances; three
 (big and small halves) stay within f32's own error (f32 products give
@@ -21,8 +23,10 @@ One TF32 product keeps ~3 decimal digits and misses both tolerances; three
 import numpy as np
 import torch
 
+from masr_tpu_torch.ops.cuda.chunk_layer import split_plan
 from masr_tpu_torch.ops.cuda.tf32 import (mm_1xtf32_plain, mm_3xtf32_plain,
-                                          split_tf32, tf32_round)
+                                          mm_3xtf32_splitk_plain, split_tf32,
+                                          tf32_round)
 
 KERNEL_ATOL = 2e-4
 GRAD_RTOL = 1e-4
@@ -89,3 +93,25 @@ def test_3xtf32_holds_the_attention_tolerance():
         errs.append((mm(p, v).double() - ref).abs().max().item())
     one, three = errs
     assert three <= KERNEL_ATOL / 10 and one > KERNEL_ATOL, (one, three)
+
+
+def test_3xtf32_split_k_holds_the_chunk_tolerance():
+    """The chunk step's FFN w_2 at the engine's shape: SiLU rows (512 x
+    2048) . a w_2 of torch's Linear init (2048 x 256), in split_plan(256,
+    2048)'s parts (3xTF32 each, added in order) as the chunk kernels run
+    it, within KERNEL_ATOL of f64 by a factor of 10 and no worse than the
+    unsplit 3xTF32 product by more than f32's rounding of the sum; one
+    TF32 product misses KERNEL_ATOL."""
+    rs = np.random.RandomState(2)
+    h = torch.nn.functional.silu(torch.from_numpy(
+        rs.randn(512, 2048).astype(np.float32)))
+    w = torch.from_numpy(rs.uniform(-2048 ** -0.5, 2048 ** -0.5,
+                                    (2048, 256)).astype(np.float32))
+    ref = h.double() @ w.double()
+    plan = split_plan(256, 2048)
+    assert plan[0] > 1
+    split = (mm_3xtf32_splitk_plain(h, w, plan).double()
+             - ref).abs().max().item()
+    one, three = _errors(h, w, ref)
+    assert split <= KERNEL_ATOL / 10 and one > KERNEL_ATOL, (one, split)
+    assert split <= three + 1e-6, (split, three)
