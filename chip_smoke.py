@@ -208,8 +208,9 @@ STRIDE_SAMPLES = 10240                     # 0.64 s: one window further
 FIRST_WINDOW_SAMPLES = 10960               # 67 frames of 25 ms every 10 ms
 ENGINE_STREAMS = 32
 # H100 SXM data sheet, dense, at its 700 W limit: f32 outside the tensor
-# cores, TF32 on them, HBM3 bandwidth. A 3xTF32 product (rows 3, 5, 7: f32
-# accuracy from three TF32 products) peaks at a third of TF32's rate.
+# cores, TF32 on them, HBM3 bandwidth. A 3xTF32 product (every layer and
+# attention kernel: f32 accuracy from three TF32 products) peaks at a third
+# of TF32's rate.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
@@ -256,9 +257,23 @@ def layer_inputs(layer, lens, T, seed, device):
 
 
 def run_layer(fn, layer, x, lens, pos_p):
-    return fn(x, lens, pos_p, layer.packed_params(),
+    # the main path's pack: the serving tensor-core pack with the rest
+    return fn(x, lens, pos_p, layer.chunk_packed_params(),
               n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
               causal=layer.causal)
+
+
+def utterance_bits_match(run, layer, x, lens, pos_p, got, what):
+    """Each utterance's B=1 call of a full-context layer kernel gives the
+    bits of its slice of the batched call `got` (its products' split of K
+    depends on K alone, its attention on the utterance alone). → number of
+    utterances checked."""
+    with torch.no_grad():
+        for b in range(x.shape[0]):
+            one = run(layer, x[b:b + 1], lens[b:b + 1], pos_p)
+            check(torch.equal(one[0], got[b]), f"utterance {b} alone gives "
+                  f"the bits of its slice of the batch ({what})")
+    return x.shape[0]
 
 
 def phase_kernels(dev):
@@ -275,14 +290,18 @@ def phase_kernels(dev):
                 want = run_layer(cl.fused_conformer_layer_plain, layer, x,
                                  lens_t, pos_p)
             torch.cuda.synchronize()
+            what = f"T'={T}, causal={causal}"
             check(bool(torch.isfinite(got).all()),
-                  f"kernel output finite (T'={T}, causal={causal})")
+                  f"kernel output finite ({what})")
             err = max((got[b, :n] - want[b, :n]).abs().max().item()
                       for b, n in enumerate(lens) if n)
             check(err <= KERNEL_ATOL, f"kernel vs plain max abs err {err} "
-                  f"<= {KERNEL_ATOL} (T'={T}, causal={causal})")
+                  f"<= {KERNEL_ATOL} ({what})")
+            bits = utterance_bits_match(
+                lambda m, *a: run_layer(cl.fused_conformer_layer, m, *a),
+                layer, x, lens_t, pos_p, got, what)
             cases.append({"T": T, "lens": lens, "causal": causal,
-                          "max_abs_err": err})
+                          "max_abs_err": err, "b1_bits_equal": bits})
             worst = max(worst, err)
     emit({"phase": "kernels", "kernel": "fused_conformer_layer", "B": 4,
           "D": 256, "heads": 4, "ffn": 2048, "conv_kernel": 15,
@@ -546,8 +565,8 @@ def _bound(flops, nbytes):
 
 def _bound_3xtf32(flops, nbytes):
     """The same work on the tensor cores in 3xTF32 (three TF32 products
-    per product): the bound beside the f32 one for rows 2, 3, 5, 7 and
-    8."""
+    per product): the bound beside the f32 one for every kernel but CTC
+    (rows 1, 2, 3, 5, 6, 7 and 8)."""
     return {"bound_3xtf32_ms": max(3 * flops / PEAK_TF32_FLOPS,
                                    nbytes / PEAK_BYTES_S) * 1e3}
 
@@ -575,7 +594,7 @@ def layer_bound(layer, lens, T):
              + 2 * M * D * K                      # depthwise
              + sum(6 * D * n * n for n in lens))  # [q+u|q+v].[k|p], AV
     nbytes = _weight_bytes(layer) + 4 * (2 * len(lens) * T * D + T * D)
-    return _bound(flops, nbytes)
+    return {**_bound(flops, nbytes), **_bound_3xtf32(flops, nbytes)}
 
 
 def chunk_bound(layer, clens, active, c, C, rep=1):
@@ -1086,7 +1105,7 @@ def seeded_sq_layer(seed, causal, conv_norm, device):
 
 
 def run_sq_layer(fn, layer, x, lens, pos_p):
-    return fn(x, lens, pos_p, layer.packed_params(),
+    return fn(x, lens, pos_p, layer.chunk_packed_params(),
               n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
               causal=layer.causal, conv_ln=layer.conv_ln)
 
@@ -1140,7 +1159,8 @@ def sq_chunk_case(B, rep, n_sub):
 def phase_sq_kernels(dev):
     """The full-context Squeezeformer layer kernel vs its plain twin at the
     flagship width, B=4 ragged, T' in {37, 150, 299, 1500}, BatchNorm and
-    layer_norm conv norms (causal; non-causal too at T'=299); the chunk
+    layer_norm conv norms (causal; non-causal too at T'=299), each
+    utterance alone giving the bits of its slice of the batch; the chunk
     kernel vs its plain twin at B=32 and B=1, full rate (c=16, C=256) and
     half rate (c=8, C=128 on the full-resolution ring), n_sub 2 at B=32."""
     from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
@@ -1167,8 +1187,13 @@ def phase_sq_kernels(dev):
                       for b, n in enumerate(lens) if n)
             check(err <= KERNEL_ATOL, f"sq layer kernel vs plain max abs err "
                   f"{err} <= {KERNEL_ATOL} ({what})")
+            bits = utterance_bits_match(
+                lambda m, *a: run_sq_layer(sq.fused_squeezeformer_layer, m,
+                                           *a),
+                layer, x, lens_t, pos_p, got, what)
             cases.append({"T": T, "lens": lens, "conv_norm": conv_norm,
-                          "causal": causal, "max_abs_err": err})
+                          "causal": causal, "max_abs_err": err,
+                          "b1_bits_equal": bits})
             worst = max(worst, err)
     chunk_cases, chunk_worst = [], 0.0
     for B, rep, n_sub in ((32, 1, 1), (32, 2, 1), (32, 1, 2), (32, 2, 2),

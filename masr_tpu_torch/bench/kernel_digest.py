@@ -5,14 +5,17 @@
 Runs the three Conformer layer kernels of the package importable from the
 working directory on fixed seeded inputs at the flagship width (D=256, 4
 heads, FFN 2048, conv 15):
-  - fused_conformer_layer at B=8, T'=299, lens 299..33;
+  - fused_conformer_layer at B=8, T'=299, lens 299..33, and at B=1 on
+    utterance 2's inputs;
   - fused_chunk_layer at B=32, c=16, C=256, table positions, cache_len
     {0, 5, 100, 256}, four inactive slots, and at B=1 on slot 7's inputs
     (a full cache: predict_stream's shape);
   - fused_conformer_layer_train, forward and backward, at B=8, T'=299 with
     a dynamic-chunk mask and dropout 0.1;
 and, in a tree that has them, fused_squeezeformer_layer (the
-Squeezeformer's width: conv 31, BatchNorm conv) and
+Squeezeformer's width: conv 31; BatchNorm and layer_norm conv, each at
+T'=299 and at the half rate's T'=150 with the lens halved, rounding up;
+B=8 and B=1) and
 fused_squeezeformer_layer_train (layer_norm conv) on the same inputs,
 fused_chunk_layer_sq at B=32 and at B=1 (slot 7) at full rate (c=16,
 C=256) and half rate (c=8, C=128 on the full-resolution ring), and
@@ -20,21 +23,23 @@ rel_pos_flash_attention (4 heads, d_k 64) at B=8, T'=1500 under a static
 chunk of 16 with lens 1500..800 and 0 (rows that see no key).
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
-calls, the card's name and power limit, for the training layers (forward
-+ backward), the flash attention and the chunk layers (B=32 and B=1) the
-device time per call of each CUDA kernel they launch (torch.profiler),
-whether each chunk layer's B=1 call gave slot 7's bits of the B=32 call
-(`batch_invariant`), the host time to enqueue one chunk-layer call
-(`host_ms`), and, as a yardstick only, the device time of a
-torch.matmul in f32 of each product shape of the chunk layers (`matmul`;
-the kernels never call it). Two trees whose digests are equal computed the
-same bits; run both on one card, one after the other in the order A, B, B,
-A, to compare their times. Uses only entry points that every tree since
+calls, the card's name and power limit, for every kernel but CTC the
+device time per call of each CUDA kernel it launches (torch.profiler:
+`kernels` by name, and for the serving layers `launch_split`, each launch
+of one call in launch order, so that products of different shapes stand
+apart), whether each serving layer's B=1 call gave the bits of its slice
+of the batched call (`batch_invariant`), the host time to enqueue one
+serving-layer call (`host_ms`), and, as a yardstick only, the device time
+of a torch.matmul in f32 of each product shape of the serving layers
+(`matmul`; the kernels never call it). Two trees whose digests are equal
+computed the same bits; run both on one card, one after the other in the
+order A, B, B, A, to compare their times. Uses only entry points that every tree since
 the training slice has (and a layer's chunk_packed_params where the tree
 has it), so it can be copied into an older tree.
 """
 import hashlib
 import json
+import re
 import subprocess
 import time
 
@@ -98,6 +103,50 @@ def _kernels(fn, n=3):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _short(name):
+    """A CUDA kernel's name without its namespace and parameter list."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = re.sub(r"^void ", "", name)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0 and i > 0:
+            return name[:i]
+    return name
+
+
+def _launch_split(fn, n=3):
+    """Device time (ms) of each CUDA kernel, memset and copy that one call
+    of fn launches, in launch order ("NN name"), averaged over n calls
+    (torch.profiler), and their "total". Where the calls' device events do
+    not line up, the time per call of each name instead, and the number of
+    events under "unaligned_events"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    per = len(evs) // n
+    aligned = bool(evs) and len(evs) % n == 0 and all(
+        len({_short(evs[i + j * per].name) for j in range(n)}) == 1
+        for i in range(per))
+    out = {}
+    for i, e in enumerate(evs):
+        key = f"{i % per:02d} {_short(e.name)}" if aligned else _short(e.name)
+        out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / n / 1e3
+    out["total"] = sum(out.values())
+    if not aligned:
+        out["unaligned_events"] = len(evs)
+    return out
+
+
 def _same_bits(got, want):
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -109,6 +158,14 @@ def _chunk_products(B, c, D, F, ksize):
     return {"ffn_w1": ((M, F, D), 2), "ffn_w2": ((M, D, F), 2),
             "qkv": ((M, 3 * D, D), 1), "out_pw2": ((M, D, D), 2),
             "pw1": ((B * (ksize - 1 + c), 2 * D, D), 1)}
+
+
+def _full_products(M, D, F):
+    """(M, N, K) of a full-context layer call's products over M = B·T'
+    rows (q/k/v as one product), and how many times the call runs each."""
+    return {"ffn_w1": ((M, F, D), 2), "ffn_w2": ((M, D, F), 2),
+            "qkv": ((M, 3 * D, D), 1), "out_pw2": ((M, D, D), 2),
+            "pw1": ((M, 2 * D, D), 1)}
 
 
 def _matmul(products, dev):
@@ -145,6 +202,7 @@ def main():
     layer = layer.to(dev).eval()
     g = torch.Generator().manual_seed(8)
     digests, ms, kernels, invariant, matmul, host = {}, {}, {}, {}, {}, {}
+    split = {}
     B, T = 8, 299
     lens = torch.tensor([299, 281, 250, 220, 180, 150, 90, 33],
                         dtype=torch.int32, device=dev)
@@ -153,13 +211,27 @@ def main():
     with torch.no_grad():
         posp = layer.self_attn.linear_pos(sinusoid_position_encoding(r, 256))
         packed = layer.packed_params()
+        # the layer's cached pack, with the tensor-core arrays where the
+        # tree has them (a tree whose row 1 ignores them reads the rest)
+        packed_c = getattr(layer, "chunk_packed_params",
+                           layer.packed_params)()
+        u = slice(2, 3)
 
-        def row1():
-            return cl.fused_conformer_layer(x, lens, posp, packed, n_head=4,
-                                            ksize=15, causal=True)
+        def row1(s=slice(None)):
+            return cl.fused_conformer_layer(x[s], lens[s], posp, packed_c,
+                                            n_head=4, ksize=15, causal=True)
 
-        digests["fused_conformer_layer"] = _digest([row1()])
+        y = row1()
+        digests["fused_conformer_layer"] = _digest([y])
+        y1 = row1(u)
+        digests["fused_conformer_layer_B1"] = _digest([y1])
+        invariant["fused_conformer_layer"] = _same_bits([y1], [y[u]])
         ms["fused_conformer_layer"] = _ms(row1)
+        host["fused_conformer_layer"] = _host_ms(row1)
+        kernels["fused_conformer_layer"] = _kernels(row1)
+        split["fused_conformer_layer"] = _launch_split(row1)
+        matmul["fused_conformer_layer"] = _matmul(
+            _full_products(B * T, 256, 2048), dev)
 
         N, c, C = 32, 16, 256
         xc = torch.randn(N, c, 256, generator=g).to(dev)
@@ -179,8 +251,6 @@ def main():
         a, n = att.clone(), cnn.clone()
         one = slice(7, 8)
         a1, n1 = att[one].clone(), cnn[one].clone()
-        packed_c = getattr(layer, "chunk_packed_params",
-                           layer.packed_params)()
 
         def row2(a=a, n=n, s=slice(None)):
             return ck.fused_chunk_layer(xc[s], table, starts[s], a, n,
@@ -201,6 +271,7 @@ def main():
             ms[name] = _ms(fn)
             host[name] = _host_ms(fn)
             kernels[name] = _kernels(fn)
+            split[name] = _launch_split(fn)
         for b in (N, 1):
             matmul[f"fused_chunk_layer_B{b}"] = _matmul(
                 _chunk_products(b, c, 256, 2048, 15), dev)
@@ -247,17 +318,40 @@ def main():
         bn = SqueezeformerEncoderLayer(256, 4, 2048, 31, "batch_norm", True)
         bn.load_state_dict(seeded_state_dict(bn, seed=10))
         bn = bn.to(dev).eval()
-        with torch.no_grad():
-            bn_posp = bn.self_attn.linear_pos(sinusoid_position_encoding(
-                r, 256))
+        ln = SqueezeformerEncoderLayer(256, 4, 2048, 31, "layer_norm", True)
+        ln.load_state_dict(seeded_state_dict(ln, seed=13))
+        ln = ln.to(dev).eval()
+        # full rate (T'=299) and half rate (T'=150, lens halved rounding
+        # up, as the time reduction gives); BatchNorm and layer_norm conv
+        for norm, lyr in (("", bn), ("_ln", ln)):
+            for rate, Tr in (("", T), ("_half", (T + 1) // 2)):
+                name = f"fused_squeezeformer_layer{norm}{rate}"
+                lens_r = (lens + 1) // 2 if rate else lens
+                xr = x[:, :Tr].contiguous()
+                with torch.no_grad():
+                    posp_r = lyr.self_attn.linear_pos(
+                        sinusoid_position_encoding(r[:Tr], 256))
+                    pk = getattr(lyr, "chunk_packed_params",
+                                 lyr.packed_params)()
 
-            def row6():
-                return sql.fused_squeezeformer_layer(
-                    x, lens, bn_posp, bn.packed_params(), n_head=4, ksize=31,
-                    causal=True, conv_ln=False)
+                    def row6(s=slice(None), xr=xr, lens_r=lens_r,
+                             posp_r=posp_r, pk=pk, lyr=lyr):
+                        return sql.fused_squeezeformer_layer(
+                            xr[s], lens_r[s], posp_r, pk, n_head=4, ksize=31,
+                            causal=True, conv_ln=lyr.conv_ln)
 
-            digests["fused_squeezeformer_layer"] = _digest([row6()])
-            ms["fused_squeezeformer_layer"] = _ms(row6)
+                    y = row6()
+                    digests[name] = _digest([y])
+                    y1 = row6(u)
+                    digests[name + "_B1"] = _digest([y1])
+                    invariant[name] = _same_bits([y1], [y[u]])
+                    ms[name] = _ms(row6)
+                    host[name] = _host_ms(row6)
+                    kernels[name] = _kernels(row6)
+                    split[name] = _launch_split(row6)
+                    if not norm:
+                        matmul[name] = _matmul(
+                            _full_products(B * Tr, 256, 2048), dev)
         try:
             from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
         except ImportError:
@@ -316,6 +410,7 @@ def main():
                     ms[nm] = _ms(fn)
                     host[nm] = _host_ms(fn)
                     kernels[nm] = _kernels(fn)
+                    split[nm] = _launch_split(fn)
                 for b in (N, 1):
                     matmul[f"{name}_B{b}"] = _matmul(
                         _chunk_products(b, c, D, 2048, 31), dev)
@@ -360,7 +455,8 @@ def main():
                           text=True, check=True).stdout.strip()
     print(json.dumps({"digests": digests, "ms": ms, "card": card,
                       "kernels": kernels, "batch_invariant": invariant,
-                      "matmul": matmul, "host_ms": host}),
+                      "matmul": matmul, "host_ms": host,
+                      "launch_split": split}),
           flush=True)
 
 

@@ -9,21 +9,20 @@
 //   layer_norm_kernel      one warp per row, f32 statistics, optional
 //                          zeroing of rows t >= len, optional saved x-hat
 //                          and 1/std for a backward
-//   gemm_kernel<.., TA, TB, E>  C = E(op(A).op(B)), shared-memory tiled
-//                          f32 FMA main loop, either operand transposed,
-//                          batched, with a compile-time epilogue functor E:
-//                          the full-context serving kernels' products (rows
-//                          1 and 6 of PERF.md's kernel table) with ServeEpi:
-//                          plain, SiLU, scaled residual, row-masked residual
 //   split_tf32, mma_3xtf32, cp_async*  tensor-core and async-copy pieces:
 //                          3xTF32 products (f32 accuracy on the TF32 tensor
 //                          cores) and cp.async copies with zero fill; with
-//                          ServeEpi they also make serving.cuh's gemm_sk,
-//                          the chunk steps' products (rows 2 and 8)
-//   gemm_tc_kernel<.., TA, TB, E>  the same contract as gemm_kernel on the
-//                          tensor cores (3xTF32 mma.sync, a 3-stage cp.async
-//                          ring): every product of the training layers
-//                          (rows 3 and 7, through training.cuh)
+//                          the epilogue functor ServeEpi (plain, SiLU,
+//                          scaled residual, row-masked residual) they make
+//                          serving.cuh's gemm_sk, the serving layers'
+//                          products (rows 1, 2, 6 and 8 of PERF.md's kernel
+//                          table), and flash_attention.cuh's flash kernel
+//   gemm_tc_kernel<.., TA, TB, E>  C = E(op(A).op(B)) on the tensor cores
+//                          (3xTF32 mma.sync, a 3-stage cp.async ring),
+//                          either operand transposed, batched, with a
+//                          compile-time epilogue functor E: every product
+//                          of the training layers (rows 3 and 7, through
+//                          training.cuh)
 //   conv_module_kernel<kLN, ROWS>  GLU -> depthwise conv over time -> LN
 //                          (or a folded BatchNorm affine) -> SiLU, optional
 //                          saves for a backward
@@ -152,19 +151,8 @@ __global__ void layer_norm_kernel(const float* __restrict__ x,
 }
 
 // ------------------------------------------------------------------------
-// C = epi(op(A) (M, K) . op(B) (K, N)), row-major f32, optionally batched:
-// op(A)(m, k) = TA ? A[k lda + m] : A[m lda + k], op(B)(k, n) = TB ?
-// B[n ldb + k] : B[k ldb + n]; matrix z of a batch (blockIdx.z) starts
-// (z / div) s1 + (z % div) s2 floats into its array. BM x BN block tile,
-// BK = 8 deep, each thread a TM x TN micro-tile whose rows/cols are
-// strided by the thread grid (conflict-free smem reads, coalesced stores).
-// Ragged edges are zero-filled on load, masked on store.
-//
-// The epilogue is a compile-time functor E: r = e.row(m) once per output
-// row, then e(C, o, r, n, acc) stores element (m, n) at C[o], o counted
-// from C's start (batch offset included), so arrays laid out like C share
-// it. An epilogue may read R = C (in-place residual update): each element
-// is read and written by the same thread.
+// Batched products: matrix z of a batch (blockIdx.z) starts (z / div) s1 +
+// (z % div) s2 floats into its array.
 // ------------------------------------------------------------------------
 struct Batch {
   long long s1 = 0, s2 = 0;
@@ -173,96 +161,6 @@ struct Batch {
 
 __device__ __forceinline__ long long batch_off(const Batch& b, int z) {
   return (long long)(z / b.div) * b.s1 + (long long)(z % b.div) * b.s2;
-}
-
-template <int BM, int BN, int TM, int TN, bool TA, bool TB, class E>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                float* C, int M, int N, int K, int lda, int ldb, int ldc,
-                Batch ba, Batch bb, Batch bc, E e) {
-  constexpr int BK = 8;
-  constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + (TB ? 4 : 0)];
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
-  A += batch_off(ba, z);
-  Bm += batch_off(bb, z);
-  const size_t co = (size_t)batch_off(bc, z);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int r = TA ? i % BM : i / BK, c = TA ? i / BM : i % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      float v = 0.f;
-      if (gm < M && gk < K)
-        v = TA ? A[(size_t)gk * lda + gm] : A[(size_t)gm * lda + gk];
-      As[c][r] = v;
-    }
-#pragma unroll
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int r = TB ? i % BK : i / BN, c = TB ? i / BK : i % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      float v = 0.f;
-      if (gk < K && gn < N)
-        v = TB ? Bm[(size_t)gn * ldb + gk] : Bm[(size_t)gk * ldb + gn];
-      Bs[r][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], w[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = Bs[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * TY;
-    if (m >= M) continue;
-    const auto r = e.row(m);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n >= N) continue;
-      e(C, co + (size_t)m * ldc + n, r, n, acc[i][j]);
-    }
-  }
-}
-
-template <bool TA, bool TB, class E>
-cudaError_t gemm_launch(const float* A, const float* B, float* C, int M,
-                        int N, int K, int lda, int ldb, int ldc, const E& e,
-                        cudaStream_t stream, int batch = 1,
-                        Batch ba = Batch(), Batch bb = Batch(),
-                        Batch bc = Batch()) {
-  if (M <= 0 || N <= 0 || batch <= 0) return cudaGetLastError();
-  // big tiles once they fill the 132 SMs, small ones otherwise
-  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128) * batch;
-  if (big_tiles >= 132) {
-    dim3 grid((N + 127) / 128, (M + 127) / 128, batch);
-    gemm_kernel<128, 128, 8, 8, TA, TB, E><<<grid, 256, 0, stream>>>(
-        A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e);
-  } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64, batch);
-    gemm_kernel<64, 64, 4, 4, TA, TB, E><<<grid, 256, 0, stream>>>(
-        A, B, C, M, N, K, lda, ldb, ldc, ba, bb, bc, e);
-  }
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------------
@@ -367,9 +265,15 @@ __device__ __forceinline__ void load_tile_async(float* s, const float* g,
 }
 
 // ------------------------------------------------------------------------
-// gemm_tc_kernel: gemm_kernel's contract (op(A), op(B), Batch, epilogue E
-// per element, ragged edges zero-filled on load and masked on store,
-// in-place residual allowed) on the tensor cores. BM x BN block tile of
+// gemm_tc_kernel: C = E(op(A) (M, K) . op(B) (K, N)), row-major f32,
+// optionally batched (Batch): op(A)(m, k) = TA ? A[k lda + m] : A[m lda +
+// k], op(B)(k, n) = TB ? B[n ldb + k] : B[k ldb + n]. The epilogue is a
+// compile-time functor E: r = e.row(m) once per output row, then e(C, o,
+// r, n, acc) stores element (m, n) at C[o], o counted from C's start (batch
+// offset included), so arrays laid out like C share it; an epilogue may
+// read R = C (in-place residual update: each element is read and written
+// by the same thread). Ragged edges are zero-filled on load and masked on
+// store. BM x BN block tile of
 // (BM / WM) x (BN / WN) warps, each a WM x WN warp tile of m16n8k8 3xTF32
 // products, f32 accumulators in registers; BK = 32 deep through a 3-stage
 // cp.async ring. Tiles sit in shared memory as they sit in device memory
@@ -549,7 +453,7 @@ cudaError_t gemm_tc_run(const float* A, const float* B, float* C, int M,
   return cudaGetLastError();
 }
 
-// gemm_launch's interface on the tensor cores: 64 x 128 tiles (4 warps of
+// The training layers' products on the tensor cores: 64 x 128 tiles (4 warps of
 // 32 x 64) where N > 64 and they fill the 132 SMs, 64 x 64 (4 warps of
 // 32 x 32) otherwise. (On the H100, at the training layer's shapes, 64 x 128 beat
 // 128 x 128 with 8 warps of 64 x 32 or 4 of 64 x 64, and 128 x 64.)
@@ -593,16 +497,6 @@ struct ServeEpi {
     if (EPI == kRowMaskResidual) C[o] = R[o] + (row_ok ? v : 0.f);
   }
 };
-
-// C (M, N) = epilogue(A (M, K) . W (K, N) + bias (N))
-template <int EPI>
-cudaError_t gemm(const float* A, const float* W, const float* bias, float* C,
-                 const float* R, int M, int N, int K, float scale,
-                 const int* lens, int T, cudaStream_t stream) {
-  return gemm_launch<false, false>(A, W, C, M, N, K, K, N, N,
-                                   ServeEpi<EPI>{bias, R, scale, lens, T},
-                                   stream);
-}
 
 // ------------------------------------------------------------------------
 // Conv module middle: g (B, T_in, 2D) = pw1 output ->
@@ -756,20 +650,6 @@ cudaError_t layer_norm(const float* x, float* y, const float* lnw, int idx,
                       rows_per_block * 32, 0, stream>>>(
       x, y, gamma, gamma + D, M, D, eps, lens, T, xhat, rstd);
   return cudaGetLastError();
-}
-
-// macaron / final FFN: xw += scale * (SiLU(LN(xw) . w1 + b1) . w2 + b2)
-cudaError_t ffn_residual(float* xw, float* xn, float* h, const float* lnw,
-                         int ln_idx, const float* w1, const float* b1,
-                         const float* w2, const float* b2, int M, int D,
-                         int F, float scale, float eps, cudaStream_t stream) {
-  cudaError_t err = layer_norm(xw, xn, lnw, ln_idx, M, D, eps, nullptr, 1,
-                               stream);
-  if (err != cudaSuccess) return err;
-  err = gemm<kSilu>(xn, w1, b1, h, nullptr, M, F, D, 1.f, nullptr, 1, stream);
-  if (err != cudaSuccess) return err;
-  return gemm<kResidual>(h, w2, b2, xw, xw, M, D, F, scale, nullptr, 1,
-                         stream);
 }
 
 }  // namespace

@@ -1,31 +1,32 @@
 // Blocks shared by the serving layer kernels (conformer_layer.cu,
 // squeezeformer_layer.cu: full context; chunk_layer.cu, chunk_layer_sq.cu:
 // streaming chunk steps), rows 1, 6, 2 and 8 of PERF.md's kernel table, for
-// Hopper (sm_90a), f32. Rows 1 and 6 run on the FMA pipes (their products:
-// common.cuh's gemm_kernel); rows 2 and 8 on the tensor cores in 3xTF32
-// (their products: gemm_sk_kernel below, from common.cuh's split_tf32,
-// mma_3xtf32 and load_tile_async):
+// Hopper (sm_90a), f32. All four run their products and attention on the
+// tensor cores in 3xTF32 (common.cuh's split_tf32, mma_3xtf32 and
+// load_tile_async):
 //
-//   attention_kernel<NDK>        rel-pos attention over the valid keys of
-//                                an utterance (full context, FMA)
+//   length_attention             rows 1 and 6: rel-pos attention over the
+//                                valid keys of an utterance, through
+//                                flash_attention.cuh's flash kernel with a
+//                                key-length mask
 //   chunk_attention_kernel<NDK>  rel-pos attention of a chunk over
-//                                [att-cache ring || chunk] per slot,
-//                                tensor cores
+//                                [att-cache ring || chunk] per slot
 //   kv_write_kernel              the fresh K/V rows into the ring
 //   conv_input_kernel            [cnn cache || conv-module input rows]
 //   cnn_write_kernel             the new cnn cache rows
-//   gemm_sk_kernel<..., E>       the chunk steps' products: weights from the
+//   gemm_sk_kernel<..., E>       every serving product: weights from the
 //                                serving tensor-core pack (TF32 halves),
-//                                K split by a plan of N and K alone, the
+//                                K split by a plan of K (and N) alone, the
 //                                parts added in a fixed order
 //
-// What bounds rows 2 and 8 and what the design does about it: their
-// products were f32 FMA loops on 8-32 blocks (N = 256 at 32 slots) or 4
-// (one slot), with the FFN w_2's K = 2048 serial in each block. The split
-// of K fills the SMs at one slot and at 32 without tying a slot's sums to
-// the batch, and the tensor cores take the operations; the attention, ~17%
-// of the old layer, went to the tensor cores with it. See chunk_layer.cu
-// for what is left.
+// What bounded the serving rows and what the design does about it: their
+// products were f32 FMA loops (5-12 TFLOP/s), on 8-32 blocks for the chunk
+// steps (N = 256 at 32 slots) or 4 (one slot), with the FFN w_2's K = 2048
+// serial in each block. The split of K fills the SMs at one slot and at
+// 32, and the full-context layers' w_2 at 1200-2400 rows, without tying a
+// row's sums to the batch, and the tensor cores take the operations; the
+// attention, ~17% of a chunk layer, went to the tensor cores with it. See
+// each layer's source for what is left (wgmma / TMA, the launches).
 //
 // Ring layout (see chunk_layer.cu): a layer's att cache is a ring of C
 // logical rows per (slot, head), chronological row j at logical row
@@ -37,188 +38,35 @@
 // writes fill every copy.
 #pragma once
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
 // ------------------------------------------------------------------------
-// Full-context rel-pos attention (no rel_shift, as the reference):
-//   s = ([q+bu | q+bv] . [k | p]^T) * scale
-// online softmax over 32-key tiles. One block = 4 warps = 32 query rows of
-// one (utterance, head); each warp owns 8 rows, each lane one key of the
-// tile for the scores and d = lane + 32 i of the output. A row sees the
-// keys col < lens[b]; a row whose utterance has len == 0 gives 0.
-// Operands through AttView's element strides (unit column stride): q, k, v,
-// out (B, H, T, d_k) views, e.g. (B, T, D) with head h in columns
-// [h d_k, (h+1) d_k); pos_p (H, T, d_k); posb (2, H d_k) = pos_bias_u,
-// pos_bias_v.
+// Full-context rel-pos attention of rows 1 and 6 (no rel_shift, as the
+// reference): flash_attention.cuh's tensor-core flash kernel with the
+// key-length mask. Every query row of utterance b (padded rows t >= len
+// too) sees the keys col < lens[b]; an utterance with len == 0 gives 0.
+// q, k, v: the q/k/v product's (B, T, 3D) rows, head h in columns
+// [h d_k, (h+1) d_k) of each third; pos_p (T, D); posb (2, D); out (B, T,
+// D). d_k up to 128.
 // ------------------------------------------------------------------------
-constexpr int kAttRows = 32;     // query rows per block
-constexpr int kAttKeys = 32;     // keys per tile (one per lane)
-constexpr int kAttWarps = 4;
-constexpr int kAttRowsPerWarp = kAttRows / kAttWarps;
-
-struct AttView {
-  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;  // b, h, t
-  long long ph, pt;                                          // pos_p
-};
-
-// the serving layers' (B, T, D) layout, heads in columns, pos_p (T, D)
-AttView heads_in_columns(int T, int D, int dk) {
-  const long long bt = (long long)T * D;
-  return AttView{bt, dk, D, bt, dk, D, bt, dk, D, bt, dk, D, dk, D};
-}
-
-template <int NDK>
-__global__ void __launch_bounds__(kAttWarps * 32)
-    attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ pos_p,
-                     const float* __restrict__ posb,
-                     const int* __restrict__ lens, AttView w,
-                     float* __restrict__ out, int T, int dk, float scale) {
-  extern __shared__ float smem[];
-  const int e2 = 2 * dk, ks = e2 + 1;        // +1: conflict-free key rows
-  float* Qs = smem;                          // kAttRows x e2
-  float* Ks = Qs + kAttRows * e2;            // kAttKeys x ks
-  float* Vs = Ks + kAttKeys * ks;            // kAttKeys x dk
-  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kAttRows;
-  const int D = gridDim.y * dk;
-  // keys [0, len) are seen (as the plain twin's t < len)
-  const int len = min(lens[b], T);
-  const float* qh = q + b * w.qb + h * w.qh;
-  const float* kh = k + b * w.kb + h * w.kh;
-  const float* vh = v + b * w.vb + h * w.vh;
-  const float* ph = pos_p + h * w.ph;
-  float* oh = out + b * w.ob + h * w.oh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < kAttRows * e2; i += blockDim.x) {
-    const int r = i / e2, e = i % e2, t = t0 + r;
-    float val = 0.f;
-    if (t < T) {
-      const int half = e < dk ? 0 : 1, d = e - half * dk;
-      val = qh[t * w.qt + d] + posb[half * D + h * dk + d];
-    }
-    Qs[i] = val;
-  }
-
-  float m[kAttRowsPerWarp], l[kAttRowsPerWarp], acc[kAttRowsPerWarp][NDK];
-#pragma unroll
-  for (int r = 0; r < kAttRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NDK; ++i) acc[r][i] = 0.f;
-  }
-  const float* qw = Qs + warp * kAttRowsPerWarp * e2;
-
-  for (int k0 = 0; k0 < len; k0 += kAttKeys) {
-    __syncthreads();  // Qs written / previous tile consumed
-    for (int i = threadIdx.x; i < kAttKeys * e2; i += blockDim.x) {
-      const int r = i / e2, e = i % e2, key = k0 + r;
-      float val = 0.f;
-      if (key < len)
-        val = e < dk ? kh[key * w.kt + e] : ph[key * w.pt + (e - dk)];
-      Ks[r * ks + e] = val;
-    }
-    for (int i = threadIdx.x; i < kAttKeys * dk; i += blockDim.x) {
-      const int r = i / dk, d = i % dk, key = k0 + r;
-      Vs[i] = key < len ? vh[key * w.vt + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kAttRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kAttRowsPerWarp; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * ks;
-    for (int e = 0; e < e2; ++e) {
-      const float kv = kr[e];
-#pragma unroll
-      for (int r = 0; r < kAttRowsPerWarp; ++r)
-        s[r] = fmaf(qw[r * e2 + e], kv, s[r]);
-    }
-    const bool in_len = k0 + lane < len;
-#pragma unroll
-    for (int r = 0; r < kAttRowsPerWarp; ++r) {
-      const float sr = in_len ? s[r] * scale : -INFINITY;
-      // key k0 < len is valid, so the tile max is finite
-      const float tile_max = warp_max(sr);
-      const float mn = fmaxf(m[r], tile_max);
-      const float p = in_len ? expf(sr - mn) : 0.f;
-      const float alpha = expf(m[r] - mn);
-      l[r] = l[r] * alpha + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < NDK; ++i) acc[r][i] *= alpha;
-      for (int j = 0; j < kAttKeys; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
-#pragma unroll
-        for (int i = 0; i < NDK; ++i) {
-          const int d = lane + 32 * i;
-          if (d < dk) acc[r][i] = fmaf(pj, Vs[j * dk + d], acc[r][i]);
-        }
-      }
-      m[r] = mn;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kAttRowsPerWarp; ++r) {
-    const int t = t0 + warp * kAttRowsPerWarp + r;
-    if (t >= T) continue;
-    // len == 0 -> 0
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-#pragma unroll
-    for (int i = 0; i < NDK; ++i) {
-      const int d = lane + 32 * i;
-      if (d < dk) oh[t * w.ot + d] = acc[r][i] * inv;
-    }
-  }
-}
-
-template <int NDK>
-cudaError_t attention_launch(const float* q, const float* k, const float* v,
-                             const float* pos_p, const float* posb,
-                             const int* lens, const AttView& w, float* out,
-                             int B, int T, int H, int dk, float scale,
+cudaError_t length_attention(const float* qkv, const float* pos_p,
+                             const float* posb, const int* lens, float* out,
+                             int B, int T, int D, int H,
                              cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (kAttRows * 2 * dk + kAttKeys * (2 * dk + 1) +
-                       kAttKeys * dk);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<NDK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((T + kAttRows - 1) / kAttRows, H, B);
-  attention_kernel<NDK><<<grid, kAttWarps * 32, smem, stream>>>(
-      q, k, v, pos_p, posb, lens, w, out, T, dk, scale);
-  return cudaGetLastError();
-}
-
-// the serving layers' attention: (B, T, D) operands, keys col < lens[b],
-// scale 1 / sqrt(d_k); d_k up to 128, in registers of ceil(d_k / 32) per
-// lane and row
-cudaError_t attention(const float* q, const float* k, const float* v,
-                      const float* pos_p, const float* posb, const int* lens,
-                      float* out, int B, int T, int D, int H,
-                      cudaStream_t stream) {
   const int dk = D / H;
-  const AttView w = heads_in_columns(T, D, dk);
-  const float scale = 1.f / sqrtf((float)dk);
-  switch ((dk + 31) / 32) {
-    case 1:
-      return attention_launch<1>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
-                                 dk, scale, stream);
-    case 2:
-      return attention_launch<2>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
-                                 dk, scale, stream);
-    case 3:
-      return attention_launch<3>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
-                                 dk, scale, stream);
-    default:
-      return attention_launch<4>(q, k, v, pos_p, posb, lens, w, out, B, T, H,
-                                 dk, scale, stream);
-  }
+  const long long D3 = 3LL * D, bq = (long long)T * D3,
+                  bo = (long long)T * D;
+  const FlashView w{bq, dk, D3, bq, dk, D3, bq, dk, D3, bo, dk, D,
+                    dk, D,  0,  0,  0};
+  const float *q = qkv, *k = qkv + D, *v = qkv + 2 * D;
+  // 16-byte copies of k, p and v rows: bases and strides of 4 floats
+  const bool vec = on16(k) && on16(v) && on16(pos_p) && D % 4 == 0 &&
+                   dk % 4 == 0;
+  return flash_attention<kLengthMask>(q, k, v, pos_p, posb, nullptr, nullptr,
+                                      lens, w, out, B, H, T, dk,
+                                      1.f / sqrtf((float)dk), vec, stream);
 }
 
 // ------------------------------------------------------------------------
@@ -651,7 +499,8 @@ cudaError_t conv_input(const float* rows, const float* ada, float* cin,
 }
 
 // ------------------------------------------------------------------------
-// gemm_sk: the chunk steps' products (rows 2 and 8) on the tensor cores,
+// gemm_sk: the serving layers' products (rows 1, 2, 6 and 8) on the
+// tensor cores,
 //   C (M, N) = E(A (M, K; row stride lda) . W (K, N))
 // in 3xTF32 mma.sync m16n8k8 with f32 accumulators (common.cuh's pieces),
 // K split into p.parts parts of p.part (a multiple of the 32-deep k-tile):
@@ -666,12 +515,13 @@ cudaError_t conv_input(const float* rows, const float* ada, float* cin,
 // in on its output tile's counter; the block that arrives last adds the
 // parts in the fixed order s = 0, 1, ..., parts - 1 (reading them from L2)
 // and applies the epilogue once, then zeroes the counter for the next
-// product. No float atomics. The plan comes from the wrapper's
-// split_plan(N, K), a function of N and K alone, and the tile (16 x 8,
-// 32 x 32 or 64 x 64) only decides which block computes an element: each
-// output element is the same sequence of m16n8k8 products over the same k
-// whatever M is, and sits at row m % 16 of its fragment either way. So a
-// slot's bits do not depend on how many slots share the call.
+// product. No float atomics. The plan comes from the wrapper (the chunk
+// steps' split_plan(N, K), the full-context layers' full_plan(K)), never
+// from M, and the tile (16 x 8, 32 x 32 or 64 x 64) only decides
+// which block computes an element: each output element is the same
+// sequence of m16n8k8 products over the same k whatever M is, and sits at
+// row m % 16 and column n % 8 of its fragment either way. So a slot's (an
+// utterance's) bits do not depend on how many share the call.
 // ------------------------------------------------------------------------
 struct TcWeight {        // a (K, N) row-major weight as its TF32 halves
   const float* big;
@@ -888,20 +738,27 @@ cudaError_t gemm_sk_run(const float* A, const TcWeight& W, float* C, int M,
 }
 
 // The tile: 64 x 64 (4 warps of 32 x 32) where such tiles give ~100
-// blocks with the plan's parts (the engine's 32 slots at full rate), else
-// 32 x 32 (4 warps of 16 x 16: its half-rate layers), else 16 x 8 (one
-// warp: predict_stream's one slot of 16 rows)
+// blocks with the plan's parts (the engine's 32 slots at full rate, the
+// full-context layers), else 32 x 32 (4 warps of 16 x 16: the engine's
+// half-rate layers, the full-context half-rate layers' N = 256 products),
+// else 16 x 8 (one warp: predict_stream's one slot of 16 rows). A 64 x 128
+// tile (4 warps of 32 x 64, one block an SM) for the full-context layers'
+// wide products (q/k/v, FFN w_1) was slower on the H100
+// (bench/full_context_probe.py). lens, T: the rows kRowMaskResidual keeps
+// (t = m % T < lens[m / T]); unread by the other epilogues.
 template <int EPI>
 cudaError_t gemm_sk(const float* A, const TcWeight& W, const float* bias,
                     float* C, const float* R, int M, int N, int K, int lda,
                     int ldc, float scale, const SplitPlan& p,
-                    const SplitK& sk, cudaStream_t stream) {
+                    const SplitK& sk, cudaStream_t stream,
+                    const int* lens = nullptr, int T = 1) {
   if (M <= 0 || N <= 0) return cudaGetLastError();
   if (p.parts < 1 || p.part <= 0 || p.part % kTcBK ||
       (long long)p.parts * p.part < K ||
-      (long long)(p.parts - 1) * p.part >= K)
-    return cudaErrorInvalidValue;   // not a plan of K
-  const ServeEpi<EPI> e{bias, R, scale, nullptr, 1};
+      (long long)(p.parts - 1) * p.part >= K ||
+      (EPI == kRowMaskResidual && (lens == nullptr || T < 1)))
+    return cudaErrorInvalidValue;   // not a plan of K, or no row lengths
+  const ServeEpi<EPI> e{bias, R, scale, lens, T};
   if ((long)((M + 63) / 64) * ((N + 63) / 64) * p.parts >= 96)
     return gemm_sk_run<64, 64, 32, 32>(A, W, C, M, N, K, lda, ldc, p, sk, e,
                                        stream);
@@ -912,7 +769,7 @@ cudaError_t gemm_sk(const float* A, const TcWeight& W, const float* bias,
                                    stream);
 }
 
-// The chunk steps' products, in the order of the wrapper's plans
+// The serving layers' products, in the order of the wrappers' plans
 // (ops/cuda/chunk_layer.py CHUNK_PRODUCTS): FFN w_1 (N = F, K = D), FFN w_2
 // (D, F), q/k/v (3D, D), out (D, D), pw1 (2D, D), pw2 (D, D)
 enum ChunkProduct { kW1 = 0, kW2, kQkv, kOut, kPw1, kPw2, kChunkProducts };

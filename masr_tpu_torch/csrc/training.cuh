@@ -12,7 +12,8 @@
 // Every product here (mm_*, and att_fwd / att_bwd's batched score
 // products) runs common.cuh's tensor-core loop gemm_tc_kernel (3xTF32
 // mma.sync, f32 accuracy), for both training layers (rows 3 and 7 of
-// PERF.md's kernel table); the serving kernels keep the FMA gemm_kernel.
+// PERF.md's kernel table); the serving kernels' products run serving.cuh's
+// gemm_sk_kernel, the same 3xTF32 pieces with pre-split weights.
 //   colsum                 bias and LayerNorm parameter grads: column sums
 //                          over the rows, in a fixed order
 //   ln_bwd                 LayerNorm backward from the saved x-hat and

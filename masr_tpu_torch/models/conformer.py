@@ -170,10 +170,14 @@ class ConformerEncoderLayer(nn.Module):
             att_rate=self.attention_dropout_rate if train else 0.0)
 
     def forward_full_context(self, x, lens, pos_emb):
-        """The layer through the full-context kernel. lens: (B,) int32."""
+        """The layer through the full-context kernel, which reads the
+        serving tensor-core pack (chunk_packed_params; its plain twin on a
+        CPU tensor does not). lens: (B,) int32."""
         pos_p = self.self_attn.linear_pos(pos_emb[0])
+        packed = (self.chunk_packed_params() if x.is_cuda
+                  else self.packed_params())
         return fused_conformer_layer(
-            x, lens, pos_p, self.packed_params(), n_head=self.attention_heads,
+            x, lens, pos_p, packed, n_head=self.attention_heads,
             ksize=self.cnn_module_kernel, causal=self.causal,
             ff_scale=self.ff_scale)
 

@@ -20,8 +20,9 @@ the tensor cores in 3xTF32 with a split of K that depends on N and K alone
 call. Their weights come from the serving tensor-core pack
 (`pack_chunk_tc`): each weight split once into its TF32 halves, W_q, W_k,
 W_v side by side. A layer caches it with its serving pack
-(`chunk_packed_params`); the kernel takes a pack without it too, and then
-builds it for the call.
+(`chunk_packed_params`), which the full-context layer kernels read too
+(conformer_layer.py, squeezeformer_layer.py); a kernel takes a pack
+without it too, and then builds it for the call.
 """
 import ctypes
 import functools
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from masr_tpu_torch.models.embedding import sinusoid_position_encoding
-from masr_tpu_torch.ops.cuda.conformer_layer import MASK_VALUE
+from masr_tpu_torch.ops.cuda.rel_pos_attention import MASK_VALUE
 from masr_tpu_torch.ops.cuda.tf32 import split_tf32
 
 K_TILE = 32          # the products' k-tile depth (csrc/common.cuh kTcBK)
@@ -44,7 +45,8 @@ CHUNK_PRODUCTS = (("ffn_w1", lambda D, F_: (F_, D)),
                   ("pw1", lambda D, F_: (2 * D, D)),
                   ("pw2", lambda D, F_: (D, D)))
 TC_KEYS = ("tc_ffw1", "tc_ffw2", "tc_qkv", "tc_out", "tc_pw1", "tc_pw2")
-# the serving pack's arrays that the chunk kernels read besides TC_KEYS
+# the serving pack's arrays that the Conformer serving kernels (chunk and
+# full context) read besides TC_KEYS, in their C argument order
 CHUNK_KEYS = ("lnw", "ffb1", "vecb", "posb", "pw1b", "dww")
 
 
@@ -131,36 +133,53 @@ def check_chunk_tc(packed, D, F_, device):
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def launch_chunk_kernel(fn, lead, tail, packed, keys, B, c, D, F_, ksize,
-                        device):
-    """Calls the chunk kernel's C entry fn: lead (its pointer arguments
+def launch_tc_kernel(fn, lead, tail, packed, keys, plans, n_ws, out):
+    """Calls a serving kernel's C entry fn with lead (its pointer arguments
     before the weights), the weights packed[keys] and the tensor-core pack,
-    the plans, the output and the scratch (allocated here), tail (its
-    scalars), the current stream. → (CUDA error code, output (B, c, D))."""
-    plans, n_partials, n_counters = chunk_plans(B, c, D, F_, ksize)
-    M, W = B * c, ksize - 1 + c
-    n_ws = M * (3 * D + max(F_, 4 * D)) + B * W * 3 * D
-    out = torch.empty(B, c, D, dtype=torch.float32, device=device)
+    the plans, out, the scratch (n_ws floats of workspace, then the split
+    products' partials and tile counters; allocated here), tail (its
+    scalars) and the current stream. plans: (the plans as a ctypes int
+    array or a flat tuple, n_partials, n_counters). → CUDA error code."""
+    plans, n_partials, n_counters = plans
+    if not isinstance(plans, ctypes.Array):
+        plans = (ctypes.c_int * len(plans))(*plans)
+    device = out.device
     scratch = torch.empty(n_ws + n_partials + n_counters,
                           dtype=torch.float32, device=device)
     ptr = scratch.data_ptr()
     with torch.cuda.device(device):
-        err = fn(*lead, *(packed[k].data_ptr() for k in keys + TC_KEYS),
-                 (ctypes.c_int * len(plans))(*plans), out.data_ptr(), ptr,
-                 ptr + 4 * n_ws, n_partials, ptr + 4 * (n_ws + n_partials),
-                 n_counters, *tail,
-                 torch.cuda.current_stream(device).cuda_stream)
+        return fn(*lead, *(packed[k].data_ptr() for k in keys + TC_KEYS),
+                  plans, out.data_ptr(), ptr, ptr + 4 * n_ws, n_partials,
+                  ptr + 4 * (n_ws + n_partials), n_counters, *tail,
+                  torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch_chunk_kernel(fn, lead, tail, packed, keys, B, c, D, F_, ksize,
+                        device):
+    """Calls the chunk kernel's C entry fn (launch_tc_kernel) with its plans
+    and workspace. → (CUDA error code, output (B, c, D))."""
+    M, W = B * c, ksize - 1 + c
+    out = torch.empty(B, c, D, dtype=torch.float32, device=device)
+    err = launch_tc_kernel(fn, lead, tail, packed, keys,
+                           chunk_plans(B, c, D, F_, ksize),
+                           M * (3 * D + max(F_, 4 * D)) + B * W * 3 * D, out)
     return err, out
 
 
 @functools.lru_cache(maxsize=None)
 def chunk_entry(name, symbol, n_ptrs, n_ints, n_floats):
-    """The C entry `symbol` of csrc/<name>.cu (built at first use), typed
-    for ctypes: n_ptrs pointers (operands and weights), the plans, out,
-    workspace, partials and their count, counters and their count, n_ints
-    ints, n_floats floats, the stream."""
+    """The C entry `symbol` of a serving kernel csrc/<name>.cu (built at
+    first use), typed for ctypes once (typed_entry)."""
     from masr_tpu_torch.ops.cuda import build
-    fn = getattr(build.load(name), symbol)
+    return typed_entry(getattr(build.load(name), symbol), n_ptrs, n_ints,
+                       n_floats)
+
+
+def typed_entry(fn, n_ptrs, n_ints, n_floats):
+    """fn, a serving kernel's C entry, typed for ctypes: n_ptrs pointers
+    (operands and weights), the plans, out, workspace, partials and their
+    count, counters and their count, n_ints ints, n_floats floats, the
+    stream. → fn."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.restype = i
     fn.argtypes = ([p] * n_ptrs

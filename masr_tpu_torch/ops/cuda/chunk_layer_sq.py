@@ -26,7 +26,8 @@ from masr_tpu_torch.ops.cuda.chunk_layer import (TC_KEYS, check_chunk_tc,
                                                  ring_attention_plain,
                                                  with_chunk_tc,
                                                  write_ring_plain)
-from masr_tpu_torch.ops.cuda.squeezeformer_layer import (check_sq_operands,
+from masr_tpu_torch.ops.cuda.squeezeformer_layer import (SQ_SERVE_KEYS,
+                                                         check_sq_operands,
                                                          sq_ffn_plain,
                                                          sq_layer_norms)
 
@@ -93,10 +94,6 @@ def fused_chunk_layer_sq_plain(x, pos, pos_starts, att_cache, cnn_cache,
     return out
 
 
-# the serving pack's arrays that the kernel reads besides TC_KEYS
-SQ_CHUNK_KEYS = ("lnw", "ada", "cnw", "vecb", "posb", "ffb1", "pw1b", "dww")
-
-
 def fused_chunk_layer_sq(x, pos, pos_starts, att_cache, cnn_cache,
                          cache_lens, wptrs, active, packed, *, n_head, ksize,
                          conv_ln, n_sub=1, rep=1, eps=1e-6, conv_eps=1e-5):
@@ -129,14 +126,14 @@ def fused_chunk_layer_sq(x, pos, pos_starts, att_cache, cnn_cache,
                 tuple(t.shape) != (B,) or not t.is_contiguous():
             raise ValueError(f"{name} must be (B,) int32 on the device of x")
     fn = chunk_entry("chunk_layer_sq", "masr_chunk_layer_sq_forward",
-                     8 + len(SQ_CHUNK_KEYS) + len(TC_KEYS), 10, 2)
+                     8 + len(SQ_SERVE_KEYS) + len(TC_KEYS), 10, 2)
     lead = (x.data_ptr(), pos.data_ptr(), pos_starts.data_ptr(),
             att_cache.data_ptr(), cnn_cache.data_ptr(),
             cache_lens.data_ptr(), wptrs.data_ptr(), active.data_ptr())
     err, out = launch_chunk_kernel(
         fn, lead, (B, c, C, rep, D, F_, n_head, ksize, n_sub,
                    int(bool(conv_ln)), float(eps), float(conv_eps)),
-        packed, SQ_CHUNK_KEYS, B, c, D, F_, ksize, x.device)
+        packed, SQ_SERVE_KEYS, B, c, D, F_, ksize, x.device)
     if err != 0:
         raise RuntimeError(f"chunk_layer_sq kernel failed: CUDA error {err}")
     fused_chunk_layer_sq.launches += 1

@@ -9,12 +9,29 @@ what bounds it on the H100 and what is left for later.
 plain PyTorch version, `fused_conformer_layer_plain`, only for a CPU tensor.
 It counts its kernel launches in `fused_conformer_layer.launches`, one per
 layer call. Operands are f32 (the serving dtype of the predictor).
+
+The kernel's products run on the tensor cores in 3xTF32 (csrc/serving.cuh
+`gemm_sk_kernel`), their weights from the serving tensor-core pack of the
+chunk kernels (chunk_layer.py `pack_chunk_tc`, cached per layer by
+`chunk_packed_params()`; a pack without it gets it built for the call),
+with K split by `full_plan(K)`, a function of K alone: an utterance's bits
+do not depend on what else shares the batch. Its attention is the flash
+kernel of rel_pos_attention.cu (csrc/flash_attention.cuh) with a key-length
+mask. The Squeezeformer layer kernel (squeezeformer_layer.py) shares all of
+this.
 """
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from masr_tpu_torch.ops.cuda.chunk_layer import (CHUNK_KEYS, CHUNK_PRODUCTS,
+                                                 K_TILE, TC_KEYS,
+                                                 check_chunk_tc,
+                                                 chunk_entry,
+                                                 launch_tc_kernel,
+                                                 with_chunk_tc)
 from masr_tpu_torch.ops.cuda.rel_pos_attention import (
     MASK_VALUE, rel_pos_attention_plain as masked_attention_plain)
 
@@ -136,29 +153,66 @@ def fused_conformer_layer_plain(x, lens, pos_p, packed, *, n_head, ksize,
     return layer_norm(x, 5)
 
 
-def _check(x, lens, pos_p, packed, n_head, ksize, causal):
-    B, T, D = x.shape
-    F_ = packed["ffw1"].shape[2]
-    want = {"lnw": (6, 2, D), "ffw1": (2, D, F_), "ffb1": (2, F_),
-            "ffw2": (2, F_, D), "vecb": (8, D), "attw": (4, D, D),
-            "posb": (2, D), "pw1w": (D, 2 * D), "pw1b": (1, 2 * D),
-            "pw2w": (D, D), "dww": (ksize, D)}
-    tensors = {"x": x, "pos_p": pos_p, **{k: packed[k] for k in PACKED_KEYS}}
+FULL_PART = 512     # the full-context products' largest part of K
+
+
+def full_plan(K):
+    """How the full-context layer kernels split the K of a product: (parts,
+    part) as chunk_layer.py split_plan gives it, parts of at most FULL_PART
+    (a multiple of K_TILE), so only the FFN w_2 (K = F = 2048 at the
+    flagship) is split, in 4. A function of K alone, never of the rows M =
+    B·T', so each output element is summed in the same order at any batch:
+    one utterance alone gives the bits of its slice of a batch."""
+    k_tiles = -(-K // K_TILE)
+    parts = -(-k_tiles // (FULL_PART // K_TILE))
+    part = -(-k_tiles // parts) * K_TILE
+    return -(-K // part), part
+
+
+@functools.lru_cache(maxsize=64)
+def full_plans(M, D, F_):
+    """The full-context layer kernels' plans for a call over M = B·T' rows
+    (serving.cuh ChunkProduct order, as a ctypes int array of (parts, part)
+    pairs), and the floats of the split products' partial sums and the
+    counters of their output tiles (16 x 8, the smallest tile) that the call
+    needs. Cached per shape."""
+    plans, n_partials, n_counters = (), 0, 0
+    for _, nk in CHUNK_PRODUCTS:
+        N, K = nk(D, F_)
+        parts, part = full_plan(K)
+        plans += (parts, part)
+        if parts > 1:
+            n_partials = max(n_partials, parts * M * N)
+            n_counters = max(n_counters, -(-M // 16) * -(-N // 8))
+    return (ctypes.c_int * len(plans))(*plans), n_partials, n_counters
+
+
+def check_operands(tensors, want, device):
+    """Raise unless every tensor of {name: tensor} is f32, contiguous and on
+    device, and has the shape want[name] where want names one."""
     for name, t in tensors.items():
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes f32 on {x.device}, "
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes f32 on {device}, "
                              f"got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if name in want and tuple(t.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
+
+
+def check_layer_args(x, lens, pos_p, n_head, ksize, causal):
+    """Raise unless the full-context layer kernels take these arguments:
+    lens (B,) int32 on x's device, pos_p (T, D), d_k = D / n_head up to
+    128, an odd conv kernel when not causal."""
+    B, T, D = x.shape
     if tuple(pos_p.shape) != (T, D):
         raise ValueError(f"pos_p: shape {tuple(pos_p.shape)}, "
                          f"expected {(T, D)}")
     if lens.dtype != torch.int32 or lens.device != x.device or \
-            tuple(lens.shape) != (B,):
-        raise ValueError("lens must be (B,) int32 on the device of x")
+            tuple(lens.shape) != (B,) or not lens.is_contiguous():
+        raise ValueError("lens must be (B,) contiguous int32 on the device "
+                         "of x")
     if D % n_head or D // n_head > 128:
         raise ValueError(f"d_model {D} with {n_head} heads: the kernel "
                          "takes d_k = D / heads up to 128")
@@ -166,34 +220,52 @@ def _check(x, lens, pos_p, packed, n_head, ksize, causal):
         raise ValueError("non-causal conv needs an odd kernel size")
 
 
+def check_packed(x, lens, pos_p, packed, n_head, ksize, causal):
+    """Raise unless the kernels take these arguments with packed, the
+    serving pack (pack_layer_params) in full: the training-layer kernel
+    reads every array of it."""
+    B, T, D = x.shape
+    F_ = packed["ffw1"].shape[2]
+    check_operands({"x": x, "pos_p": pos_p,
+                    **{k: packed[k] for k in PACKED_KEYS}},
+                   {"lnw": (6, 2, D), "ffw1": (2, D, F_), "ffb1": (2, F_),
+                    "ffw2": (2, F_, D), "vecb": (8, D), "attw": (4, D, D),
+                    "posb": (2, D), "pw1w": (D, 2 * D), "pw1b": (1, 2 * D),
+                    "pw2w": (D, D), "dww": (ksize, D)}, x.device)
+    check_layer_args(x, lens, pos_p, n_head, ksize, causal)
+
+
 def fused_conformer_layer(x, lens, pos_p, packed, *, n_head, ksize, causal,
                           ff_scale=0.5, eps=1e-5):
-    """The whole full-context layer. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel or raises. → (B, T, D) f32."""
+    """The whole full-context layer (arguments as the plain version; packed
+    may also hold the serving tensor-core pack, chunk_packed_params). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises. → (B, T, D) f32."""
     if x.device.type == "cpu":
         return fused_conformer_layer_plain(
             x, lens, pos_p, packed, n_head=n_head, ksize=ksize,
             causal=causal, ff_scale=ff_scale, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    _check(x, lens, pos_p, packed, n_head, ksize, causal)
-    from masr_tpu_torch.ops.cuda import build
-    lib = build.load("conformer_layer")
-    fn = lib.masr_conformer_layer_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     B, T, D = x.shape
-    F_ = packed["ffw1"].shape[2]
+    packed = with_chunk_tc(packed)
+    F_ = packed["ffb1"].shape[1]
+    check_operands({"x": x, "pos_p": pos_p,
+                    **{k: packed[k] for k in CHUNK_KEYS}},
+                   {"lnw": (6, 2, D), "ffb1": (2, F_), "vecb": (8, D),
+                    "posb": (2, D), "pw1b": (1, 2 * D), "dww": (ksize, D)},
+                   x.device)
+    check_chunk_tc(packed, D, F_, x.device)
+    check_layer_args(x, lens, pos_p, n_head, ksize, causal)
+    fn = chunk_entry("conformer_layer", "masr_conformer_layer_forward",
+                     3 + len(CHUNK_KEYS) + len(TC_KEYS), 7, 2)
     out = torch.empty_like(x)
-    workspace = torch.empty(B * T * (2 * D + max(F_, 4 * D)),
-                            dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), lens.data_ptr(), pos_p.data_ptr(),
-                 *(packed[k].data_ptr() for k in PACKED_KEYS),
-                 out.data_ptr(), workspace.data_ptr(), B, T, D, F_, n_head,
-                 ksize, int(bool(causal)), float(ff_scale), float(eps),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    M = B * T
+    err = launch_tc_kernel(
+        fn, (x.data_ptr(), lens.data_ptr(), pos_p.data_ptr()),
+        (B, T, D, F_, n_head, ksize, int(bool(causal)), float(ff_scale),
+         float(eps)), packed, CHUNK_KEYS, full_plans(M, D, F_),
+        M * (2 * D + max(F_, 4 * D)), out)
     if err != 0:
         raise RuntimeError(f"conformer_layer kernel failed: CUDA error {err}")
     fused_conformer_layer.launches += 1

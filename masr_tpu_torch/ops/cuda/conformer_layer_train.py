@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from masr_tpu_torch.ops.cuda.conformer_layer import (MASK_VALUE, PACKED_KEYS,
-                                                     _check)
+                                                     check_packed)
 from masr_tpu_torch.ops.dropout_hash import dropout_mask, dropout_params
 
 # dropout sites, as csrc/conformer_layer_train.cu numbers them
@@ -239,7 +239,7 @@ def fused_conformer_layer_train(x, mask, seeds, lens, posp, packed, *,
     B, T, _ = x.shape
     x, posp = x.contiguous(), posp.contiguous()
     packed = {k: packed[k].contiguous() for k in PACKED_KEYS}
-    _check(x, lens, posp, packed, n_head, ksize, causal)
+    check_packed(x, lens, posp, packed, n_head, ksize, causal)
     mask = mask.to(torch.uint8).contiguous()
     if tuple(mask.shape) != (B, T, T) or mask.device != x.device:
         raise ValueError(f"mask must be (B, T, T) = {(B, T, T)} on "

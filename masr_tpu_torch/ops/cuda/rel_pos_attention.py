@@ -5,7 +5,9 @@ Port of masr_tpu/ops/pallas/attention.py (`rel_pos_flash_attention` and
 rel_pos_attention.cu: a pre-pass reduces the mask to a map of 64 x 64 tiles
 (hidden, full, partial; `mask_tile_map_plain` is its plain twin), then a
 flash kernel runs both products on the tensor cores in 3xTF32, skipping
-hidden tiles; its header says what bounds it on the H100.
+hidden tiles (csrc/flash_attention.cuh; the full-context layer kernels run
+it with a key-length mask, whose tiles `length_tile_map_plain` gives); its
+header says what bounds it on the H100.
 
 `rel_pos_flash_attention` launches the kernels for CUDA tensors and takes
 the plain PyTorch version, `rel_pos_attention_plain`, only for CPU tensors.
@@ -71,6 +73,26 @@ def mask_tile_map_plain(mask, tile=TILE):
     out[n_seen == 0] = HIDDEN
     out[n_seen == n_inside.expand_as(n_seen)] = FULL
     return out
+
+
+def length_tile_map_plain(lens, T, tile=TILE):
+    """Plain twin of the tile kinds that the full-context layers' key-length
+    mask gives the flash kernel (csrc/flash_attention.cuh kLengthMask): every
+    query row of utterance b sees the keys col < lens[b], so each query
+    tile's row of the (B, nt, nt) uint8 map is the same: HIDDEN where the
+    key tile's first key is >= len, FULL where its last key is < len,
+    PARTIAL otherwise. The kernel computes these from lens itself (no
+    pre-pass); tests hold this map to mask_tile_map_plain of the expanded
+    length mask."""
+    lens = torch.as_tensor(lens).to(torch.long).clamp(0, T)
+    nt = -(-T // tile)
+    first = torch.arange(nt, device=lens.device) * tile
+    last = torch.clamp(first + tile, max=T) - 1
+    kinds = torch.full((len(lens), nt), PARTIAL, dtype=torch.uint8,
+                       device=lens.device)
+    kinds[first[None] >= lens[:, None]] = HIDDEN
+    kinds[last[None] < lens[:, None]] = FULL
+    return kinds[:, None, :].expand(len(lens), nt, nt).contiguous()
 
 
 def _unit_columns(t):

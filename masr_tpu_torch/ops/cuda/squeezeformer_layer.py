@@ -2,25 +2,37 @@
 twin.
 
 Port of masr_tpu/ops/pallas/squeezeformer_layer.py
-(`fused_squeezeformer_layer`, `pack_sq_layer_params`). The CUDA source is masr_tpu_torch/csrc/
-squeezeformer_layer.cu; its header says how the post-norm layer is split
-into kernels, what bounds it on the H100 and what is left for later.
+(`fused_squeezeformer_layer`, `pack_sq_layer_params`). The CUDA source is
+masr_tpu_torch/csrc/squeezeformer_layer.cu; its header says how the
+post-norm layer is split into kernels, what bounds it on the H100 and what
+is left for later.
 
 `fused_squeezeformer_layer` launches the kernel for a CUDA tensor and takes
 the plain PyTorch version, `fused_squeezeformer_layer_plain`, only for a CPU
 tensor. It counts its kernel launches in `fused_squeezeformer_layer.launches`,
-one per layer call. Operands are f32.
+one per layer call. Operands are f32. Its products and attention run as the
+Conformer layer kernel's (conformer_layer.py: the serving tensor-core pack,
+`full_plan`, the flash attention with a key-length mask), the adaptive
+scales folded into the weights before the pack splits them.
 """
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from masr_tpu_torch.ops.cuda.conformer_layer import (glu_depthwise_plain,
+from masr_tpu_torch.ops.cuda.chunk_layer import (TC_KEYS, check_chunk_tc,
+                                                 chunk_entry,
+                                                 launch_tc_kernel,
+                                                 with_chunk_tc)
+from masr_tpu_torch.ops.cuda.conformer_layer import (check_layer_args,
+                                                     check_operands,
+                                                     full_plans,
+                                                     glu_depthwise_plain,
                                                      rel_pos_attention_plain)
 
 SQ_PACKED_KEYS = ("lnw", "ada", "cnw", "attw", "vecb", "posb", "ffw1",
                   "ffb1", "ffw2", "pw1w", "pw1b", "pw2w", "dww")
+# the serving pack's arrays that the serving kernels (full context and
+# chunk) read besides the tensor-core pack, in their C argument order
+SQ_SERVE_KEYS = ("lnw", "ada", "cnw", "vecb", "posb", "ffb1", "pw1b", "dww")
 
 
 def pack_sq_layer_params(layer):
@@ -168,7 +180,8 @@ def check_sq_operands(tensors, packed, D, ksize, device):
 
 def fused_squeezeformer_layer(x, lens, pos_p, packed, *, n_head, ksize,
                               causal, conv_ln, eps=1e-6, conv_eps=1e-5):
-    """The whole full-context layer (arguments as the plain version). A CPU
+    """The whole full-context layer (arguments as the plain version; packed
+    may also hold the serving tensor-core pack, chunk_packed_params). A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
     raises. → (B, T, D) f32."""
     if x.device.type == "cpu":
@@ -178,35 +191,24 @@ def fused_squeezeformer_layer(x, lens, pos_p, packed, *, n_head, ksize,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     B, T, D = x.shape
-    F_ = check_sq_operands({"x": x, "pos_p": pos_p}, packed, D, ksize,
-                           x.device)
-    if tuple(pos_p.shape) != (T, D):
-        raise ValueError(f"pos_p: shape {tuple(pos_p.shape)}, "
-                         f"expected {(T, D)}")
-    if lens.dtype != torch.int32 or lens.device != x.device or \
-            tuple(lens.shape) != (B,):
-        raise ValueError("lens must be (B,) int32 on the device of x")
-    if D % n_head or D // n_head > 128:
-        raise ValueError(f"d_model {D} with {n_head} heads: the kernel "
-                         "takes d_k = D / heads up to 128")
-    if not causal and ksize % 2 == 0:
-        raise ValueError("non-causal conv needs an odd kernel size")
-    from masr_tpu_torch.ops.cuda import build
-    lib = build.load("squeezeformer_layer")
-    fn = lib.masr_sq_layer_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    packed = with_chunk_tc(packed)
+    F_ = packed["ffb1"].shape[1]
+    check_operands({"x": x, "pos_p": pos_p,
+                    **{k: packed[k] for k in SQ_SERVE_KEYS}},
+                   {"lnw": (4, 2, D), "ada": (2, D), "cnw": (2, D),
+                    "vecb": (8, D), "posb": (2, D), "ffb1": (2, F_),
+                    "pw1b": (1, 2 * D), "dww": (ksize, D)}, x.device)
+    check_chunk_tc(packed, D, F_, x.device)
+    check_layer_args(x, lens, pos_p, n_head, ksize, causal)
+    fn = chunk_entry("squeezeformer_layer", "masr_sq_layer_forward",
+                     3 + len(SQ_SERVE_KEYS) + len(TC_KEYS), 8, 2)
     out = torch.empty_like(x)
-    workspace = torch.empty(B * T * (2 * D + max(F_, 4 * D)),
-                            dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), lens.data_ptr(), pos_p.data_ptr(),
-                 *(packed[k].data_ptr() for k in SQ_PACKED_KEYS),
-                 out.data_ptr(), workspace.data_ptr(), B, T, D, F_, n_head,
-                 ksize, int(bool(causal)), int(bool(conv_ln)), float(eps),
-                 float(conv_eps), torch.cuda.current_stream(x.device)
-                 .cuda_stream)
+    M = B * T
+    err = launch_tc_kernel(
+        fn, (x.data_ptr(), lens.data_ptr(), pos_p.data_ptr()),
+        (B, T, D, F_, n_head, ksize, int(bool(causal)), int(bool(conv_ln)),
+         float(eps), float(conv_eps)), packed, SQ_SERVE_KEYS,
+        full_plans(M, D, F_), M * (2 * D + max(F_, 4 * D)), out)
     if err != 0:
         raise RuntimeError(f"squeezeformer_layer kernel failed: CUDA error "
                            f"{err}")

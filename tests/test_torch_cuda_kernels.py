@@ -824,3 +824,87 @@ def test_static_chunk_flagship_launches(cuda_device, family):
     assert torch.isfinite(got).all()
     for b, n in enumerate(want_lens.tolist()):
         assert (got[b, :n].cpu() - want[b, :n]).abs().max().item() <= 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# rows 1 and 6 on the tensor cores: products through gemm_sk (the serving
+# tensor-core pack, K split by full_plan(K)), the attention through the flash
+# kernel with a key-length mask
+# --------------------------------------------------------------------------- #
+def _full_lens(T):
+    """B = 8 lengths: T' and 0, the edges of the flash kernel's 64-key tiles
+    (64, 63, 128, 129) and a few more."""
+    return [T, 0, 250, 129, 128, 64, 63, 1]
+
+
+def _check_full_layer(fn, plain, x, lens, pos_p, packed, kw):
+    """fn (CUDA) == plain on valid rows within 2e-4, finite everywhere, one
+    launch per call; each utterance's B=1 call gives the bits of its slice
+    of the B=8 call."""
+    before = fn.launches
+    got = fn(x, lens, pos_p, packed, **kw)
+    assert fn.launches == before + 1
+    want = plain(x, lens, pos_p, packed, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(lens.tolist()):
+        err = (got[b, :n] - want[b, :n]).abs().max().item() if n else 0.0
+        assert err <= 2e-4, (b, n, err)
+        before = fn.launches
+        one = fn(x[b:b + 1], lens[b:b + 1], pos_p, packed, **kw)
+        assert fn.launches == before + 1
+        assert torch.equal(one[0], got[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 4, 2], ids=lambda h: f"dk{256 // h}")
+@pytest.mark.parametrize("T", [299, 300])
+def test_conformer_layer_tc_kernel(cuda_device, T, heads):
+    """Row 1 at the flagship's widths (D=256, FFN 2048, conv 15), d_k 32 /
+    64 / 128, T' 299 (rows of 3D floats not a multiple of 16 bytes apart
+    per utterance) and 300, B=8 with lengths 0, T' and the key tiles'
+    edges: kernel vs plain 2e-4 on valid rows, one launch per call, and
+    each utterance alone (B=1) gives the bits of its slice of the batch."""
+    layer = ConformerEncoderLayer(256, heads, 2048, cnn_module_kernel=15,
+                                  causal=True)
+    layer.load_state_dict(seeded_state_dict(layer, seed=T + heads))
+    layer = layer.to(cuda_device).eval()
+    g = torch.Generator().manual_seed(T + 2)
+    x = torch.randn(8, T, 256, generator=g).to(cuda_device)
+    lens = torch.tensor(_full_lens(T), dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        pos_p = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            torch.arange(T, device=cuda_device), 256))
+        _check_full_layer(cl.fused_conformer_layer,
+                          cl.fused_conformer_layer_plain, x, lens, pos_p,
+                          layer.chunk_packed_params(),
+                          dict(n_head=heads, ksize=15, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 4, 2], ids=lambda h: f"dk{256 // h}")
+@pytest.mark.parametrize("T", [299, 300, 150], ids=["full299", "full300",
+                                                    "half150"])
+@pytest.mark.parametrize("conv_norm", ["batch_norm", "layer_norm"])
+def test_squeezeformer_layer_tc_kernel(cuda_device, conv_norm, T, heads):
+    """Row 6 at the flagship's widths (D=256, FFN 2048, conv 31), both conv
+    norms, full rate (T' 299, 300) and half rate (T' 150, the lengths
+    halved rounding up), d_k 32 / 64 / 128: kernel vs plain 2e-4 on valid
+    rows, one launch per call, B=1 bits == the B=8 slice."""
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    layer = _sq_layer(256, heads, 2048, 31, True, conv_norm, T + heads,
+                      cuda_device)
+    lens = _full_lens(299 if T == 150 else T)
+    if T == 150:
+        lens = [(n + 1) // 2 for n in lens]
+    g = torch.Generator().manual_seed(T + 3)
+    x = torch.randn(8, T, 256, generator=g).to(cuda_device)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        pos_p = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            torch.arange(T, device=cuda_device), 256))
+        _check_full_layer(sq.fused_squeezeformer_layer,
+                          sq.fused_squeezeformer_layer_plain, x, lens, pos_p,
+                          layer.chunk_packed_params(),
+                          dict(n_head=heads, ksize=31, causal=True,
+                               conv_ln=conv_norm == "layer_norm"))

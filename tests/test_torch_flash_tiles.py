@@ -12,7 +12,9 @@ pre-pass) on the CPU:
   exactly, and still agrees with the Pallas kernel in interpret mode at
   tests/test_torch_flash_attention.py's tolerance (atol 2e-5).
 The card's pre-pass is held against this map in
-tests/test_torch_cuda_kernels.py.
+tests/test_torch_cuda_kernels.py. The full-context layers' key-length mask
+(`length_tile_map_plain`, the tile kinds the kernel computes from the
+lengths) is held against the map of the expanded length mask.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -126,3 +128,19 @@ def test_dropping_hidden_tiles_changes_nothing(kind, T, d):
     jargs = [jnp.asarray(a) for a in args] + [jnp.asarray(mask.numpy())]
     want = np.asarray(pallas(*jargs, interpret=True))
     np.testing.assert_allclose(tiled.numpy(), want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("T", [37, 150, 299])
+def test_length_tile_map_matches_the_mask_map(T):
+    """length_tile_map_plain(lens, T) == mask_tile_map_plain of the (B, T,
+    T) mask in which every query row sees the keys col < len (the
+    full-context layers' mask), lengths 0 and T' and around the 64-key
+    tiles' edges."""
+    lens = sorted({0, 1, T, T - 1, *(n for n in (63, 64, 65, 128, 129)
+                                     if n < T)})
+    lens_t = torch.tensor(lens)
+    valid = torch.arange(T)[None, :] < lens_t[:, None]
+    want = rpa.mask_tile_map_plain(valid[:, None, :].expand(len(lens), T, T))
+    got = rpa.length_tile_map_plain(lens_t, T)
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, want), (lens, got[:, 0], want[:, 0])

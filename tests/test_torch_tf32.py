@@ -1,7 +1,8 @@
 """Why the tensor-core kernels compute in 3xTF32 (CPU).
 
-The training layers' products (csrc/common.cuh `gemm_tc_kernel`) and the
-flash attention (csrc/rel_pos_attention.cu) run on the TF32 tensor cores.
+The training layers' products (csrc/common.cuh `gemm_tc_kernel`), the
+serving layers' products (csrc/serving.cuh `gemm_sk_kernel`) and the flash
+attention (csrc/flash_attention.cuh) run on the TF32 tensor cores.
 Their card checks hold them to KERNEL_ATOL = 2e-4 (output max abs err) and
 GRAD_RTOL = 1e-4 (grad max abs err over the grad's largest magnitude),
 chip_smoke.py. The plain twins of masr_tpu_torch/ops/cuda/tf32.py repeat
@@ -15,15 +16,22 @@ data of the layers' scale (measured on this suite's seeds):
     64-key P.V, output abs                  6.7e-4 (fail)  9.5e-7
   chunk step's FFN w_2: (512 x 256 over
     2048), split_plan's 16 parts, abs       4.7e-4 (fail)  3.9e-7
+  full-context layers (M = 2392), in full_plan's parts, abs:
+    FFN w_1 (2048 over 256)                 8.7e-4 (fail)  2.0e-6
+    FFN w_2 (256 over 2048), 4 parts        5.8e-4 (fail)  6.6e-7
+    q/k/v (768 over 256)                    8.9e-4 (fail)  2.0e-6
 
 One TF32 product keeps ~3 decimal digits and misses both tolerances; three
 (big and small halves) stay within f32's own error (f32 products give
-2.4e-6, 3.8e-7 and 1.2e-6).
+2.4e-6, 3.8e-7 and 1.2e-6; 2.2e-6, 8.6e-7 and 2.0e-6 for the full-context
+products).
 """
 import numpy as np
+import pytest
 import torch
 
 from masr_tpu_torch.ops.cuda.chunk_layer import split_plan
+from masr_tpu_torch.ops.cuda.conformer_layer import full_plan
 from masr_tpu_torch.ops.cuda.tf32 import (mm_1xtf32_plain, mm_3xtf32_plain,
                                           mm_3xtf32_splitk_plain, split_tf32,
                                           tf32_round)
@@ -115,3 +123,32 @@ def test_3xtf32_split_k_holds_the_chunk_tolerance():
     one, three = _errors(h, w, ref)
     assert split <= KERNEL_ATOL / 10 and one > KERNEL_ATOL, (one, split)
     assert split <= three + 1e-6, (split, three)
+
+
+# the full-context layers' products at the flagship's B=8, T'=299 (M =
+# 2392 rows): (N, K) and whether the rows are SiLU outputs (w_2's input)
+FULL_PRODUCTS = {"ffn_w1": (2048, 256, False), "ffn_w2": (256, 2048, True),
+                 "qkv": (768, 256, False)}
+
+
+@pytest.mark.parametrize("name", sorted(FULL_PRODUCTS))
+def test_3xtf32_full_context_products(name):
+    """Rows 1 and 6's products at the flagship shape, M = 2392 rows of the
+    layers' scale (LayerNorm outputs, or SiLU rows for w_2) . a weight of
+    torch's Linear init, in full_plan(K)'s parts (3xTF32 each, added in
+    order) as the full-context kernels run them: within KERNEL_ATOL of f64
+    by a factor of 10; one TF32 product misses KERNEL_ATOL."""
+    N, K, silu = FULL_PRODUCTS[name]
+    rs = np.random.RandomState(3 + N + K)
+    a = torch.from_numpy(rs.randn(2392, K).astype(np.float32))
+    if silu:
+        a = torch.nn.functional.silu(a)
+    w = torch.from_numpy(rs.uniform(-K ** -0.5, K ** -0.5,
+                                    (K, N)).astype(np.float32))
+    ref = a.double() @ w.double()
+    plan = full_plan(K)
+    assert plan[0] == (4 if K == 2048 else 1)
+    split = (mm_3xtf32_splitk_plain(a, w, plan).double()
+             - ref).abs().max().item()
+    one = (mm_1xtf32_plain(a, w).double() - ref).abs().max().item()
+    assert split <= KERNEL_ATOL / 10 and one > KERNEL_ATOL, (one, split)
