@@ -67,7 +67,9 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     dropout 0 against the CPU (loss and a sample of grads)
  13. train_times    training layer forward and backward and CTC forward +
                     backward, kernel vs plain (and F.ctc_loss for CTC), CUDA
-                    events; train-step wall times, audio seconds trained
+                    events; the CTC kernel's forward and backward apart,
+                    with each CUDA kernel's device time and the SM clock
+                    beside them; train-step wall times, audio seconds trained
                     per second, and a torch.profiler breakdown of three
                     steps on the longest batch
  14. sq_kernels     the full-context Squeezeformer layer kernel vs its plain
@@ -496,6 +498,14 @@ def device_ms(fn, n=10):
     """Device time per call of fn (ms): the CUDA kernels it launches, their
     own time summed over n calls (torch.profiler), without the host's gaps
     between launches that CUDA events over back-to-back calls include."""
+    ms = sum(device_kernels(fn, n).values())
+    return ms if ms > 0 else "not measured"
+
+
+def device_kernels(fn, n=10):
+    """Device time per call (ms) of each CUDA kernel fn launches, by the
+    kernel's name without namespace and parameters (torch.profiler over n
+    calls)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -503,11 +513,23 @@ def device_ms(fn, n=10):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    out = {}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
-        us += getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
-    return us / 1e3 / n if us > 0 else "not measured"
+        t = getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+        if t > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + t / 1e3 / n
+    return out
+
+
+def sm_clock():
+    """nvidia-smi's SM clock and power draw, one reading."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def alternate(kernel, plain):
@@ -1866,10 +1888,30 @@ def phase_train_times(dev, rows, trainer, smi):
         F.ctc_loss(torch.log_softmax(x, -1).transpose(0, 1), targets, lp_lens,
                    tl, reduction="none").sum().backward()
 
+    # the kernel's forward and backward apart: the forward with the grad
+    # recorded (both chains), the backward by autograd.grad (nothing
+    # accumulates), each with its kernels' device times
+    xk = lg.clone().requires_grad_(True)
+    w = torch.ones(lg.shape[0], device=dev)
+
+    def ctc_fwd():
+        return C.ctc_loss(xk, lens, labels, label_lens)
+
+    nll_k = ctc_fwd()
+
+    def ctc_bwd():
+        return torch.autograd.grad(nll_k, xk, w, retain_graph=True)
+
+    clock = [sm_clock()]
     ctc = {"plain": [cuda_ms(ctc_plain, 5)], "kernel": [cuda_ms(ctc_kernel)]}
     ctc["kernel"].append(cuda_ms(ctc_kernel))
     ctc["plain"].append(cuda_ms(ctc_plain, 5))
     ctc["library"] = [cuda_ms(ctc_library)]
+    split = {"fwd_kernel_ms": cuda_ms(ctc_fwd),
+             "bwd_kernel_ms": cuda_ms(ctc_bwd),
+             "fwd_device_ms": device_kernels(ctc_fwd),
+             "bwd_device_ms": device_kernels(ctc_bwd)}
+    clock.append(sm_clock())
     layer_b = train_layer_bound(layer, args)
     ctc_b = ctc_bound(lg)
     emit({"phase": "train_times", "card": smi,
@@ -1881,7 +1923,8 @@ def phase_train_times(dev, rows, trainer, smi):
           "ctc": {"B": lg.shape[0], "T": lg.shape[1], "V": lg.shape[2],
                   "fwd_bwd_kernel_ms": ctc["kernel"],
                   "fwd_bwd_plain_ms": ctc["plain"],
-                  "fwd_bwd_library_ms": ctc["library"], **ctc_b},
+                  "fwd_bwd_library_ms": ctc["library"], **split,
+                  "sm_clock_power": clock, **ctc_b},
           **step_times(rows), "profile": profile_train_steps(trainer)})
     return ({"ms": float(np.mean(fwd["kernel"]) + np.mean(bwd["kernel"])),
              "plain_ms": float(np.mean(fwd["plain"]) + np.mean(bwd["plain"])),

@@ -1,6 +1,6 @@
 """Digest and time the port's kernels on the card, to compare two trees.
 
-    python3 -m masr_tpu_torch.bench.kernel_digest
+    python3 -m masr_tpu_torch.bench.kernel_digest [--ctc-only]
 
 Runs the three Conformer layer kernels of the package importable from the
 working directory on fixed seeded inputs at the flagship width (D=256, 4
@@ -20,7 +20,11 @@ fused_squeezeformer_layer_train (layer_norm conv) on the same inputs,
 fused_chunk_layer_sq at B=32 and at B=1 (slot 7) at full rate (c=16,
 C=256) and half rate (c=8, C=128 on the full-resolution ring), and
 rel_pos_flash_attention (4 heads, d_k 64) at B=8, T'=1500 under a static
-chunk of 16 with lens 1500..800 and 0 (rows that see no key).
+chunk of 16 with lens 1500..800 and 0 (rows that see no key); and
+ctc_loss at chip_smoke's CTC shape (B=8, T'=299, V=4000, S=161; `ctc_row`:
+the forward and the backward timed apart, each with its kernels' device
+times, F.ctc_loss as a yardstick, the SM clock; `--ctc-only` runs that
+row alone).
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
 calls, the card's name and power limit, for every kernel but CTC the
@@ -41,6 +45,7 @@ import hashlib
 import json
 import re
 import subprocess
+import sys
 import time
 
 import torch
@@ -183,9 +188,96 @@ def _matmul(products, dev):
     return out
 
 
+def _smi():
+    """The card's name, SM clock (MHz), power draw and power limit (W),
+    one nvidia-smi reading."""
+    return subprocess.run(
+        ["nvidia-smi",
+         "--query-gpu=name,clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def ctc_row(dev):
+    """Row 4 through the `ctc_loss` entry that every tree since the
+    training slice has, at chip_smoke's CTC shape (B=8, T'=299, V=4000,
+    label lengths 5..80, S=161): digests of the NLL and of the logits grad
+    of a weighted sum; CUDA-event times of the forward (grad recorded),
+    the backward (torch.autograd.grad, so nothing accumulates), both, and
+    the forward without grad (the eval passes); each CUDA kernel's device
+    time per call for the forward and the backward apart; F.ctc_loss on
+    log_softmax, forward + backward, as a yardstick only; chip_smoke's own
+    way of timing it (a copy of the logits, forward, .sum().backward());
+    nvidia-smi's SM clock and power before and after."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.ops.cuda import build
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    build.build(["ctc_loss"])
+    g = torch.Generator().manual_seed(6)
+    T, V = 299, 4000
+    label_lens = torch.tensor([5, 10, 15, 20, 25, 30, 40, 80],
+                              dtype=torch.int32)
+    lens = torch.tensor([33, 90, 150, 180, 220, 250, 281, T],
+                        dtype=torch.int32)
+    B = len(label_lens)
+    x = (2 * torch.randn(B, T, V, generator=g)).to(dev).requires_grad_(True)
+    labels = torch.randint(1, V - 1, (B, 80), generator=g)
+    labels[torch.arange(80)[None] >= label_lens[:, None]] = -1
+    labels, lens, label_lens = (labels.to(dev, torch.int32), lens.to(dev),
+                                label_lens.to(dev))
+    w = torch.randn(B, generator=g).to(dev)
+
+    def fwd():
+        return C.ctc_loss(x, lens, labels, label_lens)
+
+    nll = fwd()
+    (grad,) = torch.autograd.grad(nll, x, w, retain_graph=True)
+
+    def bwd():
+        return torch.autograd.grad(nll, x, w, retain_graph=True)
+
+    def both():
+        return torch.autograd.grad(fwd(), x, w)
+
+    def fwd_nograd():
+        with torch.no_grad():
+            return fwd()
+
+    targets, lp_lens, tl = labels.clamp(min=0).long(), lens.long(), \
+        label_lens.long()
+
+    def smoke_style():
+        # as chip_smoke's train_times times it: a copy of the logits, the
+        # forward, and .sum().backward() into a fresh leaf's .grad
+        xc = x.detach().clone().requires_grad_(True)
+        C.ctc_loss(xc, lens, labels, label_lens).sum().backward()
+
+    def library():
+        loss = F.ctc_loss(torch.log_softmax(x, -1).transpose(0, 1), targets,
+                          lp_lens, tl, reduction="none")
+        return torch.autograd.grad(loss, x, w)
+
+    smi_before = _smi()
+    out = {"digest": _digest([nll, grad]), "fwd_ms": _ms(fwd),
+           "bwd_ms": _ms(bwd), "fwd_bwd_ms": _ms(both),
+           "fwd_nograd_ms": _ms(fwd_nograd),
+           "smoke_style_ms": _ms(smoke_style),
+           "kernels_smoke_style": _kernels(smoke_style),
+           "library_fwd_bwd_ms": _ms(library),
+           "kernels_fwd": _kernels(fwd), "kernels_bwd": _kernels(bwd),
+           "kernels_fwd_nograd": _kernels(fwd_nograd)}
+    out["smi"] = [smi_before, _smi()]
+    out["nll"] = nll.detach().double().tolist()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_digest: CUDA is not available")
+    if "--ctc-only" in sys.argv[1:]:
+        print(json.dumps({"ctc_loss": ctc_row(torch.device("cuda")),
+                          "card": _smi()}), flush=True)
+        return
     from masr_tpu_torch.models.conformer import ConformerEncoderLayer
     from masr_tpu_torch.models.embedding import sinusoid_position_encoding
     from masr_tpu_torch.models.weights import seeded_state_dict
@@ -450,13 +542,15 @@ def main():
             digests["rel_pos_flash_attention"] = _digest([row5()])
             ms["rel_pos_flash_attention"] = _ms(row5)
             kernels["rel_pos_flash_attention"] = _kernels(row5)
+    ctc = ctc_row(dev)
+    digests["ctc_loss"] = ctc.pop("digest")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(json.dumps({"digests": digests, "ms": ms, "card": card,
                       "kernels": kernels, "batch_invariant": invariant,
                       "matmul": matmul, "host_ms": host,
-                      "launch_split": split}),
+                      "launch_split": split, "ctc_loss": ctc}),
           flush=True)
 
 

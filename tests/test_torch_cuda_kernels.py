@@ -242,6 +242,164 @@ def test_ctc_kernel_matches_plain(cuda_device, B, T, V, L):
     assert k64 <= max(2 * p64, 1e-4), (k64, p64)
 
 
+def _ctc_run(fn, dtype, logits, args, wts, grad=True):
+    """One CTC call on the card: → (nll f64, grad f64 or None, launches)."""
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    lg = logits.detach().to(dtype).clone().requires_grad_(grad)
+    before = C.ctc_loss.launches
+    nll = fn(lg, *args)
+    g = None
+    if grad:
+        (g,) = torch.autograd.grad((nll * wts.to(dtype)).sum(), lg)
+        g = g.double()
+    torch.cuda.synchronize()
+    return nll.detach().double(), g, C.ctc_loss.launches - before
+
+
+def _ctc_gates(device, logits, logit_lens, labels, label_lens, seed,
+               rows=None):
+    """The card's CTC gates on one batch: one forward and one backward
+    launch; NLL vs the plain twin rtol 1e-5 atol 1e-4; grad (over `rows`,
+    all by default) within max(2 x the plain f32 twin's error, 1e-4) of the
+    plain twin in f64; everything finite. → the kernel's (nll, grad)."""
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    wts = torch.randn(logits.shape[0], generator=torch.Generator(
+        ).manual_seed(seed)).to(device)
+    args = (logit_lens.to(device), labels.to(device, torch.int32),
+            label_lens.to(device, torch.int32))
+    logits = logits.to(device)
+    n_k, g_k, launched = _ctc_run(C.ctc_loss, torch.float32, logits, args,
+                                  wts)
+    n_p, g_p, _ = _ctc_run(C.ctc_loss_plain, torch.float32, logits, args,
+                           wts)
+    _, g_64, _ = _ctc_run(C.ctc_loss_plain, torch.float64, logits, args, wts)
+    assert launched == 2
+    assert torch.isfinite(n_k).all() and torch.isfinite(g_k).all()
+    torch.testing.assert_close(n_k, n_p, rtol=1e-5, atol=1e-4)
+    rows = slice(None) if rows is None else rows
+    k64 = (g_k - g_64)[rows].abs().max().item()
+    p64 = (g_p - g_64)[rows].abs().max().item()
+    assert k64 <= max(2 * p64, 1e-4), (k64, p64)
+    return n_k, g_k
+
+
+def _ctc_batch(seed, B, T, V, L, label_lens, logit_lens, low=1, high=None):
+    """Seeded logits (2 x N(0, 1)) and labels in [low, high), padded with
+    -1 past each label length."""
+    g = torch.Generator().manual_seed(seed)
+    logits = 2 * torch.randn(B, T, V, generator=g)
+    labels = torch.randint(low, high or V, (B, L), generator=g)
+    label_lens = torch.tensor(label_lens, dtype=torch.int32)
+    labels[torch.arange(L)[None] >= label_lens[:, None]] = -1
+    return (logits, torch.tensor(logit_lens, dtype=torch.int32), labels,
+            label_lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,T,V", [(300, 700, 50), (1100, 2300, 24)],
+                         ids=["S601", "S2201"])
+def test_ctc_kernel_many_states(cuda_device, L, T, V):
+    """S = 601 (three warps of 32 lanes x 8 states) and S = 2201 (past the
+    register chains: the strided kernel): the card's gates."""
+    batch = _ctc_batch(L, 2, T, V, L, [L, L - 37], [T, T - 40])
+    _ctc_gates(cuda_device, *batch, seed=L)
+
+
+@pytest.mark.cuda
+def test_ctc_kernel_one_frame(cuda_device):
+    """T' = 1: label lengths 0 and 1 (the only feasible ones) and a frame
+    count of 0 (no occupancy; its loss from frame 0's alpha, its grad 0 as
+    the Pallas kernel's, so it stays out of the grad gate)."""
+    batch = _ctc_batch(21, 3, 1, 11, 1, [0, 1, 1], [1, 1, 0])
+    _, g_k = _ctc_gates(cuda_device, *batch, seed=21, rows=slice(0, 2))
+    assert g_k[2].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_ctc_kernel_every_label_the_same(cuda_device):
+    """Every label token the same, so every skip is barred; frame counts
+    from the least the alignment allows (L + the L - 1 repeats) up."""
+    L = 40
+    batch = _ctc_batch(22, 3, 120, 30, L, [L, L, 25], [120, 2 * L - 1, 49],
+                       low=7, high=8)
+    _ctc_gates(cuda_device, *batch, seed=22)
+
+
+@pytest.mark.cuda
+def test_ctc_kernel_shortest_frames(cuda_device):
+    """tlen as short as the alignment allows: L plus the number of adjacent
+    repeats in each label (labels from 3 tokens, so repeats are common)."""
+    L, B = 30, 4
+    logits, _, labels, label_lens = _ctc_batch(23, B, 90, 20, L,
+                                               [30, 24, 17, 9], [90] * B,
+                                               low=1, high=4)
+    tl = []
+    for b in range(B):
+        lab = labels[b, :int(label_lens[b])].tolist()
+        tl.append(len(lab) + sum(x == y for x, y in zip(lab, lab[1:])))
+    _ctc_gates(cuda_device, logits, torch.tensor(tl, dtype=torch.int32),
+               labels, label_lens, seed=23)
+
+
+@pytest.mark.cuda
+def test_ctc_kernel_infeasible_alignment(cuda_device):
+    """Sequence 1 has more labels than its frames allow: its NLL ~1e30,
+    finite, as the plain twin's (rtol 1e-5); every grad finite; the grad
+    gate over the feasible sequences (the infeasible one's occupancies are
+    the Pallas kernel's clipped ones, not the plain twin's autograd through
+    -1e30)."""
+    batch = _ctc_batch(24, 3, 40, 13, 12, [12, 12, 6], [40, 8, 30])
+    n_k, _ = _ctc_gates(cuda_device, *batch, seed=24, rows=[0, 2])
+    assert n_k[1] > 1e29 and n_k[0] < 1e4
+
+
+def _ctc_smoke_batch():
+    """chip_smoke's CTC shape: B=8, T'=299, V=4000, label lengths 5..80
+    (S = 161), frames 33..299."""
+    return _ctc_batch(25, 8, 299, 4000, 80, [5, 10, 15, 20, 25, 30, 40, 80],
+                      [33, 90, 150, 180, 220, 250, 281, 299])
+
+
+@pytest.mark.cuda
+def test_ctc_kernel_batch_invariant_and_repeatable(cuda_device):
+    """Each sequence's NLL and grad bits at B=1 equal its slice of the B=8
+    call, and two runs of the B=8 call give the same bits."""
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    logits, lens, labels, label_lens = (t.to(cuda_device)
+                                        for t in _ctc_smoke_batch())
+    labels = labels.int()
+    wts = torch.randn(8, generator=torch.Generator().manual_seed(26)).to(
+        cuda_device)
+    runs = [_ctc_run(C.ctc_loss, torch.float32, logits,
+                     (lens, labels, label_lens), wts) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    for b in (0, 3, 7):
+        s = slice(b, b + 1)
+        n1, g1, _ = _ctc_run(C.ctc_loss, torch.float32, logits[s],
+                             (lens[s], labels[s], label_lens[s]), wts[s])
+        assert torch.equal(n1, runs[0][0][s]), b
+        assert torch.equal(g1, runs[0][1][s]), b
+
+
+@pytest.mark.cuda
+def test_ctc_kernel_eval_forward(cuda_device):
+    """A forward without grad (the eval passes: the beta chains and the
+    group tables skipped) gives the NLL bits of the forward with grad,
+    one launch."""
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    logits, lens, labels, label_lens = (t.to(cuda_device)
+                                        for t in _ctc_smoke_batch())
+    args = (lens, labels.int(), label_lens)
+    wts = torch.ones(8, device=cuda_device)
+    n_grad, _, _ = _ctc_run(C.ctc_loss, torch.float32, logits, args, wts)
+    with torch.no_grad():
+        n_eval, _, launched = _ctc_run(C.ctc_loss, torch.float32, logits,
+                                       args, wts, grad=False)
+    assert launched == 1
+    assert torch.equal(n_eval, n_grad)
+
+
 # --------------------------------------------------------------------------- #
 # Squeezeformer
 # --------------------------------------------------------------------------- #
