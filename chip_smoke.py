@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Drives the port's offline and streaming recognition and its training (the
-Conformer and the Squeezeformer), and the offline recognition of
-static-chunk models, through their public entry points
+Conformer and the Squeezeformer), the offline recognition of static-chunk
+models, and the decoders beyond greedy, through their public entry points
 (MASRPredictor.predict_batch, MASRPredictor.predict_stream,
 BatchStreamSession, MASRTrainer.train) and holds every hand-written kernel
 of those paths against its plain PyTorch twin. Phases, one JSON line each:
 
   1. build          compile the eight CUDA sources of the repo (nvcc, sm_90a),
-                    one process per source, all started together
+                    one process per source, all started together, and the
+                    native beam search (g++) beside them
   2. kernels        the full-context Conformer layer kernel vs its plain twin
                     at flagship width (D=256, 4 heads, FFN 2048, conv 15),
                     B=4, T' in {37, 299, 1500}, causal and not
@@ -147,6 +148,51 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     with the bound over the visible pairs (f32 and 3xTF32)
                     and the dense one; the long batch's predict_batch wall
                     for both families
+ 25. decoders_bundle  the example bundle with ctc_beam_search (beam 300 of
+                    configs/conformer.yml; with and without a character
+                    bigram ARPA of the bundle's training sentences, written
+                    to build/smoke/decoders/), attention_rescoring (the
+                    n-best 10 of a beam of 30) and
+                    ctc_beam_search_device (beam 10; with and without the
+                    bigram's dense table): predict and predict_stream (0.2 s
+                    pieces) on the card == on the CPU, >= 2 of 3 held-out
+                    sentences exact (attention_rescoring reported only:
+                    this bundle's attention decoder prefers shorter
+                    hypotheses, in masr_tpu too), the native engine, 2
+                    layer launches per encode and per window
+ 26. decoders_flagship  the flagship with configs/conformer.yml's attention
+                    decoder (3 + 3 blocks, reverse_weight 0.3; encoder and
+                    CTC head phase 3's bits): predict_batch of the 8
+                    utterances with each decoder, 12 layer launches per
+                    encode; texts == the CPU decoders on the card's probs;
+                    rescore_hyps card vs CPU on the same rows and
+                    hypotheses within 1e-4 + 1e-6 x |score| (a score sums
+                    ~60 log-probs, |score| up to ~500); the device beam
+                    (beam 10) with and without a dense bigram: texts == the
+                    CPU's, scores within 1e-4; the Squeezeformer flagship
+                    and the static-chunk Conformer with attention_rescoring:
+                    12 row-6 / row-5 launches per encode
+ 27. decoders_stream  two-pass predict_stream (attention rescoring at the
+                    end over every window's encoder rows, 12 chunk launches
+                    a window) == the CPU decoders replayed on the card's
+                    window probs and rows; the Squeezeformer's two-pass
+                    stream, 12 row-8 launches a window; a 32-slot engine with
+                    ctc_beam_search_device: texts == each stream's own
+                    predict_stream, 12 chunk launches per dispatch, a
+                    closed slot reopens fresh
+ 28. decoders_eval  phase 12's checkpoint evaluated by MASRTrainer with
+                    attention_rescoring and ctc_beam_search_device: per
+                    batch 12 training-layer and 1 CTC forward launches and
+                    12 full-context layer launches; texts == the CPU
+                    decoders on the card's outputs; phase 20's layer_norm
+                    Squeezeformer with ctc_beam_search_device (rows 7, 4,
+                    6: 12 + 1 + 12 per batch)
+ 29. decoder_times  the native beam 300 on the shortest and the longest
+                    utterance, the Python engine on the shortest, the thread
+                    pool over 8; the device beam at B=8 (wall, and the
+                    profiler's device time and kernel launches over its
+                    first 60 frames), the engine's beam step per dispatch;
+                    one rescore at N=10; the two-pass end-of-stream latency
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -161,6 +207,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -192,6 +239,14 @@ SQ_DECODER = dict(attention_heads=4, linear_units=1024, num_blocks=3,
                   positional_dropout_rate=0.1,
                   self_attention_dropout_rate=0.1,
                   src_attention_dropout_rate=0.1)
+# configs/conformer.yml decoder_conf and model_conf
+FLAGSHIP_DECODER = dict(attention_heads=4, linear_units=1024, num_blocks=3,
+                        r_num_blocks=3, dropout_rate=0.1,
+                        positional_dropout_rate=0.1,
+                        self_attention_dropout_rate=0.1,
+                        src_attention_dropout_rate=0.1)
+FLAGSHIP_MODEL_CONF = dict(ctc_weight=0.3, lsm_weight=0.1, reverse_weight=0.3,
+                           length_normalized_loss=False)
 PREPROCESS = dict(feature_method="fbank", n_mels=80, n_mfcc=40,
                   sample_rate=16000, use_dB_normalization=True, target_dB=-20)
 VOCAB = 4000                                          # bench.py:61
@@ -311,7 +366,8 @@ def phase_kernels(dev):
     return worst
 
 
-def write_flagship_bundle(path, use_model="conformer", static_chunk=0):
+def write_flagship_bundle(path, use_model="conformer", static_chunk=0,
+                          decoder=False):
     """A flagship bundle (the Conformer's, or with use_model="squeezeformer"
     the Squeezeformer's of configs/squeezeformer.yml, BatchNorm statistics
     in batch_stats) with weights drawn from seed 0, written the way
@@ -319,7 +375,11 @@ def write_flagship_bundle(path, use_model="conformer", static_chunk=0):
     bundle (same fbank frontend). With static_chunk, a static-chunk model:
     encoder_conf use_dynamic_chunk false and that static_chunk_size; the
     Squeezeformer then has streaming off (with it on, masr_tpu's and the
-    port's SqueezeformerModel force a dynamic chunk)."""
+    port's SqueezeformerModel force a dynamic chunk). With decoder, the
+    Conformer gets configs/conformer.yml's attention decoder (3 + 3 blocks)
+    and model_conf: every other tensor is the one the bundle has without
+    it, bit for bit (seeded_state_dict draws them from seed 0 on the model
+    without this decoder), the decoder's are drawn from seed 1."""
     from masr_tpu_torch.infer import flax_msgpack
     from masr_tpu_torch.models.registry import build_model
     from masr_tpu_torch.models.weights import (seeded_state_dict,
@@ -343,12 +403,21 @@ def write_flagship_bundle(path, use_model="conformer", static_chunk=0):
     # the default init they sit near 1/V, and no frame would have a top-2
     # margin for the argmax comparison
     state["ctc.ctc_lo.weight"] *= 8.0
+    model_conf = {}
+    if decoder:
+        decoder_conf, model_conf = FLAGSHIP_DECODER, FLAGSHIP_MODEL_CONF
+        full = build_model(use_model, 80, VOCAB, streaming=streaming,
+                           encoder_conf=encoder_conf,
+                           decoder_conf=decoder_conf, model_conf=model_conf)
+        drawn = seeded_state_dict(full, seed=1)
+        state = {k: drawn[k] if k.startswith("decoder.") else state[k]
+                 for k in full.state_dict()}
     variables = to_flax_variables(state)
     meta = {"framework": "masr_tpu", "use_model": use_model,
             "streaming": streaming, "input_dim": 80, "vocab_size": VOCAB,
             "mean": tiny["mean"], "istd": tiny["istd"],
             "encoder_conf": encoder_conf, "decoder_conf": decoder_conf,
-            "model_conf": {}, "preprocess_conf": PREPROCESS,
+            "model_conf": model_conf, "preprocess_conf": PREPROCESS,
             "quantization": None}
     vocab = (["<blank>", "<unk>"] + [chr(0x4e00 + i) for i in range(VOCAB - 3)]
              + ["<eos>"])
@@ -364,16 +433,19 @@ def write_flagship_bundle(path, use_model="conformer", static_chunk=0):
     return vocab
 
 
+def synthetic_texts(vocab):
+    """The texts of synthetic_utterances and their speakers."""
+    rs = np.random.RandomState(1)
+    return [("".join(vocab[j] for j in rs.randint(2, len(vocab) - 1, n)), i)
+            for i, n in enumerate(np.linspace(10, 59, 8).astype(int))]
+
+
 def synthetic_utterances(vocab):
     """8 utterances of 10..59 characters: 2.1 s to 11.9 s of audio."""
     from masr_tpu_torch.audio.synth_tts import SyntheticTTS
     tts = SyntheticTTS(sample_rate=16000)
-    rs = np.random.RandomState(1)
-    wavs = []
-    for i, n in enumerate(np.linspace(10, 59, 8).astype(int)):
-        text = "".join(vocab[j] for j in rs.randint(2, len(vocab) - 1, n))
-        wavs.append(tts.render(text, spk_id=i))
-    return wavs
+    return [tts.render(text, spk_id=spk)
+            for text, spk in synthetic_texts(vocab)]
 
 
 def layer_kernel(family):
@@ -2393,6 +2465,769 @@ def phase_flash_times(dev, smi, static_runs):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"]}
 
 
+# --------------------------------------------------------------------------- #
+# Decoders beyond greedy: the host prefix beam search, attention rescoring
+# and the device beam. They add no kernel; their encodes run the layer
+# kernels, which each phase counts around its own path.
+# --------------------------------------------------------------------------- #
+# tools/head_to_head.py CHARS: the example bundle's characters
+CORPUS_CHARS = ("你好天气真完我家业世界语音识别学习工作水火山石田土木金"
+                "雨雪风云日月星光红绿蓝白黑大小多少上下左右")
+# configs/conformer.yml ctc_beam_search_decoder_conf (its KenLM file is not
+# in the repository: the flagship beams decode without an LM)
+BEAM_CONF = dict(alpha=2.2, beta=4.3, beam_size=300, num_processes=10,
+                 cutoff_prob=0.99, cutoff_top_n=40)
+DEVICE_BEAM = dict(beam_size=10, cutoff_top_n=40)
+# attention rescoring's n-best of 10 comes from a beam of 30 (beam 300 takes
+# 0.2-1.9 s an utterance on the H100 machine's host, phase decoder_times)
+RESCORE_NBEST, RESCORE_BEAM = 10, 30
+PROFILED_FRAMES = 60      # the device beam's profiled run (its launches)
+PYTHON_FRAMES = 16        # the Python engine's timed slice
+SCORE_ATOL = 1e-4         # beam scores, card vs CPU
+# a rescoring score sums the log-probs of up to ~60 tokens over 4000 words
+# (|score| up to ~1000, where f32's spacing is 6.1e-5): the card's is held
+# to 4 f32 epsilons of the CPU score, plus 1e-5 near zero
+RESCORE_ULPS = 4 * float(np.finfo(np.float32).eps)
+RESCORE_ATOL = 1e-5
+BUNDLE_DECODERS = (("ctc_beam_search", False), ("ctc_beam_search", True),
+                   ("attention_rescoring", False),
+                   ("ctc_beam_search_device", False),
+                   ("ctc_beam_search_device", True))
+
+
+def corpus_sentences(n_train=240, n_test=24, seed=0):
+    """tools/head_to_head.py make_corpus(240, 24): the example bundle's
+    training sentences (3-6 characters, all distinct)."""
+    rs = np.random.RandomState(seed)
+    seen, sents = set(), []
+    while len(sents) < n_train + n_test:
+        n = rs.randint(3, 7)
+        s = "".join(CORPUS_CHARS[i]
+                    for i in rs.randint(0, len(CORPUS_CHARS), n))
+        if s not in seen:
+            seen.add(s)
+            sents.append(s)
+    return sents[:n_train]
+
+
+def write_char_bigram_arpa(sentences, path, discount=0.5):
+    """A character bigram ARPA LM of `sentences`: add-one unigrams (and
+    <unk>), absolutely discounted bigrams, each history's backoff weight
+    spreading its discounted mass over the unigrams of its unseen
+    successors. → path."""
+    from collections import Counter
+    uni, bi = Counter(), Counter()
+    for s in sentences:
+        uni.update(s)
+        bi.update(zip(s, s[1:]))
+    chars = sorted(uni)
+    total = sum(uni.values()) + len(chars) + 1
+    p_uni = {c: (uni[c] + 1) / total for c in chars}
+    seen = Counter()
+    succ = {}
+    for (a, b), n in bi.items():
+        seen[a] += n
+        succ.setdefault(a, []).append(b)
+    p_bi = {(a, b): (n - discount) / seen[a] for (a, b), n in bi.items()}
+    lines = ["\\data\\", f"ngram 1={len(chars) + 1}",
+             f"ngram 2={len(p_bi)}", "", "\\1-grams:",
+             f"{np.log10(1 / total):.6f}\t<unk>"]
+    for c in chars:
+        line = f"{np.log10(p_uni[c]):.6f}\t{c}"
+        if c in succ:
+            left = 1 - sum(p_bi[(c, b)] for b in succ[c])
+            rest = 1 - sum(p_uni[b] for b in succ[c])
+            line += f"\t{np.log10(left / rest):.6f}"
+        lines.append(line)
+    lines += ["", "\\2-grams:"]
+    lines += [f"{np.log10(p):.6f}\t{a} {b}" for (a, b), p in
+              sorted(p_bi.items())]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines + ["", "\\end\\", ""]))
+    return path
+
+
+def profiled_launches(fn):
+    """One call of fn under torch.profiler (after a warm call) → (device
+    ms of the CUDA kernels it ran, how many kernels it launched)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, launches = 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+        if t > 0:
+            ms += t / 1e3
+            launches += ev.count
+    return ms, launches
+
+
+def rescoring_beam(vocab):
+    """The host beam of attention_rescoring's n-best, as the predictor
+    builds it from decoder_configs("attention_rescoring")."""
+    from masr_tpu_torch.decoders.beam_search import BeamSearchDecoder
+    conf = decoder_configs("attention_rescoring")
+    conf.pop("rescoring_nbest")
+    return BeamSearchDecoder(vocab, **conf)
+
+
+def decoder_configs(decoder, lm_path=None, alpha=None, beta=None):
+    conf = dict(DEVICE_BEAM) if decoder == "ctc_beam_search_device" \
+        else dict(BEAM_CONF)
+    if decoder == "attention_rescoring":
+        conf.update(beam_size=RESCORE_BEAM, rescoring_nbest=RESCORE_NBEST)
+    if lm_path:
+        conf["language_model_path"] = lm_path
+    if alpha is not None:
+        conf.update(alpha=alpha, beta=beta)
+    return conf
+
+
+def count_chunk_steps(pred):
+    """Counts the chunk steps of a predictor: every predict_stream window
+    goes through its encoder's forward_chunk_batched. → the list that gets
+    one entry per step."""
+    enc = pred.predictor.model.encoder
+    steps, orig = [], enc.forward_chunk_batched
+
+    def counted(*a, **k):
+        steps.append(1)
+        return orig(*a, **k)
+
+    enc.forward_chunk_batched = counted
+    return steps
+
+
+def stream_text(pred, wav, piece=PIECE):
+    """predict_stream in pieces → (the final text, the wall seconds of the
+    call with is_end); the stream is reset after."""
+    text, last = None, 0.0
+    for i in range(0, len(wav), piece):
+        end = i + piece >= len(wav)
+        t0 = time.perf_counter()
+        r = pred.predict_stream(wav[i:i + piece], is_end=end)
+        if end:
+            last = time.perf_counter() - t0
+        text = r["text"] if r is not None else text
+    pred.reset_stream()
+    return text, last
+
+
+def phase_decoders_bundle(dev):
+    """The trained example bundle with every decoder beyond greedy, on the
+    card and on the CPU: predict and predict_stream (0.2 s pieces) of the
+    held-out sentences, the card's text equal to the CPU's, >= 2 of 3
+    exact (but for attention_rescoring: this bundle's 2-block attention
+    decoder prefers shorter hypotheses, in masr_tpu too, so its hits are
+    reported); the host beams run the native engine; 2 layer-kernel
+    launches per encode, 2 chunk launches per window."""
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "decoders")
+    os.makedirs(root, exist_ok=True)
+    lm = write_char_bigram_arpa(corpus_sentences(),
+                                os.path.join(root, "corpus_bigram.arpa"))
+    tts = SyntheticTTS(sample_rate=16000)
+    wavs = [(text, tts.render(text, spk_id=spk)) for text, spk in HELD_OUT]
+    rows = []
+    for decoder, with_lm in BUNDLE_DECODERS:
+        conf = decoder_configs(decoder, lm if with_lm else None)
+        gpu = MASRPredictor(TINY_BUNDLE, decoder=decoder,
+                            decoder_configs=conf, device=dev, warmup=False)
+        cpu = MASRPredictor(TINY_BUNDLE, decoder=decoder,
+                            decoder_configs=conf, device="cpu", warmup=False)
+        what = f"{decoder}{' + LM' if with_lm else ''}"
+        check(gpu.decoder == decoder, f"{what}: no fallback to greedy")
+        engine = None
+        if gpu.beam_search_decoder is not None:
+            engine = gpu.beam_search_decoder.engine
+            check(engine == "native", f"{what}: the native engine runs "
+                  f"({engine})")
+            check(with_lm == (gpu.beam_search_decoder._native_scorer
+                              is not None), f"{what}: the LM is loaded")
+        else:
+            lm_table = gpu._device_beam_conf["lm_table"]
+            check(with_lm == (lm_table is not None)
+                  and (lm_table is None or lm_table.is_cuda),
+                  f"{what}: the dense bigram on the card")
+        n_layers = gpu.predictor.meta["encoder_conf"]["num_blocks"]
+        steps = count_chunk_steps(gpu)
+        got = {"predict": [], "predict_stream": []}
+        for text, wav in wavs:
+            # each main path: counts read around its own call
+            reset_launches()
+            r = gpu.predict(wav)["text"]
+            check(layer_kernel("conformer").launches == n_layers,
+                  f"{what}: {n_layers} layer launches per predict")
+            check(r == cpu.predict(wav)["text"], f"{what} predict: card "
+                  f"text {r!r} == CPU text")
+            got["predict"].append(r)
+            reset_launches()
+            del steps[:]
+            r, _ = stream_text(gpu, wav)
+            check(steps and chunk_launches() == n_layers * len(steps),
+                  f"{what}: {n_layers} chunk launches x {len(steps)} "
+                  "windows")
+            check(r == stream_text(cpu, wav)[0], f"{what} predict_stream: "
+                  f"card text {r!r} == CPU text")
+            got["predict_stream"].append(r)
+        hits = {k: sum(t == want for t, (want, _) in zip(v, wavs))
+                for k, v in got.items()}
+        if decoder != "attention_rescoring":
+            check(min(hits.values()) >= 2, f"{what}: held-out sentences "
+                  f"decoded {hits} of 3")
+        rows.append({"decoder": what, "engine": engine, "exact": hits,
+                     **got})
+    emit({"phase": "decoders_bundle", "of": len(wavs), "lm": lm,
+          "runs": rows, "seconds": time.perf_counter() - t_phase})
+
+
+def phase_decoders_flagship(dev, wavs, smi):
+    """The flagship with configs/conformer.yml's attention decoder (3 + 3
+    blocks; encoder and CTC head the bits of phase 3's bundle),
+    predict_batch of the 8 utterances with each decoder on the card (12
+    layer launches per encode; attention_rescoring decodes greedily there,
+    as in masr_tpu, and rescores in predict of each utterance), against
+    the CPU decoders run on the card's probs and encoder rows: the host
+    beam (beam 300) and attention rescoring (its rescore_hyps within
+    1e-5 + 4 f32 epsilons x |score| of the CPU's on the same rows and
+    hypotheses), the device beam (beam 10) with and without a dense bigram
+    (same texts, scores within 1e-4). The Squeezeformer flagship (row 6)
+    and the static-chunk Conformer (row 5) rescore one utterance each. →
+    what decoder_times needs."""
+    from masr_tpu_torch.decoders.beam_search import BeamSearchDecoder
+    from masr_tpu_torch.decoders.device_beam import decode_batch_device
+    from masr_tpu_torch.decoders.greedy import greedy_decoder
+    from masr_tpu_torch.infer.bundle import load_inference_bundle
+    from masr_tpu_torch.infer.inference_model import InferencePredictor
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    path = os.path.join(WORK, "conformer_decoder_bundle")
+    vocab = write_flagship_bundle(path, decoder=True)
+    # the encoder and CTC head are phase 3's, bit for bit
+    base, _, _ = load_inference_bundle(os.path.join(WORK,
+                                                    "conformer_bundle"))
+    full, meta, _ = load_inference_bundle(path)
+    mine = full.state_dict()
+    for k, v in base.state_dict().items():
+        if not k.startswith("decoder."):
+            check(torch.equal(v, mine[k]), f"decoder bundle {k} == the "
+                  "flagship bundle's")
+    check(meta["decoder_conf"]["r_num_blocks"] == 3, "3 + 3 decoder blocks")
+    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    lm = write_char_bigram_arpa(
+        [t for t, _ in synthetic_texts(vocab)],
+        os.path.join(WORK, "decoders", "flagship_bigram.arpa"))
+    cpu_ip = InferencePredictor(path, device="cpu")
+    host = BeamSearchDecoder(vocab, **BEAM_CONF)
+    check(host.engine == "native", "flagship host beam: native engine")
+    out = {"host_beam": host, "cpu_ip": cpu_ip, "path": path}
+    runs = []
+
+    def card_batch(decoder, conf):
+        pred = MASRPredictor(path, decoder=decoder, decoder_configs=conf,
+                             device=dev, warmup=False)
+        # the main path: counts read around predict_batch alone
+        reset_launches()
+        t0 = time.perf_counter()
+        res = pred.predict_batch(wavs)
+        wall = time.perf_counter() - t0
+        launches = layer_kernel("conformer").launches
+        check(launches == n_layers, f"flagship {decoder}: {launches} layer "
+              f"launches == {n_layers} per encode")
+        return pred, res, wall, launches
+
+    # host prefix beam: the CPU engine on the card's probs
+    pred, res, wall, launches = card_batch("ctc_beam_search",
+                                           decoder_configs(
+                                               "ctc_beam_search"))
+    speech, lens = pred.featurize_batch(wavs)
+    probs, out_lens = pred.predictor.predict(speech, lens)
+    utts = [probs[i][:int(out_lens[i])] for i in range(len(wavs))]
+    want = host.decode_batch_beam_search_offline(utts)
+    check([r["text"] for r in res] == [t for _, t in want],
+          "flagship ctc_beam_search: card texts == CPU beam on the card's "
+          "probs")
+    out["probs"] = utts
+    runs.append({"decoder": "ctc_beam_search", "launches": launches,
+                 "predict_batch_s": wall, "texts_equal": len(wavs)})
+
+    # attention rescoring: predict of each utterance (predict_batch decodes
+    # greedily under attention_rescoring, as masr_tpu's does), against the
+    # CPU n-best and the CPU rescore_hyps on the card's encoder rows
+    pred, res, wall, launches = card_batch(
+        "attention_rescoring", decoder_configs("attention_rescoring"))
+    check([r["text"] for r in res] == [
+        greedy_decoder(p, vocab)[1] for p in utts],
+        "flagship attention_rescoring predict_batch: the greedy texts")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = [pred.predict(w) for w in wavs]
+    wall = time.perf_counter() - t0
+    launches = layer_kernel("conformer").launches
+    check(launches == n_layers * len(wavs), f"flagship attention_rescoring "
+          f"predict: {launches} layer launches == {n_layers} x {len(wavs)}")
+    err, excess, top, parted, n_hyps = 0.0, 0.0, 0.0, [], 0
+    nbest_beam = rescoring_beam(vocab)
+    for i, (r, w) in enumerate(zip(res, wavs)):
+        enc, probs, out_lens = pred.predictor.encode_for_rescoring(
+            *pred.featurize_batch([w]))
+        L = int(out_lens[0])
+        nbest = [(s, ids) for s, ids in nbest_beam.decode_nbest(
+            probs[0][:L], RESCORE_NBEST) if ids]
+        hyps = [ids for _, ids in nbest]
+        kw = dict(reverse_weight=pred.rescoring_reverse_weight,
+                  nbest_pad=RESCORE_NBEST)
+        att_card = pred.predictor.rescore(enc, L, hyps, **kw)
+        att_cpu = cpu_ip.rescore(enc.cpu(), L, hyps, **kw)
+        diff = np.abs(att_card - att_cpu)
+        err = max(err, float(diff.max()))
+        excess = max(excess, float((diff / (RESCORE_ATOL + RESCORE_ULPS
+                                            * np.abs(att_cpu))).max()))
+        top = max(top, float(np.abs(att_cpu).max()))
+        n_hyps += len(hyps)
+        totals = att_cpu + pred.rescoring_ctc_weight * np.asarray(
+            [s for s, _ in nbest])
+        best = int(np.argmax(totals))
+        if r["text"] != "".join(vocab[t] for t in hyps[best]):
+            gap = float(np.sort(totals)[-1] - np.sort(totals)[-2])
+            parted.append(gap)
+            check(gap <= 2 * SCORE_ATOL, f"flagship attention_rescoring "
+                  f"utterance {i}: card text differs from the CPU's with a "
+                  f"top-2 gap {gap}")
+    check(excess <= 1.0, f"rescore_hyps card vs CPU: max abs err {err} at "
+          f"|scores| up to {top}, {excess} of {RESCORE_ATOL} + "
+          f"{RESCORE_ULPS} x |score|")
+    check(pred.rescoring_reverse_weight == 0.3, "reverse_weight 0.3")
+    out.update(rescore_pred=pred, enc=enc, out_lens=out_lens,
+               rescore_hyps=hyps)
+    runs.append({"decoder": "attention_rescoring", "launches": launches,
+                 "predict_s": wall, "rescore_max_abs_err": err,
+                 "rescore_max_abs_score": top,
+                 "rescore_err_over_tolerance": excess,
+                 "hypotheses": n_hyps, "reverse_weight": 0.3,
+                 "texts_equal": len(wavs) - len(parted),
+                 "parted_top2_gaps": parted})
+
+    # the device beam, with and without the dense bigram: the port's CPU
+    # device beam on the card's probs
+    for with_lm in (False, True):
+        conf = decoder_configs("ctc_beam_search_device",
+                               lm if with_lm else None, 0.5, 1.0)
+        pred, res, wall, launches = card_batch("ctc_beam_search_device",
+                                               conf)
+        p_t, l_t = pred.predictor.predict_device(speech, lens)
+        kw = dict(pred._device_beam_conf)
+        if with_lm:
+            check(kw["lm_table"].is_cuda and tuple(kw["lm_table"].shape)
+                  == (VOCAB + 1, VOCAB), "dense bigram (V+1, V) on the card")
+        kw_cpu = dict(kw, lm_table=None if kw["lm_table"] is None
+                      else kw["lm_table"].cpu())
+        want = decode_batch_device(p_t.cpu(), l_t.cpu(), vocab, **kw_cpu)
+        check([r["text"] for r in res] == [t for _, t in want],
+              f"flagship device beam (LM {with_lm}): card texts == CPU")
+        s_err = max(abs(r["score"] - s) for r, (s, _) in zip(res, want))
+        check(s_err <= SCORE_ATOL, f"device beam scores card vs CPU {s_err}")
+        runs.append({"decoder": "ctc_beam_search_device"
+                     + (" + dense bigram" if with_lm else ""),
+                     "launches": launches, "predict_batch_s": wall,
+                     "score_max_abs_err": s_err, "texts_equal": len(wavs),
+                     **{k: v for k, v in conf.items()
+                        if k != "language_model_path"}})
+        out["device_beam" + ("_lm" if with_lm else "")] = (p_t, l_t, kw)
+    # the other encoders' rows on a decoder path: the Squeezeformer
+    # flagship (row 6, its 3 + 3-block decoder) and the static-chunk
+    # Conformer (row 5, no row 1) with attention_rescoring
+    for name, static, kernel in (("squeezeformer", 0, "squeezeformer"),
+                                 ("conformer", STATIC_CHUNK, "flash")):
+        other = os.path.join(WORK, f"{name}_{'static_' if static else ''}"
+                             "bundle")
+        write_flagship_bundle(other, name, static_chunk=static)
+        pred = MASRPredictor(other, decoder="attention_rescoring",
+                             decoder_configs=decoder_configs(
+                                 "attention_rescoring"), device=dev,
+                             warmup=False)
+        reset_launches()
+        res = pred.predict(wavs[-1])
+        got = (flash_kernel() if kernel == "flash"
+               else layer_kernel(kernel)).launches
+        check(got == n_layers and isinstance(res["text"], str)
+              and layer_kernel("conformer").launches == 0,
+              f"{name}{' static' if static else ''} attention_rescoring: "
+              f"{got} launches of its kernel == {n_layers} per encode")
+        runs.append({"decoder": "attention_rescoring", "model": name
+                     + (" static chunk" if static else ""),
+                     "kernel": kernel, "launches": got})
+    emit({"phase": "decoders_flagship", "card": smi, "B": len(wavs),
+          "T_out": max(len(u) for u in utts), "beam": BEAM_CONF,
+          "device_beam": DEVICE_BEAM, "runs": runs,
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_decoders_stream(dev, flag, stream_path, wavs):
+    """Two-pass predict_stream of the decoder flagship (attention
+    rescoring over every window's encoder rows, 12 chunk launches a
+    window) against the CPU decoders replayed on the card's window probs
+    and rows; and a 32-slot BatchStreamSession with ctc_beam_search_device
+    on the stream bundle (12 chunk launches per dispatch): each stream's
+    text equals its own device-beam predict_stream, and a closed slot
+    reopens fresh. → (two-pass end-of-stream seconds, rescore seconds,
+    engine beam-step seconds)."""
+    from masr_tpu_torch.infer.batch_stream import BatchStreamSession
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    gpu = MASRPredictor(flag["path"], decoder="attention_rescoring",
+                        decoder_configs=decoder_configs(
+                            "attention_rescoring"), device=dev)
+    dec = gpu.beam_search_decoder
+    chunks, orig_chunk = [], dec.decode_chunk
+    dec.decode_chunk = lambda p: (chunks.append(np.array(p)),
+                                  orig_chunk(p))[1]
+    rescores, orig_pick = [], gpu._pick_rescored
+
+    def pick(enc, enc_len, nbest):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig_pick(enc, enc_len, nbest)
+        rescores.append((time.perf_counter() - t0, enc.cpu(),
+                         [(s, ids) for s, ids in nbest if ids], r))
+        return r
+
+    gpu._pick_rescored = pick
+    steps = count_chunk_steps(gpu)
+    wav = wavs[3]
+    reset_launches()
+    text, end_s = stream_text(gpu, wav)
+    launches = chunk_launches()
+    check(launches == n_layers * len(steps), f"two-pass: {launches} chunk "
+          f"launches == {n_layers} x {len(steps)} windows")
+    check(len(rescores) == 1 and rescores[0][3]["text"] == text,
+          "one rescoring at the end of the stream")
+    # the CPU decoders replayed over the card's window probs and rows
+    cpu_dec = rescoring_beam(gpu._vocab_list)
+    for p in chunks:
+        cpu_dec.decode_chunk(p)
+    _, enc_rows, nbest, _ = rescores[0]
+    want_nbest = [(s, ids) for s, ids in cpu_dec.nbest_state(RESCORE_NBEST)
+                  if ids]
+    check([ids for _, ids in nbest] == [ids for _, ids in want_nbest],
+          "two-pass n-best card == CPU on the card's probs")
+    att = flag["cpu_ip"].rescore(enc_rows, enc_rows.shape[1],
+                                 [ids for _, ids in nbest],
+                                 reverse_weight=gpu.rescoring_reverse_weight,
+                                 nbest_pad=RESCORE_NBEST)
+    totals = att + gpu.rescoring_ctc_weight * np.asarray(
+        [s for s, _ in nbest])
+    want = "".join(gpu._vocab_list[t] for t in nbest[int(np.argmax(
+        totals))][1])
+    gap = float(np.sort(totals)[-1] - np.sort(totals)[-2]) \
+        if len(totals) > 1 else None
+    check(text == want or gap <= 2 * SCORE_ATOL, f"two-pass text {text!r} "
+          f"== CPU replay {want!r} (top-2 gap {gap})")
+    two_pass = {"windows": len(steps), "launches": launches,
+                "hidden_rows": int(enc_rows.shape[1]),
+                "nbest": len(nbest), "text_equal_cpu": text == want,
+                "end_of_stream_s": end_s, "rescore_s": rescores[0][0]}
+    # the Squeezeformer's two-pass stream: row 8, 12 launches a window
+    sq = MASRPredictor(write_stream_bundle(os.path.join(
+        WORK, "squeezeformer_bundle")), decoder="attention_rescoring",
+        decoder_configs=decoder_configs("attention_rescoring"), device=dev,
+        warmup=False)
+    sq_steps = count_chunk_steps(sq)
+    reset_launches()
+    sq_text, _ = stream_text(sq, wav)
+    sq_launches = chunk_launches("squeezeformer")
+    check(sq_steps and sq_launches == n_layers * len(sq_steps)
+          and chunk_launches() == 0 and sq_text is not None,
+          f"Squeezeformer two-pass: {sq_launches} chunk launches == "
+          f"{n_layers} x {len(sq_steps)} windows")
+    two_pass["squeezeformer"] = {"windows": len(sq_steps),
+                                 "launches": sq_launches}
+
+    # the engine: every slot's beam steps on each dispatch's probs
+    pred = MASRPredictor(stream_path, decoder="ctc_beam_search_device",
+                         decoder_configs=dict(DEVICE_BEAM), device=dev,
+                         fused_frontend=False)
+    refs = [stream_text(pred, w, len(w))[0] for w in wavs]
+    sess = BatchStreamSession(
+        pred.predictor, pred._vocab_list, max_streams=ENGINE_STREAMS,
+        preprocess_conf=pred.predictor.meta["preprocess_conf"],
+        decoder="ctc_beam_search_device", decoder_conf=dict(DEVICE_BEAM))
+    beam_s, orig_beam = [], sess._beam_step
+    dispatches = []
+
+    def timed_beam(probs, valids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig_beam(probs, valids)
+        torch.cuda.synchronize()
+        beam_s.append(time.perf_counter() - t0)
+        dispatches.append(len(valids))
+        return r
+
+    sess._beam_step = timed_beam
+    streams = [wavs[k % len(wavs)] for k in range(ENGINE_STREAMS)]
+    slots = [sess.open() for _ in streams]
+    late = [3 * (k % 8) + k // 8 for k in range(len(streams))]
+    n_pieces = max(len(w) // PIECE + 1 + d for w, d in zip(streams, late))
+    texts = [None] * len(streams)
+    # the main path: counts read around the engine run alone
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n_pieces):
+        items = [(slot, w[(i - d) * PIECE:(i - d + 1) * PIECE],
+                  (i - d + 1) * PIECE >= len(w))
+                 for slot, w, d in zip(slots, streams, late)
+                 if 0 <= i - d and (i - d) * PIECE < len(w)]
+        if items:
+            for slot, r in sess.feed_many(items).items():
+                if r is not None:
+                    texts[slots.index(slot)] = r["text"]
+    wall = time.perf_counter() - t0
+    launches_e, n_dispatch = chunk_launches(), len(dispatches)
+    check(launches_e == n_layers * n_dispatch, f"engine: {launches_e} chunk "
+          f"launches == {n_layers} x {n_dispatch} dispatches")
+    equal = sum(t == refs[k % len(wavs)] for k, t in enumerate(texts))
+    check(equal == len(streams), f"engine device-beam texts == "
+          f"predict_stream's: {equal} of {len(streams)}")
+    for slot in slots:
+        sess.close(slot)
+    again = sess.open()
+    r = sess.feed(again, wavs[0], is_end=True)
+    check(r is not None and r["text"] == refs[0], "a closed slot reopens "
+          "with a fresh beam")
+    sess.close(again)
+    emit({"phase": "decoders_stream", "two_pass": two_pass,
+          "engine": {"streams": ENGINE_STREAMS, "decoder":
+                     "ctc_beam_search_device", **DEVICE_BEAM,
+                     "dispatches": n_dispatch, "launches": launches_e,
+                     "texts_equal_predict_stream": equal,
+                     "reopened_slot_equal": True, "wall_s": wall},
+          "seconds": time.perf_counter() - t_phase})
+    return end_s, rescores[0][0], beam_s[:n_dispatch]
+
+
+EVAL_LAUNCHES = ("train_layer_fwd", "train_layer_bwd", "ctc_fwd", "ctc_bwd",
+                 "full_context_layer")
+
+
+def evaluate_captured(tr, trainer, ckpt, decoder, family):
+    """trainer.evaluate(ckpt, decoder) with its eval steps' outputs and the
+    hypotheses captured; counts read around the call alone. → (outputs per
+    batch, hypotheses, (error, loss), wall seconds, launches (train layer,
+    its backward, CTC, its backward, full-context layer))."""
+    seen, hyps = [], []
+    orig = {n: getattr(tr, n) for n in ("eval_step", "eval_step_rescoring",
+                                        "cer")}
+
+    def capture(name):
+        def fn(*a):
+            out = orig[name](*a)
+            seen.append([x.detach() if torch.is_tensor(x) else x
+                         for x in out])
+            return out
+        return fn
+
+    tr.eval_step = capture("eval_step")
+    tr.eval_step_rescoring = capture("eval_step_rescoring")
+    tr.cer = lambda ref, hyp: (hyps.append(hyp), orig["cer"](ref, hyp))[1]
+    try:
+        reset_launches()
+        reset_train_launches()
+        t0 = time.perf_counter()
+        result = trainer.evaluate(resume_model=ckpt, decoder=decoder)
+        wall = time.perf_counter() - t0
+        launches = (*train_launches(family), layer_kernel(family).launches)
+    finally:
+        for n, f in orig.items():
+            setattr(tr, n, f)
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    batches = len(seen)
+    check(batches > 0 and launches == (n * batches, 0, batches, 0,
+                                       n * batches),
+          f"{family} eval {decoder}: launches (train layer, its backward, "
+          f"CTC, its backward, full-context layer) {launches} for "
+          f"{batches} batches")
+    return seen, hyps, result, wall, launches
+
+
+def phase_decoders_eval(dev, corpus):
+    """The training phase's last checkpoint evaluated by MASRTrainer on
+    the card with attention_rescoring and ctc_beam_search_device: per eval
+    batch 12 training-layer forwards, 1 CTC forward and 12 full-context
+    layer launches; the texts equal the same decoders' on the CPU over the
+    card's probs (and encoder rows). Then phase 20's layer_norm
+    Squeezeformer checkpoint with ctc_beam_search_device: its rows 7, 4 and
+    6, 12 + 1 + 12 launches per batch."""
+    from masr_tpu_torch.data.text_featurizer import TextFeaturizer
+    from masr_tpu_torch.decoders.device_beam import decode_batch_device
+    from masr_tpu_torch.training import trainer as tr
+    from masr_tpu_torch.training.checkpoints import load_checkpoint
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "train")
+    ckpt = os.path.join(root, "models", "conformer_streaming_fbank",
+                        "last_model")
+    conf = dict(train_config(corpus, root, TRAIN_EPOCHS + 1),
+                ctc_beam_search_decoder_conf=decoder_configs(
+                    "attention_rescoring"))
+    card = tr.MASRTrainer(conf, device=dev)
+    cpu = tr.MASRTrainer(conf, device="cpu")
+    ds, _, _ = cpu._setup_dataloader(False)
+    cpu._setup_model(ds.feature_dim, ds.vocab_size)
+    cpu.model.load_state_dict(load_checkpoint(ckpt)[0]["model"])
+    tf = TextFeaturizer(corpus["vocab"])
+    vocab = tf.vocab_list
+    rows = []
+    for decoder in ("attention_rescoring", "ctc_beam_search_device"):
+        seen, hyps, (error, loss), wall, launches = evaluate_captured(
+            tr, card, ckpt, decoder, "conformer")
+        want = []
+        for out in seen:
+            if decoder == "attention_rescoring":
+                _, enc, probs, lens = out
+                cpu._resolve_eval_decoder(vocab, decoder)
+                want += [t for _, t in cpu._rescore_batch(
+                    enc.cpu(), probs.cpu().numpy(), lens.cpu().numpy(), tf,
+                    RESCORE_NBEST, 0.3, 0.3)]
+            else:
+                _, probs, lens = out
+                want += [t for _, t in decode_batch_device(
+                    probs.cpu(), lens.cpu(), vocab,
+                    **dict(card._device_beam_conf(vocab), lm_table=None))]
+        diff = [i for i, (a, b) in enumerate(zip(hyps, want)) if a != b]
+        check(len(hyps) == len(want) > 0 and not diff,
+              f"eval {decoder}: card texts == CPU decoders on the card's "
+              f"outputs ({len(hyps)} and {len(want)} texts, differing at "
+              f"{diff})")
+        rows.append({"decoder": decoder, "model": "conformer",
+                     "batches": len(seen), "utterances": len(hyps),
+                     "cer": error, "loss": loss,
+                     "launches": dict(zip(EVAL_LAUNCHES, launches)),
+                     "texts_equal_cpu": len(hyps), "wall_s": wall})
+    sq_root = os.path.join(WORK, "sq_train")
+    sq_ckpt = os.path.join(sq_root, "models", "squeezeformer_streaming_fbank",
+                           "last_model")
+    sq = tr.MASRTrainer(dict(sq_train_config(corpus, sq_root,
+                                             TRAIN_EPOCHS + 1),
+                             ctc_beam_search_decoder_conf=DEVICE_BEAM),
+                        device=dev)
+    seen, hyps, (error, loss), wall, launches = evaluate_captured(
+        tr, sq, sq_ckpt, "ctc_beam_search_device", "squeezeformer")
+    rows.append({"decoder": "ctc_beam_search_device",
+                 "model": "squeezeformer (layer_norm conv)",
+                 "batches": len(seen), "utterances": len(hyps),
+                 "cer": error, "loss": loss,
+                 "launches": dict(zip(EVAL_LAUNCHES, launches)),
+                 "wall_s": wall})
+    emit({"phase": "decoders_eval", "checkpoint": ckpt,
+          "sq_checkpoint": sq_ckpt, "runs": rows,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def phase_decoder_times(dev, flag, wavs, stream_times, smi):
+    """Host and card times of the decoders on the flagship's outputs (B=8,
+    the card's probs): the native beam 300 on the shortest and the longest
+    utterance, the Python engine and the native one on the shortest's
+    first PYTHON_FRAMES frames, the thread pool over the 8; the device
+    beam at B=8 offline (wall; the profiler's device time and
+    kernel launches over its first PROFILED_FRAMES frames) and the
+    engine's beam step per dispatch; one rescore at N=10; the two-pass
+    end-of-stream latency."""
+    from masr_tpu_torch.decoders.beam_search import BeamSearchDecoder
+    from masr_tpu_torch.decoders.device_beam import decode_batch_device
+    t_phase = time.perf_counter()
+    host, utts = flag["host_beam"], flag["probs"]
+    short = min(range(len(utts)), key=lambda i: len(utts[i]))
+    longest = max(range(len(utts)), key=lambda i: len(utts[i]))
+    native_s = {}
+    for i in (short, longest):
+        t0 = time.perf_counter()
+        host.decode_beam_search_offline(utts[i])
+        native_s[len(utts[i])] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host.decode_batch_beam_search_offline(utts)
+    pool_s = time.perf_counter() - t0
+    python = BeamSearchDecoder(flag["cpu_ip"].vocab_list, use_native=False,
+                               **BEAM_CONF)
+    check(python.engine == "python", "the Python engine")
+    head_probs = utts[short][:PYTHON_FRAMES]
+    t0 = time.perf_counter()
+    py_res = python.decode_beam_search_offline(head_probs)
+    python_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat_res = host.decode_beam_search_offline(head_probs)
+    native_head_s = time.perf_counter() - t0
+
+    beams = {}
+    for key in ("device_beam", "device_beam_lm"):
+        p_t, l_t, kw = flag[key]
+        vocab = flag["cpu_ip"].vocab_list
+        decode_batch_device(p_t, l_t, vocab, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_batch_device(p_t, l_t, vocab, **kw)
+        beams[key] = {"wall_s": time.perf_counter() - t0,
+                      "frames": int(p_t.shape[1])}
+    # the device time of the first PROFILED_FRAMES frames (the profiler
+    # over a whole call's launches costs tens of seconds)
+    p_t, l_t, kw = flag["device_beam"]
+    short_p = p_t[:, :PROFILED_FRAMES].contiguous()
+    short_l = torch.clamp(l_t, max=PROFILED_FRAMES)
+
+    def head():
+        return decode_batch_device(short_p, short_l, vocab, **kw)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head()
+    wall = time.perf_counter() - t0
+    ms, launches = profiled_launches(head)
+    beams["device_beam"]["first_frames"] = {
+        "frames": PROFILED_FRAMES, "wall_s": wall, "device_ms": ms,
+        "kernel_launches": launches,
+        "launches_per_frame": launches / PROFILED_FRAMES}
+    pred, enc, lens = flag["rescore_pred"], flag["enc"], flag["out_lens"]
+    hyps = flag["rescore_hyps"]
+    hyps = (hyps * RESCORE_NBEST)[:RESCORE_NBEST]
+    rescore_s = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predictor.rescore(enc[-1:], int(lens[-1]), hyps,
+                               reverse_weight=0.3, nbest_pad=RESCORE_NBEST)
+        rescore_s.append(time.perf_counter() - t0)
+    end_s, pick_s, beam_step_s = stream_times
+    emit({"phase": "decoder_times", "card": smi,
+          "host_beam": {"beam": BEAM_CONF["beam_size"],
+                        "native_s_by_T_out": native_s,
+                        "T_out": [len(u) for u in utts],
+                        "thread_pool_B8_s": pool_s,
+                        "python_s": python_s, "python_T_out":
+                        len(head_probs), "native_s_same_frames":
+                        native_head_s,
+                        "python_text_equal_native": py_res[1] == nat_res[1],
+                        "python_score_minus_native": py_res[0] - nat_res[0]},
+          "device_beam_B8": {**beams, **DEVICE_BEAM},
+          "engine_beam_step_s": {"median": float(np.median(beam_step_s)),
+                                 "p90": float(np.percentile(beam_step_s,
+                                                            90)),
+                                 "dispatches": len(beam_step_s)},
+          "rescore_N10_s": {"median": float(np.median(rescore_s[2:])),
+                            "runs": rescore_s,
+                            "T_out": int(lens[-1])},
+          "two_pass_end_of_stream_s": end_s,
+          "two_pass_rescore_s": pick_s,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2404,12 +3239,24 @@ def main():
     smi = card()
 
     t_start = t0 = time.perf_counter()
+    # the native beam search library (g++) builds beside the kernels
+    gxx = {}
+
+    def build_native():
+        from masr_tpu_torch.decoders import native
+        native.build()
+        gxx["seconds"] = time.perf_counter() - t0
+
+    native_build = threading.Thread(target=build_native)
+    native_build.start()
     built = build.build(["conformer_layer", "chunk_layer",
                          "squeezeformer_layer", "chunk_layer_sq",
                          "conformer_layer_train", "ctc_loss",
                          "squeezeformer_layer_train", "rel_pos_attention"])
+    native_build.join()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": built, "card": smi})
+          "nvcc_seconds": built, "gxx_seconds": gxx.get("seconds"),
+          "card": smi})
 
     worst = phase_kernels(dev)
     gpu, wavs, launches = phase_flagship(dev)
@@ -2446,6 +3293,12 @@ def main():
             dev, family)
         static_runs[family] = (s_gpu, long)
     flash_t = phase_flash_times(dev, smi, static_runs)
+
+    phase_decoders_bundle(dev)
+    flag = phase_decoders_flagship(dev, wavs, smi)
+    stream_times = phase_decoders_stream(dev, flag, path, wavs)
+    phase_decoders_eval(dev, corpus)
+    phase_decoder_times(dev, flag, wavs, stream_times, smi)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{

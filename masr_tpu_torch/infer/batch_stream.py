@@ -1,13 +1,16 @@
 """Batched streaming sessions: serve N concurrent audio streams with ONE
-chunk step per tick (port of masr_tpu/infer/batch_stream.py with the
-ctc_greedy decoder).
+chunk step per tick (port of masr_tpu/infer/batch_stream.py, with the
+ctc_greedy and the ctc_beam_search_device decoders).
 
 Every tick runs all N slots through the encoder's batched chunk step
 (`forward_chunk_batched` of models/conformer.py or models/squeezeformer.py),
 whose layers each launch the family's chunk-layer kernel once. Slots
 advance selectively, so streams start and stop independently. Host-side
 feature windowing and the greedy carry are per slot, identical to
-MASRPredictor.predict_stream.
+MASRPredictor.predict_stream. With ctc_beam_search_device every dispatch
+steps all slots' prefix beams (decoders/device_beam.py) on the dispatch's
+probs on the device, slots without valid frames untouched, and reads back
+each slot's best hypothesis; open/close give a slot a fresh beam.
 
 State lives on the device as tensors (the encoder's `init_cache` at N
 slots) and is updated in place: the kernel writes the fresh K/V rows and
@@ -23,6 +26,10 @@ import numpy as np
 import torch
 
 from masr_tpu_torch.data.audio_featurizer import AudioFeaturizer
+from masr_tpu_torch.decoders.device_beam import (device_beam_conf,
+                                                 ids_to_text,
+                                                 make_stream_decode_fn,
+                                                 space_id_of)
 from masr_tpu_torch.decoders.greedy import GreedyChunkDecoder
 from masr_tpu_torch.infer.inference_model import greedy_head
 from masr_tpu_torch.infer.predictor import (CACHED_FEATURE_NUM, CONTEXT,
@@ -33,10 +40,15 @@ from masr_tpu_torch.infer.predictor import (CACHED_FEATURE_NUM, CONTEXT,
 
 class BatchStreamSession(object):
     def __init__(self, inference_predictor, vocab_list, preprocess_conf=None,
-                 max_streams=8, decoder="ctc_greedy", tick_chunks=1,
-                 pos_table_len=8192):
+                 max_streams=8, decoder="ctc_greedy", decoder_conf=None,
+                 tick_chunks=1, pos_table_len=8192):
         """inference_predictor: the InferencePredictor whose model serves
-        the slots. tick_chunks=k>1: MULTI-CHUNK TICKS, where a slot with k
+        the slots. decoder: 'ctc_greedy' (the argmax head, a host carry per
+        slot) or 'ctc_beam_search_device' (every slot's prefix beam search
+        on the device after each dispatch), with decoder_conf: beam_size
+        (at most 32), cutoff_top_n, max_len (tokens a slot's beam keeps,
+        512), lm_table (build_dense_bigram's table), alpha, beta.
+        tick_chunks=k>1: MULTI-CHUNK TICKS, where a slot with k
         full windows buffered runs them in ONE step with a block-causal
         sub-chunk mask (equal to k single ticks); it adds up to
         (k-1)·640 ms of buffering before the first partial result, and
@@ -44,9 +56,8 @@ class BatchStreamSession(object):
         of the per-layer position tables (~pos_table_len × 40 ms of stream
         per slot before its ticks switch to exact per-tick positions,
         which are as right, only slower)."""
-        if decoder != "ctc_greedy":
-            raise NotImplementedError(f"decoder {decoder!r} is not ported "
-                                      "yet (the engine has ctc_greedy)")
+        if decoder not in ("ctc_greedy", "ctc_beam_search_device"):
+            raise ValueError(f"unknown engine decoder {decoder!r}")
         self.ip = inference_predictor
         self.N = max_streams
         self.vocab_list = vocab_list
@@ -71,6 +82,16 @@ class BatchStreamSession(object):
             if encoder.position_tables else None
         self._slot_frames = [0] * max_streams
 
+        self._dec_state = None
+        if decoder == "ctc_beam_search_device":
+            conf = dict(decoder_conf or {})
+            init_fn, self._decode_fn = make_stream_decode_fn(
+                **device_beam_conf(conf, vocab_list, self.ip.device),
+                max_len=int(conf.get("max_len", 512)),
+                space_id=space_id_of(vocab_list), device=self.ip.device)
+            self._dec_fresh = init_fn(1)
+            self._dec_state = init_fn(max_streams)
+
         # per-slot host state
         self._cached_feat = [None] * max_streams
         self._remainder = [np.zeros(0, np.float32)] * max_streams
@@ -93,6 +114,9 @@ class BatchStreamSession(object):
         self._remainder[slot] = np.zeros(0, np.float32)
         self._slot_frames[slot] = 0
         self._decoders[slot].reset()
+        if self._dec_state is not None:
+            for k, v in self._dec_state.items():
+                v[slot] = self._dec_fresh[k][0]
         # cache_len = 0 masks every ring row, so the att rings need no
         # zeroing
         self.states["cnn_cache"][:, slot] = 0
@@ -125,13 +149,16 @@ class BatchStreamSession(object):
 
     def _dispatch(self, xs, active, valids, exact):
         """One batched chunk step over the `active` slots, all on one
-        positions route; inactive slots' state is left untouched."""
+        positions route, then the decoder; inactive slots' state is left
+        untouched."""
         dev = self.ip.device
         inp = torch.from_numpy(xs[:, 0] if xs.shape[1] == 1 else xs).to(dev)
         with torch.no_grad():
             probs = self.ip.model.get_encoder_out_chunk_batched(
                 inp, self.states, self._packed_chunk,
                 torch.from_numpy(np.asarray(active, bool)).to(dev), exact)
+        if self._dec_state is not None:
+            return self._beam_step(probs, valids)
         ids, maxp = greedy_head(probs)
         out = {}
         for slot, n in valids.items():
@@ -140,6 +167,19 @@ class BatchStreamSession(object):
                 out[slot] = self._decoders[slot].decode_chunk_ids(
                     ids[slot, :n], maxp[slot, :n])
         return out
+
+    def _beam_step(self, probs, valids):
+        """Every slot's beam over the dispatch's probs (N, T, V), only the
+        `valids` frames of each slot valid → {slot: (score, text)}."""
+        fv = np.zeros(probs.shape[:2], bool)
+        for slot, n in valids.items():
+            fv[slot, :n] = True
+        self._dec_state, best = self._decode_fn(
+            self._dec_state, probs, torch.from_numpy(fv).to(probs.device))
+        tokens, lengths, scores = (x.cpu().numpy() for x in best)
+        return {slot: (float(scores[slot]), ids_to_text(
+            tokens[slot][: int(lengths[slot])], self.vocab_list))
+            for slot, n in valids.items() if n}
 
     # ------------------------------------------------------------------ #
     def _append_features(self, slot, samples, sample_rate):

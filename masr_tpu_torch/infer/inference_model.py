@@ -1,7 +1,7 @@
 """InferencePredictor — owns the model on its device and the stream state
-(port of masr_tpu/infer/inference_model.py:21-145, :171-203, :237-310 and
-:351-354: full context, and the streaming chunk steps with the host or the
-sample-domain fused frontend).
+(port of masr_tpu/infer/inference_model.py:21-145, :171-310 and :312-354:
+full context, attention rescoring, and the streaming chunk steps with the
+host or the sample-domain fused frontend, with the rescoring rows).
 
 The model is any family of models/registry.py (the Conformer or the
 Squeezeformer): it gives `get_encoder_out`, `get_encoder_out_chunk` and
@@ -11,13 +11,15 @@ programs; here it keeps the same frames, hence the same padding rows, as
 the reference). The stream state is a dict of device tensors that every
 chunk step updates in place (the encoder's `init_cache`); the greedy head
 (argmax, max prob) runs on the device, so only (B, chunk) ids and probs
-come back.
+come back; `chunk_step` leaves the probs (and for rescoring the encoder's
+rows) on the device for a decoder that runs there.
 """
 import os
 
 import numpy as np
 import torch
 
+from masr_tpu_torch.decoders.rescoring import attention_scores
 from masr_tpu_torch.infer.bundle import load_inference_bundle
 
 
@@ -74,6 +76,11 @@ class InferencePredictor(object):
         probs, lens = self._encode(speech, speech_lengths)
         return probs.cpu().numpy(), lens.cpu().numpy()
 
+    def predict_device(self, speech, speech_lengths):
+        """Like predict, but the probs and lengths stay on the device, for
+        a decoder that runs there (decoders/device_beam.py)."""
+        return self._encode(speech, speech_lengths)
+
     def predict_greedy(self, speech, speech_lengths):
         """Full-context encode with the greedy head on the device: only
         per-frame argmax ids and max probs (B, T') come back."""
@@ -81,16 +88,37 @@ class InferencePredictor(object):
         return (*greedy_head(probs), lens.cpu().numpy())
 
     # ------------------------------------------------------------------ #
+    def encode_for_rescoring(self, speech, speech_lengths):
+        """The full-context encode → (encoder_out (B, T', D) on the device,
+        probs (B, T', V) ndarray, out_lens (B,) ndarray)."""
+        speech = np.asarray(speech, np.float32)
+        B, T, F = speech.shape
+        T_pad = _round_up(max(T, 8), self.length_bucket)
+        if T_pad != T:
+            speech = np.pad(speech, ((0, 0), (0, T_pad - T), (0, 0)))
+        with torch.no_grad():
+            enc, probs, lens = self.model.encode_for_rescoring(
+                torch.from_numpy(speech).to(self.device),
+                torch.as_tensor(np.asarray(speech_lengths),
+                                device=self.device))
+        return enc, probs.cpu().numpy(), lens.cpu().numpy()
+
+    def rescore(self, encoder_out, encoder_len, hyps_list, reverse_weight=0.0,
+                nbest_pad=10, len_bucket=8):
+        """Attention scores of the hypotheses (lists of token ids) over one
+        utterance's encoder rows (1, T, D) → (N,) ndarray. As masr_tpu, the
+        hypotheses are padded to nbest_pad rows of a length rounded up to
+        len_bucket (decoders/rescoring.py) and only the first nbest_pad are
+        scored."""
+        enc = torch.as_tensor(encoder_out, dtype=torch.float32,
+                              device=self.device)
+        return attention_scores(self.model, enc, encoder_len, hyps_list,
+                                reverse_weight, nbest_pad, len_bucket)
+
+    # ------------------------------------------------------------------ #
     def init_stream_state(self, batch=1):
         self.state = self.model.encoder.init_cache(
             batch=batch, cache_size=self.cache_size, device=self.device)
-
-    def _chunk_probs(self, feats):
-        """One streaming step of (B, T_win, F) device features → probs."""
-        if self.state is None:
-            self.init_stream_state(batch=feats.shape[0])
-        with torch.no_grad():
-            return self.model.get_encoder_out_chunk(feats, self.state)
 
     def _features(self, x_chunk):
         return torch.as_tensor(np.asarray(x_chunk, np.float32),
@@ -116,31 +144,57 @@ class InferencePredictor(object):
             sample_rate=int(pre.get("sample_rate", 16000)))
         return feats
 
+    def chunk_step(self, x_chunk=None, samples=None, gain=1.0, length=None,
+                   full=False):
+        """One streaming step on the device, from feature windows x_chunk
+        (B, T_win, F), or with the fused frontend from raw samples
+        (B, S_window) float [-1, 1] (`length` valid samples, the rest
+        padding; fbank on the device) → CTC probs (B, chunk, V) on the
+        device; full=True → (probs, the encoder's output rows (B, chunk,
+        D)), for attention rescoring."""
+        if x_chunk is not None:
+            feats = self._features(x_chunk)
+        else:
+            samples = np.asarray(samples, np.float32)
+            feats = self._fused_feats(
+                samples, gain, samples.shape[-1] if length is None
+                else length)
+        if self.state is None:
+            self.init_stream_state(batch=feats.shape[0])
+        with torch.no_grad():
+            if full:
+                return self.model.get_encoder_out_chunk_full(feats,
+                                                             self.state)
+            return self.model.get_encoder_out_chunk(feats, self.state)
+
     def predict_chunk(self, x_chunk):
         """One streaming step. x_chunk: (B, T_win, F) → probs (B, chunk, V)
         ndarray."""
-        return self._chunk_probs(self._features(x_chunk)).cpu().numpy()
+        return self.chunk_step(x_chunk).cpu().numpy()
+
+    def predict_chunk_full(self, x_chunk):
+        """Streaming step that also returns the encoder's output rows
+        (B, chunk, D), left on the device, for end-of-stream attention
+        rescoring → (probs ndarray, hidden)."""
+        probs, hidden = self.chunk_step(x_chunk, full=True)
+        return probs.cpu().numpy(), hidden
 
     def predict_chunk_greedy(self, x_chunk):
         """Streaming step with the greedy head on the device: (B, T_win, F)
         → (ids (B, chunk), max_probs (B, chunk))."""
-        return greedy_head(self._chunk_probs(self._features(x_chunk)))
+        return greedy_head(self.chunk_step(x_chunk))
 
     def predict_chunk_samples(self, samples, gain=1.0, length=None):
         """Fused streaming step: raw samples (B, S_window) float [-1, 1] →
         CTC probs for one chunk, fbank on the device. `length`: valid
         sample count (the rest is padding)."""
-        samples = np.asarray(samples, np.float32)
-        length = samples.shape[-1] if length is None else length
-        return self._chunk_probs(
-            self._fused_feats(samples, gain, length)).cpu().numpy()
+        return self.chunk_step(samples=samples, gain=gain,
+                               length=length).cpu().numpy()
 
     def predict_chunk_samples_greedy(self, samples, gain=1.0, length=None):
         """Fused frontend + greedy head: raw samples → (ids, max_probs)."""
-        samples = np.asarray(samples, np.float32)
-        length = samples.shape[-1] if length is None else length
-        return greedy_head(self._chunk_probs(
-            self._fused_feats(samples, gain, length)))
+        return greedy_head(self.chunk_step(samples=samples, gain=gain,
+                                           length=length))
 
     def reset_stream(self):
         self.state = None

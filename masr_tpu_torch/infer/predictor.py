@@ -1,18 +1,48 @@
 """MASRPredictor — the public inference API
-(port of masr_tpu/infer/predictor.py:20-30, :33-289, :405-600: predict,
-predict_batch and predict_stream / reset_stream with the ctc_greedy
-decoder, the same streaming window math: window 67, stride 64, feature
-cache 3).
+(port of masr_tpu/infer/predictor.py:20-30, :33-289, :340-600: predict,
+predict_batch and predict_stream / reset_stream, the same streaming window
+math: window 67, stride 64, feature cache 3).
+
+Decoders, as masr_tpu resolves them (`decoder`, `decoder_configs`):
+- ctc_greedy: the argmax head on the device, ids and max probs read back;
+- ctc_beam_search: the host prefix beam search (decoders/beam_search.py,
+  its native engine unless hotwords or a KenLM binary need the Python one),
+  optional n-gram LM; the probs come back to the host;
+- attention_rescoring: in predict, its n-best (rescoring_nbest) rescored
+  by the attention decoder over the same encode's encoder rows
+  (decoders/rescoring.py; rescoring_ctc_weight, rescoring_reverse_weight);
+  predict_batch decodes greedily, as masr_tpu's does; streaming, the rows
+  of every window are kept on the device and the n-best is rescored at the
+  end of the stream (two-pass);
+- ctc_beam_search_device: the batched prefix beam search on the device
+  (decoders/device_beam.py, beam at most 32), optional dense-bigram fusion
+  of an ARPA character LM; streaming, the predictor keeps its state and
+  steps it after every chunk on the chunk step's probs, on the device,
+  reading back only the best hypothesis.
+A beam decoder that cannot be built falls back to greedy with a warning,
+as masr_tpu's does.
 """
 import io
+import logging
 import os
 
 import numpy as np
+import torch
 
 from masr_tpu_torch.audio import AudioSegment
 from masr_tpu_torch.data.audio_featurizer import AudioFeaturizer
-from masr_tpu_torch.decoders.greedy import GreedyChunkDecoder, _collapse
+from masr_tpu_torch.decoders.beam_search import BeamSearchDecoder
+from masr_tpu_torch.decoders.device_beam import (decode_batch_device,
+                                                 device_beam_conf,
+                                                 ids_to_text,
+                                                 make_stream_decode_fn,
+                                                 space_id_of)
+from masr_tpu_torch.decoders.greedy import (GreedyChunkDecoder, _collapse,
+                                            greedy_decoder)
+from masr_tpu_torch.decoders.rescoring import rescore_nbest
 from masr_tpu_torch.infer.inference_model import InferencePredictor
+
+logger = logging.getLogger("masr_tpu_torch")
 
 # streaming constants (masr_tpu/infer/predictor.py:20-26)
 DECODING_CHUNK_SIZE = 16
@@ -28,18 +58,23 @@ def _subsampled_len(t):
 
 
 class MASRPredictor(object):
-    def __init__(self, model_dir, decoder="ctc_greedy", warmup=True,
-                 device="cuda", num_decoding_left_chunks=16,
+    def __init__(self, model_dir, decoder="ctc_greedy", decoder_configs=None,
+                 warmup=True, device="cuda", num_decoding_left_chunks=16,
                  fused_frontend=True):
         """model_dir: an exported inference bundle directory (masr_tpu's
-        export_model.py); device: where the model runs, "cuda" by default
-        (raises when CUDA is absent); num_decoding_left_chunks: streaming
-        left context in chunks of 16 frames (cache 16 × that); fused_frontend:
-        fbank models stream raw samples and make their features on the
-        device (False: host fbank, masr_tpu's other path)."""
-        if decoder != "ctc_greedy":
-            raise NotImplementedError(f"decoder {decoder!r} is not ported "
-                                      "yet (the port has ctc_greedy)")
+        export_model.py); decoder: ctc_greedy, ctc_beam_search,
+        attention_rescoring or ctc_beam_search_device, with
+        decoder_configs (BeamSearchDecoder's keywords, or the device beam's
+        beam_size / cutoff_top_n / alpha / beta / language_model_path, plus
+        rescoring_nbest, rescoring_ctc_weight, rescoring_reverse_weight);
+        device: where the model runs, "cuda" by default (raises when CUDA
+        is absent); num_decoding_left_chunks: streaming left context in
+        chunks of 16 frames (cache 16 × that); fused_frontend: fbank models
+        stream raw samples and make their features on the device (False:
+        host fbank, masr_tpu's other path)."""
+        if decoder not in ("ctc_greedy", "ctc_beam_search",
+                           "attention_rescoring", "ctc_beam_search_device"):
+            raise ValueError(f"unknown decoder {decoder!r}")
         self.model_dir = model_dir
         self.predictor = InferencePredictor(
             model_dir=model_dir, device=device,
@@ -50,6 +85,35 @@ class MASRPredictor(object):
         pre = dict(meta.get("preprocess_conf") or {})
         self._audio_featurizer = AudioFeaturizer(train=False, **pre)
         self._vocab_list = self.predictor.vocab_list
+        self.decoder = decoder
+        decoder_configs = dict(decoder_configs or {})
+        model_conf = meta.get("model_conf") or {}
+        self.rescoring_nbest = decoder_configs.pop("rescoring_nbest", 10)
+        self.rescoring_ctc_weight = decoder_configs.pop(
+            "rescoring_ctc_weight", float(model_conf.get("ctc_weight", 0.3)))
+        self.rescoring_reverse_weight = decoder_configs.pop(
+            "rescoring_reverse_weight",
+            float(model_conf.get("reverse_weight", 0.0))
+            if (meta.get("decoder_conf") or {}).get("r_num_blocks", 0) > 0
+            else 0.0)
+        self.beam_search_decoder = None
+        self._device_beam_conf = None
+        self._beam_state = None             # streaming device-beam state
+        if decoder == "ctc_beam_search_device":
+            self._device_beam_conf = device_beam_conf(
+                decoder_configs, self._vocab_list, self.predictor.device)
+            self._beam_init, self._beam_decode = make_stream_decode_fn(
+                **self._device_beam_conf, max_len=4096,
+                space_id=space_id_of(self._vocab_list),
+                device=self.predictor.device)
+        elif decoder in ("ctc_beam_search", "attention_rescoring"):
+            try:
+                self.beam_search_decoder = BeamSearchDecoder(
+                    self._vocab_list, **decoder_configs)
+            except Exception as e:
+                logger.warning(f"beam search unavailable ({e}); falling "
+                               "back to greedy decoding")
+                self.decoder = "ctc_greedy"
         self.fused_frontend = bool(
             fused_frontend and self.streaming
             and pre.get("feature_method", "fbank") == "fbank")
@@ -57,6 +121,7 @@ class MASRPredictor(object):
         self.remained_wav = None
         self.cached_feat = None
         self._stream_samples = None         # fused-path raw sample buffer
+        self._stream_hidden = []            # encoder rows, two-pass streaming
         if warmup:
             self._warmup()
 
@@ -86,7 +151,7 @@ class MASRPredictor(object):
             return AudioSegment.from_bytes(audio_data)
         raise TypeError(f"unsupported audio_data type: {type(audio_data)}")
 
-    def _results(self, ids, maxp, out_lens):
+    def _greedy_results(self, ids, maxp, out_lens):
         results = []
         for i in range(len(out_lens)):
             L = int(out_lens[i])
@@ -94,13 +159,71 @@ class MASRPredictor(object):
             results.append({"text": text, "score": score})
         return results
 
+    def _rescoring(self, speech, lens):
+        """CTC prefix beam n-best → attention-decoder rescoring, per
+        utterance of the batch: total = att + rescoring_ctc_weight · ctc
+        (masr_tpu/infer/predictor.py:219-242)."""
+        enc, probs, out_lens = self.predictor.encode_for_rescoring(speech,
+                                                                   lens)
+        results = []
+        for i in range(len(out_lens)):
+            nbest = self.beam_search_decoder.decode_nbest(
+                probs[i][: int(out_lens[i])], self.rescoring_nbest)
+            results.append(self._pick_rescored(enc[i:i + 1], out_lens[i],
+                                               nbest)
+                           or {"text": "", "score": 0.0})
+        return results
+
+    def _pick_rescored(self, enc, enc_len, nbest):
+        """The n-best rescored over the encoder rows enc (1, T, D) →
+        {'text', 'score'} of the best, or None when every hypothesis is
+        empty."""
+        best = rescore_nbest(self.predictor.model, enc, enc_len, nbest,
+                             self.rescoring_ctc_weight,
+                             self.rescoring_reverse_weight,
+                             self.rescoring_nbest)
+        if best is None:
+            return None
+        return {"text": ids_to_text(best[1], self._vocab_list),
+                "score": best[0]}
+
+    def _decode_batch(self, speech, lens):
+        """(B, T, F) features → a list of {'text', 'score'} with the
+        configured decoder; under attention_rescoring each utterance's CTC
+        probs decode greedily, as masr_tpu's predict_batch decodes them."""
+        if self._device_beam_conf is not None:
+            # probs stay on the device from the encode to the beam's end
+            probs, out_lens = self.predictor.predict_device(speech, lens)
+            return [{"text": text, "score": score}
+                    for score, text in decode_batch_device(
+                        probs, out_lens, self._vocab_list,
+                        **self._device_beam_conf)]
+        if self.decoder == "ctc_beam_search":
+            probs, out_lens = self.predictor.predict(speech, lens)
+            return [{"text": text, "score": score} for score, text in
+                    self.beam_search_decoder.decode_batch_beam_search_offline(
+                        [probs[i][: int(out_lens[i])]
+                         for i in range(len(out_lens))])]
+        if self.decoder == "attention_rescoring":
+            probs, out_lens = self.predictor.predict(speech, lens)
+            results = []
+            for i in range(len(out_lens)):
+                score, text = greedy_decoder(probs[i][: int(out_lens[i])],
+                                             self._vocab_list)
+                results.append({"text": text, "score": score})
+            return results
+        return self._greedy_results(*self.predictor.predict_greedy(speech,
+                                                                   lens))
+
     def predict(self, audio_data, sample_rate=16000):
         """One utterance → {'text', 'score'}."""
         feats = self._audio_featurizer.featurize(
             self._load_audio(audio_data, sample_rate))
-        ids, maxp, out_lens = self.predictor.predict_greedy(
-            feats[np.newaxis], np.array([feats.shape[0]], np.int64))
-        return self._results(ids, maxp, out_lens)[0]
+        speech = feats[np.newaxis]
+        lens = np.array([feats.shape[0]], np.int64)
+        if self.decoder == "attention_rescoring":
+            return self._rescoring(speech, lens)[0]
+        return self._decode_batch(speech, lens)[0]
 
     def featurize_batch(self, audio_list, sample_rate=16000):
         """Utterances → zero-padded features (B, T, F) and lengths (B,)."""
@@ -115,16 +238,52 @@ class MASRPredictor(object):
         return speech, lens
 
     def predict_batch(self, audio_list, sample_rate=16000):
-        """Utterances padded into one batch → list of {'text', 'score'}."""
-        speech, lens = self.featurize_batch(audio_list, sample_rate)
-        return self._results(*self.predictor.predict_greedy(speech, lens))
+        """Utterances padded into one batch → list of {'text', 'score'}
+        (attention_rescoring decodes greedily here, as in masr_tpu)."""
+        return self._decode_batch(*self.featurize_batch(audio_list,
+                                                        sample_rate))
 
     # ------------------------------------------------------------------ #
-    def _decode_greedy_ids(self, ids, maxp, valid_out):
+    def _window(self, valid_out, window=None, seg=None, gain=1.0,
+                valid_samples=None):
+        """One streaming window through the chunk step (feature `window`,
+        or raw samples `seg` with the fused frontend) and the configured
+        decoder → (score, text) of the stream so far, or None when the
+        window has no valid output frame."""
+        ip = self.predictor
+        if self.beam_search_decoder is None and self._device_beam_conf is None:
+            ids, maxp = ip.predict_chunk_greedy(window) if window is not None \
+                else ip.predict_chunk_samples_greedy(seg, gain=gain,
+                                                     length=valid_samples)
+            if valid_out <= 0:
+                return None
+            return self.greedy_chunk_decoder.decode_chunk_ids(
+                ids[0, :valid_out], maxp[0, :valid_out])
+        rescoring = self.decoder == "attention_rescoring"
+        out = ip.chunk_step(window, seg, gain, valid_samples, full=rescoring)
+        probs = out[0] if rescoring else out
+        if self._device_beam_conf is not None:
+            # the beams step on the device probs; padded frames (and a
+            # window without valid frames) leave them untouched
+            if self._beam_state is None:
+                self._beam_state = self._beam_init(1)
+            fv = torch.arange(probs.shape[1], device=probs.device)[None] \
+                < valid_out
+            self._beam_state, best = self._beam_decode(self._beam_state,
+                                                       probs, fv)
+            if valid_out <= 0:
+                return None
+            tokens, length, score = (x[0].cpu().numpy() for x in best)
+            return float(score), ids_to_text(tokens[: int(length)],
+                                             self._vocab_list)
         if valid_out <= 0:
             return None
-        return self.greedy_chunk_decoder.decode_chunk_ids(
-            ids[0, :valid_out], maxp[0, :valid_out])
+        if rescoring:
+            # the window's encoder rows stay on the device for the
+            # end-of-stream rescoring
+            self._stream_hidden.append(out[1][:, :valid_out])
+        return self.beam_search_decoder.decode_chunk(
+            probs[0, :valid_out].cpu().numpy())
 
     def _stream_step_host(self, audio_data, is_end):
         """Host-featurize path: fbank over the accumulated remainder on the
@@ -167,9 +326,8 @@ class MASRPredictor(object):
                 window = np.pad(window,
                                 ((0, 0), (0, DECODING_WINDOW - valid_len),
                                  (0, 0)))
-            ids, maxp = self.predictor.predict_chunk_greedy(window)
-            r = self._decode_greedy_ids(ids, maxp,
-                                        max(_subsampled_len(valid_len), 0))
+            r = self._window(max(_subsampled_len(valid_len), 0),
+                             window=window)
             if r is not None:
                 score, text = r
         if end is not None:
@@ -220,10 +378,9 @@ class MASRPredictor(object):
             seg = buf[cur * hop: cur * hop + window_samples]
             if len(seg) < window_samples:
                 seg = np.pad(seg, (0, window_samples - len(seg)))
-            ids, maxp = self.predictor.predict_chunk_samples_greedy(
-                seg[None], gain=gain, length=valid_samples)
-            r = self._decode_greedy_ids(ids, maxp,
-                                        max(_subsampled_len(valid_len), 0))
+            r = self._window(max(_subsampled_len(valid_len), 0),
+                             seg=seg[None], gain=gain,
+                             valid_samples=valid_samples)
             if r is not None:
                 score, text = r
         if end is not None:
@@ -236,7 +393,9 @@ class MASRPredictor(object):
         """Streaming recognition: feed audio piece by piece (float ndarray
         or PCM bytes); → {'text', 'score'} of the whole stream so far, or
         None until a window is full. Every encoder layer of every window
-        runs through the chunk-layer kernel."""
+        runs through the chunk-layer kernel. With attention_rescoring, the
+        result of the call with is_end is the stream's n-best rescored by
+        the attention decoder over every window's encoder rows."""
         if not self.streaming:
             raise RuntimeError("the model was not exported as streaming")
         if isinstance(audio_data, np.ndarray):
@@ -254,12 +413,28 @@ class MASRPredictor(object):
         if ret is None:
             return None
         score, text = ret
+        # two-pass: rerank the CTC n-best with the attention decoder over
+        # the accumulated encoder rows (masr_tpu/infer/predictor.py:567-583)
+        if is_end and self.decoder == "attention_rescoring" \
+                and self.beam_search_decoder is not None \
+                and self._stream_hidden:
+            enc = torch.cat(self._stream_hidden, dim=1)
+            best = self._pick_rescored(
+                enc, enc.shape[1],
+                self.beam_search_decoder.nbest_state(self.rescoring_nbest))
+            if best is not None:
+                text, score = best["text"], best["score"]
         return {"text": text, "score": score}
 
     def reset_stream(self):
-        """Forget the stream: state, buffers and the greedy carry."""
+        """Forget the stream: state, buffers, the kept encoder rows and the
+        decoders' carry."""
         self.predictor.reset_stream()
         self.remained_wav = None
         self.cached_feat = None
         self._stream_samples = None
+        self._stream_hidden = []
+        self._beam_state = None
         self.greedy_chunk_decoder.reset()
+        if self.beam_search_decoder is not None:
+            self.beam_search_decoder.reset_state()

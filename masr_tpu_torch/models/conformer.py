@@ -4,7 +4,9 @@ masr_tpu/models/conformer.py: ConformerEncoderLayer.__call__ :92-133,
 ConformerEncoder.__call__ :235-273, forward_chunk :353-395,
 forward_chunk_batched :417-561, pack_chunk_params :563-586, init_cache
 :588-621, ConformerModel.__call__ :686-736, get_encoder_out :738-749,
-get_encoder_out_chunk :751-763, get_encoder_out_chunk_batched :789-836).
+get_encoder_out_chunk :751-763, get_encoder_out_chunk_batched :789-836,
+get_encoder_out_chunk_full :838, encode_for_rescoring :860,
+_gather_hyp_scores :870, rescore_hyps :877).
 
 Module names follow upstream MASR (`encoder.encoders.{i}.self_attn...`,
 `ctc.ctc_lo`, `decoder.left_decoder...`), so `models/weights.py` maps flax
@@ -501,4 +503,73 @@ class ConformerModel(nn.Module):
         (N, c·k, V); the active slots' state advances in place."""
         return self.ctc.softmax(self.encoder.forward_chunk_batched(
             speech, state, packed, active, exact_positions))
+
+    def get_encoder_out_chunk_full(self, speech, state):
+        """get_encoder_out_chunk that also returns the encoder's output
+        rows (B, c, D), the chunk kernel's output after after_norm: the
+        predictor keeps them for attention rescoring at the end of a stream
+        (two-pass streaming). → (probs, hidden)."""
+        hidden = self.encoder.forward_chunk(speech, state)
+        return self.ctc.softmax(hidden), hidden
+
+    def encode_for_rescoring(self, speech, speech_lengths):
+        """The full-context encode of get_encoder_out (the layer kernels)
+        → (encoder_out (B, T', D), CTC probs (B, T', V), out_lens (B,)):
+        the encoder rows feed attention rescoring without a second
+        encode."""
+        encoder_out, mask = self.encoder(speech, speech_lengths)
+        lens = mask[:, 0, :].sum(dim=1, dtype=torch.int32)
+        return encoder_out, self.ctc.softmax(encoder_out), lens
+
+    @staticmethod
+    def _gather_hyp_scores(logp, ys_out, ignore_id):
+        """Sum of each hypothesis's per-token log-probs, its <eos>
+        included. logp (N, L+1, V), ys_out (N, L+1) → (N,)."""
+        valid = ys_out != ignore_id
+        tgt = torch.where(valid, ys_out, torch.zeros_like(ys_out))
+        tok = torch.gather(logp, 2, tgt[..., None].long())[..., 0]
+        return torch.where(valid, tok, torch.zeros_like(tok)).sum(dim=1)
+
+    @torch.no_grad()
+    def rescore_hyps(self, encoder_out, encoder_len, hyps, hyps_lens,
+                     reverse_weight=0.0):
+        """Attention-rescoring scores of N hypotheses over ONE utterance.
+        encoder_out: (1, T, D); encoder_len: its valid rows; hyps: (N, L)
+        token ids padded with -1; hyps_lens: (N,) → (N,) scores =
+        (1-rw)·left-decoder + rw·right-decoder log-likelihoods (rw =
+        reverse_weight, 0 without a right decoder). Rows are independent:
+        a padding row (length 0) changes no other row's score. The decoder
+        runs without dropout whatever the model's mode, as masr_tpu's
+        rescore_hyps calls it with train=False."""
+        N = hyps.shape[0]
+        T = encoder_out.shape[1]
+        dev = encoder_out.device
+        hyps = torch.as_tensor(hyps, device=dev).long()
+        hyps_lens = torch.as_tensor(hyps_lens, device=dev).long()
+        enc = encoder_out.expand((N,) + tuple(encoder_out.shape[1:]))
+        enc_mask = (torch.arange(T, device=dev)
+                    < torch.as_tensor(encoder_len, device=dev))[None, None]
+        enc_mask = enc_mask.expand(N, 1, T)
+        ys_in, ys_out = add_sos_eos(hyps, hyps_lens, self.sos, self.eos,
+                                    self.ignore_id)
+        r_hyps = reverse_pad_list(hyps, hyps_lens, self.ignore_id)
+        r_ys_in, r_ys_out = add_sos_eos(r_hyps, hyps_lens, self.sos,
+                                        self.eos, self.ignore_id)
+        training = self.decoder.training
+        self.decoder.eval()
+        try:
+            decoder_out, r_decoder_out = self.decoder(
+                enc, enc_mask, ys_in, hyps_lens + 1, r_ys_in,
+                reverse_weight)
+        finally:
+            self.decoder.train(training)
+        logp = torch.log_softmax(decoder_out.float(), dim=-1)
+        scores = self._gather_hyp_scores(logp, ys_out, self.ignore_id)
+        if reverse_weight > 0.0 and self.decoder.r_num_blocks > 0:
+            r_logp = torch.log_softmax(r_decoder_out.float(), dim=-1)
+            r_scores = self._gather_hyp_scores(r_logp, r_ys_out,
+                                               self.ignore_id)
+            scores = (1 - reverse_weight) * scores \
+                + reverse_weight * r_scores
+        return scores
 

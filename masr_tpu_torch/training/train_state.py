@@ -161,3 +161,18 @@ def eval_step(model, batch):
                 batch["label_lens"], chunk_generator=chunk_gen)
     probs, lens = model.get_encoder_out(batch["inputs"], batch["input_lens"])
     return float(out["loss"]), probs, lens
+
+
+@torch.no_grad()
+def eval_step_rescoring(model, batch):
+    """eval_step that also returns the encoder rows, so that attention
+    rescoring reuses the same encode (masr_tpu/training/train_state.py:120
+    make_eval_step_rescoring) → (loss, encoder_out, probs, lens)."""
+    model.eval()
+    chunk_gen = torch.Generator()
+    chunk_gen.manual_seed(0)
+    out = model(batch["inputs"], batch["input_lens"], batch["labels"],
+                batch["label_lens"], chunk_generator=chunk_gen)
+    enc, probs, lens = model.encode_for_rescoring(batch["inputs"],
+                                                  batch["input_lens"])
+    return float(out["loss"]), enc, probs, lens

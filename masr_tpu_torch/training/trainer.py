@@ -1,10 +1,14 @@
 """MASRTrainer: training and evaluation on one GPU (port of
 masr_tpu/training/trainer.py: _setup_dataloader :153, _setup_model :225,
-train :282, _evaluate_loader :477, evaluate :569).
+train :282, _resolve_eval_decoder :417, _rescore_batch :444,
+_evaluate_loader :477, evaluate :569).
 
 Same config schema and checkpoint semantics as masr_tpu: per-epoch
 checkpoints with last/best retention and auto-resume from last_model,
-mid-epoch saves, JSONL scalars, an end-of-epoch ctc_greedy evaluation.
+mid-epoch saves, JSONL scalars, an end-of-epoch ctc_greedy evaluation;
+`evaluate` decodes with the config's `decoder` (ctc_greedy,
+ctc_beam_search, attention_rescoring or ctc_beam_search_device, with
+ctc_beam_search_decoder_conf) unless told another.
 On the card the CTC loss runs the CTC kernel (forward and backward) and
 every encoder layer of every step its family's training-layer kernel: the
 Conformer's, or the Squeezeformer's with a layer_norm conv module; a
@@ -16,8 +20,8 @@ and are kept after a non-finite step, as in masr_tpu. Training is f32
 Not ported (ROADMAP.md module item 7), each raising NotImplementedError:
 host augmentation (an augmentation config with any prob > 0), the
 on-device frontend, enable_amp, the fused Adam, binary manifests,
-tensor-parallel training, eval decoders other than ctc_greedy; absent:
-multi-host sampling, create_data, extract_features and export.
+tensor-parallel training; absent: multi-host sampling, create_data,
+extract_features and export.
 """
 import logging
 import os
@@ -31,7 +35,10 @@ from masr_tpu_torch.data.loader import DataLoader
 from masr_tpu_torch.data.normalizer import FeatureNormalizer
 from masr_tpu_torch.data.sampler import BatchShuffleSampler
 from masr_tpu_torch.data.text_featurizer import TextFeaturizer
+from masr_tpu_torch.decoders.device_beam import (decode_batch_device,
+                                                 device_beam_conf)
 from masr_tpu_torch.decoders.greedy import greedy_decoder_batch
+from masr_tpu_torch.decoders.rescoring import rescore_nbest
 from masr_tpu_torch.infer.inference_model import resolve_device
 from masr_tpu_torch.models.cmvn import GlobalCMVN
 from masr_tpu_torch.models.registry import build_model
@@ -40,7 +47,9 @@ from masr_tpu_torch.optimizer.schedulers import build_optimizer
 from masr_tpu_torch.training import checkpoints as ckpt
 from masr_tpu_torch.training.logging_util import ScalarWriter
 from masr_tpu_torch.training.train_state import (TrainState, batch_to,
-                                                 eval_step, train_step)
+                                                 eval_step,
+                                                 eval_step_rescoring,
+                                                 train_step)
 from masr_tpu_torch.utils.config import dict_to_object, load_config
 from masr_tpu_torch.utils.metrics import cer, wer
 
@@ -233,8 +242,9 @@ class MASRTrainer(object):
             logger.info(f"epoch {epoch + 1} finished in "
                         f"{time.time() - epoch_start:.1f}s, mean loss "
                         f"{np.mean(losses) if losses else float('nan'):.4f}")
-            error, test_loss = self._evaluate_loader(test_loader,
-                                                     test_dataset)
+            # training-time eval decodes greedily, as masr_tpu's does
+            error, test_loss = self._evaluate_loader(
+                test_loader, test_dataset, decoder="ctc_greedy")
             logger.info(f"epoch {epoch + 1}: test {metric_name}={error:.5f} "
                         f"loss={test_loss:.4f}")
             writer.add_scalar(f"Test/{metric_name}", error, self.state.step)
@@ -252,23 +262,99 @@ class MASRTrainer(object):
     # ------------------------------------------------------------------ #
     # evaluate
     # ------------------------------------------------------------------ #
+    def _resolve_eval_decoder(self, vocab_list, decoder=None):
+        """The eval decoder: `decoder`, else the config's `decoder` key;
+        builds the host beam engine once for ctc_beam_search and
+        attention_rescoring (falling back to ctc_greedy with a warning
+        when it cannot be built, as masr_tpu does)."""
+        decoder = decoder or self.configs.get("decoder", "ctc_greedy")
+        if decoder not in ("ctc_greedy", "ctc_beam_search",
+                           "attention_rescoring", "ctc_beam_search_device"):
+            raise ValueError(f"unknown eval decoder {decoder!r}")
+        if decoder in ("ctc_beam_search", "attention_rescoring") \
+                and getattr(self, "_eval_beam_decoder", None) is None:
+            from masr_tpu_torch.decoders.beam_search import BeamSearchDecoder
+            conf = dict(self.configs.get("ctc_beam_search_decoder_conf")
+                        or {})
+            for k in ("rescoring_nbest", "rescoring_ctc_weight",
+                      "rescoring_reverse_weight"):
+                conf.pop(k, None)
+            try:
+                self._eval_beam_decoder = BeamSearchDecoder(vocab_list,
+                                                            **conf)
+            except Exception as e:
+                logger.warning(f"beam search decoder unavailable ({e}); "
+                               "falling back to ctc_greedy for eval")
+                decoder = "ctc_greedy"
+        return decoder
+
+    def _rescore_batch(self, enc, probs, lens, tf, nbest_n, ctc_weight,
+                       reverse_weight):
+        """Per utterance: the CTC n-best rescored by the attention decoder
+        over its encoder rows (decoders/rescoring.py) → [(score, text)]."""
+        results = []
+        for i in range(probs.shape[0]):
+            best = rescore_nbest(
+                self.model, enc[i:i + 1], lens[i],
+                self._eval_beam_decoder.decode_nbest(
+                    probs[i][: int(lens[i])], nbest_n),
+                ctc_weight, reverse_weight, nbest_n)
+            results.append((0.0, "") if best is None
+                           else (best[0], tf.detokenize(best[1])))
+        return results
+
+    def _device_beam_conf(self, vocab_list):
+        """The device beam's keywords from ctc_beam_search_decoder_conf,
+        its dense-bigram table built once."""
+        if getattr(self, "_device_beam", None) is None:
+            self._device_beam = device_beam_conf(
+                self.configs.get("ctc_beam_search_decoder_conf") or {},
+                vocab_list, self.device)
+        return self._device_beam
+
     def _evaluate_loader(self, loader, dataset, display_result=False,
                          decoder=None):
-        """Mean error rate and mean loss over the loader, ctc_greedy."""
-        decoder = decoder or "ctc_greedy"
-        if decoder != "ctc_greedy":
-            raise _not_ported(f"eval decoder {decoder!r}")
+        """Mean error rate and mean loss over the loader with the eval
+        decoder (_resolve_eval_decoder)."""
+        vocab_list = dataset.vocab_list
+        decoder = self._resolve_eval_decoder(vocab_list, decoder)
         tf = TextFeaturizer(self.configs.dataset_conf.dataset_vocab)
         metric = self.configs.get("metrics_type", "cer")
+        if decoder == "attention_rescoring":
+            m_conf = self.configs.get("model_conf") or {}
+            d_conf = self.configs.get("decoder_conf") or {}
+            ctc_weight = float(m_conf.get("ctc_weight", 0.3))
+            reverse_weight = float(m_conf.get("reverse_weight", 0.0)) \
+                if int(d_conf.get("r_num_blocks", 0)) > 0 else 0.0
+            nbest_n = int((self.configs.get("ctc_beam_search_decoder_conf")
+                           or {}).get("rescoring_nbest", 10))
         errors, losses = [], []
         for batch in loader:
             if self.stop_eval:
                 break
-            loss, probs, lens = eval_step(self.model,
-                                          batch_to(batch, self.device))
-            results = greedy_decoder_batch(probs.cpu().numpy(),
-                                           dataset.vocab_list,
-                                           lens=lens.cpu().numpy())
+            batch_dev = batch_to(batch, self.device)
+            if decoder == "attention_rescoring":
+                loss, enc, probs, lens = eval_step_rescoring(self.model,
+                                                             batch_dev)
+                results = self._rescore_batch(
+                    enc, probs.cpu().numpy(), lens.cpu().numpy(), tf,
+                    nbest_n, ctc_weight, reverse_weight)
+            else:
+                loss, probs, lens = eval_step(self.model, batch_dev)
+                if decoder == "ctc_beam_search_device":
+                    results = decode_batch_device(
+                        probs, lens, vocab_list,
+                        **self._device_beam_conf(vocab_list))
+                elif decoder == "ctc_beam_search":
+                    probs, lens = probs.cpu().numpy(), lens.cpu().numpy()
+                    results = self._eval_beam_decoder.\
+                        decode_batch_beam_search_offline(
+                            [probs[i][: int(lens[i])]
+                             for i in range(probs.shape[0])])
+                else:
+                    results = greedy_decoder_batch(
+                        probs.cpu().numpy(), vocab_list,
+                        lens=lens.cpu().numpy())
             losses.append(loss)
             for i, (_, text) in enumerate(results):
                 target = tf.detokenize(
@@ -286,7 +372,8 @@ class MASRTrainer(object):
 
     def evaluate(self, resume_model="models/best_model",
                  display_result=False, decoder=None):
-        """Error rate and loss of a checkpoint on the test manifest."""
+        """Error rate and loss of a checkpoint on the test manifest; decoder
+        None decodes with the config's `decoder` key."""
         dataset, _, loader = self._setup_dataloader(False)
         if self.model is None:
             self._setup_model(dataset.feature_dim, dataset.vocab_size)

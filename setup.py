@@ -10,7 +10,8 @@ setup(
                                     "masr_tpu_torch.*"]),
     package_data={"masr_tpu.decoders.native": ["*.cc"],
                   "masr_tpu.infer": ["silero_vad.onnx"],
-                  "masr_tpu_torch": ["csrc/*.cu"]},
+                  "masr_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "masr_tpu_torch.decoders.native": ["*.cc"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "scipy",

@@ -1066,3 +1066,84 @@ def test_squeezeformer_layer_tc_kernel(cuda_device, conv_norm, T, heads):
                           layer.chunk_packed_params(),
                           dict(n_head=heads, ksize=31, causal=True,
                                conv_ln=conv_norm == "layer_norm"))
+
+
+def _peaky_probs(B, T, V, seed):
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(B, T, V, generator=g)
+    peaks = torch.randint(0, V, (B, T), generator=g)
+    logits.scatter_add_(2, peaks[..., None], torch.full((B, T, 1), 4.0))
+    return torch.softmax(logits, dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm", [False, True], ids=["no_lm", "bigram"])
+@pytest.mark.parametrize("V", [12, 4000])
+def test_device_beam_card_equals_cpu(cuda_device, V, lm):
+    """The device beam (decoders/device_beam.py, PyTorch ops on the probs'
+    device) at beam 10 on random peaky probs, B=4 ragged: on the card the
+    same texts as its CPU run, scores within 1e-4; the state stays on the
+    card (the outputs are CUDA tensors)."""
+    from masr_tpu_torch.decoders.device_beam import (ctc_beam_search,
+                                                     decode_batch_device)
+    vocab = ["<blank>"] + [chr(0x4E00 + i) for i in range(V - 1)]
+    probs = _peaky_probs(4, 60, V, V)
+    lens = torch.tensor([60, 41, 60, 7])
+    table = None
+    if lm:
+        g = torch.Generator().manual_seed(1)
+        table = -3.0 * torch.rand(V + 1, V, generator=g)
+    kw = dict(beam_size=10, cutoff_top_n=40, alpha=0.8, beta=0.5)
+    want = decode_batch_device(probs, lens, vocab, lm_table=table, **kw)
+    got = decode_batch_device(probs.to(cuda_device), lens, vocab,
+                              lm_table=None if table is None
+                              else table.to(cuda_device), **kw)
+    assert [t for _, t in got] == [t for _, t in want]
+    for (s, _), (ws, _) in zip(got, want):
+        assert abs(s - ws) <= 1e-4
+    tok, _, _ = ctc_beam_search(probs.to(cuda_device), lens, beam_size=10,
+                                cutoff_top_n=40)
+    assert tok.is_cuda
+
+
+@pytest.mark.cuda
+def test_device_beam_stream_card_equals_cpu(cuda_device):
+    """make_stream_decode_fn chunk by chunk (16 frames, some slots idle):
+    the card's best beams equal the CPU's after every chunk."""
+    from masr_tpu_torch.decoders.device_beam import make_stream_decode_fn
+    probs = _peaky_probs(3, 48, 300, 5)
+    fns = {d: make_stream_decode_fn(beam_size=10, cutoff_top_n=40,
+                                    max_len=64, device=d)
+           for d in ("cpu", cuda_device)}
+    states = {d: fns[d][0](3) for d in fns}
+    for i in range(0, 48, 16):
+        fv = torch.ones(3, 16, dtype=torch.bool)
+        fv[1] = i < 16
+        out = {}
+        for d, (_, dec) in fns.items():
+            states[d], out[d] = dec(states[d], probs[:, i:i + 16].to(d),
+                                    fv.to(d))
+        (tok, ln, sc), (ctok, cln, csc) = out[cuda_device], out["cpu"]
+        assert torch.equal(tok.cpu(), ctok) and torch.equal(ln.cpu(), cln)
+        assert (sc.cpu() - csc).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_device_beam_stream_class_on_the_card(cuda_device):
+    """DeviceBeamStream with no device given: its state lives on the card,
+    fed CUDA probs it stays there, and its best beams equal a CPU stream's
+    fed the same probs (scores within 1e-4); CPU probs fed to it raise."""
+    from masr_tpu_torch.decoders.device_beam import DeviceBeamStream
+    probs = _peaky_probs(2, 40, 300, 7)
+    card = DeviceBeamStream(batch=2, beam_size=10, cutoff_top_n=40,
+                            max_len=64)
+    host = DeviceBeamStream(batch=2, beam_size=10, cutoff_top_n=40,
+                            max_len=64, device="cpu")
+    for i in range(0, 40, 8):
+        card.feed(probs[:, i:i + 8].to(cuda_device))
+        host.feed(probs[:, i:i + 8])
+        assert all(v.is_cuda for v in card.state.values())
+    for (ids, s), (want, ws) in zip(card.best(), host.best()):
+        assert ids == want and abs(s - ws) <= 1e-4
+    with pytest.raises(ValueError):
+        card.feed(probs[:, :8])

@@ -443,9 +443,9 @@ def test_trainer_trains_saves_and_resumes_on_cpu(corpus, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
-    """An enabled augmentation, eval decoders other than ctc_greedy and
-    bf16 training raise NotImplementedError; device="cuda" without a card
-    raises (no silent CPU)."""
+    """An enabled augmentation and bf16 training raise
+    NotImplementedError; an eval decoder the trainer does not know raises
+    ValueError; device="cuda" without a card raises (no silent CPU)."""
     from masr_tpu_torch.training.trainer import MASRTrainer
     conf = _trainer_config(corpus, str(tmp_path), 1)
     aug = tmp_path / "aug.json"
@@ -453,8 +453,8 @@ def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
     tr = MASRTrainer(conf, device="cpu")
     with pytest.raises(NotImplementedError, match="augmentation"):
         tr.train(save_model_path=str(tmp_path), augment_conf_path=str(aug))
-    with pytest.raises(NotImplementedError, match="ctc_beam_search"):
-        tr._evaluate_loader([], None, decoder="ctc_beam_search")
+    with pytest.raises(ValueError, match="no_such_decoder"):
+        tr._resolve_eval_decoder([], "no_such_decoder")
     with pytest.raises(NotImplementedError, match="enable_amp"):
         MASRTrainer(dict(conf, train_conf=dict(conf["train_conf"],
                                                enable_amp=True)),
