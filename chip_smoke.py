@@ -5,9 +5,11 @@
 
 Drives the port's offline and streaming recognition and its training (the
 Conformer and the Squeezeformer), the offline recognition of static-chunk
-models, and the decoders beyond greedy, through their public entry points
-(MASRPredictor.predict_batch, MASRPredictor.predict_stream,
-BatchStreamSession, MASRTrainer.train) and holds every hand-written kernel
+models, the decoders beyond greedy, export, eval, long audio and the
+server, through their public entry points (MASRPredictor.predict_batch,
+MASRPredictor.predict_stream, predict_long, BatchStreamSession,
+MASRTrainer.train and .export, the export_model and eval CLIs, ASRServer)
+and holds every hand-written kernel
 of those paths against its plain PyTorch twin. Phases, one JSON line each:
 
   1. build          compile the eight CUDA sources of the repo (nvcc, sm_90a),
@@ -193,6 +195,52 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     profiler's device time and kernel launches over its
                     first 60 frames), the engine's beam step per dispatch;
                     one rescore at N=10; the two-pass end-of-stream latency
+ 30. export         phase 12's Conformer checkpoint through MASRTrainer.export
+                    (f32) and `masr_tpu_torch.export_model.main` (bf16, int8;
+                    the config as a YAML file), phase 20's BatchNorm
+                    Squeezeformer checkpoint (batch_stats) through
+                    MASRTrainer.export; each bundle loaded by MASRPredictor on
+                    the card: probs of the 8 utterances vs the trained
+                    model's (1e-4), the quantized bundles within 5e-3
+                    (bf16) and 1e-2 (int8) of the f32 one with its greedy
+                    texts, 12 row-1 / row-6 launches per encode; phase 3's
+                    seeded flagship, whose frames decode to text, written
+                    as bf16 and int8: probs within 0.05 of f32, the texts'
+                    error rate against f32's reported; the bundles' sizes
+ 31. eval_cli       `masr_tpu_torch.eval.main` on phase 12's corpus and
+                    checkpoint: (error rate, loss) == MASRTrainer.evaluate in
+                    process; per eval batch 12 row-3 and 1 row-4 forward
+                    launches and 12 row-1
+ 32. long_audio     predict_long of an ~70 s recording (the example corpus's
+                    sentences and speech-like stretches between silences) on
+                    the example bundle and phase 3's flagship: the silero
+                    model ran, segments and text == the CPU port's, row-1
+                    launches per group of 16 segments; the VAD (host) timed
+                    apart from the encodes
+ 33. server         ASRServer on 127.0.0.1 (free ports, the websockets
+                    package over real sockets) over the example bundle,
+                    phase 30's f32 flagship, phase 15's seeded Squeezeformer
+                    and phase 23's static-chunk bundle: first the latency
+                    sample on a server that has answered nothing yet
+                    (SERVER_LOAD /recognition requests over the 8 utterances
+                    and SERVER_LOAD_LONG 20 s long-audio requests, one at a
+                    time, every one a success with the predictor's text;
+                    p50 / p90 on the client's clock and by /stats), then
+                    /recognition (raw and multipart),
+                    /recognition_long_audio, 400, 404, /stats; every text ==
+                    the predictor's in process, use_pun + is_itn == ITN of
+                    the punctuated text; each of the 8 utterances streamed
+                    over WebSocket == predict_stream, a second connection
+                    refused as busy; max_streams=4 (greedy, and
+                    ctc_beam_search_device) over phase 7's seeded flagship,
+                    the 8 utterances in two rounds of 4 concurrent streams
+                    == the engine in process (== predict_stream), a fifth
+                    refused; launches per request from the server's threads
+                    (12 row-1 per /recognition, 12 row-6 and 12 row-8 per
+                    request and window on the Squeezeformer, 12 row-5 on
+                    the static bundle, 12 row-2 per window or dispatch);
+                    the WebSocket reply latency with its sample size, the
+                    card's name and power limit
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -201,10 +249,12 @@ card's name and power limit, and last {"ok": true, "device": {...}}. Any failed 
 exits non-zero and prints no result. It needs CUDA and the repository's
 package beside it; it imports nothing of JAX.
 """
+import asyncio
 import contextlib
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -3228,6 +3278,788 @@ def phase_decoder_times(dev, flag, wavs, stream_times, smi):
           "seconds": time.perf_counter() - t_phase})
 
 
+# --------------------------------------------------------------------------- #
+# phases 30-33: export, the eval CLI, long audio, the server
+# --------------------------------------------------------------------------- #
+QUANT_ATOL = 0.05        # bf16 / int8 bundle probs vs f32 (test_quant_bundle)
+# phase 12's bundles, whose probs sit near blank: gates ~10x and ~5x the
+# bf16 and int8 readings there
+QUANT_GATE = {"bf16": 5e-3, "int8": 1e-2}
+LENGTH_BUCKET = 200      # the predictor's padding of full-context frames
+SERVER_STREAMS = 4
+SERVER_LOAD = 200        # /recognition requests: each server's latency sample
+SERVER_LOAD_LONG = 10    # /recognition_long_audio requests of 20 s each
+
+
+def config_file(conf, path):
+    """A config dict as a YAML file for the CLIs."""
+    import yaml
+    with open(path, "w", encoding="utf-8") as f:
+        yaml.safe_dump(conf, f, allow_unicode=True)
+    return path
+
+
+def padded_features(pred, wavs):
+    """The batch's features padded as the predictor pads them."""
+    speech, lens = pred.featurize_batch(wavs)
+    T = speech.shape[1]
+    T_pad = -(-max(T, 8) // LENGTH_BUCKET) * LENGTH_BUCKET
+    return np.pad(speech, ((0, 0), (0, T_pad - T), (0, 0))), lens
+
+
+def model_probs(model, speech, lens, dev):
+    """The full-context CTC probs of a model in eval mode → numpy."""
+    with torch.no_grad():
+        probs, out = model.eval().get_encoder_out(
+            torch.from_numpy(speech).to(dev),
+            torch.as_tensor(lens, device=dev))
+    return probs.cpu().numpy(), out.cpu().numpy()
+
+
+def bundle_vs_model(path, model, wavs, dev, family):
+    """The bundle loaded by MASRPredictor on the card: its probs of the
+    utterances against the trained model's on the same padded features,
+    the layer kernel's launches of the encode (counted around it alone),
+    its greedy texts and its size."""
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    pred = MASRPredictor(model_dir=path, device=dev)
+    speech, lens = padded_features(pred, wavs)
+    want, want_lens = model_probs(model, speech, lens, dev)
+    reset_launches()
+    got, got_lens = pred.predictor.predict(speech, lens)
+    launches = layer_kernel(family).launches
+    check((got_lens == want_lens).all() and np.isfinite(got).all(),
+          f"{path}: lengths equal, probs finite")
+    err = max(float(np.abs(got[b, :n] - want[b, :n]).max())
+              for b, n in enumerate(want_lens))
+    return {"pred": pred, "probs": got, "lens": got_lens, "err": err,
+            "launches": launches,
+            "texts": [r["text"] for r in pred.predict_batch(wavs)],
+            "bytes": os.path.getsize(os.path.join(path, "model.msgpack"))}
+
+
+def phase_export(dev, corpus, wavs):
+    """Phase 12's Conformer checkpoint exported through MASRTrainer.export
+    (f32) and the export_model CLI (bf16, int8), phase 20's BatchNorm
+    Squeezeformer checkpoint through MASRTrainer.export (f32, batch_stats
+    in the bundle), phase 3's seeded flagship written again as bf16 and
+    int8; each bundle on the card: probs of the 8 utterances vs the
+    model's, 12 layer launches per encode; phase 12's quantized bundles
+    within QUANT_GATE of the f32 one with its greedy texts, the seeded
+    ones within QUANT_ATOL, their texts' error rate against f32's
+    reported."""
+    from masr_tpu_torch import export_model
+    from masr_tpu_torch.infer import flax_msgpack
+    from masr_tpu_torch.infer.bundle import (load_inference_bundle,
+                                             save_inference_bundle)
+    from masr_tpu_torch.training.trainer import MASRTrainer
+    from masr_tpu_torch.utils.metrics import edit_distance
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    train_root = os.path.join(WORK, "train")
+    conf = train_config(corpus, train_root, TRAIN_EPOCHS + 1)
+    ckpt = os.path.join(train_root, "models", "conformer_streaming_fbank",
+                        "last_model")
+    trainer = MASRTrainer(conf, device=dev)
+    paths = {"f32": trainer.export(save_model_path=os.path.join(root, "f32"),
+                                   resume_model=ckpt)}
+    conf_path = config_file(conf, os.path.join(root, "conformer.yml"))
+    for quant in ("bf16", "int8"):
+        paths[quant] = export_model.main([
+            "--configs", conf_path, "--resume_model", ckpt,
+            "--use_gpu", str(torch.device(dev).type == "cuda"),
+            "--save_model_path", os.path.join(root, quant),
+            "--save_quant", quant])
+    for quant, p in paths.items():
+        check(p == os.path.join(root, quant, "conformer_streaming_fbank",
+                                "inference_model"),
+              f"{quant} bundle at masr_tpu's directory name: {p}")
+    runs = {q: bundle_vs_model(p, trainer.model, wavs, dev, "conformer")
+            for q, p in paths.items()}
+    f32 = runs["f32"]
+    check(f32["err"] <= PROBS_ATOL, f"f32 bundle probs vs the trained "
+          f"model {f32['err']} <= {PROBS_ATOL}")
+    for quant in ("bf16", "int8"):
+        r = runs[quant]
+        r["err_vs_f32"] = max(
+            float(np.abs(r["probs"][b, :k] - f32["probs"][b, :k]).max())
+            for b, k in enumerate(f32["lens"]))
+        check(r["err_vs_f32"] <= QUANT_GATE[quant], f"{quant} bundle probs "
+              f"vs f32 {r['err_vs_f32']} <= {QUANT_GATE[quant]}")
+        check(r["texts"] == f32["texts"], f"{quant} greedy texts == f32's")
+    for q, r in runs.items():
+        check(r["launches"] == n, f"{q} bundle: {r['launches']} row-1 "
+              f"launches per encode, want {n}")
+
+    sq_root = os.path.join(WORK, "sq_train", "batch_norm")
+    sq_trainer = MASRTrainer(sq_train_config(corpus, sq_root, 1,
+                                             conv_norm="batch_norm"),
+                             device=dev)
+    sq_path = sq_trainer.export(
+        save_model_path=os.path.join(root, "sq_f32"),
+        resume_model=os.path.join(sq_root, "models",
+                                  "squeezeformer_streaming_fbank",
+                                  "last_model"))
+    with open(os.path.join(sq_path, "model.msgpack"), "rb") as f:
+        stats = flax_msgpack.unpackb(f.read()).get("batch_stats", {})
+    check(len(stats) > 0, "the Squeezeformer bundle holds batch_stats")
+    sq = bundle_vs_model(sq_path, sq_trainer.model, wavs, dev,
+                         "squeezeformer")
+    check(sq["err"] <= PROBS_ATOL, f"Squeezeformer bundle probs vs the "
+          f"trained model {sq['err']} <= {PROBS_ATOL}")
+    check(sq["launches"] == SQ_ENCODER["num_blocks"], f"Squeezeformer "
+          f"bundle: {sq['launches']} row-6 launches per encode")
+
+    # phase 3's seeded flagship, whose frames decode to text (phase 12's
+    # 48-step model emits blanks): its weights written again as bf16 and
+    # int8 and held to QUANT_ATOL on probs that are not saturated at blank.
+    # Its random weights leave near ties between tokens that quantization
+    # flips, so its texts' error rate against f32 is reported, not gated
+    seeded_src = os.path.join(WORK, "conformer_bundle")
+    seeded_model, meta, vocab = load_inference_bundle(seeded_src)
+    with open(os.path.join(seeded_src, "model.msgpack"), "rb") as f:
+        variables = flax_msgpack.unpackb(f.read())
+    seeded_paths = {"f32": seeded_src}
+    for quant in ("bf16", "int8"):
+        seeded_paths[quant] = os.path.join(root, f"seeded_{quant}")
+        save_inference_bundle(
+            seeded_paths[quant], meta["use_model"], meta["streaming"],
+            meta["input_dim"], vocab, meta["mean"], meta["istd"],
+            meta["encoder_conf"], meta["decoder_conf"], meta["model_conf"],
+            meta["preprocess_conf"], variables, quant=quant)
+    seeded_model.to(dev)
+    seeded = {q: bundle_vs_model(p, seeded_model, wavs, dev, "conformer")
+              for q, p in seeded_paths.items()}
+    f32_texts = seeded["f32"]["texts"]
+    check(all(f32_texts), f"seeded flagship: every utterance decodes to "
+          f"text {f32_texts}")
+    for quant in ("bf16", "int8"):
+        r = seeded[quant]
+        check(r["err"] <= QUANT_ATOL, f"seeded {quant} bundle probs vs f32 "
+              f"{r['err']} <= {QUANT_ATOL}")
+        r["cer_vs_f32"] = sum(edit_distance(a, b) for a, b in
+                              zip(f32_texts, r["texts"])) / sum(
+                                  map(len, f32_texts))
+        check(r["launches"] == n, f"seeded {quant} bundle: {r['launches']} "
+              "row-1 launches per encode")
+    emit({"phase": "export", "checkpoint": ckpt, "utterances": len(wavs),
+          "probs_atol": PROBS_ATOL, "quant_gate": QUANT_GATE,
+          "quant_atol_seeded": QUANT_ATOL,
+          "conformer": {q: {"bundle": paths[q], "bytes": r["bytes"],
+                            "probs_err_vs_model": r["err"],
+                            "probs_err_vs_f32": r.get("err_vs_f32"),
+                            "row1_launches_per_encode": r["launches"],
+                            "texts_equal_f32": r["texts"] == f32["texts"],
+                            "texts_nonempty": sum(map(bool, r["texts"]))}
+                        for q, r in runs.items()},
+          "squeezeformer_batch_norm": {
+              "bundle": sq_path, "bytes": sq["bytes"],
+              "probs_err_vs_model": sq["err"],
+              "row6_launches_per_encode": sq["launches"]},
+          "seeded_flagship": {q: {
+              "bytes": r["bytes"], "probs_err_vs_f32": r["err"],
+              "cer_vs_f32": r.get("cer_vs_f32"),
+              "texts_equal_f32": r["texts"] == f32_texts,
+              "texts_nonempty": sum(map(bool, r["texts"])),
+              "text_chars": sum(map(len, r["texts"]))}
+              for q, r in seeded.items()},
+          "seconds": time.perf_counter() - t_phase})
+    return {"conf": conf, "conf_path": conf_path, "ckpt": ckpt,
+            "f32": paths["f32"], "f32_pred": f32["pred"]}
+
+
+def phase_eval_cli(dev, exported):
+    """masr_tpu_torch.eval.main on phase 12's corpus and checkpoint: its
+    error rate and loss == MASRTrainer.evaluate in process; per eval batch
+    12 row-3 and 1 row-4 forward launches and 12 row-1 launches."""
+    from masr_tpu_torch import eval as eval_cli
+    from masr_tpu_torch.training import trainer as tr
+    t_phase = time.perf_counter()
+    batches, orig = [], tr.eval_step
+
+    def counted(*a):
+        batches.append(1)
+        return orig(*a)
+
+    tr.eval_step = counted
+    try:
+        reset_launches()
+        reset_train_launches()
+        t0 = time.perf_counter()
+        cli = eval_cli.main([
+            "--configs", exported["conf_path"],
+            "--resume_model", exported["ckpt"],
+            "--use_gpu", str(torch.device(dev).type == "cuda")])
+        wall = time.perf_counter() - t0
+        launches = (*train_launches("conformer"),
+                    layer_kernel("conformer").launches)
+    finally:
+        tr.eval_step = orig
+    n, b = FLAGSHIP_ENCODER["num_blocks"], len(batches)
+    check(b > 0 and launches == (n * b, 0, b, 0, n * b), f"eval CLI "
+          f"launches (train layer, its backward, CTC, its backward, "
+          f"full-context layer) {launches} for {b} batches")
+    inproc = tr.MASRTrainer(exported["conf"], device=dev).evaluate(
+        resume_model=exported["ckpt"])
+    check(cli == inproc, f"eval CLI (error, loss) {cli} == in process "
+          f"{inproc}")
+    emit({"phase": "eval_cli", "batches": b, "cer": cli[0], "loss": cli[1],
+          "equal_in_process": cli == inproc,
+          "launches": dict(zip(EVAL_LAUNCHES, launches)), "wall_s": wall,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def speech_like(duration_s, seed, level=0.3):
+    """tests/test_vad_silero.py's voiced signal: swept f0, 5 harmonics,
+    syllable-rate AM (silero scores it > 0.9)."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(int(duration_s * 16000)) / 16000
+    f0 = 120 + 40 * np.sin(2 * np.pi * 3 * t)
+    phase = np.cumsum(2 * np.pi * f0 / 16000)
+    voiced = sum((0.4 / k) * np.sin(k * phase) for k in range(1, 6))
+    env = np.clip(np.sin(2 * np.pi * 4 * t), 0, 1)
+    return (level * voiced * env
+            + 0.01 * rs.standard_normal(len(t))).astype(np.float32)
+
+
+def long_recording(n_items=30, seed=3):
+    """Silences of 0.6-1.4 s between the example corpus's sentences
+    (SyntheticTTS, 7 speakers) and speech_like stretches of 1-2 s, in
+    turn: ~80 s of audio."""
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    tts = SyntheticTTS(sample_rate=16000)
+    rs = np.random.RandomState(seed)
+    sents = corpus_sentences()
+    parts = []
+    for k in range(n_items):
+        parts.append(np.zeros(int(rs.uniform(0.6, 1.4) * 16000), np.float32))
+        if k % 2 == 0:
+            parts.append(tts.render(sents[rs.randint(len(sents))],
+                                    spk_id=k % 7))
+        else:
+            parts.append(speech_like(rs.uniform(1.0, 2.0), seed=k))
+    parts.append(np.zeros(16000, np.float32))
+    return np.concatenate(parts).astype(np.float32)
+
+
+@contextlib.contextmanager
+def silero_runs(store):
+    """Counts the silero model's batched window passes (VADPredictor's
+    offline path) into `store`."""
+    from masr_tpu_torch.infer.vad import SileroVAD
+    orig = SileroVAD.run_sequence
+
+    def counted(self, *a, **k):
+        store.append(1)
+        return orig(self, *a, **k)
+
+    SileroVAD.run_sequence = counted
+    try:
+        yield store
+    finally:
+        SileroVAD.run_sequence = orig
+
+
+def phase_long_audio(dev):
+    """predict_long of an ~80 s recording on the example bundle and on
+    phase 3's flagship, card vs CPU: the silero model (not the heuristic)
+    ran, the segments are the CPU's, the text and score are the CPU's (a
+    text may part only at a near tie, as elsewhere), 12 row-1 launches per
+    predict_batch group of 16 segments; the VAD timed apart."""
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    rec = long_recording()
+    check(60 <= len(rec) / 16000 <= 120, f"recording of {len(rec) / 16000} "
+          "s, want 60-120")
+    rows = []
+    for name, path in (("example", TINY_BUNDLE),
+                       ("flagship", os.path.join(WORK, "conformer_bundle"))):
+        gpu = MASRPredictor(model_dir=path, device=dev)
+        cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
+        n = int(gpu.predictor.meta["encoder_conf"]["num_blocks"])
+        runs, encode_s = [], []
+        orig = gpu.predict_batch
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            encode_s.append(time.perf_counter() - t0)
+            return out
+
+        gpu.predict_batch = timed
+        with silero_runs(runs):
+            # the main path: counts read around predict_long alone
+            reset_launches()
+            t0 = time.perf_counter()
+            got = gpu.predict_long(rec)
+            wall = time.perf_counter() - t0
+            launches = layer_kernel("conformer").launches
+            t0 = time.perf_counter()
+            segs = gpu._vad.get_speech_timestamps(rec, 16000)
+            vad_s = time.perf_counter() - t0
+        check(gpu._vad.silero is not None and len(runs) == 2,
+              f"the silero model ran ({len(runs)} batched passes), not the "
+              "heuristic")
+        groups = -(-len(segs) // 16)
+        check(len(segs) > 16 and launches == n * groups, f"{name}: {launches} "
+              f"row-1 launches for {len(segs)} segments, want {n} x {groups} "
+              "groups")
+        want = cpu.predict_long(rec)
+        check(segs == cpu._vad.get_speech_timestamps(rec, 16000),
+              "segments == the CPU port's VAD's")
+        parted = None
+        if got["text"] != want["text"]:
+            wavs = [rec[s["start"]:s["end"]] for s in segs]
+            parted = probs_card_vs_cpu(gpu, cpu, wavs)[:2]
+        else:
+            check(abs(got["score"] - want["score"]) <= 0.01, f"{name} score "
+                  f"{got['score']} == CPU {want['score']} (2 places)")
+        rows.append({"bundle": name, "segments": len(segs),
+                     "groups": groups, "row1_launches": launches,
+                     "text_equal_cpu": got["text"] == want["text"],
+                     "score": got["score"], "score_cpu": want["score"],
+                     "parted_probs_check": parted,
+                     "text_chars": len(got["text"]),
+                     "predict_long_s": wall, "vad_s": vad_s,
+                     "encode_s": float(np.sum(encode_s))})
+    emit({"phase": "long_audio", "seconds_audio": len(rec) / 16000,
+          "silero": True, "runs": rows,
+          "seconds": time.perf_counter() - t_phase})
+    return rec
+
+
+async def ws_connect(srv):
+    import websockets
+    return await websockets.connect(f"ws://127.0.0.1:{srv.ws_port}/")
+
+
+def run_async(coro):
+    """asyncio.run(coro) on a thread of its own (as a server thread would
+    run it) → its result; its exception is raised here."""
+    box = {}
+
+    def target():
+        try:
+            box["out"] = asyncio.run(coro)
+        except BaseException as e:     # re-raised in the caller's thread
+            box["err"] = e
+
+    t = threading.Thread(target=target)
+    t.start()
+    t.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_server(pred, **kw):
+    """An ASRServer on 127.0.0.1 with free ports, its REST and WebSocket
+    servers on threads of their own."""
+    from masr_tpu_torch.infer.server import ASRServer
+    srv = ASRServer(pred, host="127.0.0.1", port=free_port(),
+                    ws_port=free_port(), **kw)
+    srv.start(block=False)
+    time.sleep(0.5)
+    return srv
+
+
+def stop_server(srv):
+    srv.stop()
+    srv._httpd.server_close()
+
+
+def http(srv, path, body=None, ctype="application/octet-stream"):
+    """→ (status, JSON reply) of a POST (body) or GET (None)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}{path}", data=body,
+        headers={"Content-Type": ctype} if body is not None else {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def multipart(raw):
+    boundary = "smoke7d1f"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="audio"; filename="a.wav"\r\nContent-Type: audio/wav'
+            f"\r\n\r\n").encode() + raw + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def wav_bytes(wav, path):
+    from masr_tpu_torch.audio.io import write_wave
+    write_wave(path, wav, 16000)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def pct_ms(xs):
+    """Latencies in seconds → their count, p50 and p90 in ms."""
+    return {"n": len(xs),
+            "p50": float(np.percentile(xs, 50) * 1000) if xs else None,
+            "p90": float(np.percentile(xs, 90) * 1000) if xs else None}
+
+
+def rest_load(srv, pred, raws, long_raws):
+    """The REST latency sample, on a server that has answered nothing yet:
+    SERVER_LOAD /recognition requests over the utterances in turn, one at
+    a time, then the long-audio requests; every reply a success, each
+    /recognition text the predictor's in process. → the client's times and
+    /stats' percentiles, both over exactly these successful requests."""
+    want = [pred.predict(r)["text"] for r in raws]
+    times, long_times = [], []
+    for k in range(SERVER_LOAD):
+        t0 = time.perf_counter()
+        status, r = http(srv, "/recognition", raws[k % len(raws)])
+        times.append(time.perf_counter() - t0)
+        check(status == 200 and r["code"] == 0
+              and r["result"] == want[k % len(raws)],
+              f"request {k}: {status} {r} == in process")
+    for raw in long_raws:
+        t0 = time.perf_counter()
+        status, r = http(srv, "/recognition_long_audio", raw)
+        long_times.append(time.perf_counter() - t0)
+        check(status == 200 and r["code"] == 0, f"long audio {status} {r}")
+    status, stats = http(srv, "/stats")
+    rec = stats["endpoints"]["/recognition"]
+    long = stats["endpoints"]["/recognition_long_audio"]
+    check(status == 200 and rec["count"] == SERVER_LOAD
+          and long["count"] == len(long_raws)
+          and rec["errors"] == long["errors"] == 0, f"/stats {stats}")
+    return {"rest_ms": pct_ms(times),
+            "rest_stats_ms": {"n": rec["count"], "p50": rec["p50_ms"],
+                              "p90": rec["p90_ms"]},
+            "long_ms": pct_ms(long_times),
+            "long_stats_ms": {"n": long["count"], "p50": long["p50_ms"],
+                              "p90": long["p90_ms"]}}
+
+
+def drive_rest(srv, pred, raw, long_raw, launches_per_encode, counter):
+    """Every REST endpoint of a running server: /recognition (raw body
+    and multipart; the text and score == the predictor's in process; the
+    kernel's launches counted around each request alone; with use_pun and
+    is_itn on, == punctuation then ITN of the plain text),
+    /recognition_long_audio (== predict_long in process), an empty body
+    (400), unknown paths (404), /stats."""
+    out = {}
+    reset_launches()
+    status, r = http(srv, "/recognition", raw)
+    out["recognition_launches"] = counter()
+    want = pred.predict(raw)
+    check(status == 200 and r["code"] == 0 and r["result"] == want["text"]
+          and r["score"] == want["score"], f"/recognition {status} {r} == "
+          f"in process {want}")
+    check(out["recognition_launches"] == launches_per_encode,
+          f"/recognition launched {out['recognition_launches']}, want "
+          f"{launches_per_encode} from the handler thread")
+    body, ctype = multipart(raw)
+    status, m = http(srv, "/recognition", body, ctype)
+    check(status == 200 and m["result"] == want["text"],
+          f"multipart /recognition {m}")
+    reset_launches()
+    status, lr = http(srv, "/recognition_long_audio", long_raw)
+    out["long_launches"] = counter()
+    want_long = pred.predict_long(long_raw)
+    check(status == 200 and lr["result"] == want_long["text"]
+          and lr["score"] == want_long["score"],
+          f"/recognition_long_audio {lr} == in process {want_long}")
+    check(out["long_launches"] > 0 and out["long_launches"]
+          % launches_per_encode == 0, f"long audio launches "
+          f"{out['long_launches']}")
+    srv.use_pun = srv.is_itn = True
+    status, p = http(srv, "/recognition", raw)
+    srv.use_pun = srv.is_itn = False
+    post = want["text"]
+    if post:
+        post = pred.inverse_text_normalization(pred.pun_predictor(post))
+    check(status == 200 and p["result"] == post, f"use_pun + is_itn "
+          f"{p['result']!r} == ITN(punctuation({want['text']!r}))")
+    check(http(srv, "/recognition", b"")[0] == 400, "empty body: 400")
+    check(http(srv, "/no_such_path", raw)[0] == 404, "unknown POST: 404")
+    check(http(srv, "/no_such_path")[0] == 404, "unknown GET: 404")
+    status, stats = http(srv, "/stats")
+    rec = stats["endpoints"]["/recognition"]
+    check(status == 200 and rec["count"] == SERVER_LOAD + 4
+          and rec["errors"] == 1, f"/stats {stats}")
+    out.update(text=r["result"], punctuated=p["result"],
+               long_text_chars=len(lr["result"]))
+    return out
+
+
+def pcm_pieces(wav, piece=STRIDE_SAMPLES):
+    """int16 PCM messages of `piece` samples, the last one ending b"end"."""
+    pcm = (np.clip(wav, -1, 1) * 32767).astype(np.int16).tobytes()
+    step = 2 * piece
+    return [pcm[i:i + step] + (b"end" if i + step >= len(pcm) else b"")
+            for i in range(0, len(pcm), step)]
+
+
+def reference_replies(feed, pieces, reset=None):
+    """The replies a stream should get: feed(payload, is_end) per message,
+    then reset() → [(expects a reply, its text)]."""
+    out = []
+    for msg in pieces:
+        end = msg.endswith(b"end")
+        r = feed(msg[:-3] if end else msg, end)
+        out.append((end or r is not None,
+                    (r or {"text": ""})["text"]))
+    if reset is not None:
+        reset()
+    return out
+
+
+async def ws_stream(client, pieces, expected, latencies):
+    """Send the messages, read a reply where one is expected (timing it
+    from its message's send) → the replies' texts."""
+    texts = []
+    for msg, (reply, _) in zip(pieces, expected):
+        t0 = time.perf_counter()
+        await client.send(msg)
+        if reply:
+            r = json.loads(await client.recv())
+            latencies.append(time.perf_counter() - t0)
+            check(r["code"] == 0, f"stream reply {r}")
+            texts.append(r["result"])
+    return texts
+
+
+def phase_server(dev, exported, rec, stream_path, wavs):
+    """ASRServer on 127.0.0.1 over the example bundle, phase 30's f32
+    flagship bundle, phase 15's seeded Squeezeformer (rows 6 and 8) and
+    phase 23's static-chunk Conformer bundle (REST),
+    and with max_streams (greedy and ctc_beam_search_device) over phase
+    7's seeded flagship without dB normalization (`stream_path`: its
+    peaked frames decode to text, where the 48-step model of phase 30
+    emits blanks). Each REST server first answers the latency sample
+    (rest_load), then REST == the predictor in process; the 8 utterances
+    `wavs` streamed through the single-predictor path == predict_stream,
+    a second connection refused as busy; the 8 utterances through the
+    engine in two rounds of 4 concurrent streams == predict_stream (host
+    frontend), a fifth refused; the device-beam server == the engine in
+    process; kernel launches per request from the server's threads (12
+    row-1 per /recognition, 12 row-5 on the static bundle, 12 row-2 per
+    window or dispatch); every WebSocket reply timed."""
+    import websockets
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    from masr_tpu_torch.infer.batch_stream import BatchStreamSession
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "server")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tts = SyntheticTTS(sample_rate=16000)
+    utt = tts.render(HELD_OUT[0][0], spk_id=HELD_OUT[0][1])
+    raw = wav_bytes(utt, os.path.join(root, "short.wav"))
+    raws = [wav_bytes(w, os.path.join(root, f"utt{k}.wav"))
+            for k, w in enumerate(wavs)]
+    long_raws = [wav_bytes(rec[k * 5 * 16000:(k * 5 + 20) * 16000],
+                           os.path.join(root, f"long{k}.wav"))
+                 for k in range(SERVER_LOAD_LONG)]
+    stream_wav = np.concatenate([utt, tts.render(HELD_OUT[1][0],
+                                                 spk_id=HELD_OUT[1][1])])
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    rows = {}
+
+    def single_ws(srv, pred, family):
+        """A stream through the single-predictor path == predict_stream in
+        process over the same messages; a second connection is busy; the
+        chunk kernel's launches per window. Then each of the 8 utterances
+        on a connection of its own, every reply == predict_stream's and
+        timed."""
+        def expect(wav):
+            pieces = pcm_pieces(wav)
+            return pieces, reference_replies(
+                lambda p, e: pred.predict_stream(p, is_end=e), pieces,
+                pred.reset_stream)
+
+        pieces, expected = expect(stream_wav)
+        load = [expect(w) for w in wavs]
+        steps = count_chunk_steps(pred)
+        latencies = []
+
+        async def scenario():
+            first = await ws_connect(srv)
+            texts = await ws_stream(first, pieces[:2], expected[:2], [])
+            second = await ws_connect(srv)
+            busy = json.loads(await second.recv())
+            await second.close()
+            texts += await ws_stream(first, pieces[2:], expected[2:], [])
+            await first.close()
+            return texts, busy
+
+        async def each_alone():
+            out = []
+            for ps, ex in load:
+                c = await ws_connect(srv)
+                out.append(await ws_stream(c, ps, ex, latencies))
+                await c.close()
+            return out
+
+        reset_launches()
+        texts, busy = run_async(scenario())
+        launches = chunk_launches(family)
+        per = int(pred.predictor.meta["encoder_conf"]["num_blocks"])
+        want = [t for reply, t in expected if reply]
+        check(texts == want, f"WebSocket stream {texts} == predict_stream "
+              f"{want}")
+        check(busy["code"] == 1 and "busy" in busy["msg"], f"second "
+              f"connection refused as busy: {busy}")
+        check(len(steps) > 0 and launches == per * len(steps),
+              f"{launches} chunk launches for {len(steps)} windows")
+        got = run_async(each_alone())
+        check(got == [[t for reply, t in ex if reply] for _, ex in load],
+              "each utterance's WebSocket replies == predict_stream's")
+        return {"ws_final": texts[-1], "ws_windows": len(steps),
+                "ws_row2_launches": launches,
+                "ws_reply_ms": pct_ms(latencies)}
+
+    # the example bundle, the f32 flagship and phase 15's seeded
+    # Squeezeformer: REST and streams
+    for name, path, family in (
+            ("example", TINY_BUNDLE, "conformer"),
+            ("flagship_f32", exported["f32"], "conformer"),
+            ("squeezeformer", os.path.join(WORK, "squeezeformer_bundle"),
+             "squeezeformer")):
+        pred = MASRPredictor(model_dir=path, device=dev, use_pun=True)
+        per = int(pred.predictor.meta["encoder_conf"]["num_blocks"])
+        srv = start_server(pred)
+        try:
+            row = rest_load(srv, pred, raws, long_raws)
+            row.update(drive_rest(srv, pred, raw, long_raws[0], per,
+                                  lambda: layer_kernel(family).launches))
+            row.update(single_ws(srv, pred, family))
+        finally:
+            stop_server(srv)
+        rows[name] = row
+
+    # the static-chunk Conformer: REST through the flash kernel
+    pred = MASRPredictor(model_dir=os.path.join(
+        WORK, "conformer_static_bundle"), device=dev, use_pun=True)
+    srv = start_server(pred)
+    try:
+        row = rest_load(srv, pred, raws, long_raws)
+        row.update(drive_rest(srv, pred, raw, long_raws[0], n,
+                              lambda: flash_kernel().launches))
+        check(layer_kernel("conformer").launches == 0, "no row-1 launch on "
+              "the static-chunk bundle")
+    finally:
+        stop_server(srv)
+    rows["static_chunk"] = row
+
+    # the engine behind max_streams, on a flagship without dB normalization
+    # (as the engine phase: its gain is per call); the audio over a -60 dB
+    # noise floor: the engine refuses digital silence
+    rs = np.random.RandomState(7)
+    noisy = [(w + 1e-3 * rs.standard_normal(len(w))).astype(np.float32)
+             for w in wavs]
+
+    def engine_server(decoder, conf):
+        pred = MASRPredictor(model_dir=stream_path, device=dev,
+                             decoder=decoder, decoder_configs=conf)
+        srv = start_server(pred, max_streams=SERVER_STREAMS)
+        dispatches, orig = [], srv.batch_session._dispatch
+
+        def counted(*a):
+            dispatches.append(1)
+            return orig(*a)
+
+        srv.batch_session._dispatch = counted
+        return pred, srv, dispatches
+
+    def engine_reference(pred, decoder, conf, pieces):
+        sess = BatchStreamSession(
+            pred.predictor, pred._vocab_list,
+            preprocess_conf=pred.predictor.meta["preprocess_conf"],
+            max_streams=1, decoder=decoder, decoder_conf=conf)
+        slot = sess.open()
+        return reference_replies(
+            lambda p, e: sess.feed(slot, np.frombuffer(p, np.int16).astype(
+                np.float32) / 32768.0 if p else np.zeros(0, np.float32), e),
+            pieces)
+
+    host = MASRPredictor(model_dir=stream_path, device=dev,
+                         fused_frontend=False)
+    pieces = [pcm_pieces(w) for w in noisy]
+    for decoder, conf in (("ctc_greedy", None),
+                          ("ctc_beam_search_device", dict(DEVICE_BEAM))):
+        pred, srv, dispatches = engine_server(decoder, conf)
+        check(srv.batch_session.decoder == decoder, f"engine decoder "
+              f"{srv.batch_session.decoder}")
+        engine_ref = [engine_reference(pred, decoder, conf, p)
+                      for p in pieces]
+        if decoder == "ctc_greedy":
+            finals = [reference_replies(
+                lambda p, e: host.predict_stream(p, is_end=e), ps,
+                host.reset_stream)[-1][1] for ps in pieces]
+            check([r[-1][1] for r in engine_ref] == finals, "engine in "
+                  "process == predict_stream (host frontend)")
+        latencies = []
+
+        async def scenario():
+            texts, refused = [], None
+            for r0 in range(0, len(pieces), SERVER_STREAMS):
+                clients = [await ws_connect(srv)
+                           for _ in range(SERVER_STREAMS)]
+                if refused is None:
+                    await asyncio.sleep(0.3)  # every handler has its slot
+                    fifth = await ws_connect(srv)
+                    refused = json.loads(await fifth.recv())
+                    await fifth.close()
+                texts += await asyncio.gather(*[
+                    ws_stream(c, p, e, latencies) for c, p, e in
+                    zip(clients, pieces[r0:r0 + SERVER_STREAMS],
+                        engine_ref[r0:r0 + SERVER_STREAMS])])
+                for c in clients:
+                    await c.close()
+                while any(srv.batch_session._in_use):  # the slots closed
+                    await asyncio.sleep(0.01)
+            return texts, refused
+
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            texts, refused = run_async(scenario())
+            wall = time.perf_counter() - t0
+            launches = chunk_launches()
+        finally:
+            stop_server(srv)
+        want = [[t for reply, t in e if reply] for e in engine_ref]
+        check(texts == want, f"{decoder} server streams {texts} == the "
+              f"engine in process {want}")
+        check(refused["code"] == 1 and "slots" in refused["msg"],
+              f"a fifth connection refused: {refused}")
+        check(len(dispatches) > 0 and launches == n * len(dispatches),
+              f"{decoder} server: {launches} chunk launches for "
+              f"{len(dispatches)} dispatches")
+        check(all(t[-1] for t in texts), f"{decoder}: every stream decodes "
+              "to text")
+        rows[f"engine_{decoder}"] = {
+            "streams": len(pieces), "concurrent": SERVER_STREAMS,
+            "messages": sum(map(len, pieces)),
+            "dispatches": len(dispatches), "row2_launches": launches,
+            "final_chars": [len(t[-1]) for t in texts],
+            "ws_reply_ms": pct_ms(latencies), "wall_s": wall}
+
+    emit({"phase": "server", "ws_transport": "websockets",
+          "websockets_version": websockets.__version__, "servers": rows,
+          "card": card(), "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3299,6 +4131,11 @@ def main():
     stream_times = phase_decoders_stream(dev, flag, path, wavs)
     phase_decoders_eval(dev, corpus)
     phase_decoder_times(dev, flag, wavs, stream_times, smi)
+
+    exported = phase_export(dev, corpus, wavs)
+    phase_eval_cli(dev, exported)
+    rec = phase_long_audio(dev)
+    phase_server(dev, exported, rec, path, wavs)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{

@@ -59,6 +59,7 @@ class BatchStreamSession(object):
         if decoder not in ("ctc_greedy", "ctc_beam_search_device"):
             raise ValueError(f"unknown engine decoder {decoder!r}")
         self.ip = inference_predictor
+        self.decoder = decoder
         self.N = max_streams
         self.vocab_list = vocab_list
         self._featurizer = AudioFeaturizer(train=False,

@@ -1,8 +1,9 @@
 """The subset of msgpack that flax.serialization writes, without msgpack or
 flax: maps, arrays, str, bin, nil, bools, ints, floats, and ext type 1
 (an ndarray: the packed tuple (shape, dtype name, C-order bytes), flax
-`_ndarray_to_bytes`). bfloat16 leaves are widened to float32. Flax's
-chunked form for arrays over its chunk size is refused.
+`_ndarray_to_bytes`). bfloat16 leaves are widened to float32 by the
+reader; the writer takes them as torch bfloat16 tensors. Flax's chunked
+form for arrays over its chunk size is refused.
 """
 import struct
 
@@ -112,10 +113,39 @@ def _pack_len(n, small, fmts, fix_base=None, fix_max=-1):
     raise ValueError("object too large for msgpack")
 
 
+def _pack_int(n):
+    """The shortest encoding, as msgpack-python writes it."""
+    if 0 <= n <= 0x7f or -32 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    if n > 0:
+        for code, fmt, limit in ((0xcc, ">B", 0xff), (0xcd, ">H", 0xffff),
+                                 (0xce, ">I", 0xffffffff),
+                                 (0xcf, ">Q", 0xffffffffffffffff)):
+            if n <= limit:
+                return struct.pack(">B", code) + struct.pack(fmt, n)
+    for code, fmt, bits in ((0xd0, ">b", 7), (0xd1, ">h", 15),
+                            (0xd2, ">i", 31), (0xd3, ">q", 63)):
+        if n >= -(1 << bits):
+            return struct.pack(">B", code) + struct.pack(fmt, n)
+    raise ValueError("integer too large for msgpack")
+
+
+_FIXEXT = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+
+
+def _pack_ndarray(shape, dtype_name, raw):
+    payload = packb([list(shape), dtype_name, raw])
+    head = struct.pack(">B", _FIXEXT[len(payload)]) \
+        if len(payload) in _FIXEXT else _pack_len(
+            len(payload), (0xc7, 0xc8, 0xc9), (">B", ">H", ">I"))
+    return head + struct.pack(">b", _EXT_NDARRAY) + payload
+
+
 def packb(obj):
-    """python tree of dict / list / str / bytes / int / numpy arrays (not
-    bfloat16) → msgpack bytes that flax.serialization reads (ndarrays as
-    ext type 1). Writes seeded bundles without flax."""
+    """python tree of dict / list / str / bytes / int / numpy arrays /
+    torch bfloat16 tensors → the bytes flax.serialization.to_bytes writes
+    for it (ndarrays as ext type 1, a bfloat16 leaf as dtype "bfloat16"
+    and its raw 16-bit words)."""
     if isinstance(obj, dict):
         return _pack_len(len(obj), (None, 0xde, 0xdf), (None, ">H", ">I"),
                          0x80, 15) + b"".join(packb(k) + packb(v)
@@ -131,13 +161,12 @@ def packb(obj):
         return _pack_len(len(obj), (0xc4, 0xc5, 0xc6),
                          (">B", ">H", ">I")) + obj
     if isinstance(obj, int) and not isinstance(obj, bool):
-        if 0 <= obj <= 0x7f:
-            return struct.pack(">B", obj)
-        return b"\xd3" + struct.pack(">q", obj)
+        return _pack_int(obj)
     if isinstance(obj, np.ndarray):
         arr = np.ascontiguousarray(obj)
-        payload = packb([list(arr.shape), arr.dtype.name, arr.tobytes()])
-        return _pack_len(len(payload), (0xc7, 0xc8, 0xc9),
-                         (">B", ">H", ">I")) + struct.pack(
-                             ">b", _EXT_NDARRAY) + payload
+        return _pack_ndarray(arr.shape, arr.dtype.name, arr.tobytes())
+    if isinstance(obj, torch.Tensor) and obj.dtype == torch.bfloat16:
+        t = obj.detach().cpu().contiguous()
+        return _pack_ndarray(t.shape, "bfloat16",
+                             t.view(torch.int16).numpy().tobytes())
     raise TypeError(f"cannot pack {type(obj)}")

@@ -12,7 +12,9 @@ the reference). The stream state is a dict of device tensors that every
 chunk step updates in place (the encoder's `init_cache`); the greedy head
 (argmax, max prob) runs on the device, so only (B, chunk) ids and probs
 come back; `chunk_step` leaves the probs (and for rescoring the encoder's
-rows) on the device for a decoder that runs there.
+rows) on the device for a decoder that runs there. Every device call
+runs under its own torch.no_grad(): grad mode is per thread, and a server
+calls the predictor from threads of its own.
 """
 import os
 
@@ -124,6 +126,7 @@ class InferencePredictor(object):
         return torch.as_tensor(np.asarray(x_chunk, np.float32),
                                device=self.device)
 
+    @torch.no_grad()
     def _fused_feats(self, samples, gain, length):
         """samples (B, S) float [-1, 1] → fbank features on the device, as
         the host path makes them: dB-norm gain → int16 scale with

@@ -1,7 +1,9 @@
 """MASRPredictor — the public inference API
-(port of masr_tpu/infer/predictor.py:20-30, :33-289, :340-600: predict,
-predict_batch and predict_stream / reset_stream, the same streaming window
-math: window 67, stride 64, feature cache 3).
+(port of masr_tpu/infer/predictor.py: predict, predict_batch, predict_long
+(silero VAD segments, recognized in batches), predict_stream /
+reset_stream with the same streaming window math: window 67, stride 64,
+feature cache 3; punctuation (use_pun) and inverse text normalization
+(is_itn) on every path; a bundle by directory or by model_tag).
 
 Decoders, as masr_tpu resolves them (`decoder`, `decoder_configs`):
 - ctc_greedy: the argmax head on the device, ids and max probs read back;
@@ -21,6 +23,12 @@ Decoders, as masr_tpu resolves them (`decoder`, `decoder_configs`):
   reading back only the best hypothesis.
 A beam decoder that cannot be built falls back to greedy with a warning,
 as masr_tpu's does.
+
+Text post-processing, in masr_tpu's order and conditions: punctuation
+(infer/punctuation.py; the rule tier unless pun_model_dir names a plugin
+or a transformers checkpoint) on a non-empty result, only at the end of a
+stream; then ITN (WeTextProcessing when it imports, else
+infer/itn.py's SimpleInverseNormalizer).
 """
 import io
 import logging
@@ -58,20 +66,30 @@ def _subsampled_len(t):
 
 
 class MASRPredictor(object):
-    def __init__(self, model_dir, decoder="ctc_greedy", decoder_configs=None,
-                 warmup=True, device="cuda", num_decoding_left_chunks=16,
-                 fused_frontend=True):
-        """model_dir: an exported inference bundle directory (masr_tpu's
-        export_model.py); decoder: ctc_greedy, ctc_beam_search,
-        attention_rescoring or ctc_beam_search_device, with
-        decoder_configs (BeamSearchDecoder's keywords, or the device beam's
+    def __init__(self, model_dir=None, model_tag=None, decoder="ctc_greedy",
+                 decoder_configs=None, use_pun=False, pun_model_dir=None,
+                 num_decoding_left_chunks=16, warmup=True,
+                 fused_frontend=True, device="cuda"):
+        """model_dir: an exported inference bundle directory (the
+        exporters of either package), or model_tag: a tag of
+        infer/model_zoo.py (in-repo, cached, or downloaded); decoder:
+        ctc_greedy, ctc_beam_search, attention_rescoring or
+        ctc_beam_search_device, with decoder_configs (BeamSearchDecoder's
+        keywords, or the device beam's
         beam_size / cutoff_top_n / alpha / beta / language_model_path, plus
         rescoring_nbest, rescoring_ctc_weight, rescoring_reverse_weight);
         device: where the model runs, "cuda" by default (raises when CUDA
         is absent); num_decoding_left_chunks: streaming left context in
         chunks of 16 frames (cache 16 × that); fused_frontend: fbank models
         stream raw samples and make their features on the device (False:
-        host fbank, masr_tpu's other path)."""
+        host fbank, masr_tpu's other path); use_pun: load the punctuation
+        restorer (pun_model_dir: its model, None for the rule tier; each
+        call asks for punctuation and ITN with use_pun and is_itn)."""
+        if model_dir is None:
+            if model_tag is None:
+                raise ValueError("provide model_dir or model_tag")
+            from masr_tpu_torch.infer.model_zoo import get_model_dir
+            model_dir = get_model_dir(model_tag)
         if decoder not in ("ctc_greedy", "ctc_beam_search",
                            "attention_rescoring", "ctc_beam_search_device"):
             raise ValueError(f"unknown decoder {decoder!r}")
@@ -114,6 +132,16 @@ class MASRPredictor(object):
                 logger.warning(f"beam search unavailable ({e}); falling "
                                "back to greedy decoding")
                 self.decoder = "ctc_greedy"
+        self.pun_predictor = None
+        if use_pun:
+            try:
+                from masr_tpu_torch.infer.punctuation import \
+                    PunctuationPredictor
+                self.pun_predictor = PunctuationPredictor(pun_model_dir)
+            except Exception as e:
+                logger.warning(f"punctuation model unavailable: {e}")
+        self.inv_normalizer = None
+        self._vad = None
         self.fused_frontend = bool(
             fused_frontend and self.streaming
             and pre.get("feature_method", "fbank") == "fbank")
@@ -158,6 +186,15 @@ class MASRPredictor(object):
             score, text = _collapse(ids[i][:L], maxp[i][:L], self._vocab_list)
             results.append({"text": text, "score": score})
         return results
+
+    def _post(self, result, use_pun, is_itn):
+        """Punctuation, then ITN, on a non-empty result's text."""
+        text = result["text"]
+        if use_pun and text and self.pun_predictor is not None:
+            text = self.pun_predictor(text)
+        if is_itn and text:
+            text = self.inverse_text_normalization(text)
+        return {"text": text, "score": result["score"]}
 
     def _rescoring(self, speech, lens):
         """CTC prefix beam n-best → attention-decoder rescoring, per
@@ -215,15 +252,18 @@ class MASRPredictor(object):
         return self._greedy_results(*self.predictor.predict_greedy(speech,
                                                                    lens))
 
-    def predict(self, audio_data, sample_rate=16000):
+    def predict(self, audio_data, use_pun=False, is_itn=False,
+                sample_rate=16000):
         """One utterance → {'text', 'score'}."""
         feats = self._audio_featurizer.featurize(
             self._load_audio(audio_data, sample_rate))
         speech = feats[np.newaxis]
         lens = np.array([feats.shape[0]], np.int64)
         if self.decoder == "attention_rescoring":
-            return self._rescoring(speech, lens)[0]
-        return self._decode_batch(speech, lens)[0]
+            result = self._rescoring(speech, lens)[0]
+        else:
+            result = self._decode_batch(speech, lens)[0]
+        return self._post(result, use_pun, is_itn)
 
     def featurize_batch(self, audio_list, sample_rate=16000):
         """Utterances → zero-padded features (B, T, F) and lengths (B,)."""
@@ -237,11 +277,58 @@ class MASRPredictor(object):
             lens[i] = f.shape[0]
         return speech, lens
 
-    def predict_batch(self, audio_list, sample_rate=16000):
+    def predict_batch(self, audio_list, use_pun=False, is_itn=False,
+                      sample_rate=16000):
         """Utterances padded into one batch → list of {'text', 'score'}
         (attention_rescoring decodes greedily here, as in masr_tpu)."""
-        return self._decode_batch(*self.featurize_batch(audio_list,
-                                                        sample_rate))
+        return [self._post(r, use_pun, is_itn) for r in self._decode_batch(
+            *self.featurize_batch(audio_list, sample_rate))]
+
+    # ------------------------------------------------------------------ #
+    def predict_long(self, audio_data, use_pun=False, is_itn=False,
+                     sample_rate=16000):
+        """Long audio: the silero VAD's speech segments (infer/vad.py, on
+        the host), recognized in batches → {'text': the segments' texts
+        joined by '，', 'score': their mean score rounded to 2 places}."""
+        if self._vad is None:
+            from masr_tpu_torch.infer.vad import VADPredictor
+            self._vad = VADPredictor()
+        audio_segment = self._load_audio(audio_data, sample_rate)
+        if audio_segment.sample_rate != self._audio_featurizer.sample_rate:
+            audio_segment.resample(self._audio_featurizer.sample_rate)
+        samples = audio_segment.samples
+        sr = audio_segment.sample_rate
+        speech_ts = self._vad.get_speech_timestamps(samples, sr)
+        segs = [samples[ts["start"]: ts["end"]] for ts in speech_ts]
+        texts, scores = "", []
+        for result in self._predict_segments(segs, use_pun, is_itn, sr):
+            if result["text"]:
+                texts = texts + "，" + result["text"] if texts \
+                    else result["text"]
+                scores.append(result["score"])
+        return {"text": texts,
+                "score": round(float(np.mean(scores)), 2) if scores else 0.0}
+
+    def _predict_segments(self, segs, use_pun, is_itn, sr, group=16):
+        """The segments sorted by length and recognized `group` at a time
+        through predict_batch, results in the segments' order; attention
+        rescoring (per utterance) takes predict per segment. masr_tpu pads
+        the last group to `group` with copies of its shortest segment, so
+        that XLA reuses one program; here the group runs as it is (the
+        padded length is the group's longest either way)."""
+        if self.decoder == "attention_rescoring" or len(segs) <= 1:
+            return [self.predict(s, use_pun=use_pun, is_itn=is_itn,
+                                 sample_rate=sr) for s in segs]
+        order = sorted(range(len(segs)), key=lambda i: len(segs[i]))
+        results = [None] * len(segs)
+        for g in range(0, len(order), group):
+            idx = order[g: g + group]
+            decoded = self.predict_batch([segs[i] for i in idx],
+                                         use_pun=use_pun, is_itn=is_itn,
+                                         sample_rate=sr)
+            for i, r in zip(idx, decoded):
+                results[i] = r
+        return results
 
     # ------------------------------------------------------------------ #
     def _window(self, valid_out, window=None, seg=None, gain=1.0,
@@ -388,14 +475,16 @@ class MASRPredictor(object):
             self._stream_samples = buf[keep_from:]
         return score, text
 
-    def predict_stream(self, audio_data, is_end=False, channels=1,
-                       samp_width=2, sample_rate=16000):
+    def predict_stream(self, audio_data, is_end=False, use_pun=False,
+                       is_itn=False, channels=1, samp_width=2,
+                       sample_rate=16000):
         """Streaming recognition: feed audio piece by piece (float ndarray
         or PCM bytes); → {'text', 'score'} of the whole stream so far, or
         None until a window is full. Every encoder layer of every window
         runs through the chunk-layer kernel. With attention_rescoring, the
         result of the call with is_end is the stream's n-best rescored by
-        the attention decoder over every window's encoder rows."""
+        the attention decoder over every window's encoder rows.
+        Punctuation applies only with is_end, ITN to every result."""
         if not self.streaming:
             raise RuntimeError("the model was not exported as streaming")
         if isinstance(audio_data, np.ndarray):
@@ -424,7 +513,8 @@ class MASRPredictor(object):
                 self.beam_search_decoder.nbest_state(self.rescoring_nbest))
             if best is not None:
                 text, score = best["text"], best["score"]
-        return {"text": text, "score": score}
+        return self._post({"text": text, "score": score},
+                          use_pun and is_end, is_itn)
 
     def reset_stream(self):
         """Forget the stream: state, buffers, the kept encoder rows and the
@@ -438,3 +528,15 @@ class MASRPredictor(object):
         self.greedy_chunk_decoder.reset()
         if self.beam_search_decoder is not None:
             self.beam_search_decoder.reset_state()
+
+    def inverse_text_normalization(self, text):
+        """Chinese ITN: WeTextProcessing's InverseNormalizer when it
+        imports, else the in-repo SimpleInverseNormalizer."""
+        if self.inv_normalizer is None:
+            try:
+                from itn.chinese.inverse_normalizer import InverseNormalizer
+                self.inv_normalizer = InverseNormalizer()
+            except ImportError:
+                from masr_tpu_torch.infer.itn import SimpleInverseNormalizer
+                self.inv_normalizer = SimpleInverseNormalizer()
+        return self.inv_normalizer.normalize(text)

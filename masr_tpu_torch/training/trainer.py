@@ -1,14 +1,15 @@
-"""MASRTrainer: training and evaluation on one GPU (port of
+"""MASRTrainer: training, evaluation and export on one GPU (port of
 masr_tpu/training/trainer.py: _setup_dataloader :153, _setup_model :225,
 train :282, _resolve_eval_decoder :417, _rescore_batch :444,
-_evaluate_loader :477, evaluate :569).
+_evaluate_loader :477, evaluate :569, export :593).
 
 Same config schema and checkpoint semantics as masr_tpu: per-epoch
 checkpoints with last/best retention and auto-resume from last_model,
 mid-epoch saves, JSONL scalars, an end-of-epoch ctc_greedy evaluation;
 `evaluate` decodes with the config's `decoder` (ctc_greedy,
 ctc_beam_search, attention_rescoring or ctc_beam_search_device, with
-ctc_beam_search_decoder_conf) unless told another.
+ctc_beam_search_decoder_conf) unless told another; `export` writes a
+checkpoint as a masr_tpu inference bundle (f32, bf16 or int8).
 On the card the CTC loss runs the CTC kernel (forward and backward) and
 every encoder layer of every step its family's training-layer kernel: the
 Conformer's, or the Squeezeformer's with a layer_norm conv module; a
@@ -20,16 +21,16 @@ and are kept after a non-finite step, as in masr_tpu. Training is f32
 Not ported (ROADMAP.md module item 7), each raising NotImplementedError:
 host augmentation (an augmentation config with any prob > 0), the
 on-device frontend, enable_amp, the fused Adam, binary manifests,
-tensor-parallel training; absent: multi-host sampling, create_data,
-extract_features and export.
+tensor-parallel training; absent: multi-host sampling, create_data and
+extract_features.
 """
-import logging
 import os
 import time
 
 import numpy as np
 import torch
 
+from masr_tpu_torch.data.audio_featurizer import AudioFeaturizer
 from masr_tpu_torch.data.dataset import MASRDataset, check_no_augmentation
 from masr_tpu_torch.data.loader import DataLoader
 from masr_tpu_torch.data.normalizer import FeatureNormalizer
@@ -42,7 +43,8 @@ from masr_tpu_torch.decoders.rescoring import rescore_nbest
 from masr_tpu_torch.infer.inference_model import resolve_device
 from masr_tpu_torch.models.cmvn import GlobalCMVN
 from masr_tpu_torch.models.registry import build_model
-from masr_tpu_torch.models.weights import flax_like_init
+from masr_tpu_torch.models.weights import (flax_like_init,
+                                           to_flax_variables)
 from masr_tpu_torch.optimizer.schedulers import build_optimizer
 from masr_tpu_torch.training import checkpoints as ckpt
 from masr_tpu_torch.training.logging_util import ScalarWriter
@@ -51,16 +53,10 @@ from masr_tpu_torch.training.train_state import (TrainState, batch_to,
                                                  eval_step_rescoring,
                                                  train_step)
 from masr_tpu_torch.utils.config import dict_to_object, load_config
+from masr_tpu_torch.utils.logger import setup_logger
 from masr_tpu_torch.utils.metrics import cer, wer
 
-logger = logging.getLogger("masr_tpu_torch")
-if not logger.handlers:
-    _h = logging.StreamHandler()
-    _h.setFormatter(logging.Formatter("[%(asctime)s %(levelname)s] "
-                                      "%(message)s", "%Y-%m-%d %H:%M:%S"))
-    logger.addHandler(_h)
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
+logger = setup_logger()
 
 
 def _not_ported(what):
@@ -386,3 +382,35 @@ class MASRTrainer(object):
                                             decoder)
         logger.info(f"evaluate done in {time.time() - start:.1f}s")
         return error, loss
+
+    # ------------------------------------------------------------------ #
+    # export
+    # ------------------------------------------------------------------ #
+    def export(self, save_model_path="models/",
+               resume_model="models/best_model", half=False, quant=None):
+        """Checkpoint → inference bundle in masr_tpu's format, under
+        {save_model_path}/{use_model}_{streaming|non-streaming}_
+        {feature_method}/inference_model; quant: None (f32), 'bf16'
+        (half=True is an alias) or 'int8' (weight-only, per channel).
+        → the bundle directory."""
+        from masr_tpu_torch.infer.bundle import save_inference_bundle
+        d = self.configs.dataset_conf
+        featurizer = AudioFeaturizer(train=False,
+                                     **self.configs.preprocess_conf)
+        tf = TextFeaturizer(d.dataset_vocab)
+        if self.model is None:
+            self._setup_model(featurizer.feature_dim, tf.vocab_size)
+        state, _ = ckpt.load_checkpoint(resume_model)
+        self.model.load_state_dict(state["model"])
+        norm = FeatureNormalizer(d.mean_istd_path)
+        out_dir = os.path.join(self._save_dir(save_model_path),
+                               "inference_model")
+        save_inference_bundle(
+            out_dir, self.use_model, self.streaming, featurizer.feature_dim,
+            tf.vocab_list, norm.mean, norm.istd,
+            self.configs.get("encoder_conf"), self.configs.get("decoder_conf"),
+            self.configs.get("model_conf"), self.configs.preprocess_conf,
+            to_flax_variables(self.model.state_dict()), half=half,
+            quant=quant)
+        logger.info(f"inference bundle exported to {out_dir}")
+        return out_dir

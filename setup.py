@@ -11,6 +11,7 @@ setup(
     package_data={"masr_tpu.decoders.native": ["*.cc"],
                   "masr_tpu.infer": ["silero_vad.onnx"],
                   "masr_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "masr_tpu_torch.infer": ["silero_vad.onnx"],
                   "masr_tpu_torch.decoders.native": ["*.cc"]},
     python_requires=">=3.10",
     install_requires=[
