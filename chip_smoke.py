@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's offline and streaming recognition and its training (the
-Conformer and the Squeezeformer), the offline recognition of static-chunk
-models, the decoders beyond greedy, export, eval, long audio and the
-server, through their public entry points (MASRPredictor.predict_batch,
+Conformer, the Squeezeformer and the Efficient-Conformer), the offline
+recognition of static-chunk models, the decoders beyond greedy, export,
+eval, long audio and the server, through their public entry points (MASRPredictor.predict_batch,
 MASRPredictor.predict_stream, predict_long, BatchStreamSession,
 MASRTrainer.train and .export, the export_model and eval CLIs, ASRServer)
 and holds every hand-written kernel
@@ -242,6 +242,37 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     the WebSocket reply latency with its sample size, the
                     card's name and power limit
 
+ 34. eff_kernels    rows 1 and 3 at the Efficient-Conformer tail's shape
+                    (configs/efficient_conformer.yml widths, conv kernel 7
+                    after the stride): B=8, T'=150 with every length halved
+                    rounding up, causal and not; row 3 with the [::2, ::2]
+                    view of a dynamic-chunk mask, dropout 0 and 0.1 / 0.1;
+                    against the plain twins, CUDA-event times, f32 and
+                    3xTF32 bounds
+ 35. eff_flagship   the 12-block Efficient-Conformer (grouped layers 0-3,
+                    stride layer 3, seeded): predict_batch of the 8
+                    utterances, card vs CPU probs, 8 row-1 launches (the
+                    tail) per encode and no row-2; eff_static: the same
+                    model with static_chunk_size 16 (streaming off): warmup
+                    and predict_batch launch row 5 8 times per encode and
+                    row 1 none, probs card vs CPU
+ 36. eff_stream     its predict_stream (both frontends, whole and in 0.2 s
+                    pieces, card vs CPU) and an 8-stream engine (texts ==
+                    predict_stream's, 4 slots on the CPU), eager chunk steps
+                    (no chunk-layer launch, as masr_tpu streams this
+                    family); eff_stream_times: window latency p50 / p90
+ 37. eff_train      MASRTrainer on phase 12's corpus: 16 steps at B=8, each
+                    8 + 8 row-3 and 1 + 1 row-4 launches, the loss per label
+                    token falling; the first step at dropout 0 card vs CPU
+                    (the hybrid loss, and the encoder's grads of the CTC
+                    loss alone); step walls and the card's idle share (3
+                    profiled steps)
+ 38. eff_export     the trained checkpoint through MASRTrainer.export: the
+                    f32 bundle's probs == the model's, 8 row-1 launches per
+                    encode; the eval CLI's batch: 8 row-3 and 1 row-4
+                    forward and 8 row-1 launches, (error, loss) == evaluate
+                    in process
+
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
 order may flip). Then the script's total seconds, the kernels line, the
@@ -297,6 +328,28 @@ FLAGSHIP_DECODER = dict(attention_heads=4, linear_units=1024, num_blocks=3,
                         src_attention_dropout_rate=0.1)
 FLAGSHIP_MODEL_CONF = dict(ctc_weight=0.3, lsm_weight=0.1, reverse_weight=0.3,
                            length_normalized_loss=False)
+# configs/efficient_conformer.yml encoder_conf (streaming: True → causal
+# conv): kernels 15, then 7 after the stride layer 3; layers 4-11 (the
+# plain tail) take the layer kernels
+EFF_ENCODER = dict(output_size=256, attention_heads=4, linear_units=2048,
+                   num_blocks=12, activation_type="swish",
+                   cnn_module_kernel=15, cnn_module_norm="layer_norm",
+                   dropout_rate=0.1, input_layer="conv2d",
+                   normalize_before=True, pos_enc_layer_type="rel_pos",
+                   attention_dropout_rate=0.1, positional_dropout_rate=0.1,
+                   efficient_conf=dict(stride_layer_idx=[3], stride=[2],
+                                       group_layer_idx=[0, 1, 2, 3],
+                                       group_size=3, stride_kernel=True))
+EFF_TAIL, EFF_TAIL_KERNEL = 8, 7
+# per family: layers through a full-context layer kernel per encode, and
+# through a chunk-layer kernel per streaming window (the Efficient-
+# Conformer streams eagerly, as masr_tpu), and its phases' name prefix
+LAYER_LAUNCHES = {"conformer": 12, "squeezeformer": 12,
+                  "efficient_conformer": EFF_TAIL}
+CHUNK_LAUNCHES = {"conformer": 12, "squeezeformer": 12,
+                  "efficient_conformer": 0}
+PHASE_PREFIX = {"conformer": "", "squeezeformer": "sq_",
+                "efficient_conformer": "eff_"}
 PREPROCESS = dict(feature_method="fbank", n_mels=80, n_mfcc=40,
                   sample_rate=16000, use_dB_normalization=True, target_dB=-20)
 VOCAB = 4000                                          # bench.py:61
@@ -422,10 +475,12 @@ def write_flagship_bundle(path, use_model="conformer", static_chunk=0,
     the Squeezeformer's of configs/squeezeformer.yml, BatchNorm statistics
     in batch_stats) with weights drawn from seed 0, written the way
     masr_tpu's exporter writes one (flax msgpack), CMVN from the example
-    bundle (same fbank frontend). With static_chunk, a static-chunk model:
-    encoder_conf use_dynamic_chunk false and that static_chunk_size; the
-    Squeezeformer then has streaming off (with it on, masr_tpu's and the
-    port's SqueezeformerModel force a dynamic chunk). With decoder, the
+    bundle (same fbank frontend); use_model="efficient_conformer" gives
+    the Efficient-Conformer of configs/efficient_conformer.yml. With
+    static_chunk, a static-chunk model: encoder_conf use_dynamic_chunk
+    false and that static_chunk_size; the Squeezeformer and the
+    Efficient-Conformer then have streaming off (with it on, masr_tpu's and
+    the port's models force a dynamic chunk). With decoder, the
     Conformer gets configs/conformer.yml's attention decoder (3 + 3 blocks)
     and model_conf: every other tensor is the one the bundle has without
     it, bit for bit (seeded_state_dict draws them from seed 0 on the model
@@ -437,8 +492,10 @@ def write_flagship_bundle(path, use_model="conformer", static_chunk=0,
     with open(os.path.join(TINY_BUNDLE, "inference.json"),
               encoding="utf-8") as f:
         tiny = json.load(f)
-    encoder_conf, decoder_conf = (FLAGSHIP_ENCODER, {}) \
-        if use_model == "conformer" else (SQ_ENCODER, SQ_DECODER)
+    encoder_conf, decoder_conf = {
+        "conformer": (FLAGSHIP_ENCODER, {}),
+        "squeezeformer": (SQ_ENCODER, SQ_DECODER),
+        "efficient_conformer": (EFF_ENCODER, {})}[use_model]
     streaming = True
     if static_chunk:
         encoder_conf = dict(encoder_conf, static_chunk_size=static_chunk)
@@ -499,8 +556,9 @@ def synthetic_utterances(vocab):
 
 
 def layer_kernel(family):
-    """The full-context layer kernel's wrapper (its .launches counts)."""
-    if family == "conformer":
+    """The full-context layer kernel's wrapper (its .launches counts); the
+    Efficient-Conformer's tail runs the Conformer's."""
+    if family in ("conformer", "efficient_conformer"):
         from masr_tpu_torch.ops.cuda.conformer_layer import \
             fused_conformer_layer as fn
     else:
@@ -518,7 +576,7 @@ def flash_kernel():
 
 def chunk_kernel(family):
     """The chunk-layer kernel's wrapper (its .launches counts)."""
-    if family == "conformer":
+    if family in ("conformer", "efficient_conformer"):
         from masr_tpu_torch.ops.cuda.chunk_layer import \
             fused_chunk_layer as fn
     else:
@@ -529,7 +587,8 @@ def chunk_kernel(family):
 
 def phase_flagship(dev, family="conformer"):
     """predict_batch of the 8 utterances on the family's flagship: card vs
-    CPU probs, launches per encode (phase "flagship" / "sq_flagship")."""
+    CPU probs, launches per encode (phase "flagship" / "sq_flagship" /
+    "eff_flagship")."""
     from masr_tpu_torch.infer.predictor import MASRPredictor
     path = os.path.join(WORK, f"{family}_bundle")
     wavs = synthetic_utterances(write_flagship_bundle(path, family))
@@ -540,7 +599,7 @@ def phase_flagship(dev, family="conformer"):
     texts = gpu.predict_batch(wavs)
     wall = time.perf_counter() - t0
     launches = layer_kernel(family).launches
-    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    n_layers = LAYER_LAUNCHES[family]
     check(launches == n_layers, f"{family} kernel launches {launches} == "
           f"{n_layers} layers x 1 encoder call")
     check(flash_kernel().launches == 0, "no flash attention launch without "
@@ -548,7 +607,7 @@ def phase_flagship(dev, family="conformer"):
     cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
     err, compared, t_out = probs_card_vs_cpu(gpu, cpu, wavs)
     cpu_texts = cpu.predict_batch(wavs)
-    emit({"phase": "flagship" if family == "conformer" else "sq_flagship",
+    emit({"phase": PHASE_PREFIX[family] + "flagship",
           "utterances": len(wavs),
           "seconds_audio": [round(len(w) / 16000, 3) for w in wavs],
           "T_out": t_out, "launches": launches,
@@ -960,9 +1019,9 @@ def write_stream_bundle(flagship):
 
 def phase_stream(dev, path, wav, family="conformer"):
     """predict_stream on the card vs the CPU, both frontends, whole and in
-    0.2 s pieces (phase "stream" / "sq_stream")."""
+    0.2 s pieces (phase "stream" / "sq_stream" / "eff_stream")."""
     from masr_tpu_torch.infer.predictor import MASRPredictor
-    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    n_layers = CHUNK_LAUNCHES[family]
     rows, launches = [], 0
     for fused in (True, False):
         gpu = MASRPredictor(model_dir=path, device=dev,
@@ -999,18 +1058,20 @@ def phase_stream(dev, path, wav, family="conformer"):
         check(runs[None]["text"] == runs[PIECE]["text"],
               f"whole == 0.2 s pieces text (fused={fused})")
         check(bool(runs[None]["text"]), "predict_stream text not empty")
-    emit({"phase": "stream" if family == "conformer" else "sq_stream",
+    emit({"phase": PHASE_PREFIX[family] + "stream",
           "seconds_audio": round(len(wav) / 16000, 3), "runs": rows})
     return launches
 
 
-def phase_engine(dev, path, wavs, family="conformer"):
-    """A 32-stream BatchStreamSession on the card vs predict_stream and a
+def phase_engine(dev, path, wavs, family="conformer",
+                 n_streams=ENGINE_STREAMS):
+    """An n_streams BatchStreamSession on the card vs predict_stream and a
     4-slot CPU engine; for an encoder with position tables, a tiny table
-    whose horizon the streams cross (phase "engine" / "sq_engine")."""
+    whose horizon the streams cross (phase "engine" / "sq_engine" /
+    "eff_engine")."""
     from masr_tpu_torch.infer.batch_stream import BatchStreamSession
     from masr_tpu_torch.infer.predictor import MASRPredictor
-    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    n_layers = CHUNK_LAUNCHES[family]
     gpu = MASRPredictor(model_dir=path, device=dev, fused_frontend=False)
     refs = [stream(gpu, w) for w in wavs]
 
@@ -1053,11 +1114,11 @@ def phase_engine(dev, path, wavs, family="conformer"):
             sess.close(slot)
         return out, routes
 
-    streams = [wavs[k % len(wavs)] for k in range(ENGINE_STREAMS)]
+    streams = [wavs[k % len(wavs)] for k in range(n_streams)]
     # the main path: counts read around the engine run alone
     reset_launches()
     t0 = time.perf_counter()
-    got, routes = run(gpu, streams, ENGINE_STREAMS)
+    got, routes = run(gpu, streams, n_streams)
     wall = time.perf_counter() - t0
     launches = chunk_launches(family)
     check(launches == n_layers * len(routes), f"chunk kernel launches "
@@ -1081,8 +1142,8 @@ def phase_engine(dev, path, wavs, family="conformer"):
             e for _, e in tiny_routes), "both position routes dispatched")
         tiny_margins = [same_text(tiny[k], got[k], f"horizon stream {k}")
                         for k in range(len(wavs))]
-    emit({"phase": "engine" if family == "conformer" else "sq_engine",
-          "streams": ENGINE_STREAMS,
+    emit({"phase": PHASE_PREFIX[family] + "engine",
+          "streams": n_streams,
           "dispatches": len(routes), "launches": launches,
           "mean_active": float(np.mean([n for n, _ in routes])),
           "texts_equal_predict_stream": sum(m is None for m in margins),
@@ -1696,8 +1757,9 @@ def train_config(corpus, save_dir, max_epoch, dropout=True):
 
 
 def train_layer_kernel(family="conformer"):
-    """The family's training-layer kernel wrapper (its launch counts)."""
-    if family == "conformer":
+    """The family's training-layer kernel wrapper (its launch counts); the
+    Efficient-Conformer's tail runs the Conformer's."""
+    if family in ("conformer", "efficient_conformer"):
         from masr_tpu_torch.ops.cuda import conformer_layer_train as m
         return m.fused_conformer_layer_train
     from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as m
@@ -1847,7 +1909,8 @@ def first_step_card_vs_cpu(conf, sample, prepare=None):
         out["loss"].backward()
         got[name] = (float(out["loss"].detach()),
                      {n: p.grad.detach().cpu()
-                      for n, p in t.model.named_parameters()},
+                      for n, p in t.model.named_parameters()
+                      if p.grad is not None},
                      {n: b.detach().cpu()
                       for n, b in t.model.named_buffers()
                       if n.endswith(("running_mean", "running_var"))})
@@ -4060,6 +4123,283 @@ def phase_server(dev, exported, rec, stream_path, wavs):
           "card": card(), "seconds": time.perf_counter() - t_phase})
 
 
+# --------------------------------------------------------------------------- #
+# the Efficient-Conformer: its plain tail through rows 1 and 3 (and 4, 5)
+# --------------------------------------------------------------------------- #
+EFF_T, EFF_LENS = 150, [(n + 1) // 2 for n in TRAIN_LENS]   # after stride 2
+EFF_STREAMS = 8
+
+
+def seeded_eff_layer(seed, causal, device):
+    """A tail layer of configs/efficient_conformer.yml: the flagship
+    widths with conv kernel 7 (15 // 2 after the stride), seeded."""
+    from masr_tpu_torch.models.conformer import ConformerEncoderLayer
+    from masr_tpu_torch.models.weights import seeded_state_dict
+    e = EFF_ENCODER
+    layer = ConformerEncoderLayer(e["output_size"], e["attention_heads"],
+                                  e["linear_units"], EFF_TAIL_KERNEL, causal)
+    layer.load_state_dict(seeded_state_dict(layer, seed))
+    return layer.to(device).eval()
+
+
+def phase_eff_kernels(dev, smi):
+    """Rows 1 and 3 at the Efficient-Conformer tail's shape (B=8, T'=150,
+    K=7, every length halved rounding up, the row-3 mask the [::2, ::2]
+    view of a dynamic-chunk mask), causal and not, against their plain
+    twins; CUDA-event times (plain, kernel, kernel, plain) with the f32 and
+    3xTF32 bounds."""
+    from masr_tpu_torch.ops.cuda import conformer_layer as cl
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    t_phase = time.perf_counter()
+    serve, train, worst = [], [], {"row1": 0.0, "row3": 0.0}
+    fns = (clt.fused_conformer_layer_train,
+           clt.fused_conformer_layer_train_plain)
+    for causal in (True, False):
+        layer = seeded_eff_layer(31 + causal, causal, dev)
+        x, lens_t, pos_p = layer_inputs(layer, EFF_LENS, EFF_T, 33, dev)
+
+        def kernel():
+            return run_layer(cl.fused_conformer_layer, layer, x, lens_t,
+                             pos_p)
+
+        def plain():
+            return run_layer(cl.fused_conformer_layer_plain, layer, x,
+                             lens_t, pos_p)
+
+        with torch.no_grad():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "row 1 output finite")
+            err = max((got[b, :n] - want[b, :n]).abs().max().item()
+                      for b, n in enumerate(EFF_LENS))
+            check(err <= KERNEL_ATOL, f"row 1 vs plain {err} <= "
+                  f"{KERNEL_ATOL} (K={EFF_TAIL_KERNEL}, T'={EFF_T}, "
+                  f"causal={causal})")
+            runs = alternate(kernel, plain)
+        worst["row1"] = max(worst["row1"], err)
+        serve.append({"causal": causal, "max_abs_err": err,
+                      "kernel_ms": runs["kernel"], "plain_ms": runs["plain"],
+                      **layer_bound(layer, EFF_LENS, EFF_T)})
+        args = train_layer_inputs(layer, 34 + causal, dev, half=True)
+        check(tuple(args[2].shape) == (8, EFF_T, EFF_T)
+              and not args[2].is_contiguous()
+              and args[4].tolist() == EFF_LENS,
+              "row 3 takes the strided mask view and the halved lengths")
+        for rates in ((0.0, 0.0), (0.1, 0.1)):
+            case = check_train_layer(fns, layer, args, rates)
+            worst["row3"] = max(worst["row3"], case["max_abs_err"])
+            train.append({"causal": causal, **case})
+        fwd, bwd = time_train_layer({"kernel": fns[0], "plain": fns[1]},
+                                    layer, args, (0.1, 0.1))
+        train[-1].update({"fwd_kernel_ms": fwd["kernel"],
+                          "fwd_plain_ms": fwd["plain"],
+                          "bwd_kernel_ms": bwd["kernel"],
+                          "bwd_plain_ms": bwd["plain"],
+                          **train_layer_bound(layer, args)})
+    emit({"phase": "eff_kernels", "card": smi, "B": len(EFF_LENS),
+          "T": EFF_T, "lens": EFF_LENS, "D": 256, "heads": 4, "ffn": 2048,
+          "conv_kernel": EFF_TAIL_KERNEL, "atol": KERNEL_ATOL,
+          "grad_rtol": GRAD_RTOL, "row1": serve, "row3": train,
+          "seconds": time.perf_counter() - t_phase})
+    return worst
+
+
+def phase_eff_flagship(dev):
+    """The Efficient-Conformer of configs/efficient_conformer.yml, seeded:
+    predict_batch of the 8 utterances (phase_flagship: card vs CPU probs,
+    8 row-1 launches per encode) and no chunk-layer launch; then the same
+    model with a static chunk of 16 (streaming off, as masr_tpu builds
+    it): its warmup and predict_batch launch row 5 8 times per encode and
+    row 1 none, probs card vs CPU. → (card predictor, main path's row-1
+    launches)."""
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    gpu, wavs, launches = phase_flagship(dev, "efficient_conformer")
+    check(chunk_kernel("conformer").launches == 0, "no chunk-layer launch "
+          "in the Efficient-Conformer's predict_batch")
+    path = os.path.join(WORK, "efficient_conformer_static_bundle")
+    write_flagship_bundle(path, "efficient_conformer",
+                          static_chunk=STATIC_CHUNK)
+    per_encode = (EFF_TAIL, 0, 0)
+    reset_launches()
+    static = MASRPredictor(model_dir=path, device=dev)  # warmup: predict
+    warm = encode_launches()
+    check(warm == per_encode, f"static warmup launches {warm} == "
+          f"{per_encode} (flash, layer kernels)")
+    reset_launches()
+    t0 = time.perf_counter()
+    texts = static.predict_batch(wavs)
+    wall = time.perf_counter() - t0
+    got = encode_launches()
+    check(got == per_encode, f"static predict_batch launches {got} == "
+          f"{per_encode} (flash, layer kernels)")
+    check(chunk_kernel("conformer").launches == 0, "no chunk-layer launch")
+    cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
+    err, compared, t_out = probs_card_vs_cpu(static, cpu, wavs)
+    cpu_texts = cpu.predict_batch(wavs)
+    emit({"phase": "eff_static", "static_chunk_size": STATIC_CHUNK,
+          "streaming": static.streaming, "T_out": t_out,
+          "warmup_launches": warm[0], "launches": got[0],
+          "probs_max_abs_err": err, "probs_atol": PROBS_ATOL,
+          "argmax_frames_compared": compared,
+          "texts_equal_cpu": sum(a["text"] == b["text"]
+                                 for a, b in zip(texts, cpu_texts)),
+          "predict_batch_s": wall,
+          "seconds": time.perf_counter() - t_phase})
+    return gpu, wavs, launches
+
+
+def phase_eff_stream(dev, flagship, wavs, smi):
+    """The Efficient-Conformer's predict_stream (both frontends, whole and
+    in 0.2 s pieces, card vs CPU: phase_stream) and an 8-stream engine
+    (phase_engine: texts == predict_stream's, 4 slots on the CPU), every
+    window and dispatch eager (no chunk-layer launch, as masr_tpu streams
+    this family); the window latency at B=1 (p50, p90 over n=12)."""
+    t_phase = time.perf_counter()
+    path = write_stream_bundle(flagship.model_dir)
+    phase_stream(dev, path, wavs[3], "efficient_conformer")
+    phase_engine(dev, path, wavs, "efficient_conformer", EFF_STREAMS)
+    reset_launches()
+    window = window_latency(dev, path, wavs)
+    check(chunk_kernel("conformer").launches == 0,
+          "the eager chunk steps launch no chunk-layer kernel")
+    emit({"phase": "eff_stream_times", "card": smi,
+          "predict_stream": {**window, "n": len(window["window_s"])},
+          "seconds": time.perf_counter() - t_phase})
+    return path
+
+
+def eff_train_config(corpus, save_dir, max_epoch, dropout=True):
+    """configs/efficient_conformer.yml as a dict at its widths (vocabulary
+    4000), on phase 12's corpus at B=8, with warmup_steps 8 and accum_grad
+    1 (the config's 4 leaves 4 updates in the run's 16 steps) so that the
+    loss falls within the run."""
+    conf = train_config(corpus, save_dir, max_epoch, dropout)
+    r = 0.1 if dropout else 0.0
+    conf["encoder_conf"] = dict(EFF_ENCODER, dropout_rate=r,
+                                positional_dropout_rate=r,
+                                attention_dropout_rate=r)
+    conf["train_conf"] = dict(conf["train_conf"], accum_grad=1)
+    conf["use_model"] = "efficient_conformer"
+    return conf
+
+
+def phase_eff_train(dev, corpus, smi):
+    """MASRTrainer(dict config, device=cuda).train of the Efficient-
+    Conformer on phase 12's corpus: one epoch of 16 steps at B=8, every
+    step 8 + 8 row-3 and 1 + 1 row-4 launches, the loss per label token
+    falling; the first step at dropout 0 against the CPU; step walls and
+    the card's idle share over three profiled steps. → (trainer, its
+    config).
+
+    The first step is compared twice (first_step_card_vs_cpu's gates).
+    The config's hybrid loss: the loss and the grads of the CTC head and
+    of the decoder's last rows. The CTC loss alone (ctc_weight 1): the
+    encoder's grads, head and tail. Through the attention loss every
+    encoder grad passes the decoder FFN's ReLU derivative, and on the card
+    1-4 of its units take the other side of 0 on some batches (the
+    kernels' f32-level differences): a jump past CPU_GRAD_RTOL, as
+    first_step_card_vs_cpu says of the subsampling and decoder layers."""
+    from masr_tpu_torch.training.trainer import MASRTrainer
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "eff_train")
+    shutil.rmtree(root, ignore_errors=True)
+    save = os.path.join(root, "models")
+    first = first_step_card_vs_cpu(
+        eff_train_config(corpus, root, 1, dropout=False),
+        ["decoder.left_decoder.after_norm.weight",
+         "decoder.right_decoder.output_layer.weight", "ctc.ctc_lo.weight"])
+    ctc_conf = eff_train_config(corpus, root, 1, dropout=False)
+    ctc_conf["model_conf"] = dict(ctc_conf["model_conf"], ctc_weight=1.0)
+    first_ctc = first_step_card_vs_cpu(
+        ctc_conf,
+        ["encoder.embed.out.0.weight",
+         "encoder.encoders.0.self_attn.pos_bias_u",
+         "encoder.encoders.3.conv_module.depthwise_conv.weight",
+         "encoder.encoders.7.self_attn.linear_q.weight",
+         "encoder.encoders.11.conv_module.depthwise_conv.weight",
+         "encoder.encoders.11.norm_final.weight", "ctc.ctc_lo.weight"])
+    conf = eff_train_config(corpus, root, 1)
+    rows = []
+    reset_train_launches()
+    with clocked_train_steps(rows, "efficient_conformer"):
+        trainer = MASRTrainer(conf, device="cuda")
+        trainer.train(save_model_path=save)
+    step = (2 * EFF_TAIL, EFF_TAIL, 2, 1)
+    check(len(rows) == TRAIN_STEPS_PER_EPOCH, f"{len(rows)} steps")
+    for i, r in enumerate(rows):
+        check(r["launches"] == list(step), f"step {i} launches "
+              f"{r['launches']}, want {list(step)} (train layer, its "
+              f"backward, CTC, its backward)")
+    per_token = np.asarray([r["loss"] / r["tokens"] for r in rows])
+    check(bool(np.isfinite(per_token).all()), "every step's loss finite")
+    head, tail = float(per_token[:4].mean()), float(per_token[-4:].mean())
+    check(tail < head, f"loss per label token falls: first 4 steps {head}, "
+          f"last 4 {tail}")
+    emit({"phase": "eff_train", "card": smi, "steps": len(rows),
+          "batch": len(TRAIN_LENS), "launches_per_step": list(step),
+          "loss_per_token_first4": head, "loss_per_token_last4": tail,
+          **step_times(rows), "first_step_card_vs_cpu": first,
+          "first_step_ctc_loss_card_vs_cpu": first_ctc,
+          "profile": profile_train_steps(trainer),
+          "seconds": time.perf_counter() - t_phase})
+    return trainer, conf
+
+
+def phase_eff_export(dev, trainer, conf, wavs):
+    """The trained Efficient-Conformer through MASRTrainer.export (f32): the
+    bundle's probs of the 8 utterances on the card == the trained model's
+    (PROBS_ATOL), 8 row-1 launches per encode; the eval CLI on its
+    checkpoint: per batch 8 row-3 and 1 row-4 forward launches and 8
+    row-1, (error, loss) == MASRTrainer.evaluate in process."""
+    from masr_tpu_torch import eval as eval_cli
+    from masr_tpu_torch.training import trainer as tr
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "eff_train")
+    ckpt = os.path.join(root, "models", "efficient_conformer_streaming_fbank",
+                        "last_model")
+    path = trainer.export(save_model_path=os.path.join(root, "export"),
+                          resume_model=ckpt)
+    check(path.endswith(os.path.join("efficient_conformer_streaming_fbank",
+                                     "inference_model")),
+          f"bundle at masr_tpu's directory name: {path}")
+    r = bundle_vs_model(path, trainer.model, wavs, dev, "efficient_conformer")
+    check(r["err"] <= PROBS_ATOL, f"f32 bundle probs vs the trained model "
+          f"{r['err']} <= {PROBS_ATOL}")
+    check(r["launches"] == EFF_TAIL, f"{r['launches']} row-1 launches per "
+          f"encode, want {EFF_TAIL}")
+    conf_path = config_file(conf, os.path.join(root, "eff.yml"))
+    batches, orig = [], tr.eval_step
+
+    def counted(*a):
+        batches.append(1)
+        return orig(*a)
+
+    tr.eval_step = counted
+    try:
+        reset_launches()
+        reset_train_launches()
+        cli = eval_cli.main(["--configs", conf_path, "--resume_model", ckpt,
+                             "--use_gpu", "True"])
+        launches = (*train_launches("efficient_conformer"),
+                    layer_kernel("efficient_conformer").launches)
+    finally:
+        tr.eval_step = orig
+    b = len(batches)
+    want = (EFF_TAIL * b, 0, b, 0, EFF_TAIL * b)
+    check(b > 0 and launches == want, f"eval CLI launches {launches} == "
+          f"{want} for {b} batches")
+    inproc = tr.MASRTrainer(conf, device=dev).evaluate(resume_model=ckpt)
+    check(cli == inproc, f"eval CLI {cli} == in process {inproc}")
+    emit({"phase": "eff_export", "bundle": path, "bytes": r["bytes"],
+          "probs_err_vs_model": r["err"], "row1_launches_per_encode":
+          r["launches"], "texts_nonempty": sum(map(bool, r["texts"])),
+          "eval_cli": {"batches": b, "cer": cli[0], "loss": cli[1],
+                       "launches": dict(zip(EVAL_LAUNCHES, launches)),
+                       "equal_in_process": cli == inproc},
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4136,6 +4476,12 @@ def main():
     phase_eval_cli(dev, exported)
     rec = phase_long_audio(dev)
     phase_server(dev, exported, rec, path, wavs)
+
+    phase_eff_kernels(dev, smi)
+    eff_gpu, _, _ = phase_eff_flagship(dev)
+    phase_eff_stream(dev, eff_gpu, wavs, smi)
+    eff_trainer, eff_conf = phase_eff_train(dev, corpus, smi)
+    phase_eff_export(dev, eff_trainer, eff_conf, wavs)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{

@@ -3,8 +3,10 @@ chunk step per tick (port of masr_tpu/infer/batch_stream.py, with the
 ctc_greedy and the ctc_beam_search_device decoders).
 
 Every tick runs all N slots through the encoder's batched chunk step
-(`forward_chunk_batched` of models/conformer.py or models/squeezeformer.py),
-whose layers each launch the family's chunk-layer kernel once. Slots
+(`forward_chunk_batched` of models/conformer.py, models/squeezeformer.py or
+models/efficient_conformer.py), whose layers each launch the family's
+chunk-layer kernel once, or, in an encoder without one (the
+Efficient-Conformer, a non-causal model), run eagerly. Slots
 advance selectively, so streams start and stop independently. Host-side
 feature windowing and the greedy carry are per slot, identical to
 MASRPredictor.predict_stream. With ctc_beam_search_device every dispatch
@@ -17,10 +19,10 @@ slots) and is updated in place: the kernel writes the fresh K/V rows and
 the cnn cache only for active slots, and only their offsets, cache lengths
 and ring pointers advance. masr_tpu's buffer donation and where()-merge of
 the new state have no counterpart here; inactive slots are simply left
-untouched. An encoder with `position_tables` (the Conformer) reads its
-positions from per-layer tables until a slot passes their horizon; one
-without (the Squeezeformer) computes them at every step, so every slot of
-a tick goes through one dispatch.
+untouched. An encoder with `position_tables` (the causal Conformer) reads
+its positions from per-layer tables until a slot passes their horizon; one
+without computes them at every step, so every slot of a tick goes through
+one dispatch. Multi-chunk ticks need an encoder with `multi_chunk`.
 """
 import numpy as np
 import torch
@@ -52,7 +54,8 @@ class BatchStreamSession(object):
         full windows buffered runs them in ONE step with a block-causal
         sub-chunk mask (equal to k single ticks); it adds up to
         (k-1)·640 ms of buffering before the first partial result, and
-        falls back to 1 unless k·16 ≤ the cache size. pos_table_len: rows
+        falls back to 1 unless k·16 ≤ the cache size and the encoder
+        takes multi-chunk steps (`multi_chunk`). pos_table_len: rows
         of the per-layer position tables (~pos_table_len × 40 ms of stream
         per slot before its ticks switch to exact per-tick positions,
         which are as right, only slower)."""
@@ -67,11 +70,12 @@ class BatchStreamSession(object):
         encoder = self.ip.model.encoder
         C = self.ip.cache_size
         self.tick_k = int(tick_chunks) \
-            if 1 < tick_chunks and tick_chunks * DECODING_CHUNK_SIZE <= C \
-            else 1
+            if encoder.multi_chunk and 1 < tick_chunks \
+            and tick_chunks * DECODING_CHUNK_SIZE <= C else 1
         self.states = encoder.init_cache(batch=max_streams, cache_size=C,
                                          device=self.ip.device)
-        # kernel weights and per-layer position tables, made once
+        # kernel weights and per-layer position tables, made once (None
+        # for an encoder without a chunk kernel)
         self._packed_chunk = encoder.pack_chunk_params(
             cache_size=C, pos_table_len=int(pos_table_len))
         # position-table horizon: a slot whose offset reaches the last full
@@ -118,11 +122,12 @@ class BatchStreamSession(object):
         if self._dec_state is not None:
             for k, v in self._dec_state.items():
                 v[slot] = self._dec_fresh[k][0]
-        # cache_len = 0 masks every ring row, so the att rings need no
-        # zeroing
+        # cache_len = 0 masks every att cache row, so the att caches need
+        # no zeroing (a state without rings has no write pointers)
         self.states["cnn_cache"][:, slot] = 0
         for key in ("offset", "cache_len", "wptr"):
-            self.states[key][slot] = 0
+            if key in self.states:
+                self.states[key][slot] = 0
 
     # ------------------------------------------------------------------ #
     def _run_round(self, xs, active, valids):

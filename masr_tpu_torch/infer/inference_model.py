@@ -3,8 +3,9 @@
 full context, attention rescoring, and the streaming chunk steps with the
 host or the sample-domain fused frontend, with the rescoring rows).
 
-The model is any family of models/registry.py (the Conformer or the
-Squeezeformer): it gives `get_encoder_out`, `get_encoder_out_chunk` and
+The model is any family of models/registry.py (the Conformer, the
+Squeezeformer or the Efficient-Conformer, whose chunk of 16 frames emits
+8): it gives `get_encoder_out`, `get_encoder_out_chunk` and
 `encoder.init_cache`. Full-context inputs are padded to a multiple of
 `length_bucket` frames, as masr_tpu does (there it bounds the compiled
 programs; here it keeps the same frames, hence the same padding rows, as

@@ -44,11 +44,19 @@ def _mask_scores(scores, mask):
 def cache_key_mask(cache_size, chunk_len, valid_len, batch=1, device=None):
     """(B, 1, C + chunk) bool: the last valid_len cache rows and the whole
     chunk (right-aligned cache)."""
-    cache_ok = torch.arange(cache_size, device=device) >= \
-        cache_size - valid_len
-    m = torch.cat([cache_ok, torch.ones(chunk_len, dtype=torch.bool,
-                                        device=device)])
-    return m[None, None, :].expand(batch, 1, cache_size + chunk_len)
+    return slot_key_mask(cache_size, chunk_len, torch.full(
+        (batch,), valid_len, dtype=torch.long, device=device))
+
+
+def slot_key_mask(cache_size, chunk_len, valid_lens):
+    """cache_key_mask with a valid count per slot: valid_lens (N,) int →
+    (N, 1, C + chunk) bool."""
+    dev = valid_lens.device
+    cache_ok = torch.arange(cache_size, device=dev)[None, :] >= \
+        cache_size - valid_lens.long()[:, None]
+    chunk_ok = torch.ones(valid_lens.shape[0], chunk_len, dtype=torch.bool,
+                          device=dev)
+    return torch.cat([cache_ok, chunk_ok], dim=1)[:, None, :]
 
 
 class MultiHeadedAttention(nn.Module):
@@ -109,29 +117,41 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
             x.requires_grad or any(p.requires_grad
                                    for p in self.parameters())))
 
-    def forward(self, x, mask, pos_emb, cache=None, generator=None):
-        """x: (B, T, D); mask: (B, 1|T, T2) bool; pos_emb: (1, T2, D) over
-        the key length T2 (T, or C + T with a cache); cache: None or the
-        right-aligned (B, h, C, 2·d_k) [K ‖ V] rows → (out (B, T, D),
-        new cache: the last C rows of [cache ‖ fresh], or None)."""
-        B, T, _ = x.shape
-        if self.flash_route(x, mask, cache):
-            return self._flash(x, mask, pos_emb), None
+    def _qkv(self, x, cache=None):
+        """The self-attention heads (B, h, T, d_k) of x, the keys and values
+        after a right-aligned cache (B, h, C, 2·d_k) when one is given, and
+        the new cache: the last C rows of [cache ‖ fresh], or None
+        (masr_tpu's _qkv and _merge_cache)."""
         q = self._heads(self.linear_q(x))
         k = self._heads(self.linear_k(x))
         v = self._heads(self.linear_v(x))
-        new_cache = None
-        if cache is not None:                     # _merge_cache
-            C = cache.shape[2]
-            k = torch.cat([cache[..., :self.d_k], k], dim=2)
-            v = torch.cat([cache[..., self.d_k:], v], dim=2)
-            new_cache = torch.cat([k, v], dim=-1)[:, :, k.shape[2] - C:]
-        p = self._heads(self.linear_pos(pos_emb))           # (1, h, T2, d_k)
-        # AC + BD as one matmul: [q+bu ‖ q+bv] · [k ‖ p]^T
-        q_cat = torch.cat([q + self.pos_bias_u[None, :, None, :],
-                           q + self.pos_bias_v[None, :, None, :]], dim=-1)
+        if cache is None:
+            return q, k, v, None
+        C = cache.shape[2]
+        k = torch.cat([cache[..., :self.d_k], k], dim=2)
+        v = torch.cat([cache[..., self.d_k:], v], dim=2)
+        return q, k, v, torch.cat([k, v], dim=-1)[:, :, k.shape[2] - C:]
+
+    @staticmethod
+    def _rel_scores(q, k, p, bias_u, bias_v, d):
+        """AC + BD as one matmul: [q+bu ‖ q+bv] · [k ‖ p]^T / √d; p may
+        have a batch of 1 (shared positions) or B (per-slot positions)."""
+        q_cat = torch.cat([q + bias_u[None, :, None, :],
+                           q + bias_v[None, :, None, :]], dim=-1)
         k_cat = torch.cat([k, p.expand_as(k)], dim=-1)
-        scores = q_cat @ k_cat.transpose(-1, -2) / math.sqrt(self.d_k)
+        return q_cat @ k_cat.transpose(-1, -2) / math.sqrt(d)
+
+    def forward(self, x, mask, pos_emb, cache=None, generator=None):
+        """x: (B, T, D); mask: (B, 1|T, T2) bool; pos_emb: (1|B, T2, D)
+        over the key length T2 (T, or C + T with a cache); cache: None or
+        the right-aligned (B, h, C, 2·d_k) [K ‖ V] rows → (out (B, T, D),
+        new cache: the last C rows of [cache ‖ fresh], or None)."""
+        if self.flash_route(x, mask, cache):
+            return self._flash(x, mask, pos_emb), None
+        q, k, v, new_cache = self._qkv(x, cache)
+        p = self._heads(self.linear_pos(pos_emb))       # (1|B, h, T2, d_k)
+        scores = self._rel_scores(q, k, p, self.pos_bias_u, self.pos_bias_v,
+                                  self.d_k)
         return self._attend(scores, mask, v, generator), new_cache
 
     def _flash(self, x, mask, pos_emb):

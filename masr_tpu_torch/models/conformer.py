@@ -37,11 +37,17 @@ tensors that every chunk step updates IN PLACE, for the slots it advances:
                                  ring write pointer
 masr_tpu keeps the cache right-aligned (or, in its engine, as a mirrored
 TPU ring) and returns new arrays; models/weights.py converts both ways.
+A non-causal model steps its chunks eagerly (the chunk kernel takes a
+causal conv), as masr_tpu's forward_chunk does, through the layers'
+forward_cached with no cnn cache: its rings keep write pointer 0, so row j
+is chronological row j, masr_tpu's right-aligned layout, and its cnn_cache
+is one unused row per layer, as masr_tpu's.
 """
 import torch
 from torch import nn
 
-from masr_tpu_torch.models.attention import RelPositionMultiHeadedAttention
+from masr_tpu_torch.models.attention import (RelPositionMultiHeadedAttention,
+                                             slot_key_mask)
 from masr_tpu_torch.models.convolution import ConvolutionModule
 from masr_tpu_torch.models.decoder import BiTransformerDecoder
 from masr_tpu_torch.models.embedding import sinusoid_position_encoding
@@ -71,6 +77,59 @@ def _layer_norm(size):
     return nn.LayerNorm(size, eps=1e-5)
 
 
+def slot_positions(offsets, C, chunk, d_model):
+    """(N, C + chunk, d_model): each slot's key positions offset - C ..
+    offset + chunk - 1, clamped at 0 (masr_tpu's _chunk_pos_emb)."""
+    rows = torch.clamp(offsets[:, None].long() - C
+                       + torch.arange(C + chunk, device=offsets.device),
+                       min=0)
+    return sinusoid_position_encoding(rows.reshape(-1), d_model).view(
+        offsets.shape[0], C + chunk, d_model)
+
+
+def eager_chunk_step(chunk_fn, xs, state, active, rate=1):
+    """One eager streaming step of the `active` slots (all when None) of a
+    state with right-aligned caches. chunk_fn(xs, offsets, att_cache,
+    cnn_cache, cache_lens) → (ys (n, c', D), new att cache, new cnn cache)
+    runs the step on the active slots' rows; their caches are written back
+    and their offsets and cache lengths advance by c' · rate frames, the
+    other slots' state stays untouched. xs: (N, T_in, F) → (N, c', D), the
+    inactive slots' rows zero."""
+    if xs.dim() != 3:
+        raise NotImplementedError("multi-chunk steps: the eager chunk step "
+                                  "takes one window per slot")
+    N = xs.shape[0]
+    idx = None
+    if active is not None:
+        idx = torch.nonzero(active.to(xs.device, torch.bool)).flatten()
+        if idx.numel() == N:
+            idx = None
+    att, cnn = state["att_cache"], state["cnn_cache"]
+
+    def sub(t, dim):
+        return t if idx is None else t.index_select(dim, idx)
+
+    ys, new_att, new_cnn = chunk_fn(sub(xs, 0), sub(state["offset"], 0),
+                                    sub(att, 1), sub(cnn, 1),
+                                    sub(state["cache_len"], 0))
+    step, C = ys.shape[1] * rate, att.shape[3]
+    if idx is None:
+        att.copy_(new_att)
+        cnn.copy_(new_cnn)
+        state["offset"].add_(step)
+        state["cache_len"].copy_(torch.clamp(state["cache_len"] + step,
+                                             max=C))
+        return ys
+    att.index_copy_(1, idx, new_att)
+    cnn.index_copy_(1, idx, new_cnn)
+    state["offset"][idx] += step
+    state["cache_len"][idx] = torch.clamp(state["cache_len"][idx] + step,
+                                          max=C)
+    out = ys.new_zeros((N,) + tuple(ys.shape[1:]))
+    out[idx] = ys
+    return out
+
+
 class ConformerEncoderLayer(nn.Module):
     """macaron-FFN(×0.5) → rel-pos MHSA → conv → FFN(×0.5) → final LN
     (pre-norm). This slice ports the layer shape of every shipped
@@ -79,7 +138,12 @@ class ConformerEncoderLayer(nn.Module):
     def __init__(self, size, attention_heads, linear_units,
                  cnn_module_kernel=15, causal=False,
                  activation_type="swish", cnn_module_norm="layer_norm",
-                 dropout_rate=0.0, attention_dropout_rate=0.0):
+                 dropout_rate=0.0, attention_dropout_rate=0.0,
+                 self_attn=None, conv_module=None):
+        """self_attn, conv_module: modules that replace the rel-pos MHSA
+        and the conv module (the Efficient-Conformer's grouped attention
+        and strided conv, models/efficient_conformer.py); None builds
+        them. The layer kernels take only the default modules."""
         super().__init__()
         act = get_activation(activation_type)
         self.size = size
@@ -89,14 +153,16 @@ class ConformerEncoderLayer(nn.Module):
         self.ff_scale = 0.5
         self.dropout_rate = dropout_rate
         self.attention_dropout_rate = attention_dropout_rate
-        self.self_attn = RelPositionMultiHeadedAttention(
-            attention_heads, size, attention_dropout_rate)
+        self.self_attn = self_attn if self_attn is not None else \
+            RelPositionMultiHeadedAttention(attention_heads, size,
+                                            attention_dropout_rate)
         self.feed_forward = PositionwiseFeedForward(size, linear_units, act,
                                                     dropout_rate)
         self.feed_forward_macaron = PositionwiseFeedForward(
             size, linear_units, act, dropout_rate)
-        self.conv_module = ConvolutionModule(size, cnn_module_kernel, act,
-                                             cnn_module_norm, causal)
+        self.conv_module = conv_module if conv_module is not None else \
+            ConvolutionModule(size, cnn_module_kernel, act, cnn_module_norm,
+                              causal)
         self.norm_ff = _layer_norm(size)
         self.norm_mha = _layer_norm(size)
         self.norm_ff_macaron = _layer_norm(size)
@@ -116,10 +182,16 @@ class ConformerEncoderLayer(nn.Module):
             self.norm_ff_macaron(x), generator))
         x = x + drop(self.self_attn(self.norm_mha(x), mask, pos_emb,
                                     generator=generator)[0])
-        x = x + drop(self.conv_module(self.norm_conv(x), mask_pad)[0])
+        x = self.conv_residual(x, drop(self.conv_module(self.norm_conv(x),
+                                                        mask_pad)[0]))
         x = x + self.ff_scale * drop(self.feed_forward(self.norm_ff(x),
                                                        generator))
         return self.norm_final(x)
+
+    def conv_residual(self, x, conv):
+        """The conv block's residual sum: x + conv (a stride layer pools
+        x to conv's rate first)."""
+        return x + conv
 
     def forward_cached(self, x, mask, pos_emb, att_cache, cnn_cache):
         """Eager reference of one streaming step with masr_tpu's caches.
@@ -132,7 +204,7 @@ class ConformerEncoderLayer(nn.Module):
                                       att_cache)
         x = x + att
         conv, new_cnn = self.conv_module(self.norm_conv(x), None, cnn_cache)
-        x = x + conv
+        x = self.conv_residual(x, conv)
         x = x + self.ff_scale * self.feed_forward(self.norm_ff(x))
         return self.norm_final(x), new_att, new_cnn
 
@@ -187,10 +259,10 @@ class ConformerEncoderLayer(nn.Module):
 class ConformerEncoder(nn.Module):
     """Full-context encoder: CMVN → subsampling → layers → after_norm."""
 
-    # the chunk step can read its positions from per-layer tables
-    # (pack_chunk_params with a cache_size); the engine routes slots past a
-    # table's horizon to the exact-positions step
-    position_tables = True
+    # position_tables: the chunk step can read its positions from per-layer
+    # tables (pack_chunk_params with a cache_size); the engine routes slots
+    # past a table's horizon to the exact-positions step. multi_chunk: it
+    # takes k windows per slot as one step. Both hold for a causal model.
 
     def __init__(self, input_size, output_size=256, attention_heads=4,
                  linear_units=2048, num_blocks=6, input_layer="conv2d",
@@ -222,6 +294,8 @@ class ConformerEncoder(nn.Module):
         self.output_size = output_size
         self.attention_heads = attention_heads
         self.causal = causal
+        # a non-causal model steps eagerly: no tables, one window a step
+        self.position_tables = self.multi_chunk = causal
         self.cnn_module_kernel = cnn_module_kernel
         self.use_dynamic_chunk = use_dynamic_chunk
         self.use_dynamic_left_chunk = use_dynamic_left_chunk
@@ -297,10 +371,6 @@ class ConformerEncoder(nn.Module):
     def init_cache(self, batch=1, cache_size=256, device=None):
         """Zeroed streaming state for `batch` slots with C = cache_size
         cache rows per layer (the layout of the module docstring)."""
-        if not self.causal:
-            raise NotImplementedError(
-                "non-causal chunk stepping is not ported (the chunk-layer "
-                "kernel takes a causal conv module)")
         if cache_size < 0:
             raise ValueError(f"cache_size {cache_size}: the streaming "
                              "caches have a fixed size >= 0")
@@ -311,8 +381,8 @@ class ConformerEncoder(nn.Module):
 
         return {"att_cache": zeros(L, batch, self.attention_heads,
                                    cache_size, 2 * d_k),
-                "cnn_cache": zeros(L, batch, self.cnn_module_kernel - 1,
-                                   self.output_size),
+                "cnn_cache": zeros(L, batch, self.cnn_module_kernel - 1
+                                   if self.causal else 1, self.output_size),
                 "offset": zeros(batch, dtype=torch.int32),
                 "cache_len": zeros(batch, dtype=torch.int32),
                 "wptr": zeros(batch, dtype=torch.int32)}
@@ -323,7 +393,10 @@ class ConformerEncoder(nn.Module):
         cache_size, each layer gets its make_chunk_pos_table rows, and the
         chunk step reads every slot's position window from them in place
         of a per-step sinusoid and linear_pos product. Computed once per
-        session."""
+        session. A non-causal model, which steps eagerly, packs nothing
+        (None)."""
+        if not self.causal:
+            return None
         with torch.no_grad():
             return [(layer.chunk_packed_params(),
                      None if cache_size is None else make_chunk_pos_table(
@@ -343,7 +416,11 @@ class ConformerEncoder(nn.Module):
         packed: pack_chunk_params(); with position tables, slots read their
         positions from the tables unless exact_positions. active: (N,) bool
         or None (all); the caches and counters of inactive slots stay
-        untouched. → (N, c·k, D); the state advances in place."""
+        untouched. → (N, c·k, D); the state advances in place. A
+        non-causal model takes the eager step (_chunk_eager), one window
+        per slot."""
+        if not self.causal:
+            return eager_chunk_step(self._chunk_eager, xs, state, active)
         n_sub = 1
         if xs.dim() == 4:
             n_sub = xs.shape[1]
@@ -368,10 +445,8 @@ class ConformerEncoder(nn.Module):
             starts = clamp_pos_starts(state["offset"], packed[0][1].shape[0],
                                       L)
         else:
-            rows = torch.clamp(state["offset"][:, None].long() - C
-                               + torch.arange(L, device=dev), min=0)
-            pe = sinusoid_position_encoding(rows.reshape(-1),
-                                            self.output_size)
+            pe = slot_positions(state["offset"], C, xs.shape[1],
+                                self.output_size).reshape(N * L, -1)
             starts = torch.arange(N, dtype=torch.int32, device=dev) * L
         act_i32 = active.to(torch.int32)
         for i, layer in enumerate(self.encoders):
@@ -389,6 +464,24 @@ class ConformerEncoder(nn.Module):
         if C:
             state["wptr"].copy_((state["wptr"] + step) % C)
         return self.after_norm(xs)
+
+    def _chunk_eager(self, xs, offsets, att_cache, cnn_cache, cache_lens):
+        """masr_tpu's forward_chunk of a non-causal model (every conv
+        within the chunk, no cnn cache), per-slot offsets and cache lengths
+        → (ys (N, c, D), new right-aligned att cache, cnn_cache as it
+        was)."""
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        cur = self.embed(xs)[0]
+        C, chunk = att_cache.shape[3], cur.shape[1]
+        pos = slot_positions(offsets, C, chunk, self.output_size)
+        mask = slot_key_mask(C, chunk, cache_lens)
+        new_att = []
+        for i, layer in enumerate(self.encoders):
+            cur, a, _ = layer.forward_cached(cur, mask, pos, att_cache[i],
+                                             None)
+            new_att.append(a)
+        return self.after_norm(cur), torch.stack(new_att), cnn_cache
 
     def forward_chunk(self, xs, state):
         """One streaming chunk of every slot (masr_tpu's forward_chunk):

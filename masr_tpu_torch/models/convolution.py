@@ -7,7 +7,10 @@ torch's convention for flax's 0.9), which in eval uses its running
 statistics and in training updates them as flax does. Torch layout (B, C,
 T) inside, as upstream MASR, so its weights apply. The causal cache holds
 the last lorder = k-1 rows of the module's input BEFORE pointwise_conv1,
-as masr_tpu's does.
+as masr_tpu's does. With stride s > 1 (the Efficient-Conformer's stride
+layers, masr_tpu/models/efficient_conformer.py:108-160) the depthwise conv
+strides time: T rows give ceil(T / s), masked by the pad mask's every s-th
+column.
 """
 import torch
 from torch import nn
@@ -16,7 +19,8 @@ import torch.nn.functional as F
 
 class ConvolutionModule(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 15, activation=F.silu,
-                 norm: str = "layer_norm", causal: bool = False):
+                 norm: str = "layer_norm", causal: bool = False,
+                 stride: int = 1):
         super().__init__()
         if norm not in ("layer_norm", "batch_norm"):
             raise ValueError(f"unknown conv module norm {norm!r}")
@@ -25,8 +29,9 @@ class ConvolutionModule(nn.Module):
         self.lorder = kernel_size - 1 if causal else 0
         self.pointwise_conv1 = nn.Conv1d(channels, 2 * channels, 1)
         self.depthwise_conv = nn.Conv1d(
-            channels, channels, kernel_size, groups=channels,
+            channels, channels, kernel_size, stride=stride, groups=channels,
             padding=0 if causal else (kernel_size - 1) // 2)
+        self.stride = stride
         self.norm = nn.LayerNorm(channels, eps=1e-5) \
             if norm == "layer_norm" else \
             nn.BatchNorm1d(channels, eps=1e-5, momentum=0.1)
@@ -36,8 +41,8 @@ class ConvolutionModule(nn.Module):
     def forward(self, x, mask_pad=None, cache=None):
         """x: (B, T, C); mask_pad: (B, 1, T) bool non-pad mask or None;
         cache: None (causal: zero left pad) or (B, lorder, C) rows of a
-        streaming cache → (out (B, T, C), new cache: the last lorder input
-        rows, or None when not causal)."""
+        streaming cache → (out (B, ceil(T / stride), C), new cache: the
+        last lorder input rows, or None when not causal)."""
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0)
         new_cache = None
@@ -60,7 +65,8 @@ class ConvolutionModule(nn.Module):
         x = self.activation(x)
         x = self.pointwise_conv2(x).transpose(1, 2)
         if mask_pad is not None:
-            x = x.masked_fill(~mask_pad.transpose(1, 2), 0.0)
+            x = x.masked_fill(~mask_pad[:, :, ::self.stride].transpose(1, 2),
+                              0.0)
         return x, new_cache
 
     def _batch_norm_train(self, x):

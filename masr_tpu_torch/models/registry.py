@@ -2,11 +2,14 @@
 selects the family; encoder_conf and decoder_conf are splatted into the
 constructors and model_conf carries the loss weights (ctc_weight,
 lsm_weight, reverse_weight, length_normalized_loss). The port has the
-Conformer and the Squeezeformer, serving and training."""
+Conformer, the Squeezeformer and the Efficient-Conformer, serving and
+training."""
 from masr_tpu_torch.models.conformer import ConformerModel
+from masr_tpu_torch.models.efficient_conformer import EfficientConformerModel
 from masr_tpu_torch.models.squeezeformer import SqueezeformerModel
 
-_FAMILIES = {"conformer": ConformerModel, "squeezeformer": SqueezeformerModel}
+_FAMILIES = {"conformer": ConformerModel, "squeezeformer": SqueezeformerModel,
+             "efficient_conformer": EfficientConformerModel}
 
 
 def build_model(use_model: str, input_dim: int, vocab_size: int,
@@ -19,7 +22,7 @@ def build_model(use_model: str, input_dim: int, vocab_size: int,
                                     encoder_conf=encoder_conf,
                                     decoder_conf=decoder_conf,
                                     **dict(model_conf or {}))
-    if use_model in ("deepspeech2", "efficient_conformer"):
+    if use_model == "deepspeech2":
         raise NotImplementedError(f"model family {use_model!r} is not "
                                   "ported yet")
     raise ValueError(f"unknown use_model: {use_model}")

@@ -45,18 +45,27 @@ cache repeated, and it reads the odd rows with cache_len / 2 and wptr / 2
 (an even chunk and an even cache keep wptr even). Positions come from the
 offsets at every step (masr_tpu builds no position table for this family).
 
+A non-causal model steps its chunks eagerly (the chunk kernel takes a
+causal conv), as masr_tpu's forward_chunk does, through the layers'
+forward_cached with no cnn cache: its rings keep write pointer 0 (row j is
+chronological row j, masr_tpu's right-aligned layout; half-rate rows
+stored twice, as masr_tpu's repeat) and its cnn_cache is one unused row
+per layer.
+
 Not ported, each raising NotImplementedError: pre-norm layers
 (normalize_before), other positional encodings than rel_pos, streaming
-with an odd chunk or cache size, more than one time reduction in force at
-once while streaming, and non-causal chunk stepping.
+with an odd chunk or cache size, and more than one time reduction in force
+at once while streaming. Streaming with the conv1d time reduction raises,
+as in masr_tpu.
 """
 import torch
 from torch import nn
 
-from masr_tpu_torch.models.attention import RelPositionMultiHeadedAttention
-from masr_tpu_torch.models.conformer import ConformerModel
+from masr_tpu_torch.models.attention import (RelPositionMultiHeadedAttention,
+                                             slot_key_mask)
+from masr_tpu_torch.models.conformer import (ConformerModel, eager_chunk_step,
+                                             slot_positions)
 from masr_tpu_torch.models.convolution import ConvolutionModule
-from masr_tpu_torch.models.embedding import sinusoid_position_encoding
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.models.subsampling import DepthwiseConv2dSubsampling4
 from masr_tpu_torch.ops.common import dropout, get_activation
@@ -324,6 +333,8 @@ class SqueezeformerEncoder(nn.Module):
         self.attention_heads = attention_heads
         self.cnn_module_kernel = cnn_module_kernel
         self.causal = causal
+        # a causal model's chunk kernel takes k windows per slot as one step
+        self.multi_chunk = causal
         self.use_dynamic_chunk = use_dynamic_chunk
         self.use_dynamic_left_chunk = use_dynamic_left_chunk
         self.static_chunk_size = static_chunk_size
@@ -467,10 +478,6 @@ class SqueezeformerEncoder(nn.Module):
     # streaming
     # ------------------------------------------------------------------ #
     def _check_streaming(self, cache_size):
-        if not self.causal:
-            raise NotImplementedError(
-                "non-causal chunk stepping is not ported (the chunk-layer "
-                "kernel takes a causal conv module)")
         if self.reduce_idx and self.time_reduction_layer.kind != "stream":
             raise NotImplementedError(
                 "streaming with the conv1d time reduction: masr_tpu streams "
@@ -499,8 +506,8 @@ class SqueezeformerEncoder(nn.Module):
 
         return {"att_cache": zeros(L, batch, self.attention_heads,
                                    cache_size, 2 * d_k),
-                "cnn_cache": zeros(L, batch, self.cnn_module_kernel - 1,
-                                   self.encoder_dim),
+                "cnn_cache": zeros(L, batch, self.cnn_module_kernel - 1
+                                   if self.causal else 1, self.encoder_dim),
                 "offset": zeros(batch, dtype=torch.int32),
                 "cache_len": zeros(batch, dtype=torch.int32),
                 "wptr": zeros(batch, dtype=torch.int32)}
@@ -509,7 +516,10 @@ class SqueezeformerEncoder(nn.Module):
         """Per layer: the kernel weights (BatchNorm folded) with the serving
         tensor-core pack (chunk_packed_params). cache_size and
         pos_table_len are taken for the engine's call and unused: the
-        positions come from the offsets at every step."""
+        positions come from the offsets at every step. A non-causal model,
+        which steps eagerly, packs nothing (None)."""
+        if not self.causal:
+            return None
         return [layer.chunk_packed_params() for layer in self.encoders]
 
     @torch.no_grad()
@@ -526,7 +536,11 @@ class SqueezeformerEncoder(nn.Module):
         caches and counters of inactive slots stay untouched.
         exact_positions: taken for the engine's call; positions are always
         exact here. → (N, c·k, output_size); the state advances in
-        place."""
+        place. A non-causal model takes the eager step (_chunk_eager), one
+        window per slot."""
+        if not self.causal:
+            self._check_streaming(state["att_cache"].shape[3])
+            return eager_chunk_step(self._chunk_eager, xs, state, active)
         n_sub = 1
         if xs.dim() == 4:
             n_sub = xs.shape[1]
@@ -551,10 +565,7 @@ class SqueezeformerEncoder(nn.Module):
             active = torch.ones(N, dtype=torch.bool, device=dev)
         act_i32 = active.to(dev, torch.bool).to(torch.int32)
         L = C + chunk
-        rows = torch.clamp(state["offset"][:, None].long() - C
-                           + torch.arange(L, device=dev), min=0)
-        pe = sinusoid_position_encoding(rows.reshape(-1), self.encoder_dim
-                                        ).view(N, L, -1)
+        pe = slot_positions(state["offset"], C, chunk, self.encoder_dim)
         # half-rate keys: cache row j holds the half-frame at full position
         # row 2j, then the strided chunk (masr_tpu's pos_half)
         pe_half = torch.cat([pe[:, 0:C:2], pe[:, C::2]], dim=1)
@@ -585,6 +596,44 @@ class SqueezeformerEncoder(nn.Module):
         if C:
             state["wptr"].copy_((state["wptr"] + adv) % C)
         return out
+
+    def _chunk_eager(self, xs, offsets, att_cache, cnn_cache, cache_lens):
+        """masr_tpu's forward_chunk of a non-causal model (every conv
+        within the chunk, no cnn cache), per-slot offsets and cache lengths
+        → (ys (N, c, output_size), new right-aligned att cache, cnn_cache
+        as it was). A half-rate layer reads the odd cache rows with half
+        the valid count and stores its rows twice."""
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        cur = self.embed(xs)[0]
+        C, chunk = att_cache.shape[3], cur.shape[1]
+        if self.reduce_idx and chunk % 2:
+            raise NotImplementedError(
+                f"an odd chunk of {chunk} frames: the time reduction keeps "
+                "every second frame of each chunk")
+        pos = slot_positions(offsets, C, chunk, self.encoder_dim)
+        # half-rate keys: cache row j holds the half-frame at full position
+        # row 2j, then the strided chunk (masr_tpu's pos_half)
+        rates = {1: (att_cache, pos, cache_lens),
+                 2: (att_cache[:, :, :, 1::2],
+                     torch.cat([pos[:, 0:C:2], pos[:, C::2]], dim=1),
+                     cache_lens // 2)}
+        new_att = [None] * len(self.encoders)
+
+        def reduce(xs, ctx, lens):
+            return self.time_reduction_layer(xs), ctx, lens
+
+        def run(i, layer, xs, ctx, lens):
+            rate = self.downsampling_factor(i)
+            caches, p, clens = rates[rate]
+            xs, a, _ = layer.forward_cached(
+                xs, slot_key_mask(caches.shape[3], xs.shape[1], clens), p,
+                caches[i], None)
+            new_att[i] = a.repeat_interleave(rate, dim=2)
+            return xs
+
+        out = self._layers(self.preln(cur), None, None, reduce, run)
+        return out, torch.stack(new_att), cnn_cache
 
     def forward_chunk(self, xs, state):
         """One streaming chunk of every slot (masr_tpu's forward_chunk),

@@ -1,10 +1,12 @@
 """Input subsampling (port of masr_tpu/models/subsampling.py:44-73 and
 :140-176, with the mask-free streaming call).
 
-Ported: Conv2dSubsampling4 ("conv2d"), the Conformer flagship's, and the
-Squeezeformer's DepthwiseConv2dSubsampling4. Both compute in torch's NCHW
-with upstream MASR's channel-major flatten, so upstream weights apply
-directly (the weight map permutes the flax linear).
+Ported: Conv2dSubsampling4 ("conv2d"), the Conformer flagship's, the
+Squeezeformer's DepthwiseConv2dSubsampling4, and Conv2dSubsampling2
+("conv2d2", masr_tpu/models/subsampling.py:180-208), which only the
+Efficient-Conformer offers. All compute in torch's NCHW with upstream
+MASR's channel-major flatten, so upstream weights apply directly (the
+weight map permutes the flax linear).
 """
 import torch
 from torch import nn
@@ -35,6 +37,26 @@ class Conv2dSubsampling4(nn.Module):
         x, pos_emb = self.pos_enc(x, offset, generator)
         if x_mask is not None:
             x_mask = x_mask[:, :, :-2:2][:, :, :-2:2]
+        return x, pos_emb, x_mask
+
+
+class Conv2dSubsampling2(nn.Module):
+    """One (3x3, stride 2) conv + linear: rate 2, right context 2."""
+
+    def __init__(self, idim: int, odim: int, pos_dropout_rate: float = 0.0):
+        super().__init__()
+        self.conv = nn.Sequential(nn.Conv2d(1, odim, 3, 2), nn.ReLU())
+        self.out = nn.Sequential(nn.Linear(odim * ((idim - 1) // 2), odim))
+        self.pos_enc = RelPositionalEncoding(odim, pos_dropout_rate)
+
+    def forward(self, x, x_mask=None, offset=0, generator=None):
+        """As Conv2dSubsampling4.forward, at rate 2."""
+        x = self.conv(x[:, None])                       # (B, C, T', F')
+        B, C, T, F = x.shape
+        x = self.out(x.transpose(1, 2).reshape(B, T, C * F))
+        x, pos_emb = self.pos_enc(x, offset, generator)
+        if x_mask is not None:
+            x_mask = x_mask[:, :, :-2:2]
         return x, pos_emb, x_mask
 
 
@@ -74,9 +96,15 @@ class DepthwiseConv2dSubsampling4(nn.Module):
         return x, pos_emb, x_mask
 
 
-def subsampling_class(input_layer: str):
-    if input_layer != "conv2d":
+def subsampling_class(input_layer: str, family: str = "conformer"):
+    """The subsampling of `input_layer` for a model family: conv2d for
+    every family, conv2d2 for the Efficient-Conformer alone (its table in
+    masr_tpu/models/efficient_conformer.py:365-366)."""
+    table = {"conv2d": Conv2dSubsampling4}
+    if family == "efficient_conformer":
+        table["conv2d2"] = Conv2dSubsampling2
+    if input_layer not in table:
         raise NotImplementedError(
-            f"input_layer {input_layer!r} is not ported yet (this slice "
-            "ports conv2d, Conv2dSubsampling4)")
-    return Conv2dSubsampling4
+            f"input_layer {input_layer!r} is not ported yet for the "
+            f"{family} (ported: {', '.join(sorted(table))})")
+    return table[input_layer]

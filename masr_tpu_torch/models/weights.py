@@ -12,6 +12,11 @@ carries `batch_stats`, the conv modules' BatchNorm running statistics
 `...conv_module.norm.running_{mean,var}`); `num_batches_tracked` is neither
 read nor written.
 
+An upstream state_dict loads through load_upstream_state_dict, which drops
+what masr_tpu's converter drops (masr_tpu/models/convert.py:372-418): the
+Efficient-Conformer stride layers' unused `concat_linear` and BatchNorm's
+num_batches_tracked.
+
 Attention caches: masr_tpu keeps chronological row j (0 = oldest) of a
 slot at row j of a right-aligned (..., B, h, C, 2·d_k) array, or, in its
 batch engine, at row wptr + j of a mirrored (B, h, 2·C, >= 2·d_k) TPU ring
@@ -175,6 +180,24 @@ def to_flax_variables(state_dict):
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(w)
     return out
+
+
+def load_upstream_state_dict(model, state_dict):
+    """Load an upstream MASR state_dict {name: tensor or array} into the
+    port's `model` (upstream names are the port's): `.concat_linear.`
+    entries and num_batches_tracked are dropped; every other entry must
+    fit the model and every parameter and persistent buffer but
+    num_batches_tracked must be given, or it raises. → model."""
+    state = {k: torch.as_tensor(np.asarray(v, np.float32))
+             for k, v in state_dict.items()
+             if ".concat_linear." not in k
+             and not k.endswith("num_batches_tracked")}
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise RuntimeError(f"upstream weights do not fit the model: "
+                           f"missing {missing}, unexpected {unexpected}")
+    return model
 
 
 def grads_to_flax_variables(named_params):

@@ -4,6 +4,7 @@ augmentation is not ported):
 
     python -m masr_tpu_torch.train --configs configs/conformer.yml
     python -m masr_tpu_torch.train --configs configs/squeezeformer.yml
+    python -m masr_tpu_torch.train --configs configs/efficient_conformer.yml
 """
 import argparse
 

@@ -12,11 +12,12 @@ ctc_beam_search_decoder_conf) unless told another; `export` writes a
 checkpoint as a masr_tpu inference bundle (f32, bf16 or int8).
 On the card the CTC loss runs the CTC kernel (forward and backward) and
 every encoder layer of every step its family's training-layer kernel: the
-Conformer's, or the Squeezeformer's with a layer_norm conv module; a
-Squeezeformer with the BatchNorm default trains its eager layers, whose
-running statistics travel in the model's state_dict (checkpoints, resume)
-and are kept after a non-finite step, as in masr_tpu. Training is f32
-(TF32 off).
+Conformer's, or the Squeezeformer's with a layer_norm conv module; the
+Efficient-Conformer trains its grouped and stride layers eagerly and its
+plain tail through the Conformer's kernel (with a layer_norm conv module);
+a BatchNorm conv module trains eager layers, whose running statistics
+travel in the model's state_dict (checkpoints, resume) and are kept after
+a non-finite step, as in masr_tpu. Training is f32 (TF32 off).
 
 Not ported (ROADMAP.md module item 7), each raising NotImplementedError:
 host augmentation (an augmentation config with any prob > 0), the

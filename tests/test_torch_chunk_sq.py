@@ -270,10 +270,14 @@ def test_forward_chunk_batched_staggered_matches_jax_chains(encoders,
 
 
 def test_unported_configurations_raise(encoders):
-    """Pre-norm, non-rel-pos, an odd cache and non-causal chunk stepping
-    raise NotImplementedError, naming what. Training is ported: a
-    dynamic-chunk model's loss asks for its chunk generator and, given
-    one, returns the finite loss dict."""
+    """Pre-norm, non-rel-pos and an odd cache raise NotImplementedError,
+    naming what. Non-causal chunk stepping is ported (the eager step, no
+    cnn cache): four chained chunks of a non-causal encoder (`stream`
+    reduction) equal masr_tpu's forward_chunk chain, outputs and att
+    cache atol 1e-5; with the conv1d reduction it raises, as masr_tpu's
+    forward_chunk does. Training is ported: a dynamic-chunk model's loss
+    asks for its chunk generator and, given one, returns the finite loss
+    dict."""
     from masr_tpu_torch.models.registry import build_model
     for conf, what in ((dict(normalize_before=True), "normalize_before"),
                        (dict(pos_enc_layer_type="abs_pos"), "abs_pos")):
@@ -282,9 +286,29 @@ def test_unported_configurations_raise(encoders):
     _, _, port = encoders
     with pytest.raises(NotImplementedError, match="odd cache"):
         port.init_cache(batch=1, cache_size=31)
-    offline = SqueezeformerEncoder(FEAT, **dict(ENC, causal=False))
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        offline.init_cache(batch=1, cache_size=32)
+    flax_enc, v, _ = encoders
+    flax_off = FlaxEncoder(input_size=FEAT, dropout=0.0,
+                           attention_dropout_rate=0.0,
+                           feed_forward_dropout_rate=0.0,
+                           input_dropout_rate=0.0, **dict(ENC, causal=False))
+    offline = _load(SqueezeformerEncoder(FEAT, **dict(ENC, causal=False)),
+                    {k: {"encoder": t} for k, t in v.items()}, "encoder.")
+    windows = np.random.RandomState(3).standard_normal(
+        (4, 2, WIN, FEAT)).astype(np.float32)
+    want, st_j = _jax_chain(flax_off, v, windows, 32)
+    state = offline.init_cache(batch=2, cache_size=32)
+    for w, y_j in zip(windows, want):
+        _close(offline.forward_chunk(_t(w), state), y_j, 1e-5)
+    _close(state["att_cache"], st_j["att_cache"], 1e-5)
+    assert state["wptr"].tolist() == [0, 0]
+    assert offline.pack_chunk_params() is None and not offline.multi_chunk
+    conv1d = dict(ENC, causal=False, time_reduction_layer_type="conv1d")
+    with pytest.raises(NotImplementedError, match="conv1d"):
+        SqueezeformerEncoder(FEAT, **conv1d).init_cache(batch=1,
+                                                        cache_size=32)
+    with pytest.raises(AssertionError, match="stream"):
+        _jax_chain(FlaxEncoder(input_size=FEAT, **conv1d), v, windows[:1],
+                   32)
     model = build_model("squeezeformer", FEAT, 7, encoder_conf=dict(
         encoder_dim=32, output_size=32, attention_heads=2, num_blocks=2,
         cnn_module_kernel=7))
