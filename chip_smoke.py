@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's offline and streaming recognition and its training (the
-Conformer, the Squeezeformer and the Efficient-Conformer), the offline
+Conformer, the Squeezeformer, the Efficient-Conformer and DeepSpeech2;
+training with host augmentation, the on-device frontend, the fused Adam
+and binary manifests), the offline
 recognition of static-chunk models, the decoders beyond greedy, export,
 eval, long audio and the server, through their public entry points (MASRPredictor.predict_batch,
 MASRPredictor.predict_stream, predict_long, BatchStreamSession,
@@ -272,6 +274,35 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     encode; the eval CLI's batch: 8 row-3 and 1 row-4
                     forward and 8 row-1 launches, (error, loss) == evaluate
                     in process
+ 39. ds2_flagship   DeepSpeech2 at configs/deepspeech2.yml's widths (5 x
+                    LSTM 1024, forward, fbank 80, V=4000, seeded, written by
+                    the port's exporter), its bidirectional twin (streaming
+                    off) and a GRU twin: predict_batch of the 8 utterances,
+                    probs card vs CPU (PROBS_ATOL, no argmax flip past the
+                    margin), no launch of any of the eight kernels (the
+                    recurrence is cuDNN's, TF32 off); the wall time
+ 40. ds2_stream     its predict_stream (both frontends, whole and in 0.2 s
+                    pieces, card vs CPU) and an 8-stream engine (texts ==
+                    predict_stream's, 4 slots on the CPU), no kernel launch;
+                    ds2_stream_times: window latency p50 / p90 at B=1
+ 41. ds2_train      MASRTrainer on phase 12's corpus with the DS2 config's
+                    widths: 16 steps at B=8, each 1 + 1 row-4 launches and
+                    no other row, the loss per label token falling; the
+                    first step card vs CPU (the loss and every grad); step
+                    walls, audio s/s, the card's idle share over 3 profiled
+                    steps; the f32 export (probs == the model's) and the
+                    eval CLI (1 row-4 forward per batch)
+ 42. train_aug      the flagship Conformer trained 8 steps (every other
+                    utterance of phase 12's corpus) with
+                    configs/augmentation.json, its noise manifest pointed at
+                    synthetic noise beside the corpus: 12 + 12 row-3 and 1 +
+                    1 row-4 launches per step, finite losses, the step wall
+                    median beside phase 12's and the loader's wait
+ 43. train_device_frontend  the same with on_device_frontend, the fused Adam
+                    and binary manifests: device fbank at dither 0 vs the
+                    host fbank (1e-3), one fused Adam update vs the unfused
+                    one on the card (1e-6), the same launches per step, the
+                    step wall median
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -345,11 +376,13 @@ EFF_TAIL, EFF_TAIL_KERNEL = 8, 7
 # through a chunk-layer kernel per streaming window (the Efficient-
 # Conformer streams eagerly, as masr_tpu), and its phases' name prefix
 LAYER_LAUNCHES = {"conformer": 12, "squeezeformer": 12,
-                  "efficient_conformer": EFF_TAIL}
+                  "efficient_conformer": EFF_TAIL, "deepspeech2": 0}
 CHUNK_LAUNCHES = {"conformer": 12, "squeezeformer": 12,
-                  "efficient_conformer": 0}
+                  "efficient_conformer": 0, "deepspeech2": 0}
 PHASE_PREFIX = {"conformer": "", "squeezeformer": "sq_",
-                "efficient_conformer": "eff_"}
+                "efficient_conformer": "eff_", "deepspeech2": "ds2_"}
+# configs/deepspeech2.yml encoder_conf (streaming: True → forward LSTMs)
+DS2_ENCODER = dict(num_rnn_layers=5, rnn_size=1024, use_gru=False)
 PREPROCESS = dict(feature_method="fbank", n_mels=80, n_mfcc=40,
                   sample_rate=16000, use_dB_normalization=True, target_dB=-20)
 VOCAB = 4000                                          # bench.py:61
@@ -557,8 +590,9 @@ def synthetic_utterances(vocab):
 
 def layer_kernel(family):
     """The full-context layer kernel's wrapper (its .launches counts); the
-    Efficient-Conformer's tail runs the Conformer's."""
-    if family in ("conformer", "efficient_conformer"):
+    Efficient-Conformer's tail runs the Conformer's (DeepSpeech2 runs
+    none: its counts read the Conformer's, which must stay 0)."""
+    if family in ("conformer", "efficient_conformer", "deepspeech2"):
         from masr_tpu_torch.ops.cuda.conformer_layer import \
             fused_conformer_layer as fn
     else:
@@ -576,7 +610,7 @@ def flash_kernel():
 
 def chunk_kernel(family):
     """The chunk-layer kernel's wrapper (its .launches counts)."""
-    if family in ("conformer", "efficient_conformer"):
+    if family in ("conformer", "efficient_conformer", "deepspeech2"):
         from masr_tpu_torch.ops.cuda.chunk_layer import \
             fused_chunk_layer as fn
     else:
@@ -1135,7 +1169,7 @@ def phase_engine(dev, path, wavs, family="conformer",
     # a position table one window past the cache: slots cross its horizon
     # and switch to exact positions, alone or beside table slots
     tiny_routes, tiny_margins = [], []
-    if gpu.predictor.model.encoder.position_tables:
+    if getattr(gpu.predictor.model.encoder, "position_tables", False):
         tiny, tiny_routes = run(gpu, wavs, len(wavs),
                                 pos_table_len=CACHE + CHUNK + 4 * CHUNK)
         check(any(e for _, e in tiny_routes) and not all(
@@ -1788,6 +1822,8 @@ def clocked_train_steps(rows, family="conformer"):
     from masr_tpu_torch.training import trainer as tr
     orig = tr.train_step
 
+    last = [None]
+
     def step(state, batch, seed):
         torch.cuda.synchronize()
         before = train_launches(family)
@@ -1795,14 +1831,20 @@ def clocked_train_steps(rows, family="conformer"):
         t0 = time.perf_counter()
         m = orig(state, batch, seed)
         torch.cuda.synchronize()
-        rows.append({"s": time.perf_counter() - t0, "loss": m["loss"],
+        t1 = time.perf_counter()
+        # lengths are frames (100 a second), or samples for the on-device
+        # frontend's waveform batches
+        per_s = 16000.0 if batch["inputs"].dim() == 2 else 100.0
+        rows.append({"s": t1 - t0, "loss": m["loss"],
                      "finite": m["finite"],
+                     "wait_s": None if last[0] is None else t0 - last[0],
                      "tokens": float(batch["label_lens"].float().mean()),
-                     "audio_s": float(batch["input_lens"].sum()) / 100.0,
+                     "audio_s": float(batch["input_lens"].sum()) / per_s,
                      "launches": [a - b for a, b in
                                   zip(train_launches(family), before)],
                      "flash_launches": flash_kernel().launches
                      - flash_before})
+        last[0] = t1
         return m
 
     tr.train_step = step
@@ -1967,7 +2009,17 @@ PROFILE_GROUPS = (("train layer: GEMMs", ("::Epi>", "splitk_sum_kernel")),
                   ("CTC kernel", ("ctc_",)))
 
 
-def profile_train_steps(trainer, n=3):
+# DeepSpeech2's step: cuDNN's recurrence (its products in cutlass / cuBLAS
+# f32 SIMT GEMMs, TF32 off, with the CTC head's) and the CTC kernel
+DS2_PROFILE_GROUPS = (
+    ("products: cuDNN RNN and the CTC head (f32 SGEMM)",
+     ("sgemm", "gemmSN", "xmma_gemm", "splitKreduce")),
+    ("cuDNN RNN: cell elementwise", ("elemWiseRNNcell", "elementWise_bp",
+                                     "elementWise_fp")),
+    ("CTC kernel", ("ctc_",)))
+
+
+def profile_train_steps(trainer, n=3, kernel_groups=PROFILE_GROUPS):
     """torch.profiler over n train steps of `trainer` on the batch of the 8
     longest training utterances: device kernel time by group, device busy
     time against the steps' wall time."""
@@ -2000,7 +2052,7 @@ def profile_train_steps(trainer, n=3):
         if us <= 0:
             continue
         top.append((ev.key[:80], us / 1e3 / n))
-        name = next((g for g, keys in PROFILE_GROUPS
+        name = next((g for g, keys in kernel_groups
                      if any(k in ev.key for k in keys)),
                     "PyTorch kernels (subsampling, decoder, CTC head, "
                     "optimizer, copies)")
@@ -4400,6 +4452,408 @@ def phase_eff_export(dev, trainer, conf, wavs):
           "seconds": time.perf_counter() - t_phase})
 
 
+# --------------------------------------------------------------------------- #
+# phases 39-43: DeepSpeech2, and training as train.py runs it by default
+# --------------------------------------------------------------------------- #
+DS2_STREAMS = 8
+DS2_TRAIN_ATOL = 1e-3     # first step's grads, rel to their max (cuDNN RNN)
+ADAM_ATOL = 1e-6          # one fused Adam update vs the unfused one
+FBANK_ATOL = 1e-3         # device fbank vs host fbank, log mel energies
+AUG_STEPS = 8
+
+
+def all_kernels():
+    """Every row's wrapper by name (its .launches count forward and
+    backward calls)."""
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    return {"conformer_layer": layer_kernel("conformer"),
+            "chunk_layer": chunk_kernel("conformer"),
+            "conformer_layer_train": train_layer_kernel("conformer"),
+            "ctc_loss": C.ctc_loss, "rel_pos_attention": flash_kernel(),
+            "squeezeformer_layer": layer_kernel("squeezeformer"),
+            "squeezeformer_layer_train": train_layer_kernel("squeezeformer"),
+            "chunk_layer_sq": chunk_kernel("squeezeformer")}
+
+
+def reset_all_launches():
+    for fn in all_kernels().values():
+        fn.launches = 0
+        if hasattr(fn, "backward_launches"):
+            fn.backward_launches = 0
+
+
+def all_launches():
+    return {name: fn.launches for name, fn in all_kernels().items()}
+
+
+def check_no_launch(what):
+    got = {k: n for k, n in all_launches().items() if n}
+    check(not got, f"{what}: no kernel of the eight launched ({got})")
+
+
+def write_ds2_bundle(path, streaming=True, use_gru=False):
+    """A DS2 of configs/deepspeech2.yml's widths (5 x 1024, fbank 80,
+    V=4000), weights drawn from seed 0 (the CTC head x8, as the other
+    flagships), written by the port's exporter (infer/bundle.py), CMVN
+    from the example bundle → (vocab, parameter count)."""
+    from masr_tpu_torch.infer.bundle import save_inference_bundle
+    from masr_tpu_torch.models.registry import build_model
+    from masr_tpu_torch.models.weights import (seeded_state_dict,
+                                               to_flax_variables)
+    with open(os.path.join(TINY_BUNDLE, "inference.json"),
+              encoding="utf-8") as f:
+        tiny = json.load(f)
+    enc = dict(DS2_ENCODER, use_gru=use_gru)
+    model = build_model("deepspeech2", 80, VOCAB, streaming=streaming,
+                        encoder_conf=enc)
+    state = seeded_state_dict(model, seed=0)
+    state["ctc.ctc_lo.weight"] *= 8.0
+    vocab = train_vocab()
+    save_inference_bundle(path, "deepspeech2", streaming, 80, vocab,
+                          tiny["mean"], tiny["istd"], enc, {}, {},
+                          PREPROCESS, to_flax_variables(state))
+    return vocab, sum(p.numel() for p in model.parameters())
+
+
+def phase_ds2_flagship(dev, smi):
+    """DS2 at configs/deepspeech2.yml's widths (forward LSTMs), its
+    bidirectional twin (streaming off) and a GRU twin, each written by the
+    port's exporter: predict_batch of the 8 utterances on the card with no
+    kernel launch (the recurrence is cuDNN's), probs card vs CPU within
+    PROBS_ATOL and no argmax flip past ARGMAX_MARGIN; the wall time.
+    → (forward LSTM card predictor, utterances)."""
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    runs, out = [], None
+    for name, streaming, gru in (("lstm", True, False),
+                                 ("lstm_bidirect", False, False),
+                                 ("gru", True, True)):
+        path = os.path.join(WORK, f"ds2_{name}_bundle")
+        vocab, n_params = write_ds2_bundle(path, streaming, gru)
+        wavs = synthetic_utterances(vocab)
+        gpu = MASRPredictor(model_dir=path, device=dev)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        texts = gpu.predict_batch(wavs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_no_launch(f"ds2 {name} predict_batch")
+        t0 = time.perf_counter()
+        gpu.predict_batch(wavs)
+        wall2 = time.perf_counter() - t0
+        cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
+        err, compared, t_out = probs_card_vs_cpu(gpu, cpu, wavs)
+        runs.append({"model": name, "streaming": streaming,
+                     "params": n_params, "T_out": t_out,
+                     "probs_max_abs_err": err, "probs_atol": PROBS_ATOL,
+                     "argmax_frames_compared": compared,
+                     "texts_nonempty": sum(bool(t["text"]) for t in texts),
+                     "predict_batch_s": [wall, wall2]})
+        if name == "lstm":
+            out = (gpu, wavs, path)
+    emit({"phase": "ds2_flagship", "card": smi, "encoder": DS2_ENCODER,
+          "vocab": VOCAB, "utterances": len(out[1]),
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "runs": runs, "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_ds2_stream(dev, flagship, wavs, smi):
+    """The DS2's predict_stream (both frontends, whole and in 0.2 s
+    pieces, card vs CPU: phase_stream), an 8-stream engine (texts ==
+    predict_stream's by the top-2-margin rule, 4 slots on the CPU), no
+    kernel launch; the window latency at B=1 (p50, p90 over n=12)."""
+    t_phase = time.perf_counter()
+    path = write_stream_bundle(flagship.model_dir)
+    reset_all_launches()
+    phase_stream(dev, path, wavs[3], "deepspeech2")
+    phase_engine(dev, path, wavs, "deepspeech2", DS2_STREAMS)
+    window = window_latency(dev, path, wavs)
+    check_no_launch("ds2 streaming")
+    emit({"phase": "ds2_stream_times", "card": smi,
+          "predict_stream": {**window, "n": len(window["window_s"])},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def ds2_train_config(corpus, save_dir, max_epoch):
+    """configs/deepspeech2.yml as a dict at its widths (vocabulary 4000)
+    on phase 12's corpus at B=8, warmup_steps 8 so that the loss falls
+    within the run."""
+    conf = train_config(corpus, save_dir, max_epoch)
+    conf["encoder_conf"] = dict(DS2_ENCODER)
+    conf["decoder_conf"] = {}
+    conf.pop("model_conf")
+    conf["train_conf"] = dict(conf["train_conf"], accum_grad=1)
+    conf["use_model"] = "deepspeech2"
+    return conf
+
+
+def phase_ds2_train(dev, corpus, wavs, smi):
+    """MASRTrainer(dict config, device=cuda).train of the DS2 on phase 12's
+    corpus: 16 steps at B=8, each 1 + 1 row-4 launches and no other row,
+    the loss per label token falling; the first step card vs CPU (the loss
+    and every grad); step walls, audio s/s and the card's idle share over
+    three profiled steps; export f32 (the bundle's probs == the model's)
+    and the eval CLI (1 row-4 forward per batch)."""
+    from masr_tpu_torch import eval as eval_cli
+    from masr_tpu_torch.models.registry import build_model
+    from masr_tpu_torch.training import trainer as tr
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "ds2_train")
+    shutil.rmtree(root, ignore_errors=True)
+    save = os.path.join(root, "models")
+    names = [n for n, _ in build_model(
+        "deepspeech2", 80, VOCAB, encoder_conf=DS2_ENCODER).named_parameters()]
+    first = first_step_card_vs_cpu(ds2_train_config(corpus, root, 1), names)
+    conf = ds2_train_config(corpus, root, 1)
+    rows = []
+    reset_all_launches()
+    with clocked_train_steps(rows):
+        trainer = tr.MASRTrainer(conf, device=dev)
+        trainer.train(save_model_path=save)
+    run = all_launches()
+    check(len(rows) == TRAIN_STEPS_PER_EPOCH, f"{len(rows)} steps")
+    for i, r in enumerate(rows):
+        check(r["launches"] == [0, 0, 2, 1], f"ds2 step {i} launches "
+              f"{r['launches']}, want [0, 0, 2, 1] (train layer, its "
+              f"backward, CTC, its backward)")
+    others = {k: n for k, n in run.items() if k != "ctc_loss" and n}
+    check(not others, f"no other row launched in DS2 training ({others})")
+    per_token = np.asarray([r["loss"] / r["tokens"] for r in rows])
+    check(bool(np.isfinite(per_token).all()), "every step's loss finite")
+    head, tail = float(per_token[:4].mean()), float(per_token[-4:].mean())
+    check(tail < head, f"ds2 loss per label token falls: first 4 steps "
+          f"{head}, last 4 {tail}")
+    profile = profile_train_steps(trainer,
+                                  kernel_groups=DS2_PROFILE_GROUPS)
+    ckpt = os.path.join(save, "deepspeech2_streaming_fbank", "last_model")
+    path = trainer.export(save_model_path=os.path.join(root, "export"),
+                          resume_model=ckpt)
+    reset_all_launches()
+    r = bundle_vs_model(path, trainer.model, wavs, dev, "deepspeech2")
+    check(r["err"] <= PROBS_ATOL, f"f32 bundle probs vs the trained model "
+          f"{r['err']} <= {PROBS_ATOL}")
+    check_no_launch("the DS2 bundle's encode")
+    conf_path = config_file(conf, os.path.join(root, "ds2.yml"))
+    batches, orig = [], tr.eval_step
+
+    def counted(*a):
+        batches.append(1)
+        return orig(*a)
+
+    tr.eval_step = counted
+    try:
+        reset_all_launches()
+        cli = eval_cli.main(["--configs", conf_path, "--resume_model", ckpt,
+                             "--use_gpu", str(dev.type == "cuda")])
+        launches = all_launches()
+    finally:
+        tr.eval_step = orig
+    b = len(batches)
+    check(b > 0 and launches["ctc_loss"] == b and sum(launches.values())
+          == b, f"eval CLI launches {launches}: want {b} CTC forwards")
+    emit({"phase": "ds2_train", "card": smi, "steps": len(rows),
+          "batch": len(TRAIN_LENS), "launches_per_step": [0, 0, 2, 1],
+          "run_launches": run, "loss_per_token_first4": head,
+          "loss_per_token_last4": tail, **step_times(rows),
+          "first_step_card_vs_cpu": {
+              **{k: v for k, v in first.items() if k != "grad_rel_err"},
+              "grad_rel_err_max": max(first["grad_rel_err"].values()),
+              "grads_compared": len(first["grad_rel_err"]),
+              "gate": CPU_GRAD_RTOL},
+          "profile": profile, "export": {"bundle": path, "bytes": r["bytes"],
+                                         "probs_err_vs_model": r["err"]},
+          "eval_cli": {"batches": b, "cer": cli[0], "loss": cli[1]},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def half_corpus(corpus, root):
+    """Every other training utterance of phase 12's corpus (64: 8 steps of
+    8), its test set, vocabulary and CMVN; the manifests also written as
+    binary records (data/binary.py); synthetic noise clips beside them and
+    configs/augmentation.json with its noise manifest pointed at them."""
+    from masr_tpu_torch.audio.io import write_wave
+    from masr_tpu_torch.data.binary import create_manifest_binary
+    os.makedirs(root, exist_ok=True)
+    out = dict(corpus)
+    for split, step in (("train", 2), ("test", 1)):
+        with open(corpus[split], encoding="utf-8") as f:
+            lines = [l for l in f if l.strip()][::step]
+        out[split] = os.path.join(root, f"manifest.{split}")
+        with open(out[split], "w", encoding="utf-8") as f:
+            f.writelines(lines)
+    create_manifest_binary(out["train"], out["test"])
+    rs = np.random.RandomState(9)
+    noise = []
+    for i, seconds in enumerate((1.5, 4.0, 13.0)):
+        wav = (0.1 * rs.standard_normal(int(16000 * seconds))).astype(
+            np.float32)
+        path = os.path.join(os.path.dirname(corpus["train"]),
+                            f"noise_{i}.wav")
+        write_wave(path, wav, 16000)
+        noise.append(json.dumps({"audio_filepath": path, "text": "",
+                                 "duration": seconds}) + "\n")
+    out["noise"] = os.path.join(os.path.dirname(corpus["train"]),
+                                "manifest.noise")
+    with open(out["noise"], "w", encoding="utf-8") as f:
+        f.writelines(noise)
+    with open(os.path.join(REPO, "configs", "augmentation.json"),
+              encoding="utf-8") as f:
+        items = json.load(f)
+    for item in items:
+        if item["type"] == "noise":
+            item["params"]["noise_manifest_path"] = out["noise"]
+    out["augment"] = os.path.join(root, "augmentation.json")
+    with open(out["augment"], "w", encoding="utf-8") as f:
+        json.dump(items, f)
+    return out
+
+
+def run_aug_train(dev, conf, corpus, root, what):
+    """The flagship trained AUG_STEPS steps (one epoch of the half corpus)
+    with the augmentation config; every step 12 + 12 row-3 and 1 + 1 row-4
+    launches, finite losses. → (rows, trainer)."""
+    from masr_tpu_torch.training.trainer import MASRTrainer
+    rows = []
+    reset_train_launches()
+    with clocked_train_steps(rows):
+        trainer = MASRTrainer(conf, device=dev)
+        trainer.train(save_model_path=os.path.join(root, "models"),
+                      augment_conf_path=corpus["augment"])
+    n_layers = FLAGSHIP_ENCODER["num_blocks"]
+    step = [2 * n_layers, n_layers, 2, 1]
+    check(len(rows) == AUG_STEPS, f"{what}: {len(rows)} steps")
+    for i, r in enumerate(rows):
+        check(r["launches"] == step, f"{what} step {i} launches "
+              f"{r['launches']}, want {step}")
+        check(r["finite"] and np.isfinite(r["loss"]),
+              f"{what} step {i} loss finite")
+    return rows, trainer
+
+
+def phase_train_aug(dev, corpus, phase12_rows, smi):
+    """The flagship Conformer trained 8 steps with configs/augmentation.json
+    (noise p 0.5 from synthetic noise beside phase 12's corpus, speed,
+    shift, volume, SpecAugment, SpecSub): 12 + 12 row-3 and 1 + 1 row-4
+    launches per step, finite losses; the step wall median beside phase
+    13's (phase 12's run, and its first epoch, whose sorted batches span
+    the lengths as these do), and the loader's wait before each step. →
+    the half corpus."""
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "train_aug")
+    shutil.rmtree(root, ignore_errors=True)
+    half = half_corpus(corpus, os.path.join(root, "corpus"))
+    conf = train_config(half, root, 1)
+    rows, trainer = run_aug_train(dev, conf, half, root, "train_aug")
+    pipe = trainer._setup_dataloader(True, half["augment"])[0]
+    augmentors = [type(a).__name__ for a, _ in
+                  pipe._augmentation_pipeline._audio_augmentors
+                  + pipe._augmentation_pipeline._feature_augmentors]
+    check(len(augmentors) == 6, f"six augmentors built: {augmentors}")
+    waits = [r["wait_s"] for r in rows[1:]]
+    emit({"phase": "train_aug", "card": smi, "steps": len(rows),
+          "augmentors": augmentors, **step_times(rows),
+          "phase13_step_s_median": step_times(phase12_rows)["step_s_median"],
+          "phase13_epoch1_step_s_median": step_times(
+              phase12_rows[:TRAIN_STEPS_PER_EPOCH])["step_s_median"],
+          "loader_wait_s": waits,
+          "loader_wait_s_median": float(np.median(waits)),
+          "losses": [r["loss"] for r in rows],
+          "seconds": time.perf_counter() - t_phase})
+    return half
+
+
+def fused_adam_vs_unfused(dev, trainer):
+    """One update of the fused Adam (optimizer/fused.py, clip inside) and
+    of torch's Adam after clip_grad_norm_, from the same flagship weights
+    and seeded grads (some past the clip) on the card → max abs difference
+    of the parameters, and each optimizer's step time (CUDA events, 10
+    steps)."""
+    from masr_tpu_torch.optimizer.fused import FusedAdam
+    params = [p.detach().clone() for p in trainer.state.params]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 0.01
+             for p in params]
+    out, ms = {}, {}
+    for name in ("fused", "unfused"):
+        ps = [torch.nn.Parameter(p.clone()) for p in params]
+        for p, g in zip(ps, grads):
+            p.grad = g.clone()
+        if name == "fused":
+            opt = FusedAdam(ps, lr=1e-3, weight_decay=1e-6, grad_clip=5.0)
+        else:
+            opt = torch.optim.Adam(ps, lr=1e-3, weight_decay=1e-6)
+
+        def step():
+            if name == "unfused":
+                torch.nn.utils.clip_grad_norm_(ps, 5.0)
+            opt.step()
+
+        step()
+        out[name] = [p.detach().clone() for p in ps]
+        ms[name] = cuda_ms(step, iters=10)
+    err = max(float((a - b).abs().max())
+              for a, b in zip(out["fused"], out["unfused"]))
+    return err, ms, float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads])))
+
+
+def phase_train_device_frontend(dev, half, smi):
+    """The flagship with dataset_conf.on_device_frontend, optimizer_conf
+    fused and manifest_type binary, trained 8 steps with the augmentation
+    config (its specaug and specsub params drive the device frontend):
+    the device fbank at dither 0 vs the host fbank on training utterances
+    (FBANK_ATOL); one fused Adam update vs the unfused one on the card
+    (ADAM_ATOL); the same launches per step as train_aug; the step wall
+    median."""
+    from masr_tpu_torch.audio import AudioSegment
+    from masr_tpu_torch.data.audio_featurizer import AudioFeaturizer
+    from masr_tpu_torch.ops.fbank import fbank_torch
+    from masr_tpu_torch.optimizer.fused import FusedAdam
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "train_device_frontend")
+    shutil.rmtree(root, ignore_errors=True)
+    feat = AudioFeaturizer(**PREPROCESS)
+    with open(half["test"], encoding="utf-8") as f:
+        paths = [json.loads(l)["audio_filepath"] for l in f if l.strip()]
+    fb_err = 0.0
+    for path in paths:
+        host = feat.featurize(AudioSegment.from_file(path))
+        wav = feat.prepare_waveform(AudioSegment.from_file(path))
+        dev_feats, n = fbank_torch(torch.from_numpy(wav).to(dev)[None],
+                                   num_mel_bins=80, dither=0.0)
+        check(int(n[0]) == host.shape[0], "device fbank frames == host's")
+        fb_err = max(fb_err, float(np.abs(
+            dev_feats[0].cpu().numpy() - host).max()))
+    check(fb_err <= FBANK_ATOL, f"device fbank vs host {fb_err} <= "
+          f"{FBANK_ATOL} ({len(paths)} utterances)")
+    conf = train_config(half, root, 1)
+    conf["dataset_conf"] = dict(conf["dataset_conf"], manifest_type="binary",
+                                on_device_frontend=True)
+    conf["optimizer_conf"] = dict(conf["optimizer_conf"], fused=True)
+    rows, trainer = run_aug_train(dev, conf, half, root,
+                                  "train_device_frontend")
+    check(isinstance(trainer.state.optimizer, FusedAdam)
+          and trainer.frontend is not None, "fused Adam and the device "
+          "frontend in the trainer")
+    check(trainer._setup_dataloader(True)[0]._reader is not None,
+          "the training set reads the binary manifest")
+    adam_err, adam_ms, g_norm = fused_adam_vs_unfused(dev, trainer)
+    check(adam_err <= ADAM_ATOL, f"fused Adam vs unfused {adam_err} <= "
+          f"{ADAM_ATOL}")
+    emit({"phase": "train_device_frontend", "card": smi,
+          "steps": len(rows), **step_times(rows),
+          "loader_wait_s_median": float(np.median(
+              [r["wait_s"] for r in rows[1:]])),
+          "fbank_max_abs_err": fb_err, "fbank_atol": FBANK_ATOL,
+          "fbank_utterances": len(paths),
+          "fused_adam": {"max_abs_err": adam_err, "atol": ADAM_ATOL,
+                         "grad_norm": g_norm, "clip": 5.0,
+                         "step_ms": adam_ms},
+          "losses": [r["loss"] for r in rows],
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4482,6 +4936,12 @@ def main():
     phase_eff_stream(dev, eff_gpu, wavs, smi)
     eff_trainer, eff_conf = phase_eff_train(dev, corpus, smi)
     phase_eff_export(dev, eff_trainer, eff_conf, wavs)
+
+    ds2_gpu, ds2_wavs, _ = phase_ds2_flagship(dev, smi)
+    phase_ds2_stream(dev, ds2_gpu, ds2_wavs, smi)
+    phase_ds2_train(dev, corpus, ds2_wavs, smi)
+    half = phase_train_aug(dev, corpus, rows, smi)
+    phase_train_device_frontend(dev, half, smi)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{

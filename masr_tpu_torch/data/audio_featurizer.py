@@ -1,8 +1,9 @@
 """Audio feature orchestration (port of masr_tpu/data/audio_featurizer.py:
-13-49 and :65-77, the host path).
+13-77, the host path and the host half of the on-device frontend).
 
 Per utterance: resample to the target rate → dB-normalize to target_dB →
-fbank/mfcc at int16 scale | linear at float scale.
+fbank/mfcc at int16 scale | linear at float scale; `prepare_waveform` stops
+before the features.
 """
 import numpy as np
 
@@ -46,6 +47,19 @@ class AudioFeaturizer(object):
         """Featurize a raw float waveform without an AudioSegment."""
         from masr_tpu_torch.audio import AudioSegment
         return self.featurize(AudioSegment(samples, sample_rate))
+
+    def prepare_waveform(self, audio_segment):
+        """The host half of the on-device frontend: resample, dB-normalize
+        and scale to int16 (truncating), no features; fbank, dither and
+        SpecAugment run on the device (ops/specaug.py). → float32 samples
+        at int16 scale."""
+        if self._feature_method not in ("fbank", "mfcc"):
+            raise ValueError("on-device frontend supports fbank/mfcc only")
+        if audio_segment.sample_rate != self._target_sample_rate:
+            audio_segment.resample(self._target_sample_rate)
+        if self._use_dB_normalization:
+            audio_segment.normalize(target_db=self._target_dB)
+        return audio_segment.to("int16").astype(np.float32)
 
     @property
     def feature_dim(self):

@@ -1,6 +1,8 @@
 """Prefetching data loader (port of masr_tpu/data/loader.py:17): worker
 threads featurize utterances (numpy FFTs and products release the GIL) and
-a bounded queue keeps `prefetch` collated batches ready."""
+a bounded queue keeps `prefetch` collated batches ready. `collate`
+(items, rng) → batch replaces collate_fn (the on-device frontend's
+collate_waveforms)."""
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -12,13 +14,13 @@ from masr_tpu_torch.data.collate import collate_fn
 
 class DataLoader(object):
     def __init__(self, dataset, batch_sampler, num_workers=4, prefetch=4,
-                 feature_bucket=16, label_bucket=8, seed=0):
+                 feature_bucket=16, label_bucket=8, collate=None, seed=0):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
-        self.feature_bucket = feature_bucket
-        self.label_bucket = label_bucket
+        self.collate = collate or (lambda items, rng: collate_fn(
+            items, feature_bucket, label_bucket, rng=rng))
         self._rng = np.random.RandomState(seed)
 
     def __len__(self):
@@ -36,8 +38,7 @@ class DataLoader(object):
                             break
                         items = list(pool.map(self.dataset.__getitem__,
                                               batch_idx))
-                        q.put(collate_fn(items, self.feature_bucket,
-                                         self.label_bucket, rng=self._rng))
+                        q.put(self.collate(items, self._rng))
                 except Exception as e:   # surface worker errors
                     q.put(e)
                 finally:

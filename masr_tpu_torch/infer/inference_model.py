@@ -4,9 +4,11 @@ full context, attention rescoring, and the streaming chunk steps with the
 host or the sample-domain fused frontend, with the rescoring rows).
 
 The model is any family of models/registry.py (the Conformer, the
-Squeezeformer or the Efficient-Conformer, whose chunk of 16 frames emits
-8): it gives `get_encoder_out`, `get_encoder_out_chunk` and
-`encoder.init_cache`. Full-context inputs are padded to a multiple of
+Squeezeformer, the Efficient-Conformer, whose chunk of 16 frames emits
+8, or DeepSpeech2): it gives `get_encoder_out` and `get_encoder_out_chunk`;
+the stream state is `encoder.init_cache`, or for DeepSpeech2 the model's
+`init_cache`, its (L, B, H) h and c stacks (masr_tpu/infer/
+inference_model.py:237-245). Full-context inputs are padded to a multiple of
 `length_bucket` frames, as masr_tpu does (there it bounds the compiled
 programs; here it keeps the same frames, hence the same padding rows, as
 the reference). The stream state is a dict of device tensors that every
@@ -55,6 +57,7 @@ class InferencePredictor(object):
         self.device = resolve_device(device)
         model, self.meta, self.vocab_list = load_inference_bundle(model_dir)
         self.model = model.to(self.device)
+        self.use_model = self.meta["use_model"]
         self.length_bucket = length_bucket
         self.decoding_chunk_size = decoding_chunk_size
         self.num_decoding_left_chunks = num_decoding_left_chunks
@@ -120,8 +123,12 @@ class InferencePredictor(object):
 
     # ------------------------------------------------------------------ #
     def init_stream_state(self, batch=1):
-        self.state = self.model.encoder.init_cache(
-            batch=batch, cache_size=self.cache_size, device=self.device)
+        if self.use_model == "deepspeech2":
+            self.state = self.model.init_cache(batch=batch,
+                                               device=self.device)
+        else:
+            self.state = self.model.encoder.init_cache(
+                batch=batch, cache_size=self.cache_size, device=self.device)
 
     def _features(self, x_chunk):
         return torch.as_tensor(np.asarray(x_chunk, np.float32),

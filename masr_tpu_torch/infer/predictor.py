@@ -22,7 +22,9 @@ Decoders, as masr_tpu resolves them (`decoder`, `decoder_configs`):
   steps it after every chunk on the chunk step's probs, on the device,
   reading back only the best hypothesis.
 A beam decoder that cannot be built falls back to greedy with a warning,
-as masr_tpu's does.
+as masr_tpu's does; DeepSpeech2, which has no attention decoder, takes
+ctc_beam_search for attention_rescoring, with a warning, offline and
+streaming (masr_tpu/infer/predictor.py:102-105).
 
 Text post-processing, in masr_tpu's order and conditions: punctuation
 (infer/punctuation.py; the rule tier unless pun_model_dir names a plugin
@@ -132,6 +134,11 @@ class MASRPredictor(object):
                 logger.warning(f"beam search unavailable ({e}); falling "
                                "back to greedy decoding")
                 self.decoder = "ctc_greedy"
+        if decoder == "attention_rescoring" \
+                and meta["use_model"] == "deepspeech2":
+            logger.warning("deepspeech2 has no attention decoder; "
+                           "attention_rescoring falls back to ctc_beam_search")
+            self.decoder = "ctc_beam_search"
         self.pun_predictor = None
         if use_pun:
             try:

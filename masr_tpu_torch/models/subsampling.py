@@ -2,9 +2,10 @@
 :140-176, with the mask-free streaming call).
 
 Ported: Conv2dSubsampling4 ("conv2d"), the Conformer flagship's, the
-Squeezeformer's DepthwiseConv2dSubsampling4, and Conv2dSubsampling2
+Squeezeformer's DepthwiseConv2dSubsampling4, Conv2dSubsampling2
 ("conv2d2", masr_tpu/models/subsampling.py:180-208), which only the
-Efficient-Conformer offers. All compute in torch's NCHW with upstream
+Efficient-Conformer offers, and DeepSpeech2's Conv2dSubsampling4Pure
+(:210-237). All compute in torch's NCHW with upstream
 MASR's channel-major flatten, so upstream weights apply directly (the
 weight map permutes the flax linear).
 """
@@ -96,11 +97,37 @@ class DepthwiseConv2dSubsampling4(nn.Module):
         return x, pos_emb, x_mask
 
 
+class Conv2dSubsampling4Pure(nn.Module):
+    """DeepSpeech2's conv entry: two (3x3, stride 2) VALID convs with ReLU,
+    no linear and no positional encoding; the output is the flattened conv
+    features (B, T', odim·F'), channel-major as upstream's."""
+
+    def __init__(self, idim: int, odim: int = 32):
+        super().__init__()
+        self.conv = nn.Sequential(nn.Conv2d(1, odim, 3, 2), nn.ReLU(),
+                                  nn.Conv2d(odim, odim, 3, 2), nn.ReLU())
+        self.output_dim = odim * (((idim - 1) // 2 - 1) // 2)
+
+    def forward(self, x, x_len=None):
+        """x (B, T, F), x_len (B,) or None → (B, T', odim·F'), lengths
+        ((len - 3) // 2 + 1 twice, masr_tpu's formula) or None."""
+        x = self.conv(x[:, None])                       # (B, C, T', F')
+        B, C, T, F = x.shape
+        x = x.transpose(1, 2).reshape(B, T, C * F)
+        if x_len is not None:
+            x_len = torch.div(x_len - 3, 2, rounding_mode="floor") + 1
+            x_len = torch.div(x_len - 3, 2, rounding_mode="floor") + 1
+        return x, x_len
+
+
 def subsampling_class(input_layer: str, family: str = "conformer"):
     """The subsampling of `input_layer` for a model family: conv2d for
-    every family, conv2d2 for the Efficient-Conformer alone (its table in
-    masr_tpu/models/efficient_conformer.py:365-366)."""
-    table = {"conv2d": Conv2dSubsampling4}
+    every family of the attention encoders, conv2d2 for the
+    Efficient-Conformer alone (its table in
+    masr_tpu/models/efficient_conformer.py:365-366); DeepSpeech2's conv2d
+    is the pure conv entry (masr_tpu/models/deepspeech2.py:159)."""
+    table = {"conv2d": Conv2dSubsampling4Pure if family == "deepspeech2"
+             else Conv2dSubsampling4}
     if family == "efficient_conformer":
         table["conv2d2"] = Conv2dSubsampling2
     if input_layer not in table:

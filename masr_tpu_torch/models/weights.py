@@ -17,6 +17,18 @@ what masr_tpu's converter drops (masr_tpu/models/convert.py:372-418): the
 Efficient-Conformer stride layers' unused `concat_linear` and BatchNorm's
 num_batches_tracked.
 
+DeepSpeech2 has a map of its own (`_ds2_from_flax`, `_ds2_to_flax`), the
+inverse of masr_tpu/models/convert.py:187-252 `convert_deepspeech2`:
+upstream's fused gate rows are [i, f, g, o] (LSTM) and [r, z, n] (GRU);
+flax's LSTM has its biases on the h-gates only (b_ih = 0, b_hh = flax's
+h* biases; back, flax's = b_ih + b_hh); flax's GRU has biases on ir, iz,
+in and hn (b_ir, b_iz, b_in = flax's ir, iz, in; b_hr = b_hz = 0; b_hn =
+flax's hn; back, ir = b_ir + b_hr and iz = b_iz + b_hz); the first layer's
+weight_ih columns are permuted between flax's f-major conv flatten and
+upstream's c-major one. An upstream DS2 state_dict may nest the RNN one
+level deeper (`rnns.{i}.rnn.rnn.`) and name the head `decoder.ctc_lo`, as
+the converter accepts.
+
 Attention caches: masr_tpu keeps chronological row j (0 = oldest) of a
 slot at row j of a right-aligned (..., B, h, C, 2·d_k) array, or, in its
 batch engine, at row wptr + j of a mirrored (B, h, 2·C, >= 2·d_k) TPU ring
@@ -133,6 +145,143 @@ def _to_flax(kind, w):
     return w
 
 
+# ---------------------------------------------------------------------- #
+# DeepSpeech2
+# ---------------------------------------------------------------------- #
+_LSTM_GATES, _GRU_GATES = "ifgo", "rzn"
+
+
+def _is_ds2_flax(params):
+    return "rnn_0" in params.get("encoder", {})
+
+
+def _is_ds2_state(state_dict):
+    return "encoder.rnns.0.rnn.weight_ih_l0" in state_dict
+
+
+def _to_c_major(k, channels):
+    """A first-layer flax input kernel (F'·C, H), f-major rows → the same
+    rows c-major (C·F', H)."""
+    H = k.shape[1]
+    return np.transpose(k.reshape(-1, channels, H), (1, 0, 2)).reshape(-1, H)
+
+
+def _to_f_major(k, channels):
+    """The inverse of _to_c_major."""
+    H = k.shape[1]
+    return np.transpose(k.reshape(channels, -1, H), (1, 0, 2)).reshape(-1, H)
+
+
+def _ds2_from_flax(params):
+    """masr_tpu's DeepSpeech2 params → {upstream name: f32 ndarray}."""
+    f32 = lambda a: np.asarray(a, np.float32)    # noqa: E731
+    enc = params["encoder"]
+    out = {}
+    for i, conv in ((0, "conv1"), (2, "conv2")):
+        out[f"encoder.conv.conv.{i}.weight"] = np.transpose(
+            f32(enc["conv"][conv]["kernel"]), (3, 2, 0, 1))
+        out[f"encoder.conv.conv.{i}.bias"] = f32(enc["conv"][conv]["bias"])
+    channels = out["encoder.conv.conv.0.weight"].shape[0]
+    i = 0
+    while f"rnn_{i}" in enc:
+        layer, base = enc[f"rnn_{i}"], f"encoder.rnns.{i}."
+        for cell_name, rev in (("cell_fw", ""), ("cell_bw", "_reverse")):
+            if cell_name not in layer:
+                continue
+            cell = layer[cell_name]
+            gates = _LSTM_GATES if "ii" in cell else _GRU_GATES
+            H = f32(cell["h" + gates[0]]["kernel"]).shape[0]
+            w_ih = [f32(cell["i" + g]["kernel"]) for g in gates]
+            if i == 0:
+                w_ih = [_to_c_major(k, channels) for k in w_ih]
+            rnn = base + "rnn."
+            out[rnn + "weight_ih_l0" + rev] = np.concatenate(w_ih, 1).T
+            out[rnn + "weight_hh_l0" + rev] = np.concatenate(
+                [f32(cell["h" + g]["kernel"]) for g in gates], 1).T
+            zero = np.zeros(H, np.float32)
+            if gates == _LSTM_GATES:
+                b_ih = [zero] * 4
+                b_hh = [f32(cell["h" + g]["bias"]) for g in gates]
+            else:
+                b_ih = [f32(cell["i" + g]["bias"]) for g in gates]
+                b_hh = [zero, zero, f32(cell["hn"]["bias"])]
+            out[rnn + "bias_ih_l0" + rev] = np.concatenate(b_ih)
+            out[rnn + "bias_hh_l0" + rev] = np.concatenate(b_hh)
+        out[base + "layer_norm.weight"] = f32(layer["layer_norm"]["scale"])
+        out[base + "layer_norm.bias"] = f32(layer["layer_norm"]["bias"])
+        i += 1
+    out["ctc.ctc_lo.weight"] = f32(params["ctc"]["ctc_lo"]["kernel"]).T
+    out["ctc.ctc_lo.bias"] = f32(params["ctc"]["ctc_lo"]["bias"])
+    return out
+
+
+def _ds2_to_flax(state_dict):
+    """{upstream name: tensor} of a DeepSpeech2 → masr_tpu's params tree
+    of f32 ndarrays, in masr_tpu's module order."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32)
+          for k, v in state_dict.items()}
+    conv = {}
+    for i, name in ((0, "conv1"), (2, "conv2")):
+        conv[name] = {
+            "bias": sd[f"encoder.conv.conv.{i}.bias"],
+            "kernel": np.ascontiguousarray(np.transpose(
+                sd[f"encoder.conv.conv.{i}.weight"], (2, 3, 1, 0)))}
+    channels = sd["encoder.conv.conv.0.weight"].shape[0]
+    enc = {"conv": conv}
+    i = 0
+    while f"encoder.rnns.{i}.rnn.weight_ih_l0" in sd:
+        base = f"encoder.rnns.{i}."
+        layer = {}
+        for cell_name, rev in (("cell_bw", "_reverse"), ("cell_fw", "")):
+            rnn = base + "rnn."
+            if rnn + "weight_ih_l0" + rev not in sd:
+                continue
+            w_ih, w_hh = (sd[rnn + f"weight_{w}_l0" + rev]
+                          for w in ("ih", "hh"))
+            b_ih, b_hh = (sd[rnn + f"bias_{w}_l0" + rev]
+                          for w in ("ih", "hh"))
+            H = w_hh.shape[1]
+            gates = _LSTM_GATES if w_hh.shape[0] == 4 * H else _GRU_GATES
+            cell = {}
+            for j, g in enumerate(gates):
+                rows = slice(j * H, (j + 1) * H)
+                k_i = np.ascontiguousarray(w_ih[rows].T)
+                if i == 0:
+                    k_i = np.ascontiguousarray(_to_f_major(k_i, channels))
+                k_h = np.ascontiguousarray(w_hh[rows].T)
+                if gates == _LSTM_GATES:
+                    cell["i" + g] = {"kernel": k_i}
+                    cell["h" + g] = {"bias": b_ih[rows] + b_hh[rows],
+                                     "kernel": k_h}
+                elif g == "n":
+                    cell["in"] = {"bias": b_ih[rows], "kernel": k_i}
+                    cell["hn"] = {"bias": b_hh[rows], "kernel": k_h}
+                else:
+                    cell["i" + g] = {"bias": b_ih[rows] + b_hh[rows],
+                                     "kernel": k_i}
+                    cell["h" + g] = {"kernel": k_h}
+            layer[cell_name] = dict(sorted(cell.items()))
+        layer["layer_norm"] = {"bias": sd[base + "layer_norm.bias"],
+                               "scale": sd[base + "layer_norm.weight"]}
+        enc[f"rnn_{i}"] = layer
+        i += 1
+    return {"ctc": {"ctc_lo": {
+        "bias": sd["ctc.ctc_lo.bias"],
+        "kernel": np.ascontiguousarray(sd["ctc.ctc_lo.weight"].T)}},
+        "encoder": enc}
+
+
+def _ds2_upstream_names(state_dict):
+    """Upstream DS2 names as masr_tpu's converter accepts them → the
+    port's: `rnns.{i}.rnn.rnn.` → `rnns.{i}.rnn.`, `decoder.ctc_lo.` →
+    `ctc.ctc_lo.`."""
+    out = {}
+    for k, v in state_dict.items():
+        k = re.sub(r"^(encoder\.rnns\.\d+\.rnn\.)rnn\.", r"\1", k)
+        out[re.sub(r"^decoder\.ctc_lo\.", "ctc.ctc_lo.", k)] = v
+    return out
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -148,6 +297,9 @@ def from_flax_variables(variables):
             not set(variables) <= {"params", "batch_stats"}:
         raise ValueError(f"expected a 'params' collection and optionally "
                          f"'batch_stats', got {sorted(variables)}")
+    if _is_ds2_flax(variables["params"]):
+        return {k: torch.from_numpy(np.array(w, order="C")) for k, w in
+                _ds2_from_flax(variables["params"]).items()}
     state = {}
     for collection, rules in (("params", _NAME_RULES),
                               ("batch_stats", _STAT_RULES + _NAME_RULES)):
@@ -162,6 +314,8 @@ def to_flax_variables(state_dict):
     """state_dict {upstream name: tensor} → {'params': flax tree of f32
     numpy arrays}, and 'batch_stats' when the state holds BatchNorm
     running statistics (num_batches_tracked is dropped)."""
+    if _is_ds2_state(state_dict):
+        return {"params": _ds2_to_flax(state_dict)}
     squeeze = "encoder.preln.weight" in state_dict
     out = {}
     for name, w in state_dict.items():
@@ -187,9 +341,10 @@ def load_upstream_state_dict(model, state_dict):
     port's `model` (upstream names are the port's): `.concat_linear.`
     entries and num_batches_tracked are dropped; every other entry must
     fit the model and every parameter and persistent buffer but
-    num_batches_tracked must be given, or it raises. → model."""
+    num_batches_tracked must be given, or it raises; a DeepSpeech2's names
+    are first read as masr_tpu's converter reads them. → model."""
     state = {k: torch.as_tensor(np.asarray(v, np.float32))
-             for k, v in state_dict.items()
+             for k, v in _ds2_upstream_names(state_dict).items()
              if ".concat_linear." not in k
              and not k.endswith("num_batches_tracked")}
     missing, unexpected = model.load_state_dict(state, strict=False)
@@ -214,6 +369,10 @@ def grads_to_flax_variables(named_params):
 # norm module's name holds "norm", the Squeezeformer's `preln` aside) and
 # the Squeezeformer's AdaptiveScale scales
 _ONES = re.compile(r"(norm\w*|^encoder\.preln)\.weight$|\.ada_scale$")
+# DeepSpeech2's fused gate matrices and biases (torch.nn.LSTM / GRU names)
+_RNN_IH = re.compile(r"\.rnn\.weight_ih_l0(_reverse)?$")
+_RNN_HH = re.compile(r"\.rnn\.weight_hh_l0(_reverse)?$")
+_RNN_BIAS = re.compile(r"\.rnn\.bias_(ih|hh)_l0(_reverse)?$")
 
 
 @torch.no_grad()
@@ -223,10 +382,22 @@ def flax_like_init(model, generator):
     lecun_normal (a normal truncated at ±2σ, σ = 1/√fan_in / 0.8796), biases
     0, LayerNorm and BatchNorm scales and AdaptiveScale scales 1, the
     AdaptiveScale shifts 0, embeddings N(0, 1/d), pos_bias_u/v
-    xavier_uniform; drawn from `generator` (CPU)."""
+    xavier_uniform, and DeepSpeech2's recurrent kernels orthogonal per
+    gate (flax's OptimizedLSTMCell and GRUCell; their input kernels
+    lecun_normal per gate, whose fan_in is the row length); drawn from
+    `generator` (CPU)."""
     for name, p in model.named_parameters():
         t = torch.empty(p.shape, dtype=torch.float32)
-        if name.endswith("pos_bias_u") or name.endswith("pos_bias_v"):
+        if _RNN_HH.search(name):
+            H = p.shape[1]
+            for g in range(p.shape[0] // H):
+                torch.nn.init.orthogonal_(t[g * H:(g + 1) * H],
+                                          generator=generator)
+        elif _RNN_IH.search(name):
+            std = (1.0 / np.sqrt(p.shape[1])) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                        generator=generator)
+        elif name.endswith("pos_bias_u") or name.endswith("pos_bias_v"):
             torch.nn.init.xavier_uniform_(t, generator=generator)
         elif _ONES.search(name):
             t.fill_(1.0)
@@ -242,12 +413,20 @@ def flax_like_init(model, generator):
         p.copy_(t)
 
 
+def _lstm(model):
+    """True for a DeepSpeech2 of LSTM layers."""
+    return isinstance(model.encoder.rnns[0].rnn, torch.nn.LSTM)
+
+
 def seeded_state_dict(model, seed):
     """Random weights for `model`, drawn with numpy from `seed`: weights
     U(±1/√fan_in) as torch's default init, norm and adaptive scales
     1 + N(0, 0.1²), BatchNorm running variances U(0.5, 1.5), biases, means
     and the other vectors N(0, 0.05²) (non-zero, so padding semantics
-    show); BatchNorm's num_batches_tracked stays as it is. → state_dict of
+    show); BatchNorm's num_batches_tracked stays as it is. DeepSpeech2's
+    gate matrices are U(±1/√H) as torch's RNN init, and the biases that
+    flax's cells lack are 0 (an LSTM's bias_ih, a GRU's b_hr and b_hz), so
+    that the state is one masr_tpu's tree holds exactly. → state_dict of
     tensors (f32 but for that counter)."""
     rs = np.random.RandomState(seed)
     state = {}
@@ -256,7 +435,17 @@ def seeded_state_dict(model, seed):
         if name.endswith("num_batches_tracked"):
             state[name] = p.clone()
             continue
-        if name.endswith("running_var"):
+        if _RNN_IH.search(name) or _RNN_HH.search(name):
+            bound = 1.0 / np.sqrt(model.encoder.rnn_size)
+            w = rs.uniform(-bound, bound, shape)
+        elif _RNN_BIAS.search(name):
+            w = 0.05 * rs.standard_normal(shape)
+            kind = _RNN_BIAS.search(name).group(1)
+            if _lstm(model) and kind == "ih":
+                w[:] = 0.0
+            elif not _lstm(model) and kind == "hh":
+                w[: 2 * model.encoder.rnn_size] = 0.0
+        elif name.endswith("running_var"):
             w = rs.uniform(0.5, 1.5, shape)
         elif ("norm" in name and name.endswith(".weight")) or \
                 name.endswith("ada_scale"):

@@ -7,7 +7,8 @@ A schedule is a pure step → lr function of the optimizer-update count
 torch LambdaLR, stepped once per optimizer update. Adam's weight_decay is
 torch's L2, added to the (clipped) grad before the moments: the same as
 masr_tpu's optax.add_decayed_weights → adam. Gradient clipping and
-accum_grad live in training/train_state.py.
+accum_grad live in training/train_state.py, but for optimizer_conf.fused
+(Adam and AdamW, optimizer/fused.py), which clips in its own update.
 """
 import math
 
@@ -77,22 +78,24 @@ def build_lr_schedule(scheduler, learning_rate, scheduler_conf):
     raise ValueError(f"unsupported scheduler: {scheduler}")
 
 
-def build_optimizer(params, optimizer_conf):
+def build_optimizer(params, optimizer_conf, grad_clip=None):
     """→ (torch optimizer, LambdaLR, schedule) for optimizer_conf (the
     configs' optimizer_conf: optimizer, learning_rate, weight_decay,
-    scheduler, scheduler_conf). Adam (L2 weight decay), AdamW, SGD."""
+    scheduler, scheduler_conf, fused). Adam (L2 weight decay), AdamW, SGD;
+    with fused, Adam and AdamW are optimizer/fused.py's FusedAdam, which
+    clips by grad_clip itself (`clips_grads`)."""
     conf = dict(optimizer_conf)
     name = conf.get("optimizer", "Adam")
     lr = float(conf.get("learning_rate", 1e-3))
     wd = float(conf.get("weight_decay", 0.0))
-    if conf.get("fused", False):
-        raise NotImplementedError(
-            "optimizer_conf.fused (masr_tpu/optimizer/fused.py) is not "
-            "ported (ROADMAP.md module item 7)")
     schedule = build_lr_schedule(conf.get("scheduler", "WarmupLR"), lr,
                                  conf.get("scheduler_conf"))
     params = list(params)
-    if name == "Adam":
+    if name in ("Adam", "AdamW") and conf.get("fused", False):
+        from masr_tpu_torch.optimizer.fused import FusedAdam
+        opt = FusedAdam(params, lr=lr, weight_decay=wd,
+                        decoupled=name == "AdamW", grad_clip=grad_clip)
+    elif name == "Adam":
         opt = torch.optim.Adam(params, lr=lr, weight_decay=wd)
     elif name == "AdamW":
         opt = torch.optim.AdamW(params, lr=lr, weight_decay=wd)

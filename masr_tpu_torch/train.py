@@ -1,10 +1,11 @@
-"""Train a model on the GPU with the PyTorch port (the arguments of the
-repository's train.py; no augmentation config by default, since host
-augmentation is not ported):
+"""Train a model on the GPU with the PyTorch port (the arguments and
+defaults of the repository's train.py, augmentation config
+configs/augmentation.json included):
 
     python -m masr_tpu_torch.train --configs configs/conformer.yml
     python -m masr_tpu_torch.train --configs configs/squeezeformer.yml
     python -m masr_tpu_torch.train --configs configs/efficient_conformer.yml
+    python -m masr_tpu_torch.train --configs configs/deepspeech2.yml
 """
 import argparse
 
@@ -23,9 +24,10 @@ def main(argv=None):
                    help="accepted for compatibility; one GPU is used")
     p.add_argument("--use_gpu", type=_bool, default=True,
                    help="train on the GPU (False: the CPU)")
-    p.add_argument("--augment_conf_path", default=None,
-                   help="augmentation config (JSON); host augmentation is "
-                        "not ported, so none may be enabled")
+    p.add_argument("--augment_conf_path",
+                   default="configs/augmentation.json",
+                   help="data augmentation config (JSON); a missing file "
+                        "trains without augmentation")
     p.add_argument("--save_model_path", default="models/",
                    help="where checkpoints are written")
     p.add_argument("--resume_model", default=None,

@@ -14,7 +14,14 @@ schedule, advance as in masr_tpu (train_state.py:82-90).
 
 Randomness comes from explicit generators folded with the step, as
 masr_tpu folds its key (:78): dropout and the training kernel's seeds from
-a generator on the model's device, the dynamic chunk from one on the CPU.
+a generator on the model's device, the dynamic chunk from one on the CPU,
+and the on-device frontend's dither and masks from a third on the device.
+
+With a frontend (ops/specaug.py make_device_frontend, the trainer's
+dataset_conf.on_device_frontend) the batch's inputs are int16-scale
+waveforms and their lengths samples: the train step runs the frontend in
+training mode on the device before the model, the eval steps its
+deterministic fbank (masr_tpu/training/train_state.py:52-56, :102-110).
 """
 import torch
 
@@ -43,6 +50,22 @@ def step_generators(seed, step, device):
     return gen, chunk
 
 
+def frontend_generator(seed, step, device):
+    """The on-device frontend's generator on `device` for train step
+    `step`."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(fold_seed(seed, step, 2))
+    return gen
+
+
+def model_inputs(batch, frontend=None, generator=None, train=False):
+    """The model's (inputs, input_lens): the batch's features, or the
+    frontend's features of its waveforms."""
+    if frontend is None:
+        return batch["inputs"], batch["input_lens"]
+    return frontend(batch["inputs"], batch["input_lens"], generator, train)
+
+
 def batch_to(batch, device):
     """numpy collate dict → tensors on `device` (labels and lengths as
     int64 for the embedding and the masks)."""
@@ -60,8 +83,9 @@ class TrainState(object):
     among them and travel in the model's state_dict."""
 
     def __init__(self, model, optimizer, scheduler, grad_clip=5.0,
-                 accum_grad=1):
+                 accum_grad=1, frontend=None):
         self.model = model
+        self.frontend = frontend
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.grad_clip = grad_clip
@@ -101,8 +125,12 @@ def train_step(state, batch, seed):
     model.train()
     for p in state.params:
         p.grad = None
-    out = model(batch["inputs"], batch["input_lens"], batch["labels"],
-                batch["label_lens"], generator=gen, chunk_generator=chunk_gen)
+    inputs, input_lens = model_inputs(
+        batch, state.frontend,
+        None if state.frontend is None
+        else frontend_generator(seed, state.step, dev), train=True)
+    out = model(inputs, input_lens, batch["labels"], batch["label_lens"],
+                generator=gen, chunk_generator=chunk_gen)
     out["loss"].backward()
     metrics = {k: float(v.detach()) for k, v in out.items()}
     finite = bool(torch.isfinite(out["loss"]))
@@ -136,7 +164,8 @@ def _apply_update(state, finite):
     keep = None if finite else [p.detach().clone() for p in state.params]
     for p, a in zip(state.params, state.acc):
         p.grad = a
-    if state.grad_clip:
+    if state.grad_clip and not getattr(state.optimizer, "clips_grads",
+                                       False):
         torch.nn.utils.clip_grad_norm_(state.params, state.grad_clip)
     state.optimizer.step()
     state.scheduler.step()
@@ -150,29 +179,30 @@ def _apply_update(state, finite):
 
 
 @torch.no_grad()
-def eval_step(model, batch):
+def eval_step(model, batch, frontend=None):
     """→ (loss float, CTC probs (B, T', V) on the device, lens (B,)). The
     loss draws its dynamic chunk from a generator seeded 0, as masr_tpu's
     eval step uses PRNGKey(0); the probs are full context."""
     model.eval()
     chunk_gen = torch.Generator()
     chunk_gen.manual_seed(0)
-    out = model(batch["inputs"], batch["input_lens"], batch["labels"],
-                batch["label_lens"], chunk_generator=chunk_gen)
-    probs, lens = model.get_encoder_out(batch["inputs"], batch["input_lens"])
+    inputs, input_lens = model_inputs(batch, frontend)
+    out = model(inputs, input_lens, batch["labels"], batch["label_lens"],
+                chunk_generator=chunk_gen)
+    probs, lens = model.get_encoder_out(inputs, input_lens)
     return float(out["loss"]), probs, lens
 
 
 @torch.no_grad()
-def eval_step_rescoring(model, batch):
+def eval_step_rescoring(model, batch, frontend=None):
     """eval_step that also returns the encoder rows, so that attention
     rescoring reuses the same encode (masr_tpu/training/train_state.py:120
     make_eval_step_rescoring) → (loss, encoder_out, probs, lens)."""
     model.eval()
     chunk_gen = torch.Generator()
     chunk_gen.manual_seed(0)
-    out = model(batch["inputs"], batch["input_lens"], batch["labels"],
-                batch["label_lens"], chunk_generator=chunk_gen)
-    enc, probs, lens = model.encode_for_rescoring(batch["inputs"],
-                                                  batch["input_lens"])
+    inputs, input_lens = model_inputs(batch, frontend)
+    out = model(inputs, input_lens, batch["labels"], batch["label_lens"],
+                chunk_generator=chunk_gen)
+    enc, probs, lens = model.encode_for_rescoring(inputs, input_lens)
     return float(out["loss"]), enc, probs, lens

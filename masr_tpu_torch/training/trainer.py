@@ -17,13 +17,24 @@ Efficient-Conformer trains its grouped and stride layers eagerly and its
 plain tail through the Conformer's kernel (with a layer_norm conv module);
 a BatchNorm conv module trains eager layers, whose running statistics
 travel in the model's state_dict (checkpoints, resume) and are kept after
-a non-finite step, as in masr_tpu. Training is f32 (TF32 off).
+a non-finite step, as in masr_tpu. DeepSpeech2 trains its recurrence
+through torch.nn.LSTM / GRU (cuDNN on the card) and its CTC loss through
+the CTC kernel; its eval takes ctc_beam_search for attention_rescoring, as
+masr_tpu's does. Training is f32 (TF32 off).
 
-Not ported (ROADMAP.md module item 7), each raising NotImplementedError:
-host augmentation (an augmentation config with any prob > 0), the
-on-device frontend, enable_amp, the fused Adam, binary manifests,
-tensor-parallel training; absent: multi-host sampling, create_data and
-extract_features.
+Training as masr_tpu's train.py runs it: `augment_conf_path` (an
+augmentation JSON; the CLI's default is configs/augmentation.json) turns
+on host augmentation in the training set (data/augmentation; its specaug
+and specsub params also drive the on-device frontend); with
+dataset_conf.on_device_frontend the loaders yield int16-scale waveforms
+(collate_waveforms, bucketed to sample_bucket samples) and every train
+step runs fbank, SpecAugment and SpecSub on the card before the encoder
+(ops/specaug.py; eval takes the deterministic fbank); manifest_type binary
+reads `<manifest>.data`; optimizer_conf.fused runs optimizer/fused.py.
+
+Not ported, each raising NotImplementedError: enable_amp (bf16 training,
+ROADMAP.md module item 6) and tensor-parallel training (item 7); absent:
+multi-host sampling, create_data and extract_features.
 """
 import os
 import time
@@ -32,7 +43,9 @@ import numpy as np
 import torch
 
 from masr_tpu_torch.data.audio_featurizer import AudioFeaturizer
-from masr_tpu_torch.data.dataset import MASRDataset, check_no_augmentation
+from masr_tpu_torch.data.augmentation.pipeline import enabled_items
+from masr_tpu_torch.data.collate import collate_waveforms
+from masr_tpu_torch.data.dataset import MASRDataset
 from masr_tpu_torch.data.loader import DataLoader
 from masr_tpu_torch.data.normalizer import FeatureNormalizer
 from masr_tpu_torch.data.sampler import BatchShuffleSampler
@@ -60,9 +73,9 @@ from masr_tpu_torch.utils.metrics import cer, wer
 logger = setup_logger()
 
 
-def _not_ported(what):
+def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported (ROADMAP.md module "
-                               "item 7)")
+                               f"item {item})")
 
 
 class MASRTrainer(object):
@@ -88,11 +101,9 @@ class MASRTrainer(object):
             torch.backends.cudnn.allow_tf32 = False
         t = self.configs.get("train_conf", {})
         if t.get("enable_amp", False):
-            raise _not_ported("train_conf.enable_amp (bf16 training)")
+            raise _not_ported("train_conf.enable_amp (bf16 training)", 6)
         if int(t.get("tensor_parallel", 1) or 1) > 1:
-            raise _not_ported("train_conf.tensor_parallel")
-        if self.configs.dataset_conf.get("on_device_frontend", False):
-            raise _not_ported("dataset_conf.on_device_frontend")
+            raise _not_ported("train_conf.tensor_parallel", 7)
         self.use_model = self.configs.use_model
         self.streaming = bool(self.configs.get("streaming", True))
         self.seed = int(self.configs.get("seed", 0))
@@ -100,21 +111,36 @@ class MASRTrainer(object):
         self.stop_eval = False
         self.model = None
         self.state = None
+        self.frontend = None
 
     # ------------------------------------------------------------------ #
     # data
     # ------------------------------------------------------------------ #
     def _setup_dataloader(self, is_train, augment_conf_path=None):
+        """The dataset, its batch sampler and loader (masr_tpu/training/
+        trainer.py:153-197): the training set augments with
+        augment_conf_path when that file exists (remembered for the
+        device frontend's params); binary manifests read
+        `<manifest>.data`; with on_device_frontend the items are
+        waveforms, collated by collate_waveforms."""
         d = self.configs.dataset_conf
-        if is_train:
-            check_no_augmentation(augment_conf_path)
+        aug = "{}"
+        if is_train and augment_conf_path \
+                and os.path.exists(augment_conf_path):
+            aug = augment_conf_path
+            self._augment_conf_path = aug
+        manifest = d.train_manifest if is_train else d.test_manifest
+        if d.get("manifest_type") == "binary" \
+                and not manifest.endswith(".data"):
+            manifest = manifest + ".data"
+        on_device = bool(d.get("on_device_frontend", False))
         dataset = MASRDataset(
-            self.configs.preprocess_conf,
-            d.train_manifest if is_train else d.test_manifest,
+            self.configs.preprocess_conf, manifest,
             d.dataset_vocab, manifest_type=d.get("manifest_type", "txt"),
             min_duration=d.get("min_duration", 0),
             max_duration=d.get("max_duration", 20) if is_train else -1,
-            train=is_train)
+            augmentation_config=aug, train=is_train,
+            return_waveform=on_device)
         if is_train:
             sampler = BatchShuffleSampler(len(dataset), d.batch_size,
                                           sortagrad=True, drop_last=True,
@@ -122,9 +148,36 @@ class MASRTrainer(object):
         else:
             sampler = BatchShuffleSampler(len(dataset), d.batch_size,
                                           shuffle=False, drop_last=False)
+        collate = None
+        if on_device:
+            # masr_tpu shuffles waveform batches with a RandomState of the
+            # config's seed (feature batches with the loader's, seeded 0)
+            bucket = int(d.get("sample_bucket", 16000))
+            rng = np.random.RandomState(self.seed)
+
+            def collate(items, _):
+                return collate_waveforms(items, sample_bucket=bucket,
+                                         rng=rng)
+
         loader = DataLoader(dataset, sampler,
-                            num_workers=d.get("num_workers", 4))
+                            num_workers=d.get("num_workers", 4),
+                            collate=collate)
         return dataset, sampler, loader
+
+    def _device_frontend(self):
+        """The on-device frontend (ops/specaug.py make_device_frontend) when
+        dataset_conf.on_device_frontend is set, its SpecAugment and SpecSub
+        params from the augmentation JSON's enabled specaug and specsub
+        items; None otherwise."""
+        if not bool(self.configs.dataset_conf.get("on_device_frontend",
+                                                  False)):
+            return None
+        from masr_tpu_torch.ops.specaug import make_device_frontend
+        confs = {item.get("type"): item.get("params") for item in
+                 enabled_items(getattr(self, "_augment_conf_path", None))}
+        return make_device_frontend(self.configs.preprocess_conf,
+                                    confs.get("specaug"),
+                                    confs.get("specsub"))
 
     # ------------------------------------------------------------------ #
     # model
@@ -149,11 +202,14 @@ class MASRTrainer(object):
             raise ValueError(f"unknown train_conf.init_type {init_type!r}")
         self.model = model.to(self.device)
         t = self.configs.get("train_conf", {})
+        grad_clip = t.get("grad_clip", 5.0)
         opt, sched, self.lr_schedule = build_optimizer(
-            self.model.parameters(), self.configs.optimizer_conf)
-        self.state = TrainState(self.model, opt, sched,
-                                grad_clip=t.get("grad_clip", 5.0),
-                                accum_grad=t.get("accum_grad", 1))
+            self.model.parameters(), self.configs.optimizer_conf,
+            grad_clip=grad_clip)
+        self.frontend = self._device_frontend()
+        self.state = TrainState(self.model, opt, sched, grad_clip=grad_clip,
+                                accum_grad=t.get("accum_grad", 1),
+                                frontend=self.frontend)
         return self.model
 
     def _save_dir(self, save_model_path):
@@ -268,6 +324,11 @@ class MASRTrainer(object):
         if decoder not in ("ctc_greedy", "ctc_beam_search",
                            "attention_rescoring", "ctc_beam_search_device"):
             raise ValueError(f"unknown eval decoder {decoder!r}")
+        if decoder == "attention_rescoring" \
+                and self.use_model == "deepspeech2":
+            logger.warning("deepspeech2 has no attention decoder; eval "
+                           "attention_rescoring falls back to ctc_beam_search")
+            decoder = "ctc_beam_search"
         if decoder in ("ctc_beam_search", "attention_rescoring") \
                 and getattr(self, "_eval_beam_decoder", None) is None:
             from masr_tpu_torch.decoders.beam_search import BeamSearchDecoder
@@ -331,13 +392,14 @@ class MASRTrainer(object):
                 break
             batch_dev = batch_to(batch, self.device)
             if decoder == "attention_rescoring":
-                loss, enc, probs, lens = eval_step_rescoring(self.model,
-                                                             batch_dev)
+                loss, enc, probs, lens = eval_step_rescoring(
+                    self.model, batch_dev, self.frontend)
                 results = self._rescore_batch(
                     enc, probs.cpu().numpy(), lens.cpu().numpy(), tf,
                     nbest_n, ctc_weight, reverse_weight)
             else:
-                loss, probs, lens = eval_step(self.model, batch_dev)
+                loss, probs, lens = eval_step(self.model, batch_dev,
+                                              self.frontend)
                 if decoder == "ctc_beam_search_device":
                     results = decode_batch_device(
                         probs, lens, vocab_list,

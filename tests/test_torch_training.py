@@ -443,21 +443,22 @@ def test_trainer_trains_saves_and_resumes_on_cpu(corpus, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
-    """An enabled augmentation and bf16 training raise
-    NotImplementedError; an eval decoder the trainer does not know raises
-    ValueError; device="cuda" without a card raises (no silent CPU)."""
+    """bf16 training and tensor-parallel training raise
+    NotImplementedError naming their ROADMAP.md items; an eval decoder the
+    trainer does not know raises ValueError; device="cuda" without a card
+    raises (no silent CPU)."""
     from masr_tpu_torch.training.trainer import MASRTrainer
     conf = _trainer_config(corpus, str(tmp_path), 1)
-    aug = tmp_path / "aug.json"
-    aug.write_text(json.dumps([{"type": "speed", "prob": 1.0}]))
     tr = MASRTrainer(conf, device="cpu")
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        tr.train(save_model_path=str(tmp_path), augment_conf_path=str(aug))
     with pytest.raises(ValueError, match="no_such_decoder"):
         tr._resolve_eval_decoder([], "no_such_decoder")
-    with pytest.raises(NotImplementedError, match="enable_amp"):
+    with pytest.raises(NotImplementedError, match="enable_amp.*item 6"):
         MASRTrainer(dict(conf, train_conf=dict(conf["train_conf"],
                                                enable_amp=True)),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor_parallel.*item 7"):
+        MASRTrainer(dict(conf, train_conf=dict(conf["train_conf"],
+                                               tensor_parallel=2)),
                     device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
