@@ -1818,16 +1818,24 @@ def train_launches(family="conformer"):
 @contextlib.contextmanager
 def clocked_train_steps(rows, family="conformer"):
     """Wraps the trainer's train step: per step the wall time (synchronised),
-    the kernel launches, loss, label tokens and audio seconds → rows."""
+    the kernel launches, loss, label tokens, audio seconds and the
+    utterances the loader's threads read while the step ran → rows."""
+    from masr_tpu_torch.data.dataset import MASRDataset
     from masr_tpu_torch.training import trainer as tr
-    orig = tr.train_step
+    orig, orig_item = tr.train_step, MASRDataset.__getitem__
 
-    last = [None]
+    last, items = [None], [0]
+
+    def item(self, idx):
+        out = orig_item(self, idx)
+        items[0] += 1
+        return out
 
     def step(state, batch, seed):
         torch.cuda.synchronize()
         before = train_launches(family)
         flash_before = flash_kernel().launches
+        items_before = items[0]
         t0 = time.perf_counter()
         m = orig(state, batch, seed)
         torch.cuda.synchronize()
@@ -1843,15 +1851,16 @@ def clocked_train_steps(rows, family="conformer"):
                      "launches": [a - b for a, b in
                                   zip(train_launches(family), before)],
                      "flash_launches": flash_kernel().launches
-                     - flash_before})
+                     - flash_before,
+                     "loader_items": items[0] - items_before})
         last[0] = t1
         return m
 
-    tr.train_step = step
+    tr.train_step, MASRDataset.__getitem__ = step, item
     try:
         yield rows
     finally:
-        tr.train_step = orig
+        tr.train_step, MASRDataset.__getitem__ = orig, orig_item
 
 
 def train_and_resume(config, corpus, root, family, step_launches):
@@ -2019,20 +2028,23 @@ DS2_PROFILE_GROUPS = (
     ("CTC kernel", ("ctc_",)))
 
 
-def profile_train_steps(trainer, n=3, kernel_groups=PROFILE_GROUPS):
+def profile_train_steps(trainer, n=3, kernel_groups=PROFILE_GROUPS,
+                        items_from=None):
     """torch.profiler over n train steps of `trainer` on the batch of the 8
-    longest training utterances: device kernel time by group, device busy
-    time against the steps' wall time."""
+    longest training utterances (of `items_from`'s training set, if given,
+    unaugmented): device kernel time by group, device busy time against the
+    steps' wall time, audio seconds trained per second."""
     from torch.profiler import ProfilerActivity, profile
     from masr_tpu_torch.data.collate import collate_fn
     from masr_tpu_torch.training import train_state as ts
-    ds = trainer._setup_dataloader(True)[0]
+    ds = (items_from or trainer)._setup_dataloader(True)[0]
     items = [ds[i] for i in range(len(ds) - len(TRAIN_LENS), len(ds))]
     batch = ts.batch_to(collate_fn(items, rng=np.random.RandomState(0)),
                         trainer.device)
     for _ in range(2):
         ts.train_step(trainer.state, batch, 0)
     torch.cuda.synchronize()
+    updates = trainer.state.updates
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2062,7 +2074,10 @@ def profile_train_steps(trainer, n=3, kernel_groups=PROFILE_GROUPS):
     return {"steps": n, "B": int(batch["inputs"].shape[0]),
             "T_in": int(batch["inputs"].shape[1]),
             "audio_s": float(batch["input_lens"].sum()) / 100.0,
+            "optimizer_updates": trainer.state.updates - updates,
             "wall_ms_per_step": wall / n * 1e3,
+            "audio_s_per_s": float(batch["input_lens"].sum()) / 100.0
+            / (wall / n),
             "device_busy_ms_per_step": busy if busy else "not measured",
             "idle_share": 1 - busy / (wall / n * 1e3) if busy
             else "not measured",
@@ -2086,12 +2101,22 @@ def time_train_layer(fns, layer, args, rates):
 
 def step_times(rows):
     """Train-step wall times of a run: the median after the first three
-    steps, every step's, and the audio seconds trained per second."""
+    steps, every step's, the audio seconds trained per second, and the
+    medians of the steps during which the loader's threads read
+    utterances and of those during which they read none."""
     steady = rows[3:]
+
+    def median(busy):
+        s = [r["s"] for r in rows if (r["loader_items"] > 0) == busy]
+        return float(np.median(s)) if s else None
+
     return {"step_s_median": float(np.median([r["s"] for r in steady])),
             "step_s": [r["s"] for r in rows],
             "audio_s_per_s": sum(r["audio_s"] for r in steady) / sum(
-                r["s"] for r in steady)}
+                r["s"] for r in steady),
+            "loader_items": [r["loader_items"] for r in rows],
+            "step_s_median_loader_reading": median(True),
+            "step_s_median_loader_done": median(False)}
 
 
 def phase_train_times(dev, rows, trainer, smi):
@@ -4456,7 +4481,6 @@ def phase_eff_export(dev, trainer, conf, wavs):
 # phases 39-43: DeepSpeech2, and training as train.py runs it by default
 # --------------------------------------------------------------------------- #
 DS2_STREAMS = 8
-DS2_TRAIN_ATOL = 1e-3     # first step's grads, rel to their max (cuDNN RNN)
 ADAM_ATOL = 1e-6          # one fused Adam update vs the unfused one
 FBANK_ATOL = 1e-3         # device fbank vs host fbank, log mel energies
 AUG_STEPS = 8
@@ -4520,42 +4544,55 @@ def phase_ds2_flagship(dev, smi):
     bidirectional twin (streaming off) and a GRU twin, each written by the
     port's exporter: predict_batch of the 8 utterances on the card with no
     kernel launch (the recurrence is cuDNN's), probs card vs CPU within
-    PROBS_ATOL and no argmax flip past ARGMAX_MARGIN; the wall time.
-    → (forward LSTM card predictor, utterances)."""
-    from masr_tpu_torch.infer.predictor import MASRPredictor
+    PROBS_ATOL and no argmax flip past ARGMAX_MARGIN; the wall time. The
+    caller's cuDNN TF32 is on here, as torch's default has it: the DS2
+    encoder turns it off for its own forward alone, and must leave it on.
+    → (forward LSTM card predictor, utterances, bundle)."""
     t_phase = time.perf_counter()
     runs, out = [], None
-    for name, streaming, gru in (("lstm", True, False),
-                                 ("lstm_bidirect", False, False),
-                                 ("gru", True, True)):
-        path = os.path.join(WORK, f"ds2_{name}_bundle")
-        vocab, n_params = write_ds2_bundle(path, streaming, gru)
-        wavs = synthetic_utterances(vocab)
-        gpu = MASRPredictor(model_dir=path, device=dev)
-        reset_all_launches()
-        t0 = time.perf_counter()
-        texts = gpu.predict_batch(wavs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check_no_launch(f"ds2 {name} predict_batch")
-        t0 = time.perf_counter()
-        gpu.predict_batch(wavs)
-        wall2 = time.perf_counter() - t0
-        cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
-        err, compared, t_out = probs_card_vs_cpu(gpu, cpu, wavs)
-        runs.append({"model": name, "streaming": streaming,
-                     "params": n_params, "T_out": t_out,
-                     "probs_max_abs_err": err, "probs_atol": PROBS_ATOL,
-                     "argmax_frames_compared": compared,
-                     "texts_nonempty": sum(bool(t["text"]) for t in texts),
-                     "predict_batch_s": [wall, wall2]})
-        if name == "lstm":
-            out = (gpu, wavs, path)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, streaming, gru in (("lstm", True, False),
+                                     ("lstm_bidirect", False, False),
+                                     ("gru", True, True)):
+            out = ds2_offline_run(dev, name, streaming, gru, runs) or out
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "ds2_flagship", "card": smi, "encoder": DS2_ENCODER,
           "vocab": VOCAB, "utterances": len(out[1]),
-          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "caller_cudnn_allow_tf32": True,
           "runs": runs, "seconds": time.perf_counter() - t_phase})
     return out
+
+
+def ds2_offline_run(dev, name, streaming, gru, runs):
+    """One DS2 twin of phase_ds2_flagship → its row appended to runs; the
+    forward LSTM's (card predictor, utterances, bundle)."""
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    path = os.path.join(WORK, f"ds2_{name}_bundle")
+    vocab, n_params = write_ds2_bundle(path, streaming, gru)
+    wavs = synthetic_utterances(vocab)
+    gpu = MASRPredictor(model_dir=path, device=dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    texts = gpu.predict_batch(wavs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_no_launch(f"ds2 {name} predict_batch")
+    t0 = time.perf_counter()
+    gpu.predict_batch(wavs)
+    wall2 = time.perf_counter() - t0
+    cpu = MASRPredictor(model_dir=path, device="cpu", warmup=False)
+    err, compared, t_out = probs_card_vs_cpu(gpu, cpu, wavs)
+    runs.append({"model": name, "streaming": streaming,
+                 "params": n_params, "T_out": t_out,
+                 "probs_max_abs_err": err, "probs_atol": PROBS_ATOL,
+                 "argmax_frames_compared": compared,
+                 "texts_nonempty": sum(bool(t["text"]) for t in texts),
+                 "predict_batch_s": [wall, wall2]})
+    check(torch.backends.cudnn.allow_tf32, f"ds2 {name}: the caller's "
+          "cuDNN TF32 setting is as it was")
+    return (gpu, wavs, path) if name == "lstm" else None
 
 
 def phase_ds2_stream(dev, flagship, wavs, smi):
@@ -4731,14 +4768,16 @@ def run_aug_train(dev, conf, corpus, root, what):
     return rows, trainer
 
 
-def phase_train_aug(dev, corpus, phase12_rows, smi):
+def phase_train_aug(dev, corpus, phase12_rows, phase12_trainer, smi):
     """The flagship Conformer trained 8 steps with configs/augmentation.json
     (noise p 0.5 from synthetic noise beside phase 12's corpus, speed,
     shift, volume, SpecAugment, SpecSub): 12 + 12 row-3 and 1 + 1 row-4
     launches per step, finite losses; the step wall median beside phase
     13's (phase 12's run, and its first epoch, whose sorted batches span
-    the lengths as these do), and the loader's wait before each step. →
-    the half corpus."""
+    the lengths as these do), both split by whether the loader read
+    utterances during the step, and the loader's wait before each step;
+    this trainer and phase 12's profiled back to back on one batch, phase
+    12's 8 longest utterances. → the half corpus."""
     t_phase = time.perf_counter()
     root = os.path.join(WORK, "train_aug")
     shutil.rmtree(root, ignore_errors=True)
@@ -4751,11 +4790,24 @@ def phase_train_aug(dev, corpus, phase12_rows, smi):
                   + pipe._augmentation_pipeline._feature_augmentors]
     check(len(augmentors) == 6, f"six augmentors built: {augmentors}")
     waits = [r["wait_s"] for r in rows[1:]]
+    p12 = step_times(phase12_rows)
+    # 4 steps: 2 optimizer updates in each profile at accum_grad 2
+    t0 = time.perf_counter()
+    same_batch = {
+        "phase12_trainer": profile_train_steps(phase12_trainer, n=4),
+        "train_aug_trainer": profile_train_steps(
+            trainer, n=4, items_from=phase12_trainer)}
+    same_batch["seconds"] = time.perf_counter() - t0
     emit({"phase": "train_aug", "card": smi, "steps": len(rows),
           "augmentors": augmentors, **step_times(rows),
-          "phase13_step_s_median": step_times(phase12_rows)["step_s_median"],
+          "phase13_step_s_median": p12["step_s_median"],
           "phase13_epoch1_step_s_median": step_times(
               phase12_rows[:TRAIN_STEPS_PER_EPOCH])["step_s_median"],
+          "phase13_step_s_median_loader_reading":
+              p12["step_s_median_loader_reading"],
+          "phase13_step_s_median_loader_done":
+              p12["step_s_median_loader_done"],
+          "profile_same_batch": same_batch,
           "loader_wait_s": waits,
           "loader_wait_s_median": float(np.median(waits)),
           "losses": [r["loss"] for r in rows],
@@ -4764,12 +4816,12 @@ def phase_train_aug(dev, corpus, phase12_rows, smi):
 
 
 def fused_adam_vs_unfused(dev, trainer):
-    """One update of the fused Adam (optimizer/fused.py, clip inside) and
-    of torch's Adam after clip_grad_norm_, from the same flagship weights
-    and seeded grads (some past the clip) on the card → max abs difference
-    of the parameters, and each optimizer's step time (CUDA events, 10
-    steps)."""
-    from masr_tpu_torch.optimizer.fused import FusedAdam
+    """One update (clip_grad_norm_, then the optimizer, as the train step
+    runs them) of optimizer_conf.fused's Adam and of the unfused one, both
+    from build_optimizer, from the same flagship weights and seeded grads
+    (their norm past the clip) on the card → max abs difference of the
+    parameters, and each update's time (CUDA events, 10 updates)."""
+    from masr_tpu_torch.optimizer.schedulers import build_optimizer
     params = [p.detach().clone() for p in trainer.state.params]
     gen = torch.Generator(device=dev).manual_seed(0)
     grads = [torch.randn(p.shape, generator=gen, device=dev) * 0.01
@@ -4779,14 +4831,12 @@ def fused_adam_vs_unfused(dev, trainer):
         ps = [torch.nn.Parameter(p.clone()) for p in params]
         for p, g in zip(ps, grads):
             p.grad = g.clone()
-        if name == "fused":
-            opt = FusedAdam(ps, lr=1e-3, weight_decay=1e-6, grad_clip=5.0)
-        else:
-            opt = torch.optim.Adam(ps, lr=1e-3, weight_decay=1e-6)
+        opt = build_optimizer(ps, dict(
+            optimizer="Adam", learning_rate=1e-3, weight_decay=1e-6,
+            fused=name == "fused"))[0]
 
         def step():
-            if name == "unfused":
-                torch.nn.utils.clip_grad_norm_(ps, 5.0)
+            torch.nn.utils.clip_grad_norm_(ps, 5.0)
             opt.step()
 
         step()
@@ -4809,7 +4859,6 @@ def phase_train_device_frontend(dev, half, smi):
     from masr_tpu_torch.audio import AudioSegment
     from masr_tpu_torch.data.audio_featurizer import AudioFeaturizer
     from masr_tpu_torch.ops.fbank import fbank_torch
-    from masr_tpu_torch.optimizer.fused import FusedAdam
     t_phase = time.perf_counter()
     root = os.path.join(WORK, "train_device_frontend")
     shutil.rmtree(root, ignore_errors=True)
@@ -4833,7 +4882,7 @@ def phase_train_device_frontend(dev, half, smi):
     conf["optimizer_conf"] = dict(conf["optimizer_conf"], fused=True)
     rows, trainer = run_aug_train(dev, conf, half, root,
                                   "train_device_frontend")
-    check(isinstance(trainer.state.optimizer, FusedAdam)
+    check(trainer.state.optimizer.defaults["fused"]
           and trainer.frontend is not None, "fused Adam and the device "
           "frontend in the trainer")
     check(trainer._setup_dataloader(True)[0]._reader is not None,
@@ -4940,7 +4989,7 @@ def main():
     ds2_gpu, ds2_wavs, _ = phase_ds2_flagship(dev, smi)
     phase_ds2_stream(dev, ds2_gpu, ds2_wavs, smi)
     phase_ds2_train(dev, corpus, ds2_wavs, smi)
-    half = phase_train_aug(dev, corpus, rows, smi)
+    half = phase_train_aug(dev, corpus, rows, trainer, smi)
     phase_train_device_frontend(dev, half, smi)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -74,28 +74,22 @@ class BatchStreamSession(object):
                                            **(preprocess_conf or {}))
         encoder = self.ip.model.encoder
         C = self.ip.cache_size
-        if self.ip.use_model == "deepspeech2":
-            # h/c carries: no multi-chunk ticks, weight packs or positions
-            self.tick_k, self._packed_chunk, self._pos_cap = 1, None, None
-            self.states = self.ip.model.init_cache(batch=max_streams,
-                                                   device=self.ip.device)
-        else:
-            self.tick_k = int(tick_chunks) \
-                if encoder.multi_chunk and 1 < tick_chunks \
-                and tick_chunks * DECODING_CHUNK_SIZE <= C else 1
-            self.states = encoder.init_cache(
-                batch=max_streams, cache_size=C, device=self.ip.device)
-            # kernel weights and per-layer position tables, made once
-            # (None for an encoder without a chunk kernel)
-            self._packed_chunk = encoder.pack_chunk_params(
-                cache_size=C, pos_table_len=int(pos_table_len))
-            # position-table horizon: a slot whose offset reaches the last
-            # full window of the table takes the exact-positions step from
-            # then on (offsets are mirrored on the host: routing needs no
-            # readback); None: the encoder has no tables
-            L = C + DECODING_CHUNK_SIZE * self.tick_k
-            self._pos_cap = max(0, int(pos_table_len) - L) \
-                if encoder.position_tables else None
+        self.tick_k = int(tick_chunks) \
+            if encoder.multi_chunk and 1 < tick_chunks \
+            and tick_chunks * DECODING_CHUNK_SIZE <= C else 1
+        self.states = encoder.init_cache(
+            batch=max_streams, cache_size=C, device=self.ip.device)
+        # kernel weights and per-layer position tables, made once
+        # (None for an encoder without a chunk kernel)
+        self._packed_chunk = encoder.pack_chunk_params(
+            cache_size=C, pos_table_len=int(pos_table_len))
+        # position-table horizon: a slot whose offset reaches the last
+        # full window of the table takes the exact-positions step from
+        # then on (offsets are mirrored on the host: routing needs no
+        # readback); None: the encoder has no tables
+        L = C + DECODING_CHUNK_SIZE * self.tick_k
+        self._pos_cap = max(0, int(pos_table_len) - L) \
+            if encoder.position_tables else None
         self._slot_frames = [0] * max_streams
 
         self._dec_state = None
@@ -133,16 +127,10 @@ class BatchStreamSession(object):
         if self._dec_state is not None:
             for k, v in self._dec_state.items():
                 v[slot] = self._dec_fresh[k][0]
-        if "h" in self.states:                  # DeepSpeech2's carry
-            self.states["h"][:, slot] = 0
-            self.states["c"][:, slot] = 0
-            return
-        # cache_len = 0 masks every att cache row, so the att caches need
-        # no zeroing (a state without rings has no write pointers)
-        self.states["cnn_cache"][:, slot] = 0
-        for key in ("offset", "cache_len", "wptr"):
-            if key in self.states:
-                self.states[key][slot] = 0
+        # the slot's rows of every state tensor go back to init_cache's
+        # zeros: (L, N, ...) caches and carries, (N,) counters
+        for v in self.states.values():
+            (v[slot] if v.dim() == 1 else v[:, slot]).zero_()
 
     # ------------------------------------------------------------------ #
     def _run_round(self, xs, active, valids):

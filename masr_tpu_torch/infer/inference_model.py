@@ -123,12 +123,8 @@ class InferencePredictor(object):
 
     # ------------------------------------------------------------------ #
     def init_stream_state(self, batch=1):
-        if self.use_model == "deepspeech2":
-            self.state = self.model.init_cache(batch=batch,
-                                               device=self.device)
-        else:
-            self.state = self.model.encoder.init_cache(
-                batch=batch, cache_size=self.cache_size, device=self.device)
+        self.state = self.model.encoder.init_cache(
+            batch=batch, cache_size=self.cache_size, device=self.device)
 
     def _features(self, x_chunk):
         return torch.as_tensor(np.asarray(x_chunk, np.float32),

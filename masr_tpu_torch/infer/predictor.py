@@ -135,8 +135,8 @@ class MASRPredictor(object):
                                "back to greedy decoding")
                 self.decoder = "ctc_greedy"
         if decoder == "attention_rescoring" \
-                and meta["use_model"] == "deepspeech2":
-            logger.warning("deepspeech2 has no attention decoder; "
+                and not self.predictor.model.has_attention_decoder:
+            logger.warning(f"{meta['use_model']} has no attention decoder; "
                            "attention_rescoring falls back to ctc_beam_search")
             self.decoder = "ctc_beam_search"
         self.pun_predictor = None

@@ -494,6 +494,8 @@ class ConformerModel(nn.Module):
     """Encoder + CTC head + bidirectional attention decoder, trained with
     the hybrid loss (masr_tpu/models/conformer.py:638-736)."""
 
+    has_attention_decoder = True
+
     def __init__(self, input_dim, vocab_size, cmvn=None, streaming=True,
                  encoder_conf=None, decoder_conf=None, ctc_weight=0.5,
                  ignore_id=IGNORE_ID, reverse_weight=0.0, lsm_weight=0.0,

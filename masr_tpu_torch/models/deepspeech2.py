@@ -14,21 +14,37 @@ differ: packed outputs are 0 there, masr_tpu's scan leaves values there
 that no valid frame reads. The chunk steps feed whole windows (every
 length = T) and skip the packing.
 
-The recurrence runs in full f32: on the card the encoder turns cuDNN's
-TF32 off (torch.backends.cudnn.allow_tf32, a process-wide flag that also
-governs the convolutions) before its first call; with TF32, 5 layers of
-1024 units over ~300 steps drift past the card-vs-CPU tolerance.
+The encoder runs in full f32: its forward turns cuDNN's TF32 off
+(torch.backends.cudnn.allow_tf32, which governs the RNNs and the
+convolutions) and puts the flag back as it found it when it returns, so
+that no other model in the process sees it change; with TF32, 5 layers of
+1024 units over ~300 steps drift past the card-vs-CPU tolerance. The
+backward pass runs after the forward has returned, under the caller's
+setting: the trainer turns TF32 off for the whole run.
 
 Module names follow upstream MASR (encoder.conv.conv.{0,2},
 encoder.rnns.{i}.rnn.weight_ih_l0[_reverse], encoder.rnns.{i}.layer_norm,
 ctc.ctc_lo); models/weights.py maps them to and from masr_tpu's flax tree.
 """
+import contextlib
+
 import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from masr_tpu_torch.models.losses import CTCHead
 from masr_tpu_torch.models.subsampling import subsampling_class
+
+
+@contextlib.contextmanager
+def _cudnn_full_f32():
+    """cuDNN's TF32 off inside the block, the caller's setting after it."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _frozen_head(n):
@@ -107,7 +123,15 @@ class RNNLayer(nn.Module):
 class CRNNEncoder(nn.Module):
     """CMVN → Conv2dSubsampling4Pure (32 channels) → num_rnn_layers
     RNNLayers. fast_scan and scan_unroll (masr_tpu's scan options) are
-    accepted and have no counterpart here."""
+    accepted and have no counterpart here.
+
+    Its streaming interface is the attention encoders' (init_cache,
+    pack_chunk_params, multi_chunk, position_tables), so that the predictor
+    and the engine serve every family alike: the state is the h/c carry,
+    and there are no weight packs, multi-chunk ticks or position tables."""
+
+    multi_chunk = False
+    position_tables = False
 
     def __init__(self, input_dim, num_rnn_layers=5, rnn_size=1024,
                  rnn_direction="forward", use_gru=False, cmvn=None,
@@ -128,20 +152,30 @@ class CRNNEncoder(nn.Module):
         """x (B, T, F) features, x_lens (B,) or None (every frame valid),
         initial (L, B, H) h and c stacks or None → (out (B, T', D),
         out_lens or None, h stack, c stack)."""
-        if x.is_cuda:
-            torch.backends.cudnn.allow_tf32 = False
-        if self.global_cmvn is not None:
-            x = self.global_cmvn(x)
-        x, x_lens = self.conv(x, x_lens)
-        hs, cs = [], []
-        for i, rnn in enumerate(self.rnns):
-            x, hT, cT = rnn(
-                x, x_lens,
-                None if init_state_h is None else init_state_h[i],
-                None if init_state_c is None else init_state_c[i])
-            hs.append(hT)
-            cs.append(cT)
+        with _cudnn_full_f32():
+            if self.global_cmvn is not None:
+                x = self.global_cmvn(x)
+            x, x_lens = self.conv(x, x_lens)
+            hs, cs = [], []
+            for i, rnn in enumerate(self.rnns):
+                x, hT, cT = rnn(
+                    x, x_lens,
+                    None if init_state_h is None else init_state_h[i],
+                    None if init_state_c is None else init_state_c[i])
+                hs.append(hT)
+                cs.append(cT)
         return x, x_lens, torch.stack(hs), torch.stack(cs)
+
+    def init_cache(self, batch=1, cache_size=None, device=None):
+        """Zero h and c stacks (L, batch, H); the carry has no cache rows,
+        so cache_size is unused."""
+        shape = (self.num_rnn_layers, batch, self.rnn_size)
+        return {"h": torch.zeros(shape, device=device),
+                "c": torch.zeros(shape, device=device)}
+
+    def pack_chunk_params(self, cache_size=None, pos_table_len=8192):
+        """No chunk kernel steps this family: nothing to pack."""
+        return None
 
 
 class DeepSpeech2Model(nn.Module):
@@ -149,7 +183,11 @@ class DeepSpeech2Model(nn.Module):
     (row 4's kernel on the card). decoder_conf ({} in
     configs/deepspeech2.yml; masr_tpu hands it to the head, whose dropout no
     config sets) and model_conf (the attention families' loss weights,
-    which masr_tpu's registry does not pass) are accepted and unused."""
+    which masr_tpu's registry does not pass) are accepted and unused.
+    With no attention decoder, attention_rescoring falls back to
+    ctc_beam_search in the predictor and the trainer's eval."""
+
+    has_attention_decoder = False
 
     def __init__(self, input_dim, vocab_size, cmvn=None, streaming=True,
                  encoder_conf=None, decoder_conf=None, **model_conf):
@@ -203,9 +241,7 @@ class DeepSpeech2Model(nn.Module):
 
     def init_cache(self, batch=1, device=None):
         """The streaming state: zero h and c stacks (L, batch, H)."""
-        shape = (self.encoder.num_rnn_layers, batch, self.encoder.rnn_size)
-        return {"h": torch.zeros(shape, device=device),
-                "c": torch.zeros(shape, device=device)}
+        return self.encoder.init_cache(batch=batch, device=device)
 
     def ctc_logits(self, encoder_out):
         return self.ctc.logits(encoder_out)

@@ -7,8 +7,12 @@ A schedule is a pure step → lr function of the optimizer-update count
 torch LambdaLR, stepped once per optimizer update. Adam's weight_decay is
 torch's L2, added to the (clipped) grad before the moments: the same as
 masr_tpu's optax.add_decayed_weights → adam. Gradient clipping and
-accum_grad live in training/train_state.py, but for optimizer_conf.fused
-(Adam and AdamW, optimizer/fused.py), which clips in its own update.
+accum_grad live in training/train_state.py.
+
+optimizer_conf.fused (masr_tpu/optimizer/fused.py, one XLA fusion of the
+clip, the decay and the Adam update) is torch's fused Adam / AdamW (the
+update in multi-tensor kernels over groups of parameters), after the
+train step's clip: the same update as the unfused chain.
 """
 import math
 
@@ -78,12 +82,11 @@ def build_lr_schedule(scheduler, learning_rate, scheduler_conf):
     raise ValueError(f"unsupported scheduler: {scheduler}")
 
 
-def build_optimizer(params, optimizer_conf, grad_clip=None):
+def build_optimizer(params, optimizer_conf):
     """→ (torch optimizer, LambdaLR, schedule) for optimizer_conf (the
     configs' optimizer_conf: optimizer, learning_rate, weight_decay,
     scheduler, scheduler_conf, fused). Adam (L2 weight decay), AdamW, SGD;
-    with fused, Adam and AdamW are optimizer/fused.py's FusedAdam, which
-    clips by grad_clip itself (`clips_grads`)."""
+    fused makes Adam and AdamW torch's fused ones (SGD ignores it)."""
     conf = dict(optimizer_conf)
     name = conf.get("optimizer", "Adam")
     lr = float(conf.get("learning_rate", 1e-3))
@@ -91,14 +94,13 @@ def build_optimizer(params, optimizer_conf, grad_clip=None):
     schedule = build_lr_schedule(conf.get("scheduler", "WarmupLR"), lr,
                                  conf.get("scheduler_conf"))
     params = list(params)
-    if name in ("Adam", "AdamW") and conf.get("fused", False):
-        from masr_tpu_torch.optimizer.fused import FusedAdam
-        opt = FusedAdam(params, lr=lr, weight_decay=wd,
-                        decoupled=name == "AdamW", grad_clip=grad_clip)
-    elif name == "Adam":
-        opt = torch.optim.Adam(params, lr=lr, weight_decay=wd)
+    # None, not False, when unfused: an explicit False also turns off
+    # torch's multi-tensor (foreach) default, for a loop over parameters
+    fused = True if conf.get("fused", False) else None
+    if name == "Adam":
+        opt = torch.optim.Adam(params, lr=lr, weight_decay=wd, fused=fused)
     elif name == "AdamW":
-        opt = torch.optim.AdamW(params, lr=lr, weight_decay=wd)
+        opt = torch.optim.AdamW(params, lr=lr, weight_decay=wd, fused=fused)
     elif name == "SGD":
         opt = torch.optim.SGD(params, lr=lr,
                               momentum=conf.get("momentum", 0.9))

@@ -164,8 +164,7 @@ def _apply_update(state, finite):
     keep = None if finite else [p.detach().clone() for p in state.params]
     for p, a in zip(state.params, state.acc):
         p.grad = a
-    if state.grad_clip and not getattr(state.optimizer, "clips_grads",
-                                       False):
+    if state.grad_clip:
         torch.nn.utils.clip_grad_norm_(state.params, state.grad_clip)
     state.optimizer.step()
     state.scheduler.step()

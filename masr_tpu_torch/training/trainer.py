@@ -30,7 +30,7 @@ dataset_conf.on_device_frontend the loaders yield int16-scale waveforms
 (collate_waveforms, bucketed to sample_bucket samples) and every train
 step runs fbank, SpecAugment and SpecSub on the card before the encoder
 (ops/specaug.py; eval takes the deterministic fbank); manifest_type binary
-reads `<manifest>.data`; optimizer_conf.fused runs optimizer/fused.py.
+reads `<manifest>.data`; optimizer_conf.fused runs torch's fused Adam.
 
 Not ported, each raising NotImplementedError: enable_amp (bf16 training,
 ROADMAP.md module item 6) and tensor-parallel training (item 7); absent:
@@ -204,8 +204,7 @@ class MASRTrainer(object):
         t = self.configs.get("train_conf", {})
         grad_clip = t.get("grad_clip", 5.0)
         opt, sched, self.lr_schedule = build_optimizer(
-            self.model.parameters(), self.configs.optimizer_conf,
-            grad_clip=grad_clip)
+            self.model.parameters(), self.configs.optimizer_conf)
         self.frontend = self._device_frontend()
         self.state = TrainState(self.model, opt, sched, grad_clip=grad_clip,
                                 accum_grad=t.get("accum_grad", 1),
@@ -325,8 +324,8 @@ class MASRTrainer(object):
                            "attention_rescoring", "ctc_beam_search_device"):
             raise ValueError(f"unknown eval decoder {decoder!r}")
         if decoder == "attention_rescoring" \
-                and self.use_model == "deepspeech2":
-            logger.warning("deepspeech2 has no attention decoder; eval "
+                and not self.model.has_attention_decoder:
+            logger.warning(f"{self.use_model} has no attention decoder; eval "
                            "attention_rescoring falls back to ctc_beam_search")
             decoder = "ctc_beam_search"
         if decoder in ("ctc_beam_search", "attention_rescoring") \

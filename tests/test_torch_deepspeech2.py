@@ -177,6 +177,34 @@ def _port_model(use_gru, streaming, variables, D=F, rnn_size=H, vocab=12):
     return model.eval()
 
 
+@pytest.mark.parametrize("caller", [True, False], ids=["tf32_on",
+                                                      "tf32_off"])
+def test_encoder_runs_full_f32_and_keeps_the_callers_tf32(caller):
+    """The encoder turns cuDNN's TF32 off for its conv and recurrence, and
+    gives the caller's setting back when it returns (on a CPU tensor too:
+    the flag is a process setting, whatever the device), also when the
+    forward raises."""
+    model = build_model("deepspeech2", F, 12, encoder_conf=dict(
+        num_rnn_layers=2, rnn_size=H))
+    seen = []
+    for m in (model.encoder.conv, *model.encoder.rnns):
+        m.register_forward_pre_hook(
+            lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = caller
+    try:
+        with torch.no_grad():
+            model.get_encoder_out(torch.zeros(2, WIN, F),
+                                  torch.tensor([WIN, WIN - 9]))
+        assert seen == [False] * 3
+        assert torch.backends.cudnn.allow_tf32 is caller
+        with pytest.raises(RuntimeError):
+            model.encoder(torch.zeros(2, WIN, 2 * F))
+        assert torch.backends.cudnn.allow_tf32 is caller
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 @pytest.mark.parametrize("use_gru,streaming", FORMS, ids=FORM_IDS)
 def test_weight_round_trip_is_exact(use_gru, streaming):
     """flax → port → flax gives every leaf back bit for bit, and the port's

@@ -1,6 +1,6 @@
 """The port's on-device frontend (masr_tpu_torch/ops/specaug.py), its host
-half (data/collate.py collate_waveforms) and the fused Adam
-(optimizer/fused.py) against masr_tpu's on the CPU.
+half (data/collate.py collate_waveforms) and optimizer_conf.fused
+(optimizer/schedulers.py build_optimizer) against masr_tpu's on the CPU.
 
 - apply_specaug and apply_specsub are fed masr_tpu's own draws, remade from
   its JAX key with the splits of masr_tpu/ops/specaug.py: the results equal
@@ -13,15 +13,17 @@ half (data/collate.py collate_waveforms) and the fused Adam
 - the batched fbank at dither 0 against fbank_jax: atol 1e-3 on the log
   mel energies (f32 FFTs in other orders), frame counts equal.
 - collate_waveforms == masr_tpu's for the same rng.
-- the fused Adam and AdamW, with and without clipping: three updates
-  against masr_tpu's fused_adam (rtol 2e-6, atol 2e-7, as
-  tests/test_fused_optimizer.py holds it to optax) and against the port's
-  unfused optimizer (torch's Adam / AdamW after clip_grad_norm_, whose
-  norm + 1e-6 changes the scale by 1e-6 / norm: same tolerances).
+- the fused Adam and AdamW (torch's fused ones, after the train step's
+  clip_grad_norm_), with and without clipping: three updates against
+  masr_tpu's fused_adam, whose clip scale is clip / max(norm, clip) where
+  clip_grad_norm_ divides by norm + 1e-6 (rtol 2e-6, atol 2e-7, as
+  tests/test_fused_optimizer.py holds it to optax), and against the
+  port's unfused optimizer (same tolerances).
 - a tiny CPU trainer with on_device_frontend, the fused Adam and a binary
   manifest: the loss falls.
 """
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -268,41 +270,38 @@ def _grads(step):
             for k, s in _shapes().items()}
 
 
-def _run_port(opt_fn, clip, n=3):
+def _run_port(optimizer, fused, clip, wd, n=3):
+    """n updates through build_optimizer (masr_tpu's warmup schedule) and
+    the train step's update (training/train_state.py _apply_update: the
+    clip, the optimizer, the schedule)."""
+    from masr_tpu_torch.optimizer.schedulers import build_optimizer
+    from masr_tpu_torch.training.train_state import _apply_update
     params = {k: torch.nn.Parameter(torch.from_numpy(v))
               for k, v in _params().items()}
-    opt = opt_fn(list(params.values()))
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda step: _schedule(step) / 1e-3)
+    opt, sched, _ = build_optimizer(params.values(), dict(
+        optimizer=optimizer, learning_rate=1e-3, weight_decay=wd,
+        fused=fused, scheduler="WarmupLR", scheduler_conf=dict(
+            warmup_steps=3)))
+    state = SimpleNamespace(params=list(params.values()), optimizer=opt,
+                            scheduler=sched, grad_clip=clip, updates=0)
     outs = []
     for i in range(n):
         grads = _grads(i)
-        for k, p in params.items():
-            p.grad = torch.from_numpy(grads[k])
-        if clip and not getattr(opt, "clips_grads", False):
-            torch.nn.utils.clip_grad_norm_(list(params.values()), clip)
-        opt.step()
-        sched.step()
+        state.acc = [torch.from_numpy(grads[k]) for k in params]
+        _apply_update(state, True)
         outs.append({k: p.detach().numpy().copy()
                      for k, p in params.items()})
     return outs
 
 
-def _schedule(step):
-    from masr_tpu_torch.optimizer.schedulers import warmup_lr
-    return warmup_lr(1e-3, warmup_steps=3)(step)
-
-
 @pytest.mark.parametrize("clip", [None, 0.5], ids=["noclip", "clip"])
 @pytest.mark.parametrize("decoupled", [False, True], ids=["adam", "adamw"])
 def test_fused_adam_matches_masr_tpu_and_unfused(decoupled, clip):
-    """Three updates of optimizer/fused.py's FusedAdam == masr_tpu's
-    fused_adam (optax) and == the port's unfused Adam / AdamW (torch's,
-    after clip_grad_norm_), weight decay 1e-2, masr_tpu's warmup
-    schedule."""
+    """Three updates of the port's optimizer_conf.fused Adam / AdamW ==
+    masr_tpu's fused_adam (optax) and == the port's unfused Adam / AdamW,
+    weight decay 1e-2, masr_tpu's warmup schedule."""
     from masr_tpu.optimizer.fused import fused_adam
     from masr_tpu.optimizer.schedulers import warmup_lr as jwarmup
-    from masr_tpu_torch.optimizer.fused import FusedAdam
     wd = 1e-2
     tx = fused_adam(jwarmup(1e-3, warmup_steps=3), weight_decay=wd,
                     decoupled=decoupled, grad_clip=clip)
@@ -314,12 +313,9 @@ def test_fused_adam_matches_masr_tpu_and_unfused(decoupled, clip):
         upd, state = tx.update(g, state, p)
         p = optax.apply_updates(p, upd)
         want.append({k: np.asarray(v) for k, v in p.items()})
-    fused = _run_port(lambda ps: FusedAdam(ps, lr=1e-3, weight_decay=wd,
-                                           decoupled=decoupled,
-                                           grad_clip=clip), clip)
-    unfused_cls = torch.optim.AdamW if decoupled else torch.optim.Adam
-    unfused = _run_port(lambda ps: unfused_cls(ps, lr=1e-3,
-                                               weight_decay=wd), clip)
+    name = "AdamW" if decoupled else "Adam"
+    fused = _run_port(name, True, clip, wd)
+    unfused = _run_port(name, False, clip, wd)
     for w, f, u in zip(want, fused, unfused):
         for k in w:
             np.testing.assert_allclose(f[k], w[k], rtol=2e-6, atol=2e-7)
@@ -328,22 +324,24 @@ def test_fused_adam_matches_masr_tpu_and_unfused(decoupled, clip):
 
 
 def test_build_optimizer_routes_fused():
-    """optimizer_conf.fused builds FusedAdam for Adam and AdamW (it clips
-    by grad_clip itself, so the train step does not clip again); SGD
-    ignores it; the state_dict round-trips."""
-    from masr_tpu_torch.optimizer.fused import FusedAdam
+    """optimizer_conf.fused builds torch's fused Adam and AdamW (their
+    weight decay L2 and decoupled); unfused, they keep torch's default
+    (fused None, so the multi-tensor route on the card); SGD ignores it;
+    the state_dict round-trips."""
     from masr_tpu_torch.optimizer.schedulers import build_optimizer
     p = [torch.nn.Parameter(torch.ones(3))]
-    for name in ("Adam", "AdamW"):
-        opt, _, _ = build_optimizer(p, dict(optimizer=name, fused=True),
-                                    grad_clip=5.0)
-        assert isinstance(opt, FusedAdam) and opt.clips_grads
-        assert opt.decoupled == (name == "AdamW") and opt.grad_clip == 5.0
+    for name, cls in (("Adam", torch.optim.Adam),
+                      ("AdamW", torch.optim.AdamW)):
+        opt, _, _ = build_optimizer(p, dict(optimizer=name, fused=True))
+        assert type(opt) is cls and opt.defaults["fused"]
+        plain, _, _ = build_optimizer(p, dict(optimizer=name))
+        assert plain.defaults["fused"] is None \
+            and plain.defaults["foreach"] is None
     p[0].grad = torch.ones(3)
     opt.step()
     again, _, _ = build_optimizer(p, dict(optimizer="AdamW", fused=True))
     again.load_state_dict(opt.state_dict())
-    assert again.state[p[0]]["step"] == 1
+    assert int(again.state[p[0]]["step"]) == 1
     sgd, _, _ = build_optimizer(p, dict(optimizer="SGD", fused=True))
     assert isinstance(sgd, torch.optim.SGD)
 

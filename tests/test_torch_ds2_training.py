@@ -383,8 +383,7 @@ def test_new_modules_run_without_jax(tmp_path):
         model = build_model("deepspeech2", 80, 10,
                             encoder_conf=dict(num_rnn_layers=2, rnn_size=16))
         opt, sched, _ = build_optimizer(
-            model.parameters(), dict(optimizer="AdamW", fused=True),
-            grad_clip=5.0)
+            model.parameters(), dict(optimizer="AdamW", fused=True))
         state = TrainState(model, opt, sched, frontend=make_device_frontend(
             dict(feature_method="fbank", n_mels=80), dict(F=5, T=5),
             dict(max_t=3, num_t_sub=2)))
