@@ -303,6 +303,38 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     host fbank (1e-3), one fused Adam update vs the unfused
                     one on the card (1e-6), the same launches per step, the
                     step wall median
+ 44. bf16_kernels   rows 1, 2 and 5 in their bf16 modes (masr_tpu's compute
+                    dtype bf16) vs their bf16 twins at flagship width, the
+                    shapes of phases 2, 6 and 22 (inactive slots' bf16
+                    caches bitwise unchanged; an utterance alone gives its
+                    batch slice's bits): max abs err <= 8 bf16 roundings
+                    (2^-8) of the largest output, mean <= one; each timed
+                    (CUDA events) beside its f32 kernel, its bf16 twin and
+                    the library (torch.matmul bf16 of the layer's products;
+                    SDPA bf16 for row 5), with its bf16 bound (989 TFLOP/s
+                    or 3.35 TB/s); the subsampling's bf16 product
+                    (serving_product, K 4864) vs its twin at 32 windows, one
+                    and 8 utterances, each window's bits alone == its rows
+                    of the batch, timed beside torch.matmul bf16
+ 45. bf16_offline   phase 3's flagship read by InferencePredictor(dtype=
+                    bf16): predict of the 8 utterances launches row 1's bf16
+                    mode 12 times, the product once and nothing else; the
+                    card's bf16 probs
+                    stray from f32 at most twice as far as the CPU's bf16
+                    twin route, no argmax flip past that margin; walls
+                    beside f32; the example bundle's held-out sentences at
+                    bf16 (>= 2 of 3), against f32
+ 46. bf16_stream    the bf16 predictor under predict_stream (12 row-2 bf16
+                    launches and 1 product a window; fused frontend whole ==
+                    pieces) and a 32-stream BatchStreamSession (bf16 slot
+                    state, 12 bf16 launches and 1 product a dispatch, texts
+                    == the single streams', the margin rule below; the
+                    example bundle's 8 engine streams == its single
+                    streams); window latency, tick
+ 47. bf16_static    phase 23's static-chunk flagship at bf16: encodes of the
+                    8 and of the 4 long utterances launch row 5's bf16 mode
+                    12 times, the product once and row 1 never; probs as
+                    phase 45's
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -834,15 +866,27 @@ def layer_bound(layer, lens, T):
     return {**_bound(flops, nbytes), **_bound_3xtf32(flops, nbytes)}
 
 
-def chunk_bound(layer, clens, active, c, C, rep=1):
+def window_rows(starts, L):
+    """Distinct rows that windows of L rows at `starts` read from one
+    position table (the table route: the slots' windows overlap)."""
+    rows = set()
+    for s in starts.tolist():
+        rows.update(range(s, s + L))
+    return len(rows)
+
+
+def chunk_bound(layer, clens, active, c, C, rep=1, pos_rows=None):
     """One chunk-layer call (n_sub = 1) over B slots at the layer's rate:
     matmuls over B*c rows (pw1 over the k-1+c conv-input rows), attention
     of each slot over its cache_len valid cache keys and the c chunk keys;
     bytes: packed weights, x in and out, the valid cache rows read, the
     fresh rows (rep copies each) and cnn caches of active slots written,
-    each slot's position window, cnn caches read."""
+    the position rows read (pos_rows: the distinct rows of the table route,
+    window_rows; else one window of C + c per slot), cnn caches read."""
     D, F, K = _widths(layer)
     B = len(clens)
+    if pos_rows is None:
+        pos_rows = B * (C + c)
     M, W = B * c, K - 1 + c
     flops = (8 * M * D * F + 8 * M * D * D + 4 * B * W * D * D
              + 2 * M * D * D + 2 * M * D * K
@@ -852,7 +896,7 @@ def chunk_bound(layer, clens, active, c, C, rep=1):
         2 * M * D                                 # x in, out
         + sum(clens) * 2 * D                      # valid [K|V] cache rows
         + n_act * min(c, C) * 2 * D * rep         # fresh rows written
-        + B * (C + c) * D                         # position windows
+        + pos_rows * D                            # position rows
         + (B + n_act) * (K - 1) * D)              # cnn caches in, out
     return {**_bound(flops, nbytes), **_bound_3xtf32(flops, nbytes)}
 
@@ -1235,15 +1279,18 @@ def time_chunk(layer, args):
     return runs, err
 
 
-def engine_tick(dev, path, wavs, B):
+def engine_tick(dev, path, wavs, B, dtype=None):
     """Engine tick wall at B active slots, each given one window (0.64 s)
     per feed_many, 13 ticks: tick and dispatch times, median of ticks 4-13,
-    and the real-time factor B x 0.64 s / tick."""
+    and the real-time factor B x 0.64 s / tick (dtype bf16: the bf16
+    predictor's engine)."""
     from masr_tpu_torch.infer.batch_stream import BatchStreamSession
     from masr_tpu_torch.infer.predictor import MASRPredictor
     need = FIRST_WINDOW_SAMPLES + 12 * STRIDE_SAMPLES
     long_wavs = [np.tile(w, -(-need // len(w)))[:need] for w in wavs]
-    gpu = MASRPredictor(model_dir=path, device=dev, fused_frontend=False)
+    gpu = (bf16_predictor(path, dev, fused_frontend=False) if dtype
+           else MASRPredictor(model_dir=path, device=dev,
+                              fused_frontend=False))
     sess = BatchStreamSession(
         gpu.predictor, gpu._vocab_list, max_streams=B,
         preprocess_conf=gpu.predictor.meta["preprocess_conf"])
@@ -1274,13 +1321,14 @@ def engine_tick(dev, path, wavs, B):
             "x_real_time": B * 0.64 / tick}
 
 
-def window_latency(dev, path, wavs):
+def window_latency(dev, path, wavs, dtype=None):
     """predict_stream window latency at B = 1, fused frontend, 12 windows
-    of 0.64 s after the first."""
+    of 0.64 s after the first (dtype bf16: the bf16 predictor's)."""
     from masr_tpu_torch.infer.predictor import MASRPredictor
     need = FIRST_WINDOW_SAMPLES + 12 * STRIDE_SAMPLES
     wav = np.tile(wavs[7], -(-need // len(wavs[7])))[:need]
-    one = MASRPredictor(model_dir=path, device=dev)
+    one = (bf16_predictor(path, dev) if dtype
+           else MASRPredictor(model_dir=path, device=dev))
     lat = []
     one.predict_stream(wav[:FIRST_WINDOW_SAMPLES])
     for t in range(12):
@@ -1305,7 +1353,8 @@ def phase_stream_times(dev, path, wavs, smi):
                         [CACHE + 64 * s for s in range(B)], active, "table",
                         5, dev)
     runs, err = time_chunk(layer, args)
-    bound = chunk_bound(layer, clens, active, CHUNK, CACHE)
+    bound = chunk_bound(layer, clens, active, CHUNK, CACHE,
+                        pos_rows=window_rows(args[2], CACHE + CHUNK))
     # and predict_stream's shape: one slot
     one_runs, one_err = time_chunk(layer, chunk_inputs(
         layer, 1, CHUNK, [CACHE], [5], [CACHE + 64], [1], "exact", 6, dev))
@@ -1878,11 +1927,12 @@ def train_and_resume(config, corpus, root, family, step_launches):
     with clocked_train_steps(rows, family):
         t0 = time.perf_counter()
         MASRTrainer(config(corpus, root, TRAIN_EPOCHS),
-                    device="cuda").train(save_model_path=save)
+                    device="cuda").train(save_model_path=save,
+                                         augment_conf_path=None)
         first_s = time.perf_counter() - t0
         resumed = MASRTrainer(config(corpus, root, TRAIN_EPOCHS + 1),
                               device="cuda")
-        resumed.train(save_model_path=save)
+        resumed.train(save_model_path=save, augment_conf_path=None)
     launches = train_launches(family)
     steps = TRAIN_STEPS_PER_EPOCH * (TRAIN_EPOCHS + 1)
     check(len(rows) == steps and resumed.state.step == steps,
@@ -2297,7 +2347,8 @@ def phase_sq_train(dev, corpus):
     reset_train_launches()
     flash_kernel().launches = 0
     with clocked_train_steps(bn_rows, "squeezeformer"):
-        bn.train(save_model_path=os.path.join(bn_root, "models"))
+        bn.train(save_model_path=os.path.join(bn_root, "models"),
+                 augment_conf_path=None)
     bn_launches = train_launches("squeezeformer")
     # the validation pass (no grad) runs the eager attention through the
     # flash kernel; a train step records autograd, so it never does
@@ -4401,7 +4452,7 @@ def phase_eff_train(dev, corpus, smi):
     reset_train_launches()
     with clocked_train_steps(rows, "efficient_conformer"):
         trainer = MASRTrainer(conf, device="cuda")
-        trainer.train(save_model_path=save)
+        trainer.train(save_model_path=save, augment_conf_path=None)
     step = (2 * EFF_TAIL, EFF_TAIL, 2, 1)
     check(len(rows) == TRAIN_STEPS_PER_EPOCH, f"{len(rows)} steps")
     for i, r in enumerate(rows):
@@ -4647,7 +4698,7 @@ def phase_ds2_train(dev, corpus, wavs, smi):
     reset_all_launches()
     with clocked_train_steps(rows):
         trainer = tr.MASRTrainer(conf, device=dev)
-        trainer.train(save_model_path=save)
+        trainer.train(save_model_path=save, augment_conf_path=None)
     run = all_launches()
     check(len(rows) == TRAIN_STEPS_PER_EPOCH, f"{len(rows)} steps")
     for i, r in enumerate(rows):
@@ -4903,6 +4954,658 @@ def phase_train_device_frontend(dev, half, smi):
           "seconds": time.perf_counter() - t_phase})
 
 
+# --------------------------------------------------------------------------- #
+# bf16 serving of the Conformer (phases 44-47): rows 1, 2 and 5 in their
+# bf16 modes (masr_tpu's compute dtype bf16), through InferencePredictor
+# (dtype=torch.bfloat16) and BatchStreamSession
+# --------------------------------------------------------------------------- #
+BF16 = torch.bfloat16
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores
+BF16_ROUNDING = 2.0 ** -8     # one bf16 rounding of a value, relative
+
+
+def bf16_close(got, want, what):
+    """A bf16 kernel vs its bf16 twin on the same card: both round the same
+    operands at the same points and sum in f32 in other orders (and the
+    kernels' attentions round unnormalised probabilities), so a rounding
+    flips here and there. Max abs err <= 8 roundings of the largest output,
+    mean abs err <= one rounding of the mean magnitude (the card tests'
+    _assert_bf16_close). → max abs err."""
+    check(got.dtype == want.dtype == BF16, f"bf16 outputs ({what})")
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"bf16 output finite ({what})")
+    err = (got - want).abs()
+    top = max(1.0, want.abs().max().item())
+    mean = max(2 ** -4, want.abs().mean().item())
+    check(err.max().item() <= 8 * BF16_ROUNDING * top, f"bf16 kernel vs "
+          f"twin max abs err {err.max().item()} <= 8 roundings of {top} "
+          f"({what})")
+    check(err.mean().item() <= BF16_ROUNDING * mean, f"bf16 kernel vs twin "
+          f"mean abs err {err.mean().item()} <= a rounding of {mean} "
+          f"({what})")
+    return err.max().item()
+
+
+def reset_bf16_launches():
+    from masr_tpu_torch.ops.cuda.chunk_layer import serving_product
+    for fn in (layer_kernel("conformer"), chunk_kernel("conformer"),
+               flash_kernel()):
+        fn.bf16_launches = 0
+    serving_product.launches = 0
+
+
+def product_launches():
+    from masr_tpu_torch.ops.cuda.chunk_layer import serving_product
+    return serving_product.launches
+
+
+def _bound_bf16(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _bf16_pack_bytes(layer):
+    return sum(t.numel() * t.element_size()
+               for t in layer.packed_params(BF16).values())
+
+
+def layer_bound_bf16(layer, lens, T):
+    """layer_bound's operations over the bf16 dense rate; bytes: the bf16
+    pack (bf16 products, f32 rows), x in, out and pos_p in bf16."""
+    D = layer.size
+    f32 = layer_bound(layer, lens, T)
+    nbytes = _bf16_pack_bytes(layer) + 2 * (2 * len(lens) * T * D + T * D)
+    return _bound_bf16(f32["gflop"] * 1e9, nbytes)
+
+
+def chunk_bound_bf16(layer, clens, active, c, C, pos_rows=None):
+    """chunk_bound's operations over the bf16 dense rate; its bytes with
+    the bf16 pack and bf16 x, out, cache rows and position rows (pos_rows
+    as chunk_bound's)."""
+    D, F, K = _widths(layer)
+    B, M = len(clens), len(clens) * c
+    if pos_rows is None:
+        pos_rows = B * (C + c)
+    n_act = sum(bool(a) for a in active)
+    flops = chunk_bound(layer, clens, active, c, C)["gflop"] * 1e9
+    nbytes = _bf16_pack_bytes(layer) + 2 * (
+        2 * M * D + sum(clens) * 2 * D + n_act * min(c, C) * 2 * D
+        + pos_rows * D + (B + n_act) * (K - 1) * D)
+    return _bound_bf16(flops, nbytes)
+
+
+def flash_bound_bf16(mask, B, H, T, d):
+    """flash_bound's visible-pair operations over the bf16 dense rate;
+    bytes: q, k, v, out, p in bf16 and the mask, each once."""
+    pairs = int(mask.sum())
+    return _bound_bf16(6 * d * H * pairs,
+                       2 * (4 * B * H * T * d + H * T * d) + B * T * T)
+
+
+def products_ms(M, D, F_, dev, rows_pw1=None):
+    """One torch.matmul (cuBLAS) bf16 call per product of a serving layer
+    at its shapes, the library yardstick of rows 1 and 2 (timed here, used
+    nowhere in the port): FFN w_1 and w_2 twice, q/k/v (N = 3D), out, pw1
+    (over rows_pw1 rows, N = 2D), pw2. → CUDA-event ms of the eight."""
+    g = torch.Generator().manual_seed(3)
+    shapes = [(M, D, F_), (M, F_, D)] * 2 + [
+        (M, D, 3 * D), (M, D, D), (rows_pw1 or M, D, 2 * D), (M, D, D)]
+    pairs = [(torch.randn(m, k, generator=g).to(dev, BF16),
+              torch.randn(k, n, generator=g).to(dev, BF16))
+             for m, k, n in shapes]
+
+    def run():
+        return [a @ b for a, b in pairs]
+
+    with torch.no_grad():
+        return [cuda_ms(run), cuda_ms(run)]
+
+
+def bf16_layer_args(layer, lens, T, seed, dev):
+    x, lens_t, _ = layer_inputs(layer, lens, T, seed, dev)
+    from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+    with torch.no_grad():
+        pos_p = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            torch.arange(T, device=dev), layer.size).to(BF16))
+    return x.to(BF16), lens_t, pos_p
+
+
+def run_layer_bf16(fn, layer, x, lens, pos_p):
+    # the main path's bf16 pack: bf16 products, f32 rows
+    return fn(x, lens, pos_p, layer.chunk_packed_params(BF16),
+              n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
+              causal=layer.causal)
+
+
+def bf16_chunk_args(layer, B, c, clens, wptrs, offsets, active, route,
+                    seed, dev):
+    """chunk_inputs in the bf16 mode: bf16 chunk, ring, cnn cache and
+    positions (the bf16 table or linear_pos of the bf16 sinusoid), the
+    layer's bf16 serving pack."""
+    from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+    from masr_tpu_torch.ops.cuda import chunk_layer as ck
+    x, _, starts, att, cnn, *ints, _ = chunk_inputs(
+        layer, B, c, clens, wptrs, offsets, active, "exact", seed, dev)
+    L = CACHE + c
+    with torch.no_grad():
+        if route == "table":
+            pos = ck.make_chunk_pos_table(layer.self_attn.linear_pos.weight,
+                                          CACHE, 8192, BF16)
+            starts = ck.clamp_pos_starts(ints[2].new_tensor(offsets), 8192,
+                                         L)
+        else:
+            rows = torch.clamp(torch.tensor(offsets, device=dev)[:, None]
+                               - CACHE + torch.arange(L, device=dev), min=0)
+            pos = layer.self_attn.linear_pos(sinusoid_position_encoding(
+                rows.reshape(-1), layer.size).to(BF16))
+    return (x.to(BF16), pos, starts, att.to(BF16), cnn.to(BF16), *ints,
+            layer.chunk_packed_params(BF16))
+
+
+def phase_bf16_kernels(dev, smi):
+    """44. Rows 1, 2 and 5 in their bf16 modes vs their bf16 twins at the
+    flagship width (the shapes of phases 2, 6 and 22), then each timed
+    (CUDA events) beside its f32 kernel, its bf16 twin and the library:
+    torch.matmul bf16 of the layer's products (rows 1, 2), SDPA bf16
+    (row 5). → {row: numbers for the kernels line}."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.ops.cuda import chunk_layer as ck
+    from masr_tpu_torch.ops.cuda import conformer_layer as cl
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    out, cases = {}, {"row1": [], "row2": [], "row5": []}
+    # row 1: T' 37, 299, 1500, B=4 ragged, causal and not
+    worst1 = 0.0
+    for T in (37, 299, 1500):
+        lens = [T, T - 17, 5, 0]
+        for causal in (True, False):
+            layer = seeded_layer(T, causal, dev)
+            x, lens_t, pos_p = bf16_layer_args(layer, lens, T, T + 1, dev)
+            with torch.no_grad():
+                got = run_layer_bf16(cl.fused_conformer_layer, layer, x,
+                                     lens_t, pos_p)
+                want = run_layer_bf16(cl.fused_conformer_layer_plain, layer,
+                                      x, lens_t, pos_p)
+            torch.cuda.synchronize()
+            what = f"row 1 bf16, T'={T}, causal={causal}"
+            err = max(bf16_close(got[b, :n], want[b, :n], what)
+                      for b, n in enumerate(lens) if n)
+            bits = utterance_bits_match(
+                lambda m, *a: run_layer_bf16(cl.fused_conformer_layer, m,
+                                             *a),
+                layer, x, lens_t, pos_p, got, what) if T == 299 else 0
+            cases["row1"].append({"T": T, "causal": causal,
+                                  "max_abs_err": err, "b1_bits_equal": bits})
+            worst1 = max(worst1, err)
+    # row 2: the engine's 32 slots (table, exact, two sub-chunks) and one
+    worst2 = 0.0
+    layer = seeded_layer(11, True, dev)
+    for B, c, n_sub, route in ((32, 16, 1, "table"), (32, 16, 1, "exact"),
+                               (32, 32, 2, "table"), (1, 16, 1, "exact")):
+        clens = [(0, 5, 100, CACHE)[s % 4] for s in range(B)]
+        wptrs = [(37 * s) % CACHE for s in range(B)]
+        offsets = [n + 16 * s if n else 0 for s, n in enumerate(clens)]
+        active = [0 if s in (3, 10, 17, 29) else 1 for s in range(B)]
+        args = bf16_chunk_args(layer, B, c, clens, wptrs, offsets, active,
+                               route, B + c, dev)
+        att0, cnn0 = args[3], args[4]
+        with torch.no_grad():
+            res = {}
+            for name, fn in (("kernel", ck.fused_chunk_layer),
+                             ("plain", ck.fused_chunk_layer_plain)):
+                a = args[:3] + (att0.clone(), cnn0.clone()) + args[5:]
+                res[name] = (run_chunk(fn, layer, a, n_sub), a[3], a[4])
+        torch.cuda.synchronize()
+        what = f"row 2 bf16, B={B}, c={c}, n_sub={n_sub}, {route}"
+        on = torch.tensor(active, device=dev) == 1
+        err = max(bf16_close(res["kernel"][0], res["plain"][0], what),
+                  bf16_close(res["kernel"][1][on], res["plain"][1][on],
+                             what + ", ring"),
+                  bf16_close(res["kernel"][2][on], res["plain"][2][on],
+                             what + ", cnn cache"))
+        check(torch.equal(res["kernel"][1][~on], att0[~on])
+              and torch.equal(res["kernel"][2][~on], cnn0[~on]),
+              f"inactive slots' bf16 caches bitwise unchanged ({what})")
+        bits = slot_bits_match(
+            lambda a: run_chunk(ck.fused_chunk_layer, layer, a, n_sub),
+            args, CACHE + c if route == "exact" else None) if B > 1 else 0
+        cases["row2"].append({"B": B, "c": c, "n_sub": n_sub,
+                              "route": route, "inactive": int((~on).sum()),
+                              "max_abs_err": err,
+                              "b1_bits_equal_slots": bits})
+        worst2 = max(worst2, err)
+    # row 5: masks of the static-chunk path and random ones
+    worst5 = 0.0
+    for T, d in ((37, 64), (299, 64), (1500, 64), (299, 32), (299, 128)):
+        lens = [T, T - 17, max(T // 3, 1), 0]
+        for kind in ("full", "static16", "random"):
+            mask = flash_mask(kind, lens, T, dev)
+            args = tuple(t.to(BF16) for t in
+                         flash_inputs(4, T, d, T + d, dev))
+            with torch.no_grad():
+                got = rpa.rel_pos_flash_attention(*args, mask)
+                want = rpa.rel_pos_attention_plain(*args, mask)
+            torch.cuda.synchronize()
+            what = f"row 5 bf16, {kind}, T'={T}, d_k={d}"
+            err = bf16_close(got, want, what)
+            empty = ~mask.any(-1)
+            check(bool((got.transpose(1, 2)[empty] == 0).all()),
+                  f"rows with no visible key exactly 0 ({what})")
+            cases["row5"].append({"T": T, "d_k": d, "mask": kind,
+                                  "max_abs_err": err})
+            worst5 = max(worst5, err)
+    # times at the main paths' shapes
+    times = {}
+    T, lens = 299, [299] * 8
+    layer = seeded_layer(7, True, dev)
+    x32, lens_t, pos32 = layer_inputs(layer, lens, T, 8, dev)
+    x, _, pos_p = bf16_layer_args(layer, lens, T, 8, dev)
+    with torch.no_grad():
+        runs = alternate(
+            lambda: run_layer_bf16(cl.fused_conformer_layer, layer, x,
+                                   lens_t, pos_p),
+            lambda: run_layer(cl.fused_conformer_layer, layer, x32, lens_t,
+                              pos32))
+        plain = [cuda_ms(lambda: run_layer_bf16(
+            cl.fused_conformer_layer_plain, layer, x, lens_t, pos_p), 5)]
+        err = bf16_close(run_layer_bf16(cl.fused_conformer_layer, layer, x,
+                                        lens_t, pos_p),
+                         run_layer_bf16(cl.fused_conformer_layer_plain,
+                                        layer, x, lens_t, pos_p),
+                         "row 1 bf16, timed shape")
+    lib = products_ms(8 * T, 256, 2048, dev)
+    times["row1"] = {"B": 8, "T": T, "bf16_ms": runs["kernel"],
+                     "f32_ms": runs["plain"], "bf16_plain_ms": plain,
+                     "matmul_bf16_ms": lib, "max_abs_err": err,
+                     **layer_bound_bf16(layer, lens, T)}
+    out["row1"] = {"ms": float(np.mean(runs["kernel"])),
+                   "plain_ms": plain[0], "library_ms": float(np.mean(lib)),
+                   "max_abs_err": max(worst1, err),
+                   **layer_bound_bf16(layer, lens, T)}
+    B = ENGINE_STREAMS
+    layer = seeded_layer(13, True, dev)
+    clens, active = [CACHE] * B, [1] * B
+    wp, offs = [(37 * s) % CACHE for s in range(B)], [CACHE + 64 * s
+                                                       for s in range(B)]
+    args = bf16_chunk_args(layer, B, CHUNK, clens, wp, offs, active, "table",
+                           5, dev)
+    args32 = chunk_inputs(layer, B, CHUNK, clens, wp, offs, active, "table",
+                          5, dev)
+    with torch.no_grad():
+        runs = alternate(
+            lambda: run_chunk(ck.fused_chunk_layer, layer, args),
+            lambda: run_chunk(ck.fused_chunk_layer, layer, args32))
+        plain = [cuda_ms(lambda: run_chunk(ck.fused_chunk_layer_plain, layer,
+                                           args), 5)]
+    lib = products_ms(B * CHUNK, 256, 2048, dev,
+                      rows_pw1=B * (layer.cnn_module_kernel - 1 + CHUNK))
+    bound = chunk_bound_bf16(layer, clens, active, CHUNK, CACHE,
+                             pos_rows=window_rows(args[2], CACHE + CHUNK))
+    times["row2"] = {"B": B, "c": CHUNK, "C": CACHE,
+                     "bf16_ms": runs["kernel"], "f32_ms": runs["plain"],
+                     "bf16_plain_ms": plain, "matmul_bf16_ms": lib, **bound}
+    out["row2"] = {"ms": float(np.mean(runs["kernel"])),
+                   "plain_ms": plain[0], "library_ms": float(np.mean(lib)),
+                   "max_abs_err": worst2, **bound}
+    B, H, d, T = 8, 4, 64, 1500
+    lens = [int(n) for n in np.linspace(T, round(0.533 * T), B).round()]
+    mask = flash_mask("static16", lens, T, dev)
+    args32 = flash_inputs(B, T, d, 40 + T, dev)
+    args = tuple(t.to(BF16) for t in args32)
+    q, k, v, p, bu, bv = args
+    q_cat = torch.cat([q + bu[None, :, None], q + bv[None, :, None]], dim=-1)
+    k_cat = torch.cat([k, p[None].expand(B, -1, -1, -1)], dim=-1)
+    with torch.no_grad():
+        err = bf16_close(rpa.rel_pos_flash_attention(*args, mask),
+                         rpa.rel_pos_attention_plain(*args, mask),
+                         "row 5 bf16, timed shape")
+        runs = alternate(lambda: rpa.rel_pos_flash_attention(*args, mask),
+                         lambda: rpa.rel_pos_flash_attention(*args32, mask))
+        plain = [cuda_ms(lambda: rpa.rel_pos_attention_plain(*args, mask),
+                         5)]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q_cat, k_cat, v, attn_mask=mask[:, None],
+                scale=1.0 / d ** 0.5)
+        lib = [cuda_ms(library), cuda_ms(library)]
+        backend = sdpa_backend(library)
+    times["row5"] = {"B": B, "T": T, "lens": lens, "mask": "static chunk 16",
+                     "bf16_ms": runs["kernel"], "f32_ms": runs["plain"],
+                     "bf16_plain_ms": plain, "sdpa_bf16_ms": lib,
+                     "sdpa_backend": backend, "max_abs_err": err,
+                     **flash_bound_bf16(mask, B, H, T, d)}
+    out["row5"] = {"ms": float(np.mean(runs["kernel"])),
+                   "plain_ms": plain[0], "library_ms": float(np.mean(lib)),
+                   "max_abs_err": max(worst5, err),
+                   **flash_bound_bf16(mask, B, H, T, d)}
+    out["product"], cases["product"], times["product"] = \
+        bf16_product_kernel(dev)
+    emit({"phase": "bf16_kernels", "card": smi,
+          "rule": "max abs err <= 8 bf16 roundings (2^-8) of the largest "
+                  "output, mean <= one of the mean magnitude",
+          "cases": cases, "times": times})
+    return out
+
+
+def bf16_product_kernel(dev):
+    """The subsampling's bf16 output product (serving_product, K = 256 x 19
+    = 4864, N = 256) against its twin at the main paths' rows: 32 windows
+    of 16 (the engine's dispatch), one window, 8 utterances of 299 frames;
+    every window's (utterance's) bits from a call of its own rows equal
+    its rows of the batched call; timed at 32 windows beside its twin and
+    torch.matmul bf16 (cuBLAS, the call it replaces). → (kernels-line
+    numbers, cases, times)."""
+    from masr_tpu_torch.ops.cuda.chunk_layer import (serving_product,
+                                                     serving_product_plain)
+    K, N = 256 * 19, 256
+    g = torch.Generator().manual_seed(44)
+    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(dev, BF16)
+    cases, worst = [], 0.0
+    for B, T in ((32, CHUNK), (1, CHUNK), (8, 299)):
+        x = torch.relu(torch.randn(B, T, K, generator=g)).to(dev, BF16)
+        with torch.no_grad():
+            got = serving_product(x, w)
+            err = bf16_close(got, serving_product_plain(x, w),
+                             f"serving product bf16, {B} x {T} rows")
+            for b in range(B if B > 1 else 0):
+                check(torch.equal(serving_product(x[b:b + 1], w),
+                                  got[b:b + 1]),
+                      f"serving product: block {b}'s bits alone == its rows "
+                      f"of the {B} x {T} call")
+        cases.append({"B": B, "T": T, "max_abs_err": err,
+                      "b1_bits_equal": B if B > 1 else 0})
+        worst = max(worst, err)
+    B, T = ENGINE_STREAMS, CHUNK
+    x = torch.relu(torch.randn(B, T, K, generator=g)).to(dev, BF16)
+    M = B * T
+    with torch.no_grad():
+        runs = alternate(lambda: serving_product(x, w),
+                         lambda: serving_product_plain(x, w))
+        lib = [cuda_ms(lambda: x @ w), cuda_ms(lambda: x @ w)]
+    bound = _bound_bf16(2 * M * N * K, 2 * (M * K + K * N + M * N))
+    times = {"M": M, "N": N, "K": K, "bf16_ms": runs["kernel"],
+             "bf16_plain_ms": runs["plain"], "matmul_bf16_ms": lib, **bound}
+    return ({"ms": float(np.mean(runs["kernel"])),
+             "plain_ms": float(np.mean(runs["plain"])),
+             "library_ms": float(np.mean(lib)), "max_abs_err": worst,
+             **bound}, cases, times)
+
+
+def bf16_predictor(path, dev, **kw):
+    """A MASRPredictor (host featurizer, greedy decoding, predict_stream)
+    whose InferencePredictor is the bf16 one, InferencePredictor(path,
+    dtype=torch.bfloat16): masr_tpu's bf16 serving entry point (its
+    MASRPredictor, as the port's, takes no dtype)."""
+    from masr_tpu_torch.infer.inference_model import InferencePredictor
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    pred = MASRPredictor(model_dir=path, device=dev, warmup=False, **kw)
+    pred.predictor = InferencePredictor(path, device=dev, dtype=BF16)
+    return pred
+
+
+def bf16_probs_vs_cpu(ip, path, speech, lens, f32_probs, what):
+    """The card's bf16 probs against the CPU's bf16 twin route on the same
+    features, each against the card's f32 probs: the card's bf16 route
+    may stray from f32 at most twice as far as the CPU's (max abs over the
+    valid frames; the two bf16 routes round alike and sum in other orders,
+    while a kernel fault moves probs far past bf16's distance), and no
+    argmax flips between the two bf16 routes where the CPU's top-2 margin
+    exceeds that bound. → (max abs err card vs CPU, the CPU's bf16
+    distance from f32, the card's, frames compared)."""
+    from masr_tpu_torch.infer.inference_model import InferencePredictor
+    p_gpu, l_gpu = ip.predict(speech, lens)
+    cpu = InferencePredictor(path, device="cpu", dtype=BF16)
+    p_cpu, l_cpu = cpu.predict(speech, lens)
+    check((l_gpu == l_cpu).all() and p_gpu.shape == p_cpu.shape,
+          f"bf16 probs shape and lengths card == CPU ({what})")
+    check(np.isfinite(p_gpu).all() and p_gpu.dtype == np.float32,
+          f"bf16 probs finite f32 ({what})")
+    err = d_cpu = d_card = 0.0
+    for b, n in enumerate(l_cpu):
+        g, c, f = p_gpu[b, :n], p_cpu[b, :n], f32_probs[b, :n]
+        err = max(err, float(np.abs(g - c).max()))
+        d_cpu = max(d_cpu, float(np.abs(c - f).max()))
+        d_card = max(d_card, float(np.abs(g - f).max()))
+    check(d_card <= 2 * d_cpu, f"the card's bf16 probs {d_card} from f32 <= "
+          f"twice the CPU bf16 route's {d_cpu} ({what})")
+    compared = 0
+    for b, n in enumerate(l_cpu):
+        top2 = np.sort(p_cpu[b, :n], axis=-1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 2 * d_cpu
+        flips = int((p_gpu[b, :n].argmax(-1)
+                     != p_cpu[b, :n].argmax(-1))[sure].sum())
+        check(flips == 0, f"{flips} argmax flips past a top-2 margin of "
+              f"{2 * d_cpu} ({what})")
+        compared += int(sure.sum())
+    return err, d_cpu, d_card, compared
+
+
+def phase_bf16_offline(dev, gpu, wavs):
+    """45. The seeded flagship (phase 3's bundle) read by
+    InferencePredictor(dtype=bf16): predict of the 8 utterances launches
+    row 1's bf16 mode once per layer (no other row, no f32 launch) and the
+    subsampling's product once, probs vs the CPU's bf16 twin route; walls
+    beside f32; the example bundle's held-out sentences read at bf16
+    against f32. → the main path's bf16 launches."""
+    from masr_tpu_torch.infer.inference_model import InferencePredictor
+    path = gpu.model_dir
+    speech, lens = gpu.featurize_batch(wavs)
+    ip = InferencePredictor(path, device=dev, dtype=BF16)
+    ip.predict(speech[:1], lens[:1])                      # warm
+    reset_launches()
+    reset_bf16_launches()
+    t0 = time.perf_counter()
+    ip.predict(speech, lens)
+    first = time.perf_counter() - t0
+    fn = layer_kernel("conformer")
+    launches = (fn.launches, fn.bf16_launches, flash_kernel().launches,
+                chunk_kernel("conformer").launches, product_launches())
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    check(launches == (n, n, 0, 0, 1), f"bf16 predict launches {launches} "
+          f"== ({n}, {n}, 0, 0, 1): row 1 (all bf16), flash, chunk, the "
+          "subsampling's product")
+    p32, _ = gpu.predictor.predict(speech, lens)
+    err, dist, d_card, compared = bf16_probs_vs_cpu(ip, path, speech, lens,
+                                                    p32, "flagship")
+    walls = {"bf16": [], "f32": []}
+    for _ in range(3):
+        for name, pred in (("bf16", ip), ("f32", gpu.predictor)):
+            t0 = time.perf_counter()
+            pred.predict(speech, lens)
+            walls[name].append(time.perf_counter() - t0)
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    tts = SyntheticTTS(sample_rate=16000)
+    f32 = MASRPredictor(model_dir=TINY_BUNDLE, device=dev, warmup=False)
+    bf = bf16_predictor(TINY_BUNDLE, dev)
+    rows = []
+    for text, spk in HELD_OUT:
+        wav = tts.render(text, spk_id=spk)
+        reset_bf16_launches()
+        got = bf.predict(wav)["text"]
+        check((layer_kernel("conformer").bf16_launches,
+               product_launches()) == (2, 1), "example bundle bf16: 2 row-1 "
+              "bf16 launches and 1 product launch per predict")
+        rows.append((text, got, f32.predict(wav)["text"]))
+    exact = sum(want == got for want, got, _ in rows)
+    check(exact >= 2, f"example bundle at bf16 read {exact}/3 held-out "
+          "sentences")
+    emit({"phase": "bf16_offline", "launches": launches[1],
+          "probs_max_abs_err_card_vs_cpu": err,
+          "probs_cpu_bf16_vs_f32_max_abs": dist,
+          "probs_card_bf16_vs_f32_max_abs": d_card,
+          "argmax_frames_compared": compared,
+          "predict_s": walls, "first_predict_s": first,
+          "example_bundle": {"exact": exact, "of": len(rows),
+                             "texts_equal_f32": sum(g == f for _, g, f
+                                                    in rows),
+                             "texts": [g for _, g, _ in rows]}})
+    return launches[1]
+
+
+def phase_bf16_stream(dev, path, wavs, smi):
+    """46. chunk_step and BatchStreamSession(max_streams=32) in bf16 on the
+    flagship stream bundle: each single stream (InferencePredictor bf16
+    under predict_stream, host frontend) launches row 2's bf16 mode 12
+    times a window and the subsampling's product once; the 32-stream
+    engine 12 bf16 launches and one product per dispatch, its texts == the
+    single streams' (the top-2 margin rule, ARGMAX_MARGIN: every bf16 part
+    of a window's path gives a window's bits alone as in the batch); the
+    trained example bundle's 8 engine streams == its single streams'; the
+    fused frontend whole == in 0.2 s pieces; window latency at B=1 and the
+    engine tick at 32 slots in bf16, beside f32's. → (the engine's bf16
+    launches, its product launches), and the ticks and windows by
+    dtype."""
+    from masr_tpu_torch.infer.batch_stream import BatchStreamSession
+    n = CHUNK_LAUNCHES["conformer"]
+    one = bf16_predictor(path, dev, fused_frontend=False)
+    check(one.predictor.model.encoder.compute_dtype == BF16, "bf16 model")
+    refs = []
+    for w in wavs:
+        reset_bf16_launches()
+        got = stream(one, w)
+        check((chunk_kernel("conformer").bf16_launches, product_launches())
+              == (n * got["windows"], got["windows"]), f"bf16 chunk and "
+              f"product launches == {n} and 1 x {got['windows']} windows")
+        refs.append(got)
+    fused = bf16_predictor(path, dev)
+    whole, pieces = stream(fused, wavs[3]), stream(fused, wavs[3], PIECE)
+    check(whole["text"] == pieces["text"] and bool(whole["text"]),
+          "bf16 fused frontend: whole == 0.2 s pieces, not empty")
+    sess = BatchStreamSession(
+        one.predictor, one._vocab_list, max_streams=ENGINE_STREAMS,
+        preprocess_conf=one.predictor.meta["preprocess_conf"])
+    check(sess.states["att_cache"].dtype == BF16
+          and sess.states["cnn_cache"].dtype == BF16, "bf16 slot state")
+    orig, dispatches = sess._dispatch, []
+    top2 = {s: [] for s in range(ENGINE_STREAMS)}
+
+    def spy(xs, active, valids, exact):
+        rec = []
+        with record_top2(rec):
+            res = orig(xs, active, valids, exact)
+        for slot, k in valids.items():
+            top2[slot].append(rec[0][slot, :k])
+        dispatches.append(int(np.sum(active)))
+        return res
+
+    sess._dispatch = spy
+    streams = [wavs[k % len(wavs)] for k in range(ENGINE_STREAMS)]
+    slots = [sess.open() for _ in streams]
+    late = [3 * (k % 8) + k // 8 for k in range(len(streams))]
+    texts = [None] * len(streams)
+    # the main path: counts read around the engine run alone
+    reset_launches()
+    reset_bf16_launches()
+    t0 = time.perf_counter()
+    for i in range(max(len(w) // PIECE + 1 + d
+                       for w, d in zip(streams, late))):
+        items = [(s, w[(i - d) * PIECE:(i - d + 1) * PIECE],
+                  (i - d + 1) * PIECE >= len(w))
+                 for s, w, d in zip(slots, streams, late)
+                 if 0 <= i - d and (i - d) * PIECE < len(w)]
+        if items:
+            for s, r in sess.feed_many(items).items():
+                if r is not None:
+                    texts[slots.index(s)] = r["text"]
+    wall = time.perf_counter() - t0
+    fn = chunk_kernel("conformer")
+    launches = (fn.launches, fn.bf16_launches, product_launches())
+    check(launches == (n * len(dispatches),) * 2 + (len(dispatches),),
+          f"engine launches {launches} == {n} x {len(dispatches)} "
+          "dispatches, all bf16, and one product a dispatch")
+    got = [{"text": t, "ids": np.asarray(sess._decoders[s]._max_index),
+            "top2": np.concatenate(top2[s])} for s, t in zip(slots, texts)]
+    margins = [same_text(g, refs[k % len(wavs)], f"bf16 engine stream {k}")
+               for k, g in enumerate(got)]
+    for s in slots:
+        sess.close(s)
+    # the trained example bundle (confident frames): 8 streams of its
+    # held-out sentences, texts against the single streams'
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    tts = SyntheticTTS(sample_rate=16000)
+    rs = np.random.RandomState(0)
+    held = [w + 1e-3 * rs.standard_normal(len(w)).astype(np.float32)
+            for w in (tts.render(t, spk_id=k) for t, k in HELD_OUT)]
+    tiny = bf16_predictor(TINY_BUNDLE, dev, fused_frontend=False)
+    tiny_refs = [stream(tiny, w)["text"] for w in held]
+    tsess = BatchStreamSession(
+        tiny.predictor, tiny._vocab_list, max_streams=8,
+        preprocess_conf=tiny.predictor.meta["preprocess_conf"])
+    tslots = [tsess.open() for _ in range(8)]
+    ttexts = {}
+    for i in range(max(len(w) for w in held) // PIECE + 1):
+        items = [(s, held[k % 3][i * PIECE:(i + 1) * PIECE],
+                  (i + 1) * PIECE >= len(held[k % 3]))
+                 for k, s in enumerate(tslots)
+                 if i * PIECE < len(held[k % 3])]
+        for s, r in tsess.feed_many(items).items():
+            if r is not None:
+                ttexts[s] = r["text"]
+    tiny_equal = sum(ttexts.get(s) == tiny_refs[k % 3]
+                     for k, s in enumerate(tslots))
+    check(tiny_equal == 8, f"example bundle bf16 engine texts == single "
+          f"streams' ({tiny_equal} of 8)")
+    # the tick and the window beside f32's in this phase, in the order f32,
+    # bf16, bf16, f32 (the card machine's host runs slower late in a run)
+    engine, window = {"f32": [], "bf16": []}, {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        dt = BF16 if name == "bf16" else None
+        tick = engine_tick(dev, path, wavs, ENGINE_STREAMS, dtype=dt)
+        engine[name].append({k: tick[k] for k in ("tick_s_median",
+                                                  "dispatch_s_median",
+                                                  "x_real_time")})
+        win = window_latency(dev, path, wavs, dtype=dt)
+        window[name].append({k: win[k] for k in ("p50_s", "p90_s")})
+    emit({"phase": "bf16_stream", "card": smi, "streams": ENGINE_STREAMS,
+          "dispatches": len(dispatches), "launches": launches[1],
+          "texts_equal_single_stream": sum(m is None for m in margins),
+          "example_bundle_engine_texts_equal": tiny_equal,
+          "parted_margins": [m for m in margins if m is not None],
+          "single_stream_windows": sum(r["windows"] for r in refs),
+          "engine_wall_s": wall, "engine": engine, "predict_stream": window})
+    return launches[1:], engine, window
+
+
+def phase_bf16_static(dev, static_gpu, wavs, long):
+    """47. The static-chunk flagship (phase 23's bundle) read at bf16:
+    predict_batch-shaped encodes of the 8 utterances and of the 4 long
+    ones launch row 5's bf16 mode once per layer (no row 1); probs of two
+    utterances vs the CPU's bf16 twin route. → the main path's bf16
+    launches."""
+    from masr_tpu_torch.infer.inference_model import InferencePredictor
+    path = static_gpu.model_dir
+    ip = InferencePredictor(path, device=dev, dtype=BF16)
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    runs = {}
+    for name, batch in (("batch", wavs), ("long_batch", long)):
+        speech, lens = static_gpu.featurize_batch(batch)
+        # the main path: counts read around the encode alone
+        reset_launches()
+        reset_bf16_launches()
+        t0 = time.perf_counter()
+        probs, out_lens = ip.predict(speech, lens)
+        wall = time.perf_counter() - t0
+        got = (flash_kernel().launches, flash_kernel().bf16_launches,
+               layer_kernel("conformer").launches, product_launches())
+        check(got == (n, n, 0, 1), f"bf16 static launches {got} == ({n}, "
+              f"{n}, 0, 1): flash (all bf16), row 1, the product ({name})")
+        check(np.isfinite(probs).all(), f"bf16 static probs finite ({name})")
+        runs[name] = {"utterances": len(batch), "T_out": int(probs.shape[1]),
+                      "launches": got[1], "predict_s": wall}
+    speech, lens = static_gpu.featurize_batch(wavs[:2])
+    p32, _ = static_gpu.predictor.predict(speech, lens)
+    err, dist, d_card, compared = bf16_probs_vs_cpu(ip, path, speech, lens,
+                                                    p32, "static chunk")
+    emit({"phase": "bf16_static", **runs,
+          "probs_max_abs_err_card_vs_cpu": err,
+          "probs_cpu_bf16_vs_f32_max_abs": dist,
+          "probs_card_bf16_vs_f32_max_abs": d_card,
+          "argmax_frames_compared": compared})
+    return runs["batch"]["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4992,6 +5695,13 @@ def main():
     half = phase_train_aug(dev, corpus, rows, trainer, smi)
     phase_train_device_frontend(dev, half, smi)
 
+    bf16 = phase_bf16_kernels(dev, smi)
+    bf16_layer_launches = phase_bf16_offline(dev, gpu, wavs)
+    (bf16_chunk_launches, product_launched), _, _ = phase_bf16_stream(
+        dev, path, wavs, smi)
+    bf16_flash_launches = phase_bf16_static(
+        dev, static_runs["conformer"][0], wavs, static_runs["conformer"][1])
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_conformer_layer", "route": "cuda",
@@ -5050,7 +5760,34 @@ def main():
         "max_abs_err": max(flash_worst, flash_t["max_abs_err"]),
         "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
         "bound_ms": flash_t["bound_ms"], "bound_by": flash_t["bound_by"],
-        "library_ms": flash_t["library_ms"]}]})
+        "library_ms": flash_t["library_ms"]}] + [{
+        "name": name + " (bf16 mode)", "route": "cuda",
+        "source": f"masr_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+        "launches": launched, "max_abs_err": bf16[row]["max_abs_err"],
+        "ms": bf16[row]["ms"], "plain_ms": bf16[row]["plain_ms"],
+        "bound_ms": bf16[row]["bound_ms"],
+        "bound_by": bf16[row]["bound_by"],
+        "library_ms": bf16[row]["library_ms"]}
+        for name, src, replaces, row, launched in (
+            ("fused_conformer_layer", "conformer_layer",
+             "masr_tpu/ops/pallas/conformer_layer.py:188", "row1",
+             bf16_layer_launches),
+            ("fused_chunk_layer", "chunk_layer",
+             "masr_tpu/ops/pallas/chunk_layer.py:412", "row2",
+             bf16_chunk_launches),
+            ("rel_pos_flash_attention", "rel_pos_attention",
+             "masr_tpu/ops/pallas/attention.py:122", "row5",
+             bf16_flash_launches))] + [{
+        # no Pallas kernel: the XLA dot of flax's Dense there, made a
+        # kernel of the port so that a window's bits do not depend on the
+        # engine's batch
+        "name": "serving_product (bf16 mode)", "route": "cuda",
+        "source": "masr_tpu_torch/csrc/chunk_layer.cu",
+        "replaces": "masr_tpu/models/subsampling.py:69",
+        "launches": product_launched, **{
+            k: bf16["product"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

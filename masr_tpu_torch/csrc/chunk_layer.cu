@@ -1,5 +1,5 @@
 // Streaming chunk step of a Conformer encoder layer over B slots, for Hopper
-// (sm_90a), forward only, f32.
+// (sm_90a), forward only, f32 or (its bf16 mode, below) bf16.
 //
 // Replaces the TPU kernel masr_tpu/ops/pallas/chunk_layer.py:412
 // (`fused_chunk_layer`, one pallas_call per layer that keeps a block of
@@ -73,6 +73,19 @@
 // Python, checks and 19 launches against ~0.14 ms of device time). Later:
 // fewer launches (CUDA graphs), wgmma.
 //
+// The bf16 mode (`masr_chunk_layer_forward_bf16`; the Pallas kernel's
+// `cdt = x_ref.dtype`, masr_tpu/ops/pallas/chunk_layer.py:95): x, out, the
+// position rows and both caches are bf16, and the products' weights one
+// bf16 array each; LN and bias rows and the activations inside the layer
+// stay f32. x is widened first and the final LN's rows rounded last; the
+// products round their activation operand to bf16 (mma.sync m16n8k16,
+// f32 accumulation); the attention rounds [q+bu | q+bv], [k | p], P and v
+// and reads the bf16 ring as it is; the fresh K/V rows are rounded into
+// the ring (kv_write_kernel) and the conv input's last k-1 rows into the
+// cnn cache (cnn_write_kernel), where masr_tpu casts them to the cache
+// dtype (chunk_layer.py:282, :294). Inactive slots' caches are not
+// written, as in f32.
+//
 // Plain C interface, loaded with ctypes. The entry returns the first CUDA
 // error of a launch, 0 on success.
 
@@ -92,18 +105,22 @@
 // workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c;
 // partials / counters: the split products' scratch (serving.cuh SplitK),
 // n_partials floats and n_counters counters.
-extern "C" int masr_chunk_layer_forward(
-    const float* x, const float* pos, const int* pos_starts,
-    float* att_cache, float* cnn_cache, const int* cache_lens,
-    const int* wptrs, const int* active, const float* lnw, const float* ffb1,
+// The step for both modes: TW the products' weight type (f32 halves or
+// bf16), TS the type of x, out, pos and the caches; a bf16 x is widened
+// into the workspace's last M*D floats first.
+template <class TW, class TS>
+int chunk_layer_run(
+    const TS* x_in, const TS* pos, const int* pos_starts, TS* att_cache,
+    TS* cnn_cache, const int* cache_lens, const int* wptrs,
+    const int* active, const float* lnw, const float* ffb1,
     const float* vecb, const float* posb, const float* pw1b,
-    const float* dww, const float* tc_ffw1, const float* tc_ffw2,
-    const float* tc_qkv, const float* tc_out, const float* tc_pw1,
-    const float* tc_pw2, const int* plans, float* out, float* workspace,
-    float* partials, long long n_partials, unsigned* counters,
-    int n_counters, int B, int c, int C, int D, int F, int n_head, int ksize,
-    int n_sub, float ff_scale, float eps, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+    const float* dww, const TW* tc_ffw1, const TW* tc_ffw2,
+    const TW* tc_qkv, const TW* tc_out, const TW* tc_pw1, const TW* tc_pw2,
+    const int* plans, TS* out, float* workspace, float* partials,
+    long long n_partials, unsigned* counters, int n_counters, int B, int c,
+    int C, int D, int F, int n_head, int ksize, int n_sub, float ff_scale,
+    float eps, cudaStream_t stream) {
+  constexpr bool BF = is_bf16<TS>;
   const int M = B * c;
   if (M == 0) return (int)cudaGetLastError();
   const int dk = D / n_head;
@@ -123,6 +140,14 @@ extern "C" int masr_chunk_layer_forward(
   float* gx = cin + (size_t)B * W * D;        // (B, W, 2D)
   float* y = gx + (size_t)B * W * 2 * D;      // (M, D)
   float *h = big, *qkv = big, *att = big + 3 * MD;   // qkv: (M, 3D)
+  // x as f32: the input itself, or (bf16) its widened copy, which also
+  // takes the final LN's rows before they are rounded into out
+  float* xio = y + MD;
+  const float* x = reinterpret_cast<const float*>(x_in);
+  if constexpr (BF) {
+    MASR_CHECK(convert(x_in, xio, (long long)MD, stream));
+    x = xio;
+  }
 
   MASR_CHECK(cudaMemsetAsync(counters, 0, sizeof(unsigned) * n_counters,
                              stream));
@@ -137,9 +162,9 @@ extern "C" int masr_chunk_layer_forward(
                             nullptr, M, D3, D, D, D3, 1.f, plan[kQkv], sk,
                             stream));
   const float *q = qkv, *k = qkv + D, *v = qkv + 2 * D;
-  MASR_CHECK(chunk_attention(q, k, v, att_cache, pos, pos_starts, posb,
-                             cache_lens, wptrs, att, B, c, C, 1, D, D3,
-                             n_head, c / n_sub, stream));
+  MASR_CHECK(chunk_attention(q, k, v, static_cast<const TS*>(att_cache), pos,
+                             pos_starts, posb, cache_lens, wptrs, att, B, c,
+                             C, 1, D, D3, n_head, c / n_sub, stream));
   // every read of the ring is done (stream order): write the fresh rows
   MASR_CHECK(kv_write(k, v, att_cache, wptrs, active, B, c, C, 1, D, D3,
                       n_head, stream));
@@ -165,6 +190,89 @@ extern "C" int masr_chunk_layer_forward(
   MASR_CHECK(ffn_sk(xn, h, xw, xw, tc_weight(tc_ffw1, D, F, 1), ffb1 + F,
                     tc_weight(tc_ffw2, F, D, 1), vecb + D, M, D, F, ff_scale,
                     plan, sk, stream));
-  MASR_CHECK(layer_norm(xw, out, lnw, 5, M, D, eps, nullptr, 1, stream));
+  if constexpr (BF) {
+    MASR_CHECK(layer_norm(xw, xio, lnw, 5, M, D, eps, nullptr, 1, stream));
+    MASR_CHECK(convert(static_cast<const float*>(xio), out, (long long)MD,
+                       stream));
+  } else {
+    MASR_CHECK(layer_norm(xw, out, lnw, 5, M, D, eps, nullptr, 1, stream));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int masr_chunk_layer_forward(
+    const float* x, const float* pos, const int* pos_starts,
+    float* att_cache, float* cnn_cache, const int* cache_lens,
+    const int* wptrs, const int* active, const float* lnw, const float* ffb1,
+    const float* vecb, const float* posb, const float* pw1b,
+    const float* dww, const float* tc_ffw1, const float* tc_ffw2,
+    const float* tc_qkv, const float* tc_out, const float* tc_pw1,
+    const float* tc_pw2, const int* plans, float* out, float* workspace,
+    float* partials, long long n_partials, unsigned* counters,
+    int n_counters, int B, int c, int C, int D, int F, int n_head, int ksize,
+    int n_sub, float ff_scale, float eps, void* stream_ptr) {
+  return chunk_layer_run(
+      x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs, active,
+      lnw, ffb1, vecb, posb, pw1b, dww, tc_ffw1, tc_ffw2, tc_qkv, tc_out,
+      tc_pw1, tc_pw2, plans, out, workspace, partials, n_partials, counters,
+      n_counters, B, c, C, D, F, n_head, ksize, n_sub, ff_scale, eps,
+      (cudaStream_t)stream_ptr);
+}
+
+// The bf16 mode: x, pos, att_cache, cnn_cache, out bf16 and the products'
+// weights tc_* one bf16 array each (ops/cuda/chunk_layer.py pack_chunk_tc
+// of a bf16 pack): tc_ffw1 (2,D,F) tc_ffw2 (2,F,D) tc_qkv (D,3D) tc_out
+// (D,D) tc_pw1 (D,2D) tc_pw2 (D,D); the rest as masr_chunk_layer_forward's;
+// workspace M*(4D + max(F, 4D)) + B*(k-1+c)*3D floats.
+extern "C" int masr_chunk_layer_forward_bf16(
+    const bf16_t* x, const bf16_t* pos, const int* pos_starts,
+    bf16_t* att_cache, bf16_t* cnn_cache, const int* cache_lens,
+    const int* wptrs, const int* active, const float* lnw, const float* ffb1,
+    const float* vecb, const float* posb, const float* pw1b,
+    const float* dww, const bf16_t* tc_ffw1, const bf16_t* tc_ffw2,
+    const bf16_t* tc_qkv, const bf16_t* tc_out, const bf16_t* tc_pw1,
+    const bf16_t* tc_pw2, const int* plans, bf16_t* out, float* workspace,
+    float* partials, long long n_partials, unsigned* counters,
+    int n_counters, int B, int c, int C, int D, int F, int n_head, int ksize,
+    int n_sub, float ff_scale, float eps, void* stream_ptr) {
+  return chunk_layer_run(
+      x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs, active,
+      lnw, ffb1, vecb, posb, pw1b, dww, tc_ffw1, tc_ffw2, tc_qkv, tc_out,
+      tc_pw1, tc_pw2, plans, out, workspace, partials, n_partials, counters,
+      n_counters, B, c, C, D, F, n_head, ksize, n_sub, ff_scale, eps,
+      (cudaStream_t)stream_ptr);
+}
+
+// One serving product alone, in the bf16 mode: out (M, N) bf16 = x (M, K)
+// bf16 . w (K, N) bf16 with f32 sums, rounded once to bf16; no bias (the
+// caller adds it in bf16, flax's order). The Conformer's subsampling output
+// product (masr_tpu/models/subsampling.py:69, K = 4864 at the flagship's
+// widths) runs here in the bf16 mode and not through cuBLAS, whose
+// algorithm, and so the order of its sums, follows M: one bf16 rounding
+// apart in ~1e-4 of the outputs flips near ties twelve layers later. With
+// gemm_sk and the caller's plan (split_plan(N, K), never M) an output row's
+// bits are the same whatever M is, so a stream's window gives alone the
+// bits it gives in the engine's batch. x is widened into the workspace
+// (exact), the sums land there in f32 and are rounded into out: 4 launches.
+// plan: host (parts, part); zero_bias: N zero floats (the kBias epilogue's
+// row); workspace: M*K + M*N floats; partials / counters as the layer's.
+extern "C" int masr_serving_product_bf16(
+    const bf16_t* x, const bf16_t* w, const float* zero_bias,
+    const int* plan, bf16_t* out, float* workspace, float* partials,
+    long long n_partials, unsigned* counters, int n_counters, int M, int N,
+    int K, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float* xf = workspace;
+  float* y = workspace + (size_t)M * K;
+  const SplitK sk{partials, n_partials, counters, n_counters};
+  if (n_counters > 0)
+    MASR_CHECK(cudaMemsetAsync(counters, 0, sizeof(unsigned) * n_counters,
+                               stream));
+  MASR_CHECK(convert(x, xf, (long long)M * K, stream));
+  MASR_CHECK(gemm_sk<kBias>(xf, BfWeight{w}, zero_bias, y, nullptr, M, N, K,
+                            K, N, 1.f, SplitPlan{plan[0], plan[1]}, sk,
+                            stream));
+  MASR_CHECK(convert(static_cast<const float*>(y), out, (long long)M * N,
+                     stream));
   return (int)cudaGetLastError();
 }

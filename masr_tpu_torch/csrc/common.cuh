@@ -1,7 +1,8 @@
 // Building blocks shared by the port's kernels (conformer_layer.cu,
 // chunk_layer.cu, squeezeformer_layer.cu, chunk_layer_sq.cu and, through
 // training.cuh, conformer_layer_train.cu and squeezeformer_layer_train.cu;
-// ctc_loss.cu takes the warp reductions), for Hopper (sm_90a), f32:
+// ctc_loss.cu takes the warp reductions), for Hopper (sm_90a), f32 (and
+// the bf16 pieces of the serving rows' bf16 mode):
 //
 //   warp_sum, warp_max     warp reductions
 //   dropout_mult           the counter-based dropout hash of the training
@@ -28,6 +29,13 @@
 //                          saves for a backward
 //   ada_rows_kernel        the Squeezeformer conv module's masked adaptive
 //                          scale
+//   bf16 pieces            the bf16 operand mode of the serving rows 1, 2
+//                          and 5 (masr_tpu's compute dtype bf16): bf16 in
+//                          memory as raw 16-bit words (`bf16_t`), mma_bf16
+//                          (mma.sync m16n8k16 bf16 x bf16 + f32),
+//                          operands rounded to nearest even where they
+//                          enter a product, convert_kernel between f32 and
+//                          bf16 rows
 //
 // Each GEMM sums over K in the same order (k = 0, 1, ...) whatever tile it
 // picks, so a row's result does not depend on how many rows share the
@@ -37,9 +45,12 @@
 // Every launcher returns cudaGetLastError() (0 on success).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -209,6 +220,84 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, ab, bb[0], bb[1]);
 }
 
+// ------------------------------------------------------------------------
+// bf16 operands (the serving rows' bf16 mode). A bf16 value in memory is
+// its raw 16-bit word (bf16_t); f32 -> bf16 rounds to nearest even, as
+// torch's .to(torch.bfloat16) and XLA's astype do, so a kernel rounds an
+// operand where masr_tpu's Pallas kernel casts it to the compute dtype.
+// mma_bf16 is one mma.sync m16n8k16 bf16 product with f32 accumulation;
+// fragments (g = lane / 4, t = lane % 4), each 32-bit register two bf16,
+// the lower k in the low half: A (16 x 16, row major) a0 (g, 2t..2t+1),
+// a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B (16 x 8,
+// k x n) b0 (2t..2t+1, g), b1 (2t + 8.., g); C as m16n8k8's.
+// ------------------------------------------------------------------------
+typedef unsigned short bf16_t;
+
+template <class T>
+constexpr bool is_bf16 = std::is_same<T, bf16_t>::value;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16_t x) {
+  return __uint_as_float((unsigned)x << 16);
+}
+
+__device__ __forceinline__ bf16_t bf16_rn(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// store v as T: f32 as it is, bf16 rounded to nearest even
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16_t* p, float v) {
+  *p = bf16_rn(v);
+}
+
+// 8 bf16 at a 16-byte-aligned p → 8 f32 (exact), element 0 first
+__device__ __forceinline__ void bf16x8_to_f32(const bf16_t* p, float4& lo,
+                                              float4& hi) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  lo = make_float4(__uint_as_float(u.x << 16),
+                   __uint_as_float(u.x & 0xffff0000u),
+                   __uint_as_float(u.y << 16),
+                   __uint_as_float(u.y & 0xffff0000u));
+  hi = make_float4(__uint_as_float(u.z << 16),
+                   __uint_as_float(u.z & 0xffff0000u),
+                   __uint_as_float(u.w << 16),
+                   __uint_as_float(u.w & 0xffff0000u));
+}
+
+// two f32 rounded to bf16, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)bf16_rn(lo) | ((unsigned)bf16_rn(hi) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// out[i] = in[i] as TO, n elements (f32 <-> bf16 rows at a bf16 layer's
+// entry and exit)
+template <class TI, class TO>
+__global__ void convert_kernel(const TI* __restrict__ in,
+                               TO* __restrict__ out, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    store_as(out + i, to_f32(in[i]));
+}
+
+template <class TI, class TO>
+cudaError_t convert(const TI* in, TO* out, long long n, cudaStream_t stream) {
+  if (n <= 0) return cudaGetLastError();
+  const long long blocks = (n + 255) / 256;
+  convert_kernel<TI, TO><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
+                           stream>>>(in, out, n);
+  return cudaGetLastError();
+}
+
 // cp.async: copy `bytes` (<= the copy's size) from global memory and fill
 // the rest of the 16 (or 4) bytes of shared memory with zeros
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -260,6 +349,77 @@ __device__ __forceinline__ void load_tile_async(float* s, const float* g,
       const int r = i / COLS, c = i % COLS, gr = r0 + r, gc = c0 + c;
       const bool ok = gr < rmax && gc < cmax;
       cp_async4(s + r * SS + c, ok ? g + gr * ld + gc : g, ok ? 4 : 0);
+    }
+  }
+}
+
+// The tile of load_tile_async from an array of T: f32 through
+// load_tile_async; bf16 read by plain loads and widened to f32 in shared
+// memory (exact), zeros outside: 16-byte loads of 8 values where vec (g,
+// ld and c0 multiples of 8 values; shared rows of SS floats, SS a
+// multiple of 4), else one value a load. The bf16 path stores
+// synchronously: the caller's __syncthreads (or __syncwarp) before the
+// tile's use orders it.
+template <int ROWS, int COLS, int SS, int NT, class T>
+__device__ __forceinline__ void load_tile_as_f32(float* s, const T* g,
+                                                 long long ld, int r0,
+                                                 int rmax, int c0, int cmax,
+                                                 bool vec, int tid) {
+  if constexpr (!is_bf16<T>) {
+    load_tile_async<ROWS, COLS, SS, NT>(s, g, ld, r0, rmax, c0, cmax, vec,
+                                         tid);
+  } else if (vec && COLS % 8 == 0) {
+    constexpr int CH = COLS / 8;
+    for (int i = tid; i < ROWS * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * 8, gr = r0 + r, gc = c0 + c;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (gr < rmax && gc + 8 <= cmax) {
+        bf16x8_to_f32(g + gr * ld + gc, lo, hi);
+      } else if (gr < rmax) {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = gc + e < cmax ? to_f32(g[gr * ld + gc + e]) : 0.f;
+        lo = make_float4(v[0], v[1], v[2], v[3]);
+        hi = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      *reinterpret_cast<float4*>(s + r * SS + c) = lo;
+      *reinterpret_cast<float4*>(s + r * SS + c + 4) = hi;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < ROWS * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS, gr = r0 + r, gc = c0 + c;
+      s[r * SS + c] =
+          gr < rmax && gc < cmax ? to_f32(g[gr * ld + gc]) : 0.f;
+    }
+  }
+}
+
+// Copy rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major bf16
+// matrix g (leading dimension ld; rows < rmax, columns < cmax exist) into
+// shared memory rows of SS bf16, zeros outside. vec: 16-byte cp.async
+// copies of 8 values (g, ld and c0 multiples of 8 values), else plain
+// loads. NT threads.
+template <int ROWS, int COLS, int SS, int NT>
+__device__ __forceinline__ void load_tile_bf16(bf16_t* s, const bf16_t* g,
+                                               long long ld, int r0,
+                                               int rmax, int c0, int cmax,
+                                               bool vec, int tid) {
+  static_assert(COLS % 8 == 0 && SS % 8 == 0, "16-byte rows");
+  if (vec) {
+    constexpr int CH = COLS / 8;
+    for (int i = tid; i < ROWS * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * 8, gr = r0 + r, gc = c0 + c;
+      const int n = gr < rmax ? min(max(cmax - gc, 0), 8) : 0;
+      const unsigned d = (unsigned)__cvta_generic_to_shared(s + r * SS + c);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                   "l"(n > 0 ? g + gr * ld + gc : g), "r"(2 * n));
+    }
+  } else {
+    for (int i = tid; i < ROWS * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS, gr = r0 + r, gc = c0 + c;
+      s[r * SS + c] = gr < rmax && gc < cmax ? g[gr * ld + gc] : (bf16_t)0;
     }
   }
 }

@@ -44,6 +44,18 @@
 //   - rows t in [len, T) are zeroed before pw1, so they carry GLU(pw1 bias).
 //   - attention keys col >= len are masked; a row with len == 0 gives 0.
 //
+// The bf16 mode (`masr_conformer_layer_forward_bf16`; masr_tpu's
+// compute dtype bf16, `cdt = x_ref.dtype` in the Pallas kernel): x, out and
+// pos_p are bf16 and the products' weights one bf16 array each; LN and bias
+// rows stay f32, and so do the activations inside the layer. x is widened
+// to f32 first (a convert launch) and the final LN's rows are rounded to
+// bf16 last; every product rounds its activation operand to bf16 as its
+// fragments are read (the Pallas kernel's .astype(cdt) before each
+// matmul) and runs mma.sync m16n8k16 bf16 with f32 accumulation; the
+// attention rounds [q+u | q+v], [k | p], P and v (flash_attention.cuh).
+// The bound: a layer's operations over the bf16 dense rate (989 TFLOP/s),
+// six times 3xTF32's 165.
+//
 // Plain C interface, loaded with ctypes. Every entry returns
 // cudaGetLastError() (or the first error of a launch), 0 on success.
 
@@ -61,17 +73,21 @@
 // int32; pos_p (T, D) = linear_pos(pos_emb). workspace: M*(2D + max(F,
 // 4D)) floats, M = B*T; partials / counters: the split products' scratch
 // (serving.cuh SplitK), n_partials floats and n_counters counters.
-extern "C" int masr_conformer_layer_forward(
-    const float* x, const int* lens, const float* pos_p, const float* lnw,
+// The layer for both modes: TW the products' weight type (f32 halves or
+// bf16), TX the type of x, out and pos_p; a bf16 x is widened into the
+// workspace's last M*D floats first.
+template <class TW, class TX>
+int conformer_layer_run(
+    const TX* x_in, const int* lens, const TX* pos_p, const float* lnw,
     const float* ffb1, const float* vecb, const float* posb,
-    const float* pw1b, const float* dww, const float* tc_ffw1,
-    const float* tc_ffw2, const float* tc_qkv, const float* tc_out,
-    const float* tc_pw1, const float* tc_pw2, const int* plans, float* out,
+    const float* pw1b, const float* dww, const TW* tc_ffw1,
+    const TW* tc_ffw2, const TW* tc_qkv, const TW* tc_out,
+    const TW* tc_pw1, const TW* tc_pw2, const int* plans, TX* out,
     float* workspace, float* partials, long long n_partials,
     unsigned* counters, int n_counters, int B, int T, int D, int F,
     int n_head, int ksize, int causal, float ff_scale, float eps,
-    void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+    cudaStream_t stream) {
+  constexpr bool BF = is_bf16<TX>;
   const int M = B * T;
   if (M == 0) return (int)cudaGetLastError();
   const int dk = D / n_head;
@@ -88,6 +104,14 @@ extern "C" int masr_conformer_layer_forward(
   float* big = xn + MD;           // (M, max(F, 4D))
   float *h = big, *qkv = big, *att = big + 3 * MD, *gx = big,
         *y = big + 2 * MD;        // qkv: (M, 3D)
+  // x as f32: the input itself, or (bf16) its widened copy, which also
+  // takes the final LN's rows before they are rounded into out
+  float* xio = big + (size_t)M * (F > 4 * D ? F : 4 * D);
+  const float* x = reinterpret_cast<const float*>(x_in);
+  if constexpr (BF) {
+    MASR_CHECK(convert(x_in, xio, (long long)MD, stream));
+    x = xio;
+  }
 
   MASR_CHECK(cudaMemsetAsync(counters, 0, sizeof(unsigned) * n_counters,
                              stream));
@@ -123,6 +147,52 @@ extern "C" int masr_conformer_layer_forward(
   MASR_CHECK(ffn_sk(xn, h, xw, xw, tc_weight(tc_ffw1, D, F, 1), ffb1 + F,
                     tc_weight(tc_ffw2, F, D, 1), vecb + D, M, D, F, ff_scale,
                     plan, sk, stream));
-  MASR_CHECK(layer_norm(xw, out, lnw, 5, M, D, eps, nullptr, 1, stream));
+  if constexpr (BF) {
+    MASR_CHECK(layer_norm(xw, xio, lnw, 5, M, D, eps, nullptr, 1, stream));
+    MASR_CHECK(convert(static_cast<const float*>(xio), out, (long long)MD,
+                       stream));
+  } else {
+    MASR_CHECK(layer_norm(xw, out, lnw, 5, M, D, eps, nullptr, 1, stream));
+  }
   return (int)cudaGetLastError();
+}
+
+extern "C" int masr_conformer_layer_forward(
+    const float* x, const int* lens, const float* pos_p, const float* lnw,
+    const float* ffb1, const float* vecb, const float* posb,
+    const float* pw1b, const float* dww, const float* tc_ffw1,
+    const float* tc_ffw2, const float* tc_qkv, const float* tc_out,
+    const float* tc_pw1, const float* tc_pw2, const int* plans, float* out,
+    float* workspace, float* partials, long long n_partials,
+    unsigned* counters, int n_counters, int B, int T, int D, int F,
+    int n_head, int ksize, int causal, float ff_scale, float eps,
+    void* stream_ptr) {
+  return conformer_layer_run(
+      x, lens, pos_p, lnw, ffb1, vecb, posb, pw1b, dww, tc_ffw1, tc_ffw2,
+      tc_qkv, tc_out, tc_pw1, tc_pw2, plans, out, workspace, partials,
+      n_partials, counters, n_counters, B, T, D, F, n_head, ksize, causal,
+      ff_scale, eps, (cudaStream_t)stream_ptr);
+}
+
+// The bf16 mode: x, pos_p, out (bf16) and the products' weights tc_* one
+// bf16 array each (ops/cuda/chunk_layer.py pack_chunk_tc of a bf16 pack):
+//   tc_ffw1 (2,D,F) tc_ffw2 (2,F,D) tc_qkv (D,3D) tc_out (D,D) tc_pw1
+//   (D,2D) tc_pw2 (D,D)
+// the rest as masr_conformer_layer_forward's; workspace M*(3D + max(F,
+// 4D)) floats.
+extern "C" int masr_conformer_layer_forward_bf16(
+    const bf16_t* x, const int* lens, const bf16_t* pos_p, const float* lnw,
+    const float* ffb1, const float* vecb, const float* posb,
+    const float* pw1b, const float* dww, const bf16_t* tc_ffw1,
+    const bf16_t* tc_ffw2, const bf16_t* tc_qkv, const bf16_t* tc_out,
+    const bf16_t* tc_pw1, const bf16_t* tc_pw2, const int* plans,
+    bf16_t* out, float* workspace, float* partials, long long n_partials,
+    unsigned* counters, int n_counters, int B, int T, int D, int F,
+    int n_head, int ksize, int causal, float ff_scale, float eps,
+    void* stream_ptr) {
+  return conformer_layer_run(
+      x, lens, pos_p, lnw, ffb1, vecb, posb, pw1b, dww, tc_ffw1, tc_ffw2,
+      tc_qkv, tc_out, tc_pw1, tc_pw2, plans, out, workspace, partials,
+      n_partials, counters, n_counters, B, T, D, F, n_head, ksize, causal,
+      ff_scale, eps, (cudaStream_t)stream_ptr);
 }

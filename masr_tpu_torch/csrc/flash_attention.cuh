@@ -57,6 +57,20 @@
 // halves and the softmax's exponentials run beside the products on the
 // other pipes. Left for later: wgmma / TMA (TF32 wgmma takes only K-major
 // operands in shared memory, which v of P.V is not).
+//
+// The bf16 mode (masr_tpu's compute dtype bf16: the Pallas kernels take
+// their products' operands in the input's dtype, masr_tpu/ops/pallas/
+// attention.py:73-74, :97, conformer_layer.py:50): the template's TP,
+// the type of pos_p, is bf16. Tiles are staged as f32 in shared memory
+// as before (bf16 arrays widened exactly on load); [q+u | q+v], [k | p]
+// and v are rounded to bf16 as their fragments are read, and so is each
+// key tile's P = exp(S - m) (unnormalised, as row 5's Pallas kernel
+// rounds it); both products are mma.sync m16n8k16 bf16 with f32
+// accumulation, the softmax stays f32. TQ, the type of q, k, v, posb and
+// out: bf16 for row 5 (its Pallas kernel reads and writes the compute
+// dtype), f32 for rows 1 and 6 (the layer's q/k/v product rows and its
+// f32 attention rows). Bound in bf16: the operations over the bf16 dense
+// rate (989 TFLOP/s), or the bytes of q, k, v, p and out.
 #pragma once
 
 #include "common.cuh"
@@ -99,16 +113,17 @@ struct FlashCfg {
 
 // mask, map: kByteMask's bytes and tile map; lens: kLengthMask's lengths
 // (the other kind's pointers are unread)
-template <int NDK, int MASK>
+template <int NDK, int MASK, class TQ = float, class TP = float>
 __global__ void __launch_bounds__(kFlashThreads)
-    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ pos_p,
-                 const float* __restrict__ posb,
+    flash_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+                 const TQ* __restrict__ v, const TP* __restrict__ pos_p,
+                 const TQ* __restrict__ posb,
                  const unsigned char* __restrict__ mask,
                  const unsigned char* __restrict__ map,
                  const int* __restrict__ lens, FlashView w,
-                 float* __restrict__ out, int T, int dk, float scale,
+                 TQ* __restrict__ out, int T, int dk, float scale,
                  bool vec) {
+  constexpr bool BF = is_bf16<TP>;
   using Cfg = FlashCfg<NDK>;
   constexpr int KS = 2 * NDK / 8;   // k-steps of S = Q.K^T
   constexpr int NO = NDK / 8;       // n-tiles of the output
@@ -122,10 +137,10 @@ __global__ void __launch_bounds__(kFlashThreads)
   const int q0 = qt * kFlashTile, D = gridDim.y * dk;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4, wr = warp * 16;
-  const float* qh = q + b * w.qb + h * w.qh;
-  const float* kh = k + b * w.kb + h * w.kh;
-  const float* vh = v + b * w.vb + h * w.vh;
-  const float* ph = pos_p + h * w.ph;
+  const TQ* qh = q + b * w.qb + h * w.qh;
+  const TQ* kh = k + b * w.kb + h * w.kh;
+  const TQ* vh = v + b * w.vb + h * w.vh;
+  const TP* ph = pos_p + h * w.ph;
   const unsigned char* mb = mask + b * w.mb;
   const unsigned char* mrow = map + ((size_t)b * nt + qt) * nt;
   const int len = MASK == kLengthMask ? min(max(lens[b], 0), T) : T;
@@ -136,7 +151,7 @@ __global__ void __launch_bounds__(kFlashThreads)
     const int d = e % NDK, tq = q0 + r;
     float val = 0.f;
     if (tq < T && d < dk)
-      val = qh[tq * w.qt + d] + posb[half * D + h * dk + d];
+      val = to_f32(qh[tq * w.qt + d]) + to_f32(posb[half * D + h * dk + d]);
     qs[r * SK + e] = val;
   }
 
@@ -151,11 +166,11 @@ __global__ void __launch_bounds__(kFlashThreads)
         kTileHidden)
       continue;   // block-uniform
     const int k0 = kt * kFlashTile;
-    load_tile_async<kFlashTile, NDK, SK, kFlashThreads>(
+    load_tile_as_f32<kFlashTile, NDK, SK, kFlashThreads>(
         ks, kh, w.kt, k0, T, 0, dk, vec, tid);
-    load_tile_async<kFlashTile, NDK, SK, kFlashThreads>(
+    load_tile_as_f32<kFlashTile, NDK, SK, kFlashThreads>(
         ks + NDK, ph, w.pt, k0, T, 0, dk, vec, tid);
-    load_tile_async<kFlashTile, NDK, SV, kFlashThreads>(
+    load_tile_as_f32<kFlashTile, NDK, SV, kFlashThreads>(
         vs, vh, w.vt, k0, T, 0, dk, vec, tid);
     cp_async_commit();
     cp_async_wait<0>();
@@ -167,6 +182,25 @@ __global__ void __launch_bounds__(kFlashThreads)
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+    if constexpr (BF) {
+      // k16 steps over [q+u | q+v] . [k | p]^T, operands rounded to bf16
+#pragma unroll
+      for (int st = 0; st < 2 * NDK / 16; ++st) {
+        unsigned af[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* a =
+              qs + (wr + g + (i & 1) * 8) * SK + st * 16 + 2 * t + (i >> 1) * 8;
+          af[i] = pack_bf16(a[0], a[1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float* kr = ks + (j * 8 + g) * SK + st * 16 + 2 * t;
+          mma_bf16(s[j], af, pack_bf16(kr[0], kr[1]),
+                   pack_bf16(kr[8], kr[9]));
+        }
+      }
+    } else {
 #pragma unroll
     for (int st = 0; st < KS; ++st) {
       unsigned ab[4], as[4];
@@ -182,6 +216,7 @@ __global__ void __launch_bounds__(kFlashThreads)
         split_tf32(kr[4], bb[1], bs[1]);
         mma_3xtf32(s[j], ab, as, bb, bs);
       }
+    }
     }
 
     // mask, online softmax; lane holds rows wr+g (i < 2) and wr+g+8 (i >= 2)
@@ -232,6 +267,22 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
 
+    if constexpr (BF) {
+      // O += P . V in k16 steps of 16 keys: the accumulators of key tiles
+      // 2kk and 2kk + 1 are the A fragment as they lie, rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned af[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const float* vr = vs + (kk * 16 + 2 * t) * SV + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          mma_bf16(o[n], af, pack_bf16(vr[n * 8], vr[SV + n * 8]),
+                   pack_bf16(vr[8 * SV + n * 8], vr[9 * SV + n * 8]));
+      }
+    } else {
     // O += P . V: keys 8kk + 2t and + 1 are A's columns t and t + 4
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
@@ -249,10 +300,11 @@ __global__ void __launch_bounds__(kFlashThreads)
         mma_3xtf32(o[n], ab, as, bb, bs);
       }
     }
+    }
     __syncthreads();   // the buffer is reloaded next
   }
 
-  float* oh = out + b * w.ob + h * w.oh;
+  TQ* oh = out + b * w.ob + h * w.oh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + wr + g + r * 8;
@@ -263,41 +315,41 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int d = n * 8 + 2 * t + c;
-        if (d < dk) oh[row * w.ot + d] = o[n][r * 2 + c] * inv;
+        if (d < dk) store_as(oh + row * w.ot + d, o[n][r * 2 + c] * inv);
       }
   }
 }
 
-template <int NDK, int MASK>
-cudaError_t flash_launch(const float* q, const float* k, const float* v,
-                         const float* pos_p, const float* posb,
+template <int NDK, int MASK, class TQ, class TP>
+cudaError_t flash_launch(const TQ* q, const TQ* k, const TQ* v,
+                         const TP* pos_p, const TQ* posb,
                          const unsigned char* mask, const unsigned char* map,
-                         const int* lens, const FlashView& w, float* out,
+                         const int* lens, const FlashView& w, TQ* out,
                          int B, int H, int T, int dk, float scale, bool vec,
                          cudaStream_t st) {
   const size_t smem = FlashCfg<NDK>::SMEM;
+  auto kernel = flash_kernel<NDK, MASK, TQ, TP>;
   static bool sized = false;   // one attribute call per instantiation
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<NDK, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     sized = true;
   }
   dim3 grid((T + kFlashTile - 1) / kFlashTile, H, B);
-  flash_kernel<NDK, MASK><<<grid, kFlashThreads, smem, st>>>(
+  kernel<<<grid, kFlashThreads, smem, st>>>(
       q, k, v, pos_p, posb, mask, map, lens, w, out, T, dk, scale, vec);
   return cudaGetLastError();
 }
 
 // the attention for d_k in [1, 128]; vec: 16-byte copies of k, p and v rows
 // (every base and row, head and utterance stride a multiple of 4 floats)
-template <int MASK>
-cudaError_t flash_attention(const float* q, const float* k, const float* v,
-                            const float* pos_p, const float* posb,
+template <int MASK, class TQ, class TP>
+cudaError_t flash_attention(const TQ* q, const TQ* k, const TQ* v,
+                            const TP* pos_p, const TQ* posb,
                             const unsigned char* mask,
                             const unsigned char* map, const int* lens,
-                            const FlashView& w, float* out, int B, int H,
+                            const FlashView& w, TQ* out, int B, int H,
                             int T, int dk, float scale, bool vec,
                             cudaStream_t st) {
   switch ((dk + 31) / 32) {

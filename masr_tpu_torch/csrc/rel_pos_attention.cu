@@ -1,5 +1,6 @@
 // Masked rel-pos flash attention for Hopper (sm_90a), forward only, f32
-// operands, products on the tensor cores in 3xTF32.
+// operands, products on the tensor cores in 3xTF32 (and a bf16 mode,
+// below).
 //
 // Replaces the TPU kernel masr_tpu/ops/pallas/attention.py:122
 // (`rel_pos_flash_attention`, one pallas_call over (B, H, q tiles, k tiles)
@@ -33,6 +34,13 @@
 // [h d_k, (h+1) d_k); pos_p (H, T, d_k); posb (2, H d_k) = pos_bias_u,
 // pos_bias_v; the mask through its (b, t, key) strides, so a broadcast
 // `expand` or a [::2, ::2] view is never taken for a dense one. d_k <= 128.
+//
+// The bf16 mode (`masr_rel_pos_attention_bf16`; the Pallas kernel takes
+// its operands in k.dtype, masr_tpu/ops/pallas/attention.py:73-74, :97):
+// q, k, v, p, posb and out bf16, [q+bu | q+bv], [k | p], P and v rounded to
+// bf16 at the products (mma.sync m16n8k16 bf16, f32 accumulation), the
+// softmax f32 (flash_attention.cuh). Its bound: the operations over the
+// bf16 dense rate, or the bf16 bytes of q, k, v, p, the mask and out.
 //
 // Plain C interface, loaded with ctypes; returns cudaGetLastError() (0 on
 // success).
@@ -72,6 +80,34 @@ __global__ void __launch_bounds__(256)
 // bytes of scratch, nt = ceil(T / 64). strides: 17 element strides, q (b,
 // h, t), k (b, h, t), v (b, h, t), out (b, h, t), pos_p (h, t), mask (b, t,
 // key).
+// Both modes: E the type of q, k, v, pos_p, posb and out (f32, or bf16)
+template <class E>
+int rel_pos_attention_run(const E* q, const E* k, const E* v,
+                          const E* pos_p, const E* posb,
+                          const unsigned char* mask, const long long* strides,
+                          unsigned char* tile_map, E* out, int B, int H,
+                          int T, int dk, float scale, cudaStream_t st) {
+  if (B == 0 || H == 0 || T == 0) return (int)cudaGetLastError();
+  if (dk < 1 || dk > 128) return (int)cudaErrorInvalidValue;
+  const long long* s = strides;
+  const FlashView w{s[0],  s[1],  s[2],  s[3],  s[4],  s[5],
+                    s[6],  s[7],  s[8],  s[9],  s[10], s[11],
+                    s[12], s[13], s[14], s[15], s[16]};
+  const int nt = (T + kFlashTile - 1) / kFlashTile;
+  tile_map_kernel<<<dim3(nt, nt, B), 256, 0, st>>>(mask, w, tile_map, T, nt);
+  MASR_CHECK(cudaGetLastError());
+  // 16-byte copies of k, p and v rows where every base and stride allows
+  // (strides of 4 floats, or of 8 bf16 for the bf16 mode's plain loads)
+  bool vec = true;
+  for (const void* p : {(const void*)k, (const void*)v, (const void*)pos_p})
+    vec = vec && reinterpret_cast<size_t>(p) % 16 == 0;
+  const int kvp[] = {3, 4, 5, 6, 7, 8, 12, 13};   // k, v, pos_p strides
+  for (int i : kvp) vec = vec && s[i] % (is_bf16<E> ? 8 : 4) == 0;
+  return (int)flash_attention<kByteMask>(q, k, v, pos_p, posb, mask,
+                                         tile_map, nullptr, w, out, B, H, T,
+                                         dk, scale, vec, st);
+}
+
 extern "C" int masr_rel_pos_attention(const float* q, const float* k,
                                       const float* v, const float* pos_p,
                                       const float* posb,
@@ -80,21 +116,18 @@ extern "C" int masr_rel_pos_attention(const float* q, const float* k,
                                       unsigned char* tile_map, float* out,
                                       int B, int H, int T, int dk, float scale,
                                       void* stream_ptr) {
-  if (B == 0 || H == 0 || T == 0) return (int)cudaGetLastError();
-  if (dk < 1 || dk > 128) return (int)cudaErrorInvalidValue;
-  const long long* s = strides;
-  const FlashView w{s[0],  s[1],  s[2],  s[3],  s[4],  s[5],
-                    s[6],  s[7],  s[8],  s[9],  s[10], s[11],
-                    s[12], s[13], s[14], s[15], s[16]};
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  const int nt = (T + kFlashTile - 1) / kFlashTile;
-  tile_map_kernel<<<dim3(nt, nt, B), 256, 0, st>>>(mask, w, tile_map, T, nt);
-  MASR_CHECK(cudaGetLastError());
-  // 16-byte copies of k, p and v rows where every base and stride allows
-  bool vec = on16(k) && on16(v) && on16(pos_p);
-  const int kvp[] = {3, 4, 5, 6, 7, 8, 12, 13};   // k, v, pos_p strides
-  for (int i : kvp) vec = vec && s[i] % 4 == 0;
-  return (int)flash_attention<kByteMask>(q, k, v, pos_p, posb, mask,
-                                         tile_map, nullptr, w, out, B, H, T,
-                                         dk, scale, vec, st);
+  return rel_pos_attention_run(q, k, v, pos_p, posb, mask, strides, tile_map,
+                               out, B, H, T, dk, scale,
+                               (cudaStream_t)stream_ptr);
+}
+
+// The bf16 mode: q, k, v, pos_p, posb and out bf16, the rest as above
+extern "C" int masr_rel_pos_attention_bf16(
+    const bf16_t* q, const bf16_t* k, const bf16_t* v, const bf16_t* pos_p,
+    const bf16_t* posb, const unsigned char* mask, const long long* strides,
+    unsigned char* tile_map, bf16_t* out, int B, int H, int T, int dk,
+    float scale, void* stream_ptr) {
+  return rel_pos_attention_run(q, k, v, pos_p, posb, mask, strides, tile_map,
+                               out, B, H, T, dk, scale,
+                               (cudaStream_t)stream_ptr);
 }

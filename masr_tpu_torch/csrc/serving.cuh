@@ -1,9 +1,11 @@
 // Blocks shared by the serving layer kernels (conformer_layer.cu,
 // squeezeformer_layer.cu: full context; chunk_layer.cu, chunk_layer_sq.cu:
 // streaming chunk steps), rows 1, 6, 2 and 8 of PERF.md's kernel table, for
-// Hopper (sm_90a), f32. All four run their products and attention on the
-// tensor cores in 3xTF32 (common.cuh's split_tf32, mma_3xtf32 and
-// load_tile_async):
+// Hopper (sm_90a), f32, and for rows 1 and 2 a bf16 mode. All four run
+// their products and attention on the tensor cores in 3xTF32 (common.cuh's
+// split_tf32, mma_3xtf32 and load_tile_async); the bf16 mode in bf16
+// mma.sync m16n8k16 (mma_bf16), its weights bf16 (BfWeight), its ring and
+// cnn caches bf16 in memory:
 //
 //   length_attention             rows 1 and 6: rel-pos attention over the
 //                                valid keys of an utterance, through
@@ -14,10 +16,11 @@
 //   kv_write_kernel              the fresh K/V rows into the ring
 //   conv_input_kernel            [cnn cache || conv-module input rows]
 //   cnn_write_kernel             the new cnn cache rows
-//   gemm_sk_kernel<..., E>       every serving product: weights from the
-//                                serving tensor-core pack (TF32 halves),
-//                                K split by a plan of K (and N) alone, the
-//                                parts added in a fixed order
+//   gemm_sk_kernel<..., E, WT>   every serving product: weights from the
+//                                serving tensor-core pack (TF32 halves,
+//                                or one bf16 array), K split by a plan of
+//                                K (and N) alone, the parts added in a
+//                                fixed order
 //
 // What bounded the serving rows and what the design does about it: their
 // products were f32 FMA loops (5-12 TFLOP/s), on 8-32 blocks for the chunk
@@ -51,7 +54,9 @@ namespace {
 // [h d_k, (h+1) d_k) of each third; pos_p (T, D); posb (2, D); out (B, T,
 // D). d_k up to 128.
 // ------------------------------------------------------------------------
-cudaError_t length_attention(const float* qkv, const float* pos_p,
+// pos_p: TP = bf16 in the bf16 mode (flash_attention.cuh)
+template <class TP>
+cudaError_t length_attention(const float* qkv, const TP* pos_p,
                              const float* posb, const int* lens, float* out,
                              int B, int T, int D, int H,
                              cudaStream_t stream) {
@@ -62,8 +67,11 @@ cudaError_t length_attention(const float* qkv, const float* pos_p,
                     dk, D,  0,  0,  0};
   const float *q = qkv, *k = qkv + D, *v = qkv + 2 * D;
   // 16-byte copies of k, p and v rows: bases and strides of 4 floats
-  const bool vec = on16(k) && on16(v) && on16(pos_p) && D % 4 == 0 &&
-                   dk % 4 == 0;
+  // (a bf16 pos_p: rows and head offsets of 8 values)
+  const int align = is_bf16<TP> ? 8 : 4;
+  const bool vec = on16(k) && on16(v) &&
+                   reinterpret_cast<size_t>(pos_p) % 16 == 0 &&
+                   D % align == 0 && dk % align == 0;
   return flash_attention<kLengthMask>(q, k, v, pos_p, posb, nullptr, nullptr,
                                       lens, w, out, B, H, T, dk,
                                       1.f / sqrtf((float)dk), vec, stream);
@@ -91,6 +99,14 @@ cudaError_t length_attention(const float* qkv, const float* pos_p,
 // 2t + 1 play k-columns t, t + 4; v's rows are read in that order). The
 // 4 warps' (max, sum, output) are merged in a fixed order at the end, so a
 // slot's bits do not depend on the other slots.
+//
+// The bf16 mode (TR, the type of the ring and the position rows, bf16; the
+// Pallas kernel's cdt, masr_tpu/ops/pallas/chunk_layer.py:95): the ring
+// and position rows are bf16 in memory, widened exactly as each warp reads
+// them (plain loads in place of cp.async); [q+bu | q+bv], [k | p], v and
+// each warp's P are rounded to bf16 as their fragments are read, and both
+// products are mma.sync m16n8k16 bf16 with f32 accumulation. q, k, v and
+// out stay the layer's f32 rows.
 // ------------------------------------------------------------------------
 constexpr int kChunkRows = 16;   // query rows per block: one m16 tile
 constexpr int kChunkKeys = 16;   // keys per warp tile: two n8 tiles
@@ -102,13 +118,13 @@ __host__ __device__ inline int chunk_sx(int dk) {
   return (2 * dk + 7) / 8 * 8 + 4;
 }
 
-template <int NDK>
+template <int NDK, class TR = float>
 __global__ void __launch_bounds__(kChunkWarps * 32)
     chunk_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           const float* __restrict__ ring_all,
-                           const float* __restrict__ pos,
+                           const TR* __restrict__ ring_all,
+                           const TR* __restrict__ pos,
                            const int* __restrict__ pos_starts,
                            const float* __restrict__ posb,
                            const int* __restrict__ cache_lens,
@@ -116,6 +132,7 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
                            float* __restrict__ out, int c, int C, int rep,
                            int D, int ldq, int dk, int sub_c, float scale,
                            bool vec) {
+  constexpr bool BF = is_bf16<TR>;
   constexpr int NT8 = 4 * NDK, SV = 32 * NDK + 4, SO = 32 * NDK + 4;
   extern __shared__ float smem[];
   const int SX = chunk_sx(dk), E8 = SX - 4;
@@ -129,10 +146,10 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
   const size_t rbase = (size_t)s * c * D + (size_t)h * dk;   // out row 0
   const size_t qbase = (size_t)s * c * ldq + (size_t)h * dk;  // q, k, v
   // logical ring row p: memory row p*rep + rep - 1 (the last copy)
-  const float* ring =
+  const TR* ring =
       ring_all + (((size_t)s * H + h) * C * rep + (rep - 1)) * 2 * dk;
   const size_t rstride = (size_t)rep * 2 * dk;
-  const float* prow = pos + (size_t)pos_starts[s] * D + (size_t)h * dk;
+  const TR* prow = pos + (size_t)pos_starts[s] * D + (size_t)h * dk;
   float* Qs = smem;                                  // 16 x SX
   float* wbuf = Qs + kChunkRows * SX + warp * 2 * STAGE;   // this warp's
 
@@ -174,16 +191,67 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
     float* xs = wbuf + st * STAGE + kr * SX;
     float* vs = wbuf + st * STAGE + kChunkKeys * SX + kr * SV;
     const bool ok = j >= key_first && j < key_end;
+    if constexpr (BF) {
+      // plain loads, the bf16 ring and position rows widened to f32: 8
+      // values a load where vec (d_k and D multiples of 8), else one
+      if (vec) {
+        for (int col = half * 8; col < dk; col += 16) {
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 k0 = z, k1 = z, p0 = z, p1 = z, v0 = z, v1 = z;
+          if (ok) {
+            if (j < C) {
+              const TR* r = ring + (size_t)((wp + j) % C) * rstride;
+              bf16x8_to_f32(r + col, k0, k1);
+              bf16x8_to_f32(r + dk + col, v0, v1);
+            } else {
+              const float* kr = k + qbase + (size_t)(j - C) * ldq + col;
+              const float* vr = v + qbase + (size_t)(j - C) * ldq + col;
+              k0 = *reinterpret_cast<const float4*>(kr);
+              k1 = *reinterpret_cast<const float4*>(kr + 4);
+              v0 = *reinterpret_cast<const float4*>(vr);
+              v1 = *reinterpret_cast<const float4*>(vr + 4);
+            }
+            bf16x8_to_f32(prow + (size_t)j * D + col, p0, p1);
+          }
+          *reinterpret_cast<float4*>(xs + col) = k0;
+          *reinterpret_cast<float4*>(xs + col + 4) = k1;
+          *reinterpret_cast<float4*>(xs + dk + col) = p0;
+          *reinterpret_cast<float4*>(xs + dk + col + 4) = p1;
+          *reinterpret_cast<float4*>(vs + col) = v0;
+          *reinterpret_cast<float4*>(vs + col + 4) = v1;
+        }
+        return;
+      }
+      for (int col = half; col < dk; col += 2) {
+        float kv = 0.f, pv = 0.f, vv = 0.f;
+        if (ok) {
+          if (j < C) {
+            const TR* r = ring + (size_t)((wp + j) % C) * rstride;
+            kv = to_f32(r[col]);
+            vv = to_f32(r[dk + col]);
+          } else {
+            kv = k[qbase + (size_t)(j - C) * ldq + col];
+            vv = v[qbase + (size_t)(j - C) * ldq + col];
+          }
+          pv = to_f32(prow[(size_t)j * D + col]);
+        }
+        xs[col] = kv;
+        xs[dk + col] = pv;
+        vs[col] = vv;
+      }
+      return;
+    }
     const float *kx = q, *vx = q, *px = q;
     if (ok) {
       if (j < C) {
-        kx = ring + (size_t)((wp + j) % C) * rstride;
+        kx = reinterpret_cast<const float*>(ring) +
+             (size_t)((wp + j) % C) * rstride;
         vx = kx + dk;
       } else {
         kx = k + qbase + (size_t)(j - C) * ldq;
         vx = v + qbase + (size_t)(j - C) * ldq;
       }
-      px = prow + (size_t)j * D;
+      px = reinterpret_cast<const float*>(prow) + (size_t)j * D;
     }
     const int w = vec ? 4 : 1;
 #pragma unroll
@@ -232,7 +300,26 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) sc[nt][r] = 0.f;
-    for (int kk = 0; kk < E8; kk += 8) {
+    if constexpr (BF) {
+      // k16 steps; columns past E8 (a last half step) read as zeros
+      for (int kk = 0; kk < E8; kk += 16) {
+        const bool hi = kk + 8 < E8;
+        unsigned af[4];
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {
+          const float* a = Qs + (g + (qd & 1) * 8) * SX + kk + 2 * t +
+                           (qd >> 1) * 8;
+          af[qd] = (qd >> 1) && !hi ? 0u : pack_bf16(a[0], a[1]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float* xr = xs + (nt * 8 + g) * SX + kk + 2 * t;
+          mma_bf16(sc[nt], af, pack_bf16(xr[0], xr[1]),
+                   hi ? pack_bf16(xr[8], xr[9]) : 0u);
+        }
+      }
+    }
+    for (int kk = 0; kk < (BF ? 0 : E8); kk += 8) {
       unsigned ab[4], as_[4];
 #pragma unroll
       for (int qd = 0; qd < 4; ++qd)
@@ -292,10 +379,23 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
       }
     }
 
+    if constexpr (BF) {
+      // O += P.V: the 16 keys are one k16 step, P's accumulators the A
+      // fragment as they lie, rounded to bf16
+      const unsigned af[4] = {pack_bf16(p[0][0], p[0][1]),
+                              pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]),
+                              pack_bf16(p[1][2], p[1][3])};
+      const float* v0 = vs + 2 * t * SV + g;
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+        mma_bf16(o[j], af, pack_bf16(v0[j * 8], v0[SV + j * 8]),
+                 pack_bf16(v0[8 * SV + j * 8], v0[9 * SV + j * 8]));
+    }
     // O += P.V: key tile nt is one k8 step, keys 2t, 2t + 1 as k-columns
     // t, t + 4
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+    for (int nt = 0; nt < (BF ? 0 : 2); ++nt) {
       unsigned ab[4], as_[4];
       split_tf32(p[nt][0], ab[0], as_[0]);   // (g, key 2t)
       split_tf32(p[nt][2], ab[1], as_[1]);   // (g + 8, key 2t)
@@ -353,10 +453,10 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
   }
 }
 
-template <int NDK>
+template <int NDK, class TR>
 cudaError_t chunk_attention_launch(const float* q, const float* k,
-                                   const float* v, const float* ring,
-                                   const float* pos, const int* pos_starts,
+                                   const float* v, const TR* ring,
+                                   const TR* pos, const int* pos_starts,
                                    const float* posb, const int* cache_lens,
                                    const int* wptrs, float* out, int B, int c,
                                    int C, int rep, int D, int ldq, int H,
@@ -372,23 +472,28 @@ cudaError_t chunk_attention_launch(const float* q, const float* k,
   static size_t sized = 0;   // attribute set for the largest smem so far
   if (smem > sized) {
     cudaError_t err = cudaFuncSetAttribute(
-        chunk_attention_kernel<NDK>,
+        chunk_attention_kernel<NDK, TR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     sized = smem;
   }
-  // 16-byte copies: every row start a multiple of 4 floats
-  const bool vec = dk % 4 == 0 && D % 4 == 0 && ldq % 4 == 0 && on16(q) &&
-                   on16(k) && on16(v) && on16(ring) && on16(pos);
+  // 16-byte copies: every row start a multiple of 4 floats (f32 ring and
+  // positions), or of 8 values (the bf16 mode's plain 16-byte loads)
+  const int align = is_bf16<TR> ? 8 : 4;
+  const bool vec = dk % align == 0 && D % align == 0 && ldq % 4 == 0 &&
+                   on16(q) && on16(k) && on16(v) &&
+                   reinterpret_cast<size_t>(ring) % 16 == 0 &&
+                   reinterpret_cast<size_t>(pos) % 16 == 0;
   dim3 grid((c + kChunkRows - 1) / kChunkRows, H, B);
-  chunk_attention_kernel<NDK><<<grid, kChunkWarps * 32, smem, stream>>>(
+  chunk_attention_kernel<NDK, TR><<<grid, kChunkWarps * 32, smem, stream>>>(
       q, k, v, ring, pos, pos_starts, posb, cache_lens, wptrs, out, c, C, rep,
       D, ldq, dk, sub_c, 1.f / sqrtf((float)dk), vec);
   return cudaGetLastError();
 }
 
+template <class TR>
 cudaError_t chunk_attention(const float* q, const float* k, const float* v,
-                            const float* ring, const float* pos,
+                            const TR* ring, const TR* pos,
                             const int* pos_starts, const float* posb,
                             const int* cache_lens, const int* wptrs,
                             float* out, int B, int c, int C, int rep, int D,
@@ -422,9 +527,12 @@ cudaError_t chunk_attention(const float* q, const float* k, const float* v,
 // the rows a step overwrites are the oldest ones, which its attention
 // still reads.
 // ------------------------------------------------------------------------
+// (bf16 ring: the rows rounded to bf16 as written, where masr_tpu's
+// kernel casts them to the cache dtype)
+template <class TR>
 __global__ void kv_write_kernel(const float* __restrict__ k,
                                 const float* __restrict__ v,
-                                float* __restrict__ ring_all,
+                                TR* __restrict__ ring_all,
                                 const int* __restrict__ wptrs,
                                 const int* __restrict__ active, int c, int C,
                                 int rep, int ldq, int dk) {
@@ -432,20 +540,21 @@ __global__ void kv_write_kernel(const float* __restrict__ k,
   if (!active[s] || i < c - C) return;
   const int e2 = 2 * dk;
   const int wp = ((wptrs[s] % C) + C) % C;
-  float* dst = ring_all +
-               (((size_t)s * H + h) * C + (wp + i) % C) * (size_t)rep * e2;
+  TR* dst = ring_all +
+            (((size_t)s * H + h) * C + (wp + i) % C) * (size_t)rep * e2;
   const size_t src = ((size_t)s * c + i) * ldq + (size_t)h * dk;
   for (int e = threadIdx.x; e < rep * e2; e += blockDim.x) {
     const int f = e % e2;
-    dst[e] = f < dk ? k[src + f] : v[src + f - dk];
+    store_as(dst + e, f < dk ? k[src + f] : v[src + f - dk]);
   }
 }
 
-cudaError_t kv_write(const float* k, const float* v, float* ring,
+template <class TR>
+cudaError_t kv_write(const float* k, const float* v, TR* ring,
                      const int* wptrs, const int* active, int B, int c, int C,
                      int rep, int D, int ldq, int H, cudaStream_t stream) {
   if (C <= 0) return cudaGetLastError();
-  kv_write_kernel<<<dim3(c, H, B), 128, 0, stream>>>(k, v, ring, wptrs,
+  kv_write_kernel<TR><<<dim3(c, H, B), 128, 0, stream>>>(k, v, ring, wptrs,
                                                      active, c, C, rep, ldq,
                                                      D / H);
   return cudaGetLastError();
@@ -458,43 +567,53 @@ cudaError_t kv_write(const float* k, const float* v, float* ring,
 // holds post-ada rows). New cnn cache: the last k-1 rows of cin, active
 // slots only.
 // ------------------------------------------------------------------------
-__global__ void conv_input_kernel(const float* __restrict__ cnn_cache,
+// (a bf16 cnn cache is widened as read and its new rows rounded as
+// written, where masr_tpu's kernel casts them to the cache dtype)
+template <class TC>
+__global__ void conv_input_kernel(const TC* __restrict__ cnn_cache,
                                   const float* __restrict__ xn,
                                   const float* __restrict__ ada,
                                   float* __restrict__ cin, int c, int K1,
                                   int D) {
   const int r = blockIdx.x, s = blockIdx.y, W = K1 + c;
   const bool cached = r < K1;
-  const float* src = cached ? cnn_cache + ((size_t)s * K1 + r) * D
-                            : xn + ((size_t)s * c + (r - K1)) * D;
   float* dst = cin + ((size_t)s * W + r) * D;
+  if (cached) {
+    const TC* src = cnn_cache + ((size_t)s * K1 + r) * D;
+    for (int col = threadIdx.x; col < D; col += blockDim.x)
+      dst[col] = to_f32(src[col]);
+    return;
+  }
+  const float* src = xn + ((size_t)s * c + (r - K1)) * D;
   for (int col = threadIdx.x; col < D; col += blockDim.x)
-    dst[col] = cached || ada == nullptr ? src[col]
-                                        : src[col] * ada[col] + ada[D + col];
+    dst[col] = ada == nullptr ? src[col] : src[col] * ada[col] + ada[D + col];
 }
 
+template <class TC>
 __global__ void cnn_write_kernel(const float* __restrict__ cin,
-                                 float* __restrict__ cnn_cache,
+                                 TC* __restrict__ cnn_cache,
                                  const int* __restrict__ active, int c,
                                  int K1, int D) {
   const int r = blockIdx.x, s = blockIdx.y, W = K1 + c;
   if (!active[s]) return;
   const float* src = cin + ((size_t)s * W + c + r) * D;
-  float* dst = cnn_cache + ((size_t)s * K1 + r) * D;
-  for (int col = threadIdx.x; col < D; col += blockDim.x) dst[col] = src[col];
+  TC* dst = cnn_cache + ((size_t)s * K1 + r) * D;
+  for (int col = threadIdx.x; col < D; col += blockDim.x)
+    store_as(dst + col, src[col]);
 }
 
 // cin = [cnn cache || ada(rows)], then the cache takes cin's last k-1 rows
 // (its copy in cin is made first, so c < k-1 is safe)
+template <class TC>
 cudaError_t conv_input(const float* rows, const float* ada, float* cin,
-                       float* cnn_cache, const int* active, int B, int c,
+                       TC* cnn_cache, const int* active, int B, int c,
                        int K1, int D, cudaStream_t stream) {
-  conv_input_kernel<<<dim3(K1 + c, B), 256, 0, stream>>>(cnn_cache, rows, ada,
-                                                         cin, c, K1, D);
+  conv_input_kernel<TC><<<dim3(K1 + c, B), 256, 0, stream>>>(
+      cnn_cache, rows, ada, cin, c, K1, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cnn_write_kernel<<<dim3(K1, B), 256, 0, stream>>>(cin, cnn_cache, active, c,
-                                                    K1, D);
+  cnn_write_kernel<TC><<<dim3(K1, B), 256, 0, stream>>>(cin, cnn_cache,
+                                                        active, c, K1, D);
   return cudaGetLastError();
 }
 
@@ -528,6 +647,10 @@ struct TcWeight {        // a (K, N) row-major weight as its TF32 halves
   const float* small;
 };
 
+struct BfWeight {        // a (K, N) row-major bf16 weight (the bf16 mode)
+  const bf16_t* w;
+};
+
 struct SplitPlan {       // K = parts x part (the last part may be short)
   int parts, part;
 };
@@ -539,26 +662,31 @@ struct SplitK {          // the wrapper's scratch for split products
   int n_counters;
 };
 
-template <int BM, int BN, int WM, int WN>
+template <int BM, int BN, int WM, int WN, bool BF = false>
 struct SkTile {
   static_assert(BN % 32 == 0 || BN <= 16, "B rows hit 32 banks");
   static constexpr int NT = (BM / WM) * (BN / WN) * 32;
   static constexpr int SA = kTcBK + 4;    // A rows: k along the row
-  // B rows: n along the row, a stride of 8 or 24 mod 32 floats
-  static constexpr int SB = BN % 32 == 0 ? BN + 8 : 24;
-  static constexpr int A_FLOATS = BM * SA, B_FLOATS = kTcBK * SB;
-  static constexpr int STAGE = A_FLOATS + 2 * B_FLOATS;   // A, big, small
+  // B rows: n along the row, a stride of 8 or 24 mod 32 floats (f32
+  // halves), or BN + 8 bf16 (16-byte rows, the bf16 mode)
+  static constexpr int SB = BF ? BN + 8 : BN % 32 == 0 ? BN + 8 : 24;
+  static constexpr int A_FLOATS = BM * SA;
+  // the B tile in floats: its two TF32 halves, or one bf16 tile
+  static constexpr int B_FLOATS = BF ? kTcBK * SB / 2 : kTcBK * SB;
+  static constexpr int STAGE =
+      A_FLOATS + (BF ? B_FLOATS : 2 * B_FLOATS);   // A, big, small | A, W
   static constexpr size_t SMEM = sizeof(float) * kTcStages * STAGE;
 };
 
-template <int BM, int BN, int WM, int WN, class E>
+template <int BM, int BN, int WM, int WN, class E, class WT>
 __global__ void __launch_bounds__(SkTile<BM, BN, WM, WN>::NT)
-    gemm_sk_kernel(const float* __restrict__ A, TcWeight W, float* C, int M,
+    gemm_sk_kernel(const float* __restrict__ A, WT W, float* C, int M,
                    int N, int K, int lda, int ldc, int part,
                    float* __restrict__ partials,
                    unsigned* __restrict__ counters, E e, bool va, bool vb,
                    bool vp) {
-  using L = SkTile<BM, BN, WM, WN>;
+  constexpr bool BF = std::is_same<WT, BfWeight>::value;
+  using L = SkTile<BM, BN, WM, WN, BF>;
   constexpr int WX = BN / WN, NT = L::NT, MT = WM / 16, NT8 = WN / 8;
   extern __shared__ float smem[];
   __shared__ bool last;
@@ -574,10 +702,16 @@ __global__ void __launch_bounds__(SkTile<BM, BN, WM, WN>::NT)
     float* bb = as + L::A_FLOATS;
     load_tile_async<BM, kTcBK, L::SA, NT>(as, A, lda, m0, M, k0, k_end, va,
                                            tid);
-    load_tile_async<kTcBK, BN, L::SB, NT>(bb, W.big, N, k0, k_end, n0, N, vb,
-                                           tid);
-    load_tile_async<kTcBK, BN, L::SB, NT>(bb + L::B_FLOATS, W.small, N, k0,
-                                           k_end, n0, N, vb, tid);
+    if constexpr (BF) {
+      load_tile_bf16<kTcBK, BN, L::SB, NT>(reinterpret_cast<bf16_t*>(bb),
+                                            W.w, N, k0, k_end, n0, N, vb,
+                                            tid);
+    } else {
+      load_tile_async<kTcBK, BN, L::SB, NT>(bb, W.big, N, k0, k_end, n0, N,
+                                             vb, tid);
+      load_tile_async<kTcBK, BN, L::SB, NT>(bb + L::B_FLOATS, W.small, N,
+                                             k0, k_end, n0, N, vb, tid);
+    }
   };
 
   float acc[MT][NT8][4];
@@ -603,6 +737,38 @@ __global__ void __launch_bounds__(SkTile<BM, BN, WM, WN>::NT)
     const float* as = smem + (kt % kTcStages) * L::STAGE;
     const float* bb = as + L::A_FLOATS;
     const float* bs = bb + L::B_FLOATS;
+    if constexpr (BF) {
+      // bf16 mode: A rounded to bf16 as its fragments are read, W bf16
+      const bf16_t* wt = reinterpret_cast<const bf16_t*>(bb);
+#pragma unroll
+      for (int kk = 0; kk < kTcBK; kk += 16) {
+        unsigned af[MT][4], wf[NT8][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int r = wm + i * 16 + g;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float* a =
+                as + (r + (q & 1) * 8) * L::SA + kk + 2 * t + (q >> 1) * 8;
+            af[i][q] = pack_bf16(a[0], a[1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) {
+          const int c = wn + j * 8 + g;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int o = (kk + 2 * t + q * 8) * L::SB + c;
+            wf[j][q] = (unsigned)wt[o] | ((unsigned)wt[o + L::SB] << 16);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT8; ++j)
+            mma_bf16(acc[i][j], af[i], wf[j][0], wf[j][1]);
+      }
+    } else {
 #pragma unroll
     for (int kk = 0; kk < kTcBK; kk += 8) {
       unsigned ab[MT][4], asm_[MT][4], wb[NT8][2], wsm[NT8][2];
@@ -629,6 +795,7 @@ __global__ void __launch_bounds__(SkTile<BM, BN, WM, WN>::NT)
 #pragma unroll
         for (int j = 0; j < NT8; ++j)
           mma_3xtf32(acc[i][j], ab[i], asm_[i], wb[j], wsm[j]);
+    }
     }
   }
   cp_async_wait<0>();
@@ -713,12 +880,21 @@ __global__ void __launch_bounds__(SkTile<BM, BN, WM, WN>::NT)
   if (tid == 0) counters[tile] = 0u;
 }
 
-template <int BM, int BN, int WM, int WN, class E>
-cudaError_t gemm_sk_run(const float* A, const TcWeight& W, float* C, int M,
+// 16-byte copies of a weight: its base (both halves) 16-byte aligned and
+// its rows a multiple of 16 bytes
+inline bool weight_vec(const TcWeight& W, int N) {
+  return on16(W.big) && on16(W.small) && N % 4 == 0;
+}
+inline bool weight_vec(const BfWeight& W, int N) {
+  return reinterpret_cast<size_t>(W.w) % 16 == 0 && N % 8 == 0;
+}
+
+template <int BM, int BN, int WM, int WN, class E, class WT>
+cudaError_t gemm_sk_run(const float* A, const WT& W, float* C, int M,
                         int N, int K, int lda, int ldc, const SplitPlan& p,
                         const SplitK& sk, const E& e, cudaStream_t stream) {
-  using L = SkTile<BM, BN, WM, WN>;
-  auto kernel = gemm_sk_kernel<BM, BN, WM, WN, E>;
+  using L = SkTile<BM, BN, WM, WN, std::is_same<WT, BfWeight>::value>;
+  auto kernel = gemm_sk_kernel<BM, BN, WM, WN, E, WT>;
   static bool sized = false;   // one attribute call per instantiation
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -730,7 +906,7 @@ cudaError_t gemm_sk_run(const float* A, const TcWeight& W, float* C, int M,
   if (p.parts > 1 && ((long long)p.parts * M * N > sk.n_partials ||
                       (long long)grid.x * grid.y > sk.n_counters))
     return cudaErrorInvalidValue;   // the wrapper sized its scratch smaller
-  const bool vb = on16(W.big) && on16(W.small) && N % 4 == 0;
+  const bool vb = weight_vec(W, N);
   kernel<<<grid, L::NT, L::SMEM, stream>>>(
       A, W, C, M, N, K, lda, ldc, p.part, sk.partials, sk.counters, e,
       on16(A) && lda % 4 == 0, vb, N % 4 == 0 && on16(sk.partials));
@@ -746,8 +922,8 @@ cudaError_t gemm_sk_run(const float* A, const TcWeight& W, float* C, int M,
 // wide products (q/k/v, FFN w_1) was slower on the H100
 // (bench/full_context_probe.py). lens, T: the rows kRowMaskResidual keeps
 // (t = m % T < lens[m / T]); unread by the other epilogues.
-template <int EPI>
-cudaError_t gemm_sk(const float* A, const TcWeight& W, const float* bias,
+template <int EPI, class WT>
+cudaError_t gemm_sk(const float* A, const WT& W, const float* bias,
                     float* C, const float* R, int M, int N, int K, int lda,
                     int ldc, float scale, const SplitPlan& p,
                     const SplitK& sk, cudaStream_t stream,
@@ -781,10 +957,16 @@ inline TcWeight tc_weight(const float* w, int K, int N, int i = 0) {
   return TcWeight{w + 2 * kn * i, w + 2 * kn * i + kn};
 }
 
+// the bf16 mode's: index i of a (.., K, N) stacked bf16 array
+inline BfWeight tc_weight(const bf16_t* w, int K, int N, int i = 0) {
+  return BfWeight{w + (size_t)K * N * i};
+}
+
 // FFN on normed rows xn: dst = R + scale * (SiLU(xn . w1 + b1) . w2 + b2),
 // h (M, F) scratch; dst may be R
+template <class WT>
 cudaError_t ffn_sk(const float* xn, float* h, float* dst, const float* R,
-                   const TcWeight& w1, const float* b1, const TcWeight& w2,
+                   const WT& w1, const float* b1, const WT& w2,
                    const float* b2, int M, int D, int F, float scale,
                    const SplitPlan* plans, const SplitK& sk,
                    cudaStream_t stream) {

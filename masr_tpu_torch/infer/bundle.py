@@ -12,7 +12,10 @@ rounds) or int8 (weight-only, a per-channel scale over the flax layout's
 last axis, masr_tpu's numpy operations in their order). Quantized bundles
 load as f32: bfloat16 leaves are widened by the reader, int8 leaves are
 dequantized per last-axis scale in the flax layout, before the weight map
-transposes anything.
+transposes anything. `load_inference_bundle(dir, dtype=torch.bfloat16)`
+builds the model to compute in bf16 (masr_tpu's dtype=bf16): its
+parameters stay f32 (a bf16 bundle's values exactly), the products take
+them in bf16.
 """
 import json
 import os
@@ -105,8 +108,9 @@ def _dequantize_int8(tree):
     return tree
 
 
-def load_inference_bundle(bundle_dir):
-    """→ (model in eval mode on the CPU, meta dict, vocab_list)."""
+def load_inference_bundle(bundle_dir, dtype=None):
+    """→ (model in eval mode on the CPU, meta dict, vocab_list). dtype: the
+    compute dtype (None: f32; bf16 for the Conformer)."""
     with open(os.path.join(bundle_dir, "inference.json"), "r",
               encoding="utf-8") as f:
         meta = json.load(f)
@@ -117,7 +121,8 @@ def load_inference_bundle(bundle_dir):
         streaming=meta["streaming"], encoder_conf=meta["encoder_conf"],
         decoder_conf=meta.get("decoder_conf"),
         model_conf=meta.get("model_conf"),
-        cmvn=GlobalCMVN(meta["mean"], meta["istd"]))
+        cmvn=GlobalCMVN(meta["mean"], meta["istd"]),
+        dtype=dtype or torch.float32)
     with open(os.path.join(bundle_dir, "model.msgpack"), "rb") as f:
         variables = flax_msgpack.unpackb(f.read())
     if meta.get("quantization") == "int8":

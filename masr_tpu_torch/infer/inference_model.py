@@ -18,6 +18,13 @@ come back; `chunk_step` leaves the probs (and for rescoring the encoder's
 rows) on the device for a decoder that runs there. Every device call
 runs under its own torch.no_grad(): grad mode is per thread, and a server
 calls the predictor from threads of its own.
+
+dtype (masr_tpu's InferencePredictor(dtype=)): the compute dtype, None for
+f32, or torch.bfloat16 for the Conformer (load_inference_bundle's dtype).
+In bf16 the offline encode, attention rescoring, the chunk steps and the
+fused frontend's encoder run in bf16; the features (and the fused
+frontend's fbank) stay f32 up to the encoder's CMVN, the stream state is
+bf16, and the probabilities come back f32.
 """
 import os
 
@@ -50,12 +57,15 @@ def greedy_head(probs):
 
 class InferencePredictor(object):
     def __init__(self, model_dir, length_bucket=200, device="cuda",
-                 decoding_chunk_size=16, num_decoding_left_chunks=16):
+                 decoding_chunk_size=16, num_decoding_left_chunks=16,
+                 dtype=None):
         if not os.path.exists(os.path.join(model_dir, "inference.json")):
             raise FileNotFoundError(
                 f"not an inference bundle (no inference.json): {model_dir}")
         self.device = resolve_device(device)
-        model, self.meta, self.vocab_list = load_inference_bundle(model_dir)
+        self.dtype = dtype or torch.float32
+        model, self.meta, self.vocab_list = load_inference_bundle(
+            model_dir, self.dtype)
         self.model = model.to(self.device)
         self.use_model = self.meta["use_model"]
         self.length_bucket = length_bucket
@@ -116,7 +126,7 @@ class InferencePredictor(object):
         hypotheses are padded to nbest_pad rows of a length rounded up to
         len_bucket (decoders/rescoring.py) and only the first nbest_pad are
         scored."""
-        enc = torch.as_tensor(encoder_out, dtype=torch.float32,
+        enc = torch.as_tensor(encoder_out, dtype=self.dtype,
                               device=self.device)
         return attention_scores(self.model, enc, encoder_len, hyps_list,
                                 reverse_weight, nbest_pad, len_bucket)

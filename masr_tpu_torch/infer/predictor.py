@@ -70,7 +70,7 @@ def _subsampled_len(t):
 class MASRPredictor(object):
     def __init__(self, model_dir=None, model_tag=None, decoder="ctc_greedy",
                  decoder_configs=None, use_pun=False, pun_model_dir=None,
-                 num_decoding_left_chunks=16, warmup=True,
+                 num_decoding_left_chunks=16, itn=False, warmup=True,
                  fused_frontend=True, device="cuda"):
         """model_dir: an exported inference bundle directory (the
         exporters of either package), or model_tag: a tag of
@@ -86,7 +86,9 @@ class MASRPredictor(object):
         stream raw samples and make their features on the device (False:
         host fbank, masr_tpu's other path); use_pun: load the punctuation
         restorer (pun_model_dir: its model, None for the rule tier; each
-        call asks for punctuation and ITN with use_pun and is_itn)."""
+        call asks for punctuation and ITN with use_pun and is_itn); itn:
+        taken as masr_tpu's MASRPredictor takes it, and read by neither
+        (each call's is_itn decides)."""
         if model_dir is None:
             if model_tag is None:
                 raise ValueError("provide model_dir or model_tag")

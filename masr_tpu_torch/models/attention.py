@@ -21,12 +21,20 @@ CPU tensors), when `RelPositionMultiHeadedAttention.flash_route` holds:
     kernel has none.
 Every other call runs the eager code below. There is no length crossover:
 on a CUDA tensor every eligible call launches the kernel.
+
+The compute dtype is the input's (models/layers.py): at bf16, as
+masr_tpu's modules at dtype=bf16, the projections are bf16, the scores are
+f32 sums of bf16 products and the softmax is f32, the probabilities are
+rounded to bf16 before P.V (f32 sums, rounded to bf16), the position
+biases are cast to bf16 before they are added to q, and a cache is read
+in the input's dtype. An f32 input keeps the f32 arithmetic bit for bit.
 """
 import math
 
 import torch
 from torch import nn
 
+from masr_tpu_torch.models.layers import Linear
 from masr_tpu_torch.ops.common import dropout
 from masr_tpu_torch.ops.cuda.rel_pos_attention import rel_pos_flash_attention
 
@@ -68,21 +76,22 @@ class MultiHeadedAttention(nn.Module):
         assert n_feat % n_head == 0
         self.n_head, self.d_k = n_head, n_feat // n_head
         self.dropout_rate = dropout_rate
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
 
     def _heads(self, x):
         B, T, _ = x.shape
         return x.view(B, T, self.n_head, self.d_k).transpose(1, 2)
 
     def _attend(self, scores, mask, v, generator):
+        """f32 scores → softmax, rounded to v's dtype → P.V (f32 sums)."""
         B = v.shape[0]
-        attn = dropout(_mask_scores(scores, mask), self.dropout_rate,
-                       self.training, generator)
-        out = (attn @ v).transpose(1, 2).reshape(B, -1,
-                                                 self.n_head * self.d_k)
+        attn = dropout(_mask_scores(scores, mask).to(v.dtype),
+                       self.dropout_rate, self.training, generator)
+        out = (attn.float() @ v.float()).to(v.dtype)
+        out = out.transpose(1, 2).reshape(B, -1, self.n_head * self.d_k)
         return self.linear_out(out)
 
     def forward(self, query, key, value, mask, generator=None):
@@ -91,7 +100,7 @@ class MultiHeadedAttention(nn.Module):
         q = self._heads(self.linear_q(query))
         k = self._heads(self.linear_k(key))
         v = self._heads(self.linear_v(value))
-        scores = q @ k.transpose(-1, -2) / math.sqrt(self.d_k)
+        scores = q.float() @ k.float().transpose(-1, -2) / math.sqrt(self.d_k)
         return self._attend(scores, mask, v, generator)
 
 
@@ -101,7 +110,7 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__(n_head, n_feat, dropout_rate)
-        self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
+        self.linear_pos = Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
 
@@ -128,6 +137,7 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         if cache is None:
             return q, k, v, None
         C = cache.shape[2]
+        cache = cache.to(k.dtype)
         k = torch.cat([cache[..., :self.d_k], k], dim=2)
         v = torch.cat([cache[..., self.d_k:], v], dim=2)
         return q, k, v, torch.cat([k, v], dim=-1)[:, :, k.shape[2] - C:]
@@ -136,10 +146,11 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     def _rel_scores(q, k, p, bias_u, bias_v, d):
         """AC + BD as one matmul: [q+bu ‖ q+bv] · [k ‖ p]^T / √d; p may
         have a batch of 1 (shared positions) or B (per-slot positions)."""
+        bias_u, bias_v = bias_u.to(q.dtype), bias_v.to(q.dtype)
         q_cat = torch.cat([q + bias_u[None, :, None, :],
                            q + bias_v[None, :, None, :]], dim=-1)
         k_cat = torch.cat([k, p.expand_as(k)], dim=-1)
-        return q_cat @ k_cat.transpose(-1, -2) / math.sqrt(d)
+        return q_cat.float() @ k_cat.float().transpose(-1, -2) / math.sqrt(d)
 
     def forward(self, x, mask, pos_emb, cache=None, generator=None):
         """x: (B, T, D); mask: (B, 1|T, T2) bool; pos_emb: (1|B, T2, D)
@@ -149,7 +160,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         if self.flash_route(x, mask, cache):
             return self._flash(x, mask, pos_emb), None
         q, k, v, new_cache = self._qkv(x, cache)
-        p = self._heads(self.linear_pos(pos_emb))       # (1|B, h, T2, d_k)
+        # (1|B, h, T2, d_k)
+        p = self._heads(self.linear_pos(pos_emb.to(x.dtype)))
         scores = self._rel_scores(q, k, p, self.pos_bias_u, self.pos_bias_v,
                                   self.d_k)
         return self._attend(scores, mask, v, generator), new_cache
@@ -160,9 +172,10 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         B, T, D = x.shape
         q, k, v = (self._heads(f(x)) for f in (self.linear_q, self.linear_k,
                                                 self.linear_v))
-        p = self.linear_pos(pos_emb)[0].view(T, self.n_head,
-                                             self.d_k).transpose(0, 1)
-        out = rel_pos_flash_attention(q, k, v, p, self.pos_bias_u,
-                                      self.pos_bias_v, mask,
+        p = self.linear_pos(pos_emb.to(x.dtype))[0].view(
+            T, self.n_head, self.d_k).transpose(0, 1)
+        out = rel_pos_flash_attention(q, k, v, p,
+                                      self.pos_bias_u.to(x.dtype),
+                                      self.pos_bias_v.to(x.dtype), mask,
                                       1.0 / math.sqrt(self.d_k))
         return self.linear_out(out.transpose(1, 2).reshape(B, T, D))

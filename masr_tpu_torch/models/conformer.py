@@ -42,6 +42,14 @@ causal conv), as masr_tpu's forward_chunk does, through the layers'
 forward_cached with no cnn cache: its rings keep write pointer 0, so row j
 is chronological row j, masr_tpu's right-aligned layout, and its cnn_cache
 is one unused row per layer, as masr_tpu's.
+
+bf16 serving (build_model(..., dtype=torch.bfloat16), masr_tpu's
+dtype=bf16): the parameters stay f32; the encoder casts its features to
+`compute_dtype` after CMVN, the eager modules compute in their input's
+dtype (models/layers.py), the layer kernels take their bf16 mode (packs
+whose products' weights are bf16, LN and bias rows f32), the streaming
+caches and position tables are bf16, and the CTC probabilities leave in
+f32. Training stays f32.
 """
 import torch
 from torch import nn
@@ -51,6 +59,7 @@ from masr_tpu_torch.models.attention import (RelPositionMultiHeadedAttention,
 from masr_tpu_torch.models.convolution import ConvolutionModule
 from masr_tpu_torch.models.decoder import BiTransformerDecoder
 from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+from masr_tpu_torch.models.layers import LayerNorm
 from masr_tpu_torch.models.losses import CTCHead, label_smoothing_loss
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.models.subsampling import subsampling_class
@@ -74,7 +83,7 @@ _IGNORED_ENCODER_KEYS = ("use_flash_attention", "use_fused_layer",
 
 
 def _layer_norm(size):
-    return nn.LayerNorm(size, eps=1e-5)
+    return LayerNorm(size, eps=1e-5)
 
 
 def slot_positions(offsets, C, chunk, d_model):
@@ -208,20 +217,24 @@ class ConformerEncoderLayer(nn.Module):
         x = x + self.ff_scale * self.feed_forward(self.norm_ff(x))
         return self.norm_final(x), new_att, new_cnn
 
-    def packed_params(self):
-        """The kernel's packed weights, repacked only when a parameter was
-        moved or modified in place (tracked by data_ptr and _version)."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+    def packed_params(self, dtype=torch.float32):
+        """The kernel's packed weights, the products' in `dtype` (the
+        compute dtype), repacked only when a parameter was moved or
+        modified in place (tracked by data_ptr and _version) or the dtype
+        changes."""
+        key = (dtype,) + tuple((p.data_ptr(), p._version)
+                               for p in self.parameters())
         if key != self._packed_key:
             with torch.no_grad():
-                self._packed = pack_layer_params(self)
+                self._packed = pack_layer_params(self, dtype)
             self._packed_key = key
         return self._packed
 
-    def chunk_packed_params(self):
-        """packed_params() with the serving tensor-core pack of the chunk
-        kernel (pack_chunk_tc), rebuilt only when packed_params() is."""
-        packed = self.packed_params()
+    def chunk_packed_params(self, dtype=torch.float32):
+        """packed_params(dtype) with the serving tensor-core pack of the
+        chunk kernel (pack_chunk_tc), rebuilt only when packed_params()
+        is."""
+        packed = self.packed_params(dtype)
         if self._chunk_packed is None or self._chunk_packed[0] is not packed:
             with torch.no_grad():
                 self._chunk_packed = (packed,
@@ -246,10 +259,11 @@ class ConformerEncoderLayer(nn.Module):
     def forward_full_context(self, x, lens, pos_emb):
         """The layer through the full-context kernel, which reads the
         serving tensor-core pack (chunk_packed_params; its plain twin on a
-        CPU tensor does not). lens: (B,) int32."""
-        pos_p = self.self_attn.linear_pos(pos_emb[0])
-        packed = (self.chunk_packed_params() if x.is_cuda
-                  else self.packed_params())
+        CPU tensor does not), in x's dtype (f32, or bf16: the kernel's bf16
+        mode). lens: (B,) int32."""
+        pos_p = self.self_attn.linear_pos(pos_emb[0].to(x.dtype))
+        packed = (self.chunk_packed_params(x.dtype) if x.is_cuda
+                  else self.packed_params(x.dtype))
         return fused_conformer_layer(
             x, lens, pos_p, packed, n_head=self.attention_heads,
             ksize=self.cnn_module_kernel, causal=self.causal,
@@ -272,7 +286,8 @@ class ConformerEncoder(nn.Module):
                  use_cnn_module=True, cnn_module_kernel=15, causal=False,
                  cnn_module_norm="layer_norm", dropout_rate=0.1,
                  positional_dropout_rate=0.1, attention_dropout_rate=0.0,
-                 use_dynamic_left_chunk=False, cmvn=None, **conf):
+                 use_dynamic_left_chunk=False, cmvn=None,
+                 dtype=torch.float32, **conf):
         super().__init__()
         unknown = set(conf) - set(_IGNORED_ENCODER_KEYS)
         if unknown:
@@ -291,6 +306,7 @@ class ConformerEncoder(nn.Module):
                     f"{what}: the layer kernels do not take this layer "
                     "shape")
         self.global_cmvn = cmvn
+        self.compute_dtype = dtype
         self.output_size = output_size
         self.attention_heads = attention_heads
         self.causal = causal
@@ -321,9 +337,7 @@ class ConformerEncoder(nn.Module):
         through the flash route; every other model runs each layer through
         the full-context layer kernel."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        xs, pos_emb, masks = self.embed(xs, masks)
+        xs, pos_emb, masks = self.embed(self._features(xs), masks)
         if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
             chunk_masks = add_optional_chunk_mask(
                 xs.shape[1], masks, False, False, -1, self.static_chunk_size,
@@ -336,6 +350,13 @@ class ConformerEncoder(nn.Module):
                 xs = layer.forward_full_context(xs, lens, pos_emb)
         return self.after_norm(xs), masks
 
+    def _features(self, xs):
+        """CMVN in f32, then the compute dtype (masr_tpu casts after CMVN,
+        masr_tpu/models/conformer.py:242, :367, :450)."""
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        return xs.to(self.compute_dtype)
+
     def forward_train(self, xs, xs_lens, generator=None,
                       chunk_generator=None):
         """The loss path (masr_tpu's __call__ with train): subsampling with
@@ -343,6 +364,10 @@ class ConformerEncoder(nn.Module):
         drawn from chunk_generator), every layer through the training-layer
         kernel with per-(layer, utterance) seeds from `generator`. Dropout
         only in training mode. → (out (B, T', D), masks (B, 1, T'))."""
+        if self.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16 training (enable_amp) is not ported yet: ROADMAP "
+                "queue 1, item 3")
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
@@ -370,13 +395,14 @@ class ConformerEncoder(nn.Module):
 
     def init_cache(self, batch=1, cache_size=256, device=None):
         """Zeroed streaming state for `batch` slots with C = cache_size
-        cache rows per layer (the layout of the module docstring)."""
+        cache rows per layer (the layout of the module docstring); the att
+        and cnn caches in the compute dtype, as masr_tpu keeps them."""
         if cache_size < 0:
             raise ValueError(f"cache_size {cache_size}: the streaming "
                              "caches have a fixed size >= 0")
         L, d_k = len(self.encoders), self.output_size // self.attention_heads
 
-        def zeros(*shape, dtype=torch.float32):
+        def zeros(*shape, dtype=self.compute_dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         return {"att_cache": zeros(L, batch, self.attention_heads,
@@ -393,15 +419,16 @@ class ConformerEncoder(nn.Module):
         cache_size, each layer gets its make_chunk_pos_table rows, and the
         chunk step reads every slot's position window from them in place
         of a per-step sinusoid and linear_pos product. Computed once per
-        session. A non-causal model, which steps eagerly, packs nothing
-        (None)."""
+        session. Both in the compute dtype. A non-causal model, which
+        steps eagerly, packs nothing (None)."""
         if not self.causal:
             return None
+        dtype = self.compute_dtype
         with torch.no_grad():
-            return [(layer.chunk_packed_params(),
+            return [(layer.chunk_packed_params(dtype),
                      None if cache_size is None else make_chunk_pos_table(
                          layer.self_attn.linear_pos.weight, cache_size,
-                         pos_table_len))
+                         pos_table_len, dtype))
                     for layer in self.encoders]
 
     @torch.no_grad()
@@ -425,11 +452,9 @@ class ConformerEncoder(nn.Module):
         if xs.dim() == 4:
             n_sub = xs.shape[1]
             xs = xs.reshape((-1,) + tuple(xs.shape[2:]))
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
         # each window subsamples on its own, as sequential steps feed them;
         # the chunk's positions come from the offsets below
-        xs = self.embed(xs)[0]
+        xs = self.embed(self._features(xs))[0]
         if n_sub > 1:
             xs = xs.reshape(xs.shape[0] // n_sub, -1, xs.shape[2])
         N, chunk = xs.shape[0], xs.shape[1]
@@ -451,7 +476,7 @@ class ConformerEncoder(nn.Module):
         act_i32 = active.to(torch.int32)
         for i, layer in enumerate(self.encoders):
             pos = packed[i][1] if use_table else \
-                layer.self_attn.linear_pos(pe)
+                layer.self_attn.linear_pos(pe.to(xs.dtype))
             xs = fused_chunk_layer(
                 xs, pos, starts, att[i], cnn[i], state["cache_len"],
                 state["wptr"], act_i32, packed[i][0],
@@ -470,9 +495,7 @@ class ConformerEncoder(nn.Module):
         within the chunk, no cnn cache), per-slot offsets and cache lengths
         → (ys (N, c, D), new right-aligned att cache, cnn_cache as it
         was)."""
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        cur = self.embed(xs)[0]
+        cur = self.embed(self._features(xs))[0]
         C, chunk = att_cache.shape[3], cur.shape[1]
         pos = slot_positions(offsets, C, chunk, self.output_size)
         mask = slot_key_mask(C, chunk, cache_lens)
@@ -499,12 +522,17 @@ class ConformerModel(nn.Module):
     def __init__(self, input_dim, vocab_size, cmvn=None, streaming=True,
                  encoder_conf=None, decoder_conf=None, ctc_weight=0.5,
                  ignore_id=IGNORE_ID, reverse_weight=0.0, lsm_weight=0.0,
-                 length_normalized_loss=False):
+                 length_normalized_loss=False, dtype=torch.float32):
+        """dtype: the compute dtype (f32, or bf16 for the Conformer's bf16
+        serving; the encoder's compute_dtype, which the decoder follows)."""
         super().__init__()
         if not 0.0 <= ctc_weight <= 1.0:
             raise ValueError(f"ctc_weight {ctc_weight} not in [0, 1]")
+        enc_conf = dict(encoder_conf or {})
+        if dtype != torch.float32:
+            enc_conf["dtype"] = dtype
         self.encoder = self.make_encoder(input_dim, cmvn, streaming,
-                                         dict(encoder_conf or {}))
+                                         enc_conf)
         D = self.encoder.output_size
         self.decoder = BiTransformerDecoder(vocab_size, D,
                                             **dict(decoder_conf or {}))

@@ -10,11 +10,15 @@ the last lorder = k-1 rows of the module's input BEFORE pointwise_conv1,
 as masr_tpu's does. With stride s > 1 (the Efficient-Conformer's stride
 layers, masr_tpu/models/efficient_conformer.py:108-160) the depthwise conv
 strides time: T rows give ceil(T / s), masked by the pad mask's every s-th
-column.
+column. The compute dtype is the input's (models/layers.py); a cache is
+read in it, as masr_tpu's casts its cache to x's dtype.
 """
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from masr_tpu_torch.models.layers import Conv1d, LayerNorm
+from masr_tpu_torch.ops.common import glu
 
 
 class ConvolutionModule(nn.Module):
@@ -27,15 +31,15 @@ class ConvolutionModule(nn.Module):
         if not causal and (kernel_size - 1) % 2:
             raise ValueError("non-causal conv needs an odd kernel size")
         self.lorder = kernel_size - 1 if causal else 0
-        self.pointwise_conv1 = nn.Conv1d(channels, 2 * channels, 1)
-        self.depthwise_conv = nn.Conv1d(
+        self.pointwise_conv1 = Conv1d(channels, 2 * channels, 1)
+        self.depthwise_conv = Conv1d(
             channels, channels, kernel_size, stride=stride, groups=channels,
             padding=0 if causal else (kernel_size - 1) // 2)
         self.stride = stride
-        self.norm = nn.LayerNorm(channels, eps=1e-5) \
+        self.norm = LayerNorm(channels, eps=1e-5) \
             if norm == "layer_norm" else \
             nn.BatchNorm1d(channels, eps=1e-5, momentum=0.1)
-        self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
+        self.pointwise_conv2 = Conv1d(channels, channels, 1)
         self.activation = activation
 
     def forward(self, x, mask_pad=None, cache=None):
@@ -52,9 +56,9 @@ class ConvolutionModule(nn.Module):
             if cache is None:
                 x = F.pad(x, (0, 0, self.lorder, 0))
             else:
-                x = torch.cat([cache, x], dim=1)
+                x = torch.cat([cache.to(x.dtype), x], dim=1)
             new_cache = x[:, x.shape[1] - self.lorder:]
-        x = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
+        x = glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
         x = self.depthwise_conv(x)
         if isinstance(self.norm, nn.LayerNorm):
             x = self.norm(x.transpose(1, 2)).transpose(1, 2)

@@ -6,20 +6,24 @@ Module names follow upstream MASR (`decoder.left_decoder.decoders.{i}.
 self_attn.linear_q`, `...embed.0.weight`, `...after_norm`,
 `...output_layer`), which models/weights.py maps to and from masr_tpu's
 flax tree. LayerNorms use eps 1e-12, as the reference's decoder does. The
-products stay nn.Linear: masr_tpu runs them outside any Pallas kernel.
+products stay linear layers: masr_tpu runs them outside any Pallas kernel.
+The decoder computes in its memory's (the encoder rows') dtype: the token
+embedding is cast to it, and every layer follows (models/layers.py), as
+masr_tpu's decoder at dtype=bf16.
 """
 import torch
 from torch import nn
 
 from masr_tpu_torch.models.attention import MultiHeadedAttention
 from masr_tpu_torch.models.embedding import PositionalEncoding
+from masr_tpu_torch.models.layers import LayerNorm, Linear
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.ops.common import dropout, get_activation
 from masr_tpu_torch.ops.masks import make_pad_mask, subsequent_mask
 
 
 def _layer_norm(size):
-    return nn.LayerNorm(size, eps=1e-12)
+    return LayerNorm(size, eps=1e-12)
 
 
 class DecoderLayer(nn.Module):
@@ -81,7 +85,7 @@ class TransformerDecoder(nn.Module):
                          src_attention_dropout_rate, normalize_before)
             for _ in range(num_blocks))
         self.after_norm = _layer_norm(D)
-        self.output_layer = nn.Linear(D, vocab_size)
+        self.output_layer = Linear(D, vocab_size)
 
     def forward(self, memory, memory_mask, ys_in_pad, ys_in_lens,
                 generator=None):
@@ -90,7 +94,8 @@ class TransformerDecoder(nn.Module):
         L = ys_in_pad.shape[1]
         tgt_mask = ~make_pad_mask(ys_in_lens, L)[:, None, :] & \
             subsequent_mask(L, ys_in_pad.device)[None]
-        x, _ = self.embed[1](self.embed[0](ys_in_pad), 0, generator)
+        x, _ = self.embed[1](self.embed[0](ys_in_pad).to(memory.dtype), 0,
+                             generator)
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, memory_mask, generator)
         return self.output_layer(self.after_norm(x))

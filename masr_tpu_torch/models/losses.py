@@ -2,12 +2,14 @@
 CTCHead :11-52, label_smoothing_loss :55-79).
 
 The CTC loss goes through the CTC kernel (ops/cuda/ctc_loss.py) on the
-card and its plain twin on the CPU. The projection stays an nn.Linear, as
-masr_tpu leaves it to XLA.
+card and its plain twin on the CPU. The projection stays a linear layer
+in the encoder's dtype (models/layers.py), as masr_tpu leaves it to XLA;
+the softmax is f32.
 """
 import torch
 from torch import nn
 
+from masr_tpu_torch.models.layers import Linear
 from masr_tpu_torch.ops.common import IGNORE_ID
 from masr_tpu_torch.ops.cuda.ctc_loss import ctc_loss
 
@@ -18,7 +20,7 @@ class CTCHead(nn.Module):
 
     def __init__(self, idim: int, odim: int):
         super().__init__()
-        self.ctc_lo = nn.Linear(idim, odim)
+        self.ctc_lo = Linear(idim, odim)
 
     def forward(self, hs_pad, hlens, ys_pad, ys_lens):
         """The reference's reduction: per-utterance CTC NLL of (B, T, D)

@@ -4,7 +4,14 @@ constructors and model_conf carries the loss weights (ctc_weight,
 lsm_weight, reverse_weight, length_normalized_loss). The port has all
 four families, serving and training: the Conformer, the Squeezeformer,
 the Efficient-Conformer and DeepSpeech2 (whose decoder_conf is {} and
-which takes no model_conf)."""
+which takes no model_conf).
+
+dtype (masr_tpu's build_model(dtype=)): the compute dtype, f32 or bf16.
+The Conformer serves in bf16 (its layer kernels' bf16 modes, rows 1, 2 and
+5); the other families raise on bf16 until their bf16 serving is ported
+(ROADMAP queue 1, item 1: rows 6 and 8), and never fall back to f32."""
+import torch
+
 from masr_tpu_torch.models.conformer import ConformerModel
 from masr_tpu_torch.models.deepspeech2 import DeepSpeech2Model
 from masr_tpu_torch.models.efficient_conformer import EfficientConformerModel
@@ -17,12 +24,21 @@ _FAMILIES = {"conformer": ConformerModel, "squeezeformer": SqueezeformerModel,
 
 def build_model(use_model: str, input_dim: int, vocab_size: int,
                 streaming: bool = True, encoder_conf=None, decoder_conf=None,
-                model_conf=None, cmvn=None):
-    if use_model in _FAMILIES:
-        return _FAMILIES[use_model](input_dim=input_dim,
-                                    vocab_size=vocab_size, cmvn=cmvn,
-                                    streaming=streaming,
-                                    encoder_conf=encoder_conf,
-                                    decoder_conf=decoder_conf,
-                                    **dict(model_conf or {}))
-    raise ValueError(f"unknown use_model: {use_model}")
+                model_conf=None, cmvn=None, dtype=torch.float32):
+    if use_model not in _FAMILIES:
+        raise ValueError(f"unknown use_model: {use_model}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype {dtype}: the port computes in f32 or bf16")
+    extra = {}
+    if dtype == torch.bfloat16:
+        if use_model != "conformer":
+            raise NotImplementedError(
+                f"bf16 serving of the {use_model} is not ported yet: "
+                "ROADMAP queue 1, item 1 (bf16 serving of the "
+                "Squeezeformer, Efficient-Conformer and DeepSpeech2)")
+        extra["dtype"] = dtype
+    return _FAMILIES[use_model](input_dim=input_dim, vocab_size=vocab_size,
+                                cmvn=cmvn, streaming=streaming,
+                                encoder_conf=encoder_conf,
+                                decoder_conf=decoder_conf,
+                                **dict(model_conf or {}), **extra)

@@ -13,18 +13,21 @@ import torch
 from torch import nn
 
 from masr_tpu_torch.models.embedding import RelPositionalEncoding
+from masr_tpu_torch.models.layers import BatchInvariantLinear, Conv2d
 from masr_tpu_torch.ops.common import dropout
 
 
 class Conv2dSubsampling4(nn.Module):
-    """Two (3x3, stride 2) convs + linear: rate 4, right context 6."""
+    """Two (3x3, stride 2) convs + linear: rate 4, right context 6; in the
+    input's dtype (models/layers.py), as masr_tpu's at its dtype, the
+    linear's bf16 product batch-invariant (BatchInvariantLinear)."""
 
     def __init__(self, idim: int, odim: int, pos_dropout_rate: float = 0.0):
         super().__init__()
-        self.conv = nn.Sequential(nn.Conv2d(1, odim, 3, 2), nn.ReLU(),
-                                  nn.Conv2d(odim, odim, 3, 2), nn.ReLU())
+        self.conv = nn.Sequential(Conv2d(1, odim, 3, 2), nn.ReLU(),
+                                  Conv2d(odim, odim, 3, 2), nn.ReLU())
         freq = ((idim - 1) // 2 - 1) // 2
-        self.out = nn.Sequential(nn.Linear(odim * freq, odim))
+        self.out = nn.Sequential(BatchInvariantLinear(odim * freq, odim))
         self.pos_enc = RelPositionalEncoding(odim, pos_dropout_rate)
 
     def forward(self, x, x_mask=None, offset=0, generator=None):

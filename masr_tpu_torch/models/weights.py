@@ -413,6 +413,52 @@ def flax_like_init(model, generator):
         p.copy_(t)
 
 
+def _torch_default_redraw(tree, generator):
+    """masr_tpu's torch_default_reinit rule (masr_tpu/models/
+    initializers.py:38-69) over a flax 'params' tree, in place: a 'kernel'
+    of ndim >= 2 U(±1/√fan_in), fan_in = prod(shape[:-1]); a 'bias' beside
+    such a kernel U(±1/√fan_in) of that kernel; an 'embedding' N(0, 1);
+    every other leaf as it is."""
+    for key, leaf in list(tree.items()):
+        if isinstance(leaf, dict):
+            _torch_default_redraw(leaf, generator)
+            continue
+        kernel = tree.get("kernel")
+        if key == "embedding" and leaf.ndim == 2:
+            t = torch.empty(leaf.shape).normal_(0.0, 1.0, generator=generator)
+        elif key == "kernel" and leaf.ndim >= 2 or (
+                key == "bias" and isinstance(kernel, np.ndarray)
+                and kernel.ndim >= 2):
+            fan_in = int(np.prod((leaf if key == "kernel"
+                                  else kernel).shape[:-1]))
+            bound = 1.0 / np.sqrt(fan_in)
+            t = torch.empty(leaf.shape).uniform_(-bound, bound,
+                                                 generator=generator)
+        else:
+            continue
+        tree[key] = t.numpy()
+
+
+@torch.no_grad()
+def torch_default_like_init(model, generator):
+    """Re-initialise `model` in place as masr_tpu's train_conf.init_type
+    "torch_default" starts it: its flax init (flax_like_init) with every
+    kernel, every bias beside one and every embedding redrawn by
+    torch_default_reinit's rule in the flax layout (so fan_in counts a
+    conv's receptive field, pos_bias_u/v stay xavier_uniform, norms stay
+    1 and 0, and DeepSpeech2's recurrent kernels draw U(±1/√fan_in) per
+    gate matrix with the one bias flax's cells have); drawn from
+    `generator` (CPU)."""
+    flax_like_init(model, generator)
+    variables = to_flax_variables(model.state_dict())
+    _torch_default_redraw(variables["params"], generator)
+    missing, unexpected = model.load_state_dict(
+        from_flax_variables(variables), strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise RuntimeError(f"the flax layout lost {missing} / {unexpected}")
+
+
 def _lstm(model):
     """True for a DeepSpeech2 of LSTM layers."""
     return isinstance(model.encoder.rnns[0].rnn, torch.nn.LSTM)
@@ -466,8 +512,20 @@ def _ring_rows(C, wptr, sign):
     return (torch.arange(C)[None, :] + sign * wptr) % C
 
 
+def _state_tensor(a):
+    """A cache array (torch, numpy or jax) → a CPU torch tensor: bf16 stays
+    bf16 (the bf16 mode's caches), anything else becomes f32."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return a if a.dtype == torch.bfloat16 else a.float()
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, np.float32))
+
+
 def _gather_rows(att, rows):
-    att = torch.as_tensor(np.asarray(att, np.float32))
+    att = _state_tensor(att)
     if att.shape[-2] == 0:
         return att.clone()
     idx = rows[:, None, :, None].expand(*att.shape[:-4], -1, att.shape[-3],
@@ -477,7 +535,8 @@ def _gather_rows(att, rows):
 
 def ring_from_right_aligned(att, wptr):
     """masr_tpu's right-aligned cache (..., B, h, C, E) → the port's ring
-    for per-slot write pointers wptr (B,). With wptr = 0 the two agree."""
+    for per-slot write pointers wptr (B,). With wptr = 0 the two agree.
+    These converters keep a bf16 cache bf16 (f32 otherwise)."""
     return _gather_rows(att, _ring_rows(np.shape(att)[-2], wptr, -1))
 
 
@@ -494,13 +553,14 @@ def ring_from_mirrored(rings, d_k):
     pointers (rows [C, 2·C) duplicate rows [0, C); lanes past 2·d_k are
     padding)."""
     return torch.stack([
-        torch.from_numpy(np.array(r, np.float32))[
-            :, :, :np.shape(r)[2] // 2, :2 * d_k] for r in rings])
+        _state_tensor(r)[:, :, :np.shape(r)[2] // 2, :2 * d_k]
+        for r in rings])
 
 
 def mirrored_from_ring(att, lanes):
     """The port's (L, B, h, C, 2·d_k) ring → masr_tpu's mirrored rings, a
-    tuple of L (B, h, 2·C, lanes) float32 numpy arrays."""
-    att = np.asarray(torch.as_tensor(att).cpu(), np.float32)
+    tuple of L (B, h, 2·C, lanes) float32 numpy arrays (a bf16 ring's
+    values exactly: cast them back to bf16 for a bf16 masr_tpu state)."""
+    att = _state_tensor(att).float().numpy()
     pad = [(0, 0)] * 3 + [(0, lanes - att.shape[-1])]
     return tuple(np.pad(np.concatenate([a, a], axis=2), pad) for a in att)

@@ -7,11 +7,36 @@ import torch.nn.functional as F
 IGNORE_ID = -1
 
 
+def sigmoid(x):
+    """torch.sigmoid; in a half dtype 1 / (1 + exp(-x)) with every step
+    rounded to it, as XLA computes jax.nn.sigmoid there (masr_tpu's modules
+    at dtype=bf16)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """F.silu; in a half dtype x * sigmoid(x) rounded, as jax.nn.silu."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * sigmoid(x)
+
+
+def glu(x, dim):
+    """F.glu; in a half dtype a * sigmoid(b) rounded, as masr_tpu's conv
+    module computes its GLU."""
+    if x.dtype == torch.float32:
+        return F.glu(x, dim=dim)
+    a, b = x.chunk(2, dim=dim)
+    return a * sigmoid(b)
+
+
 def get_activation(name: str):
     """Activation by config name (masr_tpu/ops/common.py:8-20). The port
     takes swish (every shipped Conformer encoder) and relu (the attention
     decoder's FFN)."""
-    acts = {"swish": F.silu, "relu": F.relu}
+    acts = {"swish": silu, "relu": F.relu}
     if name not in acts:
         raise NotImplementedError(f"activation {name!r} is not ported yet")
     return acts[name]

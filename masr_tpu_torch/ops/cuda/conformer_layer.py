@@ -8,7 +8,14 @@ what bounds it on the H100 and what is left for later.
 `fused_conformer_layer` launches the kernel for a CUDA tensor and takes the
 plain PyTorch version, `fused_conformer_layer_plain`, only for a CPU tensor.
 It counts its kernel launches in `fused_conformer_layer.launches`, one per
-layer call. Operands are f32 (the serving dtype of the predictor).
+layer call, and those of its bf16 mode in `.bf16_launches` as well.
+Operands are f32, or bf16: the bf16 mode of masr_tpu's kernel
+(`cdt = x_ref.dtype`, masr_tpu/ops/pallas/conformer_layer.py:50), where x,
+pos_p and the output are bf16, the pack's product weights are bf16 (LN and
+bias rows f32, `pack_layer_params(layer, torch.bfloat16)`), the activations
+stay f32 inside, every product rounds its activation operand to bf16 and
+sums in f32, and the attention rounds [q+u | q+v], [k | p], the
+probabilities and v. Mixed or other dtypes raise.
 
 The kernel's products run on the tensor cores in 3xTF32 (csrc/serving.cuh
 `gemm_sk_kernel`), their weights from the serving tensor-core pack of the
@@ -29,8 +36,10 @@ import torch.nn.functional as F
 from masr_tpu_torch.ops.cuda.chunk_layer import (CHUNK_KEYS, CHUNK_PRODUCTS,
                                                  K_TILE, TC_KEYS,
                                                  check_chunk_tc,
+                                                 check_serving_dtypes,
                                                  chunk_entry,
                                                  launch_tc_kernel,
+                                                 operand_mm,
                                                  with_chunk_tc)
 from masr_tpu_torch.ops.cuda.rel_pos_attention import (
     MASK_VALUE, rel_pos_attention_plain as masked_attention_plain)
@@ -39,10 +48,11 @@ PACKED_KEYS = ("lnw", "ffw1", "ffb1", "ffw2", "vecb", "attw", "posb",
                "pw1w", "pw1b", "pw2w", "dww")
 
 
-def pack_layer_params(layer):
+def pack_layer_params(layer, dtype=torch.float32):
     """One ConformerEncoderLayer (masr_tpu_torch.models.conformer) → the
-    kernel's stacked f32 arrays, in the layout of the JAX
-    `pack_layer_params`: matmul weights as (in, out)."""
+    kernel's stacked arrays, in the layout of the JAX `pack_layer_params`:
+    matmul weights as (in, out), in dtype (the compute dtype); LN and bias
+    rows f32."""
     att, conv = layer.self_attn, layer.conv_module
     ffm, ff = layer.feed_forward_macaron, layer.feed_forward
 
@@ -50,7 +60,7 @@ def pack_layer_params(layer):
         return torch.stack([m.weight, m.bias])
 
     D = layer.size
-    return {
+    packed = {
         "lnw": torch.stack([ln(layer.norm_ff_macaron), ln(layer.norm_mha),
                             ln(layer.norm_conv), ln(conv.norm),
                             ln(layer.norm_ff), ln(layer.norm_final)]),
@@ -72,21 +82,28 @@ def pack_layer_params(layer):
         # torch depthwise Conv1d weight (D, 1, k) → (k, D)
         "dww": conv.depthwise_conv.weight.reshape(D, -1).t().contiguous(),
     }
+    if dtype != torch.float32:
+        for name in ("ffw1", "ffw2", "attw", "pw1w", "pw2w"):
+            packed[name] = packed[name].to(dtype)
+    return packed
 
 
-def rel_pos_attention_plain(q, k, v, pos_p, posb, valid, n_head):
+def rel_pos_attention_plain(q, k, v, pos_p, posb, valid, n_head,
+                            cdt=torch.float32):
     """Full-context rel-pos attention, AC + BD as one 2·d_k contraction
-    (no rel_shift, as the reference). q, k, v: (B, T, D), heads along
+    (no rel_shift, as the reference). q, k, v: (B, T, D) f32, heads along
     columns; pos_p: (T, D) linear_pos(pos_emb); posb: (2, D) pos_bias_u,
     pos_bias_v; valid: (B, T) bool, the keys each utterance may see (a row
-    that sees none gives 0). → (B, T, D)."""
+    that sees none gives 0). cdt: the products' operand dtype (bf16: the
+    operands and the normalised probabilities rounded to bf16, as
+    masr_tpu's layer kernel). → (B, T, D) f32."""
     B, T, D = q.shape
     d_k = D // n_head
     q, k, v = (t.view(B, T, n_head, d_k).transpose(1, 2) for t in (q, k, v))
     att = masked_attention_plain(
-        q, k, v, pos_p.view(T, n_head, d_k).transpose(0, 1),
+        q, k, v, pos_p.float().view(T, n_head, d_k).transpose(0, 1),
         posb[0].view(n_head, d_k), posb[1].view(n_head, d_k),
-        valid[:, None, :].expand(B, T, T))
+        valid[:, None, :].expand(B, T, T), cdt=cdt, round_normalised=True)
     return att.transpose(1, 2).reshape(B, T, D)
 
 
@@ -116,18 +133,22 @@ def glu_depthwise_plain(gx, pw1b, dww, causal):
 def fused_conformer_layer_plain(x, lens, pos_p, packed, *, n_head, ksize,
                                 causal, ff_scale=0.5, eps=1e-5):
     """Plain PyTorch version of the kernel, same arguments.
-    x: (B, T, D) f32; lens: (B,) valid lengths; pos_p: (T, D)
-    linear_pos(pos_emb), heads along columns; packed: `pack_layer_params`.
-    → (B, T, D)."""
+    x: (B, T, D) f32 or bf16; lens: (B,) valid lengths; pos_p: (T, D)
+    linear_pos(pos_emb), heads along columns; packed: `pack_layer_params`
+    in x's dtype. In the bf16 mode the activations stay f32 inside and
+    operands round to bf16 at each product (operand_mm). → (B, T, D) in
+    x's dtype."""
     B, T, D = x.shape
     lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
+    cdt, x = x.dtype, x.float()
+    mm = operand_mm
 
     def layer_norm(v, i):
         return F.layer_norm(v, (D,), lnw[i, 0], lnw[i, 1], eps)
 
     def ffn(v, i):
-        h = F.silu(v @ packed["ffw1"][i] + packed["ffb1"][i])
-        return h @ packed["ffw2"][i] + vecb[i]
+        h = F.silu(mm(v, packed["ffw1"][i]) + packed["ffb1"][i])
+        return mm(h, packed["ffw2"][i]) + vecb[i]
 
     t_idx = torch.arange(T, device=x.device)
     valid = t_idx[None, :] < lens.to(x.device)[:, None]            # (B, T)
@@ -138,19 +159,19 @@ def fused_conformer_layer_plain(x, lens, pos_p, packed, *, n_head, ksize,
     # rel-pos MHSA
     xn = layer_norm(x, 1)
     att = rel_pos_attention_plain(
-        *(xn @ attw[i] + vecb[2 + i] for i in range(3)), pos_p,
-        packed["posb"], valid, n_head)
-    x = x + att @ attw[3] + vecb[5]
+        *(mm(xn, attw[i]) + vecb[2 + i] for i in range(3)), pos_p,
+        packed["posb"], valid, n_head, cdt)
+    x = x + mm(att, attw[3]) + vecb[5]
 
     # conv module
     xm = torch.where(row_ok, layer_norm(x, 2), 0.0)
-    acc = glu_depthwise_plain(xm @ packed["pw1w"] + packed["pw1b"][0],
+    acc = glu_depthwise_plain(mm(xm, packed["pw1w"]) + packed["pw1b"][0],
                               packed["pw1b"][0], packed["dww"], causal)
-    y = F.silu(layer_norm(acc + vecb[6], 3)) @ packed["pw2w"] + vecb[7]
+    y = mm(F.silu(layer_norm(acc + vecb[6], 3)), packed["pw2w"]) + vecb[7]
     x = x + torch.where(row_ok, y, 0.0)
 
     x = x + ff_scale * ffn(layer_norm(x, 4), 1)
-    return layer_norm(x, 5)
+    return layer_norm(x, 5).to(cdt)
 
 
 FULL_PART = 512     # the full-context products' largest part of K
@@ -187,12 +208,13 @@ def full_plans(M, D, F_):
     return (ctypes.c_int * len(plans))(*plans), n_partials, n_counters
 
 
-def check_operands(tensors, want, device):
-    """Raise unless every tensor of {name: tensor} is f32, contiguous and on
-    device, and has the shape want[name] where want names one."""
+def check_operands(tensors, want, device, dtype=torch.float32):
+    """Raise unless every tensor of {name: tensor} is of dtype (unless None:
+    the caller's rule), contiguous and on device, and has the shape
+    want[name] where want names one."""
     for name, t in tensors.items():
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes f32 on {device}, "
+        if t.device != device or dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{name}: the kernel takes {dtype} on {device}, "
                              f"got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -239,8 +261,9 @@ def fused_conformer_layer(x, lens, pos_p, packed, *, n_head, ksize, causal,
                           ff_scale=0.5, eps=1e-5):
     """The whole full-context layer (arguments as the plain version; packed
     may also hold the serving tensor-core pack, chunk_packed_params). A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises. → (B, T, D) f32."""
+    tensor takes the plain version; a CUDA tensor launches the kernel (its
+    bf16 mode for bf16 operands) or raises. → (B, T, D) in x's dtype."""
+    dtype = check_serving_dtypes({"x": x, "pos_p": pos_p}, packed)
     if x.device.type == "cpu":
         return fused_conformer_layer_plain(
             x, lens, pos_p, packed, n_head=n_head, ksize=ksize,
@@ -250,14 +273,16 @@ def fused_conformer_layer(x, lens, pos_p, packed, *, n_head, ksize, causal,
     B, T, D = x.shape
     packed = with_chunk_tc(packed)
     F_ = packed["ffb1"].shape[1]
-    check_operands({"x": x, "pos_p": pos_p,
-                    **{k: packed[k] for k in CHUNK_KEYS}},
+    check_operands({k: packed[k] for k in CHUNK_KEYS},
                    {"lnw": (6, 2, D), "ffb1": (2, F_), "vecb": (8, D),
                     "posb": (2, D), "pw1b": (1, 2 * D), "dww": (ksize, D)},
                    x.device)
-    check_chunk_tc(packed, D, F_, x.device)
+    check_operands({"x": x, "pos_p": pos_p}, {}, x.device, None)
+    check_chunk_tc(packed, D, F_, x.device, dtype)
     check_layer_args(x, lens, pos_p, n_head, ksize, causal)
-    fn = chunk_entry("conformer_layer", "masr_conformer_layer_forward",
+    bf16 = dtype == torch.bfloat16
+    fn = chunk_entry("conformer_layer", "masr_conformer_layer_forward"
+                     + ("_bf16" if bf16 else ""),
                      3 + len(CHUNK_KEYS) + len(TC_KEYS), 7, 2)
     out = torch.empty_like(x)
     M = B * T
@@ -265,11 +290,14 @@ def fused_conformer_layer(x, lens, pos_p, packed, *, n_head, ksize, causal,
         fn, (x.data_ptr(), lens.data_ptr(), pos_p.data_ptr()),
         (B, T, D, F_, n_head, ksize, int(bool(causal)), float(ff_scale),
          float(eps)), packed, CHUNK_KEYS, full_plans(M, D, F_),
-        M * (2 * D + max(F_, 4 * D)), out)
+        M * ((3 if bf16 else 2) * D + max(F_, 4 * D)), out)
     if err != 0:
         raise RuntimeError(f"conformer_layer kernel failed: CUDA error {err}")
     fused_conformer_layer.launches += 1
+    if dtype == torch.bfloat16:
+        fused_conformer_layer.bf16_launches += 1
     return out
 
 
 fused_conformer_layer.launches = 0
+fused_conformer_layer.bf16_launches = 0   # the launches of its bf16 mode

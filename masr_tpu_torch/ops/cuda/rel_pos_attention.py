@@ -12,13 +12,18 @@ header says what bounds it on the H100.
 `rel_pos_flash_attention` launches the kernels for CUDA tensors and takes
 the plain PyTorch version, `rel_pos_attention_plain`, only for CPU tensors.
 It counts its launches in `rel_pos_flash_attention.launches`, one per call
-on the card (the pre-pass and the attention are one call). The kernel reads
+on the card (the pre-pass and the attention are one call), and those of
+its bf16 mode in `.bf16_launches` as well. The kernel reads
 every operand through its strides: q, k, v may be (B, T, D) rows viewed as
 (B, H, T, d_k) heads, p the matching (H, T, d_k) view of
 linear_pos(pos_emb), and the mask any (B, T, T) view, a broadcast `expand`
 included (it is never read as if it were dense). Only a view whose last
-axis is not unit-stride is copied first. The output has q's layout. f32
-only, d_k <= 128; no backward (the Pallas kernel has none).
+axis is not unit-stride is copied first. The output has q's layout. f32,
+or bf16 (the Pallas kernel takes its operands in k.dtype: q, k, v, p and
+the biases bf16, [q+bu | q+bv], [k | p], the unnormalised probabilities
+and v rounded to bf16 at the products, the softmax f32, the output bf16);
+mixed or other dtypes raise. d_k <= 128; no backward (the Pallas kernel
+has none).
 """
 import ctypes
 import math
@@ -28,22 +33,44 @@ import torch
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 
 
-def rel_pos_attention_plain(q, k, v, p, bias_u, bias_v, mask, sm_scale=None):
+def rel_pos_attention_plain(q, k, v, p, bias_u, bias_v, mask, sm_scale=None,
+                            cdt=None, round_normalised=False):
     """Plain PyTorch version, the Pallas kernel's semantics: q, k, v (B, H,
     T, d); p (H, T, d); bias_u, bias_v (H, d); mask (B, T, T) bool, True =
     attend. Masked scores take MASK_VALUE and their probabilities are
-    zeroed, so a row that sees no key gives 0. → (B, H, T, d)."""
+    zeroed, so a row that sees no key gives 0. cdt, the products' operand
+    dtype (q's by default): at bf16, [q+bu ‖ q+bv] and [k ‖ p] are rounded
+    to bf16 (their sums taken in f32), the scores and the softmax are f32,
+    and the probabilities exp(s - max) are rounded to bf16 before P.V and
+    divided by their f32 sum after it, as the Pallas flash kernel does with
+    one key tile; round_normalised rounds p / sum instead (the full-context
+    layer kernel's order, conformer_layer.py). → (B, H, T, d) in q's
+    dtype."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    out_dtype = q.dtype
+    cdt = q.dtype if cdt is None else cdt
+    q, k, v, p = q.float(), k.float(), v.float(), p.float()
+    bias_u, bias_v = bias_u.float(), bias_v.float()
     q_cat = torch.cat([q + bias_u[None, :, None, :],
                        q + bias_v[None, :, None, :]], dim=-1)
     k_cat = torch.cat([k, p[None].expand(k.shape[0], -1, -1, -1)], dim=-1)
-    s = (q_cat @ k_cat.transpose(-1, -2)) * scale
+    s = (rounded(q_cat, cdt) @ rounded(k_cat, cdt).transpose(-1, -2)) * scale
     m = mask[:, None].to(torch.bool)
     s = torch.where(m, s, MASK_VALUE)
     prob = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
-    l = prob.sum(-1, keepdim=True)
-    return (prob / torch.where(l == 0.0, 1.0, l)) @ v
+    l = torch.where(prob.sum(-1, keepdim=True) == 0.0, 1.0,
+                    prob.sum(-1, keepdim=True))
+    if cdt == torch.float32:
+        return ((prob / l) @ v).to(out_dtype)
+    if round_normalised:
+        return (rounded(prob / l, cdt) @ rounded(v, cdt)).to(out_dtype)
+    return ((rounded(prob, cdt) @ rounded(v, cdt)) / l).to(out_dtype)
+
+
+def rounded(t, dtype):
+    """t rounded to dtype and widened back to f32 (as it is at f32)."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
 
 
 TILE = 64                                     # the kernel's map tile
@@ -99,6 +126,25 @@ def _unit_columns(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+# the compute dtypes of the Conformer serving kernels (rows 1, 2, 5)
+SERVING_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_compute_dtype(tensors, dtype=None):
+    """The serving kernels' dtype rule: raise unless dtype (the first
+    tensor's if None) is f32 or bf16 and every tensor of {name: tensor}
+    has it (no mixed dtypes, no silent upcast). → dtype."""
+    if dtype is None:
+        dtype = next(iter(tensors.values())).dtype
+    if dtype not in SERVING_DTYPES:
+        raise ValueError(f"the serving kernels take f32 or bf16, got {dtype}")
+    for name, t in tensors.items():
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {t.dtype} in a {dtype} call (mixed "
+                             "dtypes)")
+    return dtype
+
+
 def _check(q, k, v, p, bias_u, bias_v, mask):
     B, H, T, d = q.shape
     want = {"q": (B, H, T, d), "k": (B, H, T, d), "v": (B, H, T, d),
@@ -111,8 +157,6 @@ def _check(q, k, v, p, bias_u, bias_v, mask):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{want[name]}")
-        if name != "mask" and t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes f32, got {t.dtype}")
     if not 1 <= d <= 128:
         raise ValueError(f"d_k {d}: the kernel takes d_k up to 128")
 
@@ -120,13 +164,16 @@ def _check(q, k, v, p, bias_u, bias_v, mask):
 def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None,
                             tile_map_out=None):
     """softmax(mask(((q+bu)·kᵀ + (q+bv)·pᵀ)·sm_scale))·v, sm_scale 1/√d by
-    default. q, k, v (B, H, T, d) f32; p (H, T, d); bias_u, bias_v (H, d);
-    mask (B, T, T) bool (True = attend). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises. → (B, H, T, d)
-    f32, in q's memory layout; 0 on rows with no visible key.
+    default. q, k, v (B, H, T, d) f32 or bf16; p (H, T, d); bias_u, bias_v
+    (H, d), all of q's dtype; mask (B, T, T) bool (True = attend). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (its
+    bf16 mode for bf16 operands) or raises. → (B, H, T, d) in q's dtype
+    and memory layout; 0 on rows with no visible key.
     tile_map_out: a contiguous (B, nt, nt) uint8 CUDA tensor, nt =
     ceil(T / 64), into which the kernel's pre-pass writes its tile map (for
     tests; scratch of its own otherwise)."""
+    check_compute_dtype({"q": q, "k": k, "v": v, "p": p, "bias_u": bias_u,
+                         "bias_v": bias_v})
     if q.device.type == "cpu":
         return rel_pos_attention_plain(q, k, v, p, bias_u, bias_v, mask,
                                        sm_scale)
@@ -152,7 +199,8 @@ def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *p.stride()[:2], *mask.stride())
     from masr_tpu_torch.ops.cuda import build
-    fn = build.load("rel_pos_attention").masr_rel_pos_attention
+    fn = getattr(build.load("rel_pos_attention"), "masr_rel_pos_attention"
+                 + ("_bf16" if q.dtype == torch.bfloat16 else ""))
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
@@ -166,7 +214,10 @@ def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None,
         raise RuntimeError(f"rel_pos_attention kernel failed: CUDA error "
                            f"{err}")
     rel_pos_flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        rel_pos_flash_attention.bf16_launches += 1
     return out
 
 
 rel_pos_flash_attention.launches = 0
+rel_pos_flash_attention.bf16_launches = 0   # the launches of its bf16 mode

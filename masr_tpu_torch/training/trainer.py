@@ -23,8 +23,9 @@ the CTC kernel; its eval takes ctc_beam_search for attention_rescoring, as
 masr_tpu's does. Training is f32 (TF32 off).
 
 Training as masr_tpu's train.py runs it: `augment_conf_path` (an
-augmentation JSON; the CLI's default is configs/augmentation.json) turns
-on host augmentation in the training set (data/augmentation; its specaug
+augmentation JSON; train's default, as the CLI's and masr_tpu's, is
+configs/augmentation.json) turns on host augmentation in the training set
+(data/augmentation; its specaug
 and specsub params also drive the on-device frontend); with
 dataset_conf.on_device_frontend the loaders yield int16-scale waveforms
 (collate_waveforms, bucketed to sample_bucket samples) and every train
@@ -58,7 +59,8 @@ from masr_tpu_torch.infer.inference_model import resolve_device
 from masr_tpu_torch.models.cmvn import GlobalCMVN
 from masr_tpu_torch.models.registry import build_model
 from masr_tpu_torch.models.weights import (flax_like_init,
-                                           to_flax_variables)
+                                           to_flax_variables,
+                                           torch_default_like_init)
 from masr_tpu_torch.optimizer.schedulers import build_optimizer
 from masr_tpu_torch.training import checkpoints as ckpt
 from masr_tpu_torch.training.logging_util import ScalarWriter
@@ -79,10 +81,14 @@ def _not_ported(what, item):
 
 
 class MASRTrainer(object):
-    def __init__(self, configs, device="cuda", overwrites=None):
-        """configs: a YAML path or a dict (masr_tpu's schema); device:
-        "cuda" (the default; raises without a card) or "cpu"; overwrites:
-        "a.b=value,..." (values parsed as YAML)."""
+    def __init__(self, configs, use_gpu=True, overwrites=None, device=None):
+        """configs: a YAML path or a dict (masr_tpu's schema); use_gpu
+        (masr_tpu's keyword, as the root train.py passes it): the card
+        (raises without one) or, False, the CPU; device: "cuda" or "cpu",
+        which overrides use_gpu; overwrites: "a.b=value,..." (values parsed
+        as YAML)."""
+        if device is None:
+            device = "cuda" if use_gpu else "cpu"
         if isinstance(configs, str):
             configs = load_config(configs)
         self.configs = dict_to_object(dict(configs))
@@ -198,7 +204,10 @@ class MASRTrainer(object):
             "init_type", "flax"))
         if init_type == "flax":
             flax_like_init(model, torch.Generator().manual_seed(self.seed))
-        elif init_type != "torch_default":
+        elif init_type == "torch_default":
+            torch_default_like_init(model,
+                                    torch.Generator().manual_seed(self.seed))
+        else:
             raise ValueError(f"unknown train_conf.init_type {init_type!r}")
         self.model = model.to(self.device)
         t = self.configs.get("train_conf", {})
@@ -235,7 +244,11 @@ class MASRTrainer(object):
     # train
     # ------------------------------------------------------------------ #
     def train(self, save_model_path="models/", resume_model=None,
-              pretrained_model=None, augment_conf_path=None):
+              pretrained_model=None,
+              augment_conf_path="configs/augmentation.json"):
+        """masr_tpu's train: augment_conf_path defaults to its
+        configs/augmentation.json (relative to the working directory; a
+        missing file, or None, trains unaugmented)."""
         t_conf = self.configs.train_conf
         dataset, sampler, loader = self._setup_dataloader(
             True, augment_conf_path)

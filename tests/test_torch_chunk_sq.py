@@ -203,11 +203,12 @@ def _jax_chain(flax_enc, v, windows, C):
     st = flax_enc.apply(v, method=lambda m: m.init_cache(
         batch=windows.shape[1], cache_size=C))
     outs = []
+    # one compiled step for the chain (op by op, each window retraces)
+    step = jax.jit(lambda w, o, a, c, n: flax_enc.apply(
+        v, w, o, a, c, n, method=FlaxEncoder.forward_chunk))
     for w in windows:
-        ys, att, cnn = flax_enc.apply(
-            v, jnp.asarray(w), st["offset"], st["att_cache"],
-            st["cnn_cache"], st["cache_len"],
-            method=FlaxEncoder.forward_chunk)
+        ys, att, cnn = step(jnp.asarray(w), st["offset"], st["att_cache"],
+                            st["cnn_cache"], st["cache_len"])
         st = {"att_cache": att, "cnn_cache": cnn,
               "offset": st["offset"] + CH,
               "cache_len": jnp.minimum(st["cache_len"] + CH, C)}

@@ -1147,3 +1147,198 @@ def test_device_beam_stream_class_on_the_card(cuda_device):
         assert ids == want and abs(s - ws) <= 1e-4
     with pytest.raises(ValueError):
         card.feed(probs[:, :8])
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 modes of rows 1, 2 and 5 (masr_tpu's compute dtype bf16)
+# --------------------------------------------------------------------------- #
+def _assert_bf16_close(name, got, want):
+    """Kernel vs twin in the bf16 mode. Both round the same operands to bf16
+    at the same points and sum in f32, in other orders (and the kernels'
+    flash and chunk attentions round the unnormalised probabilities of a
+    key tile, the twins the normalised ones). One bf16 rounding is 2^-8 of
+    a value; a different f32 sum flips a rounding here and there, which
+    moves an output by a rounding or two. Allowed: a max abs error of 8
+    roundings of the largest output, and a mean abs error of one rounding
+    of the mean output magnitude."""
+    assert got.dtype == want.dtype == torch.bfloat16, (name, got.dtype)
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    top = max(1.0, want.abs().max().item())
+    mean = max(2 ** -4, want.abs().mean().item())
+    assert err.max().item() <= 8 * 2 ** -8 * top, (name, err.max().item())
+    assert err.mean().item() <= 2 ** -8 * mean, (name, err.mean().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"D{s[0]}T{s[4]}")
+def test_conformer_layer_bf16_kernel_matches_plain(cuda_device, shape,
+                                                   causal):
+    """Row 1's bf16 mode: fused_conformer_layer on bf16 x, pos_p and a bf16
+    pack (the card's bf16 kernel) == the bf16 twin on the same card, valid
+    rows (_assert_bf16_close), output bf16 and finite, one launch."""
+    D, H, FF, K, T, lens = shape
+    layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                  causal=causal)
+    layer.load_state_dict(seeded_state_dict(layer, seed=D + T))
+    layer = layer.to(cuda_device)
+    g = torch.Generator().manual_seed(T)
+    x = torch.randn(len(lens), T, D, generator=g).to(cuda_device,
+                                                      torch.bfloat16)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        pos_p = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            torch.arange(T, device=cuda_device), D).to(torch.bfloat16))
+        packed = cl.pack_layer_params(layer, torch.bfloat16)
+        before = cl.fused_conformer_layer.launches
+        got = cl.fused_conformer_layer(x, lens_t, pos_p, packed, n_head=H,
+                                       ksize=K, causal=causal)
+        want = cl.fused_conformer_layer_plain(x, lens_t, pos_p, packed,
+                                              n_head=H, ksize=K,
+                                              causal=causal)
+    torch.cuda.synchronize()
+    assert cl.fused_conformer_layer.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    for b, n in enumerate(lens):
+        if n:
+            _assert_bf16_close((b, n), got[b, :n], want[b, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["exact", "table"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("shape", CHUNK_SHAPES, ids=lambda s: f"D{s[0]}C{s[5]}")
+def test_chunk_layer_bf16_kernel_matches_plain(cuda_device, shape, n_sub,
+                                               route):
+    """Row 2's bf16 mode: bf16 x, positions, ring and cnn cache, a bf16
+    pack: outputs and updated caches == the bf16 twin's on the same card
+    (_assert_bf16_close), over slots mixing cache_len {0, partial, full},
+    write pointers and offsets; inactive slots' caches stay bitwise
+    unchanged; one launch."""
+    D, H, FF, K, c, C = shape
+    c *= n_sub
+    d_k, L = D // H, C + c
+    bf = torch.bfloat16
+    layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K, causal=True)
+    layer.load_state_dict(seeded_state_dict(layer, seed=D + C + c))
+    layer = layer.to(cuda_device)
+    g = torch.Generator().manual_seed(c + C)
+    x = torch.randn(6, c, D, generator=g).to(cuda_device, bf)
+    att = (0.5 * torch.randn(6, H, C, 2 * d_k, generator=g)).to(cuda_device,
+                                                                bf)
+    cnn = (0.5 * torch.randn(6, K - 1, D, generator=g)).to(cuda_device, bf)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda_device)
+
+    clens = i32([0, 5, min(100, C), C, C, 3])
+    wptrs = i32([0, 3, 7 % C, C - 1, 11 % C, 0])
+    active = i32([1, 1, 1, 1, 0, 0])
+    offsets = [0, 5, 100, 400, 250, 3]
+    with torch.no_grad():
+        if route == "table":
+            pos = ck.make_chunk_pos_table(layer.self_attn.linear_pos.weight,
+                                          C, table_len=1024, dtype=bf)
+            starts = ck.clamp_pos_starts(i32(offsets), 1024, L)
+        else:
+            rows = torch.clamp(i32(offsets)[:, None] - C
+                               + torch.arange(L, device=cuda_device), min=0)
+            pos = layer.self_attn.linear_pos(
+                sinusoid_position_encoding(rows.reshape(-1), D).to(bf))
+            starts = torch.arange(6, dtype=torch.int32,
+                                  device=cuda_device) * L
+        packed = cl.pack_layer_params(layer, bf)
+        caches = {}
+        for name, fn in (("kernel", ck.fused_chunk_layer),
+                         ("plain", ck.fused_chunk_layer_plain)):
+            a, n = att.clone(), cnn.clone()
+            before = ck.fused_chunk_layer.launches
+            out = fn(x, pos, starts, a, n, clens, wptrs, active, packed,
+                     n_head=H, ksize=K, n_sub=n_sub)
+            caches[name] = (out, a, n, ck.fused_chunk_layer.launches - before)
+    torch.cuda.synchronize()
+    (got, a_k, n_k, launched), (want, a_p, n_p, _) = (caches["kernel"],
+                                                      caches["plain"])
+    assert launched == 1
+    assert torch.isfinite(got.float()).all()
+    for name, k_t, p_t in (("out", got, want), ("att", a_k[:4], a_p[:4]),
+                           ("cnn", n_k[:4], n_p[:4])):
+        _assert_bf16_close(name, k_t, p_t)
+    assert torch.equal(a_k[4:], att[4:]) and torch.equal(n_k[4:], cnn[4:])
+    assert not torch.equal(a_k[:4], att[:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d", [(37, 32), (299, 64), (1500, 128)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("kind", ["full", "static16", "left4", "random"])
+def test_rel_pos_attention_bf16_kernel_matches_plain(cuda_device, kind, T, d):
+    """Row 5's bf16 mode: bf16 q, k, v, p and biases (the card's bf16
+    kernel) == the bf16 twin on the same card (_assert_bf16_close), bf16
+    output, rows with no visible key exactly 0, one launch."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    lens = [T, T - 17, max(T // 3, 1), 0]
+    mask = _att_mask(kind, T, lens, cuda_device)
+    args = tuple(t.to(torch.bfloat16)
+                 for t in _att_inputs(4, 4, T, d, cuda_device, T + d))
+    with torch.no_grad():
+        before = rpa.rel_pos_flash_attention.launches
+        got = rpa.rel_pos_flash_attention(*args, mask)
+        launched = rpa.rel_pos_flash_attention.launches - before
+        want = rpa.rel_pos_attention_plain(*args, mask)
+    torch.cuda.synchronize()
+    assert launched == 1 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    _assert_bf16_close(kind, got, want)
+    empty = ~mask.any(-1)
+    assert torch.all(got.transpose(1, 2)[empty] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(32, 16), (1, 16), (8, 299), (3, 5)],
+                         ids=lambda r: f"{r[0]}x{r[1]}")
+def test_serving_product_bf16_kernel_matches_plain(cuda_device, rows):
+    """The subsampling's bf16 product (csrc/chunk_layer.cu
+    masr_serving_product_bf16) at the flagship's K = 4864, N = 256, at the
+    engine's 32 windows, one window, 8 utterances and a ragged 15 rows:
+    against its twin within _assert_bf16_close, and every block's bits
+    from a call of its own rows equal to its rows of the whole call (the
+    split fixed by N and K, never the rows)."""
+    K, N = 256 * 19, 256
+    g = torch.Generator().manual_seed(7)
+    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(cuda_device,
+                                                       torch.bfloat16)
+    x = torch.relu(torch.randn(*rows, K, generator=g)).to(cuda_device,
+                                                          torch.bfloat16)
+    with torch.no_grad():
+        before = ck.serving_product.launches
+        got = ck.serving_product(x, w)
+        assert ck.serving_product.launches - before == 1
+        want = ck.serving_product_plain(x, w)
+        alone = [ck.serving_product(x[b:b + 1], w) for b in range(rows[0])]
+    torch.cuda.synchronize()
+    assert got.shape == (*rows, N) and got.dtype == torch.bfloat16
+    _assert_bf16_close(f"serving product {rows}", got, want)
+    for b, one in enumerate(alone):
+        assert torch.equal(one, got[b:b + 1]), b
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_mixed_dtypes(cuda_device):
+    """A bf16 x with an f32 pack, or f16 operands, raise on the card: no
+    silent upcast and no f32 fallback."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    layer = ConformerEncoderLayer(64, 2, 96, cnn_module_kernel=7,
+                                  causal=True).to(cuda_device)
+    x = torch.randn(2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
+    lens = torch.tensor([8, 5], dtype=torch.int32, device=cuda_device)
+    pos_p = torch.randn(8, 64, device=cuda_device, dtype=torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match="mixed"):
+        cl.fused_conformer_layer(x, lens, pos_p, cl.pack_layer_params(layer),
+                                 n_head=2, ksize=7, causal=True)
+    q = torch.randn(1, 2, 8, 32, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        rpa.rel_pos_flash_attention(q, q, q, q[0], q[0, :, 0], q[0, :, 0],
+                                    torch.ones(1, 8, 8, dtype=torch.bool,
+                                               device=cuda_device))

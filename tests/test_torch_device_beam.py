@@ -119,6 +119,7 @@ def test_matches_python_engine():
 def test_rolling_hashes_bit_equal():
     """extend_hash in int64 reduced mod 2^32 == masr_tpu's uint32
     h·mult + tok + 2, at the extremes and on random values."""
+    import jax
     import jax.numpy as jnp
     from masr_tpu.decoders import device_beam as J
     from masr_tpu_torch.decoders.device_beam import (_MULT1, _MULT2,
@@ -143,8 +144,10 @@ def test_rolling_hashes_bit_equal():
                -1)
     jst = J.init_state(1, 6, 12)
     lp = jnp.log(jnp.asarray(probs))
+    # one compiled step (op by op, each frame dispatches every op anew)
+    step = jax.jit(J.beam_step, static_argnums=(3, 4, 5))
     for t in range(12):
-        jst = J.beam_step(jst, lp[t][None], jnp.asarray([True]), 6, 5, 0)
+        jst = step(jst, lp[t][None], jnp.asarray([True]), 6, 5, 0)
     for k in ("h1", "h2"):
         np.testing.assert_array_equal(st[k].numpy(),
                                       np.asarray(jst[k]).astype(np.int64))

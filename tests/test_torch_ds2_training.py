@@ -257,13 +257,13 @@ def test_trainer_trains_resumes_evaluates_and_exports(corpus, tmp_path,
     from masr_tpu_torch.training.trainer import MASRTrainer
     save = str(tmp_path / "models")
     tr = MASRTrainer(_trainer_config(corpus, str(tmp_path)), device="cpu")
-    tr.train(save_model_path=save)
+    tr.train(save_model_path=save, augment_conf_path=None)
     losses = _losses(os.path.join(str(tmp_path), "log"))
     assert len(losses) == 8 and np.isfinite(losses).all()
     assert np.mean(losses[-4:]) < losses[0]
     tr2 = MASRTrainer(_trainer_config(corpus, str(tmp_path), 3),
                       device="cpu")
-    tr2.train(save_model_path=save)
+    tr2.train(save_model_path=save, augment_conf_path=None)
     assert tr2.state.step == 12
     best = os.path.join(save, "deepspeech2_streaming_fbank", "best_model")
     logger = logging.getLogger("masr_tpu_torch")

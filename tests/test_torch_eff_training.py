@@ -395,7 +395,7 @@ def test_trainer_trains_evaluates_and_exports(corpus, tmp_path):
     from masr_tpu_torch.training.trainer import MASRTrainer
     save = str(tmp_path / "models")
     tr = MASRTrainer(_trainer_config(corpus, str(tmp_path)), device="cpu")
-    tr.train(save_model_path=save)
+    tr.train(save_model_path=save, augment_conf_path=None)
     assert tr.state.step == 8 and tr.state.updates == 2
     with open(os.path.join(str(tmp_path), "log", "scalars.jsonl")) as f:
         losses = [json.loads(l)["value"] for l in f

@@ -229,7 +229,7 @@ def test_trainer_trains_resumes_and_serves_on_cpu(corpus, tmp_path,
     save = str(tmp_path / "models")
     conf = _trainer_config(corpus, str(tmp_path), 1, conv_norm)
     tr = MASRTrainer(conf, device="cpu")
-    tr.train(save_model_path=save)
+    tr.train(save_model_path=save, augment_conf_path=None)
     with open(os.path.join(str(tmp_path), "log", "scalars.jsonl")) as f:
         losses = [json.loads(l)["value"] for l in f
                   if json.loads(l)["tag"] == "Train/Loss"]
@@ -241,7 +241,7 @@ def test_trainer_trains_resumes_and_serves_on_cpu(corpus, tmp_path,
         assert not torch.equal(trained[k], torch.ones_like(trained[k]))
 
     tr2 = MASRTrainer(conf, device="cpu")
-    tr2.train(save_model_path=save)
+    tr2.train(save_model_path=save, augment_conf_path=None)
     assert tr2.state.step == 4
     resumed = tr2.model.state_dict()
     assert set(resumed) == set(trained)

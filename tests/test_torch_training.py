@@ -423,7 +423,7 @@ def test_trainer_trains_saves_and_resumes_on_cpu(corpus, tmp_path):
     from masr_tpu_torch.training.trainer import MASRTrainer
     save = str(tmp_path / "models")
     tr = MASRTrainer(_trainer_config(corpus, str(tmp_path), 2), device="cpu")
-    tr.train(save_model_path=save)
+    tr.train(save_model_path=save, augment_conf_path=None)
     with open(os.path.join(str(tmp_path), "log", "scalars.jsonl")) as f:
         points = [json.loads(l) for l in f]
     losses = [p["value"] for p in points if p["tag"] == "Train/Loss"]
@@ -434,7 +434,7 @@ def test_trainer_trains_saves_and_resumes_on_cpu(corpus, tmp_path):
         assert os.path.exists(os.path.join(run, d, "state.pt")), d
     tr2 = MASRTrainer(_trainer_config(corpus, str(tmp_path), 3),
                       device="cpu")
-    tr2.train(save_model_path=save)
+    tr2.train(save_model_path=save, augment_conf_path=None)
     assert tr2.state.step == 12
     with open(os.path.join(run, "last_model", "model.state")) as f:
         assert json.load(f)["last_epoch"] == 3
