@@ -318,23 +318,46 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     of the batch, timed beside torch.matmul bf16
  45. bf16_offline   phase 3's flagship read by InferencePredictor(dtype=
                     bf16): predict of the 8 utterances launches row 1's bf16
-                    mode 12 times, the product once and nothing else; the
+                    mode 12 times, the products (every bf16 Linear's,
+                    models/layers.py) 14 times and nothing else; the
                     card's bf16 probs
                     stray from f32 at most twice as far as the CPU's bf16
                     twin route, no argmax flip past that margin; walls
                     beside f32; the example bundle's held-out sentences at
                     bf16 (>= 2 of 3), against f32
  46. bf16_stream    the bf16 predictor under predict_stream (12 row-2 bf16
-                    launches and 1 product a window; fused frontend whole ==
+                    launches and 14 products a window; fused frontend whole ==
                     pieces) and a 32-stream BatchStreamSession (bf16 slot
-                    state, 12 bf16 launches and 1 product a dispatch, texts
+                    state, 12 bf16 launches and 2 products a dispatch, texts
                     == the single streams', the margin rule below; the
                     example bundle's 8 engine streams == its single
                     streams); window latency, tick
  47. bf16_static    phase 23's static-chunk flagship at bf16: encodes of the
                     8 and of the 4 long utterances launch row 5's bf16 mode
-                    12 times, the product once and row 1 never; probs as
+                    12 times, the products 134 times and row 1 never; probs as
                     phase 45's
+ 48. bf16_sq_kernels rows 6 and 8 in their bf16 modes vs their bf16 twins at
+                    the shapes of phase 14 (row 6: B=4 ragged, T' 150 and
+                    299, both conv norms, an utterance alone == its batch
+                    slice; row 8: B=32 and 1 at full and half rate, n_sub 2,
+                    inactive slots' bf16 caches bitwise unchanged, every
+                    half-rate row's two copies equal, a slot alone == its
+                    batch slice), the rule of phase 44; each timed beside
+                    its f32 kernel, its bf16 twin and torch.matmul bf16 of
+                    its products, with its bf16 bound
+ 49. bf16_sq        phase 15's Squeezeformer flagship read by
+                    InferencePredictor(dtype=bf16): predict launches row
+                    6's bf16 mode 12
+                    times (no f32 launch), probs as phase 45's;
+                    predict_stream (12 row-8 bf16 launches a window) and a
+                    32-stream engine (12 a dispatch, bf16 slot state, texts
+                    == the single streams' by the margin rule below)
+ 50. bf16_eff       the Efficient-Conformer flagship at bf16 the same way:
+                    predict launches row 1's bf16 mode 8 times (its tail),
+                    its streaming windows and engine eager (no kernel)
+ 51. bf16_ds2       DeepSpeech2 at bf16: the bidirectional flagship's
+                    predict and the forward one's predict_stream and
+                    32-stream engine (cuDNN's bf16 recurrence, no kernel)
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -4994,6 +5017,13 @@ def reset_bf16_launches():
     serving_product.launches = 0
 
 
+def conformer_products(layers, static=False):
+    """serving_product launches per bf16 Conformer encode of `layers`
+    layers: the subsampling's, the CTC head's and each layer's linear_pos
+    (a static-chunk model's eager layers: 11 each, as EFF_PRODUCTS')."""
+    return 2 + (11 if static else 1) * layers
+
+
 def product_launches():
     from masr_tpu_torch.ops.cuda.chunk_layer import serving_product
     return serving_product.launches
@@ -5019,10 +5049,10 @@ def layer_bound_bf16(layer, lens, T):
     return _bound_bf16(f32["gflop"] * 1e9, nbytes)
 
 
-def chunk_bound_bf16(layer, clens, active, c, C, pos_rows=None):
+def chunk_bound_bf16(layer, clens, active, c, C, pos_rows=None, rep=1):
     """chunk_bound's operations over the bf16 dense rate; its bytes with
     the bf16 pack and bf16 x, out, cache rows and position rows (pos_rows
-    as chunk_bound's)."""
+    as chunk_bound's; rep the copies of each fresh ring row written)."""
     D, F, K = _widths(layer)
     B, M = len(clens), len(clens) * c
     if pos_rows is None:
@@ -5030,7 +5060,7 @@ def chunk_bound_bf16(layer, clens, active, c, C, pos_rows=None):
     n_act = sum(bool(a) for a in active)
     flops = chunk_bound(layer, clens, active, c, C)["gflop"] * 1e9
     nbytes = _bf16_pack_bytes(layer) + 2 * (
-        2 * M * D + sum(clens) * 2 * D + n_act * min(c, C) * 2 * D
+        2 * M * D + sum(clens) * 2 * D + n_act * min(c, C) * 2 * D * rep
         + pos_rows * D + (B + n_act) * (K - 1) * D)
     return _bound_bf16(flops, nbytes)
 
@@ -5385,8 +5415,8 @@ def phase_bf16_offline(dev, gpu, wavs):
     """45. The seeded flagship (phase 3's bundle) read by
     InferencePredictor(dtype=bf16): predict of the 8 utterances launches
     row 1's bf16 mode once per layer (no other row, no f32 launch) and the
-    subsampling's product once, probs vs the CPU's bf16 twin route; walls
-    beside f32; the example bundle's held-out sentences read at bf16
+    bf16 products (conformer_products), probs vs the CPU's bf16 twin route;
+    walls beside f32; the example bundle's held-out sentences read at bf16
     against f32. → the main path's bf16 launches."""
     from masr_tpu_torch.infer.inference_model import InferencePredictor
     path = gpu.model_dir
@@ -5402,9 +5432,10 @@ def phase_bf16_offline(dev, gpu, wavs):
     launches = (fn.launches, fn.bf16_launches, flash_kernel().launches,
                 chunk_kernel("conformer").launches, product_launches())
     n = FLAGSHIP_ENCODER["num_blocks"]
-    check(launches == (n, n, 0, 0, 1), f"bf16 predict launches {launches} "
-          f"== ({n}, {n}, 0, 0, 1): row 1 (all bf16), flash, chunk, the "
-          "subsampling's product")
+    want = (n, n, 0, 0, conformer_products(n))
+    check(launches == want, f"bf16 predict launches {launches} == {want}: "
+          "row 1 (all bf16), flash, chunk, the products (the subsampling's, "
+          "the head's, linear_pos)")
     p32, _ = gpu.predictor.predict(speech, lens)
     err, dist, d_card, compared = bf16_probs_vs_cpu(ip, path, speech, lens,
                                                     p32, "flagship")
@@ -5425,8 +5456,9 @@ def phase_bf16_offline(dev, gpu, wavs):
         reset_bf16_launches()
         got = bf.predict(wav)["text"]
         check((layer_kernel("conformer").bf16_launches,
-               product_launches()) == (2, 1), "example bundle bf16: 2 row-1 "
-              "bf16 launches and 1 product launch per predict")
+               product_launches()) == (2, conformer_products(2)),
+              "example bundle bf16: 2 row-1 bf16 launches and "
+              f"{conformer_products(2)} product launches per predict")
         rows.append((text, got, f32.predict(wav)["text"]))
     exact = sum(want == got for want, got, _ in rows)
     check(exact >= 2, f"example bundle at bf16 read {exact}/3 held-out "
@@ -5448,8 +5480,9 @@ def phase_bf16_stream(dev, path, wavs, smi):
     """46. chunk_step and BatchStreamSession(max_streams=32) in bf16 on the
     flagship stream bundle: each single stream (InferencePredictor bf16
     under predict_stream, host frontend) launches row 2's bf16 mode 12
-    times a window and the subsampling's product once; the 32-stream
-    engine 12 bf16 launches and one product per dispatch, its texts == the
+    times a window and conformer_products(12) products (exact positions);
+    the 32-stream engine 12 bf16 launches and two products per dispatch
+    (the subsampling's, the head's: the position tables), its texts == the
     single streams' (the top-2 margin rule, ARGMAX_MARGIN: every bf16 part
     of a window's path gives a window's bits alone as in the batch); the
     trained example bundle's 8 engine streams == its single streams'; the
@@ -5465,9 +5498,12 @@ def phase_bf16_stream(dev, path, wavs, smi):
     for w in wavs:
         reset_bf16_launches()
         got = stream(one, w)
+        # predict_stream's windows take exact positions: linear_pos of
+        # every layer besides the subsampling's and the head's products
         check((chunk_kernel("conformer").bf16_launches, product_launches())
-              == (n * got["windows"], got["windows"]), f"bf16 chunk and "
-              f"product launches == {n} and 1 x {got['windows']} windows")
+              == (n * got["windows"], conformer_products(n) * got["windows"]),
+              f"bf16 chunk and product launches == {n} and "
+              f"{conformer_products(n)} x {got['windows']} windows")
         refs.append(got)
     fused = bf16_predictor(path, dev)
     whole, pieces = stream(fused, wavs[3]), stream(fused, wavs[3], PIECE)
@@ -5512,9 +5548,9 @@ def phase_bf16_stream(dev, path, wavs, smi):
     wall = time.perf_counter() - t0
     fn = chunk_kernel("conformer")
     launches = (fn.launches, fn.bf16_launches, product_launches())
-    check(launches == (n * len(dispatches),) * 2 + (len(dispatches),),
+    check(launches == (n * len(dispatches),) * 2 + (2 * len(dispatches),),
           f"engine launches {launches} == {n} x {len(dispatches)} "
-          "dispatches, all bf16, and one product a dispatch")
+          "dispatches, all bf16, and two products a dispatch")
     got = [{"text": t, "ids": np.asarray(sess._decoders[s]._max_index),
             "top2": np.concatenate(top2[s])} for s, t in zip(slots, texts)]
     margins = [same_text(g, refs[k % len(wavs)], f"bf16 engine stream {k}")
@@ -5589,8 +5625,9 @@ def phase_bf16_static(dev, static_gpu, wavs, long):
         wall = time.perf_counter() - t0
         got = (flash_kernel().launches, flash_kernel().bf16_launches,
                layer_kernel("conformer").launches, product_launches())
-        check(got == (n, n, 0, 1), f"bf16 static launches {got} == ({n}, "
-              f"{n}, 0, 1): flash (all bf16), row 1, the product ({name})")
+        want = (n, n, 0, conformer_products(n, static=True))
+        check(got == want, f"bf16 static launches {got} == {want}: flash "
+              f"(all bf16), row 1, the products ({name})")
         check(np.isfinite(probs).all(), f"bf16 static probs finite ({name})")
         runs[name] = {"utterances": len(batch), "T_out": int(probs.shape[1]),
                       "launches": got[1], "predict_s": wall}
@@ -5604,6 +5641,321 @@ def phase_bf16_static(dev, static_gpu, wavs, long):
           "probs_card_bf16_vs_f32_max_abs": d_card,
           "argmax_frames_compared": compared})
     return runs["batch"]["launches"]
+
+
+# --------------------------------------------------------------------------- #
+# bf16 serving of the Squeezeformer, the Efficient-Conformer and DeepSpeech2
+# (phases 48-51): rows 6 and 8 in their bf16 modes, and each family through
+# InferencePredictor(dtype=torch.bfloat16) and BatchStreamSession
+# --------------------------------------------------------------------------- #
+# serving_product launches (every bf16 Linear and pointwise conv, models/
+# layers.py) per Squeezeformer encode or window in bf16: the subsampling's
+# input_proj, linear_pos of every layer, the time reduction's pointwise conv
+# and the recover linear (one reduce and one recover), the CTC head
+SQ_PRODUCTS = 1 + SQ_ENCODER["num_blocks"] + 2 + 1
+# per Efficient-Conformer encode: the subsampling's and the head's, 11 in
+# each eager head layer (the FFNs' 4, q, k, v, out, linear_pos, the conv
+# module's 2 pointwise), linear_pos in each tail layer; per eager window 11
+# in every layer and the two
+EFF_PRODUCTS = (2 + 11 * (12 - EFF_TAIL) + EFF_TAIL, 2 + 11 * 12)
+
+
+def reset_family_bf16_launches():
+    for fn in (layer_kernel("squeezeformer"), chunk_kernel("squeezeformer")):
+        fn.bf16_launches = 0
+    reset_bf16_launches()
+
+
+def run_sq_layer_bf16(fn, layer, x, lens, pos_p):
+    # the main path's bf16 pack: unfolded adaptive scales, bf16 products
+    return fn(x, lens, pos_p, layer.chunk_packed_params(BF16),
+              n_head=layer.attention_heads, ksize=layer.cnn_module_kernel,
+              causal=layer.causal, conv_ln=layer.conv_ln)
+
+
+def sq_chunk_args_bf16(layer, B, c, C, rep, clens, wptrs, offsets, active,
+                       seed, dev):
+    """sq_chunk_inputs in the bf16 mode: bf16 chunk, positions, cnn cache
+    and full-resolution ring (each half-rate row's copies equal, as the
+    encoder keeps them), the layer's bf16 serving pack."""
+    x, pos, starts, att, cnn, *ints, _ = sq_chunk_inputs(
+        layer, B, c, C, rep, clens, wptrs, offsets, active, seed, dev)
+    att = att[:, :, rep - 1::rep].repeat_interleave(rep, dim=2)
+    return (x.to(BF16), pos.to(BF16), starts, att.to(BF16), cnn.to(BF16),
+            *ints, layer.chunk_packed_params(BF16))
+
+
+def phase_bf16_sq_kernels(dev, smi):
+    """48. Rows 6 and 8 in their bf16 modes vs their bf16 twins at phase
+    14's shapes, then timed at the main paths' shapes (CUDA events) beside
+    their f32 kernels, their bf16 twins and torch.matmul bf16 of their
+    products. → {row: numbers for the kernels line}."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    out, cases = {}, {"row6": [], "row8": []}
+    worst6 = 0.0
+    for T in (150, 299):
+        lens = [T, T - 17, 5, 0]
+        for conv_norm, causal in (("batch_norm", True), ("layer_norm", True),
+                                  ("batch_norm", False)):
+            layer = seeded_sq_layer(T + causal, causal, conv_norm, dev)
+            x, lens_t, pos_p = bf16_layer_args(layer, lens, T, T + 2, dev)
+            with torch.no_grad():
+                got = run_sq_layer_bf16(sq.fused_squeezeformer_layer, layer,
+                                        x, lens_t, pos_p)
+                want = run_sq_layer_bf16(sq.fused_squeezeformer_layer_plain,
+                                         layer, x, lens_t, pos_p)
+            torch.cuda.synchronize()
+            what = f"row 6 bf16, T'={T}, {conv_norm}, causal={causal}"
+            err = max(bf16_close(got[b, :n], want[b, :n], what)
+                      for b, n in enumerate(lens) if n)
+            bits = utterance_bits_match(
+                lambda m, *a: run_sq_layer_bf16(sq.fused_squeezeformer_layer,
+                                                m, *a),
+                layer, x, lens_t, pos_p, got, what) if T == 299 else 0
+            cases["row6"].append({"T": T, "conv_norm": conv_norm,
+                                  "causal": causal, "max_abs_err": err,
+                                  "b1_bits_equal": bits})
+            worst6 = max(worst6, err)
+    worst8 = 0.0
+    for B, rep, n_sub in ((32, 1, 1), (32, 2, 1), (32, 1, 2), (1, 1, 1),
+                          (1, 2, 1)):
+        c, C, clens, wptrs, offsets, active = sq_chunk_case(B, rep, n_sub)
+        layer = seeded_sq_layer(70 + B + rep, True, "batch_norm", dev)
+        args = sq_chunk_args_bf16(layer, B, c, C, rep, clens, wptrs, offsets,
+                                  active, B + c, dev)
+        att0, cnn0 = args[3], args[4]
+        with torch.no_grad():
+            res = {}
+            for name, fn in (("kernel", cks.fused_chunk_layer_sq),
+                             ("plain", cks.fused_chunk_layer_sq_plain)):
+                a = args[:3] + (att0.clone(), cnn0.clone()) + args[5:]
+                res[name] = (run_sq_chunk(fn, layer, a, n_sub, rep), a[3],
+                             a[4])
+        torch.cuda.synchronize()
+        what = f"row 8 bf16, B={B}, c={c}, C={C}, rep={rep}, n_sub={n_sub}"
+        on = torch.tensor(active, device=dev) == 1
+        (y, att_k, cnn_k), (y_p, att_p, cnn_p) = res["kernel"], res["plain"]
+        err = max(bf16_close(y, y_p, what),
+                  bf16_close(att_k[on], att_p[on], what + ", ring"),
+                  bf16_close(cnn_k[on], cnn_p[on], what + ", cnn cache"))
+        check(torch.equal(att_k[~on], att0[~on])
+              and torch.equal(cnn_k[~on], cnn0[~on]),
+              f"inactive slots' bf16 caches bitwise unchanged ({what})")
+        check(rep == 1 or torch.equal(att_k[:, :, 0::2], att_k[:, :, 1::2]),
+              f"every half-rate ring row's two copies equal ({what})")
+        bits = slot_bits_match(
+            lambda a: run_sq_chunk(cks.fused_chunk_layer_sq, layer, a, n_sub,
+                                   rep), args, C + c) if B > 1 else 0
+        cases["row8"].append({"B": B, "c": c, "C": C, "rep": rep,
+                              "n_sub": n_sub, "inactive": int((~on).sum()),
+                              "max_abs_err": err,
+                              "b1_bits_equal_slots": bits})
+        worst8 = max(worst8, err)
+    times = {}
+    for T in (299, 150):
+        lens = [T] * 8
+        layer = seeded_sq_layer(50 + T, True, "batch_norm", dev)
+        x32, lens_t, pos32 = layer_inputs(layer, lens, T, 9, dev)
+        x, _, pos_p = bf16_layer_args(layer, lens, T, 9, dev)
+        with torch.no_grad():
+            err = bf16_close(
+                run_sq_layer_bf16(sq.fused_squeezeformer_layer, layer, x,
+                                  lens_t, pos_p),
+                run_sq_layer_bf16(sq.fused_squeezeformer_layer_plain, layer,
+                                  x, lens_t, pos_p),
+                f"row 6 bf16, timed shape T'={T}")
+            runs = alternate(
+                lambda: run_sq_layer_bf16(sq.fused_squeezeformer_layer,
+                                          layer, x, lens_t, pos_p),
+                lambda: run_sq_layer(sq.fused_squeezeformer_layer, layer,
+                                     x32, lens_t, pos32))
+            plain = [cuda_ms(lambda: run_sq_layer_bf16(
+                sq.fused_squeezeformer_layer_plain, layer, x, lens_t,
+                pos_p), 5)]
+        times[f"row6_T{T}"] = {
+            "B": 8, "T": T, "bf16_ms": runs["kernel"], "f32_ms": runs["plain"],
+            "bf16_plain_ms": plain,
+            "matmul_bf16_ms": products_ms(8 * T, 256, 2048, dev),
+            "max_abs_err": err, **layer_bound_bf16(layer, lens, T)}
+    for B, rep in ((ENGINE_STREAMS, 1), (ENGINE_STREAMS, 2)):
+        c, C = CHUNK // rep, CACHE // rep
+        layer = seeded_sq_layer(60 + B + rep, True, "batch_norm", dev)
+        clens, active = [C] * B, [1] * B
+        wp, offs = [(2 * s + 1) % C for s in range(B)], [CACHE + 64 * s
+                                                        for s in range(B)]
+        args = sq_chunk_args_bf16(layer, B, c, C, rep, clens, wp, offs,
+                                  active, 7 + B, dev)
+        args32 = sq_chunk_inputs(layer, B, c, C, rep, clens, wp, offs,
+                                 active, 7 + B, dev)
+        with torch.no_grad():
+            runs = alternate(
+                lambda: run_sq_chunk(cks.fused_chunk_layer_sq, layer, args,
+                                     rep=rep),
+                lambda: run_sq_chunk(cks.fused_chunk_layer_sq, layer, args32,
+                                     rep=rep))
+            plain = [cuda_ms(lambda: run_sq_chunk(
+                cks.fused_chunk_layer_sq_plain, layer, args, rep=rep), 5)]
+        K = layer.cnn_module_kernel
+        times[f"row8_{'full' if rep == 1 else 'half'}"] = {
+            "B": B, "c": c, "C": C, "rep": rep, "bf16_ms": runs["kernel"],
+            "f32_ms": runs["plain"], "bf16_plain_ms": plain,
+            "matmul_bf16_ms": products_ms(B * c, 256, 2048, dev,
+                                          rows_pw1=B * (K - 1 + c)),
+            **chunk_bound_bf16(layer, clens, active, c, C, rep=rep)}
+    for row, key, worst in (("row6", "row6_T299", worst6),
+                            ("row8", "row8_full", worst8)):
+        t = times[key]
+        out[row] = {"ms": float(np.mean(t["bf16_ms"])),
+                    "plain_ms": t["bf16_plain_ms"][0],
+                    "library_ms": float(np.mean(t["matmul_bf16_ms"])),
+                    "max_abs_err": worst, "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"]}
+    emit({"phase": "bf16_sq_kernels", "card": smi,
+          "rule": "max abs err <= 8 bf16 roundings (2^-8) of the largest "
+                  "output, mean <= one of the mean magnitude",
+          "cases": cases, "times": times})
+    return out
+
+
+def family_launches(family):
+    """(layer kernel launches, its bf16 launches, chunk kernel launches,
+    its bf16 launches, serving products) of a family's serving rows."""
+    lk, ck = layer_kernel(family), chunk_kernel(family)
+    return (lk.launches, lk.bf16_launches, ck.launches, ck.bf16_launches,
+            product_launches())
+
+
+def bf16_engine(one, wavs, refs, n_layers):
+    """A 32-stream BatchStreamSession over the bf16 predictor `one`
+    (staggered as phase 46's), against the single streams `refs` by the
+    margin rule: → (texts equal, dispatches, chunk-kernel launches of the
+    run, its bf16 ones, serving products, wall)."""
+    from masr_tpu_torch.infer.batch_stream import BatchStreamSession
+    family = one.predictor.use_model
+    sess = BatchStreamSession(
+        one.predictor, one._vocab_list, max_streams=ENGINE_STREAMS,
+        preprocess_conf=one.predictor.meta["preprocess_conf"])
+    check(all(t.dtype == BF16 for t in sess.states.values() if t.dim() > 1),
+          f"bf16 slot state ({family})")
+    orig, dispatches = sess._dispatch, []
+    top2 = {s: [] for s in range(ENGINE_STREAMS)}
+
+    def spy(xs, active, valids, exact):
+        rec = []
+        with record_top2(rec):
+            res = orig(xs, active, valids, exact)
+        for slot, k in valids.items():
+            top2[slot].append(rec[0][slot, :k])
+        dispatches.append(int(np.sum(active)))
+        return res
+
+    sess._dispatch = spy
+    streams = [wavs[k % len(wavs)] for k in range(ENGINE_STREAMS)]
+    slots = [sess.open() for _ in streams]
+    late = [3 * (k % 8) + k // 8 for k in range(len(streams))]
+    texts = [None] * len(streams)
+    # the main path: counts read around the engine run alone
+    reset_launches()
+    reset_family_bf16_launches()
+    t0 = time.perf_counter()
+    for i in range(max(len(w) // PIECE + 1 + d
+                       for w, d in zip(streams, late))):
+        items = [(s, w[(i - d) * PIECE:(i - d + 1) * PIECE],
+                  (i - d + 1) * PIECE >= len(w))
+                 for s, w, d in zip(slots, streams, late)
+                 if 0 <= i - d and (i - d) * PIECE < len(w)]
+        if items:
+            for s, r in sess.feed_many(items).items():
+                if r is not None:
+                    texts[slots.index(s)] = r["text"]
+    wall = time.perf_counter() - t0
+    ck = chunk_kernel("squeezeformer" if family == "squeezeformer"
+                      else "conformer")
+    launches = (ck.launches, ck.bf16_launches, product_launches())
+    check(launches[:2] == (n_layers * len(dispatches),) * 2,
+          f"{family} bf16 engine chunk launches {launches[:2]} == {n_layers}"
+          f" x {len(dispatches)} dispatches, all bf16")
+    got = [{"text": t, "ids": np.asarray(sess._decoders[s]._max_index),
+            "top2": np.concatenate(top2[s])} for s, t in zip(slots, texts)]
+    margins = [same_text(g, refs[k % len(wavs)],
+                         f"{family} bf16 engine stream {k}")
+               for k, g in enumerate(got)]
+    for s in slots:
+        sess.close(s)
+    check(all(not t.float().abs().sum() for t in sess.states.values()
+              if t.dim() > 1), f"closed bf16 slots zero ({family})")
+    return (sum(m is None for m in margins), len(dispatches), *launches,
+            [m for m in margins if m is not None], wall)
+
+
+def phase_bf16_family(dev, family, path, stream_path, wavs, smi,
+                      per_encode, per_window):
+    """49-51. A family at bf16: InferencePredictor(path, dtype=bf16)'s
+    predict of the 8 utterances (per_encode: the expected
+    family_launches(), no other row), the card's bf16 probs of the two
+    shortest vs the CPU's bf16 twin route (bf16_probs_vs_cpu), walls beside
+    f32; the bf16 predictor under predict_stream (per_window launches a
+    window) and the 32-stream engine (texts == the single streams'). →
+    (the encode's launches, the engine's)."""
+    from masr_tpu_torch.infer.inference_model import InferencePredictor
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t_phase = time.perf_counter()
+    f32 = MASRPredictor(model_dir=path, device=dev, warmup=False)
+    speech, lens = f32.featurize_batch(wavs)
+    ip = InferencePredictor(path, device=dev, dtype=BF16)
+    check(ip.model.encoder.compute_dtype == BF16, f"bf16 model ({family})")
+    ip.predict(speech[:1], lens[:1])                      # warm
+    reset_all_launches()
+    reset_family_bf16_launches()
+    ip.predict(speech, lens)
+    torch.cuda.synchronize()
+    encode = family_launches(family)
+    own = (layer_kernel(family), chunk_kernel(family))
+    others = {k: fn.launches for k, fn in all_kernels().items()
+              if fn.launches and fn not in own}
+    check(encode == per_encode and not others, f"{family} bf16 predict "
+          f"launches {encode} == {per_encode} (layer, its bf16, chunk, its "
+          f"bf16, products), no other row ({others})")
+    order = np.argsort(lens)[:2]
+    T2 = int(lens[order].max())
+    p2, _ = f32.predictor.predict(speech[order, :T2], lens[order])
+    err, dist, d_card, compared = bf16_probs_vs_cpu(
+        ip, path, speech[order, :T2], lens[order], p2, family)
+    walls = {"bf16": [], "f32": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        pred = ip if name == "bf16" else f32.predictor
+        t0 = time.perf_counter()
+        pred.predict(speech, lens)
+        walls[name].append(time.perf_counter() - t0)
+    one = bf16_predictor(stream_path, dev, fused_frontend=False)
+    refs = []
+    for w in wavs:
+        reset_all_launches()
+        reset_family_bf16_launches()
+        got = stream(one, w)
+        n = family_launches(family)
+        want = tuple(k * got["windows"] for k in per_window)
+        check(n == want, f"{family} bf16 predict_stream launches {n} == "
+              f"{per_window} x {got['windows']} windows")
+        refs.append(got)
+    check(all(r["text"] for r in refs), f"{family} bf16 texts not empty")
+    equal, n_disp, *eng, parted, wall = bf16_engine(one, wavs, refs,
+                                                    per_window[2])
+    emit({"phase": "bf16_" + PHASE_PREFIX[family].rstrip("_"), "card": smi,
+          "encode_launches": encode, "window_launches": per_window,
+          "probs_max_abs_err_card_vs_cpu": err,
+          "probs_cpu_bf16_vs_f32_max_abs": dist,
+          "probs_card_bf16_vs_f32_max_abs": d_card,
+          "argmax_frames_compared": compared, "predict_s": walls,
+          "single_stream_windows": sum(r["windows"] for r in refs),
+          "engine": {"streams": ENGINE_STREAMS, "dispatches": n_disp,
+                     "chunk_launches": eng[0], "bf16_launches": eng[1],
+                     "products": eng[2],
+                     "texts_equal_single_stream": equal,
+                     "parted_margins": parted, "wall_s": wall},
+          "seconds": time.perf_counter() - t_phase})
+    return encode, eng
 
 
 def main():
@@ -5702,6 +6054,21 @@ def main():
     bf16_flash_launches = phase_bf16_static(
         dev, static_runs["conformer"][0], wavs, static_runs["conformer"][1])
 
+    bf16_sq = phase_bf16_sq_kernels(dev, smi)
+    n, tail = FLAGSHIP_ENCODER["num_blocks"], EFF_TAIL
+    (_, sq_layer_bf16, *_), (_, sq_chunk_bf16, _) = phase_bf16_family(
+        dev, "squeezeformer", sq_gpu.model_dir, sq_path, wavs, smi,
+        (n, n, 0, 0, SQ_PRODUCTS), (0, 0, n, n, SQ_PRODUCTS))
+    phase_bf16_family(dev, "efficient_conformer", eff_gpu.model_dir,
+                      write_stream_bundle(eff_gpu.model_dir), wavs, smi,
+                      (tail, tail, 0, 0, EFF_PRODUCTS[0]),
+                      (0, 0, 0, 0, EFF_PRODUCTS[1]))
+    # DS2's one product: its CTC head
+    phase_bf16_family(dev, "deepspeech2",
+                      os.path.join(WORK, "ds2_lstm_bidirect_bundle"),
+                      write_stream_bundle(ds2_gpu.model_dir), ds2_wavs, smi,
+                      (0, 0, 0, 0, 1), (0, 0, 0, 0, 1))
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_conformer_layer", "route": "cuda",
@@ -5778,9 +6145,22 @@ def main():
             ("rel_pos_flash_attention", "rel_pos_attention",
              "masr_tpu/ops/pallas/attention.py:122", "row5",
              bf16_flash_launches))] + [{
-        # no Pallas kernel: the XLA dot of flax's Dense there, made a
-        # kernel of the port so that a window's bits do not depend on the
-        # engine's batch
+        "name": name + " (bf16 mode)", "route": "cuda",
+        "source": f"masr_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+        "launches": launched, **{
+            k: bf16_sq[row][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+        for name, src, replaces, row, launched in (
+            ("fused_squeezeformer_layer", "squeezeformer_layer",
+             "masr_tpu/ops/pallas/squeezeformer_layer.py:166", "row6",
+             sq_layer_bf16),
+            ("fused_chunk_layer_sq", "chunk_layer_sq",
+             "masr_tpu/ops/pallas/chunk_layer_sq.py:181", "row8",
+             sq_chunk_bf16))] + [{
+        # no Pallas kernel: the XLA dot of flax's Dense (every bf16 Linear
+        # and pointwise conv, models/layers.py), made a kernel of the port
+        # so that a window's bits do not depend on the engine's batch
         "name": "serving_product (bf16 mode)", "route": "cuda",
         "source": "masr_tpu_torch/csrc/chunk_layer.cu",
         "replaces": "masr_tpu/models/subsampling.py:69",

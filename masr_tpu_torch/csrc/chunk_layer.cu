@@ -245,9 +245,10 @@ extern "C" int masr_chunk_layer_forward_bf16(
 
 // One serving product alone, in the bf16 mode: out (M, N) bf16 = x (M, K)
 // bf16 . w (K, N) bf16 with f32 sums, rounded once to bf16; no bias (the
-// caller adds it in bf16, flax's order). The Conformer's subsampling output
-// product (masr_tpu/models/subsampling.py:69, K = 4864 at the flagship's
-// widths) runs here in the bf16 mode and not through cuBLAS, whose
+// caller adds it in bf16, flax's order). Every bf16 Linear and pointwise
+// conv of the port runs here (models/layers.py half_product), the
+// Conformer's subsampling output product (masr_tpu/models/subsampling.py
+// :69, K = 4864 at the flagship's widths) first: not through cuBLAS, whose
 // algorithm, and so the order of its sums, follows M: one bf16 rounding
 // apart in ~1e-4 of the outputs flips near ties twelve layers later. With
 // gemm_sk and the caller's plan (split_plan(N, K), never M) an output row's

@@ -1,5 +1,5 @@
 // Streaming chunk step of a Squeezeformer encoder layer over B slots, for
-// Hopper (sm_90a), forward only, f32.
+// Hopper (sm_90a), forward only, f32 or (its bf16 mode, below) bf16.
 //
 // Replaces the TPU kernel masr_tpu/ops/pallas/chunk_layer_sq.py:181
 // (`fused_chunk_layer_sq`, one pallas_call per layer over a block of slots
@@ -51,8 +51,26 @@
 // ms at B=32); what is left is as there, with a larger conv module (k =
 // 31: ~12% of the device time at B=32), and at B=1 the host's launches.
 //
-// Plain C interface, loaded with ctypes. The entry returns the first CUDA
-// error of a launch, 0 on success.
+// The bf16 mode (`masr_chunk_layer_sq_forward_bf16`; the Pallas kernel's
+// `cdt = x_ref.dtype`, masr_tpu/ops/pallas/chunk_layer_sq.py:49): x, out,
+// the position rows and both caches are bf16, the products' weights one
+// bf16 array each, the LN, bias, adaptive-scale and folded-BatchNorm rows
+// and the activations inside the layer f32, as row 2's bf16 mode
+// (chunk_layer.cu) with row 6's unfolded adaptive scales
+// (squeezeformer_layer.cu): ada0, ada1 and ada3 applied to the f32 rows
+// (ada_rows) before the q/k/v and FFN w_1 products round them (:63, :111),
+// ada2 by conv_input as in f32. The attention reads the bf16 ring and
+// position rows as they are; kv_write_kernel rounds each fresh K/V row to
+// bf16 once and writes that value to every copy (rep = 2: rows 2p and
+// 2p + 1 bitwise equal), where masr_tpu casts its new rows to the cache
+// dtype (:136-140); cnn_write_kernel rounds the new cnn cache rows (:156).
+// Inactive slots' caches are not written, as in f32. 23 launches (f32:
+// 18). Its bound: the bf16 bytes (each weight, cache row and position row
+// read once, each output and new cache row written once) over 3.35 TB/s,
+// or its operations over 989 TFLOP/s, whichever is larger.
+//
+// Plain C interface, loaded with ctypes. Every entry returns the first
+// CUDA error of a launch, 0 on success.
 
 #include "serving.cuh"
 
@@ -65,21 +83,26 @@
 // cache_lens, wptrs, active: (B,) int32, cache_lens and wptrs at the
 // layer's rate; att_cache (B, h, C*rep, 2 d_k), C the layer's ring rows;
 // cnn_cache (B, k-1, D); both updated in place for active slots.
-// workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c;
-// partials / counters: the split products' scratch (serving.cuh SplitK).
-extern "C" int masr_chunk_layer_sq_forward(
-    const float* x, const float* pos, const int* pos_starts,
-    float* att_cache, float* cnn_cache, const int* cache_lens,
-    const int* wptrs, const int* active, const float* lnw, const float* ada,
-    const float* cnw, const float* vecb, const float* posb,
-    const float* ffb1, const float* pw1b, const float* dww,
-    const float* tc_ffw1, const float* tc_ffw2, const float* tc_qkv,
-    const float* tc_out, const float* tc_pw1, const float* tc_pw2,
-    const int* plans, float* out, float* workspace, float* partials,
-    long long n_partials, unsigned* counters, int n_counters, int B, int c,
-    int C, int rep, int D, int F, int n_head, int ksize, int n_sub,
-    int conv_ln, float eps, float conv_eps, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+// workspace: M*(3D + max(F, 4D)) + B*(k-1+c)*3D floats, M = B*c (the bf16
+// mode: M*D more); partials / counters: the split products' scratch
+// (serving.cuh SplitK).
+// The step for both modes: TW the products' weight type (f32 halves or
+// bf16), TS the type of x, out, pos and the caches; a bf16 x is widened
+// into the workspace's last M*D floats first.
+template <class TW, class TS>
+int chunk_layer_sq_run(
+    const TS* x_in, const TS* pos, const int* pos_starts, TS* att_cache,
+    TS* cnn_cache, const int* cache_lens, const int* wptrs,
+    const int* active, const float* lnw, const float* ada, const float* cnw,
+    const float* vecb, const float* posb, const float* ffb1,
+    const float* pw1b, const float* dww, const TW* tc_ffw1,
+    const TW* tc_ffw2, const TW* tc_qkv, const TW* tc_out, const TW* tc_pw1,
+    const TW* tc_pw2, const int* plans, TS* out, float* workspace,
+    float* partials, long long n_partials, unsigned* counters,
+    int n_counters, int B, int c, int C, int rep, int D, int F, int n_head,
+    int ksize, int n_sub, int conv_ln, float eps, float conv_eps,
+    cudaStream_t stream) {
+  constexpr bool BF = is_bf16<TS>;
   const int M = B * c;
   if (M == 0) return (int)cudaGetLastError();
   const int dk = D / n_head;
@@ -99,17 +122,39 @@ extern "C" int masr_chunk_layer_sq_forward(
   float* gx = cin + (size_t)B * W * D;        // (B, W, 2D)
   float* y = gx + (size_t)B * W * 2 * D;      // (M, D)
   float *h = big, *qkv = big, *att = big + 3 * MD;   // qkv: (M, 3D)
+  // x as f32: the input itself, or (bf16) its widened copy, which also
+  // takes the final LN's rows before they are rounded into out
+  float* xio = y + MD;
+  const float* x = reinterpret_cast<const float*>(x_in);
+  if constexpr (BF) {
+    MASR_CHECK(convert(x_in, xio, (long long)MD, stream));
+    x = xio;
+  }
+  // the bf16 mode's unfolded adaptive scale i on every row of src, into xa
+  // (free at each of its three uses); f32 reads src itself
+  auto scaled = [&](const float* src, int i, const float** dst) {
+    *dst = src;
+    if constexpr (BF) {
+      *dst = xa;
+      return ada_rows(src, xa, ada + 2 * (size_t)D * i, nullptr, c, D,
+                      (long long)MD, stream);
+    }
+    return cudaGetLastError();
+  };
+  const float* a_in;
 
   MASR_CHECK(cudaMemsetAsync(counters, 0, sizeof(unsigned) * n_counters,
                              stream));
   // x = LN1(x + MHSA(ada0 x)) over [ring cache || chunk]; q, k, v from one
   // product
-  MASR_CHECK(gemm_sk<kBias>(x, tc_weight(tc_qkv, D, D3), vecb, qkv, nullptr,
-                            M, D3, D, D, D3, 1.f, plan[kQkv], sk, stream));
+  MASR_CHECK(scaled(x, 0, &a_in));
+  MASR_CHECK(gemm_sk<kBias>(a_in, tc_weight(tc_qkv, D, D3), vecb, qkv,
+                            nullptr, M, D3, D, D, D3, 1.f, plan[kQkv], sk,
+                            stream));
   const float *q = qkv, *k = qkv + D, *v = qkv + 2 * D;
-  MASR_CHECK(chunk_attention(q, k, v, att_cache, pos, pos_starts, posb,
-                             cache_lens, wptrs, att, B, c, C, rep, D, D3,
-                             n_head, c / n_sub, stream));
+  MASR_CHECK(chunk_attention(q, k, v, static_cast<const TS*>(att_cache), pos,
+                             pos_starts, posb, cache_lens, wptrs, att, B, c,
+                             C, rep, D, D3, n_head, c / n_sub, stream));
   // every read of the ring is done (stream order): write the fresh rows
   MASR_CHECK(kv_write(k, v, att_cache, wptrs, active, B, c, C, rep, D, D3,
                       n_head, stream));
@@ -118,14 +163,15 @@ extern "C" int masr_chunk_layer_sq_forward(
                                 stream));
   MASR_CHECK(layer_norm(xa, xb, lnw, 0, M, D, eps, nullptr, 1, stream));
   // x = LN2(x + FFN1(ada1 x))
-  MASR_CHECK(ffn_sk(xb, h, xa, xb, tc_weight(tc_ffw1, D, F, 0), ffb1,
+  MASR_CHECK(scaled(xb, 1, &a_in));
+  MASR_CHECK(ffn_sk(a_in, h, xa, xb, tc_weight(tc_ffw1, D, F, 0), ffb1,
                     tc_weight(tc_ffw2, F, D, 0), vecb + 4 * D, M, D, F, 1.f,
                     plan, sk, stream));
   MASR_CHECK(layer_norm(xa, xb, lnw, 1, M, D, eps, nullptr, 1, stream));
   // x = LN3(x + Conv(ada2 x)) over [cnn cache || ada2 x]: pw1 -> GLU ->
   // VALID depthwise -> norm -> SiLU -> pw2
-  MASR_CHECK(conv_input(xb, ada, cin, cnn_cache, active, B, c, K1, D,
-                        stream));
+  MASR_CHECK(conv_input(xb, BF ? ada + 4 * (size_t)D : ada, cin, cnn_cache,
+                        active, B, c, K1, D, stream));
   MASR_CHECK(gemm_sk<kBias>(cin, tc_weight(tc_pw1, D, 2 * D), pw1b, gx,
                             nullptr, B * W, 2 * D, D, D, 2 * D, 1.f,
                             plan[kPw1], sk, stream));
@@ -137,9 +183,59 @@ extern "C" int masr_chunk_layer_sq_forward(
                                 stream));
   MASR_CHECK(layer_norm(xa, xb, lnw, 2, M, D, eps, nullptr, 1, stream));
   // x = LN4(x + FFN2(ada3 x))
-  MASR_CHECK(ffn_sk(xb, h, xa, xb, tc_weight(tc_ffw1, D, F, 1), ffb1 + F,
+  MASR_CHECK(scaled(xb, 3, &a_in));
+  MASR_CHECK(ffn_sk(a_in, h, xa, xb, tc_weight(tc_ffw1, D, F, 1), ffb1 + F,
                     tc_weight(tc_ffw2, F, D, 1), vecb + 5 * D, M, D, F, 1.f,
                     plan, sk, stream));
-  MASR_CHECK(layer_norm(xa, out, lnw, 3, M, D, eps, nullptr, 1, stream));
+  if constexpr (BF) {
+    MASR_CHECK(layer_norm(xa, xio, lnw, 3, M, D, eps, nullptr, 1, stream));
+    MASR_CHECK(convert(static_cast<const float*>(xio), out, (long long)MD,
+                       stream));
+  } else {
+    MASR_CHECK(layer_norm(xa, out, lnw, 3, M, D, eps, nullptr, 1, stream));
+  }
   return (int)cudaGetLastError();
+}
+
+extern "C" int masr_chunk_layer_sq_forward(
+    const float* x, const float* pos, const int* pos_starts,
+    float* att_cache, float* cnn_cache, const int* cache_lens,
+    const int* wptrs, const int* active, const float* lnw, const float* ada,
+    const float* cnw, const float* vecb, const float* posb,
+    const float* ffb1, const float* pw1b, const float* dww,
+    const float* tc_ffw1, const float* tc_ffw2, const float* tc_qkv,
+    const float* tc_out, const float* tc_pw1, const float* tc_pw2,
+    const int* plans, float* out, float* workspace, float* partials,
+    long long n_partials, unsigned* counters, int n_counters, int B, int c,
+    int C, int rep, int D, int F, int n_head, int ksize, int n_sub,
+    int conv_ln, float eps, float conv_eps, void* stream_ptr) {
+  return chunk_layer_sq_run(
+      x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs, active,
+      lnw, ada, cnw, vecb, posb, ffb1, pw1b, dww, tc_ffw1, tc_ffw2, tc_qkv,
+      tc_out, tc_pw1, tc_pw2, plans, out, workspace, partials, n_partials,
+      counters, n_counters, B, c, C, rep, D, F, n_head, ksize, n_sub,
+      conv_ln, eps, conv_eps, (cudaStream_t)stream_ptr);
+}
+
+// The bf16 mode: x, pos, att_cache, cnn_cache, out bf16, ada (4,2,D) and
+// the products' weights tc_* one bf16 array each (squeezeformer_layer.cu);
+// the rest as masr_chunk_layer_sq_forward's.
+extern "C" int masr_chunk_layer_sq_forward_bf16(
+    const bf16_t* x, const bf16_t* pos, const int* pos_starts,
+    bf16_t* att_cache, bf16_t* cnn_cache, const int* cache_lens,
+    const int* wptrs, const int* active, const float* lnw, const float* ada,
+    const float* cnw, const float* vecb, const float* posb,
+    const float* ffb1, const float* pw1b, const float* dww,
+    const bf16_t* tc_ffw1, const bf16_t* tc_ffw2, const bf16_t* tc_qkv,
+    const bf16_t* tc_out, const bf16_t* tc_pw1, const bf16_t* tc_pw2,
+    const int* plans, bf16_t* out, float* workspace, float* partials,
+    long long n_partials, unsigned* counters, int n_counters, int B, int c,
+    int C, int rep, int D, int F, int n_head, int ksize, int n_sub,
+    int conv_ln, float eps, float conv_eps, void* stream_ptr) {
+  return chunk_layer_sq_run(
+      x, pos, pos_starts, att_cache, cnn_cache, cache_lens, wptrs, active,
+      lnw, ada, cnw, vecb, posb, ffb1, pw1b, dww, tc_ffw1, tc_ffw2, tc_qkv,
+      tc_out, tc_pw1, tc_pw2, plans, out, workspace, partials, n_partials,
+      counters, n_counters, B, c, C, rep, D, F, n_head, ksize, n_sub,
+      conv_ln, eps, conv_eps, (cudaStream_t)stream_ptr);
 }

@@ -775,7 +775,9 @@ cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
 // ------------------------------------------------------------------------
 // The Squeezeformer conv module's adaptive scale: y (M, D) = x * ada[0] +
 // ada[1] in rows t = row % T < lens[row / T], 0 in the rows past an
-// utterance's length (its padded rows enter pw1 as zeros).
+// utterance's length (its padded rows enter pw1 as zeros). lens nullptr:
+// every row (the bf16 mode's adaptive scales of the attention and the FFNs,
+// which the f32 mode folds into their weights).
 // ------------------------------------------------------------------------
 __global__ void ada_rows_kernel(const float* __restrict__ x,
                                 float* __restrict__ y,
@@ -786,7 +788,9 @@ __global__ void ada_rows_kernel(const float* __restrict__ x,
        i += (long long)gridDim.x * blockDim.x) {
     const long long row = i / D;
     const int c = (int)(i % D);
-    y[i] = (row % T) < lens[row / T] ? x[i] * ada[c] + ada[D + c] : 0.f;
+    y[i] = lens == nullptr || (row % T) < lens[row / T]
+               ? x[i] * ada[c] + ada[D + c]
+               : 0.f;
   }
 }
 

@@ -110,7 +110,7 @@ def _dequantize_int8(tree):
 
 def load_inference_bundle(bundle_dir, dtype=None):
     """→ (model in eval mode on the CPU, meta dict, vocab_list). dtype: the
-    compute dtype (None: f32; bf16 for the Conformer)."""
+    compute dtype (None: f32; bf16 for every family)."""
     with open(os.path.join(bundle_dir, "inference.json"), "r",
               encoding="utf-8") as f:
         meta = json.load(f)

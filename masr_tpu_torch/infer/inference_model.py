@@ -20,7 +20,7 @@ runs under its own torch.no_grad(): grad mode is per thread, and a server
 calls the predictor from threads of its own.
 
 dtype (masr_tpu's InferencePredictor(dtype=)): the compute dtype, None for
-f32, or torch.bfloat16 for the Conformer (load_inference_bundle's dtype).
+f32, or torch.bfloat16 for every family (load_inference_bundle's dtype).
 In bf16 the offline encode, attention rescoring, the chunk steps and the
 fused frontend's encoder run in bf16; the features (and the fused
 frontend's fbank) stay f32 up to the encoder's CMVN, the stream state is

@@ -28,6 +28,11 @@ f32 sums of bf16 products and the softmax is f32, the probabilities are
 rounded to bf16 before P.V (f32 sums, rounded to bf16), the position
 biases are cast to bf16 before they are added to q, and a cache is read
 in the input's dtype. An f32 input keeps the f32 arithmetic bit for bit.
+The two products of bf16 operands sum in f64 (`_half_mm`): the products of
+two bf16 values are exact, so are their f64 sums at these lengths, and the
+f32 result does not depend on the order cuBLAS takes, which follows the
+batch (a streaming window alone and in the engine's batch parted by an f32
+ulp in the P.V rows, then a bf16 rounding of the out projection's input).
 """
 import math
 
@@ -39,6 +44,14 @@ from masr_tpu_torch.ops.common import dropout
 from masr_tpu_torch.ops.cuda.rel_pos_attention import rel_pos_flash_attention
 
 NEG_INF = -1e38
+
+
+def _half_mm(a, b):
+    """a @ b → f32: bf16 operands (the bf16 mode) summed in f64, exactly,
+    whatever the batch; any other operands as f32."""
+    if a.dtype == torch.bfloat16 or b.dtype == torch.bfloat16:
+        return (a.double() @ b.double()).float()
+    return a.float() @ b.float()
 
 
 def _mask_scores(scores, mask):
@@ -90,7 +103,7 @@ class MultiHeadedAttention(nn.Module):
         B = v.shape[0]
         attn = dropout(_mask_scores(scores, mask).to(v.dtype),
                        self.dropout_rate, self.training, generator)
-        out = (attn.float() @ v.float()).to(v.dtype)
+        out = _half_mm(attn, v).to(v.dtype)
         out = out.transpose(1, 2).reshape(B, -1, self.n_head * self.d_k)
         return self.linear_out(out)
 
@@ -100,7 +113,7 @@ class MultiHeadedAttention(nn.Module):
         q = self._heads(self.linear_q(query))
         k = self._heads(self.linear_k(key))
         v = self._heads(self.linear_v(value))
-        scores = q.float() @ k.float().transpose(-1, -2) / math.sqrt(self.d_k)
+        scores = _half_mm(q, k.transpose(-1, -2)) / math.sqrt(self.d_k)
         return self._attend(scores, mask, v, generator)
 
 
@@ -150,7 +163,7 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         q_cat = torch.cat([q + bias_u[None, :, None, :],
                            q + bias_v[None, :, None, :]], dim=-1)
         k_cat = torch.cat([k, p.expand_as(k)], dim=-1)
-        return q_cat.float() @ k_cat.float().transpose(-1, -2) / math.sqrt(d)
+        return _half_mm(q_cat, k_cat.transpose(-1, -2)) / math.sqrt(d)
 
     def forward(self, x, mask, pos_emb, cache=None, generator=None):
         """x: (B, T, D); mask: (B, 1|T, T2) bool; pos_emb: (1|B, T2, D)

@@ -5,7 +5,9 @@ pointwise(2C) + GLU → depthwise(k) → norm → activation → pointwise. The
 norm is a LayerNorm (eps 1e-5) or a BatchNorm1d (eps 1e-5, momentum 0.1:
 torch's convention for flax's 0.9), which in eval uses its running
 statistics and in training updates them as flax does. Torch layout (B, C,
-T) inside, as upstream MASR, so its weights apply. The causal cache holds
+T) inside, as upstream MASR, so its weights apply. The BatchNorm follows
+its input's dtype in eval (models/layers.py BatchNorm1d), as flax's at
+dtype=bf16. The causal cache holds
 the last lorder = k-1 rows of the module's input BEFORE pointwise_conv1,
 as masr_tpu's does. With stride s > 1 (the Efficient-Conformer's stride
 layers, masr_tpu/models/efficient_conformer.py:108-160) the depthwise conv
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from masr_tpu_torch.models.layers import Conv1d, LayerNorm
+from masr_tpu_torch.models.layers import BatchNorm1d, Conv1d, LayerNorm
 from masr_tpu_torch.ops.common import glu
 
 
@@ -38,7 +40,7 @@ class ConvolutionModule(nn.Module):
         self.stride = stride
         self.norm = LayerNorm(channels, eps=1e-5) \
             if norm == "layer_norm" else \
-            nn.BatchNorm1d(channels, eps=1e-5, momentum=0.1)
+            BatchNorm1d(channels, eps=1e-5, momentum=0.1)
         self.pointwise_conv2 = Conv1d(channels, channels, 1)
         self.activation = activation
 

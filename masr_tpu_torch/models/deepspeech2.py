@@ -22,6 +22,19 @@ that no other model in the process sees it change; with TF32, 5 layers of
 backward pass runs after the forward has returned, under the caller's
 setting: the trainer turns TF32 off for the whole run.
 
+bf16 serving (build_model(..., dtype=torch.bfloat16), masr_tpu's
+dtype=bf16): the parameters stay f32; the features are cast to
+`compute_dtype` after CMVN; the convs, the recurrence (bf16 copies of its
+weights, kept per layer while they stay as they are), the LayerNorms and
+the head's product compute in bf16, the streaming h and c are bf16, and
+the CTC probabilities leave in f32. masr_tpu's cells are XLA ops that
+round h, c and every gate to bf16 after each op
+(masr_tpu/models/deepspeech2.py:68-120); torch's bf16 recurrence (cuDNN's
+on the card, PyTorch's loop on the CPU) rounds at other points, so the two
+part by a few bf16 roundings that the recurrence carries from step to step
+(the tests measure it). TF32 has no meaning at bf16: the bf16 encoder
+leaves cuDNN's flags as the caller set them. Training stays f32.
+
 Module names follow upstream MASR (encoder.conv.conv.{0,2},
 encoder.rnns.{i}.rnn.weight_ih_l0[_reverse], encoder.rnns.{i}.layer_norm,
 ctc.ctc_lo); models/weights.py maps them to and from masr_tpu's flax tree.
@@ -32,6 +45,7 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from masr_tpu_torch.models.layers import LayerNorm, compute_weight
 from masr_tpu_torch.models.losses import CTCHead
 from masr_tpu_torch.models.subsampling import subsampling_class
 
@@ -79,8 +93,8 @@ class RNNLayer(nn.Module):
             else:
                 getattr(self.rnn, "bias_ih_l0" + rev).register_hook(
                     _frozen_head(4 * rnn_size))
-        self.layer_norm = nn.LayerNorm(rnn_size * (1 + bidirectional),
-                                       eps=1e-6)
+        self.layer_norm = LayerNorm(rnn_size * (1 + bidirectional),
+                                    eps=1e-6)
         self.use_gru = use_gru
         self.bidirectional = bidirectional
         self.rnn_size = rnn_size
@@ -89,7 +103,9 @@ class RNNLayer(nn.Module):
         """x (B, T, D); x_lens (B,) valid frames, or None when every frame
         is valid; h0, c0 (B, H) the forward direction's initial carry (the
         backward one starts at 0) → (y (B, T, H·dirs), final h, final c
-        (zeros for a GRU), both (B, H) of the forward direction)."""
+        (zeros for a GRU), both (B, H) of the forward direction), in x's
+        dtype: a bf16 x runs the recurrence on bf16 copies of the weights
+        (compute_weight)."""
         B, T, _ = x.shape
         zero = x.new_zeros((B, self.rnn_size))
         h0 = zero if h0 is None else h0
@@ -99,14 +115,14 @@ class RNNLayer(nn.Module):
             hx = (hx, torch.stack([c0, zero] if self.bidirectional
                                   else [c0]))
         if x_lens is None:
-            y, hn = self.rnn(x, hx)
+            y, hn = self._rnn(x, hx)
         else:
             # an utterance of 0 frames keeps its initial carry (below)
             lens = x_lens.detach().to("cpu", torch.int64)
             packed = pack_padded_sequence(x, lens.clamp(min=1),
                                           batch_first=True,
                                           enforce_sorted=False)
-            y, hn = self.rnn(packed, hx)
+            y, hn = self._rnn(packed, hx)
             y, _ = pad_packed_sequence(y, batch_first=True, total_length=T)
         if self.use_gru:
             hT, cT = hn[0], torch.zeros_like(hn[0])
@@ -118,6 +134,17 @@ class RNNLayer(nn.Module):
             if not self.use_gru:
                 cT = torch.where(empty, c0, cT)
         return self.layer_norm(y), hT, cT
+
+    def _rnn(self, x, hx):
+        """self.rnn in the dtype of x (a tensor or a PackedSequence): bf16
+        through torch.func.functional_call with the bf16 copies of its
+        parameters, any other dtype as it is."""
+        data = x.data if isinstance(x, nn.utils.rnn.PackedSequence) else x
+        if data.dtype != torch.bfloat16:
+            return self.rnn(x, hx)
+        params = {name: compute_weight(self.rnn, data.dtype, name=name)
+                  for name, _ in self.rnn.named_parameters()}
+        return torch.func.functional_call(self.rnn, params, (x, hx))
 
 
 class CRNNEncoder(nn.Module):
@@ -135,9 +162,10 @@ class CRNNEncoder(nn.Module):
 
     def __init__(self, input_dim, num_rnn_layers=5, rnn_size=1024,
                  rnn_direction="forward", use_gru=False, cmvn=None,
-                 fast_scan=True, scan_unroll=1):
+                 fast_scan=True, scan_unroll=1, dtype=torch.float32):
         super().__init__()
         self.global_cmvn = cmvn
+        self.compute_dtype = dtype
         self.conv = subsampling_class("conv2d", "deepspeech2")(input_dim, 32)
         bidirectional = rnn_direction in ("bidirect", "bidirectional")
         sizes = [self.conv.output_dim] + \
@@ -151,11 +179,12 @@ class CRNNEncoder(nn.Module):
     def forward(self, x, x_lens=None, init_state_h=None, init_state_c=None):
         """x (B, T, F) features, x_lens (B,) or None (every frame valid),
         initial (L, B, H) h and c stacks or None → (out (B, T', D),
-        out_lens or None, h stack, c stack)."""
-        with _cudnn_full_f32():
+        out_lens or None, h stack, c stack), in the compute dtype."""
+        f32 = self.compute_dtype == torch.float32
+        with _cudnn_full_f32() if f32 else contextlib.nullcontext():
             if self.global_cmvn is not None:
                 x = self.global_cmvn(x)
-            x, x_lens = self.conv(x, x_lens)
+            x, x_lens = self.conv(x.to(self.compute_dtype), x_lens)
             hs, cs = [], []
             for i, rnn in enumerate(self.rnns):
                 x, hT, cT = rnn(
@@ -167,11 +196,14 @@ class CRNNEncoder(nn.Module):
         return x, x_lens, torch.stack(hs), torch.stack(cs)
 
     def init_cache(self, batch=1, cache_size=None, device=None):
-        """Zero h and c stacks (L, batch, H); the carry has no cache rows,
-        so cache_size is unused."""
+        """Zero h and c stacks (L, batch, H) in the compute dtype, as
+        masr_tpu keeps them; the carry has no cache rows, so cache_size is
+        unused."""
         shape = (self.num_rnn_layers, batch, self.rnn_size)
-        return {"h": torch.zeros(shape, device=device),
-                "c": torch.zeros(shape, device=device)}
+        return {"h": torch.zeros(shape, dtype=self.compute_dtype,
+                                 device=device),
+                "c": torch.zeros(shape, dtype=self.compute_dtype,
+                                 device=device)}
 
     def pack_chunk_params(self, cache_size=None, pos_table_len=8192):
         """No chunk kernel steps this family: nothing to pack."""
@@ -190,18 +222,23 @@ class DeepSpeech2Model(nn.Module):
     has_attention_decoder = False
 
     def __init__(self, input_dim, vocab_size, cmvn=None, streaming=True,
-                 encoder_conf=None, decoder_conf=None, **model_conf):
+                 encoder_conf=None, decoder_conf=None, dtype=torch.float32,
+                 **model_conf):
         super().__init__()
         self.encoder = CRNNEncoder(
             input_dim, cmvn=cmvn,
             rnn_direction="forward" if streaming else "bidirect",
-            **dict(encoder_conf or {}))
+            dtype=dtype, **dict(encoder_conf or {}))
         self.ctc = CTCHead(self.encoder.output_size, vocab_size)
 
     def forward(self, speech, speech_lengths, text, text_lengths,
                 generator=None, chunk_generator=None):
         """→ {loss, loss_att (0), loss_ctc, acc_att (0)}; the model draws no
-        randomness, so the generators are unused."""
+        randomness, so the generators are unused. f32 only."""
+        if self.encoder.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16 training (enable_amp) is not ported yet: ROADMAP "
+                "queue 1, item 3")
         eouts, eouts_len, _, _ = self.encoder(speech, speech_lengths)
         loss = self.ctc(eouts, eouts_len, text, text_lengths)
         zero = loss.new_zeros(())

@@ -44,6 +44,15 @@ slot:
 A chunk of c frames emits c / (product of the strides) frames. Grouped
 streaming attention is only approximately full-context attention, in
 masr_tpu too (its module docstring).
+
+bf16 serving (build_model(..., dtype=torch.bfloat16), masr_tpu's
+dtype=bf16), as the Conformer's (models/conformer.py): the parameters stay
+f32, the features are cast to `compute_dtype` after CMVN, the eager layers
+compute in their input's dtype (models/layers.py; the grouped attention's
+padding, the positions and the stride layers' AvgPool residual in it, as
+flax's), the tail takes row 1's bf16 mode (row 5's in a static-chunk
+model), the streaming caches are bf16 and the CTC probabilities leave in
+f32. Training stays f32.
 """
 import torch
 from torch import nn
@@ -56,6 +65,7 @@ from masr_tpu_torch.models.conformer import (ConformerEncoderLayer,
                                              eager_chunk_step,
                                              slot_positions)
 from masr_tpu_torch.models.convolution import ConvolutionModule
+from masr_tpu_torch.models.layers import LayerNorm
 from masr_tpu_torch.models.subsampling import subsampling_class
 from masr_tpu_torch.ops.common import get_activation
 from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
@@ -96,7 +106,7 @@ class GroupedRelPositionMultiHeadedAttention(RelPositionMultiHeadedAttention):
         of the grouped rows is the ungrouping, truncated to T rows."""
         g, T = self.group_size, x.shape[1]
         q, k, v, new_cache = self._qkv(x, cache)
-        p = self._heads(self.linear_pos(pos_emb))
+        p = self._heads(self.linear_pos(pos_emb.to(x.dtype)))
         qg, kg, vg, pg = (self._group(t) for t in (q, k, v, p))
         scores = self._rel_scores(qg, kg, pg, self.pos_bias_u,
                                   self.pos_bias_v, self.d_k * g)
@@ -188,10 +198,12 @@ class EfficientConformerEncoder(nn.Module):
                  use_cnn_module=True, cnn_module_kernel=15, causal=False,
                  cnn_module_norm="batch_norm", stride_layer_idx=(3,),
                  stride=(2,), group_layer_idx=(0, 1, 2, 3), group_size=3,
-                 stride_kernel=True, efficient_conf=None, cmvn=None, **conf):
+                 stride_kernel=True, efficient_conf=None, cmvn=None,
+                 dtype=torch.float32, **conf):
         """Arguments as masr_tpu's EfficientConformerEncoder; efficient_conf
         (stride_layer_idx, stride, group_layer_idx, group_size,
-        stride_kernel) overrides the arguments of the same names."""
+        stride_kernel) overrides the arguments of the same names; dtype:
+        the compute dtype (f32, or bf16 for serving)."""
         super().__init__()
         unknown = set(conf) - set(_IGNORED_ENCODER_KEYS)
         if unknown:
@@ -224,6 +236,7 @@ class EfficientConformerEncoder(nn.Module):
                            else kernels[-1])
         self.kernels = kernels
         self.global_cmvn = cmvn
+        self.compute_dtype = dtype
         self.output_size = output_size
         self.attention_heads = attention_heads
         self.causal = causal
@@ -253,7 +266,7 @@ class EfficientConformerEncoder(nn.Module):
                 layers.append(_EffConformerLayer(
                     output_size, attention_heads, linear_units, **kw))
         self.encoders = nn.ModuleList(layers)
-        self.after_norm = nn.LayerNorm(output_size, eps=1e-5)
+        self.after_norm = LayerNorm(output_size, eps=1e-5)
         # the plain tail after the last stride or grouped layer takes the
         # layer kernels when its conv module is layer_norm
         special = self.stride_layer_idx + [
@@ -315,9 +328,7 @@ class EfficientConformerEncoder(nn.Module):
         kernel unless the model is static-chunk (its chunk mask kept, every
         layer eager, as masr_tpu) or its conv module BatchNorm."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        xs, pos_emb, masks = self.embed(xs, masks)
+        xs, pos_emb, masks = self.embed(self._features(xs), masks)
         chunk_masks = add_optional_chunk_mask(
             xs.shape[1], masks, self.use_dynamic_chunk, False, -1,
             self.static_chunk_size, -1)
@@ -331,6 +342,13 @@ class EfficientConformerEncoder(nn.Module):
         return self._run(xs, masks, chunk_masks, pos_emb,
                          None if static else serve)
 
+    def _features(self, xs):
+        """CMVN in f32, then the compute dtype (masr_tpu casts after CMVN,
+        masr_tpu/models/efficient_conformer.py:419, :540)."""
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        return xs.to(self.compute_dtype)
+
     def forward_train(self, xs, xs_lens, generator=None,
                       chunk_generator=None):
         """The loss path (masr_tpu's __call__ with train): subsampling with
@@ -339,6 +357,10 @@ class EfficientConformerEncoder(nn.Module):
         drawn from `generator`, the tail through the training-layer kernel
         with per-(tail layer, utterance) seeds from `generator`. Dropout
         only in training mode. → (out (B, T', D), masks (B, 1, T'))."""
+        if self.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16 training (enable_amp) is not ported yet: ROADMAP "
+                "queue 1, item 3")
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
@@ -374,12 +396,13 @@ class EfficientConformerEncoder(nn.Module):
     # ------------------------------------------------------------------ #
     def init_cache(self, batch=1, cache_size=256, device=None):
         """Zeroed streaming state for `batch` slots with C = cache_size
-        full-resolution cache rows per layer (the module docstring)."""
+        full-resolution cache rows per layer (the module docstring); the att
+        and cnn caches in the compute dtype, as masr_tpu keeps them."""
         if cache_size < 0:
             raise ValueError(f"cache_size {cache_size}: the streaming "
                              "caches have a fixed size >= 0")
 
-        def zeros(*shape, dtype=torch.float32):
+        def zeros(*shape, dtype=self.compute_dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         L = len(self.encoders)
@@ -398,9 +421,7 @@ class EfficientConformerEncoder(nn.Module):
     def _chunk(self, xs, offsets, att_cache, cnn_cache, cache_lens):
         """masr_tpu's forward_chunk with per-slot offsets and cache lengths
         → (ys (N, c', D), new att cache, new cnn cache)."""
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        cur = self.embed(xs)[0]
+        cur = self.embed(self._features(xs))[0]
         C = att_cache.shape[3]
         pos_full = slot_positions(offsets, C, cur.shape[1], self.output_size)
         new_att, new_cnn = [], []

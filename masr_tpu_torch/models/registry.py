@@ -7,9 +7,13 @@ the Efficient-Conformer and DeepSpeech2 (whose decoder_conf is {} and
 which takes no model_conf).
 
 dtype (masr_tpu's build_model(dtype=)): the compute dtype, f32 or bf16.
-The Conformer serves in bf16 (its layer kernels' bf16 modes, rows 1, 2 and
-5); the other families raise on bf16 until their bf16 serving is ported
-(ROADMAP queue 1, item 1: rows 6 and 8), and never fall back to f32."""
+Every family serves in bf16 (parameters f32, products in bf16): the
+Conformer through its layer kernels' bf16 modes (rows 1, 2 and 5), the
+Squeezeformer through rows 6 and 8's, the Efficient-Conformer's tail
+through row 1's (row 5's when static-chunk), DeepSpeech2 with no kernel
+(its recurrence is XLA ops in masr_tpu). Training stays f32 (each
+family's loss path raises on bf16). Any other dtype raises; nothing falls
+back to f32."""
 import torch
 
 from masr_tpu_torch.models.conformer import ConformerModel
@@ -29,14 +33,7 @@ def build_model(use_model: str, input_dim: int, vocab_size: int,
         raise ValueError(f"unknown use_model: {use_model}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype {dtype}: the port computes in f32 or bf16")
-    extra = {}
-    if dtype == torch.bfloat16:
-        if use_model != "conformer":
-            raise NotImplementedError(
-                f"bf16 serving of the {use_model} is not ported yet: "
-                "ROADMAP queue 1, item 1 (bf16 serving of the "
-                "Squeezeformer, Efficient-Conformer and DeepSpeech2)")
-        extra["dtype"] = dtype
+    extra = {} if dtype == torch.float32 else {"dtype": dtype}
     return _FAMILIES[use_model](input_dim=input_dim, vocab_size=vocab_size,
                                 cmvn=cmvn, streaming=streaming,
                                 encoder_conf=encoder_conf,

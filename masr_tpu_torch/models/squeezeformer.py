@@ -52,6 +52,20 @@ chronological row j, masr_tpu's right-aligned layout; half-rate rows
 stored twice, as masr_tpu's repeat) and its cnn_cache is one unused row
 per layer.
 
+bf16 serving (build_model(..., dtype=torch.bfloat16), masr_tpu's
+dtype=bf16), as the Conformer's (models/conformer.py): the parameters stay
+f32; the encoder casts its features to `compute_dtype` after CMVN; the
+eager modules compute in their input's dtype (models/layers.py: the
+LayerNorms, the time reduction and recover, the subsampling, the
+BatchNorm of the eager layers), each adaptive scale in f32 rounded to the
+compute dtype, where flax's Dense rounds it; the layer kernels take their
+bf16 mode (packs keyed on the dtype, the adaptive scales unfolded); the
+position products are f32 sums rounded once to bf16 (masr_tpu's einsum at
+preferred_element_type f32, masr_tpu/models/squeezeformer.py:421-423,
+:700-702), as every bf16 Linear's (models/layers.py), whose bits do not
+depend on the batch; the streaming caches are bf16; the CTC
+probabilities leave in f32. Training stays f32.
+
 Not ported, each raising NotImplementedError: pre-norm layers
 (normalize_before), other positional encodings than rel_pos, streaming
 with an odd chunk or cache size, and more than one time reduction in force
@@ -66,6 +80,8 @@ from masr_tpu_torch.models.attention import (RelPositionMultiHeadedAttention,
 from masr_tpu_torch.models.conformer import (ConformerModel, eager_chunk_step,
                                              slot_positions)
 from masr_tpu_torch.models.convolution import ConvolutionModule
+from masr_tpu_torch.models.layers import (Conv1d, LayerNorm, Linear,
+                                          compute_weight, half_product)
 from masr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from masr_tpu_torch.models.subsampling import DepthwiseConv2dSubsampling4
 from masr_tpu_torch.ops.common import dropout, get_activation
@@ -83,7 +99,9 @@ _IGNORED_ENCODER_KEYS = ("use_fused_layer", "use_fused_layer_train")
 
 class _AdaptiveScale:
     """Mixin: the learned per-channel scale and shift on a sublayer's input,
-    x·ada_scale + ada_bias, (1, 1, D) each; identity when disabled (the
+    x·ada_scale + ada_bias, (1, 1, D) each, in f32 and returned in x's
+    dtype (flax's AdaptiveScale promotes a bf16 x to f32, and the Dense or
+    the cache after it rounds to bf16); identity when disabled (the
     parameters exist either way, as in the reference)."""
 
     def _init_ada(self, dim, enabled):
@@ -92,8 +110,9 @@ class _AdaptiveScale:
         self.ada_bias = nn.Parameter(torch.zeros(1, 1, dim))
 
     def ada(self, x):
-        return x * self.ada_scale + self.ada_bias if self.adaptive_scale \
-            else x
+        if not self.adaptive_scale:
+            return x
+        return (x * self.ada_scale + self.ada_bias).to(x.dtype)
 
 
 class SqueezeformerAttention(RelPositionMultiHeadedAttention, _AdaptiveScale):
@@ -135,7 +154,10 @@ class SqueezeformerConvModule(ConvolutionModule, _AdaptiveScale):
 class TimeReductionLayer(nn.Module):
     """Halves the frame rate: `stream` (depthwise k=1, stride 2: every
     second frame) or `conv1d` (depthwise k=5, stride 2, pad 3), then a
-    pointwise conv; (B, T, D) → (B, ceil(T/2), D)."""
+    pointwise conv; (B, T, D) → (B, ceil(T/2), D). In bf16 (the input's)
+    as flax's convs at that dtype: each product (f32 sums) rounded,
+    then its bias added in that dtype; the pointwise product through
+    serving_product (models/layers.py half_product)."""
 
     def __init__(self, channel, out_dim, kind="stream"):
         super().__init__()
@@ -143,9 +165,9 @@ class TimeReductionLayer(nn.Module):
             raise ValueError(f"unknown time reduction {kind!r}")
         self.kind = kind
         k = 1 if kind == "stream" else 5
-        self.dw_conv = nn.Conv1d(channel, channel, k, stride=2,
-                                 padding=0 if kind == "stream" else 3,
-                                 groups=channel)
+        self.dw_conv = Conv1d(channel, channel, k, stride=2,
+                              padding=0 if kind == "stream" else 3,
+                              groups=channel)
         self.pw_conv = nn.Conv1d(channel, out_dim, 1)
 
     def forward(self, xs, lens=None):
@@ -155,15 +177,19 @@ class TimeReductionLayer(nn.Module):
         if lens is not None:
             valid = torch.arange(T, device=xs.device)[None, :] < lens[:, None]
             xs = xs.masked_fill(~valid[:, :, None], 0.0)
+        half = xs.dtype == torch.bfloat16
         if self.kind == "stream":
-            xs = xs[:, ::2] * self.dw_conv.weight[:, 0, 0] \
-                + self.dw_conv.bias
+            dw = compute_weight(self.dw_conv, xs.dtype) if half \
+                else self.dw_conv.weight
+            xs = xs[:, ::2] * dw[:, 0, 0] + self.dw_conv.bias.to(xs.dtype)
         else:
             xs = self.dw_conv(xs.transpose(1, 2)).transpose(1, 2)
             L = -(-T // 2)          # ceil(T/2), the strided mask's length
             xs = xs[:, :L] if xs.shape[1] >= L else nn.functional.pad(
                 xs, (0, 0, 0, L - xs.shape[1]))
-        return xs @ self.pw_conv.weight[:, :, 0].t() + self.pw_conv.bias
+        if not half:
+            return xs @ self.pw_conv.weight[:, :, 0].t() + self.pw_conv.bias
+        return half_product(xs, self.pw_conv) + self.pw_conv.bias.to(xs.dtype)
 
 
 class SqueezeformerEncoderLayer(nn.Module):
@@ -191,10 +217,10 @@ class SqueezeformerEncoderLayer(nn.Module):
             size, cnn_module_kernel, act, cnn_norm, causal, adaptive_scale)
         self.ffn2 = SqueezeformerFFN(size, ffn_units, act, dropout_rate,
                                      adaptive_scale)
-        self.layer_norm1 = nn.LayerNorm(size, eps=1e-6)
-        self.layer_norm2 = nn.LayerNorm(size, eps=1e-6)
-        self.layer_norm3 = nn.LayerNorm(size, eps=1e-6)
-        self.layer_norm4 = nn.LayerNorm(size, eps=1e-6)
+        self.layer_norm1 = LayerNorm(size, eps=1e-6)
+        self.layer_norm2 = LayerNorm(size, eps=1e-6)
+        self.layer_norm3 = LayerNorm(size, eps=1e-6)
+        self.layer_norm4 = LayerNorm(size, eps=1e-6)
         self._packed, self._packed_key = None, None
         self._chunk_packed = None
 
@@ -224,21 +250,24 @@ class SqueezeformerEncoderLayer(nn.Module):
         x = self.layer_norm3(x + conv)
         return self.layer_norm4(x + self.ffn2(x)), new_att, new_cnn
 
-    def packed_params(self):
-        """The kernels' packed weights, repacked only when a parameter or a
-        BatchNorm statistic was moved or modified in place."""
-        key = tuple((t.data_ptr(), t._version) for t in
-                    list(self.parameters()) + list(self.buffers()))
+    def packed_params(self, dtype=torch.float32):
+        """The kernels' packed weights, in `dtype`'s layout (the compute
+        dtype: pack_sq_layer_params), repacked only when a parameter or a
+        BatchNorm statistic was moved or modified in place or the dtype
+        changes."""
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in
+                               list(self.parameters()) + list(self.buffers()))
         if key != self._packed_key:
             with torch.no_grad():
-                self._packed = pack_sq_layer_params(self)
+                self._packed = pack_sq_layer_params(self, dtype)
             self._packed_key = key
         return self._packed
 
-    def chunk_packed_params(self):
-        """packed_params() with the serving tensor-core pack of the chunk
-        kernel (pack_chunk_tc), rebuilt only when packed_params() is."""
-        packed = self.packed_params()
+    def chunk_packed_params(self, dtype=torch.float32):
+        """packed_params(dtype) with the serving tensor-core pack of the
+        chunk kernel (pack_chunk_tc), rebuilt only when packed_params()
+        is."""
+        packed = self.packed_params(dtype)
         if self._chunk_packed is None or self._chunk_packed[0] is not packed:
             with torch.no_grad():
                 self._chunk_packed = (packed,
@@ -271,13 +300,13 @@ class SqueezeformerEncoderLayer(nn.Module):
     def forward_full_context(self, x, lens, pos_emb):
         """The layer through the full-context kernel, which reads the
         serving tensor-core pack (chunk_packed_params; its plain twin on a
-        CPU tensor does not). lens: (B,) int32; pos_emb: (1, T, D) at the
-        layer's rate."""
-        packed = (self.chunk_packed_params() if x.is_cuda
-                  else self.packed_params())
+        CPU tensor does not), in x's dtype (f32, or bf16: the kernel's bf16
+        mode). lens: (B,) int32; pos_emb: (1, T, D) at the layer's rate."""
+        packed = (self.chunk_packed_params(x.dtype) if x.is_cuda
+                  else self.packed_params(x.dtype))
         return fused_squeezeformer_layer(
-            x, lens, self.self_attn.linear_pos(pos_emb[0]), packed,
-            n_head=self.attention_heads,
+            x, lens, self.self_attn.linear_pos(pos_emb[0].to(x.dtype)),
+            packed, n_head=self.attention_heads,
             ksize=self.cnn_module_kernel, causal=self.causal,
             conv_ln=self.conv_ln)
 
@@ -302,14 +331,15 @@ class SqueezeformerEncoder(nn.Module):
                  activation_type="swish", init_weights=True,
                  normalize_before=False, use_dynamic_chunk=False,
                  static_chunk_size=0, use_dynamic_left_chunk=False,
-                 cmvn=None, **conf):
+                 cmvn=None, dtype=torch.float32, **conf):
         """Arguments as masr_tpu's SqueezeformerEncoder. dropout is the
         layers' rate (sublayer outputs and FFN hidden rows),
         attention_dropout_rate the attention probabilities',
         input_dropout_rate the subsampling's after input_proj (its
         positional encoding drops at 0.1 in training whatever the config,
         as in masr_tpu); as in masr_tpu, feed_forward_dropout_rate and
-        init_weights are taken and unused."""
+        init_weights are taken and unused. dtype: the compute dtype (f32,
+        or bf16 for serving)."""
         super().__init__()
         unknown = set(conf) - set(_IGNORED_ENCODER_KEYS)
         if unknown:
@@ -328,6 +358,7 @@ class SqueezeformerEncoder(nn.Module):
             return [r] if isinstance(r, int) else list(r or [])
 
         self.global_cmvn = cmvn
+        self.compute_dtype = dtype
         self.encoder_dim = encoder_dim
         self.output_size = output_size
         self.attention_heads = attention_heads
@@ -344,7 +375,7 @@ class SqueezeformerEncoder(nn.Module):
         self.recover_idx = idx_list(recover_idx)
         self.embed = DepthwiseConv2dSubsampling4(
             input_size, encoder_dim, input_dropout_rate, dw_stride=dw_stride)
-        self.preln = nn.LayerNorm(encoder_dim, eps=1e-6)
+        self.preln = LayerNorm(encoder_dim, eps=1e-6)
         self.encoders = nn.ModuleList(
             SqueezeformerEncoderLayer(
                 encoder_dim, attention_heads,
@@ -355,8 +386,8 @@ class SqueezeformerEncoder(nn.Module):
         self.time_reduction_layer = TimeReductionLayer(
             encoder_dim, encoder_dim,
             "stream" if time_reduction_layer_type == "stream" else "conv1d")
-        self.time_recover_layer = nn.Linear(encoder_dim, encoder_dim)
-        self.final_proj = nn.Linear(encoder_dim, output_size) \
+        self.time_recover_layer = Linear(encoder_dim, encoder_dim)
+        self.final_proj = Linear(encoder_dim, output_size) \
             if output_size != encoder_dim else None
 
     def downsampling_factor(self, i):
@@ -406,9 +437,7 @@ class SqueezeformerEncoder(nn.Module):
         lengths, their attention through the flash route; every other model
         runs each layer through the full-context layer kernel."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        xs, pos_emb, masks = self.embed(xs, masks)
+        xs, pos_emb, masks = self.embed(self._features(xs), masks)
         lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
         if self.static_chunk_size > 0 and not self.use_dynamic_chunk:
             chunk_masks = add_optional_chunk_mask(
@@ -434,6 +463,13 @@ class SqueezeformerEncoder(nn.Module):
                 xs, lens, pos))
         return out, masks
 
+    def _features(self, xs):
+        """CMVN in f32, then the compute dtype (masr_tpu casts after CMVN,
+        masr_tpu/models/squeezeformer.py:302, :492, :644)."""
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        return xs.to(self.compute_dtype)
+
     def forward_train(self, xs, xs_lens, generator=None,
                       chunk_generator=None):
         """The loss path (masr_tpu's __call__ with train, :296-357):
@@ -445,6 +481,10 @@ class SqueezeformerEncoder(nn.Module):
         pos_emb[:, ::2] and the lengths halved rounding up; the recover
         index restores them. Dropout only in training mode. → (out (B, T',
         output_size), masks (B, 1, T'))."""
+        if self.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16 training (enable_amp) is not ported yet: ROADMAP "
+                "queue 1, item 3")
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
@@ -493,7 +533,8 @@ class SqueezeformerEncoder(nn.Module):
 
     def init_cache(self, batch=1, cache_size=256, device=None):
         """Zeroed streaming state for `batch` slots with C = cache_size
-        cache rows per layer (the layout of the module docstring)."""
+        cache rows per layer (the layout of the module docstring); the att
+        and cnn caches in the compute dtype, as masr_tpu keeps them."""
         if cache_size < 0:
             raise ValueError(f"cache_size {cache_size}: the streaming "
                              "caches have a fixed size >= 0")
@@ -501,7 +542,7 @@ class SqueezeformerEncoder(nn.Module):
         L = len(self.encoders)
         d_k = self.encoder_dim // self.attention_heads
 
-        def zeros(*shape, dtype=torch.float32):
+        def zeros(*shape, dtype=self.compute_dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         return {"att_cache": zeros(L, batch, self.attention_heads,
@@ -514,13 +555,15 @@ class SqueezeformerEncoder(nn.Module):
 
     def pack_chunk_params(self, cache_size=None, pos_table_len=8192):
         """Per layer: the kernel weights (BatchNorm folded) with the serving
-        tensor-core pack (chunk_packed_params). cache_size and
+        tensor-core pack (chunk_packed_params), in the compute dtype's
+        layout. cache_size and
         pos_table_len are taken for the engine's call and unused: the
         positions come from the offsets at every step. A non-causal model,
         which steps eagerly, packs nothing (None)."""
         if not self.causal:
             return None
-        return [layer.chunk_packed_params() for layer in self.encoders]
+        return [layer.chunk_packed_params(self.compute_dtype)
+                for layer in self.encoders]
 
     @torch.no_grad()
     def forward_chunk_batched(self, xs, state, packed=None, active=None,
@@ -545,10 +588,8 @@ class SqueezeformerEncoder(nn.Module):
         if xs.dim() == 4:
             n_sub = xs.shape[1]
             xs = xs.reshape((-1,) + tuple(xs.shape[2:]))
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
         # each window subsamples on its own, as sequential steps feed them
-        xs = self.embed(xs)[0]
+        xs = self.embed(self._features(xs))[0]
         if n_sub > 1:
             xs = xs.reshape(xs.shape[0] // n_sub, -1, xs.shape[2])
         N, chunk = xs.shape[0], xs.shape[1]
@@ -581,7 +622,7 @@ class SqueezeformerEncoder(nn.Module):
             rate = self.downsampling_factor(i)
             pos_rows, rows_per_slot, clens, wptrs = step[rate]
             return fused_chunk_layer_sq(
-                xs, layer.self_attn.linear_pos(pos_rows),
+                xs, layer.self_attn.linear_pos(pos_rows.to(xs.dtype)),
                 torch.arange(N, dtype=torch.int32, device=dev)
                 * rows_per_slot, att[i], cnn[i], clens, wptrs, act_i32,
                 packed[i], n_head=layer.attention_heads,
@@ -603,9 +644,7 @@ class SqueezeformerEncoder(nn.Module):
         → (ys (N, c, output_size), new right-aligned att cache, cnn_cache
         as it was). A half-rate layer reads the odd cache rows with half
         the valid count and stores its rows twice."""
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        cur = self.embed(xs)[0]
+        cur = self.embed(self._features(xs))[0]
         C, chunk = att_cache.shape[3], cur.shape[1]
         if self.reduce_idx and chunk % 2:
             raise NotImplementedError(

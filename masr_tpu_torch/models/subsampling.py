@@ -7,27 +7,31 @@ Squeezeformer's DepthwiseConv2dSubsampling4, Conv2dSubsampling2
 Efficient-Conformer offers, and DeepSpeech2's Conv2dSubsampling4Pure
 (:210-237). All compute in torch's NCHW with upstream
 MASR's channel-major flatten, so upstream weights apply directly (the
-weight map permutes the flax linear).
+weight map permutes the flax linear). Each computes in its input's dtype
+(models/layers.py), as masr_tpu's at its dtype: in bf16 every conv rounds
+its f32 sums once and adds its bias in bf16, and the output product (K =
+odim·F', 19 or 39 odim at 80 features) is the serving kernels' (a bf16
+Linear), so a streaming window's bits do not depend on how many windows
+share the call.
 """
 import torch
 from torch import nn
 
 from masr_tpu_torch.models.embedding import RelPositionalEncoding
-from masr_tpu_torch.models.layers import BatchInvariantLinear, Conv2d
+from masr_tpu_torch.models.layers import Conv2d, Linear
 from masr_tpu_torch.ops.common import dropout
 
 
 class Conv2dSubsampling4(nn.Module):
     """Two (3x3, stride 2) convs + linear: rate 4, right context 6; in the
-    input's dtype (models/layers.py), as masr_tpu's at its dtype, the
-    linear's bf16 product batch-invariant (BatchInvariantLinear)."""
+    input's dtype (models/layers.py), as masr_tpu's at its dtype."""
 
     def __init__(self, idim: int, odim: int, pos_dropout_rate: float = 0.0):
         super().__init__()
         self.conv = nn.Sequential(Conv2d(1, odim, 3, 2), nn.ReLU(),
                                   Conv2d(odim, odim, 3, 2), nn.ReLU())
         freq = ((idim - 1) // 2 - 1) // 2
-        self.out = nn.Sequential(BatchInvariantLinear(odim * freq, odim))
+        self.out = nn.Sequential(Linear(odim * freq, odim))
         self.pos_enc = RelPositionalEncoding(odim, pos_dropout_rate)
 
     def forward(self, x, x_mask=None, offset=0, generator=None):
@@ -49,8 +53,8 @@ class Conv2dSubsampling2(nn.Module):
 
     def __init__(self, idim: int, odim: int, pos_dropout_rate: float = 0.0):
         super().__init__()
-        self.conv = nn.Sequential(nn.Conv2d(1, odim, 3, 2), nn.ReLU())
-        self.out = nn.Sequential(nn.Linear(odim * ((idim - 1) // 2), odim))
+        self.conv = nn.Sequential(Conv2d(1, odim, 3, 2), nn.ReLU())
+        self.out = nn.Sequential(Linear(odim * ((idim - 1) // 2), odim))
         self.pos_enc = RelPositionalEncoding(odim, pos_dropout_rate)
 
     def forward(self, x, x_mask=None, offset=0, generator=None):
@@ -77,12 +81,12 @@ class DepthwiseConv2dSubsampling4(nn.Module):
     def __init__(self, idim: int, odim: int, dropout_rate: float = 0.0,
                  dw_stride: bool = False):
         super().__init__()
-        self.pw_conv = nn.Conv2d(1, odim, 3, 2)
-        self.dw_conv = nn.Conv2d(odim, odim, 3, 2,
-                                 groups=odim if dw_stride else 1)
+        self.pw_conv = Conv2d(1, odim, 3, 2)
+        self.dw_conv = Conv2d(odim, odim, 3, 2,
+                              groups=odim if dw_stride else 1)
         freq = ((idim - 1) // 2 - 1) // 2
         self.pos_enc = RelPositionalEncoding(odim, 0.1)
-        self.input_proj = nn.Sequential(nn.Linear(odim * freq, odim))
+        self.input_proj = nn.Sequential(Linear(odim * freq, odim))
         self.dropout_rate = dropout_rate
 
     def forward(self, x, x_mask=None, offset=0, generator=None):
@@ -103,12 +107,14 @@ class DepthwiseConv2dSubsampling4(nn.Module):
 class Conv2dSubsampling4Pure(nn.Module):
     """DeepSpeech2's conv entry: two (3x3, stride 2) VALID convs with ReLU,
     no linear and no positional encoding; the output is the flattened conv
-    features (B, T', odim·F'), channel-major as upstream's."""
+    features (B, T', odim·F'), channel-major as upstream's. It has no
+    output product; its convs are the Conformer's kind (cuDNN on the
+    card)."""
 
     def __init__(self, idim: int, odim: int = 32):
         super().__init__()
-        self.conv = nn.Sequential(nn.Conv2d(1, odim, 3, 2), nn.ReLU(),
-                                  nn.Conv2d(odim, odim, 3, 2), nn.ReLU())
+        self.conv = nn.Sequential(Conv2d(1, odim, 3, 2), nn.ReLU(),
+                                  Conv2d(odim, odim, 3, 2), nn.ReLU())
         self.output_dim = odim * (((idim - 1) // 2 - 1) // 2)
 
     def forward(self, x, x_len=None):

@@ -71,14 +71,16 @@ def operand_mm(a, w):
     return a.to(w.dtype).float() @ w.float()
 
 
-def check_serving_dtypes(compute, packed, dtype=None):
+def check_serving_dtypes(compute, packed, dtype=None, rows=CHUNK_KEYS):
     """Raise unless the tensors of {name: tensor} compute and the pack's
     product weights (those present) keep check_compute_dtype's rule and
-    its CHUNK_KEYS arrays are f32. → dtype."""
+    its arrays `rows` (the LN, bias and scale rows: CHUNK_KEYS for the
+    Conformer's pack, SQ_SERVE_KEYS for the Squeezeformer's) are f32.
+    → dtype."""
     dtype = check_compute_dtype(compute, dtype)
     check_compute_dtype({k: packed[k] for k in PRODUCT_KEYS if k in packed},
                         dtype)
-    for name in CHUNK_KEYS:
+    for name in rows:
         if packed[name].dtype != torch.float32:
             raise ValueError(f"{name}: the LN and bias rows stay f32, got "
                              f"{packed[name].dtype}")
@@ -245,12 +247,15 @@ def make_chunk_pos_table(wpos, cache_size, table_len=8192,
     rows [o, o + C + c) are exactly the positions max(o - C + j, 0) that
     the exact route computes, so the kernel reads one window per slot.
     → (table_len, D) in dtype (the compute dtype: in bf16, the bf16
-    sinusoid times the bf16 weight, as masr_tpu's table) on the device of
-    wpos."""
+    sinusoid times the bf16 weight, as masr_tpu's table, through
+    serving_product as the exact route's bf16 linear_pos, so a row's bits
+    are the same on both routes) on the device of wpos."""
     positions = torch.clamp(
         torch.arange(table_len, device=wpos.device) - cache_size, min=0)
-    return sinusoid_position_encoding(positions, wpos.shape[1]).to(dtype) \
-        @ wpos.t().to(dtype)
+    pe = sinusoid_position_encoding(positions, wpos.shape[1])
+    if dtype == torch.float32:
+        return pe @ wpos.t()
+    return serving_product(pe.to(dtype), wpos.t().to(dtype).contiguous())
 
 
 def clamp_pos_starts(offsets, table_len, L):
@@ -528,8 +533,9 @@ def serving_product(x, w):
     kernels' bf16 mode (csrc/chunk_layer.cu masr_serving_product_bf16):
     f32 sums of the bf16 products, rounded once, split by split_plan(N, K)
     alone, so a row's bits do not depend on how many rows share the call
-    (cuBLAS picks its algorithm by the rows). The Conformer's subsampling
-    runs its output product here in bf16. A CPU tensor takes the plain
+    (cuBLAS picks its algorithm by the rows). Every bf16 Linear and
+    pointwise conv of the port runs its product here (models/layers.py
+    half_product). A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises. → (.., N) bf16.
     Counts its launches in serving_product.launches."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:

@@ -270,7 +270,7 @@ def test_serving_wrappers_refuse_mixed_and_other_dtypes():
 
 
 def test_subsampling_product_matches_flax_dense_and_follows_weights():
-    """The subsampling's output Linear (BatchInvariantLinear) in bf16: its
+    """The subsampling's output Linear (models/layers.py Linear) in bf16: its
     product through serving_product (the plain twin on the CPU) against
     flax's nn.Dense at bf16 on the same bf16 input, K = 19 D as the
     subsampling's. Both round the f32 sums once and add the bias in bf16, a
@@ -281,10 +281,10 @@ def test_subsampling_product_matches_flax_dense_and_follows_weights():
     copy follows an in-place update (the version bumps). serving_product
     takes bf16 only."""
     import flax.linen as fnn
-    from masr_tpu_torch.models.layers import BatchInvariantLinear
+    from masr_tpu_torch.models.layers import Linear
     Kin = 19 * D
     torch.manual_seed(3)
-    lin = BatchInvariantLinear(Kin, D)
+    lin = Linear(Kin, D)
     x = jnp.maximum(_bf(np.random.RandomState(5), (2, 9, Kin)), 0)
 
     def dense():
@@ -310,8 +310,9 @@ def test_subsampling_product_matches_flax_dense_and_follows_weights():
 
 def test_build_model_bf16_conformer_only():
     """The Conformer builds in bf16 (parameters f32, caches and packs bf16);
-    the other families raise on bf16, naming the ROADMAP item; f16
-    raises."""
+    the other families build in bf16 too since their bf16 serving was
+    ported (their streaming state bf16, tests/test_torch_bf16_families.py
+    holds them against masr_tpu); f16 raises."""
     enc = dict(output_size=32, attention_heads=2, linear_units=32,
                num_blocks=1, cnn_module_kernel=7)
     model = build_model("conformer", FEAT, 10, encoder_conf=enc, dtype=BF)
@@ -327,8 +328,9 @@ def test_build_model_bf16_conformer_only():
                                                 num_blocks=2)),
                          ("efficient_conformer", enc),
                          ("deepspeech2", {})):
-        with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-            build_model(family, FEAT, 10, encoder_conf=conf, dtype=BF)
+        other = build_model(family, FEAT, 10, encoder_conf=conf, dtype=BF)
+        assert all(p.dtype == torch.float32 for p in other.parameters())
+        assert other.encoder.compute_dtype == BF
     with pytest.raises(ValueError, match="f32 or bf16"):
         build_model("conformer", FEAT, 10, encoder_conf=enc,
                     dtype=torch.float16)

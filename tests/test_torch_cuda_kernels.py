@@ -1342,3 +1342,168 @@ def test_bf16_kernels_refuse_mixed_dtypes(cuda_device):
         rpa.rel_pos_flash_attention(q, q, q, q[0], q[0, :, 0], q[0, :, 0],
                                     torch.ones(1, 8, 8, dtype=torch.bool,
                                                device=cuda_device))
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 modes of rows 6 and 8 (the Squeezeformer's layer kernels)
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv_norm", ["batch_norm", "layer_norm"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SQ_SHAPES, ids=lambda s: f"D{s[0]}T{s[4]}")
+def test_squeezeformer_layer_bf16_kernel_matches_plain(cuda_device, shape,
+                                                       causal, conv_norm):
+    """Row 6's bf16 mode: fused_squeezeformer_layer on bf16 x and pos_p and
+    the bf16 pack (unfolded adaptive scales, bf16 products) == the bf16
+    twin on the same card, valid rows (_assert_bf16_close), at the test
+    widths and the flagship's full and half rate (phase 14's shapes);
+    output bf16 and finite; one launch, counted as a bf16 launch."""
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    D, H, FF, K, T, lens = shape
+    bf = torch.bfloat16
+    layer = _sq_layer(D, H, FF, K, causal, conv_norm, D + T, cuda_device)
+    g = torch.Generator().manual_seed(T + 1)
+    x = torch.randn(len(lens), T, D, generator=g).to(cuda_device, bf)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    kw = dict(n_head=H, ksize=K, causal=causal,
+              conv_ln=conv_norm == "layer_norm")
+    with torch.no_grad():
+        pos_p = layer.self_attn.linear_pos(sinusoid_position_encoding(
+            torch.arange(T, device=cuda_device), D).to(bf))
+        packed = layer.chunk_packed_params(bf)
+        assert packed["ada"].shape == (4, 2, D)
+        before = (sq.fused_squeezeformer_layer.launches,
+                  sq.fused_squeezeformer_layer.bf16_launches)
+        got = sq.fused_squeezeformer_layer(x, lens_t, pos_p, packed, **kw)
+        want = sq.fused_squeezeformer_layer_plain(x, lens_t, pos_p, packed,
+                                                  **kw)
+    torch.cuda.synchronize()
+    assert (sq.fused_squeezeformer_layer.launches,
+            sq.fused_squeezeformer_layer.bf16_launches) == (
+                before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got.float()).all()
+    for b, n in enumerate(lens):
+        if n:
+            _assert_bf16_close((b, n), got[b, :n], want[b, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2], ids=["full_rate", "half_rate"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("shape", SQ_CHUNK_SHAPES,
+                         ids=lambda s: f"D{s[0]}C{s[5]}")
+def test_chunk_layer_sq_bf16_kernel_matches_plain(cuda_device, shape, n_sub,
+                                                  rep):
+    """Row 8's bf16 mode: bf16 x, positions, ring and cnn cache and the bf16
+    pack, at full rate and at half rate on the full-resolution ring:
+    outputs and updated caches == the bf16 twin's on the same card
+    (_assert_bf16_close), over slots mixing cache_len {0, partial, full}
+    and wrapping write pointers; the two copies of every half-rate ring row
+    are bitwise equal; inactive slots' caches stay bitwise unchanged; one
+    launch, counted as a bf16 launch."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    D, H, FF, K, c, C = shape
+    c, C = c * n_sub // rep, C // rep
+    d_k, L = D // H, C + c
+    bf = torch.bfloat16
+    layer = _sq_layer(D, H, FF, K, True, "batch_norm", D + C + c,
+                      cuda_device)
+    g = torch.Generator().manual_seed(c + C)
+    x = torch.randn(6, c, D, generator=g).to(cuda_device, bf)
+    att = (0.5 * torch.randn(6, H, C, 2 * d_k, generator=g)).to(
+        cuda_device, bf).repeat_interleave(rep, dim=2)
+    cnn = (0.5 * torch.randn(6, K - 1, D, generator=g)).to(cuda_device, bf)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda_device)
+
+    clens = i32([0, 5, C // 2, C, C, 3])
+    wptrs = i32([0, 3, C - 2, C - 1, 11 % C, 0])
+    active = i32([1, 1, 1, 1, 0, 0])
+    offsets = [0, 5, 100, 400, 250, 3]
+    with torch.no_grad():
+        rows = torch.clamp(i32(offsets)[:, None] - C
+                           + torch.arange(L, device=cuda_device), min=0)
+        pos = layer.self_attn.linear_pos(
+            sinusoid_position_encoding(rows.reshape(-1), D).to(bf))
+        starts = torch.arange(6, dtype=torch.int32, device=cuda_device) * L
+        packed = layer.chunk_packed_params(bf)
+        res = {}
+        for name, fn in (("kernel", cks.fused_chunk_layer_sq),
+                         ("plain", cks.fused_chunk_layer_sq_plain)):
+            a, n = att.clone(), cnn.clone()
+            before = cks.fused_chunk_layer_sq.bf16_launches
+            out = fn(x, pos, starts, a, n, clens, wptrs, active, packed,
+                     n_head=H, ksize=K, conv_ln=False, n_sub=n_sub, rep=rep)
+            res[name] = (out, a, n,
+                         cks.fused_chunk_layer_sq.bf16_launches - before)
+    torch.cuda.synchronize()
+    (got, a_k, n_k, launched), (want, a_p, n_p, _) = (res["kernel"],
+                                                      res["plain"])
+    assert launched == 1
+    assert torch.isfinite(got.float()).all()
+    for name, k_t, p_t in (("out", got, want), ("att", a_k[:4], a_p[:4]),
+                           ("cnn", n_k[:4], n_p[:4])):
+        _assert_bf16_close(name, k_t, p_t)
+    if rep == 2:
+        assert torch.equal(a_k[:, :, 0::2], a_k[:, :, 1::2])
+    assert torch.equal(a_k[4:], att[4:]) and torch.equal(n_k[4:], cnn[4:])
+    assert not torch.equal(a_k[:4], att[:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2], ids=["full_rate", "half_rate"])
+def test_chunk_layer_sq_bf16_kernel_batch_invariant(cuda_device, rep):
+    """Row 8's bf16 mode at the flagship Squeezeformer's engine shape
+    (B=32, c=16 or 8, C=256 or 128 on the full-resolution ring): each
+    slot's output and updated bf16 caches from a B=1 call equal bit for
+    bit its slice of the B=32 call, as in f32."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    D, H, FF, K = 256, 4, 2048, 31
+    B, c, C = 32, 16 // rep, 256 // rep
+    L, bf = C + c, torch.bfloat16
+    layer = _sq_layer(D, H, FF, K, True, "batch_norm", 25, cuda_device)
+    g = torch.Generator().manual_seed(26 + rep)
+    x = torch.randn(B, c, D, generator=g).to(cuda_device, bf)
+    att = (0.5 * torch.randn(B, H, C, 2 * D // H, generator=g)).to(
+        cuda_device, bf).repeat_interleave(rep, dim=2)
+    cnn = (0.5 * torch.randn(B, K - 1, D, generator=g)).to(cuda_device, bf)
+    pos = torch.randn(B * L, D, generator=g).to(cuda_device, bf)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda_device)
+
+    args = (x, pos, torch.arange(B, dtype=torch.int32,
+                                 device=cuda_device) * L,
+            att, cnn, i32([(0, 5, C // 2, C)[s % 4] for s in range(B)]),
+            i32([(C - 3 - 7 * s) % C for s in range(B)]),
+            i32([0 if s in (3, 10, 17, 29) else 1 for s in range(B)]),
+            layer.chunk_packed_params(bf))
+    _assert_batch_invariant(cks.fused_chunk_layer_sq, args,
+                            dict(n_head=H, ksize=K, conv_ln=False,
+                                 rep=rep), L)
+
+
+@pytest.mark.cuda
+def test_sq_bf16_kernels_refuse_mixed_dtypes(cuda_device):
+    """Rows 6 and 8 on the card: a bf16 x with the f32 pack, or an f32
+    cache under a bf16 x, raise (no silent upcast, no f32 fallback)."""
+    from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+    layer = _sq_layer(64, 2, 128, 7, True, "batch_norm", 3, cuda_device)
+    bf = torch.bfloat16
+    x = torch.randn(2, 8, 64, device=cuda_device, dtype=bf)
+    lens = torch.tensor([8, 5], dtype=torch.int32, device=cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="mixed"):
+        sq.fused_squeezeformer_layer(
+            x, lens, torch.randn(8, 64, device=cuda_device, dtype=bf),
+            layer.chunk_packed_params(), n_head=2, ksize=7, causal=True,
+            conv_ln=False)
+    i32 = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="mixed"):
+        cks.fused_chunk_layer_sq(
+            x, torch.randn(80, 64, device=cuda_device, dtype=bf), i32,
+            torch.zeros(2, 2, 32, 64, device=cuda_device),
+            torch.zeros(2, 6, 64, device=cuda_device, dtype=bf), i32, i32,
+            i32 + 1, layer.chunk_packed_params(bf), n_head=2, ksize=7,
+            conv_ln=False)
