@@ -358,6 +358,25 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
  51. bf16_ds2       DeepSpeech2 at bf16: the bidirectional flagship's
                     predict and the forward one's predict_stream and
                     32-stream engine (cuDNN's bf16 recurrence, no kernel)
+ 52. train_kernels_bf16  rows 3 and 7 in their bf16 modes (masr_tpu's
+                    enable_amp) vs their bf16 twins at the shapes of phases
+                    11 and 19 (B=8, T'=299; row 7 also at half rate,
+                    T'=150), dropout 0 and 0.1 / 0.1: the output and every
+                    grad within 8 roundings (max) and one (mean) of its own
+                    magnitude; forward + backward timed beside the f32
+                    kernel and the bf16 twin, with the bf16 bound
+ 53. train_bf16     the flagship Conformer through MASRTrainer with
+                    train_conf.enable_amp on half of phase 12's corpus: 16
+                    steps at B=8 (8, then 8 in a trainer that resumes from
+                    last_model), each 12 + 12 bf16 row-3 launches and 1 + 1
+                    row-4 (f32); the loss per label token falls; the first
+                    step's CTC loss and sampled encoder grads, card bf16 vs
+                    CPU f32, within twice the CPU bf16 route's distance;
+                    the f32 export at bf16 == the trained model's probs;
+                    step walls by loader_items beside phase 12's f32 run
+ 54. sq_train_bf16  the same for the layer_norm Squeezeformer (phase 20's
+                    config): 8 steps (4, then 4 resumed), 12 + 12 bf16 row-7
+                    launches a step
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -5958,6 +5977,303 @@ def phase_bf16_family(dev, family, path, stream_path, wavs, smi,
     return encode, eng
 
 
+# --------------------------------------------------------------------------- #
+# bf16 training (masr_tpu's enable_amp): rows 3 and 7 in their bf16 modes,
+# the flagship Conformer and the layer_norm Squeezeformer through
+# MASRTrainer
+# --------------------------------------------------------------------------- #
+BF16_TRAIN_STEPS = {"conformer": 16, "squeezeformer": 8}
+
+
+def train_layer_args_bf16(layer, args):
+    """train_layer_inputs' arguments in the bf16 mode: x and the cotangent
+    weights w bf16, posp the bf16 product of the positions (f32 sums
+    rounded once, as masr_tpu's), the bf16 pack (the Squeezeformer's
+    unfolded)."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+    x, w, mask, seeds, lens, _, _ = args
+    T = x.shape[1]
+    step = 2 if T < TRAIN_T else 1
+    with torch.no_grad():
+        pos = sinusoid_position_encoding(
+            torch.arange(0, step * T, step, device=x.device), layer.size)
+        posp = F.linear(pos.to(BF16),
+                        layer.self_attn.linear_pos.weight.to(BF16))
+        packed = {k: v.clone() for k, v in layer.packed_params(BF16).items()}
+    return x.to(BF16), w.to(BF16), mask, seeds, lens, posp, packed
+
+
+def check_train_layer_bf16(fns, layer, args, rates):
+    """The bf16 training-layer kernel fns[0] vs its bf16 twin fns[1]: the
+    output, dx, dposp and every packed array's grad of sum(y * w), each
+    within 8 roundings (max) and one (mean) of its own magnitude (the card
+    tests' _assert_bf16_train_close). → case dict."""
+    res = []
+    for fn in fns:
+        y, xx, pp, pk = run_train_layer(fn, layer, args, rates)
+        (y.float() * args[1].float()).sum().backward()
+        torch.cuda.synchronize()
+        res.append((y.detach(), {"x": xx.grad, "posp": pp.grad,
+                                 **{k: v.grad for k, v in pk.items()}}))
+    (y_k, g_k), (y_p, g_p) = res
+    T = tuple(y_k.shape)[1]
+    errs = {}
+    for name, a, b in [("y", y_k, y_p)] + [(k, g_k[k], g_p[k]) for k in g_p]:
+        check(a.dtype == b.dtype, f"bf16 train layer {name} dtypes")
+        a, b = a.float(), b.float()
+        check(bool(torch.isfinite(a).all()), f"bf16 train {name} finite")
+        err = (a - b).abs()
+        top = max(b.abs().max().item(), 1e-30)
+        mean = max(b.abs().mean().item(), 1e-30)
+        errs[name] = [err.max().item() / (BF16_ROUNDING * top),
+                      err.mean().item() / (BF16_ROUNDING * mean)]
+        check(errs[name][0] <= 8 and errs[name][1] <= 1, f"bf16 train layer "
+              f"{name}: {errs[name]} roundings (max, mean) <= (8, 1) "
+              f"(T'={T}, rates {rates})")
+    return {"T": T, "rates": rates, "dtype": str(y_k.dtype),
+            "max_abs_err": (y_k.float() - y_p.float()).abs().max().item(),
+            "roundings": errs}
+
+
+def train_layer_bound_bf16(layer, args):
+    """train_layer_bound's operations over the bf16 dense rate; bytes: x,
+    posp, y, dy, dx, dposp bf16, the bf16 pack and its grads, the mask."""
+    x, _, mask, _, lens, posp, packed = args
+    f32 = train_layer_bound(layer, args)
+    pack = sum(t.numel() * t.element_size() for t in packed.values())
+    nbytes = 2 * pack + mask.numel() + 2 * (4 * x.numel() + 2 * posp.numel())
+    return {"gflop": f32["gflop"], "mbytes": nbytes / 1e6,
+            **_bound_bf16(f32["gflop"] * 1e9, nbytes)}
+
+
+def phase_train_kernels_bf16(dev, smi):
+    """Rows 3 and 7 in their bf16 modes vs their bf16 twins at phases 11
+    and 19's shapes (B=8, T'=299; the Squeezeformer also at half rate,
+    T'=150), dropout 0 and 0.1 / 0.1: output and every grad; forward +
+    backward timed (CUDA events, dropout 0.1) beside the f32 kernel and
+    the bf16 twin in the same call, with the bf16 bound. → {row: entry}."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    t0 = time.perf_counter()
+    out, cases = {}, {}
+    for row, layer, kernel, plain in (
+            ("row3", seeded_layer(21, True, dev),
+             clt.fused_conformer_layer_train,
+             clt.fused_conformer_layer_train_plain),
+            ("row7", seeded_sq_layer(31, True, "layer_norm", dev),
+             sqt.fused_squeezeformer_layer_train,
+             sqt.fused_squeezeformer_layer_train_plain)):
+        halves = (False, True) if row == "row7" else (False,)
+        cases[row], times = [], {}
+        for half in halves:
+            f32_args = train_layer_inputs(layer, 22, dev, half)
+            args = train_layer_args_bf16(layer, f32_args)
+            cases[row] += [check_train_layer_bf16((kernel, plain), layer,
+                                                  args, rates)
+                           for rates in ((0.0, 0.0), (0.1, 0.1))]
+            fwd, bwd = time_train_layer({"plain": plain, "kernel": kernel},
+                                        layer, args, (0.1, 0.1))
+            f_fwd, f_bwd = [], []        # the f32 kernel, same shape
+            for _ in range(2):
+                y = run_train_layer(kernel, layer, f32_args, (0.1, 0.1))[0]
+                f_fwd.append(cuda_ms(lambda: run_train_layer(
+                    kernel, layer, f32_args, (0.1, 0.1))))
+                f_bwd.append(cuda_ms(
+                    lambda: y.backward(f32_args[1], retain_graph=True)))
+                del y
+            times["T150" if half else "T299"] = {
+                "fwd_kernel_ms": fwd["kernel"], "bwd_kernel_ms": bwd["kernel"],
+                "fwd_plain_ms": fwd["plain"], "bwd_plain_ms": bwd["plain"],
+                "f32_fwd_kernel_ms": f_fwd, "f32_bwd_kernel_ms": f_bwd,
+                "ms": float(np.mean(fwd["kernel"]) + np.mean(bwd["kernel"])),
+                "plain_ms": float(np.mean(fwd["plain"])
+                                  + np.mean(bwd["plain"])),
+                "f32_ms": float(np.mean(f_fwd) + np.mean(f_bwd)),
+                **train_layer_bound_bf16(layer, args)}
+        main = times["T299"]
+        out[row] = {"max_abs_err": max(c["max_abs_err"] for c in cases[row]),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"], "library_ms": None,
+                    "times": times}
+    emit({"phase": "train_kernels_bf16", "card": smi, "B": len(TRAIN_LENS),
+          "lens": TRAIN_LENS, "rule": "8 roundings max, 1 mean, of each "
+          "output's and grad's own magnitude", "cases": cases,
+          "times": {r: o["times"] for r, o in out.items()},
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def corpus_every(corpus, root, step):
+    """Every `step`-th training utterance of a corpus (its test set,
+    vocabulary and CMVN kept)."""
+    os.makedirs(root, exist_ok=True)
+    out = dict(corpus)
+    with open(corpus["train"], encoding="utf-8") as f:
+        lines = [l for l in f if l.strip()][::step]
+    out["train"] = os.path.join(root, "manifest.train")
+    with open(out["train"], "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    return out
+
+
+def amp_config(config, family):
+    """config(corpus, save_dir, max_epoch, dropout) with enable_amp, one
+    optimizer update a step and a short warmup, so the loss falls within
+    the bf16 run's few steps."""
+    def conf(corpus, save_dir, max_epoch, dropout=True):
+        c = config(corpus, save_dir, max_epoch, dropout)
+        c["train_conf"] = dict(c["train_conf"], enable_amp=True,
+                               accum_grad=1)
+        if family == "conformer":
+            c["optimizer_conf"] = dict(c["optimizer_conf"], scheduler_conf=dict(
+                warmup_steps=4, min_lr=1e-5))
+        else:
+            c["optimizer_conf"] = dict(c["optimizer_conf"], scheduler_conf=dict(
+                c["optimizer_conf"]["scheduler_conf"],
+                max_steps=BF16_TRAIN_STEPS[family]))
+        return c
+    return conf
+
+
+def mean_rel(a, b):
+    """mean |a - b| over mean |b|."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs().mean() / b.abs().mean().clamp(min=1e-30)).item()
+
+
+def first_step_bf16(conf, sample, prepare=None):
+    """The first train step at dropout 0 from one init and batch, the CTC
+    loss alone backward (the attention loss's encoder grads pass the
+    decoder FFN's ReLU derivative, which flips on the card): the card's
+    bf16 step against the CPU's f32 one may stray no further than twice as
+    far as the CPU's bf16 route does (loss; mean error of each sampled
+    grad), with a floor of one bf16 rounding of the loss. → summary."""
+    from masr_tpu_torch.training.train_state import batch_to, step_generators
+    from masr_tpu_torch.training.trainer import MASRTrainer
+    got, batch = {}, None
+    for name, device, amp in (("card_bf16", "cuda", True),
+                              ("cpu_bf16", "cpu", True),
+                              ("cpu_f32", "cpu", False)):
+        c = dict(conf, train_conf=dict(conf["train_conf"], enable_amp=amp))
+        t = MASRTrainer(c, device=device)
+        ds, _, loader = t._setup_dataloader(True)
+        t._setup_model(ds.feature_dim, ds.vocab_size)
+        if prepare is not None:
+            prepare(t.model)
+        if batch is None:
+            batch = next(iter(loader))
+        b = batch_to(batch, t.device)
+        gen, chunk = step_generators(0, 0, t.device)
+        out = t.model.train()(b["inputs"], b["input_lens"], b["labels"],
+                              b["label_lens"], generator=gen,
+                              chunk_generator=chunk)
+        out["loss_ctc"].backward()
+        params = dict(t.model.named_parameters())
+        got[name] = (float(out["loss_ctc"].detach()),
+                     {n: params[n].grad.detach().float().cpu()
+                      for n in sample})
+    (l_card, g_card), (l_cpu, g_cpu), (l_32, g_32) = (
+        got["card_bf16"], got["cpu_bf16"], got["cpu_f32"])
+    loss_card, loss_cpu = abs(l_card - l_32), abs(l_cpu - l_32)
+    check(loss_card <= max(2 * loss_cpu, BF16_ROUNDING * abs(l_32)),
+          f"bf16 first-step CTC loss: card {l_card} vs f32 {l_32} "
+          f"({loss_card}) within twice the CPU bf16's ({l_cpu}, "
+          f"{loss_cpu})")
+    grads = {}
+    for n in sample:
+        d_card, d_cpu = mean_rel(g_card[n], g_32[n]), mean_rel(g_cpu[n],
+                                                               g_32[n])
+        grads[n] = {"card_vs_f32": d_card, "cpu_bf16_vs_f32": d_cpu}
+        check(d_card <= 2 * d_cpu, f"bf16 first step {n}: card {d_card} "
+              f"<= 2 x CPU bf16 {d_cpu} (mean error vs the CPU's f32)")
+    return {"ctc_loss": {"card_bf16": l_card, "cpu_bf16": l_cpu,
+                         "cpu_f32": l_32}, "grads_mean_rel": grads}
+
+
+def phase_train_bf16(dev, family, corpus, f32_rows, smi, config, sample,
+                     prepare=None):
+    """MASRTrainer with train_conf.enable_amp at the family's flagship
+    widths: BF16_TRAIN_STEPS steps at B=8, half of them in a first trainer
+    and half in a second that resumes from last_model; every step 12 + 12
+    bf16 launches of the family's training-layer kernel (no f32 launch)
+    and 1 + 1 of the CTC kernel (f32, as masr_tpu's); the loss per label
+    token falls; the first step against the CPU (first_step_bf16); the
+    f32 export loaded by InferencePredictor(dtype=bf16) gives the trained
+    bf16 model's probs exactly; step walls beside the f32 run's. → bf16
+    launches of the run."""
+    from masr_tpu_torch.infer.inference_model import InferencePredictor
+    from masr_tpu_torch.training.trainer import MASRTrainer
+    t_phase = time.perf_counter()
+    name = "train_bf16" if family == "conformer" else "sq_train_bf16"
+    root = os.path.join(WORK, name)
+    shutil.rmtree(root, ignore_errors=True)
+    steps = BF16_TRAIN_STEPS[family]
+    part = corpus_every(corpus, os.path.join(root, "corpus"),
+                        2 * TRAIN_STEPS_PER_EPOCH // steps)
+    conf = amp_config(config, family)
+    save = os.path.join(root, "models")
+    kernel, n = train_layer_kernel(family), 12
+    rows = []
+    reset_train_launches()
+    kernel.bf16_launches = 0
+    with clocked_train_steps(rows, family):
+        MASRTrainer(conf(part, root, 1), device="cuda").train(
+            save_model_path=save, augment_conf_path=None)
+        resumed = MASRTrainer(conf(part, root, 2), device="cuda")
+        resumed.train(save_model_path=save, augment_conf_path=None)
+    bf16_launched = kernel.bf16_launches
+    check(len(rows) == steps and resumed.state.step == steps,
+          f"{name}: {len(rows)} steps, resumed at {resumed.state.step}")
+    check(resumed.model.encoder.compute_dtype == BF16 and all(
+        p.dtype == torch.float32 for p in resumed.model.parameters()),
+        f"{name}: bf16 compute, f32 parameters")
+    for i, r in enumerate(rows):
+        check(r["launches"] == [2 * n, n, 2, 1], f"{name} step {i} launches "
+              f"{r['launches']}, want {[2 * n, n, 2, 1]}")
+        check(r["finite"] and np.isfinite(r["loss"]), f"{name} step {i} "
+              f"loss finite")
+    # each epoch's validation pass (no grad) runs the forwards too
+    check(bf16_launched == kernel.launches >= 2 * n * steps, f"{name}: "
+          f"{bf16_launched} bf16 launches of the training layer, every one "
+          f"of the run's {kernel.launches} and at least {2 * n * steps}")
+    per_token = np.asarray([r["loss"] / r["tokens"] for r in rows])
+    k = max(2, steps // 4)
+    head, tail = float(per_token[:k].mean()), float(per_token[-k:].mean())
+    check(tail < head, f"{name}: loss per label token falls, first {k} "
+          f"steps {head}, last {k} {tail}")
+    first = first_step_bf16(conf(part, root, 1, dropout=False), sample,
+                            prepare)
+    # export: f32 parameters; the bundle at bf16 gives the model's probs
+    run = os.path.join(save, f"{family}_streaming_fbank")
+    bundle = resumed.export(save_model_path=save,
+                            resume_model=os.path.join(run, "last_model"))
+    pred = InferencePredictor(bundle, dtype=BF16, device=dev)
+    feats = torch.randn(2, 1200, PREPROCESS["n_mels"],
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    lens = torch.tensor([1200, 777], device=dev)
+    with torch.no_grad():
+        want, _ = resumed.model.eval().get_encoder_out(feats, lens)
+        got, _ = pred.model.get_encoder_out(feats, lens)
+    check(want.dtype == torch.float32 and bool(torch.equal(got, want)),
+          f"{name}: the exported bundle at bf16 gives the trained model's "
+          f"probs (max diff {(got - want).abs().max().item()})")
+    bf16_t, f32_t = step_times(rows), step_times(f32_rows)
+    emit({"phase": name, "card": smi, "steps": len(rows),
+          "batch": len(TRAIN_LENS), "resumed_at_step": steps // 2,
+          "launches": {"train_layer_bf16": bf16_launched,
+                       "per_step": rows[0]["launches"]},
+          "losses": [r["loss"] for r in rows],
+          "loss_per_token_head": head, "loss_per_token_tail": tail,
+          "first_step_card_vs_cpu": first, "export": bundle,
+          **bf16_t, "f32_step_s_median_loader_reading":
+              f32_t["step_s_median_loader_reading"],
+          "f32_step_s_median_loader_done": f32_t["step_s_median_loader_done"],
+          "seconds": time.perf_counter() - t_phase})
+    return bf16_launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6069,6 +6385,26 @@ def main():
                       write_stream_bundle(ds2_gpu.model_dir), ds2_wavs, smi,
                       (0, 0, 0, 0, 1), (0, 0, 0, 0, 1))
 
+    train_bf16 = phase_train_kernels_bf16(dev, smi)
+    conf_sample = ["encoder.embed.out.0.weight",
+                   "encoder.encoders.0.feed_forward.w_1.weight",
+                   "encoder.encoders.6.self_attn.linear_q.weight",
+                   "encoder.encoders.11.conv_module.depthwise_conv.weight",
+                   "encoder.encoders.11.norm_final.weight",
+                   "ctc.ctc_lo.weight"]
+    row3_bf16 = phase_train_bf16(dev, "conformer", corpus, rows, smi,
+                                 train_config, conf_sample)
+    sq_sample = ["encoder.embed.input_proj.0.weight",
+                 "encoder.encoders.0.self_attn.ada_scale",
+                 "encoder.encoders.0.ffn1.w_1.weight",
+                 "encoder.encoders.6.conv_module.ada_bias",
+                 "encoder.time_recover_layer.weight",
+                 "encoder.encoders.11.layer_norm4.weight",
+                 "ctc.ctc_lo.weight"]
+    row7_bf16 = phase_train_bf16(dev, "squeezeformer", corpus, sq_rows, smi,
+                                 sq_train_config, sq_sample,
+                                 no_positional_dropout)
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_conformer_layer", "route": "cuda",
@@ -6167,7 +6503,20 @@ def main():
         "launches": product_launched, **{
             k: bf16["product"][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}}]})
+                "library_ms")}}] + [{
+        "name": name + " (bf16 mode)", "route": "cuda",
+        "source": f"masr_tpu_torch/csrc/{name[6:]}.cu", "replaces": replaces,
+        "launches": launched, **{
+            k: train_bf16[row][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+        for name, replaces, row, launched in (
+            ("fused_conformer_layer_train",
+             "masr_tpu/ops/pallas/conformer_layer_train.py:674", "row3",
+             row3_bf16),
+            ("fused_squeezeformer_layer_train",
+             "masr_tpu/ops/pallas/squeezeformer_layer_train.py:608", "row7",
+             row7_bf16))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

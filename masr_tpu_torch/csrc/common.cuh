@@ -18,11 +18,14 @@
 //                          serving.cuh's gemm_sk, the serving layers'
 //                          products (rows 1, 2, 6 and 8 of PERF.md's kernel
 //                          table), and flash_attention.cuh's flash kernel
-//   gemm_tc_kernel<.., TA, TB, E>  C = E(op(A).op(B)) on the tensor cores
-//                          (3xTF32 mma.sync, a 3-stage cp.async ring),
-//                          either operand transposed, batched, with a
-//                          compile-time epilogue functor E: every product
-//                          of the training layers (rows 3 and 7, through
+//   gemm_tc_kernel<.., TA, TB, OT, E>  C = E(op(A).op(B)) on the tensor
+//                          cores (a 3-stage cp.async ring of f32 tiles;
+//                          OT float: 3xTF32 mma.sync, OT bf16_t: the
+//                          operands rounded to bf16 as fragments are read,
+//                          one bf16 mma.sync per 16-deep k step), either
+//                          operand transposed, batched, with a compile-time
+//                          epilogue functor E: every product of the
+//                          training layers (rows 3 and 7, through
 //                          training.cuh)
 //   conv_module_kernel<kLN, ROWS>  GLU -> depthwise conv over time -> LN
 //                          (or a folded BatchNorm affine) -> SiLU, optional
@@ -298,6 +301,22 @@ cudaError_t convert(const TI* in, TO* out, long long n, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// x[i] rounded to bf16 in place, kept as f32 (the bf16 training mode's
+// activations that masr_tpu's kernel stores in the compute dtype)
+__global__ void round_bf16_kernel(float* __restrict__ x, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    x[i] = to_f32(bf16_rn(x[i]));
+}
+
+cudaError_t round_bf16(float* x, long long n, cudaStream_t stream) {
+  if (n <= 0) return cudaGetLastError();
+  const long long blocks = (n + 255) / 256;
+  round_bf16_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      x, n);
+  return cudaGetLastError();
+}
+
 // cp.async: copy `bytes` (<= the copy's size) from global memory and fill
 // the rest of the 16 (or 4) bytes of shared memory with zeros
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -435,7 +454,11 @@ __device__ __forceinline__ void load_tile_bf16(bf16_t* s, const bf16_t* g,
 // by the same thread). Ragged edges are zero-filled on load and masked on
 // store. BM x BN block tile of
 // (BM / WM) x (BN / WN) warps, each a WM x WN warp tile of m16n8k8 3xTF32
-// products, f32 accumulators in registers; BK = 32 deep through a 3-stage
+// products (OT float) or m16n8k16 bf16 products (OT bf16_t: each operand
+// rounded to nearest-even bf16 as its fragment is read, so f32 arrays,
+// and bf16 values widened into them, enter the product as masr_tpu's
+// Pallas kernels cast them to their compute dtype; the sums stay f32),
+// f32 accumulators in registers; BK = 32 deep through a 3-stage
 // cp.async ring. Tiles sit in shared memory as they sit in device memory
 // (so the copies are contiguous), rows padded by 4 floats where k runs
 // along the row and by 8 where it runs down the column: either way a
@@ -464,7 +487,8 @@ struct TcTile {
   static constexpr size_t SMEM = sizeof(float) * kTcStages * STAGE;
 };
 
-template <int BM, int BN, int WM, int WN, bool TA, bool TB, class E>
+template <int BM, int BN, int WM, int WN, bool TA, bool TB, class OT,
+          class E>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
     gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                    float* C, int M, int N, int K, int lda, int ldb, int ldc,
@@ -520,6 +544,44 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
     cp_async_commit();
     const float* as = smem + (kt % kTcStages) * L::STAGE;
     const float* bs = as + L::A_FLOATS;
+    if constexpr (is_bf16<OT>) {
+      // m16n8k16 fragments: A (g, 2t..2t+1), (g + 8, ..), (g, 2t + 8..),
+      // (g + 8, 2t + 8..); B (2t..2t+1, g), (2t + 8.., g)
+#pragma unroll
+      for (int kk = 0; kk < kTcBK; kk += 16) {
+        unsigned af[MT][4], bf[NT8][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int r = wm + i * 16 + g;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int rr = r + (q & 1) * 8, kc = kk + 2 * t + (q >> 1) * 8;
+            af[i][q] = TA ? pack_bf16(as[kc * L::SA + rr],
+                                      as[(kc + 1) * L::SA + rr])
+                          : pack_bf16(as[rr * L::SA + kc],
+                                      as[rr * L::SA + kc + 1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) {
+          const int c = wn + j * 8 + g;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int kr = kk + 2 * t + q * 8;
+            bf[j][q] = TB ? pack_bf16(bs[c * L::SB + kr],
+                                      bs[c * L::SB + kr + 1])
+                          : pack_bf16(bs[kr * L::SB + c],
+                                      bs[(kr + 1) * L::SB + c]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT8; ++j)
+            mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < kTcBK; kk += 8) {
       unsigned ab[MT][4], asm_[MT][4], bb[NT8][2], bsm[NT8][2];
@@ -592,12 +654,13 @@ inline bool aligned16(const float* p, int ld, const Batch& b) {
   return on16(p) && ld % 4 == 0 && b.s1 % 4 == 0 && b.s2 % 4 == 0;
 }
 
-template <int BM, int BN, int WM, int WN, bool TA, bool TB, class E>
+template <int BM, int BN, int WM, int WN, bool TA, bool TB, class OT,
+          class E>
 cudaError_t gemm_tc_run(const float* A, const float* B, float* C, int M,
                         int N, int K, int lda, int ldb, int ldc, const E& e,
                         cudaStream_t stream, int batch, Batch ba, Batch bb,
                         Batch bc) {
-  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, TA, TB, E>;
+  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, TA, TB, OT, E>;
   const size_t smem = TcTile<BM, BN, TA, TB>::SMEM;
   static bool sized = false;   // one attribute call per instantiation
   if (!sized) {
@@ -616,8 +679,10 @@ cudaError_t gemm_tc_run(const float* A, const float* B, float* C, int M,
 // The training layers' products on the tensor cores: 64 x 128 tiles (4 warps of
 // 32 x 64) where N > 64 and they fill the 132 SMs, 64 x 64 (4 warps of
 // 32 x 32) otherwise. (On the H100, at the training layer's shapes, 64 x 128 beat
-// 128 x 128 with 8 warps of 64 x 32 or 4 of 64 x 64, and 128 x 64.)
-template <bool TA, bool TB, class E>
+// 128 x 128 with 8 warps of 64 x 32 or 4 of 64 x 64, and 128 x 64.) OT:
+// the operands' type in the product (float: 3xTF32; bf16_t: rounded to
+// bf16), the arrays f32 either way.
+template <bool TA, bool TB, class OT = float, class E>
 cudaError_t gemm_tc_launch(const float* A, const float* B, float* C, int M,
                            int N, int K, int lda, int ldb, int ldc,
                            const E& e, cudaStream_t stream, int batch = 1,
@@ -626,11 +691,12 @@ cudaError_t gemm_tc_launch(const float* A, const float* B, float* C, int M,
   if (M <= 0 || N <= 0 || batch <= 0) return cudaGetLastError();
   const long big_tiles = (long)((M + 63) / 64) * ((N + 127) / 128) * batch;
   if (N > 64 && big_tiles >= 132)
-    return gemm_tc_run<64, 128, 32, 64, TA, TB>(A, B, C, M, N, K, lda, ldb,
-                                                ldc, e, stream, batch, ba, bb,
-                                                bc);
-  return gemm_tc_run<64, 64, 32, 32, TA, TB>(A, B, C, M, N, K, lda, ldb, ldc,
-                                             e, stream, batch, ba, bb, bc);
+    return gemm_tc_run<64, 128, 32, 64, TA, TB, OT>(A, B, C, M, N, K, lda,
+                                                    ldb, ldc, e, stream, batch,
+                                                    ba, bb, bc);
+  return gemm_tc_run<64, 64, 32, 32, TA, TB, OT>(A, B, C, M, N, K, lda, ldb,
+                                                 ldc, e, stream, batch, ba, bb,
+                                                 bc);
 }
 
 // The serving kernels' epilogues on v = acc + bias[n]: plain, SiLU, scaled

@@ -1,6 +1,6 @@
-// Squeezeformer encoder layer for TRAINING on Hopper (sm_90a), f32, with
-// the layer_norm conv module: a forward with dropout at the layer's seven
-// sites and a hand-written backward.
+// Squeezeformer encoder layer for TRAINING on Hopper (sm_90a), f32 or bf16,
+// with the layer_norm conv module: a forward with dropout at the layer's
+// seven sites and a hand-written backward.
 //
 // Replaces the TPU kernel
 // masr_tpu/ops/pallas/squeezeformer_layer_train.py:608
@@ -34,9 +34,31 @@
 // blocks serve both Squeezeformer layer kernels and the Conformer's: the
 // attention and FFN blocks take folded weights unchanged.
 //
-// Two C entries, one ctypes call each per layer and direction:
-//   masr_sq_layer_train_forward   ~22 launches
-//   masr_sq_layer_train_backward  ~60 launches
+// Two C entries per operand mode, one ctypes call each per layer and
+// direction:
+//   masr_sq_layer_train_forward(_bf16)   ~22 launches (+13 in bf16)
+//   masr_sq_layer_train_backward(_bf16)  ~60 launches (+17 in bf16)
+// The bf16 mode is the Pallas kernel's at compute dtype bf16 (`cdt =
+// x_ref.dtype`, :115, :145, :297, :327): x, posp, the output and the five
+// product weights bf16, the other rows f32. The adaptive scales are NOT
+// folded there: masr_tpu applies each (`_ada`, :50) in f32 before the
+// product rounds its operand, so a fold would move that rounding. The
+// bf16 mode takes the unfolded pack (ada (4, 2, D), as the bf16 serving
+// kernel's), applies ada0, ada1 and ada3 with ada_rows into saved rows,
+// and computes their grads itself (column sums of the input grad times
+// the scaled rows, and through the scale into the residual grad), as the
+// Pallas backward returns dadaw. Rounded to bf16 where masr_tpu's kernel
+// stores x's dtype:
+//   - x2, the input of the second half (:448), and s2 = x1 + FFN1, which
+//     half 1 saves as x.dtype (:448): x2 = bf16(LN2(s2)) of the unrounded
+//     s2, the saved LN2 x-hat and 1/std of bf16(s2);
+//   - s4 = x3 + FFN2 the same way (:526) for the output and LN4;
+//   - the grad of x2 on the way back (:503) and dx (:585);
+//   - the grads of the five bf16 weights and of posp, each summed in f32
+//     and rounded once; the f32 arrays' grads (dada included) stay f32.
+// The forward widens the bf16 weights and posp into f32 arrays of
+// `saved`, which the backward reads too, and keeps x, the three scaled
+// rows and one output row block there: no memory is saved against f32.
 // built from common.cuh's LayerNorm and ada_rows and training.cuh's blocks
 // (att_fwd / att_bwd, ffn_fwd / ffn_bwd, conv_fwd / conv_bwd, ln_bwd,
 // colsum, the products with their epilogue), plus ada_bwd_kernel below.
@@ -85,8 +107,9 @@ enum Site {
   kSiteFfn2Out = 6
 };
 
-// dx (M, D) = base + da * ada[0] in rows t = row % T < lens[row / T], base
-// alone past an utterance's length: the grad through ada2's masked affine
+// dx (M, D) = base + da * ada[0] in rows t = row % T < lens[row / T] (every
+// row when lens is nullptr), base alone past an utterance's length: the
+// grad through an adaptive scale
 __global__ void ada_bwd_kernel(const float* __restrict__ base,
                                const float* __restrict__ da,
                                const float* __restrict__ ada,
@@ -97,21 +120,39 @@ __global__ void ada_bwd_kernel(const float* __restrict__ base,
        i += (size_t)gridDim.x * blockDim.x) {
     const size_t row = i / D;
     const int c = (int)(i % D);
-    dx[i] = base[i] +
-            ((int)(row % T) < lens[row / T] ? da[i] * ada[c] : 0.f);
+    const bool ok = lens == nullptr || (int)(row % T) < lens[row / T];
+    dx[i] = base[i] + (ok ? da[i] * ada[c] : 0.f);
   }
+}
+
+// dx = base + da * ada's scale and the grads of (scale, shift) from the
+// scaled rows' input x, over the rows of lens (all when nullptr)
+cudaError_t ada_bwd(const float* base, const float* da, const float* x,
+                    const float* ada, float* dada, float* dx, int M, int D,
+                    const int* lens, int T, cudaStream_t st) {
+  TRY(colsum(da, x, dada, M, D, lens, T, st));
+  TRY(colsum(da, nullptr, dada + D, M, D, lens, T, st));
+  const size_t n = (size_t)M * D;
+  ada_bwd_kernel<<<blocks_for(n, 256), 256, 0, st>>>(base, da, ada, dx, lens,
+                                                     T, D, n);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------------
 // Saved activations, offsets in floats (M = B*T). The forward writes them,
 // the backward reads them. xhat / rstd 0..3: LN1..LN4, 4: the conv LN.
+// bf16 mode (bf): also x as f32 rows, the rows ada0, ada1 and ada3 scale
+// (xa, a1, a3), an output row block and the widened product weights and
+// posp (Wide).
 // ------------------------------------------------------------------------
 struct Saved {
   size_t xhat[5], rstd[5], x1, x2, x3, a2, g, cn, y3, z0, h0, z1, h1, qu, qv,
-      k, v, o, P, Pd, sum, bias_uv, total;
+      k, v, o, P, Pd, sum, bias_uv, x0, xa, a1, a3, yout;
+  Wide w;
+  size_t total;
 };
 
-Saved saved_layout(int B, int T, int D, int F, int H) {
+Saved saved_layout(int B, int T, int D, int F, int H, bool bf) {
   const size_t M = (size_t)B * T, MD = M * D, MF = M * F;
   const size_t PP = (size_t)H * B * T * T;
   Saved s;
@@ -145,37 +186,44 @@ Saved saved_layout(int B, int T, int D, int F, int H) {
   s.Pd = take(PP);
   s.sum = take(MD);
   s.bias_uv = take(2 * (size_t)D);
+  s.x0 = bf ? take(MD) : 0;
+  s.xa = bf ? take(MD) : 0;
+  s.a1 = bf ? take(MD) : 0;
+  s.a3 = bf ? take(MD) : 0;
+  s.yout = bf ? take(MD) : 0;
+  s.w = bf ? wide_layout(take, T, D, F) : Wide{};
   s.total = off;
   return s;
 }
 
 // backward scratch: the residual grads r0, r1 and t0..t5 (M, D), dh (M, F),
 // dg (M, 2D), dP (h, B, T, T), and the split-K slices of the largest
-// weight grad
+// weight grad; bf16 mode: also dy and dx as f32 rows and the f32 grads of
+// the bf16 arrays (Wide's layout)
 struct Scratch {
-  size_t r[2], t[6], dh, dg, dP, part, total;
+  size_t r[2], t[6], dh, dg, dP, part, dyw, dxf;
+  Wide gw;
+  size_t total;
 };
 
-Scratch scratch_layout(int B, int T, int D, int F, int H) {
+Scratch scratch_layout(int B, int T, int D, int F, int H, bool bf) {
   const size_t M = (size_t)B * T, MD = M * D;
   Scratch s;
   size_t off = 0;
-  for (int i = 0; i < 2; ++i) {
-    s.r[i] = off;
-    off += MD;
-  }
-  for (int i = 0; i < 6; ++i) {
-    s.t[i] = off;
-    off += MD;
-  }
-  s.dh = off;
-  off += M * F;
-  s.dg = off;
-  off += 2 * MD;
-  s.dP = off;
-  off += (size_t)H * B * T * T;
-  s.part = off;
-  off += splitk_part_floats(B * T, D, F);
+  auto take = [&off](size_t n) {
+    const size_t o = off;
+    off += n;
+    return o;
+  };
+  for (int i = 0; i < 2; ++i) s.r[i] = take(MD);
+  for (int i = 0; i < 6; ++i) s.t[i] = take(MD);
+  s.dh = take(M * F);
+  s.dg = take(2 * MD);
+  s.dP = take((size_t)H * B * T * T);
+  s.part = take(splitk_part_floats(B * T, D, F));
+  s.dyw = bf ? take(MD) : 0;
+  s.dxf = bf ? take(MD) : 0;
+  s.gw = bf ? wide_layout(take, T, D, F) : Wide{};
   s.total = off;
   return s;
 }
@@ -189,16 +237,192 @@ ConvBufs conv_bufs(float* S, const Saved& L) {
   return {S + L.g, S + L.cn, S + L.xhat[4], S + L.rstd[4], S + L.y3};
 }
 
+// the layer's arrays as the blocks read them (f32), and its grads. ada:
+// (2, D) the conv module's scale and shift (f32 mode, the others folded),
+// or (4, 2, D) the attention's, FFN1's, the conv module's and FFN2's
+// (bf16 mode)
+struct Weights {
+  const float *posp, *lnw, *ada, *cnw, *attw, *vecb, *posb, *ffw1, *ffb1,
+      *ffw2, *pw1w, *pw1b, *pw2w, *dww;
+};
+
+struct Grads {
+  float *dposp, *dlnw, *dada, *dcnw, *dattw, *dvecb, *dposb, *dffw1, *dffb1,
+      *dffw2, *dpw1w, *dpw1b, *dpw2w, *ddww;
+};
+
+// LN idx of the post-norm sums into y; bf16 mode at LN2 and LN4: y from
+// the unrounded sum rounded to bf16 (into out when set, else in place),
+// and the saved statistics of the sum as masr_tpu saves it, bf16
+template <class OT, class Y>
+cudaError_t post_norm(float* S, const Saved& L, const float* lnw, int idx,
+                      float* sum, Y* y, int M, int D, float eps, int T,
+                      cudaStream_t st) {
+  if constexpr (!is_bf16<OT>) {
+    return layer_norm(sum, y, lnw, idx, M, D, eps, nullptr, T, st,
+                      S + L.xhat[idx], S + L.rstd[idx]);
+  } else {
+    const long long MD = (long long)M * D;
+    if constexpr (is_bf16<Y>) {
+      TRY(layer_norm(sum, S + L.yout, lnw, idx, M, D, eps, nullptr, T, st));
+      TRY(convert(S + L.yout, y, MD, st));
+    } else {
+      TRY(layer_norm(sum, y, lnw, idx, M, D, eps, nullptr, T, st));
+      TRY(round_bf16(y, MD, st));
+    }
+    TRY(round_bf16(sum, MD, st));
+    return layer_norm(sum, S + L.yout, lnw, idx, M, D, eps, nullptr, T, st,
+                      S + L.xhat[idx], S + L.rstd[idx]);
+  }
+}
+
+// The forward from x0 (f32 rows) into out, saving what the backward reads.
+template <class OT>
+cudaError_t forward_rows(const float* x0, float* S, const Saved& L,
+                         const unsigned char* mask, const int* seeds,
+                         const int* lens, const Weights& w, OT* out,
+                         const Dims& d, float eps, float conv_eps,
+                         cudaStream_t st) {
+  constexpr bool bf = is_bf16<OT>;
+  const int B = d.B, T = d.T, D = d.D, F = d.F, H = d.H, M = B * T;
+  const size_t MD = (size_t)M * D, DF = (size_t)D * F;
+  float* sum = S + L.sum;
+  auto drop = [&](int site) {
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale);
+  };
+  // ada row i of the unfolded pack (bf16 mode)
+  auto ada = [&](int i) { return w.ada + (size_t)i * 2 * D; };
+
+  // x1 = LN1(x + drop(MHSA(ada0 x))), ada0 folded into q/k/v in f32
+  const float* xa = x0;
+  if (bf) {
+    TRY(ada_rows(x0, S + L.xa, ada(0), nullptr, T, D, (long long)MD, st));
+    xa = S + L.xa;
+  }
+  TRY(att_fwd<OT>(xa, w.attw, w.vecb, w.posb, w.posp, mask, att_bufs(S, L),
+                  x0, sum,
+                  make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
+                            d.att_keep_scale),
+                  drop(kSiteAttOut), B, T, D, H, st));
+  TRY(layer_norm(sum, S + L.x1, w.lnw, 0, M, D, eps, nullptr, T, st,
+                 S + L.xhat[0], S + L.rstd[0]));
+  // x2 = LN2(x1 + drop(FFN1(ada1 x1))), ada1 folded into w_1 in f32
+  const float* a1 = S + L.x1;
+  if (bf) {
+    TRY(ada_rows(S + L.x1, S + L.a1, ada(1), nullptr, T, D, (long long)MD,
+                 st));
+    a1 = S + L.a1;
+  }
+  TRY(ffn_fwd<OT>(S + L.x1, sum, a1, S + L.z0, S + L.h0, w.ffw1, w.ffb1,
+                  w.ffw2, w.vecb + 4 * D, M, D, F, T, 1.f,
+                  drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
+  TRY(post_norm<OT>(S, L, w.lnw, 1, sum, S + L.x2, M, D, eps, T, st));
+  // x3 = LN3(x2 + drop(Conv(ada2 x2))), the conv input's rows >= len zero
+  TRY(ada_rows(S + L.x2, S + L.a2, bf ? ada(2) : w.ada, lens, T, D,
+               (long long)MD, st));
+  TRY(conv_fwd<OT>(S + L.a2, w.pw1w, w.pw1b, w.dww, w.vecb + 6 * D, w.cnw,
+                   w.pw2w, w.vecb + 7 * D, conv_bufs(S, L), S + L.x2, sum,
+                   lens, drop(kSiteConvOut), B, T, D, d.ksize, d.causal,
+                   conv_eps, st));
+  TRY(layer_norm(sum, S + L.x3, w.lnw, 2, M, D, eps, nullptr, T, st,
+                 S + L.xhat[2], S + L.rstd[2]));
+  // y = LN4(x3 + drop(FFN2(ada3 x3))), ada3 folded into w_1 in f32
+  const float* a3 = S + L.x3;
+  if (bf) {
+    TRY(ada_rows(S + L.x3, S + L.a3, ada(3), nullptr, T, D, (long long)MD,
+                 st));
+    a3 = S + L.a3;
+  }
+  TRY(ffn_fwd<OT>(S + L.x3, sum, a3, S + L.z1, S + L.h1, w.ffw1 + DF,
+                  w.ffb1 + F, w.ffw2 + DF, w.vecb + 5 * D, M, D, F, T, 1.f,
+                  drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
+  return post_norm<OT>(S, L, w.lnw, 3, sum, out, M, D, eps, T, st);
+}
+
+// The backward from dy (f32 rows) into dx (f32 rows) and the grads (every
+// element written). x0: the forward's input rows (f32).
+template <class OT>
+cudaError_t backward_rows(const float* dy, const float* x0, float* S,
+                          const Saved& L, float* scratch, const Scratch& W,
+                          const int* seeds, const int* lens,
+                          const Weights& w, const Grads& g, float* dx,
+                          const Dims& d, cudaStream_t st) {
+  constexpr bool bf = is_bf16<OT>;
+  const int B = d.B, T = d.T, D = d.D, F = d.F, H = d.H, M = B * T;
+  const size_t MD = (size_t)M * D, DF = (size_t)D * F;
+  float *r0 = scratch + W.r[0], *r1 = scratch + W.r[1];
+  float* t[6];
+  for (int i = 0; i < 6; ++i) t[i] = scratch + W.t[i];
+  float *dh = scratch + W.dh, *dg = scratch + W.dg, *dP = scratch + W.dP,
+        *part = scratch + W.part;
+  auto drop = [&](int site) {
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale);
+  };
+  auto ada = [&](int i) { return w.ada + (size_t)i * 2 * D; };
+  auto dada = [&](int i) { return g.dada + (size_t)i * 2 * D; };
+
+  // LN4, FFN2: r0 = ds4, r1 = dx3 = ds4 + FFN2's input grad (through ada3
+  // in the bf16 mode)
+  TRY(ln_bwd(dy, S + L.xhat[3], S + L.rstd[3], w.lnw, g.dlnw, 3, nullptr, r0,
+             M, D, nullptr, T, st));
+  TRY(ffn_bwd<OT>(r0, bf ? S + L.a3 : S + L.x3, S + L.z1, S + L.h1,
+                  w.ffw1 + DF, w.ffw2 + DF, g.dffw1 + DF, g.dffb1 + F,
+                  g.dffw2 + DF, g.dvecb + 5 * D, t[0], dh, bf ? nullptr : r0,
+                  bf ? t[4] : r1, part, M, D, F, T, 1.f,
+                  drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
+  if (bf)
+    TRY(ada_bwd(r0, t[4], S + L.x3, ada(3), dada(3), r1, M, D, nullptr, T,
+                st));
+
+  // LN3, conv module: r0 = ds3, t[3] = the grad of the conv input, r1 =
+  // dx2 = ds3 + its grad through ada2 in the valid rows
+  TRY(ln_bwd(r1, S + L.xhat[2], S + L.rstd[2], w.lnw, g.dlnw, 2, nullptr, r0,
+             M, D, nullptr, T, st));
+  TRY(conv_bwd<OT>(r0, S + L.a2, conv_bufs(S, L), w.pw1w, w.pw1b, w.dww,
+                   w.cnw, w.pw2w, lens, drop(kSiteConvOut), g.dpw2w,
+                   g.dvecb + 7 * D, g.dcnw, g.dvecb + 6 * D, g.ddww, g.dpw1b,
+                   g.dpw1w, t[3], t, dg, part, B, T, D, d.ksize, d.causal,
+                   st));
+  TRY(ada_bwd(r0, t[3], S + L.x2, bf ? ada(2) : w.ada,
+              bf ? dada(2) : g.dada, r1, M, D, lens, T, st));
+  if (bf) TRY(round_bf16(r1, (long long)MD, st));   // dx2
+
+  // LN2, FFN1: r0 = ds2, r1 = dx1
+  TRY(ln_bwd(r1, S + L.xhat[1], S + L.rstd[1], w.lnw, g.dlnw, 1, nullptr, r0,
+             M, D, nullptr, T, st));
+  TRY(ffn_bwd<OT>(r0, bf ? S + L.a1 : S + L.x1, S + L.z0, S + L.h0, w.ffw1,
+                  w.ffw2, g.dffw1, g.dffb1, g.dffw2, g.dvecb + 4 * D, t[0],
+                  dh, bf ? nullptr : r0, bf ? t[4] : r1, part, M, D, F, T,
+                  1.f, drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
+  if (bf)
+    TRY(ada_bwd(r0, t[4], S + L.x1, ada(1), dada(1), r1, M, D, nullptr, T,
+                st));
+
+  // LN1, attention: r0 = ds1, dx = ds1 + the attention's input grad
+  // (through ada0 in the bf16 mode)
+  TRY(ln_bwd(r1, S + L.xhat[0], S + L.rstd[0], w.lnw, g.dlnw, 0, nullptr, r0,
+             M, D, nullptr, T, st));
+  TRY(att_bwd<OT>(r0, bf ? S + L.xa : x0, w.attw, w.posp, att_bufs(S, L),
+                  make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
+                            d.att_keep_scale),
+                  drop(kSiteAttOut), g.dattw, g.dvecb, g.dposb, g.dposp,
+                  bf ? nullptr : r0, bf ? t[1] : dx, t, dP, part, B, T, D, H,
+                  st));
+  if (bf)
+    TRY(ada_bwd(r0, t[1], x0, ada(0), dada(0), dx, M, D, nullptr, T, st));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t masr_sq_layer_train_saved_floats(int B, int T, int D,
-                                                   int F, int H) {
-  return saved_layout(B, T, D, F, H).total;
+                                                   int F, int H, int bf) {
+  return saved_layout(B, T, D, F, H, bf != 0).total;
 }
 
 extern "C" size_t masr_sq_layer_train_scratch_floats(int B, int T, int D,
-                                                     int F, int H) {
-  return scratch_layout(B, T, D, F, H).total;
+                                                     int F, int H, int bf) {
+  return scratch_layout(B, T, D, F, H, bf != 0).total;
 }
 
 // Packed weights as ops/cuda/squeezeformer_layer.py pack_sq_layer_params of
@@ -211,7 +435,7 @@ extern "C" size_t masr_sq_layer_train_scratch_floats(int B, int T, int D,
 // = linear_pos(pos_emb). thresh / keep_scale: dropout at the six
 // non-attention sites, att_*: at the attention probabilities (thresh 0 =
 // no dropout). eps: the layer LNs'; conv_eps: the conv LN's. saved:
-// masr_sq_layer_train_saved_floats floats.
+// masr_sq_layer_train_saved_floats(.., 0) floats.
 extern "C" int masr_sq_layer_train_forward(
     const float* x, const unsigned char* mask, const int* seeds,
     const int* lens, const float* posp, const float* lnw, const float* ada,
@@ -227,48 +451,62 @@ extern "C" int masr_sq_layer_train_forward(
   if (M == 0) return (int)cudaGetLastError();
   if ((D / H) * H != D || (!causal && ksize % 2 == 0))
     return (int)cudaErrorInvalidValue;
-  const Saved L = saved_layout(B, T, D, F, H);
-  const size_t MD = (size_t)M * D, DF = (size_t)D * F;
-  float* S = saved;
-  float* sum = S + L.sum;
-  auto drop = [&](int site) {
-    return make_drop(seeds, layer, site, thresh, keep_scale);
-  };
+  const Weights w = {posp, lnw,  ada,  cnw,  attw, vecb, posb,
+                     ffw1, ffb1, ffw2, pw1w, pw1b, pw2w, dww};
+  MASR_CHECK(forward_rows<float>(
+      x, saved, saved_layout(B, T, D, F, H, false), mask, seeds, lens, w,
+      out,
+      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
+                att_thresh, att_keep_scale),
+      eps, conv_eps, st));
+  return (int)cudaGetLastError();
+}
 
-  // x1 = LN1(x + drop(MHSA(x))), ada0 folded into q/k/v
-  MASR_CHECK(att_fwd(x, attw, vecb, posb, posp, mask, att_bufs(S, L), x, sum,
-                     make_drop(seeds, layer, kSiteAttProb, att_thresh,
-                               att_keep_scale),
-                     drop(kSiteAttOut), B, T, D, H, st));
-  MASR_CHECK(layer_norm(sum, S + L.x1, lnw, 0, M, D, eps, nullptr, T, st,
-                        S + L.xhat[0], S + L.rstd[0]));
-  // x2 = LN2(x1 + drop(FFN1(x1))), ada1 folded into w_1
-  MASR_CHECK(ffn_fwd(S + L.x1, sum, S + L.x1, S + L.z0, S + L.h0, ffw1, ffb1,
-                     ffw2, vecb + 4 * D, M, D, F, T, 1.f,
-                     drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
-  MASR_CHECK(layer_norm(sum, S + L.x2, lnw, 1, M, D, eps, nullptr, T, st,
-                        S + L.xhat[1], S + L.rstd[1]));
-  // x3 = LN3(x2 + drop(Conv(ada2 x2))), the conv input's rows >= len zero
-  MASR_CHECK(ada_rows(S + L.x2, S + L.a2, ada, lens, T, D, (long long)MD,
-                      st));
-  MASR_CHECK(conv_fwd(S + L.a2, pw1w, pw1b, dww, vecb + 6 * D, cnw, pw2w,
-                      vecb + 7 * D, conv_bufs(S, L), S + L.x2, sum, lens,
-                      drop(kSiteConvOut), B, T, D, ksize, causal, conv_eps,
-                      st));
-  MASR_CHECK(layer_norm(sum, S + L.x3, lnw, 2, M, D, eps, nullptr, T, st,
-                        S + L.xhat[2], S + L.rstd[2]));
-  // y = LN4(x3 + drop(FFN2(x3))), ada3 folded into w_1
-  MASR_CHECK(ffn_fwd(S + L.x3, sum, S + L.x3, S + L.z1, S + L.h1, ffw1 + DF,
-                     ffb1 + F, ffw2 + DF, vecb + 5 * D, M, D, F, T, 1.f,
-                     drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
-  MASR_CHECK(layer_norm(sum, out, lnw, 3, M, D, eps, nullptr, T, st,
-                        S + L.xhat[3], S + L.rstd[3]));
+// The bf16 mode (the header): x, posp, out and attw, ffw1, ffw2, pw1w,
+// pw2w bf16; ada (4,2,D), the four adaptive scales unfolded (the pack of
+// pack_sq_layer_params(layer, torch.bfloat16)), attw and ffw1 unscaled;
+// the other arrays f32, as the f32 entry. saved:
+// masr_sq_layer_train_saved_floats(.., 1) floats.
+extern "C" int masr_sq_layer_train_forward_bf16(
+    const bf16_t* x, const unsigned char* mask, const int* seeds,
+    const int* lens, const bf16_t* posp, const float* lnw, const float* ada,
+    const float* cnw, const bf16_t* attw, const float* vecb,
+    const float* posb, const bf16_t* ffw1, const float* ffb1,
+    const bf16_t* ffw2, const bf16_t* pw1w, const float* pw1b,
+    const bf16_t* pw2w, const float* dww, bf16_t* out, float* saved, int B,
+    int T, int D, int F, int n_head, int ksize, int causal, int layer,
+    unsigned thresh, float keep_scale, unsigned att_thresh,
+    float att_keep_scale, float eps, float conv_eps, void* stream_ptr) {
+  cudaStream_t st = (cudaStream_t)stream_ptr;
+  const int M = B * T, H = n_head;
+  if (M == 0) return (int)cudaGetLastError();
+  if ((D / H) * H != D || (!causal && ksize % 2 == 0))
+    return (int)cudaErrorInvalidValue;
+  const Saved L = saved_layout(B, T, D, F, H, true);
+  const size_t MD = (size_t)M * D, DF = (size_t)D * F, DD = (size_t)D * D;
+  float* S = saved;
+  MASR_CHECK(convert(x, S + L.x0, (long long)MD, st));
+  MASR_CHECK(convert(attw, S + L.w.attw, (long long)(4 * DD), st));
+  MASR_CHECK(convert(ffw1, S + L.w.ffw1, (long long)(2 * DF), st));
+  MASR_CHECK(convert(ffw2, S + L.w.ffw2, (long long)(2 * DF), st));
+  MASR_CHECK(convert(pw1w, S + L.w.pw1w, (long long)(2 * DD), st));
+  MASR_CHECK(convert(pw2w, S + L.w.pw2w, (long long)DD, st));
+  MASR_CHECK(convert(posp, S + L.w.posp, (long long)T * D, st));
+  const Weights w = {S + L.w.posp, lnw,  ada,          cnw,
+                     S + L.w.attw, vecb, posb,         S + L.w.ffw1,
+                     ffb1,         S + L.w.ffw2,       S + L.w.pw1w,
+                     pw1b,         S + L.w.pw2w,       dww};
+  MASR_CHECK(forward_rows<bf16_t>(
+      S + L.x0, S, L, mask, seeds, lens, w, out,
+      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
+                att_thresh, att_keep_scale),
+      eps, conv_eps, st));
   return (int)cudaGetLastError();
 }
 
 // dy (B,T,D) -> dx (B,T,D), dposp (T,D) and the grads of the 13 packed
 // arrays (same shapes, every element written). x: the forward's input;
-// saved: the forward's; scratch: masr_sq_layer_train_scratch_floats
+// saved: the forward's; scratch: masr_sq_layer_train_scratch_floats(.., 0)
 // floats.
 extern "C" int masr_sq_layer_train_backward(
     const float* dy, const float* x, const int* seeds, const int* lens,
@@ -287,56 +525,62 @@ extern "C" int masr_sq_layer_train_backward(
   if (M == 0) return (int)cudaGetLastError();
   if ((D / H) * H != D || (!causal && ksize % 2 == 0))
     return (int)cudaErrorInvalidValue;
-  const Saved L = saved_layout(B, T, D, F, H);
-  const Scratch W = scratch_layout(B, T, D, F, H);
-  const size_t MD = (size_t)M * D, DF = (size_t)D * F;
-  float* S = saved;
-  float *r0 = scratch + W.r[0], *r1 = scratch + W.r[1];
-  float* t[6];
-  for (int i = 0; i < 6; ++i) t[i] = scratch + W.t[i];
-  float *dh = scratch + W.dh, *dg = scratch + W.dg, *dP = scratch + W.dP,
-        *part = scratch + W.part;
-  auto drop = [&](int site) {
-    return make_drop(seeds, layer, site, thresh, keep_scale);
-  };
+  const Weights w = {posp, lnw,     ada,  cnw,  attw, nullptr, nullptr,
+                     ffw1, nullptr, ffw2, pw1w, pw1b, pw2w,    dww};
+  const Grads g = {dposp, dlnw,  dada,  dcnw,  dattw, dvecb, dposb,
+                   dffw1, dffb1, dffw2, dpw1w, dpw1b, dpw2w, ddww};
+  MASR_CHECK(backward_rows<float>(
+      dy, x, saved, saved_layout(B, T, D, F, H, false), scratch,
+      scratch_layout(B, T, D, F, H, false), seeds, lens, w, g, dx,
+      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
+                att_thresh, att_keep_scale),
+      st));
+  return (int)cudaGetLastError();
+}
 
-  // LN4, FFN2: r0 = ds4, r1 = dx3 = ds4 + FFN2's input grad
-  MASR_CHECK(ln_bwd(dy, S + L.xhat[3], S + L.rstd[3], lnw, dlnw, 3, nullptr,
-                    r0, M, D, nullptr, T, st));
-  MASR_CHECK(ffn_bwd(r0, S + L.x3, S + L.z1, S + L.h1, ffw1 + DF, ffw2 + DF,
-                     dffw1 + DF, dffb1 + F, dffw2 + DF, dvecb + 5 * D, t[0],
-                     dh, r0, r1, part, M, D, F, T, 1.f,
-                     drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
-
-  // LN3, conv module: r0 = ds3, t[3] = the grad of the conv input, r1 =
-  // dx2 = ds3 + its grad through ada2 in the valid rows
-  MASR_CHECK(ln_bwd(r1, S + L.xhat[2], S + L.rstd[2], lnw, dlnw, 2, nullptr,
-                    r0, M, D, nullptr, T, st));
-  MASR_CHECK(conv_bwd(r0, S + L.a2, conv_bufs(S, L), pw1w, pw1b, dww, cnw,
-                      pw2w, lens, drop(kSiteConvOut), dpw2w, dvecb + 7 * D,
-                      dcnw, dvecb + 6 * D, ddww, dpw1b, dpw1w, t[3], t, dg,
-                      part, B, T, D, ksize, causal, st));
-  MASR_CHECK(colsum(t[3], S + L.x2, dada, M, D, lens, T, st));
-  MASR_CHECK(colsum(t[3], nullptr, dada + D, M, D, lens, T, st));
-  ada_bwd_kernel<<<blocks_for(MD, 256), 256, 0, st>>>(r0, t[3], ada, r1,
-                                                      lens, T, D, MD);
-  MASR_CHECK(cudaGetLastError());
-
-  // LN2, FFN1: r0 = ds2, r1 = dx1
-  MASR_CHECK(ln_bwd(r1, S + L.xhat[1], S + L.rstd[1], lnw, dlnw, 1, nullptr,
-                    r0, M, D, nullptr, T, st));
-  MASR_CHECK(ffn_bwd(r0, S + L.x1, S + L.z0, S + L.h0, ffw1, ffw2, dffw1,
-                     dffb1, dffw2, dvecb + 4 * D, t[0], dh, r0, r1, part, M,
-                     D, F, T, 1.f, drop(kSiteFfn1Hidden),
-                     drop(kSiteFfn1Out), st));
-
-  // LN1, attention: r0 = ds1, dx = ds1 + the attention's input grad
-  MASR_CHECK(ln_bwd(r1, S + L.xhat[0], S + L.rstd[0], lnw, dlnw, 0, nullptr,
-                    r0, M, D, nullptr, T, st));
-  MASR_CHECK(att_bwd(r0, x, attw, posp, att_bufs(S, L),
-                     make_drop(seeds, layer, kSiteAttProb, att_thresh,
-                               att_keep_scale),
-                     drop(kSiteAttOut), dattw, dvecb, dposb, dposp, r0, dx, t,
-                     dP, part, B, T, D, H, st));
+// The bf16 mode's backward: dy, dx, dposp and the grads of attw, ffw1,
+// ffw2, pw1w, pw2w bf16 (each rounded once from its f32 sum), dada (4,2,D)
+// and the other grads f32. The product weights, posp and x are read from
+// `saved`; lnw, ada, cnw, pw1b and dww are the f32 arrays. scratch:
+// masr_sq_layer_train_scratch_floats(.., 1) floats.
+extern "C" int masr_sq_layer_train_backward_bf16(
+    const bf16_t* dy, const int* seeds, const int* lens, const float* lnw,
+    const float* ada, const float* cnw, const float* pw1b, const float* dww,
+    float* saved, float* scratch, bf16_t* dx, bf16_t* dposp, float* dlnw,
+    float* dada, float* dcnw, bf16_t* dattw, float* dvecb, float* dposb,
+    bf16_t* dffw1, float* dffb1, bf16_t* dffw2, bf16_t* dpw1w, float* dpw1b,
+    bf16_t* dpw2w, float* ddww, int B, int T, int D, int F, int n_head,
+    int ksize, int causal, int layer, unsigned thresh, float keep_scale,
+    unsigned att_thresh, float att_keep_scale, void* stream_ptr) {
+  cudaStream_t st = (cudaStream_t)stream_ptr;
+  const int M = B * T, H = n_head;
+  if (M == 0) return (int)cudaGetLastError();
+  if ((D / H) * H != D || (!causal && ksize % 2 == 0))
+    return (int)cudaErrorInvalidValue;
+  const Saved L = saved_layout(B, T, D, F, H, true);
+  const Scratch W = scratch_layout(B, T, D, F, H, true);
+  const size_t MD = (size_t)M * D, DF = (size_t)D * F, DD = (size_t)D * D;
+  float *S = saved, *G = scratch;
+  MASR_CHECK(convert(dy, G + W.dyw, (long long)MD, st));
+  const Weights w = {S + L.w.posp, lnw,     ada,          cnw,
+                     S + L.w.attw, nullptr, nullptr,      S + L.w.ffw1,
+                     nullptr,      S + L.w.ffw2, S + L.w.pw1w, pw1b,
+                     S + L.w.pw2w, dww};
+  const Grads g = {G + W.gw.posp, dlnw,  dada,          dcnw,
+                   G + W.gw.attw, dvecb, dposb,         G + W.gw.ffw1,
+                   dffb1,         G + W.gw.ffw2,        G + W.gw.pw1w,
+                   dpw1b,         G + W.gw.pw2w,        ddww};
+  MASR_CHECK(backward_rows<bf16_t>(
+      G + W.dyw, S + L.x0, S, L, scratch, W, seeds, lens, w, g, G + W.dxf,
+      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
+                att_thresh, att_keep_scale),
+      st));
+  MASR_CHECK(convert(G + W.dxf, dx, (long long)MD, st));
+  MASR_CHECK(convert(G + W.gw.posp, dposp, (long long)T * D, st));
+  MASR_CHECK(convert(G + W.gw.attw, dattw, (long long)(4 * DD), st));
+  MASR_CHECK(convert(G + W.gw.ffw1, dffw1, (long long)(2 * DF), st));
+  MASR_CHECK(convert(G + W.gw.ffw2, dffw2, (long long)(2 * DF), st));
+  MASR_CHECK(convert(G + W.gw.pw1w, dpw1w, (long long)(2 * DD), st));
+  MASR_CHECK(convert(G + W.gw.pw2w, dpw2w, (long long)DD, st));
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,12 @@
 // Training blocks shared by the layer kernels' forwards and hand-written
 // backwards (conformer_layer_train.cu, squeezeformer_layer_train.cu), for
-// Hopper (sm_90a), f32, on top of common.cuh:
+// Hopper (sm_90a), on top of common.cuh. The product blocks are templates
+// on the products' operand type OT: float (the f32 layers, 3xTF32) or
+// bf16_t (the bf16 mode of masr_tpu's compute dtype bf16: every product's
+// operands rounded to bf16 where gemm_tc_kernel reads its fragments, f32
+// sums). Arrays stay f32 in memory either way (bf16 weights are widened
+// once per call by the layer's C entry), and the elementwise work, the
+// epilogue Epi, LayerNorm, the softmax and the column sums stay f32:
 //
 //   Epi, Drop              the products' epilogue functor for common.cuh's
 //                          gemm_tc_kernel on element (m, n): bias, SiLU
@@ -24,6 +30,8 @@
 //   att_fwd, att_bwd       rel-pos MHSA over a (B, T', T') int8 mask, with
 //                          dropout at the probabilities
 //                          (att_softmax(_bwd)_kernel) and at the output
+//   Wide, Dims             the bf16 mode's f32 copies of the bf16 weights
+//                          and posp (a layout), a layer's dims and rates
 //   conv_fwd, conv_bwd     the conv module from its pw1 input: pw1,
 //                          common.cuh's GLU + depthwise + LN + SiLU, pw2
 //                          with the row mask and dropout; backward through
@@ -126,16 +134,18 @@ struct Epi {
 };
 
 // C (M, N) = A (M, K) . W (K, N)
+template <class OT>
 cudaError_t mm_nn(const float* A, const float* W, float* C, int M, int N,
                   int K, const Epi& e, cudaStream_t st) {
-  return gemm_tc_launch<false, false>(A, W, C, M, N, K, K, N, N, e, st);
+  return gemm_tc_launch<false, false, OT>(A, W, C, M, N, K, K, N, N, e, st);
 }
 
 // C (M, N) = A (M, K) . W^T, W stored (N, K): the input grad dY . W^T of
 // a product Y = X . W with W (in = N, out = K)
+template <class OT>
 cudaError_t mm_nt(const float* A, const float* W, float* C, int M, int N,
                   int K, const Epi& e, cudaStream_t st) {
-  return gemm_tc_launch<false, true>(A, W, C, M, N, K, K, K, N, e, st);
+  return gemm_tc_launch<false, true, OT>(A, W, C, M, N, K, K, K, N, e, st);
 }
 
 // Weight grads C (M, N) = A^T . B over K = B*T' rows (A stored (K, M), B
@@ -176,22 +186,23 @@ unsigned blocks_for(size_t n, int threads) {
   return (unsigned)(b < 8192 ? (b ? b : 1) : 8192);
 }
 
+template <class OT>
 cudaError_t mm_tn(const float* A, const float* B, float* C, int M, int N,
                   int K, float* part, cudaStream_t st) {
   const int slices = splitk_slices(M, N, K);
   if (slices == 1)
-    return gemm_tc_launch<true, false>(A, B, C, M, N, K, M, N, N, Epi(),
-                                       st);
+    return gemm_tc_launch<true, false, OT>(A, B, C, M, N, K, M, N, N, Epi(),
+                                           st);
   const int kc = ((K + slices - 1) / slices + 7) / 8 * 8;
   const int full = K / kc, rest = K - full * kc;
   Batch ba, bb, bc;
   ba.s1 = (long long)kc * M;
   bb.s1 = (long long)kc * N;
   bc.s1 = (long long)M * N;
-  TRY((gemm_tc_launch<true, false>(A, B, part, M, N, kc, M, N, N, Epi(), st,
-                                   full, ba, bb, bc)));
+  TRY((gemm_tc_launch<true, false, OT>(A, B, part, M, N, kc, M, N, N, Epi(),
+                                       st, full, ba, bb, bc)));
   if (rest)
-    TRY((gemm_tc_launch<true, false>(A + (size_t)full * kc * M,
+    TRY((gemm_tc_launch<true, false, OT>(A + (size_t)full * kc * M,
                                      B + (size_t)full * kc * N,
                                      part + (size_t)full * M * N, M, N, rest, M,
                                      N, N, Epi(), st)));
@@ -328,6 +339,7 @@ cudaError_t add(const float* a, const float* b, float* out, size_t n,
 // drop_out, the grads of w1, b1, w2, b2, and da = base + the grad of a
 // (base may be nullptr).
 // ------------------------------------------------------------------------
+template <class OT>
 cudaError_t ffn_fwd(const float* R, float* C, const float* a, float* z,
                     float* h, const float* w1, const float* b1,
                     const float* w2, const float* b2, int M, int D, int F,
@@ -339,16 +351,17 @@ cudaError_t ffn_fwd(const float* R, float* C, const float* a, float* z,
   e1.act = kActSilu;
   e1.drop = dh;
   e1.T = T;
-  TRY(mm_nn(a, w1, h, M, F, D, e1, st));
+  TRY(mm_nn<OT>(a, w1, h, M, F, D, e1, st));
   Epi e2;
   e2.bias = b2;
   e2.R = R;
   e2.res_scale = scale;
   e2.drop = dout;
   e2.T = T;
-  return mm_nn(h, w2, C, M, D, F, e2, st);
+  return mm_nn<OT>(h, w2, C, M, D, F, e2, st);
 }
 
+template <class OT>
 cudaError_t ffn_bwd(const float* dxw, const float* a, const float* z,
                     const float* h, const float* w1, const float* w2,
                     float* dw1, float* db1, float* dw2, float* db2, float* df,
@@ -357,18 +370,18 @@ cudaError_t ffn_bwd(const float* dxw, const float* a, const float* z,
                     const Drop& dout, cudaStream_t st) {
   TRY(scale_drop(dxw, df, M, D, scale, dout, nullptr, T, st));
   TRY(colsum(df, nullptr, db2, M, D, nullptr, T, st));
-  TRY(mm_tn(h, df, dw2, F, D, M, part, st));
+  TRY(mm_tn<OT>(h, df, dw2, F, D, M, part, st));
   Epi e;
   e.act = kActDsilu;
   e.aux = z;
   e.drop = dh;
   e.T = T;
-  TRY(mm_nt(df, w2, dz, M, F, D, e, st));
+  TRY(mm_nt<OT>(df, w2, dz, M, F, D, e, st));
   TRY(colsum(dz, nullptr, db1, M, F, nullptr, T, st));
-  TRY(mm_tn(a, dz, dw1, D, F, M, part, st));
+  TRY(mm_tn<OT>(a, dz, dw1, D, F, M, part, st));
   Epi ea;
   ea.R = base;
-  return mm_nt(dz, w1, da, M, D, F, ea, st);
+  return mm_nt<OT>(dz, w1, da, M, D, F, ea, st);
 }
 
 // ------------------------------------------------------------------------
@@ -459,6 +472,7 @@ struct AttBatches {
   }
 };
 
+template <class OT>
 cudaError_t att_fwd(const float* a, const float* attw, const float* bias,
                     const float* posb, const float* posp,
                     const unsigned char* mask, const AttBufs& s,
@@ -472,35 +486,47 @@ cudaError_t att_fwd(const float* a, const float* attw, const float* bias,
   TRY(add(bias, posb + D, s.bias_uv + D, D, st));
   Epi e;
   e.bias = s.bias_uv;
-  TRY(mm_nn(a, attw, s.qu, M, D, D, e, st));
+  TRY(mm_nn<OT>(a, attw, s.qu, M, D, D, e, st));
   e.bias = s.bias_uv + D;
-  TRY(mm_nn(a, attw, s.qv, M, D, D, e, st));
+  TRY(mm_nn<OT>(a, attw, s.qv, M, D, D, e, st));
   e.bias = bias + D;
-  TRY(mm_nn(a, attw + DD, s.k, M, D, D, e, st));
+  TRY(mm_nn<OT>(a, attw + DD, s.k, M, D, D, e, st));
   e.bias = bias + 2 * D;
-  TRY(mm_nn(a, attw + 2 * DD, s.v, M, D, D, e, st));
+  TRY(mm_nn<OT>(a, attw + 2 * DD, s.v, M, D, D, e, st));
   const AttBatches bt(B, T, D, H);
   Epi es;
   es.alpha = 1.f / sqrtf((float)dk);
-  TRY((gemm_tc_launch<false, true>(s.qu, s.k, s.P, T, T, dk, D, D, T, es, st,
-                                   B * H, bt.q, bt.q, bt.s)));
+  TRY((gemm_tc_launch<false, true, OT>(s.qu, s.k, s.P, T, T, dk, D, D, T, es,
+                                       st, B * H, bt.q, bt.q, bt.s)));
   es.R = s.P;
-  TRY((gemm_tc_launch<false, true>(s.qv, posp, s.P, T, T, dk, D, D, T, es, st,
-                                   B * H, bt.q, bt.pos, bt.s)));
+  TRY((gemm_tc_launch<false, true, OT>(s.qv, posp, s.P, T, T, dk, D, D, T, es,
+                                       st, B * H, bt.q, bt.pos, bt.s)));
   const long long rows = (long long)H * B * T;
   att_softmax_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       s.P, s.P, s.Pd, mask, B, H, T, dprob);
   TRY(cudaGetLastError());
-  TRY((gemm_tc_launch<false, false>(s.Pd, s.v, s.o, T, dk, T, T, D, D, Epi(),
-                                    st, B * H, bt.s, bt.q, bt.q)));
+  TRY((gemm_tc_launch<false, false, OT>(s.Pd, s.v, s.o, T, dk, T, T, D, D,
+                                        Epi(), st, B * H, bt.s, bt.q, bt.q)));
   Epi eo;
   eo.bias = bias + 3 * D;
   eo.R = R;
   eo.drop = dout;
   eo.T = T;
-  return mm_nn(s.o, attw + 3 * DD, C, M, D, D, eo, st);
+  return mm_nn<OT>(s.o, attw + 3 * DD, C, M, D, D, eo, st);
 }
 
+// out (M, D) = k + posp[row % T]: the keys plus their positions, the right
+// operand of dq in the bf16 mode
+__global__ void add_pos_kernel(const float* __restrict__ k,
+                               const float* __restrict__ posp,
+                               float* __restrict__ out, int T, int D,
+                               size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = k[i] + posp[(i / D) % T * D + i % D];
+}
+
+template <class OT>
 cudaError_t att_bwd(const float* dres, const float* a, const float* attw,
                     const float* posp, const AttBufs& s, const Drop& dprob,
                     const Drop& dout, float* dattw, float* dbias,
@@ -514,46 +540,58 @@ cudaError_t att_bwd(const float* dres, const float* a, const float* attw,
         *dq = t[5];
   TRY(scale_drop(dres, datt, M, D, 1.f, dout, nullptr, T, st));
   TRY(colsum(datt, nullptr, dbias + 3 * D, M, D, nullptr, T, st));
-  TRY(mm_tn(s.o, datt, dattw + 3 * DD, D, D, M, part, st));
-  TRY(mm_nt(datt, attw + 3 * DD, dO, M, D, D, Epi(), st));
-  TRY((gemm_tc_launch<false, true>(dO, s.v, dP, T, T, dk, D, D, T, Epi(), st,
-                                   B * H, bt.q, bt.q, bt.s)));
-  TRY((gemm_tc_launch<true, false>(s.Pd, dO, dv, T, dk, T, T, D, D, Epi(), st,
-                                   B * H, bt.s, bt.q, bt.q)));
+  TRY(mm_tn<OT>(s.o, datt, dattw + 3 * DD, D, D, M, part, st));
+  TRY(mm_nt<OT>(datt, attw + 3 * DD, dO, M, D, D, Epi(), st));
+  TRY((gemm_tc_launch<false, true, OT>(dO, s.v, dP, T, T, dk, D, D, T, Epi(),
+                                       st, B * H, bt.q, bt.q, bt.s)));
+  TRY((gemm_tc_launch<true, false, OT>(s.Pd, dO, dv, T, dk, T, T, D, D, Epi(),
+                                       st, B * H, bt.s, bt.q, bt.q)));
   const long long rows = (long long)H * B * T;
   att_softmax_bwd_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       dP, s.P, B, H, T, dprob, 1.f / sqrtf((float)dk));
   TRY(cudaGetLastError());
-  TRY((gemm_tc_launch<false, false>(dP, s.k, tk, T, dk, T, T, D, D, Epi(), st,
-                                    B * H, bt.s, bt.q, bt.q)));
-  TRY((gemm_tc_launch<false, false>(dP, posp, tp, T, dk, T, T, D, D, Epi(), st,
-                                    B * H, bt.s, bt.pos, bt.q)));
-  TRY(add(tk, tp, dq, MD, st));
+  TRY((gemm_tc_launch<false, false, OT>(dP, s.k, tk, T, dk, T, T, D, D, Epi(),
+                                        st, B * H, bt.s, bt.q, bt.q)));
+  TRY((gemm_tc_launch<false, false, OT>(dP, posp, tp, T, dk, T, T, D, D,
+                                        Epi(), st, B * H, bt.s, bt.pos,
+                                        bt.q)));
   TRY(colsum(tk, nullptr, dposb, M, D, nullptr, T, st));
   TRY(colsum(tp, nullptr, dposb + D, M, D, nullptr, T, st));
+  if constexpr (is_bf16<OT>) {
+    // dq = dS . bf16(k + p), as masr_tpu's kernel rounds the sum (its
+    // _mm(dS, kh + ph, cdt)), not k and p apart
+    add_pos_kernel<<<blocks_for(MD, 256), 256, 0, st>>>(s.k, posp, tk, T, D,
+                                                        MD);
+    TRY(cudaGetLastError());
+    TRY((gemm_tc_launch<false, false, OT>(dP, tk, dq, T, dk, T, T, D, D,
+                                          Epi(), st, B * H, bt.s, bt.q,
+                                          bt.q)));
+  } else {
+    TRY(add(tk, tp, dq, MD, st));
+  }
   float* dkk = t[0];  // datt is spent
-  TRY((gemm_tc_launch<true, false>(dP, s.qu, dkk, T, dk, T, T, D, D, Epi(), st,
-                                   B * H, bt.s, bt.q, bt.q)));
+  TRY((gemm_tc_launch<true, false, OT>(dP, s.qu, dkk, T, dk, T, T, D, D,
+                                       Epi(), st, B * H, bt.s, bt.q, bt.q)));
   // dposp[:, head h] = sum over b of dS[h, b]^T . (q+v)[b, :, head h]: one
   // product per head with K = B*T (dS is laid out (h, B, T, T))
   Batch bh_s, bh_q;
   bh_s.s1 = (long long)B * T * T;
   bh_q.s1 = dk;
-  TRY((gemm_tc_launch<true, false>(dP, s.qv, dposp, T, dk, B * T, T, D, D,
-                                   Epi(), st, H, bh_s, bh_q, bh_q)));
+  TRY((gemm_tc_launch<true, false, OT>(dP, s.qv, dposp, T, dk, B * T, T, D,
+                                       D, Epi(), st, H, bh_s, bh_q, bh_q)));
   TRY(colsum(dq, nullptr, dbias, M, D, nullptr, T, st));
   TRY(colsum(dkk, nullptr, dbias + D, M, D, nullptr, T, st));
   TRY(colsum(dv, nullptr, dbias + 2 * D, M, D, nullptr, T, st));
-  TRY(mm_tn(a, dq, dattw, D, D, M, part, st));
-  TRY(mm_tn(a, dkk, dattw + DD, D, D, M, part, st));
-  TRY(mm_tn(a, dv, dattw + 2 * DD, D, D, M, part, st));
+  TRY(mm_tn<OT>(a, dq, dattw, D, D, M, part, st));
+  TRY(mm_tn<OT>(a, dkk, dattw + DD, D, D, M, part, st));
+  TRY(mm_tn<OT>(a, dv, dattw + 2 * DD, D, D, M, part, st));
   Epi e0;
   e0.R = base;
-  TRY(mm_nt(dq, attw, da, M, D, D, e0, st));
+  TRY(mm_nt<OT>(dq, attw, da, M, D, D, e0, st));
   Epi acc;
   acc.R = da;
-  TRY(mm_nt(dkk, attw + DD, da, M, D, D, acc, st));
-  return mm_nt(dv, attw + 2 * DD, da, M, D, D, acc, st);
+  TRY(mm_nt<OT>(dkk, attw + DD, da, M, D, D, acc, st));
+  return mm_nt<OT>(dv, attw + 2 * DD, da, M, D, D, acc, st);
 }
 
 // ------------------------------------------------------------------------
@@ -661,6 +699,7 @@ struct ConvBufs {
   float *g, *cn, *xhat, *rstd, *y;
 };
 
+template <class OT>
 cudaError_t conv_fwd(const float* a, const float* pw1w, const float* pw1b,
                      const float* dww, const float* dwb, const float* norm,
                      const float* pw2w, const float* pw2b, const ConvBufs& s,
@@ -670,7 +709,7 @@ cudaError_t conv_fwd(const float* a, const float* pw1w, const float* pw1b,
   const int M = B * T;
   Epi eg;
   eg.bias = pw1b;
-  TRY(mm_nn(a, pw1w, s.g, M, 2 * D, D, eg, st));
+  TRY(mm_nn<OT>(a, pw1w, s.g, M, 2 * D, D, eg, st));
   TRY(conv_module(s.g, dww, dwb, pw1b, norm, s.y, B, T, T, D, ksize,
                   causal ? ksize - 1 : (ksize - 1) / 2, causal, eps, st,
                   s.cn, s.xhat, s.rstd));
@@ -680,9 +719,10 @@ cudaError_t conv_fwd(const float* a, const float* pw1w, const float* pw1b,
   ec.drop = d;
   ec.lens = lens;
   ec.T = T;
-  return mm_nn(s.y, pw2w, C, M, D, D, ec, st);
+  return mm_nn<OT>(s.y, pw2w, C, M, D, D, ec, st);
 }
 
+template <class OT>
 cudaError_t conv_bwd(const float* dres, const float* a, const ConvBufs& s,
                      const float* pw1w, const float* pw1b, const float* dww,
                      const float* norm, const float* pw2w, const int* lens,
@@ -695,11 +735,11 @@ cudaError_t conv_bwd(const float* dres, const float* a, const ConvBufs& s,
   const size_t MD = (size_t)M * D;
   TRY(scale_drop(dres, t[0], M, D, 1.f, d, lens, T, st));
   TRY(colsum(t[0], nullptr, dpw2b, M, D, nullptr, T, st));
-  TRY(mm_tn(s.y, t[0], dpw2w, D, D, M, part, st));
+  TRY(mm_tn<OT>(s.y, t[0], dpw2w, D, D, M, part, st));
   Epi ed;
   ed.act = kActDsilu;
   ed.aux = s.cn;
-  TRY(mm_nt(t[0], pw2w, t[1], M, D, D, ed, st));
+  TRY(mm_nt<OT>(t[0], pw2w, t[1], M, D, D, ed, st));
   TRY(ln_bwd(t[1], s.xhat, s.rstd, norm, dnorm, 0, nullptr, t[2], M, D,
              nullptr, T, st));
   TRY(colsum(t[2], nullptr, ddwb, M, D, nullptr, T, st));
@@ -718,8 +758,45 @@ cudaError_t conv_bwd(const float* dres, const float* a, const ConvBufs& s,
                                                           left);
     TRY(cudaGetLastError());
   }
-  TRY(mm_tn(a, dg, dpw1w, D, 2 * D, M, part, st));
-  return mm_nt(dg, pw1w, da, M, D, 2 * D, Epi(), st);
+  TRY(mm_tn<OT>(a, dg, dpw1w, D, 2 * D, M, part, st));
+  return mm_nt<OT>(dg, pw1w, da, M, D, 2 * D, Epi(), st);
+}
+
+// ------------------------------------------------------------------------
+// What the bf16 mode of a training layer adds to its f32 layouts: the f32
+// copies of its five bf16 product weights and of posp (widened once by the
+// forward into `saved`; the backward's f32 grads of the same arrays in
+// scratch before their rounding), laid out by `take`.
+// ------------------------------------------------------------------------
+struct Wide {
+  size_t ffw1, ffw2, attw, pw1w, pw2w, posp;
+};
+
+template <class Take>
+Wide wide_layout(Take& take, int T, int D, int F) {
+  const size_t DF = (size_t)D * F, DD = (size_t)D * D;
+  Wide w;
+  w.ffw1 = take(2 * DF);
+  w.ffw2 = take(2 * DF);
+  w.attw = take(4 * DD);
+  w.pw1w = take(2 * DD);
+  w.pw2w = take(DD);
+  w.posp = take((size_t)T * D);
+  return w;
+}
+
+// a training layer's shape, causality, dropout hash key and rates
+struct Dims {
+  int B, T, D, F, H, ksize, causal, layer;
+  unsigned thresh, att_thresh;
+  float keep_scale, att_keep_scale;
+};
+
+Dims make_dims(int B, int T, int D, int F, int n_head, int ksize, int causal,
+               int layer, unsigned thresh, float keep_scale,
+               unsigned att_thresh, float att_keep_scale) {
+  return {B, T, D, F, n_head, ksize, causal, layer, thresh, att_thresh,
+          keep_scale, att_keep_scale};
 }
 
 }  // namespace

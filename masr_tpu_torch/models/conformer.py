@@ -49,7 +49,17 @@ dtype=bf16): the parameters stay f32; the encoder casts its features to
 dtype (models/layers.py), the layer kernels take their bf16 mode (packs
 whose products' weights are bf16, LN and bias rows f32), the streaming
 caches and position tables are bf16, and the CTC probabilities leave in
-f32. Training stays f32.
+f32.
+
+bf16 training (the same model in training mode, masr_tpu's
+train_conf.enable_amp): the parameters, the optimizer and the grads stay
+f32; `forward_train` casts the features after CMVN; the subsampling, the
+CTC head and the decoder are the eager modules in bf16 with torch's
+differentiable products (models/layers.py: training mode), every layer
+runs the training kernel's bf16 mode (pack_layer_params(layer, bf16)
+built with grad; posp = linear_pos(pos_emb) as masr_tpu's, bf16 operands,
+f32 sums, rounded once); the CTC logits and the decoder's leave in f32 for
+the losses (row 4 stays f32, masr_tpu/models/losses.py:27).
 """
 import torch
 from torch import nn
@@ -244,13 +254,16 @@ class ConformerEncoderLayer(nn.Module):
     def forward_train(self, x, mask, seeds, lens, pos_emb, index):
         """The layer through the training-layer kernel, differentiable in x
         and every parameter (packed with grad enabled, so the kernel's
-        weight grads reach the parameters). mask: (B, T, T) bool; seeds:
+        weight grads reach the parameters), in x's dtype (f32, or bf16: the
+        kernel's bf16 mode, its posp a bf16 product as masr_tpu's,
+        masr_tpu/models/conformer.py:157-162). mask: (B, T, T) bool; seeds:
         (B,) int32 dropout seeds of this layer; index: the layer's index;
         dropout only in training mode."""
-        train = self.training
+        train, dtype = self.training, x.dtype
         return fused_conformer_layer_train(
-            x, mask, seeds, lens, self.self_attn.linear_pos(pos_emb[0]),
-            pack_layer_params(self), layer=index,
+            x, mask, seeds, lens,
+            self.self_attn.linear_pos(pos_emb[0].to(dtype)),
+            pack_layer_params(self, dtype), layer=index,
             n_head=self.attention_heads, ksize=self.cnn_module_kernel,
             causal=self.causal, ff_scale=self.ff_scale,
             rate=self.dropout_rate if train else 0.0,
@@ -362,16 +375,12 @@ class ConformerEncoder(nn.Module):
         """The loss path (masr_tpu's __call__ with train): subsampling with
         positional dropout, the (B, T', T') chunk mask (a dynamic chunk is
         drawn from chunk_generator), every layer through the training-layer
-        kernel with per-(layer, utterance) seeds from `generator`. Dropout
-        only in training mode. → (out (B, T', D), masks (B, 1, T'))."""
-        if self.compute_dtype != torch.float32:
-            raise NotImplementedError(
-                "bf16 training (enable_amp) is not ported yet: ROADMAP "
-                "queue 1, item 3")
+        kernel with per-(layer, utterance) seeds from `generator`, in the
+        compute dtype after CMVN. Dropout only in training mode. → (out (B,
+        T', D), masks (B, 1, T'))."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        xs, pos_emb, masks = self.embed(xs, masks, generator=generator)
+        xs, pos_emb, masks = self.embed(self._features(xs), masks,
+                                        generator=generator)
         B, T2 = xs.shape[0], xs.shape[1]
         if self.use_dynamic_chunk and chunk_generator is None:
             raise ValueError("dynamic-chunk training draws its chunk from "

@@ -238,7 +238,7 @@ class DeepSpeech2Model(nn.Module):
         if self.encoder.compute_dtype != torch.float32:
             raise NotImplementedError(
                 "bf16 training (enable_amp) is not ported yet: ROADMAP "
-                "queue 1, item 3")
+                "queue 1, item 2")
         eouts, eouts_len, _, _ = self.encoder(speech, speech_lengths)
         loss = self.ctc(eouts, eouts_len, text, text_lengths)
         zero = loss.new_zeros(())

@@ -360,7 +360,7 @@ class EfficientConformerEncoder(nn.Module):
         if self.compute_dtype != torch.float32:
             raise NotImplementedError(
                 "bf16 training (enable_amp) is not ported yet: ROADMAP "
-                "queue 1, item 3")
+                "queue 1, item 2")
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)

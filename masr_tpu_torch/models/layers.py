@@ -7,18 +7,24 @@ flax's nn.Dense and nn.Conv promote their kernel and bias to the compute
 dtype, and round as flax does: the product (f32 sums) to the compute
 dtype, then the bias added in it, a second rounding (another dtype than
 f32, f64 in the finite-difference tests, the same way through torch's
-product). A bf16 Linear, and a pointwise (kernel 1) Conv1d, take the
-serving kernels' own product
+product). A bf16 Linear, and a pointwise (kernel 1) Conv1d, in eval mode
+take the serving kernels' own product
 (ops/cuda/chunk_layer.py serving_product: the K split fixed by N and K),
 so a row's bits do not depend on the rows beside it in the call: through
 cuBLAS and cuDNN, whose algorithms follow the rows, a streaming window
 alone and in the engine's batch parted by a bf16 rounding here and there
 (with the attention's own products, models/attention.py `_half_mm`, they
 flipped 10 of the 32 texts of the eager Efficient-Conformer's bf16 engine
-on the H100). LayerNorm takes its statistics and its affine in f32 and
+on the H100). serving_product has no backward: in training mode (the
+module's `training` flag, not grad mode: the server's handler threads
+serve with grad mode on) a bf16 Linear or conv takes the differentiable
+product of torch (F.linear / the conv on compute_weight's bf16 copy, f32
+sums rounded once, as flax's Dense at bf16 under masr_tpu's enable_amp),
+then its bias after that rounding. LayerNorm takes its statistics and its affine in f32 and
 returns the input's dtype, as flax's nn.LayerNorm does at a half dtype;
-BatchNorm1d in eval the same. With an f32 input each is exactly its torch
-base class, so the f32 routes keep their bits. The encoder casts its
+BatchNorm1d in eval the same; their backward (autograd) keeps the f32
+statistics. With an f32 input each is exactly its torch base class, so
+the f32 routes keep their bits. The encoder casts its
 features to the compute dtype after CMVN (masr_tpu/models/conformer.py
 :242), and every layer downstream follows.
 """
@@ -62,11 +68,17 @@ def half_product(x, module):
     return serving_product(x, compute_weight(module, x.dtype, kn=True))
 
 
+def serves_bf16(x, module):
+    """True where a bf16 product takes serving_product: a bf16 input to a
+    module in eval mode (training mode needs the product's backward)."""
+    return x.dtype == torch.bfloat16 and not module.training
+
+
 class Linear(nn.Linear):
     def forward(self, x):
         if x.dtype == torch.float32:
             return super().forward(x)
-        y = half_product(x, self) if x.dtype == torch.bfloat16 else \
+        y = half_product(x, self) if serves_bf16(x, self) else \
             F.linear(x, compute_weight(self, x.dtype))
         return _add_bias(y, self.bias, (-1,))
 
@@ -75,7 +87,7 @@ class Conv1d(nn.Conv1d):
     def forward(self, x):
         if x.dtype == torch.float32:
             return super().forward(x)
-        if x.dtype == torch.bfloat16 and self.kernel_size == (1,) and \
+        if serves_bf16(x, self) and self.kernel_size == (1,) and \
                 self.groups == 1 and self.stride == (1,) and \
                 self.padding == (0,):
             y = half_product(x.transpose(1, 2), self).transpose(1, 2)

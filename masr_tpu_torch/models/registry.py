@@ -11,9 +11,10 @@ Every family serves in bf16 (parameters f32, products in bf16): the
 Conformer through its layer kernels' bf16 modes (rows 1, 2 and 5), the
 Squeezeformer through rows 6 and 8's, the Efficient-Conformer's tail
 through row 1's (row 5's when static-chunk), DeepSpeech2 with no kernel
-(its recurrence is XLA ops in masr_tpu). Training stays f32 (each
-family's loss path raises on bf16). Any other dtype raises; nothing falls
-back to f32."""
+(its recurrence is XLA ops in masr_tpu). The Conformer and the
+layer_norm Squeezeformer also train in bf16 (masr_tpu's enable_amp,
+through rows 3 and 7's bf16 modes); the other routes' loss paths raise on
+bf16. Any other dtype raises; nothing falls back to f32."""
 import torch
 
 from masr_tpu_torch.models.conformer import ConformerModel

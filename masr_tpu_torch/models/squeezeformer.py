@@ -64,7 +64,13 @@ position products are f32 sums rounded once to bf16 (masr_tpu's einsum at
 preferred_element_type f32, masr_tpu/models/squeezeformer.py:421-423,
 :700-702), as every bf16 Linear's (models/layers.py), whose bits do not
 depend on the batch; the streaming caches are bf16; the CTC
-probabilities leave in f32. Training stays f32.
+probabilities leave in f32. bf16 training (masr_tpu's enable_amp) runs
+the layer_norm route, as the Conformer's (models/conformer.py): the
+training kernel's bf16 mode with the unfolded bf16 pack (its adaptive
+scales' grads from the kernel), the subsampling, preln, time reduction
+and recover, final_proj, the CTC head and the decoder in bf16 with
+torch's differentiable products (training mode, models/layers.py). The
+BatchNorm route trains in f32 only.
 
 Not ported, each raising NotImplementedError: pre-norm layers
 (normalize_before), other positional encodings than rel_pos, streaming
@@ -73,6 +79,7 @@ at once while streaming. Streaming with the conv1d time reduction raises,
 as in masr_tpu.
 """
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from masr_tpu_torch.models.attention import (RelPositionMultiHeadedAttention,
@@ -157,7 +164,8 @@ class TimeReductionLayer(nn.Module):
     pointwise conv; (B, T, D) → (B, ceil(T/2), D). In bf16 (the input's)
     as flax's convs at that dtype: each product (f32 sums) rounded,
     then its bias added in that dtype; the pointwise product through
-    serving_product (models/layers.py half_product)."""
+    serving_product (models/layers.py half_product) in eval mode, torch's
+    differentiable product in training mode."""
 
     def __init__(self, channel, out_dim, kind="stream"):
         super().__init__()
@@ -189,7 +197,9 @@ class TimeReductionLayer(nn.Module):
                 xs, (0, 0, 0, L - xs.shape[1]))
         if not half:
             return xs @ self.pw_conv.weight[:, :, 0].t() + self.pw_conv.bias
-        return half_product(xs, self.pw_conv) + self.pw_conv.bias.to(xs.dtype)
+        y = F.linear(xs, compute_weight(self.pw_conv, xs.dtype)[:, :, 0]) \
+            if self.training else half_product(xs, self.pw_conv)
+        return y + self.pw_conv.bias.to(xs.dtype)
 
 
 class SqueezeformerEncoderLayer(nn.Module):
@@ -279,7 +289,8 @@ class SqueezeformerEncoderLayer(nn.Module):
         """The loss path's layer. A layer_norm conv module runs the
         training-layer kernel, differentiable in x and every parameter (the
         pack is built with grad enabled, so the kernel's weight grads reach
-        the parameters, the adaptive scales through their folding); mask:
+        the parameters: in f32 the adaptive scales' through their folding,
+        in bf16, x's dtype, the unfolded pack's from the kernel); mask:
         (B, T, T) bool; seeds: (B,) int32 dropout seeds of this layer;
         index: the layer's index. A BatchNorm conv module runs the eager
         layer (its batch statistics couple the utterances, as in masr_tpu,
@@ -289,10 +300,11 @@ class SqueezeformerEncoderLayer(nn.Module):
             valid = torch.arange(x.shape[1], device=x.device)[None, :] \
                 < lens[:, None]
             return self(x, mask, pos_emb, valid[:, None, :], generator)
-        train = self.training
+        train, dtype = self.training, x.dtype
         return fused_squeezeformer_layer_train(
-            x, mask, seeds, lens, self.self_attn.linear_pos(pos_emb[0]),
-            pack_sq_layer_params(self), layer=index,
+            x, mask, seeds, lens,
+            self.self_attn.linear_pos(pos_emb[0].to(dtype)),
+            pack_sq_layer_params(self, dtype), layer=index,
             n_head=self.attention_heads, ksize=self.cnn_module_kernel,
             causal=self.causal, rate=self.dropout_rate if train else 0.0,
             att_rate=self.attention_dropout_rate if train else 0.0)
@@ -479,16 +491,17 @@ class SqueezeformerEncoder(nn.Module):
         At the reduce index the time reduction runs on the rows within
         each length and the layers after it take chunk_masks[:, ::2, ::2],
         pos_emb[:, ::2] and the lengths halved rounding up; the recover
-        index restores them. Dropout only in training mode. → (out (B, T',
-        output_size), masks (B, 1, T'))."""
-        if self.compute_dtype != torch.float32:
+        index restores them. In the compute dtype after CMVN (bf16: the
+        layer_norm route only). Dropout only in training mode. → (out (B,
+        T', output_size), masks (B, 1, T'))."""
+        if self.compute_dtype != torch.float32 and not all(
+                layer.conv_ln for layer in self.encoders):
             raise NotImplementedError(
-                "bf16 training (enable_amp) is not ported yet: ROADMAP "
-                "queue 1, item 3")
+                "bf16 training (enable_amp) of a BatchNorm conv module is "
+                "not ported: ROADMAP queue 1, item 2")
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        xs, pos_emb, masks = self.embed(xs, masks, generator=generator)
+        xs, pos_emb, masks = self.embed(self._features(xs), masks,
+                                        generator=generator)
         B, T2 = xs.shape[0], xs.shape[1]
         if self.use_dynamic_chunk and chunk_generator is None:
             raise ValueError("dynamic-chunk training draws its chunk from "

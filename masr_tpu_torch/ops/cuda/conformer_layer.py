@@ -245,16 +245,20 @@ def check_layer_args(x, lens, pos_p, n_head, ksize, causal):
 def check_packed(x, lens, pos_p, packed, n_head, ksize, causal):
     """Raise unless the kernels take these arguments with packed, the
     serving pack (pack_layer_params) in full: the training-layer kernel
-    reads every array of it."""
+    reads every array of it. Its dtype rule is the serving kernels'
+    (chunk_layer.py check_serving_dtypes): x, pos_p and the products'
+    weights all f32 or all bf16, the LN and bias rows f32. → the dtype."""
     B, T, D = x.shape
     F_ = packed["ffw1"].shape[2]
+    dtype = check_serving_dtypes({"x": x, "pos_p": pos_p}, packed)
     check_operands({"x": x, "pos_p": pos_p,
                     **{k: packed[k] for k in PACKED_KEYS}},
                    {"lnw": (6, 2, D), "ffw1": (2, D, F_), "ffb1": (2, F_),
                     "ffw2": (2, F_, D), "vecb": (8, D), "attw": (4, D, D),
                     "posb": (2, D), "pw1w": (D, 2 * D), "pw1b": (1, 2 * D),
-                    "pw2w": (D, D), "dww": (ksize, D)}, x.device)
+                    "pw2w": (D, D), "dww": (ksize, D)}, x.device, None)
     check_layer_args(x, lens, pos_p, n_head, ksize, causal)
+    return dtype
 
 
 def fused_conformer_layer(x, lens, pos_p, packed, *, n_head, ksize, causal,

@@ -20,7 +20,14 @@ travel in the model's state_dict (checkpoints, resume) and are kept after
 a non-finite step, as in masr_tpu. DeepSpeech2 trains its recurrence
 through torch.nn.LSTM / GRU (cuDNN on the card) and its CTC loss through
 the CTC kernel; its eval takes ctc_beam_search for attention_rescoring, as
-masr_tpu's does. Training is f32 (TF32 off).
+masr_tpu's does. Training is f32 (TF32 off), or with train_conf.enable_amp
+bf16 as masr_tpu's (build_model(dtype=bf16): f32 parameters, optimizer,
+grad clipping and non-finite skip; the encoder's products in bf16 through
+the training kernels' bf16 modes, the CTC and attention losses in f32;
+cuBLAS's bf16 products keep f32 sums) for the Conformer and the
+layer_norm Squeezeformer; `evaluate` runs the bf16 model in eval mode (the
+bf16 serving routes) and `export` writes the f32 parameters, as
+masr_tpu's does.
 
 Training as masr_tpu's train.py runs it: `augment_conf_path` (an
 augmentation JSON; train's default, as the CLI's and masr_tpu's, is
@@ -33,9 +40,11 @@ step runs fbank, SpecAugment and SpecSub on the card before the encoder
 (ops/specaug.py; eval takes the deterministic fbank); manifest_type binary
 reads `<manifest>.data`; optimizer_conf.fused runs torch's fused Adam.
 
-Not ported, each raising NotImplementedError: enable_amp (bf16 training,
-ROADMAP.md module item 6) and tensor-parallel training (item 7); absent:
-multi-host sampling, create_data and extract_features.
+Not ported, each raising NotImplementedError before a model is built:
+enable_amp for the BatchNorm Squeezeformer, the Efficient-Conformer and
+DeepSpeech2 (ROADMAP.md queue 1, item 2) and tensor-parallel training
+(item 6); absent: multi-host sampling, create_data and
+extract_features.
 """
 import os
 import time
@@ -76,8 +85,24 @@ logger = setup_logger()
 
 
 def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported (ROADMAP.md module "
+    return NotImplementedError(f"{what} is not ported (ROADMAP.md queue 1, "
                                f"item {item})")
+
+
+def _amp_not_ported(configs):
+    """The enable_amp routes not ported (None when the model's is): every
+    family but the Conformer and a layer_norm-conv Squeezeformer."""
+    family = configs.use_model
+    if family == "conformer":
+        return None
+    if family == "squeezeformer":
+        norm = (configs.get("encoder_conf") or {}).get("cnn_norm_type",
+                                                       "batch_norm")
+        if norm == "layer_norm":
+            return None
+        return "the BatchNorm Squeezeformer"
+    return {"efficient_conformer": "the Efficient-Conformer",
+            "deepspeech2": "DeepSpeech2"}.get(family, family)
 
 
 class MASRTrainer(object):
@@ -102,14 +127,19 @@ class MASRTrainer(object):
                     node = node[p]
                 node[leaf] = yaml.safe_load(v)
         self.device = resolve_device(device)
+        t = self.configs.get("train_conf", {})
+        self.amp = bool(t.get("enable_amp", False))
+        if self.amp and _amp_not_ported(self.configs):
+            raise _not_ported("train_conf.enable_amp (bf16 training) of "
+                              + _amp_not_ported(self.configs), 2)
+        if int(t.get("tensor_parallel", 1) or 1) > 1:
+            raise _not_ported("train_conf.tensor_parallel", 6)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        t = self.configs.get("train_conf", {})
-        if t.get("enable_amp", False):
-            raise _not_ported("train_conf.enable_amp (bf16 training)", 6)
-        if int(t.get("tensor_parallel", 1) or 1) > 1:
-            raise _not_ported("train_conf.tensor_parallel", 7)
+            if self.amp:
+                torch.backends.cuda.matmul.\
+                    allow_bf16_reduced_precision_reduction = False
         self.use_model = self.configs.use_model
         self.streaming = bool(self.configs.get("streaming", True))
         self.seed = int(self.configs.get("seed", 0))
@@ -199,7 +229,8 @@ class MASRTrainer(object):
                 encoder_conf=self.configs.get("encoder_conf"),
                 decoder_conf=self.configs.get("decoder_conf"),
                 model_conf=self.configs.get("model_conf"),
-                cmvn=GlobalCMVN(norm.mean, norm.istd))
+                cmvn=GlobalCMVN(norm.mean, norm.istd),
+                dtype=torch.bfloat16 if self.amp else torch.float32)
         init_type = str(self.configs.get("train_conf", {}).get(
             "init_type", "flax"))
         if init_type == "flax":

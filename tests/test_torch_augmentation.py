@@ -32,6 +32,7 @@ from masr_tpu.data.augmentation.pipeline import \
 from masr_tpu_torch.audio import AudioSegment
 from masr_tpu_torch.data.augmentation import augmentors as PA
 from masr_tpu_torch.data.augmentation.pipeline import AugmentationPipeline
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "augmentation.json")

@@ -65,6 +65,7 @@ from masr_tpu_torch.models.weights import (from_flax_variables,
                                            ring_from_right_aligned)
 from masr_tpu_torch.ops.cuda import chunk_layer_sq as ck
 from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BF = torch.bfloat16
 D, H, K, FF = 64, 2, 7, 128
@@ -556,8 +557,10 @@ def test_ds2_stream_matches_masr_tpu_bf16(use_gru):
 
 def test_build_model_bf16_every_family():
     """build_model(dtype=bf16) builds every family: parameters f32, the
-    streaming state in bf16; the bf16 families' loss paths raise (training
-    stays f32); f16 raises."""
+    streaming state in bf16; the loss paths of these configurations (the
+    BatchNorm Squeezeformer, the Efficient-Conformer, DeepSpeech2) raise on
+    bf16 (bf16 training takes the Conformer and the layer_norm
+    Squeezeformer, tests/test_torch_bf16_training.py); f16 raises."""
     for family, enc in ENCS.items():
         model = build_model(family, FEAT, 10, encoder_conf=enc,
                             decoder_conf=None if family == "deepspeech2"

@@ -59,6 +59,7 @@ from masr_tpu_torch.models.weights import (from_flax_variables,
 from masr_tpu_torch.ops.cuda import chunk_layer as ck
 from masr_tpu_torch.ops.cuda import conformer_layer as cl
 from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BF = torch.bfloat16
 D, H, FF, K = 64, 2, 96, 7

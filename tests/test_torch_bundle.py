@@ -13,6 +13,7 @@ from masr_tpu.infer.bundle import (_dequantize_int8, load_inference_bundle
 from masr_tpu_torch.infer import flax_msgpack
 from masr_tpu_torch.infer.bundle import load_inference_bundle
 from masr_tpu_torch.models.weights import from_flax_variables
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BUNDLE = os.path.join(os.path.dirname(__file__), "..", "examples",
                       "tiny_zh_synth", "inference_model")

@@ -37,6 +37,7 @@ from masr_tpu_torch.models.weights import (from_flax_variables,
                                            right_aligned_from_ring,
                                            ring_from_right_aligned)
 from masr_tpu_torch.ops.cuda import chunk_layer_sq as ck
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 D, H, FF, K = 64, 2, 128, 7
 d_k = D // H

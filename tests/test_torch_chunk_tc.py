@@ -26,6 +26,7 @@ from masr_tpu_torch.models.weights import seeded_state_dict
 from masr_tpu_torch.ops.cuda import chunk_layer as ck
 from masr_tpu_torch.ops.cuda import chunk_layer_sq as cks
 from masr_tpu_torch.ops.cuda.tf32 import tf32_round
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _layer(family, seed=5):

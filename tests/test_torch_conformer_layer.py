@@ -15,6 +15,7 @@ from masr_tpu.ops.pallas.conformer_layer import (fused_conformer_layer,
 from masr_tpu_torch.models.conformer import ConformerEncoderLayer
 from masr_tpu_torch.models.weights import from_flax_variables
 from masr_tpu_torch.ops.cuda import conformer_layer as cl
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 D, H, FF, K = 64, 2, 96, 7
 T = 45                                   # not a multiple of 16

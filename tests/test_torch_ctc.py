@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from masr_tpu.ops.pallas import ctc_loss as M
 from masr_tpu_torch.ops.cuda import ctc_loss as C
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _case(seed, B, T, V, L, repeats=False, min_label=1):
@@ -41,7 +42,7 @@ def _jax_loss_and_grad(fn, logits, logit_lens, labels, label_lens, w):
         nll = fn(lg, jnp.asarray(lpad), lab, jnp.asarray(ypad))
         return jnp.sum(nll * w), nll
 
-    (_, nll), g = jax.value_and_grad(total, has_aux=True)(
+    (_, nll), g = jax.jit(jax.value_and_grad(total, has_aux=True))(
         jnp.asarray(logits))
     return np.asarray(nll), np.asarray(g)
 

@@ -20,6 +20,7 @@ import torch
 
 from masr_tpu.ops.pallas import ctc_loss as M
 from masr_tpu_torch.ops.cuda import ctc_loss as C
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 GRAD_FLOOR = 1e-4
 
@@ -170,7 +171,7 @@ def test_scheme_empty_chain_follows_pallas():
                               blank_id=0, interpret=True)
         return jnp.sum(n * w), n
 
-    (_, want), g_want = jax.value_and_grad(total, has_aux=True)(
+    (_, want), g_want = jax.jit(jax.value_and_grad(total, has_aux=True))(
         jnp.asarray(logits))
     np.testing.assert_allclose(nll.numpy(), np.asarray(want), rtol=1e-5)
     np.testing.assert_allclose(grad.numpy(), np.asarray(g_want), atol=2e-5)

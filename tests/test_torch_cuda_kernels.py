@@ -1507,3 +1507,206 @@ def test_sq_bf16_kernels_refuse_mixed_dtypes(cuda_device):
             torch.zeros(2, 6, 64, device=cuda_device, dtype=bf), i32, i32,
             i32 + 1, layer.chunk_packed_params(bf), n_head=2, ksize=7,
             conv_ln=False)
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 modes of rows 3 and 7 (the training layers, masr_tpu's
+# enable_amp)
+# --------------------------------------------------------------------------- #
+def _assert_bf16_train_close(name, got, want):
+    """A bf16 training layer, kernel vs twin: both round the same operands
+    and rows to bf16 at the same points and sum in f32 in other orders, so
+    a rounding flips here and there (_assert_bf16_close). Each output and
+    grad is measured against its own largest value (a grad may be far
+    below 1): a max abs error of 8 roundings of max |want| and a mean abs
+    error of one rounding of mean |want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    top = max(want.abs().max().item(), 1e-30)
+    mean = max(want.abs().mean().item(), 1e-30)
+    assert err.max().item() <= 8 * 2 ** -8 * top, (name, err.max().item(),
+                                                   top)
+    assert err.mean().item() <= 2 ** -8 * mean, (name, err.mean().item(),
+                                                 mean)
+
+
+def _train_bf16_run(fn, counter, x, mask, seeds, lens, posp, packed, w, kw):
+    """fn on bf16 clones with grad; (y * w).sum() backward → (y, dx,
+    dposp, {key: grad}, launches, bf16 launches)."""
+    xx = x.clone().requires_grad_(True)
+    pp = posp.clone().requires_grad_(True)
+    pk = {k: v.detach().clone().requires_grad_(True)
+          for k, v in packed.items()}
+    before = (counter.launches, counter.bf16_launches)
+    y = fn(xx, mask, seeds, lens, pp, pk, **kw)
+    (y.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    return (y.detach(), xx.grad, pp.grad, {k: v.grad for k, v in pk.items()},
+            counter.launches - before[0], counter.bf16_launches - before[1])
+
+
+def _check_train_bf16(kernel, plain, args, kw):
+    (y_k, dx_k, dp_k, dw_k, n_k, b_k) = _train_bf16_run(kernel, kernel,
+                                                        *args, kw)
+    (y_p, dx_p, dp_p, dw_p, _, _) = _train_bf16_run(plain, kernel, *args, kw)
+    assert n_k == 2 and b_k == 2       # one forward, one backward
+    assert y_k.dtype == dx_k.dtype == dp_k.dtype == torch.bfloat16
+    for name, a, b in [("y", y_k, y_p), ("x", dx_k, dx_p),
+                       ("posp", dp_k, dp_p)] + [(k, dw_k[k], dw_p[k])
+                                                for k in dw_p]:
+        assert a.dtype == b.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        _assert_bf16_train_close(name, a, b)
+
+
+def _train_mask(T, lens_t, device):
+    r = torch.arange(T, device=device)
+    rc, cc = r[:, None] // 16, r[None, :] // 16
+    return ((cc <= rc) & (cc >= rc - 4))[None] & \
+        (r[None, None, :] < lens_t[:, None, None])
+
+
+# (d_model, heads, ffn, conv kernel, T, lens): test widths and the flagship
+TRAIN_BF16_SHAPES = [(64, 4, 256, 7, 45, [45, 36, 0]),
+                     (256, 4, 2048, 15, 299,
+                      [299, 250, 180, 120, 64, 33, 17, 5])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.1)],
+                         ids=["drop0", "drop0.1"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", TRAIN_BF16_SHAPES,
+                         ids=lambda s: f"D{s[0]}T{s[4]}")
+def test_train_layer_bf16_kernel_matches_plain(cuda_device, shape, causal,
+                                               rates):
+    """fused_conformer_layer_train's bf16 mode (CUDA forward + backward,
+    masr_conformer_layer_train_*_bf16) == its bf16 twin with autograd on
+    the same card, same dropout hash: the bf16 output, dx, dposp and the
+    grads (bf16 for the product weights, f32 for the rows) of sum(y * w)
+    within _assert_bf16_train_close; one forward and one backward launch,
+    both counted as bf16."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    D, H, FF, K, T, lens = shape
+    rate, att_rate = rates
+    B = len(lens)
+    layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                  causal=causal)
+    layer.load_state_dict(seeded_state_dict(layer, seed=D + T + 3))
+    layer = layer.to(cuda_device)
+    g = torch.Generator().manual_seed(T + 9)
+    x = torch.randn(B, T, D, generator=g).to(cuda_device, torch.bfloat16)
+    w = torch.randn(B, T, D, generator=g).to(cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+    with torch.no_grad():
+        posp = torch.nn.functional.linear(
+            sinusoid_position_encoding(torch.arange(T, device=cuda_device),
+                                       D).to(torch.bfloat16),
+            layer.self_attn.linear_pos.weight.to(torch.bfloat16))
+        packed = cl.pack_layer_params(layer, torch.bfloat16)
+    _check_train_bf16(
+        clt.fused_conformer_layer_train,
+        clt.fused_conformer_layer_train_plain,
+        (x, _train_mask(T, lens_t, cuda_device), seeds, lens_t, posp, packed,
+         w),
+        dict(layer=3, n_head=H, ksize=K, causal=causal, rate=rate,
+             att_rate=att_rate))
+
+
+# (d_model, heads, ffn, conv kernel, T, lens, half): test widths and the
+# flagship Squeezeformer's at full and half rate
+SQ_TRAIN_BF16_SHAPES = [(64, 4, 256, 7, 45, [45, 36, 0], False),
+                        (256, 4, 2048, 31, 299,
+                         [299, 281, 250, 220, 180, 150, 90, 33], False),
+                        (256, 4, 2048, 31, 299,
+                         [299, 281, 250, 220, 180, 150, 90, 33], True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.1)],
+                         ids=["drop0", "drop0.1"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SQ_TRAIN_BF16_SHAPES,
+                         ids=["D64T45", "D256T299", "D256T150half"])
+def test_sq_train_layer_bf16_kernel_matches_plain(cuda_device, shape, causal,
+                                                  rates):
+    """fused_squeezeformer_layer_train's bf16 mode (the unfolded bf16 pack,
+    masr_sq_layer_train_*_bf16) == its bf16 twin with autograd on the same
+    card, at full rate and at half rate (the mask's [::2, ::2], lengths
+    halved rounding up): the output, dx, dposp and every grad (the four
+    adaptive scales' included) within _assert_bf16_train_close; one
+    forward and one backward launch, both counted as bf16."""
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    from masr_tpu_torch.ops.cuda.squeezeformer_layer import \
+        pack_sq_layer_params
+    D, H, FF, K, T, lens, half = shape
+    rate, att_rate = rates
+    B = len(lens)
+    layer = _sq_layer(D, H, FF, K, causal, "layer_norm", D + T + 4,
+                      cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    mask = _train_mask(T, lens_t, cuda_device)
+    if half:
+        mask, lens_t, T = mask[:, ::2, ::2], (lens_t + 1) // 2, (T + 1) // 2
+    g = torch.Generator().manual_seed(T + 11)
+    x = torch.randn(B, T, D, generator=g).to(cuda_device, torch.bfloat16)
+    w = torch.randn(B, T, D, generator=g).to(cuda_device)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+    with torch.no_grad():
+        posp = torch.nn.functional.linear(
+            sinusoid_position_encoding(torch.arange(T, device=cuda_device),
+                                       D).to(torch.bfloat16),
+            layer.self_attn.linear_pos.weight.to(torch.bfloat16))
+        packed = pack_sq_layer_params(layer, torch.bfloat16)
+    assert tuple(packed["ada"].shape) == (4, 2, D)
+    _check_train_bf16(
+        sqt.fused_squeezeformer_layer_train,
+        sqt.fused_squeezeformer_layer_train_plain,
+        (x, mask, seeds, lens_t, posp, packed, w),
+        dict(layer=6, n_head=H, ksize=K, causal=causal, rate=rate,
+             att_rate=att_rate))
+
+
+@pytest.mark.cuda
+def test_train_layers_bf16_dtype_refusals(cuda_device):
+    """The training kernels take f32 or bf16 operands throughout: bf16 x
+    with the f32 pack, f32 x with the bf16 pack, a bf16 LN row, f16, and
+    (row 7) the folded f32 pack under bf16 operands each raise ValueError
+    before any launch."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    from masr_tpu_torch.ops.cuda.squeezeformer_layer import \
+        pack_sq_layer_params
+    D, H, FF, K, T, B = 64, 4, 256, 7, 16, 2
+    layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                  causal=True).to(cuda_device)
+    sq = _sq_layer(D, H, FF, K, True, "layer_norm", 5, cuda_device)
+    lens = torch.tensor([T, 9], dtype=torch.int32, device=cuda_device)
+    mask = _train_mask(T, lens, cuda_device)
+    seeds = torch.zeros(B, dtype=torch.int32, device=cuda_device)
+    x = torch.randn(B, T, D, device=cuda_device)
+    posp = torch.randn(T, D, device=cuda_device)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        cases = []
+        for fn, counter, mod, pack in (
+                (clt.fused_conformer_layer_train, clt.fused_conformer_layer_train,
+                 layer, cl.pack_layer_params),
+                (sqt.fused_squeezeformer_layer_train,
+                 sqt.fused_squeezeformer_layer_train, sq,
+                 pack_sq_layer_params)):
+            p32, p16 = pack(mod), pack(mod, bf)
+            bad_row = dict(p16, lnw=p16["lnw"].to(bf))
+            cases += [(fn, counter, x.to(bf), posp.to(bf), p32),
+                      (fn, counter, x, posp, p16),
+                      (fn, counter, x.to(bf), posp.to(bf), bad_row),
+                      (fn, counter, x.half(), posp.half(), p32)]
+    for fn, counter, xx, pp, pk in cases:
+        before = counter.launches
+        with pytest.raises(ValueError):
+            fn(xx, mask, seeds, lens, pp, pk, layer=0, n_head=H, ksize=K,
+               causal=True)
+        assert counter.launches == before

@@ -18,6 +18,7 @@ import types
 
 import numpy as np
 import pytest
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = ["<blank>", "<unk>", "a", "b", "c", "<space>", "<eos>"]
 ZH = ["<blank>", "你", "好", "天", "气", "小", "明"]

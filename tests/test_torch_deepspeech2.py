@@ -43,6 +43,7 @@ from masr_tpu_torch.models.subsampling import (Conv2dSubsampling4Pure,
 from masr_tpu_torch.models.weights import (from_flax_variables,
                                            load_upstream_state_dict,
                                            to_flax_variables)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 F, H = 16, 24
 FEAT = 80

@@ -10,6 +10,7 @@ tests/test_device_beam.py, on the port. The card runs the same code
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 V = 12
 VOCAB = ["<blank>"] + [chr(ord("a") + i) for i in range(V - 1)]

@@ -37,6 +37,7 @@ from masr_tpu_torch.ops.specaug import (apply_specaug, apply_specsub,
                                         draw_specaug, draw_specsub,
                                         make_device_frontend, specaug,
                                         specsub)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _feats(B=3, T=50, F=12, seed=0):

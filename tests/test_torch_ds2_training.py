@@ -27,6 +27,7 @@ from masr_tpu_torch.models.weights import (from_flax_variables,
                                            grads_to_flax_variables,
                                            seeded_state_dict,
                                            to_flax_variables)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FEAT, VOCAB = 16, 12
 FORMS = [(False, True), (True, True), (False, False), (True, False)]
@@ -60,7 +61,7 @@ def test_loss_and_grads_match_flax(use_gru, streaming):
                              streaming=streaming, encoder_conf=enc)
     speech, lens, text, tlens = _batch(rs)
     args = [jnp.asarray(a) for a in (speech, lens, text, tlens)]
-    v = fm.init({"params": jax.random.PRNGKey(0)}, *args)
+    v = jax.jit(fm.init)({"params": jax.random.PRNGKey(0)}, *args)
     params = jax.tree.map(lambda l: np.asarray(l) + 0.05 * rs.standard_normal(
         l.shape).astype(np.float32), v["params"])
 
@@ -68,7 +69,7 @@ def test_loss_and_grads_match_flax(use_gru, streaming):
         out = fm.apply({"params": p}, *args, train=True)
         return out["loss"], out
 
-    (_, want), gp = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, want), gp = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     port = build_model("deepspeech2", FEAT, VOCAB, streaming=streaming,
                        encoder_conf=enc)
     port.load_state_dict(from_flax_variables({"params": params}))

@@ -38,6 +38,7 @@ from masr_tpu_torch.models.weights import (from_flax_variables,
                                            load_upstream_state_dict,
                                            seeded_state_dict,
                                            to_flax_variables)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 D, H, FF, FEAT = 64, 2, 96, 80
 EFF = dict(stride_layer_idx=[1], stride=[2], group_layer_idx=[0, 1],

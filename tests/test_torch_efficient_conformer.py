@@ -23,6 +23,8 @@ too. The loss and grads are in tests/test_torch_eff_training.py.
 """
 import os
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -37,6 +39,7 @@ from masr_tpu_torch.models import efficient_conformer as pe
 from masr_tpu_torch.models.attention import cache_key_mask
 from masr_tpu_torch.models.cmvn import GlobalCMVN
 from masr_tpu_torch.models.weights import from_flax_variables
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 D, H, FF = 64, 2, 96
 FEAT = 80
@@ -216,10 +219,10 @@ def _encoders(causal, seed=0, **conf):
     flax_enc = je.EfficientConformerEncoder(
         input_size=FEAT, causal=causal, use_dynamic_chunk=causal,
         cmvn=FlaxCMVN(*cmvn), **kw)
-    v = flax_enc.init({"params": jax.random.PRNGKey(seed),
-                       "chunk": jax.random.PRNGKey(seed)},
-                      jnp.zeros((1, WIN, FEAT)), jnp.asarray([WIN]),
-                      decoding_chunk_size=-1)
+    v = jax.jit(functools.partial(flax_enc.init, decoding_chunk_size=-1))(
+        {"params": jax.random.PRNGKey(seed),
+         "chunk": jax.random.PRNGKey(seed)},
+        jnp.zeros((1, WIN, FEAT)), jnp.asarray([WIN]))
     v = _perturb(v, seed)
     port = _load(pe.EfficientConformerEncoder(
         FEAT, causal=causal, use_dynamic_chunk=causal,
@@ -408,10 +411,10 @@ def test_conformer_non_causal_chunk_matches_flax():
               num_blocks=2, cnn_module_kernel=7, cnn_module_norm="layer_norm",
               use_dynamic_chunk=True, causal=False, **NO_DROP)
     flax_enc = FlaxConformer(input_size=FEAT, **kw)
-    v = _perturb(flax_enc.init({"params": jax.random.PRNGKey(7),
-                                "chunk": jax.random.PRNGKey(7)},
-                               jnp.zeros((1, WIN, FEAT)), jnp.asarray([WIN]),
-                               decoding_chunk_size=-1), 7)
+    v = _perturb(jax.jit(functools.partial(
+        flax_enc.init, decoding_chunk_size=-1))(
+        {"params": jax.random.PRNGKey(7), "chunk": jax.random.PRNGKey(7)},
+        jnp.zeros((1, WIN, FEAT)), jnp.asarray([WIN])), 7)
     port = _load(ConformerEncoder(FEAT, **kw),
                  {k: {"encoder": t} for k, t in v.items()}, "encoder.")
     assert not port.position_tables and not port.multi_chunk

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from test_torch_rescoring import DEC, FAMILIES, FEAT, VOCAB, _perturb
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 EVAL_CHARS = "你好天气真完我家业世界"
 

@@ -27,6 +27,7 @@ from masr_tpu_torch.models.registry import build_model
 from masr_tpu_torch.models.weights import (from_flax_variables,
                                            seeded_state_dict,
                                            to_flax_variables)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FEAT = 80
 VOCAB = ["<blank>", "<unk>", "你", "好", "天", "气", "<space>", "<eos>"]

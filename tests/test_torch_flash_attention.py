@@ -26,6 +26,7 @@ from masr_tpu_torch.models.attention import RelPositionMultiHeadedAttention
 from masr_tpu_torch.models import attention as attention_module
 from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
 from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mask(kind, T, lens):

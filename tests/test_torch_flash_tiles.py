@@ -24,6 +24,7 @@ import torch
 from masr_tpu.ops.pallas.attention import rel_pos_flash_attention as pallas
 from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
 from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ["full", "static16", "static16_left4", "half_rate", "random"]
 

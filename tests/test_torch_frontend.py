@@ -13,6 +13,7 @@ from masr_tpu.ops import fbank as jf
 from masr_tpu_torch.audio import AudioSegment
 from masr_tpu_torch.data.audio_featurizer import AudioFeaturizer
 from masr_tpu_torch.ops import fbank as tf
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens",
                        "fbank_goldens.npz")

@@ -1,6 +1,8 @@
 """The port's offline Conformer (masr_tpu_torch.models) against masr_tpu's
 flax model: the weight map both ways, and encoder + CTC probs at the
 flagship widths (configs/conformer.yml) with 2 blocks."""
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from masr_tpu_torch.models.cmvn import GlobalCMVN
 from masr_tpu_torch.models.registry import build_model
 from masr_tpu_torch.models.weights import (from_flax_variables,
                                            to_flax_variables)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FLAGSHIP = dict(output_size=256, attention_heads=4, linear_units=2048,
                 num_blocks=2, cnn_module_kernel=15, input_layer="conv2d",
@@ -41,8 +44,10 @@ def flagship():
     speech = (mean + rs.standard_normal((len(LENS), max(LENS), FEAT))
               * 3.0).astype(np.float32)
     lens = np.asarray(LENS, np.int32)
-    v = model.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(speech),
-                   jnp.asarray(lens), method=type(model).get_encoder_out)
+    v = jax.jit(functools.partial(model.init,
+                                  method=type(model).get_encoder_out))(
+        {"params": jax.random.PRNGKey(0)}, jnp.asarray(speech),
+        jnp.asarray(lens))
     v = jax.tree.map(lambda l: np.asarray(l) + 0.02 * rs.standard_normal(
         l.shape).astype(np.float32), jax.device_get(v))
     return model, v, mean, istd, speech, lens
@@ -78,8 +83,9 @@ def test_encoder_probs_match_flax_at_flagship_width(flagship):
     probs atol 1e-5 and log-probs atol 5e-5 (f32 on the CPU; the port's
     layers go through the plain twin of the layer kernel)."""
     model, v, mean, istd, speech, lens = flagship
-    want_p, want_l = model.apply(v, jnp.asarray(speech), jnp.asarray(lens),
-                                 method=type(model).get_encoder_out)
+    want_p, want_l = jax.jit(functools.partial(
+        model.apply, method=type(model).get_encoder_out))(
+        v, jnp.asarray(speech), jnp.asarray(lens))
     port = build_model("conformer", FEAT, VOCAB, streaming=True,
                        encoder_conf=FLAGSHIP, decoder_conf=DECODER,
                        cmvn=GlobalCMVN(mean, istd))

@@ -25,6 +25,7 @@ from masr_tpu.models.registry import build_model as build_flax_model
 from masr_tpu_torch.models.registry import build_model
 from masr_tpu_torch.models.weights import (from_flax_variables,
                                            torch_default_like_init)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 EXAMPLE = os.path.join(REPO, "examples", "tiny_zh_synth", "inference_model")

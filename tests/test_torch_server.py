@@ -20,6 +20,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 BUNDLE = os.path.join(REPO, "examples", "tiny_zh_synth", "inference_model")

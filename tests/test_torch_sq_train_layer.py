@@ -28,6 +28,7 @@ from masr_tpu_torch.models.weights import (from_flax_variables,
                                            grads_to_flax_variables)
 from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
 from masr_tpu_torch.ops.cuda.squeezeformer_layer import pack_sq_layer_params
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T, D, FF, H, K = 24, 16, 32, 2, 7
 LENS = [T, 13]

@@ -30,6 +30,7 @@ from masr_tpu_torch.models.weights import (flax_like_init,
                                            to_flax_variables)
 from test_torch_sq_training import (ENC, FEAT, MODEL_CONF, _perturb, _t,
                                     deterministic)  # noqa: F401 (fixture)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 # --------------------------------------------------------------------------- #

@@ -32,6 +32,7 @@ from masr_tpu_torch.models.registry import build_model
 from masr_tpu_torch.models.weights import (from_flax_variables,
                                            grads_to_flax_variables,
                                            to_flax_variables)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FEAT, VOCAB, D = 20, 12, 16
 ENC = dict(encoder_dim=D, output_size=D, attention_heads=2, num_blocks=3,

@@ -38,6 +38,7 @@ from masr_tpu_torch.models.squeezeformer import SqueezeformerEncoderLayer
 from masr_tpu_torch.models.weights import (from_flax_variables,
                                            to_flax_variables)
 from masr_tpu_torch.ops.cuda import squeezeformer_layer as sq
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 D, H, K, FF = 64, 2, 7, 128
 FEAT = 80

@@ -31,6 +31,7 @@ import torch
 
 from masr_tpu_torch.models import attention as attention_module
 from masr_tpu_torch.models.weights import from_flax_variables
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 D, H, K, FEAT, CHUNK = 64, 2, 7, 80, 8
 ENCODER_ATOL, PROBS_ATOL = 2e-5, 3e-5

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 EXAMPLE = os.path.join(REPO, "examples", "tiny_zh_synth", "inference_model")

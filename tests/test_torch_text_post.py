@@ -21,6 +21,7 @@ from masr_tpu_torch.infer.punctuation import (PunctuationPredictor,
                                               RulePunctuation)
 # the tiny BERT token classifier (skips when transformers does not import)
 from test_punctuation import tiny_bert_dir  # noqa: F401 (fixture)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 BUNDLE = os.path.join(REPO, "examples", "tiny_zh_synth", "inference_model")

@@ -29,6 +29,7 @@ products).
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 from masr_tpu_torch.ops.cuda.chunk_layer import split_plan
 from masr_tpu_torch.ops.cuda.conformer_layer import full_plan

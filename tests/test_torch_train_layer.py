@@ -22,6 +22,7 @@ from masr_tpu_torch.models.weights import (from_flax_variables,
 from masr_tpu_torch.ops import dropout_hash as dh
 from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
 from masr_tpu_torch.ops.cuda.conformer_layer import pack_layer_params
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 D, H, FF, K = 32, 2, 48, 7
 T = 21

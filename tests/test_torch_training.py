@@ -27,6 +27,7 @@ from masr_tpu_torch.ops import common as tc
 from masr_tpu_torch.ops import masks as tm
 from masr_tpu_torch.optimizer import schedulers as ts
 from masr_tpu_torch.training import train_state as tstate
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -443,20 +444,22 @@ def test_trainer_trains_saves_and_resumes_on_cpu(corpus, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
-    """bf16 training and tensor-parallel training raise
-    NotImplementedError naming their ROADMAP.md items; an eval decoder the
-    trainer does not know raises ValueError; device="cuda" without a card
-    raises (no silent CPU)."""
+    """bf16 training of a route not ported (here DeepSpeech2; the
+    Conformer's trains, tests/test_torch_bf16_training.py) and
+    tensor-parallel training raise NotImplementedError naming their
+    ROADMAP.md items; an eval decoder the trainer does not know raises
+    ValueError; device="cuda" without a card raises (no silent CPU)."""
     from masr_tpu_torch.training.trainer import MASRTrainer
     conf = _trainer_config(corpus, str(tmp_path), 1)
     tr = MASRTrainer(conf, device="cpu")
     with pytest.raises(ValueError, match="no_such_decoder"):
         tr._resolve_eval_decoder([], "no_such_decoder")
-    with pytest.raises(NotImplementedError, match="enable_amp.*item 6"):
-        MASRTrainer(dict(conf, train_conf=dict(conf["train_conf"],
-                                               enable_amp=True)),
+    with pytest.raises(NotImplementedError, match="enable_amp.*item 2"):
+        MASRTrainer(dict(conf, use_model="deepspeech2",
+                         train_conf=dict(conf["train_conf"],
+                                         enable_amp=True)),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor_parallel.*item 7"):
+    with pytest.raises(NotImplementedError, match="tensor_parallel.*item 6"):
         MASRTrainer(dict(conf, train_conf=dict(conf["train_conf"],
                                                tensor_parallel=2)),
                     device="cpu")

@@ -14,6 +14,7 @@ import masr_tpu.infer.vad as jvad
 import masr_tpu_torch.infer.onnx_runtime as tort
 import masr_tpu_torch.infer.vad as tvad
 from test_vad_silero import SR, speech_like
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 BUNDLE = os.path.join(REPO, "examples", "tiny_zh_synth", "inference_model")
