@@ -277,7 +277,9 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
  39. ds2_flagship   DeepSpeech2 at configs/deepspeech2.yml's widths (5 x
                     LSTM 1024, forward, fbank 80, V=4000, seeded, written by
                     the port's exporter), its bidirectional twin (streaming
-                    off) and a GRU twin: predict_batch of the 8 utterances,
+                    off) and a GRU twin (both 2 layers of 1024, to keep
+                    the script's time): predict_batch of the 8
+                    utterances,
                     probs card vs CPU (PROBS_ATOL, no argmax flip past the
                     margin), no launch of any of the eight kernels (the
                     recurrence is cuDNN's, TF32 off); the wall time
@@ -355,8 +357,9 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
  50. bf16_eff       the Efficient-Conformer flagship at bf16 the same way:
                     predict launches row 1's bf16 mode 8 times (its tail),
                     its streaming windows and engine eager (no kernel)
- 51. bf16_ds2       DeepSpeech2 at bf16: the bidirectional flagship's
-                    predict and the forward one's predict_stream and
+ 51. bf16_ds2       DeepSpeech2 at bf16: the bidirectional twin's (phase
+                    39's, 2 layers) predict and the forward one's
+                    predict_stream and
                     32-stream engine (cuDNN's bf16 recurrence, no kernel)
  52. train_kernels_bf16  rows 3 and 7 in their bf16 modes (masr_tpu's
                     enable_amp) vs their bf16 twins at the shapes of phases
@@ -377,6 +380,36 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
  54. sq_train_bf16  the same for the layer_norm Squeezeformer (phase 20's
                     config): 8 steps (4, then 4 resumed), 12 + 12 bf16 row-7
                     launches a step
+ 55. eff_train_kernels_bf16  row 3's bf16 mode at the Efficient-Conformer
+                    tail's shape (phase 34's: B=8, T'=150, K=7, the chunk
+                    mask's [::2, ::2] view, lengths halved rounding up),
+                    causal and not, dropout 0 and 0.1 / 0.1, vs its bf16
+                    twin by phase 52's rule; timed beside the f32 kernel
+ 56. sq_bn_train_bf16  phase 54 for the BatchNorm Squeezeformer
+                    (configs/squeezeformer.yml's default, phase 20's
+                    BatchNorm run): eager bf16 layers, 0 row-7 launches and
+                    1 + 1 row-4 a step; every kernel the validation passes
+                    launch is recorded (run_launches); the first step over
+                    three draws whose inputs differ by an f32 rounding, the
+                    grads' error pooled (first_step_bf16 says why)
+ 57. eff_train_bf16 the same for the Efficient-Conformer (phase 37's
+                    config): its tail 8 + 8 bf16 row-3 launches a step
+ 58. ds2_train_bf16 the same for DeepSpeech2 (phase 41's config, 5 x LSTM
+                    1024): cuDNN's bf16 LSTM under autograd, 0 row-3 and
+                    1 + 1 row-4 launches a step
+ 59. pipeline       the user's pipeline without JAX, on the card, in a
+                    subprocess that blocks jax, jaxlib, flax and masr_tpu
+                    from import: `python -m masr_tpu_torch.create_data`
+                    (and --is_merge_audio True on a copy) on annotations of
+                    18 of phase 12's utterances, `.extract_features`, the
+                    train CLI (the flagship, 2 steps at B=8 on the .feature
+                    manifests), `.export_model`, `.infer_path` short, long
+                    and real-time demo on the trained flagship (short
+                    and the demo also on the example bundle, whose text
+                    is not empty); each
+                    step's outputs checked, rows 1-4's launches per CLI,
+                    and infer_path's texts == the in-process predictor's
+                    on the card
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -483,7 +516,14 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries at_s, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - T_START)
     print(json.dumps(obj, ensure_ascii=False), flush=True)
 
 
@@ -2425,7 +2465,7 @@ def phase_sq_train(dev, corpus):
                          "stats_least_max_move": moved,
                          **step_times(bn_rows),
                          "first_step_card_vs_cpu": bn_first}})
-    return launches, rows, resumed
+    return launches, rows, resumed, bn_rows
 
 
 def phase_sq_train_times(dev, rows, trainer, smi):
@@ -3520,8 +3560,8 @@ QUANT_ATOL = 0.05        # bf16 / int8 bundle probs vs f32 (test_quant_bundle)
 QUANT_GATE = {"bf16": 5e-3, "int8": 1e-2}
 LENGTH_BUCKET = 200      # the predictor's padding of full-context frames
 SERVER_STREAMS = 4
-SERVER_LOAD = 200        # /recognition requests: each server's latency sample
-SERVER_LOAD_LONG = 10    # /recognition_long_audio requests of 20 s each
+SERVER_LOAD = 100        # /recognition requests: each server's latency sample
+SERVER_LOAD_LONG = 5     # /recognition_long_audio requests of 20 s each
 
 
 def config_file(conf, path):
@@ -4513,7 +4553,7 @@ def phase_eff_train(dev, corpus, smi):
           "first_step_ctc_loss_card_vs_cpu": first_ctc,
           "profile": profile_train_steps(trainer),
           "seconds": time.perf_counter() - t_phase})
-    return trainer, conf
+    return trainer, conf, rows
 
 
 def phase_eff_export(dev, trainer, conf, wavs):
@@ -4608,11 +4648,12 @@ def check_no_launch(what):
     check(not got, f"{what}: no kernel of the eight launched ({got})")
 
 
-def write_ds2_bundle(path, streaming=True, use_gru=False):
+def write_ds2_bundle(path, streaming=True, use_gru=False, layers=None):
     """A DS2 of configs/deepspeech2.yml's widths (5 x 1024, fbank 80,
-    V=4000), weights drawn from seed 0 (the CTC head x8, as the other
-    flagships), written by the port's exporter (infer/bundle.py), CMVN
-    from the example bundle → (vocab, parameter count)."""
+    V=4000; `layers` cuts the depth), weights drawn from seed 0 (the CTC
+    head x8, as the other flagships), written by the port's exporter
+    (infer/bundle.py), CMVN from the example bundle → (vocab, parameter
+    count)."""
     from masr_tpu_torch.infer.bundle import save_inference_bundle
     from masr_tpu_torch.models.registry import build_model
     from masr_tpu_torch.models.weights import (seeded_state_dict,
@@ -4621,6 +4662,8 @@ def write_ds2_bundle(path, streaming=True, use_gru=False):
               encoding="utf-8") as f:
         tiny = json.load(f)
     enc = dict(DS2_ENCODER, use_gru=use_gru)
+    if layers:
+        enc["num_rnn_layers"] = layers
     model = build_model("deepspeech2", 80, VOCAB, streaming=streaming,
                         encoder_conf=enc)
     state = seeded_state_dict(model, seed=0)
@@ -4632,9 +4675,15 @@ def write_ds2_bundle(path, streaming=True, use_gru=False):
     return vocab, sum(p.numel() for p in model.parameters())
 
 
+# the depth of phase 39's bidirectional and GRU twins (their widths are the
+# config's): their CPU references at 5 layers took ~20 s of the script
+DS2_TWIN_LAYERS = 2
+
+
 def phase_ds2_flagship(dev, smi):
     """DS2 at configs/deepspeech2.yml's widths (forward LSTMs), its
-    bidirectional twin (streaming off) and a GRU twin, each written by the
+    bidirectional twin (streaming off) and a GRU twin (both at
+    DS2_TWIN_LAYERS layers), each written by the
     port's exporter: predict_batch of the 8 utterances on the card with no
     kernel launch (the recurrence is cuDNN's), probs card vs CPU within
     PROBS_ATOL and no argmax flip past ARGMAX_MARGIN; the wall time. The
@@ -4663,7 +4712,8 @@ def ds2_offline_run(dev, name, streaming, gru, runs):
     forward LSTM's (card predictor, utterances, bundle)."""
     from masr_tpu_torch.infer.predictor import MASRPredictor
     path = os.path.join(WORK, f"ds2_{name}_bundle")
-    vocab, n_params = write_ds2_bundle(path, streaming, gru)
+    vocab, n_params = write_ds2_bundle(
+        path, streaming, gru, None if name == "lstm" else DS2_TWIN_LAYERS)
     wavs = synthetic_utterances(vocab)
     gpu = MASRPredictor(model_dir=path, device=dev)
     reset_all_launches()
@@ -4795,6 +4845,7 @@ def phase_ds2_train(dev, corpus, wavs, smi):
                                          "probs_err_vs_model": r["err"]},
           "eval_cli": {"batches": b, "cer": cli[0], "loss": cli[1]},
           "seconds": time.perf_counter() - t_phase})
+    return rows
 
 
 def half_corpus(corpus, root):
@@ -5982,7 +6033,10 @@ def phase_bf16_family(dev, family, path, stream_path, wavs, smi,
 # the flagship Conformer and the layer_norm Squeezeformer through
 # MASRTrainer
 # --------------------------------------------------------------------------- #
-BF16_TRAIN_STEPS = {"conformer": 16, "squeezeformer": 8}
+# steps of each enable_amp run (phase name → steps)
+BF16_TRAIN_STEPS = {"train_bf16": 16, "sq_train_bf16": 8,
+                    "sq_bn_train_bf16": 8, "eff_train_bf16": 8,
+                    "ds2_train_bf16": 8}
 
 
 def train_layer_args_bf16(layer, args):
@@ -6047,6 +6101,29 @@ def train_layer_bound_bf16(layer, args):
             **_bound_bf16(f32["gflop"] * 1e9, nbytes)}
 
 
+def bf16_train_times(layer, f32_args, args, kernel, plain):
+    """The bf16 training layer's forward and backward, kernel vs twin (CUDA
+    events, plain, kernel, kernel, plain; dropout 0.1), beside the f32
+    kernel at the same shape, and the bf16 bound → times dict."""
+    fwd, bwd = time_train_layer({"plain": plain, "kernel": kernel},
+                                layer, args, (0.1, 0.1))
+    f_fwd, f_bwd = [], []        # the f32 kernel, same shape
+    for _ in range(2):
+        y = run_train_layer(kernel, layer, f32_args, (0.1, 0.1))[0]
+        f_fwd.append(cuda_ms(lambda: run_train_layer(
+            kernel, layer, f32_args, (0.1, 0.1))))
+        f_bwd.append(cuda_ms(
+            lambda: y.backward(f32_args[1], retain_graph=True)))
+        del y
+    return {"fwd_kernel_ms": fwd["kernel"], "bwd_kernel_ms": bwd["kernel"],
+            "fwd_plain_ms": fwd["plain"], "bwd_plain_ms": bwd["plain"],
+            "f32_fwd_kernel_ms": f_fwd, "f32_bwd_kernel_ms": f_bwd,
+            "ms": float(np.mean(fwd["kernel"]) + np.mean(bwd["kernel"])),
+            "plain_ms": float(np.mean(fwd["plain"]) + np.mean(bwd["plain"])),
+            "f32_ms": float(np.mean(f_fwd) + np.mean(f_bwd)),
+            **train_layer_bound_bf16(layer, args)}
+
+
 def phase_train_kernels_bf16(dev, smi):
     """Rows 3 and 7 in their bf16 modes vs their bf16 twins at phases 11
     and 19's shapes (B=8, T'=299; the Squeezeformer also at half rate,
@@ -6072,25 +6149,8 @@ def phase_train_kernels_bf16(dev, smi):
             cases[row] += [check_train_layer_bf16((kernel, plain), layer,
                                                   args, rates)
                            for rates in ((0.0, 0.0), (0.1, 0.1))]
-            fwd, bwd = time_train_layer({"plain": plain, "kernel": kernel},
-                                        layer, args, (0.1, 0.1))
-            f_fwd, f_bwd = [], []        # the f32 kernel, same shape
-            for _ in range(2):
-                y = run_train_layer(kernel, layer, f32_args, (0.1, 0.1))[0]
-                f_fwd.append(cuda_ms(lambda: run_train_layer(
-                    kernel, layer, f32_args, (0.1, 0.1))))
-                f_bwd.append(cuda_ms(
-                    lambda: y.backward(f32_args[1], retain_graph=True)))
-                del y
-            times["T150" if half else "T299"] = {
-                "fwd_kernel_ms": fwd["kernel"], "bwd_kernel_ms": bwd["kernel"],
-                "fwd_plain_ms": fwd["plain"], "bwd_plain_ms": bwd["plain"],
-                "f32_fwd_kernel_ms": f_fwd, "f32_bwd_kernel_ms": f_bwd,
-                "ms": float(np.mean(fwd["kernel"]) + np.mean(bwd["kernel"])),
-                "plain_ms": float(np.mean(fwd["plain"])
-                                  + np.mean(bwd["plain"])),
-                "f32_ms": float(np.mean(f_fwd) + np.mean(f_bwd)),
-                **train_layer_bound_bf16(layer, args)}
+            times["T150" if half else "T299"] = bf16_train_times(
+                layer, f32_args, args, kernel, plain)
         main = times["T299"]
         out[row] = {"max_abs_err": max(c["max_abs_err"] for c in cases[row]),
                     "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -6118,21 +6178,21 @@ def corpus_every(corpus, root, step):
     return out
 
 
-def amp_config(config, family):
+def amp_config(config, steps):
     """config(corpus, save_dir, max_epoch, dropout) with enable_amp, one
-    optimizer update a step and a short warmup, so the loss falls within
-    the bf16 run's few steps."""
+    optimizer update a step and a short schedule (WarmupLR: 4 warmup
+    steps; NoamHoldAnnealing: max_steps cut to the run's `steps`), so the
+    loss falls within the bf16 run's few steps."""
     def conf(corpus, save_dir, max_epoch, dropout=True):
         c = config(corpus, save_dir, max_epoch, dropout)
         c["train_conf"] = dict(c["train_conf"], enable_amp=True,
                                accum_grad=1)
-        if family == "conformer":
-            c["optimizer_conf"] = dict(c["optimizer_conf"], scheduler_conf=dict(
-                warmup_steps=4, min_lr=1e-5))
+        o = c["optimizer_conf"]
+        if o["scheduler"] == "WarmupLR":
+            sched = dict(warmup_steps=4, min_lr=1e-5)
         else:
-            c["optimizer_conf"] = dict(c["optimizer_conf"], scheduler_conf=dict(
-                c["optimizer_conf"]["scheduler_conf"],
-                max_steps=BF16_TRAIN_STEPS[family]))
+            sched = dict(o["scheduler_conf"], max_steps=steps)
+        c["optimizer_conf"] = dict(o, scheduler_conf=sched)
         return c
     return conf
 
@@ -6143,16 +6203,26 @@ def mean_rel(a, b):
     return ((a - b).abs().mean() / b.abs().mean().clamp(min=1e-30)).item()
 
 
-def first_step_bf16(conf, sample, prepare=None):
+def first_step_bf16(conf, sample, prepare=None, draws=1):
     """The first train step at dropout 0 from one init and batch, the CTC
     loss alone backward (the attention loss's encoder grads pass the
     decoder FFN's ReLU derivative, which flips on the card): the card's
     bf16 step against the CPU's f32 one may stray no further than twice as
     far as the CPU's bf16 route does (loss; mean error of each sampled
-    grad), with a floor of one bf16 rounding of the loss. → summary."""
+    grad), with a floor of one bf16 rounding of the loss. With draws = 3
+    each bf16 route takes three first steps, on the batch's features scaled
+    by 1, 1 + 2^-23 and 1 - 2^-23 (at most one f32 rounding apart): the
+    loss by each side's median over them, the grads by each side's mean
+    error pooled over every sampled grad and every draw (each grad's
+    median reported). On the eager BatchNorm route one such rounding moved
+    either side's grad error by up to 2.6x, every sampled grad together
+    (chip probes on an H100: the error is no few outliers, the median
+    element moves with the mean), and the card's ratio to the CPU's, one
+    grad of one draw, ran 0.6-3.7 over the probes, so one grad of one step
+    is one draw of a statistic that swings. → summary."""
     from masr_tpu_torch.training.train_state import batch_to, step_generators
     from masr_tpu_torch.training.trainer import MASRTrainer
-    got, batch = {}, None
+    models, batch = {}, None
     for name, device, amp in (("card_bf16", "cuda", True),
                               ("cpu_bf16", "cpu", True),
                               ("cpu_f32", "cpu", False)):
@@ -6164,66 +6234,439 @@ def first_step_bf16(conf, sample, prepare=None):
             prepare(t.model)
         if batch is None:
             batch = next(iter(loader))
+        models[name] = t
+
+    def step(name, scale):
+        t = models[name]
+        t.model.zero_grad(set_to_none=True)
         b = batch_to(batch, t.device)
         gen, chunk = step_generators(0, 0, t.device)
-        out = t.model.train()(b["inputs"], b["input_lens"], b["labels"],
-                              b["label_lens"], generator=gen,
+        out = t.model.train()(b["inputs"] * scale, b["input_lens"],
+                              b["labels"], b["label_lens"], generator=gen,
                               chunk_generator=chunk)
         out["loss_ctc"].backward()
         params = dict(t.model.named_parameters())
-        got[name] = (float(out["loss_ctc"].detach()),
-                     {n: params[n].grad.detach().float().cpu()
-                      for n in sample})
-    (l_card, g_card), (l_cpu, g_cpu), (l_32, g_32) = (
-        got["card_bf16"], got["cpu_bf16"], got["cpu_f32"])
-    loss_card, loss_cpu = abs(l_card - l_32), abs(l_cpu - l_32)
+        return (float(out["loss_ctc"].detach()),
+                {n: params[n].grad.detach().float().cpu() for n in sample})
+
+    scales = [1.0, 1.0 + 2.0 ** -23, 1.0 - 2.0 ** -23][:draws]
+    l_32, g_32 = step("cpu_f32", 1.0)
+    got = {name: [step(name, sc) for sc in scales]
+           for name in ("card_bf16", "cpu_bf16")}
+
+    def median(name, fn):
+        return float(np.median([fn(*r) for r in got[name]]))
+
+    loss_card = median("card_bf16", lambda l, g: abs(l - l_32))
+    loss_cpu = median("cpu_bf16", lambda l, g: abs(l - l_32))
+    l_card, l_cpu = got["card_bf16"][0][0], got["cpu_bf16"][0][0]
     check(loss_card <= max(2 * loss_cpu, BF16_ROUNDING * abs(l_32)),
           f"bf16 first-step CTC loss: card {l_card} vs f32 {l_32} "
           f"({loss_card}) within twice the CPU bf16's ({l_cpu}, "
-          f"{loss_cpu})")
-    grads = {}
-    for n in sample:
-        d_card, d_cpu = mean_rel(g_card[n], g_32[n]), mean_rel(g_cpu[n],
-                                                               g_32[n])
-        grads[n] = {"card_vs_f32": d_card, "cpu_bf16_vs_f32": d_cpu}
-        check(d_card <= 2 * d_cpu, f"bf16 first step {n}: card {d_card} "
-              f"<= 2 x CPU bf16 {d_cpu} (mean error vs the CPU's f32)")
+          f"{loss_cpu}; medians over {draws} draws)")
+    grads = {n: {"card_vs_f32": median(
+        "card_bf16", lambda l, g, n=n: mean_rel(g[n], g_32[n])),
+        "cpu_bf16_vs_f32": median(
+            "cpu_bf16", lambda l, g, n=n: mean_rel(g[n], g_32[n]))}
+        for n in sample}
+    pooled = None
+    if draws == 1:
+        for n, d in grads.items():
+            check(d["card_vs_f32"] <= 2 * d["cpu_bf16_vs_f32"], f"bf16 "
+                  f"first step {n}: card {d['card_vs_f32']} <= 2 x CPU "
+                  f"bf16 {d['cpu_bf16_vs_f32']} (mean error vs the CPU's "
+                  f"f32); every sampled grad: {grads}")
+    else:
+        pooled = {name: float(np.mean([mean_rel(g[n], g_32[n])
+                                       for _, g in got[name]
+                                       for n in sample]))
+                  for name in ("card_bf16", "cpu_bf16")}
+        check(pooled["card_bf16"] <= 2 * pooled["cpu_bf16"], f"bf16 first "
+              f"step: card {pooled['card_bf16']} <= 2 x CPU bf16 "
+              f"{pooled['cpu_bf16']} (mean error vs the CPU's f32 over "
+              f"{len(sample)} sampled grads and {draws} draws); each grad's "
+              f"medians: {grads}")
     return {"ctc_loss": {"card_bf16": l_card, "cpu_bf16": l_cpu,
-                         "cpu_f32": l_32}, "grads_mean_rel": grads}
+                         "cpu_f32": l_32}, "draws": draws,
+            "grads_mean_rel_pooled": pooled, "grads_mean_rel": grads}
 
 
-def phase_train_bf16(dev, family, corpus, f32_rows, smi, config, sample,
-                     prepare=None):
+def phase_eff_train_kernels_bf16(dev, smi):
+    """Row 3's bf16 mode at the Efficient-Conformer tail's shape (B=8,
+    T'=150 of 299, K=7, the chunk mask's [::2, ::2] view, the lengths
+    halved rounding up), causal and not, dropout 0 and 0.1 / 0.1, against
+    its bf16 twin: the output and every grad within 8 roundings (max) and
+    one (mean) of its own magnitude; forward + backward timed beside the f32
+    kernel at the same shape. → summary dict."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    t0 = time.perf_counter()
+    kernel, plain = (clt.fused_conformer_layer_train,
+                     clt.fused_conformer_layer_train_plain)
+    cases, times = [], {}
+    for causal in (True, False):
+        layer = seeded_eff_layer(41 + causal, causal, dev)
+        f32_args = train_layer_inputs(layer, 44 + causal, dev, half=True)
+        args = train_layer_args_bf16(layer, f32_args)
+        check(tuple(args[2].shape) == (8, EFF_T, EFF_T)
+              and not args[2].is_contiguous()
+              and args[4].tolist() == EFF_LENS,
+              "row 3 bf16 takes the strided mask view and the halved lengths")
+        cases += [dict(check_train_layer_bf16((kernel, plain), layer, args,
+                                              rates), causal=causal)
+                  for rates in ((0.0, 0.0), (0.1, 0.1))]
+        times["causal" if causal else "non_causal"] = bf16_train_times(
+            layer, f32_args, args, kernel, plain)
+    main = times["causal"]
+    out = {"max_abs_err": max(c["max_abs_err"] for c in cases),
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "f32_ms": main["f32_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"]}
+    emit({"phase": "eff_train_kernels_bf16", "card": smi,
+          "B": len(EFF_LENS), "T": EFF_T, "lens": EFF_LENS,
+          "conv_kernel": EFF_TAIL_KERNEL, "rule": "8 roundings max, 1 mean, "
+          "of each output's and grad's own magnitude", "cases": cases,
+          "times": times, **out, "seconds": time.perf_counter() - t0})
+    return out
+
+
+def sq_bn_train_config(corpus, save_dir, max_epoch, dropout=True):
+    """configs/squeezeformer.yml's default: the BatchNorm conv module."""
+    return sq_train_config(corpus, save_dir, max_epoch, dropout,
+                           conv_norm="batch_norm")
+
+
+def ds2_amp_config(corpus, save_dir, max_epoch, dropout=True):
+    """ds2_train_config (DS2 has no dropout to turn off)."""
+    return ds2_train_config(corpus, save_dir, max_epoch)
+
+
+EFF_BF16_SAMPLE = ["encoder.embed.out.0.weight",
+                   "encoder.encoders.0.self_attn.pos_bias_u",
+                   "encoder.encoders.3.conv_module.depthwise_conv.weight",
+                   "encoder.encoders.3.conv_module.norm.weight",
+                   "encoder.encoders.7.self_attn.linear_q.weight",
+                   "encoder.encoders.11.norm_final.weight",
+                   "ctc.ctc_lo.weight"]
+DS2_BF16_SAMPLE = ["encoder.rnns.0.rnn.weight_ih_l0",
+                   "encoder.rnns.0.rnn.weight_hh_l0",
+                   "encoder.rnns.2.rnn.bias_hh_l0",
+                   "encoder.rnns.4.rnn.weight_hh_l0",
+                   "encoder.rnns.4.layer_norm.weight",
+                   "ctc.ctc_lo.weight"]
+PIPELINE_TRAIN, PIPELINE_TEST = 16, 2
+
+# run in a subprocess in which jax, jaxlib, flax and masr_tpu cannot be
+# imported: the port's CLIs through runpy, as `python -m` runs them
+PIPELINE_CODE = """
+import json, runpy, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "masr_tpu"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, REPO)
+import torch
+from masr_tpu_torch.ops.cuda import chunk_layer, conformer_layer
+from masr_tpu_torch.ops.cuda import conformer_layer_train, ctc_loss
+COUNTERS = {"conformer_layer": conformer_layer.fused_conformer_layer,
+            "chunk_layer": chunk_layer.fused_chunk_layer,
+            "conformer_layer_train":
+                conformer_layer_train.fused_conformer_layer_train,
+            "ctc_loss": ctc_loss.ctc_loss}
+P = PIPE
+GPU = ("--use_gpu", str(P["use_gpu"]))
+def sync():
+    if P["use_gpu"]:
+        torch.cuda.synchronize()
+def cli(module, *args):
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    sys.argv = [module] + list(args) + list(GPU)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    sync()
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+out = {"launches": {}}
+out["launches"]["create_data_merge"] = cli(
+    "masr_tpu_torch.create_data", "--configs", P["merge_conf"],
+    "--annotation_path", P["merge_annotation"], "--noise_dir", "",
+    "--count_threshold", "1", "--is_merge_audio", "True",
+    "--max_duration", "20", "--save_audio_path", P["merge_audio"])
+out["launches"]["create_data"] = cli(
+    "masr_tpu_torch.create_data", "--configs", P["conf"],
+    "--annotation_path", P["annotation"], "--noise_dir", "",
+    "--count_threshold", "1")
+out["launches"]["extract_features"] = cli(
+    "masr_tpu_torch.extract_features", "--configs", P["conf"],
+    "--save_dir", P["features"])
+out["launches"]["train"] = cli(
+    "masr_tpu_torch.train", "--configs", P["feat_conf"],
+    "--save_model_path", P["models"], "--augment_conf_path", "none")
+out["launches"]["export_model"] = cli(
+    "masr_tpu_torch.export_model", "--configs", P["feat_conf"],
+    "--save_model_path", P["models"], "--resume_model", P["last_model"])
+from masr_tpu_torch import infer_path
+for tag, bundle, wav, long_wav in (
+        ("", P["bundle"], P["wav"], P["long_wav"]),
+        ("example_", P["example"], P["example_wav"], None)):
+    for mode, path, extra in (
+            ("short", wav, []),
+            ("long", long_wav, ["--is_long_audio", "True"]),
+            ("demo", wav, ["--real_time_demo", "True"])):
+        if path is None:
+            continue
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        out[tag + mode] = infer_path.main(["--wav_path", path, "--model_dir",
+                                           bundle] + extra + list(GPU))
+        sync()
+        out["launches"]["infer_path_" + tag + mode] = {
+            k: fn.launches for k, fn in COUNTERS.items()}
+out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in
+                           ("jax", "jaxlib", "flax", "masr_tpu"))
+print(json.dumps(out, ensure_ascii=False))
+"""
+
+
+def pipeline_annotations(corpus, root):
+    """Annotation files (`<wav>\\t<text>`) of phase 12's first
+    PIPELINE_TRAIN training utterances and PIPELINE_TEST test ones, their
+    wavs copied under root/audio → the annotation directory."""
+    ann, audio = os.path.join(root, "annotation"), os.path.join(root, "audio")
+    os.makedirs(ann, exist_ok=True)
+    os.makedirs(audio, exist_ok=True)
+    for split, n in (("train", PIPELINE_TRAIN), ("test", PIPELINE_TEST)):
+        lines = []
+        with open(corpus[split], encoding="utf-8") as f:
+            entries = [json.loads(l) for l in f if l.strip()][:n]
+        for i, e in enumerate(entries):
+            path = os.path.join(audio, f"{split}_{i}.wav")
+            shutil.copyfile(e["audio_filepath"], path)
+            lines.append(f"{path}\t{e['text']}")
+        with open(os.path.join(ann, f"{split}.txt"), "w",
+                  encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return ann
+
+
+def phase_pipeline(dev, corpus, smi):
+    """The user's pipeline without JAX on the card: in a subprocess whose
+    meta-path blocks jax, jaxlib, flax and masr_tpu, `python -m
+    masr_tpu_torch.create_data` (also with --is_merge_audio True on a copy),
+    `.extract_features`, the train CLI (the flagship of configs/conformer.yml
+    at full width, one epoch of 2 steps at B=8 on the .feature manifests),
+    `.export_model`, then `.infer_path` short, long (--is_long_audio) and
+    the real-time demo (--real_time_demo), all on the card. Checks: each
+    step's outputs exist and are well formed; the launches of rows 1-4 in
+    each (set to 0 before each CLI, read after it: the train steps 12 + 12
+    row-3 and 1 + 1 row-4 launches each, the encodes 12 row-1 launches, the
+    demo's windows 12 row-2 launches each); infer_path's texts equal the
+    in-process predictor's on the card; nothing of JAX was imported."""
+    from masr_tpu_torch.audio import AudioSegment
+    from masr_tpu_torch.audio.io import write_wave
+    from masr_tpu_torch.audio.synth_tts import SyntheticTTS
+    from masr_tpu_torch.data.manifest import read_manifest
+    from masr_tpu_torch.infer.predictor import MASRPredictor
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, "pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    ann = pipeline_annotations(corpus, root)
+    merge_root = os.path.join(root, "merge_copy")
+    shutil.copytree(root, merge_root)
+    merge_ann = os.path.join(merge_root, "annotation")
+    for name in os.listdir(merge_ann):     # the copy names its own wavs
+        path = os.path.join(merge_ann, name)
+        with open(path, encoding="utf-8") as f:
+            text = f.read().replace(os.path.join(root, "audio"),
+                                    os.path.join(merge_root, "audio"))
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+
+    def data_corpus(base, suffix=""):
+        d = os.path.join(base, "dataset")
+        return {"train": os.path.join(d, "manifest.train" + suffix),
+                "test": os.path.join(d, "manifest.test" + suffix),
+                "vocab": os.path.join(d, "vocabulary.txt"),
+                "cmvn": os.path.join(d, "mean_istd.json")}
+
+    def conf_of(c, save_dir):
+        conf = train_config(c, save_dir, 1)
+        conf["train_conf"] = dict(conf["train_conf"], accum_grad=1,
+                                  log_interval=1)
+        conf["dataset_conf"] = dict(conf["dataset_conf"], min_duration=0)
+        return conf
+
+    models = os.path.join(root, "models")
+    run_dir = os.path.join(models, "conformer_streaming_fbank")
+    wav = os.path.join(root, "audio", "test_0.wav")
+    long_wav = os.path.join(root, "long.wav")
+    rec = long_recording(n_items=6, seed=9)
+    write_wave(long_wav, rec + 1e-3 * np.random.RandomState(9)
+               .standard_normal(len(rec)).astype(np.float32), 16000)
+    # the example bundle recognises its corpus's voice: a held-out
+    # sentence between two silences, so that its texts are not empty
+    example_wav = os.path.join(root, "example.wav")
+    voice = SyntheticTTS(sample_rate=16000).render(*HELD_OUT[0])
+    pad = np.zeros(8000, np.float32)
+    speech = np.concatenate([pad, voice, pad])
+    write_wave(example_wav, speech + 1e-3 * np.random.RandomState(10)
+               .standard_normal(len(speech)).astype(np.float32), 16000)
+    pipe = {"conf": config_file(conf_of(data_corpus(root), root),
+                                os.path.join(root, "conf.yml")),
+            "merge_conf": config_file(conf_of(data_corpus(merge_root),
+                                              merge_root),
+                                      os.path.join(root, "merge.yml")),
+            "feat_conf": config_file(conf_of(data_corpus(root, ".feature"),
+                                             root),
+                                     os.path.join(root, "feat.yml")),
+            "annotation": ann, "merge_annotation": merge_ann,
+            "merge_audio": os.path.join(merge_root, "merged"),
+            "features": os.path.join(root, "features"), "models": models,
+            "last_model": os.path.join(run_dir, "last_model"),
+            "bundle": os.path.join(run_dir, "inference_model"),
+            "wav": wav, "long_wav": long_wav,
+            "example": TINY_BUNDLE, "example_wav": example_wav,
+            "use_gpu": dev.type == "cuda"}
+    code = f"REPO = {REPO!r}\nPIPE = {pipe!r}\n" + PIPELINE_CODE
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    check(run.returncode == 0, f"pipeline subprocess exit "
+          f"{run.returncode}: {run.stderr[-3000:]}")
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    check(out["jax_loaded"] == [],
+          f"the pipeline imported {out['jax_loaded']}")
+    d = data_corpus(root)
+    train, test = read_manifest(d["train"]), read_manifest(d["test"])
+    check(len(train) == PIPELINE_TRAIN and len(test) == PIPELINE_TEST and
+          [e["duration"] for e in train] == sorted(e["duration"]
+                                                   for e in train),
+          f"create_data: {len(train)} / {len(test)} utterances, sorted")
+    with open(d["vocab"], encoding="utf-8") as f:
+        vocab = [l.split("\t")[0] for l in f.read().splitlines()]
+    check(vocab[:2] == ["<blank>", "<unk>"] and vocab[-1] == "<eos>" and
+          set("".join(e["text"] for e in train + test)) <= set(vocab),
+          f"create_data vocabulary of {len(vocab)} tokens")
+    with open(d["cmvn"], encoding="utf-8") as f:
+        stats = json.load(f)
+    check(len(stats["mean"]) == len(stats["istd"]) == PREPROCESS["n_mels"]
+          and stats["frame_num"] > 0 and np.isfinite(stats["istd"]).all(),
+          "create_data mean_istd.json")
+    merged = read_manifest(os.path.join(merge_ann, "train.merge.json"))
+    check(len(merged) == PIPELINE_TRAIN and not os.path.exists(
+        os.path.join(merge_ann, "train.txt")) and len(read_manifest(
+            data_corpus(merge_root)["train"])) + len(read_manifest(
+                data_corpus(merge_root)["test"])) == PIPELINE_TRAIN
+        + PIPELINE_TEST, f"create_data --is_merge_audio: {len(merged)} "
+        f"merged entries")
+    fd = data_corpus(root, ".feature")
+    slabs = sorted(n for n in os.listdir(pipe["features"])
+                   if n.endswith(".npy"))
+    feats = read_manifest(fd["train"]) + read_manifest(fd["test"])
+    check(len(feats) == PIPELINE_TRAIN + PIPELINE_TEST and slabs and all(
+        e["end_frame"] > e["start_frame"] for e in feats),
+        f"extract_features: {len(feats)} entries in {len(slabs)} slabs")
+    L = out["launches"]
+    steps = PIPELINE_TRAIN // len(TRAIN_LENS)
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    check(L["train"]["conformer_layer_train"] >= 2 * n * steps and
+          L["train"]["ctc_loss"] >= 2 * steps, f"train CLI launches "
+          f"{L['train']}: at least {steps} steps of 24 row-3 and 2 row-4")
+    check(os.path.exists(os.path.join(pipe["bundle"], "model.msgpack")),
+          "export_model wrote the bundle")
+    # MASRPredictor's warmup runs one encode (n row-1 launches) and one
+    # streaming window (n row-2 launches) before each mode's own work
+    short, long_, demo = (L["infer_path_" + m] for m in ("short", "long",
+                                                         "demo"))
+    check(short["conformer_layer"] == 2 * n and short["chunk_layer"] == n
+          and long_["conformer_layer"] >= 2 * n and
+          long_["conformer_layer"] % n == 0 and long_["chunk_layer"] == n
+          and demo["conformer_layer"] == n and demo["chunk_layer"] > n and
+          demo["chunk_layer"] % n == 0, f"infer_path launches: short "
+          f"{short}, long {long_}, demo {demo} (warmup: {n} + {n})")
+    got, want = {}, {}
+    for tag, bundle, path, long_path in (
+            ("", pipe["bundle"], wav, long_wav),
+            ("example_", TINY_BUNDLE, example_wav, None)):
+        pred = MASRPredictor(model_dir=bundle, device=dev)
+        want[tag + "short"] = pred.predict(path)["text"]
+        if long_path is not None:
+            want[tag + "long"] = pred.predict_long(long_path)["text"]
+            got[tag + "long"] = out[tag + "long"]["text"]
+        seg = AudioSegment.from_file(path)
+        step = int(0.5 * seg.sample_rate)
+        last = None
+        for i in range(0, len(seg.samples), step):
+            r = pred.predict_stream(seg.samples[i:i + step],
+                                    is_end=i + step >= len(seg.samples),
+                                    sample_rate=seg.sample_rate)
+            last = r or last
+        want[tag + "demo"] = last["text"]
+        got[tag + "short"] = out[tag + "short"]["text"]
+        got[tag + "demo"] = out[tag + "demo"][-1]["text"]
+    check(got == want, f"infer_path texts {got} == the predictor's {want}")
+    check(bool(got["example_short"]), f"the example bundle's infer_path "
+          f"text is not empty (said {HELD_OUT[0][0]!r})")
+    emit({"phase": "pipeline", "card": smi, "train_utterances": len(train),
+          "test_utterances": len(test), "vocab": len(vocab),
+          "slabs": len(slabs), "train_steps": steps, "launches": L,
+          "texts": got, "seconds": time.perf_counter() - t0})
+    return L
+
+
+def bf16_run_launches():
+    """Every row's launches and bf16 launches, and serving_product's."""
+    from masr_tpu_torch.ops.cuda.chunk_layer import serving_product
+    out = {}
+    for name, fn in all_kernels().items():
+        out[name] = fn.launches
+        if hasattr(fn, "bf16_launches"):
+            out[name + "_bf16"] = fn.bf16_launches
+    out["serving_product"] = serving_product.launches
+    return out
+
+
+def reset_bf16_run_launches():
+    from masr_tpu_torch.ops.cuda.chunk_layer import serving_product
+    reset_all_launches()
+    for fn in all_kernels().values():
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
+    serving_product.launches = 0
+
+
+def phase_train_bf16(dev, name, family, corpus, f32_rows, smi, config,
+                     sample, prepare=None, n=12, draws=1):
     """MASRTrainer with train_conf.enable_amp at the family's flagship
-    widths: BF16_TRAIN_STEPS steps at B=8, half of them in a first trainer
-    and half in a second that resumes from last_model; every step 12 + 12
-    bf16 launches of the family's training-layer kernel (no f32 launch)
-    and 1 + 1 of the CTC kernel (f32, as masr_tpu's); the loss per label
-    token falls; the first step against the CPU (first_step_bf16); the
-    f32 export loaded by InferencePredictor(dtype=bf16) gives the trained
-    bf16 model's probs exactly; step walls beside the f32 run's. → bf16
-    launches of the run."""
+    widths: BF16_TRAIN_STEPS[name] steps at B=8, half of them in a first
+    trainer and half in a second that resumes from last_model; every step
+    n + n bf16 launches of the family's training-layer kernel (n = 0 where
+    the layers train eagerly: the BatchNorm conv module, DeepSpeech2) and
+    no f32 one, and 1 + 1 of the CTC kernel (f32, as masr_tpu's); the loss
+    per label token falls; the first step against the CPU
+    (first_step_bf16, over `draws` first steps); the f32 export loaded by
+    InferencePredictor(dtype=bf16) gives the trained bf16 model's probs
+    exactly; step walls beside the family's f32 run's. Every count is set
+    to 0 before the two train() calls and read after them (the launches of
+    the validation passes included: `run_launches`). → bf16 launches of
+    the training-layer kernel in the run."""
     from masr_tpu_torch.infer.inference_model import InferencePredictor
     from masr_tpu_torch.training.trainer import MASRTrainer
     t_phase = time.perf_counter()
-    name = "train_bf16" if family == "conformer" else "sq_train_bf16"
     root = os.path.join(WORK, name)
     shutil.rmtree(root, ignore_errors=True)
-    steps = BF16_TRAIN_STEPS[family]
+    steps = BF16_TRAIN_STEPS[name]
     part = corpus_every(corpus, os.path.join(root, "corpus"),
                         2 * TRAIN_STEPS_PER_EPOCH // steps)
-    conf = amp_config(config, family)
+    conf = amp_config(config, steps)
     save = os.path.join(root, "models")
-    kernel, n = train_layer_kernel(family), 12
+    kernel = train_layer_kernel(family)
     rows = []
-    reset_train_launches()
-    kernel.bf16_launches = 0
+    reset_bf16_run_launches()
     with clocked_train_steps(rows, family):
         MASRTrainer(conf(part, root, 1), device="cuda").train(
             save_model_path=save, augment_conf_path=None)
         resumed = MASRTrainer(conf(part, root, 2), device="cuda")
         resumed.train(save_model_path=save, augment_conf_path=None)
-    bf16_launched = kernel.bf16_launches
+    bf16_launched, run = kernel.bf16_launches, bf16_run_launches()
     check(len(rows) == steps and resumed.state.step == steps,
           f"{name}: {len(rows)} steps, resumed at {resumed.state.step}")
     check(resumed.model.encoder.compute_dtype == BF16 and all(
@@ -6244,11 +6687,11 @@ def phase_train_bf16(dev, family, corpus, f32_rows, smi, config, sample,
     check(tail < head, f"{name}: loss per label token falls, first {k} "
           f"steps {head}, last {k} {tail}")
     first = first_step_bf16(conf(part, root, 1, dropout=False), sample,
-                            prepare)
+                            prepare, draws)
     # export: f32 parameters; the bundle at bf16 gives the model's probs
-    run = os.path.join(save, f"{family}_streaming_fbank")
+    run_dir = os.path.join(save, f"{family}_streaming_fbank")
     bundle = resumed.export(save_model_path=save,
-                            resume_model=os.path.join(run, "last_model"))
+                            resume_model=os.path.join(run_dir, "last_model"))
     pred = InferencePredictor(bundle, dtype=BF16, device=dev)
     feats = torch.randn(2, 1200, PREPROCESS["n_mels"],
                         generator=torch.Generator().manual_seed(5)).to(dev)
@@ -6260,14 +6703,15 @@ def phase_train_bf16(dev, family, corpus, f32_rows, smi, config, sample,
           f"{name}: the exported bundle at bf16 gives the trained model's "
           f"probs (max diff {(got - want).abs().max().item()})")
     bf16_t, f32_t = step_times(rows), step_times(f32_rows)
-    emit({"phase": name, "card": smi, "steps": len(rows),
+    emit({"phase": name, "card": smi, "family": family, "steps": len(rows),
           "batch": len(TRAIN_LENS), "resumed_at_step": steps // 2,
           "launches": {"train_layer_bf16": bf16_launched,
                        "per_step": rows[0]["launches"]},
-          "losses": [r["loss"] for r in rows],
+          "run_launches": run, "losses": [r["loss"] for r in rows],
           "loss_per_token_head": head, "loss_per_token_tail": tail,
           "first_step_card_vs_cpu": first, "export": bundle,
-          **bf16_t, "f32_step_s_median_loader_reading":
+          **bf16_t, "f32_step_s_median": f32_t["step_s_median"],
+          "f32_step_s_median_loader_reading":
               f32_t["step_s_median_loader_reading"],
           "f32_step_s_median_loader_done": f32_t["step_s_median_loader_done"],
           "seconds": time.perf_counter() - t_phase})
@@ -6329,7 +6773,8 @@ def main():
     sq_t, sq_c = phase_sq_times(dev, sq_gpu, wavs, sq_path, smi)
 
     sq_train_err = phase_sq_train_kernels(dev)
-    sq_launches_t, sq_rows, sq_trainer = phase_sq_train(dev, corpus)
+    sq_launches_t, sq_rows, sq_trainer, sq_bn_rows = phase_sq_train(
+        dev, corpus)
     sq_train_t = phase_sq_train_times(dev, sq_rows, sq_trainer, smi)
 
     flash_worst = phase_flash_kernels(dev)
@@ -6354,12 +6799,12 @@ def main():
     phase_eff_kernels(dev, smi)
     eff_gpu, _, _ = phase_eff_flagship(dev)
     phase_eff_stream(dev, eff_gpu, wavs, smi)
-    eff_trainer, eff_conf = phase_eff_train(dev, corpus, smi)
+    eff_trainer, eff_conf, eff_rows = phase_eff_train(dev, corpus, smi)
     phase_eff_export(dev, eff_trainer, eff_conf, wavs)
 
     ds2_gpu, ds2_wavs, _ = phase_ds2_flagship(dev, smi)
     phase_ds2_stream(dev, ds2_gpu, ds2_wavs, smi)
-    phase_ds2_train(dev, corpus, ds2_wavs, smi)
+    ds2_rows = phase_ds2_train(dev, corpus, ds2_wavs, smi)
     half = phase_train_aug(dev, corpus, rows, trainer, smi)
     phase_train_device_frontend(dev, half, smi)
 
@@ -6392,8 +6837,8 @@ def main():
                    "encoder.encoders.11.conv_module.depthwise_conv.weight",
                    "encoder.encoders.11.norm_final.weight",
                    "ctc.ctc_lo.weight"]
-    row3_bf16 = phase_train_bf16(dev, "conformer", corpus, rows, smi,
-                                 train_config, conf_sample)
+    row3_bf16 = phase_train_bf16(dev, "train_bf16", "conformer", corpus,
+                                 rows, smi, train_config, conf_sample)
     sq_sample = ["encoder.embed.input_proj.0.weight",
                  "encoder.encoders.0.self_attn.ada_scale",
                  "encoder.encoders.0.ffn1.w_1.weight",
@@ -6401,9 +6846,22 @@ def main():
                  "encoder.time_recover_layer.weight",
                  "encoder.encoders.11.layer_norm4.weight",
                  "ctc.ctc_lo.weight"]
-    row7_bf16 = phase_train_bf16(dev, "squeezeformer", corpus, sq_rows, smi,
-                                 sq_train_config, sq_sample,
-                                 no_positional_dropout)
+    row7_bf16 = phase_train_bf16(dev, "sq_train_bf16", "squeezeformer",
+                                 corpus, sq_rows, smi, sq_train_config,
+                                 sq_sample, no_positional_dropout)
+
+    eff_tail_bf16 = phase_eff_train_kernels_bf16(dev, smi)
+    train_bf16["row3"]["max_abs_err"] = max(
+        train_bf16["row3"]["max_abs_err"], eff_tail_bf16["max_abs_err"])
+    phase_train_bf16(dev, "sq_bn_train_bf16", "squeezeformer", corpus,
+                     sq_bn_rows, smi, sq_bn_train_config, sq_sample,
+                     no_positional_dropout, n=0, draws=3)
+    eff_row3_bf16 = phase_train_bf16(
+        dev, "eff_train_bf16", "efficient_conformer", corpus, eff_rows, smi,
+        eff_train_config, EFF_BF16_SAMPLE, n=EFF_TAIL)
+    phase_train_bf16(dev, "ds2_train_bf16", "deepspeech2", corpus, ds2_rows,
+                     smi, ds2_amp_config, DS2_BF16_SAMPLE, n=0)
+    phase_pipeline(dev, corpus, smi)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -6511,9 +6969,10 @@ def main():
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}}
         for name, replaces, row, launched in (
+            # the flagship's and the Efficient-Conformer's bf16 runs
             ("fused_conformer_layer_train",
              "masr_tpu/ops/pallas/conformer_layer_train.py:674", "row3",
-             row3_bf16),
+             row3_bf16 + eff_row3_bf16),
             ("fused_squeezeformer_layer_train",
              "masr_tpu/ops/pallas/squeezeformer_layer_train.py:608", "row7",
              row7_bf16))]})

@@ -1,14 +1,19 @@
 """MASRDataset (port of masr_tpu/data/dataset.py, host numpy code): a
 map-style dataset over a JSONL manifest or a binary one (data/binary.py)
-of audio files, whole or sliced by start_time / end_time.
+of audio files, whole or sliced by start_time / end_time, or of
+precomputed feature slabs (start_frame / end_frame: rows of an .npy slab
+that MASRTrainer.extract_features wrote, read through an mmap,
+masr_tpu/data/dataset.py:64-69).
 
 Per item, in masr_tpu's order (masr_tpu/data/dataset.py:71-86): the
-audio augmentors (training only), then the fbank features, then the
-feature augmentors → (features (T, F) float32, token ids int32). With
+audio augmentors (training only), then the fbank features (or the slab's
+rows), then the feature augmentors → (features (T, F) float32, token ids
+int32). With
 return_waveform, the host half of the on-device frontend instead: the
 augmented audio resampled, dB-normalized and at int16 scale, (samples
 (S,) float32, token ids); fbank, SpecAugment and SpecSub then run on the
-device (ops/specaug.py).
+device (ops/specaug.py); a slab entry then raises ValueError (it has no
+audio).
 """
 import numpy as np
 
@@ -63,21 +68,29 @@ class MASRDataset(object):
         """→ (features (T, F) float32, token ids int32); with
         return_waveform (samples (S,) float32 at int16 scale, token ids)."""
         entry = self._entry(idx)
-        if "start_time" in entry:
-            segment = AudioSegment.slice_from_file(
-                entry["audio_filepath"], entry["start_time"],
-                entry["end_time"])
+        if "start_frame" in entry:
+            if self.return_waveform:
+                raise ValueError("on-device frontend cannot consume "
+                                 "precomputed feature manifests")
+            slab = np.load(entry["audio_filepath"], mmap_mode="r")
+            feature = np.array(slab[entry["start_frame"]:entry["end_frame"]],
+                               dtype=np.float32)
         else:
-            segment = AudioSegment.from_file(entry["audio_filepath"])
-        if self._augmentation_pipeline is not None:
-            self._augmentation_pipeline.transform_audio(segment)
-        if self.return_waveform:
-            feature = self._audio_featurizer.prepare_waveform(segment)
-        else:
-            feature = self._audio_featurizer.featurize(segment)
+            if "start_time" in entry:
+                segment = AudioSegment.slice_from_file(
+                    entry["audio_filepath"], entry["start_time"],
+                    entry["end_time"])
+            else:
+                segment = AudioSegment.from_file(entry["audio_filepath"])
             if self._augmentation_pipeline is not None:
-                feature = self._augmentation_pipeline.transform_feature(
-                    feature)
+                self._augmentation_pipeline.transform_audio(segment)
+            if self.return_waveform:
+                feature = self._audio_featurizer.prepare_waveform(segment)
+            else:
+                feature = self._audio_featurizer.featurize(segment)
+        if self._augmentation_pipeline is not None \
+                and not self.return_waveform:
+            feature = self._augmentation_pipeline.transform_feature(feature)
         ids = np.asarray(self._text_featurizer.featurize(entry["text"])
                          if self._text_featurizer else [], dtype=np.int32)
         return feature, ids

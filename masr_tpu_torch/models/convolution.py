@@ -6,8 +6,9 @@ norm is a LayerNorm (eps 1e-5) or a BatchNorm1d (eps 1e-5, momentum 0.1:
 torch's convention for flax's 0.9), which in eval uses its running
 statistics and in training updates them as flax does. Torch layout (B, C,
 T) inside, as upstream MASR, so its weights apply. The BatchNorm follows
-its input's dtype in eval (models/layers.py BatchNorm1d), as flax's at
-dtype=bf16. The causal cache holds
+its input's dtype, as flax's at dtype=bf16: in eval through
+models/layers.py BatchNorm1d, in training through _batch_norm_train (f32
+statistics, bf16 output). The causal cache holds
 the last lorder = k-1 rows of the module's input BEFORE pointwise_conv1,
 as masr_tpu's does. With stride s > 1 (the Efficient-Conformer's stride
 layers, masr_tpu/models/efficient_conformer.py:108-160) the depthwise conv
@@ -80,12 +81,31 @@ class ConvolutionModule(nn.Module):
         61-62): normalise x (B, C, T) with the batch statistics over every
         (b, t), padded rows included, and move the running statistics by
         momentum 0.1 toward the batch mean and the BIASED batch variance
-        (torch's BatchNorm1d would take the unbiased one)."""
+        (torch's BatchNorm1d would take the unbiased one). A bf16 x takes
+        flax's nn.BatchNorm at dtype=bf16 (flax/linen/normalization.py
+        _compute_stats, _normalize): x widened to f32, mean E[x] and
+        variance max(E[x²] - E[x]², 0) in f32, (x - mean) · (rsqrt(var +
+        eps) · scale) + bias in f32, rounded to bf16 once; the running
+        statistics stay f32 and autograd carries the grads through the
+        statistics, as jax.grad does."""
         bn = self.norm
+        if x.dtype == torch.float32:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
+                self._move_running(mean, var)
+            return F.batch_norm(x, None, None, bn.weight, bn.bias,
+                                training=True, eps=bn.eps)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
-            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
-            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
-            bn.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
-                            eps=bn.eps)
+            self._move_running(mean, var)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (xf - mean[:, None]) * mul[:, None] + bn.bias[:, None]
+        return y.to(x.dtype)
+
+    def _move_running(self, mean, var):
+        bn = self.norm
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+        bn.num_batches_tracked.add_(1)

@@ -33,7 +33,12 @@ round h, c and every gate to bf16 after each op
 on the card, PyTorch's loop on the CPU) rounds at other points, so the two
 part by a few bf16 roundings that the recurrence carries from step to step
 (the tests measure it). TF32 has no meaning at bf16: the bf16 encoder
-leaves cuDNN's flags as the caller set them. Training stays f32.
+leaves cuDNN's flags as the caller set them. bf16 training (masr_tpu's
+enable_amp) runs the same route under autograd: the bf16 weight copies
+are differentiable casts of the f32 parameters (compute_weight), so the
+grads of cuDNN's bf16 LSTM / GRU (PyTorch's loop on the CPU) reach the
+f32 parameters; the CTC logits are cast to f32 before the loss
+(models/losses.py, as masr_tpu/models/losses.py:27).
 
 Module names follow upstream MASR (encoder.conv.conv.{0,2},
 encoder.rnns.{i}.rnn.weight_ih_l0[_reverse], encoder.rnns.{i}.layer_norm,
@@ -233,12 +238,9 @@ class DeepSpeech2Model(nn.Module):
 
     def forward(self, speech, speech_lengths, text, text_lengths,
                 generator=None, chunk_generator=None):
-        """→ {loss, loss_att (0), loss_ctc, acc_att (0)}; the model draws no
-        randomness, so the generators are unused. f32 only."""
-        if self.encoder.compute_dtype != torch.float32:
-            raise NotImplementedError(
-                "bf16 training (enable_amp) is not ported yet: ROADMAP "
-                "queue 1, item 2")
+        """→ {loss, loss_att (0), loss_ctc, acc_att (0)}, f32 in either
+        compute dtype; the model draws no randomness, so the generators
+        are unused."""
         eouts, eouts_len, _, _ = self.encoder(speech, speech_lengths)
         loss = self.ctc(eouts, eouts_len, text, text_lengths)
         zero = loss.new_zeros(())

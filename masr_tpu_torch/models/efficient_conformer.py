@@ -52,7 +52,13 @@ compute in their input's dtype (models/layers.py; the grouped attention's
 padding, the positions and the stride layers' AvgPool residual in it, as
 flax's), the tail takes row 1's bf16 mode (row 5's in a static-chunk
 model), the streaming caches are bf16 and the CTC probabilities leave in
-f32. Training stays f32.
+f32. bf16 training (masr_tpu's enable_amp) runs the same routes as f32:
+the head eagerly in bf16 under autograd (the grouped attention, the stride
+layer's conv module and its AvgPool residual divided in x's dtype, every
+Linear through torch's differentiable bf16 product, models/layers.py), a
+BatchNorm conv module's statistics f32 and its output bf16
+(models/convolution.py), and a layer_norm tail through the training-layer
+kernel's bf16 mode (8 + 8 launches a step at configs/efficient_conformer.yml).
 """
 import torch
 from torch import nn
@@ -356,15 +362,11 @@ class EfficientConformerEncoder(nn.Module):
         drawn from chunk_generator), the head eagerly with its dropouts
         drawn from `generator`, the tail through the training-layer kernel
         with per-(tail layer, utterance) seeds from `generator`. Dropout
-        only in training mode. → (out (B, T', D), masks (B, 1, T'))."""
-        if self.compute_dtype != torch.float32:
-            raise NotImplementedError(
-                "bf16 training (enable_amp) is not ported yet: ROADMAP "
-                "queue 1, item 2")
+        only in training mode; in the compute dtype after CMVN. → (out (B,
+        T', D), masks (B, 1, T'))."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
-        if self.global_cmvn is not None:
-            xs = self.global_cmvn(xs)
-        xs, pos_emb, masks = self.embed(xs, masks, generator=generator)
+        xs, pos_emb, masks = self.embed(self._features(xs), masks,
+                                        generator=generator)
         if self.use_dynamic_chunk and chunk_generator is None:
             raise ValueError("dynamic-chunk training draws its chunk from "
                              "chunk_generator (a CPU torch.Generator)")

@@ -17,10 +17,14 @@ alone and in the engine's batch parted by a bf16 rounding here and there
 flipped 10 of the 32 texts of the eager Efficient-Conformer's bf16 engine
 on the H100). serving_product has no backward: in training mode (the
 module's `training` flag, not grad mode: the server's handler threads
-serve with grad mode on) a bf16 Linear or conv takes the differentiable
-product of torch (F.linear / the conv on compute_weight's bf16 copy, f32
-sums rounded once, as flax's Dense at bf16 under masr_tpu's enable_amp),
-then its bias after that rounding. LayerNorm takes its statistics and its affine in f32 and
+serve with grad mode on) a bf16 Linear or Conv2d takes the
+differentiable product of torch (F.linear / the conv on compute_weight's
+bf16 copy, f32 sums rounded once, as flax's Dense at bf16 under
+masr_tpu's enable_amp), then its bias after that rounding; a bf16 Conv1d
+in training mode convolves its operands and bf16 weight copy widened to
+f32 (TF32 off under the trainer) and rounds once, so that its sums are
+f32 in the backward too, whatever engine cuDNN would take for a bf16
+convolution. LayerNorm takes its statistics and its affine in f32 and
 returns the input's dtype, as flax's nn.LayerNorm does at a half dtype;
 BatchNorm1d in eval the same; their backward (autograd) keeps the f32
 statistics. With an f32 input each is exactly its torch base class, so
@@ -91,6 +95,11 @@ class Conv1d(nn.Conv1d):
                 self.groups == 1 and self.stride == (1,) and \
                 self.padding == (0,):
             y = half_product(x.transpose(1, 2), self).transpose(1, 2)
+        elif self.training:
+            # f32 sums of the half-dtype operands, rounded once (the module
+            # docstring)
+            w = compute_weight(self, x.dtype)
+            y = self._conv_forward(x.float(), w.float(), None).to(x.dtype)
         else:
             y = self._conv_forward(x, compute_weight(self, x.dtype), None)
         return _add_bias(y, self.bias, (-1, 1))
@@ -109,7 +118,8 @@ class BatchNorm1d(nn.BatchNorm1d):
     (masr_tpu/models/convolution.py:57-63): (x - mean) · (rsqrt(var + eps)
     · scale) + bias over (B, C, T) in f32 from the running statistics, then
     rounded to bf16 once. Any other input, and training (the conv module's
-    own batch statistics, f32 only), is torch's class."""
+    own batch statistics, models/convolution.py _batch_norm_train), is
+    torch's class."""
 
     def forward(self, x):
         if x.dtype != torch.bfloat16 or self.training:

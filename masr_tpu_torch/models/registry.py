@@ -11,10 +11,11 @@ Every family serves in bf16 (parameters f32, products in bf16): the
 Conformer through its layer kernels' bf16 modes (rows 1, 2 and 5), the
 Squeezeformer through rows 6 and 8's, the Efficient-Conformer's tail
 through row 1's (row 5's when static-chunk), DeepSpeech2 with no kernel
-(its recurrence is XLA ops in masr_tpu). The Conformer and the
-layer_norm Squeezeformer also train in bf16 (masr_tpu's enable_amp,
-through rows 3 and 7's bf16 modes); the other routes' loss paths raise on
-bf16. Any other dtype raises; nothing falls back to f32."""
+(its recurrence is XLA ops in masr_tpu). Every family also trains in
+bf16 (masr_tpu's enable_amp): the Conformer, the layer_norm Squeezeformer
+and the Efficient-Conformer's layer_norm tail through rows 3 and 7's bf16
+modes, the BatchNorm layers, the Efficient-Conformer's head and
+DeepSpeech2 eagerly. Any other dtype raises; nothing falls back to f32."""
 import torch
 
 from masr_tpu_torch.models.conformer import ConformerModel

@@ -70,7 +70,11 @@ training kernel's bf16 mode with the unfolded bf16 pack (its adaptive
 scales' grads from the kernel), the subsampling, preln, time reduction
 and recover, final_proj, the CTC head and the decoder in bf16 with
 torch's differentiable products (training mode, models/layers.py). The
-BatchNorm route trains in f32 only.
+BatchNorm route trains its eager layers in bf16 (no kernel, as in f32):
+each conv module's BatchNorm takes its batch statistics in f32 and
+returns bf16, its running statistics f32 (models/convolution.py
+_batch_norm_train, flax's nn.BatchNorm at dtype=bf16); a no-grad
+validation pass takes the eval routes in bf16.
 
 Not ported, each raising NotImplementedError: pre-norm layers
 (normalize_before), other positional encodings than rel_pos, streaming
@@ -491,14 +495,9 @@ class SqueezeformerEncoder(nn.Module):
         At the reduce index the time reduction runs on the rows within
         each length and the layers after it take chunk_masks[:, ::2, ::2],
         pos_emb[:, ::2] and the lengths halved rounding up; the recover
-        index restores them. In the compute dtype after CMVN (bf16: the
-        layer_norm route only). Dropout only in training mode. → (out (B,
-        T', output_size), masks (B, 1, T'))."""
-        if self.compute_dtype != torch.float32 and not all(
-                layer.conv_ln for layer in self.encoders):
-            raise NotImplementedError(
-                "bf16 training (enable_amp) of a BatchNorm conv module is "
-                "not ported: ROADMAP queue 1, item 2")
+        index restores them. In the compute dtype after CMVN (bf16 on
+        either conv norm's route). Dropout only in training mode. → (out
+        (B, T', output_size), masks (B, 1, T'))."""
         masks = ~make_pad_mask(xs_lens, xs.shape[1])[:, None, :]
         xs, pos_emb, masks = self.embed(self._features(xs), masks,
                                         generator=generator)

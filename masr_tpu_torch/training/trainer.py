@@ -1,7 +1,14 @@
-"""MASRTrainer: training, evaluation and export on one GPU (port of
-masr_tpu/training/trainer.py: _setup_dataloader :153, _setup_model :225,
-train :282, _resolve_eval_decoder :417, _rescore_batch :444,
-_evaluate_loader :477, evaluate :569, export :593).
+"""MASRTrainer: data preparation, training, evaluation and export on one
+GPU (port of masr_tpu/training/trainer.py: create_data :90,
+extract_features :115, _setup_dataloader :153, _setup_model :225, train
+:282, _resolve_eval_decoder :417, _rescore_batch :444, _evaluate_loader
+:477, evaluate :569, export :593).
+
+`create_data` and `extract_features` are host numpy code and write what
+masr_tpu's write from the same inputs (manifests, the noise manifest, the
+vocabulary, mean_istd.json, binary manifests; the feature slabs and their
+`<manifest>.feature` manifests), so either package's data serves the
+other.
 
 Same config schema and checkpoint semantics as masr_tpu: per-epoch
 checkpoints with last/best retention and auto-resume from last_model,
@@ -22,12 +29,13 @@ through torch.nn.LSTM / GRU (cuDNN on the card) and its CTC loss through
 the CTC kernel; its eval takes ctc_beam_search for attention_rescoring, as
 masr_tpu's does. Training is f32 (TF32 off), or with train_conf.enable_amp
 bf16 as masr_tpu's (build_model(dtype=bf16): f32 parameters, optimizer,
-grad clipping and non-finite skip; the encoder's products in bf16 through
-the training kernels' bf16 modes, the CTC and attention losses in f32;
-cuBLAS's bf16 products keep f32 sums) for the Conformer and the
-layer_norm Squeezeformer; `evaluate` runs the bf16 model in eval mode (the
-bf16 serving routes) and `export` writes the f32 parameters, as
-masr_tpu's does.
+grad clipping and non-finite skip; the encoder's products in bf16, the
+CTC and attention losses in f32; cuBLAS's bf16 products keep f32 sums)
+for every family: the training kernels' bf16 modes where f32 takes the
+kernels, the eager layers (BatchNorm statistics in f32), the
+Efficient-Conformer's head and DeepSpeech2's recurrence in bf16 under
+autograd; `evaluate` runs the bf16 model in eval mode (the bf16 serving
+routes) and `export` writes the f32 parameters, as masr_tpu's does.
 
 Training as masr_tpu's train.py runs it: `augment_conf_path` (an
 augmentation JSON; train's default, as the CLI's and masr_tpu's, is
@@ -40,12 +48,11 @@ step runs fbank, SpecAugment and SpecSub on the card before the encoder
 (ops/specaug.py; eval takes the deterministic fbank); manifest_type binary
 reads `<manifest>.data`; optimizer_conf.fused runs torch's fused Adam.
 
-Not ported, each raising NotImplementedError before a model is built:
-enable_amp for the BatchNorm Squeezeformer, the Efficient-Conformer and
-DeepSpeech2 (ROADMAP.md queue 1, item 2) and tensor-parallel training
-(item 6); absent: multi-host sampling, create_data and
-extract_features.
+Not ported: tensor-parallel training, which raises NotImplementedError
+before a model is built (ROADMAP.md queue 1, item 6), and multi-host
+sampling.
 """
+import json
 import os
 import time
 
@@ -57,6 +64,8 @@ from masr_tpu_torch.data.augmentation.pipeline import enabled_items
 from masr_tpu_torch.data.collate import collate_waveforms
 from masr_tpu_torch.data.dataset import MASRDataset
 from masr_tpu_torch.data.loader import DataLoader
+from masr_tpu_torch.data.manifest import (build_vocab, create_manifest,
+                                          create_noise_manifest)
 from masr_tpu_torch.data.normalizer import FeatureNormalizer
 from masr_tpu_torch.data.sampler import BatchShuffleSampler
 from masr_tpu_torch.data.text_featurizer import TextFeaturizer
@@ -89,22 +98,6 @@ def _not_ported(what, item):
                                f"item {item})")
 
 
-def _amp_not_ported(configs):
-    """The enable_amp routes not ported (None when the model's is): every
-    family but the Conformer and a layer_norm-conv Squeezeformer."""
-    family = configs.use_model
-    if family == "conformer":
-        return None
-    if family == "squeezeformer":
-        norm = (configs.get("encoder_conf") or {}).get("cnn_norm_type",
-                                                       "batch_norm")
-        if norm == "layer_norm":
-            return None
-        return "the BatchNorm Squeezeformer"
-    return {"efficient_conformer": "the Efficient-Conformer",
-            "deepspeech2": "DeepSpeech2"}.get(family, family)
-
-
 class MASRTrainer(object):
     def __init__(self, configs, use_gpu=True, overwrites=None, device=None):
         """configs: a YAML path or a dict (masr_tpu's schema); use_gpu
@@ -129,9 +122,6 @@ class MASRTrainer(object):
         self.device = resolve_device(device)
         t = self.configs.get("train_conf", {})
         self.amp = bool(t.get("enable_amp", False))
-        if self.amp and _amp_not_ported(self.configs):
-            raise _not_ported("train_conf.enable_amp (bf16 training) of "
-                              + _amp_not_ported(self.configs), 2)
         if int(t.get("tensor_parallel", 1) or 1) > 1:
             raise _not_ported("train_conf.tensor_parallel", 6)
         if self.device.type == "cuda":
@@ -152,6 +142,76 @@ class MASRTrainer(object):
     # ------------------------------------------------------------------ #
     # data
     # ------------------------------------------------------------------ #
+    def create_data(self, annotation_path="dataset/annotation/",
+                    noise_dir="dataset/audio/noise",
+                    num_samples=1000000, count_threshold=2,
+                    is_change_frame_rate=True, max_test_manifest=10000,
+                    only_keep_zh_en=True):
+        """The config's train and test manifests from the annotation files
+        (data/manifest.py create_manifest), the noise manifest (when
+        noise_dir and dataset_conf.noise_manifest_path are set), the
+        vocabulary over both manifests, the CMVN statistics over
+        num_samples training utterances (data/normalizer.py), and the
+        binary manifests when manifest_type is binary."""
+        d = self.configs.dataset_conf
+        create_manifest(annotation_path, d.train_manifest, d.test_manifest,
+                        is_change_frame_rate=is_change_frame_rate,
+                        target_sr=self.configs.preprocess_conf.sample_rate,
+                        only_keep_zh_en=only_keep_zh_en,
+                        max_test_manifest=max_test_manifest)
+        if noise_dir and d.get("noise_manifest_path"):
+            create_noise_manifest(noise_dir, d.noise_manifest_path)
+        build_vocab(d.dataset_vocab, [d.train_manifest, d.test_manifest],
+                    count_threshold=count_threshold)
+        featurizer = AudioFeaturizer(train=False,
+                                     **self.configs.preprocess_conf)
+        FeatureNormalizer().compute_mean_istd(
+            d.train_manifest, featurizer, d.mean_istd_path,
+            num_samples=num_samples)
+        if d.get("manifest_type") == "binary":
+            from masr_tpu_torch.data.binary import create_manifest_binary
+            create_manifest_binary(d.train_manifest, d.test_manifest)
+
+    def extract_features(self, save_dir="dataset/features", max_duration=100,
+                         batch_size=500):
+        """The features of the train and test manifests' utterances (up to
+        max_duration seconds) as .npy slabs of batch_size utterances each,
+        `<save_dir>/<manifest name>_<i>.npy`, and `<manifest>.feature`
+        manifests whose entries name their slab and rows (start_frame,
+        end_frame), which MASRDataset reads."""
+        d = self.configs.dataset_conf
+        os.makedirs(save_dir, exist_ok=True)
+        for manifest_path in [d.train_manifest, d.test_manifest]:
+            ds = MASRDataset(self.configs.preprocess_conf, manifest_path,
+                             vocab_filepath=None, train=False,
+                             min_duration=0, max_duration=max_duration)
+            base = os.path.basename(manifest_path)
+            entries, slab, offset, slab_idx = [], [], 0, 0
+
+            def slab_path(i):
+                return os.path.join(save_dir, f"{base}_{i}.npy")
+
+            for i in range(len(ds)):
+                feats, _ = ds[i]
+                entry = ds.entries[i]
+                entries.append({"audio_filepath": slab_path(slab_idx),
+                                "duration": entry["duration"],
+                                "text": entry["text"],
+                                "start_frame": offset,
+                                "end_frame": offset + feats.shape[0]})
+                slab.append(feats)
+                offset += feats.shape[0]
+                if len(slab) >= batch_size:
+                    np.save(slab_path(slab_idx), np.concatenate(slab, axis=0))
+                    slab, offset, slab_idx = [], 0, slab_idx + 1
+            if slab:
+                np.save(slab_path(slab_idx), np.concatenate(slab, axis=0))
+            out_path = manifest_path + ".feature"
+            with open(out_path, "w", encoding="utf-8") as f:
+                for e in entries:
+                    f.write(json.dumps(e, ensure_ascii=False) + "\n")
+            logger.info(f"features extracted: {out_path}")
+
     def _setup_dataloader(self, is_train, augment_conf_path=None):
         """The dataset, its batch sampler and loader (masr_tpu/training/
         trainer.py:153-197): the training set augments with

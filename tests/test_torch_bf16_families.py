@@ -558,9 +558,9 @@ def test_ds2_stream_matches_masr_tpu_bf16(use_gru):
 def test_build_model_bf16_every_family():
     """build_model(dtype=bf16) builds every family: parameters f32, the
     streaming state in bf16; the loss paths of these configurations (the
-    BatchNorm Squeezeformer, the Efficient-Conformer, DeepSpeech2) raise on
-    bf16 (bf16 training takes the Conformer and the layer_norm
-    Squeezeformer, tests/test_torch_bf16_training.py); f16 raises."""
+    BatchNorm Squeezeformer, the Efficient-Conformer, DeepSpeech2) run in
+    bf16 and give a finite f32 loss (their bf16 grads against masr_tpu's:
+    tests/test_torch_amp_families.py); f16 raises."""
     for family, enc in ENCS.items():
         model = build_model(family, FEAT, 10, encoder_conf=enc,
                             decoder_conf=None if family == "deepspeech2"
@@ -569,9 +569,13 @@ def test_build_model_bf16_every_family():
         state = model.init_cache(batch=2) if family == "deepspeech2" \
             else model.encoder.init_cache(batch=2, cache_size=16)
         assert {t.dtype for t in state.values() if t.dim() > 1} == {BF}
-        with pytest.raises(NotImplementedError, match="enable_amp"):
-            model(torch.zeros(1, WIN, FEAT), torch.tensor([WIN]),
-                  torch.ones(1, 2, dtype=torch.long), torch.tensor([2]))
+        out = model.train()(torch.zeros(1, WIN, FEAT), torch.tensor([WIN]),
+                            torch.ones(1, 2, dtype=torch.long),
+                            torch.tensor([2]),
+                            generator=torch.Generator().manual_seed(1),
+                            chunk_generator=torch.Generator().manual_seed(2))
+        assert out["loss"].dtype == torch.float32
+        assert torch.isfinite(out["loss"]), family
         with pytest.raises(ValueError, match="f32 or bf16"):
             build_model(family, FEAT, 10, encoder_conf=enc,
                         dtype=torch.float16)

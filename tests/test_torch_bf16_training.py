@@ -11,7 +11,8 @@ What each test holds the port against:
   non-causal at full rate and causal at half rate, the reduced rate's
   strided mask), output and every grad of a random bf16 cotangent;
 - the models: jax.value_and_grad of masr_tpu's ConformerModel and
-  SqueezeformerModel at dtype=bf16. On the CPU masr_tpu trains those
+  SqueezeformerModel at dtype=bf16 (the other routes:
+  tests/test_torch_amp_families.py). On the CPU masr_tpu trains those
   through its flax layers (its Pallas route needs a TPU), which round at
   every Dense where the kernel rounds only where it stores x's dtype.
 Each masr_tpu function runs once, compiled by XLA with its backend
@@ -560,19 +561,48 @@ def test_trainer_enable_amp_trains_resumes_evaluates_exports(tmp_path):
 
 
 @pytest.mark.parametrize("family,enc,what", [
-    ("squeezeformer", dict(cnn_norm_type="batch_norm"),
+    ("squeezeformer", dict(encoder_dim=32, output_size=32, attention_heads=2,
+                           num_blocks=3, reduce_idx=1, recover_idx=2,
+                           feed_forward_expansion_factor=2,
+                           cnn_module_kernel=7, cnn_norm_type="batch_norm"),
      "BatchNorm Squeezeformer"),
-    ("efficient_conformer", {}, "Efficient-Conformer"),
-    ("deepspeech2", {}, "DeepSpeech2")])
-def test_trainer_refuses_enable_amp_routes_not_ported(tmp_path, family, enc,
-                                                      what):
-    """enable_amp of the three routes not ported raises NotImplementedError
-    in MASRTrainer's constructor, before any model is built, naming the
-    route and ROADMAP.md queue 1, item 2."""
+    ("efficient_conformer", dict(output_size=32, attention_heads=2,
+                                 linear_units=48, num_blocks=3,
+                                 cnn_module_kernel=15,
+                                 cnn_module_norm="layer_norm",
+                                 efficient_conf=dict(stride_layer_idx=[1],
+                                                     stride=[2],
+                                                     group_layer_idx=[0, 1],
+                                                     group_size=3)),
+     "Efficient-Conformer"),
+    ("deepspeech2", dict(num_rnn_layers=2, rnn_size=32), "DeepSpeech2")])
+def test_trainer_enable_amp_builds_and_steps(tmp_path, family, enc, what):
+    """enable_amp of the BatchNorm Squeezeformer, the Efficient-Conformer
+    and DeepSpeech2 builds in MASRTrainer (the model at bf16, its
+    parameters f32) and takes one CPU train step on a seeded batch: a
+    finite f32 loss, and the parameters moved (accum_grad 1)."""
+    from masr_tpu_torch.training.train_state import batch_to, train_step
     from masr_tpu_torch.training.trainer import MASRTrainer
-    corpus = {k: str(tmp_path / k) for k in ("train", "test", "vocab",
-                                              "cmvn")}
-    with pytest.raises(NotImplementedError,
-                       match=f"enable_amp.*{what}.*queue 1, item 2"):
-        MASRTrainer(_amp_config(corpus, str(tmp_path), 1, family, enc),
-                    device="cpu")
+    corpus = {k: str(tmp_path / k) for k in ("train", "test", "vocab")}
+    corpus["cmvn"] = str(tmp_path / "mean_istd.json")
+    with open(corpus["cmvn"], "w", encoding="utf-8") as f:
+        json.dump({"mean": [10.0] * FEAT, "istd": [0.3] * FEAT}, f)
+    conf = _amp_config(corpus, str(tmp_path), 1, family, enc)
+    if family == "deepspeech2":
+        conf["decoder_conf"], conf["model_conf"] = {}, {}
+    tr = MASRTrainer(conf, device="cpu")
+    model = tr._setup_model(FEAT, VOCAB)
+    assert model.encoder.compute_dtype == BF, what
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    before = [p.detach().clone() for p in model.parameters()]
+    rs = np.random.RandomState(4)
+    batch = {"inputs": 10 + rs.standard_normal((2, 80, FEAT)).astype(
+                 np.float32),
+             "input_lens": np.asarray([80, 57], np.int32),
+             "labels": np.asarray([[3, 4, 5], [6, 7, -1]], np.int32),
+             "label_lens": np.asarray([3, 2], np.int32)}
+    metrics = train_step(tr.state, batch_to(batch, "cpu"), 0)
+    assert metrics["finite"] and np.isfinite(metrics["loss"]), metrics
+    assert tr.state.updates == 1
+    assert any(not torch.equal(a, p) for a, p in zip(before,
+                                                      model.parameters()))

@@ -1615,6 +1615,50 @@ def test_train_layer_bf16_kernel_matches_plain(cuda_device, shape, causal,
              att_rate=att_rate))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.1)],
+                         ids=["drop0", "drop0.1"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_train_layer_bf16_kernel_at_eff_tail_shape(cuda_device, causal,
+                                                   rates):
+    """fused_conformer_layer_train's bf16 mode at the Efficient-Conformer
+    tail's shape (configs/efficient_conformer.yml after its stride: B=8,
+    T'=150 of 299 subsampled frames, conv kernel 7, the chunk mask's
+    [::2, ::2] view, the lengths halved rounding up) == its bf16 twin with
+    autograd on the same card: the output, dx, dposp and every grad within
+    _assert_bf16_train_close; one forward and one backward launch, both
+    counted as bf16."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    D, H, FF, K = 256, 4, 2048, 7
+    lens = [299, 281, 250, 220, 180, 150, 90, 33]
+    rate, att_rate = rates
+    B = len(lens)
+    layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                  causal=causal)
+    layer.load_state_dict(seeded_state_dict(layer, seed=157))
+    layer = layer.to(cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    mask = _train_mask(299, lens_t, cuda_device)[:, ::2, ::2]
+    lens_t, T = (lens_t + 1) // 2, 150
+    g = torch.Generator().manual_seed(T + 13)
+    x = torch.randn(B, T, D, generator=g).to(cuda_device, torch.bfloat16)
+    w = torch.randn(B, T, D, generator=g).to(cuda_device)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+    with torch.no_grad():
+        posp = torch.nn.functional.linear(
+            sinusoid_position_encoding(torch.arange(T, device=cuda_device),
+                                       D).to(torch.bfloat16),
+            layer.self_attn.linear_pos.weight.to(torch.bfloat16))
+        packed = cl.pack_layer_params(layer, torch.bfloat16)
+    _check_train_bf16(
+        clt.fused_conformer_layer_train,
+        clt.fused_conformer_layer_train_plain,
+        (x, mask, seeds, lens_t, posp, packed, w),
+        dict(layer=5, n_head=H, ksize=K, causal=causal, rate=rate,
+             att_rate=att_rate))
+
+
 # (d_model, heads, ffn, conv kernel, T, lens, half): test widths and the
 # flagship Squeezeformer's at full and half rate
 SQ_TRAIN_BF16_SHAPES = [(64, 4, 256, 7, 45, [45, 36, 0], False),

@@ -353,10 +353,11 @@ def test_clis_train_export_and_eval_a_gru(corpus, tmp_path, monkeypatch):
 
 def test_new_modules_run_without_jax(tmp_path):
     """With jax, flax and masr_tpu blocked from import: every module of the
-    package imports; a DS2 takes a train step on waveforms through the
-    on-device frontend and the fused Adam, streams a window, and the host
-    augmentation pipeline and binary manifests run; nothing of JAX is
-    loaded."""
+    package imports (the data preparation and the create_data,
+    extract_features and infer_path CLIs among them); a DS2 takes a train
+    step on waveforms through the on-device frontend and the fused Adam,
+    streams a window, and the host augmentation pipeline and binary
+    manifests run; nothing of JAX is loaded."""
     import subprocess
     import sys
     import textwrap
@@ -371,9 +372,18 @@ def test_new_modules_run_without_jax(tmp_path):
         sys.path.insert(0, {ROOT!r})
         import numpy as np, torch
         import masr_tpu_torch
+        walked = set()
         for m in pkgutil.walk_packages(masr_tpu_torch.__path__,
                                        "masr_tpu_torch."):
             importlib.import_module(m.name)
+            walked.add(m.name)
+        assert all("masr_tpu_torch." + n in walked for n in (
+            "create_data", "extract_features", "infer_path",
+            "data.manifest", "data.normalizer"))
+        from masr_tpu_torch.data.manifest import build_vocab, is_ustr
+        from masr_tpu_torch.data.normalizer import FeatureNormalizer
+        assert is_ustr("上家, OK!") == "上家 OK" and \
+            FeatureNormalizer().mean is None
         from masr_tpu_torch.audio import AudioSegment
         from masr_tpu_torch.data.augmentation import AugmentationPipeline
         from masr_tpu_torch.data.binary import DatasetReader, DatasetWriter

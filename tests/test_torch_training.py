@@ -444,21 +444,16 @@ def test_trainer_trains_saves_and_resumes_on_cpu(corpus, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
-    """bf16 training of a route not ported (here DeepSpeech2; the
-    Conformer's trains, tests/test_torch_bf16_training.py) and
-    tensor-parallel training raise NotImplementedError naming their
-    ROADMAP.md items; an eval decoder the trainer does not know raises
-    ValueError; device="cuda" without a card raises (no silent CPU)."""
+    """Tensor-parallel training raises NotImplementedError naming its
+    ROADMAP.md item (enable_amp trains every family,
+    tests/test_torch_amp_families.py); an eval decoder the trainer does not
+    know raises ValueError; device="cuda" without a card raises (no silent
+    CPU)."""
     from masr_tpu_torch.training.trainer import MASRTrainer
     conf = _trainer_config(corpus, str(tmp_path), 1)
     tr = MASRTrainer(conf, device="cpu")
     with pytest.raises(ValueError, match="no_such_decoder"):
         tr._resolve_eval_decoder([], "no_such_decoder")
-    with pytest.raises(NotImplementedError, match="enable_amp.*item 2"):
-        MASRTrainer(dict(conf, use_model="deepspeech2",
-                         train_conf=dict(conf["train_conf"],
-                                         enable_amp=True)),
-                    device="cpu")
     with pytest.raises(NotImplementedError, match="tensor_parallel.*item 6"):
         MASRTrainer(dict(conf, train_conf=dict(conf["train_conf"],
                                                tensor_parallel=2)),
