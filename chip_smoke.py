@@ -66,7 +66,7 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     labels of 5..40 and 80 (S = 161 states)
  12. train          MASRTrainer(dict config, device=cuda).train on synthetic
                     speech (build/smoke/train): flagship widths, vocabulary
-                    4000, B=8, 2 epochs of 16 steps, then a second trainer
+                    4000, B=8, 2 epochs of 8 steps, then a second trainer
                     resumes from last_model for a third; every step must
                     launch the training-layer kernel 12x forward and 12x
                     backward and the CTC kernel once each way; the loss per
@@ -110,7 +110,7 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
  20. sq_train       MASRTrainer(dict config, device=cuda).train of that
                     Squeezeformer (configs/squeezeformer.yml, cnn_norm_type
                     layer_norm, AdamW + NoamHoldAnnealing) on phase 12's
-                    corpus (build/smoke/sq_train): 2 epochs of 16 steps at
+                    corpus (build/smoke/sq_train): 2 epochs of 8 steps at
                     B=8 and a resumed third, every step 12 + 12 launches of
                     the training-layer kernel and 1 + 1 of the CTC kernel,
                     the loss per label token and the test loss falling, the
@@ -123,7 +123,7 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
  21. sq_train_times the Squeezeformer training layer forward and backward,
                     kernel vs plain, at both rates (CUDA events), bounds;
                     train-step wall times, audio seconds trained per second,
-                    a torch.profiler breakdown of three steps
+                    a torch.profiler breakdown of one step
  22. flash_kernels  the masked rel-pos flash attention kernel vs its plain
                     twin at flagship width (4 heads, d_k 64), B=4 ragged (one
                     utterance of 0 frames), T' in {37, 299, 800, 1500, 3000},
@@ -265,12 +265,12 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     predict_stream's, 4 slots on the CPU), eager chunk steps
                     (no chunk-layer launch, as masr_tpu streams this
                     family); eff_stream_times: window latency p50 / p90
- 37. eff_train      MASRTrainer on phase 12's corpus: 16 steps at B=8, each
+ 37. eff_train      MASRTrainer on phase 12's corpus: 8 steps at B=8, each
                     8 + 8 row-3 and 1 + 1 row-4 launches, the loss per label
                     token falling; the first step at dropout 0 card vs CPU
                     (the hybrid loss, and the encoder's grads of the CTC
-                    loss alone); step walls and the card's idle share (3
-                    profiled steps)
+                    loss alone); step walls and the card's idle share (1
+                    profiled step)
  38. eff_export     the trained checkpoint through MASRTrainer.export: the
                     f32 bundle's probs == the model's, 8 row-1 launches per
                     encode; the eval CLI's batch: 8 row-3 and 1 row-4
@@ -290,13 +290,13 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     predict_stream's, 4 slots on the CPU), no kernel launch;
                     ds2_stream_times: window latency p50 / p90 at B=1
  41. ds2_train      MASRTrainer on phase 12's corpus with the DS2 config's
-                    widths: 16 steps at B=8, each 1 + 1 row-4 launches and
+                    widths: 8 steps at B=8, each 1 + 1 row-4 launches and
                     no other row, the loss per label token falling; the
                     first step card vs CPU (the loss and every grad); step
-                    walls, audio s/s, the card's idle share over 3 profiled
-                    steps; the f32 export (probs == the model's) and the
+                    walls, audio s/s, the card's idle share over 1 profiled
+                    step; the f32 export (probs == the model's) and the
                     eval CLI (1 row-4 forward per batch)
- 42. train_aug      the flagship Conformer trained 8 steps (every other
+ 42. train_aug      the flagship Conformer trained 4 steps (every other
                     utterance of phase 12's corpus) with
                     configs/augmentation.json, its noise manifest pointed at
                     synthetic noise beside the corpus: 12 + 12 row-3 and 1 +
@@ -475,9 +475,27 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     stopped after 3 batches writes a trace holding the
                     card's kernels
 
+ 68. parallel_train data and tensor parallelism (masr_tpu_torch/parallel/)
+                    at flagship widths on 16 of phase 12's utterances,
+                    dropout 0: (a) dp = 2 and (b) dp = 1 x tp = 2, two
+                    ranks of this script (--parallel-rank) sharing the card
+                    over gloo (NCCL refuses two ranks on one device), 2
+                    Adam steps of 8 rows a rank against one process's 2
+                    steps on the 16: loss rel 1e-5, every parameter 1e-5,
+                    12 + 12 row-3 and 1 + 1 row-4 launches a rank and step,
+                    (b)'s ruled Adam moments half their tensor; (c)
+                    MASRTrainer under a NCCL group of one (WORLD_SIZE=1,
+                    RANK=0, LOCAL_RANK=0), 2 steps, the same launches; (d)
+                    row 4 on B=8, T'=299 with two rows of more labels than
+                    frames (optax's semantics: NLL 1e5 + the paths' cost)
+                    against its twin (NLL rel 1e-5, the card's grad gate).
+                    Prints each rank's step walls, the grad all-reduce's
+                    seconds over gloo and its peak device memory
+
 The kernels line counts each row's launches over every main path that
-reaches it: rows 1-4 add phase 65's to those of phases 3, 8 and 12, row
-5 phase 66's eager encodes to phase 23's.
+reaches it: rows 1-4 add phase 65's to those of phases 3, 8 and 12, and
+rows 3-4 phase 68's trainer steps (c); row 5 phase 66's eager encodes to
+phase 23's.
 
 A text that differs between two runs fails only where the first differing
 frame's top-2 margin exceeds 1e-3 (a near-tie that f32 sums in another
@@ -881,8 +899,8 @@ def phase_bundle(dev):
           "texts": [got for _, got, _ in rows]})
 
 
-def cuda_ms(fn, iters=20):
-    for _ in range(3):
+def cuda_ms(fn, iters=20, warm=3):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -933,10 +951,11 @@ def sm_clock():
 
 
 def alternate(kernel, plain):
-    """CUDA-event times in the order plain, kernel, kernel, plain."""
-    runs = {"plain": [cuda_ms(plain)], "kernel": [cuda_ms(kernel)]}
+    """CUDA-event times in the order plain, kernel, kernel, plain (the
+    plain twin, 10-400 x slower, over 5 calls after 1)."""
+    runs = {"plain": [cuda_ms(plain, 5, 1)], "kernel": [cuda_ms(kernel)]}
     runs["kernel"].append(cuda_ms(kernel))
-    runs["plain"].append(cuda_ms(plain))
+    runs["plain"].append(cuda_ms(plain, 5, 1))
     return runs
 
 
@@ -1774,7 +1793,7 @@ def phase_sq_times(dev, gpu, wavs, stream_path, smi):
 TRAIN_T, TRAIN_LENS = 299, [299, 281, 250, 220, 180, 150, 90, 33]
 GRAD_RTOL = 1e-4        # grad max abs err over the plain grad's max |.|
 CTC_GRAD_ATOL = 1e-4    # floor of the CTC grad check against f64
-TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 16, 2
+TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS = 8, 2
 CPU_LOSS_RTOL, CPU_GRAD_RTOL = 1e-4, 1e-3   # first step, card vs CPU
 
 
@@ -2067,7 +2086,7 @@ def clocked_train_steps(rows, family="conformer"):
 
 def train_and_resume(config, corpus, root, family, step_launches):
     """The main path of a training phase: MASRTrainer(dict config,
-    device=cuda).train for TRAIN_EPOCHS epochs of 16 steps, then a second
+    device=cuda).train for TRAIN_EPOCHS epochs of 8 steps, then a second
     trainer resumes from last_model for one more; every step must launch
     step_launches (train layer, its backward, CTC, its backward); the loss
     per label token and the test loss must fall. Counts are read around the
@@ -2184,7 +2203,7 @@ def first_step_card_vs_cpu(conf, sample, prepare=None):
 
 def phase_train(dev):
     """MASRTrainer(dict config, device=cuda).train at flagship widths on a
-    synthetic corpus: 2 epochs of 16 steps at B=8, then a resume for a third
+    synthetic corpus: 2 epochs of 8 steps at B=8, then a resume for a third
     epoch; the first step's loss and grads against the CPU at dropout 0."""
     root = os.path.join(WORK, "train")
     shutil.rmtree(root, ignore_errors=True)
@@ -2231,7 +2250,7 @@ DS2_PROFILE_GROUPS = (
     ("CTC kernel", ("ctc_",)))
 
 
-def profile_train_steps(trainer, n=3, kernel_groups=PROFILE_GROUPS,
+def profile_train_steps(trainer, n=1, kernel_groups=PROFILE_GROUPS,
                         items_from=None):
     """torch.profiler over n train steps of `trainer` on the batch of the 8
     longest training utterances (of `items_from`'s training set, if given,
@@ -2244,8 +2263,7 @@ def profile_train_steps(trainer, n=3, kernel_groups=PROFILE_GROUPS,
     items = [ds[i] for i in range(len(ds) - len(TRAIN_LENS), len(ds))]
     batch = ts.batch_to(collate_fn(items, rng=np.random.RandomState(0)),
                         trainer.device)
-    for _ in range(2):
-        ts.train_step(trainer.state, batch, 0)
+    ts.train_step(trainer.state, batch, 0)
     torch.cuda.synchronize()
     updates = trainer.state.updates
     with profile(activities=[ProfilerActivity.CPU,
@@ -2368,9 +2386,10 @@ def phase_train_times(dev, rows, trainer, smi):
         return torch.autograd.grad(nll_k, xk, w, retain_graph=True)
 
     clock = [sm_clock()]
-    ctc = {"plain": [cuda_ms(ctc_plain, 5)], "kernel": [cuda_ms(ctc_kernel)]}
+    ctc = {"plain": [cuda_ms(ctc_plain, 2, 1)],
+           "kernel": [cuda_ms(ctc_kernel)]}
     ctc["kernel"].append(cuda_ms(ctc_kernel))
-    ctc["plain"].append(cuda_ms(ctc_plain, 5))
+    ctc["plain"].append(cuda_ms(ctc_plain, 2, 1))
     ctc["library"] = [cuda_ms(ctc_library)]
     split = {"fwd_kernel_ms": cuda_ms(ctc_fwd),
              "bwd_kernel_ms": cuda_ms(ctc_bwd),
@@ -2431,7 +2450,7 @@ def sq_train_config(corpus, save_dir, max_epoch, dropout=True,
     """configs/squeezeformer.yml as a dict at its widths with the given
     cnn_norm_type (no repo config gives this family layer_norm), B=8,
     accum_grad 2, its AdamW and NoamHoldAnnealing with max_steps cut to the
-    run's 24 updates (48 steps) so that the loss falls within the run."""
+    run's 12 updates (24 steps) so that the loss falls within the run."""
     r = 0.1 if dropout else 0.0
     conf = train_config(corpus, save_dir, max_epoch, dropout)
     conf.update({
@@ -2464,7 +2483,7 @@ def no_positional_dropout(model):
 def phase_sq_train(dev, corpus):
     """MASRTrainer(dict config, device=cuda).train of the Squeezeformer of
     configs/squeezeformer.yml with the layer_norm conv on phase 12's
-    corpus: 2 epochs of 16 steps at B=8 and a resumed third, every step
+    corpus: 2 epochs of 8 steps at B=8 and a resumed third, every step
     12 + 12 training-layer launches and 1 + 1 CTC, the loss per label token
     and the test loss falling; its first step at dropout 0 against the CPU.
     Then one epoch of the BatchNorm default: no training-layer launch, the
@@ -2544,7 +2563,7 @@ def phase_sq_train_times(dev, rows, trainer, smi):
     plain, at B=8, full rate (T'=299) and half rate (T'=150), dropout 0.1
     (CUDA events, plain, kernel, kernel, plain), with their bounds; the
     train-step wall times and audio seconds per second of sq_train; a
-    torch.profiler breakdown of three steps on the longest batch."""
+    torch.profiler breakdown of one step on the longest batch."""
     from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
     layer = seeded_sq_layer(33, True, "layer_norm", dev)
     fns = {"plain": sqt.fused_squeezeformer_layer_train_plain,
@@ -2726,16 +2745,20 @@ def phase_static_flagship(dev, family):
         got = encode_launches()
         check(got == per_encode, f"{family} static predict_batch launches "
               f"{got} == {per_encode} (flash, layer kernels), {name}")
-        err, compared, t_out = probs_card_vs_cpu(gpu, cpu, batch)
-        cpu_texts = cpu.predict_batch(batch)
+        # the CPU's encode is the phase's cost: the long batch's two
+        # shorter utterances hold the card to it, the 8 give their texts
+        err, compared, t_out = probs_card_vs_cpu(
+            gpu, cpu, batch if name == "batch" else batch[:2])
+        cpu_texts = cpu.predict_batch(batch) if name == "batch" else None
         runs[name] = {"utterances": len(batch),
                       "seconds_audio": [round(len(w) / 16000, 3)
                                         for w in batch],
                       "T_out": t_out, "launches": got[0],
                       "probs_max_abs_err": err,
                       "argmax_frames_compared": compared,
-                      "texts_equal_cpu": sum(a["text"] == b["text"] for a, b
-                                             in zip(texts, cpu_texts)),
+                      "texts_equal_cpu": None if cpu_texts is None else sum(
+                          a["text"] == b["text"]
+                          for a, b in zip(texts, cpu_texts)),
                       "predict_batch_s": wall}
     reset_launches()
     one = gpu.predict(wavs[0])
@@ -3631,8 +3654,8 @@ QUANT_ATOL = 0.05        # bf16 / int8 bundle probs vs f32 (test_quant_bundle)
 QUANT_GATE = {"bf16": 5e-3, "int8": 1e-2}
 LENGTH_BUCKET = 200      # the predictor's padding of full-context frames
 SERVER_STREAMS = 4
-SERVER_LOAD = 100        # /recognition requests: each server's latency sample
-SERVER_LOAD_LONG = 5     # /recognition_long_audio requests of 20 s each
+SERVER_LOAD = 40         # /recognition requests: each server's latency sample
+SERVER_LOAD_LONG = 2     # /recognition_long_audio requests of 20 s each
 
 
 def config_file(conf, path):
@@ -3758,7 +3781,7 @@ def phase_export(dev, corpus, wavs):
           f"bundle: {sq['launches']} row-6 launches per encode")
 
     # phase 3's seeded flagship, whose frames decode to text (phase 12's
-    # 48-step model emits blanks): its weights written again as bf16 and
+    # 24-step model emits blanks): its weights written again as bf16 and
     # int8 and held to QUANT_ATOL on probs that are not saturated at blank.
     # Its random weights leave near ties between tokens that quantization
     # flips, so its texts' error rate against f32 is reported, not gated
@@ -4188,7 +4211,7 @@ def phase_server(dev, exported, rec, stream_path, wavs):
     phase 23's static-chunk Conformer bundle (REST),
     and with max_streams (greedy and ctc_beam_search_device) over phase
     7's seeded flagship without dB normalization (`stream_path`: its
-    peaked frames decode to text, where the 48-step model of phase 30
+    peaked frames decode to text, where the 24-step model of phase 30
     emits blanks). Each REST server first answers the latency sample
     (rest_load), then REST == the predictor in process; the 8 utterances
     `wavs` streamed through the single-predictor path == predict_stream,
@@ -4553,7 +4576,7 @@ def phase_eff_stream(dev, flagship, wavs, smi):
 def eff_train_config(corpus, save_dir, max_epoch, dropout=True):
     """configs/efficient_conformer.yml as a dict at its widths (vocabulary
     4000), on phase 12's corpus at B=8, with warmup_steps 8 and accum_grad
-    1 (the config's 4 leaves 4 updates in the run's 16 steps) so that the
+    1 (the config's 4 leaves 2 updates in the run's 8 steps) so that the
     loss falls within the run."""
     conf = train_config(corpus, save_dir, max_epoch, dropout)
     r = 0.1 if dropout else 0.0
@@ -4567,10 +4590,10 @@ def eff_train_config(corpus, save_dir, max_epoch, dropout=True):
 
 def phase_eff_train(dev, corpus, smi):
     """MASRTrainer(dict config, device=cuda).train of the Efficient-
-    Conformer on phase 12's corpus: one epoch of 16 steps at B=8, every
+    Conformer on phase 12's corpus: one epoch of 8 steps at B=8, every
     step 8 + 8 row-3 and 1 + 1 row-4 launches, the loss per label token
     falling; the first step at dropout 0 against the CPU; step walls and
-    the card's idle share over three profiled steps. → (trainer, its
+    the card's idle share over one profiled step. → (trainer, its
     config).
 
     The first step is compared twice (first_step_card_vs_cpu's gates).
@@ -4687,7 +4710,7 @@ def phase_eff_export(dev, trainer, conf, wavs):
 DS2_STREAMS = 8
 ADAM_ATOL = 1e-6          # one fused Adam update vs the unfused one
 FBANK_ATOL = 1e-3         # device fbank vs host fbank, log mel energies
-AUG_STEPS = 8
+AUG_STEPS = TRAIN_STEPS_PER_EPOCH // 2   # one epoch of half_corpus
 
 
 def all_kernels():
@@ -4841,10 +4864,10 @@ def ds2_train_config(corpus, save_dir, max_epoch):
 
 def phase_ds2_train(dev, corpus, wavs, smi):
     """MASRTrainer(dict config, device=cuda).train of the DS2 on phase 12's
-    corpus: 16 steps at B=8, each 1 + 1 row-4 launches and no other row,
+    corpus: 8 steps at B=8, each 1 + 1 row-4 launches and no other row,
     the loss per label token falling; the first step card vs CPU (the loss
     and every grad); step walls, audio s/s and the card's idle share over
-    three profiled steps; export f32 (the bundle's probs == the model's)
+    one profiled step; export f32 (the bundle's probs == the model's)
     and the eval CLI (1 row-4 forward per batch)."""
     from masr_tpu_torch import eval as eval_cli
     from masr_tpu_torch.models.registry import build_model
@@ -4920,7 +4943,7 @@ def phase_ds2_train(dev, corpus, wavs, smi):
 
 
 def half_corpus(corpus, root):
-    """Every other training utterance of phase 12's corpus (64: 8 steps of
+    """Every other training utterance of phase 12's corpus (32: 4 steps of
     8), its test set, vocabulary and CMVN; the manifests also written as
     binary records (data/binary.py); synthetic noise clips beside them and
     configs/augmentation.json with its noise manifest pointed at them."""
@@ -4984,7 +5007,7 @@ def run_aug_train(dev, conf, corpus, root, what):
 
 
 def phase_train_aug(dev, corpus, phase12_rows, phase12_trainer, smi):
-    """The flagship Conformer trained 8 steps with configs/augmentation.json
+    """The flagship Conformer trained 4 steps with configs/augmentation.json
     (noise p 0.5 from synthetic noise beside phase 12's corpus, speed,
     shift, volume, SpecAugment, SpecSub): 12 + 12 row-3 and 1 + 1 row-4
     launches per step, finite losses; the step wall median beside phase
@@ -5009,9 +5032,9 @@ def phase_train_aug(dev, corpus, phase12_rows, phase12_trainer, smi):
     # 4 steps: 2 optimizer updates in each profile at accum_grad 2
     t0 = time.perf_counter()
     same_batch = {
-        "phase12_trainer": profile_train_steps(phase12_trainer, n=4),
+        "phase12_trainer": profile_train_steps(phase12_trainer, n=2),
         "train_aug_trainer": profile_train_steps(
-            trainer, n=4, items_from=phase12_trainer)}
+            trainer, n=2, items_from=phase12_trainer)}
     same_batch["seconds"] = time.perf_counter() - t0
     emit({"phase": "train_aug", "card": smi, "steps": len(rows),
           "augmentors": augmentors, **step_times(rows),
@@ -5065,7 +5088,7 @@ def fused_adam_vs_unfused(dev, trainer):
 
 def phase_train_device_frontend(dev, half, smi):
     """The flagship with dataset_conf.on_device_frontend, optimizer_conf
-    fused and manifest_type binary, trained 8 steps with the augmentation
+    fused and manifest_type binary, trained 4 steps with the augmentation
     config (its specaug and specsub params drive the device frontend):
     the device fbank at dither 0 vs the host fbank on training utterances
     (FBANK_ATOL); one fused Adam update vs the unfused one on the card
@@ -6105,7 +6128,7 @@ def phase_bf16_family(dev, family, path, stream_path, wavs, smi,
 # MASRTrainer
 # --------------------------------------------------------------------------- #
 # steps of each enable_amp run (phase name → steps)
-BF16_TRAIN_STEPS = {"train_bf16": 16, "sq_train_bf16": 8,
+BF16_TRAIN_STEPS = {"train_bf16": 8, "sq_train_bf16": 8,
                     "sq_bn_train_bf16": 8, "eff_train_bf16": 8,
                     "ds2_train_bf16": 8}
 
@@ -7429,7 +7452,7 @@ def phase_subsampling_kernels(dev, wavs, smi):
 
         t4 = {"ms": cuda_ms(lambda: ctc_run(C.ctc_loss), iters=5),
               "plain_ms": cuda_ms(lambda: ctc_run(C.ctc_loss_plain),
-                                  iters=5), **ctc_bound(lg)}
+                                  iters=2, warm=1), **ctc_bound(lg)}
         # one dispatch of 12 chunk layers, kernel vs plain (B=32, c=16)
         state = enc.init_cache(batch=32, cache_size=CACHE, device=dev)
         packed = enc.pack_chunk_params(CACHE)
@@ -7690,6 +7713,380 @@ def phase_small_gaps(dev, corpus, wavs, smi):
                       os.path.getsize(trace), "event_categories": cats}})
 
 
+# phase 68: data and tensor parallelism. Two ranks share the one card
+# over gloo (NCCL refuses two ranks on one device); the trainer's NCCL
+# path runs in this process with a world of one.
+PARALLEL_RANK_ROWS, PARALLEL_STEPS = 8, 2
+# Adam's first steps move each parameter by about its rate (WarmupLR 8:
+# 1.25e-5, then 2.5e-5) whatever the size of its grad, so an element whose
+# grad lies within rounding of 0 may step either way: a parameter may
+# differ by up to two such steps of opposite sign (7.5e-5) without a
+# fault. Gated so: the first update's grads (the ranks' mean) per tensor
+# within GRAD_RTOL of its largest grad (+ GRAD_ATOL), every parameter
+# within PARAM_ATOL, and each tensor's mean difference under PARAM_MEAN,
+# which one wrong update of either step passes only if it moves fewer
+# than 8% of the tensor's elements (1e-6 / 1.25e-5).
+PARALLEL_OPT = dict(optimizer="Adam", weight_decay=1e-6, learning_rate=1e-4,
+                    scheduler="WarmupLR",
+                    scheduler_conf=dict(warmup_steps=8, min_lr=1e-5))
+PARALLEL_GRAD_RTOL, PARALLEL_GRAD_ATOL = 1e-4, 1e-7
+PARALLEL_PARAM_ATOL, PARALLEL_PARAM_MEAN = 1e-4, 1e-6
+
+
+def parallel_model(conf, state, dev):
+    """The flagship of `conf` (a train_config dict) holding `state` (None:
+    as built) on dev."""
+    from masr_tpu_torch.data.normalizer import FeatureNormalizer
+    from masr_tpu_torch.models.cmvn import GlobalCMVN
+    from masr_tpu_torch.models.registry import build_model
+    norm = FeatureNormalizer(conf["dataset_conf"]["mean_istd_path"])
+    model = build_model("conformer", 80, VOCAB, streaming=True,
+                        encoder_conf=conf["encoder_conf"],
+                        decoder_conf=conf["decoder_conf"],
+                        model_conf=conf["model_conf"],
+                        cmvn=GlobalCMVN(norm.mean, norm.istd))
+    if state is not None:
+        model.load_state_dict(state)
+    return model.to(dev)
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parallel_steps(conf, state, batch, dev, grid=None):
+    """PARALLEL_STEPS train steps of the flagship from `state` on `batch`
+    (this rank's rows under `grid`) → per step (loss, wall s, launches),
+    the model, the optimizer, the slices (parallel/tp.py Shards) and the
+    first update's grads (the ranks' mean, before the clip; flat, CPU)."""
+    from masr_tpu_torch.optimizer.schedulers import build_optimizer
+    from masr_tpu_torch.parallel import mesh
+    from masr_tpu_torch.parallel.tp import shard_params
+    from masr_tpu_torch.training import train_state
+    model = mesh.replicate(parallel_model(conf, state, dev), grid)
+    shards = shard_params(model, grid or mesh.Grid())
+    opt, sched, _ = build_optimizer(shards.opt_params(), PARALLEL_OPT)
+    ts = train_state.TrainState(model, opt, sched, grad_clip=5.0,
+                                accum_grad=1, grid=grid, shards=shards)
+    rows = train_state.batch_to(batch, dev)
+    out, grads, apply = [], [], train_state._apply_update
+
+    def recording(st, finite, shards=None):
+        if not grads:
+            grads.append(torch.cat([a.reshape(-1) for a in st.acc]).cpu())
+        return apply(st, finite, shards)
+
+    train_state._apply_update = recording
+    try:
+        for _ in range(PARALLEL_STEPS):
+            reset_train_launches()
+            sync(dev)
+            t0 = time.perf_counter()
+            m = train_state.train_step(ts, rows, 0)
+            sync(dev)
+            out.append({"loss": m["loss"], "finite": m["finite"],
+                        "s": time.perf_counter() - t0,
+                        "launches": list(train_launches())})
+    finally:
+        train_state._apply_update = apply
+    return out, model, opt, shards, grads[0]
+
+
+def param_grad_diffs(model, grads, ref_grads):
+    """Per parameter of `model`: (the largest difference of the flat
+    `grads` from `ref_grads`, the largest |ref_grads|)."""
+    out, i = {}, 0
+    for k, p in model.named_parameters():
+        g, r = grads[i:i + p.numel()], ref_grads[i:i + p.numel()]
+        out[k] = (float((g - r).abs().max()), float(r.abs().max()))
+        i += p.numel()
+    return out
+
+
+def parallel_rank(spec_path, out_path):
+    """A rank of phase 68 (python3 chip_smoke.py --parallel-rank SPEC OUT):
+    joins the gloo group of SPEC's file store on SPEC's device, runs its jobs
+    (tensor_parallel 1, then 2) on its rows of the global batch and writes
+    per step the loss, wall and launches, the grad all-reduce's seconds,
+    the peak device memory, the largest difference of its parameters from
+    SPEC's one-process ones and the moments' shapes to OUT."""
+    from masr_tpu_torch.parallel import mesh
+    from masr_tpu_torch.training import train_state
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    # f32 products and convolutions, as main() and the trainer set them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.maybe_init_distributed(dev, backend="gloo",
+                                init_method="file://" + spec["store"])
+    reduce_s, orig = [], mesh.all_reduce
+
+    def timed_all_reduce(t, *a, **kw):
+        # the flattened grads' all-reduce (the metrics' is 5 floats)
+        if t.numel() < 1024:
+            return orig(t, *a, **kw)
+        sync(dev)
+        t0 = time.perf_counter()
+        r = orig(t, *a, **kw)
+        sync(dev)
+        reduce_s.append(time.perf_counter() - t0)
+        return r
+
+    train_state.mesh.all_reduce = timed_all_reduce
+    results = {}
+    for tp in (1, 2):
+        grid = mesh.make_mesh_2d(tp)
+        rows = mesh.shard_batch(spec["batch"], grid.rank, grid.world)
+        del reduce_s[:]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        steps, model, opt, shards, grads = parallel_steps(
+            spec["conf"], spec["state"], rows, dev, grid)
+        names = [n for n, _ in model.named_parameters()]
+        results[tp] = {
+            "steps": steps, "allreduce_s": list(reduce_s),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None,
+            "rank": grid.rank, "world": grid.world, "tp": grid.tp,
+            "param_diff": {k: (float(d.max()), float(d.mean())) for k, d in (
+                (k, (v.detach().cpu() - spec["ref_params"][k]).abs())
+                for k, v in model.state_dict().items())},
+            "moments": {names[i]: [tuple(opt.state[p][k].shape)
+                                   for k in ("exp_avg", "exp_avg_sq")]
+                        for i, p in enumerate(shards.opt_params())},
+            "ruled": {names[i]: d for i, d in shards.dims.items()},
+            "grad_diff": param_grad_diffs(model, grads, spec["ref_grads"])}
+        del model, opt, shards
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    torch.save(results, out_path)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_corpus(corpus, root, n):
+    """phase 12's corpus cut to its n shortest training utterances (a
+    manifest of its own) → corpus dict."""
+    os.makedirs(root, exist_ok=True)
+    with open(corpus["train"], encoding="utf-8") as f:
+        rows = f.readlines()[:n]
+    out = dict(corpus, train=os.path.join(root, "manifest.train"))
+    with open(out["train"], "w", encoding="utf-8") as f:
+        f.writelines(rows)
+    return out
+
+
+def phase_parallel_train(dev, corpus, smi):
+    """Phase 68: (a) dp = 2 and (b) dp = 1 x tp = 2, two gloo ranks on the
+    card, each 2 steps on 8 rows of a global batch of 16, against one
+    process's 2 steps on the 16 from the same weights (dropout 0): loss
+    rel 1e-5, the first update's grads, every parameter 1e-4 abs and each
+    tensor's mean difference 1e-6 (PARALLEL_OPT's note), 24 row-3 and 2 row-4 launches a
+    rank and step, (b)'s ruled Adam moments half their tensor; (c)
+    MASRTrainer under a NCCL group of one (WORLD_SIZE=1, RANK=0,
+    LOCAL_RANK=0), one epoch of 2 steps: finite losses, the same launches;
+    (d) row 4 on an infeasible batch (B=8, T'=299, two rows with more
+    labels than frames): kernel against the twin, optax's semantics. →
+    ((c)'s row-3 launches, its row-4 launches, (d)'s grad error)."""
+    from masr_tpu_torch.data.collate import collate_fn
+    from masr_tpu_torch.data.dataset import MASRDataset
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
+    from masr_tpu_torch.parallel import mesh
+    from masr_tpu_torch.training import trainer as tr
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n_rows = 2 * PARALLEL_RANK_ROWS
+    small = parallel_corpus(corpus, os.path.join(root, "corpus"), n_rows)
+    conf = train_config(small, root, 1, dropout=False)
+    conf["optimizer_conf"] = PARALLEL_OPT
+    conf["train_conf"] = dict(conf["train_conf"], accum_grad=1,
+                              log_interval=1)
+    ds = MASRDataset(PREPROCESS, small["train"], small["vocab"], train=False)
+    batch = collate_fn([ds[i] for i in range(n_rows)], shuffle=False)
+    seed_model = parallel_model_init(conf)
+    state = {k: v.detach().cpu() for k, v in seed_model.state_dict().items()}
+    del seed_model
+    n = FLAGSHIP_ENCODER["num_blocks"]
+    want = [2 * n, n, 2, 1]
+
+    # the one process's reference, B=16
+    ref, ref_model, _, _, ref_grads = parallel_steps(conf, state, batch, dev)
+    ref_params = {k: v.detach().cpu() for k, v in
+                  ref_model.state_dict().items()}
+    del ref_model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for st in ref:
+        check(st["finite"] and st["launches"] == want,
+              f"parallel reference step launches {st['launches']} == {want}")
+
+    # (a), (b): two ranks over gloo on the card
+    spec = os.path.join(root, "spec.pt")
+    torch.save({"store": os.path.join(root, "store"), "conf": conf,
+                "state": state, "batch": batch, "device": str(dev),
+                "ref_params": ref_params, "ref_grads": ref_grads}, spec)
+    env = dict(os.environ, WORLD_SIZE="2")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", spec,
+         os.path.join(root, f"rank{r}.pt")],
+        env=dict(env, RANK=str(r), LOCAL_RANK="0")) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"parallel ranks exit {[p.returncode for p in procs]}")
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    summary = {}
+    for tp, name in ((1, "dp2"), (2, "tp2")):
+        diffs, gdiff = {}, {}
+        for r in ranks:
+            for k, (d, m) in r[tp]["param_diff"].items():
+                d0, m0 = diffs.get(k, (0.0, 0.0))
+                diffs[k] = (max(d, d0), max(m, m0))
+            for k, (d, g) in r[tp]["grad_diff"].items():
+                gdiff[k] = (max(d, gdiff.get(k, (0.0,))[0]), g)
+        worst_param = max(diffs.items(), key=lambda kv: kv[1][0])
+        worst_mean = max(diffs.items(), key=lambda kv: kv[1][1])
+        # each tensor's grad difference over its gate
+        grad_share = {k: d / (PARALLEL_GRAD_RTOL * g + PARALLEL_GRAD_ATOL)
+                      for k, (d, g) in gdiff.items()}
+        worst_grad = max(grad_share, key=grad_share.get)
+        for r in ranks:
+            res = r[tp]
+            check((res["world"], res["tp"]) == (2, tp),
+                  f"{name}: grid {res['world']} x {res['tp']}")
+            for st, st_ref in zip(res["steps"], ref):
+                check(st["launches"] == want, f"{name} rank {res['rank']} "
+                      f"launches {st['launches']} == {want}")
+                check(abs(st["loss"] - st_ref["loss"])
+                      <= 1e-5 * abs(st_ref["loss"]),
+                      f"{name} loss {st['loss']} vs one process "
+                      f"{st_ref['loss']}")
+        check(grad_share[worst_grad] <= 1.0, f"{name} first update's grads "
+              f"vs one process: {worst_grad} {gdiff[worst_grad]}")
+        check(worst_param[1][0] <= PARALLEL_PARAM_ATOL, f"{name} params vs "
+              f"one process: {worst_param}")
+        check(worst_mean[1][1] <= PARALLEL_PARAM_MEAN, f"{name} params' mean "
+              f"difference vs one process: {worst_mean}")
+        if tp == 2:
+            ruled = ranks[0][2]["ruled"]
+            check(len(ruled) >= 6 * n, f"tp2: {len(ruled)} ruled leaves")
+            shapes = {k: tuple(v.shape) for k, v in ref_params.items()}
+            for r in ranks:
+                for k, d in ruled.items():
+                    half = list(shapes[k])
+                    half[d] //= 2
+                    check(r[2]["moments"][k] == [tuple(half)] * 2,
+                          f"tp2 rank {r[2]['rank']} moments of {k}")
+        summary[name] = {
+            "max_param_diff": worst_param,
+            "max_param_mean_diff": worst_mean,
+            "grad_diff_worst": (worst_grad, gdiff[worst_grad],
+                                grad_share[worst_grad]),
+            "loss": [st["loss"] for st in ranks[0][tp]["steps"]],
+            "loss_one_process": [st["loss"] for st in ref],
+            "step_s": [[st["s"] for st in r[tp]["steps"]] for r in ranks],
+            "allreduce_s": [r[tp]["allreduce_s"] for r in ranks],
+            "peak_bytes": [r[tp]["peak_bytes"] for r in ranks],
+            "launches_per_step": want}
+    summary["one_process_step_s"] = [st["s"] for st in ref]
+
+    # (c): the trainer over NCCL, a world of one
+    nccl_root = os.path.join(root, "nccl")
+    nccl_conf = dict(conf, log_dir=os.path.join(nccl_root, "log"))
+    nccl_conf["dataset_conf"] = dict(conf["dataset_conf"],
+                                     batch_size=PARALLEL_RANK_ROWS)
+    keep = {k: os.environ.get(k) for k in ("WORLD_SIZE", "RANK",
+                                           "LOCAL_RANK")}
+    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    torch.distributed.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        trainer = tr.MASRTrainer(nccl_conf, device=dev)
+        check(trainer.grid.distributed and trainer.world == 1
+              and torch.distributed.get_backend() == "nccl",
+              "the trainer joined the NCCL group")
+        summary["nccl"] = {"backend": torch.distributed.get_backend()}
+        rows = []
+        reset_train_launches()
+        with clocked_train_steps(rows):
+            trainer.train(save_model_path=os.path.join(nccl_root, "models"),
+                          augment_conf_path=None)
+        launched = train_launches()
+    finally:
+        torch.distributed.destroy_process_group()
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(len(rows) == PARALLEL_STEPS, f"nccl trainer steps {len(rows)}")
+    for r in rows:
+        check(r["finite"] and r["launches"] == want,
+              f"nccl trainer step launches {r['launches']} == {want}")
+    summary["nccl"].update(steps=len(rows), loss=[r["loss"] for r in rows],
+                           step_s=[r["s"] for r in rows],
+                           launches_per_step=want)
+
+    # (d): row 4 on an infeasible batch
+    logits, lens, labels, label_lens = ctc_inputs(dev, seed=68)
+    lens[0], lens[1] = 4, 60
+    label_lens[1] = 80
+    g = torch.Generator().manual_seed(69)
+    labels[1] = torch.randint(1, VOCAB - 1, (80,), generator=g).to(dev)
+    wts = torch.randn(8, generator=g).to(dev)
+    out = {}
+    for name, fn, dt in (("kernel", C.ctc_loss, torch.float32),
+                         ("plain", C.ctc_loss_plain, torch.float32),
+                         ("f64", C.ctc_loss_plain, torch.float64)):
+        lg = logits.detach().to(dt).clone().requires_grad_(True)
+        before = C.ctc_loss.launches
+        nll = fn(lg, lens, labels, label_lens)
+        (nll * wts.to(dt)).sum().backward()
+        sync(dev)
+        out[name] = (nll.detach().double(), lg.grad.double(),
+                     C.ctc_loss.launches - before)
+    (n_k, g_k, launched_k), (n_p, g_p, _), (n_64, g_64, _) = (
+        out["kernel"], out["plain"], out["f64"])
+    check(launched_k == 2, f"infeasible CTC launches {launched_k} == 2")
+    nll_err = float(((n_k - n_p).abs() / n_p.abs()).max())
+    check(nll_err <= 1e-5, f"infeasible CTC NLL kernel vs twin {nll_err}")
+    k64 = float((g_k - g_64).abs().max())
+    p64 = float((g_p - g_64).abs().max())
+    check(k64 <= max(2 * p64, 1e-4), f"infeasible CTC grad {k64} vs twin "
+          f"{p64}")
+    check(all(1e5 < float(n_k[b]) < 1.01e5 for b in (0, 1))
+          and float(n_k[2:].max()) < 1e4,
+          f"infeasible CTC NLL {n_k[:3].tolist()}")
+    summary["ctc_infeasible"] = {
+        "nll": n_k[:2].tolist(), "nll_rel_err": nll_err,
+        "grad_err_vs_f64": k64, "twin_grad_err_vs_f64": p64}
+    emit({"phase": "parallel_train", "card": smi, **summary,
+          "seconds": time.perf_counter() - t_phase})
+    return launched[0], launched[2], k64
+
+
+def parallel_model_init(conf):
+    """The flagship of `conf` on the CPU with flax_like_init's weights of
+    seed 68."""
+    from masr_tpu_torch.models.weights import flax_like_init
+    model = parallel_model(conf, None, "cpu")
+    flax_like_init(model, torch.Generator().manual_seed(68))
+    return model
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7844,6 +8241,7 @@ def main():
     slice16 = phase_subsampling_kernels(dev, wavs, smi)
     eager_flash = phase_eager_routes(dev, wavs, smi)
     phase_small_gaps(dev, corpus, wavs, smi)
+    p_row3, p_row4, p_ctc_err = phase_parallel_train(dev, corpus, smi)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -7879,7 +8277,7 @@ def main():
         "name": "fused_conformer_layer_train", "route": "cuda",
         "source": "masr_tpu_torch/csrc/conformer_layer_train.cu",
         "replaces": "masr_tpu/ops/pallas/conformer_layer_train.py:674",
-        "launches": t_launches[0] + slice16["row3"],
+        "launches": t_launches[0] + slice16["row3"] + p_row3,
         "max_abs_err": train_err,
         "ms": t_layer["ms"], "plain_ms": t_layer["plain_ms"],
         "bound_ms": t_layer["bound_ms"], "bound_by": t_layer["bound_by"],
@@ -7887,8 +8285,8 @@ def main():
         "name": "ctc_loss", "route": "cuda",
         "source": "masr_tpu_torch/csrc/ctc_loss.cu",
         "replaces": "masr_tpu/ops/pallas/ctc_loss.py:158",
-        "launches": t_launches[2] + slice16["row4"],
-        "max_abs_err": ctc_err,
+        "launches": t_launches[2] + slice16["row4"] + p_row4,
+        "max_abs_err": max(ctc_err, p_ctc_err),
         "ms": t_ctc["ms"], "plain_ms": t_ctc["plain_ms"],
         "bound_ms": t_ctc["bound_ms"], "bound_by": t_ctc["bound_by"],
         "library_ms": t_ctc["library_ms"]}, {
@@ -7969,4 +8367,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -51,8 +51,10 @@
 // grads come from one product (split over K in a fixed order on few tiles)
 // or one column sum over all B*T' rows: deterministic, no atomics.
 //
-// Dropout: common.cuh's dropout_mult hash of (seed[b], layer, site, b, row,
-// col), so the backward regenerates the forward's masks and the plain twin
+// Dropout: common.cuh's dropout_mult hash of (seed[b], layer, site, row0 +
+// b, row, col), row0 the global batch row of utterance 0 (so a row draws
+// the same mask whichever data-parallel rank runs it), so the backward
+// regenerates the forward's masks and the plain twin
 // (ops/cuda/conformer_layer_train.py) draws the same ones. Sites: 0 macaron
 // hidden (t, f), 1 macaron out (t, d), 2 attention probs (h*T'+t1, t2),
 // 3 attention out, 4 conv out, 5 FFN hidden, 6 FFN out.
@@ -200,7 +202,8 @@ cudaError_t forward_rows(float* S, const Saved& L, const unsigned char* mask,
   const size_t MD = (size_t)M * D, DF = (size_t)D * F;
   float* xw = S + L.xw;
   auto drop = [&](int site) {
-    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale);
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
+                     d.row0);
   };
 
   // macaron FFN (x ff_scale)
@@ -216,7 +219,7 @@ cudaError_t forward_rows(float* S, const Saved& L, const unsigned char* mask,
   TRY(att_fwd<OT>(S + L.y[1], w.attw, w.vecb + 2 * D, w.posb, w.posp, mask,
                   att_bufs(S, L), xw, xw,
                   make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
-                            d.att_keep_scale),
+                            d.att_keep_scale, d.row0),
                   drop(kSiteAttOut), B, T, D, H, st));
   if (is_bf16<OT>) TRY(round_bf16(xw, (long long)MD, st));   // x2
 
@@ -264,7 +267,8 @@ cudaError_t backward_rows(const float* dy, float* S, const Saved& L,
   float *dh = scratch + W.dh, *dg = scratch + W.dg, *dP = scratch + W.dP,
         *part = scratch + W.part;
   auto drop = [&](int site) {
-    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale);
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
+                     d.row0);
   };
 
   // final LN, FFN
@@ -290,7 +294,7 @@ cudaError_t backward_rows(const float* dy, float* S, const Saved& L,
   // attention (its input grad into t[1]), its LN
   TRY(att_bwd<OT>(dxw, S + L.y[1], w.attw, w.posp, att_bufs(S, L),
                   make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
-                            d.att_keep_scale),
+                            d.att_keep_scale, d.row0),
                   drop(kSiteAttOut), g.dattw, g.dvecb + 2 * D, g.dposb,
                   g.dposp, nullptr, t[1], t, dP, part, B, T, D, H, st));
   TRY(ln_bwd(t[1], S + L.xhat[1], S + L.rstd[1], w.lnw, g.dlnw, 1, dxw, dxw,
@@ -334,7 +338,7 @@ extern "C" int masr_conformer_layer_train_forward(
     const float* attw, const float* posb, const float* pw1w,
     const float* pw1b, const float* pw2w, const float* dww, float* out,
     float* saved, int B, int T, int D, int F, int n_head, int ksize,
-    int causal, int layer, unsigned thresh, float keep_scale,
+    int causal, int layer, int row0, unsigned thresh, float keep_scale,
     unsigned att_thresh, float att_keep_scale, float ff_scale, float eps,
     void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
@@ -348,8 +352,8 @@ extern "C" int masr_conformer_layer_train_forward(
                      attw, posb, pw1w, pw1b, pw2w, dww};
   MASR_CHECK(forward_rows<float>(
       saved, L, mask, seeds, lens, w, out,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       ff_scale, eps, st));
   return (int)cudaGetLastError();
 }
@@ -364,7 +368,7 @@ extern "C" int masr_conformer_layer_train_forward_bf16(
     const float* vecb, const bf16_t* attw, const float* posb,
     const bf16_t* pw1w, const float* pw1b, const bf16_t* pw2w,
     const float* dww, bf16_t* out, float* saved, int B, int T, int D, int F,
-    int n_head, int ksize, int causal, int layer, unsigned thresh,
+    int n_head, int ksize, int causal, int layer, int row0, unsigned thresh,
     float keep_scale, unsigned att_thresh, float att_keep_scale,
     float ff_scale, float eps, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
@@ -386,8 +390,8 @@ extern "C" int masr_conformer_layer_train_forward_bf16(
                      S + L.w.pw1w, pw1b,         S + L.w.pw2w, dww};
   MASR_CHECK(forward_rows<bf16_t>(
       S, L, mask, seeds, lens, w, out,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       ff_scale, eps, st));
   return (int)cudaGetLastError();
 }
@@ -403,7 +407,7 @@ extern "C" int masr_conformer_layer_train_backward(
     float* dx, float* dposp, float* dlnw, float* dffw1, float* dffb1,
     float* dffw2, float* dvecb, float* dattw, float* dposb, float* dpw1w,
     float* dpw1b, float* dpw2w, float* ddww, int B, int T, int D, int F,
-    int n_head, int ksize, int causal, int layer, unsigned thresh,
+    int n_head, int ksize, int causal, int layer, int row0, unsigned thresh,
     float keep_scale, unsigned att_thresh, float att_keep_scale,
     float ff_scale, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
@@ -417,8 +421,8 @@ extern "C" int masr_conformer_layer_train_backward(
   MASR_CHECK(backward_rows<float>(
       dy, saved, saved_layout(B, T, D, F, H, false), scratch,
       scratch_layout(B, T, D, F, H, false), seeds, lens, w, g, dx,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       ff_scale, st));
   return (int)cudaGetLastError();
 }
@@ -434,7 +438,7 @@ extern "C" int masr_conformer_layer_train_backward_bf16(
     bf16_t* dx, bf16_t* dposp, float* dlnw, bf16_t* dffw1, float* dffb1,
     bf16_t* dffw2, float* dvecb, bf16_t* dattw, float* dposb, bf16_t* dpw1w,
     float* dpw1b, bf16_t* dpw2w, float* ddww, int B, int T, int D, int F,
-    int n_head, int ksize, int causal, int layer, unsigned thresh,
+    int n_head, int ksize, int causal, int layer, int row0, unsigned thresh,
     float keep_scale, unsigned att_thresh, float att_keep_scale,
     float ff_scale, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
@@ -454,8 +458,8 @@ extern "C" int masr_conformer_layer_train_backward_bf16(
                    G + W.gw.pw1w, dpw1b, G + W.gw.pw2w, ddww};
   MASR_CHECK(backward_rows<bf16_t>(
       G + W.dyw, S, L, scratch, W, seeds, lens, w, g, G + W.dxf,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       ff_scale, st));
   MASR_CHECK(convert(G + W.dxf, dx, (long long)MD, st));
   MASR_CHECK(convert(G + W.gw.posp, dposp, (long long)T * D, st));

@@ -3,13 +3,31 @@
 //
 // Replaces the TPU kernel masr_tpu/ops/pallas/ctc_loss.py:158
 // (`ctc_loss_pallas`, entry `ctc_loss` :283; pallas_calls :212 alpha and
-// :254 beta/occupancy). Same semantics as optax.ctc_loss: blank-interleaved
-// label states s = 0 .. 2L (even: blank, odd: label (s-1)/2), the skip
-// s-2 -> s allowed into a label that differs from the label before it,
-// right-padded logits and labels, frames t >= tlen frozen. -1e30 stands
-// for -inf (as the Pallas kernel), so no (-inf) - (-inf) NaN arises; an
-// infeasible alignment gives a loss near 1e30, not NaN, and occupancies
-// exp(clip(alpha + beta - log Z, -1e30, 0)) as the Pallas kernel's.
+// :254 beta/occupancy). Same semantics as optax.ctc_loss, masr_tpu's CPU
+// route: blank-interleaved label states s = 0 .. 2L (even: blank, odd:
+// label (s-1)/2), right-padded logits and labels, frames t >= tlen
+// frozen. optax's log_epsilon = -1e5 stands for log 0 in its initial rows
+// (every state but s = 0 starts at -1e5) and in the skip s-2 -> s into a
+// label equal to the one before it; -1e30 (kNeg2) bars the rest. An
+// alignment that needs more frames than it has is so finite: 1e5 + the
+// cost of its paths with one -1e5 step (one step off the start reaches
+// any state, so no path needs two). Each state carries a class, the least
+// number of -1e5 steps of the paths into it, beside its log-prob, the sum
+// over those paths only: a term of a higher class than the least of a
+// state's three drops out (it weighs exp(-1e5) less), and 1e5 x the
+// class of log Z is added to the NLL once, in f64, so the paths' costs
+// keep their precision. A state's occupancy counts where its alpha and
+// beta classes add up to log Z's. tlen = 0 reads the rows before frame 0:
+// NLL 0 for an empty label, 1e5 - ln 2 otherwise, no grad.
+//
+// Only such rows carry the classes. A row whose frames fit its labels
+// (min(tlen, T) >= L + the number of labels equal to the one before, tlen
+// >= 1: a path with no -1e5 step exists) has log Z of class 0, and there
+// the classes only drop terms of class 1, which weigh 2^-1e5 = 0 beside
+// any of class 0: its chains run without them, -1e30 standing for every
+// -1e5 (`skip_add`, the initial rows' s >= 2), as before optax's
+// semantics were followed. The choice is per row and so per block, from
+// the labels, before the chain.
 //
 // Three kernels, two C entries:
 //   forward:  ctc_gather_kernel  one block per (b, t): log-sum-exp over V in
@@ -23,7 +41,8 @@
 //                                B..2B-1 (only when a grad is wanted) its
 //                                beta recursion, at the same time
 //   backward: ctc_grad_kernel    one block per (b, t): the occupancies from
-//                                alpha + beta - log Z, the row's softmax from
+//                                alpha + beta - log Z and the classes, the
+//                                row's softmax from
 //                                the forward's lse, one read of the logits
 //                                and one write of the grads, the scatter by
 //                                token group
@@ -48,8 +67,9 @@
 // |log Z| ~ 3e3, rounded ~1e-3 into the occupancies). The max of step k-1
 // is reduced while step k computes, off the chain. Each state takes
 // hi + log2(1 + 2^(lo1-hi) + 2^(lo2-hi)): two ex2.approx and one
-// lg2.approx. Stored: alpha and beta (B, T, S) f32 and one f64 offset per
-// (b, t) each; log Z in f64. ops/cuda/ctc_loss.py `ctc_scheme_mirror`
+// lg2.approx, of the terms of the least class. Stored: alpha and beta
+// (B, T, S) f32, their classes (B, T, S) u8 (rows that need them) and one
+// f64 offset per (b, t) each; log Z in f64 and its class. ops/cuda/ctc_loss.py `ctc_scheme_mirror`
 // repeats this scheme in PyTorch for the CPU tests.
 //
 // The scatter. Each sequence's table groups its states by token in s
@@ -68,7 +88,10 @@ namespace {
 
 constexpr float kNeg2 = -1.4426950408889634e30f;  // -1e30 in log2 units
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLog2of3 = 1.5849625007211562f;
 constexpr double kLn2 = 0.6931471805599453;
+constexpr double kPenalty = 1.0e5;  // -log_epsilon of optax.ctc_loss
+constexpr float kDead = 2.f;        // the class of a state no path reaches
 constexpr int kMaxK = 8;        // states per lane
 constexpr int kMaxWarps = 8;    // warps of a register chain
 constexpr int kAhead = 8;       // frames of log-probs loaded ahead
@@ -94,6 +117,15 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
   return hi + lg2(1.f + ex2(lo1 - hi) + ex2(lo2 - hi));
 }
 
+// lse3 of the terms of the least class of three (class, value) terms;
+// *cm the least class, at most kDead
+__device__ __forceinline__ float lse3c(float a, float ca, float b, float cb,
+                                      float c, float cc, float* cm) {
+  const float m = fminf(fminf(ca, cb), cc);
+  *cm = fminf(m, kDead);
+  return lse3(ca == m ? a : kNeg2, cb == m ? b : kNeg2, cc == m ? c : kNeg2);
+}
+
 // label i of a sequence, a negative id read as 0 (as the plain twin's clamp)
 __device__ __forceinline__ int label_at(const int* lab, int i) {
   return max(lab[i], 0);
@@ -103,13 +135,39 @@ __device__ __forceinline__ int state_token(const int* lab, int s, int blank) {
   return (s & 1) ? label_at(lab, (s - 1) / 2) : blank;
 }
 
-// skip s-2 -> s allowed: s odd, s >= 3, a state of this sequence, its label
-// differs from the one before (0 / kNeg2 additive)
+// skip s-2 -> s of a row without classes: 0 into a label that differs
+// from the one before it, else kNeg2 (s even, s < 3, past the sequence,
+// the same label)
 __device__ __forceinline__ float skip_add(const int* lab, int s, int n) {
   return ((s & 1) && s >= 3 && s < n &&
           label_at(lab, (s - 1) / 2) != label_at(lab, (s - 3) / 2))
              ? 0.f
              : kNeg2;
+}
+
+// the -1e5 steps of the skip s-2 -> s: 0 into a label that differs from
+// the one before, 1 into the same label, kDead where there is no skip (s
+// even, s < 3, past the sequence)
+__device__ __forceinline__ float skip_class(const int* lab, int s, int n) {
+  if (!((s & 1) && s >= 3 && s < n)) return kDead;
+  return label_at(lab, (s - 1) / 2) == label_at(lab, (s - 3) / 2) ? 1.f
+                                                                   : 0.f;
+}
+
+// state s at frame 0, one step from optax's initial rows (s = 0 at class 0,
+// every other state at class 1, log-prob 0): s = 0, 1 at class 0, a blank
+// from two class-1 terms, a label from three (two past a repeat); *c its
+// class; lp0 its log-prob at frame 0
+__device__ __forceinline__ float alpha_start(const int* lab, int s, int n,
+                                             float lp0, float* c) {
+  if (s >= n) {
+    *c = kDead;
+    return kNeg2;
+  }
+  *c = s >= 2 ? 1.f : 0.f;
+  if (s < 2) return lp0;
+  if (!(s & 1)) return 1.f + lp0;
+  return (skip_class(lab, s, n) == 0.f ? kLog2of3 : 1.f) + lp0;
 }
 
 // online log-sum-exp pair (m, s): s = sum exp(x - m)
@@ -140,6 +198,9 @@ struct Scratch {
   float* lp;       // (B, T, ldp) state log-probs, log2 units, kNeg2 past n
   float* alpha;    // (B, T, S) relative to off_a
   float* beta;     // (B, T, S) relative to off_b
+  unsigned char* cls_a;  // (B, T, S) class of each alpha
+  unsigned char* cls_b;  // (B, T, S) class of each beta
+  int* kz;         // (B,) class of log Z
   int* order;      // (B, S) states grouped by token, s order in a group
   int* gbeg;       // (B, S + 1) start of each group in order
   int* ngroups;    // (B,)
@@ -193,6 +254,12 @@ inline size_t carve(char* base, int B, int T, int S, Scratch* sc) {
   if (sc) sc->alpha = (float*)p;
   p = take(4 * bts);
   if (sc) sc->beta = (float*)p;
+  p = take(bts);
+  if (sc) sc->cls_a = (unsigned char*)p;
+  p = take(bts);
+  if (sc) sc->cls_b = (unsigned char*)p;
+  p = take(4 * (size_t)B);
+  if (sc) sc->kz = (int*)p;
   p = take(4 * bs);
   if (sc) sc->order = (int*)p;
   p = take(4 * (bs + B));
@@ -315,21 +382,54 @@ __device__ __forceinline__ int beta_frames(int tlen, int T) {
   return (tlen >= 1 && tlen <= T) ? tlen : 0;
 }
 
-// log2 Z of sequence b from the stored alpha row of its last frame
+// whether sequence b needs the classes: no frame, or fewer frames than
+// its labels and the blanks between equal neighbours take (every path then
+// has a -1e5 step). Every thread of the block calls it.
+__device__ bool needs_classes(const int* lab, int nlab, int tlen, int T) {
+  __shared__ int repeats;
+  if (threadIdx.x == 0) repeats = 0;
+  __syncthreads();
+  int r = 0;
+  for (int i = 1 + threadIdx.x; i < nlab; i += blockDim.x)
+    r += label_at(lab, i) == label_at(lab, i - 1);
+  if (r) atomicAdd(&repeats, r);
+  __syncthreads();
+  return tlen <= 0 || min(tlen, T) < nlab + repeats;
+}
+
+// log2 Z of sequence b and its class from the stored alpha row of its
+// last frame, or (no frame) from the rows before frame 0. kz[b] = -1
+// marks a row whose chains ran without classes (class 0).
 __device__ void finish_logz(const Scratch& sc, float* nll, int b, int T,
-                            int S, int n, int te) {
+                            int S, int n, int te, bool cls, bool no_frame) {
   if (threadIdx.x != 0) return;
-  const float* a = sc.alpha + ((size_t)b * T + te - 1) * S;
-  const double a1 = a[n - 1], a2 = n >= 2 ? a[n - 2] : (double)kNeg2;
-  const double hi = fmax(a1, a2), lo = fmin(a1, a2);
-  const double lz = sc.off_a[(size_t)b * T + te - 1] + hi +
-                    log2(1.0 + exp2(lo - hi));
+  int kz = 0;
+  double lz;
+  if (no_frame) {
+    kz = n >= 2;
+    lz = n >= 2 ? 1.0 : 0.0;
+  } else {
+    const size_t row = ((size_t)b * T + te - 1) * S;
+    const float* a = sc.alpha + row;
+    double a1 = a[n - 1], a2 = n >= 2 ? a[n - 2] : (double)kNeg2;
+    if (cls) {
+      const unsigned char* ca = sc.cls_a + row;
+      const int c1 = ca[n - 1], c2 = n >= 2 ? ca[n - 2] : (int)kDead;
+      kz = min(c1, c2);
+      if (c1 != kz) a1 = kNeg2;
+      if (c2 != kz) a2 = kNeg2;
+    }
+    const double hi = fmax(a1, a2), lo = fmin(a1, a2);
+    lz = sc.off_a[(size_t)b * T + te - 1] + hi + log2(1.0 + exp2(lo - hi));
+  }
   sc.logz[b] = lz;
-  nll[b] = (float)(-lz * kLn2);
+  sc.kz[b] = cls ? kz : -1;
+  nll[b] = (float)(kz * kPenalty - lz * kLn2);
 }
 
 struct Bound {
   float lo0, lo1, hi0, hi1, pmax;
+  float clo0, clo1, chi0, chi1;  // their classes
 };
 
 // one chain held in registers: W = blockDim.x / 32 warps, lane l of warp w
@@ -337,11 +437,12 @@ struct Bound {
 // kAhead with no branch inside a group: a step past the chain's end
 // computes and is dropped, so the log-prob loads of a step, issued kAhead
 // steps ahead from clamped in-bounds addresses of the padded lp rows, are
-// waited on only where they are used.
-template <int K, bool kBeta>
+// waited on only where they are used. kCls: each state carries its class
+// (a row that needs_classes); else -1e30 bars every -1e5 step.
+template <int K, bool kBeta, bool kCls>
 __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
                            float* nll, int b, int n, int frames, int T,
-                           int S) {
+                           int S, bool no_frame) {
   constexpr int E = kBeta ? K + 2 : K;  // log-probs a lane reads a frame
   __shared__ Bound bnd[2][kMaxWarps];
   const int W = blockDim.x / 32, warp = threadIdx.x / 32,
@@ -349,6 +450,7 @@ __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
   const int s0 = (warp * 32 + lane) * K;
   const float* lpb = sc.lp + (size_t)b * T * sc.ldp;
   float* out = (kBeta ? sc.beta : sc.alpha) + (size_t)b * T * S;
+  unsigned char* cout = (kBeta ? sc.cls_b : sc.cls_a) + (size_t)b * T * S;
   double* off = (kBeta ? sc.off_b : sc.off_a) + (size_t)b * T;
   // alpha: step k makes frame k from the log-probs of frame k;
   // beta: step k makes frame frames-1-k from those of frame frames-k
@@ -357,17 +459,30 @@ __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
     return kBeta ? max(frames - k, 0) : min(k, T - 1);
   };
 
-  float skip[K];  // additive skip into s (alpha) or into s + 2 (beta)
-  float v[K];
+  // the skip into s (alpha) or into s + 2 (beta): the class it adds
+  // (kCls), else 0 / kNeg2 added to its term
+  float skip[K];
+  float v[K], c[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
     const int s = s0 + i;
-    skip[i] = skip_add(lab, kBeta ? s + 2 : s, n);
-    if constexpr (kBeta)
-      v[i] = (s == n - 1 || (s == n - 2 && n >= 2)) ? 0.f : kNeg2;
-    else
+    skip[i] = kCls ? skip_class(lab, kBeta ? s + 2 : s, n)
+                   : skip_add(lab, kBeta ? s + 2 : s, n);
+    if constexpr (kBeta) {
+      const bool term = s == n - 1 || (s == n - 2 && n >= 2);
+      v[i] = term ? 0.f : kNeg2;
+      c[i] = term ? 0.f : kDead;
+    } else if constexpr (kCls) {
+      v[i] = alpha_start(lab, s, n, s < n ? lpb[s] : kNeg2, &c[i]);
+    } else {
       v[i] = s < 2 ? lpb[s] : kNeg2;
-    if (s < S) out[(size_t)frame_of(0) * S + s] = v[i];
+      c[i] = 0.f;
+    }
+    if (s < S) {
+      out[(size_t)frame_of(0) * S + s] = v[i];
+      if constexpr (kCls)
+        cout[(size_t)frame_of(0) * S + s] = (unsigned char)c[i];
+    }
   }
   if (threadIdx.x == 0) off[frame_of(0)] = 0.0;
 
@@ -384,11 +499,19 @@ __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
     if (lane == 0) {
       bnd[par][warp].lo0 = v[0];
       bnd[par][warp].lo1 = K >= 2 ? v[K >= 2 ? 1 : 0] : kNeg2;
+      if constexpr (kCls) {
+        bnd[par][warp].clo0 = c[0];
+        bnd[par][warp].clo1 = K >= 2 ? c[K >= 2 ? 1 : 0] : kDead;
+      }
       bnd[par][warp].pmax = pm;
     }
     if (lane == 31) {
       bnd[par][warp].hi0 = K >= 2 ? v[K >= 2 ? K - 2 : 0] : kNeg2;
       bnd[par][warp].hi1 = v[K - 1];
+      if constexpr (kCls) {
+        bnd[par][warp].chi0 = K >= 2 ? c[K >= 2 ? K - 2 : 0] : kDead;
+        bnd[par][warp].chi1 = c[K - 1];
+      }
     }
   };
   if (W > 1) {
@@ -410,47 +533,105 @@ __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
       for (int i = 1; i < K; ++i) pm = fmaxf(pm, v[i]);
       pm = warp_max(pm);
       const int par = (k - 1) & 1;
-      float ext[K + 2], nv[K];
+      float ext[K + 2], ec[K + 2], nv[K], nc[K];
       if constexpr (!kBeta) {
         // ext[0] = v(s0-2), ext[1] = v(s0-1), ext[2 + i] = v(s0+i)
         float p1 = __shfl_up_sync(kFull, v[K - 1], 1);
         float p2 = K >= 2 ? __shfl_up_sync(kFull, v[K >= 2 ? K - 2 : 0], 1)
                           : __shfl_up_sync(kFull, v[0], 2);
+        float q1 = kDead, q2 = kDead;
+        if constexpr (kCls) {
+          q1 = __shfl_up_sync(kFull, c[K - 1], 1);
+          q2 = K >= 2 ? __shfl_up_sync(kFull, c[K >= 2 ? K - 2 : 0], 1)
+                      : __shfl_up_sync(kFull, c[0], 2);
+        }
         if (lane == 0) {
           p1 = warp > 0 ? bnd[par][warp - 1].hi1 : kNeg2;
           p2 = warp > 0 ? bnd[par][warp - 1].hi0 : kNeg2;
+          if constexpr (kCls) {
+            q1 = warp > 0 ? bnd[par][warp - 1].chi1 : kDead;
+            q2 = warp > 0 ? bnd[par][warp - 1].chi0 : kDead;
+          }
         }
-        if (K == 1 && lane == 1) p2 = kNeg2;  // K = 1 runs one warp
+        if (K == 1 && lane == 1) {  // K = 1 runs one warp
+          p2 = kNeg2;
+          q2 = kDead;
+        }
         ext[0] = s0 >= 2 ? p2 : kNeg2;
         ext[1] = s0 >= 1 ? p1 : kNeg2;
+        ec[0] = s0 >= 2 ? q2 : kDead;
+        ec[1] = s0 >= 1 ? q1 : kDead;
 #pragma unroll
-        for (int i = 0; i < K; ++i) ext[2 + i] = v[i];
+        for (int i = 0; i < K; ++i) {
+          ext[2 + i] = v[i];
+          ec[2 + i] = c[i];
+        }
 #pragma unroll
-        for (int i = 0; i < K; ++i)
-          nv[i] = lse3(ext[2 + i], ext[1 + i], ext[i] + skip[i]) +
-                  pre[j][i] - r;
+        for (int i = 0; i < K; ++i) {
+          if constexpr (kCls) {
+            float cm;
+            const float x = lse3c(ext[2 + i], ec[2 + i], ext[1 + i],
+                                  ec[1 + i], ext[i], ec[i] + skip[i], &cm);
+            const bool live = s0 + i < n && cm < kDead;
+            nv[i] = live ? x + pre[j][i] - r : kNeg2;
+            nc[i] = live ? cm : kDead;
+          } else {
+            nv[i] = lse3(ext[2 + i], ext[1 + i], ext[i] + skip[i]) +
+                    pre[j][i] - r;
+          }
+        }
       } else {
         // ext[i] = z(s0+i) = v + lp, i < K + 2
         float n1 = __shfl_down_sync(kFull, v[0], 1);
         float n2 = K >= 2 ? __shfl_down_sync(kFull, v[K >= 2 ? 1 : 0], 1)
                           : __shfl_down_sync(kFull, v[0], 2);
+        float m1 = kDead, m2 = kDead;
+        if constexpr (kCls) {
+          m1 = __shfl_down_sync(kFull, c[0], 1);
+          m2 = K >= 2 ? __shfl_down_sync(kFull, c[K >= 2 ? 1 : 0], 1)
+                      : __shfl_down_sync(kFull, c[0], 2);
+        }
         if (lane == 31) {
           n1 = warp + 1 < W ? bnd[par][warp + 1].lo0 : kNeg2;
           n2 = warp + 1 < W ? bnd[par][warp + 1].lo1 : kNeg2;
+          if constexpr (kCls) {
+            m1 = warp + 1 < W ? bnd[par][warp + 1].clo0 : kDead;
+            m2 = warp + 1 < W ? bnd[par][warp + 1].clo1 : kDead;
+          }
         }
 #pragma unroll
-        for (int i = 0; i < K; ++i) ext[i] = v[i] + pre[j][i];
+        for (int i = 0; i < K; ++i) {
+          ext[i] = v[i] + pre[j][i];
+          ec[i] = c[i];
+        }
         ext[K] = (s0 + K < S ? n1 : kNeg2) + pre[j][K];
         ext[K + 1] = (s0 + K + 1 < S ? n2 : kNeg2) + pre[j][K + 1];
+        ec[K] = s0 + K < S ? m1 : kDead;
+        ec[K + 1] = s0 + K + 1 < S ? m2 : kDead;
 #pragma unroll
-        for (int i = 0; i < K; ++i)
-          nv[i] = lse3(ext[i], ext[i + 1], ext[i + 2] + skip[i]) - r;
+        for (int i = 0; i < K; ++i) {
+          if constexpr (kCls) {
+            float cm;
+            const float x = lse3c(ext[i], ec[i], ext[i + 1], ec[i + 1],
+                                  ext[i + 2], ec[i + 2] + skip[i], &cm);
+            const bool live = s0 + i < n && cm < kDead;
+            nv[i] = live ? x - r : kNeg2;
+            nc[i] = live ? cm : kDead;
+          } else {
+            nv[i] = lse3(ext[i], ext[i + 1], ext[i + 2] + skip[i]) - r;
+          }
+        }
       }
       const int f = frame_of(k);
 #pragma unroll
       for (int i = 0; i < K; ++i) {
         v[i] = act ? nv[i] : v[i];
-        if (act && s0 + i < S) out[(size_t)f * S + s0 + i] = v[i];
+        if constexpr (kCls) c[i] = act ? nc[i] : c[i];
+        if (act && s0 + i < S) {
+          out[(size_t)f * S + s0 + i] = v[i];
+          if constexpr (kCls)
+            cout[(size_t)f * S + s0 + i] = (unsigned char)c[i];
+        }
       }
       if (act) {
         o += (double)r;
@@ -469,7 +650,7 @@ __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
   }
   if constexpr (!kBeta) {
     __syncthreads();
-    finish_logz(sc, nll, b, T, S, n, frames);
+    finish_logz(sc, nll, b, T, S, n, frames, kCls, no_frame);
   }
 }
 
@@ -483,16 +664,27 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const int b = beta ? blockIdx.x - B : blockIdx.x;
   const int n = 2 * label_lens[b] + 1, tlen = logit_lens[b];
   const int* lab = labels + (size_t)b * L;
+  const bool cls = needs_classes(lab, label_lens[b], tlen, T);
   if (beta) {
     const int frames = beta_frames(tlen, T);
-    if (frames > 0) chain_regs<K, true>(sc, lab, nll, b, n, frames, T, S);
+    if (frames == 0) return;
+    if (cls)
+      chain_regs<K, true, true>(sc, lab, nll, b, n, frames, T, S, false);
+    else
+      chain_regs<K, true, false>(sc, lab, nll, b, n, frames, T, S, false);
   } else {
-    chain_regs<K, false>(sc, lab, nll, b, n, alpha_frames(tlen, T), T, S);
+    const int frames = alpha_frames(tlen, T);
+    if (cls)
+      chain_regs<K, false, true>(sc, lab, nll, b, n, frames, T, S,
+                                 tlen <= 0);
+    else
+      chain_regs<K, false, false>(sc, lab, nll, b, n, frames, T, S, false);
   }
 }
 
 // past 2048 states: kWideThreads threads strided over the states, the
-// previous frame's row read back from device memory; same arithmetic
+// previous frame's row read back from device memory; same arithmetic, the
+// classes as the row needs them
 __global__ void __launch_bounds__(kWideThreads)
     ctc_wide_kernel(const int* __restrict__ labels,
                     const int* __restrict__ label_lens,
@@ -503,18 +695,30 @@ __global__ void __launch_bounds__(kWideThreads)
   const int b = beta ? blockIdx.x - B : blockIdx.x;
   const int n = 2 * label_lens[b] + 1, tlen = logit_lens[b];
   const int* lab = labels + (size_t)b * L;
+  const bool cls = needs_classes(lab, label_lens[b], tlen, T);
   const int frames = beta ? beta_frames(tlen, T) : alpha_frames(tlen, T);
   if (frames == 0) return;
   const float* lpb = sc.lp + (size_t)b * T * sc.ldp;
   float* out = (beta ? sc.beta : sc.alpha) + (size_t)b * T * S;
+  unsigned char* cout = (beta ? sc.cls_b : sc.cls_a) + (size_t)b * T * S;
   double* off = (beta ? sc.off_b : sc.off_a) + (size_t)b * T;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nw = blockDim.x / 32;
   const int f0 = beta ? frames - 1 : 0;
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    out[(size_t)f0 * S + s] =
-        beta ? ((s == n - 1 || (s == n - 2 && n >= 2)) ? 0.f : kNeg2)
-             : (s < 2 ? lpb[s] : kNeg2);
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    float c, v;
+    if (beta) {
+      const bool term = s == n - 1 || (s == n - 2 && n >= 2);
+      v = term ? 0.f : kNeg2;
+      c = term ? 0.f : kDead;
+    } else if (cls) {
+      v = alpha_start(lab, s, n, s < n ? lpb[s] : kNeg2, &c);
+    } else {
+      v = s < 2 ? lpb[s] : kNeg2;
+    }
+    out[(size_t)f0 * S + s] = v;
+    if (cls) cout[(size_t)f0 * S + s] = (unsigned char)c;
+  }
   if (threadIdx.x == 0) off[f0] = 0.0;
   __syncthreads();
   double o = 0.0;
@@ -523,23 +727,46 @@ __global__ void __launch_bounds__(kWideThreads)
     const float r = k >= 2 ? m_prev - r_prev : 0.f;
     const int f = beta ? frames - 1 - k : k, fp = beta ? f + 1 : f - 1;
     const float* prev = out + (size_t)fp * S;
+    const unsigned char* cprev = cout + (size_t)fp * S;
     const float* lp = lpb + (size_t)(beta ? fp : f) * sc.ldp;
     float pm = kNeg2;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
       const float p0 = prev[s];
       pm = fmaxf(pm, p0);
-      float nv;
+      float nv, cm = 0.f;
       if (!beta) {
         const float p1 = s >= 1 ? prev[s - 1] : kNeg2;
         const float p2 = s >= 2 ? prev[s - 2] : kNeg2;
-        nv = lse3(p0, p1, p2 + skip_add(lab, s, n)) + lp[s] - r;
+        if (cls) {
+          const float c1 = s >= 1 ? (float)cprev[s - 1] : kDead;
+          const float c2 = s >= 2 ? (float)cprev[s - 2] : kDead;
+          nv = lse3c(p0, (float)cprev[s], p1, c1, p2,
+                     c2 + skip_class(lab, s, n), &cm);
+        } else {
+          nv = lse3(p0, p1, p2 + skip_add(lab, s, n));
+        }
+        nv += lp[s] - r;
       } else {
         const float z0 = p0 + lp[s];
         const float z1 = s + 1 < S ? prev[s + 1] + lp[s + 1] : 2 * kNeg2;
         const float z2 = s + 2 < S ? prev[s + 2] + lp[s + 2] : 2 * kNeg2;
-        nv = lse3(z0, z1, z2 + skip_add(lab, s + 2, n)) - r;
+        if (cls) {
+          const float c1 = s + 1 < S ? (float)cprev[s + 1] : kDead;
+          const float c2 = s + 2 < S ? (float)cprev[s + 2] : kDead;
+          nv = lse3c(z0, (float)cprev[s], z1, c1, z2,
+                     c2 + skip_class(lab, s + 2, n), &cm);
+        } else {
+          nv = lse3(z0, z1, z2 + skip_add(lab, s + 2, n));
+        }
+        nv -= r;
       }
-      out[(size_t)f * S + s] = nv;
+      if (cls) {
+        const bool live = s < n && cm < kDead;
+        out[(size_t)f * S + s] = live ? nv : kNeg2;
+        cout[(size_t)f * S + s] = (unsigned char)(live ? cm : kDead);
+      } else {
+        out[(size_t)f * S + s] = nv;
+      }
     }
     pm = warp_max(pm);
     if (lane == 0) red[k & 1][warp] = pm;
@@ -551,17 +778,22 @@ __global__ void __launch_bounds__(kWideThreads)
     m_prev = pm;
     r_prev = r;
   }
-  if (!beta) finish_logz(sc, nll, b, T, S, n, frames);
+  if (!beta) finish_logz(sc, nll, b, T, S, n, frames, cls, tlen <= 0);
 }
 
 // -------------------------------------------------------------------------
 // backward: occupancies, softmax row, grouped scatter
 // -------------------------------------------------------------------------
 
-// occupancy of state s in row (b, t): 2^min(alpha + beta + c, 0)
+// occupancy of state s in row (b, t): 2^min(alpha + beta + c, 0) where
+// the classes of alpha and beta add up to log Z's (kz < 0: a row without
+// classes), else 0
 __device__ __forceinline__ float occupancy(const float* a, const float* be,
-                                           int s, float c) {
-  return ex2(fminf(a[s] + be[s] + c, 0.f));
+                                           const unsigned char* ca,
+                                           const unsigned char* cb, int s,
+                                           float c, int kz) {
+  return kz < 0 || ca[s] + cb[s] == kz ? ex2(fminf(a[s] + be[s] + c, 0.f))
+                                       : 0.f;
 }
 
 __global__ void __launch_bounds__(kRowThreads)
@@ -582,10 +814,13 @@ __global__ void __launch_bounds__(kRowThreads)
   const int n = 2 * label_lens[b] + 1;
   const float* a = sc.alpha + (size_t)row * S;
   const float* be = sc.beta + (size_t)row * S;
+  const unsigned char* ca = sc.cls_a + (size_t)row * S;
+  const unsigned char* cb = sc.cls_b + (size_t)row * S;
+  const int kz = sc.kz[b];
   const float c = (float)(sc.off_a[row] + sc.off_b[row] - sc.logz[b]);
   float occ = 0.f;
   for (int s = threadIdx.x; s < n; s += blockDim.x)
-    occ += occupancy(a, be, s, c);
+    occ += occupancy(a, be, ca, cb, s, c, kz);
   occ = warp_sum(occ);
   if (lane == 0) red[warp] = occ;
   __syncthreads();
@@ -614,7 +849,8 @@ __global__ void __launch_bounds__(kRowThreads)
   for (int gi = threadIdx.x; gi < G; gi += blockDim.x) {
     const int j0 = gbeg[gi], j1 = gbeg[gi + 1];
     float sum = 0.f;
-    for (int j = j0; j < j1; ++j) sum += occupancy(a, be, order[j], c);
+    for (int j = j0; j < j1; ++j)
+      sum += occupancy(a, be, ca, cb, order[j], c, kz);
     const int tok = state_token(lab, order[j0], blank);
     gr[tok] = g * (expf(x[tok] - l) * occ - sum);
   }

@@ -68,8 +68,10 @@
 // a fixed order on few tiles) or one column sum over all B*T' rows:
 // deterministic, no atomics.
 //
-// Dropout: common.cuh's dropout_mult hash of (seed[b], layer, site, b, row,
-// col), so the backward regenerates the forward's masks and the plain twin
+// Dropout: common.cuh's dropout_mult hash of (seed[b], layer, site, row0 +
+// b, row, col), row0 the global batch row of utterance 0 (so a row draws
+// the same mask whichever data-parallel rank runs it), so the backward
+// regenerates the forward's masks and the plain twin
 // (ops/cuda/squeezeformer_layer_train.py) draws the same ones. Sites, as
 // the Conformer's with FFN1 in the macaron FFN's place: 0 FFN1 hidden
 // (t, f), 1 FFN1 out (t, d), 2 attention probs (h*T'+t1, t2), 3 attention
@@ -288,7 +290,8 @@ cudaError_t forward_rows(const float* x0, float* S, const Saved& L,
   const size_t MD = (size_t)M * D, DF = (size_t)D * F;
   float* sum = S + L.sum;
   auto drop = [&](int site) {
-    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale);
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
+                     d.row0);
   };
   // ada row i of the unfolded pack (bf16 mode)
   auto ada = [&](int i) { return w.ada + (size_t)i * 2 * D; };
@@ -302,7 +305,7 @@ cudaError_t forward_rows(const float* x0, float* S, const Saved& L,
   TRY(att_fwd<OT>(xa, w.attw, w.vecb, w.posb, w.posp, mask, att_bufs(S, L),
                   x0, sum,
                   make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
-                            d.att_keep_scale),
+                            d.att_keep_scale, d.row0),
                   drop(kSiteAttOut), B, T, D, H, st));
   TRY(layer_norm(sum, S + L.x1, w.lnw, 0, M, D, eps, nullptr, T, st,
                  S + L.xhat[0], S + L.rstd[0]));
@@ -356,7 +359,8 @@ cudaError_t backward_rows(const float* dy, const float* x0, float* S,
   float *dh = scratch + W.dh, *dg = scratch + W.dg, *dP = scratch + W.dP,
         *part = scratch + W.part;
   auto drop = [&](int site) {
-    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale);
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
+                     d.row0);
   };
   auto ada = [&](int i) { return w.ada + (size_t)i * 2 * D; };
   auto dada = [&](int i) { return g.dada + (size_t)i * 2 * D; };
@@ -404,7 +408,7 @@ cudaError_t backward_rows(const float* dy, const float* x0, float* S,
              M, D, nullptr, T, st));
   TRY(att_bwd<OT>(r0, bf ? S + L.xa : x0, w.attw, w.posp, att_bufs(S, L),
                   make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
-                            d.att_keep_scale),
+                            d.att_keep_scale, d.row0),
                   drop(kSiteAttOut), g.dattw, g.dvecb, g.dposb, g.dposp,
                   bf ? nullptr : r0, bf ? t[1] : dx, t, dP, part, B, T, D, H,
                   st));
@@ -443,7 +447,7 @@ extern "C" int masr_sq_layer_train_forward(
     const float* posb, const float* ffw1, const float* ffb1,
     const float* ffw2, const float* pw1w, const float* pw1b,
     const float* pw2w, const float* dww, float* out, float* saved, int B,
-    int T, int D, int F, int n_head, int ksize, int causal, int layer,
+    int T, int D, int F, int n_head, int ksize, int causal, int layer, int row0,
     unsigned thresh, float keep_scale, unsigned att_thresh,
     float att_keep_scale, float eps, float conv_eps, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
@@ -456,8 +460,8 @@ extern "C" int masr_sq_layer_train_forward(
   MASR_CHECK(forward_rows<float>(
       x, saved, saved_layout(B, T, D, F, H, false), mask, seeds, lens, w,
       out,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       eps, conv_eps, st));
   return (int)cudaGetLastError();
 }
@@ -474,7 +478,7 @@ extern "C" int masr_sq_layer_train_forward_bf16(
     const float* posb, const bf16_t* ffw1, const float* ffb1,
     const bf16_t* ffw2, const bf16_t* pw1w, const float* pw1b,
     const bf16_t* pw2w, const float* dww, bf16_t* out, float* saved, int B,
-    int T, int D, int F, int n_head, int ksize, int causal, int layer,
+    int T, int D, int F, int n_head, int ksize, int causal, int layer, int row0,
     unsigned thresh, float keep_scale, unsigned att_thresh,
     float att_keep_scale, float eps, float conv_eps, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
@@ -498,8 +502,8 @@ extern "C" int masr_sq_layer_train_forward_bf16(
                      pw1b,         S + L.w.pw2w,       dww};
   MASR_CHECK(forward_rows<bf16_t>(
       S + L.x0, S, L, mask, seeds, lens, w, out,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       eps, conv_eps, st));
   return (int)cudaGetLastError();
 }
@@ -517,7 +521,7 @@ extern "C" int masr_sq_layer_train_backward(
     float* dlnw, float* dada, float* dcnw, float* dattw, float* dvecb,
     float* dposb, float* dffw1, float* dffb1, float* dffw2, float* dpw1w,
     float* dpw1b, float* dpw2w, float* ddww, int B, int T, int D, int F,
-    int n_head, int ksize, int causal, int layer, unsigned thresh,
+    int n_head, int ksize, int causal, int layer, int row0, unsigned thresh,
     float keep_scale, unsigned att_thresh, float att_keep_scale,
     void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
@@ -532,8 +536,8 @@ extern "C" int masr_sq_layer_train_backward(
   MASR_CHECK(backward_rows<float>(
       dy, x, saved, saved_layout(B, T, D, F, H, false), scratch,
       scratch_layout(B, T, D, F, H, false), seeds, lens, w, g, dx,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       st));
   return (int)cudaGetLastError();
 }
@@ -550,8 +554,9 @@ extern "C" int masr_sq_layer_train_backward_bf16(
     float* dada, float* dcnw, bf16_t* dattw, float* dvecb, float* dposb,
     bf16_t* dffw1, float* dffb1, bf16_t* dffw2, bf16_t* dpw1w, float* dpw1b,
     bf16_t* dpw2w, float* ddww, int B, int T, int D, int F, int n_head,
-    int ksize, int causal, int layer, unsigned thresh, float keep_scale,
-    unsigned att_thresh, float att_keep_scale, void* stream_ptr) {
+    int ksize, int causal, int layer, int row0, unsigned thresh,
+    float keep_scale, unsigned att_thresh, float att_keep_scale,
+    void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const int M = B * T, H = n_head;
   if (M == 0) return (int)cudaGetLastError();
@@ -572,8 +577,8 @@ extern "C" int masr_sq_layer_train_backward_bf16(
                    dpw1b,         G + W.gw.pw2w,        ddww};
   MASR_CHECK(backward_rows<bf16_t>(
       G + W.dyw, S + L.x0, S, L, scratch, W, seeds, lens, w, g, G + W.dxf,
-      make_dims(B, T, D, F, H, ksize, causal, layer, thresh, keep_scale,
-                att_thresh, att_keep_scale),
+      make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
+                keep_scale, att_thresh, att_keep_scale),
       st));
   MASR_CHECK(convert(G + W.dxf, dx, (long long)MD, st));
   MASR_CHECK(convert(G + W.gw.posp, dposp, (long long)T * D, st));

@@ -69,24 +69,27 @@ __device__ __forceinline__ float dsilu_f(float z) {
   return s * (1.f + z * (1.f - s));
 }
 
-// one dropout site; seeds == nullptr: no dropout
+// one dropout site; seeds == nullptr: no dropout. row0: the global batch
+// row of utterance 0 (the hash keys utterance b as row0 + b, so a row
+// draws the same mask whichever rank runs it)
 struct Drop {
   const int* seeds;
   int layer, site;
   unsigned thresh;
   float keep_scale;
+  int row0;
 };
 
 __device__ __forceinline__ float drop_at(const Drop& d, int b, int row,
                                          int col) {
-  return d.seeds ? dropout_mult(d.seeds[b], d.layer, d.site, b, row, col,
-                                d.thresh, d.keep_scale)
+  return d.seeds ? dropout_mult(d.seeds[b], d.layer, d.site, d.row0 + b, row,
+                                col, d.thresh, d.keep_scale)
                  : 1.f;
 }
 
 Drop make_drop(const int* seeds, int layer, int site, unsigned thresh,
-               float keep_scale) {
-  Drop d = {nullptr, layer, site, thresh, keep_scale};
+               float keep_scale, int row0) {
+  Drop d = {nullptr, layer, site, thresh, keep_scale, row0};
   if (thresh) d.seeds = seeds;
   return d;
 }
@@ -99,7 +102,7 @@ struct Epi {
   float* pre = nullptr;
   int act = kActNone;
   const float* aux = nullptr;  // kActDsilu: v *= dsilu(aux)
-  Drop drop = {nullptr, 0, 0, 0u, 1.f};
+  Drop drop = {nullptr, 0, 0, 0u, 1.f, 0};
   const int* lens = nullptr;
   int T = 1;
 
@@ -114,7 +117,7 @@ struct Epi {
     const int b = m / T, t = m % T;
     return {b, t, lens == nullptr || t < lens[b],
             drop.seeds ? dropout_row_hash(drop.seeds[b], drop.layer,
-                                          drop.site, b, t)
+                                          drop.site, drop.row0 + b, t)
                        : 0u};
   }
   __device__ __forceinline__ void operator()(float* C, size_t o,
@@ -785,17 +788,17 @@ Wide wide_layout(Take& take, int T, int D, int F) {
   return w;
 }
 
-// a training layer's shape, causality, dropout hash key and rates
+// a training layer's shape, causality, dropout hash keys and rates
 struct Dims {
-  int B, T, D, F, H, ksize, causal, layer;
+  int B, T, D, F, H, ksize, causal, layer, row0;
   unsigned thresh, att_thresh;
   float keep_scale, att_keep_scale;
 };
 
 Dims make_dims(int B, int T, int D, int F, int n_head, int ksize, int causal,
-               int layer, unsigned thresh, float keep_scale,
+               int layer, int row0, unsigned thresh, float keep_scale,
                unsigned att_thresh, float att_keep_scale) {
-  return {B, T, D, F, n_head, ksize, causal, layer, thresh, att_thresh,
+  return {B, T, D, F, n_head, ksize, causal, layer, row0, thresh, att_thresh,
           keep_scale, att_keep_scale};
 }
 

@@ -1,7 +1,10 @@
-"""Batch sampler (port of masr_tpu/data/sampler.py:13
-BatchShuffleSampler, single host): the manifest is duration-sorted;
-epoch 0 with sortagrad keeps that order (a curriculum), later epochs
-shuffle whole batches after a random shift, seeded by seed + epoch."""
+"""Batch samplers (port of masr_tpu/data/sampler.py):
+`BatchShuffleSampler` (:13): the manifest is duration-sorted; epoch 0
+with sortagrad keeps that order (a curriculum), later epochs shuffle
+whole batches after a random shift, seeded by seed + epoch.
+`ShardedBatchSampler` (:57-79) is the data-parallel variant: every rank
+draws the same order (same seed + epoch) and takes indices[rank::
+num_replicas] before batching."""
 import numpy as np
 
 
@@ -47,3 +50,35 @@ class BatchShuffleSampler(object):
         if self.drop_last:
             return self.size // self.batch_size
         return (self.size + self.batch_size - 1) // self.batch_size
+
+
+class ShardedBatchSampler(BatchShuffleSampler):
+    """Rank-strided sharding for data parallelism: every rank draws the
+    same shuffled order and takes indices[rank::num_replicas] before
+    batching, so the ranks' batches are disjoint. With drop_last every
+    rank yields len(self) batches: where the strided shares differ by one
+    index, a rank stops with the others (masr_tpu's would yield one batch
+    more on the longer ranks, and their collectives would wait on the
+    rest)."""
+
+    def __init__(self, dataset_size, batch_size, rank=0, num_replicas=1,
+                 **kw):
+        super().__init__(dataset_size, batch_size, **kw)
+        self.rank = rank
+        self.num_replicas = num_replicas
+
+    def __iter__(self):
+        indices = self._indices()[self.rank::self.num_replicas]
+        if self.drop_last:
+            indices = indices[:len(self) * self.batch_size]
+        for i in range(0, len(indices), self.batch_size):
+            batch = indices[i:i + self.batch_size]
+            if self.drop_last and len(batch) < self.batch_size:
+                break
+            yield list(map(int, batch))
+
+    def __len__(self):
+        per_rank = self.size // self.num_replicas
+        if self.drop_last:
+            return per_rank // self.batch_size
+        return (per_rank + self.batch_size - 1) // self.batch_size

@@ -97,6 +97,7 @@ from masr_tpu_torch.ops.cuda.conformer_layer import (fused_conformer_layer,
                                                      pack_layer_params)
 from masr_tpu_torch.ops.cuda.conformer_layer_train import \
     fused_conformer_layer_train
+from masr_tpu_torch.ops.dropout_hash import batch_row0, layer_seeds
 from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
 
 # encoder_conf keys that only steer masr_tpu's TPU routing: the port's route
@@ -330,7 +331,8 @@ class ConformerEncoderLayer(nn.Module):
             n_head=self.attention_heads, ksize=self.cnn_module_kernel,
             causal=self.causal, ff_scale=self.ff_scale,
             rate=self.dropout_rate if train else 0.0,
-            att_rate=self.attention_dropout_rate if train else 0.0)
+            att_rate=self.attention_dropout_rate if train else 0.0,
+            row0=batch_row0(x.shape[0]))
 
     def forward_full_context(self, x, lens, pos_emb):
         """The layer through the full-context kernel, which reads the
@@ -470,9 +472,8 @@ class ConformerEncoder(nn.Module):
         lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
         if self.training and (self.dropout_rate > 0
                               or self.attention_dropout_rate > 0):
-            seeds = torch.randint(0, 2 ** 31 - 1, (len(self.encoders), B),
-                                  generator=generator, device=xs.device,
-                                  dtype=torch.int32)
+            seeds = layer_seeds(len(self.encoders), B, generator,
+                                xs.device)
         else:
             seeds = torch.zeros(len(self.encoders), B, dtype=torch.int32,
                                 device=xs.device)
@@ -692,11 +693,12 @@ class ConformerModel(nn.Module):
             self.reverse_weight, generator)
         loss_att = label_smoothing_loss(
             decoder_out, ys_out, self.vocab_size, self.ignore_id,
-            self.lsm_weight, self.length_normalized_loss)
+            self.lsm_weight, self.length_normalized_loss, self.training)
         if r_decoder_out is not None:
             r_loss_att = label_smoothing_loss(
                 r_decoder_out, r_ys_out, self.vocab_size, self.ignore_id,
-                self.lsm_weight, self.length_normalized_loss)
+                self.lsm_weight, self.length_normalized_loss,
+                self.training)
             loss_att = loss_att * (1 - self.reverse_weight) + \
                 r_loss_att * self.reverse_weight
         acc_att = th_accuracy(decoder_out.reshape(-1, self.vocab_size),

@@ -21,6 +21,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from masr_tpu_torch.models.layers import BatchNorm1d, Conv1d, LayerNorm
+from masr_tpu_torch.parallel.mesh import active, all_reduce_sum
 from masr_tpu_torch.ops.common import glu
 
 
@@ -87,17 +88,31 @@ class ConvolutionModule(nn.Module):
         variance max(E[x²] - E[x]², 0) in f32, (x - mean) · (rsqrt(var +
         eps) · scale) + bias in f32, rounded to bf16 once; the running
         statistics stay f32 and autograd carries the grads through the
-        statistics, as jax.grad does."""
+        statistics, as jax.grad does.
+
+        Over several ranks (parallel/mesh.py active grid) the statistics
+        span the global batch, as flax's do over masr_tpu's sharded batch:
+        the sums of x and x² and the count are summed over the ranks
+        (differentiably) before the same arithmetic, and the running
+        statistics move toward the global values. An f32 x in one process
+        takes var_mean and F.batch_norm."""
         bn = self.norm
-        if x.dtype == torch.float32:
+        grid = active()
+        if x.dtype == torch.float32 and grid is None:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2), unbiased=False)
                 self._move_running(mean, var)
             return F.batch_norm(x, None, None, bn.weight, bn.bias,
                                 training=True, eps=bn.eps)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        C = xf.shape[1]
+        n = torch.full((1,), float(xf.shape[0] * xf.shape[2]),
+                       device=xf.device)
+        sums = torch.cat([xf.sum(dim=(0, 2)), (xf * xf).sum(dim=(0, 2)), n])
+        if grid is not None:
+            sums = all_reduce_sum(sums)
+        mean = sums[:C] / sums[-1]
+        var = torch.clamp(sums[C:2 * C] / sums[-1] - mean * mean, min=0.0)
         with torch.no_grad():
             self._move_running(mean, var)
         mul = torch.rsqrt(var + bn.eps) * bn.weight

@@ -80,6 +80,7 @@ from masr_tpu_torch.models.convolution import ConvolutionModule
 from masr_tpu_torch.models.layers import LayerNorm
 from masr_tpu_torch.models.subsampling import subsampling_class
 from masr_tpu_torch.ops.common import get_activation
+from masr_tpu_torch.ops.dropout_hash import layer_seeds
 from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
 
 # encoder_conf keys that only steer masr_tpu's TPU routing
@@ -400,9 +401,7 @@ class EfficientConformerEncoder(nn.Module):
             amask = chunk_masks.expand(B, T, T)
             if self.training and (self.dropout_rate > 0
                                   or self.attention_dropout_rate > 0):
-                seeds = torch.randint(0, 2 ** 31 - 1, (len(layers), B),
-                                      generator=generator, device=xs.device,
-                                      dtype=torch.int32)
+                seeds = layer_seeds(len(layers), B, generator, xs.device)
             else:
                 seeds = torch.zeros(len(layers), B, dtype=torch.int32,
                                     device=xs.device)

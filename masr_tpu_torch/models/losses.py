@@ -11,6 +11,7 @@ from torch import nn
 
 from masr_tpu_torch.models.layers import Linear
 from masr_tpu_torch.ops.common import IGNORE_ID
+from masr_tpu_torch.parallel.mesh import all_reduce, batch_shard
 from masr_tpu_torch.ops.cuda.ctc_loss import ctc_loss
 
 
@@ -39,10 +40,13 @@ class CTCHead(nn.Module):
 
 
 def label_smoothing_loss(logits, target, size, padding_idx=IGNORE_ID,
-                         smoothing=0.1, normalize_length=False):
+                         smoothing=0.1, normalize_length=False,
+                         global_batch=False):
     """KL(smoothed one-hot ‖ softmax(logits)) summed over non-padding
     positions, divided by the batch (or by the token count when
-    normalize_length). logits (B, L, V); target (B, L)."""
+    normalize_length). logits (B, L, V); target (B, L). global_batch (a
+    train step over several ranks): the token count is the global one
+    (collective)."""
     B = logits.shape[0]
     x = logits.reshape(-1, size).float()
     t = target.reshape(-1)
@@ -56,5 +60,12 @@ def label_smoothing_loss(logits, target, size, padding_idx=IGNORE_ID,
                                 torch.zeros_like(true_dist))
     kl = torch.where(ignore[:, None], torch.zeros_like(x),
                      true_dist * (safe_log_true - log_probs))
-    denom = torch.clamp((~ignore).sum(), min=1) if normalize_length else B
-    return kl.sum() / denom
+    if not normalize_length:
+        return kl.sum() / B
+    # over several ranks: the global token count, and this rank's share of
+    # the global mean (the ranks' losses are averaged)
+    _, world = batch_shard() if global_batch else (0, 1)
+    n = (~ignore).sum().float()
+    if world > 1:
+        n = all_reduce(n.detach().clone())
+    return kl.sum() / (torch.clamp(n, min=1) / world)

@@ -108,6 +108,7 @@ from masr_tpu_torch.ops.cuda.squeezeformer_layer import (
     fused_squeezeformer_layer, pack_sq_layer_params)
 from masr_tpu_torch.ops.cuda.squeezeformer_layer_train import \
     fused_squeezeformer_layer_train
+from masr_tpu_torch.ops.dropout_hash import batch_row0, layer_seeds
 from masr_tpu_torch.ops.masks import add_optional_chunk_mask, make_pad_mask
 
 # encoder_conf keys that only steer masr_tpu's TPU routing
@@ -341,7 +342,8 @@ class SqueezeformerEncoderLayer(nn.Module):
             pack_sq_layer_params(self, dtype), layer=index,
             n_head=self.attention_heads, ksize=self.cnn_module_kernel,
             causal=self.causal, rate=self.dropout_rate if train else 0.0,
-            att_rate=self.attention_dropout_rate if train else 0.0)
+            att_rate=self.attention_dropout_rate if train else 0.0,
+            row0=batch_row0(x.shape[0]))
 
     def forward_full_context(self, x, lens, pos_emb):
         """The layer through the full-context kernel, which reads the
@@ -553,9 +555,8 @@ class SqueezeformerEncoder(nn.Module):
         lens = masks[:, 0, :].sum(dim=1, dtype=torch.int32)
         if self.training and (self.dropout_rate > 0
                               or self.attention_dropout_rate > 0):
-            seeds = torch.randint(0, 2 ** 31 - 1, (len(self.encoders), B),
-                                  generator=generator, device=xs.device,
-                                  dtype=torch.int32)
+            seeds = layer_seeds(len(self.encoders), B, generator,
+                                xs.device)
         else:
             seeds = torch.zeros(len(self.encoders), B, dtype=torch.int32,
                                 device=xs.device)

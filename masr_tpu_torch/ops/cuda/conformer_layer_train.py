@@ -57,16 +57,17 @@ SITE_MACARON_HIDDEN, SITE_MACARON_OUT, SITE_ATT_PROB, SITE_ATT_OUT, \
     SITE_CONV_OUT, SITE_FFN_HIDDEN, SITE_FFN_OUT = range(7)
 
 
-def site_dropout(seeds, layer, T, device):
+def site_dropout(seeds, layer, T, device, row0=0):
     """→ drop(v, site, rate): v (B, T, N) times the hash's dropout mask of
-    `site` over rows t < T and columns n < N (identity at rate 0)."""
+    `site` over rows t < T and columns n < N (identity at rate 0);
+    utterance b keyed as row0 + b."""
     rows = torch.arange(T, device=device)
 
     def drop(v, site, rate):
         if rate <= 0.0:
             return v
         return v * dropout_mask(seeds, layer, site, rows, torch.arange(
-            v.shape[-1], device=device), rate)
+            v.shape[-1], device=device), rate, row0)
 
     return drop
 
@@ -167,7 +168,7 @@ def rounded_layer_norm(x, w, b, eps):
 
 
 def attention_train_plain(q, k, v, posp, posb, mask, n_head, seeds, layer,
-                          att_rate):
+                          att_rate, row0=0):
     """The training layers' rel-pos MHSA core over a (B, T, T) bool mask
     (a query row with no visible key gives 0), AC + BD as one 2·d_k
     product, dropout at the probabilities (site SITE_ATT_PROB, rows
@@ -198,7 +199,7 @@ def attention_train_plain(q, k, v, posp, posb, mask, n_head, seeds, layer,
         rows = torch.arange(n_head * T, device=dev)
         pr = pr * dropout_mask(seeds, layer, SITE_ATT_PROB, rows,
                                torch.arange(T, device=dev),
-                               att_rate).view(B, n_head, T, T)
+                               att_rate, row0).view(B, n_head, T, T)
     o = train_mm(pr, v) if bf16 else pr @ v
     return o.transpose(1, 2).reshape(B, T, D)
 
@@ -206,7 +207,7 @@ def attention_train_plain(q, k, v, posp, posb, mask, n_head, seeds, layer,
 def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
                                       layer, n_head, ksize, causal,
                                       ff_scale=0.5, rate=0.0, att_rate=0.0,
-                                      eps=1e-5):
+                                      eps=1e-5, row0=0):
     """Plain PyTorch version of the kernel, same arguments. x: (B, T, D)
     f32, or bf16 with posp and the pack's product weights bf16 (the bf16
     mode, rounded as the module docstring says; any other dtype computes
@@ -216,7 +217,9 @@ def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
     lengths; posp: (T, D) linear_pos(pos_emb); packed: `pack_layer_params`;
     layer: the layer's index (a dropout-hash key); rate: dropout at the
     FFN hidden and output, attention output and conv output; att_rate: at
-    the attention probabilities. → (B, T, D)."""
+    the attention probabilities; row0: the global batch row of utterance 0
+    (a dropout-hash key: a row draws its masks whichever rank runs it). →
+    (B, T, D)."""
     B, T, D = x.shape
     bf16 = x.dtype == BF16
     mm = train_mm if bf16 else torch.matmul
@@ -224,7 +227,7 @@ def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
     lnw, vecb, attw = packed["lnw"], packed["vecb"], packed["attw"]
     dev = x.device
     t_idx = torch.arange(T, device=dev)
-    drop = site_dropout(seeds, layer, T, dev)
+    drop = site_dropout(seeds, layer, T, dev, row0)
 
     def layer_norm(v, i):
         return F.layer_norm(v, (D,), lnw[i, 0], lnw[i, 1], eps)
@@ -241,7 +244,7 @@ def fused_conformer_layer_train_plain(x, mask, seeds, lens, posp, packed, *,
     xn = layer_norm(x, 1)
     att = attention_train_plain(
         *(mm(xn, attw[i]) + vecb[2 + i] for i in range(3)), posp,
-        packed["posb"], mask, n_head, seeds, layer, att_rate)
+        packed["posb"], mask, n_head, seeds, layer, att_rate, row0)
     x = x + drop(mm(att, attw[3]) + vecb[5], SITE_ATT_OUT, rate)
     if bf16:
         x = x.to(BF16).float()    # x2, the second half's input
@@ -286,13 +289,13 @@ def _lib():
                  "masr_conformer_layer_train_forward_bf16"):
         fn = getattr(lib, name)
         fn.restype = I
-        fn.argtypes = [P] * 18 + [I] * 8 + [U, Fl, U, Fl, Fl, Fl, P]
+        fn.argtypes = [P] * 18 + [I] * 9 + [U, Fl, U, Fl, Fl, Fl, P]
     fn = lib.masr_conformer_layer_train_backward
     fn.restype = I
-    fn.argtypes = [P] * 27 + [I] * 8 + [U, Fl, U, Fl, Fl, P]
+    fn.argtypes = [P] * 27 + [I] * 9 + [U, Fl, U, Fl, Fl, P]
     fn = lib.masr_conformer_layer_train_backward_bf16
     fn.restype = I
-    fn.argtypes = [P] * 21 + [I] * 8 + [U, Fl, U, Fl, Fl, P]
+    fn.argtypes = [P] * 21 + [I] * 9 + [U, Fl, U, Fl, Fl, P]
     return lib
 
 
@@ -326,7 +329,7 @@ class _TrainLayer(torch.autograd.Function):
                 lens.data_ptr(), posp.data_ptr(),
                 *(p.data_ptr() for p in params), out.data_ptr(),
                 saved.data_ptr(), *dims, cfg["ksize"], cfg["causal"],
-                cfg["layer"], *cfg["drop"], *cfg["att_drop"],
+                cfg["layer"], cfg["row0"], *cfg["drop"], *cfg["att_drop"],
                 cfg["ff_scale"], cfg["eps"],
                 torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
@@ -359,8 +362,8 @@ class _TrainLayer(torch.autograd.Function):
                 *(t.data_ptr() for t in inputs),
                 ctx.saved.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
                 dposp.data_ptr(), *(g.data_ptr() for g in grads), *dims,
-                cfg["ksize"], cfg["causal"], cfg["layer"], *cfg["drop"],
-                *cfg["att_drop"], cfg["ff_scale"],
+                cfg["ksize"], cfg["causal"], cfg["layer"], cfg["row0"],
+                *cfg["drop"], *cfg["att_drop"], cfg["ff_scale"],
                 torch.cuda.current_stream(dy.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"conformer_layer_train backward kernel "
@@ -373,7 +376,7 @@ class _TrainLayer(torch.autograd.Function):
 
 def fused_conformer_layer_train(x, mask, seeds, lens, posp, packed, *,
                                 layer, n_head, ksize, causal, ff_scale=0.5,
-                                rate=0.0, att_rate=0.0, eps=1e-5):
+                                rate=0.0, att_rate=0.0, eps=1e-5, row0=0):
     """The whole training layer, differentiable in x, posp and the packed
     arrays. A CPU tensor takes the plain version; a CUDA tensor launches
     the kernels (their bf16 mode for bf16 operands) or raises. Arguments as
@@ -382,7 +385,7 @@ def fused_conformer_layer_train(x, mask, seeds, lens, posp, packed, *,
         return fused_conformer_layer_train_plain(
             x, mask, seeds, lens, posp, packed, layer=layer, n_head=n_head,
             ksize=ksize, causal=causal, ff_scale=ff_scale, rate=rate,
-            att_rate=att_rate, eps=eps)
+            att_rate=att_rate, eps=eps, row0=row0)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     B, T, _ = x.shape
@@ -396,10 +399,12 @@ def fused_conformer_layer_train(x, mask, seeds, lens, posp, packed, *,
     if seeds.dtype != torch.int32 or tuple(seeds.shape) != (B,) or \
             seeds.device != x.device:
         raise ValueError("seeds must be (B,) int32 on the device of x")
-    if not 0 <= layer < 4096 or B >= 65536:
-        raise ValueError("the dropout hash keys layer < 4096, B < 65536")
+    if not 0 <= layer < 4096 or not 0 <= row0 or row0 + B >= 65536:
+        raise ValueError("the dropout hash keys layer < 4096, row0 + B < "
+                         "65536")
     cfg = {"n_head": n_head, "ksize": ksize, "causal": int(bool(causal)),
-           "layer": int(layer), "drop": dropout_params(rate),
+           "layer": int(layer), "row0": int(row0),
+           "drop": dropout_params(rate),
            "att_drop": dropout_params(att_rate),
            "ff_scale": float(ff_scale), "eps": float(eps)}
     return _TrainLayer.apply(cfg, mask, seeds.contiguous(), lens, x, posp,

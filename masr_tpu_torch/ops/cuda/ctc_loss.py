@@ -12,15 +12,37 @@ the row log-sum-exps and state log-probs, then the alpha and, when a grad
 is wanted, the beta recursion side by side; backward: one pass over the
 grad rows with the occupancies formed in place). There is no cap on the
 number of states and no fallback. A CPU tensor takes `ctc_loss_plain`, a
-readable log-space alpha recursion whose backward is autograd. Both use
--1e30 for -inf as the Pallas kernel does: on a batch whose alignment is
-infeasible (more labels than frames allow) the loss is ~1e30 and finite,
-where optax.ctc_loss's log_epsilon gives ~1e5.
+readable log-space alpha recursion whose backward is autograd.
+
+Both follow optax.ctc_loss, masr_tpu's CPU route (the Pallas kernel's
+header promises its semantics), on every alignment. optax stands for
+log(0) by log_epsilon = -1e5 in its initial rows (every state but the
+first starts at -1e5) and in the skip between two equal labels; -1e30
+bars the rest (states past 2 * label_len, even states' skips). So an
+alignment that needs more frames than it has costs 1e5 for each such
+step and stays finite: 1e5 x (the fewest of them) + the cost of the
+paths that take that fewest. Since one step off the start reaches any
+state, the fewest is 0 (a feasible alignment) or 1 (an infeasible one,
+or tlen = 0 with labels). Both versions count these steps exactly: each
+state holds (class, log-prob), the class the least number of -1e5 steps
+of the paths into it and the log-prob the sum over those paths only
+(optax's other paths weigh exp(-1e5) less: 0 in f32 and f64). The
+1e5 x class is added once, at the end, so the paths' costs keep their
+precision (optax's f32 recursion rounds them to 2^-7 at -1e5). A frame
+count of 0 reads the rows before frame 0: loss 0 for an empty label,
+1e5 - ln 2 otherwise, and no grad.
+
+The kernel carries the classes only in rows that need them (tlen = 0, or
+fewer frames than the labels and the blanks between equal neighbours
+take: `needs_classes`); a feasible row's log Z is of class 0, the class-1
+terms its classes would drop weigh nothing beside it, and its chains run
+with -1e30 for every -1e5 step, at the cost they had before.
 
 `ctc_scheme_mirror` repeats the kernel's arithmetic (f32 in log2 units
-relative to f64 offsets, the grouped scatter of `token_groups`) in plain
-PyTorch, for the CPU tests of its precision (tests/test_torch_ctc_scheme.py);
-nothing else calls it.
+relative to f64 offsets, the grouped scatter of `token_groups`, the
+classes where the kernel carries them) in plain PyTorch, for the CPU
+tests of its precision (tests/test_torch_ctc_scheme.py); nothing else
+calls it.
 
 Launches: `ctc_loss.launches` counts one per forward and one per backward
 call on a CUDA tensor (`.backward_launches` the backward ones).
@@ -32,11 +54,14 @@ import math
 import torch
 
 NEG = -1.0e30
+PENALTY = 1.0e5   # -log_epsilon of optax.ctc_loss
+DEAD = 2          # a class no path of the least count can reach
 
 
 def _states(labels, label_lens, blank):
-    """→ states (B, S) token ids, valid (B, S), skip (B, S) additive 0/NEG
-    (the skip s-2 → s allowed), n_states (B,)."""
+    """→ states (B, S) token ids, valid (B, S), skip (B, S) int: the -1e5
+    steps the skip s-2 → s takes (0: a new label, 1: the same label as
+    before it, DEAD: barred), n_states (B,)."""
     B, L = labels.shape
     S = 2 * L + 1
     s = torch.arange(S, device=labels.device)
@@ -46,15 +71,44 @@ def _states(labels, label_lens, blank):
     states = torch.where(s % 2 == 1, lab, blank)
     n_states = 2 * label_lens.to(labels.device).long() + 1
     valid = s[None, :] < n_states[:, None]
-    skip_ok = (s % 2 == 1) & (s >= 3) & (lab != prev) & valid
-    skip = torch.where(skip_ok, 0.0, NEG)
+    skip_ok = (s % 2 == 1) & (s >= 3) & valid
+    skip = torch.where(skip_ok, (lab == prev).long(), DEAD)
     return states.where(valid, blank), valid, skip, n_states
+
+
+def needs_classes(labels, label_lens, logit_lens, T):
+    """(B,) bool: the rows whose chains the kernel runs with classes: no
+    frame, or min(tlen, T) below the labels plus the labels equal to the
+    one before (every path then takes a -1e5 step). labels (B, L) clamped
+    to >= 0."""
+    nlab = label_lens.to(labels.device).long()
+    cols = torch.arange(1, labels.shape[1], device=labels.device)
+    repeats = ((labels[:, 1:] == labels[:, :-1])
+               & (cols[None, :] < nlab[:, None])).sum(dim=1)
+    tlen = logit_lens.to(labels.device).long()
+    return (tlen <= 0) | (tlen.clamp(max=T) < nlab + repeats)
+
+
+def _start_classes(valid):
+    """The rows before frame 0 (optax's initial rows): state 0 at class 0,
+    every other state of the sequence at class 1, log-prob 0."""
+    s = torch.arange(valid.shape[1], device=valid.device)
+    return torch.where(valid, (s > 0).long()[None, :], DEAD)
 
 
 def _logaddexp3(a, b, c):
     m = torch.maximum(torch.maximum(a, b), c)
     return m + torch.log(torch.exp(a - m) + torch.exp(b - m)
                          + torch.exp(c - m))
+
+
+def _least(neg, *terms):
+    """(class, value) terms → the least class and the values of the terms
+    of that class (the others at `neg`)."""
+    cm = terms[0][0]
+    for c, _ in terms[1:]:
+        cm = torch.minimum(cm, c)
+    return cm, [torch.where(c == cm, v, neg) for c, v in terms]
 
 
 def ctc_loss_plain(logits, logit_lens, labels, label_lens, blank=0):
@@ -71,18 +125,28 @@ def ctc_loss_plain(logits, logit_lens, labels, label_lens, blank=0):
     lp = torch.where(valid[:, None, :],
                      logp.gather(2, states[:, None, :].expand(B, T, S)), NEG)
     tlen = logit_lens.to(logits.device).long()
-    neg = torch.full((B, 1), NEG, device=logits.device, dtype=x.dtype)
-    alpha = lp[:, 0] + torch.where(torch.arange(S, device=logits.device) < 2,
-                                   0.0, NEG)
-    for t in range(1, T):
-        a1 = torch.cat([neg, alpha[:, :-1]], dim=1)
-        a2 = torch.cat([neg, neg, alpha[:, :-2]], dim=1)[:, :S] + skip
-        new = _logaddexp3(alpha, a1, a2) + lp[:, t]
-        alpha = torch.where((t < tlen)[:, None], new, alpha)
-    a_last = alpha.gather(1, (n - 1)[:, None])[:, 0]
-    a_prev = torch.where(n >= 2, alpha.gather(
-        1, torch.clamp(n - 2, min=0)[:, None])[:, 0], NEG)
-    return -torch.logaddexp(a_last, a_prev)
+    dev = logits.device
+    neg = torch.full((B, 2), NEG, device=dev, dtype=x.dtype)
+    dead = torch.full((B, 2), DEAD, device=dev, dtype=torch.long)
+    cls = _start_classes(valid)
+    alpha = torch.zeros(B, S, device=dev, dtype=x.dtype)
+    for t in range(T):
+        c1 = torch.cat([dead[:, :1], cls[:, :-1]], dim=1)
+        a1 = torch.cat([neg[:, :1], alpha[:, :-1]], dim=1)
+        c2 = torch.cat([dead, cls], dim=1)[:, :S] + skip
+        a2 = torch.cat([neg, alpha], dim=1)[:, :S]
+        cm, vs = _least(NEG, (cls, alpha), (c1, a1), (c2, a2))
+        new = _logaddexp3(*vs) + lp[:, t]
+        on = (t < tlen)[:, None]
+        alpha = torch.where(on, new, alpha)
+        cls = torch.where(on, torch.where(valid, cm.clamp(max=DEAD), DEAD),
+                          cls)
+    i1, i2 = (n - 1)[:, None], torch.clamp(n - 2, min=0)[:, None]
+    k, (v1, v2) = _least(
+        NEG, (cls.gather(1, i1)[:, 0], alpha.gather(1, i1)[:, 0]),
+        (torch.where(n >= 2, cls.gather(1, i2)[:, 0], DEAD),
+         alpha.gather(1, i2)[:, 0]))
+    return k.to(x.dtype) * PENALTY - torch.logaddexp(v1, v2)
 
 
 LOG2E = 1.4426950408889634
@@ -97,25 +161,39 @@ def _lse3_2(a, b, c):
     return hi + torch.log2(1.0 + torch.exp2(lo1 - hi) + torch.exp2(lo2 - hi))
 
 
-def _chain(lp2, skip2, init, frames, beta):
+def _chain(lp2, skip2, init, frames, beta, cls=None):
     """One direction of the kernel's recursion for the batch, f32 in log2
     units relative to per-sequence f64 offsets: step k shifts the values by
     r_k = M_{k-2} - r_{k-1} (M_j the max of step j's stored values; r_1 =
-    0), so the offset is the true max of step k-2. lp2 (B, T, S); skip2
-    (B, S) additive (beta: the skip into s + 2); init (B, S) step 0;
-    frames (B,) steps + 1 of each chain (alpha: frames 0..frames-1, beta:
-    frames-1..0). → values (B, T, S) f32 and offsets (B, T) f64, frames
-    outside the chain left at NEG2 / 0."""
+    0), so the offset is the true max of step k-2. lp2 (B, T, S); init (B,
+    S) step 0; frames (B,) steps + 1 of each chain (alpha: frames
+    0..frames-1, beta: frames-1..0). Without `cls`, skip2 (B, S) is
+    additive (beta: the skip into s + 2) and every state is of one class →
+    values (B, T, S) f32 and offsets (B, T) f64, frames outside the chain
+    left at NEG2 / 0. With cls = (init classes, skip classes (as skip2),
+    valid), each state also carries its class (`ctc_loss_plain`), a term
+    of a higher class than the least of its three drops out, a state past
+    the sequence or of class DEAD holds NEG2, and the classes (B, T, S)
+    come back third."""
     B, T, S = lp2.shape
     dev = lp2.device
     vals = torch.full((B, T, S), NEG2, dtype=torch.float32, device=dev)
     offs = torch.zeros(B, T, dtype=torch.float64, device=dev)
     bi = torch.arange(B, device=dev)
     neg = torch.full((B, 2), NEG2, dtype=torch.float32, device=dev)
+    if cls is None:
+        c, skip_c, valid = torch.zeros(B, S, dtype=torch.long, device=dev), \
+            torch.zeros(B, S, dtype=torch.long, device=dev), None
+    else:
+        c, skip_c, valid = cls
+        skip2 = torch.zeros_like(skip2)
+    clss = torch.full((B, T, S), DEAD, dtype=torch.long, device=dev)
+    dead = torch.full((B, 2), DEAD, dtype=torch.long, device=dev)
     f0 = (frames - 1).clamp(min=0) if beta else torch.zeros_like(frames)
     live = frames > 0
     v = init
     vals[bi[live], f0[live]] = v[live]
+    clss[bi[live], f0[live]] = c[live]
     o = torch.zeros(B, dtype=torch.float64, device=dev)
     r_prev = torch.zeros(B, dtype=torch.float32, device=dev)
     m_prev = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -128,22 +206,35 @@ def _chain(lp2, skip2, init, frames, beta):
         if beta:
             f = (frames - 1 - k).clamp(min=0)
             lp = lp2[bi, (f + 1).clamp(max=T - 1)]
-            z = v + lp
-            zn = torch.cat([z, neg], dim=1)
-            new = _lse3_2(zn[:, :S], zn[:, 1:S + 1], zn[:, 2:] + skip2) \
-                - r[:, None]
+            zn = torch.cat([v + lp, neg], dim=1)
+            cn = torch.cat([c, dead], dim=1)
+            terms = ((cn[:, :S], zn[:, :S]), (cn[:, 1:S + 1], zn[:, 1:S + 1]),
+                     (cn[:, 2:] + skip_c, zn[:, 2:] + skip2))
+            cm, vs = _least(NEG2, *terms)
+            new = _lse3_2(*vs) - r[:, None]
         else:
             f = torch.full_like(frames, k)
             vn = torch.cat([neg, v], dim=1)
-            new = _lse3_2(vn[:, 2:], vn[:, 1:S + 1], vn[:, :S] + skip2) \
-                + lp2[:, k] - r[:, None]
+            cn = torch.cat([dead, c], dim=1)
+            terms = ((cn[:, 2:], vn[:, 2:]), (cn[:, 1:S + 1], vn[:, 1:S + 1]),
+                     (cn[:, :S] + skip_c, vn[:, :S] + skip2))
+            cm, vs = _least(NEG2, *terms)
+            new = _lse3_2(*vs) + lp2[:, k] - r[:, None]
+        if valid is not None:
+            live_s = valid & (cm < DEAD)
+            new = torch.where(live_s, new, NEG2)
+            cm = torch.where(live_s, cm, DEAD)
         v = torch.where(act[:, None], new, v)
+        c = torch.where(act[:, None], cm, c)
         o = torch.where(act, o + r.double(), o)
         vals[bi[act], f[act]] = v[act]
+        clss[bi[act], f[act]] = c[act]
         offs[bi[act], f[act]] = o[act]
         m_prev = torch.where(act, pm, m_prev)
         r_prev = torch.where(act, r, r_prev)
-    return vals, offs
+    if cls is None:
+        return vals, offs
+    return vals, offs, clss
 
 
 def token_groups(labels, label_lens, blank=0):
@@ -164,11 +255,15 @@ def ctc_scheme_mirror(logits, logit_lens, labels, label_lens, gout,
                       blank=0):
     """The CUDA kernel's numerical scheme in plain PyTorch (tests only):
     the state log-probs in log2 units, the alpha and beta recursions in f32
-    relative to f64 offsets (`_chain`), log Z in f64, the occupancies
-    2^min(alpha + beta + (offsets - log Z), 0) in f32, and the grad row
-    g * (softmax * occupancy - the groups' sums in s order). Frames at or
-    past tlen have no occupancy (the Pallas kernel's beta), nor have any
-    when tlen is not in [1, T]. → nll (B,) f32, grad (B, T, V) f32."""
+    relative to f64 offsets with each state's class (`_chain`), log Z in
+    f64 with the class of its paths, the occupancies 2^min(alpha + beta +
+    (offsets - log Z), 0) in f32 of the states whose alpha and beta
+    classes add up to log Z's, and the grad row g * (softmax * occupancy -
+    the groups' sums in s order). The rows that do not `needs_classes` run
+    without classes (every state of class 0, -1e30 for each -1e5 step), as
+    the kernel runs them. Frames at or past tlen have no occupancy, nor
+    have any when tlen is not in [1, T]; tlen = 0 reads the rows before
+    frame 0. → nll (B,) f32, grad (B, T, V) f32."""
     B, T, V = logits.shape
     dev = logits.device
     labels = labels.long().clamp(min=0)
@@ -179,34 +274,68 @@ def ctc_scheme_mirror(logits, logit_lens, labels, label_lens, gout,
     lp2 = torch.where(valid[:, None, :], (x.gather(
         2, states[:, None, :].expand(B, T, S)) - lse[..., None]) * LOG2E,
         NEG2).float()
-    skip2 = torch.where(skip == 0, 0.0, NEG2).float()
+    zero2 = torch.zeros(B, S, dtype=torch.float32, device=dev)
     tlen = logit_lens.to(dev).long()
     s_idx = torch.arange(S, device=dev)
-    # alpha: frames 0 .. te-1
+    # alpha: frames 0 .. te-1, frame 0 one step from the rows before it
     te = tlen.clamp(1, T)
-    a_init = torch.where(s_idx[None] < 2, lp2[:, 0], NEG2)
-    alpha, off_a = _chain(lp2, skip2, a_init, te, beta=False)
+    c0 = _start_classes(valid)
+    dead = torch.full((B, 2), DEAD, dtype=torch.long, device=dev)
+    cn = torch.cat([dead, c0], dim=1)
+    vn = torch.cat([torch.full((B, 2), NEG2, device=dev),
+                    torch.where(valid, 0.0, NEG2)], dim=1).float()
+    cm, vs = _least(NEG2, (cn[:, 2:], vn[:, 2:]),
+                    (cn[:, 1:S + 1], vn[:, 1:S + 1]),
+                    (cn[:, :S] + skip, vn[:, :S]))
+    a_init = torch.where(valid, _lse3_2(*vs) + lp2[:, 0], NEG2)
+    alpha, off_a, cls_a = _chain(lp2, zero2, a_init, te, beta=False,
+                                 cls=(torch.where(valid, cm, DEAD), skip,
+                                      valid))
+    # the rows without classes: class 0, -1e30 for each -1e5 step
+    plain = ~needs_classes(labels, label_lens, tlen, T)
+    skip2 = torch.where(skip == 0, 0.0, NEG2).float()
+    if bool(plain.any()):
+        p_alpha, p_off = _chain(
+            lp2, skip2, torch.where(s_idx[None] < 2, lp2[:, 0], NEG2), te,
+            beta=False)
+        alpha = torch.where(plain[:, None, None], p_alpha, alpha)
+        off_a = torch.where(plain[:, None], p_off, off_a)
+        cls_a = torch.where(plain[:, None, None], 0, cls_a)
     bi = torch.arange(B, device=dev)
-    last = alpha[bi, te - 1].double()
-    a1 = last.gather(1, (n - 1)[:, None])[:, 0]
-    a2 = torch.where(n >= 2, last.gather(
-        1, (n - 2).clamp(min=0)[:, None])[:, 0], NEG2)
+    last, lastc = alpha[bi, te - 1].double(), cls_a[bi, te - 1]
+    i1, i2 = (n - 1)[:, None], (n - 2).clamp(min=0)[:, None]
+    kz, (a1, a2) = _least(
+        NEG2, (lastc.gather(1, i1)[:, 0], last.gather(1, i1)[:, 0]),
+        (torch.where(n >= 2, lastc.gather(1, i2)[:, 0], DEAD),
+         last.gather(1, i2)[:, 0]))
     hi, lo = torch.maximum(a1, a2), torch.minimum(a1, a2)
     logz = off_a[bi, te - 1] + hi + torch.log2(1.0 + torch.exp2(lo - hi))
-    nll = (-logz * math.log(2.0)).float()
+    # no frame: the rows before frame 0 (state n - 1 and n - 2 at class 1)
+    zero = tlen <= 0
+    kz = torch.where(zero, (n >= 2).long(), kz)
+    logz = torch.where(zero, (n >= 2).double(), logz)
+    nll = (kz.double() * PENALTY - logz * math.log(2.0)).float()
     # beta: frames tb-1 .. 0
     tb = torch.where((tlen >= 1) & (tlen <= T), tlen, 0)
     term = (s_idx[None] == (n - 1)[:, None]) | (
         (s_idx[None] == (n - 2)[:, None]) & (n >= 2)[:, None])
-    skip_b = torch.cat([skip2[:, 2:], torch.full((B, 2), NEG2, device=dev)],
-                       dim=1)
-    beta, off_b = _chain(lp2, skip_b, torch.where(term, 0.0, NEG2).float(),
-                         tb, beta=True)
+    skip_b = torch.cat([skip[:, 2:], dead], dim=1)
+    beta, off_b, cls_b = _chain(
+        lp2, zero2, torch.where(term, 0.0, NEG2).float(), tb, beta=True,
+        cls=(torch.where(term, 0, DEAD), skip_b, valid))
+    if bool(plain.any()):
+        p_beta, p_off = _chain(
+            lp2, torch.cat([skip2[:, 2:], torch.full((B, 2), NEG2,
+                                                      device=dev)], dim=1),
+            torch.where(term, 0.0, NEG2).float(), tb, beta=True)
+        beta = torch.where(plain[:, None, None], p_beta, beta)
+        off_b = torch.where(plain[:, None], p_off, off_b)
+        cls_b = torch.where(plain[:, None, None], 0, cls_b)
     c = (off_a + off_b - logz[:, None]).float()
     gam = torch.exp2(torch.clamp(alpha + beta + c[..., None], max=0.0))
-    gam = torch.where(valid[:, None, :] & (
-        torch.arange(T, device=dev)[None, :, None] < tb[:, None, None]),
-        gam, 0.0)
+    gam = torch.where(valid[:, None, :] & (cls_a + cls_b == kz[:, None, None])
+                      & (torch.arange(T, device=dev)[None, :, None]
+                         < tb[:, None, None]), gam, 0.0)
     occ = gam.sum(-1)
     g = gout.to(dev).float()
     grad = g[:, None, None] * (torch.exp(x - lse[..., None]) * occ[..., None])

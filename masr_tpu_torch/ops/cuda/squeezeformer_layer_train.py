@@ -66,7 +66,7 @@ SITE_FFN1_HIDDEN, SITE_FFN1_OUT, SITE_ATT_PROB, SITE_ATT_OUT, \
 def fused_squeezeformer_layer_train_plain(x, mask, seeds, lens, posp, packed,
                                           *, layer, n_head, ksize, causal,
                                           rate=0.0, att_rate=0.0, eps=1e-6,
-                                          conv_eps=1e-5):
+                                          conv_eps=1e-5, row0=0):
     """Plain PyTorch version of the kernel, same arguments. x: (B, T, D)
     f32, or bf16 with posp bf16 and the unfolded bf16 pack (the bf16 mode,
     the module docstring; any other dtype computes as f32 does); mask: (B,
@@ -76,7 +76,8 @@ def fused_squeezeformer_layer_train_plain(x, mask, seeds, lens, posp, packed,
     `pack_sq_layer_params` of a layer_norm conv layer; layer: the layer's
     index (a dropout-hash key); rate: dropout at the FFN hidden rows and
     at every sublayer's output; att_rate: at the attention probabilities;
-    eps: the four layer LayerNorms'; conv_eps: the conv module's. →
+    eps: the four layer LayerNorms'; conv_eps: the conv module's; row0:
+    the global batch row of utterance 0 (a dropout-hash key). →
     (B, T, D)."""
     B, T, D = x.shape
     bf16 = x.dtype == BF16
@@ -87,7 +88,7 @@ def fused_squeezeformer_layer_train_plain(x, mask, seeds, lens, posp, packed,
     ada = sq_adas(packed)
     lnw, attw, vecb = packed["lnw"], packed["attw"], packed["vecb"]
     layer_norm, conv_norm = sq_layer_norms(packed, True, eps, conv_eps)
-    drop = site_dropout(seeds, layer, T, x.device)
+    drop = site_dropout(seeds, layer, T, x.device, row0)
     row_ok = (torch.arange(T, device=x.device)[None, :]
               < lens.to(x.device)[:, None])[:, :, None]
 
@@ -107,7 +108,7 @@ def fused_squeezeformer_layer_train_plain(x, mask, seeds, lens, posp, packed,
     xa = ada(x, 0)
     att = attention_train_plain(
         *(mm(xa, attw[i]) + vecb[i] for i in range(3)), posp,
-        packed["posb"], mask, n_head, seeds, layer, att_rate)
+        packed["posb"], mask, n_head, seeds, layer, att_rate, row0)
     x = layer_norm(x + drop(mm(att, attw[3]) + vecb[3], SITE_ATT_OUT, rate),
                    0)
     x = post_norm(x + ffn(ada(x, 1), 0, SITE_FFN1_HIDDEN, SITE_FFN1_OUT), 1)
@@ -138,13 +139,13 @@ def _lib():
                  "masr_sq_layer_train_forward_bf16"):
         fn = getattr(lib, name)
         fn.restype = I
-        fn.argtypes = [P] * 20 + [I] * 8 + [U, Fl, U, Fl, Fl, Fl, P]
+        fn.argtypes = [P] * 20 + [I] * 9 + [U, Fl, U, Fl, Fl, Fl, P]
     fn = lib.masr_sq_layer_train_backward
     fn.restype = I
-    fn.argtypes = [P] * 32 + [I] * 8 + [U, Fl, U, Fl, P]
+    fn.argtypes = [P] * 32 + [I] * 9 + [U, Fl, U, Fl, P]
     fn = lib.masr_sq_layer_train_backward_bf16
     fn.restype = I
-    fn.argtypes = [P] * 25 + [I] * 8 + [U, Fl, U, Fl, P]
+    fn.argtypes = [P] * 25 + [I] * 9 + [U, Fl, U, Fl, P]
     return lib
 
 
@@ -179,7 +180,8 @@ class _TrainLayer(torch.autograd.Function):
                 lens.data_ptr(), posp.data_ptr(),
                 *(p.data_ptr() for p in params), out.data_ptr(),
                 saved.data_ptr(), *dims, cfg["ksize"], cfg["causal"],
-                cfg["layer"], *cfg["drop"], *cfg["att_drop"], cfg["eps"],
+                cfg["layer"], cfg["row0"], *cfg["drop"], *cfg["att_drop"],
+                cfg["eps"],
                 cfg["conv_eps"],
                 torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
@@ -212,7 +214,8 @@ class _TrainLayer(torch.autograd.Function):
                 dy.data_ptr(), *(t.data_ptr() for t in inputs),
                 ctx.saved.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
                 dposp.data_ptr(), *(g.data_ptr() for g in grads), *dims,
-                cfg["ksize"], cfg["causal"], cfg["layer"], *cfg["drop"],
+                cfg["ksize"], cfg["causal"], cfg["layer"], cfg["row0"],
+                *cfg["drop"],
                 *cfg["att_drop"],
                 torch.cuda.current_stream(dy.device).cuda_stream)
         if err != 0:
@@ -226,7 +229,8 @@ class _TrainLayer(torch.autograd.Function):
 
 def fused_squeezeformer_layer_train(x, mask, seeds, lens, posp, packed, *,
                                     layer, n_head, ksize, causal, rate=0.0,
-                                    att_rate=0.0, eps=1e-6, conv_eps=1e-5):
+                                    att_rate=0.0, eps=1e-6, conv_eps=1e-5,
+                                    row0=0):
     """The whole training layer, differentiable in x, posp and the packed
     arrays. A CPU tensor takes the plain version; a CUDA tensor launches
     the kernels (their bf16 mode for bf16 operands and the unfolded bf16
@@ -236,7 +240,7 @@ def fused_squeezeformer_layer_train(x, mask, seeds, lens, posp, packed, *,
         return fused_squeezeformer_layer_train_plain(
             x, mask, seeds, lens, posp, packed, layer=layer, n_head=n_head,
             ksize=ksize, causal=causal, rate=rate, att_rate=att_rate,
-            eps=eps, conv_eps=conv_eps)
+            eps=eps, conv_eps=conv_eps, row0=row0)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     B, T, D = x.shape
@@ -261,10 +265,12 @@ def fused_squeezeformer_layer_train(x, mask, seeds, lens, posp, packed, *,
     if seeds.dtype != torch.int32 or tuple(seeds.shape) != (B,) or \
             seeds.device != x.device:
         raise ValueError("seeds must be (B,) int32 on the device of x")
-    if not 0 <= layer < 4096 or B >= 65536:
-        raise ValueError("the dropout hash keys layer < 4096, B < 65536")
+    if not 0 <= layer < 4096 or not 0 <= row0 or row0 + B >= 65536:
+        raise ValueError("the dropout hash keys layer < 4096, row0 + B < "
+                         "65536")
     cfg = {"n_head": n_head, "ksize": ksize, "causal": int(bool(causal)),
-           "layer": int(layer), "drop": dropout_params(rate),
+           "layer": int(layer), "row0": int(row0),
+           "drop": dropout_params(rate),
            "att_drop": dropout_params(att_rate), "eps": float(eps),
            "conv_eps": float(conv_eps)}
     return _TrainLayer.apply(cfg, mask, seeds.contiguous(), lens, x, posp,

@@ -6,8 +6,14 @@ configs/augmentation.json included):
     python -m masr_tpu_torch.train --configs configs/squeezeformer.yml
     python -m masr_tpu_torch.train --configs configs/efficient_conformer.yml
     python -m masr_tpu_torch.train --configs configs/deepspeech2.yml
+
+On N GPUs of one machine, data parallel over NCCL (with
+train_conf.tensor_parallel: T, a (N / T) x T data x model grid):
+
+    torchrun --nproc_per_node=N -m masr_tpu_torch.train --configs ...
 """
 import argparse
+import os
 
 from masr_tpu_torch.training.trainer import MASRTrainer
 
@@ -20,8 +26,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--configs", default="configs/conformer.yml",
                    help="config file (YAML)")
-    p.add_argument("--local_rank", type=int, default=0,
-                   help="accepted for compatibility; one GPU is used")
+    p.add_argument("--local_rank", type=int, default=None,
+                   help="this process's GPU under a distributed launch "
+                        "(torchrun sets LOCAL_RANK, which this overrides)")
     p.add_argument("--use_gpu", type=_bool, default=True,
                    help="train on the GPU (False: the CPU)")
     p.add_argument("--augment_conf_path",
@@ -37,6 +44,8 @@ def main(argv=None):
     p.add_argument("--overwrites", default=None,
                    help='config overrides, e.g. "train_conf.max_epoch=100"')
     args = p.parse_args(argv)
+    if args.local_rank is not None:
+        os.environ["LOCAL_RANK"] = str(args.local_rank)
     trainer = MASRTrainer(configs=args.configs,
                           device="cuda" if args.use_gpu else "cpu",
                           overwrites=args.overwrites)

@@ -48,9 +48,18 @@ step runs fbank, SpecAugment and SpecSub on the card before the encoder
 (ops/specaug.py; eval takes the deterministic fbank); manifest_type binary
 reads `<manifest>.data`; optimizer_conf.fused runs torch's fused Adam.
 
-Not ported: tensor-parallel training, which raises NotImplementedError
-before a model is built (ROADMAP.md queue 1, item 6), and multi-host
-sampling.
+Data and tensor parallelism as masr_tpu's (trainer.py:69-85, :175-182):
+under torchrun (`torchrun --nproc_per_node=N -m masr_tpu_torch.train`)
+the trainer joins the process group (parallel/mesh.py: NCCL on the card,
+gloo on the CPU), places the rank in a (data, model) grid of
+train_conf.tensor_parallel, shards the training set over the ranks
+(ShardedBatchSampler: batch_size utterances per rank and step) and trains
+the global batch (training/train_state.py; parallel/tp.py keeps each
+rank's slices of the ruled parameters and their Adam moments). Rank 0
+alone writes scalars, checkpoints (whole parameters and moments, the file
+one process writes and loads) and the profiler trace, and evaluates at
+the end of an epoch while the other ranks wait at a barrier. With
+WORLD_SIZE unset or 1 nothing of this runs.
 """
 import json
 import os
@@ -67,7 +76,8 @@ from masr_tpu_torch.data.loader import DataLoader
 from masr_tpu_torch.data.manifest import (build_vocab, create_manifest,
                                           create_noise_manifest)
 from masr_tpu_torch.data.normalizer import FeatureNormalizer
-from masr_tpu_torch.data.sampler import BatchShuffleSampler
+from masr_tpu_torch.data.sampler import (BatchShuffleSampler,
+                                         ShardedBatchSampler)
 from masr_tpu_torch.data.text_featurizer import TextFeaturizer
 from masr_tpu_torch.decoders.device_beam import (decode_batch_device,
                                                  device_beam_conf)
@@ -80,6 +90,8 @@ from masr_tpu_torch.models.weights import (flax_like_init,
                                            to_flax_variables,
                                            torch_default_like_init)
 from masr_tpu_torch.optimizer.schedulers import build_optimizer
+from masr_tpu_torch.parallel import mesh
+from masr_tpu_torch.parallel.tp import shard_params
 from masr_tpu_torch.training import checkpoints as ckpt
 from masr_tpu_torch.training.logging_util import ScalarWriter
 from masr_tpu_torch.training.train_state import (TrainState, batch_to,
@@ -91,11 +103,6 @@ from masr_tpu_torch.utils.logger import setup_logger
 from masr_tpu_torch.utils.metrics import cer, wer
 
 logger = setup_logger()
-
-
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported (ROADMAP.md queue 1, "
-                               f"item {item})")
 
 
 class MASRTrainer(object):
@@ -119,11 +126,14 @@ class MASRTrainer(object):
                 for p in parents:
                     node = node[p]
                 node[leaf] = yaml.safe_load(v)
-        self.device = resolve_device(device)
+        self.device = mesh.local_device(resolve_device(device))
         t = self.configs.get("train_conf", {})
         self.amp = bool(t.get("enable_amp", False))
-        if int(t.get("tensor_parallel", 1) or 1) > 1:
-            raise _not_ported("train_conf.tensor_parallel", 6)
+        # torchrun's process group, and the rank's (data, model) grid
+        mesh.maybe_init_distributed(self.device)
+        self.tensor_parallel = int(t.get("tensor_parallel", 1) or 1)
+        self.grid = mesh.make_mesh_2d(self.tensor_parallel)
+        self.rank, self.world = self.grid.rank, self.grid.world
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -237,7 +247,12 @@ class MASRTrainer(object):
             max_duration=d.get("max_duration", 20) if is_train else -1,
             augmentation_config=aug, train=is_train,
             return_waveform=on_device)
-        if is_train:
+        if is_train and self.world > 1:
+            sampler = ShardedBatchSampler(
+                len(dataset), d.batch_size, rank=self.rank,
+                num_replicas=self.world, sortagrad=True, drop_last=True,
+                seed=self.seed)
+        elif is_train:
             sampler = BatchShuffleSampler(len(dataset), d.batch_size,
                                           sortagrad=True, drop_last=True,
                                           seed=self.seed)
@@ -300,15 +315,18 @@ class MASRTrainer(object):
                                     torch.Generator().manual_seed(self.seed))
         else:
             raise ValueError(f"unknown train_conf.init_type {init_type!r}")
-        self.model = model.to(self.device)
+        self.model = mesh.replicate(model.to(self.device), self.grid)
         t = self.configs.get("train_conf", {})
         grad_clip = t.get("grad_clip", 5.0)
+        # tensor parallelism: the optimizer steps the rank's slices
+        shards = shard_params(self.model, self.grid)
         opt, sched, self.lr_schedule = build_optimizer(
-            self.model.parameters(), self.configs.optimizer_conf)
+            shards.opt_params(), self.configs.optimizer_conf)
         self.frontend = self._device_frontend()
         self.state = TrainState(self.model, opt, sched, grad_clip=grad_clip,
                                 accum_grad=t.get("accum_grad", 1),
-                                frontend=self.frontend)
+                                frontend=self.frontend, grid=self.grid,
+                                shards=shards)
         return self.model
 
     def _save_dir(self, save_model_path):
@@ -339,7 +357,9 @@ class MASRTrainer(object):
               augment_conf_path="configs/augmentation.json"):
         """masr_tpu's train: augment_conf_path defaults to its
         configs/augmentation.json (relative to the working directory; a
-        missing file, or None, trains unaugmented)."""
+        missing file, or None, trains unaugmented). Over several ranks
+        every rank calls it; rank 0 alone logs scalars, writes the
+        checkpoints and the profiler trace, and evaluates."""
         t_conf = self.configs.train_conf
         dataset, sampler, loader = self._setup_dataloader(
             True, augment_conf_path)
@@ -357,8 +377,12 @@ class MASRTrainer(object):
             logger.info(f"resumed from {resume} at epoch {last_epoch}")
         elif pretrained_model:
             self._load_pretrained(pretrained_model)
+            if self.state.shards is not None:
+                self.state.shards.reset()
             logger.info(f"loaded pretrained weights from {pretrained_model}")
-        writer = ScalarWriter(self.configs.get("log_dir", "log"))
+        lead = self.rank == 0
+        writer = ScalarWriter(self.configs.get("log_dir", "log")) \
+            if lead else None
         max_epoch = t_conf.max_epoch
         log_interval = t_conf.get("log_interval", 100)
         save_interval = t_conf.get("save_interval_batches", 10000)
@@ -375,11 +399,12 @@ class MASRTrainer(object):
                 if self.stop_train:
                     logger.warning("training stopped by stop_train flag")
                     self._stop_profile(profiler)
-                    writer.close()
+                    if writer:
+                        writer.close()
                     return
                 reader_cost = time.time() - batch_start
                 if profile_range and epoch == last_epoch and \
-                        batch_id == profile_range[0]:
+                        batch_id == profile_range[0] and lead:
                     profiler = self._start_profile()
                 metrics = train_step(self.state, batch_to(batch, self.device),
                                      self.seed)
@@ -388,7 +413,7 @@ class MASRTrainer(object):
                 loss = metrics["loss"]
                 losses.append(loss)
                 batch_cost = time.time() - batch_start
-                if batch_id % log_interval == 0:
+                if batch_id % log_interval == 0 and lead:
                     step = self.state.step
                     lr = self.lr_schedule(self.state.updates)
                     logger.info(
@@ -400,31 +425,45 @@ class MASRTrainer(object):
                     writer.add_scalar("Train/lr", lr, step)
                 if save_interval and batch_id > 0 and \
                         batch_id % save_interval == 0:
-                    ckpt.save_checkpoint(
-                        save_dir, epoch + 1, self.state.state_dict(),
-                        metrics={"last_epoch": epoch,
-                                 "mid_epoch_batch": batch_id})
+                    # every rank gathers the state; rank 0 writes it
+                    state_dict = self.state.state_dict()
+                    if lead:
+                        ckpt.save_checkpoint(
+                            save_dir, epoch + 1, state_dict,
+                            metrics={"last_epoch": epoch,
+                                     "mid_epoch_batch": batch_id})
+                    self._barrier()
                 batch_start = time.time()
             profiler = self._stop_profile(profiler)
             logger.info(f"epoch {epoch + 1} finished in "
                         f"{time.time() - epoch_start:.1f}s, mean loss "
                         f"{np.mean(losses) if losses else float('nan'):.4f}")
-            # training-time eval decodes greedily, as masr_tpu's does
-            error, test_loss = self._evaluate_loader(
-                test_loader, test_dataset, decoder="ctc_greedy")
-            logger.info(f"epoch {epoch + 1}: test {metric_name}={error:.5f} "
-                        f"loss={test_loss:.4f}")
-            writer.add_scalar(f"Test/{metric_name}", error, self.state.step)
-            writer.add_scalar("Test/Loss", test_loss, self.state.step)
-            is_best = error <= best_error
-            best_error = min(error, best_error)
-            ckpt.save_checkpoint(
-                save_dir, epoch + 1, self.state.state_dict(),
-                metrics={"last_epoch": epoch + 1,
-                         f"test_{metric_name}": error,
-                         "test_loss": float(test_loss)},
-                best=is_best)
-        writer.close()
+            state_dict = self.state.state_dict()
+            if lead:
+                # training-time eval decodes greedily, as masr_tpu's does
+                error, test_loss = self._evaluate_loader(
+                    test_loader, test_dataset, decoder="ctc_greedy")
+                logger.info(f"epoch {epoch + 1}: test {metric_name}="
+                            f"{error:.5f} loss={test_loss:.4f}")
+                writer.add_scalar(f"Test/{metric_name}", error,
+                                  self.state.step)
+                writer.add_scalar("Test/Loss", test_loss, self.state.step)
+                is_best = error <= best_error
+                best_error = min(error, best_error)
+                ckpt.save_checkpoint(
+                    save_dir, epoch + 1, state_dict,
+                    metrics={"last_epoch": epoch + 1,
+                             f"test_{metric_name}": error,
+                             "test_loss": float(test_loss)},
+                    best=is_best)
+            self._barrier()
+        if writer:
+            writer.close()
+
+    def _barrier(self):
+        """Wait for every rank (nothing in one process)."""
+        if self.grid.distributed:
+            torch.distributed.barrier()
 
     def _start_profile(self):
         """A running torch.profiler of the host and, on the card, its

@@ -106,20 +106,77 @@ def test_empty_label_and_torch_ctc():
     assert np.isfinite(got.numpy()).all()
 
 
-def test_infeasible_alignment_follows_the_pallas_kernel():
-    """More labels than the frames allow: the port follows the Pallas
-    kernel (-1e30 for -inf: a loss near 1e30, finite, no NaN in loss or
-    grad), not optax's log_epsilon (~1e5)."""
-    logits, _, labels, label_lens = _case(8, 2, 12, 9, 8, min_label=8)
-    logit_lens = np.asarray([12, 5], np.int32)   # row 1: 8 labels, 5 frames
-    w = np.ones(2, np.float32)
-    got, g_got = _plain_loss_and_grad(logits, logit_lens, labels, label_lens,
-                                      w)
-    want, _ = _jax_loss_and_grad(
-        lambda *a: M.ctc_loss_pallas(*a, blank_id=0, interpret=True),
-        logits, logit_lens, labels, label_lens, w)
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-    assert got[1] > 1e29 and got[0] < 1e3 and np.isfinite(got).all()
+def _mixed_case(name):
+    """Batches that mix feasible and infeasible alignments: → (logits,
+    logit_lens, labels, label_lens). "probe": 6 labels over 4 frames
+    beside a feasible row; "mixed": repeated labels, an empty label, a
+    frame count of 0 with and without labels; "long": S = 141 > 128 with
+    one row 20 frames short."""
+    if name == "probe":
+        logits, _, labels, label_lens = _case(8, 2, 8, 7, 6, min_label=6)
+        label_lens[0] = 3
+        labels[0, 3:] = -1
+        return logits, np.asarray([8, 4], np.int32), labels, label_lens
+    if name == "mixed":
+        logits, _, labels, _ = _case(10, 6, 20, 9, 8, repeats=True)
+        label_lens = np.asarray([8, 0, 6, 3, 0, 7], np.int32)
+        labels[np.arange(8)[None] >= label_lens[:, None]] = -1
+        return (logits, np.asarray([20, 3, 5, 0, 0, 9], np.int32), labels,
+                label_lens)
+    logits, _, labels, label_lens = _case(5, 2, 150, 13, 70, min_label=64)
+    label_lens[:] = 70
+    return logits, np.asarray([150, 50], np.int32), labels, label_lens
+
+
+def _masr_ctc(args, w, x64):
+    """masr_tpu's ctc_loss (optax on the CPU) → (nll, grad of the weighted
+    sum), in f64 under jax.enable_x64 when x64."""
+    logits, logit_lens, labels, label_lens = args
+    B, T, _ = logits.shape
+    L = labels.shape[1]
+    lpad, ypad = _pads(logit_lens, label_lens, T, L)
+    lab = np.where(labels < 0, 0, labels)
+    with jax.enable_x64(x64):
+        dt = jnp.float64 if x64 else jnp.float32
+
+        def total(lg):
+            nll = M.ctc_loss(lg, jnp.asarray(lpad, dt), jnp.asarray(lab),
+                             jnp.asarray(ypad, dt), blank_id=0)
+            return jnp.sum(nll * jnp.asarray(w, dt)), nll
+
+        (_, nll), g = jax.value_and_grad(total, has_aux=True)(
+            jnp.asarray(logits, dt))
+        return np.asarray(nll, np.float64), np.asarray(g, np.float64)
+
+
+@pytest.mark.parametrize("name", ["probe", "mixed", "long"])
+def test_infeasible_alignment_follows_optax(name):
+    """More labels than the frames allow: the port follows masr_tpu's CPU
+    ctc_loss (optax, log_epsilon -1e5): a loss of 1e5 + the cost of the
+    paths with one -1e5 step (~100003 for 6 labels over 4 frames), where the
+    Pallas kernel's -1e30 gives ~1e30. Per-sequence NLL within rel 1e-6 of
+    masr_tpu's in f32 and in f64; the grad of the batch mean within 1e-5
+    of masr_tpu's in f64 (x64), and of its f32 grad on the feasible rows
+    at test_plain_matches_optax's rtol 2e-4 atol 2e-5 (optax's own f32
+    recursion rounds the infeasible rows' paths to 2^-7 at -1e5: its f32
+    grad there is ~2e-3 off its f64 one)."""
+    args = _mixed_case(name)
+    B = args[0].shape[0]
+    w = np.full(B, 1.0 / B, np.float32)
+    got, g_got = _plain_loss_and_grad(*args, w)
+    feasible = args[1] >= np.asarray([
+        int(n) + sum(x == y for x, y in zip(lab[:n], lab[1:n]))
+        for lab, n in zip(args[2].tolist(), args[3].tolist())])
+    assert (~feasible).any() and feasible.any()
+    for x64 in (False, True):
+        want, g_want = _masr_ctc(args, w, x64)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        if x64:
+            np.testing.assert_allclose(g_got, g_want, rtol=0, atol=1e-5)
+        else:
+            np.testing.assert_allclose(g_got[feasible], g_want[feasible],
+                                       rtol=2e-4, atol=2e-5)
+    assert (got[~feasible] > 9e4).all() and (got[~feasible] < 2e5).all()
     assert np.isfinite(g_got).all()
 
 

@@ -296,6 +296,70 @@ def _ctc_batch(seed, B, T, V, L, label_lens, logit_lens, low=1, high=None):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", ["conformer", "squeezeformer"])
+def test_train_layer_kernel_row_offset(cuda_device, family):
+    """Rows 3 and 7 with dropout 0.1 at row0 = 4 (the last 2 of a global
+    batch of 6, as the second of three data-parallel ranks runs them): the
+    kernel == the plain twin at row0 = 4 (output 2e-4, grads 1e-4 of their
+    largest), and == the plain twin on the whole batch of 6 at row0 = 0 in
+    those 2 rows, so a row draws the same masks whatever rank runs it."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    from masr_tpu_torch.ops.cuda.squeezeformer_layer import \
+        pack_sq_layer_params
+    D, H, FF, K, T, B = 64, 2, 96, 7, 45, 6
+    if family == "conformer":
+        layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                      causal=True)
+        layer.load_state_dict(seeded_state_dict(layer, seed=7))
+        layer = layer.to(cuda_device)
+        kernel, plain = (clt.fused_conformer_layer_train,
+                         clt.fused_conformer_layer_train_plain)
+        packed0 = {k: v.detach()
+                   for k, v in cl.pack_layer_params(layer).items()}
+    else:
+        layer = _sq_layer(D, H, FF, K, True, "layer_norm", 7, cuda_device)
+        kernel, plain = (sqt.fused_squeezeformer_layer_train,
+                         sqt.fused_squeezeformer_layer_train_plain)
+        with torch.no_grad():
+            packed0 = pack_sq_layer_params(layer)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(B, T, D, generator=g).to(cuda_device)
+    w = torch.randn(B, T, D, generator=g).to(cuda_device)
+    lens = torch.tensor([45, 40, 33, 45, 38, 29], dtype=torch.int32,
+                        device=cuda_device)
+    r = torch.arange(T, device=cuda_device)
+    mask = ((r[None, :] // 16) <= (r[:, None] // 16))[None] & \
+        (r[None, None, :] < lens[:, None, None])
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+    with torch.no_grad():
+        posp0 = layer.self_attn.linear_pos(sinusoid_position_encoding(r, D))
+
+    def run(fn, rows, row0):
+        xx = x[rows].clone().requires_grad_(True)
+        pk = {k: v.clone().requires_grad_(True) for k, v in packed0.items()}
+        y = fn(xx, mask[rows], seeds[rows].contiguous(), lens[rows],
+               posp0.clone(), pk, layer=2, n_head=H, ksize=K, causal=True,
+               rate=0.1, att_rate=0.1, row0=row0)
+        (y * w[rows]).sum().backward()
+        torch.cuda.synchronize()
+        return y.detach(), xx.grad, {k: v.grad for k, v in pk.items()}
+
+    tail = slice(4, 6)
+    y_k, dx_k, dw_k = run(kernel, tail, 4)
+    y_p, dx_p, dw_p = run(plain, tail, 4)
+    y_w, _, _ = run(plain, slice(0, 6), 0)
+    y_0, _, _ = run(kernel, tail, 0)
+    assert (y_k - y_p).abs().max().item() <= 2e-4
+    assert (y_k - y_w[tail]).abs().max().item() <= 2e-4
+    assert (y_0 - y_k).abs().max().item() > 1e-2
+    for name, a, b in [("x", dx_k, dx_p)] + [(k, dw_k[k], dw_p[k])
+                                            for k in dw_p]:
+        assert _rel_err(a, b) <= 1e-4, (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("L,T,V", [(300, 700, 50), (1100, 2300, 24)],
                          ids=["S601", "S2201"])
 def test_ctc_kernel_many_states(cuda_device, L, T, V):
@@ -308,8 +372,8 @@ def test_ctc_kernel_many_states(cuda_device, L, T, V):
 @pytest.mark.cuda
 def test_ctc_kernel_one_frame(cuda_device):
     """T' = 1: label lengths 0 and 1 (the only feasible ones) and a frame
-    count of 0 (no occupancy; its loss from frame 0's alpha, its grad 0 as
-    the Pallas kernel's, so it stays out of the grad gate)."""
+    count of 0 (optax's: its loss from the rows before frame 0, 1e5 - ln 2
+    for its label, its grad 0, so it stays out of the grad gate)."""
     batch = _ctc_batch(21, 3, 1, 11, 1, [0, 1, 1], [1, 1, 0])
     _, g_k = _ctc_gates(cuda_device, *batch, seed=21, rows=slice(0, 2))
     assert g_k[2].abs().max().item() == 0.0
@@ -343,14 +407,48 @@ def test_ctc_kernel_shortest_frames(cuda_device):
 
 @pytest.mark.cuda
 def test_ctc_kernel_infeasible_alignment(cuda_device):
-    """Sequence 1 has more labels than its frames allow: its NLL ~1e30,
-    finite, as the plain twin's (rtol 1e-5); every grad finite; the grad
-    gate over the feasible sequences (the infeasible one's occupancies are
-    the Pallas kernel's clipped ones, not the plain twin's autograd through
-    -1e30)."""
+    """Sequence 1 has more labels than its frames allow: its NLL is
+    optax's, 1e5 + the cost of its paths with one -1e5 step, as the plain
+    twin's (rtol 1e-5), and the grad gate holds on every sequence, the
+    infeasible one included (both count the -1e5 steps by class)."""
     batch = _ctc_batch(24, 3, 40, 13, 12, [12, 12, 6], [40, 8, 30])
-    n_k, _ = _ctc_gates(cuda_device, *batch, seed=24, rows=[0, 2])
-    assert n_k[1] > 1e29 and n_k[0] < 1e4
+    n_k, _ = _ctc_gates(cuda_device, *batch, seed=24)
+    assert 1e5 < n_k[1] < 1.01e5 and n_k[0] < 1e4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,T,V", [(300, 700, 50), (1100, 2300, 24)],
+                         ids=["S601", "S2201"])
+def test_ctc_kernel_infeasible_many_states(cuda_device, L, T, V):
+    """Three warps (S = 601) and the strided kernel (S = 2201) on a batch
+    whose second sequence has L labels over L - 60 frames and whose third
+    has no frame: the card's gates on every sequence but the frameless
+    one, whose NLL is 1e5 - ln 2 and whose grad is 0."""
+    batch = _ctc_batch(L + 1, 3, T, V, L, [L, L, L - 5], [T, L - 60, 0])
+    n_k, g_k = _ctc_gates(cuda_device, *batch, seed=L + 1, rows=[0, 1])
+    assert 1e5 < n_k[1] < 1.1e5
+    assert abs(n_k[2].item() - (1e5 - 0.6931471805599453)) < 0.02
+    assert g_k[2].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,V", [(8, 5), (1100, 4)], ids=["S17", "S2201"])
+def test_ctc_kernel_feasibility_edge(cuda_device, L, V):
+    """Two rows of the same labels drawn from two tokens (many equal
+    neighbours), one over exactly as many frames as the labels and the
+    blanks between equal neighbours take and one over a frame fewer: the
+    kernel runs the first without classes and the second with them, and
+    the card's gates hold on both (one register warp, S = 17; the strided
+    kernel, S = 2201)."""
+    g = torch.Generator().manual_seed(L)
+    labels = torch.randint(1, 3, (1, L), generator=g).repeat(2, 1)
+    need = L + int((labels[0, 1:] == labels[0, :-1]).sum())
+    logits = 2 * torch.randn(2, need + 3, V, generator=g)
+    n_k, _ = _ctc_gates(cuda_device, logits,
+                        torch.tensor([need, need - 1], dtype=torch.int32),
+                        labels, torch.tensor([L, L], dtype=torch.int32),
+                        seed=L)
+    assert n_k[0] < 5e4 and 1e5 < n_k[1] < 1.1e5
 
 
 def _ctc_smoke_batch():

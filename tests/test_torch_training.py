@@ -444,17 +444,19 @@ def test_trainer_trains_saves_and_resumes_on_cpu(corpus, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
-    """Tensor-parallel training raises NotImplementedError naming its
-    ROADMAP.md item (enable_amp trains every family,
-    tests/test_torch_amp_families.py); an eval decoder the trainer does not
-    know raises ValueError; device="cuda" without a card raises (no silent
-    CPU)."""
+    """Tensor-parallel training in one process raises ValueError: the one
+    rank's world is not divisible by tensor_parallel (it trains under
+    torchrun, tests/test_torch_tensor_parallel.py; enable_amp trains every
+    family, tests/test_torch_amp_families.py); an eval decoder the trainer
+    does not know raises ValueError; device="cuda" without a card raises
+    (no silent CPU)."""
     from masr_tpu_torch.training.trainer import MASRTrainer
     conf = _trainer_config(corpus, str(tmp_path), 1)
     tr = MASRTrainer(conf, device="cpu")
     with pytest.raises(ValueError, match="no_such_decoder"):
         tr._resolve_eval_decoder([], "no_such_decoder")
-    with pytest.raises(NotImplementedError, match="tensor_parallel.*item 6"):
+    with pytest.raises(ValueError, match="not divisible by "
+                       "tensor_parallel=2"):
         MASRTrainer(dict(conf, train_conf=dict(conf["train_conf"],
                                                tensor_parallel=2)),
                     device="cpu")
