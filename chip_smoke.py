@@ -316,7 +316,9 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     (CUDA events) beside its f32 kernel, its bf16 twin and
                     the library (torch.matmul bf16 of the layer's products;
                     SDPA bf16 for row 5), with its bf16 bound (989 TFLOP/s
-                    or 3.35 TB/s); the subsampling's bf16 product
+                    or 3.35 TB/s); row 5's bf16 kernel (csrc/
+                    flash_wgmma.cuh) also over FLASH_SWEEP_T beside SDPA
+                    bf16; the subsampling's bf16 product
                     (serving_product, K 4864) vs its twin at 32 windows, one
                     and 8 utterances, each window's bits alone == its rows
                     of the batch, timed beside torch.matmul bf16
@@ -488,6 +490,8 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     RANK=0, LOCAL_RANK=0), 2 steps, the same launches; (d)
                     row 4 on B=8, T'=299 with two rows of more labels than
                     frames (optax's semantics: NLL 1e5 + the paths' cost)
+                    and on a forced alignment of 1100 labels (S = 2201)
+                    over exactly the frames they need and a frame fewer,
                     against its twin (NLL rel 1e-5, the card's grad gate).
                     Prints each rank's step walls, the grad all-reduce's
                     seconds over gloo and its peak device memory
@@ -5473,6 +5477,10 @@ def phase_bf16_kernels(dev, smi):
                    "plain_ms": plain[0], "library_ms": float(np.mean(lib)),
                    "max_abs_err": max(worst5, err),
                    **flash_bound_bf16(mask, B, H, T, d)}
+    times["row5_sweep"] = flash_sweep_bf16(dev)
+    out["row5"]["max_abs_err"] = max(
+        out["row5"]["max_abs_err"],
+        max(v["max_abs_err"] for v in times["row5_sweep"]))
     out["product"], cases["product"], times["product"] = \
         bf16_product_kernel(dev)
     emit({"phase": "bf16_kernels", "card": smi,
@@ -5480,6 +5488,46 @@ def phase_bf16_kernels(dev, smi):
                   "output, mean <= one of the mean magnitude",
           "cases": cases, "times": times})
     return out
+
+
+def flash_sweep_bf16(dev):
+    """Row 5's bf16 kernel over FLASH_SWEEP_T at B=8, 4 heads, d_k 64 under
+    the static-16 mask with lengths T' down to 0.53 T' (phase 24's
+    inputs, rounded to bf16): vs its bf16 twin (bf16_close), CUDA-event
+    times of the kernel and of SDPA bf16 on the same [q+u | q+v], [k | p],
+    v and mask (twice each, in turns), the bound. → one dict a T'."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    B, H, d = 8, 4, 64
+    rows = []
+    for T in FLASH_SWEEP_T:
+        lens = [int(n) for n in
+                np.linspace(T, round(0.533 * T), B).round().astype(int)]
+        mask = flash_mask("static16", lens, T, dev)
+        args = tuple(t.to(BF16) for t in flash_inputs(B, T, d, 40 + T, dev))
+        q, k, v, p, bu, bv = args
+        q_cat = torch.cat([q + bu[None, :, None], q + bv[None, :, None]],
+                          dim=-1)
+        k_cat = torch.cat([k, p[None].expand(B, -1, -1, -1)], dim=-1)
+
+        def kernel(args=args, mask=mask):
+            return rpa.rel_pos_flash_attention(*args, mask)
+
+        def library(q_cat=q_cat, k_cat=k_cat, v=v, mask=mask):
+            return F.scaled_dot_product_attention(
+                q_cat, k_cat, v, attn_mask=mask[:, None],
+                scale=1.0 / d ** 0.5)
+
+        with torch.no_grad():
+            err = bf16_close(kernel(), rpa.rel_pos_attention_plain(
+                *args, mask), f"row 5 bf16 sweep, T'={T}")
+            kms, lms = [cuda_ms(kernel)], [cuda_ms(library)]
+            lms.append(cuda_ms(library))
+            kms.append(cuda_ms(kernel))
+        rows.append({"T": T, "lens": lens, "bf16_ms": kms,
+                     "sdpa_bf16_ms": lms, "max_abs_err": err,
+                     **flash_bound_bf16(mask, B, H, T, d)})
+    return rows
 
 
 def bf16_product_kernel(dev):
@@ -7892,7 +7940,6 @@ def phase_parallel_train(dev, corpus, smi):
     ((c)'s row-3 launches, its row-4 launches, (d)'s grad error)."""
     from masr_tpu_torch.data.collate import collate_fn
     from masr_tpu_torch.data.dataset import MASRDataset
-    from masr_tpu_torch.ops.cuda import ctc_loss as C
     from masr_tpu_torch.parallel import mesh
     from masr_tpu_torch.training import trainer as tr
     t_phase = time.perf_counter()
@@ -8047,6 +8094,46 @@ def phase_parallel_train(dev, corpus, smi):
     g = torch.Generator().manual_seed(69)
     labels[1] = torch.randint(1, VOCAB - 1, (80,), generator=g).to(dev)
     wts = torch.randn(8, generator=g).to(dev)
+    n_k, nll_err, k64, p64 = ctc_card_gates(
+        logits, lens, labels, label_lens, wts, "infeasible CTC", dev)
+    check(all(1e5 < float(n_k[b]) < 1.01e5 for b in (0, 1))
+          and float(n_k[2:].max()) < 1e4,
+          f"infeasible CTC NLL {n_k[:3].tolist()}")
+    summary["ctc_infeasible"] = {
+        "nll": n_k[:2].tolist(), "nll_rel_err": nll_err,
+        "grad_err_vs_f64": k64, "twin_grad_err_vs_f64": p64}
+    # ... and on a forced alignment past the register chains: 1100 labels
+    # from two tokens (S = 2201, the strided kernel) over exactly the
+    # frames they need, and over a frame fewer (the card test's
+    # test_ctc_kernel_feasibility_edge[S2201] inputs)
+    g = torch.Generator().manual_seed(1100)
+    flab = torch.randint(1, 3, (1, 1100), generator=g).repeat(2, 1)
+    need = 1100 + int((flab[0, 1:] == flab[0, :-1]).sum())
+    flog = (2 * torch.randn(2, need + 3, 4, generator=g)).to(dev)
+    fw = torch.randn(2, generator=torch.Generator().manual_seed(1100)).to(dev)
+    n_f, f_err, f64_err, fp64 = ctc_card_gates(
+        flog, torch.tensor([need, need - 1], dtype=torch.int32, device=dev),
+        flab.to(dev, torch.int32),
+        torch.tensor([1100, 1100], dtype=torch.int32, device=dev), fw,
+        "forced-alignment CTC (S = 2201)", dev)
+    check(float(n_f[0]) < 5e4 and 1e5 < float(n_f[1]) < 1.1e5,
+          f"forced-alignment CTC NLL {n_f.tolist()}")
+    summary["ctc_forced_alignment"] = {
+        "S": 2201, "frames": [need, need - 1], "nll": n_f.tolist(),
+        "nll_rel_err": f_err, "grad_err_vs_f64": f64_err,
+        "twin_grad_err_vs_f64": fp64}
+    emit({"phase": "parallel_train", "card": smi, **summary,
+          "seconds": time.perf_counter() - t_phase})
+    return launched[0], launched[2], max(k64, f64_err)
+
+
+def ctc_card_gates(logits, lens, labels, label_lens, wts, what, dev):
+    """Row 4's kernel against its plain twin in f32 and in f64 on one
+    batch, the card tests' gates: 1 + 1 launches, NLL rel 1e-5 of the f32
+    twin's, grad within max(2 x the f32 twin's error, 1e-4) of the f64
+    twin's (a comparison: its launches are not the main path's). → (NLL
+    f64, NLL rel err, grad err vs f64, the f32 twin's grad err vs f64)."""
+    from masr_tpu_torch.ops.cuda import ctc_loss as C
     out = {}
     for name, fn, dt in (("kernel", C.ctc_loss, torch.float32),
                          ("plain", C.ctc_loss_plain, torch.float32),
@@ -8060,22 +8147,13 @@ def phase_parallel_train(dev, corpus, smi):
                      C.ctc_loss.launches - before)
     (n_k, g_k, launched_k), (n_p, g_p, _), (n_64, g_64, _) = (
         out["kernel"], out["plain"], out["f64"])
-    check(launched_k == 2, f"infeasible CTC launches {launched_k} == 2")
+    check(launched_k == 2, f"{what} launches {launched_k} == 2")
     nll_err = float(((n_k - n_p).abs() / n_p.abs()).max())
-    check(nll_err <= 1e-5, f"infeasible CTC NLL kernel vs twin {nll_err}")
+    check(nll_err <= 1e-5, f"{what} NLL kernel vs twin {nll_err}")
     k64 = float((g_k - g_64).abs().max())
     p64 = float((g_p - g_64).abs().max())
-    check(k64 <= max(2 * p64, 1e-4), f"infeasible CTC grad {k64} vs twin "
-          f"{p64}")
-    check(all(1e5 < float(n_k[b]) < 1.01e5 for b in (0, 1))
-          and float(n_k[2:].max()) < 1e4,
-          f"infeasible CTC NLL {n_k[:3].tolist()}")
-    summary["ctc_infeasible"] = {
-        "nll": n_k[:2].tolist(), "nll_rel_err": nll_err,
-        "grad_err_vs_f64": k64, "twin_grad_err_vs_f64": p64}
-    emit({"phase": "parallel_train", "card": smi, **summary,
-          "seconds": time.perf_counter() - t_phase})
-    return launched[0], launched[2], k64
+    check(k64 <= max(2 * p64, 1e-4), f"{what} grad {k64} vs twin {p64}")
+    return n_k, nll_err, k64, p64
 
 
 def parallel_model_init(conf):

@@ -1,6 +1,6 @@
 """Digest and time the port's kernels on the card, to compare two trees.
 
-    python3 -m masr_tpu_torch.bench.kernel_digest [--ctc-only]
+    python3 -m masr_tpu_torch.bench.kernel_digest [--ctc-only | --flash]
 
 Runs the three Conformer layer kernels of the package importable from the
 working directory on fixed seeded inputs at the flagship width (D=256, 4
@@ -24,7 +24,8 @@ chunk of 16 with lens 1500..800 and 0 (rows that see no key); and
 ctc_loss at chip_smoke's CTC shape (B=8, T'=299, V=4000, S=161; `ctc_row`:
 the forward and the backward timed apart, each with its kernels' device
 times, F.ctc_loss as a yardstick, the SM clock; `--ctc-only` runs that
-row alone).
+row alone); `--flash` runs `flash_rows` alone (row 5 in f32 and bf16
+across T' 150..3000 beside SDPA bf16, rows 1 and 6 in bf16 and f32).
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
 calls, the card's name and power limit, for every kernel but CTC the
@@ -53,11 +54,16 @@ import torch
 
 def _digest(tensors):
     """sha256 of the tensors' bytes (None, a grad that was not formed,
-    hashes as a marker)."""
+    hashes as a marker; bf16 as its 16-bit words)."""
     h = hashlib.sha256()
     for t in tensors:
-        h.update(b"none" if t is None
-                 else t.detach().contiguous().cpu().numpy().tobytes())
+        if t is None:
+            h.update(b"none")
+            continue
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -271,11 +277,118 @@ def ctc_row(dev):
     return out
 
 
+def flash_rows(dev):
+    """The attention routes for an A/B of two trees. Row 5 (4 heads, d_k
+    64, B=8, lens T'..0.533 T' as chip_smoke's phase 44, the static-16
+    mask; q, k, v (B, T', D) rows viewed as heads, p an (H, T', d_k) view)
+    at T' 150, 299, 800, 1500 and 3000: digests of the f32 and the bf16
+    output, CUDA-event times of both and of SDPA bf16 on the same
+    [q+u | q+v], [k | p], v and mask (a yardstick only), each CUDA kernel's
+    device time of the bf16 call, and the bf16 output's largest error from
+    its bf16 twin in bf16 roundings (2^-8) of the largest output. Rows 1
+    and 6 (flagship widths, B=8, T'=299, lens 299..33) in f32 and bf16
+    (bf16 x, positions and products): digests and times."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.models.conformer import ConformerEncoderLayer
+    from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+    from masr_tpu_torch.models.squeezeformer import SqueezeformerEncoderLayer
+    from masr_tpu_torch.models.weights import seeded_state_dict
+    from masr_tpu_torch.ops.cuda import build
+    from masr_tpu_torch.ops.cuda import conformer_layer as cl
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer as sql
+    from masr_tpu_torch.ops.masks import add_optional_chunk_mask
+    build.build(["rel_pos_attention", "conformer_layer",
+                 "squeezeformer_layer"])
+    bf = torch.bfloat16
+    B, H, d = 8, 4, 64
+    digests, ms, kernels, err = {}, {}, {}, {}
+    for T in (150, 299, 800, 1500, 3000):
+        g = torch.Generator().manual_seed(T)
+        lens = torch.linspace(T, round(0.533 * T), B).round().long().to(dev)
+        pad = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        mask = add_optional_chunk_mask(T, pad[:, None, :], False, False, -1,
+                                       16, -1)
+        q, k, v = (torch.randn(B, T, H * d, generator=g).to(dev).view(
+            B, T, H, d).transpose(1, 2) for _ in range(3))
+        p = torch.randn(T, H * d, generator=g).to(dev).view(
+            T, H, d).transpose(0, 1)
+        bu, bv = ((0.1 * torch.randn(H, d, generator=g)).to(dev)
+                  for _ in range(2))
+        a32 = (q, k, v, p, bu, bv)
+        a16 = tuple(t.to(bf) for t in a32)
+        q16, k16, v16, p16, bu16, bv16 = a16
+        q_cat = torch.cat([q16 + bu16[None, :, None],
+                           q16 + bv16[None, :, None]], dim=-1)
+        k_cat = torch.cat([k16, p16[None].expand(B, -1, -1, -1)], dim=-1)
+
+        def f32(a32=a32, mask=mask):
+            return rpa.rel_pos_flash_attention(*a32, mask)
+
+        def b16(a16=a16, mask=mask):
+            return rpa.rel_pos_flash_attention(*a16, mask)
+
+        def sdpa(q_cat=q_cat, k_cat=k_cat, v16=v16, mask=mask):
+            return F.scaled_dot_product_attention(
+                q_cat, k_cat, v16, attn_mask=mask[:, None],
+                scale=1.0 / d ** 0.5)
+
+        with torch.no_grad():
+            got = b16()
+            want = rpa.rel_pos_attention_plain(*a16, mask)
+            top = max(1.0, want.float().abs().max().item())
+            err[f"T{T}"] = ((got.float() - want.float()).abs().max().item()
+                            / (2 ** -8 * top))
+            digests[f"row5_f32_T{T}"] = _digest([f32()])
+            digests[f"row5_bf16_T{T}"] = _digest([got])
+            ms[f"row5_f32_T{T}"] = _ms(f32)
+            ms[f"row5_bf16_T{T}"] = _ms(b16)
+            ms[f"sdpa_bf16_T{T}"] = _ms(sdpa)
+            kernels[f"row5_bf16_T{T}"] = _kernels(b16)
+    T = 299
+    g = torch.Generator().manual_seed(12)
+    lens = torch.tensor([299, 281, 250, 220, 180, 150, 90, 33],
+                        dtype=torch.int32, device=dev)
+    x = torch.randn(B, T, 256, generator=g).to(dev)
+    r = torch.arange(T, device=dev)
+    conf = ConformerEncoderLayer(256, 4, 2048, cnn_module_kernel=15,
+                                 causal=True)
+    conf.load_state_dict(seeded_state_dict(conf, seed=7))
+    sq = SqueezeformerEncoderLayer(256, 4, 2048, 31, "batch_norm", True)
+    sq.load_state_dict(seeded_state_dict(sq, seed=10))
+    for name, lyr, fn, extra in (
+            ("row1", conf, cl.fused_conformer_layer, {}),
+            ("row6", sq, sql.fused_squeezeformer_layer, {"conv_ln": False})):
+        lyr = lyr.to(dev).eval()
+        for dt in (torch.float32, bf):
+            with torch.no_grad():
+                posp = lyr.self_attn.linear_pos(
+                    sinusoid_position_encoding(r, 256).to(dt))
+                pk = lyr.chunk_packed_params(dt)
+
+                def call(xd=x.to(dt), posp=posp, pk=pk, fn=fn, lyr=lyr,
+                         extra=extra):
+                    return fn(xd, lens, posp, pk, n_head=4,
+                              ksize=lyr.cnn_module_kernel, causal=True,
+                              **extra)
+
+                key = f"{name}_{'bf16' if dt == bf else 'f32'}"
+                digests[key] = _digest([call()])
+                ms[key] = _ms(call)
+    return {"digests": digests, "ms": ms, "bf16_err_roundings": err,
+            "kernels": kernels}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_digest: CUDA is not available")
     if "--ctc-only" in sys.argv[1:]:
         print(json.dumps({"ctc_loss": ctc_row(torch.device("cuda")),
+                          "card": _smi()}), flush=True)
+        return
+    if "--flash" in sys.argv[1:]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps({"flash": flash_rows(torch.device("cuda")),
                           "card": _smi()}), flush=True)
         return
     from masr_tpu_torch.models.conformer import ConformerEncoderLayer

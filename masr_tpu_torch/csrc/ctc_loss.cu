@@ -60,14 +60,40 @@
 //
 // The arithmetic. The recursions run in f32 in log2 units, each value
 // relative to a per-chain offset that is summed in f64: at step k the
-// values are shifted by r_k = M_{k-2} - r_{k-1} (M_j the max over states
-// of the stored values of step j), so the offset o_k = o_{k-1} + r_k is the
-// true max of step k-2 and the stored values stay within a few tens of 0,
-// where an f32 ulp is ~4e-6 (the f32 recursions of the first port, at
-// |log Z| ~ 3e3, rounded ~1e-3 into the occupancies). The max of step k-1
-// is reduced while step k computes, off the chain. Each state takes
-// hi + log2(1 + 2^(lo1-hi) + 2^(lo2-hi)): two ex2.approx and one
-// lg2.approx, of the terms of the least class. Stored: alpha and beta
+// values are shifted by r_k = M_{k-2} - r_{k-1} (M_j the max of the stored
+// values of step j over its live states, below), so the offset o_k =
+// o_{k-1} + r_k is the true max of step k-2 and the stored values that
+// count stay within a few tens of 0, where an f32 ulp is ~4e-6 (the f32
+// recursions of the first port, at |log Z| ~ 3e3, rounded ~1e-3 into the
+// occupancies). The max of step k-1 is reduced while step k computes, off
+// the chain.
+//
+// Live states. In a row without classes, M_j is taken over the states
+// that can still reach a final state by the last frame (alpha) or that the
+// start reaches by their frame (beta) only: `live_steps` gives each state
+// the last step at which it is live, from a prefix sum of the label
+// repeats. A dead state feeds only dead states and a live one is fed only
+// by live ones (barred skips add -1e30), so the dead states' values,
+// however high they drift above the offset, touch no live value, no
+// occupancy and no log Z. Taking the max over every state instead lets the
+// dead ones set the offset: on a forced alignment (as many frames as the
+// labels and the blanks between equal neighbours need, so the one path
+// that reaches the end is the slowest of all) the slower paths pile up
+// hundreds of log2 units above the surviving one, whose values then round
+// at an ulp of ~6e-5, three times a frame, for 1650 frames (the grad landed
+// 8e-4 from the f64 twin's on the card at S = 2201; the CPU mirror, 1.9e-4
+// there and 1.6e-3 at S = 2001). With the live max they stay near 0 and
+// the error is that of any row (mirror: 5e-6 and 1.2e-5). A compensated
+// (hi, lo) pair or f64 per state would fix the same drift at two to many
+// times the chain's ALU work on every row; the live max costs one compare
+// a state in a reduction that is off the chain, and where the max already
+// sat on a live state (every frame of chip_smoke's batch) the bits do not
+// move. Rows with classes keep the max over every state: their
+// least-class paths leave the start at any state, so no band of few states
+// carries them.
+//
+// Each state takes hi + log2(1 + 2^(lo1-hi) + 2^(lo2-hi)): two ex2.approx
+// and one lg2.approx, of the terms of the least class. Stored: alpha and beta
 // (B, T, S) f32, their classes (B, T, S) u8 (rows that need them) and one
 // f64 offset per (b, t) each; log Z in f64 and its class. ops/cuda/ctc_loss.py `ctc_scheme_mirror`
 // repeats this scheme in PyTorch for the CPU tests.
@@ -205,6 +231,7 @@ struct Scratch {
   int* gbeg;       // (B, S + 1) start of each group in order
   int* ngroups;    // (B,)
   int* first;      // (B, S) build scratch: first state of s's token
+  int* live;       // (2B, S) last live step of each state, a chain a row
   int ldp;         // row stride of lp: every state a register chain reads
 };
 
@@ -268,6 +295,8 @@ inline size_t carve(char* base, int B, int T, int S, Scratch* sc) {
   if (sc) sc->ngroups = (int*)p;
   p = take(4 * bs);
   if (sc) sc->first = (int*)p;
+  p = take(8 * bs);
+  if (sc) sc->live = (int*)p;
   return o;
 }
 
@@ -384,8 +413,10 @@ __device__ __forceinline__ int beta_frames(int tlen, int T) {
 
 // whether sequence b needs the classes: no frame, or fewer frames than
 // its labels and the blanks between equal neighbours take (every path then
-// has a -1e5 step). Every thread of the block calls it.
-__device__ bool needs_classes(const int* lab, int nlab, int tlen, int T) {
+// has a -1e5 step); *reps the labels equal to the one before. Every thread
+// of the block calls it.
+__device__ bool needs_classes(const int* lab, int nlab, int tlen, int T,
+                              int* reps) {
   __shared__ int repeats;
   if (threadIdx.x == 0) repeats = 0;
   __syncthreads();
@@ -394,7 +425,52 @@ __device__ bool needs_classes(const int* lab, int nlab, int tlen, int T) {
     r += label_at(lab, i) == label_at(lab, i - 1);
   if (r) atomicAdd(&repeats, r);
   __syncthreads();
+  *reps = repeats;
   return tlen <= 0 || min(tlen, T) < nlab + repeats;
+}
+
+// last[s], s < S: the last step of a class-free chain of `frames` steps at
+// which state s is live, -1 past the sequence (ops/cuda/ctc_loss.py
+// `live_steps`). With R_i the labels equal to the one before among labels
+// 1 .. i (a block scan), label i is first reached at frame i + R_i and the
+// blank before it at i + R_i - [label i repeats] (beta: live while its
+// frame is at least that); from label i the last label is
+// nlab - 1 - i + R - R_i steps away and from the blank before it one more
+// (alpha: live while its frame plus that is at most frames - 1). Every
+// thread of the block calls it; R the row's repeats.
+__device__ void live_steps(const int* lab, int nlab, int R, int frames,
+                           bool beta, int S, int* last) {
+  __shared__ int wsum[32], carry;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) carry = 0;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) last[s] = -1;
+  __syncthreads();
+  for (int base = 0; base < nlab; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int rep =
+        i >= 1 && i < nlab && label_at(lab, i) == label_at(lab, i - 1);
+    int x = rep;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    int pre = x + carry;
+    for (int w = 0; w < warp; ++w) pre += wsum[w];
+    if (i < nlab) {
+      const int d_lab = beta ? i + pre : nlab - 1 - i + R - pre;
+      const int d_blank = beta ? d_lab - rep : d_lab + 1;
+      last[2 * i + 1] = frames - 1 - d_lab;
+      last[2 * i] = frames - 1 - d_blank;
+    }
+    __syncthreads();
+    if (threadIdx.x == blockDim.x - 1) carry = pre;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) last[2 * nlab] = frames - 1 - (beta ? nlab + R : 0);
+  __syncthreads();
 }
 
 // log2 Z of sequence b and its class from the stored alpha row of its
@@ -438,11 +514,12 @@ struct Bound {
 // computes and is dropped, so the log-prob loads of a step, issued kAhead
 // steps ahead from clamped in-bounds addresses of the padded lp rows, are
 // waited on only where they are used. kCls: each state carries its class
-// (a row that needs_classes); else -1e30 bars every -1e5 step.
+// (a row that needs_classes); else -1e30 bars every -1e5 step and the max
+// of a step is over its live states (`last`, from live_steps).
 template <int K, bool kBeta, bool kCls>
 __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
-                           float* nll, int b, int n, int frames, int T,
-                           int S, bool no_frame) {
+                           const int* last, float* nll, int b, int n,
+                           int frames, int T, int S, bool no_frame) {
   constexpr int E = kBeta ? K + 2 : K;  // log-probs a lane reads a frame
   __shared__ Bound bnd[2][kMaxWarps];
   const int W = blockDim.x / 32, warp = threadIdx.x / 32,
@@ -463,9 +540,11 @@ __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
   // (kCls), else 0 / kNeg2 added to its term
   float skip[K];
   float v[K], c[K];
+  int kl[K];  // the last step at which state s0 + i is live
 #pragma unroll
   for (int i = 0; i < K; ++i) {
     const int s = s0 + i;
+    kl[i] = !kCls && s < S ? last[s] : -1;
     skip[i] = kCls ? skip_class(lab, kBeta ? s + 2 : s, n)
                    : skip_add(lab, kBeta ? s + 2 : s, n);
     if constexpr (kBeta) {
@@ -528,9 +607,10 @@ __device__ void chain_regs(const Scratch& sc, const int* __restrict__ lab,
       const bool act = k < frames;
       const float r = k >= 2 ? m_prev - r_prev : 0.f;
       // M_{k-1}: this warp's part, reduced while the step computes
-      float pm = v[0];
+      float pm = kCls || k - 1 <= kl[0] ? v[0] : kNeg2;
 #pragma unroll
-      for (int i = 1; i < K; ++i) pm = fmaxf(pm, v[i]);
+      for (int i = 1; i < K; ++i)
+        pm = fmaxf(pm, kCls || k - 1 <= kl[i] ? v[i] : kNeg2);
       pm = warp_max(pm);
       const int par = (k - 1) & 1;
       float ext[K + 2], ec[K + 2], nv[K], nc[K];
@@ -664,27 +744,32 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const int b = beta ? blockIdx.x - B : blockIdx.x;
   const int n = 2 * label_lens[b] + 1, tlen = logit_lens[b];
   const int* lab = labels + (size_t)b * L;
-  const bool cls = needs_classes(lab, label_lens[b], tlen, T);
+  int R;
+  const bool cls = needs_classes(lab, label_lens[b], tlen, T, &R);
+  const int frames = beta ? beta_frames(tlen, T) : alpha_frames(tlen, T);
+  if (frames == 0) return;
+  int* last = sc.live + (size_t)blockIdx.x * S;
+  if (!cls) live_steps(lab, label_lens[b], R, frames, beta, S, last);
   if (beta) {
-    const int frames = beta_frames(tlen, T);
-    if (frames == 0) return;
     if (cls)
-      chain_regs<K, true, true>(sc, lab, nll, b, n, frames, T, S, false);
+      chain_regs<K, true, true>(sc, lab, last, nll, b, n, frames, T, S,
+                                false);
     else
-      chain_regs<K, true, false>(sc, lab, nll, b, n, frames, T, S, false);
+      chain_regs<K, true, false>(sc, lab, last, nll, b, n, frames, T, S,
+                                 false);
   } else {
-    const int frames = alpha_frames(tlen, T);
     if (cls)
-      chain_regs<K, false, true>(sc, lab, nll, b, n, frames, T, S,
+      chain_regs<K, false, true>(sc, lab, last, nll, b, n, frames, T, S,
                                  tlen <= 0);
     else
-      chain_regs<K, false, false>(sc, lab, nll, b, n, frames, T, S, false);
+      chain_regs<K, false, false>(sc, lab, last, nll, b, n, frames, T, S,
+                                  false);
   }
 }
 
 // past 2048 states: kWideThreads threads strided over the states, the
 // previous frame's row read back from device memory; same arithmetic, the
-// classes as the row needs them
+// classes or the live max as the row needs them
 __global__ void __launch_bounds__(kWideThreads)
     ctc_wide_kernel(const int* __restrict__ labels,
                     const int* __restrict__ label_lens,
@@ -695,9 +780,12 @@ __global__ void __launch_bounds__(kWideThreads)
   const int b = beta ? blockIdx.x - B : blockIdx.x;
   const int n = 2 * label_lens[b] + 1, tlen = logit_lens[b];
   const int* lab = labels + (size_t)b * L;
-  const bool cls = needs_classes(lab, label_lens[b], tlen, T);
+  int R;
+  const bool cls = needs_classes(lab, label_lens[b], tlen, T, &R);
   const int frames = beta ? beta_frames(tlen, T) : alpha_frames(tlen, T);
   if (frames == 0) return;
+  int* last = sc.live + (size_t)blockIdx.x * S;
+  if (!cls) live_steps(lab, label_lens[b], R, frames, beta, S, last);
   const float* lpb = sc.lp + (size_t)b * T * sc.ldp;
   float* out = (beta ? sc.beta : sc.alpha) + (size_t)b * T * S;
   unsigned char* cout = (beta ? sc.cls_b : sc.cls_a) + (size_t)b * T * S;
@@ -732,7 +820,7 @@ __global__ void __launch_bounds__(kWideThreads)
     float pm = kNeg2;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
       const float p0 = prev[s];
-      pm = fmaxf(pm, p0);
+      if (cls || k - 1 <= last[s]) pm = fmaxf(pm, p0);
       float nv, cm = 0.f;
       if (!beta) {
         const float p1 = s >= 1 ? prev[s - 1] : kNeg2;

@@ -67,10 +67,10 @@
 // key tile's P = exp(S - m) (unnormalised, as row 5's Pallas kernel
 // rounds it); both products are mma.sync m16n8k16 bf16 with f32
 // accumulation, the softmax stays f32. TQ, the type of q, k, v, posb and
-// out: bf16 for row 5 (its Pallas kernel reads and writes the compute
-// dtype), f32 for rows 1 and 6 (the layer's q/k/v product rows and its
-// f32 attention rows). Bound in bf16: the operations over the bf16 dense
-// rate (989 TFLOP/s), or the bytes of q, k, v, p and out.
+// out: f32 for rows 1 and 6 (the layer's q/k/v product rows and its f32
+// attention rows); row 5's bf16 mode runs flash_wgmma.cuh instead. Bound
+// in bf16: the operations over the bf16 dense rate (989 TFLOP/s), or the
+// bytes of q, k, v, p and out.
 #pragma once
 
 #include "common.cuh"

@@ -37,15 +37,18 @@
 //
 // The bf16 mode (`masr_rel_pos_attention_bf16`; the Pallas kernel takes
 // its operands in k.dtype, masr_tpu/ops/pallas/attention.py:73-74, :97):
-// q, k, v, p, posb and out bf16, [q+bu | q+bv], [k | p], P and v rounded to
-// bf16 at the products (mma.sync m16n8k16 bf16, f32 accumulation), the
-// softmax f32 (flash_attention.cuh). Its bound: the operations over the
-// bf16 dense rate, or the bf16 bytes of q, k, v, p, the mask and out.
+// q, k, v, p, posb and out bf16, [q+bu | q+bv] and P rounded to bf16 at
+// the products (f32 accumulation), the softmax f32, after the same tile
+// map: flash_wgmma_kernel of flash_wgmma.cuh, bf16 tiles brought in by TMA
+// behind mbarriers and both products on wgmma (its header says why and
+// what bounds it). k, v and pos_p must suit TMA: 16-byte aligned bases,
+// every stride of an extent above 1 a multiple of 8 elements
+// (ops/cuda/rel_pos_attention.py copies a view that is not).
 //
 // Plain C interface, loaded with ctypes; returns cudaGetLastError() (0 on
 // success).
 
-#include "flash_attention.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -96,16 +99,22 @@ int rel_pos_attention_run(const E* q, const E* k, const E* v,
   const int nt = (T + kFlashTile - 1) / kFlashTile;
   tile_map_kernel<<<dim3(nt, nt, B), 256, 0, st>>>(mask, w, tile_map, T, nt);
   MASR_CHECK(cudaGetLastError());
-  // 16-byte copies of k, p and v rows where every base and stride allows
-  // (strides of 4 floats, or of 8 bf16 for the bf16 mode's plain loads)
-  bool vec = true;
-  for (const void* p : {(const void*)k, (const void*)v, (const void*)pos_p})
-    vec = vec && reinterpret_cast<size_t>(p) % 16 == 0;
-  const int kvp[] = {3, 4, 5, 6, 7, 8, 12, 13};   // k, v, pos_p strides
-  for (int i : kvp) vec = vec && s[i] % (is_bf16<E> ? 8 : 4) == 0;
-  return (int)flash_attention<kByteMask>(q, k, v, pos_p, posb, mask,
-                                         tile_map, nullptr, w, out, B, H, T,
-                                         dk, scale, vec, st);
+  if constexpr (is_bf16<E>) {
+    return (int)flash_attention_wgmma(q, k, v, pos_p, posb, mask, tile_map,
+                                      w, out, B, H, T, dk, scale, st);
+  } else {
+    // 16-byte copies of k, p and v rows where every base and stride allows
+    // (strides of 4 floats)
+    bool vec = true;
+    for (const void* p :
+         {(const void*)k, (const void*)v, (const void*)pos_p})
+      vec = vec && reinterpret_cast<size_t>(p) % 16 == 0;
+    const int kvp[] = {3, 4, 5, 6, 7, 8, 12, 13};   // k, v, pos_p strides
+    for (int i : kvp) vec = vec && s[i] % 4 == 0;
+    return (int)flash_attention<kByteMask>(q, k, v, pos_p, posb, mask,
+                                           tile_map, nullptr, w, out, B, H,
+                                           T, dk, scale, vec, st);
+  }
 }
 
 extern "C" int masr_rel_pos_attention(const float* q, const float* k,

@@ -40,9 +40,9 @@ with -1e30 for every -1e5 step, at the cost they had before.
 
 `ctc_scheme_mirror` repeats the kernel's arithmetic (f32 in log2 units
 relative to f64 offsets, the grouped scatter of `token_groups`, the
-classes where the kernel carries them) in plain PyTorch, for the CPU
-tests of its precision (tests/test_torch_ctc_scheme.py); nothing else
-calls it.
+classes where the kernel carries them, else the offsets from the max over
+the live states of `live_steps`) in plain PyTorch, for the CPU tests of
+its precision (tests/test_torch_ctc_scheme.py); nothing else calls it.
 
 Launches: `ctc_loss.launches` counts one per forward and one per backward
 call on a CUDA tensor (`.backward_launches` the backward ones).
@@ -122,8 +122,11 @@ def ctc_loss_plain(logits, logit_lens, labels, label_lens, blank=0):
     S = states.shape[1]
     x = logits if logits.dtype == torch.float64 else logits.float()
     logp = torch.log_softmax(x, dim=-1)
+    # one (B, S) view a frame: indexing lp[:, t] in the loop would make
+    # autograd add T zero-padded (B, T, S) grads, O(T^2 S)
     lp = torch.where(valid[:, None, :],
-                     logp.gather(2, states[:, None, :].expand(B, T, S)), NEG)
+                     logp.gather(2, states[:, None, :].expand(B, T, S)),
+                     NEG).unbind(1)
     tlen = logit_lens.to(logits.device).long()
     dev = logits.device
     neg = torch.full((B, 2), NEG, device=dev, dtype=x.dtype)
@@ -136,7 +139,7 @@ def ctc_loss_plain(logits, logit_lens, labels, label_lens, blank=0):
         c2 = torch.cat([dead, cls], dim=1)[:, :S] + skip
         a2 = torch.cat([neg, alpha], dim=1)[:, :S]
         cm, vs = _least(NEG, (cls, alpha), (c1, a1), (c2, a2))
-        new = _logaddexp3(*vs) + lp[:, t]
+        new = _logaddexp3(*vs) + lp[t]
         on = (t < tlen)[:, None]
         alpha = torch.where(on, new, alpha)
         cls = torch.where(on, torch.where(valid, cm.clamp(max=DEAD), DEAD),
@@ -161,7 +164,45 @@ def _lse3_2(a, b, c):
     return hi + torch.log2(1.0 + torch.exp2(lo1 - hi) + torch.exp2(lo2 - hi))
 
 
-def _chain(lp2, skip2, init, frames, beta, cls=None):
+def live_steps(labels, label_lens, frames, beta):
+    """(B, S) long: the last step of a class-free chain at which each state
+    is live, -1 past the sequence. Alpha (step k = frame k of frames): the
+    state can still reach a final state (n - 1 or n - 2) by frame
+    frames - 1, i.e. k + its fewest steps to one <= frames - 1. Beta (step
+    k = frame frames - 1 - k): the start reaches the state by its frame,
+    i.e. its fewest frames from frame 0 <= frames - 1 - k. Both come from
+    R_i, the labels equal to the one before among labels 1 .. i: label i
+    is first reached at frame i + R_i and the blank before it at
+    i + R_i - [label i repeats]; from label i the last label is
+    L' - 1 - i + R - R_i steps away and from the blank before it one
+    more (L' the label length, R its repeats). A dead state feeds only dead
+    states and a live one only live ones (barred skips aside), so a live
+    state's value is untouched by the dead ones. labels (B, L) clamped to
+    >= 0; frames (B,)."""
+    B, L = labels.shape
+    S = 2 * L + 1
+    dev = labels.device
+    nlab = label_lens.to(dev).long()
+    i = torch.arange(L, device=dev)
+    rep = torch.zeros(B, L, dtype=torch.long, device=dev)
+    rep[:, 1:] = ((labels[:, 1:] == labels[:, :-1])
+                  & (i[None, 1:] < nlab[:, None])).long()
+    pre = rep.cumsum(dim=1)
+    tot = pre[:, -1] if L else torch.zeros(B, dtype=torch.long, device=dev)
+    if beta:
+        d_lab, d_blank, d_end = i + pre, i + pre - rep, nlab + tot
+    else:
+        d_lab = (nlab[:, None] - 1 - i) + (tot[:, None] - pre)
+        d_blank, d_end = d_lab + 1, torch.zeros_like(nlab)
+    d = torch.empty(B, S, dtype=torch.long, device=dev)
+    d[:, 1::2], d[:, 0:2 * L:2] = d_lab, d_blank
+    s = torch.arange(S, device=dev)
+    d = torch.where(s[None] == 2 * nlab[:, None], d_end[:, None], d)
+    last = frames.to(dev).long()[:, None] - 1 - d
+    return torch.where(s[None] <= 2 * nlab[:, None], last, -1)
+
+
+def _chain(lp2, skip2, init, frames, beta, cls=None, last=None):
     """One direction of the kernel's recursion for the batch, f32 in log2
     units relative to per-sequence f64 offsets: step k shifts the values by
     r_k = M_{k-2} - r_{k-1} (M_j the max of step j's stored values; r_1 =
@@ -174,7 +215,8 @@ def _chain(lp2, skip2, init, frames, beta, cls=None):
     valid), each state also carries its class (`ctc_loss_plain`), a term
     of a higher class than the least of its three drops out, a state past
     the sequence or of class DEAD holds NEG2, and the classes (B, T, S)
-    come back third."""
+    come back third. With `last` (`live_steps`), M_j is the max over the
+    states live at step j only."""
     B, T, S = lp2.shape
     dev = lp2.device
     vals = torch.full((B, T, S), NEG2, dtype=torch.float32, device=dev)
@@ -202,7 +244,8 @@ def _chain(lp2, skip2, init, frames, beta, cls=None):
         if not bool(act.any()):
             break
         r = (m_prev - r_prev) if k >= 2 else torch.zeros_like(r_prev)
-        pm = v.max(dim=1).values
+        pm = (v if last is None else torch.where(k - 1 <= last, v, NEG2)
+              ).max(dim=1).values
         if beta:
             f = (frames - 1 - k).clamp(min=0)
             lp = lp2[bi, (f + 1).clamp(max=T - 1)]
@@ -297,7 +340,7 @@ def ctc_scheme_mirror(logits, logit_lens, labels, label_lens, gout,
     if bool(plain.any()):
         p_alpha, p_off = _chain(
             lp2, skip2, torch.where(s_idx[None] < 2, lp2[:, 0], NEG2), te,
-            beta=False)
+            beta=False, last=live_steps(labels, label_lens, te, beta=False))
         alpha = torch.where(plain[:, None, None], p_alpha, alpha)
         off_a = torch.where(plain[:, None], p_off, off_a)
         cls_a = torch.where(plain[:, None, None], 0, cls_a)
@@ -327,7 +370,8 @@ def ctc_scheme_mirror(logits, logit_lens, labels, label_lens, gout,
         p_beta, p_off = _chain(
             lp2, torch.cat([skip2[:, 2:], torch.full((B, 2), NEG2,
                                                       device=dev)], dim=1),
-            torch.where(term, 0.0, NEG2).float(), tb, beta=True)
+            torch.where(term, 0.0, NEG2).float(), tb, beta=True,
+            last=live_steps(labels, label_lens, tb, beta=True))
         beta = torch.where(plain[:, None, None], p_beta, beta)
         off_b = torch.where(plain[:, None], p_off, off_b)
         cls_b = torch.where(plain[:, None, None], 0, cls_b)

@@ -6,8 +6,10 @@ rel_pos_attention.cu: a pre-pass reduces the mask to a map of 64 x 64 tiles
 (hidden, full, partial; `mask_tile_map_plain` is its plain twin), then a
 flash kernel runs both products on the tensor cores in 3xTF32, skipping
 hidden tiles (csrc/flash_attention.cuh; the full-context layer kernels run
-it with a key-length mask, whose tiles `length_tile_map_plain` gives); its
-header says what bounds it on the H100.
+it with a key-length mask, whose tiles `length_tile_map_plain` gives), or
+in the bf16 mode a kernel built for Hopper (csrc/flash_wgmma.cuh: bf16
+tiles loaded by TMA behind mbarriers, both products on wgmma); each header
+says what bounds it on the H100.
 
 `rel_pos_flash_attention` launches the kernels for CUDA tensors and takes
 the plain PyTorch version, `rel_pos_attention_plain`, only for CPU tensors.
@@ -18,7 +20,8 @@ every operand through its strides: q, k, v may be (B, T, D) rows viewed as
 (B, H, T, d_k) heads, p the matching (H, T, d_k) view of
 linear_pos(pos_emb), and the mask any (B, T, T) view, a broadcast `expand`
 included (it is never read as if it were dense). Only a view whose last
-axis is not unit-stride is copied first. The output has q's layout. f32,
+axis is not unit-stride is copied first, and in the bf16 mode a k, v or p
+that TMA cannot read (`tma_ready`). The output has q's layout. f32,
 or bf16 (the Pallas kernel takes its operands in k.dtype: q, k, v, p and
 the biases bf16, [q+bu | q+bv], [k | p], the unnormalised probabilities
 and v rounded to bf16 at the products, the softmax f32, the output bf16);
@@ -126,6 +129,25 @@ def _unit_columns(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def tma_ready(t):
+    """Whether the bf16 kernel's TMA copies can read the unit-column view
+    t as it lies: a 16-byte aligned base and, for every axis of extent
+    above 1 but the last, a stride of a multiple of 8 elements (16
+    bytes)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+
+
+def _tma_view(t):
+    """t itself where `tma_ready`, else a copy with its rows padded to a
+    multiple of 8 elements (the padding is never read)."""
+    if tma_ready(t):
+        return t
+    d = t.shape[-1]
+    buf = t.new_empty(*t.shape[:-1], -(-d // 8) * 8)[..., :d]
+    return buf.copy_(t)
+
+
 # the compute dtypes of the Conformer serving kernels (rows 1, 2, 5)
 SERVING_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -183,6 +205,8 @@ def rel_pos_flash_attention(q, k, v, p, bias_u, bias_v, mask, sm_scale=None,
     B, H, T, d = q.shape
     scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
     q, k, v, p = (_unit_columns(t) for t in (q, k, v, p))
+    if q.dtype == torch.bfloat16:
+        k, v, p = (_tma_view(t) for t in (k, v, p))
     if mask.dtype not in (torch.bool, torch.uint8):
         mask = mask != 0
     out = torch.empty_like(q)

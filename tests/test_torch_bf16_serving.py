@@ -245,6 +245,54 @@ def test_row5_bf16_twin_matches_pallas():
     _bf16_close(got, want)
 
 
+def test_row5_bf16_twin_matches_pallas_on_every_tile_kind():
+    """The bf16 twin (the card's bf16 kernel's reference) == masr_tpu's at
+    bf16 at T'=150 (three 64-key tiles, the last ragged) under a mask whose
+    64 x 64 tiles are hidden, full and partial (mask_tile_map_plain: the
+    kernel's map) and with a query row that sees no key: _bf16_close, that
+    row exactly 0."""
+    B, T = 2, 150
+    rs = np.random.RandomState(23)
+    q, k, v = (_bf(rs, (B, H, T, d_k)) for _ in range(3))
+    p = _bf(rs, (H, T, d_k))
+    bu, bv = _bf(rs, (H, d_k), 0.1), _bf(rs, (H, d_k), 0.1)
+    i, j = np.arange(T)[:, None], np.arange(T)[None, :]
+    mask = ((j < 64) | ((i >= 64) & (i < 128) & (j >= 64) & (j <= i))
+            | ((i >= 128) & (j >= 128) & (rs.rand(T, T) < 0.5)))
+    mask = np.repeat(mask[None], B, 0)
+    mask[0, 5] = False
+    mask[1, :, 100:] = False
+    kinds = rpa.mask_tile_map_plain(torch.from_numpy(mask))
+    assert {rpa.HIDDEN, rpa.FULL, rpa.PARTIAL} <= set(kinds.unique().tolist())
+    want = jat.rel_pos_flash_attention(q, k, v, p, bu, bv, jnp.asarray(mask),
+                                       interpret=True)
+    got = rpa.rel_pos_flash_attention(*(_tb(a) for a in (q, k, v, p, bu,
+                                                          bv)),
+                                      torch.from_numpy(mask))
+    assert got.dtype == BF
+    _bf16_close(got, want)
+    assert float(got[0, :, 5].abs().max()) == 0.0
+
+
+def test_tma_ready_views():
+    """The bf16 kernel's TMA copies read a view as it lies only from a
+    16-byte aligned base with every stride of an extent above 1 a multiple
+    of 8 elements; `_tma_view` copies any other view to rows of a multiple
+    of 8 and keeps its values (and returns a ready view itself)."""
+    rows = torch.randn(2, 37, 4 * 64).to(BF)
+    heads = rows.view(2, 37, 4, 64).transpose(1, 2)
+    assert rpa.tma_ready(heads) and rpa._tma_view(heads) is heads
+    odd = torch.randn(2, 37, 4 * 36).to(BF).view(2, 37, 4, 36).transpose(1, 2)
+    shifted = rows.view(-1)[1:1 + 2 * 37 * 64].view(2, 37, 64)
+    assert not rpa.tma_ready(odd) and not rpa.tma_ready(shifted)
+    for t in (odd, shifted):
+        c = rpa._tma_view(t)
+        assert rpa.tma_ready(c) and torch.equal(c, t)
+        assert c.shape == t.shape and c.stride()[-1] == 1
+    # an axis of extent 1 is never stepped: its stride does not count
+    assert rpa.tma_ready(rows.as_strided((1, 37, 64), (5, 256, 1)))
+
+
 def test_serving_wrappers_refuse_mixed_and_other_dtypes():
     """Rows 1, 2 and 5 take f32 or bf16, one of them throughout: a bf16 x
     with an f32 pack, an f32 cache under a bf16 x, or f16 operands raise

@@ -181,6 +181,91 @@ def test_scheme_classes_only_where_needed(case, monkeypatch):
     _check(*args, w)
 
 
+def _forced_case(L, V=4):
+    """Two rows of the same L labels drawn from two tokens (many equal
+    neighbours): one over exactly as many frames as the labels and the
+    blanks between equal neighbours need (a forced alignment: the one path
+    that reaches the end is the slowest of all) and one over a frame fewer
+    (infeasible, so the kernel runs it with classes). The card test
+    test_ctc_kernel_feasibility_edge's inputs."""
+    g = torch.Generator().manual_seed(L)
+    labels = torch.randint(1, 3, (1, L), generator=g).repeat(2, 1)
+    need = L + int((labels[0, 1:] == labels[0, :-1]).sum())
+    logits = 2 * torch.randn(2, need + 3, V, generator=g)
+    return (logits, torch.tensor([need, need - 1], dtype=torch.int32),
+            labels.int(), torch.tensor([L, L], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("L", [1000, 1100], ids=["S2001", "S2201"])
+def test_scheme_forced_alignment(L):
+    """S = 2001 (eight register warps) and S = 2201 (the strided kernel),
+    ~1650 frames: on the feasible row the surviving path sits hundreds of
+    log2 units below the slower paths, which can no longer reach the end.
+    With the step's max over every state the offsets followed those dead
+    states, and the feasible row's grad landed 1.6e-3 (S2001) and 1.9e-4
+    (S2201) from the f64 twin's, past the gates (1e-4 and 1.3e-4); with the
+    max over the live states (`live_steps`) it lands ~1e-5 away. The
+    file's gates on both rows."""
+    logits, lens, labels, label_lens = _forced_case(L)
+    w = torch.randn(2, generator=torch.Generator().manual_seed(L))
+    err, _ = _check(logits, lens, labels, label_lens, w)
+    assert not bool(C.needs_classes(labels.long(), label_lens, lens,
+                                    logits.shape[1])[0])
+
+
+def _reachable(lab, nlab, frames):
+    """Brute force over one row: → (from_start, to_end), (frames, 2 nlab +
+    1) bool: the start (states 0, 1 at frame 0) reaches (t, s); (t, s)
+    reaches a final state (2 nlab, 2 nlab - 1) at frame frames - 1."""
+    n = 2 * nlab + 1
+    tok = [lab[(s - 1) // 2] if s % 2 else -1 for s in range(n)]
+
+    def steps(s):
+        out = [s] + ([s + 1] if s + 1 < n else [])
+        if s + 2 < n and tok[s + 2] >= 0 and tok[s + 2] != tok[s]:
+            out.append(s + 2)
+        return out
+
+    fwd = np.zeros((frames, n), bool)
+    fwd[0, :min(2, n)] = True
+    for t in range(1, frames):
+        for s in np.flatnonzero(fwd[t - 1]):
+            fwd[t, steps(s)] = True
+    bwd = np.zeros((frames, n), bool)
+    bwd[frames - 1, max(n - 2, 0):] = True
+    for t in range(frames - 2, -1, -1):
+        for s in range(n):
+            bwd[t, s] = bwd[t + 1, steps(s)].any()
+    return fwd, bwd
+
+
+def test_live_steps_match_reachability():
+    """`live_steps` (the kernel's live_steps) against a brute-force walk
+    of the transitions: alpha's state s is live at step k iff it reaches a
+    final state by the last frame from frame k, beta's iff the start
+    reaches it by frame frames - 1 - k; -1 past the sequence. Labels from
+    three tokens (repeats common), an empty label, one label, frames from
+    the fewest the alignment allows up."""
+    rs = np.random.RandomState(17)
+    B, L = 6, 9
+    labels = torch.as_tensor(rs.randint(1, 4, (B, L)).astype(np.int64))
+    label_lens = torch.tensor([9, 6, 0, 1, 9, 4])
+    need = [ln + int((labels[b, 1:ln] == labels[b, :max(ln - 1, 0)]).sum())
+            for b, ln in enumerate(label_lens.tolist())]
+    frames = torch.tensor([max(nd, 1) + e for nd, e in
+                           zip(need, [0, 3, 2, 0, 7, 1])])
+    for beta in (False, True):
+        last = C.live_steps(labels, label_lens, frames, beta)
+        for b in range(B):
+            nlab, fr = int(label_lens[b]), int(frames[b])
+            fwd, bwd = _reachable(labels[b].tolist(), nlab, fr)
+            want = fwd[::-1] if beta else bwd
+            k = np.arange(fr)[:, None]
+            got = k <= last[b, :2 * nlab + 1].numpy()[None, :]
+            assert np.array_equal(got, want), (beta, b)
+            assert (last[b, 2 * nlab + 1:] == -1).all()
+
+
 def _optax64(logits, logit_lens, labels, label_lens, w):
     """optax.ctc_loss in f64 (jax.enable_x64) → (nll, grad of the weighted
     sum)."""
@@ -285,9 +370,10 @@ def test_token_groups_match_a_brute_force_scatter():
 
 def test_scheme_keeps_the_chain_values_small():
     """The offsets carry the magnitude: at the smoke shape the largest
-    stored alpha of every frame lies within [-128, 4] log2 units of the
-    frame's offset (an f32 ulp there <= 7.6e-6), while the offsets reach
-    past 3e3."""
+    stored alpha of every frame's live states (`live_steps`, the states
+    the max is taken over) lies within [-128, 4] log2 units of the frame's
+    offset (an f32 ulp there <= 7.6e-6), while the offsets reach past
+    3e3."""
     logits, lens, labels, label_lens = _smoke_case()
     B, T, _ = logits.shape
     x = logits.float()
@@ -301,8 +387,9 @@ def test_scheme_keeps_the_chain_values_small():
     skip2 = torch.where(skip == 0, 0.0, C.NEG2).float()
     te = lens.long().clamp(1, T)
     init = torch.where(torch.arange(S)[None] < 2, lp2[:, 0], C.NEG2)
-    alpha, off = C._chain(lp2, skip2, init, te, beta=False)
-    frames = torch.arange(T)[None, :, None] < te[:, None, None]
+    last = C.live_steps(labels.long().clamp(min=0), label_lens, te, False)
+    alpha, off = C._chain(lp2, skip2, init, te, beta=False, last=last)
+    frames = torch.arange(T)[None, :, None] <= last[:, None, :]
     top = torch.where(frames, alpha, -float("inf")).amax(-1)
     ok = top[torch.arange(T)[None] < te[:, None]]
     assert float(ok.max()) <= 4.0 and float(ok.min()) >= -128.0

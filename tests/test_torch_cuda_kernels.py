@@ -432,14 +432,17 @@ def test_ctc_kernel_infeasible_many_states(cuda_device, L, T, V):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,V", [(8, 5), (1100, 4)], ids=["S17", "S2201"])
+@pytest.mark.parametrize("L,V", [(8, 5), (1000, 4), (1100, 4)],
+                         ids=["S17", "S2001", "S2201"])
 def test_ctc_kernel_feasibility_edge(cuda_device, L, V):
     """Two rows of the same labels drawn from two tokens (many equal
     neighbours), one over exactly as many frames as the labels and the
-    blanks between equal neighbours take and one over a frame fewer: the
-    kernel runs the first without classes and the second with them, and
-    the card's gates hold on both (one register warp, S = 17; the strided
-    kernel, S = 2201)."""
+    blanks between equal neighbours take (a forced alignment) and one over
+    a frame fewer: the kernel runs the first without classes and the
+    second with them, and the card's gates hold on both (one register
+    warp, S = 17; eight register warps, S = 2001; the strided kernel, S =
+    2201). The forced rows' offsets follow the max over their live states
+    only (csrc/ctc_loss.cu, "Live states")."""
     g = torch.Generator().manual_seed(L)
     labels = torch.randint(1, 3, (1, L), generator=g).repeat(2, 1)
     need = L + int((labels[0, 1:] == labels[0, :-1]).sum())
@@ -1391,6 +1394,70 @@ def test_rel_pos_attention_bf16_kernel_matches_plain(cuda_device, kind, T, d):
     _assert_bf16_close(kind, got, want)
     empty = ~mask.any(-1)
     assert torch.all(got.transpose(1, 2)[empty] == 0.0)
+
+
+def _check_rel_pos_bf16(args, mask):
+    """Row 5's bf16 kernel vs its bf16 twin on the same card: one launch
+    (and one bf16 launch), bf16 output of q's shape, finite,
+    _assert_bf16_close, rows with no visible key exactly 0. → the
+    kernel's output."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    f = rpa.rel_pos_flash_attention
+    with torch.no_grad():
+        before, before16 = f.launches, f.bf16_launches
+        got = f(*args, mask)
+        launched = (f.launches - before, f.bf16_launches - before16)
+        want = rpa.rel_pos_attention_plain(*args, mask)
+    torch.cuda.synchronize()
+    assert launched == (1, 1) and got.shape == want.shape
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    _assert_bf16_close(f"{tuple(args[0].shape)}", got, want)
+    empty = ~mask.any(-1)
+    assert torch.all(got.transpose(1, 2)[empty] == 0.0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d", [(64, 64), (65, 32), (150, 128), (1499, 64),
+                                 (1500, 32), (1500, 128)],
+                         ids=lambda v: str(v))
+def test_rel_pos_attention_bf16_kernel_shapes(cuda_device, T, d):
+    """The bf16 kernel (flash_wgmma.cuh) at T' on and off a multiple of 64
+    (the last key tile's rows past T' land as TMA's zeros), d_k 32 (one
+    64-column block, half of it zeros), 64 and 128 (two blocks), under the
+    static-16 mask of B=4 utterances of T', 0, T' / 2 and 1 frames."""
+    mask = _att_mask("static16", T, [T, 0, T // 2, 1], cuda_device)
+    args = tuple(t.to(torch.bfloat16)
+                 for t in _att_inputs(4, 4, T, d, cuda_device, 3 * T + d))
+    got = _check_rel_pos_bf16(args, mask)
+    assert torch.all(got[1] == 0.0)
+
+
+@pytest.mark.cuda
+def test_rel_pos_attention_bf16_kernel_strided_views(cuda_device):
+    """The bf16 kernel on the module's layout: q, k, v (B, T, D) rows
+    viewed as heads, p a transposed (T, H, d_k) view, the output in q's
+    layout; views whose last axis is not unit-stride; and a d_k of 36,
+    whose heads start 72 bytes apart, which TMA cannot read as it lies
+    (the wrapper copies it to 16-byte rows first)."""
+    from masr_tpu_torch.ops.cuda import rel_pos_attention as rpa
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(19)
+    for B, H, T, d in ((3, 4, 299, 64), (2, 4, 130, 36)):
+        rows = [torch.randn(B, T, H * d, generator=g).to(cuda_device, bf)
+                for _ in range(3)]
+        q, k, v = (r.view(B, T, H, d).transpose(1, 2) for r in rows)
+        p = torch.randn(T, H * d, generator=g).to(cuda_device, bf).view(
+            T, H, d).transpose(0, 1)
+        bu, bv = ((0.1 * torch.randn(H, d, generator=g)).to(cuda_device, bf)
+                  for _ in range(2))
+        mask = _att_mask("static16", T, [T, 100, 50][:B], cuda_device)
+        assert rpa.tma_ready(k) == (d % 8 == 0)
+        out = _check_rel_pos_bf16((q, k, v, p, bu, bv), mask)
+        assert out.stride() == q.stride()
+        wide = torch.randn(B, H, T, 2 * d, generator=g).to(cuda_device, bf)
+        _check_rel_pos_bf16((wide[..., ::2], k, wide[..., 1::2], p, bu, bv),
+                            mask)
 
 
 @pytest.mark.cuda
