@@ -371,7 +371,11 @@ of those paths against its plain PyTorch twin. Phases, one JSON line each:
                     T'=150), dropout 0 and 0.1 / 0.1: the output and every
                     grad within 8 roundings (max) and one (mean) of its own
                     magnitude; forward + backward timed beside the f32
-                    kernel and the bf16 twin, with the bf16 bound
+                    kernel and the bf16 twin, with the bf16 bound; one
+                    forward + backward profiled: each kernel's device
+                    time, the products (tw_gemm_kernel) apart, the
+                    launches, saved and scratch bytes, torch.matmul bf16
+                    of the layer's product shapes (a yardstick)
  53. train_bf16     the flagship Conformer through MASRTrainer with
                     train_conf.enable_amp on half of phase 12's corpus: 16
                     steps at B=8 (8, then 8 in a trainer that resumes from
@@ -6266,23 +6270,78 @@ def bf16_train_times(layer, f32_args, args, kernel, plain):
             **train_layer_bound_bf16(layer, args)}
 
 
+def bf16_train_profile(layer, args, kernel, module, entry):
+    """One bf16 forward + backward of a training layer (dropout 0.1, grads
+    of x, posp and the pack by torch.autograd.grad) under torch.profiler:
+    each CUDA kernel's device ms per call (5 calls), the products
+    (tw_gemm_kernel and its split-K sums) apart from the rest, the kernels
+    and copies one call launches; the mode's saved and scratch bytes at
+    this shape (module's C entries); the layer's product shapes as
+    torch.matmul bf16, device ms over one forward + backward (a yardstick
+    only). → dict."""
+    from masr_tpu_torch.bench.kernel_digest import train_products
+    x, w, mask, seeds, lens, posp, packed = args
+    leaves = [t.clone().requires_grad_(True)
+              for t in [x, posp] + list(packed.values())]
+    pk = dict(zip(packed, leaves[2:]))
+
+    def call():
+        y = kernel(leaves[0], mask, seeds, lens, leaves[1], pk, layer=5,
+                   n_head=layer.attention_heads,
+                   ksize=layer.cnn_module_kernel, causal=layer.causal,
+                   rate=0.1, att_rate=0.1)
+        torch.autograd.grad(y, leaves, w)
+
+    kern = device_kernels(call, n=5)
+    prod = sum(v for k, v in kern.items()
+               if "gemm" in k or "tw_sum" in k or "splitk_sum" in k)
+    _, launches = profiled_launches(call)
+    B, T, D = x.shape
+    F, H = packed["ffw1"].shape[2], layer.attention_heads
+    lib = module._lib()
+    g = torch.Generator().manual_seed(14)
+    mats = [(torch.randn(n, M, K, generator=g).to(x.device, BF16),
+             torch.randn(n, K, N, generator=g).to(x.device, BF16), times)
+            for (n, M, N, K), times
+            in train_products(B, T, D, F, H).values()]
+
+    def matmuls():
+        for a, b, times in mats:
+            for _ in range(times):
+                a @ b
+
+    return {"kernels": kern, "products_ms": prod,
+            "rest_ms": sum(kern.values()) - prod,
+            "device_ms": sum(kern.values()), "launches": launches,
+            "saved_bytes": 4 * getattr(lib, entry + "_saved_floats")(
+                B, T, D, F, H, 1),
+            "scratch_bytes": 4 * getattr(lib, entry + "_scratch_floats")(
+                B, T, D, F, H, 1),
+            "matmul_bf16_ms": sum(device_kernels(matmuls, n=3).values())}
+
+
 def phase_train_kernels_bf16(dev, smi):
     """Rows 3 and 7 in their bf16 modes vs their bf16 twins at phases 11
     and 19's shapes (B=8, T'=299; the Squeezeformer also at half rate,
     T'=150), dropout 0 and 0.1 / 0.1: output and every grad; forward +
     backward timed (CUDA events, dropout 0.1) beside the f32 kernel and
-    the bf16 twin in the same call, with the bf16 bound. → {row: entry}."""
+    the bf16 twin in the same call, with the bf16 bound; one forward +
+    backward profiled (bf16_train_profile: the kernels' device split, the
+    launches, saved and scratch bytes, the torch.matmul bf16 yardstick).
+    → {row: entry}."""
     from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
     from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
     t0 = time.perf_counter()
     out, cases = {}, {}
-    for row, layer, kernel, plain in (
+    for row, layer, kernel, plain, module, entry in (
             ("row3", seeded_layer(21, True, dev),
              clt.fused_conformer_layer_train,
-             clt.fused_conformer_layer_train_plain),
+             clt.fused_conformer_layer_train_plain, clt,
+             "masr_conformer_layer_train"),
             ("row7", seeded_sq_layer(31, True, "layer_norm", dev),
              sqt.fused_squeezeformer_layer_train,
-             sqt.fused_squeezeformer_layer_train_plain)):
+             sqt.fused_squeezeformer_layer_train_plain, sqt,
+             "masr_sq_layer_train")):
         halves = (False, True) if row == "row7" else (False,)
         cases[row], times = [], {}
         for half in halves:
@@ -6293,6 +6352,8 @@ def phase_train_kernels_bf16(dev, smi):
                            for rates in ((0.0, 0.0), (0.1, 0.1))]
             times["T150" if half else "T299"] = bf16_train_times(
                 layer, f32_args, args, kernel, plain)
+            times["T150" if half else "T299"]["profile"] = \
+                bf16_train_profile(layer, args, kernel, module, entry)
         main = times["T299"]
         out[row] = {"max_abs_err": max(c["max_abs_err"] for c in cases[row]),
                     "ms": main["ms"], "plain_ms": main["plain_ms"],

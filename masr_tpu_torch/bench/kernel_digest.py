@@ -1,6 +1,7 @@
 """Digest and time the port's kernels on the card, to compare two trees.
 
-    python3 -m masr_tpu_torch.bench.kernel_digest [--ctc-only | --flash]
+    python3 -m masr_tpu_torch.bench.kernel_digest [--ctc-only | --flash |
+                                                   --train-bf16]
 
 Runs the three Conformer layer kernels of the package importable from the
 working directory on fixed seeded inputs at the flagship width (D=256, 4
@@ -25,7 +26,9 @@ ctc_loss at chip_smoke's CTC shape (B=8, T'=299, V=4000, S=161; `ctc_row`:
 the forward and the backward timed apart, each with its kernels' device
 times, F.ctc_loss as a yardstick, the SM clock; `--ctc-only` runs that
 row alone); `--flash` runs `flash_rows` alone (row 5 in f32 and bf16
-across T' 150..3000 beside SDPA bf16, rows 1 and 6 in bf16 and f32).
+across T' 150..3000 beside SDPA bf16, rows 1 and 6 in bf16 and f32);
+`--train-bf16` runs `train_bf16_rows` alone (rows 3 and 7 in their bf16
+modes at chip_smoke phase 52's shapes, beside their f32 route).
 It prints one JSON line: a sha256 digest of each kernel's output bytes
 (outputs, updated caches, grads), each kernel's CUDA-event time over 20
 calls, the card's name and power limit, for every kernel but CTC the
@@ -277,6 +280,202 @@ def ctc_row(dev):
     return out
 
 
+def train_products(B, T, D, F, H):
+    """(batch, M, N, K) of each product of one training layer's forward and
+    backward (rows 3 and 7 run the same ones: two FFNs, the attention, the
+    conv module) and how many times a fwd + bwd runs it."""
+    M, dk = B * T, D // H
+    return {"ffn_w1": ((1, M, F, D), 2), "ffn_w2": ((1, M, D, F), 2),
+            "ffn_dz": ((1, M, F, D), 2), "ffn_da": ((1, M, D, F), 2),
+            "ffn_dw1": ((1, D, F, M), 2), "ffn_dw2": ((1, F, D, M), 2),
+            "att_qkvo_dO_da": ((1, M, D, D), 9),
+            "att_dw": ((1, D, D, M), 4),
+            "att_scores_dP": ((B * H, T, T, dk), 3),
+            "att_pv_dv_dq_dk": ((B * H, T, dk, T), 6),
+            "att_dposp": ((H, T, dk, M), 1),
+            "conv_pw1": ((1, M, 2 * D, D), 1), "conv_pw2": ((1, M, D, D), 2),
+            "conv_dpw1": ((1, D, 2 * D, M), 1),
+            "conv_dpw2": ((1, D, D, M), 1), "conv_da": ((1, M, D, 2 * D), 1)}
+
+
+def _matmul_bf16(products, dev):
+    """Yardstick: device ms (torch.profiler) of torch.matmul in bf16 of
+    each product shape, and their sum over one fwd + bwd."""
+    g = torch.Generator().manual_seed(14)
+    out, total = {}, 0.0
+    for name, ((n, M, N, K), times) in products.items():
+        a = torch.randn(n, M, K, generator=g).to(dev, torch.bfloat16)
+        b = torch.randn(n, K, N, generator=g).to(dev, torch.bfloat16)
+        out[f"{name} {n}x{M}x{N}x{K}"] = t = sum(
+            _kernels(lambda: a @ b, n=10).values())
+        total += times * t
+    out["layer"] = total
+    return out
+
+
+def _entry_host_ms(module, names, fn, n=10):
+    """Host ms per call of each named C entry of module's library while fn
+    runs (each call timed around the ctypes call, after a synchronize, so
+    the launch queue is empty), median over n runs of fn."""
+    lib = module._lib()
+    real = {nm: getattr(lib, nm) for nm in names}
+    spent = {nm: [] for nm in names}
+
+    def timed(nm):
+        def call(*args):
+            t0 = time.perf_counter()
+            r = real[nm](*args)
+            spent[nm].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return call
+
+    for nm in names:
+        setattr(lib, nm, timed(nm))
+    try:
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for nm in names:
+            setattr(lib, nm, real[nm])
+    return {nm: sorted(v)[len(v) // 2] if v else None
+            for nm, v in spent.items()}
+
+
+def _split_products(kernels):
+    """A kernel dict's device ms: the products (the bf16 mode's
+    tw_gemm_kernel and tw_sum_kernel, the f32 route's gemm_tc_kernel and
+    splitk_sum_kernel) apart from the rest."""
+    prod = sum(v for k, v in kernels.items()
+               if "gemm_kernel" in k or "gemm_tc_kernel" in k
+               or "splitk_sum" in k or "tw_sum" in k)
+    return {"products_ms": prod, "rest_ms": sum(kernels.values()) - prod,
+            "total_ms": sum(kernels.values())}
+
+
+def train_bf16_rows(dev):
+    """Rows 3 and 7 in their bf16 modes at chip_smoke phase 52's shapes
+    (B=8, lens 299..33, a dynamic-chunk mask, dropout 0.1 / 0.1; row 7 also
+    at the half rate's T'=150): digests of the output and every grad; the
+    forward and the backward by CUDA events, and the f32 route's at the
+    same shape; each CUDA kernel's device time of one forward + backward
+    (the products apart from the rest); the C entries' host time; the
+    launches of one call; the layer's product shapes as torch.matmul bf16
+    (a yardstick only); row 3's launches one by one in launch order."""
+    import torch.nn.functional as F
+    from masr_tpu_torch.models.conformer import ConformerEncoderLayer
+    from masr_tpu_torch.models.embedding import sinusoid_position_encoding
+    from masr_tpu_torch.models.squeezeformer import SqueezeformerEncoderLayer
+    from masr_tpu_torch.models.weights import seeded_state_dict
+    from masr_tpu_torch.ops.cuda import build
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    build.build(["conformer_layer_train", "squeezeformer_layer_train"])
+    bf = torch.bfloat16
+    lens_full = [299, 281, 250, 220, 180, 150, 90, 33]
+    out = {}
+    for row, module, make, ksize in (
+            ("row3", clt, lambda: ConformerEncoderLayer(
+                256, 4, 2048, cnn_module_kernel=15, causal=True), 15),
+            ("row7", sqt, lambda: SqueezeformerEncoderLayer(
+                256, 4, 2048, 31, "layer_norm", True), 31)):
+        layer = make()
+        layer.load_state_dict(seeded_state_dict(layer, seed=21))
+        layer = layer.to(dev)
+        fn = (clt.fused_conformer_layer_train if row == "row3"
+              else sqt.fused_squeezeformer_layer_train)
+        entry = ("masr_conformer_layer_train" if row == "row3"
+                 else "masr_sq_layer_train")
+        for half in ((False, True) if row == "row7" else (False,)):
+            g = torch.Generator().manual_seed(22)
+            T, B = 299, len(lens_full)
+            lens = torch.tensor(lens_full, dtype=torch.int32, device=dev)
+            r = torch.arange(T, device=dev)
+            rc, cc = r[:, None] // 16, r[None, :] // 16
+            mask = ((cc <= rc) & (cc >= rc - 4))[None] & \
+                (r[None, None, :] < lens[:, None, None])
+            if half:
+                mask, lens, r = mask[:, ::2, ::2], (lens + 1) // 2, r[::2]
+            Tr = len(r)
+            x32 = torch.randn(B, Tr, 256, generator=g).to(dev)
+            w = torch.randn(B, Tr, 256, generator=g).to(dev)
+            seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                                  dtype=torch.int32).to(dev)
+            with torch.no_grad():
+                pos = sinusoid_position_encoding(r, 256)
+                posp = {torch.float32: layer.self_attn.linear_pos(pos),
+                        bf: F.linear(pos.to(bf), layer.self_attn.linear_pos
+                                     .weight.to(bf))}
+                packs = {torch.float32: layer.packed_params(),
+                         bf: layer.packed_params(bf)}
+            res = {}
+            for dt in (bf, torch.float32):
+                leaves = {"x": x32.to(dt).requires_grad_(True),
+                          "posp": posp[dt].clone().requires_grad_(True),
+                          **{k: v.detach().clone().requires_grad_(True)
+                             for k, v in packs[dt].items()}}
+                wd = w.to(dt)
+
+                def fwd(leaves=leaves):
+                    return fn(leaves["x"], mask, seeds, lens,
+                              leaves["posp"],
+                              {k: leaves[k] for k in packs[dt]}, layer=5,
+                              n_head=4, ksize=ksize, causal=True, rate=0.1,
+                              att_rate=0.1)
+
+                y = fwd()
+                y.backward(wd, retain_graph=True)
+                key = "bf16" if dt == bf else "f32"
+                res[key + "_fwd_ms"] = _ms(fwd)
+                res[key + "_bwd_ms"] = _ms(
+                    lambda y=y, wd=wd: y.backward(wd, retain_graph=True))
+                res[key + "_ms"] = res[key + "_fwd_ms"] + res[key + "_bwd_ms"]
+                if dt != bf:
+                    continue
+                for v in leaves.values():
+                    v.grad = None
+                y = fwd()
+                y.backward(wd)
+                res["digest"] = _digest(
+                    [y] + [leaves[k].grad for k in sorted(leaves)])
+                kern = _kernels(lambda fwd=fwd, wd=wd: fwd().backward(wd))
+                res["kernels"] = kern
+                res["split"] = _split_products(kern)
+                res["host_ms"] = _entry_host_ms(
+                    module, [entry + "_forward_bf16",
+                             entry + "_backward_bf16"],
+                    lambda fwd=fwd, wd=wd: fwd().backward(wd))
+                res["launches"] = _launch_count(
+                    lambda fwd=fwd, wd=wd: fwd().backward(wd))
+                if row == "row3":
+                    res["launch_split"] = _launch_split(
+                        lambda fwd=fwd, wd=wd: fwd().backward(wd))
+                lib = module._lib()
+                nb = getattr(lib, entry + "_saved_floats")
+                res["saved_bytes"] = 4 * nb(B, Tr, 256, 2048, 4, 1)
+                res["scratch_bytes"] = 4 * getattr(
+                    lib, entry + "_scratch_floats")(B, Tr, 256, 2048, 4, 1)
+            res["matmul_bf16"] = _matmul_bf16(
+                train_products(B, Tr, 256, 2048, 4), dev)
+            out[f"{row}_T{Tr}"] = res
+    return out
+
+
+def _launch_count(fn, n=3):
+    """CUDA kernels (and copies) one call of fn launches (torch.profiler,
+    device events over n calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / n
+
+
 def flash_rows(dev):
     """The attention routes for an A/B of two trees. Row 5 (4 heads, d_k
     64, B=8, lens T'..0.533 T' as chip_smoke's phase 44, the static-16
@@ -385,6 +584,11 @@ def main():
     if "--ctc-only" in sys.argv[1:]:
         print(json.dumps({"ctc_loss": ctc_row(torch.device("cuda")),
                           "card": _smi()}), flush=True)
+        return
+    if "--train-bf16" in sys.argv[1:]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps({"train_bf16": train_bf16_rows(
+            torch.device("cuda")), "card": _smi()}), flush=True)
         return
     if "--flash" in sys.argv[1:]:
         torch.backends.cuda.matmul.allow_tf32 = False

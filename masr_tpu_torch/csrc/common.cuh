@@ -18,15 +18,12 @@
 //                          serving.cuh's gemm_sk, the serving layers'
 //                          products (rows 1, 2, 6 and 8 of PERF.md's kernel
 //                          table), and flash_attention.cuh's flash kernel
-//   gemm_tc_kernel<.., TA, TB, OT, E>  C = E(op(A).op(B)) on the tensor
-//                          cores (a 3-stage cp.async ring of f32 tiles;
-//                          OT float: 3xTF32 mma.sync, OT bf16_t: the
-//                          operands rounded to bf16 as fragments are read,
-//                          one bf16 mma.sync per 16-deep k step), either
-//                          operand transposed, batched, with a compile-time
-//                          epilogue functor E: every product of the
-//                          training layers (rows 3 and 7, through
-//                          training.cuh)
+//   gemm_tc_kernel<.., TA, TB, E>  C = E(op(A).op(B)) on the tensor
+//                          cores (a 3-stage cp.async ring of f32 tiles,
+//                          3xTF32 mma.sync), either operand transposed,
+//                          batched, with a compile-time epilogue functor
+//                          E: every product of the f32 training layers
+//                          (rows 3 and 7, through training.cuh)
 //   conv_module_kernel<kLN, ROWS>  GLU -> depthwise conv over time -> LN
 //                          (or a folded BatchNorm affine) -> SiLU, optional
 //                          saves for a backward
@@ -121,13 +118,46 @@ __device__ __forceinline__ float dropout_mult(int seed, int layer, int site,
 }
 
 // ------------------------------------------------------------------------
+// bf16 operands (the serving rows' bf16 mode). A bf16 value in memory is
+// its raw 16-bit word (bf16_t); f32 -> bf16 rounds to nearest even, as
+// torch's .to(torch.bfloat16) and XLA's astype do, so a kernel rounds an
+// operand where masr_tpu's Pallas kernel casts it to the compute dtype.
+// mma_bf16 is one mma.sync m16n8k16 bf16 product with f32 accumulation;
+// fragments (g = lane / 4, t = lane % 4), each 32-bit register two bf16,
+// the lower k in the low half: A (16 x 16, row major) a0 (g, 2t..2t+1),
+// a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B (16 x 8,
+// k x n) b0 (2t..2t+1, g), b1 (2t + 8.., g); C as m16n8k8's.
+// ------------------------------------------------------------------------
+typedef unsigned short bf16_t;
+
+template <class T>
+constexpr bool is_bf16 = std::is_same<T, bf16_t>::value;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16_t x) {
+  return __uint_as_float((unsigned)x << 16);
+}
+
+__device__ __forceinline__ bf16_t bf16_rn(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// store v as T: f32 as it is, bf16 rounded to nearest even
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16_t* p, float v) {
+  *p = bf16_rn(v);
+}
+
+// ------------------------------------------------------------------------
 // LayerNorm over the last dim, one warp per row. With `lens` set, rows
 // whose time index t = row % T is >= lens[row / T] are written as zeros.
 // For a backward, xhat = (x - mean) / std and rstd = 1 / std are saved
-// when given (zeros in the zeroed rows).
+// when given (zeros in the zeroed rows). Y: the output's type (float, or
+// bf16_t rounded to nearest even); y nullptr: statistics only.
 // ------------------------------------------------------------------------
+template <class Y>
 __global__ void layer_norm_kernel(const float* __restrict__ x,
-                                  float* __restrict__ y,
+                                  Y* __restrict__ y,
                                   const float* __restrict__ gamma,
                                   const float* __restrict__ beta, int M, int D,
                                   float eps, const int* __restrict__ lens,
@@ -137,11 +167,11 @@ __global__ void layer_norm_kernel(const float* __restrict__ x,
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const float* xr = x + (size_t)row * D;
-  float* yr = y + (size_t)row * D;
+  Y* yr = y ? y + (size_t)row * D : nullptr;
   float* hr = xhat ? xhat + (size_t)row * D : nullptr;
   if (lens != nullptr && (row % T) >= lens[row / T]) {
     for (int c = lane; c < D; c += 32) {
-      yr[c] = 0.f;
+      if (yr) store_as(yr + c, 0.f);
       if (hr) hr[c] = 0.f;
     }
     if (rstd && lane == 0) rstd[row] = 0.f;
@@ -160,7 +190,7 @@ __global__ void layer_norm_kernel(const float* __restrict__ x,
   for (int c = lane; c < D; c += 32) {
     const float h = (xr[c] - mu) * r;
     if (hr) hr[c] = h;
-    yr[c] = h * gamma[c] + beta[c];
+    if (yr) store_as(yr + c, h * gamma[c] + beta[c]);
   }
 }
 
@@ -221,37 +251,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, as, bb[0], bb[1]);
   mma_tf32(c, ab, bs[0], bs[1]);
   mma_tf32(c, ab, bb[0], bb[1]);
-}
-
-// ------------------------------------------------------------------------
-// bf16 operands (the serving rows' bf16 mode). A bf16 value in memory is
-// its raw 16-bit word (bf16_t); f32 -> bf16 rounds to nearest even, as
-// torch's .to(torch.bfloat16) and XLA's astype do, so a kernel rounds an
-// operand where masr_tpu's Pallas kernel casts it to the compute dtype.
-// mma_bf16 is one mma.sync m16n8k16 bf16 product with f32 accumulation;
-// fragments (g = lane / 4, t = lane % 4), each 32-bit register two bf16,
-// the lower k in the low half: A (16 x 16, row major) a0 (g, 2t..2t+1),
-// a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B (16 x 8,
-// k x n) b0 (2t..2t+1, g), b1 (2t + 8.., g); C as m16n8k8's.
-// ------------------------------------------------------------------------
-typedef unsigned short bf16_t;
-
-template <class T>
-constexpr bool is_bf16 = std::is_same<T, bf16_t>::value;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16_t x) {
-  return __uint_as_float((unsigned)x << 16);
-}
-
-__device__ __forceinline__ bf16_t bf16_rn(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-// store v as T: f32 as it is, bf16 rounded to nearest even
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(bf16_t* p, float v) {
-  *p = bf16_rn(v);
 }
 
 // 8 bf16 at a 16-byte-aligned p → 8 f32 (exact), element 0 first
@@ -454,11 +453,7 @@ __device__ __forceinline__ void load_tile_bf16(bf16_t* s, const bf16_t* g,
 // by the same thread). Ragged edges are zero-filled on load and masked on
 // store. BM x BN block tile of
 // (BM / WM) x (BN / WN) warps, each a WM x WN warp tile of m16n8k8 3xTF32
-// products (OT float) or m16n8k16 bf16 products (OT bf16_t: each operand
-// rounded to nearest-even bf16 as its fragment is read, so f32 arrays,
-// and bf16 values widened into them, enter the product as masr_tpu's
-// Pallas kernels cast them to their compute dtype; the sums stay f32),
-// f32 accumulators in registers; BK = 32 deep through a 3-stage
+// products, f32 accumulators in registers; BK = 32 deep through a 3-stage
 // cp.async ring. Tiles sit in shared memory as they sit in device memory
 // (so the copies are contiguous), rows padded by 4 floats where k runs
 // along the row and by 8 where it runs down the column: either way a
@@ -473,7 +468,8 @@ __device__ __forceinline__ void load_tile_bf16(bf16_t* s, const bf16_t* g,
 // fragment reads, splits and copies, and of the per-element epilogue
 // (SiLU, the dropout hash), with 4 warps a block and 1-3 blocks an SM;
 // taking the products out of a clock64-timed copy changed its loop time
-// little. wgmma (asynchronous, 64-row warpgroup tiles) is the next step.
+// little. (The bf16 mode's products are train_wgmma.cuh's: TMA and
+// wgmma on bf16 tiles.)
 // ------------------------------------------------------------------------
 constexpr int kTcBK = 32, kTcStages = 3;
 
@@ -487,8 +483,7 @@ struct TcTile {
   static constexpr size_t SMEM = sizeof(float) * kTcStages * STAGE;
 };
 
-template <int BM, int BN, int WM, int WN, bool TA, bool TB, class OT,
-          class E>
+template <int BM, int BN, int WM, int WN, bool TA, bool TB, class E>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
     gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                    float* C, int M, int N, int K, int lda, int ldb, int ldc,
@@ -544,44 +539,6 @@ __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
     cp_async_commit();
     const float* as = smem + (kt % kTcStages) * L::STAGE;
     const float* bs = as + L::A_FLOATS;
-    if constexpr (is_bf16<OT>) {
-      // m16n8k16 fragments: A (g, 2t..2t+1), (g + 8, ..), (g, 2t + 8..),
-      // (g + 8, 2t + 8..); B (2t..2t+1, g), (2t + 8.., g)
-#pragma unroll
-      for (int kk = 0; kk < kTcBK; kk += 16) {
-        unsigned af[MT][4], bf[NT8][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const int r = wm + i * 16 + g;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int rr = r + (q & 1) * 8, kc = kk + 2 * t + (q >> 1) * 8;
-            af[i][q] = TA ? pack_bf16(as[kc * L::SA + rr],
-                                      as[(kc + 1) * L::SA + rr])
-                          : pack_bf16(as[rr * L::SA + kc],
-                                      as[rr * L::SA + kc + 1]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NT8; ++j) {
-          const int c = wn + j * 8 + g;
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int kr = kk + 2 * t + q * 8;
-            bf[j][q] = TB ? pack_bf16(bs[c * L::SB + kr],
-                                      bs[c * L::SB + kr + 1])
-                          : pack_bf16(bs[kr * L::SB + c],
-                                      bs[(kr + 1) * L::SB + c]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT8; ++j)
-            mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
-      }
-      continue;
-    }
 #pragma unroll
     for (int kk = 0; kk < kTcBK; kk += 8) {
       unsigned ab[MT][4], asm_[MT][4], bb[NT8][2], bsm[NT8][2];
@@ -654,13 +611,12 @@ inline bool aligned16(const float* p, int ld, const Batch& b) {
   return on16(p) && ld % 4 == 0 && b.s1 % 4 == 0 && b.s2 % 4 == 0;
 }
 
-template <int BM, int BN, int WM, int WN, bool TA, bool TB, class OT,
-          class E>
+template <int BM, int BN, int WM, int WN, bool TA, bool TB, class E>
 cudaError_t gemm_tc_run(const float* A, const float* B, float* C, int M,
                         int N, int K, int lda, int ldb, int ldc, const E& e,
                         cudaStream_t stream, int batch, Batch ba, Batch bb,
                         Batch bc) {
-  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, TA, TB, OT, E>;
+  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, TA, TB, E>;
   const size_t smem = TcTile<BM, BN, TA, TB>::SMEM;
   static bool sized = false;   // one attribute call per instantiation
   if (!sized) {
@@ -679,10 +635,8 @@ cudaError_t gemm_tc_run(const float* A, const float* B, float* C, int M,
 // The training layers' products on the tensor cores: 64 x 128 tiles (4 warps of
 // 32 x 64) where N > 64 and they fill the 132 SMs, 64 x 64 (4 warps of
 // 32 x 32) otherwise. (On the H100, at the training layer's shapes, 64 x 128 beat
-// 128 x 128 with 8 warps of 64 x 32 or 4 of 64 x 64, and 128 x 64.) OT:
-// the operands' type in the product (float: 3xTF32; bf16_t: rounded to
-// bf16), the arrays f32 either way.
-template <bool TA, bool TB, class OT = float, class E>
+// 128 x 128 with 8 warps of 64 x 32 or 4 of 64 x 64, and 128 x 64.)
+template <bool TA, bool TB, class E>
 cudaError_t gemm_tc_launch(const float* A, const float* B, float* C, int M,
                            int N, int K, int lda, int ldb, int ldc,
                            const E& e, cudaStream_t stream, int batch = 1,
@@ -691,10 +645,10 @@ cudaError_t gemm_tc_launch(const float* A, const float* B, float* C, int M,
   if (M <= 0 || N <= 0 || batch <= 0) return cudaGetLastError();
   const long big_tiles = (long)((M + 63) / 64) * ((N + 127) / 128) * batch;
   if (N > 64 && big_tiles >= 132)
-    return gemm_tc_run<64, 128, 32, 64, TA, TB, OT>(A, B, C, M, N, K, lda,
+    return gemm_tc_run<64, 128, 32, 64, TA, TB>(A, B, C, M, N, K, lda,
                                                     ldb, ldc, e, stream, batch,
                                                     ba, bb, bc);
-  return gemm_tc_run<64, 64, 32, 32, TA, TB, OT>(A, B, C, M, N, K, lda, ldb,
+  return gemm_tc_run<64, 64, 32, 32, TA, TB>(A, B, C, M, N, K, lda, ldb,
                                                  ldc, e, stream, batch, ba, bb,
                                                  bc);
 }
@@ -741,14 +695,14 @@ struct ServeEpi {
 constexpr int kConvRows = 16;
 constexpr int kConvThreads = 256;
 
-template <bool kLN, int ROWS = kConvRows>
+template <bool kLN, int ROWS = kConvRows, class Y = float>
 __global__ void __launch_bounds__(kConvThreads)
     conv_module_kernel(const float* __restrict__ g,
                        const float* __restrict__ dww,
                        const float* __restrict__ dwb,
                        const float* __restrict__ pw1b,
                        const float* __restrict__ gamma,
-                       const float* __restrict__ beta, float* __restrict__ y,
+                       const float* __restrict__ beta, Y* __restrict__ y,
                        int T_in, int T_out, int D, int ksize, int left,
                        int pad_bias, float eps, float* __restrict__ pre,
                        float* __restrict__ xhat, float* __restrict__ rstd) {
@@ -799,11 +753,11 @@ __global__ void __launch_bounds__(kConvThreads)
         const float h = (xr[c] - mu) * rs, v = h * gamma[c] + beta[c];
         if (xhat) xhat[o + c] = h;
         if (pre) pre[o + c] = v;
-        y[o + c] = silu_f(v);
+        store_as(y + o + c, silu_f(v));
       }
     } else {
       for (int c = lane; c < D; c += 32)
-        y[o + c] = silu_f(xr[c] * gamma[c] + beta[c]);
+        store_as(y + o + c, silu_f(xr[c] * gamma[c] + beta[c]));
     }
   }
 }
@@ -811,11 +765,13 @@ __global__ void __launch_bounds__(kConvThreads)
 // norm: (2, D) scale and shift, of the LN (use_ln) or of the folded
 // per-channel affine (!use_ln); pre, xhat, rstd: optional saves for a
 // backward of the LN variant (nullptr: not saved); rows: output rows per
-// block, kConvRows or kConvRowsChunk (the same bits either way)
+// block, kConvRows or kConvRowsChunk (the same bits either way); y: f32,
+// or bf16 rounded to nearest even
 constexpr int kConvRowsChunk = 4;
 
+template <class Y>
 cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
-                        const float* pw1b, const float* norm, float* y, int B,
+                        const float* pw1b, const float* norm, Y* y, int B,
                         int T_in, int T_out, int D, int ksize, int left,
                         int pad_bias, float eps, cudaStream_t stream,
                         float* pre = nullptr, float* xhat = nullptr,
@@ -824,10 +780,11 @@ cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
   const bool chunk = rows == kConvRowsChunk;
   if (!chunk) rows = kConvRows;
   const size_t smem = sizeof(float) * (size_t)(2 * rows + ksize - 1) * D;
-  auto kernel = use_ln ? (chunk ? conv_module_kernel<true, kConvRowsChunk>
-                                : conv_module_kernel<true>)
-                       : (chunk ? conv_module_kernel<false, kConvRowsChunk>
-                                : conv_module_kernel<false>);
+  auto kernel =
+      use_ln ? (chunk ? conv_module_kernel<true, kConvRowsChunk, Y>
+                      : conv_module_kernel<true, kConvRows, Y>)
+             : (chunk ? conv_module_kernel<false, kConvRowsChunk, Y>
+                      : conv_module_kernel<false, kConvRows, Y>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -843,10 +800,12 @@ cudaError_t conv_module(const float* g, const float* dww, const float* dwb,
 // ada[1] in rows t = row % T < lens[row / T], 0 in the rows past an
 // utterance's length (its padded rows enter pw1 as zeros). lens nullptr:
 // every row (the bf16 mode's adaptive scales of the attention and the FFNs,
-// which the f32 mode folds into their weights).
+// which the f32 mode folds into their weights). Y: y's type (float, or
+// bf16_t rounded to nearest even).
 // ------------------------------------------------------------------------
+template <class Y>
 __global__ void ada_rows_kernel(const float* __restrict__ x,
-                                float* __restrict__ y,
+                                Y* __restrict__ y,
                                 const float* __restrict__ ada,
                                 const int* __restrict__ lens, int T, int D,
                                 long long n) {
@@ -854,29 +813,32 @@ __global__ void ada_rows_kernel(const float* __restrict__ x,
        i += (long long)gridDim.x * blockDim.x) {
     const long long row = i / D;
     const int c = (int)(i % D);
-    y[i] = lens == nullptr || (row % T) < lens[row / T]
-               ? x[i] * ada[c] + ada[D + c]
-               : 0.f;
+    store_as(y + i, lens == nullptr || (row % T) < lens[row / T]
+                        ? x[i] * ada[c] + ada[D + c]
+                        : 0.f);
   }
 }
 
-cudaError_t ada_rows(const float* x, float* y, const float* ada,
+template <class Y>
+cudaError_t ada_rows(const float* x, Y* y, const float* ada,
                      const int* lens, int T, int D, long long n,
                      cudaStream_t stream) {
-  ada_rows_kernel<<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096),
+  ada_rows_kernel<Y><<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096),
                     256, 0, stream>>>(x, y, ada, lens, T, D, n);
   return cudaGetLastError();
 }
 
-// LayerNorm idx of the packed (6, 2, D) scales and shifts; xhat, rstd:
+// LayerNorm idx of the packed (6, 2, D) scales and shifts into y (f32, or
+// bf16 rounded to nearest even; nullptr: not written); xhat, rstd:
 // optional saves for a backward
-cudaError_t layer_norm(const float* x, float* y, const float* lnw, int idx,
+template <class Y>
+cudaError_t layer_norm(const float* x, Y* y, const float* lnw, int idx,
                        int M, int D, float eps, const int* lens, int T,
                        cudaStream_t stream, float* xhat = nullptr,
                        float* rstd = nullptr) {
   const int rows_per_block = 8;
   const float* gamma = lnw + (size_t)idx * 2 * D;
-  layer_norm_kernel<<<(M + rows_per_block - 1) / rows_per_block,
+  layer_norm_kernel<Y><<<(M + rows_per_block - 1) / rows_per_block,
                       rows_per_block * 32, 0, stream>>>(
       x, y, gamma, gamma + D, M, D, eps, lens, T, xhat, rstd);
   return cudaGetLastError();

@@ -61,20 +61,18 @@
 // query rows) would halve the key tiles' L2 reads but fetch the union of
 // both halves' visible tiles and leave half as many blocks to balance a
 // causal-like mask. setmaxnreg needs a whole producer warpgroup, so the
-// producer warp keeps the consumers' register count.
+// producer warp keeps the consumers' register count. The TMA, mbarrier and
+// wgmma pieces are hopper.cuh's, shared with the training layers' bf16
+// products (train_wgmma.cuh).
 #pragma once
 
-#include <cuda.h>
-#include <stdint.h>
-
 #include "flash_attention.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kWgStages = 2;
 constexpr int kWgThreads = 160;     // a consumer warpgroup + a producer warp
-constexpr int kWgBox = 64;          // TMA box: 64 rows x 64 bf16 (128 bytes)
-constexpr int kWgBoxBytes = kWgBox * kWgBox * 2;
 
 template <int NDK>
 struct WgCfg {
@@ -86,139 +84,6 @@ struct WgCfg {
   // [q+u | q+v] and the ring, plus slack to align them to 1024 bytes
   static constexpr size_t SMEM = QBYTES + (size_t)kWgStages * STAGE + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed; a wait that
-// outlasts any tile's copy by far (a lost arrival) traps, so a fault ends
-// the launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (unsigned n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 26)) asm volatile("trap;");
-  }
-}
-
-// one TMA box of `map` at coordinates (c0 innermost, ...) into dst,
-// completing on bar
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor of the 128-byte swizzled layout: start
-// address, leading byte offset (MN-major: the next 64-column block;
-// unused K-major), stride byte offset (the next 8-row atom), layout 1
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pin registers a wgmma reads or writes in program order: asm statements
-// keep their order, plain arithmetic does not, so without this the
-// compiler may compute an operand (the rescaled O, the P fragments) after
-// wgmma.fence, where the asynchronous product can miss it, or read an
-// accumulator before the wait. Every operand is touched before the fence
-// and every accumulator after the wait (CUTLASS's
-// warpgroup_fence_operand).
-template <int N>
-__device__ __forceinline__ void wg_touch(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_touch(unsigned (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
-
-// d (64 x 64 f32, the accumulator layout) += A (64 x 16 bf16, descriptor
-// a) . B (16 x 64 bf16, descriptor b), both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
-                                                   uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
 
 // d (64 x 64 f32, the accumulator layout) += a (64 x 16 bf16 in
 // registers) . B (16 x 64 bf16 in shared memory, descriptor b); TB:
@@ -412,7 +277,7 @@ __global__ void __launch_bounds__(kWgThreads)
 #pragma unroll
     for (int st = 0; st < KS; ++st) {
       const uint32_t off = (st / 4) * kWgBoxBytes + (st % 4) * 32;
-      wgmma_m64n64k16_ss(sc, wg_desc(qbase + off, 0, 1024),
+      wgmma_ss64<0, 0>(sc, wg_desc(qbase + off, 0, 1024),
                          wg_desc(kbase + off, 0, 1024), st > 0);
     }
     wg_commit();
@@ -497,60 +362,6 @@ __global__ void __launch_bounds__(kWgThreads)
         if (d < dk) store_as(oh + row * w.ot + d, o[4 * n + 2 * r + c] * inv);
       }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (no link against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-// a bf16 tensor map of `rank` dims (extent[0] innermost, unit stride;
-// stride[i] in elements for dims 1..rank-1), boxes of 64 x 64 (x 1 ...),
-// 128-byte swizzle, zero fill out of bounds. A dim of extent 1 is never
-// stepped and takes the packed stride.
-inline bool make_map(CUtensorMap* m, const void* base, int rank,
-                     const long long* extent, const long long* stride) {
-  EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4], estr[4];
-  for (int i = 0; i < rank; ++i) {
-    dims[i] = (cuuint64_t)extent[i];
-    box[i] = i < 2 ? kWgBox : 1;
-    estr[i] = 1;
-  }
-  long long packed = extent[0];
-  for (int i = 1; i < rank; ++i) {
-    const long long s = extent[i] == 1 ? (packed + 7) / 8 * 8 : stride[i];
-    strides[i - 1] = (cuuint64_t)s * 2;
-    packed = s * extent[i];
-  }
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int NDK>

@@ -36,18 +36,21 @@
 //
 // Two C entries per operand mode, one ctypes call each per layer and
 // direction:
-//   masr_sq_layer_train_forward(_bf16)   ~22 launches (+13 in bf16)
-//   masr_sq_layer_train_backward(_bf16)  ~60 launches (+17 in bf16)
+//   masr_sq_layer_train_forward(_bf16)   ~22 launches (~30 in bf16)
+//   masr_sq_layer_train_backward(_bf16)  ~60 launches (~76 in bf16)
 // The bf16 mode is the Pallas kernel's at compute dtype bf16 (`cdt =
 // x_ref.dtype`, :115, :145, :297, :327): x, posp, the output and the five
 // product weights bf16, the other rows f32. The adaptive scales are NOT
 // folded there: masr_tpu applies each (`_ada`, :50) in f32 before the
 // product rounds its operand, so a fold would move that rounding. The
 // bf16 mode takes the unfolded pack (ada (4, 2, D), as the bf16 serving
-// kernel's), applies ada0, ada1 and ada3 with ada_rows into saved rows,
-// and computes their grads itself (column sums of the input grad times
-// the scaled rows, and through the scale into the residual grad), as the
-// Pallas backward returns dadaw. Rounded to bf16 where masr_tpu's kernel
+// kernel's), applies ada0..ada3 with ada_rows straight into bf16 product
+// operands, and computes their grads itself (column sums of the input
+// grad times the scaled rows, and through the scale into the residual
+// grad), as the Pallas backward returns dadaw. Its products are
+// train_wgmma.cuh's (bf16 operands in device memory, TMA tiles, wgmma),
+// as row 3's bf16 mode; the forward copies the bf16 weights and posp into
+// `saved` for the backward. Rounded to bf16 where masr_tpu's kernel
 // stores x's dtype:
 //   - x2, the input of the second half (:448), and s2 = x1 + FFN1, which
 //     half 1 saves as x.dtype (:448): x2 = bf16(LN2(s2)) of the unrounded
@@ -56,9 +59,6 @@
 //   - the grad of x2 on the way back (:503) and dx (:585);
 //   - the grads of the five bf16 weights and of posp, each summed in f32
 //     and rounded once; the f32 arrays' grads (dada included) stay f32.
-// The forward widens the bf16 weights and posp into f32 arrays of
-// `saved`, which the backward reads too, and keeps x, the three scaled
-// rows and one output row block there: no memory is saved against f32.
 // built from common.cuh's LayerNorm and ada_rows and training.cuh's blocks
 // (att_fwd / att_bwd, ffn_fwd / ffn_bwd, conv_fwd / conv_bwd, ln_bwd,
 // colsum, the products with their epilogue), plus ada_bwd_kernel below.
@@ -88,10 +88,11 @@
 // What bounds it on the H100: ~3x the forward's operations (13.4 GFLOP at
 // B=8, T'=299 full rate: the eight products, 90% of them; 6.4 GFLOP at
 // T'=150), so operations: 0.35 ms at f32's 67 TFLOP/s, 0.14 ms at
-// 3xTF32's 165 (a third of TF32's 495). Every product runs training.cuh's
-// tensor-core loop (common.cuh's gemm_tc_kernel, 3xTF32, f32 accuracy),
-// shared with conformer_layer_train.cu. Left for later: wgmma / TMA
-// products, a fused flash-style attention that does not materialise (T',
+// 3xTF32's 165 (a third of TF32's 495), 0.024 ms in bf16 at 989. The f32
+// products run training.cuh's tensor-core loop (common.cuh's
+// gemm_tc_kernel, 3xTF32, f32 accuracy), the bf16 mode's train_wgmma.cuh's
+// wgmma product, both shared with conformer_layer_train.cu. Left for
+// later: a fused flash-style attention that does not materialise (T',
 // T'), fewer launches (the host leaves the card idle most of a step),
 // conv_pad_grad_kernel's serial loop.
 
@@ -141,20 +142,17 @@ cudaError_t ada_bwd(const float* base, const float* da, const float* x,
 }
 
 // ------------------------------------------------------------------------
-// Saved activations, offsets in floats (M = B*T). The forward writes them,
-// the backward reads them. xhat / rstd 0..3: LN1..LN4, 4: the conv LN.
-// bf16 mode (bf): also x as f32 rows, the rows ada0, ada1 and ada3 scale
-// (xa, a1, a3), an output row block and the widened product weights and
-// posp (Wide).
+// Saved activations of the f32 mode, offsets in floats (M = B*T). The
+// forward writes them, the backward reads them. xhat / rstd 0..3:
+// LN1..LN4, 4: the conv LN.
 // ------------------------------------------------------------------------
 struct Saved {
   size_t xhat[5], rstd[5], x1, x2, x3, a2, g, cn, y3, z0, h0, z1, h1, qu, qv,
-      k, v, o, P, Pd, sum, bias_uv, x0, xa, a1, a3, yout;
-  Wide w;
+      k, v, o, P, Pd, sum, bias_uv;
   size_t total;
 };
 
-Saved saved_layout(int B, int T, int D, int F, int H, bool bf) {
+Saved saved_layout(int B, int T, int D, int F, int H) {
   const size_t M = (size_t)B * T, MD = M * D, MF = M * F;
   const size_t PP = (size_t)H * B * T * T;
   Saved s;
@@ -188,27 +186,19 @@ Saved saved_layout(int B, int T, int D, int F, int H, bool bf) {
   s.Pd = take(PP);
   s.sum = take(MD);
   s.bias_uv = take(2 * (size_t)D);
-  s.x0 = bf ? take(MD) : 0;
-  s.xa = bf ? take(MD) : 0;
-  s.a1 = bf ? take(MD) : 0;
-  s.a3 = bf ? take(MD) : 0;
-  s.yout = bf ? take(MD) : 0;
-  s.w = bf ? wide_layout(take, T, D, F) : Wide{};
   s.total = off;
   return s;
 }
 
 // backward scratch: the residual grads r0, r1 and t0..t5 (M, D), dh (M, F),
 // dg (M, 2D), dP (h, B, T, T), and the split-K slices of the largest
-// weight grad; bf16 mode: also dy and dx as f32 rows and the f32 grads of
-// the bf16 arrays (Wide's layout)
+// weight grad
 struct Scratch {
-  size_t r[2], t[6], dh, dg, dP, part, dyw, dxf;
-  Wide gw;
+  size_t r[2], t[6], dh, dg, dP, part;
   size_t total;
 };
 
-Scratch scratch_layout(int B, int T, int D, int F, int H, bool bf) {
+Scratch scratch_layout(int B, int T, int D, int F, int H) {
   const size_t M = (size_t)B * T, MD = M * D;
   Scratch s;
   size_t off = 0;
@@ -223,9 +213,6 @@ Scratch scratch_layout(int B, int T, int D, int F, int H, bool bf) {
   s.dg = take(2 * MD);
   s.dP = take((size_t)H * B * T * T);
   s.part = take(splitk_part_floats(B * T, D, F));
-  s.dyw = bf ? take(MD) : 0;
-  s.dxf = bf ? take(MD) : 0;
-  s.gw = bf ? wide_layout(take, T, D, F) : Wide{};
   s.total = off;
   return s;
 }
@@ -239,10 +226,9 @@ ConvBufs conv_bufs(float* S, const Saved& L) {
   return {S + L.g, S + L.cn, S + L.xhat[4], S + L.rstd[4], S + L.y3};
 }
 
-// the layer's arrays as the blocks read them (f32), and its grads. ada:
-// (2, D) the conv module's scale and shift (f32 mode, the others folded),
-// or (4, 2, D) the attention's, FFN1's, the conv module's and FFN2's
-// (bf16 mode)
+
+// the f32 mode's arrays (ada: (2, D) the conv module's scale and shift,
+// the others folded), and its grads
 struct Weights {
   const float *posp, *lnw, *ada, *cnw, *attw, *vecb, *posb, *ffw1, *ffb1,
       *ffw2, *pw1w, *pw1b, *pw2w, *dww;
@@ -253,39 +239,12 @@ struct Grads {
       *dffw2, *dpw1w, *dpw1b, *dpw2w, *ddww;
 };
 
-// LN idx of the post-norm sums into y; bf16 mode at LN2 and LN4: y from
-// the unrounded sum rounded to bf16 (into out when set, else in place),
-// and the saved statistics of the sum as masr_tpu saves it, bf16
-template <class OT, class Y>
-cudaError_t post_norm(float* S, const Saved& L, const float* lnw, int idx,
-                      float* sum, Y* y, int M, int D, float eps, int T,
-                      cudaStream_t st) {
-  if constexpr (!is_bf16<OT>) {
-    return layer_norm(sum, y, lnw, idx, M, D, eps, nullptr, T, st,
-                      S + L.xhat[idx], S + L.rstd[idx]);
-  } else {
-    const long long MD = (long long)M * D;
-    if constexpr (is_bf16<Y>) {
-      TRY(layer_norm(sum, S + L.yout, lnw, idx, M, D, eps, nullptr, T, st));
-      TRY(convert(S + L.yout, y, MD, st));
-    } else {
-      TRY(layer_norm(sum, y, lnw, idx, M, D, eps, nullptr, T, st));
-      TRY(round_bf16(y, MD, st));
-    }
-    TRY(round_bf16(sum, MD, st));
-    return layer_norm(sum, S + L.yout, lnw, idx, M, D, eps, nullptr, T, st,
-                      S + L.xhat[idx], S + L.rstd[idx]);
-  }
-}
-
 // The forward from x0 (f32 rows) into out, saving what the backward reads.
-template <class OT>
 cudaError_t forward_rows(const float* x0, float* S, const Saved& L,
                          const unsigned char* mask, const int* seeds,
-                         const int* lens, const Weights& w, OT* out,
+                         const int* lens, const Weights& w, float* out,
                          const Dims& d, float eps, float conv_eps,
                          cudaStream_t st) {
-  constexpr bool bf = is_bf16<OT>;
   const int B = d.B, T = d.T, D = d.D, F = d.F, H = d.H, M = B * T;
   const size_t MD = (size_t)M * D, DF = (size_t)D * F;
   float* sum = S + L.sum;
@@ -293,66 +252,46 @@ cudaError_t forward_rows(const float* x0, float* S, const Saved& L,
     return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
                      d.row0);
   };
-  // ada row i of the unfolded pack (bf16 mode)
-  auto ada = [&](int i) { return w.ada + (size_t)i * 2 * D; };
 
-  // x1 = LN1(x + drop(MHSA(ada0 x))), ada0 folded into q/k/v in f32
-  const float* xa = x0;
-  if (bf) {
-    TRY(ada_rows(x0, S + L.xa, ada(0), nullptr, T, D, (long long)MD, st));
-    xa = S + L.xa;
-  }
-  TRY(att_fwd<OT>(xa, w.attw, w.vecb, w.posb, w.posp, mask, att_bufs(S, L),
-                  x0, sum,
-                  make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
-                            d.att_keep_scale, d.row0),
-                  drop(kSiteAttOut), B, T, D, H, st));
+  // x1 = LN1(x + drop(MHSA(ada0 x))), ada0 folded into q/k/v
+  TRY(att_fwd(x0, w.attw, w.vecb, w.posb, w.posp, mask, att_bufs(S, L), x0,
+              sum,
+              make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
+                        d.att_keep_scale, d.row0),
+              drop(kSiteAttOut), B, T, D, H, st));
   TRY(layer_norm(sum, S + L.x1, w.lnw, 0, M, D, eps, nullptr, T, st,
                  S + L.xhat[0], S + L.rstd[0]));
-  // x2 = LN2(x1 + drop(FFN1(ada1 x1))), ada1 folded into w_1 in f32
-  const float* a1 = S + L.x1;
-  if (bf) {
-    TRY(ada_rows(S + L.x1, S + L.a1, ada(1), nullptr, T, D, (long long)MD,
-                 st));
-    a1 = S + L.a1;
-  }
-  TRY(ffn_fwd<OT>(S + L.x1, sum, a1, S + L.z0, S + L.h0, w.ffw1, w.ffb1,
-                  w.ffw2, w.vecb + 4 * D, M, D, F, T, 1.f,
-                  drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
-  TRY(post_norm<OT>(S, L, w.lnw, 1, sum, S + L.x2, M, D, eps, T, st));
+  // x2 = LN2(x1 + drop(FFN1(ada1 x1))), ada1 folded into w_1
+  TRY(ffn_fwd(S + L.x1, sum, S + L.x1, S + L.z0, S + L.h0, w.ffw1, w.ffb1,
+              w.ffw2, w.vecb + 4 * D, M, D, F, T, 1.f, drop(kSiteFfn1Hidden),
+              drop(kSiteFfn1Out), st));
+  TRY(layer_norm(sum, S + L.x2, w.lnw, 1, M, D, eps, nullptr, T, st,
+                 S + L.xhat[1], S + L.rstd[1]));
   // x3 = LN3(x2 + drop(Conv(ada2 x2))), the conv input's rows >= len zero
-  TRY(ada_rows(S + L.x2, S + L.a2, bf ? ada(2) : w.ada, lens, T, D,
-               (long long)MD, st));
-  TRY(conv_fwd<OT>(S + L.a2, w.pw1w, w.pw1b, w.dww, w.vecb + 6 * D, w.cnw,
-                   w.pw2w, w.vecb + 7 * D, conv_bufs(S, L), S + L.x2, sum,
-                   lens, drop(kSiteConvOut), B, T, D, d.ksize, d.causal,
-                   conv_eps, st));
+  TRY(ada_rows(S + L.x2, S + L.a2, w.ada, lens, T, D, (long long)MD, st));
+  TRY(conv_fwd(S + L.a2, w.pw1w, w.pw1b, w.dww, w.vecb + 6 * D, w.cnw,
+               w.pw2w, w.vecb + 7 * D, conv_bufs(S, L), S + L.x2, sum, lens,
+               drop(kSiteConvOut), B, T, D, d.ksize, d.causal, conv_eps,
+               st));
   TRY(layer_norm(sum, S + L.x3, w.lnw, 2, M, D, eps, nullptr, T, st,
                  S + L.xhat[2], S + L.rstd[2]));
-  // y = LN4(x3 + drop(FFN2(ada3 x3))), ada3 folded into w_1 in f32
-  const float* a3 = S + L.x3;
-  if (bf) {
-    TRY(ada_rows(S + L.x3, S + L.a3, ada(3), nullptr, T, D, (long long)MD,
-                 st));
-    a3 = S + L.a3;
-  }
-  TRY(ffn_fwd<OT>(S + L.x3, sum, a3, S + L.z1, S + L.h1, w.ffw1 + DF,
-                  w.ffb1 + F, w.ffw2 + DF, w.vecb + 5 * D, M, D, F, T, 1.f,
-                  drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
-  return post_norm<OT>(S, L, w.lnw, 3, sum, out, M, D, eps, T, st);
+  // y = LN4(x3 + drop(FFN2(ada3 x3))), ada3 folded into w_1
+  TRY(ffn_fwd(S + L.x3, sum, S + L.x3, S + L.z1, S + L.h1, w.ffw1 + DF,
+              w.ffb1 + F, w.ffw2 + DF, w.vecb + 5 * D, M, D, F, T, 1.f,
+              drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
+  return layer_norm(sum, out, w.lnw, 3, M, D, eps, nullptr, T, st,
+                    S + L.xhat[3], S + L.rstd[3]);
 }
 
 // The backward from dy (f32 rows) into dx (f32 rows) and the grads (every
 // element written). x0: the forward's input rows (f32).
-template <class OT>
 cudaError_t backward_rows(const float* dy, const float* x0, float* S,
                           const Saved& L, float* scratch, const Scratch& W,
                           const int* seeds, const int* lens,
                           const Weights& w, const Grads& g, float* dx,
                           const Dims& d, cudaStream_t st) {
-  constexpr bool bf = is_bf16<OT>;
   const int B = d.B, T = d.T, D = d.D, F = d.F, H = d.H, M = B * T;
-  const size_t MD = (size_t)M * D, DF = (size_t)D * F;
+  const size_t DF = (size_t)D * F;
   float *r0 = scratch + W.r[0], *r1 = scratch + W.r[1];
   float* t[6];
   for (int i = 0; i < 6; ++i) t[i] = scratch + W.t[i];
@@ -362,71 +301,297 @@ cudaError_t backward_rows(const float* dy, const float* x0, float* S,
     return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
                      d.row0);
   };
-  auto ada = [&](int i) { return w.ada + (size_t)i * 2 * D; };
-  auto dada = [&](int i) { return g.dada + (size_t)i * 2 * D; };
 
-  // LN4, FFN2: r0 = ds4, r1 = dx3 = ds4 + FFN2's input grad (through ada3
-  // in the bf16 mode)
+  // LN4, FFN2: r0 = ds4, r1 = dx3 = ds4 + FFN2's input grad
   TRY(ln_bwd(dy, S + L.xhat[3], S + L.rstd[3], w.lnw, g.dlnw, 3, nullptr, r0,
              M, D, nullptr, T, st));
-  TRY(ffn_bwd<OT>(r0, bf ? S + L.a3 : S + L.x3, S + L.z1, S + L.h1,
-                  w.ffw1 + DF, w.ffw2 + DF, g.dffw1 + DF, g.dffb1 + F,
-                  g.dffw2 + DF, g.dvecb + 5 * D, t[0], dh, bf ? nullptr : r0,
-                  bf ? t[4] : r1, part, M, D, F, T, 1.f,
-                  drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
-  if (bf)
-    TRY(ada_bwd(r0, t[4], S + L.x3, ada(3), dada(3), r1, M, D, nullptr, T,
-                st));
+  TRY(ffn_bwd(r0, S + L.x3, S + L.z1, S + L.h1, w.ffw1 + DF, w.ffw2 + DF,
+              g.dffw1 + DF, g.dffb1 + F, g.dffw2 + DF, g.dvecb + 5 * D, t[0],
+              dh, r0, r1, part, M, D, F, T, 1.f, drop(kSiteFfn2Hidden),
+              drop(kSiteFfn2Out), st));
 
   // LN3, conv module: r0 = ds3, t[3] = the grad of the conv input, r1 =
   // dx2 = ds3 + its grad through ada2 in the valid rows
   TRY(ln_bwd(r1, S + L.xhat[2], S + L.rstd[2], w.lnw, g.dlnw, 2, nullptr, r0,
              M, D, nullptr, T, st));
-  TRY(conv_bwd<OT>(r0, S + L.a2, conv_bufs(S, L), w.pw1w, w.pw1b, w.dww,
-                   w.cnw, w.pw2w, lens, drop(kSiteConvOut), g.dpw2w,
-                   g.dvecb + 7 * D, g.dcnw, g.dvecb + 6 * D, g.ddww, g.dpw1b,
-                   g.dpw1w, t[3], t, dg, part, B, T, D, d.ksize, d.causal,
-                   st));
-  TRY(ada_bwd(r0, t[3], S + L.x2, bf ? ada(2) : w.ada,
-              bf ? dada(2) : g.dada, r1, M, D, lens, T, st));
-  if (bf) TRY(round_bf16(r1, (long long)MD, st));   // dx2
+  TRY(conv_bwd(r0, S + L.a2, conv_bufs(S, L), w.pw1w, w.pw1b, w.dww, w.cnw,
+               w.pw2w, lens, drop(kSiteConvOut), g.dpw2w, g.dvecb + 7 * D,
+               g.dcnw, g.dvecb + 6 * D, g.ddww, g.dpw1b, g.dpw1w, t[3], t, dg,
+               part, B, T, D, d.ksize, d.causal, st));
+  TRY(ada_bwd(r0, t[3], S + L.x2, w.ada, g.dada, r1, M, D, lens, T, st));
 
   // LN2, FFN1: r0 = ds2, r1 = dx1
   TRY(ln_bwd(r1, S + L.xhat[1], S + L.rstd[1], w.lnw, g.dlnw, 1, nullptr, r0,
              M, D, nullptr, T, st));
-  TRY(ffn_bwd<OT>(r0, bf ? S + L.a1 : S + L.x1, S + L.z0, S + L.h0, w.ffw1,
-                  w.ffw2, g.dffw1, g.dffb1, g.dffw2, g.dvecb + 4 * D, t[0],
-                  dh, bf ? nullptr : r0, bf ? t[4] : r1, part, M, D, F, T,
-                  1.f, drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
-  if (bf)
-    TRY(ada_bwd(r0, t[4], S + L.x1, ada(1), dada(1), r1, M, D, nullptr, T,
-                st));
+  TRY(ffn_bwd(r0, S + L.x1, S + L.z0, S + L.h0, w.ffw1, w.ffw2, g.dffw1,
+              g.dffb1, g.dffw2, g.dvecb + 4 * D, t[0], dh, r0, r1, part, M, D,
+              F, T, 1.f, drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
 
   // LN1, attention: r0 = ds1, dx = ds1 + the attention's input grad
-  // (through ada0 in the bf16 mode)
   TRY(ln_bwd(r1, S + L.xhat[0], S + L.rstd[0], w.lnw, g.dlnw, 0, nullptr, r0,
              M, D, nullptr, T, st));
-  TRY(att_bwd<OT>(r0, bf ? S + L.xa : x0, w.attw, w.posp, att_bufs(S, L),
-                  make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
-                            d.att_keep_scale, d.row0),
-                  drop(kSiteAttOut), g.dattw, g.dvecb, g.dposb, g.dposp,
-                  bf ? nullptr : r0, bf ? t[1] : dx, t, dP, part, B, T, D, H,
-                  st));
-  if (bf)
-    TRY(ada_bwd(r0, t[1], x0, ada(0), dada(0), dx, M, D, nullptr, T, st));
+  TRY(att_bwd(r0, x0, w.attw, w.posp, att_bufs(S, L),
+              make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
+                        d.att_keep_scale, d.row0),
+              drop(kSiteAttOut), g.dattw, g.dvecb, g.dposb, g.dposp, r0, dx,
+              t, dP, part, B, T, D, H, st));
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------
+// The bf16 mode (train_wgmma.cuh's blocks). saved: the f32 rows that an
+// f32 reader needs (LN statistics, x as f32, x1..x3, the FFN
+// pre-activations, k, the scores P, pw1's output, the conv LN's output,
+// the residual sums), the product operands as bf16 (the adaptive scales'
+// rows xa, a1, a2, a3, the FFNs' hidden rows, q+u, q+v, k, v, O, Pd, the
+// conv module's SiLU output) and the bf16 weights and posp for the
+// backward. scratch: dy, the residual grads r0 and r1, two (M, D) f32
+// arrays, the split-K slices and the blocks' temporaries (BlockTmp).
+// ------------------------------------------------------------------------
+struct SavedBf {
+  size_t xhat[5], rstd[5], x0, x1, x2, x3, g, cn, z0, z1, sum;   // f32
+  size_t xa, a1, a2, a3, y3, h0, h1;                           // bf16
+  size_t qu, qv, kb, v, o, Pd, k, P;   // the attention's
+  WeightsBf w;
+  size_t total;
+};
+
+SavedBf saved_layout_bf(int B, int T, int D, int F, int H) {
+  const size_t M = (size_t)B * T, MD = M * D, MF = M * F;
+  SavedBf s;
+  Layout l;
+  for (int i = 0; i < 5; ++i) {
+    s.xhat[i] = l.f32(MD);
+    s.rstd[i] = l.f32(M);
+  }
+  s.x0 = l.f32(MD);
+  s.x1 = l.f32(MD);
+  s.x2 = l.f32(MD);
+  s.x3 = l.f32(MD);
+  s.g = l.f32(2 * MD);
+  s.cn = l.f32(MD);
+  s.z0 = l.f32(MF);
+  s.z1 = l.f32(MF);
+  s.sum = l.f32(MD);
+  s.xa = l.bf16(MD);
+  s.a1 = l.bf16(MD);
+  s.a2 = l.bf16(MD);
+  s.a3 = l.bf16(MD);
+  s.y3 = l.bf16(MD);
+  s.h0 = l.bf16(MF);
+  s.h1 = l.bf16(MF);
+  att_saved_bf(l, &s.qu, &s.qv, &s.kb, &s.v, &s.o, &s.Pd, &s.k, &s.P, B,
+               T, D, H);
+  s.w = weights_bf(l, T, D, F);
+  s.total = l.off;
+  return s;
+}
+
+struct ScratchBf {
+  size_t dyw, r0, r1, t0, t1;
+  ReduceL red;
+  BlockTmp b;
+  size_t total;
+};
+
+ScratchBf scratch_layout_bf(int B, int T, int D, int F, int H) {
+  const size_t MD = (size_t)B * T * D;
+  ScratchBf s;
+  Layout l;
+  s.dyw = l.f32(MD);
+  s.r0 = l.f32(MD);
+  s.r1 = l.f32(MD);
+  s.t0 = l.f32(MD);
+  s.t1 = l.f32(MD);
+  s.red = reduce_layout(l, B, T, D, F, H);
+  s.b = block_tmp(l, B, T, D, F, H);
+  s.total = l.off;
+  return s;
+}
+
+AttBufsBf att_bufs_bf(float* S, const SavedBf& L) {
+  return {at<bf16_t>(S, L.qu), at<bf16_t>(S, L.qv), at<bf16_t>(S, L.kb),
+          at<bf16_t>(S, L.v),  at<bf16_t>(S, L.o),  at<bf16_t>(S, L.Pd),
+          S + L.k,             S + L.P};
+}
+
+ConvBufsBf conv_bufs_bf(float* S, const SavedBf& L) {
+  return {S + L.g, S + L.cn, S + L.xhat[4], S + L.rstd[4],
+          at<bf16_t>(S, L.y3)};
+}
+
+// the bf16 mode's arrays: the five product weights and posp bf16, the
+// rest f32; ada (4, 2, D) the four adaptive scales, unfolded
+struct WeightsB {
+  const bf16_t *posp, *attw, *ffw1, *ffw2, *pw1w, *pw2w;
+  const float *lnw, *ada, *cnw, *vecb, *posb, *ffb1, *pw1b, *dww;
+};
+
+struct GradsB {
+  bf16_t *dposp, *dattw, *dffw1, *dffw2, *dpw1w, *dpw2w;
+  float *dlnw, *dada, *dcnw, *dvecb, *dposb, *dffb1, *dpw1b, *ddww;
+};
+
+// LN idx of the post-norm sum into y, as masr_tpu's half saves it in x's
+// dtype: y from the unrounded sum, rounded to bf16 (y bf16, or f32 rounded
+// in place); the saved statistics of the sum rounded to bf16
+template <class Y>
+cudaError_t post_norm_bf(float* S, const SavedBf& L, const float* lnw,
+                         int idx, float* sum, Y* y, int M, int D, float eps,
+                         int T, cudaStream_t st) {
+  const long long MD = (long long)M * D;
+  TRY(layer_norm(sum, y, lnw, idx, M, D, eps, nullptr, T, st));
+  if constexpr (!is_bf16<Y>) TRY(round_bf16(y, MD, st));
+  TRY(round_bf16(sum, MD, st));
+  return layer_norm<float>(sum, nullptr, lnw, idx, M, D, eps, nullptr, T,
+                           st, S + L.xhat[idx], S + L.rstd[idx]);
+}
+
+// The bf16 forward from x (bf16) into out (bf16): the adaptive scales
+// applied by ada_rows into bf16 product operands; x2 and the output
+// rounded as masr_tpu stores them (the header).
+cudaError_t forward_rows_bf(const bf16_t* x, float* S, const SavedBf& L,
+                            const unsigned char* mask, const int* seeds,
+                            const int* lens, const WeightsB& w, bf16_t* out,
+                            const Dims& d, float eps, float conv_eps,
+                            cudaStream_t st) {
+  const int B = d.B, T = d.T, D = d.D, F = d.F, H = d.H, M = B * T;
+  const long long MD = (long long)M * D;
+  const size_t DF = (size_t)D * F;
+  float *sum = S + L.sum, *x0 = S + L.x0;
+  auto drop = [&](int site) {
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
+                     d.row0);
+  };
+  auto ada = [&](int i) { return w.ada + (size_t)i * 2 * D; };
+  auto rows = [&](size_t off) { return at<bf16_t>(S, off); };
+  TRY(convert(x, x0, MD, st));
+  TRY(save_weights_bf(S, L.w, w.ffw1, w.ffw2, w.attw, w.pw1w, w.pw2w,
+                      w.posp, T, D, F, st));
+
+  // x1 = LN1(x + drop(MHSA(ada0 x)))
+  TRY(ada_rows(x0, rows(L.xa), ada(0), nullptr, T, D, MD, st));
+  TRY(att_fwd_bf(rows(L.xa), w.attw, w.vecb, w.posb, w.posp, mask,
+                 att_bufs_bf(S, L), x0, sum, false,
+                 make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
+                           d.att_keep_scale, d.row0),
+                 drop(kSiteAttOut), B, T, D, H, st));
+  TRY(layer_norm(sum, S + L.x1, w.lnw, 0, M, D, eps, nullptr, T, st,
+                 S + L.xhat[0], S + L.rstd[0]));
+  // x2 = LN2(x1 + drop(FFN1(ada1 x1)))
+  TRY(ada_rows(S + L.x1, rows(L.a1), ada(1), nullptr, T, D, MD, st));
+  TRY(ffn_fwd_bf(S + L.x1, sum, rows(L.a1), S + L.z0, rows(L.h0), w.ffw1,
+                 w.ffb1, w.ffw2, w.vecb + 4 * D, M, D, F, T, 1.f,
+                 drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
+  TRY(post_norm_bf(S, L, w.lnw, 1, sum, S + L.x2, M, D, eps, T, st));
+  // x3 = LN3(x2 + drop(Conv(ada2 x2))), the conv input's rows >= len zero
+  TRY(ada_rows(S + L.x2, rows(L.a2), ada(2), lens, T, D, MD, st));
+  TRY(conv_fwd_bf(rows(L.a2), w.pw1w, w.pw1b, w.dww, w.vecb + 6 * D, w.cnw,
+                  w.pw2w, w.vecb + 7 * D, conv_bufs_bf(S, L), S + L.x2, sum,
+                  lens, drop(kSiteConvOut), B, T, D, d.ksize, d.causal,
+                  conv_eps, st));
+  TRY(layer_norm(sum, S + L.x3, w.lnw, 2, M, D, eps, nullptr, T, st,
+                 S + L.xhat[2], S + L.rstd[2]));
+  // y = LN4(x3 + drop(FFN2(ada3 x3)))
+  TRY(ada_rows(S + L.x3, rows(L.a3), ada(3), nullptr, T, D, MD, st));
+  TRY(ffn_fwd_bf(S + L.x3, sum, rows(L.a3), S + L.z1, rows(L.h1),
+                 w.ffw1 + DF, w.ffb1 + F, w.ffw2 + DF, w.vecb + 5 * D, M, D,
+                 F, T, 1.f, drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
+  return post_norm_bf(S, L, w.lnw, 3, sum, out, M, D, eps, T, st);
+}
+
+// The bf16 backward from dy (bf16) into dx (bf16) and the grads: through
+// each adaptive scale into the residual grad (ada_bwd), the grad of x2
+// rounded to bf16 between the halves.
+cudaError_t backward_rows_bf(const bf16_t* dy, float* S, const SavedBf& L,
+                             float* G, const ScratchBf& W, const int* seeds,
+                             const int* lens, const WeightsB& w,
+                             const GradsB& g, bf16_t* dx, const Dims& d,
+                             cudaStream_t st) {
+  const int B = d.B, T = d.T, D = d.D, F = d.F, H = d.H, M = B * T;
+  const size_t MD = (size_t)M * D, DF = (size_t)D * F;
+  float *dyw = G + W.dyw, *r0 = G + W.r0, *r1 = G + W.r1, *t0 = G + W.t0,
+        *t1 = G + W.t1;
+  const BlockTmp& b = W.b;
+  const Reduce rd = reduce_at(G, W.red);
+  auto drop = [&](int site) {
+    return make_drop(seeds, d.layer, site, d.thresh, d.keep_scale,
+                     d.row0);
+  };
+  auto rows = [&](size_t off) { return at<const bf16_t>(S, off); };
+  // dx_out = base + da * ada i's scale in the rows of lens, and ada i's
+  // grads from the rows it scaled, x
+  auto ada_grad = [&](const float* base, const float* da, const float* x,
+                      int i, float* dx_out, const int* ln) {
+    const float* ada = w.ada + (size_t)i * 2 * D;
+    float* dada = g.dada + (size_t)i * 2 * D;
+    TRY(colsum_bf(da, x, dada, dada + D, M, D, ln, T, rd, st));
+    ada_bwd_kernel<<<blocks_for(MD, 256), 256, 0, st>>>(base, da, ada, dx_out,
+                                                       ln, T, D, MD);
+    return cudaGetLastError();
+  };
+  TRY(reduce_reset(G, W.red, st));
+  TRY(convert(dy, dyw, (long long)MD, st));
+
+  // LN4, FFN2 (its input grad into t1): r0 = ds4, r1 = dx3
+  TRY(ln_bwd_bf(dyw, S + L.xhat[3], S + L.rstd[3], w.lnw, g.dlnw, 3, nullptr,
+                r0, M, D, nullptr, T, rd, st));
+  TRY(ffn_bwd_bf(r0, rows(L.a3), S + L.z1, rows(L.h1), w.ffw1 + DF,
+                 w.ffw2 + DF, g.dffw1 + DF, g.dffb1 + F, g.dffw2 + DF,
+                 g.dvecb + 5 * D, ffn_tmp(G, b), nullptr, t1, rd, M, D,
+                 F, T, 1.f, drop(kSiteFfn2Hidden), drop(kSiteFfn2Out), st));
+  TRY(ada_grad(r0, t1, S + L.x3, 3, r1, nullptr));
+
+  // LN3, conv module: r0 = ds3, r1 = dx2 (rounded)
+  TRY(ln_bwd_bf(r1, S + L.xhat[2], S + L.rstd[2], w.lnw, g.dlnw, 2, nullptr,
+                r0, M, D, nullptr, T, rd, st));
+  float* tc[3] = {t0, t1, G + b.cv_t2};
+  TRY(conv_bwd_bf(r0, rows(L.a2), conv_bufs_bf(S, L), w.pw1w, w.pw1b, w.dww,
+                  w.cnw, w.pw2w, lens, drop(kSiteConvOut), g.dpw2w,
+                  g.dvecb + 7 * D, g.dcnw, g.dvecb + 6 * D, g.ddww, g.dpw1b,
+                  g.dpw1w, G + b.cv_da, tc, G + b.cv_dg,
+                  at<bf16_t>(G, b.cv_t0b), at<bf16_t>(G, b.cv_dgb), rd,
+                  B, T, D, d.ksize, d.causal, st));
+  TRY(ada_grad(r0, G + b.cv_da, S + L.x2, 2, r1, lens));
+  TRY(round_bf16(r1, (long long)MD, st));
+
+  // LN2, FFN1: r0 = ds2, r1 = dx1
+  TRY(ln_bwd_bf(r1, S + L.xhat[1], S + L.rstd[1], w.lnw, g.dlnw, 1, nullptr,
+                r0, M, D, nullptr, T, rd, st));
+  TRY(ffn_bwd_bf(r0, rows(L.a1), S + L.z0, rows(L.h0), w.ffw1, w.ffw2,
+                 g.dffw1, g.dffb1, g.dffw2, g.dvecb + 4 * D, ffn_tmp(G, b),
+                 nullptr, t1, rd, M, D, F, T, 1.f,
+                 drop(kSiteFfn1Hidden), drop(kSiteFfn1Out), st));
+  TRY(ada_grad(r0, t1, S + L.x1, 1, r1, nullptr));
+
+  // LN1, attention (its input grad into t1): dx = ds1 + that grad through
+  // ada0
+  TRY(ln_bwd_bf(r1, S + L.xhat[0], S + L.rstd[0], w.lnw, g.dlnw, 0, nullptr,
+                r0, M, D, nullptr, T, rd, st));
+  float* ta[6] = {t0, t1, G + b.at_t[0], G + b.at_t[1], G + b.at_t[2],
+                  G + b.at_t[3]};
+  TRY(att_bwd_bf(r0, rows(L.xa), w.attw, w.posp, att_bufs_bf(S, L),
+                 make_drop(seeds, d.layer, kSiteAttProb, d.att_thresh,
+                           d.att_keep_scale, d.row0),
+                 drop(kSiteAttOut), g.dattw, g.dvecb, g.dposb, g.dposp,
+                 nullptr, t1, ta, G + b.at_dP, att_tmp(G, b), rd, B, T,
+                 D, H, st));
+  TRY(ada_grad(r0, t1, S + L.x0, 0, r1, nullptr));
+  return convert(r1, dx, (long long)MD, st);
 }
 
 }  // namespace
 
 extern "C" size_t masr_sq_layer_train_saved_floats(int B, int T, int D,
                                                    int F, int H, int bf) {
-  return saved_layout(B, T, D, F, H, bf != 0).total;
+  return bf ? saved_layout_bf(B, T, D, F, H).total
+            : saved_layout(B, T, D, F, H).total;
 }
 
 extern "C" size_t masr_sq_layer_train_scratch_floats(int B, int T, int D,
                                                      int F, int H, int bf) {
-  return scratch_layout(B, T, D, F, H, bf != 0).total;
+  return bf ? scratch_layout_bf(B, T, D, F, H).total
+            : scratch_layout(B, T, D, F, H).total;
 }
 
 // Packed weights as ops/cuda/squeezeformer_layer.py pack_sq_layer_params of
@@ -457,9 +622,8 @@ extern "C" int masr_sq_layer_train_forward(
     return (int)cudaErrorInvalidValue;
   const Weights w = {posp, lnw,  ada,  cnw,  attw, vecb, posb,
                      ffw1, ffb1, ffw2, pw1w, pw1b, pw2w, dww};
-  MASR_CHECK(forward_rows<float>(
-      x, saved, saved_layout(B, T, D, F, H, false), mask, seeds, lens, w,
-      out,
+  MASR_CHECK(forward_rows(
+      x, saved, saved_layout(B, T, D, F, H), mask, seeds, lens, w, out,
       make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
                 keep_scale, att_thresh, att_keep_scale),
       eps, conv_eps, st));
@@ -469,7 +633,8 @@ extern "C" int masr_sq_layer_train_forward(
 // The bf16 mode (the header): x, posp, out and attw, ffw1, ffw2, pw1w,
 // pw2w bf16; ada (4,2,D), the four adaptive scales unfolded (the pack of
 // pack_sq_layer_params(layer, torch.bfloat16)), attw and ffw1 unscaled;
-// the other arrays f32, as the f32 entry. saved:
+// the other arrays f32, as the f32 entry (any D, n_head and F it takes).
+// saved:
 // masr_sq_layer_train_saved_floats(.., 1) floats.
 extern "C" int masr_sq_layer_train_forward_bf16(
     const bf16_t* x, const unsigned char* mask, const int* seeds,
@@ -486,22 +651,10 @@ extern "C" int masr_sq_layer_train_forward_bf16(
   if (M == 0) return (int)cudaGetLastError();
   if ((D / H) * H != D || (!causal && ksize % 2 == 0))
     return (int)cudaErrorInvalidValue;
-  const Saved L = saved_layout(B, T, D, F, H, true);
-  const size_t MD = (size_t)M * D, DF = (size_t)D * F, DD = (size_t)D * D;
-  float* S = saved;
-  MASR_CHECK(convert(x, S + L.x0, (long long)MD, st));
-  MASR_CHECK(convert(attw, S + L.w.attw, (long long)(4 * DD), st));
-  MASR_CHECK(convert(ffw1, S + L.w.ffw1, (long long)(2 * DF), st));
-  MASR_CHECK(convert(ffw2, S + L.w.ffw2, (long long)(2 * DF), st));
-  MASR_CHECK(convert(pw1w, S + L.w.pw1w, (long long)(2 * DD), st));
-  MASR_CHECK(convert(pw2w, S + L.w.pw2w, (long long)DD, st));
-  MASR_CHECK(convert(posp, S + L.w.posp, (long long)T * D, st));
-  const Weights w = {S + L.w.posp, lnw,  ada,          cnw,
-                     S + L.w.attw, vecb, posb,         S + L.w.ffw1,
-                     ffb1,         S + L.w.ffw2,       S + L.w.pw1w,
-                     pw1b,         S + L.w.pw2w,       dww};
-  MASR_CHECK(forward_rows<bf16_t>(
-      S + L.x0, S, L, mask, seeds, lens, w, out,
+  const WeightsB w = {posp, attw, ffw1, ffw2, pw1w, pw2w, lnw,
+                      ada,  cnw,  vecb, posb, ffb1, pw1b, dww};
+  MASR_CHECK(forward_rows_bf(
+      x, saved, saved_layout_bf(B, T, D, F, H), mask, seeds, lens, w, out,
       make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
                 keep_scale, att_thresh, att_keep_scale),
       eps, conv_eps, st));
@@ -533,9 +686,9 @@ extern "C" int masr_sq_layer_train_backward(
                      ffw1, nullptr, ffw2, pw1w, pw1b, pw2w,    dww};
   const Grads g = {dposp, dlnw,  dada,  dcnw,  dattw, dvecb, dposb,
                    dffw1, dffb1, dffw2, dpw1w, dpw1b, dpw2w, ddww};
-  MASR_CHECK(backward_rows<float>(
-      dy, x, saved, saved_layout(B, T, D, F, H, false), scratch,
-      scratch_layout(B, T, D, F, H, false), seeds, lens, w, g, dx,
+  MASR_CHECK(backward_rows(
+      dy, x, saved, saved_layout(B, T, D, F, H), scratch,
+      scratch_layout(B, T, D, F, H), seeds, lens, w, g, dx,
       make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
                 keep_scale, att_thresh, att_keep_scale),
       st));
@@ -545,8 +698,8 @@ extern "C" int masr_sq_layer_train_backward(
 // The bf16 mode's backward: dy, dx, dposp and the grads of attw, ffw1,
 // ffw2, pw1w, pw2w bf16 (each rounded once from its f32 sum), dada (4,2,D)
 // and the other grads f32. The product weights, posp and x are read from
-// `saved`; lnw, ada, cnw, pw1b and dww are the f32 arrays. scratch:
-// masr_sq_layer_train_scratch_floats(.., 1) floats.
+// `saved` (the forward copied them); lnw, ada, cnw, pw1b and dww are the
+// f32 arrays. scratch: masr_sq_layer_train_scratch_floats(.., 1) floats.
 extern "C" int masr_sq_layer_train_backward_bf16(
     const bf16_t* dy, const int* seeds, const int* lens, const float* lnw,
     const float* ada, const float* cnw, const float* pw1b, const float* dww,
@@ -562,30 +715,22 @@ extern "C" int masr_sq_layer_train_backward_bf16(
   if (M == 0) return (int)cudaGetLastError();
   if ((D / H) * H != D || (!causal && ksize % 2 == 0))
     return (int)cudaErrorInvalidValue;
-  const Saved L = saved_layout(B, T, D, F, H, true);
-  const Scratch W = scratch_layout(B, T, D, F, H, true);
-  const size_t MD = (size_t)M * D, DF = (size_t)D * F, DD = (size_t)D * D;
-  float *S = saved, *G = scratch;
-  MASR_CHECK(convert(dy, G + W.dyw, (long long)MD, st));
-  const Weights w = {S + L.w.posp, lnw,     ada,          cnw,
-                     S + L.w.attw, nullptr, nullptr,      S + L.w.ffw1,
-                     nullptr,      S + L.w.ffw2, S + L.w.pw1w, pw1b,
-                     S + L.w.pw2w, dww};
-  const Grads g = {G + W.gw.posp, dlnw,  dada,          dcnw,
-                   G + W.gw.attw, dvecb, dposb,         G + W.gw.ffw1,
-                   dffb1,         G + W.gw.ffw2,        G + W.gw.pw1w,
-                   dpw1b,         G + W.gw.pw2w,        ddww};
-  MASR_CHECK(backward_rows<bf16_t>(
-      G + W.dyw, S + L.x0, S, L, scratch, W, seeds, lens, w, g, G + W.dxf,
+  const SavedBf L = saved_layout_bf(B, T, D, F, H);
+  float* S = saved;
+  const WeightsB w = {at<bf16_t>(S, L.w.posp), at<bf16_t>(S, L.w.attw),
+                      at<bf16_t>(S, L.w.ffw1), at<bf16_t>(S, L.w.ffw2),
+                      at<bf16_t>(S, L.w.pw1w), at<bf16_t>(S, L.w.pw2w),
+                      lnw,                     ada,
+                      cnw,                     nullptr,
+                      nullptr,                 nullptr,
+                      pw1b,                    dww};
+  const GradsB g = {dposp, dattw, dffw1, dffw2, dpw1w, dpw2w, dlnw,
+                    dada,  dcnw,  dvecb, dposb, dffb1, dpw1b, ddww};
+  MASR_CHECK(backward_rows_bf(
+      dy, S, L, scratch, scratch_layout_bf(B, T, D, F, H), seeds, lens, w, g,
+      dx,
       make_dims(B, T, D, F, H, ksize, causal, layer, row0, thresh,
                 keep_scale, att_thresh, att_keep_scale),
       st));
-  MASR_CHECK(convert(G + W.dxf, dx, (long long)MD, st));
-  MASR_CHECK(convert(G + W.gw.posp, dposp, (long long)T * D, st));
-  MASR_CHECK(convert(G + W.gw.attw, dattw, (long long)(4 * DD), st));
-  MASR_CHECK(convert(G + W.gw.ffw1, dffw1, (long long)(2 * DF), st));
-  MASR_CHECK(convert(G + W.gw.ffw2, dffw2, (long long)(2 * DF), st));
-  MASR_CHECK(convert(G + W.gw.pw1w, dpw1w, (long long)(2 * DD), st));
-  MASR_CHECK(convert(G + W.gw.pw2w, dpw2w, (long long)DD, st));
   return (int)cudaGetLastError();
 }

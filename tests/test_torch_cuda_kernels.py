@@ -1922,6 +1922,346 @@ def test_train_layers_bf16_dtype_refusals(cuda_device):
 
 
 # --------------------------------------------------------------------------- #
+# the bf16 training layers' product (csrc/train_wgmma.cuh) on its own
+# --------------------------------------------------------------------------- #
+def _bf16_rows(shape, g, device, scale=1.0):
+    return (scale * torch.randn(*shape, generator=g)).to(device,
+                                                         torch.bfloat16)
+
+
+def _heads(x, B, T, H):
+    """(B, T, D) rows → the (B, H, T, d_k) head view the attention's
+    batched products read (strided, no copy)."""
+    return x.view(B, T, H, -1).permute(0, 2, 1, 3)
+
+
+def _check_product(got, want, absref, bf16=False):
+    """got vs want: f32 sums of the same exact bf16 products in another
+    order (1e-4 of sum |a||b|), plus one bf16 rounding of the value for a
+    bf16 output."""
+    tol = 1e-4 * absref + 1e-6
+    if bf16:
+        tol = tol + 2.0 ** -8 * want.abs()
+    err = (got.float() - want).abs()
+    assert bool((err <= tol).all()), (err.max().item(),
+                                      (err - tol).max().item())
+
+
+def _absref(a, b, ta, tb):
+    A = a.float().abs()
+    B = b.float().abs()
+    return (A.transpose(-1, -2) if ta else A) @ (B.transpose(-1, -2) if tb
+                                                else B)
+
+
+# (name, M, N, K, ta, tb, split): the layers' product kinds at ragged and
+# full shapes: mm_nn (forward, N = F and D), mm_nt (input grads), mm_tn
+# (weight grads, K = B*T' split over K, or one slice)
+PRODUCT_SHAPES = [("nn_ragged", 135, 96, 40, False, False, False),
+                  ("nn_w1", 2392, 2048, 256, False, False, False),
+                  ("nn_w2", 2392, 256, 2048, False, False, False),
+                  ("nt_ragged", 135, 72, 64, False, True, False),
+                  ("nt_dz", 2392, 2048, 256, False, True, False),
+                  ("tn_split", 256, 512, 2392, True, False, True),
+                  ("tn_split_ragged", 64, 256, 135, True, False, True),
+                  ("tn_one_slice", 96, 64, 200, True, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PRODUCT_SHAPES, ids=lambda s: s[0])
+def test_train_product_matches_plain(cuda_device, shape):
+    """train_product_bf16 (TMA tiles, wgmma) == its plain twin (bf16
+    operands, f32 sums) within _check_product, into f32 and bf16 outputs,
+    over transposed operands, ragged M / N / K and split-K; one launch a
+    call."""
+    from masr_tpu_torch.ops.cuda import train_product as tp
+    _, M, N, K, ta, tb, split = shape
+    g = torch.Generator().manual_seed(M + N + K)
+    a = _bf16_rows((K, M) if ta else (M, K), g, cuda_device)
+    b = _bf16_rows((N, K) if tb else (K, N), g, cuda_device)
+    want = tp.train_product_plain(a, b, ta=ta, tb=tb)[0]
+    absref = _absref(a, b, ta, tb)
+    for kind in ("f32", "bf16"):
+        out = torch.full((M, N), float("nan"), device=cuda_device)
+        out_b = out.to(torch.bfloat16)
+        before = tp.train_product_bf16.launches
+        tp.train_product_bf16(a, b, ta=ta, tb=tb, split=split,
+                              out=out if kind == "f32" else None,
+                              out_bf16=out_b if kind == "bf16" else None)
+        torch.cuda.synchronize()
+        assert tp.train_product_bf16.launches == before + 1
+        _check_product(out if kind == "f32" else out_b, want, absref,
+                       bf16=kind == "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,dk", [(45, 16), (150, 16), (299, 16), (45, 36)])
+def test_train_product_attention_batches(cuda_device, T, dk):
+    """The attention's batched products as att_fwd_bf / att_bwd_bf lay
+    them out, at rows whose stride is not a multiple of 16 bytes in f32
+    (T' = 45, 150, 299; the bf16 probabilities padded to 8) and at a head
+    width of 36 (head slices 72 bytes apart, which TMA cannot step): the
+    scores (q+u).k^T into (h, B, T, T) rows, (q+v).posp^T with posp
+    shared across utterances and R = the scores, P.v from padded rows
+    into the (B, T, D) head slices, Pd^T.dO, dS.k, dS^T.q and dposp (per
+    head over K = B*T', split) against the plain twin."""
+    from masr_tpu_torch.ops.cuda import train_product as tp
+    B, H = 3, 4
+    D, Tp = H * dk, (T + 7) // 8 * 8
+    g = torch.Generator().manual_seed(T)
+    q, k, v, dO = (_bf16_rows((B, T, D), g, cuda_device) for _ in range(4))
+    posp = _bf16_rows((T, D), g, cuda_device)
+    pad = _bf16_rows((H, B, T, Tp), g, cuda_device)
+    P = pad[..., :T].permute(1, 0, 2, 3)            # (B, H, T, T) view
+    qh, kh, vh, dOh = (_heads(x, B, T, H) for x in (q, k, v, dO))
+    ph = _heads(posp[None], 1, T, H).expand(B, H, T, dk)
+    scores = torch.empty(H, B, T, T, device=cuda_device)
+    sv = scores.permute(1, 0, 2, 3)
+    scale = dk ** -0.5
+    tp.train_product_bf16(qh, kh, tb=True, out=sv, alpha=scale)
+    want = tp.train_product_plain(qh, kh, tb=True, alpha=scale)[0]
+    _check_product(sv, want, scale * _absref(qh, kh, False, True))
+    tp.train_product_bf16(qh, ph, tb=True, out=sv, alpha=scale, R=sv)
+    want = want + tp.train_product_plain(qh, ph, tb=True, alpha=scale)[0]
+    _check_product(sv, want, scale * (_absref(qh, kh, False, True) +
+                                      _absref(qh, ph, False, True)))
+    for a, b, ta, kind in ((P, vh, False, "P.v"), (P, dOh, True, "Pd^T.dO"),
+                           (P, kh, False, "dS.k"), (P, qh, True, "dS^T.q")):
+        o = torch.empty(B, T, D, device=cuda_device)
+        ob = torch.empty(B, T, D, device=cuda_device, dtype=torch.bfloat16)
+        oh, obh = _heads(o, B, T, H), _heads(ob, B, T, H)
+        tp.train_product_bf16(a, b, ta=ta, out=oh, out_bf16=obh)
+        want = tp.train_product_plain(a, b, ta=ta)[0]
+        absref = _absref(a, b, ta, False)
+        _check_product(oh, want, absref)
+        _check_product(obh, want, absref, bf16=True)
+    # dposp[:, head h] = sum over b of dS[h, b]^T . (q+v)[b, :, head h]
+    dS = pad[..., :T].reshape(H, B * T, T)
+    qv = q.view(B * T, H, dk).permute(1, 0, 2)
+    dposp = torch.empty(T, D, device=cuda_device, dtype=torch.bfloat16)
+    dh = dposp.view(T, H, dk).permute(1, 0, 2)
+    tp.train_product_bf16(dS, qv, ta=True, split=True, out_bf16=dh)
+    want = tp.train_product_plain(dS, qv, ta=True)[0]
+    _check_product(dh, want, _absref(dS, qv, True, False), bf16=True)
+
+
+def _unaligned(shape, g, device, pad=3, shift=0):
+    """A bf16 (..., rows, inner) operand whose row stride (inner + pad) is
+    not a multiple of 8 elements, starting `shift` elements into its
+    storage: a layout TMA cannot read."""
+    *lead, rows, inner = shape
+    n = 1
+    for d in lead:
+        n *= d
+    buf = _bf16_rows((n * rows * (inner + pad) + shift,), g, device)
+    return buf[shift:].view(*lead, rows, inner + pad)[..., :inner]
+
+
+# (name, M, N, K, ta, tb, split, which operands TMA cannot read)
+UNALIGNED_PRODUCTS = [("nn_both", 135, 96, 40, False, False, False, "ab"),
+                      ("nt_a", 135, 72, 64, False, True, False, "a"),
+                      ("tn_b", 96, 64, 200, True, False, False, "b"),
+                      ("tn_split_both", 64, 256, 1199, True, False, True,
+                       "ab"),
+                      ("nn_shifted_base", 200, 136, 72, False, False, False,
+                       "shift")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", UNALIGNED_PRODUCTS, ids=lambda s: s[0])
+def test_train_product_unaligned_operands(cuda_device, shape):
+    """Operands TMA cannot read (a row stride not a multiple of 16 bytes,
+    a base not 16-byte aligned) go through the producer warp's lanes into
+    the same swizzled tiles: train_product_bf16 == its plain twin within
+    _check_product, alone or beside a TMA operand, with split-K; the bits
+    equal those of the same values in aligned storage."""
+    from masr_tpu_torch.ops.cuda import train_product as tp
+    _, M, N, K, ta, tb, split, which = shape
+    g = torch.Generator().manual_seed(M * 7 + K)
+    sa, sb = (K, M) if ta else (M, K), (N, K) if tb else (K, N)
+    if which == "shift":
+        a = _unaligned(sa, g, cuda_device, pad=0, shift=1)
+        b = _unaligned(sb, g, cuda_device, pad=0, shift=3)
+    else:
+        a = (_unaligned(sa, g, cuda_device) if "a" in which
+             else _bf16_rows(sa, g, cuda_device))
+        b = (_unaligned(sb, g, cuda_device) if "b" in which
+             else _bf16_rows(sb, g, cuda_device))
+    want = tp.train_product_plain(a, b, ta=ta, tb=tb)[0]
+    got = torch.empty(M, N, device=cuda_device)
+    aligned = torch.empty(M, N, device=cuda_device)
+    tp.train_product_bf16(a, b, ta=ta, tb=tb, split=split, out=got)
+    tp.train_product_bf16(a.contiguous(), b.contiguous(), ta=ta, tb=tb,
+                          split=split, out=aligned)
+    torch.cuda.synchronize()
+    _check_product(got, want, _absref(a, b, ta, tb))
+    assert torch.equal(got, aligned)
+
+
+# (name, epilogue keywords): each of Epi's modes on its own
+EPILOGUES = ["bias", "silu_pre", "dsilu", "dropout", "row_mask",
+             "residual_in_place", "round"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", EPILOGUES)
+def test_train_product_epilogues(cuda_device, mode):
+    """train_product_bf16's epilogue (training.cuh's Epi element for
+    element) == the plain twin's in each mode: bias, SiLU saving the
+    pre-activation, x dSiLU(aux), the dropout hash (rate 0.1), the row
+    mask of lens, R + scale v with R the output itself, the output
+    rounded to bf16 values; f32 and bf16 outputs."""
+    from masr_tpu_torch.ops.cuda import train_product as tp
+    B, T, K, N = 3, 45, 64, 96
+    M = B * T
+    g = torch.Generator().manual_seed(len(mode))
+    a = _bf16_rows((M, K), g, cuda_device)
+    w = _bf16_rows((K, N), g, cuda_device, 0.2)
+    kw = {"T": T}
+    out = torch.zeros(M, N, device=cuda_device)
+    pre = None
+    if mode == "bias":
+        kw["bias"] = torch.randn(N, generator=g).to(cuda_device)
+    elif mode == "silu_pre":
+        kw.update(bias=torch.randn(N, generator=g).to(cuda_device), act=1)
+        pre = torch.zeros(M, N, device=cuda_device)
+    elif mode == "dsilu":
+        kw.update(act=2, aux=torch.randn(M, N, generator=g).to(cuda_device))
+    elif mode == "dropout":
+        kw.update(seeds=torch.randint(-2 ** 31, 2 ** 31 - 1, (B,),
+                                      generator=g, dtype=torch.int32)
+                  .to(cuda_device), layer=3, site=5, rate=0.1, row0=2)
+    elif mode == "row_mask":
+        kw["lens"] = torch.tensor([45, 17, 0], dtype=torch.int32,
+                                  device=cuda_device)
+    elif mode == "residual_in_place":
+        out = torch.randn(M, N, generator=g).to(cuda_device)
+        kw.update(R=out, res_scale=0.5)
+    else:
+        kw["round_c"] = True
+    want, want_pre = tp.train_product_plain(a, w, **kw)
+    absref = _absref(a, w, False, False)
+    if mode == "dsilu":
+        absref = absref * 1.1
+    out_b = torch.empty(M, N, device=cuda_device, dtype=torch.bfloat16)
+    tp.train_product_bf16(a, w, out=out, out_bf16=out_b, pre=pre, **kw)
+    torch.cuda.synchronize()
+    _check_product(out, want, absref)
+    _check_product(out_b, want, absref, bf16=True)
+    if pre is not None:
+        _check_product(pre, want_pre, absref)
+    if mode == "round":
+        assert torch.equal(out, out.to(torch.bfloat16).float())
+
+
+# (d_model, heads, ffn): widths whose bf16 rows TMA cannot step: a head
+# width of 36 (72-byte head slices), and D, d_k and F none of them a
+# multiple of 8 (rows and weight halves not 16-byte aligned)
+UNALIGNED_TRAIN_WIDTHS = [(144, 4, 576), (100, 4, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["conformer", "squeezeformer"])
+@pytest.mark.parametrize("width", UNALIGNED_TRAIN_WIDTHS,
+                         ids=lambda w: f"D{w[0]}H{w[1]}F{w[2]}")
+def test_train_layers_bf16_unaligned_widths(cuda_device, width, family):
+    """Rows 3 and 7's bf16 modes take every width their f32 modes take:
+    at d_k = 36 (D = 144, h = 4) and at D = 100, F = 300, with dropout,
+    the output, dx, dposp and every grad == the bf16 twin's within
+    _assert_bf16_train_close; one forward and one backward launch."""
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    from masr_tpu_torch.ops.cuda.squeezeformer_layer import \
+        pack_sq_layer_params
+    D, H, FF = width
+    K, T, lens = 7, 45, [45, 36, 0]
+    B = len(lens)
+    if family == "conformer":
+        layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                      causal=True)
+        layer.load_state_dict(seeded_state_dict(layer, seed=D + 5))
+        layer = layer.to(cuda_device)
+        fn, plain = (clt.fused_conformer_layer_train,
+                     clt.fused_conformer_layer_train_plain)
+        with torch.no_grad():
+            packed = cl.pack_layer_params(layer, torch.bfloat16)
+    else:
+        layer = _sq_layer(D, H, FF, K, True, "layer_norm", D + 6,
+                          cuda_device)
+        fn, plain = (sqt.fused_squeezeformer_layer_train,
+                     sqt.fused_squeezeformer_layer_train_plain)
+        with torch.no_grad():
+            packed = pack_sq_layer_params(layer, torch.bfloat16)
+    g = torch.Generator().manual_seed(D + 1)
+    x = torch.randn(B, T, D, generator=g).to(cuda_device, torch.bfloat16)
+    w = torch.randn(B, T, D, generator=g).to(cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+    with torch.no_grad():
+        posp = torch.nn.functional.linear(
+            sinusoid_position_encoding(torch.arange(T, device=cuda_device),
+                                       D).to(torch.bfloat16),
+            layer.self_attn.linear_pos.weight.to(torch.bfloat16))
+    _check_train_bf16(
+        fn, plain,
+        (x, _train_mask(T, lens_t, cuda_device), seeds, lens_t, posp, packed,
+         w),
+        dict(layer=2, n_head=H, ksize=K, causal=True, rate=0.1,
+             att_rate=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["conformer", "squeezeformer"])
+def test_train_layers_bf16_launch_list(cuda_device, family):
+    """One bf16 forward + backward of row 3 or row 7 launches the wgmma
+    product (tw_gemm_kernel) and never common.cuh's gemm_tc_kernel, and
+    widens no bf16 weight: the only bf16 → f32 conversions are x's and
+    dy's (profiler kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+    from masr_tpu_torch.ops.cuda import conformer_layer_train as clt
+    from masr_tpu_torch.ops.cuda import squeezeformer_layer_train as sqt
+    from masr_tpu_torch.ops.cuda.squeezeformer_layer import \
+        pack_sq_layer_params
+    D, H, FF, K, T, lens = 64, 4, 256, 7, 45, [45, 36, 0]
+    B = len(lens)
+    if family == "conformer":
+        layer = ConformerEncoderLayer(D, H, FF, cnn_module_kernel=K,
+                                      causal=True).to(cuda_device)
+        fn, pack = clt.fused_conformer_layer_train, cl.pack_layer_params
+    else:
+        layer = _sq_layer(D, H, FF, K, True, "layer_norm", 5, cuda_device)
+        fn, pack = sqt.fused_squeezeformer_layer_train, pack_sq_layer_params
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    mask = _train_mask(T, lens_t, cuda_device)
+    seeds = torch.zeros(B, dtype=torch.int32, device=cuda_device)
+    x = torch.randn(B, T, D, device=cuda_device).to(torch.bfloat16)
+    x.requires_grad_(True)
+    with torch.no_grad():
+        posp = torch.randn(T, D, device=cuda_device).to(torch.bfloat16)
+        packed = pack(layer, torch.bfloat16)
+    packed = {k: v.requires_grad_(True) for k, v in packed.items()}
+
+    def run():
+        y = fn(x, mask, seeds, lens_t, posp, packed, layer=0, n_head=H,
+               ksize=K, causal=True, rate=0.1, att_rate=0.1)
+        y.float().sum().backward()
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert any("tw_gemm_kernel" in n for n in names), names
+    assert not any("gemm_tc_kernel" in n for n in names), names
+    widen = sum(c for n, c in counts.items()
+                if "convert_kernel<unsigned short, float>" in n)
+    assert widen == 2, (widen, names)
+
+
+# --------------------------------------------------------------------------- #
 # the user tools and the GUI controller on the card
 # --------------------------------------------------------------------------- #
 EXAMPLE = "examples/tiny_zh_synth/inference_model"
